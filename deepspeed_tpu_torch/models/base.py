@@ -1,0 +1,123 @@
+"""Model config and registry (counterpart of ``deepspeed_tpu/models/base.py``).
+
+``ModelConfig`` keeps the JAX package's field names and defaults, so one
+preset describes the same architecture in both packages;
+``param_dtype`` is a ``torch.dtype``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    num_kv_heads: int | None = None  # None -> MHA
+    max_seq_len: int = 1024
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = True
+    lm_head_bias: bool = False      # Phi / GPT-J biased vocab projection
+    # architecture switches
+    norm_type: str = "layernorm"        # layernorm | rmsnorm
+    activation: str = "gelu"            # gelu | relu | swiglu
+    position_embedding: str = "learned"  # learned | rope | alibi (Bloom)
+    use_bias: bool = True
+    attn_qkv_bias: bool = False     # qkv biases even when use_bias=False
+    mlp_bias: bool | None = None    # None -> use_bias
+    parallel_residual: bool = False  # Falcon/Phi-2: x + attn(h) + mlp(h)
+    parallel_dual_norm: bool = False  # GPT-NeoX: parallel, two norms
+    embed_layernorm: bool = False   # Bloom: LayerNorm after word embed
+    rotary_pct: float = 1.0         # partial rotary (GPT-NeoX/Phi-2)
+    sliding_window: int | None = None  # Mistral windowed attention
+    # MoE (0 experts = dense)
+    num_experts: int = 0
+    moe_num_shared_experts: int = 0
+    moe_top_k: int = 2
+    moe_norm_topk: bool = True
+    capacity_factor: float = 1.25
+    min_capacity: int = 4
+    router_aux_loss_coef: float = 0.01
+    # numerics
+    param_dtype: Any = None   # torch.float32 when None
+    loss_chunk: int = 0
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
+    attn_impl: str = "reference"  # reference | flash
+
+    def __post_init__(self):
+        if self.param_dtype is None:
+            self.param_dtype = torch.float32
+        if self.num_kv_heads is None:
+            self.num_kv_heads = self.num_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def effective_mlp_bias(self) -> bool:
+        """mlp_bias falls back to use_bias — the single source of truth
+        for init / forward / num_params (GPT-J splits them)."""
+        return self.use_bias if self.mlp_bias is None else self.mlp_bias
+
+    def num_params(self) -> int:
+        """Analytic parameter count (embedding + layers + final norm),
+        matching the parameters DecoderLM creates exactly."""
+        d, f, v, L = (self.hidden_size, self.intermediate_size,
+                      self.vocab_size, self.num_layers)
+        nh_d = self.num_heads * self.head_dim
+        kv = self.num_kv_heads * self.head_dim
+        attn = d * nh_d + 2 * d * kv + nh_d * d  # wq, wk, wv, wo
+        mlp = 3 * d * f if self.activation == "swiglu" else 2 * d * f
+        if self.num_experts > 0:
+            mlp = mlp * self.num_experts + d * self.num_experts  # + gate
+            if self.moe_num_shared_experts > 0:
+                mlp += 3 * d * f * self.moe_num_shared_experts + d
+        n_norms = (1 if self.parallel_residual
+                   and not self.parallel_dual_norm else 2)
+        mlp_bias = self.effective_mlp_bias
+        per_layer = attn + mlp + n_norms * d  # + ln scales
+        if self.use_bias or self.attn_qkv_bias:
+            per_layer += nh_d + 2 * kv      # qkv biases
+        if self.use_bias:
+            per_layer += d                  # wo bias
+        if mlp_bias:
+            per_layer += f + d              # w_up_b, w_down_b
+            if self.activation == "swiglu":
+                per_layer += f              # w_gate_b
+        if self.norm_type == "layernorm":
+            per_layer += n_norms * d        # ln biases
+        embed = v * d + (0 if self.tie_embeddings else v * d)
+        if not self.tie_embeddings and self.lm_head_bias:
+            embed += v
+        if self.embed_layernorm:
+            embed += 2 * d
+        pos = self.max_seq_len * d if self.position_embedding == "learned" else 0
+        final_norm = d + (d if self.norm_type == "layernorm" else 0)
+        return embed + pos + L * per_layer + final_norm
+
+
+_MODEL_REGISTRY: dict[str, Callable[..., Any]] = {}
+
+
+def register_model(name: str):
+    def deco(cls):
+        _MODEL_REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def get_model_class(name: str):
+    if name not in _MODEL_REGISTRY:
+        raise KeyError(
+            f"unknown model {name!r}; available: {sorted(_MODEL_REGISTRY)}")
+    return _MODEL_REGISTRY[name]

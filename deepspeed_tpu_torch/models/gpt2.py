@@ -1,0 +1,40 @@
+"""GPT-2 family presets (counterpart of ``deepspeed_tpu/models/gpt2.py``)."""
+
+from __future__ import annotations
+
+from .base import ModelConfig, register_model
+from .transformer import DecoderLM
+
+
+def gpt2_config(size: str = "125m", **overrides) -> ModelConfig:
+    presets = {
+        "tiny": dict(hidden_size=64, num_layers=2, num_heads=4,
+                     intermediate_size=256, vocab_size=512, max_seq_len=128),
+        "125m": dict(hidden_size=768, num_layers=12, num_heads=12,
+                     intermediate_size=3072, vocab_size=50257,
+                     max_seq_len=1024),
+        "350m": dict(hidden_size=1024, num_layers=24, num_heads=16,
+                     intermediate_size=4096, vocab_size=50257,
+                     max_seq_len=1024),
+        "1.3b": dict(hidden_size=2048, num_layers=24, num_heads=32,
+                     intermediate_size=8192, vocab_size=50257,
+                     max_seq_len=1024),
+    }
+    base = dict(norm_type="layernorm", activation="gelu",
+                position_embedding="learned", use_bias=True,
+                tie_embeddings=True)
+    base.update(presets[size])
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+@register_model("gpt2")
+class GPT2(DecoderLM):
+    def __init__(self, config: ModelConfig | None = None,
+                 size: str | None = None, *, device=None, dtype=None,
+                 **overrides):
+        if config is not None and (size is not None or overrides):
+            raise ValueError(
+                "pass either an explicit config or size/overrides, not both")
+        super().__init__(config or gpt2_config(size or "125m", **overrides),
+                         device=device, dtype=dtype)

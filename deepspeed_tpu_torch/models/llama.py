@@ -1,0 +1,50 @@
+"""Llama family presets (counterpart of ``deepspeed_tpu/models/llama.py``)."""
+
+from __future__ import annotations
+
+from .base import ModelConfig, register_model
+from .transformer import DecoderLM
+
+
+def llama_config(size: str = "7b", **overrides) -> ModelConfig:
+    presets = {
+        "tiny": dict(hidden_size=64, num_layers=2, num_heads=4,
+                     num_kv_heads=2, intermediate_size=128, vocab_size=512,
+                     max_seq_len=128),
+        "7b": dict(hidden_size=4096, num_layers=32, num_heads=32,
+                   num_kv_heads=32, intermediate_size=11008,
+                   vocab_size=32000, max_seq_len=4096),
+        "13b": dict(hidden_size=5120, num_layers=40, num_heads=40,
+                    num_kv_heads=40, intermediate_size=13824,
+                    vocab_size=32000, max_seq_len=4096),
+        "70b": dict(hidden_size=8192, num_layers=80, num_heads=64,
+                    num_kv_heads=8, intermediate_size=28672,
+                    vocab_size=32000, max_seq_len=4096),
+        # Llama-3 generation: GQA everywhere, 128k vocab, theta 500k
+        "3-8b": dict(hidden_size=4096, num_layers=32, num_heads=32,
+                     num_kv_heads=8, intermediate_size=14336,
+                     vocab_size=128256, max_seq_len=8192,
+                     rope_theta=500000.0),
+        "3-70b": dict(hidden_size=8192, num_layers=80, num_heads=64,
+                      num_kv_heads=8, intermediate_size=28672,
+                      vocab_size=128256, max_seq_len=8192,
+                      rope_theta=500000.0),
+    }
+    base = dict(norm_type="rmsnorm", activation="swiglu",
+                position_embedding="rope", use_bias=False,
+                tie_embeddings=False, norm_eps=1e-5)
+    base.update(presets[size])
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+@register_model("llama")
+class Llama(DecoderLM):
+    def __init__(self, config: ModelConfig | None = None,
+                 size: str | None = None, *, device=None, dtype=None,
+                 **overrides):
+        if config is not None and (size is not None or overrides):
+            raise ValueError(
+                "pass either an explicit config or size/overrides, not both")
+        super().__init__(config or llama_config(size or "7b", **overrides),
+                         device=device, dtype=dtype)

@@ -1,0 +1,45 @@
+"""Rules of the PyTorch port (deepspeed_tpu_torch): it imports neither jax
+nor anything of the JAX package, and its entry points run on the card
+unless the caller asks for the CPU."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.inference.v2 import build_engine
+
+PKG = pathlib.Path(deepspeed_tpu_torch.__file__).parent
+
+
+def test_import_pulls_in_no_jax_and_no_jax_package():
+    code = ("import sys, deepspeed_tpu_torch.inference.v2, "
+            "deepspeed_tpu_torch.models\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'pydantic', "
+            "'deepspeed_tpu'))\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=120,
+                         cwd=str(PKG.parent))
+    assert out.stdout.strip() == ""
+
+
+def test_sources_import_no_jax_and_no_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|"
+                         r"pydantic|deepspeed_tpu)(\.|\s|$)", re.M)
+    hits = [str(p.relative_to(PKG)) for p in PKG.rglob("*.py")
+            if pattern.search(p.read_text())]
+    assert hits == []
+
+
+def test_entry_point_without_device_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine("llama", "tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine("llama", "tiny", device="cuda")
