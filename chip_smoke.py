@@ -5,25 +5,37 @@
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: every CUDA kernel of the serving path, from csrc/, with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (Llama-3-8B head layout), timed beside its plain
-     version, a PyTorch library call computing the same function, and the
-     card's least time for the work (its bound);
-  4. the main path at full width: build_engine("llama", "3-8b") with
-     random seeded weights serves 8 requests x 32 tokens through
+  2. build: every CUDA kernel of the serving and training paths, from
+     csrc/, one nvcc per source, all started together;
+  3. each kernel against its plain PyTorch version on the card (paged
+     attention at the serving path's shapes; flash attention forward and
+     backward and fused Adam over a spread of cases), then timed at the
+     main paths' shapes beside its plain version, a PyTorch library call
+     computing the same function, and the card's least time for the work
+     (its bound);
+  4. the serving main path at full width: build_engine("llama", "3-8b")
+     with random seeded weights serves 8 requests x 32 tokens through
      generate(); every layer of every tick must launch the kernel;
-  5. the main path with the kernel against the main path with the plain
-     attention: one prefill chunk and two teacher-forced decode ticks,
-     logits compared in fp32 and every layer's attention in bf16.
-With --profile it then traces a prefill tick and decode ticks of the main
-path (torch.profiler) and prints where the device time goes.
-The last two lines are the kernels' JSON record and
+  5. the serving path with the kernel against the same path with the
+     plain attention: logits in fp32, every layer's attention in bf16;
+  6. the training main path at full width: initialize(GPT-2 125M, bf16,
+     FusedAdam with the fused kernel, ZeRO 2, clip 1.0) -> train_batch on
+     24 x 1024 tokens, one warm-up step then 10 timed steps; tokens/s,
+     step ms, MFU, peak memory, the loss per step (finite and falling)
+     and the kernels' launches per step;
+  7. the training path with the kernels against the plain path (reference
+     attention, plain Adam) from the same weights, fp32 with TF32 off:
+     losses, the first step's grads and the params after 3 steps; the
+     same in bf16, reported without a bound.
+With --profile it then traces a prefill tick and decode ticks of the
+serving path and one training step (torch.profiler) and prints where the
+device time goes. The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -35,8 +47,24 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-KERNEL_SOURCE = "deepspeed_tpu_torch/csrc/paged_attention.cu"
-REPLACES = "deepspeed_tpu/inference/v2/paged.py:61"
+ADAM_TOL = (1e-6, 1e-5)        # atol, rtol: the JAX fused-Adam tolerance
+KERNELS = ("paged_attention", "flash_attention", "fused_adam")
+SOURCE = "deepspeed_tpu_torch/csrc/{}.cu"
+REPLACES = {
+    "paged_attention": "deepspeed_tpu/inference/v2/paged.py:61",
+    "flash_attention_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:88",
+    "flash_attention_bwd": "deepspeed_tpu/ops/pallas/flash_attention.py:226",
+    "fused_adam": "deepspeed_tpu/ops/pallas/fused_optimizers.py:75"}
+# the training main path: bench.py headline_bench's configuration with
+# the JAX package's switch to its fused-Adam kernel turned on
+TRAIN_CONFIG = {
+    "train_batch_size": 24,
+    "optimizer": {"type": "FusedAdam",
+                  "params": {"lr": 1e-4, "weight_decay": 0.01,
+                             "fused_kernel": True}},
+    "bf16": {"enabled": True}, "zero_optimization": {"stage": 2},
+    "gradient_clipping": 1.0, "gradient_accumulation_steps": 1,
+    "steps_per_print": 1000000000}
 
 
 def log(msg: str) -> None:
@@ -259,7 +287,7 @@ def serve(engine, prompts, max_new: int, dev):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t
     finally:
-        engine.tick = orig_tick
+        del engine.tick     # back to the class's method: no reference cycle
     return outs, wall, ticks
 
 
@@ -420,17 +448,508 @@ def main_path_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
     return rels
 
 
+# ------------------------------------------------- phase 3, training kernels
+FLASH_CASES = {                       # b, s, hq, hkv, d, causal, window
+    "causal_d64": (2, 512, 4, 4, 64, True, None),
+    "full_d64": (2, 256, 4, 4, 64, False, None),
+    "gqa_d64": (1, 512, 8, 2, 64, True, None),
+    "window_d64": (2, 512, 4, 2, 64, True, 200),
+    "unaligned_s1000": (1, 1000, 4, 2, 64, True, None),
+    "causal_d128": (1, 512, 4, 2, 128, True, None),
+    "full_gqa_d128": (1, 384, 4, 1, 128, False, None),
+}
+MAIN_ATTENTION = dict(b=24, s=1024, hq=12, hkv=12, d=64)   # GPT-2 125M
+CASES_NOTE = ("FLASH_CASES fp32+bf16: causal/full, GQA, window, S=1000, "
+              "D 64/128")
+
+
+def flash_inputs(dev, dtype, b, s, hq, hkv, d, seed=0):
+    """q, k, v, do of one attention call, seeded."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return (randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d),
+            randn(b, s, hq, d))
+
+
+def flash_bound(b, s, hq, hkv, d, itemsize, backward=False):
+    """Least time (ms) for one causal call: bytes (forward reads q, k, v
+    and writes o, lse; backward reads q, k, v, o, do, lse and writes dq,
+    dk, dv) over the memory rate, against the products over the tensor
+    rate of the type (forward 2, backward 5 matmuls over the S(S+1)/2
+    visible pairs); the larger bounds it."""
+    qb, kvb, lse = b * s * hq * d * itemsize, b * s * hkv * d * itemsize, \
+        b * hq * s * 4
+    nbytes = (4 * qb + 4 * kvb + lse) if backward else (2 * qb + 2 * kvb
+                                                         + lse)
+    pairs = s * (s + 1) // 2
+    flops = (10 if backward else 4) * b * hq * pairs * d
+    rate = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def rel_max(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def flash_checks(dev):
+    """Forward and backward kernels against their plain versions (and,
+    fp32, the backward against autograd through the plain forward) over
+    FLASH_CASES in fp32 and bf16. Forward o within the dtype's tolerance
+    (abs + rel); grads within it relative to their largest element."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    errs = {}
+    for dtype_name, tol in TOL.items():
+        dtype = getattr(torch, dtype_name)
+        for name, (b, s, hq, hkv, d, causal, window) in FLASH_CASES.items():
+            q, k, v, do = flash_inputs(dev, dtype, b, s, hq, hkv, d, seed=1)
+            kw = dict(causal=causal, window=window)
+            o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            grads = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+            refs = fa.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do,
+                                                **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            err = (o.float() - o_ref.float()).abs()
+            fwd_bad = bool((err > tol + tol * o_ref.float().abs()).any())
+            lse_err = float((lse - lse_ref).abs().max())
+            rel = {f"d{n}": rel_max(g, r) for n, g, r in zip("qkv", grads,
+                                                             refs)}
+            if dtype_name == "float32":
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                out, _ = fa.flash_attention_fwd_plain(*leaves, **kw)
+                out.backward(do)
+                rel.update({f"d{n}_vs_autograd": rel_max(g, leaf.grad)
+                            for n, g, leaf in zip("qkv", grads, leaves)})
+            errs[(dtype_name, name)] = dict(
+                fwd_max_abs_err=float(err.max()), lse_max_abs_err=lse_err,
+                bwd_max_abs_err=max(float((g.float() - r.float()).abs().max())
+                                    for g, r in zip(grads, refs)),
+                bwd_max_rel_err=max(rel.values()))
+            log(f"[kernel] flash {name:16s} {dtype_name:9s} "
+                f"{json.dumps(errs[(dtype_name, name)])}")
+            if fwd_bad or lse_err > 1e-4 or max(rel.values()) > tol:
+                raise AssertionError(
+                    f"flash attention kernels disagree with their plain "
+                    f"versions: {name} {dtype_name}: "
+                    f"{errs[(dtype_name, name)]} {rel} (tol {tol:g})")
+    return errs
+
+
+def adam_checks(dev):
+    """Fused-Adam kernel against the plain version: sizes that are no
+    multiple of 4 or 128, AdamW and L2, a warmup schedule, a clip
+    coefficient, the bf16 copy, 3 steps; 1e-6 absolute + 1e-5 relative."""
+    import torch
+    from deepspeed_tpu_torch.ops.fused_optimizers import Adam
+    from deepspeed_tpu_torch.runtime.lr_schedules import build_schedule
+    sched = build_schedule("WarmupLR", {"warmup_num_steps": 5}, 1e-2)
+    worst = 0.0
+    for n in (1, 3, 127, 128, 1000, 4099, (1 << 20) + 5):
+        g = torch.Generator(device=dev).manual_seed(n)
+        p0 = torch.randn(n, generator=g, device=dev)
+        grad = torch.randn(n, generator=g, device=dev)
+        for adamw in (True, False):
+            runs = []
+            for fused in (True, False):
+                opt = Adam(sched, weight_decay=0.05, adamw_mode=adamw,
+                           fused=fused)
+                p = p0.clone()
+                state = opt.init(p)
+                out = torch.empty(n, dtype=torch.bfloat16, device=dev)
+                coef = torch.tensor(0.6, device=dev)
+                for _ in range(3):
+                    opt.step(state, p, grad, coef=coef, out=out)
+                runs.append((p, state["exp_avg"], state["exp_avg_sq"], out))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            for got, ref in zip(*runs):
+                err = (got.float() - ref.float()).abs()
+                worst = max(worst, float(err.max()))
+                if bool((err > ADAM_TOL[0] + ADAM_TOL[1]
+                         * ref.float().abs()).any()):
+                    raise AssertionError(
+                        f"fused Adam kernel disagrees with its plain "
+                        f"version: n={n} adamw={adamw} max|err| "
+                        f"{float(err.max()):.3e}")
+    log(f"[kernel] fused_adam 7 sizes x AdamW/L2 x 3 steps: max|err| "
+        f"{worst:.3e} (atol {ADAM_TOL[0]:g}, rtol {ADAM_TOL[1]:g})")
+    return worst
+
+
+def flash_main_check(q, k, v, do):
+    """Forward and backward kernels against their plain versions on one
+    set of main-path inputs (bf16): o within TOL abs + rel, lse within
+    1e-4, dq/dk/dv within TOL of their largest element, as in
+    flash_checks. Returns the kernel's (o, lse) and the errors."""
+    import torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    tol = TOL["bfloat16"]
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
+    err = (o.float() - o_ref.float()).abs()
+    fwd_bad = bool((err > tol + tol * o_ref.float().abs()).any())
+    del o_ref
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    check = dict(
+        fwd_max_abs_err=float(err.max()),
+        lse_max_abs_err=float((lse - lse_ref).abs().max()),
+        bwd_max_abs_err=max(float((g.float() - r.float()).abs().max())
+                            for g, r in zip(grads, refs)),
+        bwd_max_rel_err=max(rel_max(g, r) for g, r in zip(grads, refs)))
+    log(f"[kernel] flash main shape {json.dumps(MAIN_ATTENTION)} bf16 "
+        f"causal, kernel vs plain: {json.dumps(check)}")
+    if fwd_bad or check["lse_max_abs_err"] > 1e-4 \
+            or check["bwd_max_rel_err"] > tol:
+        raise AssertionError(
+            f"flash attention kernels disagree with their plain versions at "
+            f"the main path's shape: {check} (tol {tol:g})")
+    return o, lse, check
+
+
+def adam_main_check(p, grad, m, v, hp, out_dtype, **kw):
+    """Fused-Adam kernel against the plain version on clones of the main
+    path's buffers, one step with the compute copy: p, m, v within
+    ADAM_TOL; the kernel's copy is exactly its own new p rounded; the
+    copies of the two versions differ by at most one rounding step of the
+    copy's type (2^-7 relative for bf16), where p's last-bit difference
+    straddles a rounding boundary."""
+    import torch
+    from deepspeed_tpu_torch.ops.fused_optimizers import (adam_plain,
+                                                          fused_adam_step)
+    runs = []
+    for step in (fused_adam_step, adam_plain):
+        bufs = [t.clone() for t in (p, m, v)]
+        out = torch.empty(p.numel(), dtype=out_dtype, device=p.device)
+        step(bufs[0], grad, bufs[1], bufs[2], hp, out=out, **kw)
+        runs.append((*bufs, out))
+    (kp, km, kv, kout), (rp, rm, rv, rout) = runs
+    check, bad = {}, []
+    for name, got, ref in (("p", kp, rp), ("m", km, rm), ("v", kv, rv)):
+        err = (got - ref).abs()
+        check[f"{name}_max_abs_err"] = float(err.max())
+        if bool((err > ADAM_TOL[0] + ADAM_TOL[1] * ref.abs()).any()):
+            bad.append(name)
+    if not torch.equal(kout, kp.to(out_dtype)):
+        bad.append("copy is not the kernel's own p")
+    err = (kout.float() - rout.float()).abs()
+    check["copy_max_abs_err"] = float(err.max())
+    if bool((err > ADAM_TOL[0] + 2.0**-7 * rout.float().abs()).any()):
+        bad.append("copy")
+    del runs, kp, km, kv, kout, rp, rm, rv, rout
+    log(f"[kernel] fused_adam over {p.numel()} params, kernel vs plain: "
+        f"{json.dumps(check)}")
+    if bad:
+        raise AssertionError(
+            f"fused Adam kernel disagrees with its plain version at the "
+            f"main path's size: {bad} {check}")
+    return check
+
+
+def train_kernel_times(dev, adam_numel: int, flush=None, iters=20):
+    """Flash forward and backward at GPT-2 125M's attention shapes (bf16,
+    B 24, S 1024, 12 heads of 64, causal) and fused Adam over the model's
+    flat buffers: each kernel held against its plain version on these
+    inputs first, then kernel, plain, library and bound times in ms."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.fused_optimizers import (adam_plain,
+                                                          fused_adam_step)
+    shape = MAIN_ATTENTION
+    q, k, v, do = flash_inputs(dev, torch.bfloat16, **shape, seed=2)
+    o, lse, flash_check = flash_main_check(q, k, v, do)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    qt, kt, vt, dot = (t.transpose(1, 2).detach() for t in (q, k, v, do))
+    leaves = [t.requires_grad_() for t in (qt, kt, vt)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    lib_err = float((lib_out.detach().transpose(1, 2).float()
+                     - o.float()).abs().max())
+    rec = {}
+    bound, by = flash_bound(**shape, itemsize=2)
+    rec["flash_attention_fwd"] = dict(
+        ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v), dev, iters,
+                   flush),
+        plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v), dev,
+                         max(iters // 4, 2), flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), dev, iters, flush),
+        bound_ms=bound, bound_by=by, library_max_abs_err=lib_err,
+        check=flash_check)
+    bound, by = flash_bound(**shape, itemsize=2, backward=True)
+    rec["flash_attention_bwd"] = dict(
+        ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), dev,
+                   iters, flush),
+        plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do), dev, max(iters // 4, 2), flush),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dot, retain_graph=True), dev, iters, flush),
+        library_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves, is_causal=True), leaves,
+            dot), dev, iters, flush),
+        bound_ms=bound, bound_by=by, check=flash_check)
+    del lib_out, leaves
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        times = {key: x for key, x in rec[name].items() if key != "check"}
+        log(f"[kernel] {name} times (ms) at B=24 S=1024 H=12 D=64 bf16 "
+            f"causal: {json.dumps(times)}")
+
+    # fused Adam over GPT-2 125M's flat buffers (+ the bf16 compute copy)
+    n = adam_numel
+    g = torch.Generator(device=dev).manual_seed(3)
+    p, grad = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+    m = torch.zeros(n, device=dev)
+    vv = torch.zeros(n, device=dev)
+    out = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    hp = torch.tensor([1e-4, 0.9, 0.999, 1e-8, 10.0, 1000.0, 1.0, 1.0],
+                      device=dev)
+    kw = dict(weight_decay=0.01, adamw_mode=True)
+    adam_check = adam_main_check(p, grad, m, vv, hp, torch.bfloat16, **kw)
+    lib_p = torch.nn.Parameter(p.clone())
+    lib_p.grad = grad.clone()
+    lib_opt = torch.optim.AdamW([lib_p], lr=1e-4, weight_decay=0.01,
+                                fused=dev.type == "cuda")
+    read_write = 16 + 12                  # p, g, m, v in; p, m, v out
+    t_bytes = n * (read_write + 2) / HBM_BYTES_PER_S
+    t_ops = 15 * n / FP32_FLOPS
+    rec["fused_adam"] = dict(
+        ms=time_ms(lambda: fused_adam_step(p, grad, m, vv, hp, out=out, **kw),
+                   dev, iters, flush),
+        plain_ms=time_ms(lambda: adam_plain(p, grad, m, vv, hp, out=out,
+                                            **kw), dev, max(iters // 4, 2),
+                         flush),
+        library_ms=time_ms(lib_opt.step, dev, iters, flush),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms_without_bf16_copy=n * read_write / HBM_BYTES_PER_S * 1e3,
+        numel=n)
+    log(f"[kernel] fused_adam times (ms) over {n} fp32 params + bf16 copy: "
+        f"{json.dumps(rec['fused_adam'])}")
+    rec["fused_adam"]["check"] = adam_check
+    return rec
+
+
+# ------------------------------------------------ phase 6, training main path
+def train_batch_of(dev, vocab, rows, seq, seed=5):
+    """(tokens, targets) of random tokens, [rows, seq] each, on dev."""
+    import torch
+    tok = np.random.default_rng(seed).integers(0, vocab, (rows, seq + 1))
+    tok = torch.from_numpy(tok).to(dev)
+    return tok[:, :-1], tok[:, 1:]
+
+
+def train_main_path(dev, size="125m", steps=10, seq=1024):
+    """Phase 6: initialize(GPT-2 125M ...) -> train_batch, one warm-up
+    step then ``steps`` timed steps on one fixed batch; each step is timed
+    on the host clock up to a synchronize. Every count is set to 0 right
+    before the timed steps and read right after."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.fused_optimizers import fused_adam_step
+    model = GPT2(size=size, vocab_size=50304, remat_policy="segments",
+                 attn_impl="flash", device=dev)
+    t = time.perf_counter()
+    engine, _, _, _ = ds.initialize(model=model, config=TRAIN_CONFIG)
+    c = model.config
+    log(f"[train] initialize gpt2-{size} ({c.num_params()} params): "
+        f"{time.perf_counter() - t:.1f} s")
+    rows = engine.train_batch_size_
+    batch = train_batch_of(dev, c.vocab_size, rows, seq)
+    engine.train_batch(batch)                                  # warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.calls = 0
+    fused_adam_step.launches = 0
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "flash_attention_bwd": fa.flash_attention_bwd.launches,
+                "flash_attention_bwd_calls": fa.flash_attention_bwd.calls,
+                "fused_adam": fused_adam_step.launches}
+    losses = [float(x) for x in losses]
+    tokens = rows * seq
+    tok_s = tokens * steps / sum(step_s)
+    stats = dict(
+        model=f"gpt2-{size} vocab {c.vocab_size}", params=c.num_params(),
+        batch=rows, seq=seq, steps=steps,
+        step_ms=1e3 * sum(step_s) / steps,
+        step_ms_min=1e3 * min(step_s), step_ms_max=1e3 * max(step_s),
+        tokens_per_s=tok_s,
+        mfu=c.flops_per_token(seq, causal=True) * tok_s / BF16_FLOPS,
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else None),
+        losses=losses, grad_norm=engine.get_global_grad_norm(),
+        launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()})
+    log(f"[train] {json.dumps(stats)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    want = {"flash_attention_fwd": c.num_layers * steps,
+            "flash_attention_bwd": 2 * c.num_layers * steps,
+            "flash_attention_bwd_calls": c.num_layers * steps,
+            "fused_adam": steps}
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"training launches {launches} != {want} (one "
+                             f"forward and one backward call per layer, "
+                             f"two backward launches per call, no forward "
+                             f"rerun under segments, one Adam launch)")
+    return engine, batch, stats
+
+
+# ------------------------------------------- phase 7, kernels against plain
+def train_path_kernel_vs_plain(dev, size="125m", rows=2, seq=1024, steps=3):
+    """The training path with the kernels (flash attention, fused Adam)
+    against the plain path (reference attention, plain Adam) from the same
+    initial weights, ``steps`` steps on one batch.
+
+    fp32, TF32 off: the two paths differ only in the order of sums inside
+    attention and in the update's rounding, so
+      * the loss of every step agrees to 1e-5 relative;
+      * the first step's grads to 1e-4 of their largest element;
+      * the params after ``steps`` steps to 1e-3 of the norm of their total
+        change: Adam's first updates are ~lr*sign(g), so a grad that is
+        zero up to rounding moves an element by up to 2*lr on either
+        side, which a norm tolerates and a worst-element bound would not.
+    bf16: the same three numbers are reported without a bound (bf16 rounds
+    at different points in the two attention paths)."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPT2
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        runs = []
+        init = None
+        for kernels in (True, False):
+            cfg = dict(TRAIN_CONFIG, train_batch_size=rows,
+                       bf16={"enabled": dtype == "bfloat16"})
+            cfg["optimizer"] = {"type": "FusedAdam", "params": dict(
+                TRAIN_CONFIG["optimizer"]["params"], fused_kernel=kernels)}
+            model = GPT2(size=size, vocab_size=50304,
+                         remat_policy="segments", device=dev,
+                         attn_impl="flash" if kernels else "reference")
+            engine, _, _, _ = ds.initialize(model=model, config=cfg,
+                                            model_parameters=init)
+            if init is None:
+                init = {n: t.clone() for n, t in
+                        engine.master_state_dict().items()}
+            start = engine._master.clone()
+            batch = train_batch_of(dev, model.config.vocab_size, rows, seq,
+                                   seed=7)
+            losses, grads = [], None
+            for step in range(steps):
+                losses.append(float(engine.train_batch(batch)))
+                if step == 0:
+                    grads = engine._grads.clone()
+            runs.append((losses, grads, engine._master - start))
+            del engine, model
+        (kl, kg, kp), (pl, pg, pp) = runs      # kp, pp: change of params
+        moved = float(torch.linalg.vector_norm(pp))
+        rec = dict(
+            loss_kernel=kl, loss_plain=pl,
+            loss_max_rel_err=max(abs(a - b) / abs(b) for a, b in zip(kl, pl)),
+            grad_max_err_rel_to_max=float((kg - pg).abs().max()
+                                          / pg.abs().max()),
+            params_err_rel_to_change=float(torch.linalg.vector_norm(kp - pp))
+            / moved, params_total_change=moved)
+        out[dtype] = rec
+        log(f"[train vs plain] {dtype}: {json.dumps(rec)}")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    r = out["float32"]
+    if (r["loss_max_rel_err"] > 1e-5 or r["grad_max_err_rel_to_max"] > 1e-4
+            or r["params_err_rel_to_change"] > 1e-3):
+        raise AssertionError(f"training path fp32 kernels vs plain: {r}")
+    return out
+
+
+def flat_numel(size: str) -> int:
+    """Length of the engine's flat master for GPT-2 ``size`` (vocab
+    50304), from a model on the meta device."""
+    from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.runtime.engine import _flat_layout
+    return _flat_layout(GPT2(size=size, vocab_size=50304,
+                             device="meta").params)[1]
+
+
 # --------------------------------------------------------- --profile
-def profile_main_path(engine, dev, rows=8, prompt_len=256, decode_ticks=8):
-    """Where a tick's time goes: torch.profiler over one prefill tick
-    (``rows`` prompts of ``prompt_len`` tokens, one chunk each) and then
-    ``decode_ticks`` decode ticks of the same rows. Per window: host wall
-    time, device busy time (the sum of the kernels' and copies' spans on
-    the card), the idle share, launches per tick and the kernels by
-    device time."""
+# device kernels by kind, matched on their names in this order
+PROFILE_KINDS = {
+    "flash_attention": ("flash_fwd_kernel", "flash_bwd_"),
+    "paged_attention": ("paged_attention_kernel",),
+    "fused_adam": ("fused_adam_kernel",),
+    "gemm": ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas"),
+    "reduction": ("reduce_kernel",),
+    "copy": ("copy", "Memcpy", "Memset", "cat"),
+    "elementwise": ("elementwise", "index", "gather", "scatter"),
+}
+
+
+def profile_window(name, fn, ticks):
+    """torch.profiler over fn(): host wall time, device busy time (the sum
+    of the kernels' and copies' spans on the card), the idle share,
+    launches per tick and the kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    spans = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise AssertionError(f"profile {name}: no device time traced")
+    by_name: dict[str, list] = {}
+    for e in spans:
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += e.time_range.elapsed_us()
+        entry[1] += 1
+    busy_us = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
+    by_kind: dict[str, float] = {}
+    for n, v in by_name.items():
+        kind = next((k for k, keys in PROFILE_KINDS.items()
+                     if any(key in n for key in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + v[0] / 1e3
+    rec = {"window": name, "ticks": ticks, "wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1 - busy_us / wall_us,
+           "launches_per_tick": len(spans) / ticks,
+           "ms_by_kind": dict(sorted(by_kind.items(),
+                                     key=lambda kv: -kv[1])),
+           "top_kernels": [{"name": n[:90], "ms": v[0] / 1e3, "calls": v[1],
+                            "share_of_busy": v[0] / busy_us}
+                           for n, v in top]}
+    log(f"[profile] {json.dumps(rec)}")
+    return out, rec
+
+
+def profile_main_path(engine, dev, rows=8, prompt_len=256, decode_ticks=8):
+    """Where a serving tick's time goes: one prefill tick (``rows``
+    prompts of ``prompt_len`` tokens, one chunk each) and then
+    ``decode_ticks`` decode ticks of the same rows."""
     c = engine.model.config
     rng = np.random.default_rng(3)
     uids = list(range(10_000, 10_000 + rows))
@@ -441,37 +960,9 @@ def profile_main_path(engine, dev, rows=8, prompt_len=256, decode_ticks=8):
                         do_checks=False)
         return engine.tick()
 
-    def window(name, fn, ticks):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t) * 1e6
-        spans = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not spans:
-            raise AssertionError(f"profile {name}: no device time traced")
-        by_name: dict[str, list] = {}
-        for e in spans:
-            entry = by_name.setdefault(e.name, [0.0, 0])
-            entry[0] += e.time_range.elapsed_us()
-            entry[1] += 1
-        busy_us = sum(v[0] for v in by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-        rec = {"window": name, "ticks": ticks, "wall_ms": wall_us / 1e3,
-               "device_busy_ms": busy_us / 1e3,
-               "device_idle_share": 1 - busy_us / wall_us,
-               "launches_per_tick": len(spans) / ticks,
-               "top_kernels": [{"name": n[:90], "ms": v[0] / 1e3,
-                                "calls": v[1],
-                                "share_of_busy": v[0] / busy_us}
-                               for n, v in top]}
-        log(f"[profile] {json.dumps(rec)}")
-        return out, rec
-
     engine.schedule(uids, [rng.integers(0, c.vocab_size,
                                         prompt_len).tolist() for _ in uids])
-    finished, pre = window("prefill", engine.tick, 1)
+    finished, pre = profile_window("prefill", engine.tick, 1)
 
     def decode():
         nonlocal finished
@@ -479,7 +970,7 @@ def profile_main_path(engine, dev, rows=8, prompt_len=256, decode_ticks=8):
             finished = decode_tick(finished)
         return finished
 
-    _, dec = window("decode", decode, decode_ticks)
+    _, dec = profile_window("decode", decode, decode_ticks)
     engine.flush(uids)
     return [pre, dec]
 
@@ -488,13 +979,15 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace a prefill tick and decode ticks of "
-                         "the main path with torch.profiler")
+                    help="also trace a prefill tick and decode ticks of the "
+                         "serving path and one training step with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from deepspeed_tpu_torch.inference.v2 import paged
     from deepspeed_tpu_torch.ops import op_builder
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -506,45 +999,114 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
-    build_s = op_builder.build(["paged_attention"])           # phase 2
+    build_s = op_builder.build(list(KERNELS))                 # phase 2
     log(f"[build] seconds {json.dumps(build_s)}")
-    ptxas = op_builder.library_path("paged_attention").with_suffix(".log")
-    for line in ptxas.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    for name in KERNELS:
+        ptxas = op_builder.library_path(name).with_suffix(".log")
+        for line in ptxas.read_text().splitlines():
+            if "entry function" in line or "registers" in line \
+                    or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     errs, times = kernel_checks(dev, flush)                   # phase 3
+    flash_errs = flash_checks(dev)
+    adam_err = adam_checks(dev)
+    adam_numel = flat_numel("125m")
+    train_times = train_kernel_times(dev, adam_numel, flush)
     del flush
+    torch.cuda.empty_cache()
 
     engine, stats = main_path(dev)                            # phase 4
     rels = main_path_kernel_vs_plain(engine, dev)             # phase 5
     if args.profile:
         profile_main_path(engine, dev)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    if resident > 2**30:
+        raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
+                             f"after the serving phases")
 
-    bf16_err = max(v for (dt, _), v in errs.items() if dt == "bfloat16")
-    fp32_err = max(v for (dt, _), v in errs.items() if dt == "float32")
+    trainer, batch, train = train_main_path(dev)              # phase 6
+    if args.profile:
+        profile_window("train_step", lambda: trainer.train_batch(batch), 1)
+    del trainer
+    torch.cuda.empty_cache()
+    parity = train_path_kernel_vs_plain(dev)                  # phase 7
+
+    def entry(name, kernel, launches, max_abs_err, t, **extra):
+        return {"name": name, "route": "cuda",
+                "source": SOURCE.format(kernel), "replaces": REPLACES[name],
+                "launches": launches, "max_abs_err": max_abs_err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], **extra}
+
+    def worst(key, dtype):
+        return max(e[key] for (dt, _), e in flash_errs.items() if dt == dtype)
+
     dec, pre = times["decode"], times["prefill"]
-    kernel = {
-        "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": stats["launches"],
-        "max_abs_err": bf16_err, "max_err": bf16_err, "tol": TOL["bfloat16"],
-        "max_abs_err_fp32": fp32_err, "tol_fp32": TOL["float32"],
-        "ms": dec["ms"], "kernel_ms": dec["ms"], "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"],
-        "shape": "decode B=8 Sq=1 ctx 100-2000 Hq=32 Hkv=8 D=128 bs=64 bf16",
-        "prefill_ms": pre["ms"], "prefill_plain_ms": pre["plain_ms"],
-        "prefill_bound_ms": pre["bound_ms"],
-        "prefill_bound_by": pre["bound_by"],
-        "prefill_library_ms": pre["library_ms"],
-        "prefill_shape": "B=2 Sq=256 pos0 0/300 Hq=32 Hkv=8 D=128 bf16",
-        "main_path_fp32_rel_logits_err": rels["fp32_kernel_vs_reference"],
-        "main_path_bf16_layer_max_abs_err": rels["bf16_layer_max_abs_err"]}
+    flash_main = train_times["flash_attention_fwd"]["check"]
+    adam_main = train_times["fused_adam"]["check"]
+    kernels = [
+        entry("paged_attention", "paged_attention", stats["launches"],
+              max(v for (dt, _), v in errs.items() if dt == "bfloat16"), dec,
+              tol=TOL["bfloat16"],
+              max_abs_err_fp32=max(v for (dt, _), v in errs.items()
+                                   if dt == "float32"),
+              tol_fp32=TOL["float32"],
+              shape="decode B=8 Sq=1 ctx 100-2000 Hq=32 Hkv=8 D=128 bs=64 "
+                    "bf16",
+              prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],
+              prefill_bound_ms=pre["bound_ms"],
+              prefill_bound_by=pre["bound_by"],
+              prefill_library_ms=pre["library_ms"],
+              main_path="serving",
+              main_path_fp32_rel_logits_err=rels["fp32_kernel_vs_reference"],
+              main_path_bf16_layer_max_abs_err=rels[
+                  "bf16_layer_max_abs_err"]),
+        entry("flash_attention_fwd", "flash_attention",
+              train["launches"]["flash_attention_fwd"],
+              flash_main["fwd_max_abs_err"],
+              train_times["flash_attention_fwd"], tol=TOL["bfloat16"],
+              lse_max_abs_err=flash_main["lse_max_abs_err"], lse_tol=1e-4,
+              main_path="training",
+              shape="B=24 S=1024 H=12 D=64 bf16 causal",
+              cases_max_abs_err_bf16=worst("fwd_max_abs_err", "bfloat16"),
+              cases_max_abs_err_fp32=worst("fwd_max_abs_err", "float32"),
+              cases_tol_fp32=TOL["float32"], cases=CASES_NOTE),
+        entry("flash_attention_bwd", "flash_attention",
+              train["launches"]["flash_attention_bwd"],
+              flash_main["bwd_max_abs_err"],
+              train_times["flash_attention_bwd"],
+              max_rel_err=flash_main["bwd_max_rel_err"],
+              tol_rel=TOL["bfloat16"], launches_per_call=2,
+              calls=train["launches"]["flash_attention_bwd_calls"],
+              library_fwd_bwd_ms=train_times["flash_attention_bwd"][
+                  "library_fwd_bwd_ms"], main_path="training",
+              shape="B=24 S=1024 H=12 D=64 bf16 causal",
+              cases_max_rel_err_bf16=worst("bwd_max_rel_err", "bfloat16"),
+              cases_max_rel_err_fp32=worst("bwd_max_rel_err", "float32"),
+              cases_tol_rel_fp32=TOL["float32"], cases=CASES_NOTE),
+        entry("fused_adam", "fused_adam", train["launches"]["fused_adam"],
+              max(adam_main[f"{t}_max_abs_err"] for t in "pmv"),
+              train_times["fused_adam"], tol=ADAM_TOL,
+              copy_max_abs_err=adam_main["copy_max_abs_err"],
+              copy_tol="1e-6 + 2^-7 relative (one bf16 rounding step)",
+              bound_ms_without_bf16_copy=train_times["fused_adam"][
+                  "bound_ms_without_bf16_copy"], main_path="training",
+              shape=f"{adam_numel} fp32 params + bf16 copy, AdamW",
+              cases_max_abs_err=adam_err,
+              cases="7 sizes 1..2^20+5 x AdamW/L2 x 3 steps, schedule"),
+    ]
     log(f"[main] serving {json.dumps(stats)} on {card}")
+    log(f"[main] training {json.dumps(train)} on {card}")
+    log(f"[main] training kernels vs plain {json.dumps(parity)}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

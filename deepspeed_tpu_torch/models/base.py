@@ -105,6 +105,40 @@ class ModelConfig:
         final_norm = d + (d if self.norm_type == "layernorm" else 0)
         return embed + pos + L * per_layer + final_norm
 
+    def num_active_params(self) -> int:
+        """Parameters a token actually computes with: dense models run
+        everything; an MoE token runs only its top-k routed experts (the
+        router projection and any shared experts always run). This is
+        the MFU denominator."""
+        n = self.num_params()
+        if self.num_experts <= 0:
+            return n
+        d, f = self.hidden_size, self.intermediate_size
+        per_expert = 3 * d * f if self.activation == "swiglu" else 2 * d * f
+        inactive = max(self.num_experts - self.moe_top_k, 0)
+        return n - self.num_layers * inactive * per_expert
+
+    def flops_per_token(self, seq_len: int, causal: bool = True) -> float:
+        """Training FLOPs/token (fwd+bwd ~= 6*N_active + attention term),
+        the standard MFU accounting. ``causal=True`` counts only the
+        attention work a causal model performs: the mean attended context
+        is (s+1)/2, or bounded by the sliding window when one is set;
+        ``causal=False`` is the full-attention accounting."""
+        n = self.num_active_params()
+        s = seq_len
+        if causal:
+            w = self.sliding_window
+            if w and w < s:
+                # mean_i min(i+1, w): first w positions grow linearly,
+                # the rest are window-bounded
+                ctx = (w * (w + 1) / 2 + (s - w) * w) / s
+            else:
+                ctx = (s + 1) / 2
+        else:
+            ctx = s
+        attn_flops = 12 * self.num_layers * self.hidden_size * ctx
+        return 6 * n + attn_flops
+
 
 _MODEL_REGISTRY: dict[str, Callable[..., Any]] = {}
 

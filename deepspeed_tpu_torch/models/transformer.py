@@ -10,17 +10,27 @@ so a JAX checkpoint maps onto the module name for name
 their JAX counterparts do, so the paged serving forward
 (``inference/v2/paged.py``) composes them the same way.
 
-Left out here, with the training slice: loss, remat and ``attn_impl="flash"``.
+Training: :meth:`DecoderLM.loss` is the mean token cross-entropy of
+:meth:`apply`; ``attn_impl="flash"`` runs attention through the
+flash-attention kernels (``ops/flash_attention.py``). Under autograd the
+layers are rematerialised with ``torch.utils.checkpoint`` per
+``remat_policy``: ``"nothing_saveable"`` checkpoints each whole block, as
+the JAX layer scan does; ``"segments"`` keeps attention outside any
+checkpoint, so its backward never reruns the forward kernel.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import layers as L
+from ..ops.flash_attention import flash_attention
 from ..utils.device import resolve_device
 from .base import ModelConfig
+
+REMAT_POLICIES = ("nothing_saveable", "segments")
 
 _STD = 0.02
 
@@ -39,6 +49,7 @@ class DecoderLM(nn.Module):
             raise NotImplementedError(
                 "MoE models are not ported yet (ROADMAP: port Queue, "
                 "model breadth)")
+        check_training_options(c)
         if c.position_embedding == "rope":
             # partial rotary (rotary_pct < 1) rotates only the first
             # rot_dim channels of each head
@@ -51,6 +62,12 @@ class DecoderLM(nn.Module):
             self._rot_dim = 0
         self._alibi_slopes = (L.alibi_slopes(c.num_heads, device=dev)
                               if c.position_embedding == "alibi" else None)
+        if self._alibi_slopes is not None and c.attn_impl == "flash":
+            raise ValueError(
+                "attn_impl='flash' does not support ALiBi: the kernel has "
+                "no per-head additive-bias path; use the default attention "
+                "(attn_impl='reference') or rope/learned positions with "
+                "flash")
         self._init_spec = self._param_spec()
         self.params = nn.ParameterDict({
             name: nn.Parameter(torch.empty(shape, device=dev, dtype=dt))
@@ -222,32 +239,98 @@ class DecoderLM(nn.Module):
             return self._norm(x, p["ln2_scale"], p.get("ln2_bias"))
         return h
 
+    def _attention(self, q, k, v) -> torch.Tensor:
+        """Causal attention over a contiguous sequence, as the JAX block
+        picks it: ``attn_impl="flash"`` takes the flash kernels (with the
+        window); otherwise the exact path, where ALiBi or the window rides
+        as an additive bias."""
+        c = self.config
+        s = q.shape[1]
+        if c.attn_impl == "flash":
+            return flash_attention(q, k, v, causal=True,
+                                   window=c.sliding_window)
+        if self._alibi_slopes is not None:
+            return L.dot_product_attention(
+                q, k, v, causal=True,
+                bias=L.alibi_bias(self._alibi_slopes, s))
+        bias = (L.window_bias(s, c.sliding_window, device=q.device)
+                if c.sliding_window is not None else None)
+        return L.dot_product_attention(q, k, v, causal=True, bias=bias)
+
     def block(self, p: dict, x: torch.Tensor,
               positions: torch.Tensor | None = None) -> torch.Tensor:
         """One transformer block over a contiguous causal sequence."""
         c = self.config
-        bias = None
-        if self._alibi_slopes is not None:
-            bias = L.alibi_bias(self._alibi_slopes, x.shape[1])
-        elif c.sliding_window is not None:
-            bias = L.window_bias(x.shape[1], c.sliding_window,
-                                 device=x.device)
         h = self._norm(x, p["ln1_scale"], p.get("ln1_bias"))
         q, k, v = self._qkv(p, h, positions)
-        a = L.dot_product_attention(q, k, v, causal=True, bias=bias)
+        a = self._attention(q, k, v)
         if c.parallel_residual:
             m = self._mlp(p, self._parallel_mlp_input(p, x, h))
             return x + self._attn_out(p, a) + m
         x = x + self._attn_out(p, a)
         return self._mlp_residual(p, x)
 
+    def _block_segmented(self, p: dict, x: torch.Tensor,
+                         positions: torch.Tensor | None = None):
+        """Segment remat (JAX ``_block_segmented``): attention sits
+        outside any checkpoint, so its saved q, k, v, o and lse serve the
+        backward and the forward kernel never reruns. Around it:
+
+        - norm + qkv projection are checkpointed: the backward recomputes
+          them from the block input;
+        - the residual after the output projection (JAX "resid_mid") is
+          kept, and norm + MLP after it are checkpointed. JAX also keeps
+          the MLP's pre-activation ("ffn_pre"), which torch's checkpoint
+          cannot name, so here the backward recomputes the up projection
+          as well.
+        """
+        c = self.config
+
+        def seg_qkv(x):
+            h = self._norm(x, p["ln1_scale"], p.get("ln1_bias"))
+            return (*self._qkv(p, h, positions), h)
+
+        q, k, v, h = checkpoint(seg_qkv, x, use_reentrant=False)
+        a = self._attention(q, k, v)
+        if c.parallel_residual:
+            def seg_out(x, a, h):
+                m = self._mlp(p, self._parallel_mlp_input(p, x, h))
+                return x + self._attn_out(p, a) + m
+
+            return checkpoint(seg_out, x, a, h, use_reentrant=False)
+        x = x + self._attn_out(p, a)
+        return checkpoint(self._mlp_residual, p, x, use_reentrant=False)
+
+    def _layer_stacks(self) -> dict[str, tuple[torch.Tensor, ...]]:
+        """Per-layer views of every stacked parameter, one ``unbind`` per
+        stack: its backward stacks the layers' grads in one pass."""
+        return {k: self.params["layers/" + k].unbind(0)
+                for k in self._layer_keys}
+
+    def final_hidden(self, tokens: torch.Tensor,
+                     positions: torch.Tensor | None = None) -> torch.Tensor:
+        """Hidden states [B, S, D] after the last block, before the final
+        norm; under autograd each layer is rematerialised per
+        ``remat_policy``."""
+        c = self.config
+        remat = c.remat and torch.is_grad_enabled()
+        x = self.embed(tokens, positions)
+        stacks = self._layer_stacks()
+        for layer in range(c.num_layers):
+            p = {k: v[layer] for k, v in stacks.items()}
+            if not remat:
+                x = self.block(p, x, positions)
+            elif c.remat_policy == "segments":
+                x = self._block_segmented(p, x, positions)
+            else:
+                x = checkpoint(self.block, p, x, positions,
+                               use_reentrant=False)
+        return x
+
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm + vocab projection: logits [..., V]."""
         x = self._norm(x, self.params["final_norm/scale"],
                        self.params.get("final_norm/bias"))
-        return self._project_vocab(x)
-
-    def _project_vocab(self, x: torch.Tensor) -> torch.Tensor:
-        """Vocab projection of already-final-normed hidden states."""
         if self.config.tie_embeddings:
             return x @ self.params["embed/tokens"].T
         out = x @ self.params["lm_head"]
@@ -258,9 +341,33 @@ class DecoderLM(nn.Module):
     def apply(self, tokens: torch.Tensor,
               positions: torch.Tensor | None = None) -> torch.Tensor:
         """Contiguous forward: logits [B, S, V]."""
-        x = self.embed(tokens, positions)
-        for layer in range(self.config.num_layers):
-            x = self.block(self.layer_params(layer), x, positions)
-        return self.unembed(x)
+        return self.unembed(self.final_hidden(tokens, positions))
 
     forward = apply
+
+    def loss(self, batch) -> torch.Tensor:
+        """Mean token cross-entropy (fp32) of ``batch``: a
+        ``(tokens, targets)`` pair or a dict with those keys, each [B, S].
+        Dense models add no router loss (the JAX aux term is 0)."""
+        tokens, targets = _unpack_batch(batch)
+        return L.cross_entropy_loss(self.apply(tokens), targets)
+
+
+def check_training_options(c: ModelConfig) -> None:
+    """Refuse the training options the port does not have yet."""
+    if c.remat and c.remat_policy not in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat_policy {c.remat_policy!r} is not ported yet (ROADMAP: "
+            f"port Queue 1, remaining remat policies); ported: "
+            f"{REMAT_POLICIES} or remat=False")
+    if c.loss_chunk > 0:
+        raise NotImplementedError(
+            "loss_chunk > 0 (chunked cross-entropy) is not ported yet "
+            "(ROADMAP: port Queue 1, loss_chunk)")
+
+
+def _unpack_batch(batch):
+    if isinstance(batch, dict):
+        return batch["tokens"], batch["targets"]
+    tokens, targets = batch
+    return tokens, targets

@@ -118,3 +118,23 @@ def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
     return out.to(q.dtype)
+
+
+def cross_entropy_loss(logits, targets, *, ignore_index: int = -100,
+                       z_loss: float = 0.0):
+    """Mean token cross-entropy in fp32 with optional z-loss.
+
+    logits: [..., V]; targets: [...] integer. Tokens equal to
+    ``ignore_index`` are masked out of the mean."""
+    logits = logits.float()
+    valid = targets != ignore_index
+    safe_targets = torch.where(valid, targets, torch.zeros_like(targets))
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1,
+                              safe_targets[..., None].long())[..., 0]
+    nll = lse - true_logit
+    if z_loss > 0.0:
+        nll = nll + z_loss * lse.square()
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    count = torch.clamp(valid.sum(), min=1)
+    return nll.sum() / count

@@ -10,6 +10,7 @@ ignoring it would serve a different configuration than the one asked for.
 from __future__ import annotations
 
 import dataclasses
+import types
 import typing
 from typing import Any, ClassVar
 
@@ -29,11 +30,22 @@ class DeepSpeedConfigModel:
         hints = typing.get_type_hints(type(self))
         for f in dataclasses.fields(self):
             kind = hints.get(f.name)
+            if typing.get_origin(kind) in (typing.Union, types.UnionType):
+                # Optional[Block]: the block type among the union's members
+                kind = next((k for k in typing.get_args(kind)
+                             if isinstance(k, type)
+                             and issubclass(k, DeepSpeedConfigModel)), None)
             value = getattr(self, f.name)
             if (isinstance(kind, type)
                     and issubclass(kind, DeepSpeedConfigModel)
                     and isinstance(value, dict)):
                 setattr(self, f.name, kind.from_dict(value))
+
+    @property
+    def fields_set(self) -> frozenset[str]:
+        """Field names the config dict gave explicitly (pydantic's
+        ``model_fields_set``); empty for a block built in code."""
+        return getattr(self, "_fields_set", frozenset())
 
     @classmethod
     def from_dict(cls, config: dict | None) -> "DeepSpeedConfigModel":
@@ -52,7 +64,9 @@ class DeepSpeedConfigModel:
             raise ValueError(
                 f"{cls.__name__}: unknown config key(s) {unknown}; this "
                 f"port accepts {sorted(known)}")
-        return cls(**config)
+        block = cls(**config)
+        block._fields_set = frozenset(config)
+        return block
 
     def model_dump(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

@@ -1,13 +1,16 @@
-"""The port's CUDA kernel on the card (marker ``gpu``: these tests skip
+"""The port's CUDA kernels on the card (marker ``gpu``: these tests skip
 where no card is present). On a machine with an NVIDIA H100:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 
 ``--noconftest`` because the suite's conftest imports jax; this file
 imports only torch, numpy and the port, so it runs where jax is absent.
-The kernel is held against its plain PyTorch version on the same inputs:
-fp32 with TF32 off at 1e-4 (summation order only), bf16 at 3e-2 (the JAX
-package's bf16 kernel tolerance, tests/test_pallas_kernels.py:67).
+Each kernel is held against its plain PyTorch version on the same inputs:
+attention in fp32 with TF32 off at 1e-4 (summation order only), in bf16
+at 3e-2 (the JAX package's bf16 kernel tolerance,
+tests/test_pallas_kernels.py:67), in fp16 at 1e-2 (fp16 rounds p and ds
+8x finer than bf16); fused Adam at 1e-6 absolute, 1e-5 relative (the JAX
+package's fused-Adam tolerance, :100).
 """
 
 import numpy as np
@@ -15,13 +18,16 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.inference.v2 import build_engine, paged
+from deepspeed_tpu_torch.ops import flash_attention as fa
+from deepspeed_tpu_torch.ops.fused_optimizers import (Adam,
+                                                      fused_adam_step)
 from deepspeed_tpu_torch.ops.layers import alibi_slopes
 
 pytestmark = pytest.mark.gpu
 
 B, HQ, HKV, NB, BS, MAXB = 3, 8, 2, 24, 8, 6
 POS0 = [13, 0, 24]
-TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 1e-2}
 VARIANTS = {"causal": {}, "window": {"window": 11}, "alibi": {"alibi": True}}
 
 
@@ -108,3 +114,233 @@ def test_engine_on_the_card_matches_the_cpu_and_launches_every_layer(cuda):
     dispatches = gpu.serving_stats["host_dispatches"]
     assert dispatches == 3          # 40 tokens at a 16-token budget
     assert launched == gpu.model.config.num_layers * dispatches
+
+
+# ------------------------------------------------------- flash attention
+FLASH_CASES = {                       # b, s, hq, hkv, d, causal, window
+    "causal": (2, 256, 4, 4, 64, True, None),
+    "full": (2, 192, 4, 4, 64, False, None),
+    "gqa": (1, 256, 8, 2, 64, True, None),
+    "window": (2, 320, 4, 2, 64, True, 100),
+    "unaligned": (1, 1000, 2, 1, 64, True, None),
+    "d32_unaligned_full": (2, 77, 4, 2, 32, False, None),
+    "d128": (1, 384, 4, 2, 128, True, None),
+    "d128_window": (1, 200, 2, 2, 128, True, 33),
+}
+
+
+def _qkv(dev, dtype, b, s, hq, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    return f(b, s, hq, d), f(b, s, hkv, d), f(b, s, hkv, d), f(b, s, hq, d)
+
+
+def _rel(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+FLASH_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+def test_flash_forward_matches_plain(cuda, dtype, case):
+    b, s, hq, hkv, d, causal, window = FLASH_CASES[case]
+    q, k, v, _ = _qkv(cuda, dtype, b, s, hq, hkv, d)
+    before = fa.flash_attention_fwd.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                  window=window)
+    assert o.dtype == dtype and o.shape == q.shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+def test_flash_backward_matches_plain(cuda, dtype, case):
+    """dq, dk, dv of the kernels against the plain backward (same rounding
+    points) and, in fp32, against autograd through the plain forward;
+    max|err| / max|ref| within the dtype's tolerance."""
+    b, s, hq, hkv, d, causal, window = FLASH_CASES[case]
+    q, k, v, do = _qkv(cuda, dtype, b, s, hq, hkv, d, seed=1)
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                          window=window)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 2
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    for name, g, r in zip("qkv", got, ref):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        assert _rel(g, r) < TOL[dtype], (name, _rel(g, r))
+    if dtype == torch.float32:
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out, _ = fa.flash_attention_fwd_plain(*leaves, causal=causal,
+                                              window=window)
+        out.backward(do)
+        for name, g, leaf in zip("qkv", got, leaves):
+            assert _rel(g, leaf.grad) < TOL[dtype], (name, _rel(g, leaf.grad))
+
+
+def test_flash_autograd_on_the_card_matches_the_cpu(cuda):
+    q, k, v, do = _qkv("cpu", torch.float32, 2, 130, 4, 2, 32, seed=2)
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal=True, window=50)
+        out.backward(do.to(dev))
+        grads.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for g, r in zip(*grads[::-1]):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, _ = _qkv(cuda, torch.float32, 1, 64, 2, 2, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q[..., :48].contiguous(),
+                               k[..., :48].contiguous(),
+                               v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_fwd(q, k.half(), v)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd(q.transpose(1, 2), k, v)
+
+
+# ------------------------------------------------------------ fused Adam
+@pytest.mark.parametrize("adamw_mode", [True, False])
+def test_fused_adam_matches_plain(cuda, adamw_mode):
+    """Several flat sizes (odd, not multiples of 4 or 128), a schedule, a
+    clip coefficient, a bf16 copy, 3 steps; then an overflow step
+    (apply = 0) that must change nothing."""
+    rng = np.random.default_rng(0)
+    sched = lambda step: 1e-2 * torch.clamp(  # noqa: E731
+        step.float() + 1, max=5) / 5
+    for n in (1, 3, 127, 128, 1000, 4099):
+        p0 = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        g = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+            cuda)
+        runs = []
+        for fused in (True, False):
+            opt = Adam(sched, weight_decay=0.05, adamw_mode=adamw_mode,
+                       fused=fused)
+            p = p0.to(cuda)
+            state = opt.init(p)
+            out = torch.empty(n, dtype=torch.bfloat16, device=cuda)
+            coef = torch.tensor(0.7, device=cuda)
+            before = fused_adam_step.launches
+            for _ in range(3):
+                opt.step(state, p, g, coef=coef, out=out)
+            assert fused_adam_step.launches == before + (3 if fused else 0)
+            snapshot = [p.clone(), state["exp_avg"].clone(), out.clone()]
+            opt.step(state, p, g * float("nan"), coef=coef, out=out,
+                     apply=torch.tensor(0.0, device=cuda))
+            torch.cuda.synchronize()
+            for before_t, after_t in zip(snapshot, (p, state["exp_avg"],
+                                                    out)):
+                assert torch.equal(before_t, after_t)
+            assert int(state["count"]) == 3
+            runs.append((p, state["exp_avg"], state["exp_avg_sq"], out))
+        for got, ref in zip(*runs):
+            torch.testing.assert_close(got.float(), ref.float(), atol=1e-6,
+                                       rtol=1e-5)
+
+
+def test_fused_adam_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    p = torch.zeros(16, device=cuda)
+    hp = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fused_adam_step(p, p.half(), p, p, hp, weight_decay=0.0,
+                        adamw_mode=True)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_adam_step(p[1:], p[1:], p[1:], p[1:], hp, weight_decay=0.0,
+                        adamw_mode=True)
+    with pytest.raises(ValueError, match="hp"):
+        fused_adam_step(p, p, p, p, hp[:6], weight_decay=0.0,
+                        adamw_mode=True)
+
+
+# ------------------------------------------------------------ the engine
+def test_training_engine_on_the_card_matches_the_cpu(cuda):
+    """initialize(GPT-2 tiny, flash, segments, fused Adam, fp32, clip) on
+    the card against the same engine on the CPU (plain versions) from the
+    same weights: 3 steps, losses at 1e-4 relative (attention and GEMM
+    sums in another order), params at 1e-3 of their total change (Adam
+    amplifies sign flips of near-zero grads); one forward and one backward
+    call per layer per step (no forward rerun), one Adam launch per step."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPT2
+    cfg = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "FusedAdam", "params": {
+               "lr": 1e-3, "weight_decay": 0.01, "fused_kernel": True}},
+           "gradient_clipping": 0.5, "zero_optimization": {"stage": 2}}
+    engines, init = [], None
+    for dev in ("cpu", cuda):
+        model = GPT2(size="tiny", device=dev, remat_policy="segments",
+                     attn_impl="flash")
+        eng, *_ = ds.initialize(model=model, config=cfg,
+                                model_parameters=init)
+        if init is None:
+            init = {n: t.clone() for n, t in eng.master_state_dict().items()}
+        engines.append(eng)
+    tok = np.random.default_rng(0).integers(0, 512, (4, 129))
+    batch = (tok[:, :-1], tok[:, 1:])
+    counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.calls,
+              fused_adam_step.launches)
+    losses = [[float(e.train_batch(batch)) for _ in range(3)]
+              for e in engines]
+    torch.testing.assert_close(losses[1], losses[0], atol=0, rtol=1e-4)
+    layers = engines[1].model_config.num_layers
+    assert (fa.flash_attention_fwd.launches - counts[0],
+            fa.flash_attention_bwd.calls - counts[1],
+            fused_adam_step.launches - counts[2]) == (
+        3 * 2 * layers, 3 * 2 * layers, 3)
+    start = torch.cat([t.reshape(-1) for t in init.values()])
+    cpu, gpu = (torch.cat([t.reshape(-1).cpu() for t in
+                           e.master_state_dict().values()]) for e in engines)
+    assert float((gpu - cpu).norm()) <= 1e-3 * float((cpu - start).norm())
+
+
+def test_training_engine_fp16_overflow_on_the_card(cuda):
+    """fp16 on the card: the loss scale grows after good steps; a step
+    with a non-finite grad leaves the master, the fp16 params and the
+    step counter as they were (the kernel reads apply = 0) and halves
+    the scale, without the host reading anything inside the step."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPT2
+    eng, opt, _, _ = ds.initialize(
+        model=GPT2(size="tiny", device=cuda, attn_impl="flash",
+                   remat_policy="segments"),
+        config={"train_batch_size": 4, "fp16": {
+            "enabled": True, "initial_scale_power": 4,
+            "loss_scale_window": 2, "hysteresis": 1},
+            "optimizer": {"type": "FusedAdam", "params": {
+                "lr": 1e-3, "fused_kernel": True}}})
+    tok = np.random.default_rng(1).integers(0, 512, (4, 65))
+    batch = (tok[:, :-1], tok[:, 1:])
+    for _ in range(5):
+        eng.train_batch(batch)
+    grown = opt.loss_scale
+    assert grown > 16.0
+    with torch.no_grad():
+        eng.module.params["final_norm/scale"][0] = float("inf")
+    master = eng._master.clone()
+    params = {n: p.clone() for n, p in eng.module.params.items()}
+    eng.train_batch(batch)
+    assert bool(eng._last_metrics["overflow"]) and eng.overflow_steps == 1
+    assert torch.equal(eng._master, master)
+    assert all(torch.equal(p, params[n])
+               for n, p in eng.module.params.items())
+    assert opt.loss_scale == grown / 2

@@ -12,13 +12,18 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference.v2 import build_engine
+from deepspeed_tpu_torch.models import GPT2
 
 PKG = pathlib.Path(deepspeed_tpu_torch.__file__).parent
 
 
 def test_import_pulls_in_no_jax_and_no_jax_package():
-    code = ("import sys, deepspeed_tpu_torch.inference.v2, "
-            "deepspeed_tpu_torch.models\n"
+    modules = sorted(
+        "deepspeed_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix(
+            "").parts) for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    assert "deepspeed_tpu_torch.runtime.engine" in modules
+    assert "deepspeed_tpu_torch.ops.flash_attention" in modules
+    code = ("import sys, deepspeed_tpu_torch, " + ", ".join(modules) + "\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'pydantic', "
             "'deepspeed_tpu'))\n"
@@ -43,3 +48,8 @@ def test_entry_point_without_device_needs_a_card(monkeypatch):
         build_engine("llama", "tiny")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_engine("llama", "tiny", device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.initialize(
+            model=GPT2(size="125m", vocab_size=50304,
+                       remat_policy="segments", attn_impl="flash"),
+            config={"train_batch_size": 24, "bf16": {"enabled": True}})
