@@ -26,11 +26,26 @@ Phases, each fatal on failure:
   7. the training path with the kernels against the plain path (reference
      attention, plain Adam) from the same weights, fp32 with TF32 off:
      losses, the first step's grads and the params after 3 steps; the
-     same in bf16, reported without a bound.
-With --profile it then traces a prefill tick and decode ticks of the
-serving path and one training step (torch.profiler) and prints where the
-device time goes. The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
+     same in bf16, reported without a bound;
+  8. Path T, DeepSpeed's own loop at full width: GPT-2 125M with
+     loss_chunk 256, Lion with the fused kernel, GA 2 (micro 12 x 1024),
+     each step two engine(micro) + engine.backward(loss), then
+     engine.step(); one warm-up step then 10 timed steps: tokens/s, step
+     ms, MFU, peak memory, the loss per step (finite and falling) and the
+     kernels' launches per step;
+  9. Path T's kernels against plain and its loop against train_batch, from
+     the same weights, fp32 with TF32 off: the fused-Lion path against
+     lion_plain and the triple against train_batch (losses, params);
+ 10. Path P: SparseSelfAttention (DeepSpeed's "fixed" example layout,
+     GPT-2 125M's 12 heads of 64, B 8, S 4096, bf16) forward and backward
+     through the block-sparse kernels, held against the plain versions.
+Phase 3 also holds fused Lion and the block-sparse kernels against their
+plain versions and times them at Path T's and Path P's shapes. With
+--profile it then traces a prefill tick and decode ticks of the serving
+path, one train_batch step and one step of Path T (torch.profiler) and
+prints where the device time goes. The last two lines are the kernels'
+JSON record and {"ok": true, "device": {...}}. Without a CUDA card it
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -48,13 +63,19 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 ADAM_TOL = (1e-6, 1e-5)        # atol, rtol: the JAX fused-Adam tolerance
-KERNELS = ("paged_attention", "flash_attention", "fused_adam")
+KERNELS = ("paged_attention", "flash_attention", "fused_adam",
+           "fused_lion", "block_sparse_attention")
 SOURCE = "deepspeed_tpu_torch/csrc/{}.cu"
 REPLACES = {
     "paged_attention": "deepspeed_tpu/inference/v2/paged.py:61",
     "flash_attention_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:88",
     "flash_attention_bwd": "deepspeed_tpu/ops/pallas/flash_attention.py:226",
-    "fused_adam": "deepspeed_tpu/ops/pallas/fused_optimizers.py:75"}
+    "fused_adam": "deepspeed_tpu/ops/pallas/fused_optimizers.py:75",
+    "fused_lion": "deepspeed_tpu/ops/pallas/fused_optimizers.py:165",
+    "block_sparse_attention_fwd":
+        "deepspeed_tpu/ops/sparse_attention/kernels.py:121",
+    "block_sparse_attention_bwd":
+        "deepspeed_tpu/ops/sparse_attention/kernels.py:210"}
 # the training main path: bench.py headline_bench's configuration with
 # the JAX package's switch to its fused-Adam kernel turned on
 TRAIN_CONFIG = {
@@ -65,6 +86,26 @@ TRAIN_CONFIG = {
     "bf16": {"enabled": True}, "zero_optimization": {"stage": 2},
     "gradient_clipping": 1.0, "gradient_accumulation_steps": 1,
     "steps_per_print": 1000000000}
+# Path T: the same model and step with DeepSpeed's forward/backward/step
+# loop, Lion through the JAX package's fused_kernel switch, GA 2 and the
+# chunked cross-entropy (loss_chunk, bench.py:341 and :2514)
+PATH_T_CONFIG = {
+    "train_batch_size": 24, "gradient_accumulation_steps": 2,
+    "optimizer": {"type": "Lion",
+                  "params": {"lr": 1e-4, "betas": [0.9, 0.99],
+                             "weight_decay": 0.01, "fused_kernel": True}},
+    "bf16": {"enabled": True}, "zero_optimization": {"stage": 2},
+    "gradient_clipping": 1.0, "steps_per_print": 1000000000}
+PATH_T_MODEL = dict(vocab_size=50304, remat_policy="segments",
+                    attn_impl="flash", loss_chunk=256)
+# Path P: SparseSelfAttention at GPT-2 125M's head layout with the values
+# of the "fixed" sparse_attention example in DeepSpeed's config-json docs
+PATH_P = dict(b=8, h=12, s=4096, d=64)
+SPARSE_SHAPE = "B=8 H=12 S=4096 D=64 bf16, fixed layout block 16"
+PATH_P_LAYOUT = dict(block=16, different_layout_per_head=True,
+                     num_local_blocks=4, num_global_blocks=1,
+                     attention="bidirectional",
+                     num_different_global_patterns=4)
 
 
 def log(msg: str) -> None:
@@ -883,6 +924,498 @@ def train_path_kernel_vs_plain(dev, size="125m", rows=2, seq=1024, steps=3):
     return out
 
 
+# ------------------------------------------- phase 3, Path T and Path P kernels
+SPARSE_CASES = {       # b, h, s, d, layout kwargs
+    "fixed_s256": (2, 4, 256, 64, dict(block=16)),
+    "bigbird_block32_d32": (2, 2, 512, 32, dict(block=32)),
+    "block8_d24": (1, 2, 256, 24, dict(block=8)),
+    "d128_block64": (1, 2, 1024, 128, dict(block=64)),
+}
+SPARSE_NOTE = ("SPARSE_CASES fp32+bf16: Fixed/BigBird layouts, blocks 8-64, "
+               "D 24-128")
+
+
+def sparse_layout(h, s, block, **kw):
+    """A Fixed layout (Path P's kwargs for the main shape), or BigBird
+    for block 32, for ``h`` heads over ``s`` tokens."""
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+    if block == 32:
+        return tsa.BigBirdSparsityConfig(num_heads=h, block=block,
+                                         num_random_blocks=2).make_layout(s)
+    return tsa.FixedSparsityConfig(num_heads=h, block=block,
+                                   **kw).make_layout(s)
+
+
+def sparse_inputs(dev, dtype, b, h, s, d, seed=0):
+    """q, k, v, do of one call, [B, H, S, D], seeded."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, h, s, d), generator=g, device=dev).to(dtype)
+            for _ in range(4)]
+
+
+def sparse_compare(q, k, v, do, maps, tol):
+    """Block-sparse forward and backward kernels against their plain
+    versions on the same inputs: o and dq/dk/dv within ``tol`` of their
+    largest element, lse within 1e-5 of its largest. Returns the kernel's
+    (o, lse) and the errors; raises on disagreement."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
+    o, lse = bsa.block_sparse_attention_fwd(q, k, v, maps)
+    o_ref, lse_ref = bsa.block_sparse_attention_fwd_plain(q, k, v, maps)
+    grads = bsa.block_sparse_attention_bwd(q, k, v, o_ref, lse_ref, do, maps)
+    refs = bsa.block_sparse_attention_bwd_plain(q, k, v, o_ref, lse_ref, do,
+                                                maps)
+    if q.device.type == "cuda":
+        torch.cuda.synchronize()
+    check = dict(
+        fwd_max_abs_err=float((o.float() - o_ref.float()).abs().max()),
+        fwd_max_rel_err=rel_max(o, o_ref),
+        lse_max_rel_err=rel_max(lse, lse_ref),
+        bwd_max_abs_err=max(float((g.float() - r.float()).abs().max())
+                            for g, r in zip(grads, refs)),
+        bwd_max_rel_err=max(rel_max(g, r) for g, r in zip(grads, refs)))
+    if (check["fwd_max_rel_err"] > tol or check["lse_max_rel_err"] > 1e-5
+            or check["bwd_max_rel_err"] > tol):
+        raise AssertionError(f"block-sparse kernels disagree with their "
+                             f"plain versions: {check} (tol {tol:g})")
+    return o, lse, check
+
+
+def sparse_checks(dev):
+    """Block-sparse kernels against their plain versions over
+    SPARSE_CASES in fp32 and bf16, relative to the largest element."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
+    errs = {}
+    for dtype_name, tol in TOL.items():
+        for name, (b, h, s, d, lay) in SPARSE_CASES.items():
+            layout = sparse_layout(h, s, **lay)
+            maps = bsa.block_maps(layout, dev, lay["block"])
+            q, k, v, do = sparse_inputs(dev, getattr(torch, dtype_name), b, h,
+                                        s, d, seed=1)
+            errs[(dtype_name, name)] = sparse_compare(q, k, v, do, maps,
+                                                      tol)[2]
+            log(f"[kernel] block-sparse {name:20s} {dtype_name:9s} "
+                f"{json.dumps(errs[(dtype_name, name)])}")
+    return errs
+
+
+def lion_checks(dev):
+    """Fused-Lion kernel against the plain version: sizes that are no
+    multiple of 4 or 128, with and without weight decay, a warmup
+    schedule, a clip coefficient, the bf16 copy, 3 steps on fresh grads;
+    1e-6 absolute + 1e-5 relative (the kernel rounds each product and sum
+    on its own, as the plain version's passes do, so it is expected to
+    give the same bits)."""
+    import torch
+    from deepspeed_tpu_torch.ops.fused_optimizers import Lion
+    from deepspeed_tpu_torch.runtime.lr_schedules import build_schedule
+    sched = build_schedule("WarmupLR", {"warmup_num_steps": 5}, 1e-2)
+    worst, identical = 0.0, True
+    for n in (1, 3, 127, 128, 1000, 4099, (1 << 16) + 5, (1 << 20) + 5):
+        g = torch.Generator(device=dev).manual_seed(n)
+        p0 = torch.randn(n, generator=g, device=dev)
+        grads = [torch.randn(n, generator=g, device=dev) for _ in range(3)]
+        for wd in (0.0, 0.05):
+            runs = []
+            for fused in (True, False):
+                opt = Lion(sched, weight_decay=wd, fused=fused)
+                p = p0.clone()
+                state = opt.init(p)
+                out = torch.empty(n, dtype=torch.bfloat16, device=dev)
+                coef = torch.tensor(0.6, device=dev)
+                for grad in grads:
+                    opt.step(state, p, grad, coef=coef, out=out)
+                runs.append((p, state["exp_avg"], out))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            for got, ref in zip(*runs):
+                identical &= torch.equal(got, ref)
+                err = (got.float() - ref.float()).abs()
+                worst = max(worst, float(err.max()))
+                if bool((err > ADAM_TOL[0] + ADAM_TOL[1]
+                         * ref.float().abs()).any()):
+                    raise AssertionError(
+                        f"fused Lion kernel disagrees with its plain "
+                        f"version: n={n} wd={wd} max|err| "
+                        f"{float(err.max()):.3e}")
+    log(f"[kernel] fused_lion 8 sizes x wd 0/0.05 x 3 steps: max|err| "
+        f"{worst:.3e} (atol {ADAM_TOL[0]:g}, rtol {ADAM_TOL[1]:g}), "
+        f"bitwise equal: {identical}")
+    return worst, identical
+
+
+def lion_main_check(p, grad, m, hp, out_dtype, **kw):
+    """Fused-Lion kernel against the plain version on clones of the main
+    path's buffers, one step with the compute copy: p and m within
+    ADAM_TOL, the copy exactly the kernel's own new p rounded, and whether
+    all three came out bitwise equal to the plain version's."""
+    import torch
+    from deepspeed_tpu_torch.ops.fused_optimizers import (fused_lion_step,
+                                                          lion_plain)
+    runs = []
+    for step in (fused_lion_step, lion_plain):
+        bufs = [t.clone() for t in (p, m)]
+        out = torch.empty(p.numel(), dtype=out_dtype, device=p.device)
+        step(bufs[0], grad, bufs[1], hp, out=out, **kw)
+        runs.append((*bufs, out))
+    (kp, km, kout), (rp, rm, rout) = runs
+    check, bad = {}, []
+    for name, got, ref in (("p", kp, rp), ("m", km, rm)):
+        err = (got - ref).abs()
+        check[f"{name}_max_abs_err"] = float(err.max())
+        if bool((err > ADAM_TOL[0] + ADAM_TOL[1] * ref.abs()).any()):
+            bad.append(name)
+    if not torch.equal(kout, kp.to(out_dtype)):
+        bad.append("copy is not the kernel's own p")
+    check["copy_max_abs_err"] = float((kout.float() - rout.float()).abs()
+                                      .max())
+    check["bitwise_equal"] = all(torch.equal(a, b) for a, b in
+                                 zip(runs[0], runs[1]))
+    del runs, kp, km, kout, rp, rm, rout
+    log(f"[kernel] fused_lion over {p.numel()} params, kernel vs plain: "
+        f"{json.dumps(check)}")
+    if bad:
+        raise AssertionError(
+            f"fused Lion kernel disagrees with its plain version at the "
+            f"main path's size: {bad} {check}")
+    return check
+
+
+def sparse_bound(maps, b, h, s, d, itemsize, backward=False):
+    """Least time (ms) for one call on these inputs: the live blocks'
+    products (forward 2: q k^T and p v; backward 5: q k^T, do v^T, p^T do,
+    ds^T q, ds k) over the tensor rate of the type, against the bytes
+    (forward: q, k, v and the block lists in, o and lse out; backward: q,
+    k, v, o, do, lse and the lists in, dq, dk, dv out) over the memory
+    rate; the larger bounds it."""
+    live = int(maps.counts.sum())
+    blk = maps.block
+    flops = (10 if backward else 4) * b * live * blk * blk * d
+    x = b * h * s * d * itemsize
+    lists = 4 * sum(t.numel() for t in (maps.jmap, maps.counts) +
+                    ((maps.imap, maps.countsT) if backward else ()))
+    lse = b * h * s * 4
+    nbytes = (8 * x + lse if backward else 4 * x + lse) + lists
+    rate = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            dict(live_blocks=live, gflop=flops / 1e9, mbytes=nbytes / 1e6))
+
+
+def path_kernel_times(dev, lion_numel: int, flush=None, iters=20):
+    """Fused Lion over Path T's flat buffers (124,475,904 fp32 values + the
+    bf16 copy) and the block-sparse forward and backward at Path P's
+    shape: each held against its plain version on these inputs first,
+    then kernel, plain, library and bound times in ms."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.fused_optimizers import (fused_lion_step,
+                                                          lion_plain)
+    from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
+    rec = {}
+    n = lion_numel
+    g = torch.Generator(device=dev).manual_seed(4)
+    p, grad = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+    m = torch.randn(n, generator=g, device=dev) * 0.1
+    out = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    hp = torch.tensor([1e-4, 0.9, 0.99, 0.5, 1.0], device=dev)
+    kw = dict(weight_decay=0.01)
+    lion_check = lion_main_check(p, grad, m, hp, torch.bfloat16, **kw)
+    t_bytes = n * (12 + 8 + 2) / HBM_BYTES_PER_S    # p, g, m in; p, m, copy
+    t_ops = 10 * n / FP32_FLOPS
+    rec["fused_lion"] = dict(
+        ms=time_ms(lambda: fused_lion_step(p, grad, m, hp, out=out, **kw),
+                   dev, iters, flush),
+        plain_ms=time_ms(lambda: lion_plain(p, grad, m, hp, out=out, **kw),
+                         dev, max(iters // 4, 2), flush),
+        library_ms=None, library="no single PyTorch call computes Lion "
+                                 "(torch.optim has none)",
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms_without_bf16_copy=n * 20 / HBM_BYTES_PER_S * 1e3,
+        numel=n, check=lion_check)
+    log(f"[kernel] fused_lion times (ms) over {n} fp32 params + bf16 copy: "
+        f"{json.dumps({k: v for k, v in rec['fused_lion'].items() if k != 'check'})}")
+    del p, grad, m, out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    shape = PATH_P
+    layout = sparse_layout(shape["h"], shape["s"], **PATH_P_LAYOUT)
+    maps = bsa.block_maps(layout, dev, PATH_P_LAYOUT["block"])
+    q, k, v, do = sparse_inputs(dev, torch.bfloat16, **shape, seed=5)
+    o, lse, sparse_check = sparse_compare(q, k, v, do, maps, TOL["bfloat16"])
+    log(f"[kernel] block-sparse Path P {json.dumps(shape)} bf16, kernel vs "
+        f"plain: {json.dumps(sparse_check)}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    mask = torch.stack([bsa.live_mask(maps, i) for i in range(shape["h"])])[None]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    lib_err = rel_max(lib_out.detach(), o)
+    for name, backward in (("block_sparse_attention_fwd", False),
+                           ("block_sparse_attention_bwd", True)):
+        bound, by, work = sparse_bound(maps, **shape, itemsize=2,
+                                       backward=backward)
+        if backward:
+            times = dict(
+                ms=time_ms(lambda: bsa.block_sparse_attention_bwd(
+                    q, k, v, o, lse, do, maps), dev, iters, flush),
+                plain_ms=time_ms(lambda: bsa.block_sparse_attention_bwd_plain(
+                    q, k, v, o, lse, do, maps), dev, 2, flush),
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    lib_out, leaves, do, retain_graph=True), dev, iters,
+                    flush))
+        else:
+            times = dict(
+                ms=time_ms(lambda: bsa.block_sparse_attention_fwd(
+                    q, k, v, maps), dev, iters, flush),
+                plain_ms=time_ms(lambda: bsa.block_sparse_attention_fwd_plain(
+                    q, k, v, maps), dev, 2, flush),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask), dev, iters, flush))
+        rec[name] = dict(times, bound_ms=bound, bound_by=by,
+                         library="SDPA with the expanded layout as a "
+                                 "boolean mask",
+                         library_o_max_rel_err=lib_err, check=sparse_check,
+                         **work)
+        log(f"[kernel] {name} times (ms) at B=8 H=12 S=4096 D=64 bf16 "
+            f"fixed layout: {json.dumps({k: v for k, v in rec[name].items() if k != 'check'})}")
+    del lib_out, leaves, mask
+    return rec
+
+
+# ------------------------------------------------- phase 8, Path T at width
+def triple_step(engine, batch, ga):
+    """One step of DeepSpeed's loop over the batch's ga micro-batches:
+    loss = engine(micro); engine.backward(loss) each; then engine.step().
+    Returns the mean micro loss (a device tensor)."""
+    import torch
+    tokens, targets = batch
+    mb = tokens.shape[0] // ga
+    losses = []
+    for i in range(ga):
+        loss = engine((tokens[i * mb:(i + 1) * mb],
+                       targets[i * mb:(i + 1) * mb]))
+        engine.backward(loss)
+        losses.append(loss.detach())
+    if not engine.is_gradient_accumulation_boundary():
+        raise AssertionError("no gradient-accumulation boundary after "
+                             f"{ga} micro-batches")
+    engine.step()
+    return torch.stack(losses).mean()
+
+
+def path_t_main(dev, size="125m", steps=10, seq=1024):
+    """Phase 8: initialize(GPT-2 125M, loss_chunk 256, fused Lion, GA 2)
+    -> per step two engine(micro) + engine.backward(loss), engine.step();
+    one warm-up step then ``steps`` timed steps on one fixed batch, each
+    timed on the host clock up to a synchronize. Every count is set to 0
+    right before the timed steps and read right after."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.fused_optimizers import (fused_adam_step,
+                                                          fused_lion_step)
+    model = GPT2(size=size, device=dev, **PATH_T_MODEL)
+    engine, _, _, _ = ds.initialize(model=model, config=PATH_T_CONFIG)
+    c = model.config
+    ga = engine.gradient_accumulation_steps_
+    rows = engine.train_batch_size_
+    batch = train_batch_of(dev, c.vocab_size, rows, seq, seed=6)
+    triple_step(engine, batch, ga)                            # warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.calls = 0
+    fused_adam_step.launches = 0
+    fused_lion_step.launches = 0
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(triple_step(engine, batch, ga))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "flash_attention_bwd": fa.flash_attention_bwd.launches,
+                "flash_attention_bwd_calls": fa.flash_attention_bwd.calls,
+                "fused_lion": fused_lion_step.launches,
+                "fused_adam": fused_adam_step.launches}
+    losses = [float(x) for x in losses]
+    tok_s = rows * seq * steps / sum(step_s)
+    stats = dict(
+        model=f"gpt2-{size} vocab {c.vocab_size} loss_chunk {c.loss_chunk}",
+        params=c.num_params(), batch=rows, micro_batch=rows // ga, ga=ga,
+        seq=seq, steps=steps, optimizer="Lion fused_kernel",
+        step_ms=1e3 * sum(step_s) / steps,
+        step_ms_min=1e3 * min(step_s), step_ms_max=1e3 * max(step_s),
+        tokens_per_s=tok_s,
+        mfu=c.flops_per_token(seq, causal=True) * tok_s / BF16_FLOPS,
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else None),
+        losses=losses, grad_norm=engine.get_global_grad_norm(),
+        global_steps=engine.global_steps, launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()})
+    log(f"[path T] {json.dumps(stats)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Path T losses not finite and falling: "
+                             f"{losses}")
+    calls = c.num_layers * ga * steps
+    want = {"flash_attention_fwd": calls, "flash_attention_bwd": 2 * calls,
+            "flash_attention_bwd_calls": calls, "fused_lion": steps,
+            "fused_adam": 0}
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(
+            f"Path T launches {launches} != {want} (one forward and one "
+            f"backward flash call per layer and micro-batch, two backward "
+            f"launches per call, one Lion launch per step, no Adam)")
+    return engine, batch, stats
+
+
+# --------------------------------- phase 9, Path T kernels against plain
+def path_t_kernel_vs_plain(dev, size="125m", rows=2, seq=1024, steps=3):
+    """Three engines of Path T's configuration from the same weights, fp32
+    with TF32 off, GA 2, on one batch for ``steps`` steps:
+
+      * kernels, the triple: flash attention, fused Lion;
+      * plain Lion, the triple: the same with fused_kernel off, so the
+        step is lion_plain (attention stays on the flash kernels, held
+        against its plain version in phase 7);
+      * kernels, train_batch.
+
+    The losses of every step agree to 1e-5 relative and the params after
+    ``steps`` steps to 1e-3 of the norm of their total change. The kernel
+    rounds as the plain version does and both loops run the same two
+    halves, so they are expected to agree exactly."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPT2
+    runs, init = {}, None
+    for name, fused, loop in (("kernels_triple", True, "triple"),
+                              ("plain_lion_triple", False, "triple"),
+                              ("kernels_train_batch", True, "train_batch")):
+        cfg = dict(PATH_T_CONFIG, train_batch_size=rows, bf16={
+            "enabled": False})
+        cfg["optimizer"] = {"type": "Lion", "params": dict(
+            PATH_T_CONFIG["optimizer"]["params"], fused_kernel=fused)}
+        model = GPT2(size=size, device=dev, **PATH_T_MODEL)
+        engine, _, _, _ = ds.initialize(model=model, config=cfg,
+                                        model_parameters=init)
+        if init is None:
+            init = {n: t.clone() for n, t in
+                    engine.master_state_dict().items()}
+        start = engine._master.clone()
+        batch = train_batch_of(dev, model.config.vocab_size, rows, seq,
+                               seed=8)
+        ga = engine.gradient_accumulation_steps_
+        losses = []
+        for _ in range(steps):
+            loss = (triple_step(engine, batch, ga) if loop == "triple"
+                    else engine.train_batch(batch))
+            losses.append(float(loss))
+        runs[name] = (losses, engine._master - start)
+        del engine, model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    ref_losses, ref_change = runs["kernels_triple"]
+    moved = float(torch.linalg.vector_norm(ref_change))
+    out = {"params_total_change": moved}
+    for name in ("plain_lion_triple", "kernels_train_batch"):
+        losses, change = runs[name]
+        out[name] = dict(
+            losses=losses, loss_max_rel_err=max(
+                abs(a - b) / abs(b) for a, b in zip(ref_losses, losses)),
+            params_err_rel_to_change=float(torch.linalg.vector_norm(
+                ref_change - change)) / moved,
+            params_equal=bool(torch.equal(ref_change, change)))
+    out["kernels_triple_losses"] = ref_losses
+    log(f"[path T vs plain] fp32: {json.dumps(out)}")
+    for name in ("plain_lion_triple", "kernels_train_batch"):
+        r = out[name]
+        if r["loss_max_rel_err"] > 1e-5 or r["params_err_rel_to_change"] > 1e-3:
+            raise AssertionError(f"Path T kernels_triple vs {name}: {r}")
+    return out
+
+
+# ----------------------------------------------- phase 10, Path P at width
+def path_p_main(dev, small=dict(b=2, h=4, s=256, d=64)):
+    """SparseSelfAttention at Path P's shape (bf16), forward and backward
+    through autograd as a caller runs it: a first call, which also builds
+    the layout and its block lists on the host and copies them to the
+    card once, then a second call, timed, with the counts set to 0 right
+    before and read right after: one forward and two backward launches.
+    Then the output and grads are held against the plain versions on the
+    same inputs (bf16 3e-2 of the largest element, lse 1e-5), and the same
+    module in fp32 at a small shape at 1e-4."""
+    import torch
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+    from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
+    out = {}
+    for dtype_name, shape in (("bfloat16", PATH_P), ("float32", small)):
+        dtype = getattr(torch, dtype_name)
+        tol = TOL[dtype_name]
+        attn = tsa.SparseSelfAttention(tsa.FixedSparsityConfig(
+            num_heads=shape["h"], **PATH_P_LAYOUT))
+        q, k, v, do = sparse_inputs(dev, dtype, **shape, seed=9)
+        walls = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            bsa.block_sparse_attention_fwd.launches = 0
+            bsa.block_sparse_attention_bwd.launches = 0
+            t = time.perf_counter()
+            o = attn(*leaves)
+            o.backward(do)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        launches = {"block_sparse_attention_fwd":
+                    bsa.block_sparse_attention_fwd.launches,
+                    "block_sparse_attention_bwd":
+                    bsa.block_sparse_attention_bwd.launches}
+        fn = attn._kernel(shape["s"], shape["h"], shape["d"])
+        maps = fn.maps(dev, shape["s"])
+        o_ref, lse_ref = bsa.block_sparse_attention_fwd_plain(q, k, v, maps)
+        refs = bsa.block_sparse_attention_bwd_plain(q, k, v, o_ref, lse_ref,
+                                                    do, maps)
+        _, lse = bsa.block_sparse_attention_fwd(q, k, v, maps)
+        rec = dict(
+            shape=shape, dtype=dtype_name, fwd_bwd_wall_ms=walls[1],
+            first_call_wall_ms=walls[0],
+            launches=launches, finite=bool(torch.isfinite(o).all()),
+            fwd_max_abs_err=float((o.detach().float() - o_ref.float()).abs()
+                                  .max()),
+            fwd_max_rel_err=rel_max(o.detach(), o_ref),
+            lse_max_rel_err=rel_max(lse, lse_ref),
+            bwd_max_rel_err=max(rel_max(t.grad, r)
+                                for t, r in zip(leaves, refs)),
+            density=bsa.sparsity_stats(fn.layout)["density"])
+        out[dtype_name] = rec
+        log(f"[path P] {json.dumps(rec)}")
+        del leaves, o, o_ref, refs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if (not rec["finite"] or rec["fwd_max_rel_err"] > tol
+                or rec["lse_max_rel_err"] > 1e-5
+                or rec["bwd_max_rel_err"] > tol):
+            raise AssertionError(f"Path P kernels vs plain: {rec} "
+                                 f"(tol {tol:g})")
+        if dev.type == "cuda" and launches != {
+                "block_sparse_attention_fwd": 1,
+                "block_sparse_attention_bwd": 2}:
+            raise AssertionError(f"Path P launches {launches} != one "
+                                 f"forward and two backward")
+    return out
+
+
 def flat_numel(size: str) -> int:
     """Length of the engine's flat master for GPT-2 ``size`` (vocab
     50304), from a model on the meta device."""
@@ -898,6 +1431,8 @@ PROFILE_KINDS = {
     "flash_attention": ("flash_fwd_kernel", "flash_bwd_"),
     "paged_attention": ("paged_attention_kernel",),
     "fused_adam": ("fused_adam_kernel",),
+    "fused_lion": ("fused_lion_kernel",),
+    "block_sparse_attention": ("bs_fwd_kernel", "bs_bwd_"),
     "gemm": ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas"),
     "reduction": ("reduce_kernel",),
     "copy": ("copy", "Memcpy", "Memset", "cat"),
@@ -980,8 +1515,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a prefill tick and decode ticks of the "
-                         "serving path and one training step with "
-                         "torch.profiler")
+                         "serving path, one train_batch step and one Path T "
+                         "step with torch.profiler")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1014,6 +1549,9 @@ def main(argv=None) -> int:
     adam_err = adam_checks(dev)
     adam_numel = flat_numel("125m")
     train_times = train_kernel_times(dev, adam_numel, flush)
+    lion_err, lion_identical = lion_checks(dev)
+    sparse_errs = sparse_checks(dev)
+    path_times = path_kernel_times(dev, adam_numel, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -1035,6 +1573,19 @@ def main(argv=None) -> int:
     del trainer
     torch.cuda.empty_cache()
     parity = train_path_kernel_vs_plain(dev)                  # phase 7
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer, batch, path_t = path_t_main(dev)                 # phase 8
+    if args.profile:
+        ga = trainer.gradient_accumulation_steps_
+        profile_window("path_t_step",
+                       lambda: triple_step(trainer, batch, ga), 1)
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_t_parity = path_t_kernel_vs_plain(dev)               # phase 9
+    path_p = path_p_main(dev)                                 # phase 10
 
     def entry(name, kernel, launches, max_abs_err, t, **extra):
         return {"name": name, "route": "cuda",
@@ -1044,12 +1595,14 @@ def main(argv=None) -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], **extra}
 
-    def worst(key, dtype):
-        return max(e[key] for (dt, _), e in flash_errs.items() if dt == dtype)
+    def worst(key, dtype, errs=flash_errs):
+        return max(e[key] for (dt, _), e in errs.items() if dt == dtype)
 
     dec, pre = times["decode"], times["prefill"]
     flash_main = train_times["flash_attention_fwd"]["check"]
     adam_main = train_times["fused_adam"]["check"]
+    lion_main = path_times["fused_lion"]["check"]
+    sparse_main = path_times["block_sparse_attention_fwd"]["check"]
     kernels = [
         entry("paged_attention", "paged_attention", stats["launches"],
               max(v for (dt, _), v in errs.items() if dt == "bfloat16"), dec,
@@ -1100,10 +1653,61 @@ def main(argv=None) -> int:
               shape=f"{adam_numel} fp32 params + bf16 copy, AdamW",
               cases_max_abs_err=adam_err,
               cases="7 sizes 1..2^20+5 x AdamW/L2 x 3 steps, schedule"),
+        entry("fused_lion", "fused_lion", path_t["launches"]["fused_lion"],
+              max(lion_main[f"{t}_max_abs_err"] for t in "pm"),
+              path_times["fused_lion"], tol=ADAM_TOL,
+              library=path_times["fused_lion"]["library"],
+              bitwise_equal_to_plain=lion_main["bitwise_equal"],
+              copy_max_abs_err=lion_main["copy_max_abs_err"],
+              bound_ms_without_bf16_copy=path_times["fused_lion"][
+                  "bound_ms_without_bf16_copy"], main_path="Path T",
+              shape=f"{adam_numel} fp32 params + bf16 copy, Lion wd 0.01",
+              cases_max_abs_err=lion_err,
+              cases_bitwise_equal=lion_identical,
+              cases="8 sizes 1..2^20+5 x wd 0/0.05 x 3 steps, schedule",
+              main_path_parity=path_t_parity["plain_lion_triple"]),
+        entry("block_sparse_attention_fwd", "block_sparse_attention",
+              path_p["bfloat16"]["launches"]["block_sparse_attention_fwd"],
+              sparse_main["fwd_max_abs_err"],
+              path_times["block_sparse_attention_fwd"],
+              max_rel_err=sparse_main["fwd_max_rel_err"],
+              tol_rel=TOL["bfloat16"],
+              lse_max_rel_err=sparse_main["lse_max_rel_err"], lse_tol=1e-5,
+              main_path="Path P", shape=SPARSE_SHAPE,
+              live_blocks=path_times["block_sparse_attention_fwd"][
+                  "live_blocks"],
+              library=path_times["block_sparse_attention_fwd"]["library"],
+              cases_max_rel_err_bf16=worst("fwd_max_rel_err", "bfloat16",
+                                           sparse_errs),
+              cases_max_rel_err_fp32=worst("fwd_max_rel_err", "float32",
+                                           sparse_errs),
+              cases_tol_fp32=TOL["float32"], cases=SPARSE_NOTE,
+              main_path_max_rel_err=path_p["bfloat16"]["fwd_max_rel_err"],
+              main_path_fp32_small_max_rel_err=path_p["float32"][
+                  "fwd_max_rel_err"]),
+        entry("block_sparse_attention_bwd", "block_sparse_attention",
+              path_p["bfloat16"]["launches"]["block_sparse_attention_bwd"],
+              sparse_main["bwd_max_abs_err"],
+              path_times["block_sparse_attention_bwd"],
+              max_rel_err=sparse_main["bwd_max_rel_err"],
+              tol_rel=TOL["bfloat16"], launches_per_call=2,
+              main_path="Path P", shape=SPARSE_SHAPE,
+              library=path_times["block_sparse_attention_bwd"]["library"],
+              cases_max_rel_err_bf16=worst("bwd_max_rel_err", "bfloat16",
+                                           sparse_errs),
+              cases_max_rel_err_fp32=worst("bwd_max_rel_err", "float32",
+                                           sparse_errs),
+              cases_tol_fp32=TOL["float32"], cases=SPARSE_NOTE,
+              main_path_max_rel_err=path_p["bfloat16"]["bwd_max_rel_err"],
+              main_path_fp32_small_max_rel_err=path_p["float32"][
+                  "bwd_max_rel_err"]),
     ]
     log(f"[main] serving {json.dumps(stats)} on {card}")
     log(f"[main] training {json.dumps(train)} on {card}")
     log(f"[main] training kernels vs plain {json.dumps(parity)}")
+    log(f"[main] Path T {json.dumps(path_t)} on {card}")
+    log(f"[main] Path T kernels vs plain {json.dumps(path_t_parity)}")
+    log(f"[main] Path P {json.dumps(path_p)} on {card}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -5,9 +5,13 @@ package is the reference each slice is held against. Ported so far:
 
   - ``initialize(model=..., config=...)`` -> (engine, optimizer, None,
     lr_scheduler): the training engine (``runtime/engine.py``), whose
-    ``train_batch`` runs GPT-2/Llama-family models with the hand-written
-    Hopper flash-attention (``csrc/flash_attention.cu``) and fused-Adam
-    (``csrc/fused_adam.cu``) kernels;
+    ``train_batch`` and ``forward``/``backward``/``step`` run
+    GPT-2/Llama-family models with the hand-written Hopper
+    flash-attention (``csrc/flash_attention.cu``), fused-Adam
+    (``csrc/fused_adam.cu``) and fused-Lion (``csrc/fused_lion.cu``)
+    kernels;
+  - ``ops.sparse_attention``: ``SparseSelfAttention`` on the
+    block-sparse attention kernels (``csrc/block_sparse_attention.cu``);
   - ``inference.v2.build_engine``: the v2 serving path with its
     paged-attention kernel (``csrc/paged_attention.cu``).
 

@@ -11,11 +11,12 @@ their JAX counterparts do, so the paged serving forward
 (``inference/v2/paged.py``) composes them the same way.
 
 Training: :meth:`DecoderLM.loss` is the mean token cross-entropy of
-:meth:`apply`; ``attn_impl="flash"`` runs attention through the
-flash-attention kernels (``ops/flash_attention.py``). Under autograd the
-layers are rematerialised with ``torch.utils.checkpoint`` per
-``remat_policy``: ``"nothing_saveable"`` checkpoints each whole block, as
-the JAX layer scan does; ``"segments"`` keeps attention outside any
+:meth:`apply`, or with ``loss_chunk > 0`` the chunked cross-entropy that
+never forms the [B, S, V] logits; ``attn_impl="flash"`` runs attention
+through the flash-attention kernels (``ops/flash_attention.py``). Under
+autograd the layers are rematerialised with ``torch.utils.checkpoint``
+per ``remat_policy``: ``"nothing_saveable"`` checkpoints each whole block,
+as the JAX layer scan does; ``"segments"`` keeps attention outside any
 checkpoint, so its backward never reruns the forward kernel.
 """
 
@@ -327,13 +328,19 @@ class DecoderLM(nn.Module):
                                use_reentrant=False)
         return x
 
+    def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return self._norm(x, self.params["final_norm/scale"],
+                          self.params.get("final_norm/bias"))
+
+    def _vocab_weight(self) -> torch.Tensor:
+        """The [D, V] vocab projection (tied: the embedding's transpose)."""
+        if self.config.tie_embeddings:
+            return self.params["embed/tokens"].T
+        return self.params["lm_head"]
+
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + vocab projection: logits [..., V]."""
-        x = self._norm(x, self.params["final_norm/scale"],
-                       self.params.get("final_norm/bias"))
-        if self.config.tie_embeddings:
-            return x @ self.params["embed/tokens"].T
-        out = x @ self.params["lm_head"]
+        out = self._final_norm(x) @ self._vocab_weight()
         if "lm_head_b" in self.params:
             out = out + self.params["lm_head_b"]
         return out
@@ -350,7 +357,38 @@ class DecoderLM(nn.Module):
         ``(tokens, targets)`` pair or a dict with those keys, each [B, S].
         Dense models add no router loss (the JAX aux term is 0)."""
         tokens, targets = _unpack_batch(batch)
+        if self.config.loss_chunk > 0:
+            return self._chunked_loss(tokens, targets)
         return L.cross_entropy_loss(self.apply(tokens), targets)
+
+    def _chunked_loss(self, tokens, targets) -> torch.Tensor:
+        """Chunked cross-entropy (JAX ``_chunked_loss``): the final-normed
+        hidden states are cut into sequence chunks of ``loss_chunk``; per
+        chunk the vocab projection and the fp32 logsumexp/NLL run under
+        ``torch.utils.checkpoint``, so only one [B, chunk, V] slab of
+        logits lives at a time and the backward recomputes it. The loss
+        is the summed NLL over the summed count of valid targets (-100
+        masked), not a mean of per-chunk means."""
+        c = self.config
+        x = self._final_norm(self.final_hidden(tokens))
+        w = self._vocab_weight()
+        bias = self.params["lm_head_b"] if "lm_head_b" in self.params \
+            else None
+        s = x.shape[1]
+        chunk = min(c.loss_chunk, s)
+        if s % chunk != 0:
+            raise ValueError(
+                f"loss_chunk {c.loss_chunk} (effective {chunk}) must "
+                f"divide sequence length {s}")
+        nll = torch.zeros((), dtype=torch.float32, device=x.device)
+        count = torch.zeros((), dtype=torch.int64, device=x.device)
+        for i in range(0, s, chunk):
+            args = (x[:, i:i + chunk], targets[:, i:i + chunk], w, bias)
+            part, n = (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                       if torch.is_grad_enabled() else _chunk_nll(*args))
+            nll = nll + part
+            count = count + n
+        return nll / torch.clamp(count, min=1)
 
 
 def check_training_options(c: ModelConfig) -> None:
@@ -360,10 +398,20 @@ def check_training_options(c: ModelConfig) -> None:
             f"remat_policy {c.remat_policy!r} is not ported yet (ROADMAP: "
             f"port Queue 1, remaining remat policies); ported: "
             f"{REMAT_POLICIES} or remat=False")
-    if c.loss_chunk > 0:
-        raise NotImplementedError(
-            "loss_chunk > 0 (chunked cross-entropy) is not ported yet "
-            "(ROADMAP: port Queue 1, loss_chunk)")
+
+
+def _chunk_nll(x, targets, w, bias, ignore_index: int = -100):
+    """Summed NLL (fp32) and count of the valid targets of one chunk,
+    with the masking contract of ``ops.layers.cross_entropy_loss``."""
+    logits = (x @ w.to(x.dtype)).float()
+    if bias is not None:
+        logits = logits + bias.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, torch.zeros_like(targets))
+    true_logit = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    nll = torch.where(valid, lse - true_logit, torch.zeros_like(lse))
+    return nll.sum(), valid.sum()
 
 
 def _unpack_batch(batch):

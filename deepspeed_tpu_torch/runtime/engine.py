@@ -3,6 +3,8 @@
 
     engine, opt, _, sched = deepspeed_tpu_torch.initialize(model=m, config=cfg)
     loss = engine.train_batch((tokens, targets))
+    # or DeepSpeed's own loop, one micro-batch at a time:
+    loss = engine(micro); engine.backward(loss); engine.step()
 
 ``train_batch`` has the semantics of the JAX engine's compiled step
 (``_build_train_step``): the loss times the loss scale; fp32 gradients,
@@ -11,18 +13,24 @@ grads times 1/(scale * GA); the global grad norm before clipping; clip
 coefficient min(1, clip / (norm + 1e-6)); the optimizer on the fp32
 master; on fp16 overflow the update is skipped and the loss scale moves;
 params = master cast to the compute dtype; the step counter advances only
-on a finite step. It runs eagerly on the model's device and reads nothing
-back to the host except every ``steps_per_print`` steps, where the JAX
-engine also waits for the loss.
+on a finite step. The eager ``forward``/``backward``/``step`` triple
+(JAX ``engine.py:1193-1418``) runs the same two halves: ``backward``
+accumulates one micro-batch's fp32 grads as each of ``train_batch``'s
+micro-batches does, and ``step`` at the gradient-accumulation boundary
+applies the same update. The engine runs eagerly on the model's device
+and reads nothing back to the host except every ``steps_per_print``
+steps, where the JAX engine also waits for the loss.
 
-State layout: the fp32 master, the grads and Adam's m and v are each one
-flat buffer with a view per parameter (offsets aligned to 64 elements),
-and in mixed precision the model's parameters become views of one flat
-compute-dtype buffer, so the fused-Adam kernel updates the whole model,
-compute copy included, in one launch.
+State layout: the fp32 master, the grads and the optimizer's moments are
+each one flat buffer with a view per parameter (offsets aligned to 64
+elements), and in mixed precision the model's parameters become views of
+one flat compute-dtype buffer, so the fused-Adam or fused-Lion kernel
+updates the whole model, compute copy included, in one launch.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -38,9 +46,6 @@ from .optimizers import build_optimizer
 from .zero import ZeroPlan, world_size
 
 _ALIGN = 64   # elements: every parameter view starts 128-byte aligned
-
-_LATER = ("forward()/backward()/step() are not ported yet (ROADMAP: port "
-          "Queue 1, forward/backward/step); use train_batch")
 
 
 def _flat_layout(params) -> tuple[dict[str, tuple[int, int, torch.Size]],
@@ -122,6 +127,10 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.global_samples = 0
         self._last_metrics = None
+        self._last_loss = None          # forward()'s loss, for backward()
+        self._micro_losses = []         # backward()'s losses since step()
+        self._micro_count = 0
+        self._inside_no_sync = False
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_batch_size_,
             steps_per_output=self.config.steps_per_print,
@@ -136,7 +145,8 @@ class DeepSpeedEngine:
             f"dtype={self.compute_dtype} device={self.device} "
             f"batch=({self.train_batch_size_},{self.micro_batch_size_},"
             f"ga={self.gradient_accumulation_steps_}) "
-            f"fused_adam={getattr(self.tx, 'fused', False)}")
+            f"optimizer={type(self.tx).__name__} "
+            f"fused={getattr(self.tx, 'fused', False)}")
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -214,22 +224,28 @@ class DeepSpeedEngine:
             return {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
         return type(batch)(x[i * mb:(i + 1) * mb] for x in batch)
 
-    def _train_step(self, batch) -> dict:
-        ga = self.gradient_accumulation_steps_
-        mb = batch_rows(batch) // ga
+    def _accumulate(self, loss, first: bool, retain_graph=False) -> None:
+        """Backward of one micro-batch's loss (times the fp16 loss scale)
+        and its grads into the flat fp32 grad buffer: copied for the first
+        micro-batch of a step, added for the others."""
         scale = self._loss_scale.scale
-        params = self.module.params
-        losses = []
-        for i in range(ga):
-            loss = self.module.loss(self._micro(batch, i, mb))
-            (loss * scale if self.fp16_enabled else loss).backward()
-            for name, p in params.items():
-                if i == 0:
-                    self._grad_views[name].copy_(p.grad)
-                else:
-                    self._grad_views[name].add_(p.grad)
-                p.grad = None
-            losses.append(loss.detach())
+        (loss * scale if self.fp16_enabled else loss).backward(
+            retain_graph=retain_graph)
+        for name, p in self.module.params.items():
+            if first:
+                self._grad_views[name].copy_(p.grad)
+            else:
+                self._grad_views[name].add_(p.grad)
+            p.grad = None
+
+    def _apply_step(self, losses) -> dict:
+        """The update from the accumulated grads (JAX ``apply_grads``):
+        unscale and average over GA, the fp16 finite check, the global
+        norm and clip coefficient, the optimizer on the master, the loss
+        scale; then the counters, once per step, and the report every
+        ``steps_per_print`` steps."""
+        ga = self.gradient_accumulation_steps_
+        scale = self._loss_scale.scale
         grads = self._grads
         # unscale + average over GAS (reference: engine.py:2024)
         if self.fp16_enabled:
@@ -257,8 +273,14 @@ class DeepSpeedEngine:
             self._step += 1
         overflow = (~finite if finite is not None
                     else torch.zeros((), dtype=torch.bool, device=self.device))
-        return {"loss": torch.stack(losses).mean(), "grad_norm": grad_norm,
-                "loss_scale": self._loss_scale.scale, "overflow": overflow}
+        metrics = {"loss": torch.stack(losses).mean(), "grad_norm": grad_norm,
+                   "loss_scale": self._loss_scale.scale, "overflow": overflow}
+        self.global_steps += 1
+        self.global_samples += self.train_batch_size_
+        self._last_metrics = metrics
+        if self.global_steps % self.config.steps_per_print == 0:
+            self._report(metrics)
+        return metrics
 
     # ------------------------------------------------------------------
     # public API (reference parity)
@@ -277,15 +299,17 @@ class DeepSpeedEngine:
             raise ValueError(f"batch has {rows} rows, train_batch_size is "
                              f"{self.train_batch_size_}")
         self.tput_timer.start()
-        metrics = self._train_step(batch)
-        self.global_steps += 1
-        self.global_samples += self.train_batch_size_
-        self._last_metrics = metrics
-        if self.global_steps % self.config.steps_per_print == 0:
-            self.tput_timer.stop(sync=metrics["loss"])
-            self._report(metrics)
-        else:
-            self.tput_timer.stop(report_speed=False)
+        ga = self.gradient_accumulation_steps_
+        mb = rows // ga
+        losses = []
+        for i in range(ga):
+            loss = self.module.loss(self._micro(batch, i, mb))
+            self._accumulate(loss, first=i == 0)
+            losses.append(loss.detach())
+        metrics = self._apply_step(losses)
+        printed = self.global_steps % self.config.steps_per_print == 0
+        self.tput_timer.stop(sync=metrics["loss"] if printed else None,
+                             report_speed=printed)
         return metrics["loss"]
 
     def _report(self, metrics):
@@ -300,16 +324,72 @@ class DeepSpeedEngine:
         with torch.no_grad():
             return self.module.loss(self._put_batch(batch))
 
+    # --- forward/backward/step (JAX engine.py:1193-1418) ---------------
     def forward(self, batch):
-        raise NotImplementedError(_LATER)
+        """The loss of one micro-batch (reference: engine.forward), with
+        its autograd graph, which ``backward`` consumes. JAX recomputes the
+        graph in ``backward``; the numbers are the same. The engine holds
+        only the latest loss (for ``backward(None)``), so the graph of a
+        ``forward`` that no ``backward`` consumed is freed by the next
+        ``forward`` once the caller drops it."""
+        self._last_loss = self.module.loss(self._put_batch(batch))
+        return self._last_loss
 
     __call__ = forward
 
     def backward(self, loss=None, retain_graph=False):
-        raise NotImplementedError(_LATER)
+        """Accumulate the grads of one micro-batch (reference:
+        engine.backward:2007): ``loss`` (times the fp16 loss scale) runs
+        its backward and the fp32 grads add into the flat grad buffer.
+        ``loss=None`` takes the loss of the last ``forward``."""
+        if loss is None:
+            loss = self._last_loss
+            if loss is None:
+                raise RuntimeError("backward() without a loss needs a "
+                                   "forward() first")
+        self._accumulate(loss, first=self._micro_count == 0,
+                         retain_graph=retain_graph)
+        if loss is self._last_loss and not retain_graph:
+            self._last_loss = None      # its graph is spent
+        self._micro_losses.append(loss.detach())
+        self._micro_count += 1
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return self._micro_count >= self.gradient_accumulation_steps_
 
     def step(self):
-        raise NotImplementedError(_LATER)
+        """Apply the update from the accumulated grads (reference:
+        engine.step:2204); does nothing until the GA boundary."""
+        assert not self._inside_no_sync, \
+            "it is illegal to call engine.step() within the no_sync " \
+            "context manager (reference engine.py:1992)"
+        if not self.is_gradient_accumulation_boundary():
+            return
+        self._apply_step(self._micro_losses)
+        self._micro_losses = []
+        self._micro_count = 0
+
+    def no_sync(self):
+        """Context manager (reference: engine.no_sync:1987). At world size
+        1 there is no gradient reduction to defer; the context keeps what
+        the JAX engine keeps of the reference: it refuses ZeRO stage >= 2
+        (partitioned grads), ``step()`` is illegal inside it, and reentry
+        is unsupported."""
+        assert self.zero_stage < 2, (
+            "no_sync context manager is incompatible with gradient "
+            f"partitioning logic of ZeRO stage {self.zero_stage} "
+            "(reference engine.py:1995)")
+        assert not self._inside_no_sync, \
+            "no_sync context manager reentry is unsupported"
+
+        @contextlib.contextmanager
+        def ctx():
+            self._inside_no_sync = True
+            try:
+                yield
+            finally:
+                self._inside_no_sync = False
+        return ctx()
 
     # --- accessors (reference parity) ---------------------------------
     def _applied_steps(self) -> int:

@@ -3,18 +3,19 @@ reference: engine.py:1280 _configure_optimizer).
 
 The reference's spellings map to canonical names so DeepSpeed JSON
 configs work unchanged: Adam/AdamW/FusedAdam/CPUAdam -> adam(w), and so
-on. Adam and AdamW are ported: with ``"fused_kernel": true`` (the JAX
-package's switch to its Pallas ``fused_adam``) every step is one launch of
-the fused-Adam kernel; without it the step is the same arithmetic in plain
-PyTorch (the JAX engine runs ``optax.adamw`` there, no kernel of its own).
-Every other optimizer raises ``NotImplementedError`` naming its queue.
+on. Adam, AdamW and Lion are ported: with ``"fused_kernel": true`` (the
+JAX package's switch to its Pallas ``fused_adam``/``fused_lion``) every
+step is one launch of the fused-Adam or fused-Lion kernel; without it the
+step is the same arithmetic in plain PyTorch (the JAX engine runs
+``optax.adamw``/``optax.lion`` there, no kernel of its own). Every other
+optimizer raises ``NotImplementedError`` naming its queue.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
 
-from ..ops.fused_optimizers import Adam
+from ..ops.fused_optimizers import Adam, Lion
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
@@ -51,7 +52,6 @@ _NAME_ALIASES = {
 
 # canonical name -> the ROADMAP queue entry that ports it
 _NOT_PORTED = {
-    LION_OPTIMIZER: "Queue 1, Lion with fused_lion (Queue 2 row 9)",
     LAMB_OPTIMIZER: "Queue 1, Slice F (other optimizers)",
     SGD_OPTIMIZER: "Queue 1, Slice F (other optimizers)",
     ADAGRAD_OPTIMIZER: "Queue 1, Slice F (other optimizers)",
@@ -63,7 +63,7 @@ _NOT_PORTED = {
 
 
 def build_optimizer(opt_type: str, params: dict[str, Any],
-                    lr_schedule: Callable, dp_world: int = 1) -> Adam:
+                    lr_schedule: Callable, dp_world: int = 1) -> Adam | Lion:
     """Build the optimizer from reference-style config params (lr comes
     from the schedule; betas, eps, weight_decay, adam_w_mode,
     fused_kernel)."""
@@ -77,11 +77,18 @@ def build_optimizer(opt_type: str, params: dict[str, Any],
             f"{_NOT_PORTED[name]})")
     p = dict(params)
     betas = p.pop("betas", (0.9, 0.999))
+    fused = bool(p.pop("fused_kernel", False))
+    if name == LION_OPTIMIZER:
+        # betas defaults to Adam's (0.9, 0.999) before this branch, as in
+        # the JAX factory, so a Lion config without betas runs b2 = 0.999;
+        # only an empty betas takes optax's (0.9, 0.99)
+        b1, b2 = (betas[0], betas[1]) if betas else (0.9, 0.99)
+        return Lion(lr_schedule, b1=b1, b2=b2,
+                    weight_decay=p.pop("weight_decay", 0.0), fused=fused)
     # the reference FusedAdam defaults to adam_w_mode=True; "adamw" is
     # always decoupled, "adam" with adam_w_mode false is L2 decay
     adamw_mode = name == ADAMW_OPTIMIZER or p.pop("adam_w_mode", True)
     return Adam(lr_schedule, b1=betas[0], b2=betas[1],
                 eps=p.pop("eps", 1e-8),
                 weight_decay=p.pop("weight_decay", 0.0),
-                adamw_mode=adamw_mode,
-                fused=bool(p.pop("fused_kernel", False)))
+                adamw_mode=adamw_mode, fused=fused)

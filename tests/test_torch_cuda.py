@@ -9,8 +9,10 @@ Each kernel is held against its plain PyTorch version on the same inputs:
 attention in fp32 with TF32 off at 1e-4 (summation order only), in bf16
 at 3e-2 (the JAX package's bf16 kernel tolerance,
 tests/test_pallas_kernels.py:67), in fp16 at 1e-2 (fp16 rounds p and ds
-8x finer than bf16); fused Adam at 1e-6 absolute, 1e-5 relative (the JAX
-package's fused-Adam tolerance, :100).
+8x finer than bf16); fused Adam and fused Lion at 1e-6 absolute, 1e-5
+relative (the JAX package's fused-optimizer tolerance, :100, :145-160);
+block-sparse attention in fp32 at 1e-4 and in bf16 at 3e-2 of the
+largest value.
 """
 
 import numpy as np
@@ -19,8 +21,11 @@ import torch
 
 from deepspeed_tpu_torch.inference.v2 import build_engine, paged
 from deepspeed_tpu_torch.ops import flash_attention as fa
-from deepspeed_tpu_torch.ops.fused_optimizers import (Adam,
-                                                      fused_adam_step)
+from deepspeed_tpu_torch.ops import sparse_attention as tsa
+from deepspeed_tpu_torch.ops.fused_optimizers import (Adam, Lion,
+                                                      fused_adam_step,
+                                                      fused_lion_step)
+from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
 from deepspeed_tpu_torch.ops.layers import alibi_slopes
 
 pytestmark = pytest.mark.gpu
@@ -344,3 +349,215 @@ def test_training_engine_fp16_overflow_on_the_card(cuda):
     assert all(torch.equal(p, params[n])
                for n, p in eng.module.params.items())
     assert opt.loss_scale == grown / 2
+
+
+# ------------------------------------------------------------ fused Lion
+@pytest.mark.parametrize("wd", [0.0, 0.05])
+def test_fused_lion_matches_plain(cuda, wd):
+    """Sizes 1 to 2^16+5, a schedule, a clip coefficient, a bf16 copy, 3
+    steps on fresh grads; then an overflow step (apply = 0) that must
+    change nothing. The kernel rounds each product and sum on its own, as
+    the plain version's separate passes do."""
+    rng = np.random.default_rng(1)
+    sched = lambda step: 1e-2 * torch.clamp(  # noqa: E731
+        step.float() + 1, max=5) / 5
+    for n in (1, 3, 127, 128, 1000, 4099, 2 ** 16 + 5):
+        p0 = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        grads = [torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(cuda) for _ in range(3)]
+        runs = []
+        for fused in (True, False):
+            opt = Lion(sched, weight_decay=wd, fused=fused)
+            p = p0.to(cuda)
+            state = opt.init(p)
+            out = torch.empty(n, dtype=torch.bfloat16, device=cuda)
+            coef = torch.tensor(0.7, device=cuda)
+            before = fused_lion_step.launches
+            for g in grads:
+                opt.step(state, p, g, coef=coef, out=out)
+            assert fused_lion_step.launches == before + (3 if fused else 0)
+            snapshot = [p.clone(), state["exp_avg"].clone(), out.clone()]
+            opt.step(state, p, grads[0] * float("nan"), coef=coef, out=out,
+                     apply=torch.tensor(0.0, device=cuda))
+            torch.cuda.synchronize()
+            for before_t, after_t in zip(snapshot, (p, state["exp_avg"],
+                                                    out)):
+                assert torch.equal(before_t, after_t)
+            assert int(state["count"]) == 3
+            assert torch.equal(out, p.to(torch.bfloat16))
+            runs.append((p, state["exp_avg"], out))
+        for got, ref in zip(*runs):
+            torch.testing.assert_close(got.float(), ref.float(), atol=1e-6,
+                                       rtol=1e-5)
+
+
+def test_fused_lion_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    p = torch.zeros(16, device=cuda)
+    hp = torch.ones(5, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fused_lion_step(p, p.half(), p, hp, weight_decay=0.0)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_lion_step(p[1:], p[1:], p[1:], hp, weight_decay=0.0)
+    with pytest.raises(ValueError, match="hp"):
+        fused_lion_step(p, p, p, torch.ones(8, device=cuda),
+                        weight_decay=0.0)
+
+
+# ---------------------------------------------------- block-sparse attention
+SPARSE_CASES = {   # config, heads, seq, head_dim, batch
+    "fixed_s256": (lambda h: tsa.FixedSparsityConfig(num_heads=h, block=16),
+                   4, 256, 64, 2),
+    "fixed_s1024_per_head": (lambda h: tsa.FixedSparsityConfig(
+        num_heads=h, block=16, different_layout_per_head=True,
+        num_local_blocks=4, num_different_global_patterns=4), 4, 1024, 64, 1),
+    "bigbird_d32": (lambda h: tsa.BigBirdSparsityConfig(
+        num_heads=h, block=32, num_random_blocks=2), 2, 512, 32, 2),
+    "block8_d24": (lambda h: tsa.BSLongformerSparsityConfig(
+        num_heads=h, block=8), 2, 256, 24, 1),
+    "variable_d128_block64": (lambda h: tsa.VariableSparsityConfig(
+        num_heads=h, block=64, num_random_blocks=1), 2, 1024, 128, 1),
+}
+
+
+def _sparse_inputs(dev, dtype, b, h, s, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)).to(dev, dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("case", list(SPARSE_CASES))
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+def test_block_sparse_kernels_match_plain(cuda, dtype, case):
+    """Forward (o, lse) and backward (dq, dk, dv) kernels against their
+    plain versions on the same inputs: max|err| / max|ref| within the
+    dtype's tolerance, lse within 1e-5 relative; one forward and two
+    backward launches per call. Block sizes 8 to 64, head_dim 24 to 128."""
+    make, h, s, d, b = SPARSE_CASES[case]
+    layout = make(h).make_layout(s)
+    maps = bsa.block_maps(layout, cuda, s // layout.shape[1])
+    q, k, v, do = _sparse_inputs(cuda, dtype, b, h, s, d)
+    counts = (bsa.block_sparse_attention_fwd.launches,
+              bsa.block_sparse_attention_bwd.launches)
+    o, lse = bsa.block_sparse_attention_fwd(q, k, v, maps)
+    o_ref, lse_ref = bsa.block_sparse_attention_fwd_plain(q, k, v, maps)
+    grads = bsa.block_sparse_attention_bwd(q, k, v, o_ref, lse_ref, do, maps)
+    refs = bsa.block_sparse_attention_bwd_plain(q, k, v, o_ref, lse_ref, do,
+                                                maps)
+    torch.cuda.synchronize()
+    assert (bsa.block_sparse_attention_fwd.launches - counts[0],
+            bsa.block_sparse_attention_bwd.launches - counts[1]) == (1, 2)
+    assert _rel(o, o_ref) < TOL[dtype], _rel(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    for name, g, r in zip("qkv", grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        assert _rel(g, r) < TOL[dtype], (name, _rel(g, r))
+
+
+def test_block_sparse_dead_row_and_autograd_on_the_card(cuda):
+    """A q block with no live block returns 0 and gets dq = 0 on the card;
+    the autograd function on the card matches the same on the CPU (plain
+    versions) in fp32 at 1e-4."""
+    layout = np.eye(8, dtype=bool)[None].repeat(2, 0)
+    layout[:, 1, :] = False
+    layout[:, 3, 0] = True
+    q, k, v, do = _sparse_inputs("cpu", torch.float32, 2, 2, 128, 32, 3)
+    attn = bsa.make_block_sparse_attention(layout, 32)
+    outs = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).clone().requires_grad_() for t in (q, k, v)]
+        out = attn(*leaves)
+        out.backward(do.to(dev))
+        outs.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    assert torch.all(outs[1][0][:, :, 16:32] == 0)
+    assert torch.all(outs[1][1][:, :, 16:32] == 0)
+    for g, r in zip(outs[1], outs[0]):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+
+
+def test_sparse_self_attention_on_the_card(cuda):
+    """SparseSelfAttention at S 256 and 1024 runs the kernels (one forward,
+    two backward launches) and matches its dense fallback (fp32, 1e-4);
+    with an attn_mask it takes the dense path and launches no kernel."""
+    for s in (256, 1024):
+        attn = tsa.SparseSelfAttention(tsa.FixedSparsityConfig(
+            num_heads=4, block=16, num_local_blocks=4))
+        q, k, v, do = _sparse_inputs(cuda, torch.float32, 2, 4, s, 64, 4)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        counts = (bsa.block_sparse_attention_fwd.launches,
+                  bsa.block_sparse_attention_bwd.launches)
+        out = attn(*leaves)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert (bsa.block_sparse_attention_fwd.launches - counts[0],
+                bsa.block_sparse_attention_bwd.launches - counts[1]) == (1, 2)
+        dense = attn(q, k, v, attn_mask=torch.ones(s, s, device=cuda))
+        torch.cuda.synchronize()
+        assert (bsa.block_sparse_attention_fwd.launches - counts[0],
+                bsa.block_sparse_attention_bwd.launches - counts[1]) == (1, 2)
+        torch.testing.assert_close(out.detach(), dense, atol=1e-4, rtol=1e-4)
+
+
+def test_block_sparse_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    layout = np.ones((2, 4, 4), bool)
+    maps = bsa.block_maps(layout, cuda, 16)
+    q, k, v, _ = _sparse_inputs(cuda, torch.float32, 1, 2, 64, 32)
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros(1, 2, 64, 160, device=cuda)
+        bsa.block_sparse_attention_fwd(big, big, big, maps)
+    with pytest.raises(ValueError, match="dtype"):
+        bsa.block_sparse_attention_fwd(q, k.half(), v, maps)
+    with pytest.raises(ValueError, match="contiguous"):
+        bsa.block_sparse_attention_fwd(q.transpose(2, 3), k, v, maps)
+    with pytest.raises(ValueError, match="layout"):
+        bsa.block_sparse_attention_fwd(
+            q, k, v, bsa.block_maps(np.ones((3, 4, 4), bool), cuda, 16))
+
+
+# ------------------------------------------------------- the eager triple
+def test_triple_with_fused_lion_and_loss_chunk_on_the_card(cuda):
+    """engine(micro); engine.backward(loss); engine.step() with GA 2,
+    fused Lion, loss_chunk and flash attention on the card against the
+    same engine on the CPU (plain versions) from the same weights: 3
+    steps, losses at 1e-4 relative; all but at most 1e-3 of the params
+    within 1e-5 of the CPU's (Lion moves every element by lr * sign(.), so
+    an element whose momentum is within rounding of 0 may step the other
+    way under the card's summation order, 2 * lr apart); per step one Lion
+    launch and one forward and one backward flash call per layer and
+    micro-batch."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import Llama
+    cfg = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "Lion", "params": {
+               "lr": 1e-3, "weight_decay": 0.01, "fused_kernel": True}},
+           "gradient_clipping": 0.5, "zero_optimization": {"stage": 2}}
+    engines, init = [], None
+    for dev in ("cpu", cuda):
+        model = Llama(size="tiny", device=dev, remat_policy="segments",
+                      attn_impl="flash", loss_chunk=32)
+        eng, *_ = ds.initialize(model=model, config=cfg,
+                                model_parameters=init)
+        if init is None:
+            init = {n: t.clone() for n, t in eng.master_state_dict().items()}
+        engines.append(eng)
+    tok = np.random.default_rng(0).integers(0, 512, (4, 129))
+    counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.calls,
+              fused_lion_step.launches)
+    losses = []
+    for eng in engines:
+        run = []
+        for _ in range(3):
+            for i in (0, 2):
+                loss = eng((tok[i:i + 2, :-1], tok[i:i + 2, 1:]))
+                eng.backward(loss)
+                run.append(float(loss.detach()))
+            eng.step()
+        losses.append(run)
+    torch.testing.assert_close(losses[1], losses[0], atol=0, rtol=1e-4)
+    layers = engines[1].model_config.num_layers
+    assert (fa.flash_attention_fwd.launches - counts[0],
+            fa.flash_attention_bwd.calls - counts[1],
+            fused_lion_step.launches - counts[2]) == (
+        3 * 2 * layers, 3 * 2 * layers, 3)
+    cpu, gpu = (torch.cat([t.reshape(-1).cpu() for t in
+                           e.master_state_dict().values()]) for e in engines)
+    assert float(((gpu - cpu).abs() > 1e-5).float().mean()) <= 1e-3

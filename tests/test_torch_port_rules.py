@@ -23,6 +23,9 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
             "").parts) for p in PKG.rglob("*.py") if p.name != "__init__.py")
     assert "deepspeed_tpu_torch.runtime.engine" in modules
     assert "deepspeed_tpu_torch.ops.flash_attention" in modules
+    assert "deepspeed_tpu_torch.ops.sparse_attention.kernels" in modules
+    assert "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config" \
+        in modules
     code = ("import sys, deepspeed_tpu_torch, " + ", ".join(modules) + "\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'pydantic', "
