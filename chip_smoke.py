@@ -38,12 +38,22 @@ Phases, each fatal on failure:
      lion_plain and the triple against train_batch (losses, params);
  10. Path P: SparseSelfAttention (DeepSpeed's "fixed" example layout,
      GPT-2 125M's 12 heads of 64, B 8, S 4096, bf16) forward and backward
-     through the block-sparse kernels, held against the plain versions.
-Phase 3 also holds fused Lion and the block-sparse kernels against their
-plain versions and times them at Path T's and Path P's shapes. With
---profile it then traces a prefill tick and decode ticks of the serving
-path, one train_batch step and one step of Path T (torch.profiler) and
-prints where the device time goes. The last two lines are the kernels'
+     through the block-sparse kernels, held against the plain versions;
+ 11. Path Q: the serving path of phase 4 from an int8 KV cache (per-head
+     scales, the pool grown to the bf16 pool's bytes) with the prefix
+     cache on: a shared 512-token system prompt served alone, then 8
+     requests of it plus 100-400 tokens each, 32 greedy tokens; blocks,
+     prefix hits, launches and bytes per token checked, the greedy
+     agreement with phase 4's bf16 engine reported;
+ 12. Path Q teacher-forced on int8 and fp8 pools: the kernel against its
+     plain version at every layer of every tick, bf16 and fp32.
+Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
+Lion and the block-sparse kernels against their plain versions and times
+them at Path Q's, Path T's and Path P's shapes. Phases 11-12 run right
+after phase 5, beside phase 4's engine. With --profile it then traces a
+prefill tick and decode ticks of the serving path and of Path Q, one
+train_batch step and one step of Path T (torch.profiler) and prints where
+the device time goes. The last two lines are the kernels'
 JSON record and {"ok": true, "device": {...}}. Without a CUDA card it
 exits non-zero.
 """
@@ -68,6 +78,7 @@ KERNELS = ("paged_attention", "flash_attention", "fused_adam",
 SOURCE = "deepspeed_tpu_torch/csrc/{}.cu"
 REPLACES = {
     "paged_attention": "deepspeed_tpu/inference/v2/paged.py:61",
+    "paged_attention_quantized": "deepspeed_tpu/inference/v2/paged.py:61",
     "flash_attention_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:88",
     "flash_attention_bwd": "deepspeed_tpu/ops/pallas/flash_attention.py:226",
     "fused_adam": "deepspeed_tpu/ops/pallas/fused_optimizers.py:75",
@@ -177,13 +188,17 @@ def attention_case(dev, dtype, *, b, sq, pos0, true_len, hq=32, hkv=8,
 def attention_bound(x, kw) -> tuple[float, str]:
     """Least time (ms) the card needs for one call on these inputs: the
     bytes it must move (each input read once: q, the chunk's k/v, the
-    visible cached keys and values, the tables; the output written once)
-    over the memory rate, and the multiply-adds over the tensor rate of
-    the inputs' type; the larger bounds it."""
+    visible cached keys and values at the pool's itemsize and, quantized,
+    their f32 scales, the tables; the output written once) over the
+    memory rate, and the multiply-adds over the tensor rate of the
+    inputs' type; the larger bounds it."""
     q = x["q"]
     b, sq, hq, d = q.shape
     hkv = x["k_new"].shape[2]
     item = q.element_size()
+    pool_item = x["k_pool"].element_size()
+    scale_heads = kw["k_scale"].shape[-1] if kw.get("k_scale") is not None \
+        else 0
     pos0 = x["pos0"].tolist()
     tl = x["true_len"].tolist()
     window = kw.get("window")
@@ -196,7 +211,7 @@ def attention_bound(x, kw) -> tuple[float, str]:
             first = max(0, p + i - window + 1) if window else 0
             pairs += p + i + 1 - first
     nbytes = (2 * q.numel() + 2 * x["k_new"].numel()) * item \
-        + 2 * keys_read * hkv * d * item \
+        + 2 * keys_read * (hkv * d * pool_item + scale_heads * 4) \
         + 4 * (x["block_tables"].numel() + 2 * b)
     flops = 4 * pairs * hq * d
     rate = BF16_FLOPS if q.dtype.is_floating_point and item == 2 \
@@ -208,19 +223,19 @@ def attention_bound(x, kw) -> tuple[float, str]:
 
 def library_attention(x, kw):
     """scaled_dot_product_attention over the gathered pages: the
-    yardstick (library_ms). The port never calls it."""
+    yardstick (library_ms). The port never calls it. Quantized pools:
+    the codes and scales are gathered outside the timed call, which
+    dequantizes them to q's dtype, joins the fresh chunk, expands the GQA
+    heads and then calls SDPA."""
     import torch
     import torch.nn.functional as F
-    from deepspeed_tpu_torch.inference.v2.paged import gather_pages
+    from deepspeed_tpu_torch.inference.v2.paged import (gather_pages,
+                                                        gather_scales)
     q = x["q"]
     b, sq, hq, d = q.shape
     hkv = x["k_new"].shape[2]
     rep = hq // hkv
-    k = torch.cat([gather_pages(x["k_pool"], x["block_tables"]),
-                   x["k_new"]], 1)
-    v = torch.cat([gather_pages(x["v_pool"], x["block_tables"]),
-                   x["v_new"]], 1)
-    smax = k.shape[1] - sq
+    smax = x["block_tables"].shape[1] * x["k_pool"].shape[1]
     pos0 = x["pos0"].long()
     ar_k = torch.arange(smax + sq, device=q.device)
     kpos = torch.where(ar_k[None] < smax, ar_k[None],
@@ -232,9 +247,26 @@ def library_attention(x, kw):
     if kw.get("window"):
         mask &= qpos[:, :, None] - kpos[:, None] < kw["window"]
     qt = q.transpose(1, 2)
-    kt = k.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
-    vt = v.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
     mask = mask[:, None]
+
+    def expand(pages, new):
+        return (torch.cat([pages, new], 1).transpose(1, 2)
+                .repeat_interleave(rep, 1).contiguous())
+
+    if kw.get("k_scale") is not None:
+        codes = [gather_pages(x[n], x["block_tables"])
+                 for n in ("k_pool", "v_pool")]
+        scales = [gather_scales(kw[n], x["block_tables"])[..., None]
+                  for n in ("k_scale", "v_scale")]
+
+        def call():
+            kt, vt = (expand((c.float() * sc).to(q.dtype), x[n])
+                      for c, sc, n in zip(codes, scales, ("k_new", "v_new")))
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        return call
+    kt = expand(gather_pages(x["k_pool"], x["block_tables"]), x["k_new"])
+    vt = expand(gather_pages(x["v_pool"], x["block_tables"]), x["v_new"])
 
     def call():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
@@ -242,15 +274,41 @@ def library_attention(x, kw):
     return call
 
 
+def serving_shapes():
+    """The serving path's decode (B 8, contexts 100-2000) and prefill
+    (2 x 256 rows, one at pos0 300) calls."""
+    rng = np.random.default_rng(0)
+    ctx = rng.integers(100, 2001, 8)
+    ctx[0], ctx[-1] = 100, 2000
+    return (dict(b=8, sq=1, pos0=ctx.tolist(), true_len=[1] * 8),
+            dict(b=2, sq=256, pos0=[0, 300], true_len=[256, 200]))
+
+
+def time_attention(x, kw, dev, iters, flush) -> dict:
+    """Kernel, plain and library ms of one call, its bound, and the
+    library output's largest difference from the plain version."""
+    from deepspeed_tpu_torch.inference.v2 import paged
+    ref = paged.paged_attention_plain(*x.values(), **kw)
+    lib = library_attention(x, kw)
+    lib_out = lib().transpose(1, 2)
+    lib_err = max(float((lib_out[i, :t].float() - ref[i, :t].float())
+                        .abs().max())
+                  for i, t in enumerate(x["true_len"].tolist()))
+    bound, bound_by = attention_bound(x, kw)
+    return dict(
+        ms=time_ms(lambda: paged.paged_attention_kernel(*x.values(), **kw),
+                   dev, iters, flush),
+        plain_ms=time_ms(lambda: paged.paged_attention_plain(
+            *x.values(), **kw), dev, max(iters // 4, 2), flush),
+        library_ms=time_ms(lib, dev, iters, flush),
+        bound_ms=bound, bound_by=bound_by, library_max_abs_err=lib_err)
+
+
 def kernel_checks(dev, flush=None, iters=20):
     """Phase 3: kernel vs plain at the main path's shapes; times."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import paged
-    rng = np.random.default_rng(0)
-    ctx = rng.integers(100, 2001, 8)
-    ctx[0], ctx[-1] = 100, 2000
-    decode = dict(b=8, sq=1, pos0=ctx.tolist(), true_len=[1] * 8)
-    prefill = dict(b=2, sq=256, pos0=[0, 300], true_len=[256, 200])
+    decode, prefill = serving_shapes()
     cases = {"decode": decode, "prefill": prefill,
              "prefill_window": dict(prefill, window=128),
              "decode_alibi": dict(decode, alibi=True)}
@@ -275,22 +333,87 @@ def kernel_checks(dev, flush=None, iters=20):
                     f"version: {name} {dtype_name}, max|err| "
                     f"{float(err.max()):.3e} > tol {tol:g}")
             if dtype_name == "bfloat16" and name in ("decode", "prefill"):
-                lib = library_attention(x, kw)
-                lib_out = lib().transpose(1, 2)
-                rows = x["true_len"].tolist()
-                lib_err = max(float((lib_out[i, :t].float()
-                                     - ref[i, :t].float()).abs().max())
-                              for i, t in enumerate(rows))
-                bound, bound_by = attention_bound(x, kw)
-                record[name] = dict(
-                    ms=time_ms(lambda: paged.paged_attention_kernel(
-                        *x.values(), **kw), dev, iters, flush),
-                    plain_ms=time_ms(lambda: paged.paged_attention_plain(
-                        *x.values(), **kw), dev, max(iters // 4, 2), flush),
-                    library_ms=time_ms(lib, dev, iters, flush),
-                    bound_ms=bound, bound_by=bound_by,
-                    library_max_abs_err=lib_err)
+                record[name] = time_attention(x, kw, dev, iters, flush)
                 log(f"[kernel] {name} times (ms): {json.dumps(record[name])}")
+    return errs, record
+
+
+# quantized-pool cases: head_dim, block size, heads, GQA, window, ALiBi,
+# decode rows, prefill rows and chunks at pos0 > 0 over filled pools
+QUANT_CASES = {
+    "decode_d128_bs64_gqa": dict(d=128, bs=64, hq=32, hkv=8, b=4, sq=1,
+                                 pos0=[100, 700, 0, 1999],
+                                 true_len=[1, 1, 1, 1]),
+    "prefill_d64_bs16_gqa": dict(d=64, bs=16, hq=8, hkv=2, b=2, sq=96,
+                                 pos0=[0, 0], true_len=[96, 50]),
+    "chunk_pos0_d32_bs8_window": dict(d=32, bs=8, hq=4, hkv=4, b=2, sq=40,
+                                      pos0=[77, 130], true_len=[40, 33],
+                                      window=50),
+    "decode_d16_bs8_alibi": dict(d=16, bs=8, hq=4, hkv=1, b=3, sq=1,
+                                 pos0=[5, 60, 200], true_len=[1, 1, 0],
+                                 alibi=True),
+    "chunk_pos0_d128_bs64_gqa": dict(d=128, bs=64, hq=32, hkv=8, b=2,
+                                     sq=256, pos0=[300, 64],
+                                     true_len=[256, 100]),
+    "chunk_pos0_d64_bs16_window_alibi": dict(d=64, bs=16, hq=8, hkv=8, b=2,
+                                             sq=24, pos0=[513, 31],
+                                             true_len=[24, 7], window=100,
+                                             alibi=True),
+}
+QUANT_NOTE = ("QUANT_CASES fp32+bf16 x int8/fp8 x head/token scales: D "
+              "16-128, bs 8/16/64, GQA, window, ALiBi, decode, prefill, "
+              "pos0 > 0")
+
+
+def quantize_pools(x, kw, kv_dtype: str, granularity: str):
+    """The case's fp pools as int8/fp8 codes (x) and f32 scales (kw)."""
+    from deepspeed_tpu_torch.ops.quantization import kv_quantize
+    hs = x["k_pool"].shape[2] if granularity == "head" else 1
+    for pool, scale in (("k_pool", "k_scale"), ("v_pool", "v_scale")):
+        x[pool], kw[scale] = kv_quantize(x[pool], kv_dtype, hs)
+    return x, kw
+
+
+def quant_checks(dev, flush=None, iters=20):
+    """Phase 3, quantized pools: the kernel's int8/fp8 mode against its
+    plain version over QUANT_CASES (fp32 1e-4, bf16 3e-2, absolute plus
+    relative as the fp mode); then times at the serving head layout (bf16,
+    int8 per-head pools) for decode and prefill."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import paged
+    errs = {}
+    for dtype_name, tol in TOL.items():
+        dtype = getattr(torch, dtype_name)
+        for kv_dtype in ("int8", "fp8"):
+            for gran in ("head", "token"):
+                for name, shape in QUANT_CASES.items():
+                    x, kw = quantize_pools(*attention_case(dev, dtype,
+                                                           **shape),
+                                           kv_dtype, gran)
+                    got = paged.paged_attention_kernel(*x.values(), **kw)
+                    ref = paged.paged_attention_plain(*x.values(), **kw)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    err = (got.float() - ref.float()).abs()
+                    key = (dtype_name, kv_dtype, gran, name)
+                    errs[key] = float(err.max())
+                    if bool((err > tol + tol * ref.float().abs()).any()):
+                        raise AssertionError(
+                            f"paged_attention quantized mode disagrees with "
+                            f"its plain version: {key}, max|err| "
+                            f"{errs[key]:.3e} > tol {tol:g}")
+            worst = max(v for k, v in errs.items()
+                        if k[:2] == (dtype_name, kv_dtype))
+            log(f"[kernel] quantized {kv_dtype} {dtype_name:9s} "
+                f"{2 * len(QUANT_CASES)} cases max|err| {worst:.3e} "
+                f"(tol {tol:g})")
+    record = {}
+    for name, shape in zip(("decode", "prefill"), serving_shapes()):
+        x, kw = quantize_pools(*attention_case(dev, torch.bfloat16, **shape),
+                               "int8", "head")
+        record[name] = time_attention(x, kw, dev, iters, flush)
+        log(f"[kernel] quantized int8 {name} times (ms): "
+            f"{json.dumps(record[name])}")
     return errs, record
 
 
@@ -357,7 +480,9 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
     for o in outs:
         if len(o) != max_new or not all(0 <= t < c.vocab_size for t in o):
             raise AssertionError(f"bad generate() output {o[:8]}...")
-    if launches != c.num_layers * dispatches or launches == 0:
+    # the plain version counts nothing: a CPU rehearsal skips this check
+    if dev.type == "cuda" and (launches != c.num_layers * dispatches
+                               or launches == 0):
         raise AssertionError(
             f"kernel launches {launches} != layers {c.num_layers} x "
             f"dispatches {dispatches}")
@@ -379,19 +504,27 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
 
 # ---------------------------------------------------------------- phase 5
 def teacher_forced_logits(model, dev, use_kernel: bool, bs: int, nb=16,
-                          lens=(200, 250), attention=None, seed=2):
+                          lens=(200, 250), attention=None, seed=2,
+                          kv_dtype=None):
     """paged_forward over one prefill chunk (two rows of ``lens`` prompt
     tokens) and then two decode ticks whose input tokens are drawn in
     advance (teacher forcing: every variant sees the same inputs), on
-    fresh zeroed pools. ``attention`` goes to paged_forward. Returns each
-    tick's last-token logits in fp32."""
+    fresh zeroed pools: the model's dtype, or ``kv_dtype`` ("int8",
+    "fp8") codes with per-head scales, which the decode ticks read back.
+    ``attention`` goes to paged_forward. Returns each tick's last-token
+    logits in fp32."""
     import torch
     from deepspeed_tpu_torch.inference.v2.paged import paged_forward
+    from deepspeed_tpu_torch.ops.quantization import KV_STORE_DTYPES
     c = model.config
     dtype = next(iter(model.params.values())).dtype
     shape = (c.num_layers, nb, bs, c.num_kv_heads, c.head_dim)
-    pools = {k: torch.zeros(shape, dtype=dtype, device=dev)
+    store = KV_STORE_DTYPES[kv_dtype] if kv_dtype else dtype
+    pools = {k: torch.zeros(shape, dtype=store, device=dev)
              for k in ("k", "v")}
+    if kv_dtype:
+        pools.update({k: torch.zeros(shape[:4], dtype=torch.float32,
+                                     device=dev) for k in ("ks", "vs")})
     tables = torch.arange(nb, dtype=torch.int32, device=dev).reshape(2, -1)
     rng = np.random.default_rng(seed)
     prompt = np.zeros((2, max(lens)), np.int64)
@@ -420,6 +553,40 @@ def rel_err(got, ref) -> float:
                for g, r in zip(got, ref))
 
 
+def layer_checker(tol: float):
+    """An ``attention`` for paged_forward that launches the kernel and
+    holds it against its plain version on the same inputs (abs + rel
+    ``tol``) at every call; the dict counts the calls and keeps the worst
+    error."""
+    from deepspeed_tpu_torch.inference.v2 import paged
+    worst = {"layer_calls": 0, "max_abs_err": 0.0}
+
+    def checked(*args, sanitize_pools=True, **kw):
+        got = paged.paged_attention_kernel(
+            *args, sanitize_pools=sanitize_pools, **kw)
+        ref = paged.paged_attention_plain(*args, **kw).float()
+        err = (got.float() - ref).abs()
+        worst["layer_calls"] += 1
+        worst["max_abs_err"] = max(worst["max_abs_err"], float(err.max()))
+        if bool((err > tol + tol * ref.abs()).any()):
+            raise AssertionError(
+                f"layer call {worst['layer_calls']}: kernel vs plain "
+                f"max|err| {float(err.max()):.3e} > tol {tol:g}")
+        return got
+
+    return checked, worst
+
+
+def widened(model, dev):
+    """An fp32 copy of ``model`` (same weights, widened)."""
+    import torch
+    model32 = type(model)(model.config, device=dev, dtype=torch.float32)
+    with torch.no_grad():
+        for name, p in model.params.items():
+            model32.params[name].copy_(p)
+    return model32
+
+
 def main_path_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
     """Phase 5: the main path with the kernel against the main path with
     the plain attention, on the engine's weights.
@@ -440,31 +607,15 @@ def main_path_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
     from deepspeed_tpu_torch.inference.v2 import paged
     model = engine.model
     bs = engine.state_manager.block_size
-    tol = TOL["bfloat16"]
 
-    model32 = type(model)(model.config, device=dev, dtype=torch.float32)
-    with torch.no_grad():
-        for name, p in model.params.items():
-            model32.params[name].copy_(p)
+    model32 = widened(model, dev)
     kernel32 = teacher_forced_logits(model32, dev, True, bs, nb, lens)
     ref32 = teacher_forced_logits(model32, dev, False, bs, nb, lens)
     del model32
-    torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
-    worst = {"layer_calls": 0, "max_abs_err": 0.0}
-
-    def checked(*args, sanitize_pools=True, **kw):
-        got = paged.paged_attention_kernel(
-            *args, sanitize_pools=sanitize_pools, **kw)
-        ref = paged.paged_attention_plain(*args, **kw).float()
-        err = (got.float() - ref).abs()
-        worst["layer_calls"] += 1
-        worst["max_abs_err"] = max(worst["max_abs_err"], float(err.max()))
-        if bool((err > tol + tol * ref.abs()).any()):
-            raise AssertionError(
-                f"main path layer call {worst['layer_calls']}: kernel vs "
-                f"plain max|err| {float(err.max()):.3e} > tol {tol:g}")
-        return got
+    checked, worst = layer_checker(TOL["bfloat16"])
 
     def plain(*args, sanitize_pools=True, **kw):
         return paged.paged_attention_plain(*args, **kw)
@@ -487,6 +638,147 @@ def main_path_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
     if worst["layer_calls"] != 3 * model.config.num_layers:
         raise AssertionError(f"{worst['layer_calls']} checked layer calls")
     return rels
+
+
+# ----------------------------------------------------------- phase 11
+# Path Q: the serving path from an int8 KV cache with the prefix cache on
+PATH_Q_CONFIG = {"kv_cache": {"enabled": True, "dtype": "int8",
+                              "granularity": "head", "grow_pool": True},
+                 "prefix_cache": {"enabled": True}}
+
+
+def agreement(outs, refs) -> list[int]:
+    """Per request, how many leading greedy tokens agree."""
+    return [next((i for i, (a, b) in enumerate(zip(o, r)) if a != b),
+                 min(len(o), len(r))) for o, r in zip(outs, refs)]
+
+
+def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
+                prefix_len=512, suffix=(100, 401), engine_over=None):
+    """Phase 11: build_engine("llama", size, {..., kv_cache int8 per head
+    with grow_pool, prefix_cache on}) with the same seeded weights as
+    phase 4's ``ref_engine``. A shared ``prefix_len``-token system prompt
+    is served alone first (the warm-up that publishes its blocks), then
+    ``n_req`` requests of that prefix plus their own suffix, ``max_new``
+    greedy tokens each, through generate(); the counts and the serving
+    metrics are set to 0 right before and read right after. The same
+    prompts then go through ``ref_engine`` (bf16 pools, no prefix cache)
+    for the greedy agreement horizon, reported without a bound."""
+    from deepspeed_tpu_torch.inference.v2 import build_engine, paged
+    cfg = {"dtype": "bfloat16", "kv_block_size": 64, "num_kv_blocks": 512,
+           "max_chunk_size": 256, "max_ragged_sequence_count": 8,
+           **PATH_Q_CONFIG}
+    cfg.update(engine_over or {})
+    t = time.perf_counter()
+    engine = build_engine("llama", size=size, engine_config=cfg, device=dev)
+    log(f"[path Q] build_engine llama-{size} int8 KV + prefix cache: "
+        f"{time.perf_counter() - t:.1f} s")
+    c = engine.model.config
+    bs = cfg["kv_block_size"]
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, c.vocab_size, prefix_len).tolist()
+    lens = rng.integers(suffix[0], suffix[1], n_req)
+    prompts = [prefix + rng.integers(0, c.vocab_size, n).tolist()
+               for n in lens]
+    serve(engine, [prefix], 2, dev)            # warm-up: publishes prefix
+    paged.paged_attention_kernel.launches = 0
+    engine.reset_serving_metrics()
+    outs, wall, ticks = serve(engine, prompts, max_new, dev)
+    launches = paged.paged_attention_kernel.launches
+    m = engine.serving_metrics()
+    dispatches = m["host_dispatches"]
+    bad = []
+    for o in outs:
+        if len(o) != max_new or not all(0 <= t < c.vocab_size for t in o):
+            bad.append(f"bad generate() output {o[:8]}...")
+    ref_bytes = ref_engine.kv_pool_bytes()
+    want = {"num_kv_blocks": 992 if (size, bs, cfg["num_kv_blocks"]) ==
+            ("3-8b", 64, 512) else engine.num_kv_blocks,
+            "prefix_hits": n_req * (prefix_len // bs),
+            "prefill_tokens_saved": n_req * (prefix_len // bs) * bs}
+    got = {"num_kv_blocks": engine.num_kv_blocks,
+           "prefix_hits": m["prefix_hits"],
+           "prefill_tokens_saved": m["prefill_tokens_saved"]}
+    if got != want:
+        bad.append(f"Path Q {got} != {want}")
+    if engine.kv_pool_bytes() > ref_bytes:
+        bad.append(f"int8 pool {engine.kv_pool_bytes()} B > bf16 pool "
+                   f"{ref_bytes} B")
+    if dev.type == "cuda" and (launches != c.num_layers * dispatches
+                               or launches == 0):
+        bad.append(f"kernel launches {launches} != layers {c.num_layers} x "
+                   f"dispatches {dispatches}")
+    if engine.free_blocks != engine.num_kv_blocks:
+        bad.append(f"free_blocks {engine.free_blocks} != "
+                   f"{engine.num_kv_blocks} after the flush")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    refs = ref_engine.generate(prompts, max_new_tokens=max_new)
+    horizon = agreement(outs, refs)
+    pre = [(s, p) for s, p, _ in ticks if p > 0]
+    dec = [s for s, p, d in ticks if p == 0 and d > 0]
+    stats = dict(
+        requests=n_req, new_tokens=max_new, prefix_tokens=prefix_len,
+        suffix_tokens=int(lens.sum()), ticks=len(ticks),
+        dispatches=dispatches, launches=launches, prefill_ticks=len(pre),
+        prefill_tokens_per_s=sum(p for _, p in pre) / sum(s for s, _ in pre),
+        decode_ticks=len(dec),
+        decode_ms_per_tick=1e3 * sum(dec) / max(len(dec), 1),
+        generate_s=wall, e2e_generated_tokens_per_s=n_req * max_new / wall,
+        kv_num_blocks=engine.num_kv_blocks,
+        bf16_kv_num_blocks=ref_engine.num_kv_blocks,
+        resident_request_ratio=engine.num_kv_blocks
+        / ref_engine.num_kv_blocks,
+        kv_pool_bytes=engine.kv_pool_bytes(), bf16_kv_pool_bytes=ref_bytes,
+        kv_bytes_per_token=engine.kv_bytes_per_token(),
+        bf16_kv_bytes_per_token=ref_engine.kv_bytes_per_token(),
+        prefix_hits=m["prefix_hits"], prefix_misses=m["prefix_misses"],
+        prefill_tokens_saved=m["prefill_tokens_saved"],
+        greedy_agreement_vs_bf16=horizon,
+        greedy_agreement_min=min(horizon),
+        greedy_agreement_mean=sum(horizon) / len(horizon))
+    log(f"[path Q] {json.dumps(stats)}")
+    return engine, stats
+
+
+# ----------------------------------------------------------- phase 12
+def path_q_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
+    """Phase 12: Path Q teacher-forced as in phase 5, on int8 and on fp8
+    per-head pools. At every layer of every tick the kernel's output is
+    held against its plain version on the same inputs and the same
+    quantized pools: bf16 (the engine as it serves) at 3e-2, fp32 (the
+    weights widened, TF32 off) at 1e-4. The logits of the kernel path
+    against the reference path (``use_kernel=False``, which dequantizes
+    the gathered pages) are reported, not held: a last-bit difference in
+    k can flip one code in a later layer."""
+    import torch
+    model = engine.model
+    bs = engine.state_manager.block_size
+    calls = 3 * model.config.num_layers
+    out = {}
+    model32 = widened(model, dev)
+    for kv in ("int8", "fp8"):
+        rec = {}
+        for dtype_name, m in (("float32", model32), ("bfloat16", model)):
+            checked, worst = layer_checker(TOL[dtype_name])
+            kern = teacher_forced_logits(m, dev, True, bs, nb, lens,
+                                         attention=checked, kv_dtype=kv)
+            ref = teacher_forced_logits(m, dev, False, bs, nb, lens,
+                                        kv_dtype=kv)
+            if worst["layer_calls"] != calls:
+                raise AssertionError(f"{worst['layer_calls']} checked layer "
+                                     f"calls != {calls}")
+            rec[dtype_name] = dict(
+                layer_calls=worst["layer_calls"],
+                layer_max_abs_err=worst["max_abs_err"],
+                tol=TOL[dtype_name],
+                logits_kernel_vs_reference=rel_err(kern, ref))
+        out[kv] = rec
+        log(f"[path Q vs plain] {kv}: {json.dumps(rec)}")
+    del model32
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------- phase 3, training kernels
@@ -1481,10 +1773,12 @@ def profile_window(name, fn, ticks):
     return out, rec
 
 
-def profile_main_path(engine, dev, rows=8, prompt_len=256, decode_ticks=8):
+def profile_main_path(engine, dev, rows=8, prompt_len=256, decode_ticks=8,
+                      label=""):
     """Where a serving tick's time goes: one prefill tick (``rows``
     prompts of ``prompt_len`` tokens, one chunk each) and then
-    ``decode_ticks`` decode ticks of the same rows."""
+    ``decode_ticks`` decode ticks of the same rows; windows named
+    ``label`` + prefill/decode."""
     c = engine.model.config
     rng = np.random.default_rng(3)
     uids = list(range(10_000, 10_000 + rows))
@@ -1497,7 +1791,7 @@ def profile_main_path(engine, dev, rows=8, prompt_len=256, decode_ticks=8):
 
     engine.schedule(uids, [rng.integers(0, c.vocab_size,
                                         prompt_len).tolist() for _ in uids])
-    finished, pre = profile_window("prefill", engine.tick, 1)
+    finished, pre = profile_window(label + "prefill", engine.tick, 1)
 
     def decode():
         nonlocal finished
@@ -1505,7 +1799,7 @@ def profile_main_path(engine, dev, rows=8, prompt_len=256, decode_ticks=8):
             finished = decode_tick(finished)
         return finished
 
-    _, dec = profile_window("decode", decode, decode_ticks)
+    _, dec = profile_window(label + "decode", decode, decode_ticks)
     engine.flush(uids)
     return [pre, dec]
 
@@ -1515,8 +1809,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a prefill tick and decode ticks of the "
-                         "serving path, one train_batch step and one Path T "
-                         "step with torch.profiler")
+                         "serving path and of Path Q, one train_batch step "
+                         "and one Path T step with torch.profiler")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1545,6 +1839,7 @@ def main(argv=None) -> int:
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     errs, times = kernel_checks(dev, flush)                   # phase 3
+    quant_errs, quant_times = quant_checks(dev, flush)
     flash_errs = flash_checks(dev)
     adam_err = adam_checks(dev)
     adam_numel = flat_numel("125m")
@@ -1559,7 +1854,14 @@ def main(argv=None) -> int:
     rels = main_path_kernel_vs_plain(engine, dev)             # phase 5
     if args.profile:
         profile_main_path(engine, dev)
+    q_engine, path_q = path_q_main(dev, engine)               # phase 11
     del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    q_rels = path_q_kernel_vs_plain(q_engine, dev)            # phase 12
+    if args.profile:
+        profile_main_path(q_engine, dev, label="path_q_")
+    del q_engine
     gc.collect()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
@@ -1620,6 +1922,26 @@ def main(argv=None) -> int:
               main_path_fp32_rel_logits_err=rels["fp32_kernel_vs_reference"],
               main_path_bf16_layer_max_abs_err=rels[
                   "bf16_layer_max_abs_err"]),
+        entry("paged_attention_quantized", "paged_attention",
+              path_q["launches"],
+              max(v for k, v in quant_errs.items() if k[0] == "bfloat16"),
+              quant_times["decode"], tol=TOL["bfloat16"],
+              max_abs_err_fp32=max(v for k, v in quant_errs.items()
+                                   if k[0] == "float32"),
+              tol_fp32=TOL["float32"], cases=QUANT_NOTE,
+              mode="int8/fp8 pools, f32 scales per (token, head) or token",
+              shape="decode B=8 Sq=1 ctx 100-2000 Hq=32 Hkv=8 D=128 bs=64 "
+                    "bf16, int8 per-head pools",
+              prefill_ms=quant_times["prefill"]["ms"],
+              prefill_plain_ms=quant_times["prefill"]["plain_ms"],
+              prefill_bound_ms=quant_times["prefill"]["bound_ms"],
+              prefill_bound_by=quant_times["prefill"]["bound_by"],
+              prefill_library_ms=quant_times["prefill"]["library_ms"],
+              library="gathered codes dequantized to bf16, then SDPA",
+              main_path="Path Q",
+              main_path_layer_max_abs_err={
+                  kv: {dt: r["layer_max_abs_err"] for dt, r in rec.items()}
+                  for kv, rec in q_rels.items()}),
         entry("flash_attention_fwd", "flash_attention",
               train["launches"]["flash_attention_fwd"],
               flash_main["fwd_max_abs_err"],
@@ -1703,6 +2025,8 @@ def main(argv=None) -> int:
                   "bwd_max_rel_err"]),
     ]
     log(f"[main] serving {json.dumps(stats)} on {card}")
+    log(f"[main] Path Q {json.dumps(path_q)} on {card}")
+    log(f"[main] Path Q kernels vs plain {json.dumps(q_rels)}")
     log(f"[main] training {json.dumps(train)} on {card}")
     log(f"[main] training kernels vs plain {json.dumps(parity)}")
     log(f"[main] Path T {json.dumps(path_t)} on {card}")

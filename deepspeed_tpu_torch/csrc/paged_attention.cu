@@ -1,7 +1,9 @@
 // Paged (blocked-flash) attention over a block-table KV pool, for Hopper.
 //
 // Replaces the Pallas TPU kernel deepspeed_tpu/inference/v2/paged.py:61
-// `paged_attention_kernel` (fp pools). Per batch row b and query row i it
+// `paged_attention_kernel`, in both its modes: fp pools, and quantized pools
+// (int8 or fp8-e4m3 codes with per-vector f32 scales, :81-91, :150-165).
+// Per batch row b and query row i it
 // computes softmax(q k^T / sqrt(D) [+ alibi]) v over
 //   * the row's cached keys at absolute positions [0, pos0[b]), read from
 //     the pools through block_tables[b] (entries clamped to [0, nb-1]), and
@@ -11,17 +13,27 @@
 // Query rows >= true_len[b] are written as zeros. Scores, softmax and the
 // output accumulate in fp32; the output is q's dtype.
 //
+// Quantized pools: the pool's storage type P is a template parameter apart
+// from the compute type T of q, k_new, v_new and out. Each staged key and
+// value row is dequantized as it is staged, code (converted exactly to fp32)
+// times the scale of its (block, slot, head % Hs), Hs = Hkv (per head) or 1
+// (per token), read through the same clamped block-table offset; the tile in
+// shared memory stays fp32. The fresh chunk is folded unquantized.
+//
 // What bounds it on an H100: bytes. A decode row reads 2*ctx*Hkv*D*itemsize
-// bytes of KV per layer (3.35 TB/s) and does 4*ctx*Hq*D flops, far below the
-// card's ridge point. Design, simple first:
+// bytes of KV per layer (3.35 TB/s) -- 1 byte an element plus 4 bytes per
+// (token, scale head) with quantized pools, about half of bf16 -- and does
+// 4*ctx*Hq*D flops, far below the card's ridge point. Design, simple first:
 //   * one thread block per (batch row, kv head, tile of query rows); the
 //     tile holds the GQA group's rep q heads for its query rows, so every
 //     K/V element a block loads is used by all rep heads sharing it;
 //   * the TPU kernel's sequential page-slot grid axis (which carried the
 //     running max/sum/output in VMEM scratch) becomes a loop inside the
 //     block over 32-key tiles: the tile's keys are staged in shared memory
-//     as fp32 with 16-byte loads, then each warp updates the online softmax
-//     of its rows (lane = key for the scores, lane = channel for p.v);
+//     as fp32 with 16-byte loads (16 codes a load from a quantized pool,
+//     each key's two scales staged once by the thread that finds its
+//     block), then each warp updates the online softmax of its rows
+//     (lane = key for the scores, lane = channel for p.v);
 //   * only keys some row of the block can see are loaded (the window and the
 //     causal bound trim the range); out-of-range tile slots are zero-filled,
 //     never read, so the kernel does not rely on the pools' dead slots.
@@ -29,9 +41,12 @@
 // small decode batches, double-buffered tiles.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -57,6 +72,30 @@ template <> struct Vec<__nv_bfloat16> {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x; out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// quantized pool codes: 16 a load, converted exactly to fp32
+template <> struct Vec<int8_t> {
+  static constexpr int N = 16;
+  __device__ static void load(const int8_t* p, float* out) {
+    int4 raw = *reinterpret_cast<const int4*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(c[i]);
+  }
+};
+// e4m3 is torch's float8_e4m3fn (finite, no inf); codes are never NaN
+template <> struct Vec<__nv_fp8_e4m3> {
+  static constexpr int N = 16;
+  __device__ static void load(const __nv_fp8_e4m3* p, float* out) {
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_fp8x2_e4m3* h = reinterpret_cast<const __nv_fp8x2_e4m3*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float2 f = static_cast<float2>(h[i]);
       out[2 * i] = f.x; out[2 * i + 1] = f.y;
     }
   }
@@ -88,21 +127,29 @@ template <int D> struct Tile {
   float k[kKeyTile * (D + 1)];
   float v[kKeyTile * D];
   long long base[kKeyTile];           // element offset of each key, -1 = none
+  float ks[kKeyTile], vs[kKeyTile];   // each key's scales (quantized pools)
 };
 
-// Stage keys whose element offsets are in tile.base (set by the caller).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(Tile<D>& tile, const T* __restrict__ ksrc,
-                          const T* __restrict__ vsrc) {
-  constexpr int N = Vec<T>::N;
+// Stage keys whose element offsets are in tile.base (set by the caller);
+// kScaled multiplies each key's row by its scales in tile.ks/vs.
+template <typename P, int D, bool kScaled>
+__device__ __forceinline__ void load_tile(Tile<D>& tile, const P* __restrict__ ksrc,
+                          const P* __restrict__ vsrc) {
+  constexpr int N = Vec<P>::N;
   constexpr int kChunks = D / N;
   for (int i = threadIdx.x; i < kKeyTile * kChunks; i += kThreads) {
     const int j = i / kChunks, c = i % kChunks;
     const long long base = tile.base[j];
     float kf[N], vf[N];
     if (base >= 0) {
-      Vec<T>::load(ksrc + base + c * N, kf);
-      Vec<T>::load(vsrc + base + c * N, vf);
+      Vec<P>::load(ksrc + base + c * N, kf);
+      Vec<P>::load(vsrc + base + c * N, vf);
+      if (kScaled) {
+        // one rounded product, as the plain version's codes * scale
+        const float sk = tile.ks[j], sv = tile.vs[j];
+#pragma unroll
+        for (int e = 0; e < N; ++e) { kf[e] *= sk; vf[e] *= sv; }
+      }
     } else {
 #pragma unroll
       for (int e = 0; e < N; ++e) { kf[e] = 0.f; vf[e] = 0.f; }
@@ -167,18 +214,22 @@ __device__ __forceinline__ void fold_tile(const Tile<D>& tile, const float* __re
   }
 }
 
-template <typename T, int D, int RPW>
+// T: q/k_new/v_new/out; P: the pools (T, or int8/fp8 codes with scales)
+template <typename T, typename P, int D, int RPW>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                        const T* __restrict__ v_new,
-                       const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
+                       const P* __restrict__ k_pool,
+                       const P* __restrict__ v_pool,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const int* __restrict__ tables,
                        const int* __restrict__ pos0s,
                        const int* __restrict__ tlens,
                        const float* __restrict__ slopes, T* __restrict__ out,
-                       int sq, int hq, int hkv, int nb, int bs,
+                       int sq, int hq, int hkv, int hs, int nb, int bs,
                        int max_blocks, int window, float scale) {
+  constexpr bool kScaled = !std::is_same<P, T>::value;
   constexpr int R = kWarps * RPW;             // (query, head) rows / block
   constexpr int kDpl = RowState<D, RPW>::kDpl;
   __shared__ Tile<D> tile;
@@ -234,15 +285,23 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     if (threadIdx.x < kKeyTile) {
       const int kp = t0 + threadIdx.x;
       long long base = -1;
+      float sk = 0.f, sv = 0.f;
       if (kp < page_hi) {
         int blk = tables[(long long)b * max_blocks + kp / bs];
         blk = min(max(blk, 0), nb - 1);
-        base = (((long long)blk * bs + kp % bs) * hkv + g) * D;
+        const long long slot = (long long)blk * bs + kp % bs;
+        base = (slot * hkv + g) * D;
+        if (kScaled) {
+          sk = k_scale[slot * hs + g % hs];
+          sv = v_scale[slot * hs + g % hs];
+        }
       }
       tile.base[threadIdx.x] = base;
+      tile.ks[threadIdx.x] = sk;
+      tile.vs[threadIdx.x] = sv;
     }
     __syncthreads();
-    load_tile<T, D>(tile, k_pool, v_pool);
+    load_tile<P, D, kScaled>(tile, k_pool, v_pool);
     __syncthreads();
     fold_tile<D, RPW>(tile, q_s, st, qpos, head, live, t0, window, slopes,
                       scale);
@@ -260,7 +319,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
           j < fresh_hi ? (((long long)b * sq + j) * hkv + g) * D : -1;
     }
     __syncthreads();
-    load_tile<T, D>(tile, k_new, v_new);
+    load_tile<T, D, false>(tile, k_new, v_new);
     __syncthreads();
     fold_tile<D, RPW>(tile, q_s, st, qpos, head, live, p0 + j0, window,
                       slopes, scale);
@@ -280,102 +339,97 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   }
 }
 
-template <typename T, int D, int RPW>
-cudaError_t launch(const void* q, const void* k_new, const void* v_new,
-                   const void* k_pool, const void* v_pool, const void* tables,
-                   const void* pos0, const void* true_len, const void* slopes,
-                   void* out, int b, int sq, int hq, int hkv, int nb, int bs,
-                   int max_blocks, int window, cudaStream_t stream) {
+// Every argument of one call, passed down the dispatch chain.
+struct Args {
+  const void *q, *k_new, *v_new, *k_pool, *v_pool, *k_scale, *v_scale;
+  const void *tables, *pos0, *true_len, *slopes;
+  void* out;
+  int b, sq, hq, hkv, hs, nb, bs, max_blocks, window;
+  cudaStream_t stream;
+};
+
+template <typename T, typename P, int D, int RPW>
+cudaError_t launch(const Args& a) {
   constexpr int R = kWarps * RPW;
-  const long long rows = (long long)sq * (hq / hkv);
+  const long long rows = (long long)a.sq * (a.hq / a.hkv);
   const long long zt = (rows + R - 1) / R;
-  if (zt > 65535 || hkv > 65535) return cudaErrorInvalidConfiguration;
-  dim3 grid(b, hkv, (unsigned)zt);
-  paged_attention_kernel<T, D, RPW><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(pos0), static_cast<const int*>(true_len),
-      static_cast<const float*>(slopes), static_cast<T*>(out), sq, hq, hkv,
-      nb, bs, max_blocks, window, 1.0f / sqrtf((float)D));
+  if (zt > 65535 || a.hkv > 65535) return cudaErrorInvalidConfiguration;
+  dim3 grid(a.b, a.hkv, (unsigned)zt);
+  paged_attention_kernel<T, P, D, RPW><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k_new),
+      static_cast<const T*>(a.v_new), static_cast<const P*>(a.k_pool),
+      static_cast<const P*>(a.v_pool), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), static_cast<const int*>(a.tables),
+      static_cast<const int*>(a.pos0), static_cast<const int*>(a.true_len),
+      static_cast<const float*>(a.slopes), static_cast<T*>(a.out), a.sq, a.hq,
+      a.hkv, a.hs, a.nb, a.bs, a.max_blocks, a.window,
+      1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t dispatch_rows(int rows, const void* q, const void* k_new,
-                          const void* v_new, const void* k_pool,
-                          const void* v_pool, const void* tables,
-                          const void* pos0, const void* true_len,
-                          const void* slopes, void* out, int b, int sq, int hq,
-                          int hkv, int nb, int bs, int max_blocks, int window,
-                          cudaStream_t stream) {
+template <typename T, typename P, int D>
+cudaError_t dispatch_rows(const Args& a) {
   // decode (few rows: the GQA group of one query) wants small blocks so
   // no warp idles; prefill chunks share each K/V tile across 16 rows
-  if (rows <= kWarps)
-    return launch<T, D, 1>(q, k_new, v_new, k_pool, v_pool, tables, pos0,
-                           true_len, slopes, out, b, sq, hq, hkv, nb, bs,
-                           max_blocks, window, stream);
-  if (rows <= 2 * kWarps)
-    return launch<T, D, 2>(q, k_new, v_new, k_pool, v_pool, tables, pos0,
-                           true_len, slopes, out, b, sq, hq, hkv, nb, bs,
-                           max_blocks, window, stream);
-  return launch<T, D, 4>(q, k_new, v_new, k_pool, v_pool, tables, pos0,
-                         true_len, slopes, out, b, sq, hq, hkv, nb, bs,
-                         max_blocks, window, stream);
+  const int rows = a.sq * (a.hq / a.hkv);
+  if (rows <= kWarps) return launch<T, P, D, 1>(a);
+  if (rows <= 2 * kWarps) return launch<T, P, D, 2>(a);
+  return launch<T, P, D, 4>(a);
+}
+
+template <typename T, typename P>
+cudaError_t dispatch_dim(int d, const Args& a) {
+  switch (d) {
+    case 16: return dispatch_rows<T, P, 16>(a);
+    case 32: return dispatch_rows<T, P, 32>(a);
+    case 64: return dispatch_rows<T, P, 64>(a);
+    case 128: return dispatch_rows<T, P, 128>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-cudaError_t dispatch_dim(int d, int rows, const void* q, const void* k_new,
-                         const void* v_new, const void* k_pool,
-                         const void* v_pool, const void* tables,
-                         const void* pos0, const void* true_len,
-                         const void* slopes, void* out, int b, int sq, int hq,
-                         int hkv, int nb, int bs, int max_blocks, int window,
-                         cudaStream_t stream) {
-#define DS_PA_DIM(DIM)                                                      \
-  case DIM:                                                                 \
-    return dispatch_rows<T, DIM>(rows, q, k_new, v_new, k_pool, v_pool,     \
-                                 tables, pos0, true_len, slopes, out, b, sq, \
-                                 hq, hkv, nb, bs, max_blocks, window, stream);
-  switch (d) {
-    DS_PA_DIM(16)
-    DS_PA_DIM(32)
-    DS_PA_DIM(64)
-    DS_PA_DIM(128)
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t dispatch_pool(int pool, int d, const Args& a) {
+  switch (pool) {
+    case 0: return dispatch_dim<T, T>(d, a);
+    case 1: return dispatch_dim<T, int8_t>(d, a);
+    case 2: return dispatch_dim<T, __nv_fp8_e4m3>(d, a);
+    default: return cudaErrorInvalidValue;
   }
-#undef DS_PA_DIM
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// slopes may be null (no ALiBi); window <= 0 means no sliding window.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// C entry point, bound with ctypes. dtype (q, k_new, v_new, out): 0 =
+// float32, 1 = bfloat16. pool: 0 = the pools are of dtype and k_scale,
+// v_scale are null; 1 = int8, 2 = float8 e4m3 codes with f32 scales
+// [nb, bs, hs], hs = hkv or 1. slopes may be null (no ALiBi); window <= 0
+// means no sliding window. Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int ds_paged_attention(const void* q, const void* k_new,
                                   const void* v_new, const void* k_pool,
-                                  const void* v_pool, const void* tables,
+                                  const void* v_pool, const void* k_scale,
+                                  const void* v_scale, const void* tables,
                                   const void* pos0, const void* true_len,
                                   const void* slopes, void* out, int dtype,
-                                  int b, int sq, int hq, int hkv, int d,
-                                  int nb, int bs, int max_blocks, int window,
-                                  void* stream) {
+                                  int pool, int b, int sq, int hq, int hkv,
+                                  int d, int nb, int bs, int hs,
+                                  int max_blocks, int window, void* stream) {
   if (b <= 0 || sq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || nb <= 0 || bs <= 0 || max_blocks <= 0)
     return (int)cudaErrorInvalidValue;
-  const int rows = sq * (hq / hkv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool scaled = k_scale != nullptr && v_scale != nullptr;
+  if ((pool != 0) != scaled || (scaled && hs != hkv && hs != 1) ||
+      (pool == 0 && (k_scale != nullptr || v_scale != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, tables,
+               pos0, true_len, slopes, out, b, sq, hq, hkv, hs, nb, bs,
+               max_blocks, window, static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_dim<float>(d, rows, q, k_new, v_new, k_pool, v_pool,
-                              tables, pos0, true_len, slopes, out, b, sq, hq,
-                              hkv, nb, bs, max_blocks, window, s);
+    err = dispatch_pool<float>(pool, d, a);
   else if (dtype == 1)
-    err = dispatch_dim<__nv_bfloat16>(d, rows, q, k_new, v_new, k_pool,
-                                      v_pool, tables, pos0, true_len, slopes,
-                                      out, b, sq, hq, hkv, nb, bs, max_blocks,
-                                      window, s);
+    err = dispatch_pool<__nv_bfloat16>(pool, d, a);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

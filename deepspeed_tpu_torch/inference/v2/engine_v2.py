@@ -23,18 +23,24 @@ import torch
 from torch import nn
 
 from ...models.convert import load_jax_params
+from ...ops.quantization import KV_STORE_DTYPES
 from ...utils.logging import log_dist
 from ..config import DeepSpeedInferenceConfig
 from ...runtime.config_utils import DeepSpeedConfigModel
 from .paged import paged_forward
-from .ragged import DSStateManager, SequenceDescriptor, kv_block_bytes
+from .ragged import (DSStateManager, PrefixCache, SequenceDescriptor,
+                     kv_block_bytes, quantized_block_budget)
 
 
 @dataclasses.dataclass
 class PrefixCacheConfig(DeepSpeedConfigModel):
-    """Automatic prefix caching; not ported yet (``enabled`` raises)."""
+    """Automatic prefix caching: full KV blocks are indexed by a hash
+    chain over their tokens and shared across requests; a new prompt
+    whose leading blocks match a cached chain skips their prefill."""
     enabled: bool = False
+    # a match shorter than this many full blocks is ignored
     min_match_blocks: int = 1
+    # cap on indexed blocks; 0 = bounded only by the pool
     max_cached_blocks: int = 0
 
 
@@ -49,11 +55,27 @@ class SpeculativeConfig(DeepSpeedConfigModel):
 
 @dataclasses.dataclass
 class KVCacheConfig(DeepSpeedConfigModel):
-    """Quantized KV cache; not ported yet (``enabled`` raises)."""
+    """Quantized KV cache: the pools store int8 or fp8-e4m3 codes with
+    one f32 scale per written (token, kv-head) vector (``granularity``
+    "head") or per token ("token"), in scale pools beside them. ``dtype``
+    "fp16" keeps the engine's compute dtype: the no-op rung, no scale
+    pools and no growth. ``grow_pool`` sizes the allocator in quantized
+    bytes: the memory of ``num_kv_blocks`` full-precision blocks holds
+    about twice as many quantized ones."""
     enabled: bool = False
-    dtype: str = "int8"
-    granularity: str = "head"
+    dtype: str = "int8"            # "fp16" | "int8" | "fp8"
+    granularity: str = "head"      # "head" | "token"
     grow_pool: bool = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        # the JAX block's Literal fields
+        if self.dtype not in ("fp16", *KV_STORE_DTYPES):
+            raise ValueError(f"kv_cache.dtype {self.dtype!r}: one of "
+                             f"'fp16', 'int8', 'fp8'")
+        if self.granularity not in ("head", "token"):
+            raise ValueError(f"kv_cache.granularity {self.granularity!r}: "
+                             f"'head' or 'token'")
 
 
 @dataclasses.dataclass
@@ -81,9 +103,6 @@ def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
     unported = [
         (config.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1",
          "tensor-parallel serving"),
-        (config.kv_cache.enabled, "kv_cache.enabled", "quantized KV cache"),
-        (config.prefix_cache.enabled, "prefix_cache.enabled",
-         "prefix cache in the engine"),
         (config.speculative.enabled, "speculative.enabled",
          "speculative decoding"),
         (config.fused_admission, "fused_admission",
@@ -135,30 +154,52 @@ class InferenceEngineV2:
             model.init_params(gen)
 
         bs = config.kv_block_size
+        # quantized KV: the pool's storage and the block budget are
+        # resolved before the state manager, so the allocator is sized in
+        # quantized bytes
+        kvc = config.kv_cache
+        self._kv_quant = bool(kvc.enabled and kvc.dtype != "fp16")
+        self._kv_scale_heads = (1 if kvc.granularity == "token"
+                                else c.num_kv_heads)
+        full_bytes = kv_block_bytes(bs, c.num_kv_heads, c.head_dim,
+                                    self.dtype.itemsize)
         nb = config.num_kv_blocks
+        if self._kv_quant and kvc.grow_pool:
+            nb = quantized_block_budget(
+                nb, full_bytes, kv_block_bytes(
+                    bs, c.num_kv_heads, c.head_dim, 1,
+                    scale_heads=self._kv_scale_heads))
         self.num_kv_blocks = nb
+        pc = config.prefix_cache
         self.state_manager = DSStateManager(
             block_size=bs, num_blocks=nb,
-            max_blocks_per_seq=-(-c.max_seq_len // bs))
+            max_blocks_per_seq=-(-c.max_seq_len // bs),
+            prefix_cache=(PrefixCache(
+                block_size=bs, min_match_blocks=pc.min_match_blocks,
+                max_cached_blocks=pc.max_cached_blocks)
+                if pc.enabled else None))
         # logits of sequences finished as a side effect of another
         # caller's drain loop, held for their owner's next tick()
         self._finished_stash: dict[int, torch.Tensor] = {}
-        # zero-initialized: dead pool slots hold zeros (paged.py relies
-        # on nothing else being there)
+        # zero-initialized: dead pool slots hold zeros, and zero scales
+        # dequantize them to exact 0.0 (paged.py relies on nothing else
+        # being there)
         pool_shape = (c.num_layers, nb, bs, c.num_kv_heads, c.head_dim)
-        self.pools = {"k": torch.zeros(pool_shape, dtype=self.dtype,
-                                       device=self.device),
-                      "v": torch.zeros(pool_shape, dtype=self.dtype,
-                                       device=self.device)}
+        store = KV_STORE_DTYPES[kvc.dtype] if self._kv_quant else self.dtype
+        self.pools = {n: torch.zeros(pool_shape, dtype=store,
+                                     device=self.device) for n in "kv"}
+        if self._kv_quant:
+            scale_shape = pool_shape[:3] + (self._kv_scale_heads,)
+            self.pools.update({n: torch.zeros(scale_shape,
+                                              dtype=torch.float32,
+                                              device=self.device)
+                               for n in ("ks", "vs")})
         self.serving_stats = {"host_dispatches": 0, "decoded_tokens": 0}
         # SplitFuse budget, floored to a power of two as in the JAX engine
         self._chunk = 1 << (max(1, config.max_chunk_size).bit_length() - 1)
-        pool_mib = kv_block_bytes(bs, c.num_kv_heads, c.head_dim,
-                                  self.pools["k"].element_size()) \
-            * nb * c.num_layers / 2**20
         log_dist(f"InferenceEngineV2: {nb} KV blocks x {bs} tokens "
-                 f"({pool_mib:.1f} MiB, kv dtype {self.dtype}) on "
-                 f"{self.device}")
+                 f"({self.kv_pool_bytes() / 2**20:.1f} MiB, kv dtype "
+                 f"{self.kv_dtype}) on {self.device}")
 
     # ------------------------------------------------------------------
     def _run(self, uids: list[int]) -> torch.Tensor:
@@ -205,31 +246,51 @@ class InferenceEngineV2:
                 raise ValueError(
                     f"sequence {u}: schedule()/put() needs at least one "
                     f"token (an empty list would never finish a tick)")
-        if do_checks:
-            # cumulative admission over the whole batch, so a failure
-            # raises before any state mutation
-            need = 0
+        # prefix-cache pre-pinning: matched blocks are ref-bumped before
+        # any check or allocation, so the admission math credits exactly
+        # the blocks reuse skips, and an earlier sequence's allocation in
+        # this batch cannot evict a later sequence's hit
+        pins: dict[int, list] = {}
+        if mgr.cache is not None:
             for u, toks in zip(uids, batch_tokens):
                 seq = mgr.seqs.get(u)
-                seq_blocks = len(seq.blocks) if seq else 0
-                seq_need = mgr.blocks_needed(
-                    seq or SequenceDescriptor(uid=u, tokens=[]), len(toks))
-                if seq_blocks + seq_need > mgr.max_blocks_per_seq:
+                if u not in pins and (seq is None or (not seq.tokens
+                                                      and not seq.blocks)):
+                    m = mgr.prefix_match(toks)
+                    if m:
+                        mgr.pin_prefix(m)
+                        pins[u] = m
+        try:
+            if do_checks:
+                # cumulative admission over the whole batch, so a failure
+                # raises before any state mutation
+                need = 0
+                for u, toks in zip(uids, batch_tokens):
+                    seq = mgr.seqs.get(u)
+                    seq_blocks = len(seq.blocks) if seq else 0
+                    seq_need = mgr.blocks_needed(
+                        seq or SequenceDescriptor(uid=u, tokens=[]),
+                        len(toks))
+                    if seq_blocks + seq_need > mgr.max_blocks_per_seq:
+                        raise RuntimeError(
+                            f"sequence {u} would exceed the max length "
+                            f"({mgr.max_blocks_per_seq * mgr.block_size} "
+                            f"tokens)")
+                    need += seq_need - len(pins.get(u, ()))
+                if need > mgr.available_blocks:
                     raise RuntimeError(
-                        f"sequence {u} would exceed the max length "
-                        f"({mgr.max_blocks_per_seq * mgr.block_size} "
-                        f"tokens)")
-                need += seq_need
-            if need > mgr.available_blocks:
-                raise RuntimeError(
-                    f"cannot schedule batch: needs {need} KV blocks, "
-                    f"{mgr.available_blocks} allocatable — the pool "
-                    "is exhausted (flush finished sequences)")
-        for u, toks in zip(uids, batch_tokens):
-            mgr.extend(u, list(map(int, toks)))
-            # re-admission invalidates logits stashed when this uid
-            # finished during another caller's drain
-            self._finished_stash.pop(u, None)
+                        f"cannot schedule batch: needs {need} KV blocks, "
+                        f"{mgr.available_blocks} allocatable — the pool "
+                        "is exhausted (flush finished sequences)")
+            for u, toks in zip(uids, batch_tokens):
+                mgr.extend(u, list(map(int, toks)), pinned=pins.pop(u, None))
+                # re-admission invalidates logits stashed when this uid
+                # finished during another caller's drain
+                self._finished_stash.pop(u, None)
+        except BaseException:
+            for m in pins.values():
+                mgr.unpin_prefix(m)
+            raise
 
     def tick(self) -> dict[int, torch.Tensor]:
         """ONE scheduler tick: a single forward over the first
@@ -282,6 +343,46 @@ class InferenceEngineV2:
     def free_blocks(self) -> int:
         """Schedulable KV-block headroom."""
         return self.state_manager.available_blocks
+
+    # ------------------------------------------------------------------
+    # KV-pool byte truth
+    @property
+    def kv_dtype(self) -> str:
+        """Storage format of the KV payload pools (the compute dtype's
+        name when quantization is off)."""
+        return (self._config.kv_cache.dtype if self._kv_quant
+                else str(self.dtype).removeprefix("torch."))
+
+    def kv_pool_bytes(self) -> int:
+        """Device bytes of the paged KV pools: payload plus (quantized)
+        scale pools, from the live tensors."""
+        return sum(t.numel() * t.element_size() for t in self.pools.values())
+
+    def kv_bytes_per_token(self) -> float:
+        """KV bytes one cached token costs across all layers (k+v, scales
+        included): pool bytes over pool token capacity."""
+        return (self.kv_pool_bytes()
+                / (self.num_kv_blocks * self._config.kv_block_size))
+
+    def serving_metrics(self) -> dict:
+        """The serving counters, the prefix cache's counters and gauges
+        (zeros when it is off), ``dispatches_per_token`` (host dispatches
+        per decoded token) and the KV pool's footprint: ``kv_pool_bytes``,
+        ``kv_bytes_per_token``, ``kv_num_blocks`` and ``kv_dtype``."""
+        st = dict(self.serving_stats)
+        st.update(self.state_manager.prefix_cache_metrics())
+        st["dispatches_per_token"] = (
+            st["host_dispatches"] / max(st["decoded_tokens"], 1))
+        st["kv_pool_bytes"] = self.kv_pool_bytes()
+        st["kv_bytes_per_token"] = round(self.kv_bytes_per_token(), 3)
+        st["kv_num_blocks"] = int(self.num_kv_blocks)
+        st["kv_dtype"] = self.kv_dtype
+        return st
+
+    def reset_serving_metrics(self) -> None:
+        for k in self.serving_stats:
+            self.serving_stats[k] = 0
+        self.state_manager.reset_prefix_stats()
 
     def flush(self, uids) -> None:
         """Release finished sequences' KV blocks; accepts one uid or an

@@ -8,6 +8,9 @@ logits).
 (``csrc/paged_attention.cu``) on CUDA tensors and its plain PyTorch
 version on CPU tensors. ``gather_pages`` + ``place_in_pages`` +
 ``paged_attention`` are the plain reference path, as in the JAX package.
+Quantized pools (int8 or fp8-e4m3 codes with per-vector f32 scales,
+``ops/quantization.py``) are read by both: the kernel dequantizes each
+pool tile in-register, the reference path its gathered view.
 """
 
 from __future__ import annotations
@@ -18,9 +21,12 @@ import numpy as np
 import torch
 
 from ...ops import op_builder
+from ...ops.quantization import KV_STORE_DTYPES, kv_dequantize, kv_quantize
 
 _KERNEL_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# pool storage codes of the kernel's C entry: 0 = q's dtype (fp pools)
+_POOL_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor):
@@ -30,6 +36,24 @@ def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor):
     bs, h, d = pool.shape[1:]
     safe = block_tables.long().clamp(max=pool.shape[0] - 1)
     return pool[safe].reshape(b, max_blocks * bs, h, d)
+
+
+def gather_scales(spool: torch.Tensor, block_tables: torch.Tensor):
+    """[num_blocks, bs, Hs] scale pool -> contiguous [B, smax, Hs]
+    per-token scales, through the same clamped block table as the
+    payload pool."""
+    b, max_blocks = block_tables.shape
+    bs, hs = spool.shape[1:]
+    safe = block_tables.long().clamp(max=spool.shape[0] - 1)
+    return spool[safe].reshape(b, max_blocks * bs, hs)
+
+
+def dequantize_pages(pool: torch.Tensor, spool: torch.Tensor,
+                     block_tables: torch.Tensor) -> torch.Tensor:
+    """Gathered fp32 view of a quantized pool: ``codes * scale`` of each
+    (token, head) vector, the product the kernel forms in-register."""
+    return kv_dequantize(gather_pages(pool, block_tables),
+                         gather_scales(spool, block_tables))
 
 
 def place_in_pages(pages: torch.Tensor, kv: torch.Tensor, pos0: torch.Tensor,
@@ -80,19 +104,28 @@ def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_attention_plain(q, k_new, v_new, k_pool, v_pool, block_tables,
                           pos0, true_len, *, window: int | None = None,
-                          alibi_slopes=None):
+                          alibi_slopes=None, k_scale=None, v_scale=None):
     """Plain PyTorch version of :func:`paged_attention_kernel`: the same
     function written on tensors (exact masked softmax in fp32 over the
     row's cached keys, positions < pos0, read through the clamped block
     table, then this chunk's fresh keys, causal). Query rows >=
-    true_len come back as zeros, as the kernel writes them."""
+    true_len come back as zeros, as the kernel writes them. With
+    ``k_scale``/``v_scale`` the pools hold codes, dequantized in fp32 as
+    the kernel does (never rounded to q's dtype); the fresh chunk stays
+    exact."""
     b, sq, hq, d = q.shape
     hkv = k_new.shape[2]
     rep = hq // hkv
     dev = q.device
     smax = block_tables.shape[1] * k_pool.shape[1]
-    k = torch.cat([gather_pages(k_pool, block_tables), k_new], 1).float()
-    v = torch.cat([gather_pages(v_pool, block_tables), v_new], 1).float()
+    if k_scale is None:
+        k_pages = gather_pages(k_pool, block_tables).float()
+        v_pages = gather_pages(v_pool, block_tables).float()
+    else:
+        k_pages = dequantize_pages(k_pool, k_scale, block_tables)
+        v_pages = dequantize_pages(v_pool, v_scale, block_tables)
+    k = torch.cat([k_pages, k_new.float()], 1)
+    v = torch.cat([v_pages, v_new.float()], 1)
     pos0 = pos0.long()
     ar_q = torch.arange(sq, device=dev)
     ar_k = torch.arange(smax + sq, device=dev)
@@ -124,7 +157,7 @@ def _kernel_fn():
     lib = op_builder.load("paged_attention")
     fn = lib.ds_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ds_cuda_error_string.argtypes = [ctypes.c_int]
@@ -150,47 +183,62 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
     block_tables [B, max_blocks] (entries clamped); pos0/true_len [B].
     Returns [B, S_new, Hq, D] in q's dtype; rows >= true_len are zeros.
 
+    Quantized pools: with ``k_scale``/``v_scale`` ([nb, bs, Hs] f32, Hs =
+    Hkv per head or 1 per token) the pools hold int8 or float8_e4m3fn
+    codes, and each pool tile is dequantized in-register
+    (``code * scale[block, slot, head % Hs]``); q/k_new/v_new stay
+    fp32/bf16 and the fresh chunk is folded unquantized.
+
     CPU tensors take :func:`paged_attention_plain`. CUDA tensors launch
     ``csrc/paged_attention.cu`` (fp32 or bf16, D in {16, 32, 64, 128},
     block size a multiple of 8, contiguous int32 tables/pos0/true_len)
     or raise; ``paged_attention_kernel.launches`` counts the launches.
 
     What bounds it on an H100: bytes. A decode row reads
-    ``2 * ctx * Hkv * D * itemsize`` bytes of KV per layer at 3.35 TB/s
-    and does a few flops per byte, far below the card's ridge point. The
-    simple design reads only the live keys (positions < pos0, trimmed by
-    the window), loads each K/V element once per thread block and serves
-    the GQA group's ``rep`` q heads from it; it does not yet split a long
-    context across blocks or overlap the next tile's load with the fold.
-    ``sanitize_pools`` is accepted for the JAX signature and has nothing
-    to select here: the kernel zero-fills every tile slot outside the
-    live range instead of reading it, so dead pool slots are never used
-    whatever they hold. Quantized pools (``k_scale``/``v_scale``) belong
-    to the quantized-KV slice."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV pools are not ported yet (ROADMAP: port Queue 2, "
-            "paged attention int8/fp8-pool mode)")
+    ``2 * ctx * Hkv * D * itemsize`` bytes of KV per layer (1 byte an
+    element plus 4 bytes per (token, scale head) when quantized) at
+    3.35 TB/s and does a few flops per byte, far below the card's ridge
+    point. The simple design reads only the live keys (positions < pos0,
+    trimmed by the window), loads each K/V element once per thread block
+    and serves the GQA group's ``rep`` q heads from it; it does not yet
+    split a long context across blocks or overlap the next tile's load
+    with the fold. ``sanitize_pools`` is accepted for the JAX signature
+    and has nothing to select here: the kernel zero-fills every tile slot
+    outside the live range instead of reading it, so dead pool slots are
+    never used whatever they hold."""
+    quant = k_scale is not None
+    _check(quant == (v_scale is not None),
+           "k_scale and v_scale come together (quantized pools) or not at "
+           "all")
+    if quant:
+        _check(k_pool.dtype in _POOL_CODES and v_pool.dtype == k_pool.dtype,
+               f"quantized pools must be int8 or float8_e4m3fn, got "
+               f"{k_pool.dtype}/{v_pool.dtype}")
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_new, v_new, k_pool, v_pool, block_tables, pos0, true_len,
-            window=window, alibi_slopes=alibi_slopes)
+            window=window, alibi_slopes=alibi_slopes, k_scale=k_scale,
+            v_scale=v_scale)
     _check(q.device.type == "cuda", f"unsupported device {q.device}")
     b, sq, hq, d = q.shape
     nb, bs, hkv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     tensors = dict(q=q, k_new=k_new, v_new=v_new, k_pool=k_pool,
                    v_pool=v_pool, block_tables=block_tables, pos0=pos0,
                    true_len=true_len)
+    if quant:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
     for name, t in tensors.items():
         _check(t.device == q.device, f"{name} is on {t.device}, q on "
                f"{q.device}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
+    # the kernel reads these with 16-byte loads
+    for name in ("k_new", "v_new", "k_pool", "v_pool", "k_scale", "v_scale"):
+        _check(name not in tensors or tensors[name].data_ptr() % 16 == 0,
+               f"{name} is not 16-byte aligned")
     _check(q.dtype in _KERNEL_DTYPES, f"dtype {q.dtype} (fp32 or bf16)")
-    for name in ("k_new", "v_new", "k_pool", "v_pool"):
+    for name in ("k_new", "v_new") + (() if quant else ("k_pool", "v_pool")):
         _check(tensors[name].dtype == q.dtype, f"{name} dtype "
                f"{tensors[name].dtype} != q dtype {q.dtype}")
-        _check(tensors[name].data_ptr() % 16 == 0,
-               f"{name} is not 16-byte aligned")
     for name in ("block_tables", "pos0", "true_len"):
         _check(tensors[name].dtype == torch.int32, f"{name} must be int32")
     _check(d in _KERNEL_DIMS, f"head_dim {d} (one of {_KERNEL_DIMS})")
@@ -200,6 +248,15 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
            f"k_new/v_new shape {tuple(k_new.shape)}")
     _check(k_pool.shape == (nb, bs, hkv, d) and v_pool.shape == k_pool.shape,
            f"pool shape {tuple(k_pool.shape)}")
+    hs = 0
+    if quant:
+        hs = k_scale.shape[-1]
+        _check(k_scale.shape == (nb, bs, hs) and hs in (hkv, 1)
+               and v_scale.shape == k_scale.shape,
+               f"scale shape {tuple(k_scale.shape)} (want [{nb}, {bs}, "
+               f"{hkv} or 1])")
+        _check(k_scale.dtype == torch.float32
+               and v_scale.dtype == torch.float32, "scales must be float32")
     _check(block_tables.dim() == 2 and block_tables.shape[0] == b,
            f"block_tables shape {tuple(block_tables.shape)}")
     _check(pos0.shape == (b,) and true_len.shape == (b,),
@@ -214,10 +271,13 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
     out = torch.empty_like(q)
     lib, fn = _kernel_fn()
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-             k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
+             k_pool.data_ptr(), v_pool.data_ptr(),
+             k_scale.data_ptr() if quant else None,
+             v_scale.data_ptr() if quant else None, block_tables.data_ptr(),
              pos0.data_ptr(), true_len.data_ptr(),
              None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-             _KERNEL_DTYPES[q.dtype], b, sq, hq, hkv, d, nb, bs,
+             _KERNEL_DTYPES[q.dtype], _POOL_CODES[k_pool.dtype] if quant
+             else 0, b, sq, hq, hkv, d, nb, bs, hs,
              block_tables.shape[1], window or 0,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -252,6 +312,15 @@ def paged_forward(model, pools: dict, tokens: torch.Tensor,
     two agree because attention reads pool pages only at positions
     < pos0 and takes this chunk's k/v from k_new/v_new (the plain path
     patches them into its gathered copy).
+
+    Quantized pools: when ``pools`` also carries ``"ks"``/``"vs"``
+    ([L, nb, bs, Hs] f32), ``"k"``/``"v"`` hold int8 or fp8 codes. The
+    kernel dequantizes pool tiles in-register; the reference path
+    (``use_kernel=False``) dequantizes its gathered view and rounds it
+    to the compute dtype, as the JAX reference path does. Each fresh
+    (token, head) vector is quantized once, at its pool write, with its
+    own scale, so a block's bytes depend only on the tokens written
+    through it; a token's own chunk attends to its exact k/v.
     """
     b, s = tokens.shape
     dev = tokens.device
@@ -262,6 +331,11 @@ def paged_forward(model, pools: dict, tokens: torch.Tensor,
     alibi = model._alibi_slopes
     window = model.config.sliding_window
     bs = pools["k"].shape[2]
+    quant = "ks" in pools
+    if quant:
+        kv_dtype = next(n for n, t in KV_STORE_DTYPES.items()
+                        if t == pools["k"].dtype)
+        hs = pools["ks"].shape[-1]
     # pool slots this chunk writes: valid (row, slot) pairs only
     bi, si = (ar[None, :] < true_len[:, None]).nonzero(as_tuple=True)
     wpos = positions[bi, si]
@@ -270,6 +344,8 @@ def paged_forward(model, pools: dict, tokens: torch.Tensor,
     for layer in range(model.config.num_layers):
         p = model.layer_params(layer)
         k_pool, v_pool = pools["k"][layer], pools["v"][layer]
+        k_scale = pools["ks"][layer] if quant else None
+        v_scale = pools["vs"][layer] if quant else None
         h = model._norm(x, p["ln1_scale"], p.get("ln1_bias"))
         q, k, v = model._qkv(p, h, positions)
         if use_kernel and q.shape[-1] % 8 == 0 and bs % 8 == 0:
@@ -277,17 +353,33 @@ def paged_forward(model, pools: dict, tokens: torch.Tensor,
             # never reads dead slots anyway
             a = attend(
                 q, k, v, k_pool, v_pool, block_tables, pos0, true_len,
-                window=window, alibi_slopes=alibi, sanitize_pools=False)
+                window=window, alibi_slopes=alibi, sanitize_pools=False,
+                k_scale=k_scale, v_scale=v_scale)
         else:
-            k_pages = place_in_pages(gather_pages(k_pool, block_tables), k,
-                                     pos0, true_len)
-            v_pages = place_in_pages(gather_pages(v_pool, block_tables), v,
-                                     pos0, true_len)
+            if quant:
+                k_pages = dequantize_pages(k_pool, k_scale,
+                                           block_tables).to(k.dtype)
+                v_pages = dequantize_pages(v_pool, v_scale,
+                                           block_tables).to(v.dtype)
+            else:
+                k_pages = gather_pages(k_pool, block_tables)
+                v_pages = gather_pages(v_pool, block_tables)
+            k_pages = place_in_pages(k_pages, k, pos0, true_len)
+            v_pages = place_in_pages(v_pages, v, pos0, true_len)
             a = paged_attention(q, k_pages, v_pages, pos0, window=window,
                                 alibi_slopes=alibi)
         # in-place pool write of this layer's chunk k/v (see docstring)
-        k_pool.index_put_((wblk, woff), k[bi, si].to(k_pool.dtype))
-        v_pool.index_put_((wblk, woff), v[bi, si].to(v_pool.dtype))
+        if quant:
+            # k and v quantized together: one set of launches for both
+            codes, scales = kv_quantize(torch.stack((k[bi, si], v[bi, si])),
+                                        kv_dtype, hs)
+            k_pool.index_put_((wblk, woff), codes[0])
+            v_pool.index_put_((wblk, woff), codes[1])
+            k_scale.index_put_((wblk, woff), scales[0])
+            v_scale.index_put_((wblk, woff), scales[1])
+        else:
+            k_pool.index_put_((wblk, woff), k[bi, si].to(k_pool.dtype))
+            v_pool.index_put_((wblk, woff), v[bi, si].to(v_pool.dtype))
         if model.config.parallel_residual:
             m = model._mlp(p, model._parallel_mlp_input(p, x, h))
             x = x + model._attn_out(p, a) + m

@@ -5,11 +5,11 @@ and per-sequence page tables; the blocked allocator gates admission).
 The port's copy of ``deepspeed_tpu/inference/v2/ragged.py``: host-only
 Python, kept near-verbatim. The pool is one device tensor per k/v with
 layout ``[L, num_blocks, block_size, H_kv, D]``; page tables and sequence
-descriptors stay on the host. Left for later slices: ``KVExportState``,
-``import_sequence`` and ``park`` (KV migration), ``reserve``,
-``commit_device_tokens`` and ``history_tail`` (the fused decode loops),
-and the blocksan hooks. ``PrefixCache`` is kept because
-``DSStateManager`` references it; the port's engine keeps it off.
+descriptors stay on the host; a quantized pool adds one f32 scale pool
+per k/v, ``[L, num_blocks, block_size, Hs]``, indexed by the same blocks.
+Left for later slices: ``KVExportState``, ``import_sequence`` and ``park``
+(KV migration), ``reserve``, ``commit_device_tokens`` and
+``history_tail`` (the fused decode loops), and the blocksan hooks.
 """
 
 from __future__ import annotations
@@ -36,6 +36,16 @@ def kv_block_bytes(block_size: int, num_kv_heads: int, head_dim: int,
     payload = block_size * num_kv_heads * head_dim * payload_itemsize
     scales = block_size * scale_heads * 4
     return int(2 * (payload + scales))
+
+
+def quantized_block_budget(num_blocks: int, full_block_bytes: int,
+                           quant_block_bytes: int) -> int:
+    """Blocks the quantized pool may hold inside the device-memory budget
+    of ``num_blocks`` full-precision blocks (never fewer than
+    configured)."""
+    return max(int(num_blocks),
+               int(num_blocks) * int(full_block_bytes)
+               // max(int(quant_block_bytes), 1))
 
 
 @dataclass
@@ -297,6 +307,25 @@ class DSStateManager:
             seq.cached_key = self.cache.publish(seq.cached_key, toks,
                                                 seq.blocks[i])
             seq.published += 1
+
+    def prefix_cache_metrics(self) -> dict:
+        """Counters + occupancy gauges for serving_metrics(): zeros with
+        caching off, so consumers see one stable schema."""
+        if self.cache is None:
+            m = dict.fromkeys(PREFIX_STAT_KEYS, 0)
+            m.update(prefix_hit_rate=0.0, prefix_cached_blocks=0,
+                     prefix_evictable_blocks=0)
+            return m
+        m = dict(self.cache.stats)
+        looked = m["prefix_hits"] + m["prefix_misses"]
+        m["prefix_hit_rate"] = m["prefix_hits"] / max(looked, 1)
+        m["prefix_cached_blocks"] = self.cache.cached_blocks
+        m["prefix_evictable_blocks"] = self.cache.evictable_blocks
+        return m
+
+    def reset_prefix_stats(self) -> None:
+        if self.cache is not None:
+            self.cache.reset_stats()
 
     # ------------------------------------------------------------------
     def can_schedule(self, uid: int, new_tokens: int) -> bool:

@@ -27,6 +27,7 @@ from deepspeed_tpu_torch.ops.fused_optimizers import (Adam, Lion,
                                                       fused_lion_step)
 from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
 from deepspeed_tpu_torch.ops.layers import alibi_slopes
+from deepspeed_tpu_torch.ops.quantization import kv_quantize
 
 pytestmark = pytest.mark.gpu
 
@@ -119,6 +120,90 @@ def test_engine_on_the_card_matches_the_cpu_and_launches_every_layer(cuda):
     dispatches = gpu.serving_stats["host_dispatches"]
     assert dispatches == 3          # 40 tokens at a 16-token budget
     assert launched == gpu.model.config.num_layers * dispatches
+
+
+def _quantized(x, kv_dtype, granularity):
+    """The call's fp pools as int8/fp8 codes, and their f32 scales."""
+    hs = HKV if granularity == "head" else 1
+    kw = {}
+    for pool, scale in (("k_pool", "k_scale"), ("v_pool", "v_scale")):
+        x[pool], kw[scale] = kv_quantize(x[pool], kv_dtype, hs)
+    return x, kw
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("sq", [1, 40])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("granularity", ["head", "token"])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_kernel_matches_plain(cuda, dtype, kv_dtype, granularity,
+                                        d, sq, variant):
+    x, scales = _quantized(_inputs(cuda, dtype, sq, d), kv_dtype,
+                           granularity)
+    kw = dict(_kwargs(variant, cuda), **scales)
+    before = paged.paged_attention_kernel.launches
+    got = paged.paged_attention_kernel(*x.values(), **kw)
+    torch.cuda.synchronize()
+    assert paged.paged_attention_kernel.launches == before + 1
+    ref = paged.paged_attention_plain(*x.values(), **kw)
+    assert got.dtype == dtype and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_quantized_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, kw = _quantized(_inputs(cuda, torch.float32, 8, 32), "int8", "head")
+    ks = kw["k_scale"]
+    bad = [("come together", dict(kw, v_scale=None)),
+           ("float32", dict(kw, k_scale=ks.double(), v_scale=ks.double())),
+           ("scale shape", dict(kw, k_scale=ks[..., :1].repeat(1, 1, 3)
+                                .contiguous(), v_scale=ks[..., :1]
+                                .repeat(1, 1, 3).contiguous())),
+           ("contiguous", dict(kw, k_scale=ks.transpose(0, 1).contiguous()
+                               .transpose(0, 1)))]
+    for match, scales in bad:
+        with pytest.raises(ValueError, match=match):
+            paged.paged_attention_kernel(*x.values(), **scales)
+    fp = dict(x, k_pool=x["k_pool"].float(), v_pool=x["v_pool"].float())
+    with pytest.raises(ValueError, match="int8 or float8_e4m3fn"):
+        paged.paged_attention_kernel(*fp.values(), **kw)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_engine_with_prefix_cache_on_the_card(cuda, kv_dtype):
+    """The int8/fp8 engine with the prefix cache on: the card's logits
+    against the CPU's, every layer launching the kernel, and a warm
+    request reading the blocks a cold one quantized."""
+    cfg = dict(dtype="float32", kv_block_size=8, num_kv_blocks=64,
+               max_chunk_size=16,
+               kv_cache={"enabled": True, "dtype": kv_dtype},
+               prefix_cache={"enabled": True})
+    cpu = build_engine("llama", "tiny", cfg, device="cpu")
+    gpu = build_engine("llama", "tiny", cfg, device=cuda)
+    assert gpu.num_kv_blocks == cpu.num_kv_blocks > 64
+    with torch.no_grad():
+        for name, p in cpu.model.params.items():
+            gpu.model.params[name].copy_(p)
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, 512, 24).tolist()
+    prompts = [prefix + rng.integers(0, 512, n).tolist() for n in (5, 13)]
+    for e in (cpu, gpu):
+        e.put([0], [prefix])
+        e.flush(0)
+        e.reset_serving_metrics()
+    before = paged.paged_attention_kernel.launches
+    got = gpu.put([1, 2], prompts)
+    launched = paged.paged_attention_kernel.launches - before
+    ref = cpu.put([1, 2], prompts)
+    torch.testing.assert_close(got.cpu(), ref, atol=2e-4, rtol=2e-4)
+    assert launched == (gpu.model.config.num_layers
+                        * gpu.serving_stats["host_dispatches"])
+    for e in (cpu, gpu):
+        m = e.serving_metrics()
+        assert (m["prefix_hits"], m["prefill_tokens_saved"]) == (6, 48)
+        e.flush([1, 2])
+        assert e.free_blocks == e.num_kv_blocks
 
 
 # ------------------------------------------------------- flash attention

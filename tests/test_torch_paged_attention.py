@@ -121,9 +121,13 @@ def test_plain_kernel_matches_reference_path():
 
 
 def test_kernel_wrapper_refuses_quantized_pools():
+    """Quantized pools are taken as int8/fp8 codes with both scale pools;
+    a scale pool without its pair, or scales over fp pools, raise."""
     x = {k: torch.from_numpy(v) for k, v in _inputs(1).items()}
     scale = torch.ones(NB, BS, HKV)
-    with pytest.raises(NotImplementedError, match="quantized KV"):
+    with pytest.raises(ValueError, match="come together"):
+        tpaged.paged_attention_kernel(*x.values(), k_scale=scale)
+    with pytest.raises(ValueError, match="int8 or float8_e4m3fn"):
         tpaged.paged_attention_kernel(*x.values(), k_scale=scale,
                                       v_scale=scale)
 

@@ -191,8 +191,7 @@ def test_config_rejects_unknown_keys_and_takes_aliases():
 
 
 @pytest.mark.parametrize("setting", [
-    {"tensor_parallel": {"tp_size": 2}}, {"kv_cache": {"enabled": True}},
-    {"prefix_cache": {"enabled": True}}, {"speculative": {"enabled": True}},
+    {"tensor_parallel": {"tp_size": 2}}, {"speculative": {"enabled": True}},
     {"fused_admission": True}, {"quantize_weights": True},
     {"quantize_moe_experts": True}])
 def test_unported_features_raise(setting):
