@@ -46,10 +46,23 @@ Phases, each fatal on failure:
      prefix hits, launches and bytes per token checked, the greedy
      agreement with phase 4's bf16 engine reported;
  12. Path Q teacher-forced on int8 and fp8 pools: the kernel against its
-     plain version at every layer of every tick, bf16 and fp32.
+     plain version at every layer of every tick, bf16 and fp32;
+ 13. Path Z, ZeRO-3 across two ranks with the ZeRO++ int8 wire: phase 6's
+     model and step with zero_optimization stage 3, qwZ and qgZ
+     (stochastic rounding), mesh fsdp -1, in two processes that share the
+     card and talk over gloo (a file store under build/), 12 rows a rank;
+     one warm-up step then 10 timed steps with the quantized wire and
+     again with the exact wire: tokens/s, step ms, each rank's peak
+     memory, the losses (finite and falling), the loss gap, the wire bytes
+     a step of each (from the plan's shard shapes), and the quantize and
+     dequantize launches a step;
+ 14. Path Z's kernels against plain inside the same ranks on the step's
+     real data: every qwZ gather and the qgZ reduce-scatter with nearest
+     rounding, kernels on and off, bit for bit.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
-Lion and the block-sparse kernels against their plain versions and times
-them at Path Q's, Path T's and Path P's shapes. Phases 11-12 run right
+Lion, the block-sparse kernels and the int8 block quantize/dequantize
+against their plain versions and times them at Path Q's, Path T's, Path
+P's and Path Z's shapes. Phases 11-12 run right
 after phase 5, beside phase 4's engine. With --profile it then traces a
 prefill tick and decode ticks of the serving path and of Path Q, one
 train_batch step and one step of Path T (torch.profiler) and prints where
@@ -62,9 +75,13 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 
 import numpy as np
 
@@ -74,7 +91,7 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 ADAM_TOL = (1e-6, 1e-5)        # atol, rtol: the JAX fused-Adam tolerance
 KERNELS = ("paged_attention", "flash_attention", "fused_adam",
-           "fused_lion", "block_sparse_attention")
+           "fused_lion", "block_sparse_attention", "quantize_int8")
 SOURCE = "deepspeed_tpu_torch/csrc/{}.cu"
 REPLACES = {
     "paged_attention": "deepspeed_tpu/inference/v2/paged.py:61",
@@ -86,7 +103,9 @@ REPLACES = {
     "block_sparse_attention_fwd":
         "deepspeed_tpu/ops/sparse_attention/kernels.py:121",
     "block_sparse_attention_bwd":
-        "deepspeed_tpu/ops/sparse_attention/kernels.py:210"}
+        "deepspeed_tpu/ops/sparse_attention/kernels.py:210",
+    "quantize_int8": "deepspeed_tpu/ops/pallas/quantization.py:57",
+    "dequantize_int8": "deepspeed_tpu/ops/pallas/quantization.py:99"}
 # the training main path: bench.py headline_bench's configuration with
 # the JAX package's switch to its fused-Adam kernel turned on
 TRAIN_CONFIG = {
@@ -109,6 +128,15 @@ PATH_T_CONFIG = {
     "gradient_clipping": 1.0, "steps_per_print": 1000000000}
 PATH_T_MODEL = dict(vocab_size=50304, remat_policy="segments",
                     attn_impl="flash", loss_chunk=256)
+# Path Z: the training main path's model and step under ZeRO-3 across two
+# ranks with the ZeRO++ int8 wire (bench.py zeropp_bench's flags, :2762-2765,
+# without the hierarchical gather, which needs a zps axis and 4 ranks)
+PATH_Z_WORLD = 2
+PATH_Z_CONFIG = dict(TRAIN_CONFIG, mesh={"fsdp": -1}, zero_optimization={
+    "stage": 3, "zero_quantized_weights": True,
+    "zero_quantized_gradients": True, "zero_quantized_dtype": "int8"})
+PATH_Z_EXACT = dict(TRAIN_CONFIG, mesh={"fsdp": -1},
+                    zero_optimization={"stage": 3})
 # Path P: SparseSelfAttention at GPT-2 125M's head layout with the values
 # of the "fixed" sparse_attention example in DeepSpeed's config-json docs
 PATH_P = dict(b=8, h=12, s=4096, d=64)
@@ -129,6 +157,24 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def live_children() -> list[str]:
+    """The processes this one started that are still running, read from
+    /proc (Linux), as "pid command"."""
+    me, found = str(os.getpid()), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode().strip()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if fields[1] == me and fields[0] != "Z":        # ppid, state
+            found.append(f"{pid} {cmd}")
+    return found
 
 
 def time_ms(fn, dev, iters: int, flush=None) -> float:
@@ -1713,8 +1759,366 @@ def flat_numel(size: str) -> int:
     50304), from a model on the meta device."""
     from deepspeed_tpu_torch.models import GPT2
     from deepspeed_tpu_torch.runtime.engine import _flat_layout
-    return _flat_layout(GPT2(size=size, vocab_size=50304,
-                             device="meta").params)[1]
+    params = GPT2(size=size, vocab_size=50304, device="meta").params
+    return _flat_layout({n: p.shape for n, p in params.items()})[1]
+
+
+# ------------------------------------------ phase 3, the ZeRO++ wire kernels
+def path_z_plan(size="125m", world=PATH_Z_WORLD):
+    """ZeRO-3's plan for GPT-2 ``size`` (vocab 50304) over ``world`` ranks,
+    from a model on the meta device."""
+    from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.runtime.zero import ZeroShardingPlan
+    params = GPT2(size=size, vocab_size=50304, device="meta").params
+    return ZeroShardingPlan(3, world, {n: tuple(p.shape)
+                                       for n, p in params.items()})
+
+
+def quant_bound(n: int, in_bytes: int, out_bytes: int) -> tuple[float, str]:
+    """The card's least time for one quantize (in_bytes a value in, 1 + 4
+    / 512 out) or dequantize (1 + 4 / 512 in, out_bytes out) of n values:
+    bytes over 3.35 TB/s against ~8 fp32 operations a value (abs, max,
+    divide, round, clamps) over 67 TFLOP/s."""
+    t_bytes = n * (in_bytes + out_bytes + 4 / 512) / HBM_BYTES_PER_S
+    t_ops = 8 * n / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def zeropp_kernel_times(dev, flush=None, iters=20, size="125m"):
+    """The int8 block quantize and dequantize at Path Z's shard shapes,
+    bf16: the largest shard (embed/tokens split in two, [25152, 768]) and
+    the rank's whole shard set as one flat tensor. Codes, scales and the
+    dequantized bf16 are held to the plain versions bit for bit, then the
+    kernel, plain and bound times are taken. No single PyTorch call
+    computes per-512-block int8 quantization (library none), but one
+    computes the dequantize: ``torch.mul(q, s, out=bf16)`` promotes int8 x
+    fp32 to fp32 and rounds the product once into the bf16 output (over
+    the padded blocks), the kernel's function; it is timed as the
+    dequantize's library yardstick and compared with the kernel's bits."""
+    import torch
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    plan = path_z_plan(size)
+    dim = plan.param_dims["embed/tokens"]
+    shapes = {"largest_shard": plan.shard_shape("embed/tokens", dim),
+              "shard_set": (sum(int(np.prod(plan.shard_shape(n, d)))
+                                for n, d in plan.param_dims.items()),)}
+    g = torch.Generator(device=dev).manual_seed(4)
+    rec = {"quantize_int8": {}, "dequantize_int8": {}}
+    for case, shape in shapes.items():
+        x = (torch.randn(shape, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        n = x.numel()
+        rows = x.view(1, -1)
+        q, sc = TQ.quantize_rows(rows, use_kernel=None)
+        pq, ps = TQ.quantize_rows(rows, use_kernel=False)
+        back = TQ.dequantize_rows(q, sc, 1, n, torch.bfloat16, None)
+        pback = TQ.dequantize_rows(q, sc, 1, n, torch.bfloat16, False)
+        equal = {"codes": bool(torch.equal(q, pq)),
+                 "scales": bool(torch.equal(sc, ps)),
+                 "dequantized": bool(torch.equal(back, pback))}
+        err = max(float((q.int() - pq.int()).abs().max()),
+                  float((sc - ps).abs().max()))
+        derr = float((back.float() - pback.float()).abs().max())
+        del pq, ps, pback
+        lib_out = torch.empty(q.numel(), dtype=torch.bfloat16,
+                              device=dev).view(q.shape)
+
+        def lib_dequant():
+            return torch.mul(q, sc, out=lib_out)
+
+        lib_dequant()
+        lib_equal = bool(torch.equal(lib_out.view(-1)[:n], back.view(-1)))
+        library = {"quantize_int8": (None, None),
+                   "dequantize_int8": (lib_dequant, lib_equal)}
+        for name, fn, plain, (bound, by), e, eq in (
+                ("quantize_int8",
+                 lambda: TQ.quantize_rows(rows, use_kernel=None),
+                 lambda: TQ.quantize_rows(rows, use_kernel=False),
+                 quant_bound(n, 2, 1), err,
+                 equal["codes"] and equal["scales"]),
+                ("dequantize_int8",
+                 lambda: TQ.dequantize_rows(q, sc, 1, n, torch.bfloat16,
+                                            None),
+                 lambda: TQ.dequantize_rows(q, sc, 1, n, torch.bfloat16,
+                                            False),
+                 quant_bound(n, 1, 2), derr, equal["dequantized"])):
+            lib, lib_eq = library[name]
+            rec[name][case] = dict(
+                shape=list(shape), numel=n, bit_equal=eq, max_abs_err=e,
+                ms=time_ms(fn, dev, iters, flush),
+                plain_ms=time_ms(plain, dev, max(iters // 4, 2), flush),
+                library_ms=(time_ms(lib, dev, iters, flush)
+                            if lib else None),
+                library_bit_equal=lib_eq, bound_ms=bound, bound_by=by)
+        log(f"[kernel] int8 block quantize at {case} {list(shape)} bf16: "
+            f"{json.dumps({k: v[case] for k, v in rec.items()})}")
+        if not all(equal.values()):
+            raise AssertionError(f"quantize_int8 kernels vs plain at {case}: "
+                                 f"{equal}")
+        del x, rows, q, sc, back, lib_out
+    for name, r in rec.items():
+        r.update({k: r["largest_shard"][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        r["library_bit_equal"] = r["largest_shard"]["library_bit_equal"] \
+            and r["shard_set"]["library_bit_equal"]
+        r["max_abs_err"] = max(c["max_abs_err"] for c in (
+            r["largest_shard"], r["shard_set"]))
+    return rec
+
+
+# --------------------------------------- phases 13-14, Path Z across ranks
+def path_z_wire_bytes(plan, quantized: bool, dtype_bytes: int = 2) -> dict:
+    """Bytes a rank puts on the wire per micro-step, reckoned from the
+    plan's shard shapes as the JAX comms logger counts them
+    (zeropp.py _log_wire): each gathered shard (int8 with its scales at
+    1 + 4/512 bytes a value where qwZ takes it, else the compute dtype),
+    each reduced full-size fp32 grad (int8 where qgZ takes it)."""
+    from deepspeed_tpu_torch.ops.quantization import wire_bytes_per_element
+    from deepspeed_tpu_torch.runtime.zeropp import MIN_QUANT_SIZE
+    int8 = wire_bytes_per_element("int8")
+    gather = reduce = 0.0
+    for name, dim in plan.param_dims.items():
+        full = int(np.prod(plan.shapes[name]))
+        if dim is not None:
+            shard = full // plan.world
+            gather += shard * (int8 if quantized and shard >= MIN_QUANT_SIZE
+                               else dtype_bytes)
+        if plan.grad_dims[name] is not None and quantized \
+                and full >= 4 * MIN_QUANT_SIZE:
+            reduce += full * int8
+        else:
+            reduce += full * 4
+    return {"gather_bytes": gather, "reduce_bytes": reduce,
+            "total_bytes": gather + reduce}
+
+
+def path_z_expected_launches(plan) -> dict:
+    """Per micro-step of Path Z's quantized wire: one quantize and one
+    dequantize per split leaf whose shard has >= 4096 values (qwZ), and
+    one dequantize per split grad of >= 16384 values (qgZ; its stochastic
+    rounding is torch ops)."""
+    from deepspeed_tpu_torch.runtime.zeropp import MIN_QUANT_SIZE
+    qwz = sum(1 for n, d in plan.param_dims.items() if d is not None
+              and np.prod(plan.shapes[n]) // plan.world >= MIN_QUANT_SIZE)
+    qgz = sum(1 for n, d in plan.grad_dims.items() if d is not None
+              and np.prod(plan.shapes[n]) >= 4 * MIN_QUANT_SIZE)
+    return {"quantize_int8": qwz, "dequantize_int8": qwz + qgz,
+            "qwz_leaves": qwz, "qgz_leaves": qgz}
+
+
+def path_z_run(dev, config, size, steps, seq, check):
+    """One rank's Path Z: initialize, a warm-up step, then ``steps`` timed
+    steps (host clock up to a synchronize, the ranks started together by a
+    barrier), every count set to 0 right before and read right after.
+    With ``check``, phase 14 on the step's real data."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    from deepspeed_tpu_torch.ops.fused_optimizers import fused_adam_step
+    from deepspeed_tpu_torch.runtime.zeropp import reduce_grads
+    model = GPT2(size=size, vocab_size=50304, remat_policy="segments",
+                 attn_impl="flash", device=dev)
+    engine, *_ = ds.initialize(model=model, config=config)
+    rows = engine.train_batch_size_
+    batch = train_batch_of(dev, model.config.vocab_size, rows, seq)
+    engine.train_batch(batch)                                  # warm-up
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    comm.barrier()
+    counters = {"quantize_int8": TQ.quantize_int8_kernel,
+                "dequantize_int8": TQ.dequantize_int8_kernel,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd": fa.flash_attention_bwd,
+                "fused_adam": fused_adam_step}
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        if cuda:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = [float(x) for x in losses]
+    out = dict(
+        step_ms=1e3 * sum(step_s) / steps, step_ms_min=1e3 * min(step_s),
+        step_ms_max=1e3 * max(step_s),
+        tokens_per_s=rows * seq * steps / sum(step_s),
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if cuda else None),
+        losses=losses, grad_norm=engine.get_global_grad_norm(),
+        launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        shard_numel=sum(t.numel()
+                        for t in engine.master_state_dict().values()))
+    if check:
+        out["kernel_vs_plain"] = path_z_kernel_vs_plain(engine, batch,
+                                                        reduce_grads)
+    del engine, model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def path_z_kernel_vs_plain(engine, batch, reduce_grads):
+    """Phase 14: every qwZ gather with the kernels and with the plain
+    versions from the rank's real shards, and one micro-batch's real
+    local grads through the qgZ reduce-scatter with nearest rounding,
+    kernels on and off: bit for bit (``use_kernel=None`` launches the
+    kernels on the card; on the CPU, in rehearsal, both sides are
+    plain)."""
+    import torch
+    gathered = [engine.gathered_params(use_kernel=k) for k in (None, False)]
+    gather_equal = all(torch.equal(gathered[0][n], gathered[1][n])
+                       for n in gathered[0])
+    gather_err = max(float((gathered[0][n].float() - gathered[1][n].float())
+                           .abs().max()) for n in gathered[0])
+    del gathered
+    engine(batch).backward()
+    grads = {n: p.grad for n, p in engine.module.params.items()}
+    for p in engine.module.params.values():
+        p.grad = None
+    engine._release()
+    reduced = [reduce_grads(grads, engine.plan.grad_dims,
+                            n_batch=engine.dp_world, quantize_gradients=True,
+                            rounding="nearest", use_kernel=k)
+               for k in (None, False)]
+    reduce_equal = all(torch.equal(reduced[0][n], reduced[1][n])
+                       for n in reduced[0])
+    reduce_err = max(float((reduced[0][n] - reduced[1][n]).abs().max())
+                     for n in reduced[0])
+    return {"gather_bit_equal": gather_equal, "gather_max_abs_err":
+            gather_err, "reduce_bit_equal": reduce_equal,
+            "reduce_max_abs_err": reduce_err}
+
+
+def path_z_rank(spec: str) -> int:
+    """One Path Z rank, started by ``path_z_main`` as ``chip_smoke.py
+    --path-z-rank SPEC`` (SPEC a JSON object): joins the gloo group through
+    the file store, runs the quantized and the exact wire, and writes its
+    results (or its traceback) as JSON to the spec's ``out`` file."""
+    s = json.loads(spec)
+    try:
+        import ctypes
+        import signal
+        # die with the parent, so a killed run leaves no rank behind
+        ctypes.CDLL(None).prctl(1, signal.SIGKILL)    # PR_SET_PDEATHSIG
+        import torch
+        from deepspeed_tpu_torch.comm import comm
+        comm.init_distributed("gloo", init_method=f"file://{s['store']}",
+                              rank=s["rank"], world_size=s["world"])
+        dev = torch.device(s["device"])
+        out = {"rank": s["rank"]}
+        for wire, config in (("quantized", PATH_Z_CONFIG),
+                             ("exact", PATH_Z_EXACT)):
+            out[wire] = path_z_run(dev, config, s["size"], s["steps"],
+                                   s["seq"], check=wire == "quantized")
+        torch.distributed.destroy_process_group()
+        rc = 0
+    except BaseException:
+        out, rc = {"rank": s["rank"], "error": traceback.format_exc()}, 1
+    with open(s["out"] + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(s["out"] + ".tmp", s["out"])
+    return rc
+
+
+def path_z_main(dev, size="125m", steps=10, seq=1024, timeout=900):
+    """Phases 13-14: Path Z in PATH_Z_WORLD rank processes (this script
+    with ``--path-z-rank``) that share ``dev``. Every rank is killed when
+    one fails or at ``timeout``, and all are reaped before this returns or
+    raises. Fails if a rank fails or hangs, if the losses are not finite
+    and falling, if a launch count is off (on the card) or if a kernel
+    disagrees with its plain version."""
+    from deepspeed_tpu_torch.ops import op_builder
+    op_builder.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    rendezvous = tempfile.mkdtemp(dir=op_builder.BUILD_DIR)
+    outs = [os.path.join(rendezvous, f"rank{r}.json")
+            for r in range(PATH_Z_WORLD)]
+    t = time.perf_counter()
+    procs = []
+    try:
+        try:
+            for r in range(PATH_Z_WORLD):
+                spec = dict(rank=r, world=PATH_Z_WORLD, device=str(dev),
+                            store=os.path.join(rendezvous, "store"),
+                            size=size, steps=steps, seq=seq, out=outs[r])
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--path-z-rank", json.dumps(spec)]))
+            while None in [p.poll() for p in procs]:
+                if any(p.returncode for p in procs):
+                    break                   # a rank failed: stop the rest
+                if time.perf_counter() - t > timeout:
+                    raise AssertionError(f"Path Z ranks still running "
+                                         f"after {timeout} s")
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        results, failed = {}, []
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            res = {}
+            if os.path.exists(out):
+                with open(out) as f:
+                    res = json.load(f)
+            if p.returncode != 0 or "error" in res:
+                failed.append(f"Path Z rank {r} failed (exit code "
+                              f"{p.returncode}):\n"
+                              f"{res.get('error', 'no result written')}")
+            results[r] = res
+        if failed:
+            raise AssertionError("\n".join(failed))
+    finally:
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    plan = path_z_plan(size)
+    q, e = results[0]["quantized"], results[0]["exact"]
+    stats = dict(
+        model=f"gpt2-{size} vocab 50304", ranks=PATH_Z_WORLD, seq=seq,
+        steps=steps, rows_per_rank=24 // PATH_Z_WORLD,
+        wall_s=time.perf_counter() - t,
+        quantized={k: v for k, v in q.items() if k != "kernel_vs_plain"},
+        exact=e,
+        peak_memory_gib_per_rank={
+            w: [results[r][w]["peak_memory_gib"]
+                for r in range(PATH_Z_WORLD)] for w in ("quantized", "exact")},
+        loss_gap=[a - b for a, b in zip(q["losses"], e["losses"])],
+        loss_gap_rel_last=abs(q["losses"][-1] - e["losses"][-1])
+        / e["losses"][-1],
+        wire_bytes_per_step={"quantized": path_z_wire_bytes(plan, True),
+                             "exact": path_z_wire_bytes(plan, False)},
+        expected_launches_per_step=path_z_expected_launches(plan),
+        kernel_vs_plain=[results[r]["quantized"]["kernel_vs_plain"]
+                         for r in range(PATH_Z_WORLD)])
+    wq = stats["wire_bytes_per_step"]
+    stats["wire_reduction"] = (wq["exact"]["total_bytes"]
+                               / wq["quantized"]["total_bytes"])
+    log(f"[path Z] {json.dumps(stats)}")
+    for wire, rec in (("quantized", q), ("exact", e)):
+        losses = rec["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"Path Z {wire} losses not finite and "
+                                 f"falling: {losses}")
+    for r, check in enumerate(stats["kernel_vs_plain"]):
+        if not (check["gather_bit_equal"] and check["reduce_bit_equal"]):
+            raise AssertionError(f"Path Z rank {r} kernels vs plain: "
+                                 f"{check}")
+    want = stats["expected_launches_per_step"]
+    got = q["launches_per_step"]
+    if dev.type == "cuda" and any(
+            got[k] != want[k] for k in ("quantize_int8", "dequantize_int8")):
+        raise AssertionError(f"Path Z launches per step {got} != {want}")
+    return stats
 
 
 # --------------------------------------------------------- --profile
@@ -1811,7 +2215,10 @@ def main(argv=None) -> int:
                     help="also trace a prefill tick and decode ticks of the "
                          "serving path and of Path Q, one train_batch step "
                          "and one Path T step with torch.profiler")
+    ap.add_argument("--path-z-rank", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.path_z_rank:
+        return path_z_rank(args.path_z_rank)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1847,6 +2254,7 @@ def main(argv=None) -> int:
     lion_err, lion_identical = lion_checks(dev)
     sparse_errs = sparse_checks(dev)
     path_times = path_kernel_times(dev, adam_numel, flush)
+    zeropp_times = zeropp_kernel_times(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -1888,6 +2296,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     path_t_parity = path_t_kernel_vs_plain(dev)               # phase 9
     path_p = path_p_main(dev)                                 # phase 10
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_z = path_z_main(dev)                                 # phases 13-14
 
     def entry(name, kernel, launches, max_abs_err, t, **extra):
         return {"name": name, "route": "cuda",
@@ -2024,6 +2435,20 @@ def main(argv=None) -> int:
               main_path_fp32_small_max_rel_err=path_p["float32"][
                   "bwd_max_rel_err"]),
     ]
+    library = {
+        "quantize_int8": "none: no single PyTorch call computes "
+                         "per-512-block int8 quantization",
+        "dequantize_int8": "torch.mul(q, s, out=bf16 [nblocks, 512])"}
+    for name in ("quantize_int8", "dequantize_int8"):
+        rec = zeropp_times[name]
+        kernels.append(entry(
+            name, "quantize_int8", path_z["quantized"]["launches"][name],
+            rec["max_abs_err"], rec, tol=0,
+            library=library[name],
+            library_bit_equal=rec["library_bit_equal"], main_path="Path Z",
+            shape="[25152, 768] bf16 (embed/tokens split in two)",
+            shard_set=rec["shard_set"],
+            main_path_bit_equal=path_z["kernel_vs_plain"]))
     log(f"[main] serving {json.dumps(stats)} on {card}")
     log(f"[main] Path Q {json.dumps(path_q)} on {card}")
     log(f"[main] Path Q kernels vs plain {json.dumps(q_rels)}")
@@ -2032,6 +2457,10 @@ def main(argv=None) -> int:
     log(f"[main] Path T {json.dumps(path_t)} on {card}")
     log(f"[main] Path T kernels vs plain {json.dumps(path_t_parity)}")
     log(f"[main] Path P {json.dumps(path_p)} on {card}")
+    log(f"[main] Path Z {json.dumps(path_z)} on {card}")
+    left = live_children()
+    if left:
+        raise AssertionError(f"processes still running: {left}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@ package is the reference each slice is held against. Ported so far:
     GPT-2/Llama-family models with the hand-written Hopper
     flash-attention (``csrc/flash_attention.cu``), fused-Adam
     (``csrc/fused_adam.cu``) and fused-Lion (``csrc/fused_lion.cu``)
-    kernels;
+    kernels, on one rank or across ranks of ``torch.distributed``
+    (``comm/``) with ZeRO stages 1-3 and the ZeRO++ int8 wire (qwZ/qgZ)
+    on the block-quantize kernels (``csrc/quantize_int8.cu``);
   - ``ops.sparse_attention``: ``SparseSelfAttention`` on the
     block-sparse attention kernels (``csrc/block_sparse_attention.cu``);
   - ``inference.v2.build_engine``: the v2 serving path with its
@@ -43,12 +45,27 @@ def initialize(args=None,
     engine runs on its device. Returns ``(engine, optimizer, None,
     lr_scheduler)``: the data loader is not ported yet.
 
+    Where the environment names a world larger than one (``WORLD_SIZE``,
+    as torchrun sets it) and no process group is up, this joins one
+    (``comm.init_distributed``, as the JAX engine does); a caller may also
+    join one first (gloo, a file store). ZeRO stages 1-3 then shard over
+    the ranks, with the ZeRO++ int8 wire (``zero_quantized_weights``,
+    ``zero_quantized_gradients``) on request.
+
     ``PipelineModule`` (no ``loss``/``params``), the layer-streamed ZeRO
-    engine (stage 3, ``offload_param``) and the hybrid engine
+    engine (stage 3, ``offload_param``), hpZ, MiCS, the two-hop and fp8
+    wires, meshes other than pure ``fsdp`` or ``dp`` and the hybrid engine
     (``hybrid_engine.enabled``) raise ``NotImplementedError`` naming their
-    ROADMAP slice, from the engine and the config.
+    ROADMAP item, from the engine and the config.
     """
+    import os
+
+    from .comm import comm
     from .runtime.engine import DeepSpeedEngine
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 \
+            and not comm.is_initialized():
+        comm.init_distributed()
 
     config = DeepSpeedConfig.from_any(
         config if config is not None else config_params)

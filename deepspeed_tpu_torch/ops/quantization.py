@@ -1,23 +1,262 @@
-"""KV-pool quantization (counterpart of the KV half of
-``deepspeed_tpu/ops/pallas/quantization.py``, :123-207).
+"""Block quantization (counterpart of
+``deepspeed_tpu/ops/pallas/quantization.py``): the ZeRO++ wire half and
+the KV-pool half.
 
-The paged KV pool is quantized WRITE-ONCE per token vector: each written
-(position, kv-head) vector of head_dim elements gets its own symmetric
-f32 scale (granularity "head"), or one scale spans all kv heads of the
-token (granularity "token"). A block fills one token at a time over many
-ticks, and per-vector scales never make an earlier token's bytes depend on
-a later one, so a cached block's bytes are a pure function of the tokens
-written through it: the prefix cache shares quantized blocks as they are.
+**The wire** (:21-120, :257-312): symmetric int8 over 512-element blocks
+with one fp32 scale a block, the primitive that brackets ZeRO++'s
+quantized weight all-gather (qwZ, :func:`quantized_all_gather`) and its
+quantized gradient reduce-scatter (qgZ,
+``runtime/comm/coalesced_collectives.py``). :func:`quantize_int8` and
+:func:`dequantize_int8` launch the hand-written kernels of
+``csrc/quantize_int8.cu`` on CUDA tensors and take their plain PyTorch
+versions on CPU tensors; either gives the Pallas kernels' codes and
+scales bit for bit. Stochastic rounding (the gradient wire's default) is
+torch ops on whatever device, as it is plain jnp in the JAX package.
 
-These are elementwise torch ops, as they are plain jnp in the JAX package;
-the dequantize multiply also runs in-register inside the paged-attention
-kernel (``csrc/paged_attention.cu``) on its pool tiles. On identical fp32
-inputs they give the JAX functions' codes and scales bit for bit.
+**The KV pool** (:123-207) is quantized WRITE-ONCE per token vector: each
+written (position, kv-head) vector of head_dim elements gets its own
+symmetric f32 scale (granularity "head"), or one scale spans all kv heads
+of the token (granularity "token"). A block fills one token at a time over
+many ticks, and per-vector scales never make an earlier token's bytes
+depend on a later one, so a cached block's bytes are a pure function of
+the tokens written through it: the prefix cache shares quantized blocks as
+they are. These are elementwise torch ops, as they are plain jnp in the
+JAX package; the dequantize multiply also runs in-register inside the
+paged-attention kernel (``csrc/paged_attention.cu``) on its pool tiles. On
+identical fp32 inputs they give the JAX functions' codes and scales bit
+for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
+
+from ..comm import comm
+from . import op_builder
+
+QBLOCK = 512  # elements per quantization block
+# XLA compiles the Pallas kernel's amax / 127.0 (a division by a constant)
+# as amax times the constant's fp32 reciprocal; the port does the same
+INV_QMAX = float(np.float32(1) / np.float32(127))
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _to_blocks(rows: torch.Tensor, block: int = QBLOCK) -> torch.Tensor:
+    """``rows`` ``[R, L]``, each row zero-padded to a block multiple on
+    its own, as fp32 ``[R * nb, block]`` (a flat tensor is one row)."""
+    x32 = rows.reshape(rows.shape[0], -1).float()
+    pad = (-x32.shape[1]) % block
+    if pad:
+        x32 = torch.nn.functional.pad(x32, (0, pad))
+    return x32.view(-1, block)
+
+
+def stochastic_round(y: torch.Tensor, generator: torch.Generator | None = None,
+                     u: torch.Tensor | None = None) -> torch.Tensor:
+    """Unbiased round-to-integer: ``floor(y + u)``, u ~ U[0, 1) drawn from
+    ``generator`` on y's device (or given as ``u``). E[result] = y, so the
+    wire's quantization noise averages out over steps instead of biasing
+    each block toward its own grid."""
+    if u is None:
+        u = torch.rand(y.shape, generator=generator, device=y.device,
+                       dtype=torch.float32)
+    return torch.floor(y + u)
+
+
+def _quantize_rows_plain(rows: torch.Tensor, rounding: str = "nearest",
+                         generator=None):
+    """Plain PyTorch version of the quantize kernel: each row of ``rows``
+    ``[R, L]`` zero-padded to a block multiple on its own ->
+    (codes int8 ``[R * nb, QBLOCK]``, scales fp32 ``[R * nb, 1]``)."""
+    blocks = _to_blocks(rows)
+    amax = blocks.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax * INV_QMAX, min=1e-12)
+    y = blocks / scale
+    rounded = (stochastic_round(y, generator) if rounding == "stochastic"
+               else torch.round(y))
+    return torch.clamp(rounded, -127, 127).to(torch.int8), scale
+
+
+def _dequantize_rows_plain(q, s, rows: int, row_len: int, dtype):
+    """Plain PyTorch version of the dequantize kernel: ``q * s`` in fp32,
+    each of ``rows`` rows trimmed to ``row_len`` -> ``[rows, row_len]``."""
+    x = q.float() * s
+    return x.view(rows, -1)[:, :row_len].to(dtype)
+
+
+def _quant_fn(name: str, argtypes: list):
+    lib = op_builder.load("quantize_int8")
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.ds_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.ds_cuda_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _launched(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: CUDA error {err} "
+            f"({lib.ds_cuda_error_string(err).decode()})")
+
+
+def _check(what: str, cond: bool, message: str) -> None:
+    if not cond:
+        raise ValueError(f"{what}: {message}")
+
+
+def quantize_int8_kernel(rows: torch.Tensor):
+    """Launch ``csrc/quantize_int8.cu``'s quantize on ``rows`` ``[R, L]``,
+    a contiguous fp32/bf16/fp16 CUDA tensor, read in place: each row cut
+    into ceil(L / 512) blocks, its tail zero-padded in registers. Returns
+    (codes int8 ``[R * nb, QBLOCK]``, scales fp32 ``[R * nb, 1]``).
+    Port of the Pallas kernel at ``deepspeed_tpu/ops/pallas/
+    quantization.py:57``; ``quantize_int8_kernel.launches`` counts the
+    launches."""
+    what = "quantize_int8_kernel"
+    _check(what, rows.device.type == "cuda",
+           f"unsupported device {rows.device}")
+    _check(what, rows.dtype in _DTYPE_CODES, f"unsupported dtype {rows.dtype}")
+    _check(what, rows.dim() == 2 and rows.is_contiguous(),
+           "rows must be a contiguous 2-D tensor")
+    r, length = rows.shape
+    nb = r * -(-length // QBLOCK)
+    q = torch.empty((nb, QBLOCK), dtype=torch.int8, device=rows.device)
+    s = torch.empty((nb, 1), dtype=torch.float32, device=rows.device)
+    if nb == 0:
+        return q, s
+    lib, fn = _quant_fn("ds_quantize_int8", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
+    err = fn(rows.data_ptr(), _DTYPE_CODES[rows.dtype], q.data_ptr(),
+             s.data_ptr(), r, length,
+             torch.cuda.current_stream(rows.device).cuda_stream)
+    _launched(lib, err, "quantize_int8")
+    quantize_int8_kernel.launches += 1
+    return q, s
+
+
+quantize_int8_kernel.launches = 0
+
+
+def dequantize_int8_kernel(q: torch.Tensor, s: torch.Tensor, rows: int,
+                           row_len: int, dtype: torch.dtype) -> torch.Tensor:
+    """Launch ``csrc/quantize_int8.cu``'s dequantize: codes ``q``
+    ``[rows * nb, QBLOCK]`` and scales ``s`` ``[rows * nb, 1]`` on one
+    card -> ``[rows, row_len]`` in ``dtype`` (fp32/bf16/fp16), each value
+    one rounded fp32 product ``q * s`` stored in ``dtype``. Port of the
+    Pallas kernel at ``quantization.py:99``;
+    ``dequantize_int8_kernel.launches`` counts the launches."""
+    what = "dequantize_int8_kernel"
+    nb = rows * -(-row_len // QBLOCK)
+    _check(what, q.device.type == "cuda", f"unsupported device {q.device}")
+    _check(what, s.device == q.device, f"scales are on {s.device}")
+    _check(what, dtype in _DTYPE_CODES, f"unsupported dtype {dtype}")
+    _check(what, q.dtype == torch.int8 and q.is_contiguous()
+           and q.shape == (nb, QBLOCK),
+           f"codes must be contiguous int8 [{nb}, {QBLOCK}]")
+    _check(what, s.dtype == torch.float32 and s.is_contiguous()
+           and s.numel() == nb, f"scales must be {nb} contiguous fp32")
+    out = torch.empty((rows, row_len), dtype=dtype, device=q.device)
+    if nb == 0:
+        return out
+    lib, fn = _quant_fn("ds_dequantize_int8", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
+    err = fn(q.data_ptr(), s.data_ptr(), out.data_ptr(), _DTYPE_CODES[dtype],
+             rows, row_len, torch.cuda.current_stream(q.device).cuda_stream)
+    _launched(lib, err, "dequantize_int8")
+    dequantize_int8_kernel.launches += 1
+    return out
+
+
+dequantize_int8_kernel.launches = 0
+
+
+def _use_kernel(use_kernel, x: torch.Tensor) -> bool:
+    """None: the kernel for CUDA tensors, the plain version for CPU ones."""
+    return x.device.type == "cuda" if use_kernel is None else use_kernel
+
+
+def quantize_rows(rows: torch.Tensor, use_kernel: bool | None = None,
+                  rounding: str = "nearest", generator=None):
+    """Block-quantize each row of ``rows`` ``[R, L]`` on its own (tail
+    blocks zero-padded) -> (codes ``[R * nb, QBLOCK]``, scales
+    ``[R * nb, 1]``). Nearest rounding takes the kernel per
+    ``use_kernel``; ``rounding="stochastic"`` (needs ``generator``) is
+    torch ops, as in the JAX package."""
+    if rounding == "stochastic":
+        if generator is None:
+            raise ValueError("stochastic rounding needs a torch.Generator")
+        return _quantize_rows_plain(rows, rounding, generator)
+    if rounding != "nearest":
+        raise ValueError(f"rounding {rounding!r}: 'nearest' or 'stochastic'")
+    if _use_kernel(use_kernel, rows):
+        return quantize_int8_kernel(rows.contiguous())
+    return _quantize_rows_plain(rows)
+
+
+def dequantize_rows(q, s, rows: int, row_len: int,
+                    dtype: torch.dtype = torch.float32,
+                    use_kernel: bool | None = None) -> torch.Tensor:
+    """Inverse of :func:`quantize_rows` -> ``[rows, row_len]`` in
+    ``dtype``."""
+    if _use_kernel(use_kernel, q):
+        return dequantize_int8_kernel(q, s, rows, row_len, dtype)
+    return _dequantize_rows_plain(q, s, rows, row_len, dtype)
+
+
+def quantize_int8(x: torch.Tensor, use_kernel: bool | None = None,
+                  rounding: str = "nearest", generator=None):
+    """-> (q int8 ``[nblocks, QBLOCK]``, scales fp32 ``[nblocks, 1]``,
+    meta): the flat tensor zero-padded to ``[nblocks, 512]``, per block
+    ``scale = max(amax * INV_QMAX, 1e-12)`` and ``q = clip(round(x /
+    scale), -127, 127)``. ``use_kernel`` is the counterpart of the JAX
+    ``use_pallas``: None takes the kernel for CUDA tensors and the plain
+    version for CPU tensors. ``rounding="stochastic"`` (with a
+    ``generator``) rounds ``floor(y + u)`` with torch ops."""
+    q, s = quantize_rows(x.reshape(1, -1), use_kernel, rounding, generator)
+    return q, s, (x.shape, x.dtype, x.numel())
+
+
+def dequantize_int8(q, s, meta, use_kernel: bool | None = None
+                    ) -> torch.Tensor:
+    """``q * s`` trimmed to the quantized tensor's elements, in its shape
+    and dtype (``meta`` from :func:`quantize_int8`)."""
+    shape, dtype, n = meta
+    return dequantize_rows(q, s, 1, n, dtype, use_kernel).view(shape)
+
+
+def wire_bytes_per_element(wire_dtype: str, block: int = QBLOCK) -> float:
+    """Wire bytes per payload element, per-block fp32 scales included: fp32
+    4 exactly (no scales); bf16/f16 2 + 4/block; int8/fp8 1 + 4/block."""
+    if wire_dtype in ("fp32", "f32", "none"):
+        return 4.0
+    if wire_dtype in ("bf16", "f16"):
+        return 2.0 + 4.0 / block
+    if wire_dtype in ("int8", "s8", "fp8", "f8"):
+        return 1.0 + 4.0 / block
+    raise ValueError(f"unknown wire dtype {wire_dtype!r}")
+
+
+def quantized_all_gather(x: torch.Tensor, dim: int = 0, group=None,
+                         use_kernel: bool | None = None) -> torch.Tensor:
+    """ZeRO++ qwZ: quantize this rank's shard ``x``, all-gather the int8
+    codes and fp32 scales over ``group``, dequantize every rank's piece in
+    one launch straight into x's dtype, and reassemble the pieces along
+    ``dim`` (rank order). JAX: ``quantization.py:281``."""
+    world = comm.get_world_size(group)
+    q, s, meta = quantize_int8(x, use_kernel)
+    qg = comm.all_gather(q, group=group)           # [world * nb, QBLOCK]
+    sg = comm.all_gather(s, group=group)
+    pieces = dequantize_rows(qg, sg, world, x.numel(), x.dtype, use_kernel)
+    return comm.assemble(pieces.view(world, *x.shape), dim)
+
 
 KV_STORE_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 # symmetric range the per-vector absmax maps onto: int8 uses the ZeRO++

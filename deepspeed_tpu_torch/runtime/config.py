@@ -7,7 +7,8 @@ defaults: batch sizes, ``optimizer``, ``scheduler``, ``fp16``, ``bf16``,
 and ``activation_checkpointing``. Every other block the JAX config declares
 is accepted by name at its JAX defaults (``UNPORTED``); a key set away from
 its default is a feature the port does not have yet and raises
-``NotImplementedError`` naming its ROADMAP slice. An unknown key raises
+``NotImplementedError`` naming its ROADMAP slice. ``mesh`` also takes the
+pure sharded-DP meshes over ranks (``parallel/mesh.py``). An unknown key raises
 ``ValueError``, as everywhere in the port. ``prescale_gradients``,
 ``gradient_predivide_factor``, ``memory_breakdown``, ``dump_state`` and
 ``fp16.auto_cast`` are accepted and, as in the JAX engine, read by nothing.
@@ -24,6 +25,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..parallel.mesh import check_ported
 from .config_utils import DeepSpeedConfigModel
 
 _field = dataclasses.field
@@ -66,8 +68,9 @@ class OffloadParamConfig(DeepSpeedConfigModel):
 @dataclasses.dataclass
 class ZeroConfig(DeepSpeedConfigModel):
     """The JAX ZeroConfig's fields. Which of them the port runs is decided
-    by ``runtime/zero.py``; the bucket sizes and overlap switches tune
-    collectives, of which one process has none."""
+    by ``runtime/zero.py``; the bucket sizes, prefetch and overlap switches
+    tune the JAX package's compiled collectives and are read by nothing
+    here (the port's gathers and reductions run leaf by leaf)."""
     stage: int = 0
     contiguous_gradients: bool = True
     reduce_scatter: bool = True
@@ -135,7 +138,7 @@ _MONITOR = {"enabled": False, "output_path": "",
 # block -> (JAX defaults, ROADMAP slice that ports it)
 UNPORTED: dict[str, tuple[dict[str, Any], str]] = {
     "mesh": ({"pp": 1, "dp": 1, "fsdp": -1, "zps": 1, "ep": 1, "sp": 1,
-              "tp": 1, "dcn": {}}, "Slice D (multi-rank)"),
+              "tp": 1, "dcn": {}}, "Slice D"),
     "sequence_parallel": ({"mode": "auto"}, "Slice D (sequence/)"),
     "comms_logger": ({"enabled": False, "verbose": False, "prof_all": True,
                       "prof_ops": [], "debug": False}, "Slice G (tooling)"),
@@ -257,13 +260,13 @@ def check_unported_block(name: str, block: dict) -> None:
         raise ValueError(f"{name}: unknown config key(s) {unknown}; the JAX "
                          f"package declares {sorted(defaults)}")
     if name == "mesh":
-        # one device: every degree 1 (fsdp -1 absorbs the one device)
-        degrees = {k: v for k, v in given.items() if k != "dcn"}
-        if any(v not in (1, -1 if k == "fsdp" else 1)
-               for k, v in degrees.items()) or given.get("dcn"):
+        # the pure sharded-DP meshes over ranks: fsdp (-1 absorbs the
+        # world) or dp, not both, every other axis 1 (parallel/mesh.py)
+        if given.get("dcn"):
             raise NotImplementedError(
-                f"mesh {block} spans more than one device: not ported yet "
-                f"(ROADMAP: port Queue 1, {where})")
+                f"mesh.dcn {given['dcn']} is not ported yet (ROADMAP: port "
+                f"Queue 1, Slice D item 12 (multi-slice meshes))")
+        check_ported({k: v for k, v in given.items() if k != "dcn"})
         return
     _refuse_non_defaults(name, given, defaults, where)
 

@@ -26,6 +26,23 @@ each one flat buffer with a view per parameter (offsets aligned to 64
 elements), and in mixed precision the model's parameters become views of
 one flat compute-dtype buffer, so the fused-Adam or fused-Lion kernel
 updates the whole model, compute copy included, in one launch.
+
+Across ranks (``torch.distributed`` with world size W > 1, pure
+sharded-DP meshes, ``parallel/mesh.py``) the buffers hold this rank's
+shards of the ZeRO plan (``runtime/zero.py``: the master and optimizer
+state at stage >= 1, the grads at stage >= 2, the compute-dtype params
+at stage 3), split leaves first. Micro-batch i is rows [i*mb, (i+1)*mb)
+of the batch and rank r takes its contiguous 1/W of it. At stage 3 each
+micro-batch gathers the full params (the ZeRO++ qwZ wire or exact,
+``runtime/zeropp.py``) into temporaries that the model's parameters view
+until its backward, which reduces the fp32 grads into this rank's grad
+shards (qgZ or exact) as stage 2 does; at stage < 2 a rank accumulates
+its full local grads and reduces them once at the gradient-accumulation
+boundary, as the JAX triple defers them (``_defer_grads_ok``). The
+global grad norm all-reduces the split leaves' sum of squares and counts
+each replicated leaf once; the loss is all-reduced to the global mean;
+after the update, stages 1-2 all-gather the new compute-dtype shards
+into the replicated parameters.
 """
 
 from __future__ import annotations
@@ -35,31 +52,40 @@ import contextlib
 import numpy as np
 import torch
 
+from ..comm import comm
 from ..models.convert import flatten_tree
 from ..models.transformer import check_training_options
+from ..parallel.mesh import Topology, TopologyConfig
+from ..utils import groups
 from ..utils.logging import log_dist
 from ..utils.timer import ThroughputTimer
 from .config import DeepSpeedConfig
 from .loss_scaler import grads_finite, init_loss_scale, update_loss_scale
 from .lr_schedules import LRSchedulerShim, build_schedule
 from .optimizers import build_optimizer
-from .zero import ZeroPlan, world_size
+from .zero import ZeroPlan, ZeroShardingPlan
+from .zeropp import gather_params, reduce_grads
 
 _ALIGN = 64   # elements: every parameter view starts 128-byte aligned
 
 
-def _flat_layout(params) -> tuple[dict[str, tuple[int, int, torch.Size]],
-                                  int]:
+def _flat_layout(shapes: dict) -> tuple[dict[str, tuple[int, int, tuple]],
+                                       int]:
     """name -> (offset, numel, shape) in a flat buffer, and its length."""
     layout, off = {}, 0
-    for name, p in params.items():
-        layout[name] = (off, p.numel(), p.shape)
-        off += -(-p.numel() // _ALIGN) * _ALIGN
+    for name, shape in shapes.items():
+        numel = int(np.prod(shape, dtype=np.int64))
+        layout[name] = (off, numel, tuple(shape))
+        off += -(-numel // _ALIGN) * _ALIGN
     return layout, off
 
 
+def _views(buf: torch.Tensor, layout: dict) -> dict[str, torch.Tensor]:
+    return {n: buf[o:o + k].view(s) for n, (o, k, s) in layout.items()}
+
+
 class DeepSpeedEngine:
-    """Eager training engine over one device."""
+    """Eager training engine over one device per rank."""
 
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None, lr_scheduler=None,
@@ -83,11 +109,17 @@ class DeepSpeedEngine:
                 "ported yet (ROADMAP: port Queue 1, Slice F (dataloader.py))"
                 "; pass batches to train_batch")
         self.config = DeepSpeedConfig.from_any(config)
-        self.zero = ZeroPlan(self.config.zero_optimization, world_size())
+        self.group = groups.get_data_parallel_group()
+        self.topology = Topology(
+            TopologyConfig.from_mesh_block(self.config.mesh),
+            comm.get_world_size(self.group))
+        self.dp_world = self.topology.data_parallel_size
+        self.dp_rank = comm.get_rank(self.group)
+        self.zero = ZeroPlan(self.config.zero_optimization)
         self.zero_stage = self.zero.stage
         (self.train_batch_size_, self.micro_batch_size_,
          self.gradient_accumulation_steps_) = \
-            self.config.resolve_batch_sizes(self.zero.world)
+            self.config.resolve_batch_sizes(self.dp_world)
 
         self.module = model
         self.model_config = model.config
@@ -146,26 +178,39 @@ class DeepSpeedEngine:
             f"batch=({self.train_batch_size_},{self.micro_batch_size_},"
             f"ga={self.gradient_accumulation_steps_}) "
             f"optimizer={type(self.tx).__name__} "
-            f"fused={getattr(self.tx, 'fused', False)}")
+            f"fused={getattr(self.tx, 'fused', False)} {self.topology}")
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def _init_state(self, model_parameters):
         """fp32 master from ``config.seed`` (a seeded generator on the
-        device) or from ``model_parameters`` (name -> array, flat "a/b"
-        names or a nested tree); the model's parameters become views of
-        the master (fp32) or of one compute-dtype buffer (mixed)."""
+        device, the same full weights on every rank) or from
+        ``model_parameters`` (name -> full array, flat "a/b" names or a
+        nested tree), cut into this rank's shards. The model's parameters
+        become views of the master (fp32) or of one compute-dtype buffer
+        (mixed); stage 1-2's split leaves view a replicated full buffer
+        and stage 3's the gathered temporaries of each micro-batch."""
         params = self.module.params
-        layout, total = _flat_layout(params)
-        self._layout = layout
         dev = self.device
+        plan = ZeroShardingPlan(
+            self.zero_stage, self.topology.fsdp_size,
+            {n: tuple(p.shape) for n, p in params.items()})
+        self.plan = plan
+        split = [n for n in params if plan.master_dims[n] is not None]
+        shards = {n: plan.shard_shape(n, plan.master_dims[n])
+                  for n in split + [n for n in params if n not in split]}
+        layout, total = _flat_layout(shards)
+        self._layout = layout
+        # the split leaves' part of the flat buffers (norm and finite check
+        # all-reduce it; the rest is replicated)
+        self._split_end = max((layout[n][0] + layout[n][1] for n in split),
+                              default=0)
         master = torch.zeros(total, dtype=torch.float32, device=dev)
-        views = {n: master[o:o + k].view(s) for n, (o, k, s) in layout.items()}
+        views = _views(master, layout)
         if model_parameters is None:
             gen = torch.Generator(device=dev).manual_seed(self.config.seed)
             self.module.init_params(gen)
-            for name, p in params.items():
-                views[name].copy_(p)
+            full = {n: p.detach() for n, p in params.items()}
         else:
             given = (flatten_tree(model_parameters)
                      if isinstance(model_parameters, dict)
@@ -175,27 +220,106 @@ class DeepSpeedEngine:
                     f"model_parameters names differ from the model's: "
                     f"missing {sorted(set(params.keys()) - set(given))}, "
                     f"unexpected {sorted(set(given) - set(params.keys()))}")
-            for name, value in given.items():
-                if not isinstance(value, torch.Tensor):   # a writable copy
-                    value = torch.from_numpy(np.array(value, np.float32))
-                views[name].copy_(value)
+            full = {n: (v if isinstance(v, torch.Tensor)   # a writable copy
+                        else torch.from_numpy(np.array(v, np.float32)))
+                    for n, v in given.items()}
+        for name in params:
+            views[name].copy_(self._own(full[name], plan.master_dims[name]))
         if self._mixed:
             compute = master.to(self.compute_dtype)
-            cviews = {n: compute[o:o + k].view(s)
-                      for n, (o, k, s) in layout.items()}
+            cviews = _views(compute, layout)
         else:
             compute, cviews = None, views
+        replicated = {n: plan.shapes[n] for n in split
+                      if plan.param_dims[n] is None}       # stages 1-2
+        rlayout, rtotal = _flat_layout(replicated)
+        self._replicas = torch.empty(rtotal, dtype=self.compute_dtype,
+                                     device=dev)
+        self._replica_views = _views(self._replicas, rlayout)
         for name, p in params.items():
-            p.data = cviews[name]
+            if name in replicated:
+                self._replica_views[name].copy_(full[name])
+                p.data = self._replica_views[name]
+            elif plan.param_dims[name] is not None:        # stage 3
+                p.data = self._released()
+            else:
+                p.data = cviews[name]
             p.grad = None
+        del full
         self._master = master
         self._compute = compute
+        self._compute_views = cviews
         self._grads = torch.zeros_like(master)
-        self._grad_views = {n: self._grads[o:o + k].view(s)
-                            for n, (o, k, s) in layout.items()}
+        self._grad_views = _views(self._grads, layout)
+        # stage < 2 across ranks: the full local grads, reduced at the
+        # gradient-accumulation boundary
+        self._defer_reduce = self.dp_world > 1 and self.zero_stage < 2
+        if self._defer_reduce:
+            flayout, ftotal = _flat_layout(plan.shapes)
+            self._local_grads = torch.zeros(ftotal, dtype=torch.float32,
+                                            device=dev)
+            self._local_grad_views = _views(self._local_grads, flayout)
+        else:
+            self._local_grad_views = self._grad_views
         self.opt_state = self.tx.init(master)
         self._step = torch.zeros((), dtype=torch.int32, device=dev)
         self._loss_scale = init_loss_scale(self.config.fp16, device=dev)
+
+    def _own(self, full: torch.Tensor, dim) -> torch.Tensor:
+        """This rank's chunk of ``full`` along ``dim`` (None: all of it)."""
+        if dim is None:
+            return full
+        return full.chunk(self.topology.fsdp_size, dim)[self.dp_rank]
+
+    def _released(self) -> torch.Tensor:
+        return torch.empty(0, dtype=self.compute_dtype, device=self.device)
+
+    # --- ZeRO-3 gathers, reductions ------------------------------------
+    def _gathered(self, use_kernel=None) -> dict[str, torch.Tensor]:
+        """Stage 3's split parameters in full (compute dtype), gathered
+        from every rank's shards over the qwZ or the exact wire."""
+        dims = self.plan.param_dims
+        shards = {n: self._compute_views[n] for n in dims
+                  if dims[n] is not None}
+        if not shards:
+            return {}
+        return gather_params(shards, dims,
+                             quantize_weights=self.zero.quantize_weights,
+                             group=self.group, use_kernel=use_kernel)
+
+    def _gather(self) -> None:
+        for name, full in self._gathered().items():
+            self.module.params[name].data = full
+
+    def _release(self) -> None:
+        """Drop stage 3's gathered parameters (the autograd graph keeps
+        what its backward still needs)."""
+        for name, dim in self.plan.param_dims.items():
+            if dim is not None:
+                self.module.params[name].data = self._released()
+
+    def _reduce(self, grads: dict, dims: dict, quantized: bool) -> dict:
+        return reduce_grads(grads, dims, n_batch=self.dp_world,
+                            quantize_gradients=quantized,
+                            rounding=self.zero.rounding,
+                            step=self.global_steps, group=self.group)
+
+    def _local_rows(self, batch):
+        """This rank's contiguous 1/W of the rows of every array."""
+        if self.dp_world == 1:
+            return batch
+        rows = batch_rows(batch)
+        if rows % self.dp_world:
+            raise ValueError(f"a micro-batch of {rows} rows does not split "
+                             f"over {self.dp_world} ranks")
+        k = rows // self.dp_world
+        return self._micro(batch, self.dp_rank, k)
+
+    def _micro_loss(self, micro):
+        """The local mean loss of this rank's rows of one micro-batch,
+        with stage 3's parameters gathered for its forward."""
+        self._gather()
+        return self.module.loss(self._local_rows(micro))
 
     def _flops_per_sample(self):
         s = self.model_config.max_seq_len
@@ -227,16 +351,25 @@ class DeepSpeedEngine:
     def _accumulate(self, loss, first: bool, retain_graph=False) -> None:
         """Backward of one micro-batch's loss (times the fp16 loss scale)
         and its grads into the flat fp32 grad buffer: copied for the first
-        micro-batch of a step, added for the others."""
+        micro-batch of a step, added for the others. Across ranks at stage
+        >= 2 the grads are first reduced to this rank's shards; at stage <
+        2 the full local grads accumulate until the boundary."""
         scale = self._loss_scale.scale
         (loss * scale if self.fp16_enabled else loss).backward(
             retain_graph=retain_graph)
-        for name, p in self.module.params.items():
-            if first:
-                self._grad_views[name].copy_(p.grad)
-            else:
-                self._grad_views[name].add_(p.grad)
+        grads = {n: p.grad for n, p in self.module.params.items()}
+        for p in self.module.params.values():
             p.grad = None
+        if not retain_graph:
+            self._release()
+        if self.dp_world > 1 and not self._defer_reduce:
+            grads = self._reduce(grads, self.plan.grad_dims,
+                                 self.zero.quantize_gradients)
+        for name, g in grads.items():
+            if first:
+                self._local_grad_views[name].copy_(g)
+            else:
+                self._local_grad_views[name].add_(g)
 
     def _apply_step(self, losses) -> dict:
         """The update from the accumulated grads (JAX ``apply_grads``):
@@ -247,15 +380,20 @@ class DeepSpeedEngine:
         ga = self.gradient_accumulation_steps_
         scale = self._loss_scale.scale
         grads = self._grads
+        if self._defer_reduce:
+            local = self._local_grad_views
+            for name, g in self._reduce(local, self.plan.master_dims,
+                                        False).items():
+                self._grad_views[name].copy_(g)
         # unscale + average over GAS (reference: engine.py:2024)
         if self.fp16_enabled:
             grads.mul_(1.0 / (scale * ga))
         elif ga > 1:
             grads.mul_(1.0 / ga)
-        finite = grads_finite([grads]) if self.fp16_enabled else None
+        finite = self._all_finite() if self.fp16_enabled else None
         # global grad norm + clip (reference: runtime/utils.py
         # clip_grad_norm_); the coefficient is applied inside the update
-        grad_norm = torch.linalg.vector_norm(grads)
+        grad_norm = self._grad_norm()
         clip = self.config.gradient_clipping
         coef = (torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
                 if clip > 0 else None)
@@ -271,9 +409,12 @@ class DeepSpeedEngine:
             self._step += finite.int()
         else:
             self._step += 1
+        self._refresh_replicas()
         overflow = (~finite if finite is not None
                     else torch.zeros((), dtype=torch.bool, device=self.device))
-        metrics = {"loss": torch.stack(losses).mean(), "grad_norm": grad_norm,
+        loss = comm.all_reduce(torch.stack(losses).mean(), comm.ReduceOp.AVG,
+                               self.group)
+        metrics = {"loss": loss, "grad_norm": grad_norm,
                    "loss_scale": self._loss_scale.scale, "overflow": overflow}
         self.global_steps += 1
         self.global_samples += self.train_batch_size_
@@ -282,13 +423,40 @@ class DeepSpeedEngine:
             self._report(metrics)
         return metrics
 
+    def _grad_norm(self) -> torch.Tensor:
+        """The global norm: the split leaves' squares summed over the
+        ranks, each replicated leaf counted once."""
+        grads, k = self._grads, self._split_end
+        if k == 0:
+            return torch.linalg.vector_norm(grads)
+        sq = comm.all_reduce(torch.linalg.vector_norm(grads[:k]).square(),
+                             group=self.group)
+        return (sq + torch.linalg.vector_norm(grads[k:]).square()).sqrt()
+
+    def _all_finite(self) -> torch.Tensor:
+        finite = grads_finite([self._grads])
+        if self.dp_world == 1:
+            return finite
+        flag = comm.all_reduce(finite.int(), comm.ReduceOp.MIN, self.group)
+        return flag.bool()
+
+    def _refresh_replicas(self) -> None:
+        """Stages 1-2: the new compute-dtype shards of the split leaves,
+        all-gathered into the replicated parameters."""
+        dims = self.plan.master_dims
+        for name, full in self._replica_views.items():
+            full.copy_(comm.all_gather(self._compute_views[name],
+                                       group=self.group, axis=dims[name]))
+
     # ------------------------------------------------------------------
     # public API (reference parity)
     # ------------------------------------------------------------------
     def train_batch(self, batch=None, data_iter=None):
         """One full training step (GA micro-batches included). ``batch``
         is ``(tokens, targets)`` or a dict with those keys, leading dim
-        train_batch_size. Returns the mean loss (a 0-d device tensor)."""
+        train_batch_size (the global batch, the same on every rank).
+        Returns the mean loss over the global batch (a 0-d device
+        tensor)."""
         if batch is None:
             if data_iter is None:
                 raise ValueError("train_batch needs a batch or data_iter")
@@ -303,7 +471,7 @@ class DeepSpeedEngine:
         mb = rows // ga
         losses = []
         for i in range(ga):
-            loss = self.module.loss(self._micro(batch, i, mb))
+            loss = self._micro_loss(self._micro(batch, i, mb))
             self._accumulate(loss, first=i == 0)
             losses.append(loss.detach())
         metrics = self._apply_step(losses)
@@ -321,18 +489,23 @@ class DeepSpeedEngine:
                if self.fp16_enabled else ""))
 
     def eval_batch(self, batch):
+        """The mean loss over the global ``batch``, without grads."""
         with torch.no_grad():
-            return self.module.loss(self._put_batch(batch))
+            loss = self._micro_loss(self._put_batch(batch))
+            self._release()
+        return comm.all_reduce(loss, comm.ReduceOp.AVG, self.group)
 
     # --- forward/backward/step (JAX engine.py:1193-1418) ---------------
     def forward(self, batch):
         """The loss of one micro-batch (reference: engine.forward), with
-        its autograd graph, which ``backward`` consumes. JAX recomputes the
+        its autograd graph, which ``backward`` consumes. Across ranks
+        ``batch`` is the global micro-batch (train_batch_size / GA rows)
+        and the loss is this rank's local mean. JAX recomputes the
         graph in ``backward``; the numbers are the same. The engine holds
         only the latest loss (for ``backward(None)``), so the graph of a
         ``forward`` that no ``backward`` consumed is freed by the next
         ``forward`` once the caller drops it."""
-        self._last_loss = self.module.loss(self._put_batch(batch))
+        self._last_loss = self._micro_loss(self._put_batch(batch))
         return self._last_loss
 
     __call__ = forward
@@ -370,11 +543,11 @@ class DeepSpeedEngine:
         self._micro_count = 0
 
     def no_sync(self):
-        """Context manager (reference: engine.no_sync:1987). At world size
-        1 there is no gradient reduction to defer; the context keeps what
-        the JAX engine keeps of the reference: it refuses ZeRO stage >= 2
-        (partitioned grads), ``step()`` is illegal inside it, and reentry
-        is unsupported."""
+        """Context manager (reference: engine.no_sync:1987). At stage < 2
+        the reduction is deferred to the boundary anyway; the context
+        keeps what the JAX engine keeps of the reference: it refuses ZeRO
+        stage >= 2 (partitioned grads), ``step()`` is illegal inside it,
+        and reentry is unsupported."""
         assert self.zero_stage < 2, (
             "no_sync context manager is incompatible with gradient "
             f"partitioning logic of ZeRO stage {self.zero_stage} "
@@ -423,13 +596,33 @@ class DeepSpeedEngine:
         return self.module_state_dict()
 
     def module_state_dict(self):
-        """The compute-dtype parameters by name (the JAX state's params)."""
-        return {n: p.detach() for n, p in self.module.params.items()}
+        """The compute-dtype parameters by name (the JAX state's params);
+        at ZeRO-3 across ranks a split leaf is this rank's shard."""
+        dims = self.plan.param_dims
+        return {n: (self._compute_views[n] if dims[n] is not None
+                    else p.detach())
+                for n, p in self.module.params.items()}
+
+    def gathered_params(self, use_kernel=None):
+        """The full compute-dtype parameters by name: stage 3's split
+        leaves gathered over the configured wire (every rank must call
+        it), the others as the model holds them."""
+        full = self._gathered(use_kernel)
+        return {n: full.get(n, p.detach())
+                for n, p in self.module.params.items()}
 
     def master_state_dict(self):
-        """The fp32 master parameters by name (views of the flat buffer)."""
-        return {n: self._master[o:o + k].view(s)
-                for n, (o, k, s) in self._layout.items()}
+        """This rank's fp32 master by name (views of the flat buffer): the
+        whole parameter, or its shard where ZeRO splits it."""
+        return _views(self._master, self._layout)
+
+    def consolidated_master_state_dict(self):
+        """The full fp32 master by name, every shard all-gathered (every
+        rank must call it)."""
+        dims = self.plan.master_dims
+        return {n: comm.all_gather(v, group=self.group, axis=dims[n])
+                if dims[n] is not None else v
+                for n, v in self.master_state_dict().items()}
 
 
 def batch_rows(batch) -> int:

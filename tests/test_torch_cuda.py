@@ -646,3 +646,92 @@ def test_triple_with_fused_lion_and_loss_chunk_on_the_card(cuda):
     cpu, gpu = (torch.cat([t.reshape(-1).cpu() for t in
                            e.master_state_dict().values()]) for e in engines)
     assert float(((gpu - cpu).abs() > 1e-5).float().mean()) <= 1e-3
+
+
+# ------------------------------------------- the ZeRO++ int8 wire kernels
+QUANT_SIZES = [1, 100, 511, 512, 513, 4096 + 37, 3 * 2 ** 20 + 5]
+
+
+@pytest.mark.parametrize("n", QUANT_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_quantize_int8_kernels_match_plain_bit_for_bit(cuda, dtype, n):
+    """csrc/quantize_int8.cu against its plain versions on the card: codes
+    and scales bit for bit (fp32/bf16/fp16 input read in place, tail
+    blocks zero-padded in registers, an all-zero block at scale 1e-12), and
+    the dequantize into fp32/bf16/fp16 bit for bit (one rounded fp32
+    product, stored once); one launch each."""
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n, generator=g) * torch.logspace(
+        -3, 2, -(-n // 512)).repeat_interleave(512)[:n]
+    if n > 1024:
+        x[512:1024] = 0.0
+    x = x.to(cuda, dtype)
+    counts = (TQ.quantize_int8_kernel.launches,
+              TQ.dequantize_int8_kernel.launches)
+    q, s, meta = TQ.quantize_int8(x)
+    pq, ps, _ = TQ.quantize_int8(x, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    if n > 1024:
+        assert float(s[1, 0]) == np.float32(1e-12) and not q[1].any()
+    for out in (torch.float32, torch.bfloat16, torch.float16):
+        got = TQ.dequantize_rows(q, s, 1, n, out)
+        want = TQ.dequantize_rows(q, s, 1, n, out, use_kernel=False)
+        assert got.dtype == out and torch.equal(got, want)
+    assert TQ.dequantize_int8(q, s, meta).shape == x.shape
+    assert (TQ.quantize_int8_kernel.launches - counts[0],
+            TQ.dequantize_int8_kernel.launches - counts[1]) == (1, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows_kernel_matches_plain(cuda, dtype):
+    """qgZ's per-row form: [world, c] rows padded apart, c not a multiple
+    of 512 (rows start unaligned, so the scalar path runs too)."""
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    rows = torch.randn(4, 3 * 512 + 77, generator=torch.Generator(
+        ).manual_seed(3)).to(cuda, dtype)
+    q, s = TQ.quantize_rows(rows)
+    pq, ps = TQ.quantize_rows(rows, use_kernel=False)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    got = TQ.dequantize_rows(q, s, 4, rows.shape[1], dtype)
+    assert torch.equal(got, TQ.dequantize_rows(q, s, 4, rows.shape[1],
+                                               dtype, use_kernel=False))
+
+
+def test_quantize_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    with pytest.raises(ValueError, match="dtype"):
+        TQ.quantize_int8_kernel(torch.zeros(2, 8, dtype=torch.float64,
+                                            device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        TQ.quantize_int8_kernel(torch.zeros(8, 2, device=cuda).t())
+    q, s = TQ.quantize_int8_kernel(torch.ones(1, 600, device=cuda))
+    with pytest.raises(ValueError, match="codes"):
+        TQ.dequantize_int8_kernel(q[:1], s, 1, 600, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        TQ.dequantize_int8_kernel(q, s, 1, 600, torch.int32)
+
+
+def test_zero3_with_qwz_at_world_size_one_on_the_card(cuda):
+    """At W = 1 on the card, stage 3 with qwZ and qgZ equals stage 0 bit
+    for bit (nothing splits), with bf16 compute and fused Adam."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPT2
+    runs = []
+    tok = np.random.default_rng(0).integers(0, 512, (4, 65))
+    for zero in ({"stage": 0}, {"stage": 3, "zero_quantized_weights": True,
+                                "zero_quantized_gradients": True}):
+        cfg = {"train_batch_size": 4, "bf16": {"enabled": True},
+               "optimizer": {"type": "FusedAdam", "params": {
+                   "lr": 1e-3, "fused_kernel": True}},
+               "gradient_clipping": 1.0, "zero_optimization": zero}
+        eng, *_ = ds.initialize(model=GPT2(size="tiny", device=cuda,
+                                           attn_impl="flash"), config=cfg)
+        losses = [float(eng.train_batch((tok[:, :-1], tok[:, 1:])))
+                  for _ in range(3)]
+        runs.append((losses, eng.master_state_dict()))
+    assert runs[0][0] == runs[1][0]
+    for name, p in runs[0][1].items():
+        assert torch.equal(p, runs[1][1][name]), name
