@@ -58,11 +58,21 @@ Phases, each fatal on failure:
      dequantize launches a step;
  14. Path Z's kernels against plain inside the same ranks on the step's
      real data: every qwZ gather and the qgZ reduce-scatter with nearest
-     rounding, kernels on and off, bit for bit.
+     rounding, kernels on and off, bit for bit;
+ 15. phase 6's train_batch under every remat policy the JAX model runs
+     (segments, nothing_saveable, everything_saveable, dots_saveable,
+     dots_with_no_batch_dims_saveable, save_attn_ffn) and remat=False,
+     from the same weights, a warm-up and 3 timed steps each: step ms,
+     peak memory, the losses (finite, falling, within bf16 noise of
+     segments') and the norm launches a step.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
-Lion, the block-sparse kernels and the int8 block quantize/dequantize
-against their plain versions and times them at Path Q's, Path T's, Path
-P's and Path Z's shapes. Phases 11-12 run right
+Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
+RMSNorm/LayerNorm kernels against their plain versions and times them at
+Path Q's, Path T's, Path P's, Path Z's and the serving and training
+paths' shapes. Every model path runs its norms through the norm kernel
+(2L + 1 launches a forward, 2L more recomputed a training micro-batch
+under remat), and each phase's launch check counts them; the plain sides
+of phases 5 and 7 run plain norms. Phases 11-12 run right
 after phase 5, beside phase 4's engine. With --profile it then traces a
 prefill tick and decode ticks of the serving path and of Path Q, one
 train_batch step and one step of Path T (torch.profiler) and prints where
@@ -91,7 +101,7 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 ADAM_TOL = (1e-6, 1e-5)        # atol, rtol: the JAX fused-Adam tolerance
 KERNELS = ("paged_attention", "flash_attention", "fused_adam",
-           "fused_lion", "block_sparse_attention", "quantize_int8")
+           "fused_lion", "block_sparse_attention", "quantize_int8", "norms")
 SOURCE = "deepspeed_tpu_torch/csrc/{}.cu"
 REPLACES = {
     "paged_attention": "deepspeed_tpu/inference/v2/paged.py:61",
@@ -105,7 +115,16 @@ REPLACES = {
     "block_sparse_attention_bwd":
         "deepspeed_tpu/ops/sparse_attention/kernels.py:210",
     "quantize_int8": "deepspeed_tpu/ops/pallas/quantization.py:57",
-    "dequantize_int8": "deepspeed_tpu/ops/pallas/quantization.py:99"}
+    "dequantize_int8": "deepspeed_tpu/ops/pallas/quantization.py:99",
+    "rms_norm": "deepspeed_tpu/ops/pallas/norms.py:47",
+    "rms_norm_decode": "deepspeed_tpu/ops/pallas/norms.py:47",
+    "layer_norm": "deepspeed_tpu/ops/pallas/norms.py:81"}
+# remat policies of phase 15: every name the JAX model runs (aliases once)
+# and remat off
+REMAT_RUNS = ("segments", "nothing_saveable", "everything_saveable",
+              "dots_saveable", "dots_with_no_batch_dims_saveable",
+              "save_attn_ffn", None)
+SPIN_CYCLES = 2_000_000        # ~1 ms of device spin before a timed call
 # the training main path: bench.py headline_bench's configuration with
 # the JAX package's switch to its fused-Adam kernel turned on
 TRAIN_CONFIG = {
@@ -178,9 +197,14 @@ def live_children() -> list[str]:
 
 
 def time_ms(fn, dev, iters: int, flush=None) -> float:
-    """Mean device time of fn() over iters calls after a warm-up, with
-    the L2 cache flushed before each call (the main path meets each
-    layer's pages cold). On the CPU (rehearsal only) a host clock."""
+    """Median device time of one fn() call over iters calls after a
+    warm-up, each between two CUDA events, with the L2 cache flushed
+    before it (the main path meets each layer's pages cold). A spin of
+    ~1 ms (``torch.cuda._sleep``) is enqueued before each start event, so
+    the device is still busy while the host launches fn's kernels: the
+    host's launch delay stays out of the window, and the median drops a
+    call the host held up anyway. On the CPU (rehearsal only) a host
+    clock."""
     import torch
     fn()
     if dev.type != "cuda":
@@ -189,18 +213,19 @@ def time_ms(fn, dev, iters: int, flush=None) -> float:
             fn()
         return (time.perf_counter() - t) / iters * 1e3
     torch.cuda.synchronize()
-    total = 0.0
+    times = []
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 # ---------------------------------------------------------------- phase 3
@@ -466,7 +491,8 @@ def quant_checks(dev, flush=None, iters=20):
 # ---------------------------------------------------------------- phase 4
 def serve(engine, prompts, max_new: int, dev):
     """generate() over prompts with each tick timed; returns outputs,
-    wall seconds and per-tick (seconds, prefill tokens, decode rows)."""
+    wall seconds and per-tick (seconds, prefill tokens, decode rows, norm
+    kernel launches)."""
     import torch
     mgr = engine.state_manager
     prompt_len = {i: len(p) for i, p in enumerate(prompts)}
@@ -482,11 +508,14 @@ def serve(engine, prompts, max_new: int, dev):
         decode = sum(1 for u in run if mgr.seqs[u].seen >= prompt_len[u])
         if dev.type == "cuda":
             torch.cuda.synchronize()
+        norms = norm_counter(engine.model.config)
+        launched = norms.launches
         t = time.perf_counter()
         out = orig_tick()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        ticks.append((time.perf_counter() - t, prefill, decode))
+        ticks.append((time.perf_counter() - t, prefill, decode,
+                      norms.launches - launched))
         return out
 
     engine.tick = timed_tick
@@ -518,10 +547,13 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
     lens[0] = lengths[1] - 1              # at least one prompt chunks
     prompts = [rng.integers(0, c.vocab_size, n).tolist() for n in lens]
     serve(engine, [prompts[0][:16]], 2, dev)          # warm-up
+    norms = norm_counter(c)
     paged.paged_attention_kernel.launches = 0
+    norms.launches = 0
     engine.serving_stats["host_dispatches"] = 0
     outs, wall, ticks = serve(engine, prompts, max_new, dev)
     launches = paged.paged_attention_kernel.launches
+    norm_launches = norms.launches
     dispatches = engine.serving_stats["host_dispatches"]
     for o in outs:
         if len(o) != max_new or not all(0 <= t < c.vocab_size for t in o):
@@ -532,11 +564,19 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
         raise AssertionError(
             f"kernel launches {launches} != layers {c.num_layers} x "
             f"dispatches {dispatches}")
-    pre = [(s, p) for s, p, _ in ticks if p > 0]
-    dec = [s for s, p, d in ticks if p == 0 and d > 0]
+    if dev.type == "cuda" and norm_launches != (2 * c.num_layers + 1) \
+            * dispatches:
+        raise AssertionError(
+            f"norm launches {norm_launches} != (2 x {c.num_layers} layers "
+            f"+ 1) x dispatches {dispatches}")
+    pre = [(s, p) for s, p, _, _ in ticks if p > 0]
+    dec = [s for s, p, d, _ in ticks if p == 0 and d > 0]
     stats = dict(
         requests=n_req, new_tokens=max_new, prompt_tokens=int(lens.sum()),
         ticks=len(ticks), dispatches=dispatches, launches=launches,
+        norm_launches=norm_launches,
+        decode_norm_launches=sum(n for _, p, d, n in ticks
+                                 if p == 0 and d > 0),
         prefill_ticks=len(pre),
         prefill_tokens_per_s=sum(p for _, p in pre) / sum(s for s, _ in pre),
         decode_ticks=len(dec),
@@ -655,8 +695,12 @@ def main_path_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
     bs = engine.state_manager.block_size
 
     model32 = widened(model, dev)
+    norms = norm_counter(model.config)
+    norms.launches = 0
     kernel32 = teacher_forced_logits(model32, dev, True, bs, nb, lens)
+    kernel_norms = norms.launches
     ref32 = teacher_forced_logits(model32, dev, False, bs, nb, lens)
+    plain_norms = norms.launches - kernel_norms
     del model32
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -683,6 +727,12 @@ def main_path_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
         raise AssertionError(f"main path fp32 kernel vs plain: {rels}")
     if worst["layer_calls"] != 3 * model.config.num_layers:
         raise AssertionError(f"{worst['layer_calls']} checked layer calls")
+    want = 3 * (2 * model.config.num_layers + 1)      # three ticks
+    rels["fp32_norm_launches"] = {"kernel": kernel_norms,
+                                  "reference": plain_norms}
+    if dev.type == "cuda" and (kernel_norms, plain_norms) != (want, 0):
+        raise AssertionError(f"norm launches kernel/reference path "
+                             f"{kernel_norms}/{plain_norms} != {want}/0")
     return rels
 
 
@@ -727,10 +777,13 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
     prompts = [prefix + rng.integers(0, c.vocab_size, n).tolist()
                for n in lens]
     serve(engine, [prefix], 2, dev)            # warm-up: publishes prefix
+    norms = norm_counter(c)
     paged.paged_attention_kernel.launches = 0
+    norms.launches = 0
     engine.reset_serving_metrics()
     outs, wall, ticks = serve(engine, prompts, max_new, dev)
     launches = paged.paged_attention_kernel.launches
+    norm_launches = norms.launches
     m = engine.serving_metrics()
     dispatches = m["host_dispatches"]
     bad = []
@@ -754,6 +807,10 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
                                or launches == 0):
         bad.append(f"kernel launches {launches} != layers {c.num_layers} x "
                    f"dispatches {dispatches}")
+    if dev.type == "cuda" and norm_launches != (2 * c.num_layers + 1) \
+            * dispatches:
+        bad.append(f"norm launches {norm_launches} != (2 x {c.num_layers} "
+                   f"+ 1) x dispatches {dispatches}")
     if engine.free_blocks != engine.num_kv_blocks:
         bad.append(f"free_blocks {engine.free_blocks} != "
                    f"{engine.num_kv_blocks} after the flush")
@@ -761,12 +818,13 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
         raise AssertionError("; ".join(bad))
     refs = ref_engine.generate(prompts, max_new_tokens=max_new)
     horizon = agreement(outs, refs)
-    pre = [(s, p) for s, p, _ in ticks if p > 0]
-    dec = [s for s, p, d in ticks if p == 0 and d > 0]
+    pre = [(s, p) for s, p, _, _ in ticks if p > 0]
+    dec = [s for s, p, d, _ in ticks if p == 0 and d > 0]
     stats = dict(
         requests=n_req, new_tokens=max_new, prefix_tokens=prefix_len,
         suffix_tokens=int(lens.sum()), ticks=len(ticks),
-        dispatches=dispatches, launches=launches, prefill_ticks=len(pre),
+        dispatches=dispatches, launches=launches,
+        norm_launches=norm_launches, prefill_ticks=len(pre),
         prefill_tokens_per_s=sum(p for _, p in pre) / sum(s for s, _ in pre),
         decode_ticks=len(dec),
         decode_ms_per_tick=1e3 * sum(dec) / max(len(dec), 1),
@@ -1150,10 +1208,12 @@ def train_main_path(dev, size="125m", steps=10, seq=1024):
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    norms = norm_counter(c)
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.launches = 0
     fa.flash_attention_bwd.calls = 0
     fused_adam_step.launches = 0
+    norms.launches = 0
     losses, step_s = [], []
     for _ in range(steps):
         t = time.perf_counter()
@@ -1164,7 +1224,8 @@ def train_main_path(dev, size="125m", steps=10, seq=1024):
     launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
                 "flash_attention_bwd": fa.flash_attention_bwd.launches,
                 "flash_attention_bwd_calls": fa.flash_attention_bwd.calls,
-                "fused_adam": fused_adam_step.launches}
+                "fused_adam": fused_adam_step.launches,
+                "layer_norm": norms.launches}
     losses = [float(x) for x in losses]
     tokens = rows * seq
     tok_s = tokens * steps / sum(step_s)
@@ -1187,20 +1248,23 @@ def train_main_path(dev, size="125m", steps=10, seq=1024):
     want = {"flash_attention_fwd": c.num_layers * steps,
             "flash_attention_bwd": 2 * c.num_layers * steps,
             "flash_attention_bwd_calls": c.num_layers * steps,
-            "fused_adam": steps}
+            "fused_adam": steps,
+            "layer_norm": norm_launches_per_micro(c) * steps}
     if dev.type == "cuda" and launches != want:
         raise AssertionError(f"training launches {launches} != {want} (one "
                              f"forward and one backward call per layer, "
                              f"two backward launches per call, no forward "
-                             f"rerun under segments, one Adam launch)")
+                             f"rerun under segments, one Adam launch, 2L + "
+                             f"1 norms a forward and 2L recomputed)")
     return engine, batch, stats
 
 
 # ------------------------------------------- phase 7, kernels against plain
 def train_path_kernel_vs_plain(dev, size="125m", rows=2, seq=1024, steps=3):
-    """The training path with the kernels (flash attention, fused Adam)
-    against the plain path (reference attention, plain Adam) from the same
-    initial weights, ``steps`` steps on one batch.
+    """The training path with the kernels (flash attention, fused Adam,
+    the norm kernel) against the plain path (reference attention, plain
+    Adam, plain norms) from the same initial weights, ``steps`` steps on
+    one batch.
 
     fp32, TF32 off: the two paths differ only in the order of sums inside
     attention and in the update's rounding, so
@@ -1215,6 +1279,7 @@ def train_path_kernel_vs_plain(dev, size="125m", rows=2, seq=1024, steps=3):
     import torch
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.ops.norms import plain_norms
     out = {}
     for dtype in ("float32", "bfloat16"):
         runs = []
@@ -1236,10 +1301,17 @@ def train_path_kernel_vs_plain(dev, size="125m", rows=2, seq=1024, steps=3):
             batch = train_batch_of(dev, model.config.vocab_size, rows, seq,
                                    seed=7)
             losses, grads = [], None
+            norms = norm_counter(model.config)
+            before = norms.launches
             for step in range(steps):
-                losses.append(float(engine.train_batch(batch)))
+                with plain_norms(not kernels):
+                    losses.append(float(engine.train_batch(batch)))
                 if step == 0:
                     grads = engine._grads.clone()
+            if dev.type == "cuda" and (norms.launches > before) != kernels:
+                raise AssertionError(
+                    f"phase 7 {'kernel' if kernels else 'plain'} side: "
+                    f"{norms.launches - before} norm launches")
             runs.append((losses, grads, engine._master - start))
             del engine, model
         (kl, kg, kp), (pl, pg, pp) = runs      # kp, pp: change of params
@@ -1569,11 +1641,13 @@ def path_t_main(dev, size="125m", steps=10, seq=1024):
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    norms = norm_counter(c)
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.launches = 0
     fa.flash_attention_bwd.calls = 0
     fused_adam_step.launches = 0
     fused_lion_step.launches = 0
+    norms.launches = 0
     losses, step_s = [], []
     for _ in range(steps):
         t = time.perf_counter()
@@ -1585,7 +1659,8 @@ def path_t_main(dev, size="125m", steps=10, seq=1024):
                 "flash_attention_bwd": fa.flash_attention_bwd.launches,
                 "flash_attention_bwd_calls": fa.flash_attention_bwd.calls,
                 "fused_lion": fused_lion_step.launches,
-                "fused_adam": fused_adam_step.launches}
+                "fused_adam": fused_adam_step.launches,
+                "layer_norm": norms.launches}
     losses = [float(x) for x in losses]
     tok_s = rows * seq * steps / sum(step_s)
     stats = dict(
@@ -1608,12 +1683,14 @@ def path_t_main(dev, size="125m", steps=10, seq=1024):
     calls = c.num_layers * ga * steps
     want = {"flash_attention_fwd": calls, "flash_attention_bwd": 2 * calls,
             "flash_attention_bwd_calls": calls, "fused_lion": steps,
-            "fused_adam": 0}
+            "fused_adam": 0,
+            "layer_norm": norm_launches_per_micro(c) * ga * steps}
     if dev.type == "cuda" and launches != want:
         raise AssertionError(
             f"Path T launches {launches} != {want} (one forward and one "
             f"backward flash call per layer and micro-batch, two backward "
-            f"launches per call, one Lion launch per step, no Adam)")
+            f"launches per call, one Lion launch per step, no Adam, 4L + 1 "
+            f"norms a micro-batch)")
     return engine, batch, stats
 
 
@@ -1867,6 +1944,194 @@ def zeropp_kernel_times(dev, flush=None, iters=20, size="125m"):
     return rec
 
 
+# ------------------------------------------------- phase 3, the norm kernels
+NORM_DS = (64, 200, 768, 4096, 5120)
+NORM_ROWS = 37                 # a multiple of no block or warp count
+NORM_NOTE = ("rms/layer x fp32/bf16/fp16 x d 64/200/768/4096/5120 x 37 "
+             "rows, params fp32 and in x's dtype, contiguous and "
+             "transposed input; fp32 grads of the autograd Functions vs "
+             "plain autograd; LayerNorm rows of mean 300 vs float64")
+# the main paths' shapes: train_batch's LayerNorm (24 x 1024 rows of
+# GPT-2's 768), a prefill tick's (8 x 256 rows) and a decode tick's (8
+# rows) RMSNorm at Llama-3-8B's 4096, all bf16 with bf16 params
+NORM_MAIN = {"layer_norm": ("layer", (24576, 768)),
+             "rms_norm": ("rms", (2048, 4096)),
+             "rms_norm_decode": ("rms", (8, 4096))}
+
+
+def norm_ulps(got, ref, dtype, bias=None) -> float:
+    """max |got - ref| in units of ``dtype``'s spacing at |ref|, or at
+    |bias| where that is larger: where a LayerNorm's bias add cancels the
+    normalised term to near zero, two correct fp32 results that differ by
+    a few 1e-7 of the terms (the row sums run in another order) are many
+    spacings of the small result apart."""
+    import torch
+    eps = torch.finfo(dtype).eps
+    mag = ref.float().abs()
+    if bias is not None:
+        mag = torch.maximum(mag, bias.float().abs())
+    mag = mag.clamp(min=torch.finfo(dtype).tiny)
+    ulp = eps * torch.exp2(torch.floor(torch.log2(mag)))
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+def norm_call(kind, x, scale, bias, use_kernel):
+    """The norm of ``kind`` ("rms"/"layer") through the port's op (with
+    ``use_kernel`` the kernel on the card; in a CPU rehearsal its plain
+    forward) or its plain version."""
+    from deepspeed_tpu_torch.ops import layers as L
+    from deepspeed_tpu_torch.ops import norms as N
+    if kind == "rms":
+        return (N.rms_norm(x, scale) if use_kernel
+                else L.rms_norm(x, scale))
+    return (N.layer_norm(x, scale, bias) if use_kernel
+            else L.layer_norm(x, scale, bias))
+
+
+def norm_compare(kind, x, scale, bias) -> float:
+    """The kernel against its plain version: fp32 abs error, raising past
+    1e-6 + 2 ulps relative (the row sums run in another order); bf16/fp16
+    the error in ulps of the plain result (at |bias| where larger,
+    ``norm_ulps``), raising past 1."""
+    import torch
+    got = norm_call(kind, x, scale, bias, True)
+    ref = norm_call(kind, x, scale, bias, False)
+    if x.dtype == torch.float32:
+        err = (got - ref).abs()
+        if bool((err > 1e-6 + 2.4e-7 * ref.abs()).any()):
+            raise AssertionError(f"{kind} norm fp32 {tuple(x.shape)}: "
+                                 f"max|err| {float(err.max()):.3e}")
+        return float(err.max())
+    ulps = norm_ulps(got, ref, x.dtype, bias if kind == "layer" else None)
+    if ulps > 1.0:
+        raise AssertionError(f"{kind} norm {x.dtype} {tuple(x.shape)}: "
+                             f"{ulps:.2f} ulps from plain")
+    return ulps
+
+
+def norm_grad_check(kind, dev) -> float:
+    """The autograd Function (kernel forward, closed-form backward)
+    against plain autograd, fp32, 50 rows of 768: the largest grad error,
+    raising past 1e-5."""
+    import torch
+    from deepspeed_tpu_torch.ops import norms as N
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(50, 768, generator=g, device=dev) * 2 + 0.5
+    scale = torch.randn(768, generator=g, device=dev) + 1
+    bias = torch.randn(768, generator=g, device=dev)
+    dy = torch.randn(50, 768, generator=g, device=dev)
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        with N.plain_norms(plain):
+            y = (N.rms_norm(leaves[0], leaves[1]) if kind == "rms"
+                 else N.layer_norm(*leaves))
+        y.backward(dy)
+        grads.append([t.grad for t in leaves[:2 if kind == "rms" else 3]])
+    err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    if err > 1e-5:
+        raise AssertionError(f"{kind} norm grads vs plain autograd: {err}")
+    return err
+
+
+def norm_bound(kind, n_rows, d) -> tuple[float, str]:
+    """The least time for one bf16 norm of n_rows x d: 2 B in and 2 B out
+    an element plus the bf16 params, over 3.35 TB/s, against ~4 (RMS) or
+    ~7 (Layer) fp32 operations an element over 67 TFLOP/s."""
+    params = 1 if kind == "rms" else 2
+    t_bytes = (4 * n_rows * d + 2 * params * d) / HBM_BYTES_PER_S
+    t_ops = (4 if kind == "rms" else 7) * n_rows * d / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def norm_checks(dev, flush=None, iters=20):
+    """Phase 3 for the norm kernels: every case of NORM_NOTE against the
+    plain versions, then the kernels timed at NORM_MAIN's shapes beside
+    their plain versions, their bounds and the library calls computing the
+    same functions (``torch.nn.functional.layer_norm`` / ``rms_norm``,
+    yardsticks the port never calls), each also held to its plain version
+    there."""
+    import torch
+    import torch.nn.functional as F
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(8)
+    for kind in ("rms", "layer"):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            worst = 0.0
+            for d in NORM_DS:
+                x = (torch.randn(NORM_ROWS, d, generator=g, device=dev) * 2
+                     + 0.5).to(dtype)
+                xt = x.t().contiguous().t()         # non-contiguous
+                scale = torch.randn(d, generator=g, device=dev) + 1
+                bias = torch.randn(d, generator=g, device=dev)
+                for pdtype in {torch.float32, dtype}:
+                    for inp in (x, xt):
+                        worst = max(worst, norm_compare(
+                            kind, inp, scale.to(pdtype), bias.to(pdtype)))
+            errs[(kind, str(dtype).split(".")[1])] = worst
+        errs[(kind, "grad_fp32")] = norm_grad_check(kind, dev)
+    # LayerNorm rows with a large mean: the centred variance holds
+    x = torch.randn(64, 768, generator=g, device=dev) + 300
+    scale = torch.randn(768, generator=g, device=dev) + 1
+    bias = torch.randn(768, generator=g, device=dev)
+    c = x.double() - x.double().mean(-1, keepdim=True)
+    want = (c * torch.rsqrt(c.square().mean(-1, keepdim=True) + 1e-5)
+            * scale.double() + bias.double())
+    errs[("layer", "mean300_vs_float64")] = float(
+        (norm_call("layer", x, scale, bias, True).double() - want)
+        .abs().max())
+    if errs[("layer", "mean300_vs_float64")] > 5e-4:
+        raise AssertionError(f"layer norm at mean 300: {errs}")
+    log(f"[kernel] norms vs plain ({NORM_NOTE}): "
+        f"{json.dumps({'/'.join(k): v for k, v in errs.items()})}")
+    times = {}
+    for name, (kind, (n_rows, d)) in NORM_MAIN.items():
+        x = torch.randn(n_rows, d, generator=g, device=dev).to(torch.bfloat16)
+        scale = (torch.randn(d, generator=g, device=dev) + 1).to(x.dtype)
+        bias = torch.randn(d, generator=g, device=dev).to(x.dtype)
+        ulps = norm_compare(kind, x, scale, bias)
+        ref = norm_call(kind, x, scale, bias, False)
+        got = norm_call(kind, x, scale, bias, True)
+        lib = ((lambda: F.rms_norm(x, (d,), scale, 1e-6)) if kind == "rms"
+               else (lambda: F.layer_norm(x, (d,), scale, bias, 1e-5)))
+        bound, by = norm_bound(kind, n_rows, d)
+        times[name] = dict(
+            shape=[n_rows, d], dtype="bfloat16", max_ulps=ulps,
+            max_abs_err=float((got.float() - ref.float()).abs().max()),
+            library_max_ulps=norm_ulps(lib(), ref, x.dtype,
+                                       bias if kind == "layer" else None),
+            ms=time_ms(lambda: norm_call(kind, x, scale, bias, True), dev,
+                       iters, flush),
+            plain_ms=time_ms(lambda: norm_call(kind, x, scale, bias, False),
+                             dev, iters, flush),
+            library_ms=time_ms(lib, dev, iters, flush),
+            bound_ms=bound, bound_by=by)
+        log(f"[kernel] {name} at {[n_rows, d]} bf16: "
+            f"{json.dumps(times[name])}")
+        del x, ref, got
+    return errs, times
+
+
+def norm_launches_per_micro(c) -> int:
+    """Norm launches of one training micro-batch: 2L + 1 in the forward
+    (ln1 and ln2 of each layer, the final norm; the embedding norm where
+    the model has one), and 2L more in the backward under every
+    checkpointing policy, whose recompute reruns each layer's two norms
+    (none under remat=False or everything_saveable)."""
+    fwd = 2 * c.num_layers + 1 + int(c.embed_layernorm)
+    rerun = (2 * c.num_layers
+             if c.remat and c.remat_policy != "everything_saveable" else 0)
+    return fwd + rerun
+
+
+def norm_counter(c):
+    """The launch counter of the model's norm kernel."""
+    from deepspeed_tpu_torch.ops import norms as N
+    return (N.rms_norm_kernel if c.norm_type == "rmsnorm"
+            else N.layer_norm_kernel)
+
+
 # --------------------------------------- phases 13-14, Path Z across ranks
 def path_z_wire_bytes(plan, quantized: bool, dtype_bytes: int = 2) -> dict:
     """Bytes a rank puts on the wire per micro-step, reckoned from the
@@ -1917,6 +2182,7 @@ def path_z_run(dev, config, size, steps, seq, check):
     from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.models import GPT2
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import norms as N
     from deepspeed_tpu_torch.ops import quantization as TQ
     from deepspeed_tpu_torch.ops.fused_optimizers import fused_adam_step
     from deepspeed_tpu_torch.runtime.zeropp import reduce_grads
@@ -1935,7 +2201,8 @@ def path_z_run(dev, config, size, steps, seq, check):
                 "dequantize_int8": TQ.dequantize_int8_kernel,
                 "flash_attention_fwd": fa.flash_attention_fwd,
                 "flash_attention_bwd": fa.flash_attention_bwd,
-                "fused_adam": fused_adam_step}
+                "fused_adam": fused_adam_step,
+                "layer_norm": N.layer_norm_kernel}
     for fn in counters.values():
         fn.launches = 0
     losses, step_s = [], []
@@ -1954,7 +2221,8 @@ def path_z_run(dev, config, size, steps, seq, check):
         peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
                          if cuda else None),
         losses=losses, grad_norm=engine.get_global_grad_norm(),
-        launches=launches,
+        launches=launches, norm_launches_per_micro=norm_launches_per_micro(
+            model.config),
         launches_per_step={k: v / steps for k, v in launches.items()},
         shard_numel=sum(t.numel()
                         for t in engine.master_state_dict().values()))
@@ -2113,12 +2381,92 @@ def path_z_main(dev, size="125m", steps=10, seq=1024, timeout=900):
         if not (check["gather_bit_equal"] and check["reduce_bit_equal"]):
             raise AssertionError(f"Path Z rank {r} kernels vs plain: "
                                  f"{check}")
-    want = stats["expected_launches_per_step"]
-    got = q["launches_per_step"]
-    if dev.type == "cuda" and any(
-            got[k] != want[k] for k in ("quantize_int8", "dequantize_int8")):
-        raise AssertionError(f"Path Z launches per step {got} != {want}")
+    want = dict(stats["expected_launches_per_step"],
+                layer_norm=q["norm_launches_per_micro"])
+    for r in range(PATH_Z_WORLD):
+        for wire in ("quantized", "exact"):
+            got = results[r][wire]["launches_per_step"]
+            keys = (("quantize_int8", "dequantize_int8", "layer_norm")
+                    if wire == "quantized" else ("layer_norm",))
+            if dev.type == "cuda" and any(got[k] != want[k] for k in keys):
+                raise AssertionError(f"Path Z rank {r} {wire} launches per "
+                                     f"step {got} != {want}")
     return stats
+
+
+# ------------------------------------------- phase 15, every remat policy
+def remat_policies_main(dev, size="125m", steps=3, seq=1024):
+    """Phase 15: phase 6's train_batch (GPT-2 125M, 24 x 1024 tokens,
+    bf16, FusedAdam with the fused kernel, ZeRO 2, flash attention) under
+    each of REMAT_RUNS (None: remat=False) from the same seeded weights,
+    one warm-up step then ``steps`` timed steps on one batch: step ms
+    (host clock up to a synchronize), peak memory, the loss per step, and
+    the norm and flash-forward launches a step. Fails if the losses are
+    not finite and falling, if a run's losses leave the segments run's by
+    more than bf16 noise (5e-3 relative; the policies' fp32 parity is held
+    on the CPU in tests/test_torch_remat.py), or (on the card) if the norm
+    launches differ from ``norm_launches_per_micro``."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    runs, init, batch = {}, None, None
+    cuda = dev.type == "cuda"
+    for policy in REMAT_RUNS:
+        model = GPT2(size=size, vocab_size=50304, attn_impl="flash",
+                     device=dev, remat=policy is not None,
+                     remat_policy=policy or "segments")
+        engine, *_ = ds.initialize(model=model, config=TRAIN_CONFIG,
+                                   model_parameters=init)
+        c = model.config
+        if init is None:
+            init = {n: t.clone() for n, t in
+                    engine.master_state_dict().items()}
+            batch = train_batch_of(dev, c.vocab_size,
+                                   engine.train_batch_size_, seq, seed=12)
+        engine.train_batch(batch)                              # warm-up
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        norms = norm_counter(c)
+        norms.launches = 0
+        fa.flash_attention_fwd.launches = 0
+        losses, step_s = [], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            losses.append(engine.train_batch(batch))
+            if cuda:
+                torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+        name = policy or "remat_off"
+        runs[name] = dict(
+            step_ms=1e3 * sum(step_s) / steps,
+            step_ms_min=1e3 * min(step_s), step_ms_max=1e3 * max(step_s),
+            peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                             if cuda else None),
+            losses=[float(x) for x in losses],
+            norm_launches_per_step=norms.launches / steps,
+            expected_norm_launches_per_step=norm_launches_per_micro(c),
+            flash_fwd_launches_per_step=fa.flash_attention_fwd.launches
+            / steps)
+        log(f"[remat] {name}: {json.dumps(runs[name])}")
+        del engine, model
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    ref = runs["segments"]["losses"]
+    for name, r in runs.items():
+        losses = r["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"remat {name}: losses not finite and "
+                                 f"falling: {losses}")
+        if max(abs(a - b) / abs(b) for a, b in zip(losses, ref)) > 5e-3:
+            raise AssertionError(f"remat {name}: losses {losses} vs "
+                                 f"segments {ref}")
+        if cuda and r["norm_launches_per_step"] != \
+                r["expected_norm_launches_per_step"]:
+            raise AssertionError(f"remat {name}: norm launches {r}")
+    return runs
 
 
 # --------------------------------------------------------- --profile
@@ -2129,6 +2477,7 @@ PROFILE_KINDS = {
     "fused_adam": ("fused_adam_kernel",),
     "fused_lion": ("fused_lion_kernel",),
     "block_sparse_attention": ("bs_fwd_kernel", "bs_bwd_"),
+    "norms": ("norm_kernel",),
     "gemm": ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas"),
     "reduction": ("reduce_kernel",),
     "copy": ("copy", "Memcpy", "Memset", "cat"),
@@ -2255,6 +2604,7 @@ def main(argv=None) -> int:
     sparse_errs = sparse_checks(dev)
     path_times = path_kernel_times(dev, adam_numel, flush)
     zeropp_times = zeropp_kernel_times(dev, flush)
+    norm_errs, norm_times = norm_checks(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -2299,6 +2649,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path_z = path_z_main(dev)                                 # phases 13-14
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = remat_policies_main(dev)                          # phase 15
 
     def entry(name, kernel, launches, max_abs_err, t, **extra):
         return {"name": name, "route": "cuda",
@@ -2449,6 +2802,35 @@ def main(argv=None) -> int:
             shape="[25152, 768] bf16 (embed/tokens split in two)",
             shard_set=rec["shard_set"],
             main_path_bit_equal=path_z["kernel_vs_plain"]))
+    norm_tol = "1 bf16 ulp of the plain result; fp32 1e-6 + 2 ulps"
+    for name, launches, tick in (
+            ("rms_norm", stats["norm_launches"]
+             - stats["decode_norm_launches"], "prefill and mixed ticks"),
+            ("rms_norm_decode", stats["decode_norm_launches"],
+             "decode ticks")):
+        rec = norm_times[name]
+        kernels.append(entry(
+            name, "norms", launches, rec["max_abs_err"], rec,
+            tol=norm_tol, max_ulps=rec["max_ulps"],
+            library="torch.nn.functional.rms_norm",
+            library_max_ulps=rec["library_max_ulps"],
+            main_path=f"serving, {tick} (2L + 1 a forward)",
+            shape=f"{rec['shape']} bf16",
+            serving_launches=stats["norm_launches"],
+            path_q_launches=path_q["norm_launches"],
+            cases_max_err={"/".join(k): v for k, v in norm_errs.items()
+                           if k[0] == "rms"}, cases=NORM_NOTE))
+    kernels.append(entry(
+        "layer_norm", "norms", train["launches"]["layer_norm"],
+        norm_times["layer_norm"]["max_abs_err"], norm_times["layer_norm"],
+        tol=norm_tol, max_ulps=norm_times["layer_norm"]["max_ulps"],
+        library="torch.nn.functional.layer_norm",
+        library_max_ulps=norm_times["layer_norm"]["library_max_ulps"],
+        main_path="training (4L + 1 a micro-batch under segments)",
+        shape="[24576, 768] bf16 (train_batch)",
+        path_t_launches=path_t["launches"]["layer_norm"],
+        cases_max_err={"/".join(k): v for k, v in norm_errs.items()
+                       if k[0] == "layer"}, cases=NORM_NOTE))
     log(f"[main] serving {json.dumps(stats)} on {card}")
     log(f"[main] Path Q {json.dumps(path_q)} on {card}")
     log(f"[main] Path Q kernels vs plain {json.dumps(q_rels)}")
@@ -2458,6 +2840,7 @@ def main(argv=None) -> int:
     log(f"[main] Path T kernels vs plain {json.dumps(path_t_parity)}")
     log(f"[main] Path P {json.dumps(path_p)} on {card}")
     log(f"[main] Path Z {json.dumps(path_z)} on {card}")
+    log(f"[main] remat policies {json.dumps(remat)} on {card}")
     left = live_children()
     if left:
         raise AssertionError(f"processes still running: {left}")

@@ -79,34 +79,103 @@ class KVCacheConfig(DeepSpeedConfigModel):
 
 
 @dataclasses.dataclass
+class GraftsanConfig(DeepSpeedConfigModel):
+    """The JAX block's fields (KV-block accounting and thread-affinity
+    sanitizers); not ported yet, accepted at its defaults."""
+    enabled: bool = False
+    blocksan: bool = True
+    thread_affinity: bool = True
+    mode: str = "raise"
+    journal_size: int = 512
+
+
+@dataclasses.dataclass
+class InferenceMeshsanConfig(DeepSpeedConfigModel):
+    """The JAX block's fields (mesh-traffic sanitizer); not ported yet,
+    accepted at its defaults."""
+    enabled: bool = False
+    mode: str = "raise"
+    axes: Optional[list] = None
+
+
+@dataclasses.dataclass
+class InferenceNumsanConfig(DeepSpeedConfigModel):
+    """The JAX block's fields (numerics sanitizer); not ported yet,
+    accepted at its defaults."""
+    enabled: bool = False
+    mode: str = "raise"
+    logits_limit: float = 1e4
+    probe_interval: int = 16
+    kv_scale_probe: bool = True
+    saturation_ceiling: float = 0.05
+    saturation_probe: bool = True
+
+
+@dataclasses.dataclass
 class RaggedInferenceEngineConfig(DeepSpeedInferenceConfig):
     """reference: inference/v2/config_v2.py RaggedInferenceEngineConfig —
-    the fields this slice serves with, plus the feature switches it
-    refuses."""
+    every field of the JAX config with its default: the ones this port
+    serves with, and the switches of features it does not have yet, which
+    ``_refuse_unported`` refuses away from their defaults."""
     kv_block_size: int = 64
     num_kv_blocks: int = 256
     max_ragged_sequence_count: int = 32
     max_chunk_size: int = 256             # prefill chunk (SplitFuse budget)
+    # the fused decode loops' depth and in-graph sampling (JAX defaults)
+    fused_decode_steps: int = 8
+    sampling_temperature: float = 0.0
+    sampling_top_k: int = 0
+    sampling_top_p: float = 0.0
     eos_token_id: Optional[int] = None
+    max_inflight_dispatches: int = 2
     fused_admission: bool = False
+    sentinels: bool = False
+    sentinel_mode: str = "raise"
     kv_cache: KVCacheConfig = dataclasses.field(
         default_factory=KVCacheConfig)
     prefix_cache: PrefixCacheConfig = dataclasses.field(
         default_factory=PrefixCacheConfig)
     speculative: SpeculativeConfig = dataclasses.field(
         default_factory=SpeculativeConfig)
+    graftsan: GraftsanConfig = dataclasses.field(
+        default_factory=GraftsanConfig)
+    meshsan: InferenceMeshsanConfig = dataclasses.field(
+        default_factory=InferenceMeshsanConfig)
+    numsan: InferenceNumsanConfig = dataclasses.field(
+        default_factory=InferenceNumsanConfig)
+
+
+def _off_default(config, names) -> str | None:
+    """The first of ``names`` whose value differs from its default."""
+    defaults = RaggedInferenceEngineConfig()
+    for name in names:
+        if getattr(config, name) != getattr(defaults, name):
+            return f"{name}={getattr(config, name)!r}"
+    return None
 
 
 def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
     """Raise on every configured feature this slice does not implement,
     naming its ROADMAP item, instead of serving something else."""
+    for names, item in (
+            (("sampling_temperature", "sampling_top_k", "sampling_top_p"),
+             "item 5, sampling"),
+            (("fused_decode_steps", "max_inflight_dispatches"),
+             "item 6, fused decode loops"),
+            (("sentinels", "sentinel_mode", "graftsan", "meshsan", "numsan"),
+             "item 15, sanitizers (Slice G)")):
+        what = _off_default(config, names)
+        if what is not None:
+            raise NotImplementedError(
+                f"{what} is not ported to deepspeed_tpu_torch yet "
+                f"(ROADMAP.md, port Queue 1: {item})")
     unported = [
         (config.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1",
          "tensor-parallel serving"),
         (config.speculative.enabled, "speculative.enabled",
          "speculative decoding"),
         (config.fused_admission, "fused_admission",
-         "fused decode loops and sampling"),
+         "item 6, fused decode loops and sampling"),
         (config.quantize_weights, "quantize_weights",
          "weight-only int8 serving"),
         (config.quantize_moe_experts, "quantize_moe_experts", "MoE serving"),

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ...ops import op_builder
+from ...ops.norms import plain_norms
 from ...ops.quantization import KV_STORE_DTYPES, kv_dequantize, kv_quantize
 
 _KERNEL_DIMS = (16, 32, 64, 128)
@@ -321,7 +322,17 @@ def paged_forward(model, pools: dict, tokens: torch.Tensor,
     (token, head) vector is quantized once, at its pool write, with its
     own scale, so a block's bytes depend only on the tokens written
     through it; a token's own chunk attends to its exact k/v.
+
+    Norms: the kernel of ``ops/norms.py`` on CUDA; ``use_kernel=False``
+    takes their plain versions as well, so that pass is plain throughout.
     """
+    with plain_norms(not use_kernel):
+        return _paged_layers(model, pools, tokens, pos0, block_tables,
+                             true_len, use_kernel, attention)
+
+
+def _paged_layers(model, pools, tokens, pos0, block_tables, true_len,
+                  use_kernel, attention):
     b, s = tokens.shape
     dev = tokens.device
     ar = torch.arange(s, device=dev)

@@ -15,9 +15,17 @@ Training: :meth:`DecoderLM.loss` is the mean token cross-entropy of
 never forms the [B, S, V] logits; ``attn_impl="flash"`` runs attention
 through the flash-attention kernels (``ops/flash_attention.py``). Under
 autograd the layers are rematerialised with ``torch.utils.checkpoint``
-per ``remat_policy``: ``"nothing_saveable"`` checkpoints each whole block,
-as the JAX layer scan does; ``"segments"`` keeps attention outside any
+per ``remat_policy``, the names the JAX ``_remat_policy`` turns into a
+working policy (:data:`REMAT_POLICIES`): the stock ``jax.checkpoint_policies``
+names checkpoint each whole block, as the JAX layer scan does, with a
+selective policy over the matmul ops for the dot policies;
+``"save_attn_ffn"`` keeps JAX's named tensors (qkv, attn_out, ffn) at
+segment boundaries; ``"segments"`` keeps attention outside any
 checkpoint, so its backward never reruns the forward kernel.
+
+Norms run through ``ops/norms.py``: the hand-written kernel on CUDA (one
+launch per norm, re-launched wherever a checkpoint recomputes it), the
+plain version on the CPU or inside ``ops.norms.plain_norms()``.
 """
 
 from __future__ import annotations
@@ -27,11 +35,22 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import layers as L
+from ..ops import norms as N
 from ..ops.flash_attention import flash_attention
+from ..runtime.activation_checkpointing.checkpointing import (
+    STOCK_POLICIES, remat)
 from ..utils.device import resolve_device
 from .base import ModelConfig
 
-REMAT_POLICIES = ("nothing_saveable", "segments")
+# every name the JAX _remat_policy turns into a working policy
+REMAT_POLICIES = (*STOCK_POLICIES, "save_attn_ffn", "segments")
+# jax.checkpoint_policies factories: the JAX model passes one as the policy
+# itself, which fails with TypeError when its first step is traced
+POLICY_FACTORIES = ("save_only_these_names", "save_any_names_but_these",
+                    "save_anything_except_these_names",
+                    "save_and_offload_only_these_names",
+                    "save_from_both_policies",
+                    "offload_dot_with_no_batch_dims")
 
 _STD = 0.02
 
@@ -153,8 +172,8 @@ class DecoderLM(nn.Module):
     # ---------------- pieces (reused by the paged forward) --------------
     def _norm(self, x, scale, bias=None):
         if self.config.norm_type == "rmsnorm":
-            return L.rms_norm(x, scale, self.config.norm_eps)
-        return L.layer_norm(x, scale, bias, self.config.norm_eps)
+            return N.rms_norm(x, scale, self.config.norm_eps)
+        return N.layer_norm(x, scale, bias, self.config.norm_eps)
 
     def embed(self, tokens: torch.Tensor,
               positions: torch.Tensor | None = None) -> torch.Tensor:
@@ -170,7 +189,7 @@ class DecoderLM(nn.Module):
                                          device=tokens.device)[None, :]
             x = x + self.params["embed/positions"][positions]
         if c.embed_layernorm:
-            x = L.layer_norm(x, self.params["embed/ln_scale"],
+            x = N.layer_norm(x, self.params["embed/ln_scale"],
                              self.params["embed/ln_bias"], c.norm_eps)
         return x
 
@@ -210,6 +229,11 @@ class DecoderLM(nn.Module):
 
     def _mlp(self, p: dict, h: torch.Tensor) -> torch.Tensor:
         """Dense FFN."""
+        return self._mlp_down(p, self._mlp_hidden(p, h))
+
+    def _mlp_hidden(self, p: dict, h: torch.Tensor) -> torch.Tensor:
+        """The FFN's activation (JAX's checkpoint name "ffn"): the input
+        of the down projection."""
         c = self.config
         mlp_bias = c.effective_mlp_bias
         if c.activation == "swiglu":
@@ -218,14 +242,15 @@ class DecoderLM(nn.Module):
             if mlp_bias:
                 gate = gate + p["w_gate_b"]
                 up = up + p["w_up_b"]
-            m = L.silu(gate) * up
-        else:
-            up = h @ p["w_up"]
-            if mlp_bias:
-                up = up + p["w_up_b"]
-            m = torch.relu(up) if c.activation == "relu" else L.gelu(up)
-        m = m @ p["w_down"]
+            return L.silu(gate) * up
+        up = h @ p["w_up"]
         if mlp_bias:
+            up = up + p["w_up_b"]
+        return torch.relu(up) if c.activation == "relu" else L.gelu(up)
+
+    def _mlp_down(self, p: dict, m: torch.Tensor) -> torch.Tensor:
+        m = m @ p["w_down"]
+        if self.config.effective_mlp_bias:
             m = m + p["w_down_b"]
         return m
 
@@ -302,6 +327,52 @@ class DecoderLM(nn.Module):
         x = x + self._attn_out(p, a)
         return checkpoint(self._mlp_residual, p, x, use_reentrant=False)
 
+    def _block_save_attn_ffn(self, p: dict, x: torch.Tensor,
+                             positions: torch.Tensor | None = None):
+        """``save_attn_ffn`` (JAX ``save_only_these_names("qkv",
+        "attn_out", "ffn")`` around the block): a layer keeps its input,
+        q/k/v, the attention output and the FFN activation ("ffn", the
+        input of the down projection), each at a checkpoint boundary, and
+        its backward recomputes the rest:
+
+        - norm + qkv projection, checkpointed: the backward reruns the
+          norm and the projections before the segment's last (torch's
+          checkpoint reruns a segment in order until the last tensor its
+          backward needs exists; JAX's partial evaluation drops the
+          projections, whose outputs it saves);
+        - attention, checkpointed on q/k/v: the backward reruns its
+          forward (the O(S^2) scores; the flash forward kernel, as JAX
+          reruns the custom-VJP forward rule under remat);
+        - the output projection, the residual, the second norm, the up
+          projection and the activation, checkpointed on the block input
+          and the attention output; the down projection outside keeps
+          "ffn".
+        """
+        c = self.config
+
+        def seg_qkv(x):
+            h = self._norm(x, p["ln1_scale"], p.get("ln1_bias"))
+            return self._qkv(p, h, positions)
+
+        q, k, v = checkpoint(seg_qkv, x, use_reentrant=False)
+        a = checkpoint(self._attention, q, k, v, use_reentrant=False)
+        if c.parallel_residual:
+            def seg_ffn(x):
+                h = (None if c.parallel_dual_norm else
+                     self._norm(x, p["ln1_scale"], p.get("ln1_bias")))
+                return self._mlp_hidden(p, self._parallel_mlp_input(p, x, h))
+
+            m = checkpoint(seg_ffn, x, use_reentrant=False)
+            return x + self._attn_out(p, a) + self._mlp_down(p, m)
+
+        def seg_ffn(x, a):
+            x = x + self._attn_out(p, a)
+            h = self._norm(x, p["ln2_scale"], p.get("ln2_bias"))
+            return x, self._mlp_hidden(p, h)
+
+        x, m = checkpoint(seg_ffn, x, a, use_reentrant=False)
+        return x + self._mlp_down(p, m)
+
     def _layer_stacks(self) -> dict[str, tuple[torch.Tensor, ...]]:
         """Per-layer views of every stacked parameter, one ``unbind`` per
         stack: its backward stacks the layers' grads in one pass."""
@@ -314,18 +385,20 @@ class DecoderLM(nn.Module):
         norm; under autograd each layer is rematerialised per
         ``remat_policy``."""
         c = self.config
-        remat = c.remat and torch.is_grad_enabled()
+        recompute = c.remat and torch.is_grad_enabled()
         x = self.embed(tokens, positions)
         stacks = self._layer_stacks()
         for layer in range(c.num_layers):
             p = {k: v[layer] for k, v in stacks.items()}
-            if not remat:
+            if not recompute:
                 x = self.block(p, x, positions)
             elif c.remat_policy == "segments":
                 x = self._block_segmented(p, x, positions)
+            elif c.remat_policy == "save_attn_ffn":
+                x = self._block_save_attn_ffn(p, x, positions)
             else:
-                x = checkpoint(self.block, p, x, positions,
-                               use_reentrant=False)
+                x = remat(self.block, p, x, positions,
+                          policy=c.remat_policy)
         return x
 
     def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
@@ -356,19 +429,27 @@ class DecoderLM(nn.Module):
         """Mean token cross-entropy (fp32) of ``batch``: a
         ``(tokens, targets)`` pair or a dict with those keys, each [B, S].
         Dense models add no router loss (the JAX aux term is 0)."""
+        nll, count = self.loss_terms(batch)
+        return nll / torch.clamp(count, min=1)
+
+    def loss_terms(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """The loss as (summed fp32 NLL, count of valid targets), -100
+        targets masked: a caller that splits a batch divides the sum by
+        the count of the whole batch (the engine across ranks)."""
         tokens, targets = _unpack_batch(batch)
         if self.config.loss_chunk > 0:
             return self._chunked_loss(tokens, targets)
-        return L.cross_entropy_loss(self.apply(tokens), targets)
+        return L.cross_entropy_terms(self.apply(tokens), targets)
 
-    def _chunked_loss(self, tokens, targets) -> torch.Tensor:
+    def _chunked_loss(self, tokens, targets):
         """Chunked cross-entropy (JAX ``_chunked_loss``): the final-normed
         hidden states are cut into sequence chunks of ``loss_chunk``; per
         chunk the vocab projection and the fp32 logsumexp/NLL run under
         ``torch.utils.checkpoint``, so only one [B, chunk, V] slab of
         logits lives at a time and the backward recomputes it. The loss
         is the summed NLL over the summed count of valid targets (-100
-        masked), not a mean of per-chunk means."""
+        masked), not a mean of per-chunk means; returned as the (sum,
+        count) pair of :meth:`loss_terms`."""
         c = self.config
         x = self._final_norm(self.final_hidden(tokens))
         w = self._vocab_weight()
@@ -388,16 +469,23 @@ class DecoderLM(nn.Module):
                        if torch.is_grad_enabled() else _chunk_nll(*args))
             nll = nll + part
             count = count + n
-        return nll / torch.clamp(count, min=1)
+        return nll, count
 
 
 def check_training_options(c: ModelConfig) -> None:
-    """Refuse the training options the port does not have yet."""
-    if c.remat and c.remat_policy not in REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat_policy {c.remat_policy!r} is not ported yet (ROADMAP: "
-            f"port Queue 1, remaining remat policies); ported: "
-            f"{REMAT_POLICIES} or remat=False")
+    """Refuse the remat policies the JAX model cannot run either: a
+    ``jax.checkpoint_policies`` factory name (TypeError, as the JAX step
+    raises when it is traced) or an unknown name (ValueError; JAX raises
+    AttributeError)."""
+    if not c.remat or c.remat_policy in REMAT_POLICIES:
+        return
+    if c.remat_policy in POLICY_FACTORIES:
+        raise TypeError(
+            f"remat_policy {c.remat_policy!r} is a jax.checkpoint_policies "
+            f"factory that takes arguments, not a policy; the JAX model "
+            f"fails on it too. Use one of {REMAT_POLICIES} or remat=False")
+    raise ValueError(f"unknown remat_policy {c.remat_policy!r}; use one of "
+                     f"{REMAT_POLICIES} or remat=False")
 
 
 def _chunk_nll(x, targets, w, bias, ignore_index: int = -100):

@@ -120,12 +120,11 @@ def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
     return out.to(q.dtype)
 
 
-def cross_entropy_loss(logits, targets, *, ignore_index: int = -100,
-                       z_loss: float = 0.0):
-    """Mean token cross-entropy in fp32 with optional z-loss.
-
-    logits: [..., V]; targets: [...] integer. Tokens equal to
-    ``ignore_index`` are masked out of the mean."""
+def cross_entropy_terms(logits, targets, *, ignore_index: int = -100,
+                        z_loss: float = 0.0):
+    """(summed fp32 token NLL, count of valid targets) with optional
+    z-loss. logits: [..., V]; targets: [...] integer. Tokens equal to
+    ``ignore_index`` are left out of both."""
     logits = logits.float()
     valid = targets != ignore_index
     safe_targets = torch.where(valid, targets, torch.zeros_like(targets))
@@ -136,5 +135,15 @@ def cross_entropy_loss(logits, targets, *, ignore_index: int = -100,
     if z_loss > 0.0:
         nll = nll + z_loss * lse.square()
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    count = torch.clamp(valid.sum(), min=1)
-    return nll.sum() / count
+    return nll.sum(), valid.sum()
+
+
+def cross_entropy_loss(logits, targets, *, ignore_index: int = -100,
+                       z_loss: float = 0.0):
+    """Mean token cross-entropy in fp32 with optional z-loss.
+
+    logits: [..., V]; targets: [...] integer. Tokens equal to
+    ``ignore_index`` are masked out of the mean."""
+    nll, count = cross_entropy_terms(logits, targets,
+                                     ignore_index=ignore_index, z_loss=z_loss)
+    return nll / torch.clamp(count, min=1)

@@ -112,9 +112,12 @@ class SchedulerConfig(DeepSpeedConfigModel):
 
 @dataclasses.dataclass
 class ActivationCheckpointingConfig(DeepSpeedConfigModel):
-    """``policy`` set explicitly overrides the model's ``remat_policy``
-    (``"none"`` turns remat off), as in the JAX engine. The other fields
-    belong to ``activation_checkpointing/`` (ROADMAP Queue 1, Slice F)."""
+    """The JAX block's fields. ``policy`` set explicitly overrides the
+    model's ``remat_policy`` (``"none"`` turns remat off), as in the JAX
+    engine; the other fields configure
+    ``runtime/activation_checkpointing/checkpointing.py`` (``configure``),
+    which reads ``partition_activations``, ``cpu_checkpointing``,
+    ``number_checkpoints`` and ``profile`` as the JAX module does."""
     partition_activations: bool = False
     cpu_checkpointing: bool = False
     contiguous_memory_optimization: bool = False
@@ -122,14 +125,6 @@ class ActivationCheckpointingConfig(DeepSpeedConfigModel):
     synchronize_checkpoint_boundary: bool = False
     profile: bool = False
     policy: str = "nothing_saveable"
-
-    def __post_init__(self):
-        super().__post_init__()
-        _refuse_non_defaults("activation_checkpointing", {
-            f.name: getattr(self, f.name) for f in dataclasses.fields(self)
-            if f.name != "policy"}, {
-            f.name: f.default for f in dataclasses.fields(self)
-            if f.name != "policy"}, "Slice F (activation_checkpointing/)")
 
 
 _MONITOR = {"enabled": False, "output_path": "",

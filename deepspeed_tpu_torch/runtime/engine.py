@@ -40,9 +40,17 @@ shards (qgZ or exact) as stage 2 does; at stage < 2 a rank accumulates
 its full local grads and reduces them once at the gradient-accumulation
 boundary, as the JAX triple defers them (``_defer_grads_ok``). The
 global grad norm all-reduces the split leaves' sum of squares and counts
-each replicated leaf once; the loss is all-reduced to the global mean;
-after the update, stages 1-2 all-gather the new compute-dtype shards
-into the replicated parameters.
+each replicated leaf once; after the update, stages 1-2 all-gather the
+new compute-dtype shards into the replicated parameters.
+
+The loss across ranks follows the JAX step's wire. On the exact wire JAX
+differentiates the mean over every valid target of the global
+micro-batch, so each rank divides its summed NLL by the count of valid
+targets over all ranks (all-reduced in the forward) and the ranks' grads
+are summed. On the ZeRO++ wire (qwZ or qgZ) JAX ``pmean``s the per-shard
+means (``runtime/zeropp.py:213-236``), so each rank takes the mean over
+its own rows and the grads are averaged over the ranks. Either way the
+loss a rank returns is the global one.
 """
 
 from __future__ import annotations
@@ -302,7 +310,16 @@ class DeepSpeedEngine:
         return reduce_grads(grads, dims, n_batch=self.dp_world,
                             quantize_gradients=quantized,
                             rounding=self.zero.rounding,
-                            step=self.global_steps, group=self.group)
+                            step=self.global_steps, group=self.group,
+                            mean=self._per_rank_mean)
+
+    @property
+    def _per_rank_mean(self) -> bool:
+        """The ZeRO++ wire: each rank's loss is the mean over its own rows,
+        and the grads are averaged over the ranks (JAX ``pmean``s the
+        per-shard means there); the exact wire weights each rank by the
+        global count of valid targets instead."""
+        return self.zero.quantize_weights or self.zero.quantize_gradients
 
     def _local_rows(self, batch):
         """This rank's contiguous 1/W of the rows of every array."""
@@ -316,10 +333,28 @@ class DeepSpeedEngine:
         return self._micro(batch, self.dp_rank, k)
 
     def _micro_loss(self, micro):
-        """The local mean loss of this rank's rows of one micro-batch,
-        with stage 3's parameters gathered for its forward."""
+        """The loss of one global micro-batch from this rank's rows, with
+        stage 3's parameters gathered for its forward. Its value is the
+        global loss; its gradient is this rank's share, which the
+        reduction sums (exact wire: the local NLL sum over the global count
+        of valid targets) or averages (ZeRO++ wire: the local mean)."""
         self._gather()
-        return self.module.loss(self._local_rows(micro))
+        local = self._local_rows(micro)
+        if self.dp_world == 1:
+            return self.module.loss(local)
+        if self._per_rank_mean:
+            loss = self.module.loss(local)
+            total = comm.all_reduce(loss.detach().clone(),
+                                    comm.ReduceOp.AVG, self.group)
+        else:
+            nll, count = self.module.loss_terms(local)
+            sums = comm.all_reduce(
+                torch.stack((nll.detach(), count.to(nll.dtype))),
+                group=self.group)
+            loss = nll / torch.clamp(sums[1], min=1)
+            total = sums[0] / torch.clamp(sums[1], min=1)
+        # the global value, with the gradient of this rank's share
+        return loss + (total - loss.detach())
 
     def _flops_per_sample(self):
         s = self.model_config.max_seq_len
@@ -412,8 +447,7 @@ class DeepSpeedEngine:
         self._refresh_replicas()
         overflow = (~finite if finite is not None
                     else torch.zeros((), dtype=torch.bool, device=self.device))
-        loss = comm.all_reduce(torch.stack(losses).mean(), comm.ReduceOp.AVG,
-                               self.group)
+        loss = torch.stack(losses).mean()
         metrics = {"loss": loss, "grad_norm": grad_norm,
                    "loss_scale": self._loss_scale.scale, "overflow": overflow}
         self.global_steps += 1
@@ -493,14 +527,15 @@ class DeepSpeedEngine:
         with torch.no_grad():
             loss = self._micro_loss(self._put_batch(batch))
             self._release()
-        return comm.all_reduce(loss, comm.ReduceOp.AVG, self.group)
+        return loss
 
     # --- forward/backward/step (JAX engine.py:1193-1418) ---------------
     def forward(self, batch):
         """The loss of one micro-batch (reference: engine.forward), with
         its autograd graph, which ``backward`` consumes. Across ranks
         ``batch`` is the global micro-batch (train_batch_size / GA rows)
-        and the loss is this rank's local mean. JAX recomputes the
+        and the loss is the global micro-batch's (see the module
+        docstring for the gradient each rank keeps). JAX recomputes the
         graph in ``backward``; the numbers are the same. The engine holds
         only the latest loss (for ``backward(None)``), so the graph of a
         ``forward`` that no ``backward`` consumed is freed by the next

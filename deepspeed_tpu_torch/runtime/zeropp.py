@@ -17,8 +17,12 @@ eagerly on ``torch.distributed``:
   ``runtime/comm/coalesced_collectives.quantized_reduce_scatter``) for a
   gradient of at least ``4 * MIN_QUANT_SIZE`` elements when
   ``zero_quantized_gradients`` is on, else exactly; a leaf with no split
-  dim is all-reduced over the batch ranks. Every gradient is then divided
-  by the number of batch ranks (the loss is each rank's local mean).
+  dim is all-reduced over the batch ranks. With ``mean`` every gradient is
+  then divided by the number of batch ranks: on the ZeRO++ wire each
+  rank's loss is the mean over its own rows, as JAX ``pmean``s the
+  per-shard means there (``runtime/zeropp.py:213-236``). On the exact
+  wire each rank's loss is its NLL sum over the global count of valid
+  targets, JAX's mean over the global batch, and the sum is the answer.
 
 The wire applies to the pure sharded-DP meshes (tp = sp = pp = ep = 1),
 the only ones the port runs (``parallel/mesh.py``).
@@ -54,9 +58,10 @@ def _gather_param(x: torch.Tensor, dim: Optional[int], quantized: bool,
 
 def _reduce_grad(g: torch.Tensor, dim: Optional[int], n_batch: int,
                  quantized: bool, group=None, rounding: str = "nearest",
-                 generator=None, use_kernel=None) -> torch.Tensor:
+                 generator=None, use_kernel=None,
+                 mean: bool = True) -> torch.Tensor:
     """This rank's fp32 shard (split on ``dim``) of the batch ranks' mean
-    of the full-size local gradient ``g``."""
+    (``mean``) or sum of the full-size local gradient ``g``."""
     if dim is not None:
         if quantized and g.numel() >= MIN_QUANT_SIZE * 4:
             g = quantized_reduce_scatter(
@@ -66,7 +71,7 @@ def _reduce_grad(g: torch.Tensor, dim: Optional[int], n_batch: int,
             g = comm.reduce_scatter(g.float(), group=group, axis=dim)
     elif n_batch > 1:
         g = comm.all_reduce(g.float().clone(), group=group)
-    return g.float() / n_batch
+    return g.float() / n_batch if mean else g.float()
 
 
 def gather_params(shards: dict, dims: dict, *, quantize_weights: bool,
@@ -80,7 +85,8 @@ def gather_params(shards: dict, dims: dict, *, quantize_weights: bool,
 
 def reduce_grads(grads: dict, dims: dict, *, n_batch: int,
                  quantize_gradients: bool, rounding: str = "nearest",
-                 step: int = 0, group=None, use_kernel=None) -> dict:
+                 step: int = 0, group=None, use_kernel=None,
+                 mean: bool = True) -> dict:
     """name -> this rank's fp32 gradient shard (``dims``:
     ``ZeroShardingPlan.grad_dims``). Stochastic rounding draws from one
     generator seeded from ``step`` and the rank, shared by the step's
@@ -90,5 +96,5 @@ def reduce_grads(grads: dict, dims: dict, *, n_batch: int,
         first = next(iter(grads.values()))
         gen = wire_generator(step, comm.get_rank(group), first.device)
     return {name: _reduce_grad(g, dims[name], n_batch, quantize_gradients,
-                               group, rounding, gen, use_kernel)
+                               group, rounding, gen, use_kernel, mean)
             for name, g in grads.items()}

@@ -735,3 +735,140 @@ def test_zero3_with_qwz_at_world_size_one_on_the_card(cuda):
     assert runs[0][0] == runs[1][0]
     for name, p in runs[0][1].items():
         assert torch.equal(p, runs[1][1][name]), name
+
+
+# ------------------------------------------------------------------ norms
+NORM_DS = (64, 200, 768, 4096, 5120)
+NORM_ROWS = 37                 # a multiple of no block or warp count
+NORM_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def norm_ulps(got, ref, dtype, bias=None) -> float:
+    """max |got - ref| in units of ``dtype``'s spacing at |ref|, or at
+    |bias| where that is larger: where a LayerNorm's bias add cancels the
+    normalised term to near zero, two correct fp32 results that differ by
+    a few 1e-7 of the terms (the row sums run in another order) are many
+    spacings of the small result apart."""
+    eps = torch.finfo(dtype).eps
+    mag = ref.float().abs()
+    if bias is not None:
+        mag = torch.maximum(mag, bias.float().abs())
+    mag = mag.clamp(min=torch.finfo(dtype).tiny)
+    ulp = eps * torch.exp2(torch.floor(torch.log2(mag)))
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+def _norm_inputs(dev, dtype, d, seed=0, rows=NORM_ROWS):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(rows, d, generator=g) * 2 + 0.5).to(dev, dtype)
+    scale = (torch.randn(d, generator=g) + 1).to(dev)
+    bias = torch.randn(d, generator=g).to(dev)
+    return x, scale, bias
+
+
+@pytest.mark.parametrize("d", NORM_DS)
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_norm_kernels_match_plain(cuda, kind, dtype, d):
+    """Both norm kernels against their plain versions: fp32 at 1e-6 (plus
+    two ulps relative: the row sums run in another order), bf16/fp16
+    within one ulp of the plain result (taken at |bias| where that is
+    larger, norm_ulps); params in fp32 and in x's dtype;
+    a row-major and a transposed (non-contiguous) input. Every call
+    launches the kernel once."""
+    from deepspeed_tpu_torch.ops import layers as L
+    from deepspeed_tpu_torch.ops import norms as N
+    x, scale, bias = _norm_inputs(cuda, dtype, d)
+    xt = x.t().contiguous().t()
+    for pdtype in {torch.float32, dtype}:
+        s, b = scale.to(pdtype), bias.to(pdtype)
+        for inp in (x, xt):
+            if kind == "rms":
+                before = N.rms_norm_kernel.launches
+                got = N.rms_norm_kernel(inp, s)
+                ref = L.rms_norm(inp, s)
+                assert N.rms_norm_kernel.launches == before + 1
+            else:
+                before = N.layer_norm_kernel.launches
+                got = N.layer_norm_kernel(inp, s, b)
+                ref = L.layer_norm(inp, s, b)
+                assert N.layer_norm_kernel.launches == before + 1
+            assert got.dtype == dtype and got.shape == inp.shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, ref, rtol=2.4e-7, atol=1e-6)
+            else:
+                assert norm_ulps(got, ref, dtype,
+                                 b if kind == "layer" else None) <= 1.0
+
+
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_norm_functions_on_the_card(cuda, kind):
+    """The autograd Functions on CUDA tensors: the kernel forward (one
+    launch a call, none in backward) and the closed-form backward against
+    plain autograd, fp32, grads at 1e-5; a large row mean (300) within
+    the fp32 resolution of the mean; empty and 1-element rows."""
+    from deepspeed_tpu_torch.ops import layers as L
+    from deepspeed_tpu_torch.ops import norms as N
+    x, scale, bias = _norm_inputs(cuda, torch.float32, 768, seed=1, rows=50)
+    counter = N.rms_norm_kernel if kind == "rms" else N.layer_norm_kernel
+    fn = ((lambda *a: N.rms_norm(a[0], a[1])) if kind == "rms" else
+          (lambda *a: N.layer_norm(*a)))
+    ref_fn = ((lambda *a: L.rms_norm(a[0], a[1])) if kind == "rms" else
+              (lambda *a: L.layer_norm(*a)))
+    g = torch.randn_like(x)
+    grads = []
+    for f in (fn, ref_fn):
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        before = counter.launches
+        f(*leaves).backward(g)
+        assert counter.launches == before + (f is fn)
+        grads.append([t.grad for t in leaves[:2 if kind == "rms" else 3]])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    big = (x + 300).double()
+    s64, b64 = scale.double(), bias.double()
+    if kind == "rms":
+        want = big * torch.rsqrt(big.square().mean(-1, keepdim=True) + 1e-6)
+        want = want * s64
+    else:
+        c = big - big.mean(-1, keepdim=True)
+        want = c * torch.rsqrt(c.square().mean(-1, keepdim=True) + 1e-5)
+        want = want * s64 + b64
+    got = fn(big.float(), scale, bias)
+    assert float((got.double() - want).abs().max()) <= 5e-4
+    for shape in ((0, 64), (5, 1)):
+        e = torch.randn(shape, device=cuda)
+        p = torch.ones(shape[1], device=cuda)
+        torch.testing.assert_close(fn(e, p, p * 0), ref_fn(e, p, p * 0))
+
+
+def test_norm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from deepspeed_tpu_torch.ops import norms as N
+    x, scale, bias = _norm_inputs(cuda, torch.bfloat16, 64)
+    for bad in (scale[:10], scale.cpu(), scale.to(torch.float16)):
+        with pytest.raises(ValueError):
+            N.rms_norm_kernel(x, bad)
+    with pytest.raises(ValueError, match="dtypes differ"):
+        N.layer_norm_kernel(x, scale, bias.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="dtype"):
+        N.rms_norm_kernel(x.to(torch.float64), scale.double())
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_models_run_the_norm_kernel_on_the_card(cuda, family):
+    """A GPT-2/Llama forward on the card launches its norm kernel 2L + 1
+    times, and none inside plain_norms(); the two forwards agree."""
+    from deepspeed_tpu_torch.models import GPT2, Llama
+    from deepspeed_tpu_torch.ops import norms as N
+    model = (GPT2 if family == "gpt2" else Llama)(size="tiny", device=cuda)
+    model.init_params(torch.Generator(device=cuda).manual_seed(0))
+    counter = N.layer_norm_kernel if family == "gpt2" else N.rms_norm_kernel
+    tokens = torch.arange(32, device=cuda).reshape(2, 16)
+    out = []
+    for plain in (False, True):
+        before = counter.launches
+        with torch.no_grad(), N.plain_norms(plain):
+            out.append(model.apply(tokens))
+        assert counter.launches - before == (
+            0 if plain else 2 * model.config.num_layers + 1)
+    torch.testing.assert_close(out[0], out[1], rtol=1e-4, atol=1e-4)

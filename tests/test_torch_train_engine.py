@@ -118,8 +118,15 @@ def test_remat_policies_match_no_remat(family, policy):
 
 
 def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        GPT2(size="tiny", device="cpu", remat_policy="save_attn_ffn")
+    """Every remat policy the JAX model runs is ported; the names it
+    cannot run are refused (tests/test_torch_remat.py holds them to
+    JAX), and a policy is read only under remat."""
+    GPT2(size="tiny", device="cpu", remat_policy="save_attn_ffn")
+    with pytest.raises(TypeError, match="remat_policy"):
+        GPT2(size="tiny", device="cpu",
+             remat_policy="save_only_these_names")
+    with pytest.raises(ValueError, match="remat_policy"):
+        GPT2(size="tiny", device="cpu", remat_policy="dots")
     GPT2(size="tiny", device="cpu", remat=False, remat_policy="dots")
 
 
@@ -302,7 +309,7 @@ def test_config_accepts_every_jax_block_by_name():
     {"sequence_parallel": {"mode": "ring"}}, {"pipeline": {"stages": 2}},
     {"compression_training": {"weight_quantization": {}}},
     {"hybrid_engine": {"enabled": True}}, {"wall_clock_breakdown": True},
-    {"activation_checkpointing": {"partition_activations": True}},
+    {"flops_profiler": {"enabled": True}},
     {"autotuning": {"enabled": True}}, {"checkpoint": {"async_save": True}}])
 def test_config_refuses_what_is_not_ported(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -462,10 +469,10 @@ def test_engine_api_surface():
         eng.train_batch(_batch(rows=4, seq=8))
     loss = eng.eval_batch(_batch(rows=2, seq=8))
     assert loss.shape == () and not loss.requires_grad
-    with pytest.raises(NotImplementedError, match="remat_policy"):
+    with pytest.raises(TypeError, match="remat_policy"):
         ds.initialize(model=GPT2(size="tiny", device="cpu"), config={
-            "train_batch_size": 2,
-            "activation_checkpointing": {"policy": "dots_saveable"}})
+            "train_batch_size": 2, "activation_checkpointing": {
+                "policy": "offload_dot_with_no_batch_dims"}})
 
 
 # ------------------------------------------------ forward/backward/step

@@ -190,11 +190,37 @@ def test_config_rejects_unknown_keys_and_takes_aliases():
     assert base.torch_dtype == torch.float32 and base.seed == 5
 
 
+# the ROADMAP item a refusal names, by its key (others: the feature name)
+_ITEMS = {"fused_admission": "item 6", "sampling_temperature": "item 5",
+          "sampling_top_k": "item 5", "sampling_top_p": "item 5",
+          "fused_decode_steps": "item 6", "max_inflight_dispatches": "item 6",
+          "sentinels": "item 15", "sentinel_mode": "item 15",
+          "graftsan": "item 15", "meshsan": "item 15", "numsan": "item 15"}
+
+
 @pytest.mark.parametrize("setting", [
     {"tensor_parallel": {"tp_size": 2}}, {"speculative": {"enabled": True}},
     {"fused_admission": True}, {"quantize_weights": True},
-    {"quantize_moe_experts": True}])
+    {"quantize_moe_experts": True}, {"sampling_temperature": 0.7},
+    {"sampling_top_k": 40}, {"sampling_top_p": 0.9},
+    {"fused_decode_steps": 1}, {"max_inflight_dispatches": 3},
+    {"sentinels": True}, {"sentinel_mode": "warn"},
+    {"graftsan": {"enabled": True}}, {"meshsan": {"axes": ["tp"]}},
+    {"numsan": {"logits_limit": 5.0}}])
 def test_unported_features_raise(setting):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         build_engine("llama", "tiny", dict(ENGINE_KW, **setting),
                      device="cpu")
+    assert _ITEMS.get(next(iter(setting)), "") in str(err.value)
+
+
+def test_config_takes_the_jax_dump_at_its_defaults():
+    """Every key of the JAX RaggedInferenceEngineConfig, at the JAX
+    defaults, is accepted, and an engine builds from it; a typo in a
+    nested sanitizer block is still an unknown key."""
+    dump = JConfig().model_dump()
+    cfg = RaggedInferenceEngineConfig.from_dict(dump)
+    assert cfg.fused_decode_steps == 8 and cfg.numsan.probe_interval == 16
+    build_engine("llama", "tiny", dict(dump, **ENGINE_KW), device="cpu")
+    with pytest.raises(ValueError, match="unknown config key"):
+        RaggedInferenceEngineConfig.from_dict({"numsan": {"enabeld": True}})

@@ -56,6 +56,17 @@ def _batch(seed: int, rows: int = 16, seq: int = 16):
     return tok[:, :-1], tok[:, 1:]
 
 
+def _masked_batch(seed: int):
+    """``_batch`` with uneven -100 targets over the ranks: in each
+    micro-batch (8 rows, GA 2) rank 0's rows (its first 4) keep only 2
+    targets a row, rank 1's keep all 16."""
+    tok, tgt = _batch(seed)
+    tgt = tgt.copy()
+    for micro in (0, 8):
+        tgt[micro:micro + 4, 2:] = -100
+    return tok, tgt
+
+
 def base_config(**zero):
     """tests/test_zeropp.py's base_config (batch 16, GA 2, AdamW 1e-3,
     clip 1.0), fp32."""
@@ -199,6 +210,12 @@ ENGINE_CASES = {
 }
 TRIPLE_CASES = {"stage1": {"stage": 1},
                 "qwz_qgz_stochastic": ENGINE_CASES["qwz_qgz_stochastic"]}
+# the exact wire on uneven -100 targets: train_batch, and the triple at
+# stage 3 (the JAX triple takes the global micro-batch's mean at stage >= 2;
+# at stage < 2 it defers per-device grads, a mean of 8 device means)
+UNEVEN_CASES = {"stage2": ({"stage": 2}, False), "stage3": ({"stage": 3},
+                                                           False),
+                "triple_stage3": ({"stage": 3}, True)}
 
 
 def _collective_inputs():
@@ -242,6 +259,7 @@ def _w_engine(zero, tree, batches, triple):
     eng, *_ = ds.initialize(model=GPT2(size="tiny", device="cpu"),
                             config=cfg, model_parameters=tree)
     first = {n: t.clone() for n, t in eng.gathered_params().items()}
+    evals = [float(eng.eval_batch(batches[0]))]
     losses, norms = [], []
     for tokens, targets in batches:
         if triple:
@@ -255,7 +273,9 @@ def _w_engine(zero, tree, batches, triple):
         else:
             losses.append(float(eng.train_batch((tokens, targets))))
         norms.append(eng.get_global_grad_norm())
+    evals.append(float(eng.eval_batch(batches[0])))
     return {"losses": losses, "norms": norms, "first_gather": first,
+            "evals": evals,
             "master": eng.consolidated_master_state_dict(),
             "shard_numel": sum(t.numel()
                                for t in eng.master_state_dict().values())}
@@ -274,6 +294,9 @@ def _rank_main(rank, world, store, inputs_path, out_path):
     for name, zero in data["triple_cases"].items():
         out["triple_" + name] = _w_engine(zero, data["tree"],
                                           data["batches"], True)
+    for name, (zero, triple) in data["uneven_cases"].items():
+        out["uneven_" + name] = _w_engine(zero, data["tree"],
+                                          data["masked_batches"], triple)
     torch.save(out, out_path)
 
 
@@ -291,8 +314,9 @@ def ranks(tmp_path_factory, jax_init):
     torch.save({"collectives": _collective_inputs(),
                 "collective_cases": COLLECTIVE_CASES,
                 "engine_cases": ENGINE_CASES, "triple_cases": TRIPLE_CASES,
-                "tree": jax_init[1],
-                "batches": [_batch(s) for s in range(STEPS)]},
+                "uneven_cases": UNEVEN_CASES, "tree": jax_init[1],
+                "batches": [_batch(s) for s in range(STEPS)],
+                "masked_batches": [_masked_batch(s) for s in range(STEPS)]},
                d / "inputs.pt")
     source = _WORKER_HEADER + "\n\n".join(
         inspect.getsource(f) for f in (_w_collectives, _w_engine,
@@ -402,15 +426,33 @@ def test_collectives_match_jax_shard_map(case, ranks, devices8):
 
 
 # -------------------------------------------------------------- engine
-def _jax_engine(jax_init, zero, steps=STEPS):
+def _jax_engine(jax_init, zero, steps=STEPS, make_batch=_batch,
+                triple=False, evals=None):
+    """The JAX engine on mesh {"dp": 4, "fsdp": 2}: per step train_batch
+    or (``triple``) two forward/backward micro-batches and step(), whose
+    loss is the mean of the two forward losses. ``evals`` (a list) gets
+    eval_batch of the first batch before and after the steps."""
     jm, tree = jax_init
     eng, *_ = jds.initialize(
         model=jm, model_parameters=jax.tree.map(jnp.asarray, tree),
         config=dict(base_config(**zero), mesh={"dp": 4, "fsdp": 2}))
+    if evals is not None:
+        evals.append(float(eng.eval_batch(make_batch(0))))
     losses, norms = [], []
     for s in range(steps):
-        losses.append(float(eng.train_batch(_batch(s))))
+        tokens, targets = make_batch(s)
+        if triple:
+            micro = []
+            for i in (0, 8):
+                micro.append(float(eng((tokens[i:i + 8], targets[i:i + 8]))))
+                eng.backward()
+            eng.step()
+            losses.append(float(np.mean(micro)))
+        else:
+            losses.append(float(eng.train_batch((tokens, targets))))
         norms.append(eng.get_global_grad_norm())
+    if evals is not None:
+        evals.append(float(eng.eval_batch(make_batch(0))))
     from deepspeed_tpu.parallel import mesh
     mesh.reset_topology()
     return losses, norms, flatten_tree(jax.tree.map(np.asarray,
@@ -525,3 +567,28 @@ def test_triple_matches_train_batch_across_ranks(case, ranks):
         for name, p in a["master"].items():
             np.testing.assert_allclose(b["master"][name].numpy(), p.numpy(),
                                        atol=2e-5, rtol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(UNEVEN_CASES))
+def test_uneven_targets_match_jax_engine(case, ranks, jax_init, devices8):
+    """The exact wire with -100 targets spread unevenly over the ranks
+    (rank 0 keeps 2 targets a row, rank 1 all 16): each rank divides its
+    summed NLL by the count of valid targets over both ranks and the
+    grads are summed, as JAX differentiates the mean over every valid
+    target of the global micro-batch. train_batch (stages 2, 3) and the
+    triple (stage 3) against the JAX engine on {"dp": 4, "fsdp": 2}, and
+    eval_batch before and after the steps, at test_engine_matches_jax_
+    engine's tolerances. A mean of the two ranks' means reads the losses
+    6e-3 and the grad norms 2.7 vs 1.7 apart on such batches."""
+    zero, triple = UNEVEN_CASES[case]
+    evals = []
+    jl, jn, jparams = _jax_engine(jax_init, zero, make_batch=_masked_batch,
+                                  triple=triple, evals=evals)
+    start = flatten_tree(jax_init[1])
+    for res in ranks:
+        got = res["uneven_" + case]
+        np.testing.assert_allclose(got["losses"], jl, rtol=1e-5)
+        np.testing.assert_allclose(got["norms"], jn, rtol=1e-4)
+        np.testing.assert_allclose(got["evals"], evals, rtol=1e-5)
+        err, moved = _param_err(got["master"], jparams, start)
+        assert err <= 2e-4 * moved, (err, moved)
