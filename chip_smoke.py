@@ -9,10 +9,13 @@ Phases, each fatal on failure:
      csrc/, one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card (paged
      attention at the serving path's shapes; flash attention forward and
-     backward and fused Adam over a spread of cases), then timed at the
-     main paths' shapes beside its plain version, a PyTorch library call
-     computing the same function, and the card's least time for the work
-     (its bound);
+     backward in fp32, bf16 and fp16 and fused Adam over a spread of
+     cases), then timed at the main paths' shapes beside its plain
+     version, a PyTorch library call computing the same function, and the
+     card's least time for the work (its bound); the flash rows add the
+     kernels' variant (bf16/fp16 on the tensor cores, fp32 on the CUDA
+     cores), TFLOP/s, the share of the bound and the ratio to SDPA, and the
+     build prints their registers, shared memory and spills;
   4. the serving main path at full width: build_engine("llama", "3-8b")
      with random seeded weights serves 8 requests x 32 tokens through
      generate(); every layer of every tick must launch the kernel;
@@ -86,6 +89,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -99,6 +103,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# flash attention also in fp16, at tests/test_torch_cuda.py's 1e-2 (fp16
+# rounds p and ds 8x finer than bf16)
+FLASH_TOL = dict(TOL, float16=1e-2)
 ADAM_TOL = (1e-6, 1e-5)        # atol, rtol: the JAX fused-Adam tolerance
 KERNELS = ("paged_attention", "flash_attention", "fused_adam",
            "fused_lion", "block_sparse_attention", "quantize_int8", "norms")
@@ -885,6 +892,50 @@ def path_q_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
     return out
 
 
+# ------------------------------------------------------------ phase 2
+FLASH_KERNEL = re.compile(r"(flash_[a-z_]+kernel)I(f|13__nv_bfloat16|6__half)"
+                          r"Li(\d+)E")
+FLASH_TYPES = {"f": (0, "fp32"), "13__nv_bfloat16": (1, "bf16"),
+               "6__half": (2, "fp16")}
+
+
+def flash_build_report() -> dict:
+    """Registers, spills (ptxas, from the build log) and the dynamic shared
+    memory a block asks for (ds_flash_attention_smem) of every flash
+    kernel, keyed "kernel dtype D"."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import op_builder
+    lib = fa._kernel()
+    which = {"fwd": 0, "dq": 1, "dkv": 2}
+    report, name = {}, None
+    log_text = op_builder.library_path("flash_attention").with_suffix(
+        ".log").read_text()
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            name = FLASH_KERNEL.search(line)
+            continue
+        if name is None:
+            continue
+        kernel, t, d = name.group(1), *name.group(2, 3)
+        code, tname = FLASH_TYPES[t]
+        key = f"{kernel} {tname} D{d}"
+        rec = report.setdefault(key, {})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            rec.update(spill_stores=int(spill.group(1)),
+                       spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            kind = next(k for k in which if f"_{k}_" in kernel
+                        or kernel.startswith(f"flash_{k}"))
+            rec.update(registers=int(regs.group(1)),
+                       dynamic_smem=lib.ds_flash_attention_smem(
+                           which[kind], code, int(d)))
+            name = None
+    return report
+
+
 # ------------------------------------------------- phase 3, training kernels
 FLASH_CASES = {                       # b, s, hq, hkv, d, causal, window
     "causal_d64": (2, 512, 4, 4, 64, True, None),
@@ -894,10 +945,17 @@ FLASH_CASES = {                       # b, s, hq, hkv, d, causal, window
     "unaligned_s1000": (1, 1000, 4, 2, 64, True, None),
     "causal_d128": (1, 512, 4, 2, 128, True, None),
     "full_gqa_d128": (1, 384, 4, 1, 128, False, None),
+    # the tensor-core kernels' tiling edges
+    "s40": (2, 40, 4, 2, 64, True, None),
+    "s129": (1, 129, 4, 4, 64, True, None),
+    "narrow_window": (1, 300, 4, 2, 64, True, 24),
+    "d16": (2, 200, 4, 2, 16, True, None),
+    "full_d32_s77": (2, 77, 4, 2, 32, False, None),
+    "full_gqa4": (1, 256, 8, 2, 64, False, None),
 }
 MAIN_ATTENTION = dict(b=24, s=1024, hq=12, hkv=12, d=64)   # GPT-2 125M
-CASES_NOTE = ("FLASH_CASES fp32+bf16: causal/full, GQA, window, S=1000, "
-              "D 64/128")
+CASES_NOTE = ("FLASH_CASES fp32+bf16+fp16: causal/full, GQA (rep 2-4), "
+              "window (24-200), S 40/77/129/1000, D 16/32/64/128")
 
 
 def flash_inputs(dev, dtype, b, s, hq, hkv, d, seed=0):
@@ -912,18 +970,22 @@ def flash_inputs(dev, dtype, b, s, hq, hkv, d, seed=0):
             randn(b, s, hq, d))
 
 
+def flash_flops(b, s, hq, d, backward=False):
+    """Operations of one causal call: forward 2, backward 5 matmuls over
+    the S(S+1)/2 visible pairs."""
+    return (10 if backward else 4) * b * hq * (s * (s + 1) // 2) * d
+
+
 def flash_bound(b, s, hq, hkv, d, itemsize, backward=False):
     """Least time (ms) for one causal call: bytes (forward reads q, k, v
     and writes o, lse; backward reads q, k, v, o, do, lse and writes dq,
-    dk, dv) over the memory rate, against the products over the tensor
-    rate of the type (forward 2, backward 5 matmuls over the S(S+1)/2
-    visible pairs); the larger bounds it."""
+    dk, dv) over the memory rate, against flash_flops over the tensor
+    rate of the type; the larger bounds it."""
     qb, kvb, lse = b * s * hq * d * itemsize, b * s * hkv * d * itemsize, \
         b * hq * s * 4
     nbytes = (4 * qb + 4 * kvb + lse) if backward else (2 * qb + 2 * kvb
                                                          + lse)
-    pairs = s * (s + 1) // 2
-    flops = (10 if backward else 4) * b * hq * pairs * d
+    flops = flash_flops(b, s, hq, d, backward)
     rate = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -938,12 +1000,13 @@ def rel_max(got, ref) -> float:
 def flash_checks(dev):
     """Forward and backward kernels against their plain versions (and,
     fp32, the backward against autograd through the plain forward) over
-    FLASH_CASES in fp32 and bf16. Forward o within the dtype's tolerance
-    (abs + rel); grads within it relative to their largest element."""
+    FLASH_CASES in fp32, bf16 and fp16. Forward o within the dtype's
+    tolerance (abs + rel); grads within it relative to their largest
+    element."""
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as fa
     errs = {}
-    for dtype_name, tol in TOL.items():
+    for dtype_name, tol in FLASH_TOL.items():
         dtype = getattr(torch, dtype_name)
         for name, (b, s, hq, hkv, d, causal, window) in FLASH_CASES.items():
             q, k, v, do = flash_inputs(dev, dtype, b, s, hq, hkv, d, seed=1)
@@ -1026,7 +1089,8 @@ def flash_main_check(q, k, v, do):
     """Forward and backward kernels against their plain versions on one
     set of main-path inputs (bf16): o within TOL abs + rel, lse within
     1e-4, dq/dk/dv within TOL of their largest element, as in
-    flash_checks. Returns the kernel's (o, lse) and the errors."""
+    flash_checks; a second forward and backward call must give the same
+    bits (no atomics). Returns the kernel's (o, lse) and the errors."""
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as fa
     tol = TOL["bfloat16"]
@@ -1036,8 +1100,14 @@ def flash_main_check(q, k, v, do):
     fwd_bad = bool((err > tol + tol * o_ref.float().abs()).any())
     del o_ref
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    identical = bool(torch.equal(o, o2) and torch.equal(lse, lse2) and all(
+        torch.equal(a, b) for a, b in zip(grads, again)))
+    del o2, lse2, again
     refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-    check = dict(
+    check = dict(variant=fa.flash_attention_fwd.variant,
+                 bit_identical_rerun=identical,
         fwd_max_abs_err=float(err.max()),
         lse_max_abs_err=float((lse - lse_ref).abs().max()),
         bwd_max_abs_err=max(float((g.float() - r.float()).abs().max())
@@ -1046,7 +1116,7 @@ def flash_main_check(q, k, v, do):
     log(f"[kernel] flash main shape {json.dumps(MAIN_ATTENTION)} bf16 "
         f"causal, kernel vs plain: {json.dumps(check)}")
     if fwd_bad or check["lse_max_abs_err"] > 1e-4 \
-            or check["bwd_max_rel_err"] > tol:
+            or check["bwd_max_rel_err"] > tol or not identical:
         raise AssertionError(
             f"flash attention kernels disagree with their plain versions at "
             f"the main path's shape: {check} (tol {tol:g})")
@@ -1123,6 +1193,7 @@ def train_kernel_times(dev, adam_numel: int, flush=None, iters=20):
             qt, kt, vt, is_causal=True), dev, iters, flush),
         bound_ms=bound, bound_by=by, library_max_abs_err=lib_err,
         check=flash_check)
+    rec["flash_attention_fwd"]["variant"] = fa.flash_attention_fwd.variant
     bound, by = flash_bound(**shape, itemsize=2, backward=True)
     rec["flash_attention_bwd"] = dict(
         ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), dev,
@@ -1134,10 +1205,17 @@ def train_kernel_times(dev, adam_numel: int, flush=None, iters=20):
         library_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(*leaves, is_causal=True), leaves,
             dot), dev, iters, flush),
-        bound_ms=bound, bound_by=by, check=flash_check)
+        bound_ms=bound, bound_by=by, check=flash_check,
+        variant=fa.flash_attention_bwd.variant)
     del lib_out, leaves
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
-        times = {key: x for key, x in rec[name].items() if key != "check"}
+        r = rec[name]
+        flops = flash_flops(shape["b"], shape["s"], shape["hq"], shape["d"],
+                            backward=name.endswith("bwd"))
+        r.update(tflops=flops / r["ms"] / 1e9,
+                 bound_share=r["bound_ms"] / r["ms"],
+                 x_library=r["ms"] / r["library_ms"])
+        times = {key: x for key, x in r.items() if key != "check"}
         log(f"[kernel] {name} times (ms) at B=24 S=1024 H=12 D=64 bf16 "
             f"causal: {json.dumps(times)}")
 
@@ -1212,6 +1290,8 @@ def train_main_path(dev, size="125m", steps=10, seq=1024):
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.launches = 0
     fa.flash_attention_bwd.calls = 0
+    fa.flash_attention_fwd.variant_launches = {}
+    fa.flash_attention_bwd.variant_launches = {}
     fused_adam_step.launches = 0
     norms.launches = 0
     losses, step_s = [], []
@@ -1240,7 +1320,10 @@ def train_main_path(dev, size="125m", steps=10, seq=1024):
                          if dev.type == "cuda" else None),
         losses=losses, grad_norm=engine.get_global_grad_norm(),
         launches=launches,
-        launches_per_step={k: v / steps for k, v in launches.items()})
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        flash_variant_launches={
+            "fwd": dict(fa.flash_attention_fwd.variant_launches),
+            "bwd": dict(fa.flash_attention_bwd.variant_launches)})
     log(f"[train] {json.dumps(stats)}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training losses not finite and falling: "
@@ -1256,6 +1339,12 @@ def train_main_path(dev, size="125m", steps=10, seq=1024):
                              f"two backward launches per call, no forward "
                              f"rerun under segments, one Adam launch, 2L + "
                              f"1 norms a forward and 2L recomputed)")
+    tensor_cores = {"fwd": {"wgmma": want["flash_attention_fwd"]},
+                    "bwd": {"wgmma": want["flash_attention_bwd"]}}
+    if dev.type == "cuda" and stats["flash_variant_launches"] != tensor_cores:
+        raise AssertionError(f"bf16 training flash launches by variant "
+                             f"{stats['flash_variant_launches']} != "
+                             f"{tensor_cores}")
     return engine, batch, stats
 
 
@@ -2472,7 +2561,7 @@ def remat_policies_main(dev, size="125m", steps=3, seq=1024):
 # --------------------------------------------------------- --profile
 # device kernels by kind, matched on their names in this order
 PROFILE_KINDS = {
-    "flash_attention": ("flash_fwd_kernel", "flash_bwd_"),
+    "flash_attention": ("flash_fwd_", "flash_bwd_"),
     "paged_attention": ("paged_attention_kernel",),
     "fused_adam": ("fused_adam_kernel",),
     "fused_lion": ("fused_lion_kernel",),
@@ -2586,6 +2675,7 @@ def main(argv=None) -> int:
 
     build_s = op_builder.build(list(KERNELS))                 # phase 2
     log(f"[build] seconds {json.dumps(build_s)}")
+    log(f"[build] flash_attention kernels: {json.dumps(flash_build_report())}")
     for name in KERNELS:
         ptxas = op_builder.library_path(name).with_suffix(".log")
         for line in ptxas.read_text().splitlines():
@@ -2661,6 +2751,14 @@ def main(argv=None) -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], **extra}
 
+    def flash_extra(name, times, train):
+        t = times[name]
+        return dict(variant=t["variant"], tflops=t["tflops"],
+                    bound_share=t["bound_share"], x_library=t["x_library"],
+                    bit_identical_rerun=t["check"]["bit_identical_rerun"],
+                    main_path_launches_by_variant=train[
+                        "flash_variant_launches"][name[-3:]])
+
     def worst(key, dtype, errs=flash_errs):
         return max(e[key] for (dt, _), e in errs.items() if dt == dtype)
 
@@ -2713,7 +2811,10 @@ def main(argv=None) -> int:
               lse_max_abs_err=flash_main["lse_max_abs_err"], lse_tol=1e-4,
               main_path="training",
               shape="B=24 S=1024 H=12 D=64 bf16 causal",
+              **flash_extra("flash_attention_fwd", train_times, train),
               cases_max_abs_err_bf16=worst("fwd_max_abs_err", "bfloat16"),
+              cases_max_abs_err_fp16=worst("fwd_max_abs_err", "float16"),
+              cases_tol_fp16=FLASH_TOL["float16"],
               cases_max_abs_err_fp32=worst("fwd_max_abs_err", "float32"),
               cases_tol_fp32=TOL["float32"], cases=CASES_NOTE),
         entry("flash_attention_bwd", "flash_attention",
@@ -2726,7 +2827,10 @@ def main(argv=None) -> int:
               library_fwd_bwd_ms=train_times["flash_attention_bwd"][
                   "library_fwd_bwd_ms"], main_path="training",
               shape="B=24 S=1024 H=12 D=64 bf16 causal",
+              **flash_extra("flash_attention_bwd", train_times, train),
               cases_max_rel_err_bf16=worst("bwd_max_rel_err", "bfloat16"),
+              cases_max_rel_err_fp16=worst("bwd_max_rel_err", "float16"),
+              cases_tol_rel_fp16=FLASH_TOL["float16"],
               cases_max_rel_err_fp32=worst("bwd_max_rel_err", "float32"),
               cases_tol_rel_fp32=TOL["float32"], cases=CASES_NOTE),
         entry("fused_adam", "fused_adam", train["launches"]["fused_adam"],

@@ -1,4 +1,4 @@
-// Flash attention, forward and backward, for Hopper (CUDA cores).
+// Flash attention, forward and backward, for Hopper.
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py:
 //   * `_flash_fwd` (:88): online-softmax attention that never materialises the
@@ -17,31 +17,63 @@
 // same, so on the GPU every S takes these kernels. The TPU's long-sequence
 // fallback to the stock kernel exists for a VMEM limit the GPU does not have.
 //
-// What bounds it on an H100: at GPT-2 shapes (S 1024, D 64) the work is
-// ~60 flops per byte moved, so the tensor cores would make it bound by
-// bytes; this first port does its products in fp32 FMAs on CUDA cores out of
-// shared memory and is bound by those operations and the shared-memory reads
-// that feed them. Design, simple first:
-//   * tiles of 64 query rows x 64 keys staged in shared memory as fp32 (row
-//     stride D+1, so the column walks of the products are bank-conflict free);
-//     256 threads as a 16 x 16 grid, each owning a 4 x 4 block of scores and
-//     4 rows x D/16 channels of every [64, D] accumulator, in registers;
-//   * nothing carries between thread blocks on the GPU, so the TPU's
-//     sequential grid axis becomes a loop inside the block: forward, one block
-//     per (b*Hq, q tile) walks kv tiles from the window's first live tile to
-//     the causal diagonal;
-//   * backward is two launches and uses no atomics (deterministic): the dq
-//     kernel, one block per (b*Hq, q tile), first forms delta for its rows and
-//     writes it out, then walks kv tiles accumulating dq in registers; the
-//     dk/dv kernel, one block per (b*Hkv, kv tile), walks the GQA group's rep
-//     q heads and their q tiles, accumulating dk and dv for the kv head in
-//     registers, so no per-q-head dk/dv or group sum is ever materialised (the
-//     TPU kernel's dq slab is race-free only on its sequential grid, :174).
-// Later work: mma/wgmma tensor-core products, cp.async/TMA double buffering.
+// Two kernel sets, chosen by dtype in the C entry points below (a table, see
+// ds_flash_attention_variant; never a retry): bf16 and fp16 take the
+// tensor-core kernels ("wgmma"), fp32 the CUDA-core kernels ("cuda_cores"),
+// whose products stay exact fp32 FMAs (a TF32 tensor-core product keeps ~3
+// decimal digits, too few for the fp32 training path's parity bounds).
+//
+// What bounds them on an H100: at GPT-2 125M's shapes (B 24, S 1024, 12 heads
+// of 64, causal, bf16) the forward moves 152 MB and does 38.7 GFLOP: 0.0454 ms
+// by bytes against 0.039 ms by operations at 989 TFLOP/s; the backward's five
+// products, 96.7 GFLOP, give 0.0978 ms by operations. Both are near the
+// ridge, so the products must run on the tensor cores and the tiles must
+// reach shared memory without stalling them.
+//
+// Tensor-core design (bf16/fp16):
+//   * tiles are [rows, D] in shared memory in wgmma's canonical swizzled
+//     layout (Tile<D>): column atoms of W = min(D, 64) elements, each row 2W
+//     bytes, the 16-byte chunks of a row XOR-ed with the row's place in its
+//     8-row group (the 128/64/32-byte swizzle for W = 64/32/16). The same
+//     bytes serve as a K-major operand (rows are M or N, D is K: q, k, do,
+//     v in S = q k^T and dp = do v^T) and an MN-major one (rows are K, D is
+//     N: v in o += p v, k in dq += ds k, q and do in dk/dv);
+//   * the tiles arrive by 16-byte cp.async with zero-fill past S (ragged
+//     tiles read as zeros), through a 2-stage ring: the next tile's copies
+//     are in flight while the current one is multiplied;
+//   * products are wgmma.mma_async m64nNk16 with fp32 accumulators, a
+//     warpgroup (128 threads) owning 64 rows. Scores come back in the
+//     accumulator fragment; the softmax (or p and ds in the backward) works
+//     on it in registers, rounds to the input dtype and feeds the second
+//     product as its register A operand, so p and ds never touch shared
+//     memory;
+//   * forward: one block of two warpgroups per (b*Hq, 128-row q tile),
+//     longest causal tiles first, walking 64-key tiles from the window's
+//     first live tile to the diagonal. A warpgroup skips a tile none of its
+//     rows sees (skipping changes no bit: the rescale would be by 1) and
+//     evaluates the mask only on boundary tiles;
+//   * backward: two launches and no atomics, so a recompute gives the same
+//     bits (the remat policies rely on it). The dq kernel, one block per
+//     (b*Hq, 128-row q tile), first writes delta for its rows, then forms
+//     s = q k^T and dp = do v^T, ds, dq += ds k. The dk/dv kernel, one block
+//     per (b*Hkv, 128-key tile), walks the GQA group's q heads and their q
+//     tiles: s^T = k q^T and dp^T = v do^T land p^T and ds^T in the
+//     accumulator layout, the A operands of dv += p^T do and dk += ds^T q.
+// The blocks index (b, h) in blockIdx.x together with the tile, so any batch
+// x heads is taken.
+// Next: warp specialisation (a producer warp issuing TMA copies, consumer
+// warpgroups with setmaxnreg), the ping-pong of two consumer warpgroups so
+// one's softmax hides under the other's products, a persistent grid.
+//
+// CUDA-core design (fp32): 64 x 64 tiles staged as fp32
+// in shared memory (row stride D+1), 256 threads as a 16 x 16 grid each owning
+// a 4 x 4 block of scores and 4 rows x D/16 channels of every accumulator;
+// the same two-launch backward.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -69,12 +101,21 @@ template <> struct Num<__nv_bfloat16> {
   __device__ static float round(float v) {
     return __bfloat162float(__float2bfloat16(v));
   }
+  // two values rounded into one 32-bit register, lo in the low half
+  __device__ static uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 };
 template <> struct Num<__half> {
   __device__ static float load(const __half* p) { return __half2float(*p); }
   __device__ static void store(__half* p, float v) { *p = __float2half(v); }
   __device__ static float round(float v) {
     return __half2float(__float2half(v));
+  }
+  __device__ static uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
   }
 };
 
@@ -151,21 +192,23 @@ __device__ __forceinline__ void mm_nn(float (&acc)[4][NJ],
   }
 }
 
-// Key tiles [lo, hi) a query tile [q0, q0 + 64) must visit.
-__device__ __forceinline__ void key_range(int q0, int S, int causal,
-                                          int window, int& lo, int& hi) {
-  const int q_last = min(q0 + kTile, S) - 1;
+// Key tiles [lo, hi) the query rows [q0, q0 + rows) must visit; lo is a
+// multiple of the key tile kn.
+__device__ __forceinline__ void key_range(int q0, int rows, int kn, int S,
+                                          int causal, int window, int& lo,
+                                          int& hi) {
+  const int q_last = min(q0 + rows, S) - 1;
   hi = causal ? q_last + 1 : S;
-  lo = window > 0 ? max(0, q0 - window + 1) / kTile * kTile : 0;
+  lo = window > 0 ? max(0, q0 - window + 1) / kn * kn : 0;
 }
 
-// ------------------------------------------------------------------ forward
+// ------------------------------------------------------- fp32: forward
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int S, int Hq, int Hkv, int causal,
-                 int window, float sc) {
+                 int window, float sc, int n_bh, int tiles) {
   constexpr int NJ = D / 16;
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
@@ -174,10 +217,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* vs = ks + kTile * LD;         // [64][D+1]
   float* ps = vs + kTile * LD;         // [64][65] p, rounded to T
 
-  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
+  const int bh = blockIdx.x % n_bh, b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
   // causal: the last q tiles have the most keys, so they start first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int q0 = (tiles - 1 - (int)(blockIdx.x / n_bh)) * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   load_rows<T, D>(qs, q, b, h, Hq, S, q0);
@@ -192,7 +235,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int lo, hi;
-  key_range(q0, S, causal, window, lo, hi);
+  key_range(q0, kTile, kTile, S, causal, window, lo, hi);
   for (int k0 = lo; k0 < hi; k0 += kTile) {
     __syncthreads();                   // the previous tile is consumed
     load_rows<T, D>(ks, k, b, hk, Hkv, S, k0);
@@ -245,14 +288,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------ backward: dq
+// ------------------------------------------------------ fp32 backward: dq
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     float* __restrict__ delta, T* __restrict__ dq, int S,
-                    int Hq, int Hkv, int causal, int window, float sc) {
+                    int Hq, int Hkv, int causal, int window, float sc,
+                    int n_bh, int tiles) {
   constexpr int NJ = D / 16;
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
@@ -264,9 +308,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* lse_s = dss + kTile * kPad;   // [64]
   float* delta_s = lse_s + kTile;      // [64]
 
-  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
+  const int bh = blockIdx.x % n_bh, b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int q0 = (tiles - 1 - (int)(blockIdx.x / n_bh)) * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   load_rows<T, D>(qs, q, b, h, Hq, S, q0);
@@ -298,7 +342,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
   int lo, hi;
-  key_range(q0, S, causal, window, lo, hi);
+  key_range(q0, kTile, kTile, S, causal, window, lo, hi);
   for (int k0 = lo; k0 < hi; k0 += kTile) {
     __syncthreads();
     load_rows<T, D>(ks, k, b, hk, Hkv, S, k0);
@@ -335,7 +379,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// --------------------------------------------------------- backward: dk, dv
+// --------------------------------------------------- fp32 backward: dk, dv
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -343,7 +387,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int S, int Hq, int Hkv, int causal,
-                     int window, float sc) {
+                     int window, float sc, int n_bhk) {
   constexpr int NJ = D / 16;
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
@@ -356,9 +400,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* lse_s = dss + kTile * kPad;   // [64]
   float* delta_s = lse_s + kTile;      // [64]
 
-  const int bhk = blockIdx.y, b = bhk / Hkv, g = bhk % Hkv;
+  const int bhk = blockIdx.x % n_bhk, b = bhk / Hkv, g = bhk % Hkv;
   const int rep = Hq / Hkv;
-  const int k0 = blockIdx.x * kTile;   // causal: low kv tiles have most rows
+  // causal: low kv tiles have most rows
+  const int k0 = (int)(blockIdx.x / n_bhk) * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   load_rows<T, D>(ks, k, b, g, Hkv, S, k0);
@@ -425,8 +470,731 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ============================================ tensor-core building blocks
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A [R, D] tile of 2-byte elements in wgmma's canonical swizzled layout:
+// D / W column atoms of [R, W] (W = min(D, 64)) one after another, each row
+// 2W bytes; within 8-row groups the 16-byte chunks of row r are XOR-ed with
+// r % 8 (128-byte swizzle, W 64), (r / 2) % 4 (64-byte, W 32) or (r / 4) % 2
+// (32-byte, W 16): the hardware's Swizzle<3|2|1, 4, 3> on the byte address,
+// which the tile's 1024-byte alignment makes the tile's own offset.
+template <int D> struct Tile {
+  static constexpr int W = D < 64 ? D : 64;
+  static constexpr int kRow = 2 * W;                    // bytes a row
+  static constexpr uint32_t kMask = W == 64 ? 7 : W == 32 ? 3 : 1;
+  static constexpr uint64_t kLayout = W == 64 ? 1 : W == 32 ? 2 : 3;
+  __host__ __device__ static constexpr uint32_t bytes(int R) {
+    return (uint32_t)R * D * 2;
+  }
+  // byte offset of element (r, c)
+  __device__ static uint32_t offset(int R, int r, int c) {
+    uint32_t o = r * kRow + (c % W) * 2;
+    o ^= ((o >> 7) & kMask) << 4;
+    return (c / W) * (R * kRow) + o;
+  }
+};
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode (bits 62-63).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major operand: rows [r0, r0 + 8n) of a tile of R rows are the M (or N)
+// dimension, columns [16 kk, 16 kk + 16) the K slice of one wgmma. Within a
+// swizzle atom the K slice is a 32-byte step of the start address; 8-row
+// groups are kRow * 8 bytes apart (SBO); LBO is unused.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int R, int r0,
+                                           int kk) {
+  using L = Tile<D>;
+  const int c = 16 * kk;
+  return make_desc(tile + (c / L::W) * (R * L::kRow) + r0 * L::kRow +
+                       (c % L::W) * 2,
+                   16, 8 * L::kRow, L::kLayout);
+}
+
+// MN-major operand: rows [r0, r0 + 16) of a tile of R rows are the K slice,
+// column atom `atom` (W columns) the N dimension. 8-row groups along K are
+// kRow * 8 bytes apart. N never exceeds one atom here, so the stride between
+// atoms is never taken; LBO carries the same 8-row stride.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int R, int r0,
+                                            int atom) {
+  using L = Tile<D>;
+  return make_desc(tile + atom * (R * L::kRow) + r0 * L::kRow, 8 * L::kRow,
+                   8 * L::kRow, L::kLayout);
+}
+
+__device__ __forceinline__ void wg_arrive() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving register reads or writes of a wgmma
+// operand across the asynchronous product's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// D[64, N] (+)= A[64, 16] B[16, N] for one warpgroup, fp32 accumulators in
+// the wgmma fragment (element i: row 16 warp + lane / 4 + 8 ((i / 2) % 2),
+// column 8 (i / 4) + 2 (lane % 4) + i % 2). ss: A and B K-major in shared
+// memory; rs: A in registers (the m16n8k16 A fragment of each warp's 16
+// rows), B MN-major in shared memory. acc = 0 overwrites D.
+template <int N, typename T> struct Wgmma;
+
+#define DS_D8(o)                                                           \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),              \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define DS_D16 DS_D8(0), DS_D8(8)
+#define DS_D32 DS_D8(0), DS_D8(8), DS_D8(16), DS_D8(24)
+
+#define DS_WGMMA(N, TYPE, TS, REGS, DLIST, SS_OPS, SS_P, RS_OPS, RS_P)    \
+  template <> struct Wgmma<N, TYPE> {                                      \
+    __device__ static __forceinline__ void ss(float* d, uint64_t a,        \
+                                              uint64_t b, int acc) {       \
+      asm volatile(                                                        \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, " SS_P ", 0;\n"                \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TS "." TS " "  \
+          REGS ", " SS_OPS ", p, 1, 1, 0, 0;\n}\n"                         \
+          : DLIST                                                          \
+          : "l"(a), "l"(b), "r"(acc));                                     \
+    }                                                                      \
+    __device__ static __forceinline__ void rs(float* d,                    \
+                                              const uint32_t (&a)[4],      \
+                                              uint64_t b, int acc) {       \
+      asm volatile(                                                        \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, " RS_P ", 0;\n"                \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TS "." TS " "  \
+          REGS ", " RS_OPS ", p, 1, 1, 1;\n}\n"                            \
+          : DLIST                                                          \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc)); \
+    }                                                                      \
+  };
+
+#define DS_WGMMA_TYPE(TYPE, TS)                                            \
+  DS_WGMMA(16, TYPE, TS, "{%0, %1, %2, %3, %4, %5, %6, %7}", DS_D8(0),     \
+           "%8, %9", "%10", "{%8, %9, %10, %11}, %12", "%13")              \
+  DS_WGMMA(32, TYPE, TS,                                                   \
+           "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+           "%14, %15}",                                                    \
+           DS_D16, "%16, %17", "%18", "{%16, %17, %18, %19}, %20", "%21")  \
+  DS_WGMMA(64, TYPE, TS,                                                   \
+           "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+           "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "  \
+           "%26, %27, %28, %29, %30, %31}",                                \
+           DS_D32, "%32, %33", "%34", "{%32, %33, %34, %35}, %36", "%37")
+
+DS_WGMMA_TYPE(__nv_bfloat16, "bf16")
+DS_WGMMA_TYPE(__half, "f16")
+
+#undef DS_WGMMA_TYPE
+#undef DS_WGMMA
+#undef DS_D32
+#undef DS_D16
+#undef DS_D8
+
+// 16-byte (and 4-byte) asynchronous copies global -> shared; `bytes` 0
+// reads nothing and writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait for the copies of all but the newest `pending` groups, then make
+// them visible to wgmma (the async proxy) and to the other threads.
+template <int pending>
+__device__ __forceinline__ void cp_wait_sync() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Rows [r0, r0 + R) of head h of a [B, S, H, D] tensor into a Tile<D> at
+// dst; rows past S read as zeros.
+template <typename T, int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const T* __restrict__ src, int b,
+                                          int h, int H, int S, int r0) {
+  constexpr int kChunks = D / 8;       // 16-byte chunks a row
+  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8, s = r0 + r;
+    const bool ok = s < S;
+    cp_async16(dst + Tile<D>::offset(R, r, c),
+               src + (((long long)b * S + (ok ? s : 0)) * H + h) * D + c,
+               ok ? 16 : 0);
+  }
+}
+
+// n fp32 values row[r0 .. r0 + n) into shared memory at dst (zeros past S).
+__device__ __forceinline__ void load_vec(uint32_t dst,
+                                         const float* __restrict__ row,
+                                         int r0, int S, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const bool ok = r0 + i < S;
+    cp_async4(dst + 4 * i, row + (ok ? r0 + i : 0), ok ? 4 : 0);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+// The accumulator of an m64nN product, rounded to T in registers, as the
+// register A operands of the N / 16 k-slices of the next product.
+template <typename T, int N>
+__device__ __forceinline__ void to_a(const float (&s)[N / 2],
+                                     uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = Num<T>::pack(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+}
+
+// acc[64, D] += A[64, K] B[K, D] with A in registers (K / 16 slices) and B
+// the MN-major Tile<D> of R rows at `tile` (rows 0..K).
+template <typename T, int D, int K>
+__device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
+                                       const uint32_t (&a)[K / 16][4],
+                                       uint32_t tile, int R) {
+  constexpr int NW = D < 64 ? D : 64;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+#pragma unroll
+    for (int at = 0; at < D / NW; ++at)
+      Wgmma<NW, T>::rs(acc + at * (NW / 2), a[kk],
+                       desc_mn<D>(tile, R, 16 * kk, at), 1);
+}
+
+// s[64, N] = A[64, D] B[N, D]^T: rows [ra0, ra0 + 64) of the K-major tile
+// A (RA rows) against the K-major tile B (N rows).
+template <typename T, int D, int N>
+__device__ __forceinline__ void mma_ss(float (&s)[N / 2], uint32_t ta,
+                                       int RA, int ra0, uint32_t tb) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Wgmma<N, T>::ss(s, desc_k<D>(ta, RA, ra0, kk), desc_k<D>(tb, N, 0, kk),
+                    kk);
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = Num<T>::pack(lo, hi);
+}
+
+constexpr int kBM = 128;               // query rows a block (2 warpgroups)
+constexpr int kBN = 64;                // keys a tile (forward, dq)
+constexpr int kBK = 128;               // keys a block (dk/dv)
+constexpr int kBQ = 32;                // q rows a dk/dv step
+// blocks of each tensor-core kernel an SM is to hold (launch bounds: 2 caps
+// a thread at 128 registers, so two blocks' four warpgroups share the SM)
+template <int D> constexpr int kBlocksPerSM = D > 64 ? 1 : 2;
+
+// The fragment rows of this thread within its warpgroup's 64: ra, ra + 8;
+// its column offset within each 8-column block: cq.
+struct Frag {
+  int wg, lane, ra, cq;
+  __device__ Frag()
+      : wg(threadIdx.x / 128), lane(threadIdx.x % 32),
+        ra(16 * ((threadIdx.x % 128) / 32) + (threadIdx.x % 32) / 4),
+        cq(2 * (threadIdx.x % 4)) {}
+  // row (0 or 1 for ra / ra + 8) and column of accumulator element i
+  __device__ static int row(int i) { return (i >> 1) & 1; }
+  __device__ int col(int i) const { return 8 * (i >> 2) + cq + (i & 1); }
+};
+
+// Bit i set where accumulator element i (row `rows[Frag::row(i)]`, column
+// col0 + f.col(i)) is a visible (query, key) pair; rows are queries, or
+// keys when kKeyRows.
+template <int NE, bool kKeyRows>
+__device__ __forceinline__ uint32_t mask_bits(const Frag& f,
+                                              const int (&rows)[2], int col0,
+                                              int S, int causal, int window) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < NE; ++i) {
+    const int a = rows[Frag::row(i)], c = col0 + f.col(i);
+    bits |= (uint32_t)(kKeyRows ? visible(c, a, S, causal, window)
+                                : visible(a, c, S, causal, window))
+            << i;
+  }
+  return bits;
+}
+
+__device__ __forceinline__ bool bit(uint32_t bits, int i) {
+  return (bits >> i) & 1u;
+}
+
+// One online-softmax step over a tile of scores s (the accumulator of
+// q k^T): s -> fp32 p = exp(s sc - m_new), m, l updated, corr the factor
+// the output accumulator takes. Masked elements (bit clear in ok; kMask
+// only) score kMasked and give p = 0. Exponentials by __expf
+// (ex2.approx), within 2 ulp of expf; the rounding points are the
+// CUDA-core kernels'.
+template <bool kMask, int NE>
+__device__ __forceinline__ void softmax_step(float (&s)[NE], uint32_t ok,
+                                             float sc, float (&m)[2],
+                                             float (&l)[2],
+                                             float (&corr)[2]) {
+  float mx[2] = {kMasked, kMasked}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NE; ++i) {
+    s[i] = !kMask || bit(ok, i) ? s[i] * sc : kMasked;
+    mx[Frag::row(i)] = fmaxf(mx[Frag::row(i)], s[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    corr[r] = __expf(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < NE; ++i) {
+    const float p = __expf(s[i] - m[Frag::row(i)]);
+    s[i] = !kMask || bit(ok, i) ? p : 0.f;
+    sum[Frag::row(i)] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+}
+
+// p = exp(s sc - lse) rounded to T (0 where masked), per row (kKeyRows
+// false: lse[r] for fragment row r) or per column (lse_col[f.col(i)]).
+template <typename T, bool kMask, bool kKeyRows, int NE>
+__device__ __forceinline__ void probs(float (&s)[NE], uint32_t ok, float sc,
+                                      const float (&lse_row)[2],
+                                      const float* lse_col, const Frag& f) {
+#pragma unroll
+  for (int i = 0; i < NE; ++i) {
+    const float l = kKeyRows ? lse_col[f.col(i)] : lse_row[Frag::row(i)];
+    const float p = Num<T>::round(__expf(s[i] * sc - l));
+    s[i] = !kMask || bit(ok, i) ? p : 0.f;
+  }
+}
+
+// ------------------------------------------------ tensor cores: forward
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM<D>)
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ lse, int S, int Hq, int Hkv,
+                    int causal, int window, float sc, int n_bh, int tiles) {
+  using L = Tile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sKV = sQ + L::bytes(kBM);   // stage i: K, then V
+  constexpr uint32_t kStage = 2 * L::bytes(kBN);
+
+  const int bh = blockIdx.x % n_bh, b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = (tiles - 1 - (int)(blockIdx.x / n_bh)) * kBM;
+  const Frag f;
+  const int qw0 = q0 + 64 * f.wg, qw_last = min(qw0 + 63, S - 1);
+  const int qrow[2] = {qw0 + f.ra, qw0 + f.ra + 8};
+
+  int lo, hi;
+  key_range(q0, kBM, kBN, S, causal, window, lo, hi);
+  const int n = hi > lo ? (hi - lo + kBN - 1) / kBN : 0;
+
+  load_tile<T, D, kBM>(sQ, q, b, h, Hq, S, q0);
+  if (n > 0) {
+    load_tile<T, D, kBN>(sKV, k, b, hk, Hkv, S, lo);
+    load_tile<T, D, kBN>(sKV + L::bytes(kBN), v, b, hk, Hkv, S, lo);
+  }
+  cp_commit();
+
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f}, acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < n; ++j) {
+    const int k0 = lo + j * kBN;
+    const uint32_t sK = sKV + (j & 1) * kStage, sV = sK + L::bytes(kBN);
+    if (j + 1 < n) {
+      const uint32_t nK = sKV + ((j + 1) & 1) * kStage;
+      load_tile<T, D, kBN>(nK, k, b, hk, Hkv, S, k0 + kBN);
+      load_tile<T, D, kBN>(nK + L::bytes(kBN), v, b, hk, Hkv, S, k0 + kBN);
+      cp_commit();
+      cp_wait_sync<1>();
+    } else {
+      cp_wait_sync<0>();
+    }
+    // warpgroup-uniform: does any row of this warpgroup see a key here?
+    const bool live = qw0 < S && (!causal || k0 <= qw_last) &&
+                      (window <= 0 || k0 + kBN - 1 > qw0 - window);
+    if (live) {
+      const bool edge = (causal && k0 + kBN - 1 > qw0) ||
+                        (window > 0 && qw_last - k0 >= window) ||
+                        k0 + kBN > S || qw0 + 64 > S;
+      float s[kBN / 2];
+      fence_regs(s);
+      wg_arrive();
+      mma_ss<T, D, kBN>(s, sQ, kBM, 64 * f.wg, sK);
+      wg_commit();
+      wg_wait();
+      fence_regs(s);
+      float corr[2];
+      if (edge)
+        softmax_step<true>(s, mask_bits<kBN / 2, false>(f, qrow, k0, S, causal,
+                                                        window),
+                           sc, m, l, corr);
+      else
+        softmax_step<false>(s, 0u, sc, m, l, corr);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[Frag::row(i)];
+      uint32_t pa[kBN / 16][4];        // p rounded to T
+      to_a<T, kBN>(s, pa);
+      fence_regs(acc);
+      fence_regs(pa);
+      wg_arrive();
+      mma_rs<T, D, kBN>(acc, pa, sV, kBN);
+      wg_commit();
+      wg_wait();
+      fence_regs(acc);
+      fence_regs(pa);
+    }
+    __syncthreads();                   // the stage is free for the next copy
+  }
+
+  if (qw0 >= S) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qrow[r];
+    if (qi >= S) continue;
+    const float lv = fmaxf(l[r], 1e-30f);
+    T* dst = o + (((long long)b * S + qi) * Hq + h) * D + f.cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(dst + 8 * j, acc[4 * j + 2 * r] / lv, acc[4 * j + 2 * r + 1] / lv);
+    if (f.lane % 4 == 0) lse[(long long)bh * S + qi] = m[r] + logf(lv);
+  }
+}
+
+// -------------------------------------------- tensor cores: backward, dq
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM<D>)
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ o,
+                       const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       float* __restrict__ delta, T* __restrict__ dq, int S,
+                       int Hq, int Hkv, int causal, int window, float sc,
+                       int n_bh, int tiles) {
+  using L = Tile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sdO = sQ + L::bytes(kBM);
+  const uint32_t sKV = sdO + L::bytes(kBM);  // stage i: K, then V
+  constexpr uint32_t kStage = 2 * L::bytes(kBN);
+  float* lse_s = reinterpret_cast<float*>(
+      smem_raw + (sKV + 2 * kStage - smem_u32(smem_raw)));   // [128]
+  float* delta_s = lse_s + kBM;                              // [128]
+
+  const int bh = blockIdx.x % n_bh, b = bh / Hq, h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = (tiles - 1 - (int)(blockIdx.x / n_bh)) * kBM;
+  const Frag f;
+  const int qw0 = q0 + 64 * f.wg, qw_last = min(qw0 + 63, S - 1);
+  const int qrow[2] = {qw0 + f.ra, qw0 + f.ra + 8};
+
+  int lo, hi;
+  key_range(q0, kBM, kBN, S, causal, window, lo, hi);
+  const int n = hi > lo ? (hi - lo + kBN - 1) / kBN : 0;
+
+  load_tile<T, D, kBM>(sQ, q, b, h, Hq, S, q0);
+  load_tile<T, D, kBM>(sdO, dout, b, h, Hq, S, q0);
+  if (n > 0) {
+    load_tile<T, D, kBN>(sKV, k, b, hk, Hkv, S, lo);
+    load_tile<T, D, kBN>(sKV + L::bytes(kBN), v, b, hk, Hkv, S, lo);
+  }
+  cp_commit();
+
+  // delta = rowsum(do * o) in fp32 from the stored (dtype-rounded) o and the
+  // rows' lse: warp w takes rows w, w + 8, ...
+  const int warp = threadIdx.x / 32;
+  for (int r = warp; r < kBM; r += kThreads / 32) {
+    const int qi = q0 + r;
+    float part = 0.f;
+    if (qi < S) {
+      const long long row = (((long long)b * S + qi) * Hq + h) * D;
+      for (int c = f.lane; c < D; c += 32)
+        part += Num<T>::load(dout + row + c) * Num<T>::load(o + row + c);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      part += __shfl_xor_sync(kFull, part, off);
+    if (f.lane == 0) {
+      delta_s[r] = part;
+      lse_s[r] = qi < S ? lse[(long long)bh * S + qi] : 0.f;
+      if (qi < S) delta[(long long)bh * S + qi] = part;
+    }
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < n; ++j) {
+    const int k0 = lo + j * kBN;
+    const uint32_t sK = sKV + (j & 1) * kStage, sV = sK + L::bytes(kBN);
+    if (j + 1 < n) {
+      const uint32_t nK = sKV + ((j + 1) & 1) * kStage;
+      load_tile<T, D, kBN>(nK, k, b, hk, Hkv, S, k0 + kBN);
+      load_tile<T, D, kBN>(nK + L::bytes(kBN), v, b, hk, Hkv, S, k0 + kBN);
+      cp_commit();
+      cp_wait_sync<1>();
+    } else {
+      cp_wait_sync<0>();
+    }
+    const bool live = qw0 < S && (!causal || k0 <= qw_last) &&
+                      (window <= 0 || k0 + kBN - 1 > qw0 - window);
+    if (live) {
+      const bool edge = (causal && k0 + kBN - 1 > qw0) ||
+                        (window > 0 && qw_last - k0 >= window) ||
+                        k0 + kBN > S || qw0 + 64 > S;
+      float s[kBN / 2], dp[kBN / 2];
+      fence_regs(s);
+      fence_regs(dp);
+      wg_arrive();
+      mma_ss<T, D, kBN>(s, sQ, kBM, 64 * f.wg, sK);
+      mma_ss<T, D, kBN>(dp, sdO, kBM, 64 * f.wg, sV);
+      wg_commit();
+      wg_wait();
+      fence_regs(s);
+      fence_regs(dp);
+      const int r0 = 64 * f.wg + f.ra;
+      const float lr[2] = {lse_s[r0], lse_s[r0 + 8]};
+      const float dr[2] = {delta_s[r0], delta_s[r0 + 8]};
+      if (edge)
+        probs<T, true, false>(s, mask_bits<kBN / 2, false>(f, qrow, k0, S,
+                                                          causal, window),
+                              sc, lr, nullptr, f);
+      else
+        probs<T, false, false>(s, 0u, sc, lr, nullptr, f);
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)     // ds, rounded to T by to_a
+        s[i] = s[i] * (dp[i] - dr[Frag::row(i)]);
+      uint32_t da[kBN / 16][4];
+      to_a<T, kBN>(s, da);
+      fence_regs(acc);
+      fence_regs(da);
+      wg_arrive();
+      mma_rs<T, D, kBN>(acc, da, sK, kBN);
+      wg_commit();
+      wg_wait();
+      fence_regs(acc);
+      fence_regs(da);
+    }
+    __syncthreads();
+  }
+
+  if (qw0 >= S) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qrow[r];
+    if (qi >= S) continue;
+    T* dst = dq + (((long long)b * S + qi) * Hq + h) * D + f.cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(dst + 8 * j, acc[4 * j + 2 * r] * sc, acc[4 * j + 2 * r + 1] * sc);
+  }
+}
+
+// --------------------------------------- tensor cores: backward, dk, dv
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM<D>)
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, int S, int Hq, int Hkv,
+                        int causal, int window, float sc, int n_bhk) {
+  using L = Tile<D>;
+  // stage: q tile, do tile, lse[kBQ], delta[kBQ] (padded to 1024 bytes)
+  constexpr uint32_t kStage = 2 * L::bytes(kBQ) + 1024;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sV = sK + L::bytes(kBK);
+  const uint32_t sRing = sV + L::bytes(kBK);
+  const float* ring = reinterpret_cast<const float*>(
+      smem_raw + (sRing - smem_u32(smem_raw)));
+
+  const int bhk = blockIdx.x % n_bhk, b = bhk / Hkv, g = bhk % Hkv;
+  const int rep = Hq / Hkv;
+  // causal: low kv tiles have most rows
+  const int k0 = (int)(blockIdx.x / n_bhk) * kBK;
+  const Frag f;
+  const int kw0 = k0 + 64 * f.wg, kw_last = min(kw0 + 63, S - 1);
+  const int krow[2] = {kw0 + f.ra, kw0 + f.ra + 8};
+
+  // query rows that see some key of [k0, k_last], in kBQ-row steps, for each
+  // q head of the group
+  const int k_last = min(k0 + kBK, S) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(S, k_last + window) : S;
+  const int nq = q_hi > q_lo ? (q_hi - q_lo + kBQ - 1) / kBQ : 0;
+  const int n = rep * nq;
+
+  auto load_step = [&](int it, uint32_t dst) {
+    const int h = g * rep + it / nq, q0 = q_lo + (it % nq) * kBQ;
+    const long long row = ((long long)b * Hq + h) * S;
+    load_tile<T, D, kBQ>(dst, q, b, h, Hq, S, q0);
+    load_tile<T, D, kBQ>(dst + L::bytes(kBQ), dout, b, h, Hq, S, q0);
+    load_vec(dst + 2 * L::bytes(kBQ), lse + row, q0, S, kBQ);
+    load_vec(dst + 2 * L::bytes(kBQ) + 4 * kBQ, delta + row, q0, S, kBQ);
+  };
+
+  load_tile<T, D, kBK>(sK, k, b, g, Hkv, S, k0);
+  load_tile<T, D, kBK>(sV, v, b, g, Hkv, S, k0);
+  if (n > 0) load_step(0, sRing);
+  cp_commit();
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int it = 0; it < n; ++it) {
+    const int q0 = q_lo + (it % nq) * kBQ;
+    const uint32_t sQ = sRing + (it & 1) * kStage, sdO = sQ + L::bytes(kBQ);
+    const float* lse_s = ring + (it & 1) * (kStage / 4) + 2 * L::bytes(kBQ) / 4;
+    const float* delta_s = lse_s + kBQ;
+    if (it + 1 < n) {
+      load_step(it + 1, sRing + ((it + 1) & 1) * kStage);
+      cp_commit();
+      cp_wait_sync<1>();
+    } else {
+      cp_wait_sync<0>();
+    }
+    const bool live = kw0 < S && (!causal || q0 + kBQ - 1 >= kw0) &&
+                      (window <= 0 || q0 <= kw_last + window - 1);
+    if (live) {
+      const bool edge = (causal && kw0 + 63 > q0) ||
+                        (window > 0 && q0 + kBQ - 1 - kw0 >= window) ||
+                        q0 + kBQ > S || kw0 + 64 > S;
+      // p^T [keys, q rows], rounded to T
+      float st[kBQ / 2];
+      fence_regs(st);
+      wg_arrive();
+      mma_ss<T, D, kBQ>(st, sK, kBK, 64 * f.wg, sQ);
+      wg_commit();
+      wg_wait();
+      fence_regs(st);
+      const float none[2] = {0.f, 0.f};
+      if (edge)
+        probs<T, true, true>(st, mask_bits<kBQ / 2, true>(f, krow, q0, S,
+                                                        causal, window),
+                             sc, none, lse_s, f);
+      else
+        probs<T, false, true>(st, 0u, sc, none, lse_s, f);
+      uint32_t pa[kBQ / 16][4];
+      to_a<T, kBQ>(st, pa);
+      // dv += p^T do; dp^T = v do^T
+      float dpt[kBQ / 2];
+      fence_regs(dv_acc);
+      fence_regs(pa);
+      fence_regs(dpt);
+      wg_arrive();
+      mma_rs<T, D, kBQ>(dv_acc, pa, sdO, kBQ);
+      mma_ss<T, D, kBQ>(dpt, sV, kBK, 64 * f.wg, sdO);
+      wg_commit();
+      wg_wait();
+      fence_regs(dv_acc);
+      fence_regs(pa);
+      fence_regs(dpt);
+      // ds^T = p^T (dp^T - delta), rounded to T; dk += ds^T q
+#pragma unroll
+      for (int i = 0; i < kBQ / 2; ++i)
+        dpt[i] = st[i] * (dpt[i] - delta_s[f.col(i)]);
+      uint32_t da[kBQ / 16][4];
+      to_a<T, kBQ>(dpt, da);
+      fence_regs(dk_acc);
+      fence_regs(da);
+      wg_arrive();
+      mma_rs<T, D, kBQ>(dk_acc, da, sQ, kBQ);
+      wg_commit();
+      wg_wait();
+      fence_regs(dk_acc);
+      fence_regs(da);
+    }
+    __syncthreads();
+  }
+
+  if (kw0 >= S) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = krow[r];
+    if (kj >= S) continue;
+    const long long base = (((long long)b * S + kj) * Hkv + g) * D + f.cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      store2(dk + base + 8 * j, dk_acc[4 * j + 2 * r] * sc,
+             dk_acc[4 * j + 2 * r + 1] * sc);
+      store2(dv + base + 8 * j, dv_acc[4 * j + 2 * r],
+             dv_acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ host
 constexpr size_t tile_bytes(int d) { return (size_t)kTile * (d + 1) * 4; }
 constexpr size_t square_bytes() { return (size_t)kTile * kPad * 4; }
+
+// dynamic shared memory of each kernel (1024 bytes of it align the tiles)
+template <int D> constexpr size_t fwd_tc_smem() {
+  return 1024 + Tile<D>::bytes(kBM) + 4 * Tile<D>::bytes(kBN);
+}
+template <int D> constexpr size_t dq_tc_smem() {
+  return 1024 + 2 * Tile<D>::bytes(kBM) + 4 * Tile<D>::bytes(kBN) +
+         2 * kBM * 4;
+}
+template <int D> constexpr size_t dkv_tc_smem() {
+  return 1024 + 2 * Tile<D>::bytes(kBK) + 2 * (2 * Tile<D>::bytes(kBQ) + 1024);
+}
+template <int D> constexpr size_t fwd_smem() {
+  return 3 * tile_bytes(D) + square_bytes();
+}
+template <int D> constexpr size_t dq_smem() {
+  return 4 * tile_bytes(D) + square_bytes() + 2 * kTile * 4;
+}
+template <int D> constexpr size_t dkv_smem() {
+  return 4 * tile_bytes(D) + 2 * square_bytes() + 2 * kTile * 4;
+}
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -435,77 +1203,167 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, int D>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
-                void* lse, int b, int s, int hq, int hkv, int causal,
-                int window, cudaStream_t stream) {
-  const size_t smem = 3 * tile_bytes(D) + square_bytes();
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, smem);
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// fp32: the CUDA-core kernels
+template <int D>
+cudaError_t fwd_fp32(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int b, int s, int hq, int hkv, int causal,
+                     int window, cudaStream_t stream) {
+  cudaError_t e = allow_smem(flash_fwd_kernel<float, D>, fwd_smem<D>());
   if (e != cudaSuccess) return e;
-  dim3 grid((s + kTile - 1) / kTile, b * hq);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      s, hq, hkv, causal, window, 1.0f / sqrtf((float)D));
+  const int tiles = ceil_div(s, kTile), n_bh = b * hq;
+  flash_fwd_kernel<float, D><<<tiles * n_bh, kThreads, fwd_smem<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), s, hq, hkv, causal, window,
+      1.0f / sqrtf((float)D), n_bh, tiles);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
-                const void* dout, const void* lse, void* delta, void* dq,
-                void* dk, void* dv, int b, int s, int hq, int hkv, int causal,
-                int window, cudaStream_t stream) {
+template <int D>
+cudaError_t bwd_fp32(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const void* lse,
+                     void* delta, void* dq, void* dk, void* dv, int b, int s,
+                     int hq, int hkv, int causal, int window,
+                     cudaStream_t stream) {
   const float sc = 1.0f / sqrtf((float)D);
-  const int tiles = (s + kTile - 1) / kTile;
-  const size_t smem_dq = 4 * tile_bytes(D) + square_bytes() + 2 * kTile * 4;
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, smem_dq);
+  const int tiles = ceil_div(s, kTile);
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<float, D>, dq_smem<D>());
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<T, D><<<dim3(tiles, b * hq), kThreads, smem_dq, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<T*>(dq), s, hq, hkv, causal,
-      window, sc);
+  flash_bwd_dq_kernel<float, D>
+      <<<tiles * b * hq, kThreads, dq_smem<D>(), stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(o),
+          static_cast<const float*>(dout), static_cast<const float*>(lse),
+          static_cast<float*>(delta), static_cast<float*>(dq), s, hq, hkv,
+          causal, window, sc, b * hq, tiles);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const size_t smem_kv = 4 * tile_bytes(D) + 2 * square_bytes() + 2 * kTile * 4;
-  e = allow_smem(flash_bwd_dkv_kernel<T, D>, smem_kv);
+  e = allow_smem(flash_bwd_dkv_kernel<float, D>, dkv_smem<D>());
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<T, D><<<dim3(tiles, b * hkv), kThreads, smem_kv, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), s, hq, hkv, causal, window,
-      sc);
+  flash_bwd_dkv_kernel<float, D>
+      <<<tiles * b * hkv, kThreads, dkv_smem<D>(), stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<float*>(dk), static_cast<float*>(dv), s, hq, hkv,
+          causal, window, sc, b * hkv);
   return cudaGetLastError();
 }
 
+// bf16 / fp16: the tensor-core kernels
+template <typename T, int D>
+cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int b, int s, int hq, int hkv, int causal,
+                   int window, cudaStream_t stream) {
+  cudaError_t e = allow_smem(flash_fwd_tc_kernel<T, D>, fwd_tc_smem<D>());
+  if (e != cudaSuccess) return e;
+  const int tiles = ceil_div(s, kBM), n_bh = b * hq;
+  flash_fwd_tc_kernel<T, D>
+      <<<tiles * n_bh, kThreads, fwd_tc_smem<D>(), stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o),
+          static_cast<float*>(lse), s, hq, hkv, causal, window,
+          1.0f / sqrtf((float)D), n_bh, tiles);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t bwd_tc(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const void* lse,
+                   void* delta, void* dq, void* dk, void* dv, int b, int s,
+                   int hq, int hkv, int causal, int window,
+                   cudaStream_t stream) {
+  const float sc = 1.0f / sqrtf((float)D);
+  const int tiles = ceil_div(s, kBM);
+  cudaError_t e = allow_smem(flash_bwd_dq_tc_kernel<T, D>, dq_tc_smem<D>());
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_tc_kernel<T, D>
+      <<<tiles * b * hq, kThreads, dq_tc_smem<D>(), stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(o),
+          static_cast<const T*>(dout), static_cast<const float*>(lse),
+          static_cast<float*>(delta), static_cast<T*>(dq), s, hq, hkv,
+          causal, window, sc, b * hq, tiles);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = allow_smem(flash_bwd_dkv_tc_kernel<T, D>, dkv_tc_smem<D>());
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkv_tc_kernel<T, D>
+      <<<ceil_div(s, kBK) * b * hkv, kThreads, dkv_tc_smem<D>(), stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dk), static_cast<T*>(dv), s, hq, hkv, causal,
+          window, sc, b * hkv);
+  return cudaGetLastError();
+}
+
+// Blocks of the largest launch (64-row tiles) must fit one grid dimension.
 bool shape_ok(int b, int s, int hq, int hkv) {
   return b > 0 && s > 0 && hkv > 0 && hq % hkv == 0 &&
-         (long long)b * hq <= 65535;
+         (long long)ceil_div(s, kTile) * b * hq <= INT_MAX;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16,
-// 2 = float16;
-// d in {16, 32, 64, 128}; window <= 0 means none. Each returns
-// cudaGetLastError() after its launches (0 = launched).
+// Which kernels a call takes: 1 = the tensor-core kernels (bf16, fp16),
+// 0 = the CUDA-core kernels (fp32), -1 = none (a dtype or head dim the
+// kernels do not take). dtype: 0 = float32, 1 = bfloat16, 2 = float16.
+extern "C" int ds_flash_attention_variant(int dtype, int d) {
+  if (d != 16 && d != 32 && d != 64 && d != 128) return -1;
+  return dtype == 0 ? 0 : dtype == 1 || dtype == 2 ? 1 : -1;
+}
+
+// Dynamic shared memory (bytes) a block of kernel `which` takes: 0 the
+// forward, 1 the dq pass, 2 the dk/dv pass; -1 where the variant is none.
+extern "C" long long ds_flash_attention_smem(int which, int dtype, int d) {
+  const int variant = ds_flash_attention_variant(dtype, d);
+#define DS_SMEM(D)                                                        \
+  if (d == D)                                                             \
+    return (long long)(variant == 1                                       \
+                           ? (which == 0   ? fwd_tc_smem<D>()             \
+                              : which == 1 ? dq_tc_smem<D>()              \
+                                           : dkv_tc_smem<D>())            \
+                           : (which == 0   ? fwd_smem<D>()                \
+                              : which == 1 ? dq_smem<D>()                 \
+                                           : dkv_smem<D>()));
+  if (variant >= 0 && which >= 0 && which <= 2) {
+    DS_SMEM(16) DS_SMEM(32) DS_SMEM(64) DS_SMEM(128)
+  }
+#undef DS_SMEM
+  return -1;
+}
+
+// C entry points, bound with ctypes. dtype as above; d in {16, 32, 64, 128};
+// window <= 0 means none. Tensors contiguous and 16-byte aligned. Each
+// returns cudaGetLastError() after its launches (0 = launched).
 extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int dtype, int b, int s, int hq,
                                       int hkv, int d, int causal, int window,
                                       void* stream) {
-  if (!shape_ok(b, s, hq, hkv)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(b, s, hq, hkv) || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(o))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DS_FWD(T, D) \
-  return (int)fwd<T, D>(q, k, v, o, lse, b, s, hq, hkv, causal, window, st)
+#define DS_FWD(F, D) \
+  return (int)F<D>(q, k, v, o, lse, b, s, hq, hkv, causal, window, st)
   if (dtype == 0) {
-    if (d == 16) DS_FWD(float, 16);
-    if (d == 32) DS_FWD(float, 32);
-    if (d == 64) DS_FWD(float, 64);
-    if (d == 128) DS_FWD(float, 128);
-  } else if (dtype == 1) {
+    if (d == 16) DS_FWD(fwd_fp32, 16);
+    if (d == 32) DS_FWD(fwd_fp32, 32);
+    if (d == 64) DS_FWD(fwd_fp32, 64);
+    if (d == 128) DS_FWD(fwd_fp32, 128);
+  }
+#undef DS_FWD
+#define DS_FWD(T, D) \
+  return (int)fwd_tc<T, D>(q, k, v, o, lse, b, s, hq, hkv, causal, window, st)
+  if (dtype == 1) {
     if (d == 16) DS_FWD(__nv_bfloat16, 16);
     if (d == 32) DS_FWD(__nv_bfloat16, 32);
     if (d == 64) DS_FWD(__nv_bfloat16, 64);
@@ -528,17 +1386,25 @@ extern "C" int ds_flash_attention_bwd(const void* q, const void* k,
                                       void* dv, int dtype, int b, int s,
                                       int hq, int hkv, int d, int causal,
                                       int window, void* stream) {
-  if (!shape_ok(b, s, hq, hkv)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(b, s, hq, hkv) || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(o) || !aligned16(dout) || !aligned16(dq) ||
+      !aligned16(dk) || !aligned16(dv))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DS_BWD(T, D)                                                         \
-  return (int)bwd<T, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, s, hq, \
-                        hkv, causal, window, st)
+#define DS_BWD(D)                                                            \
+  return (int)bwd_fp32<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, s,   \
+                          hq, hkv, causal, window, st)
   if (dtype == 0) {
-    if (d == 16) DS_BWD(float, 16);
-    if (d == 32) DS_BWD(float, 32);
-    if (d == 64) DS_BWD(float, 64);
-    if (d == 128) DS_BWD(float, 128);
-  } else if (dtype == 1) {
+    if (d == 16) DS_BWD(16);
+    if (d == 32) DS_BWD(32);
+    if (d == 64) DS_BWD(64);
+    if (d == 128) DS_BWD(128);
+  }
+#undef DS_BWD
+#define DS_BWD(T, D)                                                         \
+  return (int)bwd_tc<T, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, s,  \
+                           hq, hkv, causal, window, st)
+  if (dtype == 1) {
     if (d == 16) DS_BWD(__nv_bfloat16, 16);
     if (d == 32) DS_BWD(__nv_bfloat16, 32);
     if (d == 64) DS_BWD(__nv_bfloat16, 64);

@@ -4,6 +4,8 @@
 whose forward and backward are the hand-written Hopper kernels of
 ``csrc/flash_attention.cu`` on CUDA tensors (``flash_attention_fwd``,
 ``flash_attention_bwd``) and their plain PyTorch versions on CPU tensors.
+bf16 and fp16 take the tensor-core (wgmma) kernels, fp32 the CUDA-core
+kernels whose products stay exact fp32 (:func:`kernel_variant`).
 The plain versions repeat the kernels' arithmetic: scores and sums in fp32,
 p and ds rounded to the input dtype before the products that consume them,
 as the TPU kernels do. The backward saves q, k, v, o and lse, so a caller
@@ -23,6 +25,9 @@ from . import op_builder
 NEG_INF = -1e30
 KERNEL_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the C entry points' table (ds_flash_attention_variant): 1 tensor cores,
+# 0 CUDA cores
+VARIANTS = {1: "wgmma", 0: "cuda_cores"}
 
 
 def _check(cond: bool, message: str) -> None:
@@ -92,6 +97,16 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True,
     return (dq.reshape(b, s, hq, d).to(dt), dk.to(k.dtype), dv.to(v.dtype))
 
 
+def kernel_variant(dtype, head_dim: int) -> str | None:
+    """The kernels a CUDA call of this dtype and head dim takes: "wgmma"
+    (bf16, fp16: tensor-core products), "cuda_cores" (fp32: exact fp32
+    FMAs), or None where no kernel takes it. The same table as the C entry
+    points' ``ds_flash_attention_variant``."""
+    if dtype not in _KERNEL_DTYPES or head_dim not in KERNEL_DIMS:
+        return None
+    return VARIANTS[int(dtype != torch.float32)]
+
+
 def _kernel():
     lib = op_builder.load("flash_attention")
     if lib.ds_flash_attention_fwd.argtypes is None:
@@ -103,12 +118,17 @@ def _kernel():
         lib.ds_flash_attention_bwd.restype = ctypes.c_int
         lib.ds_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
+        lib.ds_flash_attention_variant.argtypes = [ctypes.c_int] * 2
+        lib.ds_flash_attention_variant.restype = ctypes.c_int
+        lib.ds_flash_attention_smem.argtypes = [ctypes.c_int] * 3
+        lib.ds_flash_attention_smem.restype = ctypes.c_longlong
     return lib
 
 
 def _check_inputs(tensors: dict, q, k) -> None:
     """What the kernels take: CUDA, fp32/bf16/fp16 alike, contiguous,
-    [B, S, Hq, D] / [B, S, Hkv, D] with D in KERNEL_DIMS."""
+    16-byte aligned, [B, S, Hq, D] / [B, S, Hkv, D] with D in
+    KERNEL_DIMS, at most 2^31 - 1 blocks of 64 query rows."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     _check(q.device.type == "cuda", f"unsupported device {q.device}")
@@ -118,13 +138,15 @@ def _check_inputs(tensors: dict, q, k) -> None:
         _check(t.device == q.device, f"{name} is on {t.device}, q on "
                f"{q.device}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
+        _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
         if t.is_floating_point() and name != "lse":
             _check(t.dtype == q.dtype, f"{name} dtype {t.dtype} != q dtype "
                    f"{q.dtype}")
     _check(d in KERNEL_DIMS, f"head_dim {d} (one of {KERNEL_DIMS})")
     _check(hkv > 0 and hq % hkv == 0, f"{hq} q heads over {hkv} kv heads")
     _check(k.shape == (b, s, hkv, d), f"k shape {tuple(k.shape)}")
-    _check(b * hq <= 65535, f"batch x heads {b * hq} (at most 65535)")
+    _check(-(-s // 64) * b * hq < 2**31, f"{b} x {hq} heads x {s} rows "
+           f"(at most 2^31 - 1 tiles of 64 rows)")
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -138,7 +160,9 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None):
     """Forward kernel (port of ``_flash_fwd``, flash_attention.py:88):
     returns o ([B, S, Hq, D], q's dtype) and lse ([B, Hq, S], fp32).
     CPU tensors take :func:`flash_attention_fwd_plain`; CUDA tensors launch
-    the kernel or raise. ``flash_attention_fwd.launches`` counts launches."""
+    the kernel or raise. ``flash_attention_fwd.launches`` counts launches,
+    ``.variant_launches`` them by :func:`kernel_variant`, and ``.variant``
+    names the last launch's kernels."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window)
@@ -154,18 +178,28 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None):
         int(causal), window or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, "forward")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, kernel_variant(q.dtype, d), 1)
     return o, lse
 
 
+def _count(fn, variant: str, launches: int) -> None:
+    fn.launches += launches
+    fn.variant = variant
+    fn.variant_launches[variant] = (fn.variant_launches.get(variant, 0)
+                                    + launches)
+
+
 flash_attention_fwd.launches = 0
+flash_attention_fwd.variant = None
+flash_attention_fwd.variant_launches = {}
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None):
     """Backward kernels (port of ``_flash_bwd``, flash_attention.py:226):
     returns dq, dk, dv in the inputs' dtypes. Two launches per call (dq and
     delta, then dk/dv per kv head); ``flash_attention_bwd.launches`` counts
-    each launch, ``flash_attention_bwd.calls`` each call. CPU tensors take
+    each launch, ``flash_attention_bwd.calls`` each call, ``.variant`` and
+    ``.variant_launches`` as the forward's. CPU tensors take
     :func:`flash_attention_bwd_plain`; CUDA tensors launch or raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
@@ -188,13 +222,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None):
         k.shape[2], d, int(causal), window or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, "backward")
-    flash_attention_bwd.launches += 2
+    _count(flash_attention_bwd, kernel_variant(q.dtype, d), 2)
     flash_attention_bwd.calls += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.calls = 0
+flash_attention_bwd.variant = None
+flash_attention_bwd.variant_launches = {}
 
 
 class _Flash(torch.autograd.Function):

@@ -216,6 +216,13 @@ FLASH_CASES = {                       # b, s, hq, hkv, d, causal, window
     "d32_unaligned_full": (2, 77, 4, 2, 32, False, None),
     "d128": (1, 384, 4, 2, 128, True, None),
     "d128_window": (1, 200, 2, 2, 128, True, 33),
+    # the tensor-core kernels' tiling edges: 128-row q blocks of two 64-row
+    # warpgroups, 64-key tiles (forward, dq), 128-key blocks (dk/dv)
+    "s40_below_one_tile": (2, 40, 4, 2, 64, True, None),
+    "s129_one_past_a_block": (1, 129, 4, 4, 64, True, None),
+    "narrow_window_crosses_tiles": (1, 300, 4, 2, 64, True, 24),
+    "d16": (2, 200, 4, 2, 16, True, None),
+    "gqa_rep4_full": (1, 256, 8, 2, 64, False, None),
 }
 
 
@@ -283,6 +290,65 @@ def test_flash_backward_matches_plain(cuda, dtype, case):
             assert _rel(g, leaf.grad) < TOL[dtype], (name, _rel(g, leaf.grad))
 
 
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+def test_flash_kernel_variant_by_dtype(cuda, dtype):
+    """bf16 and fp16 take the tensor-core (wgmma) kernels, fp32 the exact
+    CUDA-core ones: the C entry points' table, the wrapper's table and the
+    launches agree."""
+    want = "cuda_cores" if dtype == torch.float32 else "wgmma"
+    lib = fa._kernel()
+    for d in fa.KERNEL_DIMS:
+        assert fa.kernel_variant(dtype, d) == want
+        code = lib.ds_flash_attention_variant(fa._KERNEL_DTYPES[dtype], d)
+        assert fa.VARIANTS[code] == want
+        assert lib.ds_flash_attention_smem(2, fa._KERNEL_DTYPES[dtype],
+                                           d) > 0
+    q, k, v, do = _qkv(cuda, dtype, 1, 96, 2, 2, 64)
+    fwd_before = dict(fa.flash_attention_fwd.variant_launches)
+    bwd_before = dict(fa.flash_attention_bwd.variant_launches)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.variant == want
+    assert fa.flash_attention_bwd.variant == want
+    assert (fa.flash_attention_fwd.variant_launches[want]
+            == fwd_before.get(want, 0) + 1)
+    assert (fa.flash_attention_bwd.variant_launches[want]
+            == bwd_before.get(want, 0) + 2)
+
+
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+def test_flash_kernels_are_deterministic(cuda, dtype):
+    """No atomics: two forward calls give the same o and lse, two backward
+    calls the same dq, dk, dv, bit for bit (a remat recompute relies on
+    it)."""
+    q, k, v, do = _qkv(cuda, dtype, 2, 700, 8, 2, 64, seed=4)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_attention_fwd(q, k, v, window=300)
+        runs.append((o, lse, *fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                     window=300)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_takes_more_than_65535_batch_times_heads(cuda, dtype):
+    """B x Hq = 65540 (past the old gridDim.y limit) with a short S."""
+    q, k, v, do = _qkv(cuda, dtype, 16385, 8, 4, 2, 16, seed=5)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    for name, g, r in zip("qkv", got, ref):
+        assert _rel(g, r) < tol, (name, _rel(g, r))
+
+
 def test_flash_autograd_on_the_card_matches_the_cpu(cuda):
     q, k, v, do = _qkv("cpu", torch.float32, 2, 130, 4, 2, 32, seed=2)
     grads = []
@@ -307,6 +373,11 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fa.flash_attention_fwd(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_fwd(q.transpose(1, 2), k, v)
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    shifted = torch.empty(qb.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(shifted, kb, vb)
 
 
 # ------------------------------------------------------------ fused Adam

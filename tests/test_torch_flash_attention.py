@@ -127,3 +127,41 @@ def test_window_requires_causal_and_heads_must_group():
         T.flash_attention(k, k, k, window=0)
     with pytest.raises(ValueError, match="multiple"):
         T.flash_attention(q, k, v)
+
+
+# the tiling edges of the port's tensor-core kernels (128-row q blocks of
+# two 64-row warpgroups, 64-key tiles, 128-key dk/dv blocks), run here
+# through the plain versions those kernels are held to on the card
+EDGE_CASES = {                         # b, s, hq, hkv, d, causal, window
+    "s40_below_one_tile": (2, 40, 4, 2, 32, True, None),
+    "s129_one_past_a_block": (1, 129, 4, 4, 32, True, None),
+    "narrow_window_crosses_tiles": (1, 256, 2, 2, 32, True, 24),
+    "d16": (2, 128, 4, 2, 16, True, None),
+    "gqa_rep4_full": (1, 128, 8, 2, 32, False, None),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_tiling_edges_match_jax(case):
+    b, s, hq, hkv, d, causal, window = EDGE_CASES[case]
+    q, k, v = _inputs(b, s, hq, hkv, d, seed=11)
+    do = np.random.default_rng(12).standard_normal(q.shape).astype(
+        np.float32)
+    (out, jout), grads = _grads(q, k, v, do, causal=causal, window=window)
+    _close(out, jout, 2e-5)
+    for got, ref in grads:
+        assert got.shape == ref.shape
+        _close(got, ref, 2e-4)
+
+
+def test_kernel_variant_table():
+    """The dispatch table of the CUDA entry points: bf16 and fp16 take the
+    tensor-core kernels, fp32 the exact CUDA-core ones, at every head dim
+    the kernels take; anything else takes none."""
+    for d in T.KERNEL_DIMS:
+        assert T.kernel_variant(torch.bfloat16, d) == "wgmma"
+        assert T.kernel_variant(torch.float16, d) == "wgmma"
+        assert T.kernel_variant(torch.float32, d) == "cuda_cores"
+    assert T.kernel_variant(torch.float64, 64) is None
+    assert T.kernel_variant(torch.bfloat16, 48) is None
+    assert set(T.VARIANTS.values()) == {"wgmma", "cuda_cores"}
