@@ -12,10 +12,11 @@ Phases, each fatal on failure:
      backward in fp32, bf16 and fp16 and fused Adam over a spread of
      cases), then timed at the main paths' shapes beside its plain
      version, a PyTorch library call computing the same function, and the
-     card's least time for the work (its bound); the flash rows add the
-     kernels' variant (bf16/fp16 on the tensor cores, fp32 on the CUDA
-     cores), TFLOP/s, the share of the bound and the ratio to SDPA, and the
-     build prints their registers, shared memory and spills;
+     card's least time for the work (its bound); the flash and
+     block-sparse rows add the kernels' variant (bf16/fp16 on the tensor
+     cores, fp32 on the CUDA cores), TFLOP/s, the share of the bound, the
+     ratio to SDPA and a bit-identical rerun, and the build prints their
+     registers, shared memory and spills;
   4. the serving main path at full width: build_engine("llama", "3-8b")
      with random seeded weights serves 8 requests x 32 tokens through
      generate(); every layer of every tick must launch the kernel;
@@ -41,7 +42,9 @@ Phases, each fatal on failure:
      lion_plain and the triple against train_batch (losses, params);
  10. Path P: SparseSelfAttention (DeepSpeed's "fixed" example layout,
      GPT-2 125M's 12 heads of 64, B 8, S 4096, bf16) forward and backward
-     through the block-sparse kernels, held against the plain versions;
+     through the block-sparse kernels (every launch the tensor-core
+     variant), held against the plain versions; the first call's wall and
+     its host work (layout, block lists, tile groups) reported;
  11. Path Q: the serving path of phase 4 from an int8 KV cache (per-head
      scales, the pool grown to the bf16 pool's bytes) with the prefix
      cache on: a shared 512-token system prompt served alone, then 8
@@ -78,10 +81,10 @@ under remat), and each phase's launch check counts them; the plain sides
 of phases 5 and 7 run plain norms. Phases 11-12 run right
 after phase 5, beside phase 4's engine. With --profile it then traces a
 prefill tick and decode ticks of the serving path and of Path Q, one
-train_batch step and one step of Path T (torch.profiler) and prints where
-the device time goes. The last two lines are the kernels'
-JSON record and {"ok": true, "device": {...}}. Without a CUDA card it
-exits non-zero.
+train_batch step, one step of Path T and five Path P calls
+(torch.profiler) and prints where the device time goes. The last two
+lines are the kernels' JSON record and {"ok": true, "device": {...}}.
+Without a CUDA card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -893,32 +896,38 @@ def path_q_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
 
 
 # ------------------------------------------------------------ phase 2
-FLASH_KERNEL = re.compile(r"(flash_[a-z_]+kernel)I(f|13__nv_bfloat16|6__half)"
-                          r"Li(\d+)E")
-FLASH_TYPES = {"f": (0, "fp32"), "13__nv_bfloat16": (1, "bf16"),
-               "6__half": (2, "fp16")}
+# the attention kernels' mangled names: kernel, dtype, D (and the CUDA-core
+# block-sparse kernels' query tile TY)
+ATTENTION_KERNEL = re.compile(r"((?:flash|bs)_[a-z_]+kernel)I"
+                              r"(f|13__nv_bfloat16|6__half)Li(\d+)E"
+                              r"(?:Li(\d+)E)?")
+KERNEL_TYPES = {"f": (0, "fp32"), "13__nv_bfloat16": (1, "bf16"),
+                "6__half": (2, "fp16")}
 
 
-def flash_build_report() -> dict:
+def attention_build_report(name: str) -> dict:
     """Registers, spills (ptxas, from the build log) and the dynamic shared
-    memory a block asks for (ds_flash_attention_smem) of every flash
-    kernel, keyed "kernel dtype D"."""
+    memory a block asks for (the library's ``ds_<name>_smem``) of every
+    kernel of the flash_attention or block_sparse_attention library, keyed
+    "kernel dtype D" (+ " TY" for the CUDA-core block-sparse kernels, whose
+    shared memory the table gives at TY 16 only)."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import op_builder
-    lib = fa._kernel()
+    from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
+    lib = (fa if name == "flash_attention" else bsa)._kernel()
+    smem = getattr(lib, f"ds_{name}_smem")
     which = {"fwd": 0, "dq": 1, "dkv": 2}
-    report, name = {}, None
-    log_text = op_builder.library_path("flash_attention").with_suffix(
-        ".log").read_text()
+    report, found = {}, None
+    log_text = op_builder.library_path(name).with_suffix(".log").read_text()
     for line in log_text.splitlines():
         if "Function properties for" in line:
-            name = FLASH_KERNEL.search(line)
+            found = ATTENTION_KERNEL.search(line)
             continue
-        if name is None:
+        if found is None:
             continue
-        kernel, t, d = name.group(1), *name.group(2, 3)
-        code, tname = FLASH_TYPES[t]
-        key = f"{kernel} {tname} D{d}"
+        kernel, t, d, ty = found.groups()
+        code, tname = KERNEL_TYPES[t]
+        key = f"{kernel} {tname} D{d}" + (f" TY{ty}" if ty else "")
         rec = report.setdefault(key, {})
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -927,12 +936,11 @@ def flash_build_report() -> dict:
                        spill_loads=int(spill.group(2)))
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
-            kind = next(k for k in which if f"_{k}_" in kernel
-                        or kernel.startswith(f"flash_{k}"))
+            kind = next(k for k in which if f"_{k}_" in kernel)
             rec.update(registers=int(regs.group(1)),
-                       dynamic_smem=lib.ds_flash_attention_smem(
-                           which[kind], code, int(d)))
-            name = None
+                       dynamic_smem=smem(which[kind], code, int(d))
+                       if ty in (None, "16") else None)
+            found = None
     return report
 
 
@@ -1426,23 +1434,38 @@ def train_path_kernel_vs_plain(dev, size="125m", rows=2, seq=1024, steps=3):
 # ------------------------------------------- phase 3, Path T and Path P kernels
 SPARSE_CASES = {       # b, h, s, d, layout kwargs
     "fixed_s256": (2, 4, 256, 64, dict(block=16)),
-    "bigbird_block32_d32": (2, 2, 512, 32, dict(block=32)),
+    "bigbird_block32_d32": (2, 2, 512, 32, dict(kind="bigbird", block=32,
+                                                num_random_blocks=2)),
     "block8_d24": (1, 2, 256, 24, dict(block=8)),
     "d128_block64": (1, 2, 1024, 128, dict(block=64)),
+    # the tensor-core kernels' tile edges: 64-row groups of whole blocks
+    # (pad rows at 48, two tiles a block at 128), 64-entry chunks
+    "block48_pad_rows": (1, 2, 768, 64, dict(block=48)),
+    "block128_split_tiles": (1, 2, 2048, 64, dict(
+        kind="bigbird", block=128, num_random_blocks=1)),
+    "block24_stream_ends_mid_chunk": (2, 2, 480, 64, dict(
+        block=24, num_local_blocks=3)),
+    "d40": (2, 2, 512, 40, dict(block=16)),
+    "dead_row": (2, 2, 128, 32, dict(kind="dead_row", block=16)),
 }
-SPARSE_NOTE = ("SPARSE_CASES fp32+bf16: Fixed/BigBird layouts, blocks 8-64, "
-               "D 24-128")
+SPARSE_NOTE = ("SPARSE_CASES fp32+bf16+fp16: Fixed/BigBird layouts, blocks "
+               "8-128 (48: pad rows, 128: split tiles), D 24-128, a stream "
+               "ending mid-chunk, a dead row")
 
 
-def sparse_layout(h, s, block, **kw):
-    """A Fixed layout (Path P's kwargs for the main shape), or BigBird
-    for block 32, for ``h`` heads over ``s`` tokens."""
+def sparse_layout(h, s, block, kind="fixed", **kw):
+    """A Fixed layout (Path P's kwargs for the main shape), a BigBird one,
+    or a block-diagonal one whose q block 1 sees nothing ("dead_row"), for
+    ``h`` heads over ``s`` tokens."""
     from deepspeed_tpu_torch.ops import sparse_attention as tsa
-    if block == 32:
-        return tsa.BigBirdSparsityConfig(num_heads=h, block=block,
-                                         num_random_blocks=2).make_layout(s)
-    return tsa.FixedSparsityConfig(num_heads=h, block=block,
-                                   **kw).make_layout(s)
+    if kind == "dead_row":
+        layout = np.eye(s // block, dtype=bool)[None].repeat(h, 0)
+        layout[:, 1, :] = False
+        layout[:, 3, 0] = True
+        return layout
+    config = (tsa.BigBirdSparsityConfig if kind == "bigbird"
+              else tsa.FixedSparsityConfig)
+    return config(num_heads=h, block=block, **kw).make_layout(s)
 
 
 def sparse_inputs(dev, dtype, b, h, s, d, seed=0):
@@ -1456,18 +1479,26 @@ def sparse_inputs(dev, dtype, b, h, s, d, seed=0):
 def sparse_compare(q, k, v, do, maps, tol):
     """Block-sparse forward and backward kernels against their plain
     versions on the same inputs: o and dq/dk/dv within ``tol`` of their
-    largest element, lse within 1e-5 of its largest. Returns the kernel's
-    (o, lse) and the errors; raises on disagreement."""
+    largest element, lse within 1e-5 of its largest; a second forward and
+    backward call must give the same bits (no atomics). Returns the
+    kernel's (o, lse) and the errors; raises on disagreement."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
     o, lse = bsa.block_sparse_attention_fwd(q, k, v, maps)
     o_ref, lse_ref = bsa.block_sparse_attention_fwd_plain(q, k, v, maps)
     grads = bsa.block_sparse_attention_bwd(q, k, v, o_ref, lse_ref, do, maps)
+    o2, lse2 = bsa.block_sparse_attention_fwd(q, k, v, maps)
+    again = bsa.block_sparse_attention_bwd(q, k, v, o_ref, lse_ref, do, maps)
+    identical = bool(torch.equal(o, o2) and torch.equal(lse, lse2) and all(
+        torch.equal(a, b) for a, b in zip(grads, again)))
+    del o2, lse2, again
     refs = bsa.block_sparse_attention_bwd_plain(q, k, v, o_ref, lse_ref, do,
                                                 maps)
     if q.device.type == "cuda":
         torch.cuda.synchronize()
     check = dict(
+        variant=bsa.block_sparse_attention_fwd.variant,
+        bit_identical_rerun=identical,
         fwd_max_abs_err=float((o.float() - o_ref.float()).abs().max()),
         fwd_max_rel_err=rel_max(o, o_ref),
         lse_max_rel_err=rel_max(lse, lse_ref),
@@ -1475,19 +1506,49 @@ def sparse_compare(q, k, v, do, maps, tol):
                             for g, r in zip(grads, refs)),
         bwd_max_rel_err=max(rel_max(g, r) for g, r in zip(grads, refs)))
     if (check["fwd_max_rel_err"] > tol or check["lse_max_rel_err"] > 1e-5
-            or check["bwd_max_rel_err"] > tol):
+            or check["bwd_max_rel_err"] > tol or not identical):
         raise AssertionError(f"block-sparse kernels disagree with their "
                              f"plain versions: {check} (tol {tol:g})")
     return o, lse, check
 
 
+# DeepSpeed's layouts at Path P's heads and length, for the tile groups'
+# fill (a host count): Path P's, BigBird's and BSLongformer's
+FILL_LAYOUTS = {"path_p_fixed_block16": ("FixedSparsityConfig", PATH_P_LAYOUT),
+                "bigbird_block16": ("BigBirdSparsityConfig", dict(
+                    block=16, different_layout_per_head=True)),
+                "bigbird_block32": ("BigBirdSparsityConfig", dict(
+                    block=32, different_layout_per_head=True)),
+                "longformer_block8": ("BSLongformerSparsityConfig",
+                                      dict(block=8)),
+                "longformer_block16": ("BSLongformerSparsityConfig",
+                                       dict(block=16))}
+
+
+def sparse_fill() -> dict:
+    """The live share of the tensor-core kernels' 64 x 64 tile steps
+    (``kernels.tile_fill``) for FILL_LAYOUTS at 12 heads and S 4096."""
+    from deepspeed_tpu_torch.ops import sparse_attention as tsa
+    from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
+    fill = {}
+    for name, (cls, kw) in FILL_LAYOUTS.items():
+        layout = getattr(tsa, cls)(num_heads=PATH_P["h"], **kw).make_layout(
+            PATH_P["s"])
+        fill[name] = dict(bsa.tile_fill(layout, kw["block"]),
+                          density=bsa.sparsity_stats(layout)["density"])
+    log(f"[kernel] block-sparse tile fill at H {PATH_P['h']} S "
+        f"{PATH_P['s']}: {json.dumps(fill)}")
+    return fill
+
+
 def sparse_checks(dev):
     """Block-sparse kernels against their plain versions over
-    SPARSE_CASES in fp32 and bf16, relative to the largest element."""
+    SPARSE_CASES in fp32, bf16 and fp16, relative to the largest element;
+    reruns bit-identical."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
     errs = {}
-    for dtype_name, tol in TOL.items():
+    for dtype_name, tol in FLASH_TOL.items():
         for name, (b, h, s, d, lay) in SPARSE_CASES.items():
             layout = sparse_layout(h, s, **lay)
             maps = bsa.block_maps(layout, dev, lay["block"])
@@ -1495,7 +1556,7 @@ def sparse_checks(dev):
                                         s, d, seed=1)
             errs[(dtype_name, name)] = sparse_compare(q, k, v, do, maps,
                                                       tol)[2]
-            log(f"[kernel] block-sparse {name:20s} {dtype_name:9s} "
+            log(f"[kernel] block-sparse {name:29s} {dtype_name:9s} "
                 f"{json.dumps(errs[(dtype_name, name)])}")
     return errs
 
@@ -1680,7 +1741,10 @@ def path_kernel_times(dev, lion_numel: int, flush=None, iters=20):
                          library="SDPA with the expanded layout as a "
                                  "boolean mask",
                          library_o_max_rel_err=lib_err, check=sparse_check,
-                         **work)
+                         variant=getattr(bsa, name).variant,
+                         tflops=work["gflop"] / times["ms"],
+                         bound_share=bound / times["ms"],
+                         x_library=times["ms"] / times["library_ms"], **work)
         log(f"[kernel] {name} times (ms) at B=8 H=12 S=4096 D=64 bf16 "
             f"fixed layout: {json.dumps({k: v for k, v in rec[name].items() if k != 'check'})}")
     del lib_out, leaves, mask
@@ -1849,15 +1913,19 @@ def path_t_kernel_vs_plain(dev, size="125m", rows=2, seq=1024, steps=3):
 
 
 # ----------------------------------------------- phase 10, Path P at width
-def path_p_main(dev, small=dict(b=2, h=4, s=256, d=64)):
+def path_p_main(dev, small=dict(b=2, h=4, s=256, d=64), profile=False):
     """SparseSelfAttention at Path P's shape (bf16), forward and backward
     through autograd as a caller runs it: a first call, which also builds
-    the layout and its block lists on the host and copies them to the
-    card once, then a second call, timed, with the counts set to 0 right
-    before and read right after: one forward and two backward launches.
-    Then the output and grads are held against the plain versions on the
-    same inputs (bf16 3e-2 of the largest element, lse 1e-5), and the same
-    module in fp32 at a small shape at 1e-4."""
+    the layout, its block lists and tile groups on the host and copies
+    them to the card once, then a second call, timed, with the counts set
+    to 0 right before and read right after: one forward and two backward
+    launches, all of the tensor-core ("wgmma") kernels in bf16 and of the
+    CUDA-core ones in fp32. Then the output and grads are held against the
+    plain versions on the same inputs (bf16 3e-2 of the largest element,
+    lse 1e-5), and the same module in fp32 at a small shape at 1e-4. The
+    host's share of a first call is timed apart: a new module's layout,
+    lists and groups built and copied to the device. With ``profile``,
+    five more bf16 calls are traced (torch.profiler)."""
     import torch
     from deepspeed_tpu_torch.ops import sparse_attention as tsa
     from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
@@ -1865,16 +1933,21 @@ def path_p_main(dev, small=dict(b=2, h=4, s=256, d=64)):
     for dtype_name, shape in (("bfloat16", PATH_P), ("float32", small)):
         dtype = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
-        attn = tsa.SparseSelfAttention(tsa.FixedSparsityConfig(
-            num_heads=shape["h"], **PATH_P_LAYOUT))
+        def module():
+            return tsa.SparseSelfAttention(tsa.FixedSparsityConfig(
+                num_heads=shape["h"], **PATH_P_LAYOUT))
+
+        attn = module()
         q, k, v, do = sparse_inputs(dev, dtype, **shape, seed=9)
         walls = []
         for _ in range(2):
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            bsa.block_sparse_attention_fwd.launches = 0
-            bsa.block_sparse_attention_bwd.launches = 0
+            for fn in (bsa.block_sparse_attention_fwd,
+                       bsa.block_sparse_attention_bwd):
+                fn.launches = 0
+                fn.variant_launches = {}
             t = time.perf_counter()
             o = attn(*leaves)
             o.backward(do)
@@ -1885,6 +1958,24 @@ def path_p_main(dev, small=dict(b=2, h=4, s=256, d=64)):
                     bsa.block_sparse_attention_fwd.launches,
                     "block_sparse_attention_bwd":
                     bsa.block_sparse_attention_bwd.launches}
+        by_variant = {
+            "fwd": dict(bsa.block_sparse_attention_fwd.variant_launches),
+            "bwd": dict(bsa.block_sparse_attention_bwd.variant_launches)}
+        if profile and dtype_name == "bfloat16":
+            traced = [t.clone().requires_grad_() for t in (q, k, v)]
+
+            def calls(n=5):
+                for _ in range(n):
+                    attn(*traced).backward(do)
+
+            profile_window("path_p_call", calls, 5)
+            del traced
+        t = time.perf_counter()
+        module()._kernel(shape["s"], shape["h"], shape["d"]).maps(
+            dev, shape["s"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
         fn = attn._kernel(shape["s"], shape["h"], shape["d"])
         maps = fn.maps(dev, shape["s"])
         o_ref, lse_ref = bsa.block_sparse_attention_fwd_plain(q, k, v, maps)
@@ -1893,8 +1984,9 @@ def path_p_main(dev, small=dict(b=2, h=4, s=256, d=64)):
         _, lse = bsa.block_sparse_attention_fwd(q, k, v, maps)
         rec = dict(
             shape=shape, dtype=dtype_name, fwd_bwd_wall_ms=walls[1],
-            first_call_wall_ms=walls[0],
-            launches=launches, finite=bool(torch.isfinite(o).all()),
+            first_call_wall_ms=walls[0], first_call_host_lists_ms=host_ms,
+            launches=launches, launches_by_variant=by_variant,
+            finite=bool(torch.isfinite(o).all()),
             fwd_max_abs_err=float((o.detach().float() - o_ref.float()).abs()
                                   .max()),
             fwd_max_rel_err=rel_max(o.detach(), o_ref),
@@ -1917,6 +2009,11 @@ def path_p_main(dev, small=dict(b=2, h=4, s=256, d=64)):
                 "block_sparse_attention_bwd": 2}:
             raise AssertionError(f"Path P launches {launches} != one "
                                  f"forward and two backward")
+        variant = "cuda_cores" if dtype_name == "float32" else "wgmma"
+        if dev.type == "cuda" and by_variant != {"fwd": {variant: 1},
+                                                 "bwd": {variant: 2}}:
+            raise AssertionError(f"Path P {dtype_name} launches by variant "
+                                 f"{by_variant}: not all {variant}")
     return out
 
 
@@ -2565,7 +2662,7 @@ PROFILE_KINDS = {
     "paged_attention": ("paged_attention_kernel",),
     "fused_adam": ("fused_adam_kernel",),
     "fused_lion": ("fused_lion_kernel",),
-    "block_sparse_attention": ("bs_fwd_kernel", "bs_bwd_"),
+    "block_sparse_attention": ("bs_fwd_", "bs_bwd_"),
     "norms": ("norm_kernel",),
     "gemm": ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas"),
     "reduction": ("reduce_kernel",),
@@ -2651,8 +2748,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a prefill tick and decode ticks of the "
-                         "serving path and of Path Q, one train_batch step "
-                         "and one Path T step with torch.profiler")
+                         "serving path and of Path Q, one train_batch step, "
+                         "one Path T step and five Path P calls with "
+                         "torch.profiler")
     ap.add_argument("--path-z-rank", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.path_z_rank:
@@ -2675,7 +2773,9 @@ def main(argv=None) -> int:
 
     build_s = op_builder.build(list(KERNELS))                 # phase 2
     log(f"[build] seconds {json.dumps(build_s)}")
-    log(f"[build] flash_attention kernels: {json.dumps(flash_build_report())}")
+    for name in ("flash_attention", "block_sparse_attention"):
+        log(f"[build] {name} kernels: "
+            f"{json.dumps(attention_build_report(name))}")
     for name in KERNELS:
         ptxas = op_builder.library_path(name).with_suffix(".log")
         for line in ptxas.read_text().splitlines():
@@ -2692,6 +2792,7 @@ def main(argv=None) -> int:
     train_times = train_kernel_times(dev, adam_numel, flush)
     lion_err, lion_identical = lion_checks(dev)
     sparse_errs = sparse_checks(dev)
+    fill = sparse_fill()
     path_times = path_kernel_times(dev, adam_numel, flush)
     zeropp_times = zeropp_kernel_times(dev, flush)
     norm_errs, norm_times = norm_checks(dev, flush)
@@ -2735,7 +2836,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     path_t_parity = path_t_kernel_vs_plain(dev)               # phase 9
-    path_p = path_p_main(dev)                                 # phase 10
+    path_p = path_p_main(dev, profile=args.profile)           # phase 10
     gc.collect()
     torch.cuda.empty_cache()
     path_z = path_z_main(dev)                                 # phases 13-14
@@ -2761,6 +2862,17 @@ def main(argv=None) -> int:
 
     def worst(key, dtype, errs=flash_errs):
         return max(e[key] for (dt, _), e in errs.items() if dt == dtype)
+
+    def sparse_extra(name):
+        t = path_times[name]
+        return dict(variant=t["variant"], tflops=t["tflops"],
+                    bound_share=t["bound_share"], x_library=t["x_library"],
+                    bit_identical_rerun=t["check"]["bit_identical_rerun"],
+                    main_path_launches_by_variant=path_p["bfloat16"][
+                        "launches_by_variant"][name[-3:]],
+                    cases_max_rel_err_fp16=worst(f"{name[-3:]}_max_rel_err",
+                                                 "float16", sparse_errs),
+                    cases_tol_fp16=FLASH_TOL["float16"])
 
     dec, pre = times["decode"], times["prefill"]
     flash_main = train_times["flash_attention_fwd"]["check"]
@@ -2874,7 +2986,8 @@ def main(argv=None) -> int:
               cases_tol_fp32=TOL["float32"], cases=SPARSE_NOTE,
               main_path_max_rel_err=path_p["bfloat16"]["fwd_max_rel_err"],
               main_path_fp32_small_max_rel_err=path_p["float32"][
-                  "fwd_max_rel_err"]),
+                  "fwd_max_rel_err"], tile_fill=fill,
+              **sparse_extra("block_sparse_attention_fwd")),
         entry("block_sparse_attention_bwd", "block_sparse_attention",
               path_p["bfloat16"]["launches"]["block_sparse_attention_bwd"],
               sparse_main["bwd_max_abs_err"],
@@ -2890,7 +3003,8 @@ def main(argv=None) -> int:
               cases_tol_fp32=TOL["float32"], cases=SPARSE_NOTE,
               main_path_max_rel_err=path_p["bfloat16"]["bwd_max_rel_err"],
               main_path_fp32_small_max_rel_err=path_p["float32"][
-                  "bwd_max_rel_err"]),
+                  "bwd_max_rel_err"],
+              **sparse_extra("block_sparse_attention_bwd")),
     ]
     library = {
         "quantize_int8": "none: no single PyTorch call computes "

@@ -4,7 +4,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, under ``build/`` at the root of
 the checkout, and loads with ``ctypes``. A library's file name carries a
-hash of its source and flags, so an edited source rebuilds. Several
+hash of its source, the ``csrc`` headers it includes and the flags, so an
+edited source or header rebuilds. Several
 sources build in parallel: one ``nvcc`` each, all started together.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,11 +45,26 @@ def find_nvcc() -> str:
                        "toolkit to build")
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes (``#include
+    "..."``, followed into the headers), in the order first met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc for inc in
+                 re.findall(r'^#include "([^"]+)"', path.read_text(), re.M)]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: list[str]) -> dict[str, float]:

@@ -98,13 +98,13 @@ class FixedSparsityConfig(SparsityConfig):
             for start in range(0, n, stride):
                 g0 = start + first
                 g1 = min(g0 + self.num_global_blocks, n)
-                # vertical: everyone (later, if causal) attends to globals
-                for i in range(n):
-                    if self.attention == "bidirectional" or \
-                            i >= g0:
-                        layout[h, i, g0:min(g1, i + 1)
-                               if self.attention == "unidirectional"
-                               else g1] = True
+                # vertical: everyone (later, if causal) attends to globals;
+                # unidirectional: query i sees global g only where g <= i
+                if self.attention == "bidirectional":
+                    layout[h, :, g0:g1] = True
+                else:
+                    layout[h, g0:, g0:g1] |= (np.arange(g0, g1)[None, :]
+                                              <= np.arange(g0, n)[:, None])
                 if self.horizontal_global_attention:
                     layout[h, g0:g1, :] = True
         return self.check_and_propagate_first_head_layout(layout)

@@ -11,8 +11,8 @@ at 3e-2 (the JAX package's bf16 kernel tolerance,
 tests/test_pallas_kernels.py:67), in fp16 at 1e-2 (fp16 rounds p and ds
 8x finer than bf16); fused Adam and fused Lion at 1e-6 absolute, 1e-5
 relative (the JAX package's fused-optimizer tolerance, :100, :145-160);
-block-sparse attention in fp32 at 1e-4 and in bf16 at 3e-2 of the
-largest value.
+block-sparse attention in fp32 at 1e-4, in bf16 at 3e-2 and in fp16 at
+1e-2 of the largest value.
 """
 
 import numpy as np
@@ -560,6 +560,21 @@ def test_fused_lion_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 # ---------------------------------------------------- block-sparse attention
+class _DeadRow:
+    """A block-diagonal layout (block 16) whose q block 1 sees no block
+    and whose q block 3 also sees block 0."""
+
+    def __init__(self, num_heads):
+        self.num_heads = num_heads
+
+    def make_layout(self, seq_len):
+        layout = np.eye(seq_len // 16, dtype=bool)[None].repeat(
+            self.num_heads, 0)
+        layout[:, 1, :] = False
+        layout[:, 3, 0] = True
+        return layout
+
+
 SPARSE_CASES = {   # config, heads, seq, head_dim, batch
     "fixed_s256": (lambda h: tsa.FixedSparsityConfig(num_heads=h, block=16),
                    4, 256, 64, 2),
@@ -572,6 +587,17 @@ SPARSE_CASES = {   # config, heads, seq, head_dim, batch
         num_heads=h, block=8), 2, 256, 24, 1),
     "variable_d128_block64": (lambda h: tsa.VariableSparsityConfig(
         num_heads=h, block=64, num_random_blocks=1), 2, 1024, 128, 1),
+    # the tensor-core kernels' tile edges: 64-row groups of whole blocks,
+    # 64-entry chunks of the stream
+    "block48_pad_rows": (lambda h: tsa.FixedSparsityConfig(
+        num_heads=h, block=48), 2, 768, 64, 1),
+    "block128_split_tiles": (lambda h: tsa.BigBirdSparsityConfig(
+        num_heads=h, block=128, num_random_blocks=1), 2, 2048, 64, 1),
+    "block24_stream_ends_mid_chunk": (lambda h: tsa.FixedSparsityConfig(
+        num_heads=h, block=24, num_local_blocks=3), 2, 480, 64, 2),
+    "d40": (lambda h: tsa.FixedSparsityConfig(num_heads=h, block=16),
+            2, 512, 40, 2),
+    "dead_row": (lambda h: _DeadRow(h), 2, 128, 32, 2),
 }
 
 
@@ -587,7 +613,9 @@ def test_block_sparse_kernels_match_plain(cuda, dtype, case):
     """Forward (o, lse) and backward (dq, dk, dv) kernels against their
     plain versions on the same inputs: max|err| / max|ref| within the
     dtype's tolerance, lse within 1e-5 relative; one forward and two
-    backward launches per call. Block sizes 8 to 64, head_dim 24 to 128."""
+    backward launches per call. Block sizes 8 to 128 (48: pad rows in a
+    tile group; 128: a block split into two tiles), head_dim 24 to 128, a
+    stream that ends mid-chunk, a dead row."""
     make, h, s, d, b = SPARSE_CASES[case]
     layout = make(h).make_layout(s)
     maps = bsa.block_maps(layout, cuda, s // layout.shape[1])
@@ -667,6 +695,87 @@ def test_block_sparse_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="layout"):
         bsa.block_sparse_attention_fwd(
             q, k, v, bsa.block_maps(np.ones((3, 4, 4), bool), cuda, 16))
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    shifted = torch.empty(qb.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        bsa.block_sparse_attention_fwd(shifted, kb, vb, maps)
+    o, lse = bsa.block_sparse_attention_fwd(qb, kb, vb, maps)
+    with pytest.raises(ValueError, match="aligned"):
+        bsa.block_sparse_attention_bwd(qb, kb, vb, o, lse, shifted, maps)
+
+
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+def test_block_sparse_kernel_variant_by_dtype(cuda, dtype):
+    """bf16 and fp16 take the tensor-core (wgmma) kernels, fp32 the exact
+    CUDA-core ones: the C entry points' table, the wrapper's table and the
+    launches agree; a head dim no kernel takes is none in both tables."""
+    want = "cuda_cores" if dtype == torch.float32 else "wgmma"
+    code = bsa._KERNEL_DTYPES[dtype]
+    lib = bsa._kernel()
+    for d in (8, 16, 24, 40, 64, 128):
+        assert bsa.kernel_variant(dtype, d) == want
+        assert bsa.VARIANTS[lib.ds_block_sparse_attention_variant(code, d)] \
+            == want
+        for which in range(3):
+            assert lib.ds_block_sparse_attention_smem(which, code, d) > 0
+    for d in (0, 12, 136):
+        assert bsa.kernel_variant(dtype, d) is None
+        assert lib.ds_block_sparse_attention_variant(code, d) == -1
+        assert lib.ds_block_sparse_attention_smem(0, code, d) == -1
+    layout = tsa.FixedSparsityConfig(num_heads=2, block=16).make_layout(256)
+    maps = bsa.block_maps(layout, cuda, 16)
+    q, k, v, do = _sparse_inputs(cuda, dtype, 1, 2, 256, 64)
+    fwd_before = dict(bsa.block_sparse_attention_fwd.variant_launches)
+    bwd_before = dict(bsa.block_sparse_attention_bwd.variant_launches)
+    o, lse = bsa.block_sparse_attention_fwd(q, k, v, maps)
+    bsa.block_sparse_attention_bwd(q, k, v, o, lse, do, maps)
+    torch.cuda.synchronize()
+    assert bsa.block_sparse_attention_fwd.variant == want
+    assert bsa.block_sparse_attention_bwd.variant == want
+    assert (bsa.block_sparse_attention_fwd.variant_launches[want]
+            == fwd_before.get(want, 0) + 1)
+    assert (bsa.block_sparse_attention_bwd.variant_launches[want]
+            == bwd_before.get(want, 0) + 2)
+
+
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
+def test_block_sparse_kernels_are_deterministic(cuda, dtype):
+    """No atomics: every output row belongs to one tile group (one CTA),
+    so two forward calls give the same o and lse and two backward calls
+    the same dq, dk, dv, bit for bit."""
+    layout = tsa.FixedSparsityConfig(
+        num_heads=4, block=16, different_layout_per_head=True,
+        num_local_blocks=4, num_different_global_patterns=4).make_layout(1024)
+    maps = bsa.block_maps(layout, cuda, 16)
+    q, k, v, do = _sparse_inputs(cuda, dtype, 2, 4, 1024, 64, seed=4)
+    runs = []
+    for _ in range(2):
+        o, lse = bsa.block_sparse_attention_fwd(q, k, v, maps)
+        runs.append((o, lse, *bsa.block_sparse_attention_bwd(q, k, v, o, lse,
+                                                             do, maps)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_takes_more_than_65535_batch_times_heads(cuda, dtype):
+    """B x H = 65540 (past the old gridDim.y limit) with a short S."""
+    layout = tsa.FixedSparsityConfig(num_heads=4, block=8,
+                                     num_local_blocks=1).make_layout(16)
+    maps = bsa.block_maps(layout, cuda, 8)
+    q, k, v, do = _sparse_inputs(cuda, dtype, 16385, 4, 16, 16, seed=5)
+    o, lse = bsa.block_sparse_attention_fwd(q, k, v, maps)
+    o_ref, lse_ref = bsa.block_sparse_attention_fwd_plain(q, k, v, maps)
+    grads = bsa.block_sparse_attention_bwd(q, k, v, o_ref, lse_ref, do, maps)
+    refs = bsa.block_sparse_attention_bwd_plain(q, k, v, o_ref, lse_ref, do,
+                                                maps)
+    torch.cuda.synchronize()
+    assert _rel(o, o_ref) < TOL[dtype], _rel(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    for name, g, r in zip("qkv", grads, refs):
+        assert _rel(g, r) < TOL[dtype], (name, _rel(g, r))
 
 
 # ------------------------------------------------------- the eager triple

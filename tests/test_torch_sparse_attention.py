@@ -76,6 +76,24 @@ def test_block_lists_and_stats_equal_jax():
                                                                      d)
 
 
+@pytest.mark.parametrize("density", [0.0, 0.05, 0.3, 1.0])
+def test_block_lists_equal_jax_on_random_layouts(density):
+    """The vectorised lists (built from a layout's distinct rows) equal
+    the JAX package's loop over every row, dead rows and 0/1 int layouts
+    included."""
+    rng = np.random.default_rng(int(density * 100))
+    for shape in ((3, 9, 9), (2, 32, 32), (1, 1, 1)):
+        layout = rng.random(shape) < density
+        layout[:, :2] = layout[:, 2:4] if shape[1] > 4 else layout[:, :2]
+        for lay in (layout, layout.astype(np.int64)):
+            for ours, ref in ((tk.build_block_maps, jk.build_block_maps),
+                              (tk.build_block_maps_T,
+                               jk.build_block_maps_T)):
+                for got, want in zip(ours(lay), ref(lay)):
+                    assert got.dtype == want.dtype
+                    np.testing.assert_array_equal(got, want)
+
+
 def _qkv(shape, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(shape).astype(np.float32) for _ in range(4)]
@@ -206,3 +224,234 @@ def test_unsupported_layout_takes_the_dense_path_and_utils():
     out = tsa.SparseAttentionUtils.unpad_sequence_output(
         pad, torch.ones((2, 16, 4)))
     assert out.shape == (2, 13, 4)
+
+
+# ------------------------------------------- the tensor-core kernels' schedule
+PATH_P_LAYOUT = dict(block=16, different_layout_per_head=True,
+                     num_local_blocks=4, num_global_blocks=1,
+                     attention="bidirectional",
+                     num_different_global_patterns=4)
+TILE_CASES = {name: (cls, dict(kw, block=16), 1024)
+              for name, (cls, kw) in CONFIGS.items()}
+TILE_CASES.update({
+    "path_p": ("FixedSparsityConfig", PATH_P_LAYOUT, 1024),
+    "longformer_block8": ("BSLongformerSparsityConfig", {"block": 8}, 512),
+    "fixed_block48_pad_rows": ("FixedSparsityConfig", {"block": 48}, 768),
+    "bigbird_block128_split": ("BigBirdSparsityConfig",
+                               {"block": 128, "num_random_blocks": 1}, 2048),
+})
+
+
+def _layout(cls, kw, seq, heads=4):
+    return getattr(tsa, cls)(num_heads=heads, **kw).make_layout(seq)
+
+
+def _check_groups(groups, layout, block):
+    """Every row of every head in exactly one group slot; a group's rows
+    come from at most 64 // block blocks (one 64-row tile of a block over
+    64), all with the group's layout row; streams longest first."""
+    h, nq, _ = layout.shape
+    seen = np.zeros((h, nq * block), int)
+    for head, rep, *rows in groups:
+        rows = np.asarray(rows)
+        rows = rows[rows >= 0]
+        assert 0 < rows.size <= 64
+        seen[head, rows] += 1
+        blocks = np.unique(rows // block)
+        assert blocks.size <= max(1, 64 // block)
+        assert rep in blocks
+        assert (layout[head, blocks] == layout[head, rep]).all()
+        if block > 64:
+            assert rows.max() - rows.min() < 64
+    assert (seen == 1).all()
+    lengths = layout.sum(-1)[groups[:, 0], groups[:, 1]]
+    assert (np.diff(lengths) <= 0).all()
+
+
+@pytest.mark.parametrize("name", list(TILE_CASES))
+def test_tile_groups_cover_each_block_once(name):
+    """Forward (jmap) and dk/dv (imap) tile groups of the six configs,
+    Path P's layout and blocks 8, 48 (pad rows) and 128 (split tiles):
+    each row in one group, members sharing their list, at most 64 //
+    block of them, longest stream first; the device copies equal the
+    host's."""
+    cls, kw, seq = TILE_CASES[name]
+    layout = _layout(cls, kw, seq)
+    block = kw["block"]
+    maps = tk.block_maps(layout, "cpu", block)
+    for groups, lay in ((maps.groups, layout),
+                        (maps.groupsT, layout.transpose(0, 2, 1))):
+        assert groups.dtype == torch.int32
+        assert groups.shape[1] == tk.GROUP_COLS
+        np.testing.assert_array_equal(groups.numpy(),
+                                      tk.tile_groups(lay, block))
+        _check_groups(groups.numpy(), lay, block)
+
+
+def test_path_p_tile_groups_at_full_length():
+    """Path P's layout at S 4096 (12 heads): a local window's 4 q blocks
+    share a list, so do a head's 64 global k blocks and a window's 3
+    local k blocks: as many groups as the layout's distinct rows need,
+    64 forward and 80 dk/dv a head, 98.5% of the issued 64 x 64 tile steps
+    live."""
+    layout = tsa.FixedSparsityConfig(num_heads=12, **PATH_P_LAYOUT
+                                     ).make_layout(4096)
+    maps = tk.block_maps(layout, "cpu", 16)
+    for groups, lay, per_head in ((maps.groups, layout, 64),
+                                  (maps.groupsT, layout.transpose(0, 2, 1),
+                                   80)):
+        want = sum(-(-n // 4) for hl in lay
+                   for n in np.unique(hl, axis=0, return_counts=True)[1])
+        assert len(groups) == want == 12 * per_head
+        steps = sum(-(-int(lay[h, rep].sum()) * 16 // 64)
+                    for h, rep in groups.numpy()[:, :2])
+        assert steps == 13056
+    fill = tk.tile_fill(layout, 16)
+    assert fill == {"forward": 12864 / 13056, "dkv": 12864 / 13056}
+    assert layout.sum() * 16 * 16 / (64 * 64) == 12864
+
+
+def _emulate_tc_kernels(layout, block, q, k, v, do):
+    """numpy emulation of the tensor-core kernels' schedule (fp32): each
+    group's 64 rows gathered (pad rows zero), its stream of the list's
+    rows walked in 64-entry chunks (32-entry steps for dk/dv), entries
+    past the stream's end zero and masked to p = 0, online softmax in the
+    forward, p from lse in the backward. Returns o, dq, dk, dv."""
+    maps = tk.block_maps(layout, "cpu", block)
+    jmap, counts, imap, countsT = (getattr(maps, n).numpy() for n in
+                                   ("jmap", "counts", "imap", "countsT"))
+    nb, nh, _, d = q.shape
+    sc = np.float32(1 / np.sqrt(d))
+    neg = np.float32(tk.NEG_INF)
+
+    def stream(lists, cnts, head, rep):
+        t = np.arange(cnts[head, rep] * block)
+        return lists[head, rep][t // block] * block + t % block
+
+    def chunk_of(rows, t0, size):
+        out = np.full(size, -1)
+        part = rows[t0:t0 + size]
+        out[:len(part)] = part
+        return out
+
+    def gather(x, rows):
+        out = np.zeros((len(rows), d), np.float32)
+        out[rows >= 0] = x[rows[rows >= 0]]
+        return out
+
+    def pick(vec, rows):
+        return np.where(rows >= 0, vec[np.maximum(rows, 0)], 0)
+
+    o, dq, dk, dv = (np.zeros_like(q) for _ in range(4))
+    lse = np.zeros(q.shape[:3], np.float32)
+    for head, rep, *rows in maps.groups.numpy():
+        rows, keys = np.asarray(rows), stream(jmap, counts, head, rep)
+        ok = rows >= 0
+        for b in range(nb):
+            qg = gather(q[b, head], rows)
+            m = np.full(64, neg)
+            l = np.zeros(64, np.float32)
+            acc = np.zeros((64, d), np.float32)
+            for t0 in range(0, len(keys), 64):
+                cols = chunk_of(keys, t0, 64)
+                kc, vc = gather(k[b, head], cols), gather(v[b, head], cols)
+                s = np.where(cols >= 0, qg @ kc.T * sc, neg)
+                m_new = np.maximum(m, s.max(1))
+                p = np.where(cols >= 0, np.exp(s - m_new[:, None]), 0)
+                corr = np.exp(m - m_new)
+                l = l * corr + p.sum(1)
+                acc = acc * corr[:, None] + p @ vc
+                m = m_new
+            lv = np.maximum(l, np.float32(1e-30))
+            o[b, head, rows[ok]] = (acc / lv[:, None])[ok]
+            lse[b, head, rows[ok]] = (m + np.log(lv))[ok]
+    delta = (do * o).sum(-1)
+    for head, rep, *rows in maps.groups.numpy():
+        rows, keys = np.asarray(rows), stream(jmap, counts, head, rep)
+        ok = rows >= 0
+        for b in range(nb):
+            qg, dog = gather(q[b, head], rows), gather(do[b, head], rows)
+            lr, dr = pick(lse[b, head], rows), pick(delta[b, head], rows)
+            acc = np.zeros((64, d), np.float32)
+            for t0 in range(0, len(keys), 64):
+                cols = chunk_of(keys, t0, 64)
+                kc, vc = gather(k[b, head], cols), gather(v[b, head], cols)
+                p = np.where(cols >= 0,
+                             np.exp(qg @ kc.T * sc - lr[:, None]), 0)
+                acc += (p * (dog @ vc.T - dr[:, None])) @ kc
+            dq[b, head, rows[ok]] = (acc * sc)[ok]
+    for head, rep, *rows in maps.groupsT.numpy():
+        rows, queries = np.asarray(rows), stream(imap, countsT, head, rep)
+        ok = rows >= 0
+        for b in range(nb):
+            kg, vg = gather(k[b, head], rows), gather(v[b, head], rows)
+            dk_acc, dv_acc = (np.zeros((64, d), np.float32) for _ in "kv")
+            for t0 in range(0, len(queries), 32):
+                cols = chunk_of(queries, t0, 32)
+                qc, doc = gather(q[b, head], cols), gather(do[b, head], cols)
+                lc, dc = pick(lse[b, head], cols), pick(delta[b, head], cols)
+                pt = np.where(cols >= 0,
+                              np.exp(kg @ qc.T * sc - lc[None, :]), 0)
+                dv_acc += pt @ doc
+                dk_acc += (pt * (vg @ doc.T - dc[None, :])) @ qc
+            dk[b, head, rows[ok]] = (dk_acc * sc)[ok]
+            dv[b, head, rows[ok]] = dv_acc[ok]
+    return o, dq, dk, dv
+
+
+def _dead_row_layout():
+    layout = np.eye(8, dtype=bool)[None].repeat(2, 0)
+    layout[:, 1, :] = False
+    layout[:, 3, 0] = True
+    return layout
+
+
+SCHEDULE_CASES = {
+    "fixed": (lambda: LAYOUTS["fixed"]().make_layout(256), (2, 4, 256, 32)),
+    "bigbird": (lambda: LAYOUTS["bigbird"]().make_layout(256),
+                (2, 4, 256, 32)),
+    "dead_row": (_dead_row_layout, (1, 2, 128, 16)),
+}
+
+
+@pytest.mark.parametrize("name", list(SCHEDULE_CASES))
+def test_group_schedule_matches_jax_kernel(name):
+    """The tensor-core kernels' schedule (tile groups, 64-entry chunks,
+    online softmax, masked entries p = 0), emulated in numpy in fp32,
+    against the JAX Pallas kernels in interpret mode: o, dq, dk, dv at
+    2e-5; a dead row gives o = 0 and dq = 0."""
+    make, shape = SCHEDULE_CASES[name]
+    layout = make()
+    block = shape[2] // layout.shape[1]
+    q, k, v, do = _qkv(shape, 6)
+    want = _jax_attn(layout, q, k, v, do)
+    got = _emulate_tc_kernels(layout, block, q, k, v, do)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-5)
+    if name == "dead_row":
+        assert np.all(got[0][:, :, 16:32] == 0)
+        assert np.all(got[1][:, :, 16:32] == 0)
+
+
+def test_library_name_hashes_the_included_headers(tmp_path, monkeypatch):
+    """A kernel library's name changes with its source and with every
+    csrc header the source includes, and with nothing else."""
+    from deepspeed_tpu_torch.ops import op_builder
+    assert [p.name for p in op_builder.sources("block_sparse_attention")] \
+        == ["block_sparse_attention.cu", "hopper_tiles.cuh"]
+    assert [p.name for p in op_builder.sources("flash_attention")] \
+        == ["flash_attention.cu", "hopper_tiles.cuh"]
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n#include <math.h>\n')
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\nint h;\n')
+    (tmp_path / "g.cuh").write_text("int g;\n")
+    (tmp_path / "b.cu").write_text("int b;\n")
+    monkeypatch.setattr(op_builder, "CSRC", tmp_path)
+    names = [op_builder.library_path("a").name]
+    (tmp_path / "g.cuh").write_text("int g2;\n")
+    names.append(op_builder.library_path("a").name)
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\nint h2;\n')
+    names.append(op_builder.library_path("a").name)
+    assert len(set(names)) == 3
+    b = op_builder.library_path("b").name
+    (tmp_path / "h.cuh").write_text("int h3;\n")
+    assert op_builder.library_path("b").name == b
