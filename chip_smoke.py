@@ -6,9 +6,14 @@
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the serving and training paths, from
-     csrc/, one nvcc per source, all started together;
+     csrc/, one nvcc per source, all started together; the attention
+     libraries' registers, spills and shared memory per kernel (a paged
+     kernel that spills fails the run);
   3. each kernel against its plain PyTorch version on the card (paged
-     attention at the serving path's shapes; flash attention forward and
+     attention at the serving path's shapes, a prefill tick of 8 x 256
+     rows among them, with the variant each call takes, its TFLOP/s and
+     GB/s, its share of the bound and a bit-identical rerun; flash
+     attention forward and
      backward in fp32, bf16 and fp16 and fused Adam over a spread of
      cases), then timed at the main paths' shapes beside its plain
      version, a PyTorch library call computing the same function, and the
@@ -19,7 +24,8 @@ Phases, each fatal on failure:
      registers, shared memory and spills;
   4. the serving main path at full width: build_engine("llama", "3-8b")
      with random seeded weights serves 8 requests x 32 tokens through
-     generate(); every layer of every tick must launch the kernel;
+     generate(); every layer of every tick must launch the kernel, every
+     launch one of the new bf16 variants (prefill_wgmma, decode_split);
   5. the serving path with the kernel against the same path with the
      plain attention: logits in fp32, every layer's attention in bf16;
   6. the training main path at full width: initialize(GPT-2 125M, bf16,
@@ -49,10 +55,11 @@ Phases, each fatal on failure:
      scales, the pool grown to the bf16 pool's bytes) with the prefix
      cache on: a shared 512-token system prompt served alone, then 8
      requests of it plus 100-400 tokens each, 32 greedy tokens; blocks,
-     prefix hits, launches and bytes per token checked, the greedy
-     agreement with phase 4's bf16 engine reported;
+     prefix hits, launches (all on the new variants) and bytes per token
+     checked, the greedy agreement with phase 4's bf16 engine reported;
  12. Path Q teacher-forced on int8 and fp8 pools: the kernel against its
-     plain version at every layer of every tick, bf16 and fp32;
+     plain version at every layer of every tick, bf16 (every call on a new
+     variant) and fp32;
  13. Path Z, ZeRO-3 across two ranks with the ZeRO++ int8 wire: phase 6's
      model and step with zero_optimization stage 3, qwZ and qgZ
      (stochastic rounding), mesh fsdp -1, in two processes that share the
@@ -113,6 +120,9 @@ ADAM_TOL = (1e-6, 1e-5)        # atol, rtol: the JAX fused-Adam tolerance
 KERNELS = ("paged_attention", "flash_attention", "fused_adam",
            "fused_lion", "block_sparse_attention", "quantize_int8", "norms")
 SOURCE = "deepspeed_tpu_torch/csrc/{}.cu"
+# the paged-attention kernels every bf16 call must take (the fp32 prefill
+# stays on the CUDA-core kernel, "cuda_cores")
+NEW_PAGED_VARIANTS = ("prefill_wgmma", "decode_split")
 REPLACES = {
     "paged_attention": "deepspeed_tpu/inference/v2/paged.py:61",
     "paged_attention_quantized": "deepspeed_tpu/inference/v2/paged.py:61",
@@ -266,13 +276,12 @@ def attention_case(dev, dtype, *, b, sq, pos0, true_len, hq=32, hkv=8,
     return x, kw
 
 
-def attention_bound(x, kw) -> tuple[float, str]:
-    """Least time (ms) the card needs for one call on these inputs: the
-    bytes it must move (each input read once: q, the chunk's k/v, the
-    visible cached keys and values at the pool's itemsize and, quantized,
-    their f32 scales, the tables; the output written once) over the
-    memory rate, and the multiply-adds over the tensor rate of the
-    inputs' type; the larger bounds it."""
+def attention_work(x, kw) -> tuple[int, int]:
+    """Bytes one call must move (each input read once: q, the chunk's
+    k/v, the visible cached keys and values at the pool's itemsize and,
+    quantized, their f32 scales, the tables; the output written once) and
+    the flops it must do (two multiply-adds per visible (row, key, channel)
+    pair), on these inputs."""
     q = x["q"]
     b, sq, hq, d = q.shape
     hkv = x["k_new"].shape[2]
@@ -294,9 +303,17 @@ def attention_bound(x, kw) -> tuple[float, str]:
     nbytes = (2 * q.numel() + 2 * x["k_new"].numel()) * item \
         + 2 * keys_read * (hkv * d * pool_item + scale_heads * 4) \
         + 4 * (x["block_tables"].numel() + 2 * b)
-    flops = 4 * pairs * hq * d
-    rate = BF16_FLOPS if q.dtype.is_floating_point and item == 2 \
-        else FP32_FLOPS
+    return nbytes, 4 * pairs * hq * d
+
+
+def attention_bound(x, kw) -> tuple[float, str]:
+    """Least time (ms) the card needs for one call on these inputs: the
+    bytes of :func:`attention_work` over the memory rate and its flops
+    over the tensor rate of the inputs' type; the larger bounds it."""
+    nbytes, flops = attention_work(x, kw)
+    q = x["q"]
+    rate = BF16_FLOPS if q.dtype.is_floating_point and \
+        q.element_size() == 2 else FP32_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -365,9 +382,19 @@ def serving_shapes():
             dict(b=2, sq=256, pos0=[0, 300], true_len=[256, 200]))
 
 
+# a prefill tick of the serving path: 8 prompts of up to 700 tokens in
+# chunks of 256, at their first, second and third chunk
+PREFILL_TICK = dict(b=8, sq=256, pos0=[0, 256, 512, 0, 256, 512, 0, 256],
+                    true_len=[256] * 8)
+
+
 def time_attention(x, kw, dev, iters, flush) -> dict:
-    """Kernel, plain and library ms of one call, its bound, and the
-    library output's largest difference from the plain version."""
+    """Kernel, plain and library ms of one call, its bound, the variant
+    the call took, its TFLOP/s and GB/s over the work of
+    :func:`attention_work`, its share of the bound, its ratio to the
+    library call, whether a rerun gives the same bits, and the library
+    output's largest difference from the plain version."""
+    import torch
     from deepspeed_tpu_torch.inference.v2 import paged
     ref = paged.paged_attention_plain(*x.values(), **kw)
     lib = library_attention(x, kw)
@@ -376,13 +403,23 @@ def time_attention(x, kw, dev, iters, flush) -> dict:
                         .abs().max())
                   for i, t in enumerate(x["true_len"].tolist()))
     bound, bound_by = attention_bound(x, kw)
-    return dict(
+    nbytes, flops = attention_work(x, kw)
+    runs = [paged.paged_attention_kernel(*x.values(), **kw)
+            for _ in range(2)]
+    rec = dict(
         ms=time_ms(lambda: paged.paged_attention_kernel(*x.values(), **kw),
                    dev, iters, flush),
         plain_ms=time_ms(lambda: paged.paged_attention_plain(
             *x.values(), **kw), dev, max(iters // 4, 2), flush),
         library_ms=time_ms(lib, dev, iters, flush),
-        bound_ms=bound, bound_by=bound_by, library_max_abs_err=lib_err)
+        bound_ms=bound, bound_by=bound_by, library_max_abs_err=lib_err,
+        variant=paged.paged_attention_kernel.variant,
+        bit_identical_rerun=bool(torch.equal(*runs)))
+    rec.update(tflops=flops / rec["ms"] / 1e9,
+               gb_per_s=nbytes / rec["ms"] / 1e6,
+               bound_share=bound / rec["ms"],
+               x_library=rec["ms"] / rec["library_ms"])
+    return rec
 
 
 def kernel_checks(dev, flush=None, iters=20):
@@ -392,7 +429,8 @@ def kernel_checks(dev, flush=None, iters=20):
     decode, prefill = serving_shapes()
     cases = {"decode": decode, "prefill": prefill,
              "prefill_window": dict(prefill, window=128),
-             "decode_alibi": dict(decode, alibi=True)}
+             "decode_alibi": dict(decode, alibi=True),
+             "prefill_tick": PREFILL_TICK}
     errs = {}
     record = {}
     for dtype_name, tol in TOL.items():
@@ -413,10 +451,23 @@ def kernel_checks(dev, flush=None, iters=20):
                     f"paged_attention kernel disagrees with its plain "
                     f"version: {name} {dtype_name}, max|err| "
                     f"{float(err.max()):.3e} > tol {tol:g}")
-            if dtype_name == "bfloat16" and name in ("decode", "prefill"):
+            if dtype_name == "bfloat16" and name in ("decode", "prefill",
+                                                      "prefill_tick"):
                 record[name] = time_attention(x, kw, dev, iters, flush)
                 log(f"[kernel] {name} times (ms): {json.dumps(record[name])}")
+                check_rerun(record[name], name)
     return errs, record
+
+
+def check_rerun(rec: dict, name: str) -> None:
+    """A timed paged call must rerun bit for bit (no atomics) on the card,
+    through one of the bf16 variants of this port's design."""
+    if rec["variant"] is not None and (
+            not rec["bit_identical_rerun"]
+            or rec["variant"] not in NEW_PAGED_VARIANTS):
+        raise AssertionError(f"paged_attention {name}: variant "
+                             f"{rec['variant']}, bit-identical rerun "
+                             f"{rec['bit_identical_rerun']}")
 
 
 # quantized-pool cases: head_dim, block size, heads, GQA, window, ALiBi,
@@ -495,6 +546,7 @@ def quant_checks(dev, flush=None, iters=20):
         record[name] = time_attention(x, kw, dev, iters, flush)
         log(f"[kernel] quantized int8 {name} times (ms): "
             f"{json.dumps(record[name])}")
+        check_rerun(record[name], f"int8 {name}")
     return errs, record
 
 
@@ -559,10 +611,12 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
     serve(engine, [prompts[0][:16]], 2, dev)          # warm-up
     norms = norm_counter(c)
     paged.paged_attention_kernel.launches = 0
+    paged.paged_attention_kernel.variant_launches = {}
     norms.launches = 0
     engine.serving_stats["host_dispatches"] = 0
     outs, wall, ticks = serve(engine, prompts, max_new, dev)
     launches = paged.paged_attention_kernel.launches
+    by_variant = dict(paged.paged_attention_kernel.variant_launches)
     norm_launches = norms.launches
     dispatches = engine.serving_stats["host_dispatches"]
     for o in outs:
@@ -579,12 +633,13 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
         raise AssertionError(
             f"norm launches {norm_launches} != (2 x {c.num_layers} layers "
             f"+ 1) x dispatches {dispatches}")
+    check_variants(by_variant, launches, dev, "serving")
     pre = [(s, p) for s, p, _, _ in ticks if p > 0]
     dec = [s for s, p, d, _ in ticks if p == 0 and d > 0]
     stats = dict(
         requests=n_req, new_tokens=max_new, prompt_tokens=int(lens.sum()),
         ticks=len(ticks), dispatches=dispatches, launches=launches,
-        norm_launches=norm_launches,
+        launches_by_variant=by_variant, norm_launches=norm_launches,
         decode_norm_launches=sum(n for _, p, d, n in ticks
                                  if p == 0 and d > 0),
         prefill_ticks=len(pre),
@@ -596,6 +651,16 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
         e2e_tokens_per_s=(int(lens.sum()) + n_req * max_new) / wall)
     log(f"[main] {json.dumps(stats)}")
     return engine, stats
+
+
+def check_variants(by_variant: dict, launches: int, dev, what: str) -> None:
+    """Every bf16 paged-attention launch of a main path took one of the
+    port's new kernels (the counts by variant add up to the launches)."""
+    if dev.type == "cuda" and (sum(by_variant.values()) != launches or
+                               set(by_variant) - set(NEW_PAGED_VARIANTS)):
+        raise AssertionError(f"{what}: paged launches by variant "
+                             f"{by_variant}, {launches} in all; every bf16 "
+                             f"launch must take {NEW_PAGED_VARIANTS}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -655,11 +720,14 @@ def layer_checker(tol: float):
     ``tol``) at every call; the dict counts the calls and keeps the worst
     error."""
     from deepspeed_tpu_torch.inference.v2 import paged
-    worst = {"layer_calls": 0, "max_abs_err": 0.0}
+    worst = {"layer_calls": 0, "max_abs_err": 0.0, "variants": {}}
 
     def checked(*args, sanitize_pools=True, **kw):
         got = paged.paged_attention_kernel(
             *args, sanitize_pools=sanitize_pools, **kw)
+        if args[0].device.type == "cuda":
+            v = paged.paged_attention_kernel.variant
+            worst["variants"][v] = worst["variants"].get(v, 0) + 1
         ref = paged.paged_attention_plain(*args, **kw).float()
         err = (got.float() - ref).abs()
         worst["layer_calls"] += 1
@@ -725,9 +793,12 @@ def main_path_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
     plain16 = teacher_forced_logits(model, dev, True, bs, nb, lens,
                                     attention=plain)
     ref16 = teacher_forced_logits(model, dev, False, bs, nb, lens)
+    check_variants(worst["variants"], worst["layer_calls"], dev,
+                   "bf16 layer calls")
     rels = {"fp32_kernel_vs_reference": rel_err(kernel32, ref32),
             "bf16_layer_calls": worst["layer_calls"],
             "bf16_layer_max_abs_err": worst["max_abs_err"],
+            "bf16_layer_calls_by_variant": worst["variants"],
             "bf16_kernel_vs_reference": rel_err(kernel16, ref16),
             "bf16_plain_vs_reference": rel_err(plain16, ref16),
             "bf16_kernel_vs_fp32": rel_err(kernel16, ref32),
@@ -789,10 +860,12 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
     serve(engine, [prefix], 2, dev)            # warm-up: publishes prefix
     norms = norm_counter(c)
     paged.paged_attention_kernel.launches = 0
+    paged.paged_attention_kernel.variant_launches = {}
     norms.launches = 0
     engine.reset_serving_metrics()
     outs, wall, ticks = serve(engine, prompts, max_new, dev)
     launches = paged.paged_attention_kernel.launches
+    by_variant = dict(paged.paged_attention_kernel.variant_launches)
     norm_launches = norms.launches
     m = engine.serving_metrics()
     dispatches = m["host_dispatches"]
@@ -826,6 +899,7 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
                    f"{engine.num_kv_blocks} after the flush")
     if bad:
         raise AssertionError("; ".join(bad))
+    check_variants(by_variant, launches, dev, "Path Q")
     refs = ref_engine.generate(prompts, max_new_tokens=max_new)
     horizon = agreement(outs, refs)
     pre = [(s, p) for s, p, _, _ in ticks if p > 0]
@@ -834,6 +908,7 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
         requests=n_req, new_tokens=max_new, prefix_tokens=prefix_len,
         suffix_tokens=int(lens.sum()), ticks=len(ticks),
         dispatches=dispatches, launches=launches,
+        launches_by_variant=by_variant,
         norm_launches=norm_launches, prefill_ticks=len(pre),
         prefill_tokens_per_s=sum(p for _, p in pre) / sum(s for s, _ in pre),
         decode_ticks=len(dec),
@@ -882,8 +957,12 @@ def path_q_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
             if worst["layer_calls"] != calls:
                 raise AssertionError(f"{worst['layer_calls']} checked layer "
                                      f"calls != {calls}")
+            if dtype_name == "bfloat16":
+                check_variants(worst["variants"], calls, dev,
+                               f"Path Q {kv} bf16 layer calls")
             rec[dtype_name] = dict(
                 layer_calls=worst["layer_calls"],
+                layer_calls_by_variant=worst["variants"],
                 layer_max_abs_err=worst["max_abs_err"],
                 tol=TOL[dtype_name],
                 logits_kernel_vs_reference=rel_err(kern, ref))
@@ -903,31 +982,60 @@ ATTENTION_KERNEL = re.compile(r"((?:flash|bs)_[a-z_]+kernel)I"
                               r"(?:Li(\d+)E)?")
 KERNEL_TYPES = {"f": (0, "fp32"), "13__nv_bfloat16": (1, "bf16"),
                 "6__half": (2, "fp16")}
+# the paged-attention kernels: kernel, dtype, pool type (absent: the
+# combine; f or a substitution S<n>_: the pool is of the dtype), D and the
+# split's rows R (the CUDA-core kernel's rows a warp)
+PAGED_KERNEL = re.compile(r"(paged_[a-z_]+kernel)I(f|13__nv_bfloat16)"
+                          r"(f|S\d*_|a|13__nv_fp8_e4m3)?Li(\d+)E"
+                          r"(?:Li(\d+)E)?")
+POOL_TYPES = {None: (0, ""), "a": (1, " int8"),
+              "13__nv_fp8_e4m3": (2, " fp8")}
+# ds_paged_attention_smem's kernel codes
+PAGED_SMEM = {"paged_attention_kernel": 0, "paged_prefill_tc_kernel": 1,
+              "paged_decode_split_kernel": 2}
 
 
 def attention_build_report(name: str) -> dict:
     """Registers, spills (ptxas, from the build log) and the dynamic shared
     memory a block asks for (the library's ``ds_<name>_smem``) of every
-    kernel of the flash_attention or block_sparse_attention library, keyed
-    "kernel dtype D" (+ " TY" for the CUDA-core block-sparse kernels, whose
-    shared memory the table gives at TY 16 only)."""
+    kernel of the flash_attention, block_sparse_attention or
+    paged_attention library, keyed "kernel dtype D" (+ " TY" for the
+    CUDA-core block-sparse kernels, whose shared memory the table gives at
+    TY 16 only; paged: "kernel dtype [pool] D [R]", the split's shared
+    memory at R 16 only, the combine's none)."""
+    from deepspeed_tpu_torch.inference.v2 import paged
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
-    lib = (fa if name == "flash_attention" else bsa)._kernel()
+    if name == "paged_attention":
+        lib, pattern = paged._kernel_fn()[0], PAGED_KERNEL
+    else:
+        lib = (fa if name == "flash_attention" else bsa)._kernel()
+        pattern = ATTENTION_KERNEL
     smem = getattr(lib, f"ds_{name}_smem")
     which = {"fwd": 0, "dq": 1, "dkv": 2}
     report, found = {}, None
     log_text = op_builder.library_path(name).with_suffix(".log").read_text()
     for line in log_text.splitlines():
         if "Function properties for" in line:
-            found = ATTENTION_KERNEL.search(line)
+            found = pattern.search(line)
             continue
         if found is None:
             continue
-        kernel, t, d, ty = found.groups()
-        code, tname = KERNEL_TYPES[t]
-        key = f"{kernel} {tname} D{d}" + (f" TY{ty}" if ty else "")
+        if name == "paged_attention":
+            kernel, t, pool, d, r = found.groups()
+            code, tname = KERNEL_TYPES[t]
+            pcode, pname = POOL_TYPES.get(pool, (0, " fp"))
+            key = f"{kernel} {tname}{pname} D{d}" + (f" R{r}" if r else "")
+            split4 = kernel == "paged_decode_split_kernel" and r == "4"
+            size = (smem(PAGED_SMEM[kernel], code, pcode, int(d))
+                    if kernel in PAGED_SMEM and not split4 else None)
+        else:
+            kernel, t, d, ty = found.groups()
+            code, tname = KERNEL_TYPES[t]
+            key = f"{kernel} {tname} D{d}" + (f" TY{ty}" if ty else "")
+            size = (smem(which[next(k for k in which if f"_{k}_" in kernel)],
+                         code, int(d)) if ty in (None, "16") else None)
         rec = report.setdefault(key, {})
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -936,10 +1044,7 @@ def attention_build_report(name: str) -> dict:
                        spill_loads=int(spill.group(2)))
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
-            kind = next(k for k in which if f"_{k}_" in kernel)
-            rec.update(registers=int(regs.group(1)),
-                       dynamic_smem=smem(which[kind], code, int(d))
-                       if ty in (None, "16") else None)
+            rec.update(registers=int(regs.group(1)), dynamic_smem=size)
             found = None
     return report
 
@@ -2659,7 +2764,7 @@ def remat_policies_main(dev, size="125m", steps=3, seq=1024):
 # device kernels by kind, matched on their names in this order
 PROFILE_KINDS = {
     "flash_attention": ("flash_fwd_", "flash_bwd_"),
-    "paged_attention": ("paged_attention_kernel",),
+    "paged_attention": ("paged_",),
     "fused_adam": ("fused_adam_kernel",),
     "fused_lion": ("fused_lion_kernel",),
     "block_sparse_attention": ("bs_fwd_", "bs_bwd_"),
@@ -2773,9 +2878,13 @@ def main(argv=None) -> int:
 
     build_s = op_builder.build(list(KERNELS))                 # phase 2
     log(f"[build] seconds {json.dumps(build_s)}")
-    for name in ("flash_attention", "block_sparse_attention"):
-        log(f"[build] {name} kernels: "
-            f"{json.dumps(attention_build_report(name))}")
+    for name in ("paged_attention", "flash_attention",
+                 "block_sparse_attention"):
+        report = attention_build_report(name)
+        log(f"[build] {name} kernels: {json.dumps(report)}")
+        spilled = {k: r for k, r in report.items() if r.get("spill_stores")}
+        if name == "paged_attention" and spilled:
+            raise AssertionError(f"paged kernels spill: {spilled}")
     for name in KERNELS:
         ptxas = op_builder.library_path(name).with_suffix(".log")
         for line in ptxas.read_text().splitlines():
@@ -2875,6 +2984,16 @@ def main(argv=None) -> int:
                     cases_tol_fp16=FLASH_TOL["float16"])
 
     dec, pre = times["decode"], times["prefill"]
+
+    def paged_extra(t, prefix=""):
+        keys = ("variant", "tflops", "gb_per_s", "bound_share", "x_library",
+                "bit_identical_rerun")
+        return {prefix + k: t[k] for k in keys}
+
+    def paged_prefill(t, prefix="prefill_"):
+        return {prefix + k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
+
     flash_main = train_times["flash_attention_fwd"]["check"]
     adam_main = train_times["fused_adam"]["check"]
     lion_main = path_times["fused_lion"]["check"]
@@ -2888,11 +3007,14 @@ def main(argv=None) -> int:
               tol_fp32=TOL["float32"],
               shape="decode B=8 Sq=1 ctx 100-2000 Hq=32 Hkv=8 D=128 bs=64 "
                     "bf16",
-              prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],
-              prefill_bound_ms=pre["bound_ms"],
-              prefill_bound_by=pre["bound_by"],
-              prefill_library_ms=pre["library_ms"],
+              **paged_extra(dec), **paged_prefill(pre),
+              **paged_extra(pre, "prefill_"),
+              prefill_shape="B=2 Sq=256 pos0 0/300 true_len 256/200",
+              **paged_prefill(times["prefill_tick"], "prefill_tick_"),
+              **paged_extra(times["prefill_tick"], "prefill_tick_"),
+              prefill_tick_shape=f"B=8 Sq=256 pos0 {PREFILL_TICK['pos0']}",
               main_path="serving",
+              main_path_launches_by_variant=stats["launches_by_variant"],
               main_path_fp32_rel_logits_err=rels["fp32_kernel_vs_reference"],
               main_path_bf16_layer_max_abs_err=rels[
                   "bf16_layer_max_abs_err"]),
@@ -2906,13 +3028,12 @@ def main(argv=None) -> int:
               mode="int8/fp8 pools, f32 scales per (token, head) or token",
               shape="decode B=8 Sq=1 ctx 100-2000 Hq=32 Hkv=8 D=128 bs=64 "
                     "bf16, int8 per-head pools",
-              prefill_ms=quant_times["prefill"]["ms"],
-              prefill_plain_ms=quant_times["prefill"]["plain_ms"],
-              prefill_bound_ms=quant_times["prefill"]["bound_ms"],
-              prefill_bound_by=quant_times["prefill"]["bound_by"],
-              prefill_library_ms=quant_times["prefill"]["library_ms"],
+              **paged_extra(quant_times["decode"]),
+              **paged_prefill(quant_times["prefill"]),
+              **paged_extra(quant_times["prefill"], "prefill_"),
               library="gathered codes dequantized to bf16, then SDPA",
               main_path="Path Q",
+              main_path_launches_by_variant=path_q["launches_by_variant"],
               main_path_layer_max_abs_err={
                   kv: {dt: r["layer_max_abs_err"] for dt, r in rec.items()}
                   for kv, rec in q_rels.items()}),

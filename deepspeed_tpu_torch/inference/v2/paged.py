@@ -4,9 +4,10 @@ inference/v2/kernels/ragged_ops/ — blocked_flash is a paged FlashAttention
 over the block table; logits_gather picks each sequence's last-token
 logits).
 
-``paged_attention_kernel`` launches the hand-written Hopper kernel
-(``csrc/paged_attention.cu``) on CUDA tensors and its plain PyTorch
-version on CPU tensors. ``gather_pages`` + ``place_in_pages`` +
+``paged_attention_kernel`` launches the hand-written Hopper kernels
+(``csrc/paged_attention.cu``; :func:`launch_plan` picks one from the
+call's shapes) on CUDA tensors and its plain PyTorch version on CPU
+tensors. ``gather_pages`` + ``place_in_pages`` +
 ``paged_attention`` are the plain reference path, as in the JAX package.
 Quantized pools (int8 or fp8-e4m3 codes with per-vector f32 scales,
 ``ops/quantization.py``) are read by both: the kernel dequantizes each
@@ -28,6 +29,11 @@ _KERNEL_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # pool storage codes of the kernel's C entry: 0 = q's dtype (fp pools)
 _POOL_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
+# the C entry's table (ds_paged_attention_variant)
+VARIANTS = {0: "cuda_cores", 1: "prefill_wgmma", 2: "decode_split"}
+SPLIT_ROWS = 16       # (query, head) rows a kv head serves: decode split
+SPLIT_KEYS = 128      # keys a split of the decode split
+_GRID_YZ = 65535      # a launch grid's y and z limit
 
 
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor):
@@ -154,15 +160,51 @@ def paged_attention_plain(q, k_new, v_new, k_pool, v_pool, block_tables,
     return out.to(q.dtype)
 
 
+def launch_plan(q_shape, dtype, num_kv_heads: int,
+                block_tables_shape, block_size: int) -> dict:
+    """The kernel a CUDA call takes, from shapes alone (never from pos0's
+    or true_len's values, so the wrapper reads nothing back from the card
+    and a CUDA graph can capture the call): ``variant`` ("decode_split"
+    when the rows = S_new * Hq / Hkv one kv head serves are at most
+    ``SPLIT_ROWS``, fp32 or bf16; else "prefill_wgmma" for bf16 and
+    "cuda_cores" for fp32; None where no kernel takes the call),
+    ``splits`` (the decode split's ceil(max_blocks * bs / SPLIT_KEYS),
+    else 0) and ``workspace``, the shape of its fp32 partials [B, Hkv,
+    splits, rows, D + 2] (else None). The same table as the C entry's
+    ``ds_paged_attention_variant`` and ``ds_paged_attention_splits``."""
+    b, sq, hq, d = q_shape
+    plan = {"variant": None, "splits": 0, "workspace": None}
+    if (dtype not in _KERNEL_DTYPES or d not in _KERNEL_DIMS
+            or num_kv_heads <= 0 or hq % num_kv_heads or sq <= 0
+            or b > _GRID_YZ or num_kv_heads > _GRID_YZ):
+        return plan
+    rows = sq * (hq // num_kv_heads)
+    if rows <= SPLIT_ROWS:
+        splits = -(-block_tables_shape[1] * block_size // SPLIT_KEYS)
+        return {"variant": "decode_split", "splits": splits,
+                "workspace": (b, num_kv_heads, splits, rows, d + 2)}
+    if dtype == torch.bfloat16:
+        plan["variant"] = "prefill_wgmma"
+    elif -(-rows // 16) <= _GRID_YZ:          # 16 rows a CUDA-core block
+        plan["variant"] = "cuda_cores"
+    return plan
+
+
 def _kernel_fn():
     lib = op_builder.load("paged_attention")
     fn = lib.ds_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 13
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ds_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
+        lib.ds_paged_attention_variant.argtypes = [ctypes.c_int] * 5
+        lib.ds_paged_attention_variant.restype = ctypes.c_int
+        lib.ds_paged_attention_splits.argtypes = [ctypes.c_int] * 2
+        lib.ds_paged_attention_splits.restype = ctypes.c_longlong
+        lib.ds_paged_attention_smem.argtypes = [ctypes.c_int] * 4
+        lib.ds_paged_attention_smem.restype = ctypes.c_longlong
     return lib, fn
 
 
@@ -191,22 +233,44 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
     fp32/bf16 and the fresh chunk is folded unquantized.
 
     CPU tensors take :func:`paged_attention_plain`. CUDA tensors launch
-    ``csrc/paged_attention.cu`` (fp32 or bf16, D in {16, 32, 64, 128},
-    block size a multiple of 8, contiguous int32 tables/pos0/true_len)
-    or raise; ``paged_attention_kernel.launches`` counts the launches.
+    one kernel of ``csrc/paged_attention.cu`` (fp32 or bf16, D in {16,
+    32, 64, 128}, block size a multiple of 8, contiguous int32
+    tables/pos0/true_len) or raise. :func:`launch_plan` picks it from
+    the shapes; ``paged_attention_kernel.launches`` counts the calls,
+    ``.variant_launches`` them by variant and ``.variant`` names the
+    last call's.
 
-    What bounds it on an H100: bytes. A decode row reads
-    ``2 * ctx * Hkv * D * itemsize`` bytes of KV per layer (1 byte an
-    element plus 4 bytes per (token, scale head) when quantized) at
-    3.35 TB/s and does a few flops per byte, far below the card's ridge
-    point. The simple design reads only the live keys (positions < pos0,
-    trimmed by the window), loads each K/V element once per thread block
-    and serves the GQA group's ``rep`` q heads from it; it does not yet
-    split a long context across blocks or overlap the next tile's load
-    with the fold. ``sanitize_pools`` is accepted for the JAX signature
-    and has nothing to select here: the kernel zero-fills every tile slot
-    outside the live range instead of reading it, so dead pool slots are
-    never used whatever they hold."""
+    * "decode_split" (at most ``SPLIT_ROWS`` rows = S_new * Hq / Hkv a
+      kv head: the decode ticks). Bounded by bytes: a decode row reads
+      ``2 * ctx * Hkv * D * itemsize`` bytes of KV a layer (1 byte an
+      element plus 4 bytes per (token, scale head) when quantized) and
+      does ~1 flop a byte. Each row's context is cut into splits of
+      ``SPLIT_KEYS`` keys, one thread block per (split, kv head, batch
+      row), so a batch of 8 fills the card; a block issues its split's
+      K and V at once, keeps them in the pool's type and serves every
+      (query, head) row of the GQA group from each key on the CUDA cores,
+      writing fp32 partials (m, l, o) to a workspace taken here with
+      ``torch.empty``; a second kernel folds them in split order, then
+      the chunk's fresh keys. Everything stays fp32.
+    * "prefill_wgmma" (bf16, more rows: prefill chunks and mixed
+      ticks). ~64 flops a staged byte, so tensor cores: a block of two
+      warpgroups owns 128 (query, head) rows of one kv head (64 each)
+      and streams 64-key chunks (the cached keys gathered through the
+      block table, then the fresh ones) through a 3-stage cp.async ring;
+      S = Q K^T and O += P V by wgmma, the online softmax in registers. P is rounded to bf16
+      before P V, where the JAX kernel rounds p to v's dtype; with
+      quantized pools the JAX kernel keeps p in fp32, and this rounding
+      is the one place the kernel rounds more than the reference (each
+      value's scale is folded into P before it is rounded). A block
+      whose rows are all past true_len writes zeros without reading, so
+      a mixed tick's decode rows cost one block each.
+    * "cuda_cores" (fp32, more rows): exact fp32 FMAs, 16 rows a block
+      over 32-key tiles.
+
+    ``sanitize_pools`` is accepted for the JAX signature and has nothing
+    to select here: every kernel zero-fills the tile slots outside the
+    live range instead of reading them, so dead pool slots are never used
+    whatever they hold."""
     quant = k_scale is not None
     _check(quant == (v_scale is not None),
            "k_scale and v_scale come together (quantized pools) or not at "
@@ -269,7 +333,13 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
                                  device=q.device).contiguous()
         _check(slopes.shape == (hq,), f"alibi_slopes shape "
                f"{tuple(slopes.shape)}")
+    plan = launch_plan(q.shape, q.dtype, hkv, block_tables.shape, bs)
+    variant = plan["variant"]
+    _check(variant is not None, f"no kernel variant takes B {b} x "
+           f"{hkv} kv heads x {sq} rows (grid y/z limit {_GRID_YZ})")
     out = torch.empty_like(q)
+    ws = (torch.empty(plan["workspace"], dtype=torch.float32,
+                      device=q.device) if plan["workspace"] else None)
     lib, fn = _kernel_fn()
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
              k_pool.data_ptr(), v_pool.data_ptr(),
@@ -277,19 +347,25 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
              v_scale.data_ptr() if quant else None, block_tables.data_ptr(),
              pos0.data_ptr(), true_len.data_ptr(),
              None if slopes is None else slopes.data_ptr(), out.data_ptr(),
+             None if ws is None else ws.data_ptr(),
              _KERNEL_DTYPES[q.dtype], _POOL_CODES[k_pool.dtype] if quant
              else 0, b, sq, hq, hkv, d, nb, bs, hs,
-             block_tables.shape[1], window or 0,
+             block_tables.shape[1], window or 0, plan["splits"],
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {err} "
             f"({lib.ds_cuda_error_string(err).decode()})")
     paged_attention_kernel.launches += 1
+    paged_attention_kernel.variant = variant
+    by_variant = paged_attention_kernel.variant_launches
+    by_variant[variant] = by_variant.get(variant, 0) + 1
     return out
 
 
 paged_attention_kernel.launches = 0
+paged_attention_kernel.variant = None
+paged_attention_kernel.variant_launches = {}
 
 
 @torch.no_grad()

@@ -65,6 +65,11 @@ def _inputs(dev, dtype, sq, d, seed=0):
                 pos0=ints(POS0), true_len=ints(true_len))
 
 
+def _plan(x):
+    return paged.launch_plan(x["q"].shape, x["q"].dtype, x["k_new"].shape[2],
+                             x["block_tables"].shape, x["k_pool"].shape[1])
+
+
 def _kwargs(variant, dev):
     kw = {"window": VARIANTS[variant].get("window")}
     if VARIANTS[variant].get("alibi"):
@@ -83,6 +88,7 @@ def test_kernel_matches_plain(cuda, dtype, d, sq, variant):
     got = paged.paged_attention_kernel(*x.values(), **kw)
     torch.cuda.synchronize()
     assert paged.paged_attention_kernel.launches == before + 1
+    assert paged.paged_attention_kernel.variant == _plan(x)["variant"]
     ref = paged.paged_attention_plain(*x.values(), **kw)
     assert got.dtype == dtype and got.shape == ref.shape
     torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
@@ -100,6 +106,17 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     for match, args in bad:
         with pytest.raises(ValueError, match=match):
             paged.paged_attention_kernel(*args.values())
+    # a shape no variant takes: 65536 batch rows (past a grid's y/z limit)
+    wide = _inputs(cuda, torch.bfloat16, 1, 32)
+    n = 65536
+    wide.update(q=wide["q"][:1].expand(n, -1, -1, -1).contiguous(),
+                k_new=wide["k_new"][:1].expand(n, -1, -1, -1).contiguous(),
+                v_new=wide["v_new"][:1].expand(n, -1, -1, -1).contiguous(),
+                block_tables=wide["block_tables"][:1].expand(n, -1)
+                .contiguous(), pos0=wide["pos0"][:1].expand(n).contiguous(),
+                true_len=wide["true_len"][:1].expand(n).contiguous())
+    with pytest.raises(ValueError, match="no kernel variant"):
+        paged.paged_attention_kernel(*wide.values())
 
 
 def test_engine_on_the_card_matches_the_cpu_and_launches_every_layer(cuda):
@@ -146,6 +163,7 @@ def test_quantized_kernel_matches_plain(cuda, dtype, kv_dtype, granularity,
     got = paged.paged_attention_kernel(*x.values(), **kw)
     torch.cuda.synchronize()
     assert paged.paged_attention_kernel.launches == before + 1
+    assert paged.paged_attention_kernel.variant == _plan(x)["variant"]
     ref = paged.paged_attention_plain(*x.values(), **kw)
     assert got.dtype == dtype and got.shape == ref.shape
     torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
@@ -204,6 +222,155 @@ def test_quantized_engine_with_prefix_cache_on_the_card(cuda, kv_dtype):
         assert (m["prefix_hits"], m["prefill_tokens_saved"]) == (6, 48)
         e.flush([1, 2])
         assert e.free_blocks == e.num_kv_blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_variant_by_dtype_and_shape(cuda, dtype):
+    """The wrapper's plan, the C entry's table and the launches agree:
+    decode rows (S_new * Hq / Hkv <= 16) take the decode split in either
+    dtype with the plan's splits; more rows the tensor-core prefill in
+    bf16 and the CUDA-core kernel in fp32."""
+    lib, _ = paged._kernel_fn()
+    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    for sq, hq, hkv in ((1, 8, 2), (4, 8, 2), (2, 16, 2), (5, 8, 2),
+                        (1, 32, 1), (40, 8, 2), (3, 6, 6)):
+        x = _inputs(cuda, dtype, 1, 32)
+        x["q"] = torch.zeros(B, sq, hq, 32, dtype=dtype, device=cuda)
+        x["k_new"] = torch.zeros(B, sq, hkv, 32, dtype=dtype, device=cuda)
+        x["v_new"] = torch.zeros_like(x["k_new"])
+        x["k_pool"] = x["k_pool"][:, :, :1].expand(-1, -1, hkv, -1) \
+            .contiguous()
+        x["v_pool"] = x["k_pool"].clone()
+        x["true_len"] = torch.full((B,), sq, dtype=torch.int32, device=cuda)
+        plan = _plan(x)
+        rows = sq * hq // hkv
+        want = ("decode_split" if rows <= paged.SPLIT_ROWS else
+                "prefill_wgmma" if dtype == torch.bfloat16 else "cuda_cores")
+        assert plan["variant"] == want
+        assert paged.VARIANTS[lib.ds_paged_attention_variant(
+            code, 32, sq, hq, hkv)] == want
+        assert lib.ds_paged_attention_splits(MAXB, BS) == \
+            -(-MAXB * BS // paged.SPLIT_KEYS)
+        if want == "decode_split":
+            assert plan["splits"] == lib.ds_paged_attention_splits(MAXB, BS)
+        before = dict(paged.paged_attention_kernel.variant_launches)
+        paged.paged_attention_kernel(*x.values())
+        torch.cuda.synchronize()
+        assert paged.paged_attention_kernel.variant == want
+        assert (paged.paged_attention_kernel.variant_launches[want]
+                == before.get(want, 0) + 1)
+    for which in (1, 2):
+        size = lib.ds_paged_attention_smem(which, code, 0, 128)
+        assert size > 0 if which == 2 or dtype == torch.bfloat16 \
+            else size == -1
+
+
+def _dead_poisoned(x, window):
+    """The call's pools with NaN (inf in the scales) in every slot no row
+    may read: past pos0, outside the table, older than the window of the
+    row's first query; k_new/v_new NaN past true_len."""
+    y = {k: v.clone() for k, v in x.items()}
+    nb, bs = x["k_pool"].shape[:2]
+    live = torch.zeros(nb, bs, dtype=torch.bool)
+    tables = x["block_tables"].cpu()
+    for b, (p0, tl) in enumerate(zip(x["pos0"].tolist(),
+                                     x["true_len"].tolist())):
+        if tl:
+            lo = max(0, p0 - window + 1) if window else 0
+            for kp in range(lo, min(p0, tables.shape[1] * bs)):
+                blk = min(max(int(tables[b, kp // bs]), 0), nb - 1)
+                live[blk, kp % bs] = True
+        for name in ("k_new", "v_new"):
+            y[name][b, tl:] = float("nan")
+    dead = (~live).to(x["k_pool"].device)
+    for name in ("k_pool", "v_pool"):
+        if y[name].dtype == torch.float8_e4m3fn:       # 0x7f: e4m3 NaN
+            y[name].view(torch.uint8)[dead] = 0x7F
+        elif y[name].is_floating_point():
+            y[name][dead] = float("nan")
+    for name in ("k_scale", "v_scale"):
+        if name in y:
+            y[name][dead] = float("inf")
+    return y
+
+
+MIXED_TICK = dict(b=4, sq=96, pos0=[0, 150, 90, 33], true_len=[96, 1, 1, 0])
+
+
+def _case(dev, dtype, b, sq, pos0, true_len, d=64, hq=8, hkv=2, bs=16,
+          seed=0):
+    rng = np.random.default_rng(seed)
+    max_blocks = max(-(-(p + sq) // bs) for p in pos0) + 1
+    nb = b * max_blocks + 5
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    tables = rng.permutation(nb)[:b * max_blocks].reshape(b, max_blocks)
+    tables[0, -1] = nb + 3
+    ints = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa
+    return dict(q=f(b, sq, hq, d), k_new=f(b, sq, hkv, d),
+                v_new=f(b, sq, hkv, d), k_pool=f(nb, bs, hkv, d),
+                v_pool=f(nb, bs, hkv, d), block_tables=ints(tables),
+                pos0=ints(pos0), true_len=ints(true_len))
+
+
+PAGED_RERUN_CASES = {
+    "decode_split": dict(b=3, sq=1, pos0=[300, 0, 129], true_len=[1, 1, 0]),
+    "prefill_wgmma": dict(b=2, sq=80, pos0=[70, 0], true_len=[80, 61]),
+    "mixed_tick": MIXED_TICK,
+}
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8_head", "fp8_token"])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("name", list(PAGED_RERUN_CASES))
+def test_paged_kernels_rerun_bit_identical_and_never_read_dead_slots(
+        cuda, name, window, pool):
+    """Both new kernels: a rerun gives the same bits (no atomics), and NaN
+    or inf in every dead pool slot and fresh row leaves the output
+    bit-identical to the clean call's; the mixed tick (a 96-row chunk
+    beside decode rows of true_len 1 and 0) against plain at 3e-2."""
+    x = _case(cuda, torch.bfloat16, **PAGED_RERUN_CASES[name])
+    kw = {"window": window}
+    if pool != "bf16":
+        kv_dtype, gran = pool.split("_")
+        hs = x["k_pool"].shape[2] if gran == "head" else 1
+        for p_, s_ in (("k_pool", "k_scale"), ("v_pool", "v_scale")):
+            x[p_], kw[s_] = kv_quantize(x[p_], kv_dtype, hs)
+    scales = {k: kw.pop(k) for k in ("k_scale", "v_scale") if k in kw}
+    clean = paged.paged_attention_kernel(*x.values(), **kw, **scales)
+    again = paged.paged_attention_kernel(*x.values(), **kw, **scales)
+    want = "decode_split" if name == "decode_split" else "prefill_wgmma"
+    assert paged.paged_attention_kernel.variant == want
+    y = _dead_poisoned(dict(x, **scales), window)
+    ys = {k: y.pop(k) for k in ("k_scale", "v_scale") if k in y}
+    poisoned = paged.paged_attention_kernel(*y.values(), **kw, **ys)
+    torch.cuda.synchronize()
+    assert torch.isfinite(clean).all()
+    assert torch.equal(clean, again)
+    assert torch.equal(clean, poisoned)
+    ref = paged.paged_attention_plain(*x.values(), **kw, **scales)
+    torch.testing.assert_close(clean.float(), ref.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_mixed_tick_and_context_lengths(cuda, dtype):
+    """A mixed tick and contexts that end mid-split, mid-chunk and past
+    several splits, with ALiBi, in both dtypes against plain."""
+    tol = TOL[dtype]
+    for shape in (MIXED_TICK,
+                  dict(b=3, sq=1, pos0=[127, 128, 1000], true_len=[1] * 3),
+                  dict(b=2, sq=2, pos0=[255, 63], true_len=[2, 2])):
+        x = _case(cuda, dtype, **shape, hq=16, hkv=2, d=128, bs=8, seed=2)
+        kw = {"alibi_slopes": alibi_slopes(16, device=cuda)}
+        got = paged.paged_attention_kernel(*x.values(), **kw)
+        ref = paged.paged_attention_plain(*x.values(), **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
 
 
 # ------------------------------------------------------- flash attention

@@ -13,6 +13,7 @@ import torch
 from deepspeed_tpu.inference.v2 import paged as jpaged
 from deepspeed_tpu.ops.layers import alibi_slopes as jax_alibi_slopes
 from deepspeed_tpu_torch.inference.v2 import paged as tpaged
+from deepspeed_tpu_torch.ops import quantization as tquant
 
 B, HQ, HKV, D, NB, BS, MAXB = 3, 4, 2, 32, 16, 8, 5
 POS0 = [13, 0, 24]
@@ -131,3 +132,353 @@ def test_kernel_wrapper_refuses_quantized_pools():
         tpaged.paged_attention_kernel(*x.values(), k_scale=scale,
                                       v_scale=scale)
 
+
+
+# ------------------------------------------- the CUDA kernels' schedules
+# The tensor-core prefill kernel and the decode split + combine of
+# csrc/paged_attention.cu, emulated in numpy in fp32 step by step (which
+# keys each thread block stages, in which order it folds them, what it
+# zero-fills), against the Pallas kernel in interpret mode at 2e-5.
+# name: B, S_new, Hq, Hkv, D, bs, pos0, true_len, extras
+SCHEDULE_CASES = {
+    "prefill_bs8_d32_rep4": (3, 40, 8, 2, 32, 8, [13, 0, 150],
+                             [40, 37, 25], {}),
+    "prefill_bs16_d128_rep1": (3, 70, 2, 2, 128, 16, [0, 64, 99],
+                               [70, 1, 0], {}),
+    "prefill_bs64_d32_rep8_window": (3, 24, 16, 2, 32, 64, [200, 31, 129],
+                                     [24, 10, 24], {"window": 50}),
+    "prefill_bs16_d32_rep4_alibi": (3, 20, 8, 2, 32, 16, [77, 5, 300],
+                                    [20, 20, 13], {"alibi": True}),
+    "prefill_rep3_tiles_end_mid_group": (2, 30, 6, 2, 32, 8, [20, 67],
+                                         [30, 29], {"window": 40}),
+    "mixed_tick": (3, 256, 8, 2, 32, 16, [0, 150, 90], [256, 1, 1], {}),
+    "prefill_int8_head": (2, 40, 8, 2, 32, 16, [45, 130], [40, 33],
+                          {"kv": ("int8", "head")}),
+    "prefill_int8_token_window_alibi": (2, 24, 8, 2, 64, 8, [100, 9],
+                                        [24, 24], {"kv": ("int8", "token"),
+                                                   "window": 30,
+                                                   "alibi": True}),
+    "decode_bs8_d32_rep4": (3, 1, 8, 2, 32, 8, [13, 0, 300], [1, 1, 0], {}),
+    "decode_bs64_d128_rep8": (2, 1, 16, 2, 128, 64, [200, 129], [1, 1], {}),
+    "decode_bs16_rep1_window_alibi": (3, 1, 4, 4, 32, 16, [250, 20, 128],
+                                      [1, 1, 1], {"window": 100,
+                                                  "alibi": True}),
+    "decode_sq2_rep8_ends_mid_split": (2, 2, 16, 2, 32, 8, [130, 255],
+                                       [2, 1], {"window": 200}),
+    "decode_int8_head": (2, 1, 8, 2, 32, 16, [140, 7], [1, 1],
+                         {"kv": ("int8", "head")}),
+    "decode_int8_token_alibi": (3, 1, 8, 2, 64, 8, [300, 0, 61], [1, 1, 1],
+                                {"kv": ("int8", "token"), "alibi": True}),
+}
+NEG = np.float32(-1e30)
+TILE_ROWS = 128    # rows a block of the tensor-core prefill: two warpgroups
+
+
+def _schedule_inputs(name, seed=0):
+    """One case's inputs (numpy, fp32 or int8 pools with f32 scales), its
+    window and ALiBi slopes (or None)."""
+    b, sq, hq, hkv, d, bs, pos0, true_len, extra = SCHEDULE_CASES[name]
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    max_blocks = max(-(-(p + sq) // bs) for p in pos0) + 1
+    nb = b * max_blocks + 3
+    tables = rng.permutation(nb)[:b * max_blocks].reshape(b, max_blocks)
+    tables[0, -1] = nb + 5         # a padded slot past the pool: clamped
+    x = dict(q=f(b, sq, hq, d), k_new=f(b, sq, hkv, d),
+             v_new=f(b, sq, hkv, d), k_pool=f(nb, bs, hkv, d),
+             v_pool=f(nb, bs, hkv, d), block_tables=tables.astype(np.int32),
+             pos0=np.asarray(pos0, np.int32),
+             true_len=np.asarray(true_len, np.int32))
+    if "kv" in extra:
+        kv_dtype, gran = extra["kv"]
+        hs = hkv if gran == "head" else 1
+        for name_ in ("k", "v"):
+            codes, scales = tquant.kv_quantize(
+                torch.from_numpy(x[f"{name_}_pool"]), kv_dtype, hs)
+            x[f"{name_}_pool"] = codes.numpy()
+            x[f"{name_}_scale"] = scales.numpy()
+    slopes = (np.array(jax_alibi_slopes(hq), np.float32)
+              if extra.get("alibi") else None)
+    return x, extra.get("window"), slopes
+
+
+def _dead_slots_poisoned(x, window):
+    """The inputs with NaN (inf in the scales) in every pool slot no row
+    may read (past pos0, outside the table, older than the window of the
+    row's first query) and in every k_new/v_new row past true_len."""
+    y = {k: v.copy() for k, v in x.items()}
+    nb, bs = x["k_pool"].shape[:2]
+    live = np.zeros((nb, bs), bool)
+    for b, (p0, tl) in enumerate(zip(x["pos0"], x["true_len"])):
+        if tl == 0:
+            continue
+        lo = max(0, p0 - window + 1) if window else 0
+        for kp in range(lo, min(p0, x["block_tables"].shape[1] * bs)):
+            blk = min(max(x["block_tables"][b, kp // bs], 0), nb - 1)
+            live[blk, kp % bs] = True
+        y["k_new"][b, tl:] = np.nan
+        y["v_new"][b, tl:] = np.nan
+    for name in ("k_pool", "v_pool"):
+        if y[name].dtype == np.float32:
+            y[name][~live] = np.nan
+    for name in ("k_scale", "v_scale"):
+        if name in y:
+            y[name][~live] = np.inf
+    return y
+
+
+def _pool_rows(x, name, b, g, kp):
+    """Cached keys kp of batch row b, kv head g, through the clamped table:
+    the pool's rows (fp32) and their scales (ones for fp pools)."""
+    nb, bs = x["k_pool"].shape[:2]
+    blk = np.clip(x["block_tables"][b, kp // bs], 0, nb - 1)
+    rows = x[f"{name}_pool"][blk, kp % bs, g].astype(np.float32)
+    if f"{name}_scale" not in x:
+        return rows, np.ones(len(kp), np.float32)
+    hs = x[f"{name}_scale"].shape[-1]
+    return rows, x[f"{name}_scale"][blk, kp % bs, g % hs]
+
+
+def _prefill_schedule(x, window, slopes):
+    """paged_prefill_tc_kernel: a block per (b, kv head, TILE_ROWS
+    flattened rows), 64-key chunks (the cached keys the block's first
+    query can see, then the fresh keys up to its last live query) with
+    dead slots zero-filled, the online softmax per chunk; the key scale on
+    S's columns, the value scale folded into P."""
+    q = x["q"]
+    b_, sq, hq, d = q.shape
+    hkv = x["k_new"].shape[2]
+    rep, rows = hq // hkv, sq * (hq // hkv)
+    bs, mb = x["k_pool"].shape[1], x["block_tables"].shape[1]
+    sc = np.float32(1 / np.sqrt(d))
+    out = np.zeros(q.shape, np.float32)
+    for b in range(b_):
+        p0, nq = int(x["pos0"][b]), min(sq, int(x["true_len"][b]))
+        for g in range(hkv):
+            for row0 in range(0, rows, TILE_ROWS):
+                if row0 >= rep * nq:
+                    continue                  # all rows dead: zeros, no reads
+                q_lo = row0 // rep
+                q_hi = (min(row0 + TILE_ROWS, rep * nq) - 1) // rep
+                page_hi = min(p0, mb * bs)
+                page_lo = max(0, p0 + q_lo - window + 1) if window else 0
+                fresh_lo = max(0, q_lo - window + 1) if window else 0
+                chunks = ([(True, k0, page_hi)
+                           for k0 in range(page_lo, page_hi, 64)]
+                          + [(False, j0, q_hi + 1)
+                             for j0 in range(fresh_lo, q_hi + 1, 64)])
+                gr = row0 + np.arange(TILE_ROWS)
+                qi, h = gr // rep, g * rep + gr % rep
+                row_ok = (gr < rows) & (qi < nq)
+                qt = np.zeros((TILE_ROWS, d), np.float32)
+                qt[row_ok] = q[b, qi[row_ok], h[row_ok]]
+                qpos = p0 + qi
+                m = np.full(TILE_ROWS, NEG)
+                l = np.zeros(TILE_ROWS, np.float32)
+                acc = np.zeros((TILE_ROWS, d), np.float32)
+                for cached, k0, end in chunks:
+                    ok = k0 + np.arange(64) < end
+                    kt = np.zeros((64, d), np.float32)
+                    vt = np.zeros((64, d), np.float32)
+                    ks = np.ones(64, np.float32)
+                    vs = np.ones(64, np.float32)
+                    idx = k0 + np.arange(64)[ok]
+                    if cached:
+                        kt[ok], ks[ok] = _pool_rows(x, "k", b, g, idx)
+                        vt[ok], vs[ok] = _pool_rows(x, "v", b, g, idx)
+                        kpos = k0 + np.arange(64)
+                    else:
+                        kt[ok], vt[ok] = x["k_new"][b, idx, g], \
+                            x["v_new"][b, idx, g]
+                        kpos = p0 + k0 + np.arange(64)
+                    s = (qt @ kt.T) * ks[None] * sc
+                    if slopes is not None:
+                        safe_h = np.where(gr < rows, h, 0)
+                        s = s + np.where(gr < rows, slopes[safe_h], 0)[:, None] \
+                            * (kpos[None] - qpos[:, None])
+                    mask = ok[None] & (kpos[None] <= qpos[:, None])
+                    if window:
+                        mask &= qpos[:, None] - kpos[None] < window
+                    s = np.where(mask, s, NEG)
+                    m_new = np.maximum(m, s.max(1))
+                    corr = np.exp(m - m_new)
+                    p = np.where(mask, np.exp(s - m_new[:, None]), 0)
+                    l = l * corr + p.sum(1)
+                    acc = acc * corr[:, None] + (p * vs[None]) @ vt
+                    m = m_new
+                o = acc / np.maximum(l, np.float32(1e-30))[:, None]
+                keep = gr < rows
+                out[b, qi[keep], h[keep]] = np.where(row_ok[keep, None],
+                                                     o[keep], 0)
+    return out
+
+
+def _decode_schedule(x, window, slopes, plan):
+    """paged_decode_split_kernel + paged_decode_combine_kernel: the plan's
+    splits of SPLIT_KEYS keys at fixed positions, one partial (m, l, o)
+    each in the plan's workspace (an empty split: m = -1e30, l = 0, o =
+    0), then per row the partials folded in split order against the
+    largest m of the non-empty ones, then the fresh keys one at a time."""
+    q = x["q"]
+    b_, sq, hq, d = q.shape
+    hkv = x["k_new"].shape[2]
+    rep, rows = hq // hkv, sq * (hq // hkv)
+    bs, mb = x["k_pool"].shape[1], x["block_tables"].shape[1]
+    sc = np.float32(1 / np.sqrt(d))
+    ws = np.zeros(plan["workspace"], np.float32)
+    r = np.arange(rows)
+    qi, qpos_off = r // rep, r // rep
+    for b in range(b_):
+        p0, nq = int(x["pos0"][b]), min(sq, int(x["true_len"][b]))
+        for g in range(hkv):
+            h = g * rep + r % rep
+            qt = np.where((qi < nq)[:, None], q[b, np.minimum(qi, sq - 1), h],
+                          0).astype(np.float32)
+            qpos = p0 + qpos_off
+            for s in range(plan["splits"]):
+                k0 = s * tpaged.SPLIT_KEYS
+                lo = max(k0, p0 - window + 1 if window else 0)
+                hi = min(p0, mb * bs, k0 + tpaged.SPLIT_KEYS) if nq else 0
+                if lo >= hi:
+                    ws[b, g, s, :, d] = NEG
+                    continue
+                kp = np.arange(lo, hi)
+                kt, ks = _pool_rows(x, "k", b, g, kp)
+                vt, vs = _pool_rows(x, "v", b, g, kp)
+                sco = (qt @ kt.T) * ks[None] * sc
+                if slopes is not None:
+                    sco = sco + slopes[h][:, None] * (kp[None] - qpos[:, None])
+                mask = (qi < nq)[:, None] & np.ones(len(kp), bool)[None]
+                if window:
+                    mask &= qpos[:, None] - kp[None] < window
+                sco = np.where(mask, sco, NEG)
+                m = sco.max(1)
+                p = np.where(mask, np.exp(sco - m[:, None]), 0)
+                ws[b, g, s, :, :d] = (p * vs[None]) @ vt
+                ws[b, g, s, :, d] = m
+                ws[b, g, s, :, d + 1] = p.sum(1)
+    out = np.zeros(q.shape, np.float32)
+    for b in range(b_):
+        nq = min(sq, int(x["true_len"][b]))
+        for g in range(hkv):
+            for row in range(rows):
+                qi_, h = row // rep, g * rep + row % rep
+                if qi_ >= nq:
+                    continue
+                part = ws[b, g, :, row]
+                m_s, l_s = part[:, d], part[:, d + 1]
+                m = max([NEG] + [m_s[s] for s in range(len(m_s))
+                                 if l_s[s] > 0])
+                l = np.float32(0)
+                o = np.zeros(d, np.float32)
+                for s in range(len(m_s)):
+                    w = np.exp(m_s[s] - m) if l_s[s] > 0 else np.float32(0)
+                    l = l + l_s[s] * w
+                    o = o + w * part[s, :d]
+                jlo = max(0, qi_ - window + 1) if window else 0
+                for j in range(jlo, qi_ + 1):
+                    sj = x["q"][b, qi_, h] @ x["k_new"][b, j, g] * sc
+                    if slopes is not None:
+                        sj = sj + slopes[h] * np.float32(j - qi_)
+                    m_new = max(m, sj)
+                    corr, p = np.exp(m - m_new), np.exp(sj - m_new)
+                    l = l * corr + p
+                    o = o * corr + p * x["v_new"][b, j, g]
+                    m = m_new
+                out[b, qi_, h] = o / max(l, np.float32(1e-30))
+    return out
+
+
+def _schedule_out(name, x, window, slopes):
+    """The case through the schedule the wrapper's plan picks for it."""
+    q, hkv = x["q"], x["k_new"].shape[2]
+    shapes = (q.shape, hkv, x["block_tables"].shape, x["k_pool"].shape[1])
+    plan = tpaged.launch_plan(q.shape, torch.bfloat16, *shapes[1:])
+    assert plan == tpaged.launch_plan(q.shape, torch.float32, *shapes[1:]) \
+        or plan["variant"] == "prefill_wgmma"
+    if name.startswith("decode"):
+        assert plan["variant"] == "decode_split"
+        return _decode_schedule(x, window, slopes, plan)
+    assert plan["variant"] == "prefill_wgmma"
+    return _prefill_schedule(x, window, slopes)
+
+
+@pytest.mark.parametrize("name", list(SCHEDULE_CASES))
+def test_kernel_schedule_matches_pallas_kernel(name):
+    """Each CUDA kernel's schedule against the Pallas kernel (interpret
+    mode) on the rows < true_len at 2e-5; rows past true_len are zeros."""
+    x, window, slopes = _schedule_inputs(name)
+    kw = {"window": window}
+    if slopes is not None:
+        kw["alibi_slopes"] = jnp.asarray(slopes)
+    args = [jnp.asarray(x[k]) for k in ("q", "k_new", "v_new", "k_pool",
+                                         "v_pool", "block_tables", "pos0",
+                                         "true_len")]
+    if "k_scale" in x:
+        kw.update(k_scale=jnp.asarray(x["k_scale"]),
+                  v_scale=jnp.asarray(x["v_scale"]))
+    ref = np.asarray(jpaged.paged_attention_kernel(*args, **kw))
+    got = _schedule_out(name, x, window, slopes)
+    for b, tl in enumerate(x["true_len"]):
+        np.testing.assert_allclose(got[b, :tl], ref[b, :tl], **TOL)
+        assert not got[b, tl:].any()
+
+
+@pytest.mark.parametrize("name", list(SCHEDULE_CASES))
+def test_kernel_schedule_never_reads_a_dead_slot(name):
+    """NaN (inf in the scales) in every pool slot past pos0, outside the
+    table or older than the window, and in every fresh row past true_len,
+    leaves each schedule's output bit-identical: every tile slot outside
+    the live range is zero-filled, never read."""
+    x, window, slopes = _schedule_inputs(name, seed=1)
+    clean = _schedule_out(name, x, window, slopes)
+    poisoned = _schedule_out(name, _dead_slots_poisoned(x, window), window,
+                             slopes)
+    assert np.isfinite(clean).all()
+    np.testing.assert_array_equal(poisoned, clean)
+
+
+def test_launch_plan_is_a_function_of_shapes():
+    """The wrapper's plan (variant, splits, workspace shape) takes shapes
+    and the dtype only, never a tensor's values, so a CUDA graph can
+    capture the call: decode ticks split each context in SPLIT_KEYS keys
+    from the table's width (B 8 x 8 kv heads x 16 splits fill two waves of
+    132 SMs at the serving shape), prefill chunks take the tensor-core
+    kernel in bf16 and the CUDA-core one in fp32."""
+    import inspect
+    assert list(inspect.signature(tpaged.launch_plan).parameters) == [
+        "q_shape", "dtype", "num_kv_heads", "block_tables_shape",
+        "block_size"]
+    plan = tpaged.launch_plan
+    decode = plan(torch.Size([8, 1, 32, 128]), torch.bfloat16, 8,
+                  torch.Size([8, 32]), 64)
+    assert decode == {"variant": "decode_split", "splits": 16,
+                      "workspace": (8, 8, 16, 4, 130)}
+    assert 8 * 8 * decode["splits"] >= 2 * 132
+    assert plan((8, 1, 32, 128), torch.float32, 8, (8, 32), 64) == decode
+    assert plan((3, 2, 16, 128), torch.float32, 2, (3, 5), 8)["splits"] == 1
+    assert plan((3, 2, 16, 128), torch.float32, 2, (3, 17), 8)["splits"] == 2
+    for dtype, want in ((torch.bfloat16, "prefill_wgmma"),
+                        (torch.float32, "cuda_cores")):
+        got = plan((8, 256, 32, 128), dtype, 8, (8, 9), 64)
+        assert got == {"variant": want, "splits": 0, "workspace": None}
+        # 17 rows a kv head: past the split's 16
+        assert plan((1, 17, 4, 64), dtype, 4, (1, 3), 8)["variant"] == want
+    assert plan((1, 16, 4, 64), torch.bfloat16, 4, (1, 3),
+                8)["variant"] == "decode_split"
+    for bad in (dict(q_shape=(1, 1, 4, 48)), dict(dtype=torch.float16),
+                dict(q_shape=(65536, 1, 4, 64)), dict(num_kv_heads=3)):
+        kw = dict(q_shape=(1, 1, 4, 64), dtype=torch.bfloat16,
+                  num_kv_heads=4, block_tables_shape=(1, 3), block_size=8)
+        kw.update(bad)
+        assert plan(**kw)["variant"] is None
+    # the same shapes with other pos0 and true_len take the same plan: the
+    # plan has nothing else to read
+    x, *_ = _schedule_inputs("decode_bs8_d32_rep4")
+    y, *_ = _schedule_inputs("decode_bs8_d32_rep4", seed=3)
+    y["pos0"] = y["pos0"][::-1].copy()
+    for v in (x, y):
+        assert plan(v["q"].shape, torch.bfloat16, v["k_new"].shape[2],
+                    v["block_tables"].shape, v["k_pool"].shape[1]) == \
+            {"variant": "decode_split", "splits": 3,
+             "workspace": (3, 2, 3, 4, 34)}
