@@ -7,8 +7,9 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the serving and training paths, from
      csrc/, one nvcc per source, all started together; the attention
-     libraries' registers, spills and shared memory per kernel (a paged
-     kernel that spills fails the run);
+     and norm libraries' registers, spills and shared memory per kernel
+     (a paged kernel or a warp_row / cta_row norm kernel that spills, or
+     a warp_row kernel with a barrier, fails the run);
   3. each kernel against its plain PyTorch version on the card (paged
      attention at the serving path's shapes, a prefill tick of 8 x 256
      rows among them, with the variant each call takes, its TFLOP/s and
@@ -82,10 +83,13 @@ Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
 RMSNorm/LayerNorm kernels against their plain versions and times them at
 Path Q's, Path T's, Path P's, Path Z's and the serving and training
-paths' shapes. Every model path runs its norms through the norm kernel
-(2L + 1 launches a forward, 2L more recomputed a training micro-batch
-under remat), and each phase's launch check counts them; the plain sides
-of phases 5 and 7 run plain norms. Phases 11-12 run right
+paths' shapes (the norm rows with the variant each took, GB/s, the share
+of the bound, the ratio to the library call and a bit-identical rerun).
+Every model path runs its norms through the norm kernels (2L + 1
+launches a forward, 2L more recomputed a training micro-batch under
+remat), and each phase's launch check counts them; phases 4, 6, 8, 11,
+13 and 15 fail unless every norm launch took a row kernel (warp_row or
+cta_row); the plain sides of phases 5 and 7 run plain norms. Phases 11-12 run right
 after phase 5, beside phase 4's engine. With --profile it then traces a
 prefill tick and decode ticks of the serving path and of Path Q, one
 train_batch step, one step of Path T and five Path P calls
@@ -123,6 +127,9 @@ SOURCE = "deepspeed_tpu_torch/csrc/{}.cu"
 # the paged-attention kernels every bf16 call must take (the fp32 prefill
 # stays on the CUDA-core kernel, "cuda_cores")
 NEW_PAGED_VARIANTS = ("prefill_wgmma", "decode_split")
+# the norm kernels every norm of a main path must take (ops/norms.py
+# launch_plan; "general" is for odd widths and misaligned rows)
+NEW_NORM_VARIANTS = ("warp_row", "cta_row")
 REPLACES = {
     "paged_attention": "deepspeed_tpu/inference/v2/paged.py:61",
     "paged_attention_quantized": "deepspeed_tpu/inference/v2/paged.py:61",
@@ -612,12 +619,13 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
     norms = norm_counter(c)
     paged.paged_attention_kernel.launches = 0
     paged.paged_attention_kernel.variant_launches = {}
-    norms.launches = 0
+    reset_norms(norms)
     engine.serving_stats["host_dispatches"] = 0
     outs, wall, ticks = serve(engine, prompts, max_new, dev)
     launches = paged.paged_attention_kernel.launches
     by_variant = dict(paged.paged_attention_kernel.variant_launches)
     norm_launches = norms.launches
+    norm_by_variant = check_norm_variants(norms, dev, "serving")
     dispatches = engine.serving_stats["host_dispatches"]
     for o in outs:
         if len(o) != max_new or not all(0 <= t < c.vocab_size for t in o):
@@ -640,6 +648,7 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
         requests=n_req, new_tokens=max_new, prompt_tokens=int(lens.sum()),
         ticks=len(ticks), dispatches=dispatches, launches=launches,
         launches_by_variant=by_variant, norm_launches=norm_launches,
+        norm_launches_by_variant=norm_by_variant,
         decode_norm_launches=sum(n for _, p, d, n in ticks
                                  if p == 0 and d > 0),
         prefill_ticks=len(pre),
@@ -651,6 +660,26 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
         e2e_tokens_per_s=(int(lens.sum()) + n_req * max_new) / wall)
     log(f"[main] {json.dumps(stats)}")
     return engine, stats
+
+
+def reset_norms(counter) -> None:
+    """Set a norm kernel's launch counts to 0."""
+    counter.launches = 0
+    counter.variant_launches = {}
+
+
+def check_norm_variants(counter, dev, what: str) -> dict:
+    """Every norm launch of a main path since ``reset_norms`` took one of
+    the row kernels (NEW_NORM_VARIANTS; the counts by variant add up to the
+    launches). Returns the counts by variant."""
+    by_variant = dict(counter.variant_launches)
+    if dev.type == "cuda" and (
+            sum(by_variant.values()) != counter.launches
+            or set(by_variant) - set(NEW_NORM_VARIANTS)):
+        raise AssertionError(f"{what}: norm launches by variant "
+                             f"{by_variant}, {counter.launches} in all; "
+                             f"every launch must take {NEW_NORM_VARIANTS}")
+    return by_variant
 
 
 def check_variants(by_variant: dict, launches: int, dev, what: str) -> None:
@@ -861,12 +890,13 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
     norms = norm_counter(c)
     paged.paged_attention_kernel.launches = 0
     paged.paged_attention_kernel.variant_launches = {}
-    norms.launches = 0
+    reset_norms(norms)
     engine.reset_serving_metrics()
     outs, wall, ticks = serve(engine, prompts, max_new, dev)
     launches = paged.paged_attention_kernel.launches
     by_variant = dict(paged.paged_attention_kernel.variant_launches)
     norm_launches = norms.launches
+    norm_by_variant = check_norm_variants(norms, dev, "Path Q")
     m = engine.serving_metrics()
     dispatches = m["host_dispatches"]
     bad = []
@@ -909,7 +939,8 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
         suffix_tokens=int(lens.sum()), ticks=len(ticks),
         dispatches=dispatches, launches=launches,
         launches_by_variant=by_variant,
-        norm_launches=norm_launches, prefill_ticks=len(pre),
+        norm_launches=norm_launches,
+        norm_launches_by_variant=norm_by_variant, prefill_ticks=len(pre),
         prefill_tokens_per_s=sum(p for _, p in pre) / sum(s for s, _ in pre),
         decode_ticks=len(dec),
         decode_ms_per_tick=1e3 * sum(dec) / max(len(dec), 1),
@@ -1045,6 +1076,51 @@ def attention_build_report(name: str) -> dict:
         regs = re.search(r"Used (\d+) registers", line)
         if regs:
             rec.update(registers=int(regs.group(1)), dynamic_smem=size)
+            found = None
+    return report
+
+
+# the norm kernels: kernel, x's dtype, the params' (f, or a substitution:
+# x's), LayerNorm, and the row kernels' cta flag and vectors a thread
+NORM_KERNEL = re.compile(r"(norm_(?:rows_)?kernel)I(f|13__nv_bfloat16|6__half)"
+                         r"(f|S\d*_)Lb([01])E(?:Lb([01])ELi(\d+)E)?")
+
+
+def norm_build_report() -> dict:
+    """Registers, spills, named barriers and static shared memory (ptxas,
+    from the build log) of every kernel of the norms library, keyed
+    "variant kind dtype params [vN]" (warp_row / cta_row:
+    norm_rows_kernel, warp_row with no barrier; general: norm_kernel,
+    whose row cache is dynamic shared memory)."""
+    from deepspeed_tpu_torch.ops import op_builder
+    report, found = {}, None
+    log_text = op_builder.library_path("norms").with_suffix(".log").read_text()
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            found = NORM_KERNEL.search(line)
+            continue
+        if found is None:
+            continue
+        kernel, t, p, layer, cta, vecs = found.groups()
+        tname = KERNEL_TYPES[t][1]
+        variant = ("general" if kernel == "norm_kernel"
+                   else "cta_row" if cta == "1" else "warp_row")
+        key = (f"{variant} {'layer' if layer == '1' else 'rms'} {tname} "
+               f"params {'fp32' if p == 'f' else tname}"
+               + (f" v{vecs}" if vecs else ""))
+        rec = report.setdefault(key, {})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            rec.update(spill_stores=int(spill.group(1)),
+                       spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            bars = re.search(r"used (\d+) barriers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            rec.update(registers=int(regs.group(1)),
+                       barriers=int(bars.group(1)) if bars else 0,
+                       static_smem=int(smem.group(1)) if smem else 0)
             found = None
     return report
 
@@ -1406,7 +1482,7 @@ def train_main_path(dev, size="125m", steps=10, seq=1024):
     fa.flash_attention_fwd.variant_launches = {}
     fa.flash_attention_bwd.variant_launches = {}
     fused_adam_step.launches = 0
-    norms.launches = 0
+    reset_norms(norms)
     losses, step_s = [], []
     for _ in range(steps):
         t = time.perf_counter()
@@ -1414,6 +1490,7 @@ def train_main_path(dev, size="125m", steps=10, seq=1024):
         if dev.type == "cuda":
             torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
+    norm_by_variant = check_norm_variants(norms, dev, "training")
     launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
                 "flash_attention_bwd": fa.flash_attention_bwd.launches,
                 "flash_attention_bwd_calls": fa.flash_attention_bwd.calls,
@@ -1436,7 +1513,8 @@ def train_main_path(dev, size="125m", steps=10, seq=1024):
         launches_per_step={k: v / steps for k, v in launches.items()},
         flash_variant_launches={
             "fwd": dict(fa.flash_attention_fwd.variant_launches),
-            "bwd": dict(fa.flash_attention_bwd.variant_launches)})
+            "bwd": dict(fa.flash_attention_bwd.variant_launches)},
+        norm_launches_by_variant=norm_by_variant)
     log(f"[train] {json.dumps(stats)}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training losses not finite and falling: "
@@ -1905,7 +1983,7 @@ def path_t_main(dev, size="125m", steps=10, seq=1024):
     fa.flash_attention_bwd.calls = 0
     fused_adam_step.launches = 0
     fused_lion_step.launches = 0
-    norms.launches = 0
+    reset_norms(norms)
     losses, step_s = [], []
     for _ in range(steps):
         t = time.perf_counter()
@@ -1913,6 +1991,7 @@ def path_t_main(dev, size="125m", steps=10, seq=1024):
         if dev.type == "cuda":
             torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
+    norm_by_variant = check_norm_variants(norms, dev, "Path T")
     launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
                 "flash_attention_bwd": fa.flash_attention_bwd.launches,
                 "flash_attention_bwd_calls": fa.flash_attention_bwd.calls,
@@ -1933,7 +2012,8 @@ def path_t_main(dev, size="125m", steps=10, seq=1024):
                          if dev.type == "cuda" else None),
         losses=losses, grad_norm=engine.get_global_grad_norm(),
         global_steps=engine.global_steps, launches=launches,
-        launches_per_step={k: v / steps for k, v in launches.items()})
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        norm_launches_by_variant=norm_by_variant)
     log(f"[path T] {json.dumps(stats)}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"Path T losses not finite and falling: "
@@ -2325,12 +2405,17 @@ def norm_grad_check(kind, dev) -> float:
     return err
 
 
+def norm_bytes(kind, n_rows, d) -> int:
+    """Bytes one bf16 norm of n_rows x d must move: 2 B in and 2 B out an
+    element plus the bf16 params."""
+    return 4 * n_rows * d + 2 * (1 if kind == "rms" else 2) * d
+
+
 def norm_bound(kind, n_rows, d) -> tuple[float, str]:
-    """The least time for one bf16 norm of n_rows x d: 2 B in and 2 B out
-    an element plus the bf16 params, over 3.35 TB/s, against ~4 (RMS) or
-    ~7 (Layer) fp32 operations an element over 67 TFLOP/s."""
-    params = 1 if kind == "rms" else 2
-    t_bytes = (4 * n_rows * d + 2 * params * d) / HBM_BYTES_PER_S
+    """The least time for one bf16 norm of n_rows x d: ``norm_bytes`` over
+    3.35 TB/s, against ~4 (RMS) or ~7 (Layer) fp32 operations an element
+    over 67 TFLOP/s."""
+    t_bytes = norm_bytes(kind, n_rows, d) / HBM_BYTES_PER_S
     t_ops = (4 if kind == "rms" else 7) * n_rows * d / FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -2342,9 +2427,12 @@ def norm_checks(dev, flush=None, iters=20):
     their plain versions, their bounds and the library calls computing the
     same functions (``torch.nn.functional.layer_norm`` / ``rms_norm``,
     yardsticks the port never calls), each also held to its plain version
-    there."""
+    there, with the variant it took (on the card: the C side's plan, which
+    must agree), its GB/s, its share of the bound, its ratio to the
+    library call and a bit-identical rerun."""
     import torch
     import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import norms as N
     errs = {}
     g = torch.Generator(device=dev).manual_seed(8)
     for kind in ("rms", "layer"):
@@ -2377,6 +2465,12 @@ def norm_checks(dev, flush=None, iters=20):
     log(f"[kernel] norms vs plain ({NORM_NOTE}): "
         f"{json.dumps({'/'.join(k): v for k, v in errs.items()})}")
     times = {}
+    # time_ms of an empty kernel under the same flush: the share of every
+    # phase-3 time that the events, the launch and the cold start take;
+    # each row's copy_ms, a copy of x (the same bytes), is what a pass that
+    # reads x and writes y reaches under it
+    floor = (time_ms(lambda: torch.cuda._sleep(0), dev, iters, flush)
+             if dev.type == "cuda" else None)
     for name, (kind, (n_rows, d)) in NORM_MAIN.items():
         x = torch.randn(n_rows, d, generator=g, device=dev).to(torch.bfloat16)
         scale = (torch.randn(d, generator=g, device=dev) + 1).to(x.dtype)
@@ -2384,12 +2478,25 @@ def norm_checks(dev, flush=None, iters=20):
         ulps = norm_compare(kind, x, scale, bias)
         ref = norm_call(kind, x, scale, bias, False)
         got = norm_call(kind, x, scale, bias, True)
+        again = norm_call(kind, x, scale, bias, True)
+        counter = N.rms_norm_kernel if kind == "rms" else N.layer_norm_kernel
+        plan = N.launch_plan(kind, n_rows, d, x.dtype)
+        if dev.type == "cuda":
+            c_plan = N.kernel_plan(kind, n_rows, d, x.dtype)
+            if counter.variant != plan["variant"] or c_plan["variant"] != \
+                    plan["variant"] or plan["variant"] not in \
+                    NEW_NORM_VARIANTS:
+                raise AssertionError(f"{name}: launched {counter.variant}, "
+                                     f"planned {plan}, C side {c_plan}")
+            plan = c_plan
         lib = ((lambda: F.rms_norm(x, (d,), scale, 1e-6)) if kind == "rms"
                else (lambda: F.layer_norm(x, (d,), scale, bias, 1e-5)))
         bound, by = norm_bound(kind, n_rows, d)
-        times[name] = dict(
-            shape=[n_rows, d], dtype="bfloat16", max_ulps=ulps,
+        rec = dict(
+            shape=[n_rows, d], dtype="bfloat16", variant=plan["variant"],
+            plan=plan, max_ulps=ulps,
             max_abs_err=float((got.float() - ref.float()).abs().max()),
+            bit_identical_rerun=bool(torch.equal(got, again)),
             library_max_ulps=norm_ulps(lib(), ref, x.dtype,
                                        bias if kind == "layer" else None),
             ms=time_ms(lambda: norm_call(kind, x, scale, bias, True), dev,
@@ -2397,11 +2504,36 @@ def norm_checks(dev, flush=None, iters=20):
             plain_ms=time_ms(lambda: norm_call(kind, x, scale, bias, False),
                              dev, iters, flush),
             library_ms=time_ms(lib, dev, iters, flush),
-            bound_ms=bound, bound_by=by)
-        log(f"[kernel] {name} at {[n_rows, d]} bf16: "
-            f"{json.dumps(times[name])}")
-        del x, ref, got
+            copy_ms=time_ms(lambda: torch.empty_like(x).copy_(x), dev, iters,
+                            flush),
+            bound_ms=bound, bound_by=by, empty_kernel_ms=floor)
+        rec.update(gb_per_s=norm_bytes(kind, n_rows, d) / rec["ms"] / 1e6,
+                   bound_share=bound / rec["ms"],
+                   x_library=rec["library_ms"] / rec["ms"])
+        if name == "layer_norm":
+            rec["closed_form_backward_ms"] = time_ms(
+                norm_backward(x, scale, bias), dev, iters, flush)
+        times[name] = rec
+        log(f"[kernel] {name} at {[n_rows, d]} bf16: {json.dumps(rec)}")
+        if not rec["bit_identical_rerun"]:
+            raise AssertionError(f"{name}: a rerun differs")
+        del x, ref, got, again
     return errs, times
+
+
+def norm_backward(x, scale, bias):
+    """A call of LayerNormFunction's closed-form backward (eager torch ops)
+    on x's shape, for timing: what a fused norm backward would replace."""
+    import torch
+    from deepspeed_tpu_torch.ops import norms as N
+
+    class Ctx:
+        saved_tensors = (x, scale, bias)
+        eps = 1e-5
+        needs_input_grad = (True, True, True, False)
+
+    g = torch.ones_like(x)
+    return lambda: N.LayerNormFunction.backward(Ctx, g)
 
 
 def norm_launches_per_micro(c) -> int:
@@ -2496,6 +2628,7 @@ def path_z_run(dev, config, size, steps, seq, check):
                 "layer_norm": N.layer_norm_kernel}
     for fn in counters.values():
         fn.launches = 0
+    reset_norms(N.layer_norm_kernel)
     losses, step_s = [], []
     for _ in range(steps):
         t = time.perf_counter()
@@ -2504,6 +2637,8 @@ def path_z_run(dev, config, size, steps, seq, check):
             torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     launches = {k: fn.launches for k, fn in counters.items()}
+    norm_by_variant = check_norm_variants(N.layer_norm_kernel, dev,
+                                          "Path Z rank")
     losses = [float(x) for x in losses]
     out = dict(
         step_ms=1e3 * sum(step_s) / steps, step_ms_min=1e3 * min(step_s),
@@ -2512,8 +2647,8 @@ def path_z_run(dev, config, size, steps, seq, check):
         peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
                          if cuda else None),
         losses=losses, grad_norm=engine.get_global_grad_norm(),
-        launches=launches, norm_launches_per_micro=norm_launches_per_micro(
-            model.config),
+        launches=launches, norm_launches_by_variant=norm_by_variant,
+        norm_launches_per_micro=norm_launches_per_micro(model.config),
         launches_per_step={k: v / steps for k, v in launches.items()},
         shard_numel=sum(t.numel()
                         for t in engine.master_state_dict().values()))
@@ -2720,7 +2855,7 @@ def remat_policies_main(dev, size="125m", steps=3, seq=1024):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         norms = norm_counter(c)
-        norms.launches = 0
+        reset_norms(norms)
         fa.flash_attention_fwd.launches = 0
         losses, step_s = [], []
         for _ in range(steps):
@@ -2730,6 +2865,7 @@ def remat_policies_main(dev, size="125m", steps=3, seq=1024):
                 torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t)
         name = policy or "remat_off"
+        norm_by_variant = check_norm_variants(norms, dev, f"remat {name}")
         runs[name] = dict(
             step_ms=1e3 * sum(step_s) / steps,
             step_ms_min=1e3 * min(step_s), step_ms_max=1e3 * max(step_s),
@@ -2737,6 +2873,7 @@ def remat_policies_main(dev, size="125m", steps=3, seq=1024):
                              if cuda else None),
             losses=[float(x) for x in losses],
             norm_launches_per_step=norms.launches / steps,
+            norm_launches_by_variant=norm_by_variant,
             expected_norm_launches_per_step=norm_launches_per_micro(c),
             flash_fwd_launches_per_step=fa.flash_attention_fwd.launches
             / steps)
@@ -2768,7 +2905,7 @@ PROFILE_KINDS = {
     "fused_adam": ("fused_adam_kernel",),
     "fused_lion": ("fused_lion_kernel",),
     "block_sparse_attention": ("bs_fwd_", "bs_bwd_"),
-    "norms": ("norm_kernel",),
+    "norms": ("norm_kernel", "norm_rows_kernel"),
     "gemm": ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas"),
     "reduction": ("reduce_kernel",),
     "copy": ("copy", "Memcpy", "Memset", "cat"),
@@ -2885,6 +3022,19 @@ def main(argv=None) -> int:
         spilled = {k: r for k, r in report.items() if r.get("spill_stores")}
         if name == "paged_attention" and spilled:
             raise AssertionError(f"paged kernels spill: {spilled}")
+    # 70 norm kernels: 5 (x, params) dtype pairs x RMS/Layer x (4
+    # warp_row + 2 cta_row vector counts + general); a row kernel may not
+    # spill, and warp_row may not hold a barrier
+    report = norm_build_report()
+    log(f"[build] norms kernels: {json.dumps(report)}")
+    bad = {k: r for k, r in report.items()
+           if not k.startswith("general") and (
+               r.get("spill_stores") or r.get("spill_loads")
+               or k.startswith("warp_row") and r.get("barriers"))}
+    if bad or len(report) != 70:
+        raise AssertionError(f"norm row kernels that spill or (warp_row) "
+                             f"hold a barrier: {bad}; the report holds "
+                             f"{len(report)} kernels, not 70")
     for name in KERNELS:
         ptxas = op_builder.library_path(name).with_suffix(".log")
         for line in ptxas.read_text().splitlines():
@@ -3142,6 +3292,12 @@ def main(argv=None) -> int:
             shard_set=rec["shard_set"],
             main_path_bit_equal=path_z["kernel_vs_plain"]))
     norm_tol = "1 bf16 ulp of the plain result; fp32 1e-6 + 2 ulps"
+
+    def norm_extra(t):
+        return {k: t[k] for k in ("variant", "plan", "gb_per_s",
+                                  "bound_share", "x_library",
+                                  "bit_identical_rerun")}
+
     for name, launches, tick in (
             ("rms_norm", stats["norm_launches"]
              - stats["decode_norm_launches"], "prefill and mixed ticks"),
@@ -3154,9 +3310,11 @@ def main(argv=None) -> int:
             library="torch.nn.functional.rms_norm",
             library_max_ulps=rec["library_max_ulps"],
             main_path=f"serving, {tick} (2L + 1 a forward)",
-            shape=f"{rec['shape']} bf16",
+            shape=f"{rec['shape']} bf16", **norm_extra(rec),
+            main_path_launches_by_variant=stats["norm_launches_by_variant"],
             serving_launches=stats["norm_launches"],
             path_q_launches=path_q["norm_launches"],
+            path_q_launches_by_variant=path_q["norm_launches_by_variant"],
             cases_max_err={"/".join(k): v for k, v in norm_errs.items()
                            if k[0] == "rms"}, cases=NORM_NOTE))
     kernels.append(entry(
@@ -3167,7 +3325,10 @@ def main(argv=None) -> int:
         library_max_ulps=norm_times["layer_norm"]["library_max_ulps"],
         main_path="training (4L + 1 a micro-batch under segments)",
         shape="[24576, 768] bf16 (train_batch)",
+        **norm_extra(norm_times["layer_norm"]),
+        main_path_launches_by_variant=train["norm_launches_by_variant"],
         path_t_launches=path_t["launches"]["layer_norm"],
+        path_t_launches_by_variant=path_t["norm_launches_by_variant"],
         cases_max_err={"/".join(k): v for k, v in norm_errs.items()
                        if k[0] == "layer"}, cases=NORM_NOTE))
     log(f"[main] serving {json.dumps(stats)} on {card}")

@@ -4,11 +4,17 @@ csrc/transformer/normalize_kernels.cu, inference/csrc/rms_norm.cu).
 
 The forward of each norm is one launch of a hand-written kernel
 (``csrc/norms.cu``) on CUDA tensors: one pass over the rows with fp32
-statistics, the output in the input's dtype. The JAX package's
-``custom_vjp`` takes its backward from the jnp reference; here the
-backward is the closed-form fp32 gradient in torch ops
-(:class:`RMSNormFunction`, :class:`LayerNormFunction`), which save only
-x, scale (and bias) and recompute the row statistics.
+statistics, the output in the input's dtype. :func:`launch_plan` names
+the kernel a call takes from its shapes alone, as the C side's
+``ds_norm_variant`` does: "warp_row" (a warp a row, rows in registers)
+up to 1024 elements in bf16/fp16 (512 in fp32), "cta_row" (2-16 warps a
+row) beyond, and "general" (the first design: a CTA a row, the row in
+shared memory) for a d that is not a whole number of 16-byte vectors, a
+pointer off a 16-byte boundary or a row past cta_row's register
+ceiling. The JAX package's ``custom_vjp`` takes its backward from the
+jnp reference; here the backward is the closed-form fp32 gradient in
+torch ops (:class:`RMSNormFunction`, :class:`LayerNormFunction`), which
+save only x, scale (and bias) and recompute the row statistics.
 
 ``use_kernel`` follows ``ops/quantization.py``: None takes the kernel for
 CUDA tensors and the plain forward (``ops/layers.py``) for CPU tensors,
@@ -34,6 +40,13 @@ from . import layers as L
 from . import op_builder
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the C side's variant codes (ds_norm_variant)
+VARIANTS = {0: "general", 1: "warp_row", 2: "cta_row"}
+MAX_VECS = 4          # 16-byte vectors a thread holds of a row
+ROW_WARPS = 4         # warp_row: warps (one row each) a CTA
+MAX_ROW_WARPS = 16    # cta_row: warps a row, at most
+GENERAL_THREADS = 512  # general: threads a CTA, at most
+_GRID_CAP = 1 << 30   # general: the grid's cap (rows beyond loop)
 _plain = False
 
 
@@ -62,6 +75,81 @@ def _norm_fn(name: str, argtypes: list):
     return lib, fn
 
 
+def launch_plan(kind: str, rows: int, d: int, dtype, scale_dtype=None,
+                aligned: bool = True, slots: int | None = None) -> dict:
+    """The kernel a CUDA norm of ``kind`` ("rms"/"layer") over ``rows``
+    x ``d`` elements of ``dtype`` takes (params in ``scale_dtype``: fp32
+    or x's, None = x's), from the shapes alone: ``variant`` ("warp_row",
+    "cta_row" or "general"), ``warps_per_row``, ``vectors_per_thread``
+    (16-byte vectors of a row a thread holds; 0 for general),
+    ``threads`` (a CTA), ``row_groups`` (warp_row: ceil(rows / 4) CTAs of
+    4 rows; else rows) and ``grid``: min(row_groups, ``slots``), where
+    ``slots`` is SMs x resident CTAs, which the C side takes from the
+    occupancy query (None: row_groups, the grid's upper bound).
+    ``aligned``: x, y, scale and bias all start on a 16-byte boundary.
+    The same table as ``csrc/norms.cu`` ``plan_of`` (``ds_norm_variant``,
+    ``ds_norm_plan``)."""
+    if kind not in ("rms", "layer"):
+        raise ValueError(f"launch_plan: kind {kind!r} (rms or layer)")
+    scale_dtype = dtype if scale_dtype is None else scale_dtype
+    if (dtype not in _DTYPE_CODES or scale_dtype not in (torch.float32, dtype)
+            or d <= 0 or rows < 0):
+        raise ValueError(f"launch_plan: no kernel takes {kind} {dtype} "
+                         f"params {scale_dtype} d {d} rows {rows}")
+    vec = 16 // (torch.finfo(dtype).bits // 8)   # elements a vector
+    nvec, per_warp = d // vec, 32 * MAX_VECS
+    whole = aligned and d % vec == 0
+    warps = -(-nvec // per_warp)
+    if whole and nvec <= per_warp:
+        plan = dict(variant="warp_row", warps_per_row=1,
+                    vectors_per_thread=-(-nvec // 32),
+                    threads=32 * ROW_WARPS, row_groups=-(-rows // ROW_WARPS))
+    elif whole and warps <= MAX_ROW_WARPS:
+        plan = dict(variant="cta_row", warps_per_row=warps,
+                    vectors_per_thread=-(-nvec // (32 * warps)),
+                    threads=32 * warps, row_groups=rows)
+    else:
+        want = -(-d // vec)                    # a vector a thread
+        threads = min(max(-(-want // 32) * 32, 32), GENERAL_THREADS)
+        return dict(variant="general", warps_per_row=threads // 32,
+                    vectors_per_thread=0, threads=threads, row_groups=rows,
+                    grid=min(rows, _GRID_CAP))
+    plan["grid"] = (plan["row_groups"] if slots is None
+                    else min(plan["row_groups"], slots))
+    return plan
+
+
+def kernel_plan(kind: str, rows: int, d: int, dtype, scale_dtype=None,
+                aligned: bool = True) -> dict:
+    """The C side's plan of such a call (``ds_norm_plan``: the same keys
+    as :func:`launch_plan`'s but ``row_groups``, the grid from the
+    occupancy query on the current card). Builds the library; needs a
+    card."""
+    scale_dtype = dtype if scale_dtype is None else scale_dtype
+    lib = op_builder.load("norms")
+    if lib.ds_norm_plan.argtypes is None:
+        lib.ds_norm_plan.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.ds_norm_plan.restype = ctypes.c_int
+        lib.ds_norm_variant.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.c_longlong, ctypes.c_int]
+        lib.ds_norm_variant.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    err = lib.ds_norm_plan(int(kind == "layer"), _DTYPE_CODES[dtype],
+                           _DTYPE_CODES[scale_dtype], d, int(aligned), rows,
+                           out)
+    if err != 0:
+        raise RuntimeError(f"ds_norm_plan: CUDA error {err}")
+    variant = lib.ds_norm_variant(int(kind == "layer"), _DTYPE_CODES[dtype],
+                                  _DTYPE_CODES[scale_dtype], d, int(aligned))
+    if variant != out[0]:
+        raise RuntimeError(f"ds_norm_variant {variant} != ds_norm_plan's "
+                           f"{out[0]}")
+    return dict(variant=VARIANTS[out[0]], warps_per_row=out[1],
+                vectors_per_thread=out[2], threads=out[3], grid=out[4])
+
+
 def _check_inputs(what: str, x: torch.Tensor, *params) -> None:
     def check(cond, message):
         if not cond:
@@ -79,7 +167,10 @@ def _check_inputs(what: str, x: torch.Tensor, *params) -> None:
               f"parameter shape {tuple(p.shape)} != ({x.shape[-1]},)")
 
 
-def _launch(name, what, x, params, eps):
+def _launch(kind, x, params, eps, counter):
+    """Launch the ``kind`` ("rms"/"layer") kernel over the rows of x and
+    count the launch (none for zero rows) on ``counter``, the wrapper."""
+    what = f"{kind}_norm"
     xc = x.contiguous()
     d = xc.shape[-1]
     rows = xc.numel() // d
@@ -87,17 +178,24 @@ def _launch(name, what, x, params, eps):
     if rows == 0:
         return y
     ps = [p.contiguous() for p in params]
-    lib, fn = _norm_fn(name, [ctypes.c_void_p] * (len(ps) + 2)
+    lib, fn = _norm_fn(f"ds_{what}", [ctypes.c_void_p] * (len(ps) + 2)
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_longlong, ctypes.c_float,
-                          ctypes.c_void_p])
+                          ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    code = ctypes.c_int(-1)
     err = fn(xc.data_ptr(), *[p.data_ptr() for p in ps], y.data_ptr(),
              _DTYPE_CODES[x.dtype], _DTYPE_CODES[ps[0].dtype], rows, d,
-             float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+             float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+             ctypes.byref(code))
     if err != 0:
         raise RuntimeError(
             f"{what} kernel launch failed: CUDA error {err} "
             f"({lib.ds_cuda_error_string(err).decode()})")
+    variant = VARIANTS[code.value]
+    counter.launches += 1
+    counter.variant = variant
+    counter.variant_launches[variant] = (
+        counter.variant_launches.get(variant, 0) + 1)
     return y
 
 
@@ -107,14 +205,16 @@ def rms_norm_kernel(x: torch.Tensor, scale: torch.Tensor,
     d)`` of a CUDA tensor (fp32/bf16/fp16, made contiguous first); scale
     ``[d]`` in fp32 or x's dtype. Port of the Pallas kernel at
     ``deepspeed_tpu/ops/pallas/norms.py:47``; ``rms_norm_kernel.launches``
-    counts the launches."""
+    counts the launches (none for zero rows), ``.variant_launches`` them by
+    the variant the C side launched (:func:`launch_plan` names it ahead)
+    and ``.variant`` names the last one."""
     _check_inputs("rms_norm_kernel", x, scale)
-    y = _launch("ds_rms_norm", "rms_norm", x, (scale,), eps)
-    rms_norm_kernel.launches += 1
-    return y
+    return _launch("rms", x, (scale,), eps, rms_norm_kernel)
 
 
 rms_norm_kernel.launches = 0
+rms_norm_kernel.variant = None
+rms_norm_kernel.variant_launches = {}
 
 
 def layer_norm_kernel(x: torch.Tensor, scale: torch.Tensor,
@@ -122,14 +222,15 @@ def layer_norm_kernel(x: torch.Tensor, scale: torch.Tensor,
     """Launch ``csrc/norms.cu``'s LayerNorm (centred variance) over the
     rows of a CUDA tensor; scale and bias ``[d]`` in one dtype, fp32 or
     x's. Port of the Pallas kernel at ``norms.py:81``;
-    ``layer_norm_kernel.launches`` counts the launches."""
+    ``layer_norm_kernel.launches`` / ``.variant_launches`` / ``.variant``
+    as :func:`rms_norm_kernel`'s."""
     _check_inputs("layer_norm_kernel", x, scale, bias)
-    y = _launch("ds_layer_norm", "layer_norm", x, (scale, bias), eps)
-    layer_norm_kernel.launches += 1
-    return y
+    return _launch("layer", x, (scale, bias), eps, layer_norm_kernel)
 
 
 layer_norm_kernel.launches = 0
+layer_norm_kernel.variant = None
+layer_norm_kernel.variant_launches = {}
 
 
 def _reduce_to(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

@@ -1214,8 +1214,159 @@ def test_models_run_the_norm_kernel_on_the_card(cuda, family):
     out = []
     for plain in (False, True):
         before = counter.launches
+        counter.variant_launches = {}
         with torch.no_grad(), N.plain_norms(plain):
             out.append(model.apply(tokens))
         assert counter.launches - before == (
             0 if plain else 2 * model.config.num_layers + 1)
+        assert sum(counter.variant_launches.values()) == \
+            counter.launches - before
+        assert set(counter.variant_launches) <= NEW_NORM_VARIANTS
     torch.testing.assert_close(out[0], out[1], rtol=1e-4, atol=1e-4)
+
+
+# every hidden width of the port's model configs (models/gpt2.py,
+# models/llama.py)
+MODEL_WIDTHS = (64, 768, 1024, 2048, 4096, 5120, 8192)
+NEW_NORM_VARIANTS = {"warp_row", "cta_row"}
+
+
+def _norm_run(kind, x, s, b):
+    from deepspeed_tpu_torch.ops import norms as N
+    counter = N.rms_norm_kernel if kind == "rms" else N.layer_norm_kernel
+    before = counter.launches
+    y = (N.rms_norm_kernel(x, s) if kind == "rms"
+         else N.layer_norm_kernel(x, s, b))
+    assert counter.launches == before + 1
+    return y, counter.variant
+
+
+def _assert_plain_close(kind, got, x, s, b):
+    """fp32: within 1e-6 + 4 ulps of the larger of |ref| and, for
+    LayerNorm, |ref - bias| (the normalised term before the bias add,
+    which the add may cancel): at 24576 rows of up to 8192 the two sum
+    each row in another order, so mean and rstd land a few ulps apart
+    (so does the numpy emulation of the kernels' schedule against the
+    plain version on the CPU at that size; 37 rows stay within
+    test_norm_kernels_match_plain's 2). bf16/fp16: one ulp, norm_ulps."""
+    from deepspeed_tpu_torch.ops import layers as L
+    ref = L.rms_norm(x, s) if kind == "rms" else L.layer_norm(x, s, b)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if x.dtype == torch.float32:
+        mag = ref.abs()
+        if kind == "layer":
+            mag = torch.maximum(mag, (ref - b.float()).abs())
+        err = (got - ref).abs()
+        assert bool((err <= 1e-6 + 4.8e-7 * mag).all()), float(err.max())
+    else:
+        assert norm_ulps(got, ref, x.dtype,
+                         b if kind == "layer" else None) <= 1.0
+
+
+@pytest.mark.parametrize("d", MODEL_WIDTHS)
+@pytest.mark.parametrize("dtype", NORM_DTYPES)
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_norm_row_variants_match_plain_and_the_plan(cuda, kind, dtype, d):
+    """warp_row / cta_row at every model width, params in fp32 and in x's
+    dtype, 1, 37 and 24576 rows: against plain (_assert_plain_close); the
+    variant each launch took equals launch_plan's and the C table's
+    (ds_norm_variant, ds_norm_plan: warps, vectors, threads, and the grid
+    min(row groups, slots)); a rerun is bit-identical."""
+    from deepspeed_tpu_torch.ops import norms as N
+    g = torch.Generator(device=cuda).manual_seed(d)
+    scale = torch.randn(d, generator=g, device=cuda) + 1
+    bias = torch.randn(d, generator=g, device=cuda)
+    for rows in (1, 37, 24576):
+        x = (torch.randn(rows, d, generator=g, device=cuda) * 2
+             + 0.5).to(dtype)
+        for pdtype in dict.fromkeys((torch.float32, dtype)):
+            slots = N.kernel_plan(kind, 1 << 40, d, dtype, pdtype)["grid"]
+            s, b = scale.to(pdtype), bias.to(pdtype)
+            got, variant = _norm_run(kind, x, s, b)
+            plan = N.launch_plan(kind, rows, d, dtype, pdtype, slots=slots)
+            c_plan = N.kernel_plan(kind, rows, d, dtype, pdtype)
+            assert variant == plan["variant"] == c_plan["variant"]
+            assert variant in NEW_NORM_VARIANTS
+            assert {k: plan[k] for k in c_plan} == c_plan
+            _assert_plain_close(kind, got, x, s, b)
+            again, _ = _norm_run(kind, x, s, b)
+            assert torch.equal(got, again)
+            del got, again
+
+
+@pytest.mark.parametrize("d", [512, 768, 4096])
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_norm_rows_keep_nan_and_inf_in_their_row(cuda, kind, d):
+    """A row of NaN and a row with an inf between finite rows (fp32 at 512:
+    warp_row; 768 and 4096: cta_row with 2 and 8 warps; and bf16) leave
+    every other row bit-equal to a run without them."""
+    from deepspeed_tpu_torch.ops import norms as N
+    for dtype in (torch.float32, torch.bfloat16):
+        x, scale, bias = _norm_inputs(cuda, dtype, d, seed=3, rows=37)
+        bad = x.clone()
+        bad[5] = float("nan")
+        bad[20, d // 3] = float("inf")
+        clean, v1 = _norm_run(kind, x, scale, bias)
+        dirty, v2 = _norm_run(kind, bad, scale, bias)
+        assert v1 == v2 and v1 in NEW_NORM_VARIANTS
+        keep = [r for r in range(37) if r not in (5, 20)]
+        assert torch.equal(clean[keep], dirty[keep])
+        assert bool(dirty[5].isnan().all())
+        assert not bool(dirty[20].isfinite().all())
+
+
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_norm_misaligned_and_odd_rows_take_general(cuda, kind):
+    """x one element past a 16-byte boundary (a view with a storage offset
+    of one) and an odd d (201) take general and match plain; the same
+    values aligned take the row kernels and agree with general within the
+    plain bound."""
+    from deepspeed_tpu_torch.ops import norms as N
+    for dtype in NORM_DTYPES:
+        for d in (768, 4096):
+            x, scale, bias = _norm_inputs(cuda, dtype, d, seed=4, rows=37)
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+            off = buf[1:].view(37, d)
+            off.copy_(x)
+            assert off.is_contiguous() and off.data_ptr() % 16 != 0
+            got, variant = _norm_run(kind, off, scale, bias)
+            assert variant == "general" == N.launch_plan(
+                kind, 37, d, dtype, torch.float32, aligned=False)["variant"]
+            assert N.kernel_plan(kind, 37, d, dtype, torch.float32,
+                                 aligned=False)["variant"] == "general"
+            _assert_plain_close(kind, got, off, scale, bias)
+            _, aligned_variant = _norm_run(kind, x, scale, bias)
+            assert aligned_variant in NEW_NORM_VARIANTS
+        x, scale, bias = _norm_inputs(cuda, dtype, 201, seed=5, rows=37)
+        got, variant = _norm_run(kind, x, scale, bias)
+        assert variant == "general"
+        _assert_plain_close(kind, got, x, scale, bias)
+
+
+@pytest.mark.parametrize("d", [512, 768, 4096])
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_norm_function_grads_through_the_row_kernels(cuda, kind, d):
+    """The autograd Functions with a row kernel's forward (fp32: warp_row
+    at 512, cta_row at 768 and 4096) against plain autograd: output at the
+    plain bound, grads at 1e-5, as test_norm_functions_on_the_card."""
+    from deepspeed_tpu_torch.ops import layers as L
+    from deepspeed_tpu_torch.ops import norms as N
+    x, scale, bias = _norm_inputs(cuda, torch.float32, d, seed=6, rows=50)
+    counter = N.rms_norm_kernel if kind == "rms" else N.layer_norm_kernel
+    g = torch.randn_like(x)
+    outs, grads = [], []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        before = counter.launches
+        with N.plain_norms(plain):
+            y = (N.rms_norm(leaves[0], leaves[1]) if kind == "rms"
+                 else N.layer_norm(*leaves))
+        y.backward(g)
+        assert counter.launches == before + (not plain)
+        if not plain:
+            assert counter.variant in NEW_NORM_VARIANTS
+        outs.append(y.detach())
+        grads.append([t.grad for t in leaves[:2 if kind == "rms" else 3]])
+    torch.testing.assert_close(outs[0], outs[1], rtol=2.4e-7, atol=1e-6)
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
