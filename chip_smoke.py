@@ -22,7 +22,12 @@ Phases, each fatal on failure:
      block-sparse rows add the kernels' variant (bf16/fp16 on the tensor
      cores, fp32 on the CUDA cores), TFLOP/s, the share of the bound, the
      ratio to SDPA and a bit-identical rerun, and the build prints their
-     registers, shared memory and spills;
+     registers, shared memory and spills; the paged rows also in fp16
+     (decode, prefill and tick, fp and int8 pools), the quantize rows
+     with the variant each call took (bulk, and ragged on a misaligned
+     start), the Adam row with its like-for-like yardsticks (the kernel
+     without its copy against AdamW(fused=True), with the copy against
+     that step and a bf16 copy_);
   4. the serving main path at full width: build_engine("llama", "3-8b")
      with random seeded weights serves 8 requests x 32 tokens through
      generate(); every layer of every tick must launch the kernel, every
@@ -78,7 +83,14 @@ Phases, each fatal on failure:
      dots_with_no_batch_dims_saveable, save_attn_ffn) and remat=False,
      from the same weights, a warm-up and 3 timed steps each: step ms,
      peak memory, the losses (finite, falling, within bf16 noise of
-     segments') and the norm launches a step.
+     segments') and the norm launches a step;
+ 16. fp16 serving, DeepSpeed's default inference dtype: phase 4's
+     Llama-3-8B and requests with {"dtype": "fp16"} (every paged launch
+     decode_split or prefill_wgmma, every norm launch cta_row), its
+     greedy agreement with phase 4's bf16 engine (reported), every layer
+     of three teacher-forced ticks against the plain attention at 1e-2
+     and the first tick's logits against the plain path's; then Path Q's
+     config in fp16 (4 requests) and its layers on int8 and fp8 pools.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
 RMSNorm/LayerNorm kernels against their plain versions and times them at
@@ -117,9 +129,13 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor rate
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-# flash attention also in fp16, at tests/test_torch_cuda.py's 1e-2 (fp16
-# rounds p and ds 8x finer than bf16)
-FLASH_TOL = dict(TOL, float16=1e-2)
+# the attention kernels (flash, block-sparse, paged) also in fp16, at
+# tests/test_torch_cuda.py's 1e-2 (fp16 rounds p and ds 8x finer than bf16)
+ATTN_TOL = dict(TOL, float16=1e-2)
+# fp16 serving: the first tick's logits of the kernel path against the
+# plain attention's, max |d| / max |logits| (bf16 drifts ~6% over 32 random
+# layers, fp16's ulp is 8x finer)
+FP16_LOGITS_TOL = 5e-2
 ADAM_TOL = (1e-6, 1e-5)        # atol, rtol: the JAX fused-Adam tolerance
 KERNELS = ("paged_attention", "flash_attention", "fused_adam",
            "fused_lion", "block_sparse_attention", "quantize_int8", "norms")
@@ -133,6 +149,9 @@ NEW_NORM_VARIANTS = ("warp_row", "cta_row")
 REPLACES = {
     "paged_attention": "deepspeed_tpu/inference/v2/paged.py:61",
     "paged_attention_quantized": "deepspeed_tpu/inference/v2/paged.py:61",
+    "paged_attention_fp16": "deepspeed_tpu/inference/v2/paged.py:61",
+    "paged_attention_quantized_fp16":
+        "deepspeed_tpu/inference/v2/paged.py:61",
     "flash_attention_fwd": "deepspeed_tpu/ops/pallas/flash_attention.py:88",
     "flash_attention_bwd": "deepspeed_tpu/ops/pallas/flash_attention.py:226",
     "fused_adam": "deepspeed_tpu/ops/pallas/fused_optimizers.py:75",
@@ -146,6 +165,31 @@ REPLACES = {
     "rms_norm": "deepspeed_tpu/ops/pallas/norms.py:47",
     "rms_norm_decode": "deepspeed_tpu/ops/pallas/norms.py:47",
     "layer_norm": "deepspeed_tpu/ops/pallas/norms.py:81"}
+# what each kernel of the kernels line takes: its dtypes and its variants
+# (by the dtypes that take them)
+_ATTN = {"wgmma": ["bfloat16", "float16"], "cuda_cores": ["float32"]}
+_PAGED = {"decode_split": ["float32", "bfloat16", "float16"],
+          "prefill_wgmma": ["bfloat16", "float16"], "cuda_cores": ["float32"]}
+_ALL = ["float32", "bfloat16", "float16"]
+KERNEL_FORMS = {
+    "paged_attention": (_ALL, _PAGED),
+    "paged_attention_quantized": (_ALL, _PAGED),
+    "paged_attention_fp16": (_ALL, _PAGED),
+    "paged_attention_quantized_fp16": (_ALL, _PAGED),
+    "flash_attention_fwd": (_ALL, _ATTN), "flash_attention_bwd": (_ALL, _ATTN),
+    "block_sparse_attention_fwd": (_ALL, _ATTN),
+    "block_sparse_attention_bwd": (_ALL, _ATTN),
+    "fused_adam": (["float32, copy bfloat16/float16"],
+                   {"fused_adam_kernel": ["float32"]}),
+    "fused_lion": (["float32, copy bfloat16/float16"],
+                   {"fused_lion_kernel": ["float32"]}),
+    "quantize_int8": (_ALL, {"bulk": _ALL, "ragged": _ALL}),
+    "dequantize_int8": (_ALL, {"dequantize_kernel": _ALL}),
+    "rms_norm": (_ALL, {v: _ALL for v in ("warp_row", "cta_row", "general")}),
+    "rms_norm_decode": (_ALL, {v: _ALL for v in ("warp_row", "cta_row",
+                                                "general")}),
+    "layer_norm": (_ALL, {v: _ALL for v in ("warp_row", "cta_row",
+                                           "general")})}
 # remat policies of phase 15: every name the JAX model runs (aliases once)
 # and remat off
 REMAT_RUNS = ("segments", "nothing_saveable", "everything_saveable",
@@ -440,7 +484,7 @@ def kernel_checks(dev, flush=None, iters=20):
              "prefill_tick": PREFILL_TICK}
     errs = {}
     record = {}
-    for dtype_name, tol in TOL.items():
+    for dtype_name, tol in ATTN_TOL.items():
         dtype = getattr(torch, dtype_name)
         for name, shape in cases.items():
             x, kw = attention_case(dev, dtype, **shape)
@@ -458,17 +502,18 @@ def kernel_checks(dev, flush=None, iters=20):
                     f"paged_attention kernel disagrees with its plain "
                     f"version: {name} {dtype_name}, max|err| "
                     f"{float(err.max()):.3e} > tol {tol:g}")
-            if dtype_name == "bfloat16" and name in ("decode", "prefill",
-                                                      "prefill_tick"):
-                record[name] = time_attention(x, kw, dev, iters, flush)
-                log(f"[kernel] {name} times (ms): {json.dumps(record[name])}")
-                check_rerun(record[name], name)
+            if dtype_name != "float32" and name in ("decode", "prefill",
+                                                     "prefill_tick"):
+                key = name + ("_fp16" if dtype_name == "float16" else "")
+                record[key] = time_attention(x, kw, dev, iters, flush)
+                log(f"[kernel] {key} times (ms): {json.dumps(record[key])}")
+                check_rerun(record[key], key)
     return errs, record
 
 
 def check_rerun(rec: dict, name: str) -> None:
     """A timed paged call must rerun bit for bit (no atomics) on the card,
-    through one of the bf16 variants of this port's design."""
+    through one of the bf16/fp16 variants of this port's design."""
     if rec["variant"] is not None and (
             not rec["bit_identical_rerun"]
             or rec["variant"] not in NEW_PAGED_VARIANTS):
@@ -515,13 +560,14 @@ def quantize_pools(x, kw, kv_dtype: str, granularity: str):
 
 def quant_checks(dev, flush=None, iters=20):
     """Phase 3, quantized pools: the kernel's int8/fp8 mode against its
-    plain version over QUANT_CASES (fp32 1e-4, bf16 3e-2, absolute plus
-    relative as the fp mode); then times at the serving head layout (bf16,
-    int8 per-head pools) for decode and prefill."""
+    plain version over QUANT_CASES (fp32 1e-4, bf16 3e-2, fp16 1e-2,
+    absolute plus relative as the fp mode); then times at the serving
+    head layout (bf16 and fp16, int8 per-head pools) for decode and
+    prefill."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import paged
     errs = {}
-    for dtype_name, tol in TOL.items():
+    for dtype_name, tol in ATTN_TOL.items():
         dtype = getattr(torch, dtype_name)
         for kv_dtype in ("int8", "fp8"):
             for gran in ("head", "token"):
@@ -547,13 +593,15 @@ def quant_checks(dev, flush=None, iters=20):
                 f"{2 * len(QUANT_CASES)} cases max|err| {worst:.3e} "
                 f"(tol {tol:g})")
     record = {}
-    for name, shape in zip(("decode", "prefill"), serving_shapes()):
-        x, kw = quantize_pools(*attention_case(dev, torch.bfloat16, **shape),
-                               "int8", "head")
-        record[name] = time_attention(x, kw, dev, iters, flush)
-        log(f"[kernel] quantized int8 {name} times (ms): "
-            f"{json.dumps(record[name])}")
-        check_rerun(record[name], f"int8 {name}")
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float16, "_fp16")):
+        for name, shape in zip(("decode", "prefill"), serving_shapes()):
+            x, kw = quantize_pools(*attention_case(dev, dtype, **shape),
+                                   "int8", "head")
+            key = name + tag
+            record[key] = time_attention(x, kw, dev, iters, flush)
+            log(f"[kernel] quantized int8 {key} times (ms): "
+                f"{json.dumps(record[key])}")
+            check_rerun(record[key], f"int8 {key}")
     return errs, record
 
 
@@ -600,15 +648,17 @@ def serve(engine, prompts, max_new: int, dev):
 
 
 def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
-              engine_over=None):
-    """Phase 4: the serving main path at full width through generate()."""
+              engine_over=None, dtype="bfloat16"):
+    """Phase 4 (phase 16 with ``dtype="float16"``): the serving main path
+    at full width through generate(). The stats carry the greedy tokens
+    under "outputs"."""
     from deepspeed_tpu_torch.inference.v2 import build_engine, paged
-    cfg = {"dtype": "bfloat16", "kv_block_size": 64, "num_kv_blocks": 512,
+    cfg = {"dtype": dtype, "kv_block_size": 64, "num_kv_blocks": 512,
            "max_chunk_size": 256, "max_ragged_sequence_count": 8}
     cfg.update(engine_over or {})
     t = time.perf_counter()
     engine = build_engine("llama", size=size, engine_config=cfg, device=dev)
-    log(f"[main] build_engine llama-{size}: "
+    log(f"[main] build_engine llama-{size} {dtype}: "
         f"{time.perf_counter() - t:.1f} s")
     c = engine.model.config
     rng = np.random.default_rng(1)
@@ -645,6 +695,7 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
     pre = [(s, p) for s, p, _, _ in ticks if p > 0]
     dec = [s for s, p, d, _ in ticks if p == 0 and d > 0]
     stats = dict(
+        dtype=dtype,
         requests=n_req, new_tokens=max_new, prompt_tokens=int(lens.sum()),
         ticks=len(ticks), dispatches=dispatches, launches=launches,
         launches_by_variant=by_variant, norm_launches=norm_launches,
@@ -659,6 +710,7 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
         e2e_generated_tokens_per_s=n_req * max_new / wall,
         e2e_tokens_per_s=(int(lens.sum()) + n_req * max_new) / wall)
     log(f"[main] {json.dumps(stats)}")
+    stats["outputs"] = outs
     return engine, stats
 
 
@@ -683,13 +735,15 @@ def check_norm_variants(counter, dev, what: str) -> dict:
 
 
 def check_variants(by_variant: dict, launches: int, dev, what: str) -> None:
-    """Every bf16 paged-attention launch of a main path took one of the
-    port's new kernels (the counts by variant add up to the launches)."""
+    """Every bf16/fp16 paged-attention launch of a main path took one of
+    the port's new kernels (the counts by variant add up to the
+    launches)."""
     if dev.type == "cuda" and (sum(by_variant.values()) != launches or
                                set(by_variant) - set(NEW_PAGED_VARIANTS)):
         raise AssertionError(f"{what}: paged launches by variant "
-                             f"{by_variant}, {launches} in all; every bf16 "
-                             f"launch must take {NEW_PAGED_VARIANTS}")
+                             f"{by_variant}, {launches} in all; every "
+                             f"bf16/fp16 launch must take "
+                             f"{NEW_PAGED_VARIANTS}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -860,7 +914,8 @@ def agreement(outs, refs) -> list[int]:
 
 
 def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
-                prefix_len=512, suffix=(100, 401), engine_over=None):
+                prefix_len=512, suffix=(100, 401), engine_over=None,
+                dtype="bfloat16"):
     """Phase 11: build_engine("llama", size, {..., kv_cache int8 per head
     with grow_pool, prefix_cache on}) with the same seeded weights as
     phase 4's ``ref_engine``. A shared ``prefix_len``-token system prompt
@@ -869,16 +924,17 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
     greedy tokens each, through generate(); the counts and the serving
     metrics are set to 0 right before and read right after. The same
     prompts then go through ``ref_engine`` (bf16 pools, no prefix cache)
-    for the greedy agreement horizon, reported without a bound."""
+    for the greedy agreement horizon, reported without a bound. Phase 16
+    runs it with ``dtype="float16"`` beside phase 16's fp16 engine."""
     from deepspeed_tpu_torch.inference.v2 import build_engine, paged
-    cfg = {"dtype": "bfloat16", "kv_block_size": 64, "num_kv_blocks": 512,
+    cfg = {"dtype": dtype, "kv_block_size": 64, "num_kv_blocks": 512,
            "max_chunk_size": 256, "max_ragged_sequence_count": 8,
            **PATH_Q_CONFIG}
     cfg.update(engine_over or {})
     t = time.perf_counter()
     engine = build_engine("llama", size=size, engine_config=cfg, device=dev)
-    log(f"[path Q] build_engine llama-{size} int8 KV + prefix cache: "
-        f"{time.perf_counter() - t:.1f} s")
+    log(f"[path Q] build_engine llama-{size} {dtype} int8 KV + prefix "
+        f"cache: {time.perf_counter() - t:.1f} s")
     c = engine.model.config
     bs = cfg["kv_block_size"]
     rng = np.random.default_rng(11)
@@ -935,6 +991,7 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
     pre = [(s, p) for s, p, _, _ in ticks if p > 0]
     dec = [s for s, p, d, _ in ticks if p == 0 and d > 0]
     stats = dict(
+        dtype=dtype, reference_engine_dtype=str(ref_engine.dtype),
         requests=n_req, new_tokens=max_new, prefix_tokens=prefix_len,
         suffix_tokens=int(lens.sum()), ticks=len(ticks),
         dispatches=dispatches, launches=launches,
@@ -962,25 +1019,29 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
 
 
 # ----------------------------------------------------------- phase 12
-def path_q_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
+def path_q_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16,
+                           widen=True):
     """Phase 12: Path Q teacher-forced as in phase 5, on int8 and on fp8
     per-head pools. At every layer of every tick the kernel's output is
     held against its plain version on the same inputs and the same
-    quantized pools: bf16 (the engine as it serves) at 3e-2, fp32 (the
-    weights widened, TF32 off) at 1e-4. The logits of the kernel path
-    against the reference path (``use_kernel=False``, which dequantizes
-    the gathered pages) are reported, not held: a last-bit difference in
-    k can flip one code in a later layer."""
+    quantized pools: the engine's dtype as it serves (bf16 3e-2, fp16
+    1e-2) and, with ``widen``, fp32 (the weights widened, TF32 off) at
+    1e-4. The logits of the kernel path against the reference path
+    (``use_kernel=False``, which dequantizes the gathered pages) are
+    reported, not held: a last-bit difference in k can flip one code in a
+    later layer."""
     import torch
     model = engine.model
     bs = engine.state_manager.block_size
     calls = 3 * model.config.num_layers
     out = {}
-    model32 = widened(model, dev)
+    models = [(str(engine.dtype).split(".")[-1], model)]
+    if widen:
+        models.insert(0, ("float32", widened(model, dev)))
     for kv in ("int8", "fp8"):
         rec = {}
-        for dtype_name, m in (("float32", model32), ("bfloat16", model)):
-            checked, worst = layer_checker(TOL[dtype_name])
+        for dtype_name, m in models:
+            checked, worst = layer_checker(ATTN_TOL[dtype_name])
             kern = teacher_forced_logits(m, dev, True, bs, nb, lens,
                                          attention=checked, kv_dtype=kv)
             ref = teacher_forced_logits(m, dev, False, bs, nb, lens,
@@ -988,20 +1049,110 @@ def path_q_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
             if worst["layer_calls"] != calls:
                 raise AssertionError(f"{worst['layer_calls']} checked layer "
                                      f"calls != {calls}")
-            if dtype_name == "bfloat16":
+            if dtype_name != "float32":
                 check_variants(worst["variants"], calls, dev,
-                               f"Path Q {kv} bf16 layer calls")
+                               f"Path Q {kv} {dtype_name} layer calls")
             rec[dtype_name] = dict(
                 layer_calls=worst["layer_calls"],
                 layer_calls_by_variant=worst["variants"],
                 layer_max_abs_err=worst["max_abs_err"],
-                tol=TOL[dtype_name],
+                tol=ATTN_TOL[dtype_name],
                 logits_kernel_vs_reference=rel_err(kern, ref))
         out[kv] = rec
         log(f"[path Q vs plain] {kv}: {json.dumps(rec)}")
-    del model32
+    del models
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------- phase 16
+def fp16_kernel_vs_plain(engine, dev, lens=(200, 250), nb=16):
+    """Phase 16's check of the fp16 engine as it serves, teacher-forced as
+    phase 5: at every layer of the three ticks the kernel's output against
+    its plain version on the same inputs at ATTN_TOL's fp16 1e-2, every
+    call on a new variant; the first (prefill) tick's logits of the kernel
+    path against the path with the plain attention at FP16_LOGITS_TOL of
+    max |logits|; every tick's logits against the reference path
+    (``use_kernel=False``) reported. Logits must be finite."""
+    from deepspeed_tpu_torch.inference.v2 import paged
+    model = engine.model
+    bs = engine.state_manager.block_size
+    checked, worst = layer_checker(ATTN_TOL["float16"])
+
+    def plain(*args, sanitize_pools=True, **kw):
+        return paged.paged_attention_plain(*args, **kw)
+
+    kernel = teacher_forced_logits(model, dev, True, bs, nb, lens,
+                                   attention=checked)
+    plain16 = teacher_forced_logits(model, dev, True, bs, nb, lens,
+                                    attention=plain)
+    ref = teacher_forced_logits(model, dev, False, bs, nb, lens)
+    check_variants(worst["variants"], worst["layer_calls"], dev,
+                   "fp16 layer calls")
+    rels = {"layer_calls": worst["layer_calls"],
+            "layer_max_abs_err": worst["max_abs_err"],
+            "layer_tol": ATTN_TOL["float16"],
+            "layer_calls_by_variant": worst["variants"],
+            "first_tick_logits_kernel_vs_plain":
+                rel_err(kernel[:1], plain16[:1]),
+            "first_tick_logits_tol": FP16_LOGITS_TOL,
+            "logits_kernel_vs_plain": rel_err(kernel, plain16),
+            "logits_kernel_vs_reference": rel_err(kernel, ref),
+            "logits_plain_vs_reference": rel_err(plain16, ref)}
+    log(f"[fp16 vs plain] max|dlogits|/max|logits|: {json.dumps(rels)}")
+    if worst["layer_calls"] != 3 * model.config.num_layers:
+        raise AssertionError(f"{worst['layer_calls']} checked layer calls")
+    if rels["first_tick_logits_kernel_vs_plain"] > FP16_LOGITS_TOL:
+        raise AssertionError(f"fp16 first tick's logits, kernel vs plain "
+                             f"attention: {rels}")
+    return rels
+
+
+def fp16_serving_main(dev, bf16_outputs, size="3-8b", q_requests=4,
+                      max_new=32, lengths=(100, 701), engine_over=None,
+                      check_lens=(200, 250), profile=False, **path_q_kw):
+    """Phase 16: the serving main path in fp16 (DeepSpeed's default
+    inference dtype): phase 4's model, requests and engine config with
+    {"dtype": "fp16"}, every paged launch decode_split or prefill_wgmma
+    and (on the card) every norm launch cta_row; the greedy agreement with
+    phase 4's bf16 outputs (``bf16_outputs``), reported; the engine's
+    layers and first tick against plain (:func:`fp16_kernel_vs_plain`);
+    then Path Q's config in fp16 with ``q_requests`` requests, and its
+    layers on int8 and fp8 pools at the fp16 tolerance. With ``profile``,
+    a prefill tick and decode ticks of the fp16 engine are traced as
+    phase 4's are."""
+    import torch
+    engine, stats = main_path(dev, size=size, max_new=max_new,
+                              lengths=lengths, dtype="float16",
+                              engine_over=engine_over)
+    horizon = agreement(stats.pop("outputs"), bf16_outputs)
+    stats.update(greedy_agreement_vs_bf16=horizon,
+                 greedy_agreement_min=min(horizon),
+                 greedy_agreement_mean=sum(horizon) / len(horizon))
+    by_norm = stats["norm_launches_by_variant"]
+    if dev.type == "cuda" and set(by_norm) != {"cta_row"}:
+        raise AssertionError(f"fp16 serving: norm launches by variant "
+                             f"{by_norm}; every launch must take cta_row")
+    rels = fp16_kernel_vs_plain(engine, dev, lens=check_lens)
+    if profile:
+        profile_main_path(engine, dev, label="fp16_")
+    q_engine, path_q = path_q_main(dev, engine, size=size, n_req=q_requests,
+                                   max_new=max_new, dtype="float16",
+                                   engine_over=engine_over, **path_q_kw)
+    del engine
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    q_rels = path_q_kernel_vs_plain(q_engine, dev, lens=check_lens,
+                                    widen=False)
+    del q_engine
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = dict(serving=stats, kernel_vs_plain=rels, path_q=path_q,
+               path_q_kernel_vs_plain=q_rels)
+    log(f"[fp16] {json.dumps(out)}")
     return out
 
 
@@ -1016,7 +1167,8 @@ KERNEL_TYPES = {"f": (0, "fp32"), "13__nv_bfloat16": (1, "bf16"),
 # the paged-attention kernels: kernel, dtype, pool type (absent: the
 # combine; f or a substitution S<n>_: the pool is of the dtype), D and the
 # split's rows R (the CUDA-core kernel's rows a warp)
-PAGED_KERNEL = re.compile(r"(paged_[a-z_]+kernel)I(f|13__nv_bfloat16)"
+PAGED_KERNEL = re.compile(r"(paged_[a-z_]+kernel)I"
+                          r"(f|13__nv_bfloat16|6__half)"
                           r"(f|S\d*_|a|13__nv_fp8_e4m3)?Li(\d+)E"
                           r"(?:Li(\d+)E)?")
 POOL_TYPES = {None: (0, ""), "a": (1, " int8"),
@@ -1195,7 +1347,7 @@ def flash_checks(dev):
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as fa
     errs = {}
-    for dtype_name, tol in FLASH_TOL.items():
+    for dtype_name, tol in ATTN_TOL.items():
         dtype = getattr(torch, dtype_name)
         for name, (b, s, hq, hkv, d, causal, window) in FLASH_CASES.items():
             q, k, v, do = flash_inputs(dev, dtype, b, s, hq, hkv, d, seed=1)
@@ -1423,20 +1575,40 @@ def train_kernel_times(dev, adam_numel: int, flush=None, iters=20):
     lib_p.grad = grad.clone()
     lib_opt = torch.optim.AdamW([lib_p], lr=1e-4, weight_decay=0.01,
                                 fused=dev.type == "cuda")
+    lib_out = torch.empty(n, dtype=torch.bfloat16, device=dev)
+
+    def lib_step_and_copy():
+        lib_opt.step()
+        lib_out.copy_(lib_p.detach())
+
     read_write = 16 + 12                  # p, g, m, v in; p, m, v out
     t_bytes = n * (read_write + 2) / HBM_BYTES_PER_S
     t_ops = 15 * n / FP32_FLOPS
+    # like for like: the kernel without its copy against AdamW(fused=True)
+    # (28 B a value each), with its copy against that step followed by a
+    # bf16 copy_ of the new params (the same 30 B of results, plus the
+    # copy's read of p)
     rec["fused_adam"] = dict(
         ms=time_ms(lambda: fused_adam_step(p, grad, m, vv, hp, out=out, **kw),
                    dev, iters, flush),
+        ms_without_copy=time_ms(lambda: fused_adam_step(p, grad, m, vv, hp,
+                                                        **kw),
+                                dev, iters, flush),
         plain_ms=time_ms(lambda: adam_plain(p, grad, m, vv, hp, out=out,
                                             **kw), dev, max(iters // 4, 2),
                          flush),
         library_ms=time_ms(lib_opt.step, dev, iters, flush),
+        library_with_copy_ms=time_ms(lib_step_and_copy, dev, iters, flush),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bound_ms_without_bf16_copy=n * read_write / HBM_BYTES_PER_S * 1e3,
         numel=n)
+    r = rec["fused_adam"]
+    r.update(bound_share=r["bound_ms"] / r["ms"],
+             bound_share_without_copy=r["bound_ms_without_bf16_copy"]
+             / r["ms_without_copy"],
+             x_library_without_copy=r["ms_without_copy"] / r["library_ms"],
+             x_library_with_copy=r["ms"] / r["library_with_copy_ms"])
     log(f"[kernel] fused_adam times (ms) over {n} fp32 params + bf16 copy: "
         f"{json.dumps(rec['fused_adam'])}")
     rec["fused_adam"]["check"] = adam_check
@@ -1731,7 +1903,7 @@ def sparse_checks(dev):
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import kernels as bsa
     errs = {}
-    for dtype_name, tol in FLASH_TOL.items():
+    for dtype_name, tol in ATTN_TOL.items():
         for name, (b, h, s, d, lay) in SPARSE_CASES.items():
             layout = sparse_layout(h, s, **lay)
             maps = bsa.block_maps(layout, dev, lay["block"])
@@ -2250,15 +2422,22 @@ def zeropp_kernel_times(dev, flush=None, iters=20, size="125m"):
     dim = plan.param_dims["embed/tokens"]
     shapes = {"largest_shard": plan.shard_shape("embed/tokens", dim),
               "shard_set": (sum(int(np.prod(plan.shard_shape(n, d)))
-                                for n, d in plan.param_dims.items()),)}
+                                for n, d in plan.param_dims.items()),),
+              "largest_shard_misaligned":
+                  plan.shard_shape("embed/tokens", dim)}
     g = torch.Generator(device=dev).manual_seed(4)
     rec = {"quantize_int8": {}, "dequantize_int8": {}}
     for case, shape in shapes.items():
-        x = (torch.randn(shape, generator=g, device=dev) * 0.02).to(
-            torch.bfloat16)
+        # the misaligned case starts one element into its storage: the
+        # quantize takes its ragged variant over the same bytes
+        skew = int(case.endswith("misaligned"))
+        x = (torch.randn(int(np.prod(shape)) + skew, generator=g,
+                         device=dev) * 0.02).to(torch.bfloat16)[skew:]
         n = x.numel()
         rows = x.view(1, -1)
         q, sc = TQ.quantize_rows(rows, use_kernel=None)
+        variant = (TQ.quantize_int8_kernel.variant if dev.type == "cuda"
+                   else TQ.quantize_plan(n, x.data_ptr() % 16 == 0))
         pq, ps = TQ.quantize_rows(rows, use_kernel=False)
         back = TQ.dequantize_rows(q, sc, 1, n, torch.bfloat16, None)
         pback = TQ.dequantize_rows(q, sc, 1, n, torch.bfloat16, False)
@@ -2299,6 +2478,16 @@ def zeropp_kernel_times(dev, flush=None, iters=20, size="125m"):
                 library_ms=(time_ms(lib, dev, iters, flush)
                             if lib else None),
                 library_bit_equal=lib_eq, bound_ms=bound, bound_by=by)
+            r = rec[name][case]
+            r.update(bound_share=bound / r["ms"],
+                     gb_per_s=(n * (2 + 1 + 4 / 512)) / r["ms"] / 1e6)
+        rec["quantize_int8"][case]["variant"] = variant
+        # a yardstick of the memory path: PyTorch's copy of x (2 bytes read
+        # and 2 written a value, a third more than the quantize's 3)
+        xc = torch.empty_like(x)
+        rec["quantize_int8"][case]["copy_ms"] = time_ms(
+            lambda: xc.copy_(x), dev, iters, flush)
+        del xc
         log(f"[kernel] int8 block quantize at {case} {list(shape)} bf16: "
             f"{json.dumps({k: v[case] for k, v in rec.items()})}")
         if not all(equal.values()):
@@ -2306,13 +2495,155 @@ def zeropp_kernel_times(dev, flush=None, iters=20, size="125m"):
                                  f"{equal}")
         del x, rows, q, sc, back, lib_out
     for name, r in rec.items():
+        cases = [r[c] for c in shapes]
         r.update({k: r["largest_shard"][k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
-        r["library_bit_equal"] = r["largest_shard"]["library_bit_equal"] \
-            and r["shard_set"]["library_bit_equal"]
-        r["max_abs_err"] = max(c["max_abs_err"] for c in (
-            r["largest_shard"], r["shard_set"]))
+        r["library_bit_equal"] = all(c["library_bit_equal"] in (True, None)
+                                     for c in cases)
+        r["max_abs_err"] = max(c["max_abs_err"] for c in cases)
     return rec
+
+
+# ------------------------------ --compare-kernels: two versions, one call
+def compare_kernels(other: str, dev, rounds=3, iters=20) -> dict:
+    """The quantize and fused-Adam kernels of this checkout against those
+    of the checkout at ``other`` (an earlier commit unpacked with ``git
+    archive``), each built from its own ``csrc`` with this checkout's
+    nvcc flags into ``build/compare/``, bound by the C entry points both
+    versions share, and timed on the same inputs in turns (other, this,
+    this, other, ``rounds`` times; each time the median of ``iters``
+    event-timed calls with the L2 flushed, as phase 3): the quantize at
+    Path Z's largest shard and shard set (bf16), Adam over GPT-2 125M's
+    flat buffers with and without the bf16 copy, beside
+    AdamW(fused=True).step and that step followed by a bf16 copy_ in the
+    same turns. Codes and scales of the two quantize kernels must be
+    equal bit for bit, Adam's results within ADAM_TOL. Returns each
+    version's medians over the rounds and every round's times."""
+    import ctypes
+    import torch
+    from pathlib import Path
+    from deepspeed_tpu_torch.ops import op_builder
+    roots = {"other": Path(other).resolve(),
+             "this": Path(__file__).resolve().parent}
+    names = ("quantize_int8", "fused_adam")
+    nvcc = op_builder.find_nvcc()
+    procs, libs = {}, {}
+    for tag, root in roots.items():
+        out_dir = op_builder.BUILD_DIR / "compare" / tag
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for name in names:
+            so = out_dir / f"lib{name}.so"
+            cmd = [nvcc, *op_builder.NVCC_FLAGS,
+                   str(root / "deepspeed_tpu_torch" / "csrc" / f"{name}.cu"),
+                   "-o", str(so)]
+            procs[tag, name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), so)
+    for key, (proc, so) in procs.items():
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {key}:\n{output}")
+        libs[key] = ctypes.CDLL(str(so))
+    vp, ll, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+    for (tag, name), lib in libs.items():
+        fn = getattr(lib, f"ds_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([vp, i32, vp, vp, ll, ll, vp]
+                       if name == "quantize_int8"
+                       else [vp] * 6 + [i32, ll, f32, i32, vp])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    plan = path_z_plan("125m")
+    dim = plan.param_dims["embed/tokens"]
+    g = torch.Generator(device=dev).manual_seed(4)
+    quant = {}
+    for case, n in (
+            ("largest_shard",
+             int(np.prod(plan.shard_shape("embed/tokens", dim)))),
+            ("shard_set", sum(int(np.prod(plan.shard_shape(k, d)))
+                              for k, d in plan.param_dims.items()))):
+        x = (torch.randn(n, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        nb = -(-n // 512)
+        outs = {t: (torch.empty(nb * 512, dtype=torch.int8, device=dev),
+                    torch.empty(nb, device=dev)) for t in roots}
+
+        def call(tag, x=x, n=n, outs=outs):
+            q, s = outs[tag]
+            err = libs[tag, "quantize_int8"].ds_quantize_int8(
+                x.data_ptr(), 1, q.data_ptr(), s.data_ptr(), 1, n, stream)
+            if err:
+                raise RuntimeError(f"quantize_int8 ({tag}): CUDA error {err}")
+
+        for t in roots:
+            call(t)
+        torch.cuda.synchronize()
+        if not (torch.equal(*(outs[t][0] for t in roots))
+                and torch.equal(*(outs[t][1] for t in roots))):
+            raise AssertionError(f"quantize_int8 {case}: the two versions' "
+                                 f"codes or scales differ")
+        quant[case] = (call, quant_bound(n, 2, 1)[0])
+    n = flat_numel("125m")
+    p0, grad = (torch.randn(n, generator=g, device=dev) for _ in range(2))
+    hp = torch.tensor([1e-4, 0.9, 0.999, 1e-8, 10.0, 1000.0, 1.0, 1.0],
+                      device=dev)
+    bufs = {t: [p0.clone(), torch.zeros(n, device=dev),
+                torch.zeros(n, device=dev),
+                torch.empty(n, dtype=torch.bfloat16, device=dev)]
+            for t in roots}
+
+    def adam(tag, copy):
+        p, m, v, out = bufs[tag]
+        err = libs[tag, "fused_adam"].ds_fused_adam(
+            p.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(),
+            hp.data_ptr(), out.data_ptr() if copy else None, 1, n, 0.01, 1,
+            stream)
+        if err:
+            raise RuntimeError(f"fused_adam ({tag}): CUDA error {err}")
+
+    for t in roots:
+        adam(t, True)
+    torch.cuda.synchronize()
+    for i, name in enumerate("pmv"):
+        a, b = (bufs[t][i] for t in roots)
+        if bool(((a - b).abs() > ADAM_TOL[0] + ADAM_TOL[1] * b.abs()).any()):
+            raise AssertionError(f"fused_adam: the two versions' {name} "
+                                 f"differ past ADAM_TOL")
+    lib_p = torch.nn.Parameter(p0.clone())
+    lib_p.grad = grad.clone()
+    lib_opt = torch.optim.AdamW([lib_p], lr=1e-4, weight_decay=0.01,
+                                fused=True)
+    lib_out = torch.empty(n, dtype=torch.bfloat16, device=dev)
+
+    def lib_copy():
+        lib_opt.step()
+        lib_out.copy_(lib_p.detach())
+
+    fns = {f"quantize_{case}": c for case, (c, _) in quant.items()}
+    fns["adam_with_copy"] = lambda t: adam(t, True)
+    fns["adam_without_copy"] = lambda t: adam(t, False)
+    runs = {k: {t: [] for t in roots} for k in fns}
+    library = {"adamw_fused_step": [], "adamw_fused_step_and_copy": []}
+    for _ in range(rounds):
+        for tag in ("other", "this", "this", "other"):
+            for k, fn in fns.items():
+                runs[k][tag].append(time_ms(lambda: fn(tag), dev, iters,
+                                            flush))
+        library["adamw_fused_step"].append(time_ms(lib_opt.step, dev, iters,
+                                                   flush))
+        library["adamw_fused_step_and_copy"].append(time_ms(lib_copy, dev,
+                                                            iters, flush))
+    bound = {f"quantize_{c}": b for c, (_, b) in quant.items()}
+    bound["adam_with_copy"] = n * 30 / HBM_BYTES_PER_S * 1e3
+    bound["adam_without_copy"] = n * 28 / HBM_BYTES_PER_S * 1e3
+    return {"other": str(roots["other"]), "rounds": rounds,
+            "numel_adam": n, "bound_ms": bound, "runs_ms": runs,
+            "library_runs_ms": library,
+            "median_ms": {k: {t: float(np.median(v)) for t, v in r.items()}
+                          for k, r in runs.items()},
+            "library_median_ms": {k: float(np.median(v))
+                                  for k, v in library.items()}}
 
 
 # ------------------------------------------------- phase 3, the norm kernels
@@ -2629,6 +2960,7 @@ def path_z_run(dev, config, size, steps, seq, check):
     for fn in counters.values():
         fn.launches = 0
     reset_norms(N.layer_norm_kernel)
+    TQ.quantize_int8_kernel.variant_launches = {}
     losses, step_s = [], []
     for _ in range(steps):
         t = time.perf_counter()
@@ -2637,6 +2969,7 @@ def path_z_run(dev, config, size, steps, seq, check):
             torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     launches = {k: fn.launches for k, fn in counters.items()}
+    quantize_by_variant = dict(TQ.quantize_int8_kernel.variant_launches)
     norm_by_variant = check_norm_variants(N.layer_norm_kernel, dev,
                                           "Path Z rank")
     losses = [float(x) for x in losses]
@@ -2648,6 +2981,7 @@ def path_z_run(dev, config, size, steps, seq, check):
                          if cuda else None),
         losses=losses, grad_norm=engine.get_global_grad_norm(),
         launches=launches, norm_launches_by_variant=norm_by_variant,
+        quantize_launches_by_variant=quantize_by_variant,
         norm_launches_per_micro=norm_launches_per_micro(model.config),
         launches_per_step={k: v / steps for k, v in launches.items()},
         shard_numel=sum(t.numel()
@@ -2994,6 +3328,11 @@ def main(argv=None) -> int:
                          "one Path T step and five Path P calls with "
                          "torch.profiler")
     ap.add_argument("--path-z-rank", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--compare-kernels", metavar="ROOT",
+                    help="only time the quantize and fused-Adam kernels of "
+                         "this checkout against those of the checkout at "
+                         "ROOT, in turns in this one process, and print "
+                         "the result as JSON")
     args = ap.parse_args(argv)
     if args.path_z_rank:
         return path_z_rank(args.path_z_rank)
@@ -3001,6 +3340,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.compare_kernels:
+        dev = torch.device("cuda")
+        log(card_line())
+        log(json.dumps(compare_kernels(args.compare_kernels, dev)))
+        return 0
     from deepspeed_tpu_torch.inference.v2 import paged
     from deepspeed_tpu_torch.ops import op_builder
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3072,6 +3416,10 @@ def main(argv=None) -> int:
     del q_engine
     gc.collect()
     torch.cuda.empty_cache()
+    fp16 = fp16_serving_main(dev, stats.pop("outputs"),       # phase 16
+                             profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
     if resident > 2**30:
         raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
@@ -3104,12 +3452,14 @@ def main(argv=None) -> int:
     remat = remat_policies_main(dev)                          # phase 15
 
     def entry(name, kernel, launches, max_abs_err, t, **extra):
+        dtypes, variants = KERNEL_FORMS[name]
         return {"name": name, "route": "cuda",
                 "source": SOURCE.format(kernel), "replaces": REPLACES[name],
                 "launches": launches, "max_abs_err": max_abs_err,
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"], **extra}
+                "library_ms": t["library_ms"], "dtypes": dtypes,
+                "variants": variants, **extra}
 
     def flash_extra(name, times, train):
         t = times[name]
@@ -3131,7 +3481,7 @@ def main(argv=None) -> int:
                         "launches_by_variant"][name[-3:]],
                     cases_max_rel_err_fp16=worst(f"{name[-3:]}_max_rel_err",
                                                  "float16", sparse_errs),
-                    cases_tol_fp16=FLASH_TOL["float16"])
+                    cases_tol_fp16=ATTN_TOL["float16"])
 
     dec, pre = times["decode"], times["prefill"]
 
@@ -3187,6 +3537,46 @@ def main(argv=None) -> int:
               main_path_layer_max_abs_err={
                   kv: {dt: r["layer_max_abs_err"] for dt, r in rec.items()}
                   for kv, rec in q_rels.items()}),
+        entry("paged_attention_fp16", "paged_attention",
+              fp16["serving"]["launches"],
+              max(v for (dt, _), v in errs.items() if dt == "float16"),
+              times["decode_fp16"], tol=ATTN_TOL["float16"],
+              shape="decode B=8 Sq=1 ctx 100-2000 Hq=32 Hkv=8 D=128 bs=64 "
+                    "fp16",
+              **paged_extra(times["decode_fp16"]),
+              **paged_prefill(times["prefill_fp16"]),
+              **paged_extra(times["prefill_fp16"], "prefill_"),
+              **paged_prefill(times["prefill_tick_fp16"], "prefill_tick_"),
+              **paged_extra(times["prefill_tick_fp16"], "prefill_tick_"),
+              main_path="serving in fp16 (phase 16)",
+              main_path_launches_by_variant=fp16["serving"][
+                  "launches_by_variant"],
+              main_path_layer_max_abs_err=fp16["kernel_vs_plain"][
+                  "layer_max_abs_err"],
+              main_path_first_tick_logits_vs_plain=fp16["kernel_vs_plain"][
+                  "first_tick_logits_kernel_vs_plain"],
+              first_tick_logits_tol=FP16_LOGITS_TOL,
+              greedy_agreement_vs_bf16=fp16["serving"][
+                  "greedy_agreement_vs_bf16"]),
+        entry("paged_attention_quantized_fp16", "paged_attention",
+              fp16["path_q"]["launches"],
+              max(v for k, v in quant_errs.items() if k[0] == "float16"),
+              quant_times["decode_fp16"], tol=ATTN_TOL["float16"],
+              cases=QUANT_NOTE,
+              mode="int8/fp8 pools, f32 scales per (token, head) or token; "
+                   "fp16 holds code x scale in the prefill's V tile",
+              shape="decode B=8 Sq=1 ctx 100-2000 Hq=32 Hkv=8 D=128 bs=64 "
+                    "fp16, int8 per-head pools",
+              **paged_extra(quant_times["decode_fp16"]),
+              **paged_prefill(quant_times["prefill_fp16"]),
+              **paged_extra(quant_times["prefill_fp16"], "prefill_"),
+              library="gathered codes dequantized to fp16, then SDPA",
+              main_path="Path Q in fp16 (phase 16)",
+              main_path_launches_by_variant=fp16["path_q"][
+                  "launches_by_variant"],
+              main_path_layer_max_abs_err={
+                  kv: {dt: r["layer_max_abs_err"] for dt, r in rec.items()}
+                  for kv, rec in fp16["path_q_kernel_vs_plain"].items()}),
         entry("flash_attention_fwd", "flash_attention",
               train["launches"]["flash_attention_fwd"],
               flash_main["fwd_max_abs_err"],
@@ -3197,7 +3587,7 @@ def main(argv=None) -> int:
               **flash_extra("flash_attention_fwd", train_times, train),
               cases_max_abs_err_bf16=worst("fwd_max_abs_err", "bfloat16"),
               cases_max_abs_err_fp16=worst("fwd_max_abs_err", "float16"),
-              cases_tol_fp16=FLASH_TOL["float16"],
+              cases_tol_fp16=ATTN_TOL["float16"],
               cases_max_abs_err_fp32=worst("fwd_max_abs_err", "float32"),
               cases_tol_fp32=TOL["float32"], cases=CASES_NOTE),
         entry("flash_attention_bwd", "flash_attention",
@@ -3213,12 +3603,18 @@ def main(argv=None) -> int:
               **flash_extra("flash_attention_bwd", train_times, train),
               cases_max_rel_err_bf16=worst("bwd_max_rel_err", "bfloat16"),
               cases_max_rel_err_fp16=worst("bwd_max_rel_err", "float16"),
-              cases_tol_rel_fp16=FLASH_TOL["float16"],
+              cases_tol_rel_fp16=ATTN_TOL["float16"],
               cases_max_rel_err_fp32=worst("bwd_max_rel_err", "float32"),
               cases_tol_rel_fp32=TOL["float32"], cases=CASES_NOTE),
         entry("fused_adam", "fused_adam", train["launches"]["fused_adam"],
               max(adam_main[f"{t}_max_abs_err"] for t in "pmv"),
               train_times["fused_adam"], tol=ADAM_TOL,
+              **{k: train_times["fused_adam"][k] for k in (
+                  "ms_without_copy", "library_with_copy_ms",
+                  "bound_share", "bound_share_without_copy",
+                  "x_library_without_copy", "x_library_with_copy")},
+              library="torch.optim.AdamW(fused=True).step (no copy); "
+                      "library_with_copy_ms: that step + a bf16 copy_",
               copy_max_abs_err=adam_main["copy_max_abs_err"],
               copy_tol="1e-6 + 2^-7 relative (one bf16 rounding step)",
               bound_ms_without_bf16_copy=train_times["fused_adam"][
@@ -3283,6 +3679,15 @@ def main(argv=None) -> int:
         "dequantize_int8": "torch.mul(q, s, out=bf16 [nblocks, 512])"}
     for name in ("quantize_int8", "dequantize_int8"):
         rec = zeropp_times[name]
+        extra = {}
+        if name == "quantize_int8":
+            extra = dict(
+                variant=rec["largest_shard"]["variant"],
+                bound_share=rec["largest_shard"]["bound_share"],
+                copy_ms=rec["largest_shard"]["copy_ms"],
+                ragged=rec["largest_shard_misaligned"],
+                main_path_launches_by_variant=path_z["quantized"][
+                    "quantize_launches_by_variant"])
         kernels.append(entry(
             name, "quantize_int8", path_z["quantized"]["launches"][name],
             rec["max_abs_err"], rec, tol=0,
@@ -3290,7 +3695,7 @@ def main(argv=None) -> int:
             library_bit_equal=rec["library_bit_equal"], main_path="Path Z",
             shape="[25152, 768] bf16 (embed/tokens split in two)",
             shard_set=rec["shard_set"],
-            main_path_bit_equal=path_z["kernel_vs_plain"]))
+            main_path_bit_equal=path_z["kernel_vs_plain"], **extra))
     norm_tol = "1 bf16 ulp of the plain result; fp32 1e-6 + 2 ulps"
 
     def norm_extra(t):
@@ -3332,6 +3737,7 @@ def main(argv=None) -> int:
         cases_max_err={"/".join(k): v for k, v in norm_errs.items()
                        if k[0] == "layer"}, cases=NORM_NOTE))
     log(f"[main] serving {json.dumps(stats)} on {card}")
+    log(f"[main] fp16 serving {json.dumps(fp16)} on {card}")
     log(f"[main] Path Q {json.dumps(path_q)} on {card}")
     log(f"[main] Path Q kernels vs plain {json.dumps(q_rels)}")
     log(f"[main] training {json.dumps(train)} on {card}")

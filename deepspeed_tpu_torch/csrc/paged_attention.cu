@@ -23,7 +23,8 @@
 // (ds_paged_attention_variant; never a retry). rows = Sq * Hq / Hkv, the
 // flattened (query, head) rows one kv head serves:
 //
-// * "decode_split" (rows <= 16: the decode ticks; fp32 and bf16, any pool).
+// * "decode_split" (rows <= 16: the decode ticks; fp32, bf16 and fp16, any
+//   pool).
 //   What bounds it: bytes. A decode row reads 2 ctx Hkv D itemsize bytes of
 //   KV a layer and does ~1 flop a byte. One thread block per (batch row, kv
 //   head) walking the whole context would leave most of the 132 SMs idle
@@ -45,7 +46,8 @@
 //   paged_decode_combine_kernel, one block per (kv head, batch row), folds
 //   the partials in split order (no atomics: reruns give the same bits),
 //   then this chunk's fresh keys, and writes the output.
-// * "prefill_wgmma" (bf16, rows > 16: prefill chunks and mixed ticks).
+// * "prefill_wgmma" (bf16 and fp16, rows > 16: prefill chunks and mixed
+//   ticks).
 //   What bounds it: at a prefill chunk's 16 queries x 4 heads a staged key
 //   the products are ~64 flops a byte, so they must run on the tensor cores.
 //   paged_prefill_tc_kernel: a block owns 128 flattened rows of one (b, kv
@@ -59,18 +61,22 @@
 //   pages, one over 64 is cut into 64-row pieces; the swizzle follows the
 //   row's place in the chunk), then the fresh keys. S = Q K^T by wgmma
 //   (mma_ss), the position mask and ALiBi (a slope per row's q head), the
-//   online softmax in registers, P rounded to bf16 in registers (to_a,
+//   online softmax in registers, P rounded to q's type in registers (to_a,
 //   where the JAX kernel rounds p to v's dtype, paged.py:218), O += P V by
 //   wgmma (mma_rs). A block whose rows all lie at or past true_len writes
 //   zeros and stops, and a warpgroup whose rows all do skips its products,
 //   so a mixed tick's decode rows (true_len 1) cost one block each and the
 //   products of one warpgroup.
-//   Quantized pools: int8 and e4m3 codes convert to bf16 exactly, so the
-//   codes arrive by cp.async into a staging buffer and are converted to bf16
+//   Quantized pools: int8 and e4m3 codes convert to bf16 and fp16 exactly,
+//   so the codes arrive by cp.async into a staging buffer and are converted
 //   in the tile; each key's scale multiplies its column of S after the
-//   product and each value's scale is folded into P before P is rounded.
-//   The JAX kernel keeps p in fp32 there (paged.py:155-170): rounding P to
-//   bf16 is the one place this kernel rounds more than the reference.
+//   product. bf16 folds each value's scale into P before P is rounded;
+//   fp16 cannot (P times a scale of amax / 127 leaves fp16's normal range
+//   for small values), so there the V tile holds code x scale, one fp32
+//   product rounded once to fp16, which is as exact as the fp16 values the
+//   codes were made from. The JAX kernel keeps p and the dequantized values
+//   in fp32 there (paged.py:155-170): rounding P (and fp16's V tile) is
+//   where this kernel rounds more than the reference.
 //   Left for later: the softmax does not overlap the products (no warp
 //   specialisation), and a mixed tick's decode row walks its whole context
 //   in one block.
@@ -120,6 +126,19 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
+template <> struct Vec<__half> {
+  static constexpr int N = 8;
+  __device__ static void load(const __half* p, float* out) {
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __half22float2(h[i]);
+      out[2 * i] = f.x; out[2 * i + 1] = f.y;
+    }
+  }
+};
+
 // quantized pool codes: 16 a load, converted exactly to fp32
 template <> struct Vec<int8_t> {
   static constexpr int N = 16;
@@ -154,6 +173,11 @@ template <> struct Pair<float> {
 template <> struct Pair<__nv_bfloat16> {
   __device__ static float2 load(const void* p) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+};
+template <> struct Pair<__half> {
+  __device__ static float2 load(const void* p) {
+    return __half22float2(*reinterpret_cast<const __half2*>(p));
   }
 };
 template <> struct Pair<int8_t> {
@@ -428,7 +452,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   }
 }
 
-// ============================ tensor cores, bf16 prefill (rows > 16)
+// ======================= tensor cores, bf16/fp16 prefill (rows > 16)
 constexpr int kRows = 64;             // rows a warpgroup: wgmma's M
 constexpr int kChunk = 64;            // keys a chunk: the product's N
 constexpr int kPrefillWGs = 2;        // warpgroups a block, sharing K/V
@@ -440,25 +464,34 @@ template <typename T, typename P, int D>
 constexpr int kPrefillBlocksPerSM =
     D > 64 || (D == 64 && !std::is_same<P, T>::value) ? 1 : 2;
 
-// Eight int8 / e4m3 codes, converted exactly, as eight bf16 (16 bytes).
-__device__ __forceinline__ uint4 codes_to_bf16(uint2 raw, const int8_t*) {
+// Eight int8 / e4m3 codes as eight T (16 bytes): each code times `scale`,
+// one fp32 product rounded once to T. With kScale false the codes go over
+// as they are: int8 and e4m3 codes are exact in bf16 and in fp16.
+template <typename T, bool kScale>
+__device__ __forceinline__ uint4 codes_to(uint2 raw, const int8_t*,
+                                          float scale) {
   const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
   uint4 out;
   uint32_t* o = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    o[i] = Num<__nv_bfloat16>::pack((float)c[2 * i], (float)c[2 * i + 1]);
+  for (int i = 0; i < 4; ++i) {
+    float lo = (float)c[2 * i], hi = (float)c[2 * i + 1];
+    if (kScale) { lo *= scale; hi *= scale; }
+    o[i] = Num<T>::pack(lo, hi);
+  }
   return out;
 }
-__device__ __forceinline__ uint4 codes_to_bf16(uint2 raw,
-                                               const __nv_fp8_e4m3*) {
+template <typename T, bool kScale>
+__device__ __forceinline__ uint4 codes_to(uint2 raw, const __nv_fp8_e4m3*,
+                                          float scale) {
   const __nv_fp8x2_e4m3* h = reinterpret_cast<const __nv_fp8x2_e4m3*>(&raw);
   uint4 out;
   uint32_t* o = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 f = static_cast<float2>(h[i]);
-    o[i] = Num<__nv_bfloat16>::pack(f.x, f.y);
+    float2 f = static_cast<float2>(h[i]);
+    if (kScale) { f.x *= scale; f.y *= scale; }
+    o[i] = Num<T>::pack(f.x, f.y);
   }
   return out;
 }
@@ -503,12 +536,16 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                         int sq, int hq, int hkv, int hs, int nb, int bs,
                         int max_blocks, int window, float sc) {
   constexpr bool kQuant = !std::is_same<P, T>::value;
+  // fp16 with quantized pools: the value scale goes into the V tile (code
+  // x scale in fp32, rounded once to fp16), not into P, whose product with
+  // a small scale would fall below fp16's normal range
+  constexpr bool kVTile = kQuant && std::is_same<T, __half>::value;
   constexpr int kNT = kPrefillWGs * 128;           // threads
   constexpr int kQRows = kPrefillWGs * kRows;      // rows a block
   constexpr int kS = kPrefillStages;
   constexpr uint32_t kQB = Tile<D>::bytes(kQRows);
   constexpr uint32_t kTileB = Tile<D>::bytes(kChunk);
-  constexpr int kC = D / 8;              // 16-byte bf16 chunks a row
+  constexpr int kC = D / 8;              // 16-byte chunks of T a row
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
   unsigned char* const smem = smem_raw + (sQ - smem_u32(smem_raw));
@@ -689,7 +726,7 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     const float* vs = ks + kChunk;
     cp_wait_sync<kS - 2>();              // chunk j has landed
     if constexpr (kQuant) {
-      if (cached) {                      // its codes -> bf16 in the tile
+      if (cached) {                      // its codes -> T in the tile
         const unsigned char* rawj = raw + (j & 1) * 2 * kChunk * D;
 #pragma unroll
         for (int i = threadIdx.x; i < 2 * kChunk * kC; i += kNT) {
@@ -699,7 +736,7 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
               rawj + kv * kChunk * D + r * D + c);
           *reinterpret_cast<uint4*>(smem + (sK - sQ) + kv * kTileB +
                                     Tile<D>::offset(kChunk, r, c)) =
-              codes_to_bf16(codes, k_pool);
+              codes_to<T, kVTile>(codes, k_pool, kv ? vs[r] : 1.f);
         }
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         __syncthreads();
@@ -748,11 +785,11 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     }
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= corr[Frag::row(i)];
-    if (kQuant && cached) {              // the value scale, before rounding
+    if (kQuant && !kVTile && cached) {   // the value scale, before rounding
 #pragma unroll
       for (int i = 0; i < kChunk / 2; ++i) s[i] *= vs[f.col(i)];
     }
-    uint32_t pa[kChunk / 16][4];         // P rounded to bf16
+    uint32_t pa[kChunk / 16][4];         // P rounded to T
     to_a<T, kChunk>(s, pa);
     fence_regs(acc);
     fence_regs(pa);
@@ -1178,11 +1215,15 @@ cudaError_t launch_split(const Args& a) {
 
 bool dim_ok(int d) { return d == 16 || d == 32 || d == 64 || d == 128; }
 
-// variant: 0 cuda_cores (fp32), 1 prefill_wgmma (bf16), 2 decode_split
+// dtype codes: 0 float32, 1 bfloat16, 2 float16
+bool dtype_ok(int dtype) { return dtype >= 0 && dtype <= 2; }
+
+// variant: 0 cuda_cores (fp32), 1 prefill_wgmma (bf16, fp16), 2
+// decode_split
 int variant_of(int dtype, int d, long long rows) {
-  if (!dim_ok(d) || (dtype != 0 && dtype != 1) || rows <= 0) return -1;
+  if (!dim_ok(d) || !dtype_ok(dtype) || rows <= 0) return -1;
   if (rows <= kSplitRows) return 2;
-  return dtype == 1 ? 1 : 0;
+  return dtype == 0 ? 0 : 1;
 }
 
 template <typename T, typename P, int D>
@@ -1227,9 +1268,9 @@ long long split_count(int max_blocks, int bs) {
 }  // namespace
 
 // Which kernel a call takes, from its shapes alone: 0 = "cuda_cores" (fp32
-// prefill), 1 = "prefill_wgmma" (bf16 prefill), 2 = "decode_split" (rows =
-// sq * hq / hkv <= 16, fp32 or bf16), -1 = none. dtype: 0 = float32, 1 =
-// bfloat16.
+// prefill), 1 = "prefill_wgmma" (bf16 and fp16 prefill), 2 = "decode_split"
+// (rows = sq * hq / hkv <= 16, any dtype), -1 = none. dtype: 0 = float32,
+// 1 = bfloat16, 2 = float16.
 extern "C" int ds_paged_attention_variant(int dtype, int d, int sq, int hq,
                                           int hkv) {
   if (sq <= 0 || hkv <= 0 || hq % hkv != 0) return -1;
@@ -1247,12 +1288,11 @@ extern "C" long long ds_paged_attention_splits(int max_blocks, int bs) {
 // -1 where no kernel is compiled for them.
 extern "C" long long ds_paged_attention_smem(int which, int dtype, int pool,
                                              int d) {
-  if (!dim_ok(d) || pool < 0 || pool > 2 || (dtype != 0 && dtype != 1))
-    return -1;
+  if (!dim_ok(d) || pool < 0 || pool > 2 || !dtype_ok(dtype)) return -1;
   if (which == 0) return dtype == 0 ? 0 : -1;
 #define DS_SMEM(T, P, D)                                                   \
   if (d == D)                                                              \
-    return which == 1 ? (std::is_same<T, __nv_bfloat16>::value             \
+    return which == 1 ? (!std::is_same<T, float>::value                    \
                              ? (long long)prefill_smem<T, P, D>()          \
                              : -1)                                         \
                       : (long long)SplitSmem<T, P, D, kSplitRows>::bytes;
@@ -1263,6 +1303,7 @@ extern "C" long long ds_paged_attention_smem(int which, int dtype, int pool,
   if (pool == 1) { DS_SMEM_D(T, int8_t) }             \
   if (pool == 2) { DS_SMEM_D(T, __nv_fp8_e4m3) }
   if (which != 1 && which != 2) return -1;
+  if (dtype == 2) { DS_SMEM_P(__half) }
   if (dtype == 1) { DS_SMEM_P(__nv_bfloat16) }
   if (dtype == 0) { DS_SMEM_P(float) }
 #undef DS_SMEM_P
@@ -1272,13 +1313,14 @@ extern "C" long long ds_paged_attention_smem(int which, int dtype, int pool,
 }
 
 // C entry point, bound with ctypes. dtype (q, k_new, v_new, out): 0 =
-// float32, 1 = bfloat16. pool: 0 = the pools are of dtype and k_scale,
-// v_scale are null; 1 = int8, 2 = float8 e4m3 codes with f32 scales
-// [nb, bs, hs], hs = hkv or 1. slopes may be null (no ALiBi); window <= 0
-// means no sliding window. The decode split (ds_paged_attention_variant 2)
-// takes splits = ds_paged_attention_splits(max_blocks, bs) and an fp32
-// workspace of b * hkv * splits * sq * (hq / hkv) * (d + 2) values; other
-// variants take splits 0 and a null workspace. Tensors contiguous, the
+// float32, 1 = bfloat16, 2 = float16. pool: 0 = the pools are of dtype
+// and k_scale, v_scale are null; 1 = int8, 2 = float8 e4m3 codes with f32
+// scales [nb, bs, hs], hs = hkv or 1. slopes may be null (no ALiBi);
+// window <= 0 means no sliding window. The decode split
+// (ds_paged_attention_variant 2) takes splits =
+// ds_paged_attention_splits(max_blocks, bs) and an fp32 workspace of b *
+// hkv * splits * sq * (hq / hkv) * (d + 2) values; other variants take
+// splits 0 and a null workspace. Tensors contiguous, the
 // pools, k_new, v_new and the scales 16-byte aligned. Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int ds_paged_attention(const void* q, const void* k_new,
@@ -1313,8 +1355,10 @@ extern "C" int ds_paged_attention(const void* q, const void* k_new,
   cudaError_t err;
   if (dtype == 0)
     err = dispatch_pool<float>(variant, pool, d, a);
-  else
+  else if (dtype == 1)
     err = dispatch_pool<__nv_bfloat16>(variant, pool, d, a);
+  else
+    err = dispatch_pool<__half>(variant, pool, d, a);
   return (int)err;
 }
 

@@ -27,7 +27,7 @@ from ...ops.quantization import KV_STORE_DTYPES
 from ...utils.logging import log_dist
 from ..config import DeepSpeedInferenceConfig
 from ...runtime.config_utils import DeepSpeedConfigModel
-from .paged import paged_forward
+from .paged import KERNEL_DTYPES, paged_forward
 from .ragged import (DSStateManager, PrefixCache, SequenceDescriptor,
                      kv_block_bytes, quantized_block_budget)
 
@@ -203,11 +203,11 @@ class InferenceEngineV2:
             raise NotImplementedError(
                 "dtype='int8' is not a blanket cast (ROADMAP.md, port "
                 "Queue 1: weight-only int8 serving)")
-        if self.device.type == "cuda" and self.dtype not in (
-                torch.float32, torch.bfloat16):
+        if self.device.type == "cuda" and \
+                self.dtype not in KERNEL_DTYPES:
             raise NotImplementedError(
                 f"dtype {self.dtype} on CUDA: the paged-attention kernel "
-                "takes float32 or bfloat16")
+                "takes float32, bfloat16 or float16")
         # params: given (a JAX-layout numpy tree) or drawn from the seed,
         # then cast to the serving dtype — what the JAX v1 engine does
         # for the v2 engine at tp=1

@@ -26,7 +26,7 @@ from ...ops.norms import plain_norms
 from ...ops.quantization import KV_STORE_DTYPES, kv_dequantize, kv_quantize
 
 _KERNEL_DIMS = (16, 32, 64, 128)
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # pool storage codes of the kernel's C entry: 0 = q's dtype (fp pools)
 _POOL_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 # the C entry's table (ds_paged_attention_variant)
@@ -166,15 +166,15 @@ def launch_plan(q_shape, dtype, num_kv_heads: int,
     or true_len's values, so the wrapper reads nothing back from the card
     and a CUDA graph can capture the call): ``variant`` ("decode_split"
     when the rows = S_new * Hq / Hkv one kv head serves are at most
-    ``SPLIT_ROWS``, fp32 or bf16; else "prefill_wgmma" for bf16 and
-    "cuda_cores" for fp32; None where no kernel takes the call),
+    ``SPLIT_ROWS``, fp32, bf16 or fp16; else "prefill_wgmma" for bf16 and
+    fp16 and "cuda_cores" for fp32; None where no kernel takes the call),
     ``splits`` (the decode split's ceil(max_blocks * bs / SPLIT_KEYS),
     else 0) and ``workspace``, the shape of its fp32 partials [B, Hkv,
     splits, rows, D + 2] (else None). The same table as the C entry's
     ``ds_paged_attention_variant`` and ``ds_paged_attention_splits``."""
     b, sq, hq, d = q_shape
     plan = {"variant": None, "splits": 0, "workspace": None}
-    if (dtype not in _KERNEL_DTYPES or d not in _KERNEL_DIMS
+    if (dtype not in KERNEL_DTYPES or d not in _KERNEL_DIMS
             or num_kv_heads <= 0 or hq % num_kv_heads or sq <= 0
             or b > _GRID_YZ or num_kv_heads > _GRID_YZ):
         return plan
@@ -183,7 +183,7 @@ def launch_plan(q_shape, dtype, num_kv_heads: int,
         splits = -(-block_tables_shape[1] * block_size // SPLIT_KEYS)
         return {"variant": "decode_split", "splits": splits,
                 "workspace": (b, num_kv_heads, splits, rows, d + 2)}
-    if dtype == torch.bfloat16:
+    if dtype in (torch.bfloat16, torch.float16):
         plan["variant"] = "prefill_wgmma"
     elif -(-rows // 16) <= _GRID_YZ:          # 16 rows a CUDA-core block
         plan["variant"] = "cuda_cores"
@@ -230,10 +230,10 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
     Hkv per head or 1 per token) the pools hold int8 or float8_e4m3fn
     codes, and each pool tile is dequantized in-register
     (``code * scale[block, slot, head % Hs]``); q/k_new/v_new stay
-    fp32/bf16 and the fresh chunk is folded unquantized.
+    fp32/bf16/fp16 and the fresh chunk is folded unquantized.
 
     CPU tensors take :func:`paged_attention_plain`. CUDA tensors launch
-    one kernel of ``csrc/paged_attention.cu`` (fp32 or bf16, D in {16,
+    one kernel of ``csrc/paged_attention.cu`` (fp32, bf16 or fp16, D in {16,
     32, 64, 128}, block size a multiple of 8, contiguous int32
     tables/pos0/true_len) or raise. :func:`launch_plan` picks it from
     the shapes; ``paged_attention_kernel.launches`` counts the calls,
@@ -252,16 +252,19 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
       writing fp32 partials (m, l, o) to a workspace taken here with
       ``torch.empty``; a second kernel folds them in split order, then
       the chunk's fresh keys. Everything stays fp32.
-    * "prefill_wgmma" (bf16, more rows: prefill chunks and mixed
-      ticks). ~64 flops a staged byte, so tensor cores: a block of two
+    * "prefill_wgmma" (bf16 and fp16, more rows: prefill chunks and
+      mixed ticks). ~64 flops a staged byte, so tensor cores: a block of two
       warpgroups owns 128 (query, head) rows of one kv head (64 each)
       and streams 64-key chunks (the cached keys gathered through the
       block table, then the fresh ones) through a 3-stage cp.async ring;
-      S = Q K^T and O += P V by wgmma, the online softmax in registers. P is rounded to bf16
-      before P V, where the JAX kernel rounds p to v's dtype; with
-      quantized pools the JAX kernel keeps p in fp32, and this rounding
-      is the one place the kernel rounds more than the reference (each
-      value's scale is folded into P before it is rounded). A block
+      S = Q K^T and O += P V by wgmma, the online softmax in registers.
+      P is rounded to q's dtype before P V, where the JAX kernel rounds p
+      to v's dtype; with quantized pools the JAX kernel keeps p and the
+      dequantized values in fp32, and this rounding is where the kernel
+      rounds more than the reference (bf16 folds each value's scale into
+      P before it is rounded; fp16 writes code x scale, rounded once to
+      fp16, into the V tile, since P times a small scale would leave
+      fp16's normal range). A block
       whose rows are all past true_len writes zeros without reading, so
       a mixed tick's decode rows cost one block each.
     * "cuda_cores" (fp32, more rows): exact fp32 FMAs, 16 rows a block
@@ -300,7 +303,8 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
     for name in ("k_new", "v_new", "k_pool", "v_pool", "k_scale", "v_scale"):
         _check(name not in tensors or tensors[name].data_ptr() % 16 == 0,
                f"{name} is not 16-byte aligned")
-    _check(q.dtype in _KERNEL_DTYPES, f"dtype {q.dtype} (fp32 or bf16)")
+    _check(q.dtype in KERNEL_DTYPES, f"dtype {q.dtype} (fp32, bf16 or "
+           "fp16)")
     for name in ("k_new", "v_new") + (() if quant else ("k_pool", "v_pool")):
         _check(tensors[name].dtype == q.dtype, f"{name} dtype "
                f"{tensors[name].dtype} != q dtype {q.dtype}")
@@ -348,7 +352,7 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
              pos0.data_ptr(), true_len.data_ptr(),
              None if slopes is None else slopes.data_ptr(), out.data_ptr(),
              None if ws is None else ws.data_ptr(),
-             _KERNEL_DTYPES[q.dtype], _POOL_CODES[k_pool.dtype] if quant
+             KERNEL_DTYPES[q.dtype], _POOL_CODES[k_pool.dtype] if quant
              else 0, b, sq, hq, hkv, d, nb, bs, hs,
              block_tables.shape[1], window or 0, plan["splits"],
              torch.cuda.current_stream(q.device).cuda_stream)

@@ -116,6 +116,9 @@ def fused_adam_step(p, g, m, v, hp, *, weight_decay: float,
                           adamw_mode=adamw_mode, out=out)
     n = _check_flat("fused_adam_step", dict(p=p, g=g, m=m, v=v), hp,
                     HP_SIZE, out)
+    if out is not None and out.data_ptr() % 16:
+        # the kernel stores 8 copied values at a time
+        raise ValueError("fused_adam_step: out is not 16-byte aligned")
     lib, fn = _kernel("fused_adam", [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p])

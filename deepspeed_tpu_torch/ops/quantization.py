@@ -42,6 +42,19 @@ QBLOCK = 512  # elements per quantization block
 # as amax times the constant's fp32 reciprocal; the port does the same
 INV_QMAX = float(np.float32(1) / np.float32(127))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the quantize kernel's variants (the C entry's ds_quantize_int8_variant)
+QUANT_VARIANTS = {0: "ragged", 1: "bulk"}
+
+
+def quantize_plan(row_len: int, aligned: bool) -> str:
+    """The quantize kernel a CUDA call takes, from the row length and
+    whether the input starts on a 16-byte boundary alone: "bulk" when
+    every block is 512 whole elements at a 16-byte boundary (rows a
+    multiple of 512 long, the input aligned: TMA bulk copies through a
+    ring in shared memory), else "ragged" (a warp a block, element loads
+    where a vector would leave the row or its alignment). The same table
+    as the C entry's ``ds_quantize_int8_variant``."""
+    return QUANT_VARIANTS[int(row_len % QBLOCK == 0 and aligned)]
 
 
 def _to_blocks(rows: torch.Tensor, block: int = QBLOCK) -> torch.Tensor:
@@ -116,8 +129,10 @@ def quantize_int8_kernel(rows: torch.Tensor):
     into ceil(L / 512) blocks, its tail zero-padded in registers. Returns
     (codes int8 ``[R * nb, QBLOCK]``, scales fp32 ``[R * nb, 1]``).
     Port of the Pallas kernel at ``deepspeed_tpu/ops/pallas/
-    quantization.py:57``; ``quantize_int8_kernel.launches`` counts the
-    launches."""
+    quantization.py:57``; :func:`quantize_plan` picks the variant from
+    the shapes and the input's alignment. ``quantize_int8_kernel.launches``
+    counts the launches, ``.variant_launches`` them by variant and
+    ``.variant`` names the last call's."""
     what = "quantize_int8_kernel"
     _check(what, rows.device.type == "cuda",
            f"unsupported device {rows.device}")
@@ -137,11 +152,17 @@ def quantize_int8_kernel(rows: torch.Tensor):
              s.data_ptr(), r, length,
              torch.cuda.current_stream(rows.device).cuda_stream)
     _launched(lib, err, "quantize_int8")
+    variant = quantize_plan(length, rows.data_ptr() % 16 == 0)
     quantize_int8_kernel.launches += 1
+    quantize_int8_kernel.variant = variant
+    by_variant = quantize_int8_kernel.variant_launches
+    by_variant[variant] = by_variant.get(variant, 0) + 1
     return q, s
 
 
 quantize_int8_kernel.launches = 0
+quantize_int8_kernel.variant = None
+quantize_int8_kernel.variant_launches = {}
 
 
 def dequantize_int8_kernel(q: torch.Tensor, s: torch.Tensor, rows: int,

@@ -80,7 +80,8 @@ def _kwargs(variant, dev):
 @pytest.mark.parametrize("variant", list(VARIANTS))
 @pytest.mark.parametrize("sq", [1, 8, 40])
 @pytest.mark.parametrize("d", [32, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_kernel_matches_plain(cuda, dtype, d, sq, variant):
     x = _inputs(cuda, dtype, sq, d)
     kw = _kwargs(variant, cuda)
@@ -139,6 +140,47 @@ def test_engine_on_the_card_matches_the_cpu_and_launches_every_layer(cuda):
     assert launched == gpu.model.config.num_layers * dispatches
 
 
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+def test_fp16_engine_on_the_card_matches_the_cpu(cuda, kv):
+    """build_engine(..., {"dtype": "fp16"}) serves on the card (the fault
+    this PR repairs): fp pools and int8/fp8 pools, logits against the CPU
+    engine on the same weights at 1e-2 (fp16 on both sides, P rounded to
+    fp16 in the prefill kernel, the plain version keeps it in fp32), every
+    layer launching a decode_split or prefill_wgmma kernel, and greedy
+    generate() finishing every request."""
+    cfg = dict(dtype="fp16", kv_block_size=8, num_kv_blocks=64,
+               max_chunk_size=16)
+    if kv:
+        cfg["kv_cache"] = {"enabled": True, "dtype": kv}
+    cpu = build_engine("llama", "tiny", cfg, device="cpu")
+    gpu = build_engine("llama", "tiny", cfg, device=cuda)
+    assert gpu.dtype == torch.float16
+    with torch.no_grad():
+        for name, p in cpu.model.params.items():
+            gpu.model.params[name].copy_(p)
+    prompts = [np.random.default_rng(s).integers(0, 512, n).tolist()
+               for s, n in ((1, 11), (2, 40))]
+    before = dict(paged.paged_attention_kernel.variant_launches)
+    got = gpu.put([0, 1], prompts)
+    ref = cpu.put([0, 1], prompts)
+    nxt = [[int(t)] for t in ref.float().argmax(-1)]
+    got2, ref2 = gpu.put([0, 1], nxt), cpu.put([0, 1], nxt)
+    launched = {k: n - before.get(k, 0) for k, n in
+                paged.paged_attention_kernel.variant_launches.items()
+                if n != before.get(k, 0)}
+    for g_, r_ in ((got, ref), (got2, ref2)):
+        assert g_.dtype == torch.float16 and torch.isfinite(g_).all()
+        torch.testing.assert_close(g_.cpu().float(), r_.float(), atol=1e-2,
+                                   rtol=1e-2)
+    assert set(launched) == {"prefill_wgmma", "decode_split"}
+    assert sum(launched.values()) == (gpu.model.config.num_layers
+                                      * gpu.serving_stats["host_dispatches"])
+    gpu.flush([0, 1])
+    outs = gpu.generate(prompts, max_new_tokens=8)
+    assert [len(o) for o in outs] == [8, 8]
+    assert gpu.free_blocks == gpu.num_kv_blocks
+
+
 def _quantized(x, kv_dtype, granularity):
     """The call's fp pools as int8/fp8 codes, and their f32 scales."""
     hs = HKV if granularity == "head" else 1
@@ -153,7 +195,8 @@ def _quantized(x, kv_dtype, granularity):
 @pytest.mark.parametrize("d", [16, 128])
 @pytest.mark.parametrize("granularity", ["head", "token"])
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_quantized_kernel_matches_plain(cuda, dtype, kv_dtype, granularity,
                                         d, sq, variant):
     x, scales = _quantized(_inputs(cuda, dtype, sq, d), kv_dtype,
@@ -224,14 +267,15 @@ def test_quantized_engine_with_prefix_cache_on_the_card(cuda, kv_dtype):
         assert e.free_blocks == e.num_kv_blocks
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_paged_kernel_variant_by_dtype_and_shape(cuda, dtype):
     """The wrapper's plan, the C entry's table and the launches agree:
-    decode rows (S_new * Hq / Hkv <= 16) take the decode split in either
+    decode rows (S_new * Hq / Hkv <= 16) take the decode split in every
     dtype with the plan's splits; more rows the tensor-core prefill in
-    bf16 and the CUDA-core kernel in fp32."""
+    bf16 and fp16 and the CUDA-core kernel in fp32."""
     lib, _ = paged._kernel_fn()
-    code = {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    code = paged.KERNEL_DTYPES[dtype]
     for sq, hq, hkv in ((1, 8, 2), (4, 8, 2), (2, 16, 2), (5, 8, 2),
                         (1, 32, 1), (40, 8, 2), (3, 6, 6)):
         x = _inputs(cuda, dtype, 1, 32)
@@ -245,7 +289,7 @@ def test_paged_kernel_variant_by_dtype_and_shape(cuda, dtype):
         plan = _plan(x)
         rows = sq * hq // hkv
         want = ("decode_split" if rows <= paged.SPLIT_ROWS else
-                "prefill_wgmma" if dtype == torch.bfloat16 else "cuda_cores")
+                "cuda_cores" if dtype == torch.float32 else "prefill_wgmma")
         assert plan["variant"] == want
         assert paged.VARIANTS[lib.ds_paged_attention_variant(
             code, 32, sq, hq, hkv)] == want
@@ -261,8 +305,12 @@ def test_paged_kernel_variant_by_dtype_and_shape(cuda, dtype):
                 == before.get(want, 0) + 1)
     for which in (1, 2):
         size = lib.ds_paged_attention_smem(which, code, 0, 128)
-        assert size > 0 if which == 2 or dtype == torch.bfloat16 \
+        assert size > 0 if which == 2 or dtype != torch.float32 \
             else size == -1
+    if dtype == torch.float16:            # the same budget as bf16's
+        for which, pool, d in ((1, 0, 128), (1, 1, 64), (2, 2, 32)):
+            assert lib.ds_paged_attention_smem(which, 2, pool, d) == \
+                lib.ds_paged_attention_smem(which, 1, pool, d)
 
 
 def _dead_poisoned(x, window):
@@ -323,19 +371,23 @@ PAGED_RERUN_CASES = {
 }
 
 
-@pytest.mark.parametrize("pool", ["bf16", "int8_head", "fp8_token"])
+@pytest.mark.parametrize("pool", ["bf16", "int8_head", "fp8_token", "fp16",
+                                  "fp16_int8_head", "fp16_fp8_token"])
 @pytest.mark.parametrize("window", [None, 40])
 @pytest.mark.parametrize("name", list(PAGED_RERUN_CASES))
 def test_paged_kernels_rerun_bit_identical_and_never_read_dead_slots(
         cuda, name, window, pool):
-    """Both new kernels: a rerun gives the same bits (no atomics), and NaN
-    or inf in every dead pool slot and fresh row leaves the output
+    """Both new kernels, in bf16 and in fp16 (names starting fp16) over
+    fp, int8 and fp8 pools: a rerun gives the same bits (no atomics), and
+    NaN or inf in every dead pool slot and fresh row leaves the output
     bit-identical to the clean call's; the mixed tick (a 96-row chunk
-    beside decode rows of true_len 1 and 0) against plain at 3e-2."""
-    x = _case(cuda, torch.bfloat16, **PAGED_RERUN_CASES[name])
+    beside decode rows of true_len 1 and 0) against plain at the dtype's
+    tolerance (bf16 3e-2, fp16 1e-2)."""
+    dtype = torch.float16 if pool.startswith("fp16") else torch.bfloat16
+    x = _case(cuda, dtype, **PAGED_RERUN_CASES[name])
     kw = {"window": window}
-    if pool != "bf16":
-        kv_dtype, gran = pool.split("_")
+    if pool not in ("bf16", "fp16"):
+        kv_dtype, gran = pool.split("_")[-2:]
         hs = x["k_pool"].shape[2] if gran == "head" else 1
         for p_, s_ in (("k_pool", "k_scale"), ("v_pool", "v_scale")):
             x[p_], kw[s_] = kv_quantize(x[p_], kv_dtype, hs)
@@ -352,14 +404,15 @@ def test_paged_kernels_rerun_bit_identical_and_never_read_dead_slots(
     assert torch.equal(clean, again)
     assert torch.equal(clean, poisoned)
     ref = paged.paged_attention_plain(*x.values(), **kw, **scales)
-    torch.testing.assert_close(clean.float(), ref.float(), atol=3e-2,
-                               rtol=3e-2)
+    torch.testing.assert_close(clean.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_paged_mixed_tick_and_context_lengths(cuda, dtype):
     """A mixed tick and contexts that end mid-split, mid-chunk and past
-    several splits, with ALiBi, in both dtypes against plain."""
+    several splits, with ALiBi, in every dtype against plain."""
     tol = TOL[dtype]
     for shape in (MIXED_TICK,
                   dict(b=3, sq=1, pos0=[127, 128, 1000], true_len=[1] * 3),
@@ -586,6 +639,53 @@ def test_fused_adam_matches_plain(cuda, adamw_mode):
                                        rtol=1e-5)
 
 
+ADAM_SIZES = [1, 7, 8, 9, 4096 + 5, 2 ** 20 + 5, 3 * 2 ** 20 + 3]
+
+
+@pytest.mark.parametrize("copy", [None, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("adamw_mode", [True, False])
+def test_fused_adam_grid_and_copies_match_plain(cuda, adamw_mode, copy):
+    """The persistent-grid kernel (8 values a thread, the n % 8 tail by
+    the last CTA) against adam_plain over sizes 1 .. 3 * 2^20 + 3, AdamW
+    and L2, without a copy and with a bf16 or fp16 copy (the kernel's
+    own new p rounded once): bit for bit (the kernel rounds every product
+    and sum on its own, in adam_plain's order), and so within 1e-6 + 1e-5
+    relative; then an overflow step (apply = 0) leaves every buffer
+    bit-identical."""
+    from deepspeed_tpu_torch.ops.fused_optimizers import adam_plain
+    rng = np.random.default_rng(1)
+    hp = torch.tensor([1e-3, 0.9, 0.999, 1e-8, 10.0, 1000.0, 0.7, 1.0],
+                      device=cuda)
+    kw = dict(weight_decay=0.05, adamw_mode=adamw_mode)
+    for n in ADAM_SIZES:
+        p, g, m, v = (torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(cuda) for _ in range(4))
+        v = v.abs()
+        runs = []
+        for step in (fused_adam_step, adam_plain):
+            bufs = [t.clone() for t in (p, m, v)]
+            out = (None if copy is None
+                   else torch.empty(n, dtype=copy, device=cuda))
+            step(bufs[0], g, bufs[1], bufs[2], hp, out=out, **kw)
+            runs.append((*bufs, out))
+        torch.cuda.synchronize()
+        (kp, km, kv, kout), (rp, rm, rv, rout) = runs
+        for got, ref in ((kp, rp), (km, rm), (kv, rv)):
+            torch.testing.assert_close(got, ref, atol=1e-6, rtol=1e-5)
+            assert torch.equal(got, ref)
+        if copy is not None:
+            assert torch.equal(kout, kp.to(copy)) and torch.equal(kout, rout)
+        snapshot = [t.clone() for t in (kp, km, kv)] + (
+            [] if kout is None else [kout.clone()])
+        skip = hp.clone()
+        skip[7] = 0.0
+        fused_adam_step(kp, g * float("nan"), km, kv, skip, out=kout, **kw)
+        torch.cuda.synchronize()
+        for before_t, after_t in zip(snapshot, [kp, km, kv] + (
+                [] if kout is None else [kout])):
+            assert torch.equal(before_t, after_t)
+
+
 def test_fused_adam_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     p = torch.zeros(16, device=cuda)
     hp = torch.ones(8, device=cuda)
@@ -598,6 +698,10 @@ def test_fused_adam_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="hp"):
         fused_adam_step(p, p, p, p, hp[:6], weight_decay=0.0,
                         adamw_mode=True)
+    out = torch.empty(17, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="out is not 16-byte aligned"):
+        fused_adam_step(p, p, p, p, hp, weight_decay=0.0, adamw_mode=True,
+                        out=out[1:])
 
 
 # ------------------------------------------------------------ the engine
@@ -1045,6 +1149,80 @@ def test_quantize_rows_kernel_matches_plain(cuda, dtype):
     got = TQ.dequantize_rows(q, s, 4, rows.shape[1], dtype)
     assert torch.equal(got, TQ.dequantize_rows(q, s, 4, rows.shape[1],
                                                dtype, use_kernel=False))
+
+
+# rows x row_len, the element the input starts at in its storage, the
+# variant quantize_plan picks: 1, 37 and 24576 blocks, several rows of
+# whole blocks, qgZ rows of 1000 (ragged) and a start off 16 bytes
+QUANT_VARIANT_CASES = {
+    "1_block": (1, 512, 0, "bulk"),
+    "37_blocks": (1, 37 * 512, 0, "bulk"),
+    "24576_blocks": (1, 24576 * 512, 0, "bulk"),
+    "rows_4x5_blocks": (4, 5 * 512, 0, "bulk"),
+    "qgz_rows_3x1000": (3, 1000, 0, "ragged"),
+    "37_blocks_misaligned": (1, 37 * 512, 1, "ragged"),
+    "rows_2x24576_blocks_misaligned": (2, 24576 * 256, 3, "ragged"),
+}
+
+
+@pytest.mark.parametrize("case", list(QUANT_VARIANT_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_quantize_int8_variants_match_plain_bit_for_bit(cuda, dtype, case):
+    """Each quantize variant against the plain version bit for bit, codes
+    and scales; the variant launched is the host plan's and the C
+    table's, counted by name; the dequantize of the codes unchanged and
+    bit-equal."""
+    import ctypes
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    rows, row_len, offset, want = QUANT_VARIANT_CASES[case]
+    g = torch.Generator().manual_seed(rows * row_len + offset)
+    n = rows * row_len
+    flat = torch.randn(n + offset, generator=g) * torch.logspace(
+        -4, 3, 64)[torch.randint(0, 64, (n + offset,), generator=g)]
+    flat[offset + 512:offset + 1024] = 0.0          # an all-zero block
+    flat = flat.to(cuda, dtype)
+    x = flat[offset:].view(rows, row_len)
+    aligned = x.data_ptr() % 16 == 0
+    assert TQ.quantize_plan(row_len, aligned) == want
+    lib, fn = TQ._quant_fn("ds_quantize_int8_variant",
+                           [ctypes.c_longlong, ctypes.c_int])
+    assert TQ.QUANT_VARIANTS[fn(row_len, int(aligned))] == want
+    before = dict(TQ.quantize_int8_kernel.variant_launches)
+    q, s = TQ.quantize_rows(x)
+    pq, ps = TQ.quantize_rows(x, use_kernel=False)
+    torch.cuda.synchronize()
+    assert TQ.quantize_int8_kernel.variant == want
+    assert TQ.quantize_int8_kernel.variant_launches[want] == \
+        before.get(want, 0) + 1
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    again, again_s = TQ.quantize_rows(x)
+    assert torch.equal(again, q) and torch.equal(again_s, s)
+    back = TQ.dequantize_rows(q, s, rows, row_len, dtype)
+    assert torch.equal(back, TQ.dequantize_rows(q, s, rows, row_len, dtype,
+                                                use_kernel=False))
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_quantize_int8_nonfinite_blocks_match_the_cpu(cuda, misaligned):
+    """Blocks holding NaN, inf or -inf (a gradient that overflowed): the
+    scale is NaN or inf and every code of the block 0, as the plain
+    version on the CPU gives (the Pallas kernel's codes, shown in
+    tests/test_torch_quantize_int8.py); both variants."""
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    x = torch.randn(8 * 512 + 1, generator=torch.Generator().manual_seed(9))
+    x[1 + 5], x[1 + 512 + 7], x[1 + 1024 + 9] = (float("nan"), float("inf"),
+                                                   -float("inf"))
+    x[1 + 1536:1 + 2048] = float("nan")
+    xc = x.to(cuda)
+    q, s = TQ.quantize_rows((xc[1:] if misaligned else xc[:-1]).view(1, -1))
+    assert TQ.quantize_int8_kernel.variant == ("ragged" if misaligned
+                                               else "bulk")
+    pq, ps = TQ.quantize_rows((x[1:] if misaligned else x[:-1]).view(1, -1),
+                              use_kernel=False)
+    assert torch.equal(q.cpu(), pq)
+    np.testing.assert_array_equal(s.cpu().numpy(), ps.numpy())
+    assert not q[:4].any()
 
 
 def test_quantize_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):

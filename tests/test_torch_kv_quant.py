@@ -117,6 +117,30 @@ def test_kv_quantize_bit_equal_to_jax(kv_dtype, granularity):
         np.asarray(jquant.kv_dequantize(jc, js)))
 
 
+@pytest.mark.parametrize("granularity", ["head", "token"])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_kv_quantize_fp16_input_bit_equal_to_jax(kv_dtype, granularity):
+    """An fp16 engine writes fp16 k/v into the pools: both quantizers
+    widen them to fp32 first, so the codes and scales are the JAX
+    package's bit for bit, at magnitudes across fp16's range (subnormal
+    up to ~1e4) and on a zero token."""
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((4, 7, 8, 128))
+         * rng.uniform(1e-6, 1e4, (4, 7, 8, 1))).astype(np.float16)
+    x[0, 0] = 0.0
+    x[1, 2, 3, :5] = np.float16(6e-8)        # fp16 subnormals
+    hs = 8 if granularity == "head" else 1
+    jc, js = jquant.kv_quantize(jnp.asarray(x), kv_dtype, hs)
+    tc, ts = tquant.kv_quantize(torch.from_numpy(x), kv_dtype, hs)
+    np.testing.assert_array_equal(tc.view(torch.uint8).numpy(),
+                                  np.asarray(jc).view(np.uint8))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    back = tquant.kv_dequantize(tc, ts, torch.float16)
+    assert back.dtype == torch.float16 and torch.isfinite(back).all()
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jquant.kv_dequantize(jc, js, jnp.float16)))
+
+
 def test_kv_quantize_roundtrip_bounds_and_determinism():
     """As tests/test_kv_quant.py:69-88: int8 within 0.02 and fp8 within
     0.08 of the largest element, repeatable, zeros stay zeros."""
@@ -371,3 +395,48 @@ def test_prefix_cache_matches_jax_engine(kv):
     for key in ("prefix_misses", "prefix_evictions", "prefix_hit_rate",
                 "prefix_cached_blocks", "prefix_evictable_blocks"):
         assert tm[key] == jm[key], key
+
+
+# fp16 engines: k/v and the logits carry fp16 roundings made at other
+# places by the two frameworks (tests/test_torch_v2_engine.py FP16_TOL)
+FP16_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_fp16_engine_on_quantized_pools_matches_jax_engine(kv_dtype):
+    """The fp16 engine writing int8/fp8 pools: put() logits within
+    FP16_TOL of the JAX fp16 engine's, the pools' scales within one fp16
+    rounding of k/v (2^-10 relative) and at most a few codes one step
+    apart (an element of an fp16 k/v vector on a rounding boundary), and
+    greedy generate() token for token."""
+    je, te = _pair(dtype="fp16", kv_cache=KV[kv_dtype])
+    prompt = _prompt(21, seed=6)   # two chunks: the second reads the pool
+    ref = je.put([7], [prompt])
+    got = te.put([7], [prompt])
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref).astype(np.float32),
+                               **FP16_TOL)
+    nxt = int(np.argmax(np.asarray(ref[0])))
+    np.testing.assert_allclose(
+        te.put([7], [[nxt]]).float().numpy(),
+        np.asarray(je.put([7], [[nxt]])).astype(np.float32), **FP16_TOL)
+    for n in ("k", "v"):
+        a = _ordinal(np.asarray(je.pools[n]).view(
+            np.int8 if je.pools[n].dtype == jnp.int8 else np.uint8))
+        b = _ordinal(te.pools[n].view(
+            torch.int8 if te.pools[n].dtype == torch.int8
+            else torch.uint8).numpy())
+        assert np.abs(a - b).max() <= 1, n
+        flips = int(np.abs(a - b).sum())
+        assert flips <= 1e-3 * a.size, (n, flips)
+    for n in ("ks", "vs"):
+        np.testing.assert_allclose(te.pools[n].numpy(),
+                                   np.asarray(je.pools[n]), rtol=2 ** -10,
+                                   atol=0)
+    je.flush(7)
+    te.flush(7)
+    prompts = [_prompt(n, seed) for n, seed in ((5, 11), (9, 12), (20, 14))]
+    ref_out = je.generate(prompts, max_new_tokens=6)
+    assert te.generate(prompts, max_new_tokens=6) == ref_out
+    assert te.free_blocks == te.num_kv_blocks

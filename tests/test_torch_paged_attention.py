@@ -169,17 +169,61 @@ SCHEDULE_CASES = {
                          {"kv": ("int8", "head")}),
     "decode_int8_token_alibi": (3, 1, 8, 2, 64, 8, [300, 0, 61], [1, 1, 1],
                                 {"kv": ("int8", "token"), "alibi": True}),
+    # fp16 (DeepSpeed's default serving dtype): the same two kernels, P
+    # rounded to fp16 in the prefill, on fp16, int8 and fp8 pools
+    "fp16_prefill_bs8_d32_rep4": (3, 40, 8, 2, 32, 8, [13, 0, 150],
+                                  [40, 37, 25], {"dtype": "fp16"}),
+    "fp16_prefill_bs64_d128_window_alibi": (
+        2, 70, 4, 2, 128, 64, [200, 31], [70, 64],
+        {"dtype": "fp16", "window": 90, "alibi": True}),
+    "fp16_mixed_tick": (3, 256, 8, 2, 32, 16, [0, 150, 90], [256, 1, 1],
+                        {"dtype": "fp16"}),
+    "fp16_prefill_int8_head": (2, 40, 8, 2, 32, 16, [45, 130], [40, 33],
+                               {"dtype": "fp16", "kv": ("int8", "head")}),
+    "fp16_prefill_fp8_token_window": (2, 24, 8, 2, 64, 8, [100, 9],
+                                      [24, 24], {"dtype": "fp16",
+                                                 "kv": ("fp8", "token"),
+                                                 "window": 30}),
+    "fp16_decode_bs8_d32_rep4": (3, 1, 8, 2, 32, 8, [13, 0, 300], [1, 1, 0],
+                                 {"dtype": "fp16"}),
+    "fp16_decode_sq2_rep8_window_alibi": (2, 2, 16, 2, 32, 8, [130, 255],
+                                          [2, 1], {"dtype": "fp16",
+                                                   "window": 200,
+                                                   "alibi": True}),
+    "fp16_decode_int8_head": (2, 1, 8, 2, 32, 16, [140, 7], [1, 1],
+                              {"dtype": "fp16", "kv": ("int8", "head")}),
+    "fp16_decode_fp8_token": (3, 1, 8, 2, 64, 8, [300, 0, 61], [1, 1, 1],
+                              {"dtype": "fp16", "kv": ("fp8", "token")}),
 }
+# fp16 cases against the Pallas kernel in fp16: both sides round the
+# output to fp16 (2^-11 relative each) and round p to fp16 against other
+# running maxima (the Pallas kernel a page at a time and also in decode,
+# the prefill schedule a 64-key chunk at a time), and quantized pools
+# round the V tile to fp16: 4 fp16 ulps at |out| ~ 1
+FP16_TOL = dict(atol=2e-3, rtol=2e-3)
 NEG = np.float32(-1e30)
 TILE_ROWS = 128    # rows a block of the tensor-core prefill: two warpgroups
 
 
+def _fp16(name):
+    return SCHEDULE_CASES[name][-1].get("dtype") == "fp16"
+
+
+def _codes_to_numpy(codes: torch.Tensor) -> np.ndarray:
+    """int8 codes as they are; fp8-e4m3 codes as their bytes viewed as
+    the JAX package's float8_e4m3fn numpy type."""
+    if codes.dtype == torch.float8_e4m3fn:
+        return codes.view(torch.uint8).numpy().view(jnp.float8_e4m3fn)
+    return codes.numpy()
+
+
 def _schedule_inputs(name, seed=0):
-    """One case's inputs (numpy, fp32 or int8 pools with f32 scales), its
-    window and ALiBi slopes (or None)."""
+    """One case's inputs (numpy: fp32 or fp16, fp or int8/fp8 pools with
+    f32 scales), its window and ALiBi slopes (or None)."""
     b, sq, hq, hkv, d, bs, pos0, true_len, extra = SCHEDULE_CASES[name]
     rng = np.random.default_rng(seed)
-    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    dt = np.float16 if _fp16(name) else np.float32
+    f = lambda *s: rng.standard_normal(s).astype(dt)  # noqa: E731
     max_blocks = max(-(-(p + sq) // bs) for p in pos0) + 1
     nb = b * max_blocks + 3
     tables = rng.permutation(nb)[:b * max_blocks].reshape(b, max_blocks)
@@ -195,7 +239,7 @@ def _schedule_inputs(name, seed=0):
         for name_ in ("k", "v"):
             codes, scales = tquant.kv_quantize(
                 torch.from_numpy(x[f"{name_}_pool"]), kv_dtype, hs)
-            x[f"{name_}_pool"] = codes.numpy()
+            x[f"{name_}_pool"] = _codes_to_numpy(codes)
             x[f"{name_}_scale"] = scales.numpy()
     slopes = (np.array(jax_alibi_slopes(hq), np.float32)
               if extra.get("alibi") else None)
@@ -219,7 +263,7 @@ def _dead_slots_poisoned(x, window):
         y["k_new"][b, tl:] = np.nan
         y["v_new"][b, tl:] = np.nan
     for name in ("k_pool", "v_pool"):
-        if y[name].dtype == np.float32:
+        if y[name].dtype != np.int8:           # fp32, fp16, fp8 codes
             y[name][~live] = np.nan
     for name in ("k_scale", "v_scale"):
         if name in y:
@@ -239,13 +283,21 @@ def _pool_rows(x, name, b, g, kp):
     return rows, x[f"{name}_scale"][blk, kp % bs, g % hs]
 
 
+def _round16(a):
+    """fp32 values rounded to fp16 (nearest even), back in fp32."""
+    return a.astype(np.float16).astype(np.float32)
+
+
 def _prefill_schedule(x, window, slopes):
     """paged_prefill_tc_kernel: a block per (b, kv head, TILE_ROWS
     flattened rows), 64-key chunks (the cached keys the block's first
     query can see, then the fresh keys up to its last live query) with
     dead slots zero-filled, the online softmax per chunk; the key scale on
-    S's columns, the value scale folded into P."""
+    S's columns, the value scale folded into P. fp16 inputs: P rounded to
+    fp16 before P V, and a quantized pool's V tile holds code x scale
+    rounded to fp16 (the scale stays out of P)."""
     q = x["q"]
+    fp16 = q.dtype == np.float16
     b_, sq, hq, d = q.shape
     hkv = x["k_new"].shape[2]
     rep, rows = hq // hkv, sq * (hq // hkv)
@@ -286,6 +338,9 @@ def _prefill_schedule(x, window, slopes):
                     if cached:
                         kt[ok], ks[ok] = _pool_rows(x, "k", b, g, idx)
                         vt[ok], vs[ok] = _pool_rows(x, "v", b, g, idx)
+                        if fp16 and "v_scale" in x:
+                            vt = _round16(vt * vs[:, None])
+                            vs = np.ones(64, np.float32)
                         kpos = k0 + np.arange(64)
                     else:
                         kt[ok], vt[ok] = x["k_new"][b, idx, g], \
@@ -304,7 +359,10 @@ def _prefill_schedule(x, window, slopes):
                     corr = np.exp(m - m_new)
                     p = np.where(mask, np.exp(s - m_new[:, None]), 0)
                     l = l * corr + p.sum(1)
-                    acc = acc * corr[:, None] + (p * vs[None]) @ vt
+                    pv = p * vs[None]
+                    if fp16:
+                        pv = _round16(pv)
+                    acc = acc * corr[:, None] + pv @ vt
                     m = m_new
                 o = acc / np.maximum(l, np.float32(1e-30))[:, None]
                 keep = gr < rows
@@ -358,6 +416,7 @@ def _decode_schedule(x, window, slopes, plan):
                 ws[b, g, s, :, d] = m
                 ws[b, g, s, :, d + 1] = p.sum(1)
     out = np.zeros(q.shape, np.float32)
+    qf, kf, vf = (x[n].astype(np.float32) for n in ("q", "k_new", "v_new"))
     for b in range(b_):
         nq = min(sq, int(x["true_len"][b]))
         for g in range(hkv):
@@ -377,36 +436,41 @@ def _decode_schedule(x, window, slopes, plan):
                     o = o + w * part[s, :d]
                 jlo = max(0, qi_ - window + 1) if window else 0
                 for j in range(jlo, qi_ + 1):
-                    sj = x["q"][b, qi_, h] @ x["k_new"][b, j, g] * sc
+                    sj = qf[b, qi_, h] @ kf[b, j, g] * sc
                     if slopes is not None:
                         sj = sj + slopes[h] * np.float32(j - qi_)
                     m_new = max(m, sj)
                     corr, p = np.exp(m - m_new), np.exp(sj - m_new)
                     l = l * corr + p
-                    o = o * corr + p * x["v_new"][b, j, g]
+                    o = o * corr + p * vf[b, j, g]
                     m = m_new
                 out[b, qi_, h] = o / max(l, np.float32(1e-30))
     return out
 
 
 def _schedule_out(name, x, window, slopes):
-    """The case through the schedule the wrapper's plan picks for it."""
+    """The case through the schedule the wrapper's plan picks for it
+    (fp16 cases: the output rounded to fp16, as the kernels store it)."""
     q, hkv = x["q"], x["k_new"].shape[2]
     shapes = (q.shape, hkv, x["block_tables"].shape, x["k_pool"].shape[1])
     plan = tpaged.launch_plan(q.shape, torch.bfloat16, *shapes[1:])
     assert plan == tpaged.launch_plan(q.shape, torch.float32, *shapes[1:]) \
         or plan["variant"] == "prefill_wgmma"
-    if name.startswith("decode"):
+    assert plan == tpaged.launch_plan(q.shape, torch.float16, *shapes[1:])
+    if "decode" in name:
         assert plan["variant"] == "decode_split"
-        return _decode_schedule(x, window, slopes, plan)
-    assert plan["variant"] == "prefill_wgmma"
-    return _prefill_schedule(x, window, slopes)
+        out = _decode_schedule(x, window, slopes, plan)
+    else:
+        assert plan["variant"] == "prefill_wgmma"
+        out = _prefill_schedule(x, window, slopes)
+    return _round16(out) if _fp16(name) else out
 
 
 @pytest.mark.parametrize("name", list(SCHEDULE_CASES))
 def test_kernel_schedule_matches_pallas_kernel(name):
     """Each CUDA kernel's schedule against the Pallas kernel (interpret
-    mode) on the rows < true_len at 2e-5; rows past true_len are zeros."""
+    mode) on the rows < true_len at 2e-5 (fp16 cases: the Pallas kernel in
+    fp16, at FP16_TOL); rows past true_len are zeros."""
     x, window, slopes = _schedule_inputs(name)
     kw = {"window": window}
     if slopes is not None:
@@ -418,9 +482,12 @@ def test_kernel_schedule_matches_pallas_kernel(name):
         kw.update(k_scale=jnp.asarray(x["k_scale"]),
                   v_scale=jnp.asarray(x["v_scale"]))
     ref = np.asarray(jpaged.paged_attention_kernel(*args, **kw))
+    assert ref.dtype == x["q"].dtype
     got = _schedule_out(name, x, window, slopes)
+    tol = FP16_TOL if _fp16(name) else TOL
     for b, tl in enumerate(x["true_len"]):
-        np.testing.assert_allclose(got[b, :tl], ref[b, :tl], **TOL)
+        np.testing.assert_allclose(got[b, :tl], ref[b, :tl].astype(
+            np.float32), **tol)
         assert not got[b, tl:].any()
 
 
@@ -444,7 +511,9 @@ def test_launch_plan_is_a_function_of_shapes():
     capture the call: decode ticks split each context in SPLIT_KEYS keys
     from the table's width (B 8 x 8 kv heads x 16 splits fill two waves of
     132 SMs at the serving shape), prefill chunks take the tensor-core
-    kernel in bf16 and the CUDA-core one in fp32."""
+    kernel in bf16 and fp16 and the CUDA-core one in fp32; fp16 takes the
+    same plan as bf16 at every shape, and a dtype no kernel takes (fp64)
+    none."""
     import inspect
     assert list(inspect.signature(tpaged.launch_plan).parameters) == [
         "q_shape", "dtype", "num_kv_heads", "block_tables_shape",
@@ -456,9 +525,11 @@ def test_launch_plan_is_a_function_of_shapes():
                       "workspace": (8, 8, 16, 4, 130)}
     assert 8 * 8 * decode["splits"] >= 2 * 132
     assert plan((8, 1, 32, 128), torch.float32, 8, (8, 32), 64) == decode
+    assert plan((8, 1, 32, 128), torch.float16, 8, (8, 32), 64) == decode
     assert plan((3, 2, 16, 128), torch.float32, 2, (3, 5), 8)["splits"] == 1
     assert plan((3, 2, 16, 128), torch.float32, 2, (3, 17), 8)["splits"] == 2
     for dtype, want in ((torch.bfloat16, "prefill_wgmma"),
+                        (torch.float16, "prefill_wgmma"),
                         (torch.float32, "cuda_cores")):
         got = plan((8, 256, 32, 128), dtype, 8, (8, 9), 64)
         assert got == {"variant": want, "splits": 0, "workspace": None}
@@ -466,7 +537,12 @@ def test_launch_plan_is_a_function_of_shapes():
         assert plan((1, 17, 4, 64), dtype, 4, (1, 3), 8)["variant"] == want
     assert plan((1, 16, 4, 64), torch.bfloat16, 4, (1, 3),
                 8)["variant"] == "decode_split"
-    for bad in (dict(q_shape=(1, 1, 4, 48)), dict(dtype=torch.float16),
+    for shape in ((8, 1, 32, 128), (1, 17, 4, 64), (3, 2, 16, 128),
+                  (2, 256, 8, 64)):
+        for table in ((8, 32), (1, 3), (3, 17)):
+            assert plan(shape, torch.float16, shape[2] // 4, table, 64) == \
+                plan(shape, torch.bfloat16, shape[2] // 4, table, 64)
+    for bad in (dict(q_shape=(1, 1, 4, 48)), dict(dtype=torch.float64),
                 dict(q_shape=(65536, 1, 4, 64)), dict(num_kv_heads=3)):
         kw = dict(q_shape=(1, 1, 4, 64), dtype=torch.bfloat16,
                   num_kv_heads=4, block_tables_shape=(1, 3), block_size=8)

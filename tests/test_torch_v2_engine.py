@@ -224,3 +224,48 @@ def test_config_takes_the_jax_dump_at_its_defaults():
     build_engine("llama", "tiny", dict(dump, **ENGINE_KW), device="cpu")
     with pytest.raises(ValueError, match="unknown config key"):
         RaggedInferenceEngineConfig.from_dict({"numsan": {"enabeld": True}})
+
+
+# fp16, DeepSpeed's default serving dtype (JAX inference/config.py:73-78):
+# both engines cast the same params to fp16 and round activations to
+# fp16 at other places (the JAX Pallas kernel rounds p to fp16 per page,
+# the port's plain kernel keeps it in fp32), so logits agree to a few fp16
+# ulps: 4 ulps (2^-9 relative) of |logits| up to 1, measured ~1 ulp
+FP16_TOL = dict(rtol=2e-3, atol=2e-3)
+FP16_PROMPTS = [(5, 41), (11, 42), (20, 43), (33, 44)]
+
+
+def test_fp16_engine_matches_jax_fp16_engine():
+    """The tiny llama in fp16 on both sides, the JAX params carried over:
+    put() logits (prefill in 16-token chunks, then decode steps
+    teacher-forced with the JAX engine's greedy tokens) within FP16_TOL,
+    and greedy generate() token for token wherever the JAX engine's
+    top-2 logit margin exceeds twice that tolerance (past a near-tie the
+    two runs may part, and then the test stops comparing that request)."""
+    je, te = _pair("llama", dtype="fp16")
+    assert te.dtype == torch.float16
+    assert all(p.dtype == torch.float16 for p in te.model.params.values())
+    prompts = [_prompt(n, seed) for n, seed in FP16_PROMPTS]
+    new = 6
+    refs = je.generate(prompts, max_new_tokens=new)
+    gots = te.generate(prompts, max_new_tokens=new)
+    margin = 2 * FP16_TOL["atol"]
+    for uid, (prompt, ref_out, got_out) in enumerate(zip(prompts, refs,
+                                                         gots)):
+        ref, got = je.put([uid], [prompt]), te.put([uid], [prompt])
+        for j, tok in enumerate(ref_out):
+            r = np.asarray(ref[0]).astype(np.float32)
+            g = got[0].float().numpy()
+            assert np.isfinite(g).all() and got.dtype == torch.float16
+            np.testing.assert_allclose(g, r, **FP16_TOL)
+            top2 = np.sort(r)[-2:]
+            assert int(np.argmax(r)) == tok
+            if top2[1] - top2[0] > margin:
+                assert int(np.argmax(g)) == tok, (uid, j)
+            if got_out[:j + 1] != ref_out[:j + 1]:
+                assert top2[1] - top2[0] <= margin, (uid, j)
+                break
+            ref, got = je.put([uid], [[tok]]), te.put([uid], [[tok]])
+        je.flush(uid)
+        te.flush(uid)
+    assert te.free_blocks == te.num_kv_blocks
