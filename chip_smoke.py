@@ -90,7 +90,22 @@ Phases, each fatal on failure:
      greedy agreement with phase 4's bf16 engine (reported), every layer
      of three teacher-forced ticks against the plain attention at 1e-2
      and the first tick's logits against the plain path's; then Path Q's
-     config in fp16 (4 requests) and its layers on int8 and fp8 pools.
+     config in fp16 (4 requests) and its layers on int8 and fp8 pools;
+ 17. fused serving: phase 4's engine (fused_decode_steps 8,
+     max_inflight_dispatches 2) serves phase 4's requests through
+     generate_fused, each K-tick dispatch one CUDA graph replay: a first
+     run captures the graphs, the timed rerun must give its tokens; every
+     paged launch of a replay decode_split, every norm cta_row, the
+     counts equal the replays' ticks and the prefill dispatches; one
+     dispatch replayed against the same ticks run eagerly, bit for bit
+     (tokens, carry, pools, last logits); sampled tokens (temperature
+     0.9, top_k 50, top_p 0.9, seed 13) equal at k 2 and k 8; threefry
+     on the card equal to the CPU's; reported: prefill tokens/s, decode
+     ms a token step beside phase 4's per tick, dispatches a token,
+     occupancy, greedy agreement with phase 4, graphs, capture ms and
+     pool MiB; then Path Q's engine fused (agreement with its per-tick
+     run reported) and fp32 Llama-3-8B cut to 4 layers, where
+     generate_fused must equal generate() token for token.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
 RMSNorm/LayerNorm kernels against their plain versions and times them at
@@ -101,11 +116,14 @@ Every model path runs its norms through the norm kernels (2L + 1
 launches a forward, 2L more recomputed a training micro-batch under
 remat), and each phase's launch check counts them; phases 4, 6, 8, 11,
 13 and 15 fail unless every norm launch took a row kernel (warp_row or
-cta_row); the plain sides of phases 5 and 7 run plain norms. Phases 11-12 run right
-after phase 5, beside phase 4's engine. With --profile it then traces a
+cta_row); the plain sides of phases 5 and 7 run plain norms. Phase 17
+runs right after phase 5 on phase 4's engine, phases 11-12 after it,
+beside that engine; phase 17's Path Q run follows phase 12 and its fp32
+check phase 16. With --profile it then traces a
 prefill tick and decode ticks of the serving path and of Path Q, one
-train_batch step, one step of Path T and five Path P calls
-(torch.profiler) and prints where the device time goes. The last two
+train_batch step, one step of Path T, five Path P calls and one
+fused dispatch of 8 ticks (torch.profiler) and prints where the device
+time goes. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero.
 """
@@ -711,6 +729,7 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
         e2e_tokens_per_s=(int(lens.sum()) + n_req * max_new) / wall)
     log(f"[main] {json.dumps(stats)}")
     stats["outputs"] = outs
+    stats["prompts"] = prompts
     return engine, stats
 
 
@@ -1015,6 +1034,8 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
         greedy_agreement_min=min(horizon),
         greedy_agreement_mean=sum(horizon) / len(horizon))
     log(f"[path Q] {json.dumps(stats)}")
+    stats["outputs"] = outs
+    stats["prompts"] = prompts
     return engine, stats
 
 
@@ -1127,6 +1148,7 @@ def fp16_serving_main(dev, bf16_outputs, size="3-8b", q_requests=4,
                               lengths=lengths, dtype="float16",
                               engine_over=engine_over)
     horizon = agreement(stats.pop("outputs"), bf16_outputs)
+    del stats["prompts"]
     stats.update(greedy_agreement_vs_bf16=horizon,
                  greedy_agreement_min=min(horizon),
                  greedy_agreement_mean=sum(horizon) / len(horizon))
@@ -1140,6 +1162,7 @@ def fp16_serving_main(dev, bf16_outputs, size="3-8b", q_requests=4,
     q_engine, path_q = path_q_main(dev, engine, size=size, n_req=q_requests,
                                    max_new=max_new, dtype="float16",
                                    engine_over=engine_over, **path_q_kw)
+    del path_q["outputs"], path_q["prompts"]
     del engine
     gc.collect()
     if dev.type == "cuda":
@@ -1154,6 +1177,393 @@ def fp16_serving_main(dev, bf16_outputs, size="3-8b", q_requests=4,
                path_q_kernel_vs_plain=q_rels)
     log(f"[fp16] {json.dumps(out)}")
     return out
+
+
+# ----------------------------------------------------------- phase 17
+# the sampling setting of phase 17's stochastic checks
+FUSED_SAMPLING = dict(temperature=0.9, top_k=50, top_p=0.9)
+FUSED_SEED = 13
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.synchronize()
+
+
+def count_ticks(engine) -> list:
+    """Wrap ``engine._fused_fn`` so that every dispatch appends the ticks
+    it runs (a graph launches every tick it captured) to the returned
+    list; ``del engine._fused_fn`` takes the wrapper off."""
+    orig = engine._fused_fn
+    ticks: list[int] = []
+
+    def counting(state, num_steps, *args):
+        fn = orig(state, num_steps, *args)
+
+        def run():
+            ticks.append(num_steps)
+            return fn()
+        return run
+
+    engine._fused_fn = counting
+    return ticks
+
+
+def serve_fused(engine, prompts, max_new: int, dev, k=None, **sampling):
+    """generate_fused's closed loop over ``prompts`` (FusedServeLoop,
+    chain mode), with its prefill timed: returns the outputs and the
+    run's wall, prefill seconds and tokens, fused steps and dispatches."""
+    from deepspeed_tpu_torch.inference.v2.serve_loop import FusedServeLoop
+    loop = FusedServeLoop(engine, k_steps=k, strict=True, **sampling)
+    mgr = engine.state_manager
+    pre = {"s": 0.0, "tokens": 0}
+    orig = loop._prefill
+
+    def timed_prefill(ids, ev):
+        pre["tokens"] += sum(mgr.seqs[u].pending for u in ids)
+        sync(dev)
+        t0 = time.perf_counter()
+        orig(ids, ev)
+        sync(dev)
+        pre["s"] += time.perf_counter() - t0
+
+    loop._prefill = timed_prefill
+    results = {i: [] for i in range(len(prompts))}
+    for i, prompt in enumerate(prompts):
+        loop.submit(prompt, max_new, uid=i)
+    st = engine.serving_stats
+    steps0, disp0 = st["fused_steps"], st["fused_dispatches"]
+    sync(dev)
+    t = time.perf_counter()
+    while loop.has_work():
+        for evt in loop.step():
+            results[evt.uid].extend(evt.tokens)
+    sync(dev)
+    wall = time.perf_counter() - t
+    outs = [results[i][:max_new] for i in range(len(prompts))]
+    return outs, dict(wall_s=wall, prefill_s=pre["s"],
+                      prefill_tokens=pre["tokens"],
+                      steps=st["fused_steps"] - steps0,
+                      dispatches=st["fused_dispatches"] - disp0)
+
+
+def at_dispatch_state(engine, prompts, uids):
+    """Prefill ``prompts`` as ``uids`` (put()) and append each one's greedy
+    first token: every uid then holds the one pending token a fused
+    dispatch takes."""
+    logits = engine.put(uids, prompts)
+    for u, t in zip(uids, logits.float().argmax(-1).tolist()):
+        engine.state_manager.extend(u, [t])
+
+
+def fused_graph_vs_eager(engine, prompts, dev, k=8, budget=32):
+    """One captured dispatch of ``k`` ticks and the same ticks run eagerly
+    (``engine._fused_eager``, the same kernels) from the same operands and
+    pools, sampling on: the tokens, the steps run, the carry, the pools
+    and the last tick's logits must be equal bit for bit."""
+    import torch
+    uids = list(range(20_000, 20_000 + len(prompts)))
+    at_dispatch_state(engine, prompts, uids)
+    loop_kw = dict(eos_id=None, **FUSED_SAMPLING)
+    state = engine._fused_operands(uids, k, {u: budget for u in uids},
+                                   FUSED_SEED)
+    ops0 = {n: t.clone() for n, t in state.operands().items()}
+    pools0 = {n: t.clone() for n, t in engine.pools.items()}
+    fn = engine._fused_fn(state, k, FUSED_SAMPLING["temperature"],
+                          FUSED_SAMPLING["top_k"], FUSED_SAMPLING["top_p"],
+                          None)
+    toks_g, steps_g = fn().read()
+    graph = dict(logits=state.logits.clone(),
+                 **{n: t.clone() for n, t in state.operands().items()})
+    pools_g = {n: t.clone() for n, t in engine.pools.items()}
+    for n, t in engine.pools.items():
+        t.copy_(pools0[n])
+    for n, t in state.operands().items():
+        t.copy_(ops0[n])
+    engine._fused_eager(state, k, **loop_kw)
+    sync(dev)
+    toks_e = state.out[:, :k].cpu().numpy()
+    steps_e = int(state.steps)
+    bad = [n for n, t in state.operands().items()
+           if not torch.equal(t, graph[n])]
+    bad += [f"pool {n}" for n, t in engine.pools.items()
+            if not torch.equal(t, pools_g[n])]
+    logits_equal = torch.equal(state.logits, graph["logits"])
+    del pools0, pools_g
+    engine.flush(uids)
+    rec = dict(rows=len(uids), ticks=k, tokens_equal=bool(
+        (toks_g == toks_e).all()), steps=[steps_g, steps_e],
+        last_logits_bit_equal=logits_equal, differing=bad,
+        sampled=int((toks_g >= 0).sum()))
+    if not (rec["tokens_equal"] and logits_equal and not bad
+            and steps_g == steps_e == k):
+        raise AssertionError(f"graph replay against eager: {rec}")
+    return rec
+
+
+def threefry_cuda_vs_cpu(dev) -> dict:
+    """Threefry keys and bits on the card against the CPU's: fold_in over
+    positions, random bits and uniforms bit for bit (integer arithmetic);
+    gumbel noise within 4 ulps of max(|g|, 1) (each side's log is within
+    an ulp)."""
+    import torch
+    from deepspeed_tpu_torch.ops import threefry
+    keys = threefry.fold_in(threefry.prng_key(FUSED_SEED),
+                            torch.arange(8))
+    pos = torch.arange(8) * 977 + 5
+    rec = {}
+    for name, f in (("fold_in", lambda k, p: threefry.fold_in(k, p)),
+                    ("bits", lambda k, p: threefry.random_bits(
+                        threefry.fold_in(k, p), 128256)),
+                    ("uniform", lambda k, p: threefry.uniform(
+                        threefry.fold_in(k, p), 128256))):
+        cpu, gpu = f(keys, pos), f(keys.to(dev), pos.to(dev)).cpu()
+        rec[name + "_bit_equal"] = torch.equal(cpu, gpu)
+    g_cpu = threefry.gumbel(keys, 128256)
+    g_gpu = threefry.gumbel(keys.to(dev), 128256).cpu()
+    ulp = torch.from_numpy(np.spacing(np.maximum(
+        g_cpu.abs().numpy(), 1).astype(np.float32)))
+    rec["gumbel_max_ulps"] = float(((g_gpu.double() - g_cpu.double()).abs()
+                                    / ulp.double()).max())
+    if not all(v for k, v in rec.items() if k.endswith("bit_equal")) \
+            or rec["gumbel_max_ulps"] > 4:
+        raise AssertionError(f"threefry on the card against the CPU: {rec}")
+    return rec
+
+
+def profile_fused(engine, dev, prompts, k=8) -> dict:
+    """Where a fused dispatch's time goes: ``k`` decode ticks of
+    ``len(prompts)`` rows, one graph replay, traced (torch.profiler; CUDA
+    events around the replay if the trace shows no device time), greedy
+    and then sampling with ``FUSED_SAMPLING`` (the same rows rebuilt from
+    the host state: the sampled replay rewrites the greedy one's slots)."""
+    import torch
+    uids = list(range(30_000, 30_000 + len(prompts)))
+    at_dispatch_state(engine, prompts, uids)
+    out = {}
+    for name, sampling in (("greedy", (0.0, 0, 0.0)),
+                           ("sampled", tuple(FUSED_SAMPLING.values()))):
+        state = engine._fused_operands(uids, k, {u: k for u in uids},
+                                       FUSED_SEED)
+        fn = engine._fused_fn(state, k, *sampling, None)   # captured here
+        window = f"fused_decode_{name}"
+        try:
+            _, rec = profile_window(window, lambda: fn().read(), k)
+        except AssertionError:
+            sync(dev)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in "ab")
+            t = time.perf_counter()
+            start.record()
+            fn().read()
+            end.record()
+            end.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            busy = start.elapsed_time(end)
+            rec = {"window": window, "ticks": k, "wall_ms": wall,
+                   "device_ms_events": busy,
+                   "device_idle_share": 1 - busy / wall,
+                   "note": "no device time traced inside the graph"}
+            log(f"[profile] {json.dumps(rec)}")
+        out[name] = rec
+    engine.flush(uids)
+    return out
+
+
+def fused_serving_main(engine, dev, prompts, per_tick, max_new=32, k=8,
+                       profile=False, sample_requests=4, sample_new=16):
+    """Phase 17: phase 4's engine (fused_decode_steps 8 and
+    max_inflight_dispatches 2, the defaults) serves phase 4's requests
+    through generate_fused's loop: a first run that captures the graphs,
+    then the timed run, with the counts set to 0 just before it. Checks:
+    every output full and the rerun's tokens equal the first run's; every
+    paged launch of a graph replay decode_split and every prefill's
+    prefill_wgmma, every norm cta_row, the counts equal what the replays
+    and prefill dispatches ran; dispatches a token <= 0.25 (the JAX
+    gate); one dispatch replayed against the same ticks run eagerly, bit
+    for bit; stochastic tokens (``FUSED_SAMPLING``) equal at k 2 and k 8;
+    threefry on the card equal to the CPU's. Reported: prefill tokens/s,
+    decode ms a token step (the decode wall over its steps) beside phase
+    4's per-tick figure, dispatches a token, occupancy, the greedy
+    agreement with phase 4's tokens (``per_tick``), and each graph's
+    capture ms and pool MiB."""
+    from deepspeed_tpu_torch.inference.v2 import paged
+    c = engine.model.config
+    layers = c.num_layers
+    first = len(engine.graph_captures)
+    warm, warm_run = serve_fused(engine, prompts, max_new, dev, k)
+    norms = norm_counter(c)
+    ticks = count_ticks(engine)
+    paged.paged_attention_kernel.launches = 0
+    paged.paged_attention_kernel.variant_launches = {}
+    reset_norms(norms)
+    engine.reset_serving_metrics()
+    timed_first = len(engine.graph_captures)
+    try:
+        outs, run = serve_fused(engine, prompts, max_new, dev, k)
+    finally:
+        del engine._fused_fn
+    launches = paged.paged_attention_kernel.launches
+    by_variant = dict(paged.paged_attention_kernel.variant_launches)
+    norm_by_variant = dict(norms.variant_launches)
+    m = engine.serving_metrics()
+    prefill_dispatches = m["host_dispatches"] - m["fused_dispatches"]
+    # a capture's warm-up tick launches eagerly (none in a rerun)
+    graph_ticks = sum(ticks) + len(engine.graph_captures) - timed_first
+    bad = []
+    if outs != warm:
+        bad.append("the rerun's tokens differ from the first run's")
+    for o in outs:
+        if len(o) != max_new or not all(0 <= t < c.vocab_size for t in o):
+            bad.append(f"bad generate_fused() output {o[:8]}...")
+    want = {"decode_split": layers * graph_ticks,
+            "prefill_wgmma": layers * prefill_dispatches}
+    if dev.type == "cuda" and (by_variant != want
+                               or launches != sum(want.values())):
+        bad.append(f"paged launches {launches} by variant {by_variant} != "
+                   f"{want} (graph ticks {graph_ticks}, prefill dispatches "
+                   f"{prefill_dispatches})")
+    want_norms = (2 * layers + 1) * (graph_ticks + prefill_dispatches)
+    if dev.type == "cuda" and (norms.launches != want_norms
+                               or set(norm_by_variant) != {"cta_row"}):
+        bad.append(f"norm launches {norms.launches} by variant "
+                   f"{norm_by_variant} != {want_norms} cta_row")
+    if m["dispatches_per_token"] > 0.25:
+        bad.append(f"dispatches a token {m['dispatches_per_token']} > 0.25")
+    if bad:
+        raise AssertionError("phase 17: " + "; ".join(bad))
+    captures = engine.graph_captures[first:]
+    horizon = agreement(outs, per_tick["outputs"])
+    decode_s = run["wall_s"] - run["prefill_s"]
+    stats = dict(
+        requests=len(prompts), new_tokens=max_new, k=k,
+        max_inflight_dispatches=m["max_inflight_dispatches"],
+        prefill_tokens=run["prefill_tokens"],
+        prefill_tokens_per_s=run["prefill_tokens"] / run["prefill_s"],
+        decode_steps=run["steps"], fused_dispatches=run["dispatches"],
+        decode_ms_per_step=1e3 * decode_s / max(run["steps"], 1),
+        per_tick_decode_ms_per_tick=per_tick["decode_ms_per_tick"],
+        per_tick_prefill_tokens_per_s=per_tick["prefill_tokens_per_s"],
+        generate_fused_s=run["wall_s"],
+        first_run_s=warm_run["wall_s"],
+        e2e_generated_tokens_per_s=len(prompts) * max_new / run["wall_s"],
+        dispatches_per_token=m["dispatches_per_token"],
+        fused_occupancy=m["fused_occupancy"],
+        tokens_per_dispatch=m["tokens_per_dispatch"],
+        launches=launches, launches_by_variant=by_variant,
+        graph_ticks=graph_ticks, prefill_dispatches=prefill_dispatches,
+        norm_launches=norms.launches,
+        norm_launches_by_variant=norm_by_variant,
+        greedy_agreement_vs_per_tick=horizon,
+        greedy_agreement_mean=sum(horizon) / len(horizon),
+        graphs_captured=len(captures), captures=captures,
+        capture_ms_total=sum(g["capture_ms"] for g in captures),
+        graph_pool_mib_total=sum(g["pool_mib"] for g in captures))
+    log(f"[fused] greedy {json.dumps(stats)}")
+    stats["graph_vs_eager"] = fused_graph_vs_eager(engine, prompts, dev, k)
+    # stochastic: the same tokens whether a dispatch runs 2 ticks or 8
+    few = [p[:200] for p in prompts[:sample_requests]]
+    runs = {}
+    for kk in (2, k):
+        runs[kk], _ = serve_fused(engine, few, sample_new, dev, kk,
+                                  seed=FUSED_SEED, **FUSED_SAMPLING)
+    greedy_few = [o[:sample_new] for o in serve_fused(
+        engine, few, sample_new, dev, k)[0]]
+    stats["sampling"] = dict(
+        FUSED_SAMPLING, seed=FUSED_SEED, requests=len(few),
+        new_tokens=sample_new, k2_equals_k8=runs[2] == runs[k],
+        differs_from_greedy=runs[k] != greedy_few)
+    if not stats["sampling"]["k2_equals_k8"]:
+        raise AssertionError(f"sampled tokens at k 2 {runs[2]} != at k {k} "
+                             f"{runs[k]}")
+    stats["threefry_cuda_vs_cpu"] = threefry_cuda_vs_cpu(dev)
+    stats["graphs_total"] = len(engine.graph_captures)
+    if profile:
+        stats["profile"] = profile_fused(engine, dev,
+                                         [p[:256] for p in prompts])
+    log(f"[fused] {json.dumps(stats)}")
+    return stats
+
+
+def fused_path_q(engine, dev, path_q, k=8):
+    """Phase 17 on Path Q's engine (int8 per-head pools, grow_pool, the
+    prefix cache): its requests through generate_fused, a first run that
+    captures the graphs and the timed rerun; every output full, every
+    paged launch of a replay decode_split; the tokens reported against
+    the per-tick run's."""
+    from deepspeed_tpu_torch.inference.v2 import paged
+    warm = len(engine.graph_captures)
+    serve_fused(engine, path_q["prompts"], path_q["new_tokens"], dev, k)
+    captures = engine.graph_captures[warm:]
+    ticks = count_ticks(engine)
+    paged.paged_attention_kernel.variant_launches = {}
+    engine.reset_serving_metrics()
+    first = len(engine.graph_captures)
+    try:
+        outs, run = serve_fused(engine, path_q["prompts"], path_q[
+            "new_tokens"], dev, k)
+    finally:
+        del engine._fused_fn
+    by_variant = dict(paged.paged_attention_kernel.variant_launches)
+    m = engine.serving_metrics()
+    layers = engine.model.config.num_layers
+    # the graph ticks, and each capture's eager warm-up tick
+    decode_ticks = sum(ticks) + len(engine.graph_captures) - first
+    if dev.type == "cuda" and (by_variant.get("decode_split") != layers
+                               * decode_ticks or set(by_variant)
+                               - set(NEW_PAGED_VARIANTS)):
+        raise AssertionError(f"Path Q fused: paged launches {by_variant}, "
+                             f"{layers} x {decode_ticks} decode ticks")
+    for o in outs:
+        if len(o) != path_q["new_tokens"]:
+            raise AssertionError(f"Path Q fused output {o[:8]}...")
+    horizon = agreement(outs, path_q["outputs"])
+    stats = dict(
+        requests=len(outs), launches_by_variant=by_variant,
+        graph_ticks=sum(ticks), graphs_captured=len(captures),
+        capture_ms_total=sum(g["capture_ms"] for g in captures),
+        graph_pool_mib_total=sum(g["pool_mib"] for g in captures),
+        prefix_hits=m["prefix_hits"],
+        dispatches_per_token=m["dispatches_per_token"],
+        fused_occupancy=m["fused_occupancy"],
+        decode_ms_per_step=1e3 * (run["wall_s"] - run["prefill_s"])
+        / max(run["steps"], 1),
+        per_tick_decode_ms_per_tick=path_q["decode_ms_per_tick"],
+        greedy_agreement_vs_per_tick=horizon,
+        greedy_agreement_mean=sum(horizon) / len(horizon))
+    log(f"[fused] Path Q {json.dumps(stats)}")
+    return stats
+
+
+def fused_fp32_parity(dev, size="3-8b", layers=4, n_req=4, max_new=16,
+                      lengths=(100, 701)):
+    """Phase 17, fp32: Llama-3-8B at full width cut to ``layers`` layers,
+    fp32 (TF32 off): generate_fused must give generate()'s tokens, token
+    for token."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    cfg = {"dtype": "float32", "kv_block_size": 64, "num_kv_blocks": 512,
+           "max_chunk_size": 256, "max_ragged_sequence_count": 8}
+    engine = build_engine("llama", size=size, engine_config=cfg, device=dev,
+                          num_layers=layers)
+    c = engine.model.config
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, c.vocab_size, n).tolist()
+               for n in rng.integers(lengths[0], lengths[1], n_req)]
+    ref = engine.generate(prompts, max_new_tokens=max_new)
+    got, run = serve_fused(engine, prompts, max_new, dev)
+    rec = dict(layers=layers, requests=n_req, new_tokens=max_new,
+               equal=got == ref, agreement=agreement(got, ref),
+               decode_steps=run["steps"])
+    del engine
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[fused] fp32 {json.dumps(rec)}")
+    if not rec["equal"]:
+        raise AssertionError(f"fp32 generate_fused != generate: {rec}")
+    return rec
 
 
 # ------------------------------------------------------------ phase 2
@@ -3406,6 +3816,8 @@ def main(argv=None) -> int:
     rels = main_path_kernel_vs_plain(engine, dev)             # phase 5
     if args.profile:
         profile_main_path(engine, dev)
+    fused = fused_serving_main(engine, dev, stats.pop("prompts"),  # 17
+                               stats, profile=args.profile)
     q_engine, path_q = path_q_main(dev, engine)               # phase 11
     del engine
     gc.collect()
@@ -3413,13 +3825,15 @@ def main(argv=None) -> int:
     q_rels = path_q_kernel_vs_plain(q_engine, dev)            # phase 12
     if args.profile:
         profile_main_path(q_engine, dev, label="path_q_")
-    del q_engine
+    fused["path_q"] = fused_path_q(q_engine, dev, path_q)     # phase 17
+    del q_engine, path_q["outputs"], path_q["prompts"]
     gc.collect()
     torch.cuda.empty_cache()
     fp16 = fp16_serving_main(dev, stats.pop("outputs"),       # phase 16
                              profile=args.profile)
     gc.collect()
     torch.cuda.empty_cache()
+    fused["fp32_parity"] = fused_fp32_parity(dev)             # phase 17
     resident = torch.cuda.memory_allocated()
     if resident > 2**30:
         raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
@@ -3515,6 +3929,10 @@ def main(argv=None) -> int:
               prefill_tick_shape=f"B=8 Sq=256 pos0 {PREFILL_TICK['pos0']}",
               main_path="serving",
               main_path_launches_by_variant=stats["launches_by_variant"],
+              fused_main_path="generate_fused, graph replays (phase 17)",
+              fused_launches_by_variant=fused["launches_by_variant"],
+              fused_path_q_launches_by_variant=fused["path_q"][
+                  "launches_by_variant"],
               main_path_fp32_rel_logits_err=rels["fp32_kernel_vs_reference"],
               main_path_bf16_layer_max_abs_err=rels[
                   "bf16_layer_max_abs_err"]),
@@ -3718,6 +4136,7 @@ def main(argv=None) -> int:
             shape=f"{rec['shape']} bf16", **norm_extra(rec),
             main_path_launches_by_variant=stats["norm_launches_by_variant"],
             serving_launches=stats["norm_launches"],
+            fused_launches_by_variant=fused["norm_launches_by_variant"],
             path_q_launches=path_q["norm_launches"],
             path_q_launches_by_variant=path_q["norm_launches_by_variant"],
             cases_max_err={"/".join(k): v for k, v in norm_errs.items()
@@ -3737,6 +4156,7 @@ def main(argv=None) -> int:
         cases_max_err={"/".join(k): v for k, v in norm_errs.items()
                        if k[0] == "layer"}, cases=NORM_NOTE))
     log(f"[main] serving {json.dumps(stats)} on {card}")
+    log(f"[main] fused serving {json.dumps(fused)} on {card}")
     log(f"[main] fp16 serving {json.dumps(fp16)} on {card}")
     log(f"[main] Path Q {json.dumps(path_q)} on {card}")
     log(f"[main] Path Q kernels vs plain {json.dumps(q_rels)}")

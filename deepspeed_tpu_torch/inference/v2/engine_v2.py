@@ -9,8 +9,14 @@ One scheduler tick is one :func:`paged.paged_forward` over every sequence
 with pending tokens: prefill chunks (the SplitFuse budget) and the decode
 batch ride the same pass. The JAX engine pads batch, chunk and context to
 power-of-two buckets to bound XLA recompiles; PyTorch runs eagerly, so the
-port drops the padding and keeps the token grouping: a row advances
+port drops the padding there and keeps the token grouping: a row advances
 ``min(pending, chunk)`` tokens per tick.
+
+The fused decode path (``decode_fused``, ``generate_fused`` over
+``serve_loop.FusedServeLoop``) runs K decode ticks a host dispatch with
+sampling on the device. It keeps the JAX engine's batch and table-width
+buckets: on the card each (bucket, K, sampling setting) is one captured
+CUDA graph over operands at fixed addresses (``fused_graph.py``).
 """
 
 from __future__ import annotations
@@ -23,13 +29,39 @@ import torch
 from torch import nn
 
 from ...models.convert import load_jax_params
+from ...ops import sampling, threefry
 from ...ops.quantization import KV_STORE_DTYPES
 from ...utils.logging import log_dist
 from ..config import DeepSpeedInferenceConfig
 from ...runtime.config_utils import DeepSpeedConfigModel
-from .paged import KERNEL_DTYPES, paged_forward
+from .fused_graph import CapturedLoop, FusedState
+from .paged import KERNEL_DTYPES, fused_decode_loop, paged_forward
 from .ragged import (DSStateManager, PrefixCache, SequenceDescriptor,
                      kv_block_bytes, quantized_block_budget)
+
+# serving_metrics() schema, the JAX engine's: raw counters kept in
+# serving_stats (reset zeroes exactly these); the prefix-cache counters
+# ride alongside, and the ratios are appended at read time. The spec_*
+# counters stay zero until speculative decoding is ported.
+# fused_live_slots counts scheduled (row, step) slots whose row was still
+# active, the occupancy numerator (one token a live slot).
+SERVING_COUNTER_KEYS = (
+    "host_dispatches", "fused_dispatches", "fused_steps", "fused_slots",
+    "fused_slot_tokens", "fused_live_slots", "decoded_tokens",
+    "spec_proposed_tokens", "spec_accepted_tokens", "spec_hit_slots")
+
+
+def _bucket(n: int, lo: int = 1) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _batch_bucket(n: int) -> int:
+    """Decode-batch bucket: powers of two up to 8, then multiples of 8
+    (the JAX engine's, so a fused dispatch pads its batch the same way)."""
+    return _bucket(n) if n <= 8 else -(-n // 8) * 8
 
 
 @dataclasses.dataclass
@@ -121,7 +153,10 @@ class RaggedInferenceEngineConfig(DeepSpeedInferenceConfig):
     num_kv_blocks: int = 256
     max_ragged_sequence_count: int = 32
     max_chunk_size: int = 256             # prefill chunk (SplitFuse budget)
-    # the fused decode loops' depth and in-graph sampling (JAX defaults)
+    # K decode ticks a host dispatch of the fused loop, its in-graph
+    # sampling defaults (temperature 0.0 = greedy; top_k/top_p 0 = no
+    # filter; per-call overrides win), the EOS that ends a row on the
+    # device, and the dispatch chain's depth (JAX defaults)
     fused_decode_steps: int = 8
     sampling_temperature: float = 0.0
     sampling_top_k: int = 0
@@ -144,6 +179,14 @@ class RaggedInferenceEngineConfig(DeepSpeedInferenceConfig):
     numsan: InferenceNumsanConfig = dataclasses.field(
         default_factory=InferenceNumsanConfig)
 
+    def __post_init__(self):
+        super().__post_init__()
+        # the JAX field's Field(2, ge=1)
+        if self.max_inflight_dispatches < 1:
+            raise ValueError(
+                f"max_inflight_dispatches {self.max_inflight_dispatches}: "
+                f"must be greater than or equal to 1")
+
 
 def _off_default(config, names) -> str | None:
     """The first of ``names`` whose value differs from its default."""
@@ -157,25 +200,19 @@ def _off_default(config, names) -> str | None:
 def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
     """Raise on every configured feature this slice does not implement,
     naming its ROADMAP item, instead of serving something else."""
-    for names, item in (
-            (("sampling_temperature", "sampling_top_k", "sampling_top_p"),
-             "item 5, sampling"),
-            (("fused_decode_steps", "max_inflight_dispatches"),
-             "item 6, fused decode loops"),
-            (("sentinels", "sentinel_mode", "graftsan", "meshsan", "numsan"),
-             "item 15, sanitizers (Slice G)")):
-        what = _off_default(config, names)
-        if what is not None:
-            raise NotImplementedError(
-                f"{what} is not ported to deepspeed_tpu_torch yet "
-                f"(ROADMAP.md, port Queue 1: {item})")
+    what = _off_default(config, ("sentinels", "sentinel_mode", "graftsan",
+                                 "meshsan", "numsan"))
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md, "
+            f"port Queue 1: item 15, sanitizers (Slice G))")
     unported = [
         (config.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1",
          "tensor-parallel serving"),
         (config.speculative.enabled, "speculative.enabled",
-         "speculative decoding"),
+         "item 6, speculative decoding"),
         (config.fused_admission, "fused_admission",
-         "item 6, fused decode loops and sampling"),
+         "item 6, ring mode (fused_serve_loop)"),
         (config.quantize_weights, "quantize_weights",
          "weight-only int8 serving"),
         (config.quantize_moe_experts, "quantize_moe_experts", "MoE serving"),
@@ -263,7 +300,17 @@ class InferenceEngineV2:
                                               dtype=torch.float32,
                                               device=self.device)
                                for n in ("ks", "vs")})
-        self.serving_stats = {"host_dispatches": 0, "decoded_tokens": 0}
+        # serving counters behind serving_metrics(): host dispatches vs
+        # decoded tokens measures how host-free the decode loop is
+        self.serving_stats = dict.fromkeys(SERVING_COUNTER_KEYS, 0)
+        # the fused loop: operands at fixed addresses per (batch bucket,
+        # table-width bucket), dispatch functions (on the card captured
+        # graphs) per bucket, step count and sampling setting, base keys
+        # per seed, and each capture's cost
+        self._fused_states: dict[tuple, FusedState] = {}
+        self._fused_cache: dict[tuple, object] = {}
+        self._seed_keys: dict[int, torch.Tensor] = {}
+        self.graph_captures: list[dict] = []
         # SplitFuse budget, floored to a power of two as in the JAX engine
         self._chunk = 1 << (max(1, config.max_chunk_size).bit_length() - 1)
         log_dist(f"InferenceEngineV2: {nb} KV blocks x {bs} tokens "
@@ -434,14 +481,29 @@ class InferenceEngineV2:
                 / (self.num_kv_blocks * self._config.kv_block_size))
 
     def serving_metrics(self) -> dict:
-        """The serving counters, the prefix cache's counters and gauges
-        (zeros when it is off), ``dispatches_per_token`` (host dispatches
-        per decoded token) and the KV pool's footprint: ``kv_pool_bytes``,
-        ``kv_bytes_per_token``, ``kv_num_blocks`` and ``kv_dtype``."""
+        """The JAX engine's serving metrics: the counters, the prefix
+        cache's counters and gauges (zeros when it is off),
+        ``dispatches_per_token`` (host dispatches per decoded token: 1.0
+        per tick, ~1/K fused), ``fused_occupancy`` (the share of scheduled
+        (row, step) slots whose row was still live; pad rows of the batch
+        bucket are not counted), ``tokens_per_dispatch`` (tokens committed
+        a scheduled slot), ``spec_acceptance_rate``, the configured
+        ``max_inflight_dispatches`` and the KV pool's footprint:
+        ``kv_pool_bytes``, ``kv_bytes_per_token``, ``kv_num_blocks`` and
+        ``kv_dtype``."""
         st = dict(self.serving_stats)
         st.update(self.state_manager.prefix_cache_metrics())
         st["dispatches_per_token"] = (
             st["host_dispatches"] / max(st["decoded_tokens"], 1))
+        st["fused_occupancy"] = (
+            st["fused_live_slots"] / max(st["fused_slots"], 1))
+        st["tokens_per_dispatch"] = (
+            st["fused_slot_tokens"] / max(st["fused_slots"], 1))
+        st["spec_acceptance_rate"] = (
+            st["spec_accepted_tokens"]
+            / max(st["spec_proposed_tokens"], 1))
+        st["max_inflight_dispatches"] = int(
+            self._config.max_inflight_dispatches)
         st["kv_pool_bytes"] = self.kv_pool_bytes()
         st["kv_bytes_per_token"] = round(self.kv_bytes_per_token(), 3)
         st["kv_num_blocks"] = int(self.num_kv_blocks)
@@ -461,6 +523,198 @@ class InferenceEngineV2:
         for u in uids:
             self.state_manager.flush(int(u))
             self._finished_stash.pop(int(u), None)
+
+    # ------------------------------------------------------------------
+    # fused multi-step decode: K ticks a host dispatch, sampling and
+    # termination on the device
+    def sample_first_tokens(self, firsts: dict, temperature: float,
+                            top_k: int, top_p: float,
+                            seed: int) -> dict[int, int]:
+        """Sample each uid's first generated token from its last-prompt
+        logits with the same op and position keying as the fused loop, in
+        one batched call (JAX calls it eagerly, so the temperature divides
+        here)."""
+        if not firsts:
+            return {}
+        uids = list(firsts)
+        row_keys = threefry.fold_in(self._base_key(seed),
+                                    torch.tensor(uids, dtype=torch.int64))
+        keys = sampling.position_keys(
+            row_keys, torch.tensor([self.state_manager.seqs[u].seen
+                                    for u in uids], dtype=torch.int64))
+        logits = torch.stack([firsts[u] for u in uids]).float()
+        toks = sampling.sample_tokens_batched(
+            logits, keys.to(logits.device), temperature=temperature,
+            top_k=top_k, top_p=top_p)
+        return dict(zip(uids, toks.tolist()))
+
+    def _base_key(self, seed: int) -> torch.Tensor:
+        key = self._seed_keys.get(seed)
+        if key is None:
+            # bounded: a server feeding a fresh seed a request must not
+            # grow this forever (keys are cheap to rebuild)
+            if len(self._seed_keys) >= 64:
+                self._seed_keys.clear()
+            key = self._seed_keys.setdefault(seed, threefry.prng_key(seed))
+        return key
+
+    def _sampling_args(self, temperature, top_k, top_p, eos_id):
+        """Per-call overrides over the config's sampling defaults."""
+        c = self._config
+        return (float(c.sampling_temperature if temperature is None
+                      else temperature),
+                int(c.sampling_top_k if top_k is None else top_k),
+                float(c.sampling_top_p if top_p is None else top_p),
+                (c.eos_token_id if eos_id is None else int(eos_id)))
+
+    def _fused_state(self, bb: int, kb: int, k: int) -> FusedState:
+        """The fixed-address operands of the (bb, kb) bucket, wide enough
+        for ``k`` ticks (a wider one replaces it, with its graphs)."""
+        state = self._fused_states.get((bb, kb))
+        if state is None or state.max_steps < k:
+            state = FusedState(
+                bb, kb, max(k, self._config.fused_decode_steps),
+                self.model.config.vocab_size, self.device,
+                ring=self._config.max_inflight_dispatches + 1)
+            self._fused_states[(bb, kb)] = state
+            for key in [key for key in self._fused_cache
+                        if key[:2] == (bb, kb)]:
+                del self._fused_cache[key]
+        return state
+
+    def _fused_operands(self, uids: list[int], k: int,
+                        budgets: dict[int, int], seed: int) -> FusedState:
+        """Host-side build of one fused dispatch's operands, loaded into
+        the bucket's :class:`FusedState`. Every uid must have exactly one
+        pending token (its next input, the last sampled token); blocks
+        covering the dispatch horizon are reserved here so the loop's KV
+        writes land in real blocks."""
+        mgr = self.state_manager
+        seqs = [mgr.seqs[u] for u in uids]
+        for u, s in zip(uids, seqs):
+            if s.pending != 1:
+                raise RuntimeError(
+                    f"fused decode: sequence {u} must have exactly one "
+                    f"pending token (the dispatch input), got {s.pending}")
+            mgr.reserve(u, min(k, max(int(budgets[u]), 1)))
+        bb = _batch_bucket(len(seqs))
+        tokens = np.zeros((bb,), np.int64)
+        pos = np.zeros((bb,), np.int32)
+        act = np.zeros((bb,), bool)
+        rem = np.zeros((bb,), np.int32)
+        for i, (u, s) in enumerate(zip(uids, seqs)):
+            tokens[i] = s.tokens[-1]
+            pos[i] = s.seen
+            act[i] = budgets[u] > 0
+            rem[i] = budgets[u]
+        # pad rows carry seqs[0]'s table and write nothing (inactive)
+        tables = np.stack([mgr.block_table(s) for s in seqs]
+                          + [mgr.block_table(seqs[0])] * (bb - len(seqs)))
+        # narrowed to the blocks held (context + reserved horizon), a
+        # power-of-two width
+        kb = min(_bucket(max(max(len(s.blocks) for s in seqs), 1)),
+                 tables.shape[1])
+        # per-row keys: the uid folded into the base key (pad rows get
+        # sentinel ids); each tick folds in the token's position
+        ids = list(uids) + [(1 << 30) + i for i in range(bb - len(uids))]
+        row_keys = threefry.fold_in(self._base_key(seed),
+                                    torch.tensor(ids, dtype=torch.int64))
+        state = self._fused_state(bb, kb, k)
+        state.load(tokens=tokens, pos=pos, tables=tables[:, :kb],
+                   active=act, remaining=rem, row_keys=row_keys)
+        return state
+
+    def _fused_eager(self, state: FusedState, num_steps: int,
+                     **loop_kw) -> None:
+        """``num_steps`` ticks of the fused loop run eagerly over
+        ``state``: the CPU's dispatch, and on the card the yardstick a
+        captured graph is held against."""
+        fused_decode_loop(
+            self.model, self.pools, state.tokens, state.pos, state.tables,
+            state.active, state.remaining, state.row_keys,
+            num_steps=num_steps, out=state.out[:, :num_steps],
+            steps=state.steps, logits_out=state.logits, **loop_kw)
+
+    def _fused_fn(self, state: FusedState, num_steps: int,
+                  temperature: float, top_k: int, top_p: float,
+                  eos_id: Optional[int]):
+        """The dispatch function of ``num_steps`` ticks over ``state``'s
+        bucket for one sampling setting: it runs them and returns their
+        :class:`~.fused_graph.FusedResult`. Cached by (batch bucket,
+        table-width bucket, ticks, temperature, top_k, top_p, eos). On the
+        card it replays a graph captured at its first call (and raises if
+        capture or replay fails); on the CPU it runs the loop eagerly."""
+        key = (state.bb, state.kb, num_steps, temperature, top_k, top_p,
+               eos_id)
+        fn = self._fused_cache.get(key)
+        if fn is not None:
+            return fn
+        loop_kw = dict(eos_id=eos_id, temperature=temperature, top_k=top_k,
+                       top_p=top_p)
+        if state.device.type == "cuda":
+            graph = CapturedLoop(self.model, self.pools, state, num_steps,
+                                 **loop_kw)
+            self.graph_captures.append(dict(
+                bb=state.bb, kb=state.kb, k=num_steps,
+                sampling=[temperature, top_k, top_p, eos_id], **graph.stats))
+
+            def fn():
+                graph.replay()
+                return state.result(num_steps)
+        else:
+            def fn():
+                self._fused_eager(state, num_steps, **loop_kw)
+                return state.result(num_steps)
+        self._fused_cache[key] = fn
+        return fn
+
+    def decode_fused(self, batch_uids: Sequence[int],
+                     k_steps: Optional[int] = None, *,
+                     budgets: Optional[dict[int, int]] = None,
+                     temperature: Optional[float] = None,
+                     top_k: Optional[int] = None,
+                     top_p: Optional[float] = None,
+                     eos_id: Optional[int] = None,
+                     seed: int = 0) -> dict[int, list[int]]:
+        """ONE fused dispatch: advance every uid up to ``min(k_steps,
+        budgets[uid])`` tokens on the device, with forward, sampling, KV
+        writes and EOS/budget termination in the loop. Each uid needs
+        exactly one pending token (e.g. from put() and a sampled
+        continuation, or a previous decode_fused). The generated tokens
+        are committed; the last stays pending as the next dispatch's
+        input. Returns {uid: [sampled tokens]} (a row that sampled
+        ``eos_id`` includes it and stops). The dispatch runs
+        ``min(k_steps, max budget)`` ticks, never more than a row can
+        use."""
+        uids = [int(u) for u in batch_uids]
+        if not uids:
+            return {}
+        cfg = self._config
+        k = max(1, int(k_steps if k_steps is not None
+                       else (cfg.fused_decode_steps or 8)))
+        temperature, top_k, top_p, eos = self._sampling_args(
+            temperature, top_k, top_p, eos_id)
+        b = {u: int(budgets[u]) if budgets is not None else k
+             for u in uids}
+        st = self.serving_stats
+        state = self._fused_operands(uids, k, b, seed)
+        run = self._fused_fn(state, min(k, max(max(b.values()), 1)),
+                             temperature, top_k, top_p, eos)
+        st["host_dispatches"] += 1
+        st["fused_dispatches"] += 1
+        toks, steps = run().read()
+        mgr = self.state_manager
+        res: dict[int, list[int]] = {}
+        for i, u in enumerate(uids):
+            row = [int(t) for t in toks[i] if t >= 0]
+            mgr.commit_device_tokens(u, row)
+            res[u] = row
+            st["decoded_tokens"] += len(row)
+            st["fused_slot_tokens"] += len(row)
+            st["fused_live_slots"] += len(row)   # one token a live slot
+        st["fused_steps"] += steps
+        st["fused_slots"] += steps * len(uids)
+        return res
 
     # ------------------------------------------------------------------
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -549,3 +803,42 @@ class InferenceEngineV2:
                 self.flush(u)
             raise
         return [results[i] for i in range(len(prompts))]
+
+    # ------------------------------------------------------------------
+    def generate_fused(self, prompts: Sequence[Sequence[int]],
+                       max_new_tokens: int = 32, *,
+                       k_steps: Optional[int] = None,
+                       temperature: Optional[float] = None,
+                       top_k: Optional[int] = None,
+                       top_p: Optional[float] = None,
+                       eos_id: Optional[int] = None,
+                       seed: int = 0) -> list[list[int]]:
+        """Continuous batching where the host is only an admission layer:
+        every live sequence advances up to K tokens a dispatch inside the
+        fused device loop (sampling, KV writes and EOS/budget termination
+        there), so decode pays one host round trip per K tokens.
+
+        Between dispatches the host admits new prompts, prefills them and
+        drains finished tokens. Dispatches chain up to
+        ``max_inflight_dispatches`` deep: the loop's carry stays on the
+        device, so dispatch N+1 needs no host read of dispatch N, and the
+        host drains the oldest while newer ones run. Greedy decode gives
+        generate()'s tokens; stochastic decode is keyed by (seed, uid,
+        position), so the tokens do not depend on K.
+
+        The scheduler is :class:`~.serve_loop.FusedServeLoop` in chain
+        mode, run closed-loop over a fixed prompt list."""
+        from .serve_loop import FusedServeLoop
+        loop = FusedServeLoop(self, k_steps=k_steps,
+                              temperature=temperature, top_k=top_k,
+                              top_p=top_p, eos_id=eos_id, seed=seed,
+                              strict=True)
+        results: dict[int, list[int]] = {}
+        for i, p in enumerate(prompts):
+            loop.submit(p, max_new_tokens, uid=i)
+            results[i] = []
+        while loop.has_work():
+            for evt in loop.step():
+                results[evt.uid].extend(evt.tokens)
+        return [results[i][:max_new_tokens]
+                for i in range(len(prompts))]

@@ -372,6 +372,52 @@ paged_attention_kernel.variant = None
 paged_attention_kernel.variant_launches = {}
 
 
+def _write_plan(block_tables, positions, valid, block_size: int,
+                num_blocks: int):
+    """Where a chunk's k/v go in the pools, at a static shape (the JAX
+    forward sends an invalid slot's write to block ``nb`` and drops it,
+    ``deepspeed_tpu/inference/v2/paged.py:426-430``; here nothing may be
+    read back to the host, so the shape of the write cannot depend on
+    ``true_len``).
+
+    ``positions``/``valid`` [B, S]. Returns ``(src, tgt, any_valid)``
+    over the B * S flattened slots: slot i writes row ``src[i]`` of the
+    chunk's k/v at pool row ``tgt[i]`` (block * block_size + offset). A
+    valid slot writes its own value at its own place. An invalid one (a
+    row past ``true_len``, an inactive or pad row) repeats the first valid
+    slot's write, same value at the same place, so no order of the
+    duplicate writes changes a byte; with no valid slot at all, each
+    writes back the value its own (clamped) place holds. Valid slots never
+    share a place: each position lies in a block of its own sequence."""
+    width = block_tables.shape[1]
+    pos = positions.long()
+    col = (pos // block_size).clamp(0, width - 1)
+    blk = torch.gather(block_tables.long(), 1, col).clamp(0, num_blocks - 1)
+    slot = (blk * block_size + pos % block_size).reshape(-1)
+    valid = valid.reshape(-1)
+    any_valid = valid.any()
+    first = torch.argmax(valid.to(torch.int32)).reshape(1)
+    rows = torch.arange(valid.numel(), device=valid.device)
+    src = torch.where(valid, rows, first)
+    tgt = torch.where(valid | ~any_valid, slot, slot.index_select(0, first))
+    return src, tgt, any_valid
+
+
+def _pool_write(pool: torch.Tensor, new: torch.Tensor, plan) -> None:
+    """Write ``new`` ([L, B * S, ...], every layer's chunk k, v, codes or
+    scales) into ``pool`` [L, nb, bs, ...] as :func:`_write_plan` says:
+    one gather of the sources, one of the slots' old values (what an
+    all-invalid chunk writes back), one select and one copy a pool."""
+    src, tgt, any_valid = plan
+    if pool.is_floating_point() and pool.element_size() == 1:
+        # fp8 codes have no index_copy_/where kernels: move their bytes
+        pool, new = pool.view(torch.uint8), new.view(torch.uint8)
+    flat = pool.view(pool.shape[0], -1, *pool.shape[3:])
+    vals = torch.where(any_valid, new.index_select(1, src),
+                       flat.index_select(1, tgt))
+    flat.index_copy_(1, tgt, vals)
+
+
 @torch.no_grad()
 def paged_forward(model, pools: dict, tokens: torch.Tensor,
                   pos0: torch.Tensor, block_tables: torch.Tensor,
@@ -386,13 +432,14 @@ def paged_forward(model, pools: dict, tokens: torch.Tensor,
     ``attention`` stands in for :func:`paged_attention_kernel` (same
     signature), for a harness that checks or times each layer's call.
 
-    The pools (``{"k", "v"}``, [L, nb, bs, Hkv, D]) are updated IN PLACE,
-    one layer right after that layer's attention, at the chunk's valid
-    slots only. The JAX forward instead scatters every layer's k/v once
-    after its layer scan, to keep the pools out of the XLA scan carry; the
-    two agree because attention reads pool pages only at positions
-    < pos0 and takes this chunk's k/v from k_new/v_new (the plain path
-    patches them into its gathered copy).
+    The pools (``{"k", "v"}``, [L, nb, bs, Hkv, D]) are updated IN PLACE
+    after the last layer, every layer's k/v at once as the JAX forward
+    scatters them after its layer scan, at the chunk's valid slots only,
+    by a write of static shape that reads nothing back to the host
+    (:func:`_write_plan`), so a CUDA graph can capture the pass. Writing
+    after the layers is exact because attention reads pool pages only at
+    positions < pos0 and takes this chunk's k/v from k_new/v_new (the
+    plain path patches them into its gathered copy).
 
     Quantized pools: when ``pools`` also carries ``"ks"``/``"vs"``
     ([L, nb, bs, Hs] f32), ``"k"``/``"v"`` hold int8 or fp8 codes. The
@@ -427,11 +474,11 @@ def _paged_layers(model, pools, tokens, pos0, block_tables, true_len,
         kv_dtype = next(n for n, t in KV_STORE_DTYPES.items()
                         if t == pools["k"].dtype)
         hs = pools["ks"].shape[-1]
-    # pool slots this chunk writes: valid (row, slot) pairs only
-    bi, si = (ar[None, :] < true_len[:, None]).nonzero(as_tuple=True)
-    wpos = positions[bi, si]
-    wblk = block_tables[bi, wpos // bs].long()
-    woff = wpos % bs
+    # pool slots this chunk writes, at a static shape (see _write_plan)
+    plan = _write_plan(block_tables, positions,
+                       ar[None, :] < true_len[:, None], bs,
+                       pools["k"].shape[1])
+    fresh = []                  # each layer's chunk k/v, written at the end
     for layer in range(model.config.num_layers):
         p = model.layer_params(layer)
         k_pool, v_pool = pools["k"][layer], pools["v"][layer]
@@ -459,26 +506,124 @@ def _paged_layers(model, pools, tokens, pos0, block_tables, true_len,
             v_pages = place_in_pages(v_pages, v, pos0, true_len)
             a = paged_attention(q, k_pages, v_pages, pos0, window=window,
                                 alibi_slopes=alibi)
-        # in-place pool write of this layer's chunk k/v (see docstring)
-        if quant:
-            # k and v quantized together: one set of launches for both
-            codes, scales = kv_quantize(torch.stack((k[bi, si], v[bi, si])),
-                                        kv_dtype, hs)
-            k_pool.index_put_((wblk, woff), codes[0])
-            v_pool.index_put_((wblk, woff), codes[1])
-            k_scale.index_put_((wblk, woff), scales[0])
-            v_scale.index_put_((wblk, woff), scales[1])
-        else:
-            k_pool.index_put_((wblk, woff), k[bi, si].to(k_pool.dtype))
-            v_pool.index_put_((wblk, woff), v[bi, si].to(v_pool.dtype))
+        fresh.append((k, v))
         if model.config.parallel_residual:
             m = model._mlp(p, model._parallel_mlp_input(p, x, h))
             x = x + model._attn_out(p, a) + m
         else:
             x = x + model._attn_out(p, a)
             x = model._mlp_residual(p, x)
+    # in-place pool write of every layer's chunk k/v (see docstring)
+    new = {n: torch.stack([kv[i] for kv in fresh]).flatten(1, 2)
+           for i, n in enumerate("kv")}                    # [L, B*S, H, D]
+    if quant:
+        # k and v quantized together: one set of launches for both
+        codes, scales = kv_quantize(torch.stack((new["k"], new["v"])),
+                                    kv_dtype, hs)
+        new = {"k": codes[0], "v": codes[1], "ks": scales[0],
+               "vs": scales[1]}
+    for n, t in new.items():
+        _pool_write(pools[n], t.to(pools[n].dtype), plan)
     # logits_gather: project only each row's last valid position
     idx = (true_len.long() - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=dev), idx]
     logits = model.unembed(x_last[:, None, :])[:, 0]
     return logits, pools
+
+
+@torch.no_grad()
+def _fused_tick(model, pools, tokens, pos, block_tables, active,
+                      remaining, row_keys, out_col, steps, *, eos: int,
+                      temperature: float, top_k: int, top_p: float,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """One tick of :func:`fused_decode_loop`, on its operands in place:
+    forward over each row's pending token, sample its successor with the
+    key of the successor's position, write it to ``out_col`` (-1 for an
+    inactive row), then advance ``pos``/``remaining`` and end rows at EOS
+    or budget. ``steps`` counts the tick when some row is active at its
+    start. Returns the tick's logits [B, V]."""
+    from ...ops import sampling
+    tl = active.to(torch.int32)          # inactive rows write nothing
+    steps.add_(active.any().to(steps.dtype))
+    logits, _ = paged_forward(model, pools, tokens[:, None], pos,
+                              block_tables, tl, use_kernel=use_kernel)
+    # the sampled token's absolute index is pos + 1 (its input sits at
+    # pos); keying on it makes sampling dispatch-schedule-free. The JAX
+    # loop is compiled, so its temperature is a reciprocal product.
+    keys = sampling.position_keys(row_keys, pos.long() + 1)
+    nxt = sampling.sample_tokens_batched(
+        logits, keys, temperature=temperature, top_k=top_k, top_p=top_p,
+        reciprocal=True)
+    out_col.copy_(torch.where(active, nxt, -1))
+    pos.add_(tl)
+    remaining.sub_(tl)
+    tokens.copy_(torch.where(active, nxt, tokens))
+    active.logical_and_((remaining > 0) & (nxt != eos))
+    return logits
+
+
+@torch.no_grad()
+def fused_decode_loop(model, pools: dict, tokens: torch.Tensor,
+                      pos: torch.Tensor, block_tables: torch.Tensor,
+                      active: torch.Tensor, remaining: torch.Tensor,
+                      row_keys: torch.Tensor, *, num_steps: int,
+                      eos_id: int | None, temperature: float, top_k: int,
+                      top_p: float, use_kernel: bool = True, out=None,
+                      steps=None, logits_out=None):
+    """Up to ``num_steps`` decode ticks with no host in the loop: forward
+    -> in-graph sampling -> the sampled token fed back as the next tick's
+    input, with KV writes, EOS/budget termination and the output buffer
+    all on the device (port of the JAX ``lax.while_loop`` at
+    ``deepspeed_tpu/inference/v2/paged.py:464``).
+
+    The carry lives in the operands, which the loop updates IN PLACE:
+
+    - ``tokens`` [B] int64: each row's last sampled token, committed to
+      the history but not yet in the KV cache (tick j writes it at ``pos``
+      and samples its successor);
+    - ``pos`` [B] int32: tokens already cached (the write position);
+    - ``active`` [B] bool: rows that still decode; a row goes inactive on
+      the device when it samples ``eos_id`` or spends ``remaining``, and
+      then writes no KV and emits nothing;
+    - ``remaining`` [B] int32: tokens the row may still emit;
+    - ``row_keys`` [B, 2]: per-row threefry keys; each tick folds in the
+      sampled token's position (``ops/sampling.position_keys``).
+
+    ``block_tables`` must already cover every position the loop can write
+    (``DSStateManager.reserve``). On the card the engine captures this
+    function as a CUDA graph over operands at fixed addresses
+    (``inference/v2/fused_graph.py``), and a graph runs every tick it
+    captured: after the last row ends, the remaining ticks change nothing
+    (every write goes back unchanged, nothing is emitted) and
+    ``steps_run`` counts, as JAX's exit test does, only the ticks that
+    started with a row active. On the CPU the loop stops there, as
+    JAX's does.
+
+    ``out`` [B, num_steps] (filled with -1 first) and ``steps`` [] take
+    the results in place when given; ``logits_out`` [B, V] receives the
+    last tick's logits. Returns ``(out_tokens [B, num_steps] (-1 beyond
+    each row's emits), steps_run [], tokens, pos, active, remaining,
+    pools)``, the JAX loop's tuple."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    if out is None:
+        out = torch.full((b, num_steps), -1, dtype=torch.int64, device=dev)
+    else:
+        out.fill_(-1)
+    if steps is None:
+        steps = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        steps.zero_()
+    eos = -1 if eos_id is None else int(eos_id)
+    logits = None
+    for step in range(num_steps):
+        if dev.type == "cpu" and not bool(active.any()):
+            break                    # the CPU reads this for free
+        logits = _fused_tick(
+            model, pools, tokens, pos, block_tables, active, remaining,
+            row_keys, out[:, step], steps, eos=eos,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            use_kernel=use_kernel)
+    if logits_out is not None and logits is not None:
+        logits_out.copy_(logits)
+    return out, steps, tokens, pos, active, remaining, pools

@@ -7,9 +7,9 @@ Python, kept near-verbatim. The pool is one device tensor per k/v with
 layout ``[L, num_blocks, block_size, H_kv, D]``; page tables and sequence
 descriptors stay on the host; a quantized pool adds one f32 scale pool
 per k/v, ``[L, num_blocks, block_size, Hs]``, indexed by the same blocks.
-Left for later slices: ``KVExportState``, ``import_sequence`` and ``park``
-(KV migration), ``reserve``, ``commit_device_tokens`` and
-``history_tail`` (the fused decode loops), and the blocksan hooks.
+Left for later slices: ``KVExportState`` and ``import_sequence`` (KV
+migration), ``history_tail`` (speculative decoding), and the blocksan
+hooks.
 """
 
 from __future__ import annotations
@@ -382,6 +382,64 @@ class DSStateManager:
         seq.blocks.extend(fresh_blocks)
         seq.tokens.extend(int(t) for t in tokens)
         return seq
+
+    def reserve(self, uid: int, future_tokens: int) -> int:
+        """Preallocate blocks so the sequence can grow by
+        ``future_tokens`` without further allocation. A fused decode
+        dispatch needs it: its KV writes advance through a block table
+        fixed before the dispatch, with no host in the loop, so every
+        position the device may write must already map to a real block.
+        Idempotent: only the missing delta is allocated. Returns the
+        number of blocks newly allocated."""
+        seq = self.seqs[uid]
+        need = self.blocks_needed(seq, future_tokens)
+        if need == 0:
+            return 0
+        if len(seq.blocks) + need > self.max_blocks_per_seq:
+            raise RuntimeError(
+                f"sequence {uid}: reserving {future_tokens} future tokens "
+                f"exceeds the max length "
+                f"({self.max_blocks_per_seq * self.block_size} tokens)")
+        seq.blocks.extend(self.allocator.allocate(need))
+        return need
+
+    def commit_device_tokens(self, uid: int, tokens: list[int]) -> None:
+        """Append tokens a fused dispatch generated on the device. Their KV
+        entries (all but the last token's) were already written there, so
+        ``seen`` advances with the history: afterwards exactly the last
+        generated token is pending, the next dispatch's input. Blocks must
+        have been preallocated with :meth:`reserve`."""
+        if not tokens:
+            return
+        seq = self.seqs[uid]
+        if seq.pending != 1:
+            raise RuntimeError(
+                f"sequence {uid}: commit_device_tokens expects exactly "
+                f"one pending token (the dispatch input), got "
+                f"{seq.pending}")
+        total = len(seq.tokens) + len(tokens)
+        if -(-total // self.block_size) > len(seq.blocks):
+            raise RuntimeError(
+                f"sequence {uid}: device wrote past its reserved blocks "
+                f"({total} tokens, {len(seq.blocks)} blocks) — reserve() "
+                "was not called before the fused dispatch")
+        seq.tokens.extend(int(t) for t in tokens)
+        seq.seen += len(tokens)
+        self.publish_full_blocks(seq)
+
+    def park(self, uid: int) -> list[int]:
+        """Preemption swap-out: release a live sequence's KV blocks and
+        return its full token history for the host to keep. With the
+        prefix cache on, its published full blocks stay indexed (parked
+        in the LRU at refcount zero), so a restore that re-admits the
+        history as a fresh prompt re-pins the cached chain and recomputes
+        only the unpublished tail."""
+        seq = self.seqs.get(uid)
+        if seq is None:
+            return []
+        tokens = list(seq.tokens)
+        self.flush(uid)
+        return tokens
 
     def flush(self, uid: int) -> None:
         """Release a finished sequence (reference: engine_v2.flush:242)."""

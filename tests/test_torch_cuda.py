@@ -1548,3 +1548,152 @@ def test_norm_function_grads_through_the_row_kernels(cuda, kind, d):
     torch.testing.assert_close(outs[0], outs[1], rtol=2.4e-7, atol=1e-6)
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------
+# the fused decode loop as CUDA graphs (inference/v2/fused_graph.py)
+# ---------------------------------------------------------------------
+
+FUSED_CFG = dict(dtype="float32", kv_block_size=8, num_kv_blocks=64,
+                 max_chunk_size=16)
+FUSED_PROMPTS = [[1, 2, 3, 4, 5], [9, 8, 7], [6, 7, 8, 9, 10, 11]]
+FUSED_SAMPLING = dict(temperature=0.9, top_k=50, top_p=0.9)
+
+
+def _fused_engines(cuda, n=1, **over):
+    """A CPU engine and ``n`` card engines on its (seeded) weights."""
+    cfg = dict(FUSED_CFG, **over)
+    cpu = build_engine("llama", "tiny", cfg, device="cpu")
+    gpus = [build_engine("llama", "tiny", cfg, device=cuda)
+            for _ in range(n)]
+    with torch.no_grad():
+        for gpu in gpus:
+            for name, p in cpu.model.params.items():
+                gpu.model.params[name].copy_(p)
+    return cpu, gpus
+
+
+def _at_dispatch_state(engine, uids, prompts):
+    logits = engine.put(uids, prompts)
+    for u, t in zip(uids, logits.float().argmax(-1).tolist()):
+        engine.state_manager.extend(u, [t])
+
+
+def test_fused_graph_replay_matches_eager_bit_for_bit(cuda):
+    """One captured dispatch against the same ticks run eagerly on the
+    same operands and pools (sampling on, a budget that ends a row inside
+    the dispatch, a pad row): tokens, steps, carry, pools and the last
+    tick's logits equal bit for bit."""
+    _, (gpu,) = _fused_engines(cuda)
+    uids = [0, 1, 2]
+    _at_dispatch_state(gpu, uids, FUSED_PROMPTS)
+    state = gpu._fused_operands(uids, 5, {0: 5, 1: 2, 2: 5}, 13)
+    ops0 = {n: t.clone() for n, t in state.operands().items()}
+    pools0 = {n: t.clone() for n, t in gpu.pools.items()}
+    fn = gpu._fused_fn(state, 5, *FUSED_SAMPLING.values(), None)
+    toks_g, steps_g = fn().read()
+    graph = {n: t.clone() for n, t in state.operands().items()}
+    logits_g = state.logits.clone()
+    pools_g = {n: t.clone() for n, t in gpu.pools.items()}
+    for n, t in gpu.pools.items():
+        t.copy_(pools0[n])
+    for n, t in state.operands().items():
+        t.copy_(ops0[n])
+    gpu._fused_eager(state, 5, eos_id=None, **FUSED_SAMPLING)
+    torch.cuda.synchronize()
+    assert (toks_g == state.out[:, :5].cpu().numpy()).all()
+    assert steps_g == int(state.steps) == 5
+    assert (toks_g[1, 2:] == -1).all() and (toks_g[3] == -1).all()
+    for n, t in state.operands().items():
+        assert torch.equal(t, graph[n]), n
+    for n, t in gpu.pools.items():
+        assert torch.equal(t, pools_g[n]), n
+    assert torch.equal(state.logits, logits_g)
+
+
+def test_fused_launch_counts_include_replays(cuda):
+    """A wrapper counts its launches in Python, so only at capture; the
+    engine adds a graph's counts at each replay: paged launches
+    L x ticks, all decode_split, norms (2L + 1) x ticks."""
+    from deepspeed_tpu_torch.ops import norms as N
+    _, (gpu,) = _fused_engines(cuda)
+    layers = gpu.model.config.num_layers
+    _at_dispatch_state(gpu, [0, 1], FUSED_PROMPTS[:2])
+    state = gpu._fused_operands([0, 1], 3, {0: 12, 1: 12}, 0)
+    before = (paged.paged_attention_kernel.launches,
+              dict(paged.paged_attention_kernel.variant_launches),
+              N.rms_norm_kernel.launches)
+    fn = gpu._fused_fn(state, 3, 0.0, 0, 0.0, None)
+    # the capture's warm-up tick launches eagerly; the capture counts none
+    warm = (paged.paged_attention_kernel.launches - before[0],
+            N.rms_norm_kernel.launches - before[2])
+    assert warm == (layers, 2 * layers + 1)
+    for _ in range(3):
+        fn().read()
+    paged_n = paged.paged_attention_kernel.launches - before[0] - warm[0]
+    assert paged_n == 3 * 3 * layers
+    by = paged.paged_attention_kernel.variant_launches
+    assert by["decode_split"] - before[1].get("decode_split", 0) \
+        == paged_n + warm[0]
+    assert set(by) - set(before[1]) <= {"decode_split"}
+    assert N.rms_norm_kernel.launches - before[2] - warm[1] \
+        == 3 * 3 * (2 * layers + 1)
+    assert gpu.graph_captures[-1]["launches_per_replay"][
+        "paged_attention_kernel"] == 3 * layers
+
+
+def test_threefry_on_the_card_matches_the_cpu(cuda):
+    """Keys, bits and uniforms bit for bit (integer arithmetic); gumbel
+    noise within 4 ulps of max(|g|, 1) (each side's log within an ulp)."""
+    from deepspeed_tpu_torch.ops import threefry
+    keys = threefry.fold_in(threefry.prng_key(13), torch.arange(8))
+    pos = torch.arange(8) * 977 + 5
+    for f in (lambda k, p: threefry.fold_in(k, p),
+              lambda k, p: threefry.random_bits(threefry.fold_in(k, p),
+                                                4099),
+              lambda k, p: threefry.uniform(threefry.fold_in(k, p), 4099)):
+        assert torch.equal(f(keys, pos), f(keys.to(cuda), pos.to(cuda)).cpu())
+    g_cpu = threefry.gumbel(keys, 4099).double()
+    g_gpu = threefry.gumbel(keys.to(cuda), 4099).cpu().double()
+    ulp = torch.from_numpy(np.spacing(np.maximum(
+        g_cpu.abs().numpy(), 1).astype(np.float32))).double()
+    assert ((g_gpu - g_cpu).abs() / ulp).max() <= 4
+
+
+def test_chained_dispatch_equals_two_separate_dispatches(cuda):
+    """Two dispatches chained on the carry (both in flight, no host read
+    between them: max_inflight_dispatches 2) give the tokens of two
+    decode_fused calls, each built from the host state, sampling on."""
+    _, (a, b) = _fused_engines(cuda, n=2)
+    uids = [0, 1, 2]
+    for e in (a, b):
+        _at_dispatch_state(e, uids, FUSED_PROMPTS)
+    budgets = {u: 8 for u in uids}
+    for u in uids:             # both dispatches' blocks, as admission does
+        a.state_manager.reserve(u, 8)
+    state = a._fused_operands(uids, 4, budgets, 13)
+    fn = a._fused_fn(state, 4, *FUSED_SAMPLING.values(), None)
+    first, second = fn(), fn()
+    chained = np.concatenate([first.read()[0], second.read()[0]], 1)
+    sep = [b.decode_fused(uids, 4, seed=13, **FUSED_SAMPLING)
+           for _ in range(2)]
+    for i, u in enumerate(uids):
+        assert chained[i].tolist() == sep[0][u] + sep[1][u]
+
+
+def test_fused_generate_on_the_card_matches_per_tick_and_cpu(cuda):
+    """generate_fused on the card (graphs) gives the per-tick generate()'s
+    greedy tokens and the CPU engine's fused tokens, greedy and sampled,
+    with the JAX gate of <= 0.25 dispatches a token; k 2 and k 4 sample
+    the same tokens."""
+    cpu, (gpu,) = _fused_engines(cuda)
+    ref = gpu.generate(FUSED_PROMPTS, max_new_tokens=10)
+    gpu.reset_serving_metrics()
+    got = gpu.generate_fused(FUSED_PROMPTS, max_new_tokens=10, k_steps=3)
+    assert got == ref == cpu.generate_fused(FUSED_PROMPTS, 10, k_steps=3)
+    assert gpu.serving_metrics()["dispatches_per_token"] <= 0.25
+    kw = dict(max_new_tokens=8, seed=13, **FUSED_SAMPLING)
+    a = gpu.generate_fused(FUSED_PROMPTS, k_steps=2, **kw)
+    assert a == gpu.generate_fused(FUSED_PROMPTS, k_steps=4, **kw)
+    assert a == cpu.generate_fused(FUSED_PROMPTS, k_steps=2, **kw)
+    assert gpu.free_blocks == FUSED_CFG["num_kv_blocks"]

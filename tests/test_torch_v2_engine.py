@@ -191,9 +191,7 @@ def test_config_rejects_unknown_keys_and_takes_aliases():
 
 
 # the ROADMAP item a refusal names, by its key (others: the feature name)
-_ITEMS = {"fused_admission": "item 6", "sampling_temperature": "item 5",
-          "sampling_top_k": "item 5", "sampling_top_p": "item 5",
-          "fused_decode_steps": "item 6", "max_inflight_dispatches": "item 6",
+_ITEMS = {"fused_admission": "item 6", "speculative": "item 6",
           "sentinels": "item 15", "sentinel_mode": "item 15",
           "graftsan": "item 15", "meshsan": "item 15", "numsan": "item 15"}
 
@@ -201,9 +199,7 @@ _ITEMS = {"fused_admission": "item 6", "sampling_temperature": "item 5",
 @pytest.mark.parametrize("setting", [
     {"tensor_parallel": {"tp_size": 2}}, {"speculative": {"enabled": True}},
     {"fused_admission": True}, {"quantize_weights": True},
-    {"quantize_moe_experts": True}, {"sampling_temperature": 0.7},
-    {"sampling_top_k": 40}, {"sampling_top_p": 0.9},
-    {"fused_decode_steps": 1}, {"max_inflight_dispatches": 3},
+    {"quantize_moe_experts": True},
     {"sentinels": True}, {"sentinel_mode": "warn"},
     {"graftsan": {"enabled": True}}, {"meshsan": {"axes": ["tp"]}},
     {"numsan": {"logits_limit": 5.0}}])
