@@ -105,7 +105,23 @@ Phases, each fatal on failure:
      occupancy, greedy agreement with phase 4, graphs, capture ms and
      pool MiB; then Path Q's engine fused (agreement with its per-tick
      run reported) and fp32 Llama-3-8B cut to 4 layers, where
-     generate_fused must equal generate() token for token.
+     generate_fused must equal generate() token for token;
+ 18. speculative decoding and ring mode: phase 4's engine serves phase
+     4's requests in spec chain (prompt lookup, draft_len 3, min_ngram 2,
+     history window 64), ring (fused_admission: admission inside the
+     graph, one host read a chain) and spec ring mode, a capturing run
+     then the timed one each: the same tokens, every paged launch of a
+     replay decode_split (the verify forward at S_new 4 included), every
+     norm cta_row, the counts equal the replays' ticks and the prefill
+     dispatches, one host read a ring chain; reported: decode ms a fused
+     step and a token step beside phase 17's, tokens a dispatch, the
+     acceptance rate, host reads a chain, capture ms, pool MiB and
+     launches a graph, greedy agreement with phase 17; each new graph's
+     replay against its eager run, bit for bit; Path Q's engine in spec
+     chain mode (agreement reported); on phase 17's fp32 4-layer engine
+     the three modes' greedy tokens equal to generate() and to chain mode
+     under the near-tie rule (a differing token's top-2 margin below
+     1e-4), and sampled spec chain equal to chain at K 2 and 8.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
 RMSNorm/LayerNorm kernels against their plain versions and times them at
@@ -119,17 +135,18 @@ remat), and each phase's launch check counts them; phases 4, 6, 8, 11,
 cta_row); the plain sides of phases 5 and 7 run plain norms. Phase 17
 runs right after phase 5 on phase 4's engine, phases 11-12 after it,
 beside that engine; phase 17's Path Q run follows phase 12 and its fp32
-check phase 16. With --profile it then traces a
-prefill tick and decode ticks of the serving path and of Path Q, one
-train_batch step, one step of Path T, five Path P calls and one
-fused dispatch of 8 ticks (torch.profiler) and prints where the device
-time goes. The last two
+check phase 16; phase 18 follows phase 17 on each engine. With --profile
+it then traces a prefill tick and decode ticks of the serving path and of
+Path Q, one train_batch step, one step of Path T, five Path P calls, one
+fused dispatch of 8 ticks and one speculative dispatch of 8 verify ticks
+(torch.profiler) and prints where the device time goes. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -457,6 +474,14 @@ PREFILL_TICK = dict(b=8, sq=256, pos0=[0, 256, 512, 0, 256, 512, 0, 256],
                     true_len=[256] * 8)
 
 
+def verify_shape():
+    """Phase 18's speculative verify call: the decode batch's contexts with
+    S_new = 1 + draft_len (3) a row and true_len ragged within the call
+    (1 + the drafts each row keeps; 0 for a row that ended)."""
+    decode, _ = serving_shapes()
+    return dict(decode, sq=4, true_len=[4, 1, 3, 0, 2, 4, 1, 4])
+
+
 def time_attention(x, kw, dev, iters, flush) -> dict:
     """Kernel, plain and library ms of one call, its bound, the variant
     the call took, its TFLOP/s and GB/s over the work of
@@ -470,7 +495,7 @@ def time_attention(x, kw, dev, iters, flush) -> dict:
     lib_out = lib().transpose(1, 2)
     lib_err = max(float((lib_out[i, :t].float() - ref[i, :t].float())
                         .abs().max())
-                  for i, t in enumerate(x["true_len"].tolist()))
+                  for i, t in enumerate(x["true_len"].tolist()) if t)
     bound, bound_by = attention_bound(x, kw)
     nbytes, flops = attention_work(x, kw)
     runs = [paged.paged_attention_kernel(*x.values(), **kw)
@@ -499,7 +524,7 @@ def kernel_checks(dev, flush=None, iters=20):
     cases = {"decode": decode, "prefill": prefill,
              "prefill_window": dict(prefill, window=128),
              "decode_alibi": dict(decode, alibi=True),
-             "prefill_tick": PREFILL_TICK}
+             "prefill_tick": PREFILL_TICK, "verify": verify_shape()}
     errs = {}
     record = {}
     for dtype_name, tol in ATTN_TOL.items():
@@ -521,7 +546,8 @@ def kernel_checks(dev, flush=None, iters=20):
                     f"version: {name} {dtype_name}, max|err| "
                     f"{float(err.max()):.3e} > tol {tol:g}")
             if dtype_name != "float32" and name in ("decode", "prefill",
-                                                     "prefill_tick"):
+                                                     "prefill_tick",
+                                                     "verify"):
                 key = name + ("_fp16" if dtype_name == "float16" else "")
                 record[key] = time_attention(x, kw, dev, iters, flush)
                 log(f"[kernel] {key} times (ms): {json.dumps(record[key])}")
@@ -1191,34 +1217,56 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+# the engine's dispatch functions: chain mode, spec chain, ring, spec ring
+DISPATCH_FNS = ("_fused_fn", "_spec_fn", "_serve_fn", "_spec_serve_fn")
+
+
 def count_ticks(engine) -> list:
-    """Wrap ``engine._fused_fn`` so that every dispatch appends the ticks
-    it runs (a graph launches every tick it captured) to the returned
-    list; ``del engine._fused_fn`` takes the wrapper off."""
-    orig = engine._fused_fn
+    """Wrap the engine's dispatch functions (``DISPATCH_FNS``) so that
+    every dispatch appends the ticks it runs (a graph launches every tick
+    it captured) to the returned list; :func:`uncount_ticks` takes the
+    wrappers off."""
     ticks: list[int] = []
 
-    def counting(state, num_steps, *args):
-        fn = orig(state, num_steps, *args)
+    def wrap(orig):
+        def counting(state, num_steps, *args):
+            fn = orig(state, num_steps, *args)
 
-        def run():
-            ticks.append(num_steps)
-            return fn()
-        return run
+            def run():
+                ticks.append(num_steps)
+                return fn()
+            return run
+        return counting
 
-    engine._fused_fn = counting
+    for name in DISPATCH_FNS:
+        setattr(engine, name, wrap(getattr(engine, name)))
     return ticks
 
 
+def uncount_ticks(engine) -> None:
+    """Back to the class's dispatch methods (no reference cycle)."""
+    for name in DISPATCH_FNS:
+        engine.__dict__.pop(name, None)
+
+
 def serve_fused(engine, prompts, max_new: int, dev, k=None, **sampling):
-    """generate_fused's closed loop over ``prompts`` (FusedServeLoop,
-    chain mode), with its prefill timed: returns the outputs and the
-    run's wall, prefill seconds and tokens, fused steps and dispatches."""
+    """generate_fused's closed loop over ``prompts`` (FusedServeLoop in
+    the engine's mode), with its prefill timed: returns the outputs and
+    the run's wall, prefill seconds and tokens, fused steps, dispatches
+    and tokens, the loop's host reads and its operand builds (chains)."""
     from deepspeed_tpu_torch.inference.v2.serve_loop import FusedServeLoop
     loop = FusedServeLoop(engine, k_steps=k, strict=True, **sampling)
     mgr = engine.state_manager
     pre = {"s": 0.0, "tokens": 0}
     orig = loop._prefill
+    builds = [0]
+    orig_rows = engine._dispatch_rows
+
+    def counted_rows(*args):
+        builds[0] += 1
+        return orig_rows(*args)
+
+    engine._dispatch_rows = counted_rows
 
     def timed_prefill(ids, ev):
         pre["tokens"] += sum(mgr.seqs[u].pending for u in ids)
@@ -1234,18 +1282,24 @@ def serve_fused(engine, prompts, max_new: int, dev, k=None, **sampling):
         loop.submit(prompt, max_new, uid=i)
     st = engine.serving_stats
     steps0, disp0 = st["fused_steps"], st["fused_dispatches"]
+    tok0 = st["fused_slot_tokens"]
     sync(dev)
     t = time.perf_counter()
-    while loop.has_work():
-        for evt in loop.step():
-            results[evt.uid].extend(evt.tokens)
-    sync(dev)
+    try:
+        while loop.has_work():
+            for evt in loop.step():
+                results[evt.uid].extend(evt.tokens)
+        sync(dev)
+    finally:
+        del engine._dispatch_rows
     wall = time.perf_counter() - t
     outs = [results[i][:max_new] for i in range(len(prompts))]
     return outs, dict(wall_s=wall, prefill_s=pre["s"],
                       prefill_tokens=pre["tokens"],
                       steps=st["fused_steps"] - steps0,
-                      dispatches=st["fused_dispatches"] - disp0)
+                      dispatches=st["fused_dispatches"] - disp0,
+                      fused_tokens=st["fused_slot_tokens"] - tok0,
+                      host_reads=loop.host_reads, chains=builds[0])
 
 
 def at_dispatch_state(engine, prompts, uids):
@@ -1403,7 +1457,7 @@ def fused_serving_main(engine, dev, prompts, per_tick, max_new=32, k=8,
     try:
         outs, run = serve_fused(engine, prompts, max_new, dev, k)
     finally:
-        del engine._fused_fn
+        uncount_ticks(engine)
     launches = paged.paged_attention_kernel.launches
     by_variant = dict(paged.paged_attention_kernel.variant_launches)
     norm_by_variant = dict(norms.variant_launches)
@@ -1483,6 +1537,7 @@ def fused_serving_main(engine, dev, prompts, per_tick, max_new=32, k=8,
         stats["profile"] = profile_fused(engine, dev,
                                          [p[:256] for p in prompts])
     log(f"[fused] {json.dumps(stats)}")
+    stats["outputs"] = outs          # phase 18's yardstick
     return stats
 
 
@@ -1504,7 +1559,7 @@ def fused_path_q(engine, dev, path_q, k=8):
         outs, run = serve_fused(engine, path_q["prompts"], path_q[
             "new_tokens"], dev, k)
     finally:
-        del engine._fused_fn
+        uncount_ticks(engine)
     by_variant = dict(paged.paged_attention_kernel.variant_launches)
     m = engine.serving_metrics()
     layers = engine.model.config.num_layers
@@ -1537,10 +1592,11 @@ def fused_path_q(engine, dev, path_q, k=8):
 
 
 def fused_fp32_parity(dev, size="3-8b", layers=4, n_req=4, max_new=16,
-                      lengths=(100, 701)):
+                      lengths=(100, 701), sample_new=16):
     """Phase 17, fp32: Llama-3-8B at full width cut to ``layers`` layers,
     fp32 (TF32 off): generate_fused must give generate()'s tokens, token
-    for token."""
+    for token. Then phase 18's checks on the same engine
+    (:func:`fp32_modes_parity`). Returns both phases' records."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import build_engine
     cfg = {"dtype": "float32", "kv_block_size": 64, "num_kv_blocks": 512,
@@ -1556,14 +1612,468 @@ def fused_fp32_parity(dev, size="3-8b", layers=4, n_req=4, max_new=16,
     rec = dict(layers=layers, requests=n_req, new_tokens=max_new,
                equal=got == ref, agreement=agreement(got, ref),
                decode_steps=run["steps"])
+    log(f"[fused] fp32 {json.dumps(rec)}")
+    if not rec["equal"]:
+        raise AssertionError(f"fp32 generate_fused != generate: {rec}")
+    modes = fp32_modes_parity(engine, dev, prompts, ref, got, max_new,
+                              sample_new)
     del engine
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    log(f"[fused] fp32 {json.dumps(rec)}")
-    if not rec["equal"]:
-        raise AssertionError(f"fp32 generate_fused != generate: {rec}")
+    return rec, modes
+
+
+# ----------------------------------------------------------- phase 18
+# speculative decoding (prompt lookup, the JAX config's defaults) and the
+# serving modes phase 18 drives on phase 4's engine
+SPEC_CONFIG = {"enabled": True, "draft_len": 3, "min_ngram": 2,
+               "history_window": 64}
+FUSED_MODES = {"chain": {},
+               "spec_chain": {"speculative": SPEC_CONFIG},
+               "ring": {"fused_admission": True},
+               "spec_ring": {"fused_admission": True,
+                             "speculative": SPEC_CONFIG}}
+# a greedy token may differ between two correct paths only where the
+# reference's top-2 logit margin is below this (tests/test_torch_sampling)
+NEAR_TIE = 1e-4
+
+
+@contextlib.contextmanager
+def fused_mode(engine, mode: str):
+    """``engine`` serves in ``mode`` (``FUSED_MODES``) inside the block:
+    its config's ``fused_admission`` and ``speculative`` switched, the
+    rest kept, so one engine (its weights and pools) serves every mode; a
+    FusedServeLoop built inside takes the mode."""
+    import dataclasses
+    from deepspeed_tpu_torch.inference.v2.engine_v2 import SpeculativeConfig
+    cfg = engine._config
+    over = FUSED_MODES[mode]
+    engine._config = dataclasses.replace(
+        cfg, fused_admission=over.get("fused_admission", False),
+        speculative=SpeculativeConfig(**over.get("speculative", {})))
+    try:
+        yield
+    finally:
+        engine._config = cfg
+
+
+def first_differences(engine, prompts, got, ref) -> list:
+    """For each request whose tokens ``got`` part from ``ref``: the first
+    differing index and the top-2 margin of the per-tick path's fp32
+    logits there (teacher-forced on ``ref``'s tokens before it)."""
+    diffs = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        j = next((j for j, (a, b) in enumerate(zip(g, r)) if a != b), None)
+        if j is None:
+            continue
+        uid = 40_000 + i
+        logits = engine.put([uid], [prompts[i] + r[:j]])[0].float()
+        engine.flush(uid)
+        top = logits.topk(2).values
+        diffs.append(dict(request=i, index=j, got=g[j], ref=r[j],
+                          top2_margin=float(top[0] - top[1])))
+    return diffs
+
+
+def fp32_modes_parity(engine, dev, prompts, ref, chain, max_new=16,
+                      sample_new=16):
+    """Phase 18, fp32 (TF32 off; Llama-3-8B at full width cut to 4 layers,
+    phase 17's engine): spec chain, ring and spec ring greedy tokens held
+    equal to generate()'s (``ref``) and to chain mode's (``chain``) under
+    the near-tie rule (where a token differs, the per-tick path's top-2
+    margin there must be below ``NEAR_TIE``); sampled tokens
+    (``FUSED_SAMPLING``, ``FUSED_SEED``) held equal between spec chain and
+    plain chain at K 2 and K 8."""
+    out = {}
+    bad = []
+    for mode in ("spec_chain", "ring", "spec_ring"):
+        engine.reset_serving_metrics()
+        with fused_mode(engine, mode):
+            got, run = serve_fused(engine, prompts, max_new, dev)
+        m = engine.serving_metrics()
+        rec = dict(equal_generate=got == ref, equal_chain=got == chain,
+                   vs_generate=first_differences(engine, prompts, got, ref),
+                   vs_chain=first_differences(engine, prompts, got, chain),
+                   agreement=agreement(got, ref), decode_steps=run["steps"],
+                   fused_dispatches=run["dispatches"],
+                   spec_acceptance_rate=m["spec_acceptance_rate"],
+                   tokens_per_dispatch=m["tokens_per_dispatch"])
+        far = [d for d in rec["vs_generate"] + rec["vs_chain"]
+               if d["top2_margin"] >= NEAR_TIE]
+        if far:
+            bad.append(f"{mode}: tokens differ past a near-tie: {far}")
+        out[mode] = rec
+    few = [p[:200] for p in prompts]
+    sampled = {}
+    for kk in (2, 8):
+        plain, _ = serve_fused(engine, few, sample_new, dev, kk,
+                               seed=FUSED_SEED, **FUSED_SAMPLING)
+        with fused_mode(engine, "spec_chain"):
+            spec, _ = serve_fused(engine, few, sample_new, dev, kk,
+                                  seed=FUSED_SEED, **FUSED_SAMPLING)
+        sampled[f"k{kk}"] = dict(equal=spec == plain,
+                                 agreement=agreement(spec, plain))
+        if spec != plain:
+            bad.append(f"sampled spec chain != chain at k {kk}: "
+                       f"{agreement(spec, plain)}")
+    out["sampled"] = dict(FUSED_SAMPLING, seed=FUSED_SEED, requests=len(few),
+                          new_tokens=sample_new, **sampled)
+    log(f"[spec] fp32 {json.dumps(out)}")
+    if bad:
+        raise AssertionError("phase 18, fp32: " + "; ".join(bad))
+    return out
+
+
+def spec_graph_vs_eager(engine, prompts, dev, k=8):
+    """One captured speculative dispatch of ``k`` ticks and the same ticks
+    run eagerly (``engine._spec_eager``, the same kernels) from the same
+    operands and pools, greedy: tokens, pointers, steps, spec counters,
+    carry, history and pools equal bit for bit. Random weights never
+    repeat an n-gram, so each row's drafter window gets its trailing
+    2-gram planted earlier, followed by three tokens: every row drafts,
+    and budgets of 1, 2, 3 and 32 clamp the drafts, so the verify chunk's
+    true_len runs 1..4 across the rows of one call (the drafts are
+    rejected: the targets are the model's own)."""
+    import torch
+    uids = list(range(21_000, 21_000 + len(prompts)))
+    at_dispatch_state(engine, prompts, uids)
+    budgets = dict(zip(uids, [1, 2, 3, 32] * (len(uids) // 4 + 1)))
+    with fused_mode(engine, "spec_chain"):
+        state = engine._spec_operands(uids, k, budgets, FUSED_SEED)
+        h = state.hist
+        h[:, -8:-6] = h[:, -2:]                 # the tail, planted earlier
+        h[:, -6:-3] = h[:, :3].abs()            # its drafted continuation
+        width = k * (1 + state.draft_len)
+        before = {n: t.clone() for n, t in state.tensors().items()}
+        pools0 = {n: t.clone() for n, t in engine.pools.items()}
+        result = engine._spec_fn(state, k, 0.0, 0, 0.0, None)()
+        toks_g, steps_g = result.read()
+        ptr_g, stats_g = result.spec()
+        graph = {n: t.clone() for n, t in state.tensors().items()}
+        pools_g = {n: t.clone() for n, t in engine.pools.items()}
+        for src, dst in ((pools0, engine.pools), (before, state.tensors())):
+            for n, t in dst.items():
+                t.copy_(src[n])
+        del pools0, before
+        engine._spec_eager(state, k, eos_id=None, temperature=0.0, top_k=0,
+                           top_p=0.0, min_ngram=SPEC_CONFIG["min_ngram"])
+    sync(dev)
+    bad = [n for n, t in state.tensors().items()
+           if not torch.equal(t[:, :width] if n == "out" else t,
+                              graph[n][:, :width] if n == "out"
+                              else graph[n])]
+    bad += [f"pool {n}" for n, t in engine.pools.items()
+            if not torch.equal(t, pools_g[n])]
+    del pools_g
+    engine.flush(uids)
+    rec = dict(rows=len(uids), ticks=k, steps=[steps_g, int(state.steps)],
+               tokens_equal=bool((toks_g == state.out[:, :width].cpu()
+                                  .numpy()).all()),
+               out_ptr=ptr_g.tolist(), spec_stats=stats_g.tolist(),
+               differing=bad)
+    if bad or not rec["tokens_equal"] or stats_g[0] == 0:
+        raise AssertionError(f"spec graph replay against eager: {rec}")
     return rec
+
+
+def ring_graph_vs_eager(engine, prompts, dev, spec: bool, k=8):
+    """One captured ring-mode dispatch (``spec``: speculative) and the
+    same ticks run eagerly, from the same operands and pools, sampling
+    on: four rows live (budgets 2, 5, 9 and 32) with a request staged on
+    each, so rows take their staged requests on the device. The ring and
+    its epochs (the trash column aside), pointers, every carry and stage
+    operand and the pools equal bit for bit."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.serve_loop import (FusedServeLoop,
+                                                             ServeRequest)
+    uids = list(range(22_000, 22_000 + 2 * 4))
+    at_dispatch_state(engine, prompts[:8], uids)
+    budgets = dict(zip(uids, [2, 5, 9, 32] + [16] * 4))
+    for u, n in budgets.items():
+        engine.state_manager.reserve(u, n)
+    mode = "spec_ring" if spec else "ring"
+    with fused_mode(engine, mode):
+        loop = FusedServeLoop(engine, k_steps=k)
+        loop.staged = {u: ServeRequest(uid=u, prompt=[], max_new_tokens=n)
+                       for u, n in budgets.items() if u in uids[4:]}
+        live = uids[:4]
+        state = loop._serve_operands(live, {u: budgets[u] for u in live},
+                                     dict(enumerate(uids[4:])))
+        before = {n: t.clone() for n, t in state.tensors().items()}
+        pools0 = {n: t.clone() for n, t in engine.pools.items()}
+        loop.fn(state, k, *FUSED_SAMPLING.values(), None)()
+        graph = {n: t.clone() for n, t in state.tensors().items()}
+        pools_g = {n: t.clone() for n, t in engine.pools.items()}
+        for src, dst in ((pools0, engine.pools), (before, state.tensors())):
+            for n, t in dst.items():
+                t.copy_(src[n])
+        del pools0, before
+        kw = dict(eos_id=None, **FUSED_SAMPLING)
+        if spec:
+            kw["min_ngram"] = SPEC_CONFIG["min_ngram"]
+        engine._serve_eager(state, k, **kw)
+    sync(dev)
+    bad = []
+    for n, t in state.tensors().items():
+        g = graph[n]
+        if n in ("ring", "ring_epochs"):
+            t, g = t[:, :-1], g[:, :-1]
+        if not torch.equal(t, g):
+            bad.append(n)
+    bad += [f"pool {n}" for n, t in engine.pools.items()
+            if not torch.equal(t, pools_g[n])]
+    del pools_g
+    rd = state.read()
+    engine.flush(uids)
+    rec = dict(mode=mode, rows=4, staged=4, ticks=k,
+               steps=int(rd["chain_steps"]), epochs=rd["epoch"].tolist(),
+               ring_ptr=np.asarray(rd["ring_ptr"]).tolist(), differing=bad)
+    if bad or rd["epoch"][0] != 1:
+        raise AssertionError(f"ring graph replay against eager: {rec}")
+    return rec
+
+
+def spec_on_repeats(engine, dev, k=8, n_req=8, prompt_len=256,
+                    max_new=64):
+    """Reported, not held: random weights never repeat an n-gram of a
+    random prompt, so phase 18's requests give the drafter nothing. Here
+    each prompt is one token repeated, the input on which an untrained
+    model is likeliest to repeat itself: chain and spec chain mode on the
+    same requests (a capturing run, then the timed one each), with the
+    acceptance, the tokens a row commits a live tick, decode ms a step and
+    the ms a committed token."""
+    c = engine.model.config
+    rng = np.random.default_rng(18)
+    prompts = [[int(t)] * prompt_len
+               for t in rng.integers(0, c.vocab_size, n_req)]
+    rec, outs = {}, {}
+    for mode in ("chain", "spec_chain"):
+        with fused_mode(engine, mode):
+            serve_fused(engine, prompts, max_new, dev, k)
+            engine.reset_serving_metrics()
+            outs[mode], run = serve_fused(engine, prompts, max_new, dev, k)
+        m = engine.serving_metrics()
+        decode_s = run["wall_s"] - run["prefill_s"]
+        rec[mode] = dict(
+            decode_steps=run["steps"],
+            decode_ms_per_step=1e3 * decode_s / max(run["steps"], 1),
+            tokens_per_live_slot=m["fused_slot_tokens"]
+            / max(m["fused_live_slots"], 1),
+            ms_per_committed_token=1e3 * decode_s / max(run["steps"], 1)
+            * m["fused_live_slots"] / max(m["fused_slot_tokens"], 1),
+            tokens_per_dispatch=m["tokens_per_dispatch"],
+            spec_proposed_tokens=m["spec_proposed_tokens"],
+            spec_accepted_tokens=m["spec_accepted_tokens"],
+            spec_acceptance_rate=m["spec_acceptance_rate"],
+            first_output=outs[mode][0][:16])
+    rec.update(requests=n_req, prompt_tokens=prompt_len, new_tokens=max_new,
+               agreement=agreement(outs["spec_chain"], outs["chain"]))
+    log(f"[spec] repeats {json.dumps(rec)}")
+    return rec
+
+
+def profile_spec(engine, dev, prompts, k=8) -> dict:
+    """Where a speculative dispatch's time goes: ``k`` verify ticks of
+    ``len(prompts)`` rows, one graph replay, traced as
+    :func:`profile_fused` traces a plain one, greedy then sampled
+    (``FUSED_SAMPLING``); each window with its GEMM share of the busy
+    time, and the sampled window's extra busy time over the greedy one
+    (the [B, 1 + draft_len] sampling grid's cost) as its sampling share."""
+    uids = list(range(31_000, 31_000 + len(prompts)))
+    at_dispatch_state(engine, prompts, uids)
+    out = {}
+    with fused_mode(engine, "spec_chain"):
+        for name, sampling in (("greedy", (0.0, 0, 0.0)),
+                               ("sampled", tuple(FUSED_SAMPLING.values()))):
+            state = engine._spec_operands(uids, k, {u: k for u in uids},
+                                          FUSED_SEED)
+            fn = engine._spec_fn(state, k, *sampling, None)
+            result = {}
+
+            def run():
+                res = fn()
+                result["read"] = res.read()
+                result["spec"] = res.spec()
+            _, rec = profile_window(f"spec_decode_{name}", run, k)
+            rec["gemm_share"] = (rec["ms_by_kind"].get("gemm", 0.0)
+                                 / rec["device_busy_ms"])
+            stats = result["spec"][1]
+            rec["spec_stats"] = stats.tolist()
+            out[name] = rec
+    out["sampling_share"] = 1 - (out["greedy"]["device_busy_ms"]
+                                 / out["sampled"]["device_busy_ms"])
+    engine.flush(uids)
+    log(f"[profile] spec {json.dumps({'sampling_share': out['sampling_share'], 'gemm_share': [out[n]['gemm_share'] for n in ('greedy', 'sampled')]})}")
+    return out
+
+
+def fused_modes_main(engine, dev, prompts, fused, max_new=32, k=8,
+                     profile=False, repeats=None):
+    """Phase 18: phase 4's engine serves phase 4's requests through
+    generate_fused's loop in spec chain, ring and spec ring mode
+    (``FUSED_MODES``): for each, a first run that captures the graphs,
+    then the timed run with the counts set to 0 just before it. Checks:
+    every output full and the rerun's tokens equal the first run's; every
+    paged launch of a graph replay decode_split (the verify forward's
+    S_new 4 included) and every prefill's prefill_wgmma, every norm
+    cta_row, the counts equal what the replays and prefill dispatches
+    ran, and each captured graph's own launches only decode_split and
+    cta_row; ring mode reads the device once a chain. Reported: decode ms
+    a fused step (the decode wall over the fused steps) beside phase 17's
+    chain mode, tokens a row commits a live tick and the ms a committed
+    token (the step over them), tokens a dispatch, the spec acceptance
+    rate, host reads a chain, each
+    graph's capture ms and pool MiB and launches a replay, and the greedy
+    agreement with phase 17's tokens. Then each new graph's replay against
+    its eager run, bit for bit; ``repeats`` sizes
+    :func:`spec_on_repeats`."""
+    from deepspeed_tpu_torch.inference.v2 import paged
+    c = engine.model.config
+    layers = c.num_layers
+    norms = norm_counter(c)
+    out = {"chain": dict(
+        decode_ms_per_step=fused["decode_ms_per_step"],
+        tokens_per_dispatch=fused["tokens_per_dispatch"],
+        fused_dispatches=fused["fused_dispatches"], note="phase 17")}
+    bad = []
+    for mode in ("spec_chain", "ring", "spec_ring"):
+        with fused_mode(engine, mode):
+            first = len(engine.graph_captures)
+            warm, _ = serve_fused(engine, prompts, max_new, dev, k)
+            ticks = count_ticks(engine)
+            paged.paged_attention_kernel.launches = 0
+            paged.paged_attention_kernel.variant_launches = {}
+            reset_norms(norms)
+            engine.reset_serving_metrics()
+            timed_first = len(engine.graph_captures)
+            try:
+                outs, run = serve_fused(engine, prompts, max_new, dev, k)
+            finally:
+                uncount_ticks(engine)
+        captures = engine.graph_captures[first:]
+        launches = paged.paged_attention_kernel.launches
+        by_variant = dict(paged.paged_attention_kernel.variant_launches)
+        norm_by_variant = dict(norms.variant_launches)
+        m = engine.serving_metrics()
+        prefill_dispatches = m["host_dispatches"] - m["fused_dispatches"]
+        graph_ticks = sum(ticks) + len(engine.graph_captures) - timed_first
+        if outs != warm:
+            bad.append(f"{mode}: the rerun's tokens differ from the first "
+                       "run's")
+        for o in outs:
+            if len(o) != max_new or not all(0 <= t < c.vocab_size
+                                            for t in o):
+                bad.append(f"{mode}: bad output {o[:8]}...")
+        want = {"decode_split": layers * graph_ticks,
+                "prefill_wgmma": layers * prefill_dispatches}
+        if dev.type == "cuda":
+            if by_variant != want or launches != sum(want.values()):
+                bad.append(f"{mode}: paged launches {launches} by variant "
+                           f"{by_variant} != {want}")
+            want_norms = (2 * layers + 1) * (graph_ticks
+                                             + prefill_dispatches)
+            if norms.launches != want_norms \
+                    or set(norm_by_variant) != {"cta_row"}:
+                bad.append(f"{mode}: norm launches {norms.launches} by "
+                           f"variant {norm_by_variant} != {want_norms} "
+                           "cta_row")
+            for g in captures:
+                lv = g["launches_by_variant"]
+                if set(lv.get("paged_attention_kernel", {})) \
+                        != {"decode_split"} or set(lv.get(
+                            "rms_norm_kernel", {})) != {"cta_row"}:
+                    bad.append(f"{mode}: a graph's launches {lv}")
+        if mode.endswith("ring") and run["host_reads"] != run["chains"]:
+            bad.append(f"{mode}: {run['host_reads']} host reads over "
+                       f"{run['chains']} chains")
+        decode_s = run["wall_s"] - run["prefill_s"]
+        horizon = agreement(outs, fused["outputs"])
+        out[mode] = dict(
+            decode_steps=run["steps"], fused_dispatches=run["dispatches"],
+            fused_tokens=run["fused_tokens"],
+            decode_ms_per_step=1e3 * decode_s / max(run["steps"], 1),
+            tokens_per_live_slot=m["fused_slot_tokens"]
+            / max(m["fused_live_slots"], 1),
+            ms_per_committed_token=1e3 * decode_s / max(run["steps"], 1)
+            * m["fused_live_slots"] / max(m["fused_slot_tokens"], 1),
+            tokens_per_dispatch=m["tokens_per_dispatch"],
+            tokens_per_fused_dispatch=run["fused_tokens"]
+            / max(run["dispatches"], 1),
+            spec_acceptance_rate=m["spec_acceptance_rate"],
+            spec_proposed_tokens=m["spec_proposed_tokens"],
+            spec_accepted_tokens=m["spec_accepted_tokens"],
+            host_reads=run["host_reads"], chains=run["chains"],
+            host_reads_per_chain=run["host_reads"] / max(run["chains"], 1),
+            prefill_tokens_per_s=run["prefill_tokens"] / run["prefill_s"],
+            launches=launches, launches_by_variant=by_variant,
+            graph_ticks=graph_ticks, prefill_dispatches=prefill_dispatches,
+            norm_launches=norms.launches,
+            norm_launches_by_variant=norm_by_variant,
+            graphs_captured=len(captures),
+            captures=[{key: g[key] for key in (
+                "mode", "bb", "kb", "k", "capture_ms", "pool_mib",
+                "launches_per_replay", "launches_by_variant")}
+                for g in captures],
+            capture_ms_per_graph=sum(g["capture_ms"] for g in captures)
+            / max(len(captures), 1),
+            pool_mib_per_graph=sum(g["pool_mib"] for g in captures)
+            / max(len(captures), 1),
+            greedy_agreement_vs_chain=horizon,
+            greedy_agreement_mean=sum(horizon) / len(horizon))
+        log(f"[spec] {mode} {json.dumps(out[mode])}")
+    if bad:
+        raise AssertionError("phase 18: " + "; ".join(bad))
+    out["repeats"] = spec_on_repeats(engine, dev, k, **(repeats or {}))
+    short = [p[:256] for p in prompts]
+    out["graph_vs_eager"] = {
+        "spec_chain": spec_graph_vs_eager(engine, short, dev, k),
+        "ring": ring_graph_vs_eager(engine, short, dev, False, k),
+        "spec_ring": ring_graph_vs_eager(engine, short, dev, True, k)}
+    if profile:
+        out["profile"] = profile_spec(engine, dev, short, k)
+    log(f"[spec] {json.dumps(out['graph_vs_eager'])}")
+    return out
+
+
+def spec_path_q(engine, dev, path_q, k=8):
+    """Phase 18 on Path Q's engine (int8 per-head pools, grow_pool, the
+    prefix cache): its requests in spec chain mode (a rejected draft
+    slot's stale code and scale are written again before any query reads
+    them), every paged launch of a replay decode_split; the greedy
+    agreement with its per-tick run reported."""
+    from deepspeed_tpu_torch.inference.v2 import paged
+    with fused_mode(engine, "spec_chain"):
+        serve_fused(engine, path_q["prompts"], path_q["new_tokens"], dev, k)
+        ticks = count_ticks(engine)
+        paged.paged_attention_kernel.variant_launches = {}
+        engine.reset_serving_metrics()
+        first = len(engine.graph_captures)
+        try:
+            outs, run = serve_fused(engine, path_q["prompts"],
+                                    path_q["new_tokens"], dev, k)
+        finally:
+            uncount_ticks(engine)
+    by_variant = dict(paged.paged_attention_kernel.variant_launches)
+    layers = engine.model.config.num_layers
+    decode_ticks = sum(ticks) + len(engine.graph_captures) - first
+    if dev.type == "cuda" and (by_variant.get("decode_split") != layers
+                               * decode_ticks or set(by_variant)
+                               - set(NEW_PAGED_VARIANTS)):
+        raise AssertionError(f"Path Q spec: paged launches {by_variant}, "
+                             f"{layers} x {decode_ticks} decode ticks")
+    m = engine.serving_metrics()
+    horizon = agreement(outs, path_q["outputs"])
+    stats = dict(
+        requests=len(outs), launches_by_variant=by_variant,
+        spec_acceptance_rate=m["spec_acceptance_rate"],
+        tokens_per_dispatch=m["tokens_per_dispatch"],
+        decode_ms_per_step=1e3 * (run["wall_s"] - run["prefill_s"])
+        / max(run["steps"], 1),
+        greedy_agreement_vs_per_tick=horizon,
+        greedy_agreement_mean=sum(horizon) / len(horizon))
+    log(f"[spec] Path Q {json.dumps(stats)}")
+    return stats
 
 
 # ------------------------------------------------------------ phase 2
@@ -3735,8 +4245,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace a prefill tick and decode ticks of the "
                          "serving path and of Path Q, one train_batch step, "
-                         "one Path T step and five Path P calls with "
-                         "torch.profiler")
+                         "one Path T step, five Path P calls and a fused and "
+                         "a speculative dispatch with torch.profiler")
     ap.add_argument("--path-z-rank", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--compare-kernels", metavar="ROOT",
                     help="only time the quantize and fused-Adam kernels of "
@@ -3816,8 +4326,12 @@ def main(argv=None) -> int:
     rels = main_path_kernel_vs_plain(engine, dev)             # phase 5
     if args.profile:
         profile_main_path(engine, dev)
-    fused = fused_serving_main(engine, dev, stats.pop("prompts"),  # 17
-                               stats, profile=args.profile)
+    prompts = stats.pop("prompts")
+    fused = fused_serving_main(engine, dev, prompts, stats,   # phase 17
+                               profile=args.profile)
+    spec = fused_modes_main(engine, dev, prompts, fused,      # phase 18
+                            profile=args.profile)
+    del fused["outputs"], prompts
     q_engine, path_q = path_q_main(dev, engine)               # phase 11
     del engine
     gc.collect()
@@ -3826,6 +4340,7 @@ def main(argv=None) -> int:
     if args.profile:
         profile_main_path(q_engine, dev, label="path_q_")
     fused["path_q"] = fused_path_q(q_engine, dev, path_q)     # phase 17
+    spec["path_q"] = spec_path_q(q_engine, dev, path_q)       # phase 18
     del q_engine, path_q["outputs"], path_q["prompts"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -3833,8 +4348,11 @@ def main(argv=None) -> int:
                              profile=args.profile)
     gc.collect()
     torch.cuda.empty_cache()
-    fused["fp32_parity"] = fused_fp32_parity(dev)             # phase 17
+    fused["fp32_parity"], spec["fp32"] = fused_fp32_parity(dev)  # 17, 18
     resident = torch.cuda.memory_allocated()
+    log(f"[memory] after the serving phases: {resident / 2**30:.3f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB "
+        f"reserved")
     if resident > 2**30:
         raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
                              f"after the serving phases")
@@ -3927,11 +4445,22 @@ def main(argv=None) -> int:
               **paged_prefill(times["prefill_tick"], "prefill_tick_"),
               **paged_extra(times["prefill_tick"], "prefill_tick_"),
               prefill_tick_shape=f"B=8 Sq=256 pos0 {PREFILL_TICK['pos0']}",
+              **paged_prefill(times["verify"], "verify_"),
+              **paged_extra(times["verify"], "verify_"),
+              verify_shape=f"B=8 Sq=4 true_len {verify_shape()['true_len']} "
+                           "ctx 100-2000 (the spec verify, phase 18)",
               main_path="serving",
               main_path_launches_by_variant=stats["launches_by_variant"],
               fused_main_path="generate_fused, graph replays (phase 17)",
               fused_launches_by_variant=fused["launches_by_variant"],
               fused_path_q_launches_by_variant=fused["path_q"][
+                  "launches_by_variant"],
+              spec_main_path="spec chain, ring and spec ring graph "
+                             "replays (phase 18)",
+              spec_launches_by_variant={
+                  m: spec[m]["launches_by_variant"]
+                  for m in ("spec_chain", "ring", "spec_ring")},
+              spec_path_q_launches_by_variant=spec["path_q"][
                   "launches_by_variant"],
               main_path_fp32_rel_logits_err=rels["fp32_kernel_vs_reference"],
               main_path_bf16_layer_max_abs_err=rels[
@@ -3966,6 +4495,8 @@ def main(argv=None) -> int:
               **paged_extra(times["prefill_fp16"], "prefill_"),
               **paged_prefill(times["prefill_tick_fp16"], "prefill_tick_"),
               **paged_extra(times["prefill_tick_fp16"], "prefill_tick_"),
+              **paged_prefill(times["verify_fp16"], "verify_"),
+              **paged_extra(times["verify_fp16"], "verify_"),
               main_path="serving in fp16 (phase 16)",
               main_path_launches_by_variant=fp16["serving"][
                   "launches_by_variant"],
@@ -4137,6 +4668,9 @@ def main(argv=None) -> int:
             main_path_launches_by_variant=stats["norm_launches_by_variant"],
             serving_launches=stats["norm_launches"],
             fused_launches_by_variant=fused["norm_launches_by_variant"],
+            spec_launches_by_variant={
+                m: spec[m]["norm_launches_by_variant"]
+                for m in ("spec_chain", "ring", "spec_ring")},
             path_q_launches=path_q["norm_launches"],
             path_q_launches_by_variant=path_q["norm_launches_by_variant"],
             cases_max_err={"/".join(k): v for k, v in norm_errs.items()
@@ -4157,6 +4691,7 @@ def main(argv=None) -> int:
                        if k[0] == "layer"}, cases=NORM_NOTE))
     log(f"[main] serving {json.dumps(stats)} on {card}")
     log(f"[main] fused serving {json.dumps(fused)} on {card}")
+    log(f"[main] spec and ring serving {json.dumps(spec)} on {card}")
     log(f"[main] fp16 serving {json.dumps(fp16)} on {card}")
     log(f"[main] Path Q {json.dumps(path_q)} on {card}")
     log(f"[main] Path Q kernels vs plain {json.dumps(q_rels)}")

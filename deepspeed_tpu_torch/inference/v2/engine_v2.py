@@ -14,9 +14,12 @@ port drops the padding there and keeps the token grouping: a row advances
 
 The fused decode path (``decode_fused``, ``generate_fused`` over
 ``serve_loop.FusedServeLoop``) runs K decode ticks a host dispatch with
-sampling on the device. It keeps the JAX engine's batch and table-width
-buckets: on the card each (bucket, K, sampling setting) is one captured
-CUDA graph over operands at fixed addresses (``fused_graph.py``).
+sampling on the device, in chain mode or ring mode (``fused_admission``:
+admission inside the loop, one host read a chain), each with or without
+speculative decoding (``speculative.enabled``). It keeps the JAX engine's
+batch and table-width buckets: on the card each (mode, bucket, K,
+sampling setting) is one captured CUDA graph over operands at fixed
+addresses (``fused_graph.py``).
 """
 
 from __future__ import annotations
@@ -34,15 +37,17 @@ from ...ops.quantization import KV_STORE_DTYPES
 from ...utils.logging import log_dist
 from ..config import DeepSpeedInferenceConfig
 from ...runtime.config_utils import DeepSpeedConfigModel
-from .fused_graph import CapturedLoop, FusedState
-from .paged import KERNEL_DTYPES, fused_decode_loop, paged_forward
+from .fused_graph import CapturedLoop, FusedState, RingState
+from .paged import (KERNEL_DTYPES, fused_decode_loop, fused_serve_loop,
+                    fused_spec_decode_loop, fused_spec_serve_loop,
+                    paged_forward)
 from .ragged import (DSStateManager, PrefixCache, SequenceDescriptor,
                      kv_block_bytes, quantized_block_budget)
 
 # serving_metrics() schema, the JAX engine's: raw counters kept in
 # serving_stats (reset zeroes exactly these); the prefix-cache counters
 # ride alongside, and the ratios are appended at read time. The spec_*
-# counters stay zero until speculative decoding is ported.
+# counters come from the speculative loops' device counters.
 # fused_live_slots counts scheduled (row, step) slots whose row was still
 # active, the occupancy numerator (one token a live slot).
 SERVING_COUNTER_KEYS = (
@@ -78,11 +83,36 @@ class PrefixCacheConfig(DeepSpeedConfigModel):
 
 @dataclasses.dataclass
 class SpeculativeConfig(DeepSpeedConfigModel):
-    """Speculative decoding; not ported yet (``enabled`` raises)."""
+    """Self-drafting speculative decoding in the fused serving loops: a
+    prompt-lookup (n-gram) drafter on the device proposes up to
+    ``draft_len`` tokens a row a tick from the row's recent history, and
+    one forward over ``1 + draft_len`` positions verifies them, committing
+    1..1 + draft_len tokens. No draft model; greedy and sampled tokens
+    equal spec-off decode's (targets are position-keyed, drafts only
+    decide how many land a forward). ``min_ngram``: the shortest trailing
+    n-gram that may match; ``history_window``: the window the drafter
+    searches (per row, seeded at admission from the committed history)."""
     enabled: bool = False
     draft_len: int = 3
     min_ngram: int = 2
     history_window: int = 64
+
+    def __post_init__(self):
+        super().__post_init__()
+        # the JAX block's Field(ge=...) bounds and its window validator
+        for name, lo in (("draft_len", 1), ("min_ngram", 1),
+                         ("history_window", 8)):
+            if getattr(self, name) < lo:
+                raise ValueError(
+                    f"speculative.{name} {getattr(self, name)}: must be "
+                    f"greater than or equal to {lo}")
+        need = self.min_ngram + self.draft_len + 1
+        if self.history_window < need:
+            raise ValueError(
+                f"speculative.history_window ({self.history_window}) must "
+                f"be >= min_ngram + draft_len + 1 ({need}): the window "
+                "must hold one n-gram, its full continuation and the "
+                "trailing n-gram it matches against")
 
 
 @dataclasses.dataclass
@@ -209,10 +239,6 @@ def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
     unported = [
         (config.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1",
          "tensor-parallel serving"),
-        (config.speculative.enabled, "speculative.enabled",
-         "item 6, speculative decoding"),
-        (config.fused_admission, "fused_admission",
-         "item 6, ring mode (fused_serve_loop)"),
         (config.quantize_weights, "quantize_weights",
          "weight-only int8 serving"),
         (config.quantize_moe_experts, "quantize_moe_experts", "MoE serving"),
@@ -303,12 +329,13 @@ class InferenceEngineV2:
         # serving counters behind serving_metrics(): host dispatches vs
         # decoded tokens measures how host-free the decode loop is
         self.serving_stats = dict.fromkeys(SERVING_COUNTER_KEYS, 0)
-        # the fused loop: operands at fixed addresses per (batch bucket,
-        # table-width bucket), dispatch functions (on the card captured
-        # graphs) per bucket, step count and sampling setting, base keys
-        # per seed, and each capture's cost
+        # the fused loops: operands at fixed addresses per (batch bucket,
+        # table-width bucket), chain mode and ring mode (each state holds
+        # its dispatch functions, on the card captured graphs, by mode,
+        # step count and sampling setting), base keys per seed, and each
+        # capture's cost
         self._fused_states: dict[tuple, FusedState] = {}
-        self._fused_cache: dict[tuple, object] = {}
+        self._ring_states: dict[tuple, RingState] = {}
         self._seed_keys: dict[int, torch.Tensor] = {}
         self.graph_captures: list[dict] = []
         # SplitFuse budget, floored to a power of two as in the JAX engine
@@ -568,27 +595,49 @@ class InferenceEngineV2:
                 (c.eos_token_id if eos_id is None else int(eos_id)))
 
     def _fused_state(self, bb: int, kb: int, k: int) -> FusedState:
-        """The fixed-address operands of the (bb, kb) bucket, wide enough
-        for ``k`` ticks (a wider one replaces it, with its graphs)."""
+        """The fixed-address chain-mode operands of the (bb, kb) bucket,
+        wide enough for ``k`` ticks, with the speculative carry when the
+        config enables speculation (a state that does not fit is
+        replaced, and its graphs go with it)."""
+        sp = self._config.speculative
+        el, hw = ((int(sp.draft_len), int(sp.history_window))
+                  if sp.enabled else (0, 0))
         state = self._fused_states.get((bb, kb))
-        if state is None or state.max_steps < k:
+        if state is None or not state.fits(k, el, hw):
+            if state is not None:
+                state.release()
             state = FusedState(
                 bb, kb, max(k, self._config.fused_decode_steps),
                 self.model.config.vocab_size, self.device,
-                ring=self._config.max_inflight_dispatches + 1)
+                ring=self._config.max_inflight_dispatches + 1,
+                draft_len=el, hist_width=hw)
             self._fused_states[(bb, kb)] = state
-            for key in [key for key in self._fused_cache
-                        if key[:2] == (bb, kb)]:
-                del self._fused_cache[key]
         return state
 
-    def _fused_operands(self, uids: list[int], k: int,
-                        budgets: dict[int, int], seed: int) -> FusedState:
-        """Host-side build of one fused dispatch's operands, loaded into
-        the bucket's :class:`FusedState`. Every uid must have exactly one
-        pending token (its next input, the last sampled token); blocks
-        covering the dispatch horizon are reserved here so the loop's KV
-        writes land in real blocks."""
+    def _ring_state(self, bb: int, kb: int, cap: int,
+                    draft_len: int) -> RingState:
+        """The fixed-address ring-mode operands of the (bb, kb) bucket for
+        a ring of ``cap`` columns, speculative when ``draft_len`` > 0."""
+        hw = (int(self._config.speculative.history_window) if draft_len
+              else 0)
+        key = (bb, kb, draft_len > 0)
+        state = self._ring_states.get(key)
+        if state is None or not state.fits(cap, draft_len, hw):
+            if state is not None:
+                state.release()
+            state = RingState(bb, kb, cap, self.device, draft_len=draft_len,
+                              hist_width=hw)
+            self._ring_states[key] = state
+        return state
+
+    def _dispatch_rows(self, uids: list[int], k: int,
+                       budgets: dict[int, int], seed: int):
+        """Host-side build of a fused dispatch's rows. Every uid must have
+        exactly one pending token (its next input, the last sampled
+        token); blocks covering ``k`` tokens (capped by the budget) are
+        reserved, so the loop's KV writes land in real blocks. Returns
+        (batch bucket, the operands as host arrays with full-width block
+        tables, the most blocks a row holds)."""
         mgr = self.state_manager
         seqs = [mgr.seqs[u] for u in uids]
         for u, s in zip(uids, seqs):
@@ -610,19 +659,64 @@ class InferenceEngineV2:
         # pad rows carry seqs[0]'s table and write nothing (inactive)
         tables = np.stack([mgr.block_table(s) for s in seqs]
                           + [mgr.block_table(seqs[0])] * (bb - len(seqs)))
-        # narrowed to the blocks held (context + reserved horizon), a
-        # power-of-two width
-        kb = min(_bucket(max(max(len(s.blocks) for s in seqs), 1)),
-                 tables.shape[1])
         # per-row keys: the uid folded into the base key (pad rows get
         # sentinel ids); each tick folds in the token's position
         ids = list(uids) + [(1 << 30) + i for i in range(bb - len(uids))]
         row_keys = threefry.fold_in(self._base_key(seed),
                                     torch.tensor(ids, dtype=torch.int64))
+        host = dict(tokens=tokens, pos=pos, tables=tables, active=act,
+                    remaining=rem, row_keys=row_keys)
+        return bb, host, max(len(s.blocks) for s in seqs)
+
+    def _table_width(self, max_blocks: int) -> int:
+        """The table-width bucket over rows holding up to ``max_blocks``
+        blocks (context + reserved horizon): a power of two."""
+        return min(_bucket(max(max_blocks, 1)),
+                   self.state_manager.max_blocks_per_seq)
+
+    def _fused_operands(self, uids: list[int], k: int,
+                        budgets: dict[int, int], seed: int,
+                        hist: bool = False) -> FusedState:
+        """One fused dispatch's operands (:meth:`_dispatch_rows`), loaded
+        into the bucket's :class:`FusedState`; ``hist`` also loads each
+        row's drafter window (:meth:`_history_rows`)."""
+        bb, host, max_blocks = self._dispatch_rows(uids, k, budgets, seed)
+        kb = self._table_width(max_blocks)
+        host["tables"] = host["tables"][:, :kb]
+        if hist:
+            host["hist"] = self._history_rows(uids, bb)
         state = self._fused_state(bb, kb, k)
-        state.load(tokens=tokens, pos=pos, tables=tables[:, :kb],
-                   active=act, remaining=rem, row_keys=row_keys)
+        state.load(**host)
         return state
+
+    def _history_rows(self, uids: list[int], bb: int) -> np.ndarray:
+        """Right-aligned recent-token rows [bb, history_window] for the
+        prompt-lookup drafter, -1-filled (pad rows all -1): each uid's
+        committed history with its pending token, so drafts continue from
+        the next dispatch input."""
+        hw = int(self._config.speculative.history_window)
+        hist = np.full((bb, hw), -1, np.int64)
+        for i, u in enumerate(uids):
+            hist[i] = self.state_manager.history_tail(u, hw)
+        return hist
+
+    def _reserve_spec(self, uids: list[int], k: int,
+                      budgets: dict[int, int]) -> None:
+        """Reserve the speculative horizon: a K-tick spec dispatch may
+        commit ``k * (1 + draft_len)`` tokens a row (capped by the
+        budget; drafts are clamped to ``remaining - 1`` on the device, so
+        KV writes never pass it)."""
+        el = int(self._config.speculative.draft_len)
+        for u in uids:
+            self.state_manager.reserve(
+                u, max(min(int(budgets[u]), k * (1 + el)), 1))
+
+    def _spec_operands(self, uids: list[int], k: int,
+                       budgets: dict[int, int], seed: int) -> FusedState:
+        """:meth:`_fused_operands` with the drafter's history window, over
+        the speculative horizon (:meth:`_reserve_spec`)."""
+        self._reserve_spec(uids, k, budgets)
+        return self._fused_operands(uids, k, budgets, seed, hist=True)
 
     def _fused_eager(self, state: FusedState, num_steps: int,
                      **loop_kw) -> None:
@@ -635,38 +729,124 @@ class InferenceEngineV2:
             num_steps=num_steps, out=state.out[:, :num_steps],
             steps=state.steps, logits_out=state.logits, **loop_kw)
 
-    def _fused_fn(self, state: FusedState, num_steps: int,
-                  temperature: float, top_k: int, top_p: float,
-                  eos_id: Optional[int]):
-        """The dispatch function of ``num_steps`` ticks over ``state``'s
-        bucket for one sampling setting: it runs them and returns their
-        :class:`~.fused_graph.FusedResult`. Cached by (batch bucket,
-        table-width bucket, ticks, temperature, top_k, top_p, eos). On the
-        card it replays a graph captured at its first call (and raises if
-        capture or replay fails); on the CPU it runs the loop eagerly."""
-        key = (state.bb, state.kb, num_steps, temperature, top_k, top_p,
-               eos_id)
-        fn = self._fused_cache.get(key)
+    def _spec_eager(self, state: FusedState, num_steps: int,
+                    **loop_kw) -> None:
+        """``num_steps`` ticks of the speculative loop run eagerly over
+        ``state`` (as :meth:`_fused_eager`)."""
+        width = num_steps * (1 + state.draft_len)
+        fused_spec_decode_loop(
+            self.model, self.pools, state.tokens, state.pos, state.tables,
+            state.active, state.remaining, state.row_keys, state.hist,
+            num_steps=num_steps, draft_len=state.draft_len,
+            out=state.out[:, :width + 1], out_ptr=state.out_ptr,
+            steps=state.steps, spec_stats=state.spec_stats, **loop_kw)
+
+    def _serve_eager(self, state: RingState, num_steps: int,
+                     **loop_kw) -> None:
+        """One ring-mode dispatch of ``num_steps`` ticks run eagerly over
+        ``state`` (plain or speculative by its layout); its steps are
+        added to the chain's."""
+        s = state
+        args = (self.model, self.pools, s.tokens, s.pos, s.tables, s.active,
+                s.remaining, s.row_keys)
+        if s.draft_len:
+            fused_spec_serve_loop(
+                *args, s.hist, s.epoch, s.stage_tokens, s.stage_pos,
+                s.stage_rem, s.stage_keys, s.stage_tables, s.stage_hist,
+                s.stage_valid, s.ring, s.ring_epochs, s.ring_ptr,
+                s.spec_stats, num_steps=num_steps, draft_len=s.draft_len,
+                steps=s.steps, **loop_kw)
+        else:
+            fused_serve_loop(
+                *args, s.epoch, s.stage_tokens, s.stage_pos, s.stage_rem,
+                s.stage_keys, s.stage_tables, s.stage_valid, s.ring,
+                s.ring_epochs, s.ring_ptr, num_steps=num_steps,
+                steps=s.steps, **loop_kw)
+        s.chain_steps.add_(s.steps)
+
+    def _dispatch_fn(self, mode: str, state, num_steps: int, eager,
+                     result, loop_kw: dict):
+        """The dispatch function of ``num_steps`` ticks of ``eager``'s
+        loop over ``state`` for one setting (``loop_kw``): it runs them
+        and returns ``result()``. Cached in ``state.graphs`` by mode,
+        ticks and setting. On the card it replays a graph captured at its
+        first call (and raises if capture or replay fails); on the CPU it
+        runs the loop eagerly."""
+        key = (mode, num_steps, *loop_kw.values())
+        fn = state.graphs.get(key)
         if fn is not None:
             return fn
-        loop_kw = dict(eos_id=eos_id, temperature=temperature, top_k=top_k,
-                       top_p=top_p)
         if state.device.type == "cuda":
-            graph = CapturedLoop(self.model, self.pools, state, num_steps,
-                                 **loop_kw)
+            graph = CapturedLoop(
+                state, lambda st: eager(st, num_steps, **loop_kw),
+                lambda st: eager(st, 1, **loop_kw))
             self.graph_captures.append(dict(
-                bb=state.bb, kb=state.kb, k=num_steps,
-                sampling=[temperature, top_k, top_p, eos_id], **graph.stats))
+                mode=mode, bb=state.bb, kb=state.kb, k=num_steps,
+                sampling=[loop_kw[n] for n in ("temperature", "top_k",
+                                               "top_p", "eos_id")],
+                **graph.stats))
 
             def fn():
                 graph.replay()
-                return state.result(num_steps)
+                return result()
         else:
             def fn():
-                self._fused_eager(state, num_steps, **loop_kw)
-                return state.result(num_steps)
-        self._fused_cache[key] = fn
+                eager(state, num_steps, **loop_kw)
+                return result()
+        state.graphs[key] = fn
         return fn
+
+    def _spec_kw(self) -> dict:
+        return dict(min_ngram=int(self._config.speculative.min_ngram))
+
+    def _fused_fn(self, state: FusedState, num_steps: int,
+                  temperature: float, top_k: int, top_p: float,
+                  eos_id: Optional[int]):
+        """The dispatch function of ``num_steps`` fused decode ticks over
+        ``state``'s bucket for one sampling setting; it returns their
+        :class:`~.fused_graph.FusedResult` (see :meth:`_dispatch_fn`)."""
+        return self._dispatch_fn(
+            "decode", state, num_steps, self._fused_eager,
+            lambda: state.result(num_steps),
+            dict(eos_id=eos_id, temperature=temperature, top_k=top_k,
+                 top_p=top_p))
+
+    def _spec_fn(self, state: FusedState, num_steps: int,
+                 temperature: float, top_k: int, top_p: float,
+                 eos_id: Optional[int]):
+        """:meth:`_fused_fn` for the speculative loop (JAX ``_spec_fn``):
+        one graph family a (bucket, ticks, draft_len, min_ngram,
+        sampling, eos); the result holds ``num_steps * (1 + draft_len)``
+        output columns, the per-row pointers and the spec counters."""
+        width = num_steps * (1 + state.draft_len)
+        return self._dispatch_fn(
+            f"spec{state.draft_len}", state, num_steps, self._spec_eager,
+            lambda: state.result(width),
+            dict(eos_id=eos_id, temperature=temperature, top_k=top_k,
+                 top_p=top_p, **self._spec_kw()))
+
+    def _serve_fn(self, state: RingState, num_steps: int,
+                  temperature: float, top_k: int, top_p: float,
+                  eos_id: Optional[int]):
+        """The ring-mode dispatch function (JAX ``_serve_fn``): ``num_steps``
+        ticks of ``paged.fused_serve_loop`` over ``state``; the results
+        stay on the device for the chain's one read
+        (:meth:`~.fused_graph.RingState.read`)."""
+        return self._dispatch_fn(
+            "serve", state, num_steps, self._serve_eager, lambda: None,
+            dict(eos_id=eos_id, temperature=temperature, top_k=top_k,
+                 top_p=top_p))
+
+    def _spec_serve_fn(self, state: RingState, num_steps: int,
+                       temperature: float, top_k: int, top_p: float,
+                       eos_id: Optional[int]):
+        """:meth:`_serve_fn` for ``paged.fused_spec_serve_loop`` (JAX
+        ``_spec_serve_fn``)."""
+        return self._dispatch_fn(
+            f"spec_serve{state.draft_len}", state, num_steps,
+            self._serve_eager, lambda: None,
+            dict(eos_id=eos_id, temperature=temperature, top_k=top_k,
+                 top_p=top_p, **self._spec_kw()))
 
     def decode_fused(self, batch_uids: Sequence[int],
                      k_steps: Optional[int] = None, *,
@@ -677,7 +857,7 @@ class InferenceEngineV2:
                      eos_id: Optional[int] = None,
                      seed: int = 0) -> dict[int, list[int]]:
         """ONE fused dispatch: advance every uid up to ``min(k_steps,
-        budgets[uid])`` tokens on the device, with forward, sampling, KV
+        budgets[uid])`` ticks on the device, with forward, sampling, KV
         writes and EOS/budget termination in the loop. Each uid needs
         exactly one pending token (e.g. from put() and a sampled
         continuation, or a previous decode_fused). The generated tokens
@@ -685,7 +865,9 @@ class InferenceEngineV2:
         input. Returns {uid: [sampled tokens]} (a row that sampled
         ``eos_id`` includes it and stops). The dispatch runs
         ``min(k_steps, max budget)`` ticks, never more than a row can
-        use."""
+        use. With ``speculative.enabled`` each tick drafts and verifies
+        (``paged.fused_spec_decode_loop``) and commits 1..1 + draft_len
+        tokens a row, budget-capped."""
         uids = [int(u) for u in batch_uids]
         if not uids:
             return {}
@@ -697,24 +879,48 @@ class InferenceEngineV2:
         b = {u: int(budgets[u]) if budgets is not None else k
              for u in uids}
         st = self.serving_stats
-        state = self._fused_operands(uids, k, b, seed)
-        run = self._fused_fn(state, min(k, max(max(b.values()), 1)),
-                             temperature, top_k, top_p, eos)
+        spec = cfg.speculative.enabled
+        ticks = min(k, max(max(b.values()), 1))
+        if spec:
+            state = self._spec_operands(uids, k, b, seed)
+            run = self._spec_fn(state, ticks, temperature, top_k, top_p,
+                                eos)
+        else:
+            state = self._fused_operands(uids, k, b, seed)
+            run = self._fused_fn(state, ticks, temperature, top_k, top_p,
+                                 eos)
         st["host_dispatches"] += 1
         st["fused_dispatches"] += 1
-        toks, steps = run().read()
+        result = run()
+        toks, steps = result.read()
+        if spec:
+            ptrs, spec_stats = result.spec()
+            self._absorb_spec_stats(spec_stats)
         mgr = self.state_manager
         res: dict[int, list[int]] = {}
         for i, u in enumerate(uids):
-            row = [int(t) for t in toks[i] if t >= 0]
+            row = [int(t) for t in (toks[i, :ptrs[i]] if spec else toks[i])
+                   if t >= 0]
             mgr.commit_device_tokens(u, row)
             res[u] = row
             st["decoded_tokens"] += len(row)
             st["fused_slot_tokens"] += len(row)
-            st["fused_live_slots"] += len(row)   # one token a live slot
+            if not spec:
+                # one token a live slot; the spec loop counts its live
+                # slots on the device
+                st["fused_live_slots"] += len(row)
         st["fused_steps"] += steps
         st["fused_slots"] += steps * len(uids)
         return res
+
+    def _absorb_spec_stats(self, stats) -> None:
+        """Fold a dispatch's (or a chain's) device spec counters,
+        [proposed, accepted, hit slots, live slots], into
+        serving_stats."""
+        self.serving_stats["spec_proposed_tokens"] += int(stats[0])
+        self.serving_stats["spec_accepted_tokens"] += int(stats[1])
+        self.serving_stats["spec_hit_slots"] += int(stats[2])
+        self.serving_stats["fused_live_slots"] += int(stats[3])
 
     # ------------------------------------------------------------------
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -826,8 +1032,14 @@ class InferenceEngineV2:
         generate()'s tokens; stochastic decode is keyed by (seed, uid,
         position), so the tokens do not depend on K.
 
-        The scheduler is :class:`~.serve_loop.FusedServeLoop` in chain
-        mode, run closed-loop over a fixed prompt list."""
+        With ``fused_admission`` the chain goes further on the device:
+        waiting prompts are pre-staged and swapped into finished rows
+        inside the loop, and the host reads one output ring a chain. With
+        ``speculative.enabled`` each tick drafts and verifies up to
+        ``draft_len`` tokens a row, in either mode.
+
+        The scheduler is :class:`~.serve_loop.FusedServeLoop`, run
+        closed-loop over a fixed prompt list."""
         from .serve_loop import FusedServeLoop
         loop = FusedServeLoop(self, k_steps=k_steps,
                               temperature=temperature, top_k=top_k,

@@ -422,13 +422,17 @@ def _pool_write(pool: torch.Tensor, new: torch.Tensor, plan) -> None:
 def paged_forward(model, pools: dict, tokens: torch.Tensor,
                   pos0: torch.Tensor, block_tables: torch.Tensor,
                   true_len: torch.Tensor, use_kernel: bool = True,
-                  attention=None):
+                  attention=None, all_logits: bool = False):
     """Full model pass over a chunk of new tokens with paged KV.
 
     tokens [B, S]; pos0 [B]; block_tables [B, max_blocks]; true_len [B]
     new-token counts (slots beyond are ignored). Returns
     (last-valid-token logits [B, V], pools): the vocab projection runs
     only on each row's last pending token (logits_gather).
+    ``all_logits=True`` projects every chunk position instead ([B, S,
+    V]): the speculative verify needs the next-token distribution after
+    each draft slot; slots at or past ``true_len`` carry logits the
+    caller must not read.
     ``attention`` stands in for :func:`paged_attention_kernel` (same
     signature), for a harness that checks or times each layer's call.
 
@@ -455,11 +459,11 @@ def paged_forward(model, pools: dict, tokens: torch.Tensor,
     """
     with plain_norms(not use_kernel):
         return _paged_layers(model, pools, tokens, pos0, block_tables,
-                             true_len, use_kernel, attention)
+                             true_len, use_kernel, attention, all_logits)
 
 
 def _paged_layers(model, pools, tokens, pos0, block_tables, true_len,
-                  use_kernel, attention):
+                  use_kernel, attention, all_logits):
     b, s = tokens.shape
     dev = tokens.device
     ar = torch.arange(s, device=dev)
@@ -524,6 +528,9 @@ def _paged_layers(model, pools, tokens, pos0, block_tables, true_len,
                "vs": scales[1]}
     for n, t in new.items():
         _pool_write(pools[n], t.to(pools[n].dtype), plan)
+    if all_logits:
+        # speculative verify: every slot's next-token distribution
+        return model.unembed(x), pools
     # logits_gather: project only each row's last valid position
     idx = (true_len.long() - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=dev), idx]
@@ -627,3 +634,349 @@ def fused_decode_loop(model, pools: dict, tokens: torch.Tensor,
     if logits_out is not None and logits is not None:
         logits_out.copy_(logits)
     return out, steps, tokens, pos, active, remaining, pools
+
+
+def draft_prompt_lookup(hist: torch.Tensor, *, min_ngram: int,
+                        draft_len: int):
+    """Prompt-lookup (n-gram) drafter on the device (port of
+    ``deepspeed_tpu/inference/v2/paged.py:555``).
+
+    ``hist`` [B, H] is each row's recent committed history,
+    right-aligned (the newest token, the pending decode input, at column
+    H - 1) with -1 filling unused columns on the left. The drafter takes
+    the trailing ``min_ngram`` tokens, finds their latest earlier
+    occurrence in the window and proposes up to ``draft_len`` tokens
+    that followed it; a match too near the window's edge to have
+    ``draft_len`` followers is outranked by the latest match that has
+    them (a period-1 repeat would otherwise draft one token). Static
+    shapes, no host read.
+
+    Returns ``(draft [B, draft_len], eff [B] int32)``: ``eff`` counts
+    the proposed tokens that are real, 0 where no n-gram matched (the
+    verify then decodes one token). Real tokens are >= 0, so the -1
+    fill never matches."""
+    b, h = hist.shape
+    n, el = int(min_ngram), int(draft_len)
+    s = h - n                                  # candidate window starts
+    dev = hist.device
+    tail = hist[:, h - n:]                                      # [B, n]
+    widx = (torch.arange(s, device=dev)[:, None]
+            + torch.arange(n, device=dev)[None, :])             # [S, n]
+    win = hist[:, widx]                                         # [B, S, n]
+    match = ((win == tail[:, None, :]).all(-1)
+             & (win >= 0).all(-1))                              # [B, S]
+    starts = torch.arange(s, device=dev)[None, :]
+    none = torch.full_like(starts, -1)
+    best_full = torch.where(match & (starts <= s - el), starts,
+                            none).amax(-1)
+    best_any = torch.where(match, starts, none).amax(-1)
+    best = torch.where(best_full >= 0, best_full, best_any)     # [B]
+    hit = (best >= 0) & (tail >= 0).all(-1)
+    cont = best.clamp(min=0) + n            # first continuation column
+    avail = (h - cont).clamp(max=el)        # tokens following the match
+    didx = (cont[:, None] + torch.arange(el, device=dev)[None, :]).clamp(
+        0, h - 1)
+    draft = torch.gather(hist, 1, didx)                         # [B, el]
+    eff = torch.where(hit, avail, torch.zeros_like(avail))
+    return draft, eff.to(torch.int32)
+
+
+def append_history(hist: torch.Tensor, emitted: torch.Tensor,
+                   m: torch.Tensor) -> torch.Tensor:
+    """Shift each row of the right-aligned window ``hist`` [B, H] left
+    by ``m[b]`` and append the first ``m[b]`` columns of ``emitted``
+    [B, E] at its right edge (JAX ``paged.py:604``): one gather over the
+    concatenation, so the per-row advance needs no scatter. Rows with
+    m = 0 come back unchanged."""
+    h = hist.shape[1]
+    comb = torch.cat([hist, emitted.to(hist.dtype)], 1)
+    gidx = torch.arange(h, device=hist.device)[None, :] + m.long()[:, None]
+    return torch.gather(comb, 1, gidx)
+
+
+def _spec_tick(model, pools, tokens, pos, tables, active, remaining,
+               row_keys, hist, steps, *, draft_len: int, min_ngram: int,
+               eos: int, temperature: float, top_k: int, top_p: float,
+               use_kernel: bool = True):
+    """One speculative verify tick (JAX ``paged.py:617``), on its
+    operands in place as :func:`_fused_tick` works: draft by prompt
+    lookup -> one forward over [B, 1 + draft_len] with every slot's
+    logits -> sample each slot with its position's key -> accept the
+    leading exact matches -> commit 1..1 + draft_len tokens a row.
+
+    The sampled targets are the tokens a plain decode would sample
+    (greedy: the argmax; sampled: the position-keyed draw), so
+    acceptance only decides how many land a forward: the emitted tokens
+    equal spec-off decode's. Drafts are clamped to ``remaining - 1``,
+    so KV writes stay inside the reserved horizon. Draft slots write
+    their KV through the block table like a prefill chunk; a rejected
+    slot's stale KV lies at a position the next tick's chunk writes
+    again before any query can reach it (queries never look past their
+    own position).
+
+    Updates ``tokens``, ``pos``, ``remaining``, ``hist`` and ``active``
+    (rows end at EOS or budget); ``steps`` counts the tick when some
+    row is active at its start. Returns ``(target [B, 1 + draft_len],
+    m [B] int32 committed counts, stats [4] int32 = (proposed,
+    accepted, hit slots, live slots))``."""
+    from ...ops import sampling
+    el = int(draft_len)
+    dev = tokens.device
+    slots = torch.arange(1 + el, device=dev)
+    steps.add_(active.any().to(steps.dtype))
+    draft, eff = draft_prompt_lookup(hist, min_ngram=min_ngram,
+                                     draft_len=el)
+    zero = torch.zeros_like(eff)
+    eff = torch.minimum(eff, (remaining - 1).clamp(min=0))
+    eff = torch.where(active, eff, zero)
+    inputs = torch.cat([tokens[:, None], draft.to(tokens.dtype)], 1)
+    tl = torch.where(active, 1 + eff, zero)
+    logits, _ = paged_forward(model, pools, inputs, pos, tables, tl,
+                              use_kernel=use_kernel, all_logits=True)
+    # slot j samples the token at index pos + 1 + j with that position's
+    # key, the key the plain loop folds for it; the JAX loop is compiled,
+    # so its temperature is a reciprocal product
+    positions = pos.long()[:, None] + 1 + slots[None, :]
+    keys = sampling.position_keys(row_keys[:, None, :], positions)
+    target = sampling.sample_token_grid(
+        logits, keys, temperature=temperature, top_k=top_k, top_p=top_p,
+        reciprocal=True)                                        # [B, 1+L]
+    ok = (draft == target[:, :el]) & (slots[None, :el] < eff[:, None])
+    acc = torch.cumprod(ok.to(torch.int32), 1).sum(1).to(torch.int32)
+    m = torch.minimum(acc + 1, remaining)   # accepted run + correction
+    # EOS: emit up to and including the first eos
+    is_eos = (target == eos) & (slots[None, :] < m[:, None])
+    any_eos = is_eos.any(1)
+    first_eos = torch.argmax(is_eos.to(torch.int32), 1).to(torch.int32)
+    m = torch.where(any_eos, first_eos + 1, m)
+    m = torch.where(active, m, zero)
+    last = torch.gather(target, 1, (m.long() - 1).clamp(min=0)[:, None])
+    tokens.copy_(torch.where(active, last[:, 0], tokens))
+    pos.add_(m)
+    remaining.sub_(m)
+    hist.copy_(append_history(hist, target, m))
+    # drafts committed: the leading accepted run, unless an EOS cut the
+    # emission on an accepted draft (then every committed token was one)
+    used = torch.minimum(acc, m)
+    stats = torch.stack([eff.sum(), used.sum(), (eff > 0).sum(),
+                         active.sum()]).to(torch.int32)
+    active.logical_and_((remaining > 0) & ~any_eos)
+    return target, m, stats
+
+
+@torch.no_grad()
+def fused_spec_decode_loop(model, pools: dict, tokens: torch.Tensor,
+                           pos: torch.Tensor, block_tables: torch.Tensor,
+                           active: torch.Tensor, remaining: torch.Tensor,
+                           row_keys: torch.Tensor, hist: torch.Tensor, *,
+                           num_steps: int, draft_len: int, min_ngram: int,
+                           eos_id: int | None, temperature: float,
+                           top_k: int, top_p: float, use_kernel: bool = True,
+                           out=None, out_ptr=None, steps=None,
+                           spec_stats=None):
+    """:func:`fused_decode_loop` with speculative decoding (port of
+    ``deepspeed_tpu/inference/v2/paged.py:690``): each tick drafts up to
+    ``draft_len`` tokens from the row's history window ``hist`` [B, H]
+    (:func:`draft_prompt_lookup`), verifies them in one forward over
+    [B, 1 + draft_len] (:func:`_spec_tick`) and commits 1..1 + draft_len
+    tokens a row, so ``num_steps`` ticks emit up to ``num_steps * (1 +
+    draft_len)`` tokens a row for ``num_steps`` forwards.
+
+    Rows advance by different amounts, so each row writes its output
+    through its own pointer ``out_ptr``: ``out`` is [B, width + 1] with
+    width = num_steps * (1 + draft_len), and column ``width`` is a
+    trash column where the slots past a row's commit land (JAX drops
+    them); results are read without it. The carry operands are updated
+    in place, as in :func:`fused_decode_loop`; ``out`` (filled with -1),
+    ``out_ptr``, ``steps`` and ``spec_stats`` are zeroed and filled when
+    given. On the card a graph runs every tick it captured and
+    ``steps`` counts the ticks that started with a row active; on the
+    CPU the loop stops once no row is active, as JAX's does.
+
+    Returns ``(out [B, width], out_ptr [B], steps_run, tokens, pos,
+    active, remaining, hist, spec_stats [4] = (proposed, accepted, hit
+    slots, live slots), pools)``, the JAX loop's tuple."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    el = int(draft_len)
+    width = num_steps * (1 + el)
+    if out is None:
+        out = torch.full((b, width + 1), -1, dtype=torch.int64, device=dev)
+    else:
+        out.fill_(-1)
+
+    def zeroed(t, shape):
+        return (torch.zeros(shape, dtype=torch.int32, device=dev)
+                if t is None else t.zero_())
+
+    out_ptr = zeroed(out_ptr, (b,))
+    steps = zeroed(steps, ())
+    spec_stats = zeroed(spec_stats, (4,))
+    eos = -1 if eos_id is None else int(eos_id)
+    slots = torch.arange(1 + el, device=dev)
+    for _ in range(num_steps):
+        if dev.type == "cpu" and not bool(active.any()):
+            break                    # the CPU reads this for free
+        target, m, stats = _spec_tick(
+            model, pools, tokens, pos, block_tables, active, remaining,
+            row_keys, hist, steps, draft_len=el, min_ngram=min_ngram,
+            eos=eos, temperature=temperature, top_k=top_k, top_p=top_p,
+            use_kernel=use_kernel)
+        cols = torch.where(slots[None, :] < m[:, None],
+                           out_ptr.long()[:, None] + slots[None, :], width)
+        out.scatter_(1, cols, target)
+        out_ptr.add_(m)
+        spec_stats.add_(stats)
+    return (out[:, :width], out_ptr, steps, tokens, pos, active, remaining,
+            hist, spec_stats, pools)
+
+
+def _swap_in(swap, carry: dict, stage: dict) -> None:
+    """In-graph admission: where ``swap`` [B], each carry operand takes
+    its staged counterpart in place (tokens, positions, budgets, key
+    rows, table rows and, with speculation, the history window)."""
+    for name, t in carry.items():
+        sel = swap.reshape(-1, *([1] * (t.dim() - 1)))
+        t.copy_(torch.where(sel, stage[name], t))
+
+
+@torch.no_grad()
+def fused_serve_loop(model, pools: dict, tokens: torch.Tensor,
+                     pos: torch.Tensor, block_tables: torch.Tensor,
+                     active: torch.Tensor, remaining: torch.Tensor,
+                     row_keys: torch.Tensor, epoch: torch.Tensor,
+                     stage_tokens: torch.Tensor, stage_pos: torch.Tensor,
+                     stage_rem: torch.Tensor, stage_keys: torch.Tensor,
+                     stage_tables: torch.Tensor, stage_valid: torch.Tensor,
+                     ring: torch.Tensor, ring_epochs: torch.Tensor,
+                     ring_ptr: torch.Tensor, *, num_steps: int,
+                     eos_id: int | None, temperature: float, top_k: int,
+                     top_p: float, use_kernel: bool = True, steps=None):
+    """:func:`fused_decode_loop` with in-graph admission and an output
+    ring (ring mode; port of ``deepspeed_tpu/inference/v2/paged.py:841``).
+
+    Each row may carry one pre-staged request, a prompt the host already
+    prefilled and reserved blocks for (``stage_tokens``/``stage_pos``/
+    ``stage_rem``: its pending input, position and budget; ``stage_keys``
+    its key row; ``stage_tables`` its table row; ``stage_valid``: a stage
+    is attached). The tick a row's occupant ends (EOS or budget), the
+    staged request takes its place by an activity-mask swap of token,
+    position, budget, key row and table row, so a freed row refills
+    inside the loop; ``epoch`` [B] counts each row's swaps, so the host
+    can attribute the ring's tokens to their occupants. ``block_tables``
+    and ``row_keys`` are therefore carry here.
+
+    Sampled tokens land in ``ring`` [B, cap] at column ``ring_ptr +
+    tick`` with the occupant's epoch in ``ring_epochs``; ``ring_ptr`` []
+    advances by the ticks run, so a chain of dispatches fills one ring
+    that the host reads once. Every operand is updated in place; on the
+    card a graph runs every tick it captured, and a tick after the last
+    row ended writes -1 past the pointer. ``steps`` [] (zeroed first)
+    counts the ticks that started with a row active.
+
+    Returns ``(ring, ring_epochs, ring_ptr, tokens, pos, active,
+    remaining, row_keys, block_tables, epoch, stage_valid, pools)``, the
+    JAX loop's tuple."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    if steps is None:
+        steps = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        steps.zero_()
+    eos = -1 if eos_id is None else int(eos_id)
+    col_tokens = torch.empty((b,), dtype=torch.int64, device=dev)
+    carry = dict(tokens=tokens, pos=pos, remaining=remaining,
+                 row_keys=row_keys, tables=block_tables)
+    stage = dict(tokens=stage_tokens, pos=stage_pos, remaining=stage_rem,
+                 row_keys=stage_keys, tables=stage_tables)
+    for step in range(num_steps):
+        if dev.type == "cpu" and not bool(active.any()):
+            break                    # the CPU reads this for free
+        was = active.clone()
+        _fused_tick(model, pools, tokens, pos, block_tables, active,
+                    remaining, row_keys, col_tokens, steps, eos=eos,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    use_kernel=use_kernel)
+        col = (ring_ptr.long() + step).reshape(1)
+        ring.index_copy_(1, col, col_tokens[:, None])
+        ring_epochs.index_copy_(
+            1, col, torch.where(was, epoch, -1)[:, None].to(
+                ring_epochs.dtype))
+        swap = was & ~active & stage_valid
+        _swap_in(swap, carry, stage)
+        epoch.add_(swap.to(epoch.dtype))
+        active.logical_or_(swap)
+        stage_valid.logical_and_(~swap)
+    ring_ptr.add_(steps)
+    return (ring, ring_epochs, ring_ptr, tokens, pos, active, remaining,
+            row_keys, block_tables, epoch, stage_valid, pools)
+
+
+@torch.no_grad()
+def fused_spec_serve_loop(model, pools: dict, tokens: torch.Tensor,
+                          pos: torch.Tensor, block_tables: torch.Tensor,
+                          active: torch.Tensor, remaining: torch.Tensor,
+                          row_keys: torch.Tensor, hist: torch.Tensor,
+                          epoch: torch.Tensor, stage_tokens: torch.Tensor,
+                          stage_pos: torch.Tensor, stage_rem: torch.Tensor,
+                          stage_keys: torch.Tensor,
+                          stage_tables: torch.Tensor,
+                          stage_hist: torch.Tensor,
+                          stage_valid: torch.Tensor, ring: torch.Tensor,
+                          ring_epochs: torch.Tensor, ring_ptr: torch.Tensor,
+                          spec_stats: torch.Tensor, *, num_steps: int,
+                          draft_len: int, min_ngram: int,
+                          eos_id: int | None, temperature: float,
+                          top_k: int, top_p: float, use_kernel: bool = True,
+                          steps=None):
+    """:func:`fused_serve_loop` with speculative decoding (port of
+    ``deepspeed_tpu/inference/v2/paged.py:756``): ``ring_ptr`` is per row
+    [B] (rows commit 1..1 + draft_len tokens a tick), ``hist`` rides the
+    carry and a swap replaces it with ``stage_hist`` (the staged
+    request's own history), and ``spec_stats`` [4] accumulates over the
+    whole chain (it is not zeroed here). ``ring`` is [B, cap + 1]: column
+    ``cap`` is the trash column where the slots past a row's commit land
+    (JAX drops them). ``steps`` [] (zeroed first) counts the ticks that
+    started with a row active.
+
+    Returns ``(ring, ring_epochs, ring_ptr, steps_run, tokens, pos,
+    active, remaining, row_keys, block_tables, hist, epoch, stage_valid,
+    spec_stats, pools)``, the JAX loop's tuple."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    el = int(draft_len)
+    if steps is None:
+        steps = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        steps.zero_()
+    eos = -1 if eos_id is None else int(eos_id)
+    slots = torch.arange(1 + el, device=dev)
+    cap = ring.shape[1] - 1
+    carry = dict(tokens=tokens, pos=pos, remaining=remaining,
+                 row_keys=row_keys, tables=block_tables, hist=hist)
+    stage = dict(tokens=stage_tokens, pos=stage_pos, remaining=stage_rem,
+                 row_keys=stage_keys, tables=stage_tables, hist=stage_hist)
+    for _ in range(num_steps):
+        if dev.type == "cpu" and not bool(active.any()):
+            break                    # the CPU reads this for free
+        was = active.clone()
+        target, m, stats = _spec_tick(
+            model, pools, tokens, pos, block_tables, active, remaining,
+            row_keys, hist, steps, draft_len=el, min_ngram=min_ngram,
+            eos=eos, temperature=temperature, top_k=top_k, top_p=top_p,
+            use_kernel=use_kernel)
+        cols = torch.where(slots[None, :] < m[:, None],
+                           ring_ptr.long()[:, None] + slots[None, :], cap)
+        ring.scatter_(1, cols, target)
+        ring_epochs.scatter_(1, cols, epoch[:, None].expand(b, 1 + el).to(
+            ring_epochs.dtype))
+        ring_ptr.add_(m)
+        swap = was & ~active & stage_valid
+        _swap_in(swap, carry, stage)
+        epoch.add_(swap.to(epoch.dtype))
+        active.logical_or_(swap)
+        stage_valid.logical_and_(~swap)
+        spec_stats.add_(stats)
+    return (ring, ring_epochs, ring_ptr, steps, tokens, pos, active,
+            remaining, row_keys, block_tables, hist, epoch, stage_valid,
+            spec_stats, pools)

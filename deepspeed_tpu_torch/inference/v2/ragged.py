@@ -403,12 +403,29 @@ class DSStateManager:
         seq.blocks.extend(self.allocator.allocate(need))
         return need
 
+    def history_tail(self, uid: int, window: int) -> np.ndarray:
+        """The last ``window`` committed tokens (the pending one
+        included), right-aligned in a [window] int64 row with -1 filling
+        the unused leading columns: the prompt-lookup drafter's seed.
+        Prefix-cache-matched prompt blocks are in ``seq.tokens`` like any
+        other committed token, so a cache-hit admission seeds the window a
+        cold one would."""
+        row = np.full((window,), -1, np.int64)
+        toks = self.seqs[uid].tokens[-window:]
+        if toks:
+            row[window - len(toks):] = toks
+        return row
+
     def commit_device_tokens(self, uid: int, tokens: list[int]) -> None:
         """Append tokens a fused dispatch generated on the device. Their KV
         entries (all but the last token's) were already written there, so
         ``seen`` advances with the history: afterwards exactly the last
         generated token is pending, the next dispatch's input. Blocks must
-        have been preallocated with :meth:`reserve`."""
+        have been preallocated with :meth:`reserve`. The commit's length
+        varies: a speculative dispatch lands 1..1 + draft_len tokens a row
+        a tick, so callers pass what the row's write pointer says; the
+        single pending input before the call and the reserved horizon
+        are the only invariants."""
         if not tokens:
             return
         seq = self.seqs[uid]

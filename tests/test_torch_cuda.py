@@ -1697,3 +1697,197 @@ def test_fused_generate_on_the_card_matches_per_tick_and_cpu(cuda):
     assert a == gpu.generate_fused(FUSED_PROMPTS, k_steps=4, **kw)
     assert a == cpu.generate_fused(FUSED_PROMPTS, k_steps=2, **kw)
     assert gpu.free_blocks == FUSED_CFG["num_kv_blocks"]
+
+
+# ---------------------------------------------------------------------
+# speculative decoding and ring mode as CUDA graphs
+# ---------------------------------------------------------------------
+
+# the verify forward's shape on Llama-3-8B: S_new = 1 + draft_len (3) a
+# row, rows = 4 x 32 / 8 = 16 (decode_split), true_len ragged in one call;
+# contexts mid-block, empty and past several 128-key splits
+VERIFY = dict(b=8, sq=4, hq=32, hkv=8, d=128, bs=64,
+              pos0=[37, 0, 200, 129, 63, 1000, 511, 64],
+              true_len=[4, 1, 3, 0, 2, 4, 1, 4])
+SPEC_CFG = {"enabled": True, "draft_len": 3, "min_ngram": 2,
+            "history_window": 64}
+# the tiny llama's greedy continuation of [1, 2, 3] * 6 repeats itself
+# (see _looping), so drafts land
+SPEC_PROMPTS = [[1, 2, 3] * 6, [9, 8, 7], [6, 7, 8, 9, 10, 11]]
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8_head", "fp8_token"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_paged_kernel_at_the_verify_shape(cuda, dtype, pool):
+    """The paged kernel at the speculative verify's shape (B 8, S_new 4,
+    Hq 32, Hkv 8, D 128, true_len [4, 1, 3, 0, 2, 4, 1, 4]): decode_split,
+    causal inside the fresh chunk, rows past true_len zero, a rerun bit
+    for bit, against plain at the dtype's tolerance over fp, int8 and fp8
+    pools."""
+    x = _case(cuda, dtype, **VERIFY)
+    assert _plan(x)["variant"] == "decode_split"
+    scales = {}
+    if pool != "fp":
+        kv_dtype, gran = pool.split("_")
+        hs = x["k_pool"].shape[2] if gran == "head" else 1
+        for p_, s_ in (("k_pool", "k_scale"), ("v_pool", "v_scale")):
+            x[p_], scales[s_] = kv_quantize(x[p_], kv_dtype, hs)
+    got = paged.paged_attention_kernel(*x.values(), **scales)
+    again = paged.paged_attention_kernel(*x.values(), **scales)
+    assert paged.paged_attention_kernel.variant == "decode_split"
+    ref = paged.paged_attention_plain(*x.values(), **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for b, n in enumerate(VERIFY["true_len"]):
+        assert not got[b, n:].any()
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def _looping(engine, prompts, n=14):
+    """``prompts`` followed by their first ``n`` greedy tokens: the tiny
+    model's continuation then repeats what the history holds, so drafts
+    land from the first tick."""
+    gen = engine.generate(prompts, max_new_tokens=n)
+    return [p + g for p, g in zip(prompts, gen)]
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_spec_graph_replay_matches_eager_bit_for_bit(cuda, sampled):
+    """One captured speculative dispatch against the same ticks run
+    eagerly on the same operands and pools (a budget that ends a row
+    inside the dispatch, a pad row): tokens, pointers, steps, spec
+    counters, carry, history and pools equal bit for bit."""
+    cpu, (gpu,) = _fused_engines(cuda, speculative=SPEC_CFG)
+    uids = [0, 1, 2]
+    _at_dispatch_state(gpu, uids, _looping(cpu, SPEC_PROMPTS))
+    sampling = (tuple(FUSED_SAMPLING.values()) if sampled
+                else (0.0, 0, 0.0))
+    state = gpu._spec_operands(uids, 4, {0: 16, 1: 3, 2: 16}, 13)
+    before = {n: t.clone() for n, t in state.tensors().items()}
+    pools0 = {n: t.clone() for n, t in gpu.pools.items()}
+    result = gpu._spec_fn(state, 4, *sampling, None)()
+    toks_g, steps_g = result.read()
+    ptr_g, stats_g = result.spec()
+    graph = {n: t.clone() for n, t in state.tensors().items()}
+    pools_g = {n: t.clone() for n, t in gpu.pools.items()}
+    for src, dst in ((pools0, gpu.pools), (before, state.tensors())):
+        for n, t in dst.items():
+            t.copy_(src[n])
+    gpu._spec_eager(state, 4, eos_id=None, min_ngram=2,
+                    **dict(zip(("temperature", "top_k", "top_p"), sampling)))
+    torch.cuda.synchronize()
+    width = 4 * 4
+    assert (toks_g == state.out[:, :width].cpu().numpy()).all()
+    assert steps_g == int(state.steps) == 4
+    assert (ptr_g == state.out_ptr.cpu().numpy()).all() and ptr_g[1] == 3
+    assert (stats_g == state.spec_stats.cpu().numpy()).all()
+    assert (toks_g[3] == -1).all() and ptr_g[3] == 0
+    if not sampled:
+        assert stats_g[1] > 0 and ptr_g[0] > 4       # drafts landed
+    for n, t in state.tensors().items():
+        ref = graph[n][:, :width] if n == "out" else graph[n]
+        got = t[:, :width] if n == "out" else t
+        assert torch.equal(got, ref), n
+    for n, t in gpu.pools.items():
+        assert torch.equal(t, pools_g[n]), n
+
+
+def _ring_chain_state(engine, cpu, spec: bool):
+    """A ring-mode chain's state on ``engine``: rows 0 and 1 live (budgets
+    2 and 9), uid 2 staged for row 0 and uid 3 for row 1."""
+    from deepspeed_tpu_torch.inference.v2.serve_loop import (FusedServeLoop,
+                                                             ServeRequest)
+    prompts = _looping(cpu, SPEC_PROMPTS[:2]) + [[4, 5, 4, 5], [6, 7]]
+    budgets = {0: 2, 1: 9, 2: 9, 3: 4}
+    _at_dispatch_state(engine, list(budgets), prompts)
+    for u, n in budgets.items():
+        engine.state_manager.reserve(u, n)
+    loop = FusedServeLoop(engine, k_steps=6)
+    if not spec:
+        loop.set_draft_len(0)
+        loop._apply_pending_draft()
+    loop.staged = {u: ServeRequest(uid=u, prompt=prompts[u],
+                                   max_new_tokens=budgets[u])
+                   for u in (2, 3)}
+    return loop, loop._serve_operands([0, 1], {0: 2, 1: 9}, {0: 2, 1: 3})
+
+
+@pytest.mark.parametrize("spec", [False, True])
+def test_ring_graph_replay_matches_eager_bit_for_bit(cuda, spec):
+    """One captured ring-mode dispatch (plain and speculative) against
+    the same ticks run eagerly: the ring and its epochs (the trash column
+    aside), pointers, steps, every carry and stage operand and the pools
+    equal bit for bit; row 0's staged request took the row on the
+    device (epoch 1), and the chain's one read says so."""
+    cpu, (gpu,) = _fused_engines(cuda, fused_admission=True,
+                                 max_ragged_sequence_count=2,
+                                 speculative=SPEC_CFG)
+    loop, state = _ring_chain_state(gpu, cpu, spec)
+    before = {n: t.clone() for n, t in state.tensors().items()}
+    pools0 = {n: t.clone() for n, t in gpu.pools.items()}
+    loop.fn(state, 6, *FUSED_SAMPLING.values(), None)()
+    graph = {n: t.clone() for n, t in state.tensors().items()}
+    pools_g = {n: t.clone() for n, t in gpu.pools.items()}
+    for src, dst in ((pools0, gpu.pools), (before, state.tensors())):
+        for n, t in dst.items():
+            t.copy_(src[n])
+    kw = dict(eos_id=None, **FUSED_SAMPLING)
+    if spec:
+        kw["min_ngram"] = 2
+    gpu._serve_eager(state, 6, **kw)
+    torch.cuda.synchronize()
+    for n, t in state.tensors().items():
+        if n in ("ring", "ring_epochs"):
+            t, graph[n] = t[:, :-1], graph[n][:, :-1]
+        assert torch.equal(t, graph[n]), n
+    for n, t in gpu.pools.items():
+        assert torch.equal(t, pools_g[n]), n
+    rd = state.read()
+    assert rd["epoch"][0] == 1 and (rd["ring_epochs"][0] == 1).any()
+    assert int(rd["chain_steps"]) == 6 and state.reads == 1
+
+
+def test_spec_launch_counts_include_replays(cuda):
+    """A spec graph's replays add their launches: paged L x ticks, all
+    decode_split at the verify shape; norms (2L + 1) x ticks."""
+    from deepspeed_tpu_torch.ops import norms as N
+    cpu, (gpu,) = _fused_engines(cuda, speculative=SPEC_CFG)
+    layers = gpu.model.config.num_layers
+    _at_dispatch_state(gpu, [0, 1], _looping(cpu, SPEC_PROMPTS[:2]))
+    state = gpu._spec_operands([0, 1], 3, {0: 40, 1: 40}, 0)
+    fn = gpu._spec_fn(state, 3, 0.0, 0, 0.0, None)
+    before = (paged.paged_attention_kernel.launches,
+              dict(paged.paged_attention_kernel.variant_launches),
+              N.rms_norm_kernel.launches)
+    for _ in range(2):
+        fn().read()
+    by = paged.paged_attention_kernel.variant_launches
+    assert paged.paged_attention_kernel.launches - before[0] == 2 * 3 * layers
+    assert by["decode_split"] - before[1].get("decode_split", 0) \
+        == 2 * 3 * layers
+    assert N.rms_norm_kernel.launches - before[2] == 2 * 3 * (2 * layers + 1)
+    cap = gpu.graph_captures[-1]
+    assert cap["mode"] == "spec3" and cap["launches_by_variant"][
+        "paged_attention_kernel"] == {"decode_split": 3 * layers}
+
+
+def test_spec_and_ring_on_the_card_match_per_tick_and_the_cpu(cuda):
+    """fp32: spec chain, ring and spec ring generate_fused on the card
+    give the per-tick generate()'s greedy tokens and the CPU engines';
+    sampled spec chain tokens equal the CPU's and plain chain's."""
+    cpu, _ = _fused_engines(cuda)
+    prompts = _looping(cpu, SPEC_PROMPTS)
+    ref = cpu.generate(prompts, max_new_tokens=12)
+    for over in (dict(speculative=SPEC_CFG), dict(fused_admission=True),
+                 dict(fused_admission=True, speculative=SPEC_CFG)):
+        cpu_m, (gpu,) = _fused_engines(cuda, **over)
+        got = gpu.generate_fused(prompts, max_new_tokens=12, k_steps=3)
+        assert got == ref == cpu_m.generate_fused(prompts, 12, k_steps=3)
+        assert gpu.free_blocks == FUSED_CFG["num_kv_blocks"]
+    kw = dict(max_new_tokens=8, seed=13, **FUSED_SAMPLING)
+    cpu_s, (gpu,) = _fused_engines(cuda, speculative=SPEC_CFG)
+    a = gpu.generate_fused(prompts, k_steps=2, **kw)
+    assert a == cpu_s.generate_fused(prompts, k_steps=4, **kw)
+    assert a == cpu.generate_fused(prompts, k_steps=2, **kw)

@@ -191,14 +191,12 @@ def test_config_rejects_unknown_keys_and_takes_aliases():
 
 
 # the ROADMAP item a refusal names, by its key (others: the feature name)
-_ITEMS = {"fused_admission": "item 6", "speculative": "item 6",
-          "sentinels": "item 15", "sentinel_mode": "item 15",
+_ITEMS = {"sentinels": "item 15", "sentinel_mode": "item 15",
           "graftsan": "item 15", "meshsan": "item 15", "numsan": "item 15"}
 
 
 @pytest.mark.parametrize("setting", [
-    {"tensor_parallel": {"tp_size": 2}}, {"speculative": {"enabled": True}},
-    {"fused_admission": True}, {"quantize_weights": True},
+    {"tensor_parallel": {"tp_size": 2}}, {"quantize_weights": True},
     {"quantize_moe_experts": True},
     {"sentinels": True}, {"sentinel_mode": "warn"},
     {"graftsan": {"enabled": True}}, {"meshsan": {"axes": ["tp"]}},
