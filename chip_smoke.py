@@ -121,7 +121,24 @@ Phases, each fatal on failure:
      chain mode (agreement reported); on phase 17's fp32 4-layer engine
      the three modes' greedy tokens equal to generate() and to chain mode
      under the near-tie rule (a differing token's top-2 margin below
-     1e-4), and sampled spec chain equal to chain at K 2 and 8.
+     1e-4), and sampled spec chain equal to chain at K 2 and 8;
+ 19. the serving front end on phase 4's engine (K 8, depth 2): (a) KV
+     export/import of a 700-token prompt to a twin engine (the same
+     model, its own pools): the payload bit-equal on the importer, every
+     slab at its address, bytes a token = kv_bytes_per_token, 32 greedy
+     tokens continued there equal to the never-moved run; export and
+     import ms against the prefill's; again on Path Q's int8 engine and
+     on fp8 pools; (b) AsyncInferenceServer: the 8 requests at once, then
+     16 at seeded gaps, TTFT and ITL p50/p99 from the handles' token
+     times, tokens/s, every launch decode_split / prefill_wgmma and
+     cta_row, a cancel that frees its blocks, a clean stop(); (c)
+     InferenceRouter over two decode replicas with a PrefillEngine
+     (disaggregated): Path Q's 8 requests, the router's counters, TTFT
+     and ITL, the migrated bytes held to the payloads', then a replica
+     killed mid-run and its requests rerouted to completion; (d) on
+     phase 17's fp32 4-layer engine the server's streams equal
+     generate_fused and the router's the server's, under the near-tie
+     rule.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
 RMSNorm/LayerNorm kernels against their plain versions and times them at
@@ -135,7 +152,9 @@ remat), and each phase's launch check counts them; phases 4, 6, 8, 11,
 cta_row); the plain sides of phases 5 and 7 run plain norms. Phase 17
 runs right after phase 5 on phase 4's engine, phases 11-12 after it,
 beside that engine; phase 17's Path Q run follows phase 12 and its fp32
-check phase 16; phase 18 follows phase 17 on each engine. With --profile
+check phase 16; phase 18 follows phase 17 on each engine, and phase 19
+phase 18 (its int8/fp8 migrations after Path Q's phase 18, its fp32
+checks in the fp32 engine after phase 18's). With --profile
 it then traces a prefill tick and decode ticks of the serving path and of
 Path Q, one train_batch step, one step of Path T, five Path P calls, one
 fused dispatch of 8 ticks and one speculative dispatch of 8 verify ticks
@@ -982,11 +1001,8 @@ def path_q_main(dev, ref_engine, size="3-8b", n_req=8, max_new=32,
         f"cache: {time.perf_counter() - t:.1f} s")
     c = engine.model.config
     bs = cfg["kv_block_size"]
-    rng = np.random.default_rng(11)
-    prefix = rng.integers(0, c.vocab_size, prefix_len).tolist()
-    lens = rng.integers(suffix[0], suffix[1], n_req)
-    prompts = [prefix + rng.integers(0, c.vocab_size, n).tolist()
-               for n in lens]
+    prefix, lens, prompts = path_q_prompts(c.vocab_size, n_req, prefix_len,
+                                           suffix)
     serve(engine, [prefix], 2, dev)            # warm-up: publishes prefix
     norms = norm_counter(c)
     paged.paged_attention_kernel.launches = 0
@@ -1596,7 +1612,8 @@ def fused_fp32_parity(dev, size="3-8b", layers=4, n_req=4, max_new=16,
     """Phase 17, fp32: Llama-3-8B at full width cut to ``layers`` layers,
     fp32 (TF32 off): generate_fused must give generate()'s tokens, token
     for token. Then phase 18's checks on the same engine
-    (:func:`fp32_modes_parity`). Returns both phases' records."""
+    (:func:`fp32_modes_parity`) and phase 19's (:func:`front_fp32_parity`).
+    Returns the three phases' records."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import build_engine
     cfg = {"dtype": "float32", "kv_block_size": 64, "num_kv_blocks": 512,
@@ -1617,11 +1634,12 @@ def fused_fp32_parity(dev, size="3-8b", layers=4, n_req=4, max_new=16,
         raise AssertionError(f"fp32 generate_fused != generate: {rec}")
     modes = fp32_modes_parity(engine, dev, prompts, ref, got, max_new,
                               sample_new)
+    front = front_fp32_parity(engine, dev, prompts, got, max_new)
     del engine
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return rec, modes
+    return rec, modes, front
 
 
 # ----------------------------------------------------------- phase 18
@@ -2074,6 +2092,500 @@ def spec_path_q(engine, dev, path_q, k=8):
         greedy_agreement_mean=sum(horizon) / len(horizon))
     log(f"[spec] Path Q {json.dumps(stats)}")
     return stats
+
+
+# ----------------------------------------------------------- phase 19
+# the serving front end: KV migration between engines, the async server,
+# the prefix-affinity router with a disaggregated prefill engine
+def twin_engine(engine, **over):
+    """An engine of ``engine``'s config (``over`` replaced) over its model:
+    the weights are shared, the pools (the same size) and graphs are its
+    own."""
+    import dataclasses
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    return InferenceEngineV2(engine.model,
+                             dataclasses.replace(engine._config, **over),
+                             params=engine.params)
+
+
+def release_engine(engine, dev) -> None:
+    """Drop an engine's graphs and pools now (a dispatch function refers
+    back to its state, a cycle only the collector breaks)."""
+    for states in (engine._fused_states, engine._ring_states):
+        for state in states.values():
+            state.release()
+        states.clear()
+    engine.pools.clear()
+    gc.collect()
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+
+
+def reset_counts(c):
+    """Set the serving kernels' launch counts to 0; returns the norm
+    counter."""
+    from deepspeed_tpu_torch.inference.v2 import paged
+    paged.paged_attention_kernel.launches = 0
+    paged.paged_attention_kernel.variant_launches = {}
+    norms = norm_counter(c)
+    reset_norms(norms)
+    return norms
+
+
+def read_counts(norms) -> dict:
+    from deepspeed_tpu_torch.inference.v2 import paged
+    return dict(launches=paged.paged_attention_kernel.launches,
+                launches_by_variant=dict(
+                    paged.paged_attention_kernel.variant_launches),
+                norm_launches=norms.launches,
+                norm_launches_by_variant=dict(norms.variant_launches))
+
+
+def serve_imported(engine, state, max_new: int) -> list:
+    """A migrated sequence continued alone through generate_fused's loop
+    (FusedServeLoop, strict): its tokens, the carried first one included."""
+    from deepspeed_tpu_torch.inference.v2.serve_loop import FusedServeLoop
+    loop = FusedServeLoop(engine, strict=True)
+    loop.submit_imported(state, max_new, emit_carried=True)
+    out = []
+    while loop.has_work():
+        for evt in loop.step():
+            out.extend(evt.tokens)
+    return out
+
+
+def migration_check(a, dev, prompt, label, max_new=32, rounds=3):
+    """Phase 19a on ``a``'s pools: ``prompt`` prefilled on ``a``
+    (prefill_request) and exported at its dispatch boundary, imported into
+    a twin engine ``b`` (:func:`twin_engine`) and continued there; then
+    ``rounds`` - 1 more migrations of the prompt with every token shifted
+    by the round (no prefix-cache hit), each payload dropped after its
+    import, so that pinned host memory is reused as in a running server:
+    the last one is timed (the first pays for the pinned allocation).
+    Held: b's gathered blocks equal the payload bit for bit, every pool
+    slab of b keeps its address, bytes a token equal kv_bytes_per_token,
+    both engines' free blocks come back, and ``max_new`` greedy tokens
+    continued on b through generate_fused's loop equal the never-moved
+    run's, token for token (one request alone: the same shapes, so the
+    same kernels and GEMMs). The never-moved run is a's generate_fused, or
+    b's before the import where the prefix cache is on (a's own run would
+    publish the prompt's blocks, and the migration's prefill would reuse
+    them). Reported: export and import ms on the host clock (synchronized)
+    against the prefill's, the payload, and the continuation's launches by
+    variant (the counts set to 0 just before it)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import paged
+    b = twin_engine(a)
+    free0 = (a.free_blocks, b.free_blocks)
+    ref_engine = b if a.state_manager.cache is not None else a
+    ref = ref_engine.generate_fused([prompt], max_new_tokens=max_new)[0]
+    bad, times = [], []
+    vocab = a.model.config.vocab_size
+
+    def migrate(r):
+        uid = 190_000 + r
+        sync(dev)
+        t = time.perf_counter()
+        t0 = a.prefill_request(uid, [(x + r) % vocab for x in prompt])
+        sync(dev)
+        t1 = time.perf_counter()
+        st = a.export_request(uid, n_generated=1, source=label)
+        t2 = time.perf_counter()
+        ptrs = {k: v.data_ptr() for k, v in b.pools.items()}
+        sync(dev)
+        t3 = time.perf_counter()
+        tok = b.import_request(uid, st)
+        sync(dev)
+        t4 = time.perf_counter()
+        times.append((t1 - t, t2 - t1, t4 - t3))
+        idx = torch.tensor(b.state_manager.seqs[uid].blocks[
+            :st.payload_blocks], device=dev)
+        for k, v in b.pools.items():
+            got = paged.indexable(v).index_select(1, idx).cpu()
+            if not torch.equal(got, paged.indexable(st.payload[k])):
+                bad.append(f"{label}: slab {k} on b != the payload")
+        if {k: v.data_ptr() for k, v in b.pools.items()} != ptrs:
+            bad.append(f"{label}: the import moved a pool slab")
+        if tok != t0 or r == 0 and t0 != ref[0]:
+            bad.append(f"{label}: first tokens {tok}, {t0}, {ref[0]}")
+        b.flush(uid)
+        return st
+
+    st = migrate(0)
+    norms = reset_counts(a.model.config)
+    out = serve_imported(b, st, max_new)
+    counts = read_counts(norms)
+    payload = dict(
+        kv_dtype=st.kv_dtype, payload_blocks=st.payload_blocks,
+        payload_bytes=st.payload_bytes, bytes_per_token=st.bytes_per_token(),
+        pinned=all(t.is_pinned() for t in st.payload.values())
+        if dev.type == "cuda" else None)
+    del st
+    for r in range(1, rounds):
+        migrate(r)
+    if out != ref:
+        bad.append(f"{label}: continuation after the migration "
+                   f"{agreement([out], [ref])} tokens agree, not {max_new}")
+    if payload["bytes_per_token"] != a.kv_bytes_per_token():
+        bad.append(f"{label}: {payload['bytes_per_token']} B a token on the "
+                   f"wire != kv_bytes_per_token {a.kv_bytes_per_token()}")
+    if (a.free_blocks, b.free_blocks) != free0:
+        bad.append(f"{label}: free blocks {a.free_blocks}, {b.free_blocks} "
+                   f"!= {free0} after the flushes")
+    if dev.type == "cuda" and (
+            set(counts["launches_by_variant"]) - set(NEW_PAGED_VARIANTS)
+            or not counts["launches"]):
+        bad.append(f"{label}: continuation's paged launches {counts}")
+    prefill_s, export_s, import_s = times[-1]
+    nbytes = payload["payload_bytes"]
+    rec = dict(
+        prompt_tokens=len(prompt), **payload,
+        kv_bytes_per_token=a.kv_bytes_per_token(),
+        prefill_ms=1e3 * prefill_s, export_ms=1e3 * export_s,
+        import_ms=1e3 * import_s,
+        export_gb_per_s=nbytes / export_s / 1e9,
+        import_gb_per_s=nbytes / import_s / 1e9,
+        rounds_ms=[{"prefill": 1e3 * p, "export": 1e3 * e,
+                    "import": 1e3 * i} for p, e, i in times],
+        continuation_tokens=len(out), continuation_equal=out == ref,
+        never_moved_on="b" if ref_engine is b else "a",
+        continuation_launches_by_variant=counts["launches_by_variant"],
+        continuation_norm_launches_by_variant=counts[
+            "norm_launches_by_variant"])
+    release_engine(b, dev)
+    log(f"[front] migration {label} {json.dumps(rec)}")
+    if bad:
+        raise AssertionError("phase 19a: " + "; ".join(bad))
+    return rec
+
+
+def latency(runs) -> dict:
+    """TTFT and ITL of streamed requests, each (submit time, token
+    times): p50 and p99 over the requests of the time to the first token
+    and of the mean gap between tokens (as the handles yield them), ms,
+    and tokens/s over the run's wall."""
+    ttft = [1e3 * (times[0] - sub) for sub, times in runs]
+    itl = [1e3 * (times[-1] - times[0]) / (len(times) - 1)
+           for _, times in runs if len(times) > 1]
+    wall = max(t[-1] for _, t in runs) - min(s for s, _ in runs)
+    pct = lambda v, q: float(np.percentile(v, q))  # noqa: E731
+    return dict(ttft_ms_p50=pct(ttft, 50), ttft_ms_p99=pct(ttft, 99),
+                itl_ms_p50=pct(itl, 50), itl_ms_p99=pct(itl, 99),
+                tokens=sum(len(t) for _, t in runs), wall_s=wall,
+                tokens_per_s=sum(len(t) for _, t in runs) / wall)
+
+
+async def stream_requests(front, prompts, max_new: int, arrivals=None):
+    """Submit ``prompts`` to a server or router (all at once, or each at
+    its ``arrivals`` offset in seconds) and stream them. Returns the
+    tokens and, per request, (submit time, token times)."""
+    import asyncio
+    t_start = time.perf_counter()
+
+    async def one(i, prompt):
+        if arrivals is not None:
+            await asyncio.sleep(max(0.0, t_start + arrivals[i]
+                                    - time.perf_counter()))
+        sub = time.perf_counter()
+        handle = await front.submit(prompt, max_new_tokens=max_new)
+        toks, times = [], []
+        async for tok in handle:
+            toks.append(tok)
+            times.append(time.perf_counter())
+        return toks, (sub, times)
+
+    done = await asyncio.gather(*[one(i, p) for i, p in enumerate(prompts)])
+    return [d[0] for d in done], [d[1] for d in done]
+
+
+def timed_calls(engine, name: str, sink: list) -> None:
+    """Wrap ``engine.<name>`` so that each call's host ms lands in
+    ``sink`` (an instance attribute; ``del engine.<name>`` takes it
+    off)."""
+    orig = getattr(engine, name)
+
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        out = orig(*args, **kw)
+        sink.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    setattr(engine, name, timed)
+
+
+def capture_buckets(engine, k: int, bbs, kbs) -> dict:
+    """Capture the chain-mode greedy decode graph of every (batch bucket,
+    table-width bucket) in ``bbs`` x ``kbs`` that ``engine`` lacks, ahead
+    of open-loop traffic, which meets buckets a closed loop does not (the
+    graphs then replay from the server's worker). Returns how many were
+    captured and their ms."""
+    first = len(engine.graph_captures)
+    sampling = engine._sampling_args(None, None, None, None)
+    for bb in bbs:
+        for kb in kbs:
+            engine._fused_fn(engine._fused_state(bb, kb, k), k, *sampling)
+    new = engine.graph_captures[first:]
+    return dict(graphs=len(new),
+                capture_ms=sum(g["capture_ms"] for g in new))
+
+
+def path_q_prompts(vocab: int, n_req=8, prefix_len=512, suffix=(100, 401)):
+    """Path Q's requests: a shared ``prefix_len``-token system prompt and
+    each request's own suffix (seeded)."""
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, vocab, prefix_len).tolist()
+    lens = rng.integers(suffix[0], suffix[1], n_req)
+    return prefix, lens, [prefix + rng.integers(0, vocab, n).tolist()
+                          for n in lens]
+
+
+def serving_front_main(engine, dev, prompts, fused_outputs, max_new=32, k=8,
+                       arrivals=16, arrival_lens=(100, 701), gap_s=0.05,
+                       q_prompts=None, router_max_new=None):
+    """Phase 19 b and c on phase 4's engine (chain mode, K 8, chain depth
+    2). b: AsyncInferenceServer over it serves phase 4's requests, all
+    submitted at once, then ``arrivals`` requests (prompts of
+    ``arrival_lens`` tokens, seeded) at seeded exponential gaps of mean
+    ``gap_s``, after the graphs of every bucket the traffic meets are
+    captured (:func:`capture_buckets`); then one request cancelled after 3
+    tokens. Held: every output full, every paged launch of the run
+    decode_split or prefill_wgmma and every norm cta_row (the counts set
+    to 0 just before and read just after), the cancelled request's blocks
+    back, stop() clean. Reported: TTFT and ITL p50/p99
+    (:func:`latency`), tokens/s, the greedy agreement with phase 17
+    (``fused_outputs``), the launches, the graphs captured before and
+    during the run. c: InferenceRouter over two decode replicas (this
+    engine and a twin, its graphs captured first) with a PrefillEngine
+    (another twin) and disaggregation on serves Path Q's 8 requests
+    (``q_prompts``), ``router_max_new`` (default ``max_new``) tokens
+    each, twice: the timed round, and a round in which the replica
+    serving the first request to stream its second token is killed. Held: every request ends with all its tokens, at least one
+    reroute, the migrated bytes equal the payloads' (blocks x block size
+    x kv_bytes_per_token), every engine's blocks back. Reported: the
+    router's counters, TTFT and ITL of the timed round, export ms and
+    import ms a hand-off."""
+    import asyncio
+    from deepspeed_tpu_torch.serving import (AsyncInferenceServer,
+                                             InferenceRouter, PrefillEngine,
+                                             RequestCancelled, RouterConfig,
+                                             ServingConfig)
+    c = engine.model.config
+    free0 = engine.free_blocks
+    rng = np.random.default_rng(19)
+    lens = rng.integers(arrival_lens[0], arrival_lens[1], arrivals)
+    arriving = [rng.integers(0, c.vocab_size, n).tolist() for n in lens]
+    offsets = np.cumsum(rng.exponential(gap_s, arrivals)).tolist()
+    bad = []
+
+    async def run_server():
+        async with AsyncInferenceServer(engine,
+                                        ServingConfig(k_steps=k)) as s:
+            burst, burst_t = await stream_requests(s, prompts, max_new)
+            spaced, spaced_t = await stream_requests(s, arriving, max_new,
+                                                     offsets)
+            h = await s.submit(prompts[1], max_new_tokens=4 * max_new)
+            got, cancelled = [], False
+            try:
+                async for tok in h:
+                    got.append(tok)
+                    if len(got) == 3:
+                        h.cancel()
+            except RequestCancelled:
+                cancelled = True
+            for _ in range(1000):
+                if engine.free_blocks == free0:
+                    break
+                await asyncio.sleep(0.01)
+            freed = engine.free_blocks == free0
+            m = s.metrics()
+        return burst, burst_t, spaced, spaced_t, (cancelled, got, freed), m
+
+    kbs = (4, 8, 16) if engine._config.kv_block_size == 64 else (16,)
+    captured = capture_buckets(engine, k, (1, 2, 4, 8), kbs)
+    graphs = len(engine.graph_captures)
+    norms = reset_counts(c)
+    t = time.perf_counter()
+    burst, burst_t, spaced, spaced_t, cancel, m = asyncio.run(run_server())
+    wall = time.perf_counter() - t
+    counts = read_counts(norms)
+    for o in burst + spaced:
+        if len(o) != max_new or not all(0 <= x < c.vocab_size for x in o):
+            bad.append(f"server output {o[:8]}... not {max_new} tokens")
+    if not (cancel[0] and cancel[2] and len(cancel[1]) < 4 * max_new):
+        bad.append(f"cancel: raised {cancel[0]}, {len(cancel[1])} tokens, "
+                   f"blocks back {cancel[2]}")
+    if engine.free_blocks != free0 or engine.state_manager.seqs:
+        bad.append(f"after stop(): {engine.free_blocks} free blocks of "
+                   f"{free0}, {len(engine.state_manager.seqs)} sequences")
+    if dev.type == "cuda" and (
+            set(counts["launches_by_variant"]) - set(NEW_PAGED_VARIANTS)
+            or sum(counts["launches_by_variant"].values())
+            != counts["launches"] or not counts["launches"]
+            or set(counts["norm_launches_by_variant"]) != {"cta_row"}
+            or counts["norm_launches"] == 0):
+        bad.append(f"server launches {counts}")
+    horizon = agreement(burst, fused_outputs)
+    server = dict(
+        requests=len(prompts), arriving=arrivals, new_tokens=max_new, k=k,
+        burst=latency(burst_t), spaced=latency(spaced_t),
+        arrival_gap_s_mean=gap_s, wall_s=wall, captured_before=captured,
+        graphs_captured_in_run=len(engine.graph_captures) - graphs,
+        greedy_agreement_vs_phase17=horizon,
+        greedy_agreement_mean=sum(horizon) / len(horizon),
+        cancelled_after=len(cancel[1]),
+        loop_counters={key: m[key] for key in (
+            "admitted", "preemptions", "cancellations", "chain_drains")},
+        dispatches_per_token=m["dispatches_per_token"],
+        fused_occupancy=m["fused_occupancy"], **counts)
+    log(f"[front] server {json.dumps(server)}")
+    if bad:
+        raise AssertionError("phase 19b: " + "; ".join(bad))
+
+    # c: the router, two decode replicas and a prefill engine
+    replica1, prefill = twin_engine(engine), twin_engine(engine)
+    engines = (engine, replica1, prefill)
+    replica_captured = capture_buckets(replica1, k, (1, 2, 4, 8), kbs)
+    frees = [e.free_blocks for e in engines]
+    export_ms, import_ms = [], []
+    timed_calls(prefill, "export_request", export_ms)
+    for e in (engine, replica1):
+        timed_calls(e, "import_request", import_ms)
+    if q_prompts is None:
+        q_prompts = path_q_prompts(c.vocab_size)[2]
+    bs = engine._config.kv_block_size
+    max_new = router_max_new or max_new
+
+    async def run_router():
+        reps = [AsyncInferenceServer(e, ServingConfig(k_steps=k))
+                for e in (engine, replica1)]
+        router = InferenceRouter(reps, RouterConfig(
+            disaggregation={"enabled": True}), prefill=PrefillEngine(
+                prefill))
+        async with router:
+            graphs = [len(e.graph_captures) for e in (engine, replica1)]
+            first, first_t = await stream_requests(router, q_prompts,
+                                                   max_new)
+            graphs = [len(e.graph_captures) - n
+                      for e, n in zip((engine, replica1), graphs)]
+            hs = [await router.submit(p, max_new_tokens=max_new)
+                  for p in q_prompts]
+            outs = [[] for _ in hs]
+
+            async def drain(i, h):
+                async for tok in h:
+                    outs[i].append(tok)
+
+            tasks = [asyncio.ensure_future(drain(i, h))
+                     for i, h in enumerate(hs)]
+            killed = None
+            while not all(t.done() for t in tasks):
+                if killed is None:
+                    hit = next((h.replica for i, h in enumerate(hs)
+                                if h.replica and len(outs[i]) >= 2), None)
+                    if hit is not None:
+                        dict(router.replicas)[hit].kill()
+                        killed = hit
+                await asyncio.sleep(0.002)
+            await asyncio.gather(*tasks)
+            m = router.metrics()
+        return (first, first_t, outs, killed, m, router.replica_errors,
+                graphs)
+
+    try:
+        first, first_t, second, killed, rm, errors, graphs = asyncio.run(
+            run_router())
+    finally:
+        for e in engines:
+            for name in ("export_request", "import_request"):
+                e.__dict__.pop(name, None)
+    want_bytes = 2 * sum(-(-len(p) // bs) for p in q_prompts) * bs \
+        * engine.kv_bytes_per_token()
+    for o in first + second:
+        if len(o) != max_new:
+            bad.append(f"routed request ended with {len(o)} tokens")
+    if killed is None or rm["reroutes"] < 1 or set(errors) != {killed}:
+        bad.append(f"kill: killed {killed}, reroutes {rm['reroutes']}, "
+                   f"replica errors {errors}")
+    if rm["migrated_bytes"] != want_bytes or \
+            rm["migrated_bytes"] != rm["prefill"]["exported_bytes"]:
+        bad.append(f"migrated bytes {rm['migrated_bytes']} != "
+                   f"{want_bytes} (exported {rm['prefill']})")
+    if [e.free_blocks for e in engines] != frees:
+        bad.append(f"free blocks {[e.free_blocks for e in engines]} != "
+                   f"{frees} after the router stopped")
+    router = dict(
+        requests=len(q_prompts), rounds=2, new_tokens=max_new,
+        killed=killed, replica_captured_before=replica_captured,
+        graphs_captured_in_timed_round=graphs,
+        prompt_tokens=[len(p) for p in q_prompts],
+        latency=latency(first_t),
+        counters={key: rm[key] for key in rm
+                  if key not in ("replicas", "prefill")},
+        replicas=rm["replicas"], prefill=rm["prefill"],
+        replica_errors=errors,
+        export_ms_per_handoff=float(np.mean(export_ms)),
+        import_call_ms_per_handoff=float(np.mean(import_ms)),
+        handoffs=len(export_ms), imports=len(import_ms),
+        migrated_bytes_per_token=rm["migrated_bytes"] / sum(
+            2 * -(-len(p) // bs) * bs for p in q_prompts))
+    log(f"[front] router {json.dumps(router)}")
+    del replica1, prefill, engines
+    gc.collect()
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("phase 19c: " + "; ".join(bad))
+    return dict(server=server, router=router)
+
+
+def front_fp32_parity(engine, dev, prompts, fused, max_new=16, k=8):
+    """Phase 19d on phase 17's fp32 4-layer engine (TF32 off), under the
+    near-tie rule: the async server's streams equal generate_fused's
+    (``fused``), and the router's disaggregated streams (a PrefillEngine
+    on a twin engine, the hand-off imported into this one) equal the
+    co-located server's."""
+    import asyncio
+    from deepspeed_tpu_torch.serving import (AsyncInferenceServer,
+                                             InferenceRouter, PrefillEngine,
+                                             RouterConfig, ServingConfig)
+
+    async def served():
+        async with AsyncInferenceServer(engine,
+                                        ServingConfig(k_steps=k)) as s:
+            return (await stream_requests(s, prompts, max_new))[0]
+
+    prefill = twin_engine(engine)
+
+    async def routed():
+        router = InferenceRouter(
+            [AsyncInferenceServer(engine, ServingConfig(k_steps=k))],
+            RouterConfig(disaggregation={"enabled": True}),
+            prefill=PrefillEngine(prefill))
+        async with router:
+            outs = (await stream_requests(router, prompts, max_new))[0]
+            return outs, router.metrics()["prefill_handoffs"]
+
+    t = time.perf_counter()
+    server = asyncio.run(served())
+    router, handoffs = asyncio.run(routed())
+    release_engine(prefill, dev)
+    rec = dict(requests=len(prompts), new_tokens=max_new,
+               server_equal_fused=server == fused,
+               router_equal_server=router == server,
+               server_vs_fused=first_differences(engine, prompts, server,
+                                                 fused),
+               router_vs_server=first_differences(engine, prompts, router,
+                                                  server),
+               prefill_handoffs=handoffs, seconds=time.perf_counter() - t)
+    log(f"[front] fp32 {json.dumps(rec)}")
+    far = [d for d in rec["server_vs_fused"] + rec["router_vs_server"]
+           if d["top2_margin"] >= NEAR_TIE]
+    if far or handoffs != len(prompts):
+        raise AssertionError(f"phase 19d, fp32: tokens differ past a "
+                             f"near-tie {far}, hand-offs {handoffs}")
+    return rec
 
 
 # ------------------------------------------------------------ phase 2
@@ -4331,6 +4843,13 @@ def main(argv=None) -> int:
                                profile=args.profile)
     spec = fused_modes_main(engine, dev, prompts, fused,      # phase 18
                             profile=args.profile)
+    t19 = time.perf_counter()
+    front = serving_front_main(engine, dev, prompts,          # phase 19
+                               fused["outputs"])
+    front["migration"] = {"bf16": migration_check(engine, dev, prompts[0],
+                                                  "bf16")}
+    front["seconds"] = time.perf_counter() - t19
+    migrated = prompts[0]
     del fused["outputs"], prompts
     q_engine, path_q = path_q_main(dev, engine)               # phase 11
     del engine
@@ -4341,14 +4860,26 @@ def main(argv=None) -> int:
         profile_main_path(q_engine, dev, label="path_q_")
     fused["path_q"] = fused_path_q(q_engine, dev, path_q)     # phase 17
     spec["path_q"] = spec_path_q(q_engine, dev, path_q)       # phase 18
-    del q_engine, path_q["outputs"], path_q["prompts"]
+    t19 = time.perf_counter()
+    front["migration"]["int8"] = migration_check(             # phase 19
+        q_engine, dev, migrated, "int8")
+    from deepspeed_tpu_torch.inference.v2 import KVCacheConfig
+    fp8 = twin_engine(q_engine, kv_cache=KVCacheConfig(
+        enabled=True, dtype="fp8", granularity="head", grow_pool=True))
+    front["migration"]["fp8"] = migration_check(fp8, dev, migrated, "fp8")
+    release_engine(fp8, dev)
+    front["seconds"] += time.perf_counter() - t19
+    del fp8, q_engine, path_q["outputs"], path_q["prompts"], migrated
     gc.collect()
     torch.cuda.empty_cache()
     fp16 = fp16_serving_main(dev, stats.pop("outputs"),       # phase 16
                              profile=args.profile)
     gc.collect()
     torch.cuda.empty_cache()
-    fused["fp32_parity"], spec["fp32"] = fused_fp32_parity(dev)  # 17, 18
+    (fused["fp32_parity"], spec["fp32"],                      # 17, 18, 19
+     front["fp32"]) = fused_fp32_parity(dev)
+    front["seconds"] += front["fp32"]["seconds"]
+    log(f"[front] phase 19: {front['seconds']:.1f} s")
     resident = torch.cuda.memory_allocated()
     log(f"[memory] after the serving phases: {resident / 2**30:.3f} GiB "
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB "
@@ -4462,6 +4993,15 @@ def main(argv=None) -> int:
                   for m in ("spec_chain", "ring", "spec_ring")},
               spec_path_q_launches_by_variant=spec["path_q"][
                   "launches_by_variant"],
+              front_main_path="AsyncInferenceServer, and the migrated "
+                              "continuations (phase 19)",
+              front_launches=front["server"]["launches"],
+              front_launches_by_variant=front["server"][
+                  "launches_by_variant"],
+              migration_launches_by_variant={
+                  kv: front["migration"][kv][
+                      "continuation_launches_by_variant"]
+                  for kv in ("bf16", "fp8")},
               main_path_fp32_rel_logits_err=rels["fp32_kernel_vs_reference"],
               main_path_bf16_layer_max_abs_err=rels[
                   "bf16_layer_max_abs_err"]),
@@ -4481,6 +5021,8 @@ def main(argv=None) -> int:
               library="gathered codes dequantized to bf16, then SDPA",
               main_path="Path Q",
               main_path_launches_by_variant=path_q["launches_by_variant"],
+              migration_launches_by_variant=front["migration"]["int8"][
+                  "continuation_launches_by_variant"],
               main_path_layer_max_abs_err={
                   kv: {dt: r["layer_max_abs_err"] for dt, r in rec.items()}
                   for kv, rec in q_rels.items()}),
@@ -4672,6 +5214,8 @@ def main(argv=None) -> int:
                 m: spec[m]["norm_launches_by_variant"]
                 for m in ("spec_chain", "ring", "spec_ring")},
             path_q_launches=path_q["norm_launches"],
+            front_launches_by_variant=front["server"][
+                "norm_launches_by_variant"],
             path_q_launches_by_variant=path_q["norm_launches_by_variant"],
             cases_max_err={"/".join(k): v for k, v in norm_errs.items()
                            if k[0] == "rms"}, cases=NORM_NOTE))
@@ -4692,6 +5236,7 @@ def main(argv=None) -> int:
     log(f"[main] serving {json.dumps(stats)} on {card}")
     log(f"[main] fused serving {json.dumps(fused)} on {card}")
     log(f"[main] spec and ring serving {json.dumps(spec)} on {card}")
+    log(f"[main] serving front end {json.dumps(front)} on {card}")
     log(f"[main] fp16 serving {json.dumps(fp16)} on {card}")
     log(f"[main] Path Q {json.dumps(path_q)} on {card}")
     log(f"[main] Path Q kernels vs plain {json.dumps(q_rels)}")

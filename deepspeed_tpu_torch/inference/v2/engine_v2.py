@@ -20,6 +20,12 @@ speculative decoding (``speculative.enabled``). It keeps the JAX engine's
 batch and table-width buckets: on the card each (mode, bucket, K,
 sampling setting) is one captured CUDA graph over operands at fixed
 addresses (``fused_graph.py``).
+
+KV migration (``export_request``, ``import_request``, and
+``prefill_request`` for a dedicated prefill engine) moves one sequence's
+KV blocks between engines at a dispatch boundary: the transport of
+disaggregated serving (``deepspeed_tpu_torch.serving``). The pools are
+written in place, since the captured graphs read them by address.
 """
 
 from __future__ import annotations
@@ -40,9 +46,10 @@ from ...runtime.config_utils import DeepSpeedConfigModel
 from .fused_graph import CapturedLoop, FusedState, RingState
 from .paged import (KERNEL_DTYPES, fused_decode_loop, fused_serve_loop,
                     fused_spec_decode_loop, fused_spec_serve_loop,
-                    paged_forward)
-from .ragged import (DSStateManager, PrefixCache, SequenceDescriptor,
-                     kv_block_bytes, quantized_block_budget)
+                    indexable, paged_forward)
+from .ragged import (DSStateManager, KVExportState, PrefixCache,
+                     SequenceDescriptor, kv_block_bytes,
+                     quantized_block_budget)
 
 # serving_metrics() schema, the JAX engine's: raw counters kept in
 # serving_stats (reset zeroes exactly these); the prefix-cache counters
@@ -551,6 +558,155 @@ class InferenceEngineV2:
             self.state_manager.flush(int(u))
             self._finished_stash.pop(int(u), None)
 
+    @property
+    def params(self):
+        """The model's parameters by JAX path; another engine built with
+        ``params=engine.params`` over the same model shares them."""
+        return self.model.params
+
+    # ------------------------------------------------------------------
+    # KV migration between engines: the blocks move, the prefill is not
+    # recomputed. The hand-off goes through the host (pinned memory).
+    def export_request(self, uid: int, *, n_generated: int = 0,
+                       source: str = "") -> KVExportState:
+        """Serialize one sequence's KV block set and release it here: the
+        blocks holding written KV (positions < seen) are gathered from
+        every pool slab (quantized codes and scales as stored), and the
+        sequence is flushed (with the prefix cache on, its published full
+        blocks stay warm in the LRU, as after a park). The sequence must
+        stand at a dispatch boundary, exactly one pending token, which
+        becomes the importing engine's first dispatch input.
+
+        On the card the gather is one ``index_select`` a slab on the
+        calling thread's current stream (the one that ran this engine's
+        dispatches), copied into pinned host memory, then one event
+        synchronize: the read is ordered after every dispatch that wrote
+        the blocks."""
+        mgr = self.state_manager
+        seq = mgr.seqs.get(int(uid))
+        if seq is None:
+            raise RuntimeError(f"export_request: unknown uid {uid}")
+        if seq.pending != 1:
+            raise RuntimeError(
+                f"export_request: sequence {uid} must have exactly one "
+                f"pending token (a dispatch boundary), got {seq.pending}")
+        bs = mgr.block_size
+        n_payload = min(-(-seq.seen // bs), len(seq.blocks))
+        payload = {}
+        if n_payload:
+            idx = torch.tensor(seq.blocks[:n_payload], dtype=torch.int64,
+                               device=self.device)
+            cuda = self.device.type == "cuda"
+            for k, pool in self.pools.items():
+                got = indexable(pool).index_select(1, idx)
+                if cuda:
+                    host = torch.empty(got.shape, dtype=got.dtype,
+                                       pin_memory=True)
+                    host.copy_(got, non_blocking=True)
+                    got = host
+                payload[k] = got.view(pool.dtype)
+            if cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                done.synchronize()
+        else:
+            # nothing written yet (a one-token prompt): the layout only
+            payload = {k: torch.zeros((v.shape[0], 0) + tuple(v.shape[2:]),
+                                      dtype=v.dtype)
+                       for k, v in self.pools.items()}
+        state = KVExportState(
+            tokens=list(seq.tokens), n_generated=int(n_generated),
+            seen=int(seq.seen), block_size=bs, kv_dtype=self.kv_dtype,
+            payload=payload, source=source or f"engine-{id(self):x}")
+        self.flush(int(uid))
+        return state
+
+    def import_request(self, uid: int, state: KVExportState) -> int:
+        """Admit a migrated sequence position-exactly: allocate blocks for
+        its full history, write the payload into them (quantized blocks
+        and scales land in their storage dtype) and publish the full-block
+        chain into this engine's prefix cache. Returns the pending input
+        token of the next fused dispatch. A layout mismatch, or a pool
+        that cannot hold the sequence, raises before any pool is touched;
+        a failure after the allocation flushes the uid.
+
+        The pools are written in place (``index_copy_`` on the block
+        axis), never rebound: every captured graph reads them by
+        address."""
+        mgr = self.state_manager
+        if state.kv_dtype != self.kv_dtype:
+            raise ValueError(
+                f"import_request: migrated KV dtype "
+                f"{state.kv_dtype!r} != this engine's "
+                f"{self.kv_dtype!r} — migration never converts "
+                "payload formats")
+        if state.block_size != mgr.block_size:
+            raise ValueError(
+                f"import_request: migrated block size "
+                f"{state.block_size} != {mgr.block_size}")
+        if set(state.payload) != set(self.pools):
+            raise ValueError(
+                f"import_request: payload slabs "
+                f"{sorted(state.payload)} != pool slabs "
+                f"{sorted(self.pools)}")
+        n_payload = state.payload_blocks
+        for k, a in state.payload.items():
+            pool = self.pools[k]
+            want = (pool.shape[0],) + tuple(pool.shape[2:])
+            got = (a.shape[0],) + tuple(a.shape[2:])
+            if want != got:
+                raise ValueError(
+                    f"import_request: payload slab {k!r} shape "
+                    f"{got} != pool layout {want}")
+            if a.dtype != pool.dtype or a.shape[1] != n_payload:
+                raise ValueError(
+                    f"import_request: payload slab {k!r} holds "
+                    f"{a.shape[1]} blocks of {a.dtype}, the pool "
+                    f"{n_payload} blocks of {pool.dtype}")
+        seq = mgr.import_sequence(int(uid), state.tokens, state.seen,
+                                  n_payload)
+        try:
+            if n_payload:
+                idx = torch.tensor(seq.blocks[:n_payload],
+                                   dtype=torch.int64, device=self.device)
+                for k, a in state.payload.items():
+                    src = indexable(a)
+                    src = src.to(self.device, non_blocking=src.is_pinned())
+                    indexable(self.pools[k]).index_copy_(1, idx, src)
+        except BaseException:
+            self.flush(int(uid))     # no leak on a failed scatter
+            raise
+        return int(state.tokens[-1])
+
+    def prefill_request(self, uid: int, prompt, *,
+                        temperature: Optional[float] = None,
+                        top_k: Optional[int] = None,
+                        top_p: Optional[float] = None,
+                        seed: int = 0) -> int:
+        """The producer half of disaggregated prefill: chunked prefill of
+        one prompt on this engine and its first generated token, leaving
+        the sequence at the dispatch-boundary state (one pending token)
+        that :meth:`export_request` ships, the state the serve loop's own
+        prefill reaches before its first fused dispatch. Returns the first
+        token."""
+        temperature, top_k, top_p, _ = self._sampling_args(
+            temperature, top_k, top_p, None)
+        uid = int(uid)
+        self.schedule([uid], [[int(t) for t in prompt]])
+        mgr = self.state_manager
+        try:
+            logits = None
+            while mgr.seqs[uid].pending:
+                logits = self._run([uid])
+            tok = self.sample_first_tokens(
+                {uid: logits[0]}, temperature, top_k, top_p, seed)[uid]
+            mgr.extend(uid, [tok])
+        except BaseException:
+            self.flush(uid)
+            raise
+        self.serving_stats["decoded_tokens"] += 1
+        return tok
+
     # ------------------------------------------------------------------
     # fused multi-step decode: K ticks a host dispatch, sampling and
     # termination on the device
@@ -771,7 +927,15 @@ class InferenceEngineV2:
         and returns ``result()``. Cached in ``state.graphs`` by mode,
         ticks and setting. On the card it replays a graph captured at its
         first call (and raises if capture or replay fails); on the CPU it
-        runs the loop eagerly."""
+        runs the loop eagerly.
+
+        The loops take ``num_steps`` = K, whatever the rows' budgets: a
+        graph runs every tick it holds, and one a tick count would make
+        an open-loop server, whose budgets take any value, capture up to
+        K graphs a bucket (~0.3-1.4 s each on the card), where the JAX
+        engine compiles one executable a (bucket, K). A tick with no live
+        row writes nothing and is not counted; on the CPU the loop stops
+        there."""
         key = (mode, num_steps, *loop_kw.values())
         fn = state.graphs.get(key)
         if fn is not None:
@@ -863,9 +1027,9 @@ class InferenceEngineV2:
         continuation, or a previous decode_fused). The generated tokens
         are committed; the last stays pending as the next dispatch's
         input. Returns {uid: [sampled tokens]} (a row that sampled
-        ``eos_id`` includes it and stops). The dispatch runs
-        ``min(k_steps, max budget)`` ticks, never more than a row can
-        use. With ``speculative.enabled`` each tick drafts and verifies
+        ``eos_id`` includes it and stops). The dispatch runs ``k_steps``
+        ticks whatever the budgets (:meth:`_dispatch_fn`). With
+        ``speculative.enabled`` each tick drafts and verifies
         (``paged.fused_spec_decode_loop``) and commits 1..1 + draft_len
         tokens a row, budget-capped."""
         uids = [int(u) for u in batch_uids]
@@ -880,15 +1044,12 @@ class InferenceEngineV2:
              for u in uids}
         st = self.serving_stats
         spec = cfg.speculative.enabled
-        ticks = min(k, max(max(b.values()), 1))
         if spec:
             state = self._spec_operands(uids, k, b, seed)
-            run = self._spec_fn(state, ticks, temperature, top_k, top_p,
-                                eos)
+            run = self._spec_fn(state, k, temperature, top_k, top_p, eos)
         else:
             state = self._fused_operands(uids, k, b, seed)
-            run = self._fused_fn(state, ticks, temperature, top_k, top_p,
-                                 eos)
+            run = self._fused_fn(state, k, temperature, top_k, top_p, eos)
         st["host_dispatches"] += 1
         st["fused_dispatches"] += 1
         result = run()

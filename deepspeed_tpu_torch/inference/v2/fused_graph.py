@@ -23,7 +23,8 @@ engine's jitted ``fused_decode_loop``, ``fused_spec_decode_loop``,
   state with every row inactive (it builds each kernel's library and
   changes neither the pools nor the state), then the capture. Replays
   count their kernel launches on the wrappers' counters (a wrapper counts
-  in Python, so only at capture; see :func:`launch_snapshot`).
+  in Python, so only at capture, into the capturing thread's tally; see
+  ``ops/launches.py``).
 
 On the card a loop replays a graph or raises: there is no eager fallback.
 On the CPU the states hold plain tensors and the engine runs the loops
@@ -32,15 +33,16 @@ eagerly over them.
 
 from __future__ import annotations
 
+import collections
 import copy
 import gc
+import threading
 import time
 
 import numpy as np
 import torch
 
-from ...ops import norms
-from . import paged
+from ...ops import launches
 
 # the operands a chain-mode dispatch loads, with their dtypes
 OPERANDS = {"tokens": torch.int64, "pos": torch.int32, "active": torch.bool,
@@ -51,45 +53,6 @@ STAGE_OPERANDS = {"epoch": torch.int32, "stage_valid": torch.bool,
                   "stage_tokens": torch.int64, "stage_pos": torch.int32,
                   "stage_rem": torch.int32, "stage_keys": torch.int64,
                   "stage_tables": torch.int32}
-
-
-def counted_wrappers() -> tuple:
-    """The kernel wrappers a serving forward calls, each counting its
-    launches in ``.launches`` and by variant in ``.variant_launches``."""
-    return (paged.paged_attention_kernel, norms.rms_norm_kernel,
-            norms.layer_norm_kernel)
-
-
-def launch_snapshot() -> list:
-    """Every counted wrapper's launches, by variant, and last variant."""
-    return [(w.launches, dict(w.variant_launches), w.variant)
-            for w in counted_wrappers()]
-
-
-def launch_delta(before: list, after: list) -> list:
-    """What the wrappers counted between two snapshots."""
-    return [(a[0] - b[0], {v: n - b[1].get(v, 0) for v, n in a[1].items()
-                           if n != b[1].get(v, 0)}, a[2])
-            for b, a in zip(before, after)]
-
-
-def restore_launches(snapshot: list) -> None:
-    """Set every counted wrapper back to ``snapshot``."""
-    for w, (n, by_variant, variant) in zip(counted_wrappers(), snapshot):
-        w.launches = n
-        w.variant_launches = dict(by_variant)
-        w.variant = variant
-
-
-def add_launches(delta: list) -> None:
-    """Count one replay of a graph whose capture counted ``delta``."""
-    for w, (n, by_variant, variant) in zip(counted_wrappers(), delta):
-        if not n:
-            continue
-        w.launches += n
-        for v, m in by_variant.items():
-            w.variant_launches[v] = w.variant_launches.get(v, 0) + m
-        w.variant = variant
 
 
 class _DeviceState:
@@ -331,6 +294,10 @@ class RingState(_DeviceState):
 # one warm-up stream a device: every stream cuBLAS runs on keeps a
 # workspace of its own for the process's life
 _WARM_STREAMS: dict = {}
+# one capture at a time in the process: engines serving on threads of
+# their own (the async server's worker, a prefill engine's) may each
+# capture, and two captures would share the warm-up stream
+_CAPTURE_LOCK = threading.Lock()
 
 
 class CapturedLoop:
@@ -346,12 +313,22 @@ class CapturedLoop:
     it: a dead reference cycle that holds another graph, collected in the
     middle of a capture, would destroy that graph there, and a graph's
     destruction is an operation the capture forbids (it invalidates the
-    capture)."""
+    capture).
+
+    Captures are serialized across threads (``_CAPTURE_LOCK``), and each
+    forbids unsafe CUDA calls on its own thread only
+    (``capture_error_mode="thread_local"``): another thread's engine may
+    go on allocating, launching and reading results meanwhile, on its own
+    pools and streams."""
 
     def __init__(self, state: _DeviceState, run, warm):
-        dev = state.device
-        if dev.type != "cuda":
+        if state.device.type != "cuda":
             raise ValueError("CapturedLoop needs CUDA operands")
+        with _CAPTURE_LOCK:
+            self._capture(state, run, warm)
+
+    def _capture(self, state: _DeviceState, run, warm) -> None:
+        dev = state.device
         torch.cuda.synchronize(dev)
         gc.collect()
         torch.cuda.empty_cache()     # as the capture's entry does
@@ -364,33 +341,30 @@ class CapturedLoop:
         with torch.cuda.stream(side):
             warm(state.idle_copy())
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = launch_snapshot()
         self.graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph):
+            # a capture launches nothing: its counts belong to each replay
+            with launches.tally() as recorded, \
+                    torch.cuda.graph(self.graph,
+                                     capture_error_mode="thread_local"):
                 run(state)
         finally:
             if collecting:
                 gc.enable()
-        after = launch_snapshot()
-        # a capture launches nothing: its counts belong to each replay
-        self.launches = launch_delta(before, after)
-        restore_launches(before)
         torch.cuda.synchronize(dev)
+        self.launches = dict(collections.Counter(recorded))
+        per, by = {}, {}
+        for (w, variant), n in self.launches.items():
+            per[w.__name__] = per.get(w.__name__, 0) + n
+            by.setdefault(w.__name__, {})[variant] = n
         self.stats = {
             "capture_ms": 1e3 * (time.perf_counter() - t),
             "pool_mib": (torch.cuda.memory_reserved(dev) - reserved)
             / 2**20,
-            "launches_per_replay": {
-                w.__name__: n for w, (n, _, _) in zip(counted_wrappers(),
-                                                      self.launches) if n},
-            "launches_by_variant": {
-                w.__name__: by for w, (_, by, _) in zip(counted_wrappers(),
-                                                        self.launches)
-                if by}}
+            "launches_per_replay": per, "launches_by_variant": by}
 
     def replay(self) -> None:
         self.graph.replay()
-        add_launches(self.launches)
+        launches.add(self.launches)

@@ -21,7 +21,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ...ops import op_builder
+from ...ops import launches, op_builder
 from ...ops.norms import plain_norms
 from ...ops.quantization import KV_STORE_DTYPES, kv_dequantize, kv_quantize
 
@@ -360,10 +360,7 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {err} "
             f"({lib.ds_cuda_error_string(err).decode()})")
-    paged_attention_kernel.launches += 1
-    paged_attention_kernel.variant = variant
-    by_variant = paged_attention_kernel.variant_launches
-    by_variant[variant] = by_variant.get(variant, 0) + 1
+    launches.count(paged_attention_kernel, variant)
     return out
 
 
@@ -403,15 +400,21 @@ def _write_plan(block_tables, positions, valid, block_size: int,
     return src, tgt, any_valid
 
 
+def indexable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as index_select / index_copy_ / where take it: fp8 codes have
+    no kernels of their own, so their bytes move as uint8."""
+    if t.is_floating_point() and t.element_size() == 1:
+        return t.view(torch.uint8)
+    return t
+
+
 def _pool_write(pool: torch.Tensor, new: torch.Tensor, plan) -> None:
     """Write ``new`` ([L, B * S, ...], every layer's chunk k, v, codes or
     scales) into ``pool`` [L, nb, bs, ...] as :func:`_write_plan` says:
     one gather of the sources, one of the slots' old values (what an
     all-invalid chunk writes back), one select and one copy a pool."""
     src, tgt, any_valid = plan
-    if pool.is_floating_point() and pool.element_size() == 1:
-        # fp8 codes have no index_copy_/where kernels: move their bytes
-        pool, new = pool.view(torch.uint8), new.view(torch.uint8)
+    pool, new = indexable(pool), indexable(new)
     flat = pool.view(pool.shape[0], -1, *pool.shape[3:])
     vals = torch.where(any_valid, new.index_select(1, src),
                        flat.index_select(1, tgt))

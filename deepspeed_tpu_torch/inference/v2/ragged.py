@@ -7,18 +7,22 @@ Python, kept near-verbatim. The pool is one device tensor per k/v with
 layout ``[L, num_blocks, block_size, H_kv, D]``; page tables and sequence
 descriptors stay on the host; a quantized pool adds one f32 scale pool
 per k/v, ``[L, num_blocks, block_size, Hs]``, indexed by the same blocks.
-Left for later slices: ``KVExportState`` and ``import_sequence`` (KV
-migration), ``history_tail`` (speculative decoding), and the blocksan
-hooks.
+``KVExportState`` is one sequence's KV block set on its way between
+engines (disaggregated serving); its payload is CPU torch tensors and its
+wire format is the JAX package's, byte for byte. Left for a later slice:
+the blocksan hooks.
 """
 
 from __future__ import annotations
 
+import json
+import struct
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
 
 PREFIX_STAT_KEYS = ("prefix_hits", "prefix_misses", "prefix_evictions",
                     "prefill_tokens_saved")
@@ -46,6 +50,128 @@ def quantized_block_budget(num_blocks: int, full_block_bytes: int,
     return max(int(num_blocks),
                int(num_blocks) * int(full_block_bytes)
                // max(int(quant_block_bytes), 1))
+
+
+# KV migration wire format (the JAX package's). The version bumps on any
+# layout change, and an import refuses a mismatched version outright.
+MIGRATION_WIRE_VERSION = 1
+
+# the payload dtypes by their wire names (numpy's, as the JAX engine
+# writes them: numpy has no bf16 or fp8 of its own, ml_dtypes names them)
+WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "float16": torch.float16, "int8": torch.int8,
+               "float8_e4m3fn": torch.float8_e4m3fn}
+_WIRE_NAMES = {dt: name for name, dt in WIRE_DTYPES.items()}
+
+
+@dataclass
+class KVExportState:
+    """One sequence's serialized KV block set, the unit of migration
+    between engines: the sequence's blocks that hold written KV, gathered
+    from the exporting engine's pools, one CPU tensor a pool slab keyed
+    like ``InferenceEngineV2.pools`` (``k``/``v``, plus ``ks``/``vs`` scale
+    slabs on quantized engines) with the block axis narrowed to this
+    sequence's blocks. Quantized codes and their scales travel as stored.
+    Import is position-exact: the sequence resumes with identical
+    ``tokens``, ``seen`` and pool bytes, so greedy continuation is
+    bit-identical to never having moved.
+
+    ``n_generated`` splits ``tokens`` into the prompt and the generated
+    suffix (the pending token last). ``handoff_id`` is the JAX blocksan's
+    transit tag, carried through unread."""
+    tokens: list[int]
+    n_generated: int
+    seen: int
+    block_size: int
+    kv_dtype: str
+    payload: dict[str, torch.Tensor]
+    handoff_id: Optional[int] = None
+    source: str = ""                      # exporting engine or replica
+
+    @property
+    def prompt_tokens(self) -> list[int]:
+        return self.tokens[:len(self.tokens) - self.n_generated]
+
+    @property
+    def generated_tokens(self) -> list[int]:
+        return self.tokens[len(self.tokens) - self.n_generated:]
+
+    @property
+    def payload_blocks(self) -> int:
+        """Blocks of KV payload travelling (the pending token's block tail
+        is reserved again on import, not shipped empty)."""
+        return int(next(iter(self.payload.values())).shape[1]) \
+            if self.payload else 0
+
+    @property
+    def payload_bytes(self) -> int:
+        """Wire bytes of the payload, scale slabs included."""
+        return int(sum(a.numel() * a.element_size()
+                       for a in self.payload.values()))
+
+    def bytes_per_token(self) -> float:
+        """Payload bytes a migrated KV token (block granularity: the tail
+        block ships whole, as it is stored)."""
+        toks = self.payload_blocks * self.block_size
+        return self.payload_bytes / max(toks, 1)
+
+    # -- wire format ---------------------------------------------------
+    def to_bytes(self) -> bytes:
+        """One self-describing buffer: a little-endian u32 header length,
+        the JSON header (token history, layout, each array's name, shape
+        and dtype), then the arrays' raw bytes in sorted-name order. The
+        JAX engine's ``to_bytes`` gives the same bytes for the same
+        state."""
+        arrays = [(k, self.payload[k]) for k in sorted(self.payload)]
+        header = json.dumps({
+            "version": MIGRATION_WIRE_VERSION,
+            "tokens": [int(t) for t in self.tokens],
+            "n_generated": int(self.n_generated),
+            "seen": int(self.seen),
+            "block_size": int(self.block_size),
+            "kv_dtype": self.kv_dtype,
+            "source": self.source,
+            "handoff_id": self.handoff_id,
+            "arrays": [{"name": k, "shape": list(a.shape),
+                        "dtype": _WIRE_NAMES[a.dtype]} for k, a in arrays],
+        }).encode()
+        parts = [struct.pack("<I", len(header)), header]
+        parts += [a.detach().cpu().contiguous().reshape(-1)
+                  .view(torch.uint8).numpy().tobytes() for _, a in arrays]
+        return b"".join(parts)
+
+    @classmethod
+    def from_bytes(cls, buf: bytes) -> "KVExportState":
+        """Decode :meth:`to_bytes`'s buffer (or the JAX engine's): each
+        array is copied out into a tensor of its own, so nothing keeps
+        ``buf`` alive. A wire version other than this one's is refused."""
+        (hlen,) = struct.unpack_from("<I", buf, 0)
+        head = json.loads(bytes(buf[4:4 + hlen]).decode())
+        if head["version"] != MIGRATION_WIRE_VERSION:
+            raise ValueError(
+                f"KV migration wire version {head['version']} != "
+                f"{MIGRATION_WIRE_VERSION} — refusing a cross-version "
+                "import")
+        off = 4 + hlen
+        payload = {}
+        for spec in head["arrays"]:
+            if spec["dtype"] not in WIRE_DTYPES:
+                raise ValueError(
+                    f"KV migration: unknown payload dtype {spec['dtype']!r}"
+                    f"; the wire carries {sorted(WIRE_DTYPES)}")
+            a = torch.empty(spec["shape"], dtype=WIRE_DTYPES[spec["dtype"]])
+            n = a.numel() * a.element_size()
+            if n:
+                a.reshape(-1).view(torch.uint8).numpy()[:] = \
+                    np.frombuffer(buf, np.uint8, count=n, offset=off)
+            payload[spec["name"]] = a
+            off += n
+        return cls(tokens=head["tokens"],
+                   n_generated=head["n_generated"], seen=head["seen"],
+                   block_size=head["block_size"],
+                   kv_dtype=head["kv_dtype"], payload=payload,
+                   handoff_id=head.get("handoff_id"),
+                   source=head.get("source", ""))
 
 
 @dataclass
@@ -463,6 +589,44 @@ class DSStateManager:
         seq = self.seqs.pop(uid, None)
         if seq is not None:
             self._release_blocks(seq.blocks)
+
+    def import_sequence(self, uid: int, tokens: list[int], seen: int,
+                        payload_blocks: int) -> SequenceDescriptor:
+        """The accounting half of a KV import: allocate blocks covering
+        the full migrated history (the engine scatters the payload into
+        the first ``payload_blocks`` of them), rebuild the descriptor
+        position-exactly, and publish the sequence's full blocks into this
+        manager's prefix cache, so same-prefix traffic that follows lands
+        warm here. Every check raises before any allocation."""
+        uid = int(uid)
+        if uid in self.seqs:
+            raise RuntimeError(
+                f"import_sequence: uid {uid} already live on this "
+                "engine — migrated uids must be fresh")
+        tokens = [int(t) for t in tokens]
+        seen = int(seen)
+        if not tokens or seen != len(tokens) - 1:
+            raise RuntimeError(
+                f"import_sequence: uid {uid} must arrive with exactly "
+                f"one pending token (seen {seen}, {len(tokens)} tokens)"
+                " — export happens at a dispatch boundary")
+        n_total = -(-len(tokens) // self.block_size)
+        if payload_blocks > n_total:
+            raise RuntimeError(
+                f"import_sequence: uid {uid} ships {payload_blocks} "
+                f"payload blocks for a {n_total}-block history")
+        if n_total > self.max_blocks_per_seq:
+            raise RuntimeError(
+                f"import_sequence: uid {uid} needs {n_total} blocks, "
+                f"max {self.max_blocks_per_seq}")
+        blocks = self.allocator.allocate(n_total)
+        seq = SequenceDescriptor(uid=uid, tokens=tokens, seen=seen,
+                                 blocks=blocks)
+        self.seqs[uid] = seq
+        # the migrated full blocks index under the chain they carried on
+        # the exporter (content-keyed; the first publisher wins)
+        self.publish_full_blocks(seq)
+        return seq
 
     def block_table(self, seq: SequenceDescriptor) -> np.ndarray:
         """Padded [max_blocks_per_seq] table; unused entries point past the

@@ -27,8 +27,14 @@ scheduling decision sizes a dispatch's advance as ``k * (1 +
 draft_len)``. ``set_chain_depth`` and ``set_draft_len`` adjust the chain
 depth and toggle drafting between chains.
 
+``submit_imported`` queues a migrated sequence (a ``KVExportState`` from
+another engine's ``export_request``): its KV lands in this engine's pools
+when it is admitted, and it joins the fused loop with no prefill pass,
+the decode half of disaggregated serving.
+
 The loop is single-threaded: callers run ``submit``/``cancel`` on the
-thread that runs ``step()``.
+thread that runs ``step()`` (``serving.AsyncInferenceServer`` does this
+through a mailbox).
 """
 
 from __future__ import annotations
@@ -44,8 +50,8 @@ import torch
 
 from ...ops import threefry
 
-# scheduler-level counters, the JAX loop's schema ("imports" counts
-# migrated sequences, which this port does not take yet: it stays 0)
+# scheduler-level counters, the JAX loop's schema ("imports" counts the
+# migrated sequences admitted through submit_imported)
 LOOP_COUNTER_KEYS = ("preemptions", "restores", "cancellations",
                      "admitted", "chain_drains", "imports")
 
@@ -63,6 +69,16 @@ class ServeRequest:
     order: int = 0
     generated: list[int] = field(default_factory=list)
     preemptions: int = 0
+    # a KVExportState awaiting admission, imported the first time the
+    # request is admitted; a later preemption restores by re-prefill from
+    # the host-side history, like any parked request
+    kv_import: Optional[object] = None
+    # re-emit the already generated suffix at admission (closed-loop
+    # callers; the router streams it itself before the hand-off)
+    emit_carried: bool = False
+    # admitted by import this round: the prefill pass skips it (its one
+    # pending token is the next fused dispatch's input)
+    was_imported: bool = False
 
     @property
     def budget(self) -> int:
@@ -97,9 +113,13 @@ class FusedServeLoop:
                  top_k: Optional[int] = None,
                  top_p: Optional[float] = None,
                  eos_id: Optional[int] = None, seed: int = 0,
-                 strict: bool = False, preemption: bool = True):
+                 strict: bool = False, preemption: bool = True,
+                 replica: str = ""):
         cfg = engine._config
         self.e = engine
+        # the serving replica's label (the JAX loop stamps it on the
+        # request traces it admits; the port keeps it for the metrics)
+        self.replica = str(replica)
         self.k = max(1, int(k_steps if k_steps is not None
                             else (cfg.fused_decode_steps or 8)))
         (self.temperature, self.top_k, self.top_p,
@@ -200,6 +220,41 @@ class FusedServeLoop:
             uid=int(uid), prompt=toks,
             max_new_tokens=max(1, int(max_new_tokens)),
             priority=int(priority), order=next(self._order)))
+        return int(uid)
+
+    def submit_imported(self, state, max_new_tokens: int = 32, *,
+                        priority: int = 1, uid: Optional[int] = None,
+                        emit_carried: bool = False) -> int:
+        """Queue a migrated sequence (a :class:`~.ragged.KVExportState`
+        from another engine's ``export_request``): the external-prefill
+        admission path. Its KV payload is imported at admission, not
+        here, so a queued hand-off holds no pool blocks while it waits;
+        once admitted it joins the fused loop position-exactly with no
+        prefill pass (greedy continuation is bit-identical to a
+        co-located run). ``emit_carried`` re-emits the already generated
+        suffix as the request's first TokenEvent. ``max_new_tokens`` is
+        the request's whole generation budget, carried tokens
+        included."""
+        toks = [int(t) for t in state.tokens]
+        n_gen = int(state.n_generated)
+        prompt = toks[:len(toks) - n_gen]
+        generated = toks[len(toks) - n_gen:]
+        if not prompt:
+            raise ValueError(
+                "submit_imported() needs at least one prompt token")
+        max_new = max(1, int(max_new_tokens))
+        if max_new <= n_gen:
+            raise ValueError(
+                f"imported request already generated {n_gen} of "
+                f"{max_new} tokens — nothing left to decode (finish "
+                "such requests without a hand-off)")
+        if uid is None:
+            uid = next(self._uid)
+        self.waiting.append(ServeRequest(
+            uid=int(uid), prompt=prompt, max_new_tokens=max_new,
+            priority=int(priority), order=next(self._order),
+            generated=generated, kv_import=state,
+            emit_carried=bool(emit_carried)))
         return int(uid)
 
     def cancel(self, uid: int) -> None:
@@ -365,13 +420,38 @@ class FusedServeLoop:
         if not batch:
             return []
         stage_from = max_live - len(self.live)
-        e.schedule([r.uid for r in batch],
-                   [r.admission_tokens for r in batch])
+        fresh = [r for r in batch if r.kv_import is None]
+        if fresh:
+            e.schedule([r.uid for r in fresh],
+                       [r.admission_tokens for r in fresh])
+        # the whole batch joins the tracked sets before importing and
+        # reserving: a failure mid-batch leaves every scheduled uid in
+        # sight of the block-leak guard
         for i, r in enumerate(batch):
             if self.ring_mode and i >= stage_from:
                 self.staged[r.uid] = r
             else:
                 self.live[r.uid] = r
+        for r in [r for r in batch if r.kv_import is not None]:
+            # external-prefill admission: the migrated KV lands now,
+            # position-exact, with no prefill pass
+            state, r.kv_import = r.kv_import, None
+            try:
+                e.import_request(r.uid, state)
+            except (RuntimeError, ValueError) as err:
+                # a layout mismatch fails the request, not the loop
+                self.live.pop(r.uid, None)
+                self.staged.pop(r.uid, None)
+                batch.remove(r)
+                ev.append(TokenEvent(r.uid, [], finished=True,
+                                     error=str(err)))
+                continue
+            r.was_imported = True
+            self.counters["imports"] += 1
+            if r.emit_carried and r.generated:
+                ev.append(TokenEvent(r.uid, list(r.generated)))
+        if not batch:
+            return []
         for r in batch:
             mgr.reserve(r.uid, r.budget)
         self.counters["admitted"] += len(batch)
@@ -387,8 +467,11 @@ class FusedServeLoop:
 
     @staticmethod
     def _admission_cost(mgr, req: ServeRequest, need: int) -> int:
-        """Blocks one admission takes from the headroom (prefix-cache
-        hits credited)."""
+        """Blocks one admission takes from the headroom: a migrated
+        request allocates its full history fresh at import, with no
+        prefix-cache credit; any other gets the cache-credited cost."""
+        if req.kv_import is not None:
+            return need
         return mgr.admission_cost(req.admission_tokens, need)
 
     def _try_preempt(self, req: ServeRequest, short_blocks: int,
@@ -414,6 +497,9 @@ class FusedServeLoop:
             self.staged.pop(v.uid, None)
             self.live.pop(v.uid, None)
             v.preemptions += 1
+            # a once-imported victim restores by the normal re-prefill
+            # (its KV left the pool with the park)
+            v.was_imported = False
             self.waiting.append(v)
             self.counters["preemptions"] += 1
             self._carry = None
@@ -431,7 +517,14 @@ class FusedServeLoop:
         generated token, sampled with the same op and position keying as
         the device loop, so it belongs to the same stochastic stream."""
         e, mgr = self.e, self.e.state_manager
-        filling = [u for u in uids_new if u in self.live or u in self.staged]
+        # imported admissions arrive at the dispatch-boundary state (one
+        # pending token, the first token made on the exporting side):
+        # prefilling them would consume their dispatch input
+        filling = []
+        for u in uids_new:
+            req = self.live.get(u) or self.staged.get(u)
+            if req is not None and not req.was_imported:
+                filling.append(u)
         firsts: dict = {}
         while filling:
             run = [u for u in filling if mgr.seqs[u].pending]
@@ -520,11 +613,8 @@ class FusedServeLoop:
                     self.waiting
                     or most <= self.k * (1 + self.draft_len) * self._n_enq):
                 break
-            # a row still live has spent at least k tokens a dispatch, so
-            # none can use more ticks than this
-            ticks = min(self.k, most - self.k * self._n_enq)
-            run = self.fn(self._carry, ticks, self.temperature, self.top_k,
-                          self.top_p, self.eos)
+            run = self.fn(self._carry, self.k, self.temperature,
+                          self.top_k, self.top_p, self.eos)
             result = run()
             self._n_enq += 1
             if not self.infl:
@@ -623,12 +713,9 @@ class FusedServeLoop:
             # prompts wait for a host-side admission: keep the chain short
             chain_len = 1
         self._last_drain_t = time.perf_counter()
-        for j in range(chain_len):
-            # a row still live has run every tick so far, so none can use
-            # more ticks than this
-            run = self.fn(state, min(self.k, eff - j * self.k),
-                          self.temperature, self.top_k, self.top_p,
-                          self.eos)
+        for _ in range(chain_len):
+            run = self.fn(state, self.k, self.temperature, self.top_k,
+                          self.top_p, self.eos)
             run()
             stats["host_dispatches"] += 1
             stats["fused_dispatches"] += 1

@@ -37,7 +37,7 @@ import ctypes
 import torch
 
 from . import layers as L
-from . import op_builder
+from . import launches, op_builder
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the C side's variant codes (ds_norm_variant)
@@ -192,10 +192,7 @@ def _launch(kind, x, params, eps, counter):
             f"{what} kernel launch failed: CUDA error {err} "
             f"({lib.ds_cuda_error_string(err).decode()})")
     variant = VARIANTS[code.value]
-    counter.launches += 1
-    counter.variant = variant
-    counter.variant_launches[variant] = (
-        counter.variant_launches.get(variant, 0) + 1)
+    launches.count(counter, variant)
     return y
 
 

@@ -1891,3 +1891,136 @@ def test_spec_and_ring_on_the_card_match_per_tick_and_the_cpu(cuda):
     a = gpu.generate_fused(prompts, k_steps=2, **kw)
     assert a == cpu_s.generate_fused(prompts, k_steps=4, **kw)
     assert a == cpu.generate_fused(prompts, k_steps=2, **kw)
+
+
+# ---------------------------------------------------------------------
+# KV migration and the serving front end on the card
+# ---------------------------------------------------------------------
+
+MIGRATE_KV = {"bf16": ("bfloat16", {}), "fp16": ("float16", {}),
+              "int8": ("bfloat16", {"enabled": True, "dtype": "int8",
+                                    "grow_pool": False}),
+              "fp8": ("bfloat16", {"enabled": True, "dtype": "fp8",
+                                   "granularity": "token",
+                                   "grow_pool": False})}
+MIGRATE_PROMPT = list(range(3, 40))
+
+
+def _migration_pair(cuda, pool):
+    """Two card engines of one config over one model (the second shares
+    the first's weights)."""
+    from deepspeed_tpu_torch.inference.v2 import (
+        InferenceEngineV2, RaggedInferenceEngineConfig)
+    dtype, kv = MIGRATE_KV[pool]
+    cfg = dict(FUSED_CFG, dtype=dtype, kv_cache=kv or {"enabled": False})
+    a = build_engine("llama", "tiny", cfg, device=cuda)
+    b = InferenceEngineV2(a.model, RaggedInferenceEngineConfig.from_dict(
+        cfg), params=a.params)
+    return a, b
+
+
+def _serve_imported(engine, state, n):
+    """The imported sequence continued alone by the serve loop (the
+    loop generate_fused runs, so the same dispatch schedule)."""
+    from deepspeed_tpu_torch.inference.v2.serve_loop import FusedServeLoop
+    loop = FusedServeLoop(engine, strict=True)
+    uid = loop.submit_imported(state, n, emit_carried=True)
+    out = []
+    while loop.has_work():
+        for evt in loop.step():
+            if evt.uid == uid:
+                out.extend(evt.tokens)
+    return out
+
+
+@pytest.mark.parametrize("pool", list(MIGRATE_KV))
+def test_kv_export_import_on_the_card(cuda, pool):
+    """Export from card pools through pinned memory and import into
+    another engine's: the importer's gathered blocks equal the payload bit
+    for bit, its slabs keep their addresses, bytes a token equal
+    kv_bytes_per_token, and the continuation equals the never-moved run
+    token for token (one request alone: the same shapes, so the same
+    kernels and GEMMs, bf16 too)."""
+    a, b = _migration_pair(cuda, pool)
+    ref = a.generate_fused([MIGRATE_PROMPT], max_new_tokens=12)[0]
+    t0 = a.prefill_request(5, MIGRATE_PROMPT)
+    st = a.export_request(5, n_generated=1)
+    assert t0 == ref[0]
+    assert all(t.device.type == "cpu" and t.is_pinned()
+               for t in st.payload.values())
+    assert st.bytes_per_token() == pytest.approx(a.kv_bytes_per_token())
+    ptrs = {k: v.data_ptr() for k, v in b.pools.items()}
+    assert b.import_request(5, st) == t0
+    assert {k: v.data_ptr() for k, v in b.pools.items()} == ptrs
+    blocks = torch.tensor(b.state_manager.seqs[5].blocks[:st.payload_blocks],
+                          device=cuda)
+    for k, v in b.pools.items():
+        got = paged.indexable(v).index_select(1, blocks).cpu()
+        assert torch.equal(got, paged.indexable(st.payload[k])), k
+    b.flush(5)
+    out = _serve_imported(b, st, 12)
+    assert out == ref
+    assert a.free_blocks == b.free_blocks == FUSED_CFG["num_kv_blocks"]
+
+
+def test_import_into_a_captured_graph_decodes_the_imported_row(cuda):
+    """The importer captures its bb = 1 graph first (a request of the same
+    length), then imports and decodes through that graph: a pool rebound
+    by the import would leave the graph reading the old tensor."""
+    a, b = _migration_pair(cuda, "bf16")
+    ref = a.generate_fused([MIGRATE_PROMPT], max_new_tokens=12)[0]
+    warm = [t + 1 for t in MIGRATE_PROMPT]
+    b.generate_fused([warm], max_new_tokens=12)
+    graphs = len(b.graph_captures)
+    a.prefill_request(6, MIGRATE_PROMPT)
+    out = _serve_imported(b, a.export_request(6, n_generated=1), 12)
+    assert out == ref
+    assert len(b.graph_captures) == graphs      # replayed, not recaptured
+
+
+def test_async_server_on_the_card_matches_generate_fused(cuda):
+    """The async server's worker thread replays the engine's graphs on
+    its own thread: the fp32 (TF32 off) streams equal generate_fused."""
+    import asyncio
+    from deepspeed_tpu_torch.serving import (AsyncInferenceServer,
+                                             ServingConfig)
+    _, (gpu,) = _fused_engines(cuda)
+    ref = gpu.generate_fused(FUSED_PROMPTS, max_new_tokens=10, k_steps=3)
+
+    async def main():
+        async with AsyncInferenceServer(gpu, ServingConfig(k_steps=3)) as s:
+            hs = [await s.submit(p, max_new_tokens=10)
+                  for p in FUSED_PROMPTS]
+            return [await h.tokens() for h in hs]
+
+    assert asyncio.run(main()) == ref
+    assert gpu.free_blocks == FUSED_CFG["num_kv_blocks"]
+
+
+def test_prefill_engine_handoff_on_the_card_matches_colocated(cuda):
+    """A PrefillEngine on a thread of its own prefills and exports on the
+    card; the router imports into the decode replica, whose stream equals
+    the co-located generate_fused in fp32 (TF32 off)."""
+    import asyncio
+    from deepspeed_tpu_torch.serving import (AsyncInferenceServer,
+                                             InferenceRouter, PrefillEngine,
+                                             ServingConfig)
+    _, (pre, dec) = _fused_engines(cuda, n=2)
+    refs = [dec.generate_fused([p], max_new_tokens=10, k_steps=3)[0]
+            for p in FUSED_PROMPTS]
+
+    async def main():
+        router = InferenceRouter(
+            [AsyncInferenceServer(dec, ServingConfig(k_steps=3))],
+            {"disaggregation": {"enabled": True}},
+            prefill=PrefillEngine(pre))
+        async with router:
+            hs = [await router.submit(p, max_new_tokens=10)
+                  for p in FUSED_PROMPTS]
+            return [await h.tokens() for h in hs], router.metrics()
+
+    outs, m = asyncio.run(main())
+    assert outs == refs
+    assert m["prefill_handoffs"] == 3 and m["replicas"]["replica0"][
+        "imports"] == 3
+    assert pre.free_blocks == dec.free_blocks == FUSED_CFG["num_kv_blocks"]
