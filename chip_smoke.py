@@ -138,7 +138,26 @@ Phases, each fatal on failure:
      killed mid-run and its requests rerouted to completion; (d) on
      phase 17's fp32 4-layer engine the server's streams equal
      generate_fused and the router's the server's, under the near-tie
-     rule.
+     rule;
+ 20. model breadth, after phase 19 once every earlier engine is
+     released: (a, run in phase 3) the paged-attention kernel at head
+     dims 80, 96 and 256 (phi-2, phi3-mini and gptj-6b heads) on the
+     decode, prefill and tick calls in fp32, bf16 and fp16 over fp, int8
+     and fp8 pools, against plain, rerun bit for bit, bf16/fp16 timed;
+     (b) build_engine at full width and depth, bf16, random seeded
+     weights: phi "2", phi3 "mini", gptj "6b" serve phase 4's traffic
+     with phase 4's launch checks (every bf16 paged launch decode_split
+     or prefill_wgmma, every norm launch cta_row), then every layer of a
+     prefill, a mixed and a decode tick against plain; (c) the same at
+     published widths cut to 4 layers for mistral "7b" (plus a
+     4500-token prompt past its window), falcon "7b" (71 q heads on 1 kv
+     head: its decode rows take prefill_wgmma), bloom "7b1", opt "13b",
+     gptneox "20b", internlm "7b", qwen "7b" and qwen2 "7b"; (d) each
+     family at 2 layers in fp32, kernel path against plain logits at
+     1e-4; (e) init_inference(GPTJ(size="6b"), bf16) on (b)'s weights:
+     32 tokens from 8 prompts of 256, tokens/s, greedy agreement with
+     (b)'s v2 engine (reported), and at 4 layers in fp32 the v1 and v2
+     tokens equal under the near-tie rule.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
 RMSNorm/LayerNorm kernels against their plain versions and times them at
@@ -711,22 +730,29 @@ def serve(engine, prompts, max_new: int, dev):
 
 
 def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
-              engine_over=None, dtype="bfloat16"):
-    """Phase 4 (phase 16 with ``dtype="float16"``): the serving main path
-    at full width through generate(). The stats carry the greedy tokens
+              engine_over=None, dtype="bfloat16", family="llama",
+              model_over=None, long_prompt=None):
+    """Phase 4 (phase 16 with ``dtype="float16"``; phase 20 with another
+    ``family``, ``model_over`` cutting its depth and a ``long_prompt``
+    of that many tokens beside the requests): the serving main path at
+    full width through generate(). The stats carry the greedy tokens
     under "outputs"."""
     from deepspeed_tpu_torch.inference.v2 import build_engine, paged
     cfg = {"dtype": dtype, "kv_block_size": 64, "num_kv_blocks": 512,
            "max_chunk_size": 256, "max_ragged_sequence_count": 8}
     cfg.update(engine_over or {})
     t = time.perf_counter()
-    engine = build_engine("llama", size=size, engine_config=cfg, device=dev)
-    log(f"[main] build_engine llama-{size} {dtype}: "
+    engine = build_engine(family, size=size, engine_config=cfg, device=dev,
+                          **(model_over or {}))
+    log(f"[main] build_engine {family}-{size} {dtype}: "
         f"{time.perf_counter() - t:.1f} s")
     c = engine.model.config
     rng = np.random.default_rng(1)
     lens = rng.integers(lengths[0], lengths[1], n_req)
     lens[0] = lengths[1] - 1              # at least one prompt chunks
+    if long_prompt:
+        lens = np.append(lens, long_prompt)
+        n_req += 1
     prompts = [rng.integers(0, c.vocab_size, n).tolist() for n in lens]
     serve(engine, [prompts[0][:16]], 2, dev)          # warm-up
     norms = norm_counter(c)
@@ -749,16 +775,16 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
         raise AssertionError(
             f"kernel launches {launches} != layers {c.num_layers} x "
             f"dispatches {dispatches}")
-    if dev.type == "cuda" and norm_launches != (2 * c.num_layers + 1) \
+    if dev.type == "cuda" and norm_launches != norms_per_forward(c) \
             * dispatches:
         raise AssertionError(
-            f"norm launches {norm_launches} != (2 x {c.num_layers} layers "
-            f"+ 1) x dispatches {dispatches}")
+            f"norm launches {norm_launches} != {norms_per_forward(c)} a "
+            f"forward x dispatches {dispatches}")
     check_variants(by_variant, launches, dev, "serving")
     pre = [(s, p) for s, p, _, _ in ticks if p > 0]
     dec = [s for s, p, d, _ in ticks if p == 0 and d > 0]
     stats = dict(
-        dtype=dtype,
+        model=f"{family}-{size}", dtype=dtype,
         requests=n_req, new_tokens=max_new, prompt_tokens=int(lens.sum()),
         ticks=len(ticks), dispatches=dispatches, launches=launches,
         launches_by_variant=by_variant, norm_launches=norm_launches,
@@ -2588,6 +2614,338 @@ def front_fp32_parity(engine, dev, prompts, fused, max_new=16, k=8):
     return rec
 
 
+# ----------------------------------------------------------- phase 20
+# model breadth: the dense families the JAX engine factory serves beyond
+# GPT-2 and Llama. (b) full width and depth where a family's preset has a
+# head dim past the powers of two; (c) the others at published widths,
+# depth cut to BREADTH_LAYERS; (d) every one in fp32 at
+# BREADTH_FP32_LAYERS, kernel path against plain
+BREADTH_FULL = (("phi", "2"), ("phi3", "mini"), ("gptj", "6b"))
+BREADTH_CUT = (("mistral", "7b"), ("falcon", "7b"), ("bloom", "7b1"),
+               ("opt", "13b"), ("gptneox", "20b"), ("internlm", "7b"),
+               ("qwen", "7b"), ("qwen2", "7b"))
+BREADTH_LAYERS = 4
+BREADTH_FP32_LAYERS = 2
+# a prompt past Mistral-7B's 4096-token window, so the window cuts
+MISTRAL_LONG_PROMPT = 4500
+# phase 20a's kernel rows (run in phase 3): the head layouts of the
+# presets with the new head dims, model -> (Hq, Hkv, D)
+NEW_DIM_SHAPES = {"phi-2": (32, 32, 80), "phi3-mini": (32, 32, 96),
+                  "gptj-6b": (16, 16, 256)}
+# (e): the v1 engine's traffic, 8 prompts of 256 tokens, 32 greedy tokens
+V1_PROMPTS = dict(n=8, length=256, max_new=32)
+
+
+def breadth_kernel_checks(dev, flush=None, iters=20):
+    """Phase 20a, run in phase 3: the paged-attention kernel at D 80, 96
+    and 256 (NEW_DIM_SHAPES, bs 64) on the serving path's decode (B 8,
+    contexts 100-2000), prefill (2 x 256) and tick (8 x 256) calls, in
+    fp32, bf16 and fp16 over fp, int8 and fp8 (per-head) pools: each
+    against its plain version (TOL, ATTN_TOL), rerun bit for bit, the
+    variant the plan names (bf16/fp16 always decode_split or
+    prefill_wgmma); the bf16 and fp16 fp-pool calls timed as phase 3's
+    rows (variant, ms, bound, share of the bound, SDPA on gathered
+    pages)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import paged
+    decode, prefill = serving_shapes()
+    shapes = {"decode": decode, "prefill": prefill,
+              "prefill_tick": PREFILL_TICK}
+    errs, record = {}, {}
+    for model, (hq, hkv, d) in NEW_DIM_SHAPES.items():
+        for dtype_name, tol in ATTN_TOL.items():
+            dtype = getattr(torch, dtype_name)
+            for pool in ("fp", "int8", "fp8"):
+                for name, shape in shapes.items():
+                    x, kw = attention_case(dev, dtype, **shape, hq=hq,
+                                           hkv=hkv, d=d)
+                    if pool != "fp":
+                        x, kw = quantize_pools(x, kw, pool, "head")
+                    got = paged.paged_attention_kernel(*x.values(), **kw)
+                    again = paged.paged_attention_kernel(*x.values(), **kw)
+                    variant = paged.paged_attention_kernel.variant
+                    plan = paged.launch_plan(x["q"].shape, dtype, hkv,
+                                             x["block_tables"].shape, 64)
+                    ref = paged.paged_attention_plain(*x.values(), **kw)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    err = (got.float() - ref.float()).abs()
+                    key = (model, dtype_name, pool, name)
+                    errs[key] = float(err.max())
+                    if bool((err > tol + tol * ref.float().abs()).any()):
+                        raise AssertionError(
+                            f"paged_attention at {key} (D {d}) disagrees "
+                            f"with its plain version: max|err| "
+                            f"{errs[key]:.3e} > tol {tol:g}")
+                    if dev.type == "cuda" and (
+                            not torch.equal(got, again)
+                            or variant != plan["variant"]
+                            or dtype_name != "float32"
+                            and variant not in NEW_PAGED_VARIANTS):
+                        raise AssertionError(
+                            f"paged_attention at {key}: variant {variant} "
+                            f"(plan {plan['variant']}), bit-identical "
+                            f"rerun {torch.equal(got, again)}")
+                    if pool == "fp" and dtype_name != "float32":
+                        rkey = f"{model}_{name}" + (
+                            "_fp16" if dtype_name == "float16" else "")
+                        record[rkey] = time_attention(x, kw, dev, iters,
+                                                      flush)
+                        check_rerun(record[rkey], rkey)
+                        log(f"[kernel] D {d} {rkey} times (ms): "
+                            f"{json.dumps(record[rkey])}")
+            worst = max(v for k, v in errs.items()
+                        if k[:2] == (model, dtype_name))
+            log(f"[kernel] D {d} ({model}, Hq {hq}, Hkv {hkv}) "
+                f"{dtype_name:9s} fp/int8/fp8 x decode/prefill/tick "
+                f"max|err| {worst:.3e} (tol {tol:g})")
+    return errs, record
+
+
+def breadth_ticks(model, dev, attention, lens=(200, 250), seed=2,
+                  check_first=True):
+    """paged_forward over a prefill tick (row 0's ``lens[0]`` prompt
+    tokens), a mixed tick (row 0 decodes one token while row 1 prefills
+    ``lens[1]``) and a decode tick (both rows), teacher-forced on drawn
+    tokens, on fresh zeroed pools; ``attention`` goes to paged_forward
+    (the first tick's only with ``check_first``: a long prefill's plain
+    version would hold [rows, keys] scores of gigabytes). Returns each
+    tick's logits in fp32."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2.paged import paged_forward
+    c = model.config
+    dtype = next(iter(model.params.values())).dtype
+    bs = 64
+    nb = 2 * -(-(max(lens) + 2) // bs)
+    shape = (c.num_layers, nb, bs, c.num_kv_heads, c.head_dim)
+    pools = {k: torch.zeros(shape, dtype=dtype, device=dev)
+             for k in ("k", "v")}
+    tables = torch.arange(nb, dtype=torch.int32, device=dev).reshape(2, -1)
+    rng = np.random.default_rng(seed)
+    # each tick as wide as its longest row: a pad slot's position must
+    # stay inside the rotary table too
+    first = np.zeros((2, lens[0]), np.int64)
+    first[0] = rng.integers(0, c.vocab_size, lens[0])
+    mixed = np.zeros((2, lens[1]), np.int64)
+    mixed[0, 0] = rng.integers(0, c.vocab_size)
+    mixed[1] = rng.integers(0, c.vocab_size, lens[1])
+    ticks = [(first, [0, 0], [lens[0], 0]),
+             (mixed, [lens[0], 0], [1, lens[1]]),
+             (rng.integers(0, c.vocab_size, (2, 1)),
+              [lens[0] + 1, lens[1]], [1, 1])]
+    out = []
+    for i, (tokens, pos0, true_len) in enumerate(ticks):
+        logits, _ = paged_forward(
+            model, pools, torch.tensor(tokens, device=dev),
+            torch.tensor(pos0, dtype=torch.int32, device=dev), tables,
+            torch.tensor(true_len, dtype=torch.int32, device=dev),
+            attention=attention if i or check_first else None)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite logits on a phase 20 tick")
+        out.append(logits.float())
+    return out
+
+
+def breadth_serving(dev, family, size, layers=None, long_prompt=None,
+                    v1_prompts=None, serve_kw=None, lens=(200, 250)):
+    """Phase 20b/c: one family through build_engine at its published
+    width (depth cut to ``layers`` where given), bf16, random seeded
+    weights, phase 4's traffic and launch checks (every layer of every
+    tick launches the kernel, every launch decode_split or prefill_wgmma,
+    every norm launch a row kernel); then every layer's attention of a
+    prefill, a mixed and a decode tick against its plain version at the
+    bf16 kernel tolerance. ``v1_prompts``: those prompts served too, 32
+    greedy tokens, for phase 20e's agreement. Returns the stats and the
+    engine."""
+    over = {"num_layers": layers} if layers else {}
+    engine, stats = main_path(dev, size=size, family=family,
+                              model_over=over, long_prompt=long_prompt,
+                              **(serve_kw or {}))
+    stats.pop("prompts")
+    stats.pop("outputs")
+    checked, worst = layer_checker(TOL["bfloat16"])
+    c = engine.model.config
+    breadth_ticks(engine.model, dev, checked, lens=lens)
+    ticks = 3
+    if c.sliding_window and long_prompt:
+        # row 0 decodes, then decodes beside row 1's chunk, at position
+        # long_prompt - 100, past the window: keys older than it drop out
+        breadth_ticks(engine.model, dev, checked, check_first=False,
+                      lens=(long_prompt - 100, lens[1]))
+        ticks += 2
+    check_variants(worst["variants"], worst["layer_calls"], dev,
+                   f"{family} layer calls")
+    if worst["layer_calls"] != ticks * c.num_layers:
+        raise AssertionError(f"{family}: {worst['layer_calls']} checked "
+                             f"layer calls")
+    stats.update(head_dim=c.head_dim, heads=f"{c.num_heads}/"
+                 f"{c.num_kv_heads}", layers=c.num_layers,
+                 layer_calls=worst["layer_calls"],
+                 layer_max_abs_err=worst["max_abs_err"],
+                 layer_calls_by_variant=worst["variants"])
+    log(f"[breadth] {family}-{size}: D {c.head_dim}, heads {stats['heads']}"
+        f", {c.num_layers} layers; every layer of a prefill, a mixed and a "
+        f"decode tick vs plain: max|err| {worst['max_abs_err']:.3e} (tol "
+        f"{TOL['bfloat16']}), by variant {json.dumps(worst['variants'])}")
+    if v1_prompts is not None:
+        stats["v1_prompts_outputs"] = engine.generate(
+            v1_prompts, max_new_tokens=V1_PROMPTS["max_new"])
+    return stats, engine
+
+
+def breadth_fp32(dev, family, size, layers=BREADTH_FP32_LAYERS, nb=16,
+                 lens=(200, 250)):
+    """Phase 20d: the family at its published width cut to ``layers``, fp32
+    with TF32 off, random seeded weights: the kernel path's teacher-forced
+    logits (phase 5's ticks) against the plain path's, max |d| / max
+    |logits|."""
+    import torch
+    from deepspeed_tpu_torch.models import get_model_class
+    model = get_model_class(family)(size=size, num_layers=layers,
+                                    device=dev, dtype=torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model.init_params(gen)
+    with torch.no_grad():
+        kernel = teacher_forced_logits(model, dev, True, 64, nb, lens)
+        ref = teacher_forced_logits(model, dev, False, 64, nb, lens)
+    rel = rel_err(kernel, ref)
+    del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if rel > TOL["float32"]:
+        raise AssertionError(f"phase 20d {family}-{size} fp32 kernel vs "
+                             f"plain logits: {rel:.3e} > {TOL['float32']}")
+    return rel
+
+
+def v1_prompts_of(vocab: int, length: int = V1_PROMPTS["length"]):
+    """Phase 20e's prompts: V1_PROMPTS["n"] of ``length`` seeded tokens."""
+    rng = np.random.default_rng(7)
+    return rng.integers(0, vocab, (V1_PROMPTS["n"], length)).tolist()
+
+
+def breadth_v1(dev, v2_outputs, params, prompts, size="6b"):
+    """Phase 20e: init_inference(GPTJ(size="6b"), bf16, max_out_tokens
+    1024) on phase 20b's GPT-J weights (``params``, the v2 engine's):
+    32 greedy tokens from 8 prompts of 256 (a prefill, then an eager
+    decode loop over the static cache, norms on the kernel); tokens/s and
+    the greedy agreement with the v2 engine's ``v2_outputs`` (reported).
+    Then GPT-J-6B cut to 4 layers in fp32: the v1 and v2 engines on one
+    set of weights must give the same greedy tokens under the near-tie
+    rule (a differing token's top-2 margin below NEAR_TIE)."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    from deepspeed_tpu_torch.models import GPTJ
+    eng = ds.init_inference(GPTJ(size=size, device=dev), config={
+        "dtype": "bf16", "max_out_tokens": 1024}, params=params)
+    c = eng.module.config
+    prompt_len = len(prompts[0])
+    eng.generate([prompts[0][:16]], max_new_tokens=2)          # warm-up
+    norms = norm_counter(c)
+    reset_norms(norms)
+    sync(dev)
+    t = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=V1_PROMPTS["max_new"])
+    sync(dev)
+    wall = time.perf_counter() - t
+    new = out[:, prompt_len:].tolist()
+    norm_by_variant = check_norm_variants(norms, dev, "v1 generate")
+    forwards = V1_PROMPTS["max_new"]
+    if dev.type == "cuda" and norms.launches != norms_per_forward(c) \
+            * forwards:
+        raise AssertionError(f"v1: {norms.launches} norm launches, want "
+                             f"{norms_per_forward(c)} x {forwards}")
+    agree = agreement(new, v2_outputs)
+    rec = dict(model=f"gptj-{size}", dtype="bfloat16",
+               requests=len(prompts), prompt_tokens=prompt_len,
+               new_tokens=V1_PROMPTS["max_new"], generate_s=wall,
+               generated_tokens_per_s=len(prompts) * forwards / wall,
+               norm_launches=norms.launches,
+               norm_launches_by_variant=norm_by_variant,
+               greedy_agreement_vs_v2=agree)
+    del eng, out
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # fp32 at 4 layers: v1 against v2 on one set of weights
+    cfg = {"dtype": "float32", "kv_block_size": 64, "num_kv_blocks": 64,
+           "max_chunk_size": 256, "max_ragged_sequence_count": 8}
+    v2 = build_engine("gptj", size=size, engine_config=cfg, device=dev,
+                      num_layers=BREADTH_LAYERS)
+    v1 = ds.init_inference(GPTJ(size=size, num_layers=BREADTH_LAYERS,
+                                device=dev),
+                           config={"dtype": "fp32", "max_out_tokens": 1024},
+                           params=dict(v2.model.params))
+    ref = v2.generate(prompts, max_new_tokens=16)
+    got = v1.generate(prompts, max_new_tokens=16)[:, prompt_len:]
+    diffs = first_differences(v2, prompts, got.tolist(), ref)
+    bad = [d for d in diffs if d["top2_margin"] >= NEAR_TIE]
+    rec["fp32_4_layers"] = dict(requests=len(prompts), new_tokens=16,
+                                differences=diffs)
+    release_engine(v2, dev)
+    del v1, v2
+    gc.collect()
+    if bad:
+        raise AssertionError(f"phase 20e fp32: v1 and v2 tokens differ "
+                             f"past a near-tie: {bad}")
+    log(f"[breadth] v1 init_inference: {json.dumps(rec)}")
+    return rec
+
+
+def model_breadth_main(dev, full=BREADTH_FULL, cut=BREADTH_CUT,
+                       layers=BREADTH_LAYERS, long_prompt=MISTRAL_LONG_PROMPT,
+                       fp32_layers=BREADTH_FP32_LAYERS, serve_kw=None,
+                       lens=(200, 250), v1_len=V1_PROMPTS["length"]):
+    """Phase 20 (b-e; a runs in phase 3): the dense families at full width
+    and depth (``full``), at published widths cut to ``layers`` (``cut``;
+    Mistral with a ``long_prompt`` past its window), each in fp32 at
+    ``fp32_layers`` kernel against plain, and the v1 engine on GPT-J's
+    weights (``full``'s gptj entry). ``serve_kw`` goes to main_path,
+    ``lens`` are the teacher-forced rows, ``v1_len`` the v1 prompts'
+    length (a CPU rehearsal at tiny size shrinks them). Returns the
+    phase's record."""
+    import torch
+    t0 = time.perf_counter()
+    rec = {"serving": {}, "fp32_rel_logits_err": {}}
+    for family, size in full + cut:
+        is_cut = (family, size) in cut
+        gptj = family == "gptj" and not is_cut
+        prompts = (v1_prompts_of(engine_vocab(family, size), v1_len)
+                   if gptj else None)
+        stats, engine = breadth_serving(
+            dev, family, size, layers=layers if is_cut else None,
+            long_prompt=long_prompt if family == "mistral" else None,
+            v1_prompts=prompts, serve_kw=serve_kw, lens=lens)
+        rec["serving"][f"{family}-{size}"] = stats
+        if gptj:
+            v2_out = stats.pop("v1_prompts_outputs")
+            params = {k: v.detach() for k, v in engine.model.params.items()}
+        release_engine(engine, dev)
+        del engine
+        if gptj:
+            rec["v1"] = breadth_v1(dev, v2_out, params, prompts, size=size)
+            del params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    for family, size in full + cut:
+        rec["fp32_rel_logits_err"][f"{family}-{size}"] = breadth_fp32(
+            dev, family, size, layers=fp32_layers, lens=lens)
+    log(f"[breadth] fp32 kernel vs plain logits at {fp32_layers} layers: "
+        f"{json.dumps(rec['fp32_rel_logits_err'])} (tol {TOL['float32']})")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[breadth] phase 20: {rec['seconds']:.1f} s")
+    return rec
+
+
+def engine_vocab(family, size) -> int:
+    """The vocabulary of a family's preset."""
+    from deepspeed_tpu_torch import models
+    return getattr(models, f"{family}_config")(size).vocab_size
+
+
 # ------------------------------------------------------------ phase 2
 # the attention kernels' mangled names: kernel, dtype, D (and the CUDA-core
 # block-sparse kernels' query tile TY)
@@ -4311,6 +4669,15 @@ def norm_launches_per_micro(c) -> int:
     return fwd + rerun
 
 
+def norms_per_forward(c) -> int:
+    """Norm launches of one forward: ln1 and ln2 of each layer (ln1 alone
+    where attention and the MLP share one input norm: Falcon, Phi-2,
+    GPT-J), the final norm, and Bloom's embedding norm."""
+    per_layer = 1 if c.parallel_residual and not c.parallel_dual_norm \
+        else 2
+    return per_layer * c.num_layers + 1 + int(c.embed_layernorm)
+
+
 def norm_counter(c):
     """The launch counter of the model's norm kernel."""
     from deepspeed_tpu_torch.ops import norms as N
@@ -4831,6 +5198,7 @@ def main(argv=None) -> int:
     path_times = path_kernel_times(dev, adam_numel, flush)
     zeropp_times = zeropp_kernel_times(dev, flush)
     norm_errs, norm_times = norm_checks(dev, flush)
+    breadth_errs, breadth_times = breadth_kernel_checks(dev, flush)  # 20a
     del flush
     torch.cuda.empty_cache()
 
@@ -4887,6 +5255,13 @@ def main(argv=None) -> int:
     if resident > 2**30:
         raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
                              f"after the serving phases")
+    breadth = model_breadth_main(dev)                         # phase 20
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    if resident > 2**30:
+        raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
+                             f"after phase 20")
 
     trainer, batch, train = train_main_path(dev)              # phase 6
     if args.profile:
@@ -4947,6 +5322,22 @@ def main(argv=None) -> int:
                     cases_tol_fp16=ATTN_TOL["float16"])
 
     dec, pre = times["decode"], times["prefill"]
+    # phase 20a's rows and phase 20's launches, beside each paged entry
+    new_dims = {k: {f: t[f] for f in ("variant", "ms", "bound_ms",
+                                      "bound_by", "bound_share",
+                                      "plain_ms", "library_ms",
+                                      "x_library")}
+                for k, t in breadth_times.items()}
+
+    def breadth_err(dtype_name, quantized):
+        return max(v for (_, dt, pool, _), v in breadth_errs.items()
+                   if dt == dtype_name and (pool != "fp") == quantized)
+
+    breadth_launches = {m: r["launches_by_variant"]
+                        for m, r in breadth["serving"].items()}
+    new_dim_note = ("D 80/96/256 at phi-2 (32/32), phi3-mini (32/32), "
+                    "gptj-6b (16/16) heads, bs 64: decode B 8 ctx "
+                    "100-2000, prefill 2 x 256, tick 8 x 256")
 
     def paged_extra(t, prefix=""):
         keys = ("variant", "tflops", "gb_per_s", "bound_share", "x_library",
@@ -5004,7 +5395,15 @@ def main(argv=None) -> int:
                   for kv in ("bf16", "fp8")},
               main_path_fp32_rel_logits_err=rels["fp32_kernel_vs_reference"],
               main_path_bf16_layer_max_abs_err=rels[
-                  "bf16_layer_max_abs_err"]),
+                  "bf16_layer_max_abs_err"],
+              head_dims_checked=[128, 80, 96, 256],
+              new_dims_shapes=new_dim_note,
+              new_dims={k: v for k, v in new_dims.items()
+                        if not k.endswith("_fp16")},
+              new_dims_max_abs_err=breadth_err("bfloat16", False),
+              new_dims_max_abs_err_fp32=breadth_err("float32", False),
+              breadth_main_path="phase 20: the dense families served",
+              breadth_launches_by_variant=breadth_launches),
         entry("paged_attention_quantized", "paged_attention",
               path_q["launches"],
               max(v for k, v in quant_errs.items() if k[0] == "bfloat16"),
@@ -5025,7 +5424,10 @@ def main(argv=None) -> int:
                   "continuation_launches_by_variant"],
               main_path_layer_max_abs_err={
                   kv: {dt: r["layer_max_abs_err"] for dt, r in rec.items()}
-                  for kv, rec in q_rels.items()}),
+                  for kv, rec in q_rels.items()},
+              head_dims_checked=[16, 32, 64, 128, 80, 96, 256],
+              new_dims_max_abs_err=breadth_err("bfloat16", True),
+              new_dims_max_abs_err_fp32=breadth_err("float32", True)),
         entry("paged_attention_fp16", "paged_attention",
               fp16["serving"]["launches"],
               max(v for (dt, _), v in errs.items() if dt == "float16"),
@@ -5048,7 +5450,11 @@ def main(argv=None) -> int:
                   "first_tick_logits_kernel_vs_plain"],
               first_tick_logits_tol=FP16_LOGITS_TOL,
               greedy_agreement_vs_bf16=fp16["serving"][
-                  "greedy_agreement_vs_bf16"]),
+                  "greedy_agreement_vs_bf16"],
+              head_dims_checked=[128, 80, 96, 256],
+              new_dims={k: v for k, v in new_dims.items()
+                        if k.endswith("_fp16")},
+              new_dims_max_abs_err=breadth_err("float16", False)),
         entry("paged_attention_quantized_fp16", "paged_attention",
               fp16["path_q"]["launches"],
               max(v for k, v in quant_errs.items() if k[0] == "float16"),
@@ -5067,7 +5473,9 @@ def main(argv=None) -> int:
                   "launches_by_variant"],
               main_path_layer_max_abs_err={
                   kv: {dt: r["layer_max_abs_err"] for dt, r in rec.items()}
-                  for kv, rec in fp16["path_q_kernel_vs_plain"].items()}),
+                  for kv, rec in fp16["path_q_kernel_vs_plain"].items()},
+              head_dims_checked=[16, 32, 64, 128, 80, 96, 256],
+              new_dims_max_abs_err=breadth_err("float16", True)),
         entry("flash_attention_fwd", "flash_attention",
               train["launches"]["flash_attention_fwd"],
               flash_main["fwd_max_abs_err"],
@@ -5247,6 +5655,7 @@ def main(argv=None) -> int:
     log(f"[main] Path P {json.dumps(path_p)} on {card}")
     log(f"[main] Path Z {json.dumps(path_z)} on {card}")
     log(f"[main] remat policies {json.dumps(remat)} on {card}")
+    log(f"[main] model breadth {json.dumps(breadth)} on {card}")
     left = live_children()
     if left:
         raise AssertionError(f"processes still running: {left}")

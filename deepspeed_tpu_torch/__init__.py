@@ -15,7 +15,11 @@ package is the reference each slice is held against. Ported so far:
   - ``ops.sparse_attention``: ``SparseSelfAttention`` on the
     block-sparse attention kernels (``csrc/block_sparse_attention.cu``);
   - ``inference.v2.build_engine``: the v2 serving path with its
-    paged-attention kernel (``csrc/paged_attention.cu``).
+    paged-attention kernel (``csrc/paged_attention.cu``), for every dense
+    family the JAX package serves (gpt2, llama, mistral, falcon, opt,
+    phi, phi3, qwen, qwen2, bloom, gptj, gptneox, internlm);
+  - ``init_inference(model=..., config=...)``: the v1 engine
+    (``inference/engine.py``), a static KV cache and an eager decode loop.
 
 It imports torch and numpy, never jax and nothing of ``deepspeed_tpu``.
 """
@@ -24,6 +28,26 @@ from .inference.v2 import build_engine  # noqa: F401
 from .runtime.config import DeepSpeedConfig  # noqa: F401
 
 __version__ = "0.1.0"
+
+
+def init_inference(model=None, config=None, **kwargs):
+    """Build the v1 inference engine (reference:
+    deepspeed/__init__.py:291). ``model`` is a model of the port, on the
+    device it was built for; ``params`` (a keyword) is a JAX-layout tree
+    of numpy arrays or a flat ``{"layers/wq": ...}`` mapping, else the
+    weights come from ``config["checkpoint"]`` (a ``.npz``) or are drawn
+    from ``config["seed"]``. A model given as a checkpoint path is not
+    ported yet (``checkpoint/huggingface.py``, ROADMAP Slice C item 9)."""
+    from .inference.config import DeepSpeedInferenceConfig
+    from .inference.engine import InferenceEngine
+    params = kwargs.pop("params", None)
+    if isinstance(model, str):
+        raise NotImplementedError(
+            f"init_inference(model={model!r}): loading a HF checkpoint "
+            "directory (checkpoint/huggingface.py) is not ported yet "
+            "(ROADMAP Slice C item 9); pass a model of the port")
+    cfg = DeepSpeedInferenceConfig.from_any(config, **kwargs)
+    return InferenceEngine(model, cfg, params=params)
 
 
 def initialize(args=None,

@@ -74,13 +74,16 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // A [R, D] tile of 2-byte elements in wgmma's canonical swizzled layout:
-// D / W column atoms of [R, W] (W = min(D, 64)) one after another, each row
-// 2W bytes; within 8-row groups the 16-byte chunks of row r are XOR-ed with
-// r % 8 (128-byte swizzle, W 64), (r / 2) % 4 (64-byte, W 32) or (r / 4) % 2
-// (32-byte, W 16): the hardware's Swizzle<3|2|1, 4, 3> on the byte address,
-// which the tile's 1024-byte alignment makes the tile's own offset.
+// D / W column atoms of [R, W] one after another, each row 2W bytes, W the
+// widest of 64, 32 and 16 that divides D (D 16, 32, 64, 128, 256 take
+// min(D, 64); D 80 five atoms of 16, D 96 three of 32); within 8-row
+// groups the 16-byte chunks of row r are XOR-ed with r % 8 (128-byte
+// swizzle, W 64), (r / 2) % 4 (64-byte, W 32) or (r / 4) % 2 (32-byte, W
+// 16): the hardware's Swizzle<3|2|1, 4, 3> on the byte address, which the
+// tile's 1024-byte alignment makes the tile's own offset.
 template <int D> struct Tile {
-  static constexpr int W = D < 64 ? D : 64;
+  static_assert(D % 16 == 0, "a tile's width is a whole number of atoms");
+  static constexpr int W = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
   static constexpr int kRow = 2 * W;                    // bytes a row
   static constexpr uint32_t kMask = W == 64 ? 7 : W == 32 ? 3 : 1;
   static constexpr uint64_t kLayout = W == 64 ? 1 : W == 32 ? 2 : 3;
@@ -120,8 +123,9 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int R, int r0,
 
 // MN-major operand: rows [r0, r0 + 16) of a tile of R rows are the K slice,
 // column atom `atom` (W columns) the N dimension. 8-row groups along K are
-// kRow * 8 bytes apart. N never exceeds one atom here, so the stride between
-// atoms is never taken; LBO carries the same 8-row stride.
+// kRow * 8 bytes apart. N never exceeds one atom here (a product over D
+// columns runs one wgmma of N = W an atom), so the stride between atoms is
+// never taken; LBO carries the same 8-row stride.
 template <int D>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int R, int r0,
                                             int atom) {
@@ -261,12 +265,13 @@ __device__ __forceinline__ void to_a(const float (&s)[N / 2],
 
 // acc[64, D] += A[64, K] B[K, D] with A in registers (K / 16 slices) and B
 // the MN-major Tile<D> of R rows at `tile` (rows 0..K; a tile address
-// advanced by r0 * kRow bytes starts the K rows at r0).
+// advanced by r0 * kRow bytes starts the K rows at r0): one wgmma of N = W
+// a column atom.
 template <typename T, int D, int K>
 __device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
                                        const uint32_t (&a)[K / 16][4],
                                        uint32_t tile, int R) {
-  constexpr int NW = D < 64 ? D : 64;
+  constexpr int NW = Tile<D>::W;
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
 #pragma unroll

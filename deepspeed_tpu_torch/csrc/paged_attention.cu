@@ -29,18 +29,20 @@
 //   KV a layer and does ~1 flop a byte. One thread block per (batch row, kv
 //   head) walking the whole context would leave most of the 132 SMs idle
 //   behind the longest row, so paged_decode_split_kernel cuts each row's
-//   context into splits of 128 keys at fixed positions [128 s, 128 s + 128),
-//   one block per (split, kv head, batch row); the number of splits is
-//   ceil(max_blocks * bs / 128), from the table's shape, never from pos0's
-//   values, so the wrapper reads nothing back and the call can be captured
-//   in a CUDA graph. A block issues all of its split's K and V as 16-byte
-//   cp.async at once (K and V in two groups, so the scores start while V is
-//   in flight), keeps them in the pool's type in shared memory, and serves
-//   every (query, head) row of the GQA group from each staged key on the
-//   CUDA cores (at ~1 flop a byte tensor cores buy nothing): two threads a
-//   key for the scores (half its channels each), the block's max and sum
-//   by shuffles, then p v with a thread per (row, two channels) over the
-//   live keys. Everything stays fp32. It writes the partials (m, l, o) to a
+//   context into splits of K = 128 keys (64 for fp32 at D 256, whose K and
+//   V of 128 keys would pass a block's shared memory: kSplitKeys) at fixed
+//   positions [K s, K s + K), one block per (split, kv head, batch row);
+//   the number of splits is ceil(max_blocks * bs / K), from the table's
+//   shape, never from pos0's values, so the wrapper reads nothing back and
+//   the call can be captured in a CUDA graph. A block issues all of its
+//   split's K and V as 16-byte cp.async at once (K and V in two groups, so
+//   the scores start while V is in flight), keeps them in the pool's type
+//   in shared memory, and serves every (query, head) row of the GQA group
+//   from each staged key on the CUDA cores (at ~1 flop a byte tensor cores
+//   buy nothing): 256 / K threads a key for the scores (a share of its
+//   channels each), the block's max and sum by shuffles, then p v with a
+//   thread per (row, two channels) over the live keys. Everything stays
+//   fp32. It writes the partials (m, l, o) to a
 //   workspace the wrapper takes from PyTorch's allocator; a split past its
 //   row's context writes an empty one (m = -1e30, l = 0, o = 0).
 //   paged_decode_combine_kernel, one block per (kv head, batch row), folds
@@ -54,12 +56,14 @@
 //   head), two warpgroups of 64 (wgmma's M) over Q loaded once into a
 //   swizzled Tile<D> (hopper_tiles.cuh), so every staged K/V element serves
 //   128 rows (half the K/V traffic a row of one warpgroup a block). The
-//   keys stream in 64-key chunks through a 3-stage cp.async ring, two
-//   chunks in flight while one is multiplied: first the
+//   keys stream in 64-key chunks (32 at D 256, where Q and three stages of
+//   64-key K and V tiles would pass the 227 KiB a block may take:
+//   kChunkOf) through a 3-stage cp.async ring, two chunks in flight while
+//   one is multiplied: first the
 //   cached keys the block's rows can see, gathered by 16-byte rows through
 //   the block table (a block size under 64 fills a chunk from several
-//   pages, one over 64 is cut into 64-row pieces; the swizzle follows the
-//   row's place in the chunk), then the fresh keys. S = Q K^T by wgmma
+//   pages, one over a chunk is cut into chunk-row pieces; the swizzle
+//   follows the row's place in the chunk), then the fresh keys. S = Q K^T by wgmma
 //   (mma_ss), the position mask and ALiBi (a slope per row's q head), the
 //   online softmax in registers, P rounded to q's type in registers (to_a,
 //   where the JAX kernel rounds p to v's dtype, paged.py:218), O += P V by
@@ -84,6 +88,11 @@
 //   (a TF32 product keeps ~3 digits): one block per (batch row, kv head, 16
 //   rows) walks 32-key tiles staged as fp32 in shared memory.
 //
+// Head dims: 16, 32, 64, 128, and 80, 96 and 256 for the model families
+// that have them (Phi-2; Phi-3-mini and GPT-NeoX-20B; GPT-J-6B). The
+// tensor-core tile of D 80 is five 16-column atoms, of D 96 three of 32
+// (hopper_tiles.cuh Tile<D>).
+//
 // Every kernel zero-fills the tile slots outside the live range (cp.async
 // source size 0) and never reads them: keys past pos0, outside the table,
 // older than the window of every row of the block, past the chunk's causal
@@ -102,8 +111,12 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;   // every kernel here: 128 threads
 constexpr int kSplitRows = 16;          // rows the decode split takes
-constexpr int kSplitKeys = 128;         // keys a split
-constexpr int kSplitThreads = 256;      // threads a split block: two a key
+constexpr int kSplitThreads = 256;      // threads a split block
+// keys a split: 128, or 64 for fp32 at D 256 (K and V of 128 keys, 256
+// KiB, would pass a block's shared memory); by q's type, whatever the pool
+template <typename T, int D>
+constexpr int kSplitKeys = std::is_same<T, float>::value && D > 128 ? 64
+                                                                     : 128;
 
 template <typename T> struct Vec;     // 16-byte loads converted to fp32
 template <> struct Vec<float> {
@@ -345,8 +358,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   constexpr bool kScaled = !std::is_same<P, T>::value;
   constexpr int R = kWarps * RPW;             // (query, head) rows / block
   constexpr int kDpl = RowState<D, RPW>::kDpl;
-  __shared__ KeyTile<D> tile;
-  __shared__ float q_s[R * D];
+  // the key tile, then the block's q rows, in dynamic shared memory (at D
+  // 256 they pass the 48 KiB a block may declare statically)
+  extern __shared__ __align__(16) unsigned char smem_cc[];
+  KeyTile<D>& tile = *reinterpret_cast<KeyTile<D>*>(smem_cc);
+  float* const q_s = reinterpret_cast<float*>(smem_cc + sizeof(KeyTile<D>));
 
   const int b = blockIdx.x, g = blockIdx.y;
   const int rep = hq / hkv;
@@ -454,7 +470,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 
 // ======================= tensor cores, bf16/fp16 prefill (rows > 16)
 constexpr int kRows = 64;             // rows a warpgroup: wgmma's M
-constexpr int kChunk = 64;            // keys a chunk: the product's N
+// keys a chunk: the product's N; 32 at D 256, where Q (64 KiB) and three
+// stages of 64-key K and V tiles (192 KiB) would pass the 227 KiB limit
+template <int D> constexpr int kChunkOf = D > 128 ? 32 : 64;
 constexpr int kPrefillWGs = 2;        // warpgroups a block, sharing K/V
 constexpr int kPrefillStages = 3;     // chunks of the cp.async ring
 // blocks an SM is to hold (launch bounds: 1 lets a thread take 255
@@ -497,9 +515,9 @@ __device__ __forceinline__ uint4 codes_to(uint2 raw, const __nv_fp8_e4m3*,
 }
 
 // The key stream of one block: chunks [0, nc) hold the cached keys at
-// positions [page_lo, page_hi), 64 a chunk; chunks [nc, n) the fresh keys
-// j in [fresh_lo, fresh_hi). Slots past the range are dead.
-struct Stream {
+// positions [page_lo, page_hi), kChunk a chunk; chunks [nc, n) the fresh
+// keys j in [fresh_lo, fresh_hi). Slots past the range are dead.
+template <int kChunk> struct Stream {
   int nc, n, page_lo, page_hi, fresh_lo, fresh_hi;
   __device__ int first(int j) const {
     return j < nc ? page_lo + kChunk * j : fresh_lo + kChunk * (j - nc);
@@ -513,6 +531,7 @@ template <typename T, typename P, int D>
 __host__ __device__ constexpr uint32_t prefill_smem() {
   // 1024 alignment slack, Q, the stages of K and V; quantized pools: two
   // staging buffers of K and V codes and the stages' scales
+  constexpr int kChunk = kChunkOf<D>;
   return 1024 + Tile<D>::bytes(kPrefillWGs * kRows) +
          kPrefillStages * 2 * Tile<D>::bytes(kChunk) +
          (std::is_same<P, T>::value
@@ -536,6 +555,7 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                         int sq, int hq, int hkv, int hs, int nb, int bs,
                         int max_blocks, int window, float sc) {
   constexpr bool kQuant = !std::is_same<P, T>::value;
+  constexpr int kChunk = kChunkOf<D>;
   // fp16 with quantized pools: the value scale goes into the V tile (code
   // x scale in fp32, rounded once to fp16), not into P, whose product with
   // a small scale would fall below fp16's normal range
@@ -570,7 +590,7 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const bool any_live = row0 < rep * nq;
   const int q_lo = row0 / rep;
   const int q_hi = (min(row0 + kQRows, rep * nq) - 1) / rep;
-  Stream st{0, 0, 0, 0, 0, 0};
+  Stream<kChunk> st{0, 0, 0, 0, 0, 0};
   if (any_live) {
     st.page_hi = min(p0, max_blocks * bs);
     st.page_lo = window > 0 ? max(0, p0 + q_lo - window + 1) : 0;
@@ -823,25 +843,29 @@ paged_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 // rows, 2], fp32; part = ((b * hkv + g) * S + s) * rows + r.
 
 // Shared-memory place (in 16-byte units) of unit c of key k in a [keys, C]
-// array of 16-byte units: the 128-byte line's units XOR-ed with the line (C
-// under 8: several keys a line) or with the key (C 8 or more), so the eight
-// 16-byte reads of a quarter warp land on eight distinct bank groups.
+// array of 16-byte units: the 128-byte line's units XOR-ed with the key (C
+// a multiple of 8: whole lines a key) or with the line (any other C, D 80
+// and 96 among them: a key's units may share lines with the next key's),
+// so the eight 16-byte reads of a quarter warp land on distinct bank groups.
 template <int C>
 __device__ __forceinline__ int unit_of(int k, int c) {
-  if (C >= 8) return k * C + (c ^ (k & 7));
+  if (C % 8 == 0) return k * C + (c ^ (k & 7));
   const int u = k * C + c, line = u / 8;
   return line * 8 + ((u % 8) ^ (line % 8));
 }
 
 template <typename T, typename P, int D, int R>
 struct SplitSmem {
+  static constexpr int K = kSplitKeys<T, D>;        // keys a split
+  static constexpr int kParts = kSplitThreads / K;  // threads a key
   static constexpr int E = Vec<P>::N;               // elements a unit
   static constexpr int C = D / E;                   // units a key
-  static constexpr uint32_t kKV = kSplitKeys * D * sizeof(P);
-  // K, V, their scales, each key's pool offset, q, p, the reductions
+  static constexpr uint32_t kKV = K * D * sizeof(P);
+  // K, V, their scales, each key's pool offset, q, p (and the dots of a
+  // key's later parts), the reductions
   static constexpr uint32_t bytes =
-      2 * kKV + 2 * kSplitKeys * 4 + kSplitKeys * 8 + R * D * 4 +
-      R * kSplitKeys * 4 + 2 * kWarps * R * 4;
+      2 * kKV + 2 * K * 4 + K * 8 + R * D * 4 + (kParts - 1) * R * K * 4 +
+      2 * kWarps * R * 4;
 };
 
 template <typename T, typename P, int D, int R>
@@ -860,18 +884,19 @@ paged_decode_split_kernel(const T* __restrict__ q,
                           float sc) {
   constexpr bool kQuant = !std::is_same<P, T>::value;
   using L = SplitSmem<T, P, D, R>;
-  constexpr int E = L::E, C = L::C;
+  constexpr int K = L::K, kParts = L::kParts, E = L::E, C = L::C;
   constexpr int kNT = kSplitThreads;
-  constexpr int Ch = (C + 1) / 2;        // units of a key's first half
+  constexpr int Cp = (C + kParts - 1) / kParts;     // units a part
+  constexpr int kKeyWarps = K / 32;      // warps of the keys' first parts
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* const sK = smem;
   unsigned char* const sV = smem + L::kKV;
   float* const ks = reinterpret_cast<float*>(smem + 2 * L::kKV);
-  float* const vs = ks + kSplitKeys;
-  long long* const base = reinterpret_cast<long long*>(vs + kSplitKeys);
-  float* const q_s = reinterpret_cast<float*>(base + kSplitKeys);
-  float* const p_s = q_s + R * D;        // also the second halves' dots
-  float* const red = p_s + R * kSplitKeys;           // [2][kWarps][R]
+  float* const vs = ks + K;
+  long long* const base = reinterpret_cast<long long*>(vs + K);
+  float* const q_s = reinterpret_cast<float*>(base + K);
+  float* const p_s = q_s + R * D;        // p; first the later parts' dots
+  float* const red = p_s + (kParts - 1) * R * K;     // [2][kWarps][R]
 
   const int s = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int splits = gridDim.x;
@@ -885,9 +910,9 @@ paged_decode_split_kernel(const T* __restrict__ q,
 
   // the split's live keys [lo, hi): below pos0 and the table's end, not
   // older than the window of the first query
-  const int k0 = s * kSplitKeys;
+  const int k0 = s * K;
   const int lo = max(k0, window > 0 ? p0 - window + 1 : 0);
-  const int hi = nq > 0 ? min(min(p0, max_blocks * bs), k0 + kSplitKeys) : 0;
+  const int hi = nq > 0 ? min(min(p0, max_blocks * bs), k0 + K) : 0;
   if (lo >= hi) {                        // an empty partial
     for (int i = t; i < rows * D; i += kNT) o_ws[i] = 0.f;
     for (int r = t; r < rows; r += kNT) {
@@ -900,7 +925,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
   // each key's pool offset and scales (a thread a key) and the q rows in
   // fp32 (rows past true_len as zeros), then every K and V unit in flight
   // (K with the scales in one group, V in a second)
-  if (t < kSplitKeys) {
+  if (t < K) {
     const int kp = k0 + t;
     const bool ok = kp >= lo && kp < hi;
     const long long slot =
@@ -919,18 +944,18 @@ paged_decode_split_kernel(const T* __restrict__ q,
   }
   __syncthreads();
   {
-    constexpr int kIt = (kSplitKeys * C + kNT - 1) / kNT;
+    constexpr int kIt = (K * C + kNT - 1) / kNT;
     long long at[kIt];                   // this thread's units: k = i / C
 #pragma unroll
     for (int it = 0; it < kIt; ++it) {
       const int i = t + it * kNT;
-      const long long kb = i < kSplitKeys * C ? base[i / C] : -1;
+      const long long kb = i < K * C ? base[i / C] : -1;
       at[it] = kb >= 0 ? kb + (i % C) * E : -1;
     }
 #pragma unroll
     for (int it = 0; it < kIt; ++it) {
       const int i = t + it * kNT;
-      if (i < kSplitKeys * C)
+      if (i < K * C)
         cp_async16(smem_u32(sK + 16 * unit_of<C>(i / C, i % C)),
                    k_pool + (at[it] >= 0 ? at[it] : 0), at[it] >= 0 ? 16 : 0);
     }
@@ -938,7 +963,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int it = 0; it < kIt; ++it) {
       const int i = t + it * kNT;
-      if (i < kSplitKeys * C)
+      if (i < K * C)
         cp_async16(smem_u32(sV + 16 * unit_of<C>(i / C, i % C)),
                    v_pool + (at[it] >= 0 ? at[it] : 0), at[it] >= 0 ? 16 : 0);
     }
@@ -947,9 +972,9 @@ paged_decode_split_kernel(const T* __restrict__ q,
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   __syncthreads();                       // K and the scales are in
 
-  // scores: threads t and t + 128 own key k0 + t % 128, the first and the
-  // second half of its units; the second half's dots go through p_s
-  const int kk = t % kSplitKeys, half = t / kSplitKeys;
+  // scores: threads t, t + K, ... own key k0 + t % K, part t / K of its
+  // units each; the later parts' dots go through p_s
+  const int kk = t % K, part = t / K;
   const int kp = k0 + kk;
   const bool key_ok = kp >= lo && kp < hi;
   float sc_r[R];
@@ -974,30 +999,34 @@ paged_decode_split_kernel(const T* __restrict__ q,
         }
       }
     };
-    const int c1 = half == 0 ? Ch : C;
+    const int c1 = min(C, (part + 1) * Cp);
     if constexpr (R <= 4) {
 #pragma unroll 4
-      for (int c = half * Ch; c < c1; ++c) unit(c);
+      for (int c = part * Cp; c < c1; ++c) unit(c);
     } else {
 #pragma unroll 1
-      for (int c = half * Ch; c < c1; ++c) unit(c);
+      for (int c = part * Cp; c < c1; ++c) unit(c);
     }
   }
-  if (half == 1) {
+  if (part > 0) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) p_s[r * kSplitKeys + kk] = sc_r[r];
+    for (int r = 0; r < R; ++r)
+      p_s[((part - 1) * R + r) * K + kk] = sc_r[r];
   }
   __syncthreads();
-  // the block's max, p and sum over the keys, by the first 128 threads
+  // the block's max, p and sum over the keys, by the first K threads
   float* const red_l = red + kWarps * R;
   const float kscale = kQuant ? ks[kk] : 1.f;
-  if (half == 0) {
+  if (part == 0) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int qi = r / rep, qpos = p0 + qi;
       const bool ok = key_ok && r < rows && qi < nq &&
                       (window <= 0 || qpos - kp < window);
-      float v = (sc_r[r] + p_s[r * kSplitKeys + kk]) * kscale * sc;
+      float dot = sc_r[r];
+#pragma unroll
+      for (int j = 1; j < kParts; ++j) dot += p_s[((j - 1) * R + r) * K + kk];
+      float v = dot * kscale * sc;
       if (slopes != nullptr && r < rows)
         v += slopes[g * rep + r % rep] * (float)(kp - qpos);
       sc_r[r] = ok ? v : kMasked;
@@ -1006,15 +1035,15 @@ paged_decode_split_kernel(const T* __restrict__ q,
     }
   }
   __syncthreads();
-  if (half == 0) {
+  if (part == 0) {
     const float vscale = kQuant ? vs[kk] : 1.f;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       float m_r = red[r];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) m_r = fmaxf(m_r, red[w * R + r]);
+      for (int w = 1; w < kKeyWarps; ++w) m_r = fmaxf(m_r, red[w * R + r]);
       const float p = sc_r[r] == kMasked ? 0.f : expf(sc_r[r] - m_r);
-      p_s[r * kSplitKeys + kk] = p * vscale;
+      p_s[r * K + kk] = p * vscale;
       const float sum = warp_sum(p);
       if (lane == 0) red_l[warp * R + r] = sum;
     }
@@ -1024,7 +1053,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
   if (t < rows) {
     float m_r = red[t], l_r = red_l[t];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) {
+    for (int w = 1; w < kKeyWarps; ++w) {
       m_r = fmaxf(m_r, red[w * R + t]);
       l_r += red_l[w * R + t];
     }
@@ -1034,12 +1063,12 @@ paged_decode_split_kernel(const T* __restrict__ q,
 
   // o[r] = sum_k p[r, k] v[k]: a thread owns two channels of a row and
   // walks the live keys (a warp reads 64 channels of one key: no bank
-  // conflicts, p broadcast)
+  // conflicts, p broadcast); rows x D / 2 pairs over the block's threads
   const int klo = lo - k0, khi = hi - k0;
   for (int i = t; i < rows * (D / 2); i += kNT) {
     const int r = i / (D / 2), e0 = 2 * (i % (D / 2));
     const unsigned char* col = sV + (e0 % E) * sizeof(P);
-    const float* pr = p_s + r * kSplitKeys;
+    const float* pr = p_s + r * K;
     float a0 = 0.f, a1 = 0.f;
 #pragma unroll 8
     for (int k = klo; k < khi; ++k) {
@@ -1056,8 +1085,9 @@ paged_decode_split_kernel(const T* __restrict__ q,
 // partials of every split in split order (each scaled to the largest m of
 // the row's non-empty partials), then the fresh keys j <= its query (j >
 // query - window), then writes o / l, or zeros past true_len. Lane i owns
-// channels [4 i, 4 i + 4) (D under 128: lanes past D / 4 repeat a lane's
-// channels, add nothing to the dot products and store nothing).
+// channels [kCL i, kCL i + kCL), kCL = 4 (D 256: 8; D under 128: lanes past
+// D / 4 repeat a lane's channels, add nothing to the dot products and
+// store nothing).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_combine_kernel(const T* __restrict__ q,
@@ -1068,11 +1098,12 @@ paged_decode_combine_kernel(const T* __restrict__ q,
                             const float* __restrict__ slopes,
                             T* __restrict__ out, int sq, int hq, int hkv,
                             int splits, int window, float sc) {
+  constexpr int kCL = D > 128 ? D / 32 : 4;     // channels a lane
   const int g = blockIdx.x, b = blockIdx.y;
   const int rep = hq / hkv, rows = sq * rep;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c = (4 * lane) % D;
-  const bool mine = 4 * lane < D;        // this lane's four channels
+  const int c = (kCL * lane) % D;
+  const bool mine = kCL * lane < D;      // this lane's channels
   const int nq = min(sq, tlens[b]);
   const long long part0 = (long long)(b * hkv + g) * splits * rows;
   const float* const ml_ws =
@@ -1080,11 +1111,13 @@ paged_decode_combine_kernel(const T* __restrict__ q,
   for (int r = warp; r < rows; r += kWarps) {
     const int qi = r / rep, h = g * rep + r % rep;
     T* dst = out + (((long long)b * sq + qi) * hq + h) * D + c;
-    float o[4] = {0.f, 0.f, 0.f, 0.f};
+    float o[kCL];
+#pragma unroll
+    for (int e = 0; e < kCL; ++e) o[e] = 0.f;
     if (qi >= nq) {
       if (mine)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) Num<T>::store(dst + e, 0.f);
+        for (int e = 0; e < kCL; ++e) Num<T>::store(dst + e, 0.f);
       continue;
     }
     float m = kMasked;
@@ -1102,21 +1135,25 @@ paged_decode_combine_kernel(const T* __restrict__ q,
           *reinterpret_cast<const float2*>(ml_ws + 2 * part);
       const float w = ml.y > 0.f ? expf(ml.x - m) : 0.f;
       l += ml.y * w;
-      const float4 os = *reinterpret_cast<const float4*>(ws + part * D + c);
-      o[0] += w * os.x; o[1] += w * os.y; o[2] += w * os.z;
-      o[3] += w * os.w;
+#pragma unroll
+      for (int e = 0; e < kCL; e += 4) {
+        const float4 os =
+            *reinterpret_cast<const float4*>(ws + part * D + c + e);
+        o[e] += w * os.x; o[e + 1] += w * os.y; o[e + 2] += w * os.z;
+        o[e + 3] += w * os.w;
+      }
     }
     // the fresh keys, one at a time
-    float qv[4];
+    float qv[kCL];
     const long long qrow = (((long long)b * sq + qi) * hq + h) * D + c;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) qv[e] = Num<T>::load(q + qrow + e);
+    for (int e = 0; e < kCL; ++e) qv[e] = Num<T>::load(q + qrow + e);
     const float slope = slopes != nullptr ? slopes[h] : 0.f;
     for (int j = window > 0 ? max(0, qi - window + 1) : 0; j <= qi; ++j) {
       const long long kv = (((long long)b * sq + j) * hkv + g) * D + c;
-      float dot = 0.f, vv[4];
+      float dot = 0.f, vv[kCL];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < kCL; ++e) {
         dot = fmaf(qv[e], Num<T>::load(k_new + kv + e), dot);
         vv[e] = Num<T>::load(v_new + kv + e);
       }
@@ -1126,14 +1163,14 @@ paged_decode_combine_kernel(const T* __restrict__ q,
       const float corr = expf(m - m_new), p = expf(sj - m_new);
       l = l * corr + p;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[e] = o[e] * corr + p * vv[e];
+      for (int e = 0; e < kCL; ++e) o[e] = o[e] * corr + p * vv[e];
       m = m_new;
     }
     // l >= 1 (the row's own key): the fast reciprocal is exact to 1 ulp
     const float inv = __fdividef(1.f, l);
     if (mine)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) Num<T>::store(dst + e, o[e] * inv);
+      for (int e = 0; e < kCL; ++e) Num<T>::store(dst + e, o[e] * inv);
   }
 }
 
@@ -1155,13 +1192,23 @@ struct Args {
       static_cast<const int*>(a.true_len),                                 \
       static_cast<const float*>(a.slopes)
 
+// the CUDA-core kernel's rows a block, and its dynamic shared memory
+constexpr int kCoreRows = kWarps * 4;
+template <int D>
+constexpr uint32_t core_smem() {
+  return sizeof(KeyTile<D>) + kCoreRows * D * 4;
+}
+
 template <typename T, typename P, int D>
 cudaError_t launch_cuda_cores(const Args& a) {
-  constexpr int R = kWarps * 4;
+  constexpr int R = kCoreRows;
   const long long zt = ((long long)a.sq * (a.hq / a.hkv) + R - 1) / R;
   if (zt > 65535 || a.hkv > 65535) return cudaErrorInvalidConfiguration;
+  constexpr uint32_t smem = core_smem<D>();
+  cudaError_t e = allow_smem(paged_attention_kernel<T, P, D, 4>, smem);
+  if (e != cudaSuccess) return e;
   paged_attention_kernel<T, P, D, 4>
-      <<<dim3(a.b, a.hkv, (unsigned)zt), kThreads, 0, a.stream>>>(
+      <<<dim3(a.b, a.hkv, (unsigned)zt), kThreads, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k_new),
           static_cast<const T*>(a.v_new), DS_PTRS(T, P),
           static_cast<T*>(a.out), a.sq, a.hq, a.hkv, a.hs, a.nb, a.bs,
@@ -1213,7 +1260,10 @@ cudaError_t launch_split(const Args& a) {
 
 #undef DS_PTRS
 
-bool dim_ok(int d) { return d == 16 || d == 32 || d == 64 || d == 128; }
+bool dim_ok(int d) {
+  return d == 16 || d == 32 || d == 64 || d == 80 || d == 96 || d == 128 ||
+         d == 256;
+}
 
 // dtype codes: 0 float32, 1 bfloat16, 2 float16
 bool dtype_ok(int dtype) { return dtype >= 0 && dtype <= 2; }
@@ -1246,7 +1296,10 @@ cudaError_t dispatch_dim(int variant, int d, const Args& a) {
     case 16: return dispatch_variant<T, P, 16>(variant, a);
     case 32: return dispatch_variant<T, P, 32>(variant, a);
     case 64: return dispatch_variant<T, P, 64>(variant, a);
+    case 80: return dispatch_variant<T, P, 80>(variant, a);
+    case 96: return dispatch_variant<T, P, 96>(variant, a);
     case 128: return dispatch_variant<T, P, 128>(variant, a);
+    case 256: return dispatch_variant<T, P, 256>(variant, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1261,8 +1314,12 @@ cudaError_t dispatch_pool(int variant, int pool, int d, const Args& a) {
   }
 }
 
-long long split_count(int max_blocks, int bs) {
-  return ((long long)max_blocks * bs + kSplitKeys - 1) / kSplitKeys;
+// the decode split's keys a split (kSplitKeys) by dtype code and head dim
+int split_keys(int dtype, int d) { return dtype == 0 && d > 128 ? 64 : 128; }
+
+long long split_count(int dtype, int d, int max_blocks, int bs) {
+  const int k = split_keys(dtype, d);
+  return ((long long)max_blocks * bs + k - 1) / k;
 }
 
 }  // namespace
@@ -1277,27 +1334,48 @@ extern "C" int ds_paged_attention_variant(int dtype, int d, int sq, int hq,
   return variant_of(dtype, d, (long long)sq * (hq / hkv));
 }
 
-// The decode split's number of splits: the table's keys over 128.
-extern "C" long long ds_paged_attention_splits(int max_blocks, int bs) {
-  return split_count(max_blocks, bs);
+// The decode split's keys a split for a dtype and head dim: 128, or 64
+// for fp32 at D 256; -1 where no kernel takes them.
+extern "C" int ds_paged_attention_split_keys(int dtype, int d) {
+  return dim_ok(d) && dtype_ok(dtype) ? split_keys(dtype, d) : -1;
+}
+
+// The decode split's number of splits: the table's keys over the keys a
+// split.
+extern "C" long long ds_paged_attention_splits(int dtype, int d,
+                                               int max_blocks, int bs) {
+  return split_count(dtype, d, max_blocks, bs);
 }
 
 // Dynamic shared memory (bytes) of one block of kernel `which` (1 the
-// tensor-core prefill, 2 the decode split at 16 rows; 0 the CUDA-core
-// kernel, whose memory is static: 0) for a dtype, pool code and head dim;
-// -1 where no kernel is compiled for them.
+// tensor-core prefill, 2 the decode split at 16 rows, 0 the CUDA-core
+// kernel) for a dtype, pool code and head dim; -1 where no kernel is
+// compiled for them.
 extern "C" long long ds_paged_attention_smem(int which, int dtype, int pool,
                                              int d) {
   if (!dim_ok(d) || pool < 0 || pool > 2 || !dtype_ok(dtype)) return -1;
-  if (which == 0) return dtype == 0 ? 0 : -1;
+  if (which == 0) {
+    if (dtype != 0) return -1;
+    switch (d) {
+      case 16: return core_smem<16>();
+      case 32: return core_smem<32>();
+      case 64: return core_smem<64>();
+      case 80: return core_smem<80>();
+      case 96: return core_smem<96>();
+      case 128: return core_smem<128>();
+      default: return core_smem<256>();
+    }
+  }
 #define DS_SMEM(T, P, D)                                                   \
   if (d == D)                                                              \
     return which == 1 ? (!std::is_same<T, float>::value                    \
                              ? (long long)prefill_smem<T, P, D>()          \
                              : -1)                                         \
                       : (long long)SplitSmem<T, P, D, kSplitRows>::bytes;
-#define DS_SMEM_D(T, P) \
-  DS_SMEM(T, P, 16) DS_SMEM(T, P, 32) DS_SMEM(T, P, 64) DS_SMEM(T, P, 128)
+#define DS_SMEM_D(T, P)                                     \
+  DS_SMEM(T, P, 16) DS_SMEM(T, P, 32) DS_SMEM(T, P, 64) \
+  DS_SMEM(T, P, 80) DS_SMEM(T, P, 96) DS_SMEM(T, P, 128)  \
+  DS_SMEM(T, P, 256)
 #define DS_SMEM_P(T)                                  \
   if (pool == 0) { DS_SMEM_D(T, T) }                  \
   if (pool == 1) { DS_SMEM_D(T, int8_t) }             \
@@ -1318,7 +1396,8 @@ extern "C" long long ds_paged_attention_smem(int which, int dtype, int pool,
 // scales [nb, bs, hs], hs = hkv or 1. slopes may be null (no ALiBi);
 // window <= 0 means no sliding window. The decode split
 // (ds_paged_attention_variant 2) takes splits =
-// ds_paged_attention_splits(max_blocks, bs) and an fp32 workspace of b *
+// ds_paged_attention_splits(dtype, d, max_blocks, bs) and an fp32
+// workspace of b *
 // hkv * splits * sq * (hq / hkv) * (d + 2) values; other variants take
 // splits 0 and a null workspace. Tensors contiguous, the
 // pools, k_new, v_new and the scales 16-byte aligned. Returns
@@ -1343,7 +1422,7 @@ extern "C" int ds_paged_attention(const void* q, const void* k_new,
   const int variant = ds_paged_attention_variant(dtype, d, sq, hq, hkv);
   if (variant < 0 ||
       (variant == 2) != (workspace != nullptr) ||
-      splits != (variant == 2 ? split_count(max_blocks, bs) : 0) ||
+      splits != (variant == 2 ? split_count(dtype, d, max_blocks, bs) : 0) ||
       !aligned16(k_new) || !aligned16(v_new) || !aligned16(k_pool) ||
       !aligned16(v_pool) || (scaled && (!aligned16(k_scale) ||
                                         !aligned16(v_scale))))

@@ -1,0 +1,192 @@
+"""Inference engine v1 (counterpart of ``deepspeed_tpu/inference/engine.py``
+``InferenceEngine``; reference: deepspeed/inference/engine.py
+InferenceEngine:41 — checkpoint load:326, forward:579, _generate with the
+sequence-length guard:608).
+
+The model runs where its parameters live (the card unless the caller built
+it with ``device="cpu"``), cast to the config's dtype. ``generate`` is a
+prefill and then a decode loop over the static KV cache of
+``DecoderLM.init_cache``/``decode``, whose attention is the plain
+``ops.layers.cached_attention`` as in the JAX engine (XLA there, no Pallas
+kernel); the norms run through the norm kernels on the card. The loop is
+eager: one host step a token. Sampling follows the JAX engine's keys
+(``PRNGKey(seed)``, one ``split`` before each draw) and filters
+(temperature, top-k, top-p) through ``ops/threefry.py`` and
+``ops/sampling.py``, with the temperature's reciprocal rounding of JAX's
+compiled loop.
+
+Not ported yet, each refused with ``NotImplementedError`` naming its
+ROADMAP item: ``tensor_parallel.tp_size > 1`` (Slice D item 12),
+``quantize_weights`` and ``dtype="int8"`` (``linear/``, Slice C item 9),
+``quantize_moe_experts`` and ``moe_grouped_dispatch`` (MoE, Slice D item
+12), an orbax checkpoint directory (Slice E item 13).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..models.base import ModelConfig
+from ..models.convert import load_jax_params
+from ..ops import sampling, threefry
+from ..utils.logging import log_dist
+from .config import DeepSpeedInferenceConfig
+
+PyTree = Any
+
+
+def _refuse_unported(config: DeepSpeedInferenceConfig) -> None:
+    if config.torch_dtype == torch.int8:
+        raise NotImplementedError(
+            "dtype='int8' is not a blanket cast: weight-only int8 serving "
+            "(linear/) is not ported yet (ROADMAP Slice C item 9)")
+    if config.quantize_weights:
+        raise NotImplementedError(
+            "quantize_weights (weight-only int8, linear/) is not ported yet "
+            "(ROADMAP Slice C item 9)")
+    if config.quantize_moe_experts or config.moe_grouped_dispatch:
+        raise NotImplementedError(
+            "quantize_moe_experts / moe_grouped_dispatch: MoE serving is "
+            "not ported yet (ROADMAP Slice D item 12)")
+    if max(1, config.tensor_parallel.tp_size) > 1:
+        raise NotImplementedError(
+            f"tensor_parallel.tp_size {config.tensor_parallel.tp_size}: "
+            "tensor-parallel serving is not ported yet (ROADMAP Slice D "
+            "item 12)")
+
+
+class InferenceEngine:
+    """reference: inference/engine.py:41"""
+
+    def __init__(self, model, config: DeepSpeedInferenceConfig,
+                 params: Optional[PyTree] = None):
+        _refuse_unported(config)
+        self._config = config
+        self.module = model
+        self.dtype = config.torch_dtype
+        self.device = next(iter(model.params.values())).device
+        # every floating parameter in the serving dtype, as the JAX engine
+        # casts its tree
+        with torch.no_grad():
+            for name, p in list(model.params.items()):
+                if p.dtype != self.dtype:
+                    model.params[name] = nn.Parameter(p.to(self.dtype))
+        if params is None and config.checkpoint:
+            params = self._load_checkpoint_params(config.checkpoint)
+        if params is not None:
+            load_jax_params(model, params)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(config.seed)
+            model.init_params(gen)
+        model.eval()
+        self.model_config: ModelConfig | None = getattr(model, "config",
+                                                        None)
+        self._cache_len = config.max_out_tokens
+        log_dist(f"InferenceEngine: tp=1 dtype={self.dtype} "
+                 f"max_out_tokens={self._cache_len} on {self.device}")
+
+    # ------------------------------------------------------------------
+    def _load_checkpoint_params(self, path: str) -> PyTree:
+        """A save_16bit_model ``.npz`` (names are the tree's "/"-joined
+        paths; reference: load_checkpoint:326). An engine checkpoint
+        directory (orbax) is not ported yet."""
+        if path.endswith(".npz"):
+            with np.load(path) as flat:
+                params: dict = {}
+                for name in flat.files:
+                    node = params
+                    *parents, last = name.split("/")
+                    for part in parents:
+                        node = node.setdefault(part, {})
+                    node[last] = flat[name]
+            return params
+        kind = "directory" if os.path.isdir(path) else "path"
+        raise NotImplementedError(
+            f"checkpoint {kind} {path!r}: only a .npz is read; engine "
+            "checkpoint directories are not ported yet (ROADMAP Slice E "
+            "item 13)")
+
+    # ------------------------------------------------------------------
+    def _tokens(self, tokens) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
+        return t.to(self.device)
+
+    @torch.no_grad()
+    def forward(self, tokens, **kwargs) -> torch.Tensor:
+        """Full-sequence logits (reference: forward:579)."""
+        return self.module.apply(self._tokens(tokens))
+
+    __call__ = forward
+
+    def _check_lengths(self, prompt_len: int, max_new: int) -> int:
+        cache_len = prompt_len + max_new
+        # reference guard: _generate:608 rejects over-length sequences
+        if cache_len > self._cache_len:
+            raise ValueError(
+                f"input+max_new_tokens ({cache_len}) exceeds "
+                f"max_out_tokens ({self._cache_len}); raise max_out_tokens "
+                "in the inference config")
+        if (self.model_config is not None
+                and cache_len > self.model_config.max_seq_len):
+            raise ValueError(
+                f"input+max_new_tokens ({cache_len}) exceeds the model "
+                f"max_seq_len ({self.model_config.max_seq_len})")
+        return cache_len
+
+    @torch.no_grad()
+    def generate(self, tokens, max_new_tokens: int = 32,
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 0.0, do_sample: bool = False,
+                 seed: int = 0, **kwargs) -> torch.Tensor:
+        """Autoregressive generation (reference: _generate:608): the
+        prompt as one prefill, then ``max_new_tokens - 1`` decode steps.
+        Greedy unless ``do_sample``; top_p enables nucleus sampling
+        (composes with top_k and temperature). Returns [B, prompt +
+        max_new_tokens] token ids, the prompt first."""
+        tokens = self._tokens(tokens)
+        if tokens.dim() == 1:
+            tokens = tokens[None, :]
+        b, prompt_len = tokens.shape
+        cache_len = self._check_lengths(prompt_len, max_new_tokens)
+        model = self.module
+        key = threefry.prng_key(seed, device=self.device)
+
+        def sample(logits, key):
+            key, sub = threefry.split(key)
+            if not do_sample:
+                return sampling.sample_tokens(logits, greedy=True), key
+            # temperature 1 leaves the logits as they are (JAX divides
+            # only when it is not 1); the rest as JAX's compiled loop
+            return sampling.sample_tokens(
+                logits, sub, temperature=temperature, top_k=top_k,
+                top_p=top_p, reciprocal=True), key
+
+        cache = model.init_cache(b, cache_len, dtype=self.dtype)
+        logits, cache = model.decode(tokens, cache)                # prefill
+        nxt, key = sample(logits[:, -1, :].float(), key)
+        out = [nxt]
+        for _ in range(max_new_tokens - 1):
+            logits, cache = model.decode(nxt[:, None], cache)
+            nxt, key = sample(logits[:, -1, :].float(), key)
+            out.append(nxt)
+        return torch.cat([tokens, torch.stack(out, 1)], 1)
+
+    # --- reference-parity accessors -----------------------------------
+    @property
+    def config(self):
+        return self._config
+
+    def eval(self):
+        return self
+
+    def half(self):
+        return self
+
+    def to(self, *a, **k):
+        return self

@@ -13,8 +13,12 @@ from .engine_v2 import InferenceEngineV2, RaggedInferenceEngineConfig
 
 __all__ = ["build_engine", "SUPPORTED_MODEL_TYPES"]
 
-# the families ported so far (the JAX package serves fifteen)
-SUPPORTED_MODEL_TYPES = ("gpt2", "llama")
+# the JAX package's table (reference engine_factory.py names + bloom, gptj,
+# gptneox, internlm); mixtral and qwen2_moe are refused by the model until
+# MoE is ported (ROADMAP Slice D item 12)
+SUPPORTED_MODEL_TYPES = ("gpt2", "llama", "mistral", "mixtral", "falcon",
+                         "opt", "phi", "phi3", "qwen", "qwen2", "qwen2_moe",
+                         "bloom", "gptj", "gptneox", "internlm")
 
 
 def build_engine(model_type: str, size: str = "tiny",

@@ -25,14 +25,17 @@ from ...ops import launches, op_builder
 from ...ops.norms import plain_norms
 from ...ops.quantization import KV_STORE_DTYPES, kv_dequantize, kv_quantize
 
-_KERNEL_DIMS = (16, 32, 64, 128)
+# head dims the kernels are compiled for: the powers of two, and 80, 96 and
+# 256 for the families that have them (Phi-2; Phi-3-mini and GPT-NeoX-20B;
+# GPT-J-6B)
+_KERNEL_DIMS = (16, 32, 64, 80, 96, 128, 256)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # pool storage codes of the kernel's C entry: 0 = q's dtype (fp pools)
 _POOL_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 # the C entry's table (ds_paged_attention_variant)
 VARIANTS = {0: "cuda_cores", 1: "prefill_wgmma", 2: "decode_split"}
 SPLIT_ROWS = 16       # (query, head) rows a kv head serves: decode split
-SPLIT_KEYS = 128      # keys a split of the decode split
+SPLIT_KEYS = 128      # keys a split of the decode split (see split_keys)
 _GRID_YZ = 65535      # a launch grid's y and z limit
 
 
@@ -160,6 +163,15 @@ def paged_attention_plain(q, k_new, v_new, k_pool, v_pool, block_tables,
     return out.to(q.dtype)
 
 
+def split_keys(dtype, head_dim: int) -> int:
+    """Keys a split of the decode split: ``SPLIT_KEYS``, or half of it for
+    fp32 at D 256, whose staged K and V of 128 keys (256 KiB) would pass a
+    block's shared memory. The C entry's ``ds_paged_attention_split_keys``
+    (the kernel's ``kSplitKeys``)."""
+    return SPLIT_KEYS // 2 if dtype == torch.float32 and head_dim > 128 \
+        else SPLIT_KEYS
+
+
 def launch_plan(q_shape, dtype, num_kv_heads: int,
                 block_tables_shape, block_size: int) -> dict:
     """The kernel a CUDA call takes, from shapes alone (never from pos0's
@@ -168,8 +180,8 @@ def launch_plan(q_shape, dtype, num_kv_heads: int,
     when the rows = S_new * Hq / Hkv one kv head serves are at most
     ``SPLIT_ROWS``, fp32, bf16 or fp16; else "prefill_wgmma" for bf16 and
     fp16 and "cuda_cores" for fp32; None where no kernel takes the call),
-    ``splits`` (the decode split's ceil(max_blocks * bs / SPLIT_KEYS),
-    else 0) and ``workspace``, the shape of its fp32 partials [B, Hkv,
+    ``splits`` (the decode split's ceil(max_blocks * bs / split_keys(dtype,
+    D)), else 0) and ``workspace``, the shape of its fp32 partials [B, Hkv,
     splits, rows, D + 2] (else None). The same table as the C entry's
     ``ds_paged_attention_variant`` and ``ds_paged_attention_splits``."""
     b, sq, hq, d = q_shape
@@ -180,7 +192,8 @@ def launch_plan(q_shape, dtype, num_kv_heads: int,
         return plan
     rows = sq * (hq // num_kv_heads)
     if rows <= SPLIT_ROWS:
-        splits = -(-block_tables_shape[1] * block_size // SPLIT_KEYS)
+        splits = -(-block_tables_shape[1] * block_size
+                   // split_keys(dtype, d))
         return {"variant": "decode_split", "splits": splits,
                 "workspace": (b, num_kv_heads, splits, rows, d + 2)}
     if dtype in (torch.bfloat16, torch.float16):
@@ -201,8 +214,10 @@ def _kernel_fn():
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
         lib.ds_paged_attention_variant.argtypes = [ctypes.c_int] * 5
         lib.ds_paged_attention_variant.restype = ctypes.c_int
-        lib.ds_paged_attention_splits.argtypes = [ctypes.c_int] * 2
+        lib.ds_paged_attention_splits.argtypes = [ctypes.c_int] * 4
         lib.ds_paged_attention_splits.restype = ctypes.c_longlong
+        lib.ds_paged_attention_split_keys.argtypes = [ctypes.c_int] * 2
+        lib.ds_paged_attention_split_keys.restype = ctypes.c_int
         lib.ds_paged_attention_smem.argtypes = [ctypes.c_int] * 4
         lib.ds_paged_attention_smem.restype = ctypes.c_longlong
     return lib, fn
@@ -234,7 +249,7 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
 
     CPU tensors take :func:`paged_attention_plain`. CUDA tensors launch
     one kernel of ``csrc/paged_attention.cu`` (fp32, bf16 or fp16, D in {16,
-    32, 64, 128}, block size a multiple of 8, contiguous int32
+    32, 64, 80, 96, 128, 256}, block size a multiple of 8, contiguous int32
     tables/pos0/true_len) or raise. :func:`launch_plan` picks it from
     the shapes; ``paged_attention_kernel.launches`` counts the calls,
     ``.variant_launches`` them by variant and ``.variant`` names the
@@ -245,7 +260,7 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
       ``2 * ctx * Hkv * D * itemsize`` bytes of KV a layer (1 byte an
       element plus 4 bytes per (token, scale head) when quantized) and
       does ~1 flop a byte. Each row's context is cut into splits of
-      ``SPLIT_KEYS`` keys, one thread block per (split, kv head, batch
+      :func:`split_keys` keys, one thread block per (split, kv head, batch
       row), so a batch of 8 fills the card; a block issues its split's
       K and V at once, keeps them in the pool's type and serves every
       (query, head) row of the GQA group from each key on the CUDA cores,
@@ -255,8 +270,9 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
     * "prefill_wgmma" (bf16 and fp16, more rows: prefill chunks and
       mixed ticks). ~64 flops a staged byte, so tensor cores: a block of two
       warpgroups owns 128 (query, head) rows of one kv head (64 each)
-      and streams 64-key chunks (the cached keys gathered through the
-      block table, then the fresh ones) through a 3-stage cp.async ring;
+      and streams 64-key chunks (32 at D 256; the cached keys gathered
+      through the block table, then the fresh ones) through a 3-stage
+      cp.async ring;
       S = Q K^T and O += P V by wgmma, the online softmax in registers.
       P is rounded to q's dtype before P V, where the JAX kernel rounds p
       to v's dtype; with quantized pools the JAX kernel keeps p and the
@@ -310,7 +326,8 @@ def paged_attention_kernel(q, k_new, v_new, k_pool, v_pool, block_tables,
                f"{tensors[name].dtype} != q dtype {q.dtype}")
     for name in ("block_tables", "pos0", "true_len"):
         _check(tensors[name].dtype == torch.int32, f"{name} must be int32")
-    _check(d in _KERNEL_DIMS, f"head_dim {d} (one of {_KERNEL_DIMS})")
+    _check(d in _KERNEL_DIMS, f"head_dim {d}: the kernels take {_KERNEL_DIMS}"
+           " (other head dims: ROADMAP Slice C item 9)")
     _check(bs % 8 == 0, f"block size {bs} (a multiple of 8)")
     _check(hkv > 0 and hq % hkv == 0, f"{hq} q heads over {hkv} kv heads")
     _check(k_new.shape == (b, sq, hkv, d) and v_new.shape == k_new.shape,

@@ -56,8 +56,11 @@ _STD = 0.02
 
 
 class DecoderLM(nn.Module):
-    """GPT-2 (learned positions, LayerNorm, GELU, biases) and Llama (RoPE,
-    RMSNorm, SwiGLU, GQA, no biases) from one parameterized block."""
+    """Every dense family from one parameterized block: GPT-2 (learned
+    positions, LayerNorm, GELU, biases), Llama (RoPE, RMSNorm, SwiGLU, GQA,
+    no biases) and the switches of the others (ALiBi, sliding window,
+    parallel residual with one or two norms, partial rotary, qkv-only
+    biases, embed LayerNorm, ReLU)."""
 
     def __init__(self, config: ModelConfig, *, device=None, dtype=None):
         super().__init__()
@@ -67,8 +70,8 @@ class DecoderLM(nn.Module):
         dt = dtype or c.param_dtype
         if c.num_experts > 0:
             raise NotImplementedError(
-                "MoE models are not ported yet (ROADMAP: port Queue, "
-                "model breadth)")
+                "MoE models (mixtral, qwen2_moe) are not ported yet "
+                "(ROADMAP Slice D item 12: moe/)")
         check_training_options(c)
         if c.position_embedding == "rope":
             # partial rotary (rotary_pct < 1) rotates only the first
@@ -187,7 +190,11 @@ class DecoderLM(nn.Module):
             if positions is None:
                 positions = torch.arange(tokens.shape[-1],
                                          device=tokens.device)[None, :]
-            x = x + self.params["embed/positions"][positions]
+            # a chunk's pad slots past a row's end may lie past the table
+            # (JAX's take fills them with NaN; their rows are never read):
+            # clamped, so the lookup stays in bounds on the card
+            x = x + self.params["embed/positions"][
+                positions.clamp(max=c.max_seq_len - 1)]
         if c.embed_layernorm:
             x = N.layer_norm(x, self.params["embed/ln_scale"],
                              self.params["embed/ln_bias"], c.norm_eps)
@@ -422,6 +429,75 @@ class DecoderLM(nn.Module):
               positions: torch.Tensor | None = None) -> torch.Tensor:
         """Contiguous forward: logits [B, S, V]."""
         return self.unembed(self.final_hidden(tokens, positions))
+
+    # ---------------- KV-cache decode (the v1 inference engine) ----------
+    def init_cache(self, batch_size: int, max_len: int, dtype=None) -> dict:
+        """Static-shape KV cache (JAX ``init_cache``; reference:
+        inference_context.h KV buffer allocation): ``{"k", "v"}`` [L, B,
+        S_max, H_kv, D] zeros on the model's device, and ``"index"``, the
+        tokens cached so far (a host int: the decode loop is eager)."""
+        c = self.config
+        dt = dtype or next(iter(self.params.values())).dtype
+        dev = next(iter(self.params.values())).device
+        shape = (c.num_layers, batch_size, max_len, c.num_kv_heads,
+                 c.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev), "index": 0}
+
+    def block_decode(self, p: dict, x: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, index: int):
+        """One block over new tokens with cache read/write (JAX
+        ``block_decode``). x: [B, S_new, D]; caches [B, S_max, H_kv, D],
+        written IN PLACE at [index, index + S_new) (JAX returns updated
+        copies). Returns (x, k_cache, v_cache)."""
+        b, s, _ = x.shape
+        positions = (index + torch.arange(s, device=x.device))[None, :] \
+            .expand(b, s)
+        h = self._norm(x, p["ln1_scale"], p.get("ln1_bias"))
+        q, k, v = self._qkv(p, h, positions)
+        k_cache[:, index:index + s] = k.to(k_cache.dtype)
+        v_cache[:, index:index + s] = v.to(v_cache.dtype)
+        a = L.cached_attention(q, k_cache, v_cache, index,
+                               window=self.config.sliding_window,
+                               alibi_slopes=self._alibi_slopes)
+        if self.config.parallel_residual:
+            m = self._mlp(p, self._parallel_mlp_input(p, x, h))
+            return x + self._attn_out(p, a) + m, k_cache, v_cache
+        x = x + self._attn_out(p, a)
+        return self._mlp_residual(p, x), k_cache, v_cache
+
+    def decode(self, tokens: torch.Tensor, cache: dict):
+        """Prefill or incremental decode (JAX ``decode``): ``tokens`` [B,
+        S_new], appended at ``cache["index"]``, through every layer, the
+        cache updated in place. Returns (logits [B, S_new, V], cache) with
+        the index advanced."""
+        index = cache["index"]
+        b, s = tokens.shape
+        positions = (index + torch.arange(s, device=tokens.device))[None, :] \
+            .expand(b, s)
+        x = self.embed(tokens, positions=positions)
+        for layer in range(self.config.num_layers):
+            x, _, _ = self.block_decode(self.layer_params(layer), x,
+                                        cache["k"][layer], cache["v"][layer],
+                                        index)
+        return self.unembed(x), dict(cache, index=index + s)
+
+    def partition_rules(self) -> list[tuple[str, tuple]]:
+        """Megatron-style TP rules (JAX ``partition_rules``), each spec a
+        tuple of mesh-axis names (None: replicated; () replicated
+        whole)."""
+        return [
+            (r"embed/tokens", ("tp", None)),
+            (r"embed/positions", ()),
+            (r"layers/(wq|wk|wv|w_up|w_gate)$", (None, None, "tp")),
+            (r"layers/(wq_b|wk_b|wv_b|w_up_b|w_gate_b)$", (None, "tp")),
+            (r"layers/(wo|w_down)$", (None, "tp", None)),
+            (r"layers/(wo_b|w_down_b)$", ()),
+            (r"layers/ln\d_(scale|bias)", ()),
+            (r"final_norm", ()),
+            (r"lm_head$", (None, "tp")),
+            (r"lm_head_b$", ("tp",)),
+        ]
 
     forward = apply
 

@@ -50,8 +50,11 @@ def rotary_embedding(seq_len: int, head_dim: int, theta: float = 10000.0,
 
 def apply_rotary(x, cos, sin, positions=None):
     """Half-split (not interleaved) rotary. x: [B, S, H, D]; cos/sin:
-    [S_max, D//2]; positions: optional [B, S] absolute positions."""
+    [S_max, D//2]; positions: optional [B, S] absolute positions, clamped
+    to the table as JAX's gather clamps them (a chunk's pad slots past a
+    row's end may lie past it; their rows are never read)."""
     if positions is not None:
+        positions = positions.clamp(max=cos.shape[0] - 1)
         cos = cos[positions][:, :, None, :]   # [B, S, 1, D//2]
         sin = sin[positions][:, :, None, :]
     else:
@@ -117,6 +120,42 @@ def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
         logits = logits.masked_fill(~(qi >= ki), -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    return out.to(q.dtype)
+
+
+def cached_attention(q, k_cache, v_cache, index: int, *,
+                     window: int | None = None, alibi_slopes=None):
+    """Decode-time attention against a static KV cache (JAX
+    ``cached_attention``, which is plain XLA there too; reference:
+    csrc/transformer/inference softmax + attention over the
+    inference_context.h KV buffers).
+
+    q: [B, S_new, H, D] (the tokens being decoded); k/v_cache: [B, S_max,
+    H_kv, D] with positions [0, index + S_new) valid (the new tokens' k/v
+    already written at [index, index + S_new)). The mask keeps the whole
+    S_max in the product, as the JAX version's static shapes do.
+    ``window`` restricts each query to its last ``window`` positions
+    (Mistral SWA); ``alibi_slopes`` [H] adds Bloom's linear bias. Scores
+    and softmax in fp32, output in q's dtype."""
+    b, sq, hq, d = q.shape
+    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    if hq != hkv:
+        rep = hq // hkv
+        k_cache = k_cache.repeat_interleave(rep, dim=2)
+        v_cache = v_cache.repeat_interleave(rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k_cache.float()) * (1.0 / np.sqrt(d))
+    qpos = index + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(smax, device=q.device)[None, :]
+    mask = kpos <= qpos                           # causal over the cache
+    if window is not None:
+        mask &= kpos > qpos - window
+    if alibi_slopes is not None:
+        rel = (kpos - qpos).float()               # [sq, smax]
+        logits = logits + alibi_slopes[None, :, None, None] * rel[None, None]
+    logits = logits.masked_fill(~mask[None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v_cache.dtype), v_cache)
     return out.to(q.dtype)
 
 

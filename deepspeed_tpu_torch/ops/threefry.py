@@ -15,6 +15,7 @@ The pieces and their JAX counterparts (``jax/_src/prng.py``,
 * :func:`prng_key` — ``PRNGKey(seed)`` (``threefry_seed``, 64-bit types
   off);
 * :func:`fold_in` — ``_threefry_fold_in``;
+* :func:`split` — ``_threefry_split_foldlike``;
 * :func:`random_bits` — ``_threefry_random_bits_partitionable`` at 32
   bits: the counters are the flat index as (hi, lo), the bits
   ``bits1 ^ bits2``;
@@ -85,6 +86,15 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     y0, y1 = threefry2x32(key[..., 0], key[..., 1],
                           torch.zeros_like(data), data)
     return torch.stack(torch.broadcast_tensors(y0, y1), -1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (``_threefry_split_foldlike``): ``num`` keys
+    ``[..., num, 2]``, key i the hash of the counter pair (0, i)."""
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[..., 0, None], key[..., 1, None],
+                          idx >> 32, idx & MASK)
+    return torch.stack([y0, y1], -1)
 
 
 def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:

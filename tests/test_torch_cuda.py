@@ -293,10 +293,11 @@ def test_paged_kernel_variant_by_dtype_and_shape(cuda, dtype):
         assert plan["variant"] == want
         assert paged.VARIANTS[lib.ds_paged_attention_variant(
             code, 32, sq, hq, hkv)] == want
-        assert lib.ds_paged_attention_splits(MAXB, BS) == \
+        assert lib.ds_paged_attention_splits(code, 32, MAXB, BS) == \
             -(-MAXB * BS // paged.SPLIT_KEYS)
         if want == "decode_split":
-            assert plan["splits"] == lib.ds_paged_attention_splits(MAXB, BS)
+            assert plan["splits"] == lib.ds_paged_attention_splits(
+                code, 32, MAXB, BS)
         before = dict(paged.paged_attention_kernel.variant_launches)
         paged.paged_attention_kernel(*x.values())
         torch.cuda.synchronize()
@@ -424,6 +425,128 @@ def test_paged_mixed_tick_and_context_lengths(cuda, dtype):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), ref.float(), atol=tol,
                                    rtol=tol)
+
+
+# the head dims of the model families past the powers of two (Phi-2 80,
+# Phi-3-mini and GPT-NeoX-20B 96, GPT-J-6B 256): decode, prefill and a mixed
+# tick, a window and ALiBi on the prefill
+NEW_DIM_CASES = {
+    "decode": dict(b=3, sq=1, pos0=[300, 0, 129], true_len=[1, 1, 0]),
+    "decode_sq2_alibi": dict(b=2, sq=2, pos0=[255, 63], true_len=[2, 1]),
+    "prefill_window_alibi": dict(b=2, sq=80, pos0=[70, 0],
+                                 true_len=[80, 61]),
+    "mixed_tick": MIXED_TICK,
+}
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8_head", "fp8_token"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [80, 96, 256])
+def test_paged_kernel_at_the_new_head_dims(cuda, d, dtype, pool):
+    """D 80, 96 and 256 in every variant, dtype and pool: the kernel
+    against plain at the dtype's tolerance, the variant and splits the
+    plan and the C table name (fp32 at D 256 splits contexts in 64 keys),
+    a bit-identical rerun, and NaN/inf in every dead slot left unread."""
+    lib, _ = paged._kernel_fn()
+    code = paged.KERNEL_DTYPES[dtype]
+    assert lib.ds_paged_attention_split_keys(code, d) == \
+        paged.split_keys(dtype, d) == (64 if dtype == torch.float32
+                                       and d == 256 else 128)
+    for name, shape in NEW_DIM_CASES.items():
+        x = _case(cuda, dtype, **shape, d=d, hq=8, hkv=2, bs=16, seed=d)
+        kw = {}
+        if "window" in name:
+            kw["window"] = 40
+        if "alibi" in name:
+            kw["alibi_slopes"] = alibi_slopes(8, device=cuda)
+        scales = {}
+        if pool != "fp":
+            kv_dtype, gran = pool.split("_")
+            hs = x["k_pool"].shape[2] if gran == "head" else 1
+            for p_, s_ in (("k_pool", "k_scale"), ("v_pool", "v_scale")):
+                x[p_], scales[s_] = kv_quantize(x[p_], kv_dtype, hs)
+        plan = _plan(x)
+        got = paged.paged_attention_kernel(*x.values(), **kw, **scales)
+        again = paged.paged_attention_kernel(*x.values(), **kw, **scales)
+        assert paged.paged_attention_kernel.variant == plan["variant"]
+        if plan["variant"] == "decode_split":
+            assert plan["splits"] == lib.ds_paged_attention_splits(
+                code, d, *x["block_tables"].shape[1:], 16)
+        y = _dead_poisoned(dict(x, **scales), kw.get("window"))
+        ys = {k: y.pop(k) for k in ("k_scale", "v_scale") if k in y}
+        poisoned = paged.paged_attention_kernel(*y.values(), **kw, **ys)
+        ref = paged.paged_attention_plain(*x.values(), **kw, **scales)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, poisoned), name
+        torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype], msg=name)
+
+
+# families whose switches the paged path carries (window, ALiBi and an
+# embedding norm, one kv head, parallel residual with one or two norms,
+# partial rotary), widened to the new head dims where the preset has them
+FAMILY_CASES = {"mistral": dict(sliding_window=6), "bloom": {},
+                "falcon": {},
+                "phi": dict(hidden_size=160, num_heads=2),       # D 80
+                "gptneox": dict(hidden_size=192, num_heads=2),   # D 96
+                "gptj": dict(hidden_size=512, num_heads=2)}      # D 256
+
+
+@pytest.mark.parametrize("family", list(FAMILY_CASES))
+def test_family_engine_on_the_card_matches_the_cpu(cuda, family):
+    """build_engine for each family on the card against the CPU engine on
+    the same weights (fp32, 2e-4), every layer of every dispatch on the
+    kernel, and greedy generate() finishing every request."""
+    cfg = dict(dtype="float32", kv_block_size=8, num_kv_blocks=64,
+               max_chunk_size=16)
+    over = FAMILY_CASES[family]
+    cpu = build_engine(family, "tiny", cfg, device="cpu", **over)
+    gpu = build_engine(family, "tiny", cfg, params=dict(cpu.model.params),
+                       device=cuda, **over)
+    prompts = [np.random.default_rng(s).integers(0, 512, n).tolist()
+               for s, n in ((1, 11), (2, 40))]
+    before = paged.paged_attention_kernel.launches
+    got = gpu.put([0, 1], prompts)
+    launched = paged.paged_attention_kernel.launches - before
+    ref = cpu.put([0, 1], prompts)
+    torch.testing.assert_close(got.cpu(), ref, atol=2e-4, rtol=2e-4)
+    assert launched == (gpu.model.config.num_layers
+                        * gpu.serving_stats["host_dispatches"])
+    gpu.flush([0, 1])
+    assert [len(o) for o in gpu.generate(prompts, max_new_tokens=6)] == \
+        [6, 6]
+
+
+def test_init_inference_on_the_card_matches_the_cpu(cuda):
+    """The v1 engine on the card (GPT-J at D 256: partial rotary, one
+    norm a layer on the norm kernel) against the CPU engine on the same
+    weights: forward logits at 2e-4 and greedy tokens."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPTJ
+    over = dict(hidden_size=512, num_heads=2)
+    cpu = ds.init_inference(GPTJ(size="tiny", device="cpu", **over),
+                            config={"dtype": "fp32", "max_out_tokens": 64})
+    gpu = ds.init_inference(GPTJ(size="tiny", device=cuda, **over),
+                            config={"dtype": "fp32", "max_out_tokens": 64},
+                            params=dict(cpu.module.params))
+    tokens = np.random.default_rng(4).integers(0, 512, (2, 9))
+    torch.testing.assert_close(gpu.forward(tokens).cpu(),
+                               cpu.forward(tokens), atol=2e-4, rtol=2e-4)
+    assert torch.equal(gpu.generate(tokens, max_new_tokens=8).cpu(),
+                       cpu.generate(tokens, max_new_tokens=8))
+
+
+def test_paged_kernel_refuses_other_head_dims(cuda):
+    """A head dim that is a multiple of 8 but none of the kernels' raises
+    on the card, naming the dims and the ROADMAP item: no plain
+    fallback."""
+    for d in (8, 48, 112, 192):
+        x = _case(cuda, torch.bfloat16, b=2, sq=1, pos0=[20, 3],
+                  true_len=[1, 1], d=d)
+        assert _plan(x)["variant"] is None
+        with pytest.raises(ValueError, match="head_dim.*Slice C item 9"):
+            paged.paged_attention_kernel(*x.values())
 
 
 # ------------------------------------------------------- flash attention

@@ -194,6 +194,22 @@ SCHEDULE_CASES = {
                               {"dtype": "fp16", "kv": ("int8", "head")}),
     "fp16_decode_fp8_token": (3, 1, 8, 2, 64, 8, [300, 0, 61], [1, 1, 1],
                               {"dtype": "fp16", "kv": ("fp8", "token")}),
+    # the model families' head dims past the powers of two (Phi-2 80,
+    # Phi-3-mini and GPT-NeoX-20B 96, GPT-J-6B 256): 32-key prefill
+    # chunks and, in fp32, 64-key decode splits at D 256
+    "prefill_d80_rep4": (2, 24, 8, 2, 80, 16, [13, 40], [24, 20], {}),
+    "decode_d80_int8_head_window_alibi": (
+        2, 1, 8, 2, 80, 8, [70, 9], [1, 1],
+        {"kv": ("int8", "head"), "window": 30, "alibi": True}),
+    "prefill_d96_fp8_token": (2, 20, 4, 2, 96, 16, [33, 0], [20, 17],
+                              {"kv": ("fp8", "token")}),
+    "fp16_decode_sq2_d96": (2, 2, 8, 2, 96, 16, [130, 40], [2, 1],
+                            {"dtype": "fp16"}),
+    "decode_d256_splits_of_64": (2, 1, 4, 2, 256, 16, [150, 60], [1, 1], {}),
+    "fp16_prefill_d256_window_alibi": (2, 40, 4, 2, 256, 16, [70, 5],
+                                       [40, 33], {"dtype": "fp16",
+                                                  "window": 50,
+                                                  "alibi": True}),
 }
 # fp16 cases against the Pallas kernel in fp16: both sides round the
 # output to fp16 (2^-11 relative each) and round p to fp16 against other
@@ -203,6 +219,13 @@ SCHEDULE_CASES = {
 FP16_TOL = dict(atol=2e-3, rtol=2e-3)
 NEG = np.float32(-1e30)
 TILE_ROWS = 128    # rows a block of the tensor-core prefill: two warpgroups
+
+
+def _prefill_chunk(d):
+    """Keys a chunk of the tensor-core prefill (csrc/paged_attention.cu
+    ``kChunkOf``): 32 at D 256, whose Q and three stages of 64-key K and
+    V tiles would pass a block's shared memory; else 64."""
+    return 32 if d > 128 else 64
 
 
 def _fp16(name):
@@ -290,8 +313,9 @@ def _round16(a):
 
 def _prefill_schedule(x, window, slopes):
     """paged_prefill_tc_kernel: a block per (b, kv head, TILE_ROWS
-    flattened rows), 64-key chunks (the cached keys the block's first
-    query can see, then the fresh keys up to its last live query) with
+    flattened rows), key chunks of ``_prefill_chunk(D)`` (64; 32 at D 256:
+    the cached keys the block's first query can see, then the fresh keys
+    up to its last live query) with
     dead slots zero-filled, the online softmax per chunk; the key scale on
     S's columns, the value scale folded into P. fp16 inputs: P rounded to
     fp16 before P V, and a quantized pool's V tile holds code x scale
@@ -303,6 +327,7 @@ def _prefill_schedule(x, window, slopes):
     rep, rows = hq // hkv, sq * (hq // hkv)
     bs, mb = x["k_pool"].shape[1], x["block_tables"].shape[1]
     sc = np.float32(1 / np.sqrt(d))
+    ck = _prefill_chunk(d)
     out = np.zeros(q.shape, np.float32)
     for b in range(b_):
         p0, nq = int(x["pos0"][b]), min(sq, int(x["true_len"][b]))
@@ -316,9 +341,9 @@ def _prefill_schedule(x, window, slopes):
                 page_lo = max(0, p0 + q_lo - window + 1) if window else 0
                 fresh_lo = max(0, q_lo - window + 1) if window else 0
                 chunks = ([(True, k0, page_hi)
-                           for k0 in range(page_lo, page_hi, 64)]
+                           for k0 in range(page_lo, page_hi, ck)]
                           + [(False, j0, q_hi + 1)
-                             for j0 in range(fresh_lo, q_hi + 1, 64)])
+                             for j0 in range(fresh_lo, q_hi + 1, ck)])
                 gr = row0 + np.arange(TILE_ROWS)
                 qi, h = gr // rep, g * rep + gr % rep
                 row_ok = (gr < rows) & (qi < nq)
@@ -329,23 +354,23 @@ def _prefill_schedule(x, window, slopes):
                 l = np.zeros(TILE_ROWS, np.float32)
                 acc = np.zeros((TILE_ROWS, d), np.float32)
                 for cached, k0, end in chunks:
-                    ok = k0 + np.arange(64) < end
-                    kt = np.zeros((64, d), np.float32)
-                    vt = np.zeros((64, d), np.float32)
-                    ks = np.ones(64, np.float32)
-                    vs = np.ones(64, np.float32)
-                    idx = k0 + np.arange(64)[ok]
+                    ok = k0 + np.arange(ck) < end
+                    kt = np.zeros((ck, d), np.float32)
+                    vt = np.zeros((ck, d), np.float32)
+                    ks = np.ones(ck, np.float32)
+                    vs = np.ones(ck, np.float32)
+                    idx = k0 + np.arange(ck)[ok]
                     if cached:
                         kt[ok], ks[ok] = _pool_rows(x, "k", b, g, idx)
                         vt[ok], vs[ok] = _pool_rows(x, "v", b, g, idx)
                         if fp16 and "v_scale" in x:
                             vt = _round16(vt * vs[:, None])
-                            vs = np.ones(64, np.float32)
-                        kpos = k0 + np.arange(64)
+                            vs = np.ones(ck, np.float32)
+                        kpos = k0 + np.arange(ck)
                     else:
                         kt[ok], vt[ok] = x["k_new"][b, idx, g], \
                             x["v_new"][b, idx, g]
-                        kpos = p0 + k0 + np.arange(64)
+                        kpos = p0 + k0 + np.arange(ck)
                     s = (qt @ kt.T) * ks[None] * sc
                     if slopes is not None:
                         safe_h = np.where(gr < rows, h, 0)
@@ -371,9 +396,9 @@ def _prefill_schedule(x, window, slopes):
     return out
 
 
-def _decode_schedule(x, window, slopes, plan):
+def _decode_schedule(x, window, slopes, plan, keys):
     """paged_decode_split_kernel + paged_decode_combine_kernel: the plan's
-    splits of SPLIT_KEYS keys at fixed positions, one partial (m, l, o)
+    splits of ``keys`` keys at fixed positions, one partial (m, l, o)
     each in the plan's workspace (an empty split: m = -1e30, l = 0, o =
     0), then per row the partials folded in split order against the
     largest m of the non-empty ones, then the fresh keys one at a time."""
@@ -394,9 +419,9 @@ def _decode_schedule(x, window, slopes, plan):
                           0).astype(np.float32)
             qpos = p0 + qpos_off
             for s in range(plan["splits"]):
-                k0 = s * tpaged.SPLIT_KEYS
+                k0 = s * keys
                 lo = max(k0, p0 - window + 1 if window else 0)
-                hi = min(p0, mb * bs, k0 + tpaged.SPLIT_KEYS) if nq else 0
+                hi = min(p0, mb * bs, k0 + keys) if nq else 0
                 if lo >= hi:
                     ws[b, g, s, :, d] = NEG
                     continue
@@ -450,16 +475,22 @@ def _decode_schedule(x, window, slopes, plan):
 
 def _schedule_out(name, x, window, slopes):
     """The case through the schedule the wrapper's plan picks for it
-    (fp16 cases: the output rounded to fp16, as the kernels store it)."""
+    (fp16 cases: the output rounded to fp16, as the kernels store it;
+    the decode split at the case's dtype's keys a split)."""
     q, hkv = x["q"], x["k_new"].shape[2]
+    d = q.shape[-1]
     shapes = (q.shape, hkv, x["block_tables"].shape, x["k_pool"].shape[1])
     plan = tpaged.launch_plan(q.shape, torch.bfloat16, *shapes[1:])
     assert plan == tpaged.launch_plan(q.shape, torch.float32, *shapes[1:]) \
-        or plan["variant"] == "prefill_wgmma"
+        or plan["variant"] == "prefill_wgmma" \
+        or tpaged.split_keys(torch.float32, d) != tpaged.SPLIT_KEYS
     assert plan == tpaged.launch_plan(q.shape, torch.float16, *shapes[1:])
     if "decode" in name:
         assert plan["variant"] == "decode_split"
-        out = _decode_schedule(x, window, slopes, plan)
+        dtype = torch.float16 if _fp16(name) else torch.float32
+        plan = tpaged.launch_plan(q.shape, dtype, *shapes[1:])
+        out = _decode_schedule(x, window, slopes, plan,
+                               tpaged.split_keys(dtype, d))
     else:
         assert plan["variant"] == "prefill_wgmma"
         out = _prefill_schedule(x, window, slopes)
@@ -558,3 +589,30 @@ def test_launch_plan_is_a_function_of_shapes():
                     v["block_tables"].shape, v["k_pool"].shape[1]) == \
             {"variant": "decode_split", "splits": 3,
              "workspace": (3, 2, 3, 4, 34)}
+
+
+def test_launch_plan_split_and_chunk_follow_the_head_dim():
+    """The head dims past the powers of two take the same variants; the
+    decode split cuts contexts in 128 keys except fp32 at D 256 (64: its
+    K and V of 128 keys would pass a block's shared memory). Other
+    multiples of 8 have no kernel."""
+    plan = tpaged.launch_plan
+    for d in (80, 96, 256):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            keys = 64 if dtype == torch.float32 and d == 256 else 128
+            assert tpaged.split_keys(dtype, d) == keys
+            got = plan((8, 1, 32, d), dtype, 32, (8, 32), 64)
+            assert got == {"variant": "decode_split",
+                           "splits": -(-32 * 64 // keys),
+                           "workspace": (8, 32, -(-32 * 64 // keys), 1,
+                                         d + 2)}
+            want = "cuda_cores" if dtype == torch.float32 \
+                else "prefill_wgmma"
+            assert plan((2, 256, 32, d), dtype, 32, (2, 9), 64) == \
+                {"variant": want, "splits": 0, "workspace": None}
+    # Falcon-7B's 71 q heads over 1 kv head: a decode row is 71 rows
+    assert plan((8, 1, 71, 64), torch.bfloat16, 1, (8, 9),
+                64)["variant"] == "prefill_wgmma"
+    for d in (8, 48, 112, 192, 512):
+        assert plan((1, 1, 4, d), torch.bfloat16, 4, (1, 3),
+                    8)["variant"] is None
