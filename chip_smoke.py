@@ -21,8 +21,10 @@ Phases, each fatal on failure:
      card's least time for the work (its bound); the flash and
      block-sparse rows add the kernels' variant (bf16/fp16 on the tensor
      cores, fp32 on the CUDA cores), TFLOP/s, the share of the bound, the
-     ratio to SDPA and a bit-identical rerun, and the build prints their
-     registers, shared memory and spills; the paged rows also in fp16
+     ratio to SDPA and a bit-identical rerun (flash also at phase 21's
+     head dims: D 80 and 96 at 32 heads, D 256 at 16, B 4, S 2048), and
+     the build prints their registers, shared memory and spills; the
+     paged rows also in fp16
      (decode, prefill and tick, fp and int8 pools), the quantize rows
      with the variant each call took (bulk, and ragged on a misaligned
      start), the Adam row with its like-for-like yardsticks (the kernel
@@ -157,7 +159,22 @@ Phases, each fatal on failure:
      1e-4; (e) init_inference(GPTJ(size="6b"), bf16) on (b)'s weights:
      32 tokens from 8 prompts of 256, tokens/s, greedy agreement with
      (b)'s v2 engine (reported), and at 4 layers in fp32 the v1 and v2
-     tokens equal under the near-tie rule.
+     tokens equal under the near-tie rule; (f) phi "2", phi3 "mini" and
+     gptj "6b" at 4 layers in fp32 through generate_fused (K 8): a
+     capturing run and a rerun, both equal to that engine's generate()
+     token for token, the paged launches counted from the graph replays
+     as in phase 17 (every replayed tick decode_split);
+ 21. the dense families trained at full width: initialize(phi "2", phi3
+     "mini" cut to 24 layers, gptj "6b" cut to 12; random seeded weights,
+     phase 6's config: bf16, fused Adam, ZeRO 2, clip 1.0, segments,
+     flash) -> train_batch on 4 x 2048 tokens, one warm-up step then 5
+     timed steps each, each engine released before the next: tokens/s,
+     step ms, MFU, peak memory, the loss per step (finite and falling),
+     the flash launches a step by variant (every one wgmma) and the
+     norm launches (row kernels); then each at 2 layers in fp32 (TF32
+     off) on the card against the CPU, 3 steps: losses at 1e-4 relative,
+     the first step's grads at 1e-4 of their largest, the params at 1e-3
+     of their total change.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
 RMSNorm/LayerNorm kernels against their plain versions and times them at
@@ -2894,18 +2911,81 @@ def breadth_v1(dev, v2_outputs, params, prompts, size="6b"):
     return rec
 
 
+def breadth_fused(dev, family, size, layers=BREADTH_LAYERS, n_req=4,
+                  max_new=16, lengths=(100, 701), k=8):
+    """Phase 20f: the family at its published width cut to ``layers``,
+    fp32 (TF32 off), random seeded weights, through generate_fused at K
+    ``k`` (phase 17's loop: a run that captures the graphs, then a rerun
+    with the counts set to 0 just before it): both runs must give the
+    engine's per-tick generate() tokens, token for token; the paged
+    launches, counted from the graph replays as in phase 17, must be
+    layers x (graph ticks + prefill dispatches), every replayed tick's
+    decode_split and the rest the fp32 prefill's cuda_cores."""
+    from deepspeed_tpu_torch.inference.v2 import build_engine, paged
+    cfg = {"dtype": "float32", "kv_block_size": 64, "num_kv_blocks": 512,
+           "max_chunk_size": 256, "max_ragged_sequence_count": 8}
+    engine = build_engine(family, size=size, engine_config=cfg, device=dev,
+                          num_layers=layers)
+    c = engine.model.config
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, c.vocab_size, n).tolist()
+               for n in rng.integers(lengths[0], lengths[1], n_req)]
+    ref = engine.generate(prompts, max_new_tokens=max_new)
+    warm, _ = serve_fused(engine, prompts, max_new, dev, k)
+    ticks = count_ticks(engine)
+    paged.paged_attention_kernel.launches = 0
+    paged.paged_attention_kernel.variant_launches = {}
+    engine.reset_serving_metrics()
+    timed_first = len(engine.graph_captures)
+    try:
+        got, run = serve_fused(engine, prompts, max_new, dev, k)
+    finally:
+        uncount_ticks(engine)
+    launches = paged.paged_attention_kernel.launches
+    by_variant = dict(paged.paged_attention_kernel.variant_launches)
+    m = engine.serving_metrics()
+    prefill_dispatches = m["host_dispatches"] - m["fused_dispatches"]
+    graph_ticks = sum(ticks) + len(engine.graph_captures) - timed_first
+    rec = dict(model=f"{family}-{size}", head_dim=c.head_dim, layers=layers,
+               requests=n_req, new_tokens=max_new, k=k,
+               equal_to_generate=got == ref and warm == ref,
+               agreement=agreement(got, ref), decode_steps=run["steps"],
+               graph_ticks=graph_ticks, prefill_dispatches=prefill_dispatches,
+               launches=launches, launches_by_variant=by_variant,
+               graphs_captured=len(engine.graph_captures))
+    release_engine(engine, dev)
+    del engine
+    log(f"[breadth] fused fp32 {json.dumps(rec)}")
+    bad = []
+    if not rec["equal_to_generate"]:
+        bad.append("generate_fused != generate")
+    if dev.type == "cuda" and (
+            launches != layers * (graph_ticks + prefill_dispatches)
+            or by_variant.get("decode_split", 0) < layers * graph_ticks
+            or set(by_variant) - {"decode_split", "cuda_cores"}):
+        bad.append(f"paged launches {launches} by variant {by_variant} "
+                   f"(graph ticks {graph_ticks}, prefill dispatches "
+                   f"{prefill_dispatches}, {layers} layers)")
+    if bad:
+        raise AssertionError(f"phase 20f {family}-{size}: " + "; ".join(bad)
+                             + f" {rec}")
+    return rec
+
+
 def model_breadth_main(dev, full=BREADTH_FULL, cut=BREADTH_CUT,
                        layers=BREADTH_LAYERS, long_prompt=MISTRAL_LONG_PROMPT,
                        fp32_layers=BREADTH_FP32_LAYERS, serve_kw=None,
-                       lens=(200, 250), v1_len=V1_PROMPTS["length"]):
-    """Phase 20 (b-e; a runs in phase 3): the dense families at full width
+                       lens=(200, 250), v1_len=V1_PROMPTS["length"],
+                       fused_kw=None):
+    """Phase 20 (b-f; a runs in phase 3): the dense families at full width
     and depth (``full``), at published widths cut to ``layers`` (``cut``;
     Mistral with a ``long_prompt`` past its window), each in fp32 at
-    ``fp32_layers`` kernel against plain, and the v1 engine on GPT-J's
-    weights (``full``'s gptj entry). ``serve_kw`` goes to main_path,
-    ``lens`` are the teacher-forced rows, ``v1_len`` the v1 prompts'
-    length (a CPU rehearsal at tiny size shrinks them). Returns the
-    phase's record."""
+    ``fp32_layers`` kernel against plain, the v1 engine on GPT-J's
+    weights (``full``'s gptj entry), and ``full`` at ``layers`` in fp32
+    through generate_fused (``fused_kw`` to :func:`breadth_fused`).
+    ``serve_kw`` goes to main_path, ``lens`` are the teacher-forced rows,
+    ``v1_len`` the v1 prompts' length (a CPU rehearsal at tiny size
+    shrinks them). Returns the phase's record."""
     import torch
     t0 = time.perf_counter()
     rec = {"serving": {}, "fp32_rel_logits_err": {}}
@@ -2935,6 +3015,9 @@ def model_breadth_main(dev, full=BREADTH_FULL, cut=BREADTH_CUT,
             dev, family, size, layers=fp32_layers, lens=lens)
     log(f"[breadth] fp32 kernel vs plain logits at {fp32_layers} layers: "
         f"{json.dumps(rec['fp32_rel_logits_err'])} (tol {TOL['float32']})")
+    rec["fused_fp32"] = {f"{family}-{size}": breadth_fused(
+        dev, family, size, layers=layers, **(fused_kw or {}))
+        for family, size in full}
     rec["seconds"] = time.perf_counter() - t0
     log(f"[breadth] phase 20: {rec['seconds']:.1f} s")
     return rec
@@ -2944,6 +3027,244 @@ def engine_vocab(family, size) -> int:
     """The vocabulary of a family's preset."""
     from deepspeed_tpu_torch import models
     return getattr(models, f"{family}_config")(size).vocab_size
+
+
+# ----------------------------------------------------------- phase 21
+# the dense families trained at full width: (family, size, layers), depth
+# cut only as far as the card's 80 GB force (the engine keeps ~18 B a
+# parameter: fp32 master, grads, Adam m and v, the bf16 copy): phi "2"
+# whole (2.78 B params), phi3 "mini" 24 of 32 layers, gptj "6b" 12 of 28
+TRAIN_FAMILIES = (("phi", "2", None), ("phi3", "mini", 24),
+                  ("gptj", "6b", 12))
+TRAIN_FAMILY_ROWS, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS = 4, 2048, 5
+# the fp32 checks, the card against the CPU (TF32 off), 3 steps each:
+# (a) each family at its width cut to 2 layers, on 2 x 64 tokens at lr
+# 1e-5 (at phase 6's 1e-4 these models memorise the 128 tokens in 3
+# steps, the loss 11.5 -> 0.002, and the comparison measures the
+# collapse); the params bound leaves out the lm_head, where Adam turns
+# gradients within rounding of zero into +-lr steps of either sign
+# (PERF.md §6); (b) each family's tiny preset widened to its head
+# dim (WIDE_FAMILIES, vocab 512), tests/test_torch_cuda.py's engine test
+# whole, every tensor under the params bound
+TRAIN_FAMILY_FP32 = dict(layers=2, rows=2, seq=64, steps=3, lr=1e-5)
+SIGN_FLIP_TENSORS = ("lm_head",)
+WIDE_FAMILIES = {"phi": dict(hidden_size=160, num_heads=2),
+                 "phi3": dict(hidden_size=192, num_heads=2),
+                 "gptj": dict(hidden_size=512, num_heads=2)}
+TRAIN_FAMILY_WIDE_FP32 = dict(layers=2, rows=4, seq=96, steps=3, lr=1e-3)
+
+
+def train_family(dev, family, size, layers=None, rows=TRAIN_FAMILY_ROWS,
+                 seq=TRAIN_FAMILY_SEQ, steps=TRAIN_FAMILY_STEPS):
+    """Phase 21: initialize(<family> ``size`` at full width, depth cut to
+    ``layers`` where given, random seeded weights, flash, segments) with
+    TRAIN_CONFIG (bf16, fused Adam, ZeRO 2, clip 1.0) -> train_batch on a
+    fixed ``rows`` x ``seq`` batch, one warm-up step then ``steps`` timed
+    steps, the counts set to 0 just before them: tokens/s, step ms, MFU,
+    peak memory, the losses (finite and falling), the flash launches a
+    step by variant (every one wgmma: L forward, 2L backward a step) and
+    the norm launches (every one a row kernel). The engine is released
+    before the next family."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import get_model_class
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.fused_optimizers import fused_adam_step
+    over = {"num_layers": layers} if layers else {}
+    model = get_model_class(family)(size=size, remat_policy="segments",
+                                    attn_impl="flash", device=dev, **over)
+    c = model.config
+    t = time.perf_counter()
+    engine, _, _, _ = ds.initialize(model=model, config=dict(
+        TRAIN_CONFIG, train_batch_size=rows))
+    init_s = time.perf_counter() - t
+    batch = train_batch_of(dev, c.vocab_size, rows, seq)
+    engine.train_batch(batch)                                  # warm-up
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    norms = norm_counter(c)
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_fwd.variant_launches = {}
+    fa.flash_attention_bwd.variant_launches = {}
+    fused_adam_step.launches = 0
+    reset_norms(norms)
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        sync(dev)
+        step_s.append(time.perf_counter() - t)
+    norm_by_variant = check_norm_variants(norms, dev, f"{family} training")
+    losses = [float(x) for x in losses]
+    tok_s = rows * seq * steps / sum(step_s)
+    flash = {"fwd": dict(fa.flash_attention_fwd.variant_launches),
+             "bwd": dict(fa.flash_attention_bwd.variant_launches)}
+    stats = dict(
+        model=f"{family}-{size}", params=c.num_params(),
+        layers=c.num_layers, head_dim=c.head_dim,
+        heads=f"{c.num_heads}/{c.num_kv_heads}", batch=rows, seq=seq,
+        steps=steps, initialize_s=init_s,
+        step_ms=1e3 * sum(step_s) / steps, step_ms_min=1e3 * min(step_s),
+        step_ms_max=1e3 * max(step_s), tokens_per_s=tok_s,
+        mfu=c.flops_per_token(seq, causal=True) * tok_s / BF16_FLOPS,
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else None),
+        losses=losses, fused_adam_launches=fused_adam_step.launches,
+        flash_launches_per_step={
+            k: {v: n / steps for v, n in by.items()}
+            for k, by in flash.items()},
+        flash_launches_by_variant=flash, norm_launches=norms.launches,
+        norm_launches_by_variant=norm_by_variant)
+    del engine, model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[families] {json.dumps(stats)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{family}-{size} training losses not finite "
+                             f"and falling: {losses}")
+    want = {"fwd": {"wgmma": c.num_layers * steps},
+            "bwd": {"wgmma": 2 * c.num_layers * steps}}
+    if dev.type == "cuda" and (flash != want
+                               or stats["fused_adam_launches"] != steps
+                               or norms.launches
+                               != norm_launches_per_micro(c) * steps):
+        raise AssertionError(
+            f"{family}-{size} training launches: flash {flash} != {want} "
+            f"(one forward and one backward call per layer, two backward "
+            f"launches per call, every one wgmma), Adam "
+            f"{stats['fused_adam_launches']} (want {steps}), norms "
+            f"{norms.launches} (want {norm_launches_per_micro(c) * steps})")
+    return stats
+
+
+def fp32_engine_run(dev, family, size, layers, rows, seq, steps, lr,
+                    init=None, over=None):
+    """One side of the fp32 check: initialize(<family> ``size`` cut to
+    ``layers``, ``over`` on its config, flash, segments) in fp32 on
+    ``dev`` with TRAIN_CONFIG at ``lr``, ``steps`` train_batch calls on
+    one seeded batch from ``init`` (the master's tensors; None: the
+    model's seeded draw). Returns the initial tensors, the losses, the
+    first step's grads and each tensor's change, on the CPU."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import get_model_class
+    cfg = dict(TRAIN_CONFIG, train_batch_size=rows, bf16={"enabled": False},
+               optimizer={"type": "FusedAdam", "params": dict(
+                   TRAIN_CONFIG["optimizer"]["params"], lr=lr)})
+    model = get_model_class(family)(size=size, num_layers=layers,
+                                    remat_policy="segments",
+                                    attn_impl="flash", device=dev,
+                                    **(over or {}))
+    engine, _, _, _ = ds.initialize(model=model, config=cfg,
+                                    model_parameters=init)
+    if init is None:
+        init = {n: t.detach().cpu().clone() for n, t in
+                engine.master_state_dict().items()}
+    batch = train_batch_of(dev, model.config.vocab_size, rows, seq, seed=7)
+    losses, grads = [], None
+    for step in range(steps):
+        losses.append(float(engine.train_batch(batch)))
+        if step == 0:
+            grads = engine._grads.detach().cpu().clone()
+    change = {n: t.detach().cpu() - init[n]
+              for n, t in engine.master_state_dict().items()}
+    del engine, model
+    gc.collect()
+    return dict(init=init, losses=losses, grads=grads, change=change)
+
+
+def train_family_fp32(dev, family, size, layers=2, rows=2, seq=64,
+                      steps=3, lr=1e-5, over=None, cpu=None,
+                      loose=SIGN_FLIP_TENSORS):
+    """Phase 21, fp32 (TF32 off): the family cut to ``layers`` (``over``
+    on its config), the engine of :func:`train_family` in fp32 on the
+    card (the kernels) against the same engine on the CPU (the plain
+    versions; ``cpu``: that run made beforehand, :func:`fp32_engine_run`)
+    from the same weights, ``steps`` steps at ``lr`` on one batch:
+    test_training_engine_on_the_card_matches_the_cpu's bounds (each loss
+    within 1e-4 relative, the params after the steps within 1e-3 of the
+    norm of their total change: Adam amplifies sign flips of near-zero
+    grads) and phase 7's for the first step's grads (1e-4 of their
+    largest element). The params bound is over every tensor but
+    ``loose``, whose error is reported beside it."""
+    import torch
+    args = (family, size, layers, rows, seq, steps, lr)
+    if cpu is None:
+        cpu = fp32_engine_run(torch.device("cpu"), *args, over=over)
+    card = fp32_engine_run(dev, *args, init=cpu["init"], over=over)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    def rel(names):
+        err = sum(float((card["change"][n] - cpu["change"][n]).pow(2).sum())
+                  for n in names)
+        moved = sum(float(cpu["change"][n].pow(2).sum()) for n in names)
+        return (err / moved) ** 0.5
+
+    names = list(cpu["change"])
+    held = [n for n in names if n not in loose]
+    rec = dict(model=f"{family}-{size}", layers=layers, over=over,
+               rows=rows, seq=seq, lr=lr, loss_card=card["losses"],
+               loss_cpu=cpu["losses"],
+               loss_max_rel_err=max(abs(a - b) / abs(b) for a, b in
+                                    zip(card["losses"], cpu["losses"])),
+               grad_max_err_rel_to_max=float(
+                   (card["grads"] - cpu["grads"]).abs().max()
+                   / cpu["grads"].abs().max()),
+               params_err_rel_to_change=rel(names),
+               params_err_rel_to_change_held=rel(held),
+               params_held_tensors=len(held),
+               params_err_by_tensor={n: rel([n]) for n in names})
+    log(f"[families] fp32 card vs cpu {json.dumps(rec)}")
+    if (rec["loss_max_rel_err"] > 1e-4
+            or rec["grad_max_err_rel_to_max"] > 1e-4
+            or rec["params_err_rel_to_change_held"] > 1e-3):
+        raise AssertionError(f"phase 21 fp32 {family}-{size}, card vs cpu: "
+                             f"{rec}")
+    return rec
+
+
+def fp32_cpu_sides(families=TRAIN_FAMILIES, fp32=TRAIN_FAMILY_FP32):
+    """The CPU halves of phase 21's full-width fp32 checks, run on a worker
+    thread while phase 2's nvcc processes build (the card is not touched):
+    family -> a future of :func:`fp32_engine_run`'s record. The caller
+    shuts the returned executor down."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(max_workers=1)
+    futures = {f"{f}-{s}": pool.submit(
+        fp32_engine_run, torch.device("cpu"), f, s, fp32["layers"],
+        fp32["rows"], fp32["seq"], fp32["steps"], fp32["lr"])
+        for f, s, _ in families}
+    return pool, futures
+
+
+def train_families_main(dev, families=TRAIN_FAMILIES, fp32=TRAIN_FAMILY_FP32,
+                        wide=TRAIN_FAMILY_WIDE_FP32, cpu_sides=None, **kw):
+    """Phase 21: :func:`train_family` for each of ``families``, then
+    :func:`train_family_fp32` for each at ``fp32``'s depth, batch and lr
+    (``cpu_sides``: their CPU halves, made beforehand) and for each tiny
+    preset widened to its head dim (WIDE_FAMILIES) at ``wide``'s. ``kw``
+    goes to train_family (a CPU rehearsal shrinks the batch)."""
+    t0 = time.perf_counter()
+    rec = {"train": {}, "fp32_card_vs_cpu": {}, "fp32_wide_card_vs_cpu": {}}
+    for family, size, layers in families:
+        rec["train"][f"{family}-{size}"] = train_family(dev, family, size,
+                                                        layers, **kw)
+    for family, size, _ in families:
+        name = f"{family}-{size}"
+        rec["fp32_card_vs_cpu"][name] = train_family_fp32(
+            dev, family, size, **fp32,
+            cpu=(cpu_sides or {}).pop(name, None))
+        rec["fp32_wide_card_vs_cpu"][family] = train_family_fp32(
+            dev, family, "tiny", over=WIDE_FAMILIES[family], loose=(),
+            **wide)
+    rec["reduced"] = {f"{f}-{s}": f"depth {n}" for f, s, n in families if n}
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[families] phase 21: {rec['seconds']:.1f} s")
+    return rec
 
 
 # ------------------------------------------------------------ phase 2
@@ -3083,10 +3404,25 @@ FLASH_CASES = {                       # b, s, hq, hkv, d, causal, window
     "d16": (2, 200, 4, 2, 16, True, None),
     "full_d32_s77": (2, 77, 4, 2, 32, False, None),
     "full_gqa4": (1, 256, 8, 2, 64, False, None),
+    # the model families' head dims: 80 (five 16-wide atoms), 96 (three of
+    # 32), 256 (32-key dq stages, dk/dv blocks whose warpgroups split D)
+    "causal_d80": (2, 512, 4, 4, 80, True, None),
+    "gqa_d80_s1000": (1, 1000, 8, 2, 80, True, None),
+    "window_d96": (2, 512, 4, 2, 96, True, 200),
+    "full_gqa_d96_s77": (2, 77, 4, 1, 96, False, None),
+    "causal_d256": (1, 512, 4, 4, 256, True, None),
+    "gqa_window_d256": (1, 640, 8, 2, 256, True, 150),
+    "full_d256_s129": (2, 129, 2, 1, 256, False, None),
 }
 MAIN_ATTENTION = dict(b=24, s=1024, hq=12, hkv=12, d=64)   # GPT-2 125M
-CASES_NOTE = ("FLASH_CASES fp32+bf16+fp16: causal/full, GQA (rep 2-4), "
-              "window (24-200), S 40/77/129/1000, D 16/32/64/128")
+# phase 3's rows at the families' head dims: model -> (Hq, Hkv, D), each
+# at B 4, S 2048 (phase 21's batch)
+FLASH_NEW_DIMS = {"phi-2": (32, 32, 80), "phi3-mini": (32, 32, 96),
+                  "gptj-6b": (16, 16, 256)}
+FLASH_NEW_DIM_BATCH = dict(b=4, s=2048)
+CASES_NOTE = ("FLASH_CASES fp32+bf16+fp16, each rerun bit for bit: "
+              "causal/full, GQA (rep 2-4), window (24-200), S "
+              "40/77/129/1000, D 16/32/64/80/96/128/256")
 
 
 def flash_inputs(dev, dtype, b, s, hq, hkv, d, seed=0):
@@ -3133,7 +3469,7 @@ def flash_checks(dev):
     fp32, the backward against autograd through the plain forward) over
     FLASH_CASES in fp32, bf16 and fp16. Forward o within the dtype's
     tolerance (abs + rel); grads within it relative to their largest
-    element."""
+    element; a second forward and backward call gives the same bits."""
     import torch
     from deepspeed_tpu_torch.ops import flash_attention as fa
     errs = {}
@@ -3145,6 +3481,12 @@ def flash_checks(dev):
             o, lse = fa.flash_attention_fwd(q, k, v, **kw)
             o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, **kw)
             grads = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+            again = (*fa.flash_attention_fwd(q, k, v, **kw),
+                     *fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do,
+                                             **kw))
+            identical = all(torch.equal(a, b) for a, b in
+                            zip((o, lse, *grads), again))
+            del again
             refs = fa.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do,
                                                 **kw)
             if dev.type == "cuda":
@@ -3164,10 +3506,12 @@ def flash_checks(dev):
                 fwd_max_abs_err=float(err.max()), lse_max_abs_err=lse_err,
                 bwd_max_abs_err=max(float((g.float() - r.float()).abs().max())
                                     for g, r in zip(grads, refs)),
-                bwd_max_rel_err=max(rel.values()))
+                bwd_max_rel_err=max(rel.values()),
+                bit_identical_rerun=identical)
             log(f"[kernel] flash {name:16s} {dtype_name:9s} "
                 f"{json.dumps(errs[(dtype_name, name)])}")
-            if fwd_bad or lse_err > 1e-4 or max(rel.values()) > tol:
+            if fwd_bad or lse_err > 1e-4 or max(rel.values()) > tol \
+                    or not identical:
                 raise AssertionError(
                     f"flash attention kernels disagree with their plain "
                     f"versions: {name} {dtype_name}: "
@@ -3216,7 +3560,7 @@ def adam_checks(dev):
     return worst
 
 
-def flash_main_check(q, k, v, do):
+def flash_main_check(q, k, v, do, label=None):
     """Forward and backward kernels against their plain versions on one
     set of main-path inputs (bf16): o within TOL abs + rel, lse within
     1e-4, dq/dk/dv within TOL of their largest element, as in
@@ -3244,13 +3588,14 @@ def flash_main_check(q, k, v, do):
         bwd_max_abs_err=max(float((g.float() - r.float()).abs().max())
                             for g, r in zip(grads, refs)),
         bwd_max_rel_err=max(rel_max(g, r) for g, r in zip(grads, refs)))
-    log(f"[kernel] flash main shape {json.dumps(MAIN_ATTENTION)} bf16 "
-        f"causal, kernel vs plain: {json.dumps(check)}")
+    label = label or f"main shape {json.dumps(MAIN_ATTENTION)}"
+    log(f"[kernel] flash {label} bf16 causal, kernel vs plain: "
+        f"{json.dumps(check)}")
     if fwd_bad or check["lse_max_abs_err"] > 1e-4 \
             or check["bwd_max_rel_err"] > tol or not identical:
         raise AssertionError(
             f"flash attention kernels disagree with their plain versions at "
-            f"the main path's shape: {check} (tol {tol:g})")
+            f"{label}: {check} (tol {tol:g})")
     return o, lse, check
 
 
@@ -3293,19 +3638,16 @@ def adam_main_check(p, grad, m, v, hp, out_dtype, **kw):
     return check
 
 
-def train_kernel_times(dev, adam_numel: int, flush=None, iters=20):
-    """Flash forward and backward at GPT-2 125M's attention shapes (bf16,
-    B 24, S 1024, 12 heads of 64, causal) and fused Adam over the model's
-    flat buffers: each kernel held against its plain version on these
-    inputs first, then kernel, plain, library and bound times in ms."""
+def flash_times(dev, shape, flush=None, iters=20, label=None):
+    """Flash forward and backward at ``shape`` (bf16, causal), held
+    against their plain versions on these inputs first
+    (:func:`flash_main_check`), then kernel, plain, SDPA and bound times in
+    ms, TFLOP/s, the share of the bound and the ratio to SDPA."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import flash_attention as fa
-    from deepspeed_tpu_torch.ops.fused_optimizers import (adam_plain,
-                                                          fused_adam_step)
-    shape = MAIN_ATTENTION
     q, k, v, do = flash_inputs(dev, torch.bfloat16, **shape, seed=2)
-    o, lse, flash_check = flash_main_check(q, k, v, do)
+    o, lse, flash_check = flash_main_check(q, k, v, do, label)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     qt, kt, vt, dot = (t.transpose(1, 2).detach() for t in (q, k, v, do))
@@ -3347,8 +3689,35 @@ def train_kernel_times(dev, adam_numel: int, flush=None, iters=20):
                  bound_share=r["bound_ms"] / r["ms"],
                  x_library=r["ms"] / r["library_ms"])
         times = {key: x for key, x in r.items() if key != "check"}
-        log(f"[kernel] {name} times (ms) at B=24 S=1024 H=12 D=64 bf16 "
+        log(f"[kernel] {name} times (ms) at B={shape['b']} S={shape['s']} "
+            f"Hq={shape['hq']} Hkv={shape['hkv']} D={shape['d']} bf16 "
             f"causal: {json.dumps(times)}")
+    return rec
+
+
+def flash_new_dim_times(dev, flush=None, iters=20):
+    """Phase 3 at the families' head dims: :func:`flash_times` at each
+    FLASH_NEW_DIMS head layout, B 4, S 2048."""
+    import torch
+    rec = {}
+    for model, (hq, hkv, d) in FLASH_NEW_DIMS.items():
+        shape = dict(FLASH_NEW_DIM_BATCH, hq=hq, hkv=hkv, d=d)
+        rec[model] = dict(shape=shape, **flash_times(
+            dev, shape, flush, iters, label=f"{model} {json.dumps(shape)}"))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rec
+
+
+def train_kernel_times(dev, adam_numel: int, flush=None, iters=20):
+    """Flash forward and backward at GPT-2 125M's attention shapes (bf16,
+    B 24, S 1024, 12 heads of 64, causal) and fused Adam over the model's
+    flat buffers: each kernel held against its plain version on these
+    inputs first, then kernel, plain, library and bound times in ms."""
+    import torch
+    from deepspeed_tpu_torch.ops.fused_optimizers import (adam_plain,
+                                                          fused_adam_step)
+    rec = flash_times(dev, MAIN_ATTENTION, flush, iters)
 
     # fused Adam over GPT-2 125M's flat buffers (+ the bf16 compute copy)
     n = adam_numel
@@ -4658,24 +5027,27 @@ def norm_backward(x, scale, bias):
 
 
 def norm_launches_per_micro(c) -> int:
-    """Norm launches of one training micro-batch: 2L + 1 in the forward
-    (ln1 and ln2 of each layer, the final norm; the embedding norm where
-    the model has one), and 2L more in the backward under every
-    checkpointing policy, whose recompute reruns each layer's two norms
-    (none under remat=False or everything_saveable)."""
-    fwd = 2 * c.num_layers + 1 + int(c.embed_layernorm)
-    rerun = (2 * c.num_layers
+    """Norm launches of one training micro-batch: the forward's
+    (:func:`norms_per_forward`: 2L + 1 for GPT-2), and each layer's norms
+    again in the backward under every checkpointing policy, whose
+    recompute reruns them (none under remat=False or
+    everything_saveable)."""
+    rerun = (norms_per_layer(c) * c.num_layers
              if c.remat and c.remat_policy != "everything_saveable" else 0)
-    return fwd + rerun
+    return norms_per_forward(c) + rerun
+
+
+def norms_per_layer(c) -> int:
+    """ln1 and ln2, or ln1 alone where attention and the MLP share one
+    input norm (Falcon, Phi-2, GPT-J)."""
+    return 1 if c.parallel_residual and not c.parallel_dual_norm else 2
 
 
 def norms_per_forward(c) -> int:
-    """Norm launches of one forward: ln1 and ln2 of each layer (ln1 alone
-    where attention and the MLP share one input norm: Falcon, Phi-2,
-    GPT-J), the final norm, and Bloom's embedding norm."""
-    per_layer = 1 if c.parallel_residual and not c.parallel_dual_norm \
-        else 2
-    return per_layer * c.num_layers + 1 + int(c.embed_layernorm)
+    """Norm launches of one forward: each layer's norms
+    (:func:`norms_per_layer`), the final norm, and Bloom's embedding
+    norm."""
+    return norms_per_layer(c) * c.num_layers + 1 + int(c.embed_layernorm)
 
 
 def norm_counter(c):
@@ -5156,6 +5528,8 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
+    # phase 21's CPU halves of its fp32 checks run beside the build
+    cpu_pool, cpu_futures = fp32_cpu_sides()
     build_s = op_builder.build(list(KERNELS))                 # phase 2
     log(f"[build] seconds {json.dumps(build_s)}")
     for name in ("paged_attention", "flash_attention",
@@ -5185,6 +5559,12 @@ def main(argv=None) -> int:
                     or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    t = time.perf_counter()
+    cpu_sides = {k: f.result() for k, f in cpu_futures.items()}
+    cpu_pool.shutdown()
+    log(f"[build] phase 21's CPU halves done {time.perf_counter() - t:.1f} "
+        f"s after the build")
+
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     errs, times = kernel_checks(dev, flush)                   # phase 3
     quant_errs, quant_times = quant_checks(dev, flush)
@@ -5192,6 +5572,7 @@ def main(argv=None) -> int:
     adam_err = adam_checks(dev)
     adam_numel = flat_numel("125m")
     train_times = train_kernel_times(dev, adam_numel, flush)
+    new_dim_times = flash_new_dim_times(dev, flush)           # phase 21's
     lion_err, lion_identical = lion_checks(dev)
     sparse_errs = sparse_checks(dev)
     fill = sparse_fill()
@@ -5288,6 +5669,14 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     remat = remat_policies_main(dev)                          # phase 15
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    if resident > 2**30:
+        raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
+                             f"before phase 21")
+    families = train_families_main(dev, cpu_sides=cpu_sides)  # phase 21
+    del cpu_sides
 
     def entry(name, kernel, launches, max_abs_err, t, **extra):
         dtypes, variants = KERNEL_FORMS[name]
@@ -5301,11 +5690,26 @@ def main(argv=None) -> int:
 
     def flash_extra(name, times, train):
         t = times[name]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "tflops", "bound_share", "x_library", "variant")
         return dict(variant=t["variant"], tflops=t["tflops"],
                     bound_share=t["bound_share"], x_library=t["x_library"],
                     bit_identical_rerun=t["check"]["bit_identical_rerun"],
                     main_path_launches_by_variant=train[
-                        "flash_variant_launches"][name[-3:]])
+                        "flash_variant_launches"][name[-3:]],
+                    head_dims_checked=[16, 32, 64, 80, 96, 128, 256],
+                    new_dims_shapes={m: r["shape"] for m, r in
+                                     new_dim_times.items()},
+                    new_dims={m: {k: r[name][k] for k in keys}
+                              for m, r in new_dim_times.items()},
+                    new_dims_bit_identical_rerun=all(
+                        r[name]["check"]["bit_identical_rerun"]
+                        for r in new_dim_times.values()),
+                    families_main_path="phase 21: phi-2, phi3-mini, "
+                                       "gptj-6b trained",
+                    families_launches_by_variant={
+                        m: r["flash_launches_by_variant"][name[-3:]]
+                        for m, r in families["train"].items()})
 
     def worst(key, dtype, errs=flash_errs):
         return max(e[key] for (dt, _), e in errs.items() if dt == dtype)
@@ -5656,6 +6060,9 @@ def main(argv=None) -> int:
     log(f"[main] Path Z {json.dumps(path_z)} on {card}")
     log(f"[main] remat policies {json.dumps(remat)} on {card}")
     log(f"[main] model breadth {json.dumps(breadth)} on {card}")
+    log(f"[main] flash at the families' head dims "
+        f"{json.dumps(new_dim_times)} on {card}")
+    log(f"[main] families trained {json.dumps(families)} on {card}")
     left = live_children()
     if left:
         raise AssertionError(f"processes still running: {left}")

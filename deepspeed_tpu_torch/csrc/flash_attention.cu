@@ -32,12 +32,15 @@
 //
 // Tensor-core design (bf16/fp16):
 //   * tiles are [rows, D] in shared memory in wgmma's canonical swizzled
-//     layout (Tile<D>): column atoms of W = min(D, 64) elements, each row 2W
-//     bytes, the 16-byte chunks of a row XOR-ed with the row's place in its
-//     8-row group (the 128/64/32-byte swizzle for W = 64/32/16). The same
+//     layout (Tile<D>): column atoms of W elements, W the widest of 64, 32
+//     and 16 that divides D (D 80: five atoms of 16, D 96: three of 32,
+//     the others min(D, 64)), each row 2W bytes, the 16-byte chunks of a
+//     row XOR-ed with the row's place in its 8-row group (the 128/64/32-
+//     byte swizzle for W = 64/32/16). The same
 //     bytes serve as a K-major operand (rows are M or N, D is K: q, k, do,
 //     v in S = q k^T and dp = do v^T) and an MN-major one (rows are K, D is
-//     N: v in o += p v, k in dq += ds k, q and do in dk/dv);
+//     N: v in o += p v, k in dq += ds k, q and do in dk/dv), whose
+//     products run one wgmma of N = W a column atom;
 //   * the tiles arrive by 16-byte cp.async with zero-fill past S (ragged
 //     tiles read as zeros), through a 2-stage ring: the next tile's copies
 //     are in flight while the current one is multiplied;
@@ -59,16 +62,28 @@
 //     per (b*Hkv, 128-key tile), walks the GQA group's q heads and their q
 //     tiles: s^T = k q^T and dp^T = v do^T land p^T and ds^T in the
 //     accumulator layout, the A operands of dv += p^T do and dk += ds^T q.
+//   * D 256 (GPT-J's heads) would not fit as above: the dq pass's Q and dO
+//     (2 x 64 KiB) and four 64-key K/V stages pass the 227 KiB a block may
+//     hold, and a warpgroup's dk and dv accumulators over 64 keys would
+//     be 256 fp32 registers a thread. So the dq pass streams 32-key
+//     stages (kDqKeys, 194 KiB), and the dk/dv pass takes 64 keys a
+//     block whose two warpgroups each own half of D's columns of dk and
+//     dv (kSplitCols: 128 accumulator registers a thread); each
+//     warpgroup forms the same s^T and dp^T over the whole of D, so that
+//     pass does 1.5x the products of the D <= 128 design. The forward
+//     keeps 64-key stages (193 KiB).
 // The blocks index (b, h) in blockIdx.x together with the tile, so any batch
 // x heads is taken.
 // Next: warp specialisation (a producer warp issuing TMA copies, consumer
 // warpgroups with setmaxnreg), the ping-pong of two consumer warpgroups so
 // one's softmax hides under the other's products, a persistent grid.
 //
-// CUDA-core design (fp32): 64 x 64 tiles staged as fp32
-// in shared memory (row stride D+1), 256 threads as a 16 x 16 grid each owning
-// a 4 x 4 block of scores and 4 rows x D/16 channels of every accumulator;
-// the same two-launch backward.
+// CUDA-core design (fp32): [64, D] query tiles and [KN, D] key tiles staged
+// as fp32 in shared memory (row stride D+1), KN = 64 (32 at D 256, so four
+// tiles of 257 floats a row fit the block's shared memory), 256 threads as
+// a 16 x 16 grid each owning a 4 x KN/16 block of scores and 4 rows x D/16
+// channels of every accumulator; the same two-launch backward, whose dk/dv
+// pass walks q rows KN at a time.
 
 #include <limits.h>
 
@@ -77,8 +92,11 @@
 namespace {
 
 constexpr int kThreads = 256;          // a 16 x 16 grid of threads
-constexpr int kTile = 64;              // query rows / keys per tile
-constexpr int kPad = kTile + 1;        // row stride of a [64, 64] smem tile
+constexpr int kTile = 64;              // query rows a tile (dk/dv: keys)
+// keys a tile (forward, dq) and q rows a step (dk/dv) of the CUDA-core
+// kernels: at D 256 four [64, 257] fp32 tiles would pass the 227 KiB a
+// block may hold
+template <int D> constexpr int kCoreKeys = D > 128 ? 32 : 64;
 
 __device__ __forceinline__ bool visible(int qi, int kj, int S, int causal,
                                         int window) {
@@ -86,13 +104,13 @@ __device__ __forceinline__ bool visible(int qi, int kj, int S, int causal,
          (window <= 0 || qi - kj < window);
 }
 
-// Rows [r0, r0 + 64) of head h of a [B, S, H, D] tensor into dst[64][D+1] as
+// Rows [r0, r0 + R) of head h of a [B, S, H, D] tensor into dst[R][D+1] as
 // fp32; rows past S are zeros.
-template <typename T, int D>
+template <typename T, int D, int R>
 __device__ __forceinline__ void load_rows(float* __restrict__ dst,
                                           const T* __restrict__ src, int b,
                                           int h, int H, int S, int r0) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, d = i % D, s = r0 + r;
     dst[r * (D + 1) + d] =
         s < S ? Num<T>::load(src + (((long long)b * S + s) * H + h) * D + d)
@@ -160,11 +178,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int window, float sc, int n_bh, int tiles) {
   constexpr int NJ = D / 16;
   constexpr int LD = D + 1;
+  constexpr int KN = kCoreKeys<D>, KJ = KN / 16, KP = KN + 1;
   extern __shared__ float smem[];
   float* qs = smem;                    // [64][D+1]
-  float* ks = qs + kTile * LD;         // [64][D+1]
-  float* vs = ks + kTile * LD;         // [64][D+1]
-  float* ps = vs + kTile * LD;         // [64][65] p, rounded to T
+  float* ks = qs + kTile * LD;         // [KN][D+1]
+  float* vs = ks + KN * LD;            // [KN][D+1]
+  float* ps = vs + KN * LD;            // [64][KN+1] p, rounded to T
 
   const int bh = blockIdx.x % n_bh, b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
@@ -172,7 +191,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (tiles - 1 - (int)(blockIdx.x / n_bh)) * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_rows<T, D>(qs, q, b, h, Hq, S, q0);
+  load_rows<T, D, kTile>(qs, q, b, h, Hq, S, q0);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -184,24 +203,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int lo, hi;
-  key_range(q0, kTile, kTile, S, causal, window, lo, hi);
-  for (int k0 = lo; k0 < hi; k0 += kTile) {
+  key_range(q0, kTile, KN, S, causal, window, lo, hi);
+  for (int k0 = lo; k0 < hi; k0 += KN) {
     __syncthreads();                   // the previous tile is consumed
-    load_rows<T, D>(ks, k, b, hk, Hkv, S, k0);
-    load_rows<T, D>(vs, v, b, hk, Hkv, S, k0);
+    load_rows<T, D, KN>(ks, k, b, hk, Hkv, S, k0);
+    load_rows<T, D, KN>(vs, v, b, hk, Hkv, S, k0);
     __syncthreads();
-    float s[4][4];
+    float s[4][KJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    mm_nt<D, 4>(s, qs, LD, ks, LD, ty, tx);
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+    mm_nt<D, KJ>(s, qs, LD, ks, LD, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + ty + 16 * i;
       float tmax = kMasked;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const bool ok = visible(qi, k0 + tx + 16 * j, S, causal, window);
         s[i][j] = ok ? s[i][j] * sc : kMasked;
         tmax = fmaxf(tmax, s[i][j]);
@@ -210,11 +229,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float corr = expf(m[i] - m_new);
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const bool ok = visible(qi, k0 + tx + 16 * j, S, causal, window);
         const float p = ok ? expf(s[i][j] - m_new) : 0.f;
         psum += p;
-        ps[(ty + 16 * i) * kPad + tx + 16 * j] = Num<T>::round(p);
+        ps[(ty + 16 * i) * KP + tx + 16 * j] = Num<T>::round(p);
       }
       l[i] = l[i] * corr + row_sum(psum);
       m[i] = m_new;
@@ -222,7 +241,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
     }
     __syncthreads();
-    mm_nn<kTile, NJ>(acc, ps, kPad, vs, LD, ty, tx);
+    mm_nn<KN, NJ>(acc, ps, KP, vs, LD, ty, tx);
   }
 
 #pragma unroll
@@ -248,13 +267,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int n_bh, int tiles) {
   constexpr int NJ = D / 16;
   constexpr int LD = D + 1;
+  constexpr int KN = kCoreKeys<D>, KJ = KN / 16, KP = KN + 1;
   extern __shared__ float smem[];
   float* qs = smem;                    // [64][D+1]
   float* dos = qs + kTile * LD;        // [64][D+1]
-  float* ks = dos + kTile * LD;        // [64][D+1]
-  float* vs = ks + kTile * LD;         // [64][D+1]
-  float* dss = vs + kTile * LD;        // [64][65] ds, rounded to T
-  float* lse_s = dss + kTile * kPad;   // [64]
+  float* ks = dos + kTile * LD;        // [KN][D+1]
+  float* vs = ks + KN * LD;            // [KN][D+1]
+  float* dss = vs + KN * LD;           // [64][KN+1] ds, rounded to T
+  float* lse_s = dss + kTile * KP;     // [64]
   float* delta_s = lse_s + kTile;      // [64]
 
   const int bh = blockIdx.x % n_bh, b = bh / Hq, h = bh % Hq;
@@ -262,8 +282,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (tiles - 1 - (int)(blockIdx.x / n_bh)) * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_rows<T, D>(qs, q, b, h, Hq, S, q0);
-  load_rows<T, D>(dos, dout, b, h, Hq, S, q0);
+  load_rows<T, D, kTile>(qs, q, b, h, Hq, S, q0);
+  load_rows<T, D, kTile>(dos, dout, b, h, Hq, S, q0);
   __syncthreads();
   // delta = rowsum(do * o) in fp32, from the stored (dtype-rounded) o
 #pragma unroll
@@ -291,31 +311,31 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
   int lo, hi;
-  key_range(q0, kTile, kTile, S, causal, window, lo, hi);
-  for (int k0 = lo; k0 < hi; k0 += kTile) {
+  key_range(q0, kTile, KN, S, causal, window, lo, hi);
+  for (int k0 = lo; k0 < hi; k0 += KN) {
     __syncthreads();
-    load_rows<T, D>(ks, k, b, hk, Hkv, S, k0);
-    load_rows<T, D>(vs, v, b, hk, Hkv, S, k0);
+    load_rows<T, D, KN>(ks, k, b, hk, Hkv, S, k0);
+    load_rows<T, D, KN>(vs, v, b, hk, Hkv, S, k0);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[4][KJ], dp[4][KJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    mm_nt<D, 4>(s, qs, LD, ks, LD, ty, tx);
-    mm_nt<D, 4>(dp, dos, LD, vs, LD, ty, tx);
+      for (int j = 0; j < KJ; ++j) s[i][j] = dp[i][j] = 0.f;
+    mm_nt<D, KJ>(s, qs, LD, ks, LD, ty, tx);
+    mm_nt<D, KJ>(dp, dos, LD, vs, LD, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const bool ok = visible(q0 + r, k0 + tx + 16 * j, S, causal, window);
         const float p = ok ? Num<T>::round(expf(s[i][j] * sc - lse_s[r])) : 0.f;
-        dss[r * kPad + tx + 16 * j] = Num<T>::round(p * (dp[i][j] - delta_s[r]));
+        dss[r * KP + tx + 16 * j] = Num<T>::round(p * (dp[i][j] - delta_s[r]));
       }
     }
     __syncthreads();
-    mm_nn<kTile, NJ>(acc, dss, kPad, ks, LD, ty, tx);
+    mm_nn<KN, NJ>(acc, dss, KP, ks, LD, ty, tx);
   }
 
 #pragma unroll
@@ -339,15 +359,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int window, float sc, int n_bhk) {
   constexpr int NJ = D / 16;
   constexpr int LD = D + 1;
+  constexpr int QN = kCoreKeys<D>, QJ = QN / 16, QP = QN + 1;
   extern __shared__ float smem[];
   float* ks = smem;                    // [64][D+1]
   float* vs = ks + kTile * LD;         // [64][D+1]
-  float* qs = vs + kTile * LD;         // [64][D+1]
-  float* dos = qs + kTile * LD;        // [64][D+1]
-  float* ps = dos + kTile * LD;        // [64 keys][65] p^T, rounded to T
-  float* dss = ps + kTile * kPad;      // [64 keys][65] ds^T, rounded to T
-  float* lse_s = dss + kTile * kPad;   // [64]
-  float* delta_s = lse_s + kTile;      // [64]
+  float* qs = vs + kTile * LD;         // [QN][D+1]
+  float* dos = qs + QN * LD;           // [QN][D+1]
+  float* ps = dos + QN * LD;           // [64 keys][QN+1] p^T, rounded to T
+  float* dss = ps + kTile * QP;        // [64 keys][QN+1] ds^T, rounded to T
+  float* lse_s = dss + kTile * QP;     // [QN]
+  float* delta_s = lse_s + QN;         // [QN]
 
   const int bhk = blockIdx.x % n_bhk, b = bhk / Hkv, g = bhk % Hkv;
   const int rep = Hq / Hkv;
@@ -355,8 +376,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = (int)(blockIdx.x / n_bhk) * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_rows<T, D>(ks, k, b, g, Hkv, S, k0);
-  load_rows<T, D>(vs, v, b, g, Hkv, S, k0);
+  load_rows<T, D, kTile>(ks, k, b, g, Hkv, S, k0);
+  load_rows<T, D, kTile>(vs, v, b, g, Hkv, S, k0);
 
   float dk_acc[4][NJ], dv_acc[4][NJ];
 #pragma unroll
@@ -370,39 +391,39 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_hi = window > 0 ? min(S, k_last + window) : S;
   for (int h = g * rep; h < (g + 1) * rep; ++h) {
     const int bh = b * Hq + h;
-    for (int q0 = q_lo; q0 < q_hi; q0 += kTile) {
+    for (int q0 = q_lo; q0 < q_hi; q0 += QN) {
       __syncthreads();
-      load_rows<T, D>(qs, q, b, h, Hq, S, q0);
-      load_rows<T, D>(dos, dout, b, h, Hq, S, q0);
-      if (threadIdx.x < kTile) {
+      load_rows<T, D, QN>(qs, q, b, h, Hq, S, q0);
+      load_rows<T, D, QN>(dos, dout, b, h, Hq, S, q0);
+      if (threadIdx.x < QN) {
         const int qi = q0 + threadIdx.x;
         lse_s[threadIdx.x] = qi < S ? lse[(long long)bh * S + qi] : 0.f;
         delta_s[threadIdx.x] = qi < S ? delta[(long long)bh * S + qi] : 0.f;
       }
       __syncthreads();
-      float st[4][4], dpt[4][4];       // [key i][row j]
+      float st[4][QJ], dpt[4][QJ];     // [key i][row j]
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-      mm_nt<D, 4>(st, ks, LD, qs, LD, ty, tx);
-      mm_nt<D, 4>(dpt, vs, LD, dos, LD, ty, tx);
+        for (int j = 0; j < QJ; ++j) st[i][j] = dpt[i][j] = 0.f;
+      mm_nt<D, QJ>(st, ks, LD, qs, LD, ty, tx);
+      mm_nt<D, QJ>(dpt, vs, LD, dos, LD, ty, tx);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int key = ty + 16 * i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < QJ; ++j) {
           const int r = tx + 16 * j;
           const bool ok = visible(q0 + r, k0 + key, S, causal, window);
           const float p =
               ok ? Num<T>::round(expf(st[i][j] * sc - lse_s[r])) : 0.f;
-          ps[key * kPad + r] = p;
-          dss[key * kPad + r] = Num<T>::round(p * (dpt[i][j] - delta_s[r]));
+          ps[key * QP + r] = p;
+          dss[key * QP + r] = Num<T>::round(p * (dpt[i][j] - delta_s[r]));
         }
       }
       __syncthreads();
-      mm_nn<kTile, NJ>(dv_acc, ps, kPad, dos, LD, ty, tx);
-      mm_nn<kTile, NJ>(dk_acc, dss, kPad, qs, LD, ty, tx);
+      mm_nn<QN, NJ>(dv_acc, ps, QP, dos, LD, ty, tx);
+      mm_nn<QN, NJ>(dk_acc, dss, QP, qs, LD, ty, tx);
     }
   }
 
@@ -447,9 +468,16 @@ __device__ __forceinline__ void load_vec(uint32_t dst,
 }
 
 constexpr int kBM = 128;               // query rows a block (2 warpgroups)
-constexpr int kBN = 64;                // keys a tile (forward, dq)
-constexpr int kBK = 128;               // keys a block (dk/dv)
 constexpr int kBQ = 32;                // q rows a dk/dv step
+constexpr int kBN = 64;                // keys a K/V stage of the forward
+// keys a K/V stage of the dq pass (its Q and dO tiles leave room for
+// 32-key stages only at D 256)
+template <int D> constexpr int kDqKeys = D > 128 ? 32 : 64;
+// dk/dv: at D 256 a block's two warpgroups share its 64 keys, each owning
+// half of D's columns; below, each owns 64 of the block's 128 keys and
+// every column
+template <int D> constexpr bool kSplitCols = D > 128;
+template <int D> constexpr int kDkvKeys = kSplitCols<D> ? 64 : 128;
 // blocks of each tensor-core kernel an SM is to hold (launch bounds: 2 caps
 // a thread at 128 registers, so two blocks' four warpgroups share the SM)
 template <int D> constexpr int kBlocksPerSM = D > 64 ? 1 : 2;
@@ -581,11 +609,12 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int Hq, int Hkv, int causal, int window, float sc,
                        int n_bh, int tiles) {
   using L = Tile<D>;
+  constexpr int kKN = kDqKeys<D>;      // keys a K/V stage
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sdO = sQ + L::bytes(kBM);
   const uint32_t sKV = sdO + L::bytes(kBM);  // stage i: K, then V
-  constexpr uint32_t kStage = 2 * L::bytes(kBN);
+  constexpr uint32_t kStage = 2 * L::bytes(kKN);
   float* lse_s = reinterpret_cast<float*>(
       smem_raw + (sKV + 2 * kStage - smem_u32(smem_raw)));   // [128]
   float* delta_s = lse_s + kBM;                              // [128]
@@ -598,14 +627,14 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qrow[2] = {qw0 + f.ra, qw0 + f.ra + 8};
 
   int lo, hi;
-  key_range(q0, kBM, kBN, S, causal, window, lo, hi);
-  const int n = hi > lo ? (hi - lo + kBN - 1) / kBN : 0;
+  key_range(q0, kBM, kKN, S, causal, window, lo, hi);
+  const int n = hi > lo ? (hi - lo + kKN - 1) / kKN : 0;
 
   load_tile<T, D, kBM>(sQ, q, b, h, Hq, S, q0);
   load_tile<T, D, kBM>(sdO, dout, b, h, Hq, S, q0);
   if (n > 0) {
-    load_tile<T, D, kBN>(sKV, k, b, hk, Hkv, S, lo);
-    load_tile<T, D, kBN>(sKV + L::bytes(kBN), v, b, hk, Hkv, S, lo);
+    load_tile<T, D, kKN>(sKV, k, b, hk, Hkv, S, lo);
+    load_tile<T, D, kKN>(sKV + L::bytes(kKN), v, b, hk, Hkv, S, lo);
   }
   cp_commit();
 
@@ -635,29 +664,29 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   for (int j = 0; j < n; ++j) {
-    const int k0 = lo + j * kBN;
-    const uint32_t sK = sKV + (j & 1) * kStage, sV = sK + L::bytes(kBN);
+    const int k0 = lo + j * kKN;
+    const uint32_t sK = sKV + (j & 1) * kStage, sV = sK + L::bytes(kKN);
     if (j + 1 < n) {
       const uint32_t nK = sKV + ((j + 1) & 1) * kStage;
-      load_tile<T, D, kBN>(nK, k, b, hk, Hkv, S, k0 + kBN);
-      load_tile<T, D, kBN>(nK + L::bytes(kBN), v, b, hk, Hkv, S, k0 + kBN);
+      load_tile<T, D, kKN>(nK, k, b, hk, Hkv, S, k0 + kKN);
+      load_tile<T, D, kKN>(nK + L::bytes(kKN), v, b, hk, Hkv, S, k0 + kKN);
       cp_commit();
       cp_wait_sync<1>();
     } else {
       cp_wait_sync<0>();
     }
     const bool live = qw0 < S && (!causal || k0 <= qw_last) &&
-                      (window <= 0 || k0 + kBN - 1 > qw0 - window);
+                      (window <= 0 || k0 + kKN - 1 > qw0 - window);
     if (live) {
-      const bool edge = (causal && k0 + kBN - 1 > qw0) ||
+      const bool edge = (causal && k0 + kKN - 1 > qw0) ||
                         (window > 0 && qw_last - k0 >= window) ||
-                        k0 + kBN > S || qw0 + 64 > S;
-      float s[kBN / 2], dp[kBN / 2];
+                        k0 + kKN > S || qw0 + 64 > S;
+      float s[kKN / 2], dp[kKN / 2];
       fence_regs(s);
       fence_regs(dp);
       wg_arrive();
-      mma_ss<T, D, kBN>(s, sQ, kBM, 64 * f.wg, sK);
-      mma_ss<T, D, kBN>(dp, sdO, kBM, 64 * f.wg, sV);
+      mma_ss<T, D, kKN>(s, sQ, kBM, 64 * f.wg, sK);
+      mma_ss<T, D, kKN>(dp, sdO, kBM, 64 * f.wg, sV);
       wg_commit();
       wg_wait();
       fence_regs(s);
@@ -666,20 +695,20 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float lr[2] = {lse_s[r0], lse_s[r0 + 8]};
       const float dr[2] = {delta_s[r0], delta_s[r0 + 8]};
       if (edge)
-        probs<T, true, false>(s, mask_bits<kBN / 2, false>(f, qrow, k0, S,
+        probs<T, true, false>(s, mask_bits<kKN / 2, false>(f, qrow, k0, S,
                                                           causal, window),
                               sc, lr, nullptr, f);
       else
         probs<T, false, false>(s, 0u, sc, lr, nullptr, f);
 #pragma unroll
-      for (int i = 0; i < kBN / 2; ++i)     // ds, rounded to T by to_a
+      for (int i = 0; i < kKN / 2; ++i)     // ds, rounded to T by to_a
         s[i] = s[i] * (dp[i] - dr[Frag::row(i)]);
-      uint32_t da[kBN / 16][4];
-      to_a<T, kBN>(s, da);
+      uint32_t da[kKN / 16][4];
+      to_a<T, kKN>(s, da);
       fence_regs(acc);
       fence_regs(da);
       wg_arrive();
-      mma_rs<T, D, kBN>(acc, da, sK, kBN);
+      mma_rs<T, D, kKN>(acc, da, sK, kKN);
       wg_commit();
       wg_wait();
       fence_regs(acc);
@@ -710,6 +739,8 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         T* __restrict__ dv, int S, int Hq, int Hkv,
                         int causal, int window, float sc, int n_bhk) {
   using L = Tile<D>;
+  constexpr int kBK = kDkvKeys<D>;
+  constexpr int NC = kSplitCols<D> ? D / 2 : D;   // dk/dv columns a warpgroup
   // stage: q tile, do tile, lse[kBQ], delta[kBQ] (padded to 1024 bytes)
   constexpr uint32_t kStage = 2 * L::bytes(kBQ) + 1024;
   extern __shared__ unsigned char smem_raw[];
@@ -724,7 +755,11 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // causal: low kv tiles have most rows
   const int k0 = (int)(blockIdx.x / n_bhk) * kBK;
   const Frag f;
-  const int kw0 = k0 + 64 * f.wg, kw_last = min(kw0 + 63, S - 1);
+  // this warpgroup's 64 key rows of the block, and its first column of dk
+  // and dv
+  const int kr0 = kSplitCols<D> ? 0 : 64 * f.wg;
+  const int col0 = kSplitCols<D> ? NC * f.wg : 0;
+  const int kw0 = k0 + kr0, kw_last = min(kw0 + 63, S - 1);
   const int krow[2] = {kw0 + f.ra, kw0 + f.ra + 8};
 
   // query rows that see some key of [k0, k_last], in kBQ-row steps, for each
@@ -749,9 +784,9 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (n > 0) load_step(0, sRing);
   cp_commit();
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[NC / 2], dv_acc[NC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   for (int it = 0; it < n; ++it) {
     const int q0 = q_lo + (it % nq) * kBQ;
@@ -775,7 +810,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float st[kBQ / 2];
       fence_regs(st);
       wg_arrive();
-      mma_ss<T, D, kBQ>(st, sK, kBK, 64 * f.wg, sQ);
+      mma_ss<T, D, kBQ>(st, sK, kBK, kr0, sQ);
       wg_commit();
       wg_wait();
       fence_regs(st);
@@ -794,8 +829,8 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       fence_regs(pa);
       fence_regs(dpt);
       wg_arrive();
-      mma_rs<T, D, kBQ>(dv_acc, pa, sdO, kBQ);
-      mma_ss<T, D, kBQ>(dpt, sV, kBK, 64 * f.wg, sdO);
+      mma_rs<T, D, kBQ, NC>(dv_acc, pa, sdO, kBQ, col0);
+      mma_ss<T, D, kBQ>(dpt, sV, kBK, kr0, sdO);
       wg_commit();
       wg_wait();
       fence_regs(dv_acc);
@@ -810,7 +845,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       fence_regs(dk_acc);
       fence_regs(da);
       wg_arrive();
-      mma_rs<T, D, kBQ>(dk_acc, da, sQ, kBQ);
+      mma_rs<T, D, kBQ, NC>(dk_acc, da, sQ, kBQ, col0);
       wg_commit();
       wg_wait();
       fence_regs(dk_acc);
@@ -824,9 +859,10 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int kj = krow[r];
     if (kj >= S) continue;
-    const long long base = (((long long)b * S + kj) * Hkv + g) * D + f.cq;
+    const long long base =
+        (((long long)b * S + kj) * Hkv + g) * D + col0 + f.cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < NC / 8; ++j) {
       store2(dk + base + 8 * j, dk_acc[4 * j + 2 * r] * sc,
              dk_acc[4 * j + 2 * r + 1] * sc);
       store2(dv + base + 8 * j, dv_acc[4 * j + 2 * r],
@@ -836,28 +872,37 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------------ host
-constexpr size_t tile_bytes(int d) { return (size_t)kTile * (d + 1) * 4; }
-constexpr size_t square_bytes() { return (size_t)kTile * kPad * 4; }
+// an fp32 tile of R rows of D (+1 padding) floats
+constexpr size_t tile_bytes(int rows, int d) {
+  return (size_t)rows * (d + 1) * 4;
+}
 
 // dynamic shared memory of each kernel (1024 bytes of it align the tiles)
 template <int D> constexpr size_t fwd_tc_smem() {
   return 1024 + Tile<D>::bytes(kBM) + 4 * Tile<D>::bytes(kBN);
 }
 template <int D> constexpr size_t dq_tc_smem() {
-  return 1024 + 2 * Tile<D>::bytes(kBM) + 4 * Tile<D>::bytes(kBN) +
+  return 1024 + 2 * Tile<D>::bytes(kBM) + 4 * Tile<D>::bytes(kDqKeys<D>) +
          2 * kBM * 4;
 }
 template <int D> constexpr size_t dkv_tc_smem() {
-  return 1024 + 2 * Tile<D>::bytes(kBK) + 2 * (2 * Tile<D>::bytes(kBQ) + 1024);
+  return 1024 + 2 * Tile<D>::bytes(kDkvKeys<D>) +
+         2 * (2 * Tile<D>::bytes(kBQ) + 1024);
 }
 template <int D> constexpr size_t fwd_smem() {
-  return 3 * tile_bytes(D) + square_bytes();
+  constexpr int KN = kCoreKeys<D>;
+  return tile_bytes(kTile, D) + 2 * tile_bytes(KN, D) +
+         tile_bytes(kTile, KN);
 }
 template <int D> constexpr size_t dq_smem() {
-  return 4 * tile_bytes(D) + square_bytes() + 2 * kTile * 4;
+  constexpr int KN = kCoreKeys<D>;
+  return 2 * tile_bytes(kTile, D) + 2 * tile_bytes(KN, D) +
+         tile_bytes(kTile, KN) + 2 * kTile * 4;
 }
 template <int D> constexpr size_t dkv_smem() {
-  return 4 * tile_bytes(D) + 2 * square_bytes() + 2 * kTile * 4;
+  constexpr int QN = kCoreKeys<D>;
+  return 2 * tile_bytes(kTile, D) + 2 * tile_bytes(QN, D) +
+         2 * tile_bytes(kTile, QN) + 2 * QN * 4;
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -948,7 +993,8 @@ cudaError_t bwd_tc(const void* q, const void* k, const void* v,
   e = allow_smem(flash_bwd_dkv_tc_kernel<T, D>, dkv_tc_smem<D>());
   if (e != cudaSuccess) return e;
   flash_bwd_dkv_tc_kernel<T, D>
-      <<<ceil_div(s, kBK) * b * hkv, kThreads, dkv_tc_smem<D>(), stream>>>(
+      <<<ceil_div(s, kDkvKeys<D>) * b * hkv, kThreads, dkv_tc_smem<D>(),
+        stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -963,13 +1009,23 @@ bool shape_ok(int b, int s, int hq, int hkv) {
          (long long)ceil_div(s, kTile) * b * hq <= INT_MAX;
 }
 
+// The head dims the kernels are built for (the model families' 80, 96 and
+// 256 beside the powers of two).
+#define DS_FLASH_DIMS(X) X(16) X(32) X(64) X(80) X(96) X(128) X(256)
+
+bool kernel_dim(int d) {
+#define DS_IS(D) d == D ||
+  return DS_FLASH_DIMS(DS_IS) false;
+#undef DS_IS
+}
+
 }  // namespace
 
 // Which kernels a call takes: 1 = the tensor-core kernels (bf16, fp16),
 // 0 = the CUDA-core kernels (fp32), -1 = none (a dtype or head dim the
 // kernels do not take). dtype: 0 = float32, 1 = bfloat16, 2 = float16.
 extern "C" int ds_flash_attention_variant(int dtype, int d) {
-  if (d != 16 && d != 32 && d != 64 && d != 128) return -1;
+  if (!kernel_dim(d)) return -1;
   return dtype == 0 ? 0 : dtype == 1 || dtype == 2 ? 1 : -1;
 }
 
@@ -987,15 +1043,16 @@ extern "C" long long ds_flash_attention_smem(int which, int dtype, int d) {
                               : which == 1 ? dq_smem<D>()                 \
                                            : dkv_smem<D>()));
   if (variant >= 0 && which >= 0 && which <= 2) {
-    DS_SMEM(16) DS_SMEM(32) DS_SMEM(64) DS_SMEM(128)
+    DS_FLASH_DIMS(DS_SMEM)
   }
 #undef DS_SMEM
   return -1;
 }
 
-// C entry points, bound with ctypes. dtype as above; d in {16, 32, 64, 128};
-// window <= 0 means none. Tensors contiguous and 16-byte aligned. Each
-// returns cudaGetLastError() after its launches (0 = launched).
+// C entry points, bound with ctypes. dtype as above; d one of
+// DS_FLASH_DIMS; window <= 0 means none. Tensors contiguous and 16-byte
+// aligned. Each returns cudaGetLastError() after its launches (0 =
+// launched).
 extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int dtype, int b, int s, int hq,
@@ -1005,28 +1062,19 @@ extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
       !aligned16(v) || !aligned16(o))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DS_FWD(F, D) \
-  return (int)F<D>(q, k, v, o, lse, b, s, hq, hkv, causal, window, st)
-  if (dtype == 0) {
-    if (d == 16) DS_FWD(fwd_fp32, 16);
-    if (d == 32) DS_FWD(fwd_fp32, 32);
-    if (d == 64) DS_FWD(fwd_fp32, 64);
-    if (d == 128) DS_FWD(fwd_fp32, 128);
+#define DS_FWD(D)                                                          \
+  if (d == D) {                                                            \
+    if (dtype == 0)                                                        \
+      return (int)fwd_fp32<D>(q, k, v, o, lse, b, s, hq, hkv, causal,      \
+                              window, st);                                 \
+    if (dtype == 1)                                                        \
+      return (int)fwd_tc<__nv_bfloat16, D>(q, k, v, o, lse, b, s, hq, hkv, \
+                                           causal, window, st);            \
+    if (dtype == 2)                                                        \
+      return (int)fwd_tc<__half, D>(q, k, v, o, lse, b, s, hq, hkv,        \
+                                    causal, window, st);                   \
   }
-#undef DS_FWD
-#define DS_FWD(T, D) \
-  return (int)fwd_tc<T, D>(q, k, v, o, lse, b, s, hq, hkv, causal, window, st)
-  if (dtype == 1) {
-    if (d == 16) DS_FWD(__nv_bfloat16, 16);
-    if (d == 32) DS_FWD(__nv_bfloat16, 32);
-    if (d == 64) DS_FWD(__nv_bfloat16, 64);
-    if (d == 128) DS_FWD(__nv_bfloat16, 128);
-  } else if (dtype == 2) {
-    if (d == 16) DS_FWD(__half, 16);
-    if (d == 32) DS_FWD(__half, 32);
-    if (d == 64) DS_FWD(__half, 64);
-    if (d == 128) DS_FWD(__half, 128);
-  }
+  DS_FLASH_DIMS(DS_FWD)
 #undef DS_FWD
   return (int)cudaErrorInvalidValue;
 }
@@ -1044,30 +1092,20 @@ extern "C" int ds_flash_attention_bwd(const void* q, const void* k,
       !aligned16(dk) || !aligned16(dv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DS_BWD(D)                                                            \
-  return (int)bwd_fp32<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, s,   \
-                          hq, hkv, causal, window, st)
-  if (dtype == 0) {
-    if (d == 16) DS_BWD(16);
-    if (d == 32) DS_BWD(32);
-    if (d == 64) DS_BWD(64);
-    if (d == 128) DS_BWD(128);
+#define DS_BWD(D)                                                           \
+  if (d == D) {                                                             \
+    if (dtype == 0)                                                         \
+      return (int)bwd_fp32<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, b,  \
+                              s, hq, hkv, causal, window, st);              \
+    if (dtype == 1)                                                         \
+      return (int)bwd_tc<__nv_bfloat16, D>(q, k, v, o, dout, lse, delta,    \
+                                           dq, dk, dv, b, s, hq, hkv,       \
+                                           causal, window, st);             \
+    if (dtype == 2)                                                         \
+      return (int)bwd_tc<__half, D>(q, k, v, o, dout, lse, delta, dq, dk,   \
+                                    dv, b, s, hq, hkv, causal, window, st); \
   }
-#undef DS_BWD
-#define DS_BWD(T, D)                                                         \
-  return (int)bwd_tc<T, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, s,  \
-                           hq, hkv, causal, window, st)
-  if (dtype == 1) {
-    if (d == 16) DS_BWD(__nv_bfloat16, 16);
-    if (d == 32) DS_BWD(__nv_bfloat16, 32);
-    if (d == 64) DS_BWD(__nv_bfloat16, 64);
-    if (d == 128) DS_BWD(__nv_bfloat16, 128);
-  } else if (dtype == 2) {
-    if (d == 16) DS_BWD(__half, 16);
-    if (d == 32) DS_BWD(__half, 32);
-    if (d == 64) DS_BWD(__half, 64);
-    if (d == 128) DS_BWD(__half, 128);
-  }
+  DS_FLASH_DIMS(DS_BWD)
 #undef DS_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -263,21 +263,24 @@ __device__ __forceinline__ void to_a(const float (&s)[N / 2],
       a[kk][j] = Num<T>::pack(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
 }
 
-// acc[64, D] += A[64, K] B[K, D] with A in registers (K / 16 slices) and B
-// the MN-major Tile<D> of R rows at `tile` (rows 0..K; a tile address
-// advanced by r0 * kRow bytes starts the K rows at r0): one wgmma of N = W
-// a column atom.
-template <typename T, int D, int K>
-__device__ __forceinline__ void mma_rs(float (&acc)[D / 2],
+// acc[64, NC] += A[64, K] B[K, col0 .. col0 + NC) with A in registers (K /
+// 16 slices) and B the MN-major Tile<D> of R rows at `tile` (rows 0..K; a
+// tile address advanced by r0 * kRow bytes starts the K rows at r0): one
+// wgmma of N = W a column atom. NC = D (the default) takes every column;
+// a narrower NC (a whole number of atoms from col0) lets two warpgroups
+// share D's columns.
+template <typename T, int D, int K, int NC = D>
+__device__ __forceinline__ void mma_rs(float (&acc)[NC / 2],
                                        const uint32_t (&a)[K / 16][4],
-                                       uint32_t tile, int R) {
+                                       uint32_t tile, int R, int col0 = 0) {
   constexpr int NW = Tile<D>::W;
+  static_assert(NC % NW == 0, "a column range is a whole number of atoms");
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
 #pragma unroll
-    for (int at = 0; at < D / NW; ++at)
+    for (int at = 0; at < NC / NW; ++at)
       Wgmma<NW, T>::rs(acc + at * (NW / 2), a[kk],
-                       desc_mn<D>(tile, R, 16 * kk, at), 1);
+                       desc_mn<D>(tile, R, 16 * kk, col0 / NW + at), 1);
 }
 
 // s[64, N] = A[64, D] B[N, D]^T: rows [ra0, ra0 + 64) of the K-major tile

@@ -23,7 +23,10 @@ import torch
 from . import op_builder
 
 NEG_INF = -1e30
-KERNEL_DIMS = (16, 32, 64, 128)
+# the head dims the kernels are built for: the powers of two, and the model
+# families' 80 (phi "2"), 96 (phi3 "mini", gptneox "20b") and 256 (gptj
+# "6b"); the C entry points' DS_FLASH_DIMS
+KERNEL_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the C entry points' table (ds_flash_attention_variant): 1 tensor cores,
 # 0 CUDA cores

@@ -566,6 +566,18 @@ FLASH_CASES = {                       # b, s, hq, hkv, d, causal, window
     "narrow_window_crosses_tiles": (1, 300, 4, 2, 64, True, 24),
     "d16": (2, 200, 4, 2, 16, True, None),
     "gqa_rep4_full": (1, 256, 8, 2, 64, False, None),
+    # the model families' head dims: 80 (phi "2": five 16-wide atoms), 96
+    # (phi3 "mini", gptneox "20b": three 32-wide atoms), 256 (gptj "6b":
+    # 32-key dq stages, dk/dv blocks of 64 keys whose warpgroups split D)
+    "d80": (2, 256, 4, 4, 80, True, None),
+    "d80_gqa_unaligned": (1, 333, 8, 2, 80, True, None),
+    "d80_full": (1, 150, 2, 2, 80, False, None),
+    "d96_window": (2, 300, 4, 2, 96, True, 70),
+    "d96_full_gqa": (1, 200, 4, 1, 96, False, None),
+    "d256": (1, 320, 4, 4, 256, True, None),
+    "d256_gqa_window": (1, 400, 4, 2, 256, True, 100),
+    "d256_full_unaligned": (2, 77, 2, 1, 256, False, None),
+    "d256_s129_rep4": (1, 129, 8, 2, 256, True, None),
 }
 
 
@@ -862,6 +874,60 @@ def test_training_engine_on_the_card_matches_the_cpu(cuda):
             fa.flash_attention_bwd.calls - counts[1],
             fused_adam_step.launches - counts[2]) == (
         3 * 2 * layers, 3 * 2 * layers, 3)
+    start = torch.cat([t.reshape(-1) for t in init.values()])
+    cpu, gpu = (torch.cat([t.reshape(-1).cpu() for t in
+                           e.master_state_dict().values()]) for e in engines)
+    assert float((gpu - cpu).norm()) <= 1e-3 * float((cpu - start).norm())
+
+
+# widened tiny presets at the families' head dims: (family, hidden size,
+# q heads, kv heads)
+WIDE_FAMILIES = {"phi": (160, 2, None), "phi3": (192, 2, None),
+                 "gptj": (512, 2, None), "mistral": (160, 2, 1)}
+
+
+@pytest.mark.parametrize("family", list(WIDE_FAMILIES))
+def test_family_training_on_the_card_matches_the_cpu(cuda, family):
+    """initialize(<family> tiny widened to head dims 80, 96 and 256, and
+    Mistral at D 80 over S 96 past its window of 32; flash, segments,
+    fused Adam, fp32, clip, ZeRO 2) on the card against the same engine
+    on the CPU from the same weights, as
+    test_training_engine_on_the_card_matches_the_cpu: 3 steps, losses at
+    1e-4 relative, params at 1e-3 of their total change, one forward and
+    one backward call per layer per step, every launch on the CUDA-core
+    (fp32) kernels."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import get_model_class
+    hidden, heads, kv = WIDE_FAMILIES[family]
+    cfg = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "FusedAdam", "params": {
+               "lr": 1e-3, "weight_decay": 0.01, "fused_kernel": True}},
+           "gradient_clipping": 0.5, "zero_optimization": {"stage": 2}}
+    engines, init = [], None
+    for dev in ("cpu", cuda):
+        model = get_model_class(family)(
+            size="tiny", device=dev, remat_policy="segments",
+            attn_impl="flash", hidden_size=hidden, num_heads=heads,
+            num_kv_heads=kv, intermediate_size=96)
+        eng, *_ = ds.initialize(model=model, config=cfg,
+                                model_parameters=init)
+        if init is None:
+            init = {n: t.clone() for n, t in eng.master_state_dict().items()}
+        engines.append(eng)
+    assert engines[1].model_config.head_dim == hidden // heads
+    tok = np.random.default_rng(0).integers(0, 512, (4, 97))
+    batch = (tok[:, :-1], tok[:, 1:])
+    counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.calls,
+              dict(fa.flash_attention_bwd.variant_launches))
+    losses = [[float(e.train_batch(batch)) for _ in range(3)]
+              for e in engines]
+    torch.testing.assert_close(losses[1], losses[0], atol=0, rtol=1e-4)
+    layers = engines[1].model_config.num_layers
+    assert (fa.flash_attention_fwd.launches - counts[0],
+            fa.flash_attention_bwd.calls - counts[1]) == (
+        3 * 2 * layers, 3 * 2 * layers)
+    assert (fa.flash_attention_bwd.variant_launches["cuda_cores"]
+            - counts[2].get("cuda_cores", 0)) == 3 * 2 * 2 * layers
     start = torch.cat([t.reshape(-1) for t in init.values()])
     cpu, gpu = (torch.cat([t.reshape(-1).cpu() for t in
                            e.master_state_dict().values()]) for e in engines)

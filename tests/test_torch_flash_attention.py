@@ -138,6 +138,10 @@ EDGE_CASES = {                         # b, s, hq, hkv, d, causal, window
     "narrow_window_crosses_tiles": (1, 256, 2, 2, 32, True, 24),
     "d16": (2, 128, 4, 2, 16, True, None),
     "gqa_rep4_full": (1, 128, 8, 2, 32, False, None),
+    # the model families' head dims (phi "2", phi3 "mini", gptj "6b")
+    "d80_gqa": (1, 128, 4, 2, 80, True, None),
+    "d96_window": (1, 256, 2, 2, 96, True, 40),
+    "d256_s129": (1, 129, 2, 1, 256, True, None),
 }
 
 
@@ -157,7 +161,9 @@ def test_tiling_edges_match_jax(case):
 def test_kernel_variant_table():
     """The dispatch table of the CUDA entry points: bf16 and fp16 take the
     tensor-core kernels, fp32 the exact CUDA-core ones, at every head dim
-    the kernels take; anything else takes none."""
+    the kernels take (the powers of two and the model families' 80, 96
+    and 256); anything else takes none."""
+    assert T.KERNEL_DIMS == (16, 32, 64, 80, 96, 128, 256)
     for d in T.KERNEL_DIMS:
         assert T.kernel_variant(torch.bfloat16, d) == "wgmma"
         assert T.kernel_variant(torch.float16, d) == "wgmma"
