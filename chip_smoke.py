@@ -175,6 +175,30 @@ Phases, each fatal on failure:
      off) on the card against the CPU, 3 steps: losses at 1e-4 relative,
      the first step's grads at 1e-4 of their largest, the params at 1e-3
      of their total change.
+ 22. linear/, last: (a) phase 4's engine config with quantize_weights
+     (Llama-3-8B, bf16, weight-only int8, a layer dequantized where it is
+     read) serves phase 4's traffic through generate() and
+     generate_fused (K 8, depth 2), phase 4's and phase 17's launch
+     checks; prefill tokens/s, decode ms a tick and a fused step, the
+     graphs' pool MiB, the weights' bytes (at most 0.55x the bf16
+     engine's), the build's peak memory and the fused tokens' agreement
+     with the per-tick ones (bf16 at full depth: reported; the paths are
+     held equal in fp32, b and f); (b) at 2 layers in fp32 the
+     int8 engine on the card against the CPU: codes and scales bit-equal,
+     logits within 1e-5 of their largest, greedy tokens equal, v1 and
+     generate_fused equal to v2's generate(); (c) init_inference(GPTJ
+     "6b", bf16, quantize_weights), phase 20e's traffic; (d) LoRAModel
+     over Llama-3-8B (r 64, the seven projections int8 in blocks of 512
+     by the quantize kernel's exact-division mode) trained with phase
+     21's config and batch: step ms, MFU, peak memory, the quantize and
+     dequantize launches (14 a layer a step), flash all wgmma, losses
+     falling, the frozen codes unchanged; (e) at 2 layers in fp32, the
+     kernel-made base bit-equal to plain in both quantize modes and the
+     LoRA run on the card against the CPU at phase 21's bounds; (f) the
+     trained adapters fused (fuse_lora) and served int8: the card's
+     tokens equal the CPU's. Phase 3 times the quantize in both modes
+     and the dequantize at a layer of the LoRA path (a [4096, 14336]
+     bf16 w_up slice).
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
 RMSNorm/LayerNorm kernels against their plain versions and times them at
@@ -754,15 +778,20 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
     of that many tokens beside the requests): the serving main path at
     full width through generate(). The stats carry the greedy tokens
     under "outputs"."""
+    import torch
     from deepspeed_tpu_torch.inference.v2 import build_engine, paged
     cfg = {"dtype": dtype, "kv_block_size": 64, "num_kv_blocks": 512,
            "max_chunk_size": 256, "max_ragged_sequence_count": 8}
     cfg.update(engine_over or {})
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     engine = build_engine(family, size=size, engine_config=cfg, device=dev,
                           **(model_over or {}))
-    log(f"[main] build_engine {family}-{size} {dtype}: "
-        f"{time.perf_counter() - t:.1f} s")
+    build_s = time.perf_counter() - t
+    build_peak = (torch.cuda.max_memory_allocated() / 2**30
+                  if dev.type == "cuda" else None)
+    log(f"[main] build_engine {family}-{size} {dtype}: {build_s:.1f} s")
     c = engine.model.config
     rng = np.random.default_rng(1)
     lens = rng.integers(lengths[0], lengths[1], n_req)
@@ -802,6 +831,9 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
     dec = [s for s, p, d, _ in ticks if p == 0 and d > 0]
     stats = dict(
         model=f"{family}-{size}", dtype=dtype,
+        quantize_weights=bool(cfg.get("quantize_weights")),
+        weight_bytes=weight_bytes(engine.model.params), build_s=build_s,
+        build_peak_gib=build_peak,
         requests=n_req, new_tokens=max_new, prompt_tokens=int(lens.sum()),
         ticks=len(ticks), dispatches=dispatches, launches=launches,
         launches_by_variant=by_variant, norm_launches=norm_launches,
@@ -1445,18 +1477,22 @@ def threefry_cuda_vs_cpu(dev) -> dict:
     return rec
 
 
-def profile_fused(engine, dev, prompts, k=8) -> dict:
+def profile_fused(engine, dev, prompts, k=8,
+                  modes=("greedy", "sampled")) -> dict:
     """Where a fused dispatch's time goes: ``k`` decode ticks of
     ``len(prompts)`` rows, one graph replay, traced (torch.profiler; CUDA
     events around the replay if the trace shows no device time), greedy
-    and then sampling with ``FUSED_SAMPLING`` (the same rows rebuilt from
-    the host state: the sampled replay rewrites the greedy one's slots)."""
+    and then (``modes``) sampling with ``FUSED_SAMPLING`` (the same rows
+    rebuilt from the host state: the sampled replay rewrites the greedy
+    one's slots)."""
     import torch
     uids = list(range(30_000, 30_000 + len(prompts)))
     at_dispatch_state(engine, prompts, uids)
     out = {}
     for name, sampling in (("greedy", (0.0, 0, 0.0)),
                            ("sampled", tuple(FUSED_SAMPLING.values()))):
+        if name not in modes:
+            continue
         state = engine._fused_operands(uids, k, {u: k for u in uids},
                                        FUSED_SEED)
         fn = engine._fused_fn(state, k, *sampling, None)   # captured here
@@ -1592,9 +1628,12 @@ def fused_serving_main(engine, dev, prompts, per_tick, max_new=32, k=8,
                              f"{runs[k]}")
     stats["threefry_cuda_vs_cpu"] = threefry_cuda_vs_cpu(dev)
     stats["graphs_total"] = len(engine.graph_captures)
-    if profile:
-        stats["profile"] = profile_fused(engine, dev,
-                                         [p[:256] for p in prompts])
+    # the greedy dispatch traced in every run: 22a's int8 split is held
+    # against it
+    if dev.type == "cuda":
+        stats["profile"] = profile_fused(
+            engine, dev, [p[:256] for p in prompts],
+            modes=("greedy", "sampled") if profile else ("greedy",))
     log(f"[fused] {json.dumps(stats)}")
     stats["outputs"] = outs          # phase 18's yardstick
     return stats
@@ -2660,9 +2699,9 @@ def breadth_kernel_checks(dev, flush=None, iters=20):
     fp32, bf16 and fp16 over fp, int8 and fp8 (per-head) pools: each
     against its plain version (TOL, ATTN_TOL), rerun bit for bit, the
     variant the plan names (bf16/fp16 always decode_split or
-    prefill_wgmma); the bf16 and fp16 fp-pool calls timed as phase 3's
-    rows (variant, ms, bound, share of the bound, SDPA on gathered
-    pages)."""
+    prefill_wgmma); the bf16 and fp16 fp-pool calls and the bf16 int8-pool
+    calls (row 1b) timed as phase 3's rows (variant, ms, bound, share of
+    the bound, SDPA on gathered pages, dequantized first for int8)."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import paged
     decode, prefill = serving_shapes()
@@ -2703,9 +2742,12 @@ def breadth_kernel_checks(dev, flush=None, iters=20):
                             f"paged_attention at {key}: variant {variant} "
                             f"(plan {plan['variant']}), bit-identical "
                             f"rerun {torch.equal(got, again)}")
-                    if pool == "fp" and dtype_name != "float32":
+                    timed = (pool == "fp" and dtype_name != "float32"
+                             or pool == "int8" and dtype_name == "bfloat16")
+                    if timed:
                         rkey = f"{model}_{name}" + (
-                            "_fp16" if dtype_name == "float16" else "")
+                            "_fp16" if dtype_name == "float16" else
+                            "_int8" if pool == "int8" else "")
                         record[rkey] = time_attention(x, kw, dev, iters,
                                                       flush)
                         check_rerun(record[rkey], rkey)
@@ -3264,6 +3306,716 @@ def train_families_main(dev, families=TRAIN_FAMILIES, fp32=TRAIN_FAMILY_FP32,
     rec["reduced"] = {f"{f}-{s}": f"depth {n}" for f, s, n in families if n}
     rec["seconds"] = time.perf_counter() - t0
     log(f"[families] phase 21: {rec['seconds']:.1f} s")
+    return rec
+
+
+# ----------------------------------------------------------- phase 22
+# linear/: weight-only int8 serving through both engines, and LoRA over a
+# frozen int8 base. (a) phase 4's engine config and traffic with
+# quantize_weights at full width and depth, per tick then fused; (b) the
+# same engine at 2 layers in fp32, the card against the CPU (v1 and v2);
+# (c) the v1 engine on GPT-J-6B, phase 20e's traffic; (d) LoRAModel over
+# Llama-3-8B (LoRAConfig and QuantizationConfig defaults: r 64, alpha 16,
+# the seven projections, int8 blocks of 512) trained with phase 21's
+# config and batch; (e) (d) at 2 layers in fp32, the card against the
+# CPU; (f) (e)'s trained adapters fused into the base and served int8.
+INT8_SERVING = {"quantize_weights": True}
+# the Llama of 22b and 22d-f (a CPU rehearsal narrows it)
+LINEAR_MODEL = dict(size="3-8b")
+LORA_ROWS, LORA_SEQ, LORA_STEPS = TRAIN_FAMILY_ROWS, TRAIN_FAMILY_SEQ, 5
+# the fp32 checks at 2 layers (Llama-3-8B's widths): serving 3 requests
+# of 20-90 prompt tokens and 8 greedy tokens; LoRA phase 21's fp32 rows
+# and lr on 32 tokens a row, 3 steps (the CPU halves run beside the build)
+INT8_FP32 = dict(layers=2, n_req=3, max_new=8, lengths=(20, 90))
+LORA_FP32 = dict(TRAIN_FAMILY_FP32, seq=32)
+# the LoRA path's quantize shape: one layer of Llama-3-8B's w_up stack,
+# [4096, 14336] bf16 (the transform quantizes the stacks, the forward
+# dequantizes them a layer at a time)
+LORA_QUANT_SHAPE = (4096, 14336)
+
+
+def weight_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params.values())
+
+
+def quant_counts_reset() -> None:
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    TQ.quantize_int8_kernel.launches = 0
+    TQ.quantize_int8_kernel.exact_launches = 0
+    TQ.quantize_int8_kernel.variant_launches = {}
+    TQ.dequantize_int8_kernel.launches = 0
+
+
+def quant_counts() -> dict:
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    k = TQ.quantize_int8_kernel
+    return dict(quantize=k.launches, quantize_exact=k.exact_launches,
+                quantize_by_variant=dict(k.variant_launches),
+                dequantize=TQ.dequantize_int8_kernel.launches)
+
+
+def lora_quant_times(dev, flush=None, iters=20):
+    """Rows 6-7 at the LoRA path's shape (LORA_QUANT_SHAPE, bf16): the
+    quantize in the exact-division mode (LoRA's base) and in the wire's
+    mode, each against its plain version bit for bit (codes, scales) and
+    timed beside it and its bound; the dequantize to bf16 (each layer of
+    each micro-step) against plain and ``torch.mul(q, s, out=bf16)``."""
+    import torch
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    g = torch.Generator(device=dev).manual_seed(6)
+    n = int(np.prod(LORA_QUANT_SHAPE))
+    x = (torch.randn(n, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    rows = x.view(1, -1)
+    rec = {}
+    for mode, exact in (("exact", True), ("wire", False)):
+        q, s = TQ.quantize_rows(rows, exact=exact)
+        pq, ps = TQ.quantize_rows(rows, use_kernel=False, exact=exact)
+        equal = bool(torch.equal(q, pq) and torch.equal(s, ps))
+        err = max(float((q.int() - pq.int()).abs().max()),
+                  float((s - ps).abs().max()))
+        del pq, ps
+        bound, by = quant_bound(n, 2, 1)
+        rec[f"quantize_{mode}"] = dict(
+            bit_equal=equal, max_abs_err=err,
+            variant=(TQ.quantize_int8_kernel.variant
+                     if dev.type == "cuda" else None),
+            ms=time_ms(lambda: TQ.quantize_rows(rows, exact=exact), dev,
+                       iters, flush),
+            plain_ms=time_ms(lambda: TQ.quantize_rows(
+                rows, use_kernel=False, exact=exact), dev,
+                max(iters // 4, 2), flush),
+            library_ms=None, bound_ms=bound, bound_by=by)
+        if not equal:
+            raise AssertionError(f"quantize_int8 {mode} mode at "
+                                 f"{LORA_QUANT_SHAPE} differs from plain")
+    # the modes' scales differ in some blocks (one ulp): reported
+    qe, se = TQ.quantize_rows(rows, exact=True)
+    qw, sw = TQ.quantize_rows(rows, exact=False)
+    rec["scales_differing_between_modes"] = int((se != sw).sum())
+    rec["codes_differing_between_modes"] = int((qe != qw).sum())
+    del qw, sw
+    back = TQ.dequantize_rows(qe, se, 1, n, torch.bfloat16)
+    pback = TQ.dequantize_rows(qe, se, 1, n, torch.bfloat16, False)
+    lib_out = torch.empty(qe.shape, dtype=torch.bfloat16, device=dev)
+    torch.mul(qe, se, out=lib_out)
+    bound, by = quant_bound(n, 1, 2)
+    rec["dequantize"] = dict(
+        bit_equal=bool(torch.equal(back, pback)),
+        library_bit_equal=bool(torch.equal(lib_out.view(-1)[:n],
+                                           back.view(-1))),
+        max_abs_err=float((back.float() - pback.float()).abs().max()),
+        ms=time_ms(lambda: TQ.dequantize_rows(qe, se, 1, n, torch.bfloat16),
+                   dev, iters, flush),
+        plain_ms=time_ms(lambda: TQ.dequantize_rows(
+            qe, se, 1, n, torch.bfloat16, False), dev, max(iters // 4, 2),
+            flush),
+        library_ms=time_ms(lambda: torch.mul(qe, se, out=lib_out), dev,
+                           iters, flush),
+        bound_ms=bound, bound_by=by)
+    if not rec["dequantize"]["bit_equal"]:
+        raise AssertionError("dequantize_int8 at the LoRA shape differs "
+                             "from plain")
+    rec["shape"] = f"{list(LORA_QUANT_SHAPE)} bf16 (a layer of w_up)"
+    log(f"[kernel] int8 block quantize at the LoRA shape: {json.dumps(rec)}")
+    return rec
+
+
+def int8_fused(engine, dev, prompts, per_tick, max_new=32, k=8):
+    """22a's fused half: generate_fused (chain, K ``k``, depth 2) over
+    ``prompts``, a capturing run then the timed run with the counts set to
+    0 just before it: every replayed paged launch decode_split and every
+    prefill's prefill_wgmma, every norm cta_row, the counts what the
+    replays and prefill dispatches ran (phase 17's check). Reported: ms a
+    fused step, the graphs' pool MiB and capture ms, the greedy agreement
+    with the per-tick tokens (``per_tick``)."""
+    from deepspeed_tpu_torch.inference.v2 import paged
+    c = engine.model.config
+    first = len(engine.graph_captures)
+    warm, warm_run = serve_fused(engine, prompts, max_new, dev, k)
+    norms = norm_counter(c)
+    ticks = count_ticks(engine)
+    paged.paged_attention_kernel.launches = 0
+    paged.paged_attention_kernel.variant_launches = {}
+    reset_norms(norms)
+    engine.reset_serving_metrics()
+    timed_first = len(engine.graph_captures)
+    try:
+        outs, run = serve_fused(engine, prompts, max_new, dev, k)
+    finally:
+        uncount_ticks(engine)
+    by_variant = dict(paged.paged_attention_kernel.variant_launches)
+    m = engine.serving_metrics()
+    prefill_dispatches = m["host_dispatches"] - m["fused_dispatches"]
+    graph_ticks = sum(ticks) + len(engine.graph_captures) - timed_first
+    want = {"decode_split": c.num_layers * graph_ticks,
+            "prefill_wgmma": c.num_layers * prefill_dispatches}
+    want_norms = (2 * c.num_layers + 1) * (graph_ticks + prefill_dispatches)
+    bad = []
+    if outs != warm:
+        bad.append("the rerun's tokens differ from the first run's")
+    if dev.type == "cuda" and by_variant != want:
+        bad.append(f"paged launches by variant {by_variant} != {want}")
+    if dev.type == "cuda" and (norms.launches != want_norms or set(
+            norms.variant_launches) != {"cta_row"}):
+        bad.append(f"norm launches {norms.launches} "
+                   f"{dict(norms.variant_launches)} != {want_norms} cta_row")
+    if bad:
+        raise AssertionError("phase 22a fused: " + "; ".join(bad))
+    captures = engine.graph_captures[first:]
+    horizon = agreement(outs, per_tick)
+    decode_s = run["wall_s"] - run["prefill_s"]
+    return dict(
+        k=k, decode_steps=run["steps"], fused_dispatches=run["dispatches"],
+        decode_ms_per_step=1e3 * decode_s / max(run["steps"], 1),
+        prefill_tokens_per_s=run["prefill_tokens"] / run["prefill_s"],
+        generate_fused_s=run["wall_s"], first_run_s=warm_run["wall_s"],
+        launches_by_variant=by_variant, norm_launches=norms.launches,
+        graphs_captured=len(captures),
+        capture_ms_total=sum(g["capture_ms"] for g in captures),
+        graph_pool_mib_total=sum(g["pool_mib"] for g in captures),
+        graph_pool_mib=[g["pool_mib"] for g in captures],
+        greedy_agreement_vs_per_tick=horizon,
+        greedy_equal_to_per_tick=outs == per_tick)
+
+
+def int8_dequant_times(engine, dev, iters=5) -> dict:
+    """22a's dequant alone, event-timed outside any graph: every layer's
+    weight pairs as ``paged_forward`` reads them (``layer_params``, each
+    layer's bf16 temporaries freed before the next) and ``lm_head_q``'s,
+    one tick's worth, with the bytes each moves (an int8 code read and a
+    bf16 value written an element, the scales) and the rate that gives."""
+    m = engine.model
+    n_layers = m.config.num_layers
+
+    def layers():
+        for i in range(n_layers):
+            m.layer_params(i)
+
+    def nbytes(names):
+        return sum(m.params[n].numel() * (1 + 2) + m.params[n[:-2] + "_s"]
+                   .numel() * m.params[n[:-2] + "_s"].element_size()
+                   for n in names)
+
+    parts = [("layers", layers, [n for n in m.params
+                                 if n.startswith("layers/")
+                                 and n.endswith("_q")])]
+    if "lm_head_q" in m.params:
+        parts.append(("lm_head", m._vocab_weight, ["lm_head_q"]))
+    rec = {}
+    for part, fn, names in parts:
+        ms = time_ms(fn, dev, iters)
+        b = nbytes(names)
+        rec[part] = dict(ms=ms, bytes=b, gb_per_s=b / ms / 1e6)
+    return rec
+
+
+def int8_serving_main(dev, bf16_stats, size="3-8b", **kw):
+    """Phase 22a: build_engine("llama", ``size``, phase 4's config +
+    quantize_weights), bf16, at full width and depth, serves phase 4's
+    traffic through generate() (phase 4's launch checks: every layer of
+    every tick, every paged launch prefill_wgmma or decode_split, every
+    norm cta_row), then through generate_fused (:func:`int8_fused`).
+    Reported beside phase 4's bf16 engine (``bf16_stats``): prefill
+    tokens/s, decode ms a tick, the weights' bytes resident on the card
+    (at most 0.55x the bf16 engine's) and the peak memory of the build."""
+    engine, stats = main_path(dev, size=size, engine_over=dict(
+        kw.pop("engine_over", {}), **INT8_SERVING), **kw)
+    prompts = stats.pop("prompts")
+    fused = int8_fused(engine, dev, prompts, stats["outputs"],
+                       max_new=stats["new_tokens"])
+    if dev.type == "cuda":
+        fused["profile"] = profile_fused(engine, dev,
+                                         [p[:256] for p in prompts],
+                                         modes=("greedy",))["greedy"]
+        fused["dequant_alone"] = int8_dequant_times(engine, dev)
+    ratio = stats["weight_bytes"] / bf16_stats["weight_bytes"]
+    rec = dict(per_tick={k: v for k, v in stats.items() if k != "outputs"},
+               fused=fused, weight_bytes_ratio_vs_bf16=ratio,
+               bf16_weight_bytes=bf16_stats["weight_bytes"],
+               bf16_decode_ms_per_tick=bf16_stats["decode_ms_per_tick"],
+               bf16_prefill_tokens_per_s=bf16_stats["prefill_tokens_per_s"],
+               bf16_build_peak_gib=bf16_stats["build_peak_gib"],
+               bf16_fused_profile=bf16_stats.get("fused_profile"),
+               greedy_agreement_vs_bf16=agreement(
+                   stats["outputs"], bf16_stats["outputs"]))
+    release_engine(engine, dev)
+    del engine
+    gc.collect()
+    log(f"[int8] phase 22a: {json.dumps(rec)}")
+    if dev.type == "cuda" and ratio > 0.55:
+        raise AssertionError(f"int8 weights {stats['weight_bytes']} B are "
+                             f"{ratio:.3f}x the bf16 engine's (> 0.55)")
+    return rec
+
+
+def fp32_llama_tree(layers: int, seed=11) -> dict:
+    """Llama-3-8B's widths cut to ``layers``: a flat fp32 tree on the CPU,
+    drawn as the model's init (the weights of 22b, 22e and 22f)."""
+    import torch
+    from deepspeed_tpu_torch.models import Llama
+    with torch.no_grad():
+        m = Llama(**LINEAR_MODEL, num_layers=layers, device="meta")
+        m.device = torch.device("cpu")
+        gen = torch.Generator().manual_seed(seed)
+        return {n: m.draw(n, gen) for n in m._init_spec}
+
+
+def int8_engines(dev, tree, layers, prompts, max_new, v1=True):
+    """22b's engines on ``dev``: v2 (build_engine + quantize_weights,
+    fp32) greedy through generate() and generate_fused (K 4), and with
+    ``v1`` the v1 engine on the same weights and the first prompt; the
+    first prefill's logits of the v2 engine (put())."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    from deepspeed_tpu_torch.models import Llama
+    from deepspeed_tpu_torch.models.transformer import deferred_weights
+    cfg = {"dtype": "float32", "kv_block_size": 64, "num_kv_blocks": 64,
+           "max_chunk_size": 256, "max_ragged_sequence_count": 8,
+           **INT8_SERVING}
+    v2 = build_engine("llama", engine_config=cfg, params=tree, device=dev,
+                      **LINEAR_MODEL, num_layers=layers)
+    logits = v2.put([90_000], [prompts[0]])[0].float().cpu()
+    v2.flush(90_000)
+    out = dict(logits=logits, v2=v2.generate(prompts, max_new_tokens=max_new),
+               fused=v2.generate_fused(prompts, max_new_tokens=max_new,
+                                       k_steps=4),
+               codes={n: p.detach().cpu() for n, p in v2.model.params.items()
+                      if n.endswith("_q") or n.endswith("_s")})
+    release_engine(v2, dev)
+    if v1:
+        with deferred_weights():       # the loader gives every leaf
+            model = Llama(**LINEAR_MODEL, num_layers=layers, device=dev)
+        eng = ds.init_inference(model, config={
+            "dtype": "fp32", "max_out_tokens": 256, **INT8_SERVING},
+            params=tree)
+        out["v1"] = eng.generate([prompts[0]], max_new_tokens=max_new)[
+            0, len(prompts[0]):].tolist()
+        del eng, model
+    gc.collect()
+    return out
+
+
+def int8_fp32_parity(dev, tree, cpu, fp32=INT8_FP32):
+    """Phase 22b (TF32 off): the int8 engines of :func:`int8_engines` on
+    the card against the same on the CPU (``cpu``, made beforehand): the
+    int8 codes and scales bit-equal (the quantize is torch ops on both),
+    the first prefill's logits within 1e-5 of their largest, greedy tokens
+    equal, v2's generate_fused tokens and the v1 engine's (first prompt)
+    equal to v2's generate()."""
+    prompts = int8_prompts(fp32)
+    card = int8_engines(dev, tree, fp32["layers"], prompts, fp32["max_new"])
+    err = float((card["logits"] - cpu["logits"]).abs().max()
+                / cpu["logits"].abs().max())
+    codes_equal = all(bool((card["codes"][n] == cpu["codes"][n]).all())
+                      for n in cpu["codes"])
+    rec = dict(layers=fp32["layers"], requests=len(prompts),
+               new_tokens=fp32["max_new"], logits_err_rel_to_max=err,
+               codes_and_scales_bit_equal=codes_equal,
+               tokens_card=card["v2"], tokens_cpu=cpu["v2"],
+               card_equals_cpu=card["v2"] == cpu["v2"],
+               fused_equals_generate=card["fused"] == card["v2"],
+               v1_equals_v2=card["v1"] == card["v2"][0],
+               cpu_fused_equals_generate=cpu["fused"] == cpu["v2"],
+               cpu_v1_equals_v2=cpu["v1"] == cpu["v2"][0])
+    log(f"[int8] phase 22b fp32: {json.dumps(rec)}")
+    if err > 1e-5 or not all(rec[k] for k in (
+            "codes_and_scales_bit_equal", "card_equals_cpu",
+            "fused_equals_generate", "v1_equals_v2",
+            "cpu_fused_equals_generate", "cpu_v1_equals_v2")):
+        raise AssertionError(f"phase 22b: {rec}")
+    return rec
+
+
+def int8_prompts(fp32=INT8_FP32):
+    from deepspeed_tpu_torch.models.llama import llama_config
+    vocab = llama_config(**LINEAR_MODEL).vocab_size
+    rng = np.random.default_rng(12)
+    lens = rng.integers(*fp32["lengths"], fp32["n_req"])
+    return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def int8_v1_main(dev, size="6b", length=V1_PROMPTS["length"]):
+    """Phase 22c: init_inference(GPTJ(size="6b"), bf16, quantize_weights)
+    with random seeded weights, phase 20e's traffic (8 prompts of 256, 32
+    greedy): generated tokens/s, ms a decode step, the int8 weights'
+    bytes beside the bf16 tree's, the norm launches (every one a row
+    kernel, 2L + 1 a forward)."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPTJ
+    model = GPTJ(size=size, device=dev, dtype=torch.bfloat16)
+    bf16_bytes = weight_bytes(model.params)
+    eng = ds.init_inference(model, config={
+        "dtype": "bf16", "max_out_tokens": 1024, **INT8_SERVING})
+    c = eng.module.config
+    prompts = v1_prompts_of(c.vocab_size, length)
+    eng.generate([prompts[0][:16]], max_new_tokens=2)          # warm-up
+    norms = norm_counter(c)
+    reset_norms(norms)
+    sync(dev)
+    t = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=V1_PROMPTS["max_new"])
+    sync(dev)
+    wall = time.perf_counter() - t
+    new = out[:, len(prompts[0]):]
+    norm_by_variant = check_norm_variants(norms, dev, "v1 int8 generate")
+    forwards = V1_PROMPTS["max_new"]
+    rec = dict(model=f"gptj-{size}", dtype="bfloat16", quantize_weights=True,
+               requests=len(prompts), prompt_tokens=len(prompts[0]),
+               new_tokens=forwards, generate_s=wall,
+               generated_tokens_per_s=len(prompts) * forwards / wall,
+               ms_per_step=1e3 * wall / forwards,
+               weight_bytes=weight_bytes(eng.module.params),
+               bf16_weight_bytes=bf16_bytes,
+               norm_launches=norms.launches,
+               norm_launches_by_variant=norm_by_variant)
+    rec["weight_bytes_ratio_vs_bf16"] = rec["weight_bytes"] / bf16_bytes
+    ok = bool(((new >= 0) & (new < c.vocab_size)).all())
+    del eng, model, out
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[int8] phase 22c v1: {json.dumps(rec)}")
+    if not ok or dev.type == "cuda" and norms.launches != \
+            norms_per_forward(c) * forwards:
+        raise AssertionError(f"phase 22c: tokens in range {ok}, norm "
+                             f"launches {norms.launches}")
+    return rec
+
+
+def lora_model(dev, layers=None, dtype=None, frozen=None, adapters=None):
+    """LoRAModel(Llama 3-8b (``layers`` cut), LoRAConfig(),
+    QuantizationConfig()) with segments remat and flash: the base drawn
+    from the seed, or ``frozen``/``adapters`` as given."""
+    from deepspeed_tpu_torch.linear import (LoRAConfig, LoRAModel,
+                                            QuantizationConfig)
+    from deepspeed_tpu_torch.models import Llama
+    from deepspeed_tpu_torch.models.transformer import deferred_weights
+    over = {"num_layers": layers} if layers else {}
+    # a given base needs no float weights of the model's own
+    with (deferred_weights() if frozen is not None
+          else contextlib.nullcontext()):
+        base = Llama(**LINEAR_MODEL, remat_policy="segments",
+                     attn_impl="flash", device=dev, dtype=dtype, **over)
+    return LoRAModel(base, LoRAConfig(), QuantizationConfig(),
+                     frozen=frozen, adapters=adapters)
+
+
+def lora_flops_per_token(model, seq) -> dict:
+    """The work a LoRA step over a frozen base does a token, beside the
+    base model's training count (``flops_per_token``: 6 N + attention, N
+    as it counts it). No weight gradient of the base is formed: its
+    forward (2 N) and input gradients (2 N), the adapters' forward and
+    both their gradients (6 N_a), and all of attention (forward and
+    backward, as ``flops_per_token`` counts it) make the model work;
+    ``segments`` remat reruns each layer's projections and adapters
+    forward (2 N_layers + 2 N_a) besides."""
+    c = model.config
+    n, n_a = c.num_params(), sum(p.numel() for p in model.params.values())
+    n_layers = sum(leaf.numel if isinstance(leaf.numel, int)
+                   else leaf.numel() for name, leaf in model.frozen.items()
+                   if name.startswith("layers/"))
+    full = c.flops_per_token(seq, causal=True)
+    attention = full - 6 * n
+    model_work = 4 * n + 6 * n_a + attention
+    return dict(base_training=full, model=model_work,
+                with_recompute=model_work + 2 * n_layers + 2 * n_a)
+
+
+def lora_main(dev, rows=LORA_ROWS, seq=LORA_SEQ, steps=LORA_STEPS,
+              layers=None):
+    """Phase 22d: LoRAModel over Llama-3-8B (bf16 base, the seven
+    projections int8 in blocks of 512 by the quantize kernel's
+    exact-division mode) -> initialize(TRAIN_CONFIG: bf16, fused Adam, ZeRO
+    2, clip 1.0) -> train_batch on ``rows`` x ``seq`` tokens, one warm-up
+    step then ``steps`` timed steps, the counts set to 0 just before them:
+    step ms, tokens/s, MFU over the base model's flops_per_token and
+    over the work LoRA does (:func:`lora_flops_per_token`), peak memory, the trainable count, the quantize / dequantize launches (the
+    transform's and the steps': 14 a layer a micro-step under segments,
+    7 forward and 7 recomputed), flash launches (every one wgmma), norm
+    launches (row kernels), the losses (finite and falling), and the
+    frozen codes and scales bit-identical before and after the steps."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.linear import is_quantized
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.fused_optimizers import fused_adam_step
+    quant_counts_reset()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = lora_model(dev, layers, torch.bfloat16)
+    build_s = time.perf_counter() - t
+    transform = quant_counts()
+    build_peak = (torch.cuda.max_memory_allocated() / 2**30
+                  if dev.type == "cuda" else None)
+    c = model.config
+    frozen_q = {n: leaf for n, leaf in model.frozen.items()
+                if is_quantized(leaf)}
+    before = {n: (leaf.codes.cpu(), leaf.scales.cpu())
+              for n, leaf in frozen_q.items()}
+    t = time.perf_counter()
+    engine, _, _, _ = ds.initialize(model=model, config=dict(
+        TRAIN_CONFIG, train_batch_size=rows))
+    init_s = time.perf_counter() - t
+    batch = train_batch_of(dev, c.vocab_size, rows, seq)
+    engine.train_batch(batch)                                  # warm-up
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    norms = norm_counter(c)
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_fwd.variant_launches = {}
+    fa.flash_attention_bwd.variant_launches = {}
+    fused_adam_step.launches = 0
+    reset_norms(norms)
+    quant_counts_reset()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        sync(dev)
+        step_s.append(time.perf_counter() - t)
+    counts = quant_counts()
+    norm_by_variant = check_norm_variants(norms, dev, "LoRA training")
+    losses = [float(x) for x in losses]
+    tok_s = rows * seq * steps / sum(step_s)
+    flash = {"fwd": dict(fa.flash_attention_fwd.variant_launches),
+             "bwd": dict(fa.flash_attention_bwd.variant_launches)}
+    unchanged = all(torch.equal(leaf.codes.cpu(), before[n][0])
+                    and torch.equal(leaf.scales.cpu(), before[n][1])
+                    for n, leaf in frozen_q.items())
+    trainable = sum(p.numel() for p in model.params.values())
+    work = lora_flops_per_token(model, seq)
+    stats = dict(
+        model=f"llama-{LINEAR_MODEL['size']} LoRA r "
+              f"{model.lora_state.lora_config.lora_r}",
+        layers=c.num_layers, batch=rows, seq=seq, steps=steps,
+        trainable_params=trainable, base_params=c.num_params(),
+        frozen_bytes=sum(leaf.nbytes if is_quantized(leaf) else
+                         leaf.numel() * leaf.element_size()
+                         for leaf in model.frozen.values()),
+        build_s=build_s,
+        build_peak_gib=build_peak, initialize_s=init_s,
+        transform_launches=transform,
+        step_ms=1e3 * sum(step_s) / steps, step_ms_min=1e3 * min(step_s),
+        step_ms_max=1e3 * max(step_s), tokens_per_s=tok_s,
+        mfu=c.flops_per_token(seq, causal=True) * tok_s / BF16_FLOPS,
+        lora_flops_per_token=work,
+        mfu_lora_work=work["model"] * tok_s / BF16_FLOPS,
+        hfu_lora_with_recompute=work["with_recompute"] * tok_s / BF16_FLOPS,
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else None),
+        losses=losses, quant_launches=counts,
+        fused_adam_launches=fused_adam_step.launches,
+        flash_launches_by_variant=flash, norm_launches=norms.launches,
+        norm_launches_by_variant=norm_by_variant,
+        frozen_bit_identical=unchanged)
+    del engine, model, before, frozen_q
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[lora] phase 22d: {json.dumps(stats)}")
+    bad = []
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        bad.append(f"losses not finite and falling: {losses}")
+    if not unchanged:
+        bad.append("the frozen codes or scales changed")
+    targets = 7
+    want = {"fwd": {"wgmma": c.num_layers * steps},
+            "bwd": {"wgmma": 2 * c.num_layers * steps}}
+    if dev.type == "cuda" and (
+            flash != want or stats["fused_adam_launches"] != steps
+            or norms.launches != norm_launches_per_micro(c) * steps
+            or counts["dequantize"] != 2 * targets * c.num_layers * steps
+            or counts["quantize"] != 0
+            or transform["quantize"] != targets
+            or transform["quantize_exact"] != targets):
+        bad.append(f"launches: flash {flash} (want {want}), Adam "
+                   f"{stats['fused_adam_launches']} (want {steps}), norms "
+                   f"{norms.launches}, quantize/dequantize in the steps "
+                   f"{counts} (want 0 / {2 * targets * c.num_layers * steps})"
+                   f", at the transform {transform} (want {targets} exact)")
+    if bad:
+        raise AssertionError("phase 22d: " + "; ".join(bad))
+    return stats
+
+
+def lora_engine_run(dev, frozen, adapters, fp32=LORA_FP32):
+    """One side of 22e: the LoRA model of ``frozen`` / ``adapters`` (moved
+    to ``dev``) at fp32's depth, TRAIN_CONFIG in fp32 at fp32's lr, its
+    steps on one seeded batch. Returns the losses, the first step's
+    adapter grads, the adapters' change and the trained state."""
+    import deepspeed_tpu_torch as ds
+    frozen = {n: leaf.to(dev) for n, leaf in frozen.items()}
+    adapters = {n: {k: v.to(dev) for k, v in ab.items()}
+                for n, ab in adapters.items()}
+    model = lora_model(dev, fp32["layers"], frozen=frozen, adapters=adapters)
+    cfg = dict(TRAIN_CONFIG, train_batch_size=fp32["rows"],
+               bf16={"enabled": False},
+               optimizer={"type": "FusedAdam", "params": dict(
+                   TRAIN_CONFIG["optimizer"]["params"], lr=fp32["lr"])})
+    engine, _, _, _ = ds.initialize(model=model, config=cfg)
+    init = {n: t.detach().cpu().clone()
+            for n, t in engine.master_state_dict().items()}
+    batch = train_batch_of(dev, model.config.vocab_size, fp32["rows"],
+                           fp32["seq"], seed=7)
+    losses, grads = [], None
+    for step in range(fp32["steps"]):
+        losses.append(float(engine.train_batch(batch)))
+        if step == 0:
+            grads = engine._grads.detach().cpu().clone()
+    change = {n: t.detach().cpu() - init[n]
+              for n, t in engine.master_state_dict().items()}
+    state = model.lora_state_now()
+    state.adapters = {n: {k: v.cpu() for k, v in ab.items()}
+                      for n, ab in state.adapters.items()}
+    del engine, model
+    gc.collect()
+    return dict(losses=losses, grads=grads, change=change, state=state)
+
+
+def lora_cpu_side(tree, fp32=LORA_FP32):
+    """22e's and 22f's CPU halves from ``tree`` (fp32, at fp32's depth):
+    the base quantized by the plain versions (lora_transform, adapters
+    from a seeded CPU generator), the LoRA run, then fuse_lora of its
+    trained adapters and the int8 engine's greedy tokens on the fused
+    weights."""
+    import torch
+    from deepspeed_tpu_torch.linear import (LoRAConfig, QuantizationConfig,
+                                            fuse_lora, lora_transform)
+    cpu = torch.device("cpu")
+    frozen, state, _ = lora_transform(
+        tree, LoRAConfig(), QuantizationConfig(),
+        torch.Generator().manual_seed(13))
+    run = lora_engine_run(cpu, frozen, state.adapters, fp32)
+    fused = fuse_lora(frozen, run["state"])
+    prompts = int8_prompts()
+    serve = int8_engines(cpu, fused, fp32["layers"], prompts,
+                         INT8_FP32["max_new"], v1=False)
+    return dict(frozen=frozen, adapters=state.adapters, run=run,
+                fused=fused, serve=serve)
+
+
+def lora_fp32_parity(dev, tree, cpu, fp32=LORA_FP32):
+    """Phase 22e (TF32 off): the kernel-made base against the plain one,
+    bit for bit (the stacks of ``tree`` quantized on the card in the
+    exact-division mode, and in the wire's mode against its plain
+    version; each dequantized by the kernel against plain), then the LoRA
+    run on the card from the CPU's base and adapters against the CPU's
+    (``cpu``): phase 21's bounds (losses 1e-4 relative, the first step's
+    adapter grads 1e-4 of their largest, the adapters after the steps 1e-3
+    of their change). Phase 22f: the CPU's trained adapters fused into the
+    base (fuse_lora) and served int8 (build_engine + quantize_weights,
+    fp32) on the card: tokens equal to the CPU's, generate_fused equal to
+    generate()."""
+    import torch
+    from deepspeed_tpu_torch.linear import (QuantizationConfig,
+                                            quantize_param)
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    bits = {}
+    quant_counts_reset()
+    for name, leaf in cpu["frozen"].items():
+        if not hasattr(leaf, "codes"):
+            continue
+        w = tree[name].to(dev)
+        qp = quantize_param(w, QuantizationConfig())
+        codes, scales = TQ.quantize_rows(w.view(1, -1), exact=False)
+        pcodes, pscales = TQ.quantize_rows(w.view(1, -1).cpu(),
+                                           use_kernel=False, exact=False)
+        deq = qp.dequantized().cpu()
+        bits[name] = dict(
+            exact_codes=bool(torch.equal(qp.codes.cpu(), leaf.codes)),
+            exact_scales=bool(torch.equal(qp.scales.cpu(), leaf.scales)),
+            wire_codes=bool(torch.equal(codes.cpu(), pcodes)),
+            wire_scales=bool(torch.equal(scales.cpu(), pscales)),
+            dequantized=bool(torch.equal(deq, leaf.dequantized())),
+            scales_differing_between_modes=int(
+                (pscales != leaf.scales).sum()))
+        del w, qp, codes, scales, deq
+    counts = quant_counts()
+    card = lora_engine_run(dev, cpu["frozen"], cpu["adapters"], fp32)
+    ref = cpu["run"]
+
+    def rel(names):
+        err = sum(float((card["change"][n] - ref["change"][n]).pow(2).sum())
+                  for n in names)
+        moved = sum(float(ref["change"][n].pow(2).sum()) for n in names)
+        return (err / moved) ** 0.5
+
+    rec = dict(layers=fp32["layers"], rows=fp32["rows"], seq=fp32["seq"],
+               lr=fp32["lr"], base_bit_equal=bits, kernel_launches=counts,
+               loss_card=card["losses"], loss_cpu=ref["losses"],
+               loss_max_rel_err=max(abs(a - b) / abs(b) for a, b in
+                                    zip(card["losses"], ref["losses"])),
+               grad_max_err_rel_to_max=float(
+                   (card["grads"] - ref["grads"]).abs().max()
+                   / ref["grads"].abs().max()),
+               adapters_err_rel_to_change=rel(list(ref["change"])))
+    log(f"[lora] phase 22e fp32: {json.dumps(rec)}")
+    flat_bits = [v for b in bits.values() for k, v in b.items()
+                 if isinstance(v, bool)]
+    if (not all(flat_bits) or rec["loss_max_rel_err"] > 1e-4
+            or rec["grad_max_err_rel_to_max"] > 1e-4
+            or rec["adapters_err_rel_to_change"] > 1e-3
+            or dev.type == "cuda" and (counts["quantize_exact"] != len(bits)
+                                       or counts["dequantize"] < len(bits))):
+        raise AssertionError(f"phase 22e: {rec}")
+    del card
+    gc.collect()
+    prompts = int8_prompts()
+    served = int8_engines(dev, cpu["fused"], fp32["layers"], prompts,
+                          INT8_FP32["max_new"], v1=False)
+    want = cpu["serve"]
+    f = dict(requests=len(prompts), new_tokens=INT8_FP32["max_new"],
+             tokens_card=served["v2"], tokens_cpu=want["v2"],
+             card_equals_cpu=served["v2"] == want["v2"],
+             fused_equals_generate=served["fused"] == served["v2"],
+             logits_err_rel_to_max=float(
+                 (served["logits"] - want["logits"]).abs().max()
+                 / want["logits"].abs().max()))
+    log(f"[lora] phase 22f fine-tune then serve: {json.dumps(f)}")
+    if not (f["card_equals_cpu"] and f["fused_equals_generate"]) \
+            or f["logits_err_rel_to_max"] > 1e-5:
+        raise AssertionError(f"phase 22f: {f}")
+    return rec, f
+
+
+def linear_cpu_sides(pool):
+    """The CPU halves of phase 22's fp32 checks, queued on the worker
+    ``pool`` behind phase 21's (beside phase 2's nvcc; a second thread
+    slowed the build more than it saved): futures of the fp32 tree
+    (Llama-3-8B's widths at 2 layers), the int8 engines' run on it (22b)
+    and the LoRA run, fused and served (22e-f)."""
+    import torch
+    cpu = torch.device("cpu")
+    tree = pool.submit(fp32_llama_tree, INT8_FP32["layers"])
+    return {"tree": tree,
+            "int8": pool.submit(lambda: int8_engines(
+                cpu, tree.result(), INT8_FP32["layers"], int8_prompts(),
+                INT8_FP32["max_new"])),
+            "lora": pool.submit(lambda: lora_cpu_side(tree.result()))}
+
+
+def linear_main(dev, bf16_stats, cpu_sides, **kw):
+    """Phase 22 (a-f), each sub-phase fatal on failure. ``bf16_stats``:
+    phase 4's record (the bf16 engine's weight bytes, decode ms, build
+    peak and tokens); ``cpu_sides``: :func:`linear_cpu_sides`'s results
+    (the tree, the 22b and 22e-f CPU halves). ``kw`` goes to the
+    full-width sub-phases (a CPU rehearsal shrinks them)."""
+    t0 = time.perf_counter()
+    tree = cpu_sides["tree"]
+    rec = {"serving": int8_serving_main(dev, bf16_stats,          # 22a
+                                        **kw.get("serving", {}))}
+    rec["fp32_serving"] = int8_fp32_parity(dev, tree,             # 22b
+                                           cpu_sides["int8"])
+    rec["v1"] = int8_v1_main(dev, **kw.get("v1", {}))             # 22c
+    rec["lora"] = lora_main(dev, **kw.get("lora", {}))            # 22d
+    rec["lora_fp32"], rec["lora_serve"] = lora_fp32_parity(      # 22e, f
+        dev, tree, cpu_sides["lora"])
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[linear] phase 22: {rec['seconds']:.1f} s")
     return rec
 
 
@@ -5528,8 +6280,10 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
-    # phase 21's CPU halves of its fp32 checks run beside the build
+    # phase 21's and phase 22's CPU halves of their fp32 checks run beside
+    # the build
     cpu_pool, cpu_futures = fp32_cpu_sides()
+    linear_futures = linear_cpu_sides(cpu_pool)
     build_s = op_builder.build(list(KERNELS))                 # phase 2
     log(f"[build] seconds {json.dumps(build_s)}")
     for name in ("paged_attention", "flash_attention",
@@ -5561,8 +6315,12 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     cpu_sides = {k: f.result() for k, f in cpu_futures.items()}
-    cpu_pool.shutdown()
     log(f"[build] phase 21's CPU halves done {time.perf_counter() - t:.1f} "
+        f"s after the build")
+    linear_cpu = {k: f.result() for k, f in linear_futures.items()}
+    cpu_pool.shutdown()
+    del linear_futures
+    log(f"[build] phase 22's CPU halves done {time.perf_counter() - t:.1f} "
         f"s after the build")
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
@@ -5578,18 +6336,23 @@ def main(argv=None) -> int:
     fill = sparse_fill()
     path_times = path_kernel_times(dev, adam_numel, flush)
     zeropp_times = zeropp_kernel_times(dev, flush)
+    lora_quant = lora_quant_times(dev, flush)                 # phase 22's
     norm_errs, norm_times = norm_checks(dev, flush)
     breadth_errs, breadth_times = breadth_kernel_checks(dev, flush)  # 20a
     del flush
     torch.cuda.empty_cache()
 
     engine, stats = main_path(dev)                            # phase 4
+    bf16_ref = {k: stats[k] for k in ("weight_bytes", "decode_ms_per_tick",
+                                      "prefill_tokens_per_s",
+                                      "build_peak_gib", "outputs")}
     rels = main_path_kernel_vs_plain(engine, dev)             # phase 5
     if args.profile:
         profile_main_path(engine, dev)
     prompts = stats.pop("prompts")
     fused = fused_serving_main(engine, dev, prompts, stats,   # phase 17
                                profile=args.profile)
+    bf16_ref["fused_profile"] = fused["profile"]["greedy"]
     spec = fused_modes_main(engine, dev, prompts, fused,      # phase 18
                             profile=args.profile)
     t19 = time.perf_counter()
@@ -5677,6 +6440,10 @@ def main(argv=None) -> int:
                              f"before phase 21")
     families = train_families_main(dev, cpu_sides=cpu_sides)  # phase 21
     del cpu_sides
+    gc.collect()
+    torch.cuda.empty_cache()
+    linear = linear_main(dev, bf16_ref, linear_cpu)           # phase 22
+    del linear_cpu, bf16_ref
 
     def entry(name, kernel, launches, max_abs_err, t, **extra):
         dtypes, variants = KERNEL_FORMS[name]
@@ -5803,7 +6570,7 @@ def main(argv=None) -> int:
               head_dims_checked=[128, 80, 96, 256],
               new_dims_shapes=new_dim_note,
               new_dims={k: v for k, v in new_dims.items()
-                        if not k.endswith("_fp16")},
+                        if not k.endswith(("_fp16", "_int8"))},
               new_dims_max_abs_err=breadth_err("bfloat16", False),
               new_dims_max_abs_err_fp32=breadth_err("float32", False),
               breadth_main_path="phase 20: the dense families served",
@@ -5830,6 +6597,9 @@ def main(argv=None) -> int:
                   kv: {dt: r["layer_max_abs_err"] for dt, r in rec.items()}
                   for kv, rec in q_rels.items()},
               head_dims_checked=[16, 32, 64, 128, 80, 96, 256],
+              new_dims_shapes=new_dim_note + ", int8 per-head pools, bf16",
+              new_dims={k: v for k, v in new_dims.items()
+                        if k.endswith("_int8")},
               new_dims_max_abs_err=breadth_err("bfloat16", True),
               new_dims_max_abs_err_fp32=breadth_err("float32", True)),
         entry("paged_attention_fp16", "paged_attention",
@@ -5991,6 +6761,28 @@ def main(argv=None) -> int:
                 ragged=rec["largest_shard_misaligned"],
                 main_path_launches_by_variant=path_z["quantized"][
                     "quantize_launches_by_variant"])
+        lora = linear["lora"]
+        if name == "quantize_int8":
+            extra.update(
+                exact_mode_max_abs_err=lora_quant["quantize_exact"][
+                    "max_abs_err"],
+                exact_mode_lora_shape=lora_quant["quantize_exact"],
+                wire_mode_lora_shape=lora_quant["quantize_wire"],
+                scales_differing_between_modes=lora_quant[
+                    "scales_differing_between_modes"],
+                lora_transform_launches=lora["transform_launches"][
+                    "quantize"],
+                lora_transform_exact_launches=lora["transform_launches"][
+                    "quantize_exact"],
+                lora_transform_launches_by_variant=lora[
+                    "transform_launches"]["quantize_by_variant"],
+                lora_step_launches=lora["quant_launches"]["quantize"])
+        else:
+            extra.update(
+                lora_shape=lora_quant["dequantize"],
+                lora_launches=lora["quant_launches"]["dequantize"],
+                lora_main_path="phase 22d: each layer of each target, "
+                               "forward and recomputed, a micro-step")
         kernels.append(entry(
             name, "quantize_int8", path_z["quantized"]["launches"][name],
             rec["max_abs_err"], rec, tol=0,
@@ -5998,7 +6790,10 @@ def main(argv=None) -> int:
             library_bit_equal=rec["library_bit_equal"], main_path="Path Z",
             shape="[25152, 768] bf16 (embed/tokens split in two)",
             shard_set=rec["shard_set"],
-            main_path_bit_equal=path_z["kernel_vs_plain"], **extra))
+            main_path_bit_equal=path_z["kernel_vs_plain"],
+            lora_shape_name=lora_quant["shape"],
+            lora_fp32_base_bit_equal=linear["lora_fp32"]["base_bit_equal"],
+            **extra))
     norm_tol = "1 bf16 ulp of the plain result; fp32 1e-6 + 2 ulps"
 
     def norm_extra(t):
@@ -6045,6 +6840,30 @@ def main(argv=None) -> int:
         path_t_launches_by_variant=path_t["norm_launches_by_variant"],
         cases_max_err={"/".join(k): v for k, v in norm_errs.items()
                        if k[0] == "layer"}, cases=NORM_NOTE))
+    # phase 22's launches beside each kernel its paths ran
+    int8 = linear["serving"]
+    lora = linear["lora"]
+    for k in kernels:
+        if k["name"] == "paged_attention":
+            k.update(int8_weights_main_path="phase 22a: Llama-3-8B, "
+                     "weight-only int8, generate() and generate_fused",
+                     int8_weights_launches=int8["per_tick"]["launches"],
+                     int8_weights_launches_by_variant=int8["per_tick"][
+                         "launches_by_variant"],
+                     int8_weights_fused_launches_by_variant=int8["fused"][
+                         "launches_by_variant"])
+        elif k["name"] in ("flash_attention_fwd", "flash_attention_bwd"):
+            k.update(lora_main_path="phase 22d: LoRA over Llama-3-8B int8",
+                     lora_launches_by_variant=lora[
+                         "flash_launches_by_variant"][k["name"][-3:]])
+        elif k["name"] == "fused_adam":
+            k.update(lora_launches=lora["fused_adam_launches"])
+        elif k["name"] in ("rms_norm", "rms_norm_decode"):
+            k.update(int8_weights_norm_launches=int8["per_tick"][
+                "norm_launches"], lora_norm_launches=lora["norm_launches"])
+        elif k["name"] == "layer_norm":
+            k.update(v1_int8_gptj_norm_launches=linear["v1"][
+                "norm_launches"])
     log(f"[main] serving {json.dumps(stats)} on {card}")
     log(f"[main] fused serving {json.dumps(fused)} on {card}")
     log(f"[main] spec and ring serving {json.dumps(spec)} on {card}")
@@ -6063,6 +6882,8 @@ def main(argv=None) -> int:
     log(f"[main] flash at the families' head dims "
         f"{json.dumps(new_dim_times)} on {card}")
     log(f"[main] families trained {json.dumps(families)} on {card}")
+    log(f"[main] linear/ (int8 serving, LoRA) {json.dumps(linear)} on "
+        f"{card}")
     left = live_children()
     if left:
         raise AssertionError(f"processes still running: {left}")

@@ -12,9 +12,14 @@
 // bits of a cast after it). XLA compiles the TPU kernel's `amax / 127.0`, a
 // division by a constant, as a product with the constant's fp32 reciprocal
 // (so do the Pallas interpreter and the jitted plain path), and this kernel
-// does the same. The max propagates NaN, as jnp.max; a quotient that is NaN
-// (a block holding NaN or inf) gives code 0, as XLA's and PyTorch's casts of
-// NaN to int8.
+// does the same by default: the ZeRO++ wire's scale. The exact-division mode
+// (`exact`, ds_quantize_int8_mode) takes scale = max(fl(amax / 127), 1e-12)
+// instead, the IEEE quotient that the JAX package's eager quantize_param
+// computes for LoRA's frozen base (deepspeed_tpu/linear/quantization.py:71);
+// the two differ by an ulp in some blocks' scales. The codes are rint of the
+// IEEE quotient x / scale in both modes. The max propagates NaN, as jnp.max;
+// a quotient that is NaN (a block holding NaN or inf) gives code 0, as XLA's
+// and PyTorch's casts of NaN to int8.
 //
 // The quotient. An IEEE division, rintf and the float-to-int conversion are
 // three quarter-rate ops (MUFU and conversions: 16 a clock on an SM) an
@@ -116,9 +121,11 @@ __device__ __forceinline__ float warp_nan_max(float v) {
   return v;
 }
 
-// The block's scale from its absmax (a NaN scale stays NaN).
+// The block's scale from its absmax (a NaN scale stays NaN): the product
+// with fl(1/127), or with kExact the correctly rounded quotient amax / 127.
+template <bool kExact>
 __device__ __forceinline__ float scale_of(float amax) {
-  const float scale = amax * kInv127;
+  const float scale = kExact ? __fdiv_rn(amax, 127.f) : amax * kInv127;
   return scale < 1e-12f ? 1e-12f : scale;
 }
 
@@ -128,8 +135,9 @@ __device__ __forceinline__ float scale_of(float amax) {
 // conversion instruction (a quarter-rate op on an SM) is spent on it. y = x
 // * r, r = __frcp_rn(scale); where any of the 16 y lies within 2^-14 of a
 // half-integer, all 16 take the IEEE quotient x / scale (see the file's
-// note). A finite scale keeps |y| <= 127.0001, so the clip to +-127 never
-// acts; a NaN or inf scale (NaN or inf in the block) gives every code 0.
+// note). A finite scale of either mode keeps |y| <= 127.0001, so the clip to
+// +-127 never acts; a NaN or inf scale (NaN or inf in the block) gives every
+// code 0.
 __device__ __forceinline__ void codes16(const float (&x)[kPerLane],
                                         float scale, float (&f)[kPerLane]) {
   if (!isfinite(scale)) {
@@ -213,7 +221,7 @@ __device__ __forceinline__ long long range_start(long long n, int c,
   return n * c / ctas;
 }
 
-template <typename T>
+template <typename T, bool kExact>
 __global__ void __launch_bounds__(kWarps * 32)
 quantize_bulk_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                      float* __restrict__ scales, long long nblocks) {
@@ -269,7 +277,7 @@ quantize_bulk_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
       float amax = 0.f;
 #pragma unroll
       for (int i = 0; i < kPerLane; ++i) amax = nan_amax(amax, v[i]);
-      const float scale = scale_of(warp_nan_max(amax));
+      const float scale = scale_of<kExact>(warp_nan_max(amax));
       float f[kPerLane];
       codes16(v, scale, f);
       reinterpret_cast<uint4*>(q + (first + j) * kBlock)[lane] =
@@ -292,7 +300,7 @@ constexpr uint32_t kBulkSmem = kRingOffset + kStages * kChunkBytes;
 // Lane `lane`'s k-th vector of a block covers elements (k * 32 + lane) * V
 // .. + V - 1 of the block, V = 16 / sizeof(T): neighbouring lanes read
 // neighbouring 16-byte words.
-template <typename T>
+template <typename T, bool kExact>
 __global__ void __launch_bounds__(kWarps * 32)
 quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                 float* __restrict__ scales, long long rows, long long row_len,
@@ -327,7 +335,7 @@ quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
     float amax = 0.f;
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) amax = nan_amax(amax, v[i]);
-    const float scale = scale_of(warp_nan_max(amax));
+    const float scale = scale_of<kExact>(warp_nan_max(amax));
     float f[kPerLane];
     codes16(v, scale, f);
     int8_t* dst = q + b * kBlock;
@@ -411,13 +419,13 @@ int variant_of(long long row_len, int aligned) {
   return row_len % kBlock == 0 && aligned ? 1 : 0;
 }
 
-template <typename T>
+template <typename T, bool kExact>
 cudaError_t launch_bulk(const T* x, int8_t* q, float* scales,
                         long long nblocks, cudaStream_t st) {
   int sms = 0;
   cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(quantize_bulk_kernel<T>,
+  e = cudaFuncSetAttribute(quantize_bulk_kernel<T, kExact>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kBulkSmem);
   if (e != cudaSuccess) return e;
@@ -425,23 +433,39 @@ cudaError_t launch_bulk(const T* x, int8_t* q, float* scales,
   const long long chunks = (nblocks + kChunkBlocks<T> - 1) / kChunkBlocks<T>;
   const long long cap = (long long)kBulkCtasPerSM * sms;
   const int grid = (int)(chunks < cap ? chunks : cap);
-  quantize_bulk_kernel<T><<<grid, kWarps * 32, kBulkSmem, st>>>(
+  quantize_bulk_kernel<T, kExact><<<grid, kWarps * 32, kBulkSmem, st>>>(
       x, q, scales, nblocks);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kExact>
 cudaError_t launch_quantize(int variant, const void* x, int8_t* q,
                             float* sc, long long rows, long long row_len,
                             long long bpr, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
-  if (variant == 1) return launch_bulk<T>(xt, q, sc, rows * bpr, st);
+  if (variant == 1) return launch_bulk<T, kExact>(xt, q, sc, rows * bpr, st);
   int grid = 0;
   cudaError_t e = grid_for(rows * bpr, &grid);
   if (e != cudaSuccess) return e;
-  quantize_kernel<T><<<grid, kWarps * 32, 0, st>>>(xt, q, sc, rows, row_len,
-                                                   bpr);
+  quantize_kernel<T, kExact><<<grid, kWarps * 32, 0, st>>>(
+      xt, q, sc, rows, row_len, bpr);
   return cudaGetLastError();
+}
+
+template <bool kExact>
+int quantize_typed(const void* x, int dtype, int8_t* q, float* sc,
+                   long long rows, long long row_len, int variant,
+                   long long bpr, cudaStream_t st) {
+  if (dtype == 0)
+    return (int)launch_quantize<float, kExact>(variant, x, q, sc, rows,
+                                               row_len, bpr, st);
+  if (dtype == 1)
+    return (int)launch_quantize<__nv_bfloat16, kExact>(variant, x, q, sc,
+                                                       rows, row_len, bpr, st);
+  if (dtype == 2)
+    return (int)launch_quantize<__half, kExact>(variant, x, q, sc, rows,
+                                                row_len, bpr, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -455,11 +479,13 @@ extern "C" int ds_quantize_int8_variant(long long row_len, int aligned) {
 // C entry points, bound with ctypes. dtype codes: 0 = float32, 1 = bfloat16,
 // 2 = float16. x / out: rows x row_len contiguous elements; q: rows * bpr *
 // 512 int8 codes (16-byte aligned); scales: rows * bpr fp32, bpr =
-// ceil(row_len / 512). Each returns cudaGetLastError() after the launch (0 =
+// ceil(row_len / 512); exact: 1 = the exact-division scale, 0 = the wire's
+// reciprocal product. Each returns cudaGetLastError() after the launch (0 =
 // launched).
-extern "C" int ds_quantize_int8(const void* x, int dtype, void* q,
-                                void* scales, long long rows,
-                                long long row_len, void* stream) {
+extern "C" int ds_quantize_int8_mode(const void* x, int dtype, void* q,
+                                     void* scales, long long rows,
+                                     long long row_len, int exact,
+                                     void* stream) {
   if (rows <= 0 || row_len <= 0) return 0;
   if ((reinterpret_cast<uintptr_t>(q) & 15) != 0)
     return (int)cudaErrorInvalidValue;
@@ -469,16 +495,18 @@ extern "C" int ds_quantize_int8(const void* x, int dtype, void* q,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* qc = static_cast<int8_t*>(q);
   float* sc = static_cast<float*>(scales);
-  if (dtype == 0)
-    return (int)launch_quantize<float>(variant, x, qc, sc, rows, row_len,
-                                       bpr, st);
-  if (dtype == 1)
-    return (int)launch_quantize<__nv_bfloat16>(variant, x, qc, sc, rows,
-                                               row_len, bpr, st);
-  if (dtype == 2)
-    return (int)launch_quantize<__half>(variant, x, qc, sc, rows, row_len,
-                                        bpr, st);
-  return (int)cudaErrorInvalidValue;
+  return exact ? quantize_typed<true>(x, dtype, qc, sc, rows, row_len,
+                                      variant, bpr, st)
+               : quantize_typed<false>(x, dtype, qc, sc, rows, row_len,
+                                       variant, bpr, st);
+}
+
+// The wire's entry (the reciprocal-product scale), kept for callers bound
+// to it.
+extern "C" int ds_quantize_int8(const void* x, int dtype, void* q,
+                                void* scales, long long rows,
+                                long long row_len, void* stream) {
+  return ds_quantize_int8_mode(x, dtype, q, scales, rows, row_len, 0, stream);
 }
 
 extern "C" int ds_dequantize_int8(const void* q, const void* scales,

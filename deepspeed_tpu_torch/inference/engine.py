@@ -15,11 +15,19 @@ eager: one host step a token. Sampling follows the JAX engine's keys
 ``ops/sampling.py``, with the temperature's reciprocal rounding of JAX's
 compiled loop.
 
+Weight-only int8 (``quantize_weights``, JAX :69-80): every leaf that
+``linear.quantization.quantize_dense_params`` takes becomes int8 codes and
+per-output-channel scales before the cast, leaf by leaf
+(``models/convert.py`` ``load_serving_params``), and the model dequantizes
+one layer at a time where it reads it; a ``params`` tree that already
+holds ``name_q`` / ``name_s`` pairs is taken as it is. ``dtype="int8"``
+raises JAX's own error: int8 serving is weight-only.
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: ``tensor_parallel.tp_size > 1`` (Slice D item 12),
-``quantize_weights`` and ``dtype="int8"`` (``linear/``, Slice C item 9),
-``quantize_moe_experts`` and ``moe_grouped_dispatch`` (MoE, Slice D item
-12), an orbax checkpoint directory (Slice E item 13).
+ROADMAP item: ``tensor_parallel.tp_size > 1`` (Slice D item 12; with
+``quantize_weights`` JAX's own refusal), ``quantize_moe_experts`` and
+``moe_grouped_dispatch`` (MoE, Slice D item 12), an orbax checkpoint
+directory (Slice E item 13).
 """
 
 from __future__ import annotations
@@ -29,10 +37,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..models.base import ModelConfig
-from ..models.convert import load_jax_params
+from ..models.convert import load_serving_params
 from ..ops import sampling, threefry
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
@@ -40,15 +47,24 @@ from .config import DeepSpeedInferenceConfig
 PyTree = Any
 
 
+INT8_DTYPE_MESSAGE = (
+    "dtype='int8' is not a blanket cast; use "
+    "quantize_moe_experts=True (routed experts) or "
+    "linear.QuantizedParameter (dense weights) for "
+    "weight-only int8 with scales")
+QUANTIZE_TP_MESSAGE = (
+    "quantize_weights is a single-replica serving path "
+    "(quantized leaves bypass the tp rule tables); "
+    "shard OR quantize, not both")
+
+
 def _refuse_unported(config: DeepSpeedInferenceConfig) -> None:
     if config.torch_dtype == torch.int8:
-        raise NotImplementedError(
-            "dtype='int8' is not a blanket cast: weight-only int8 serving "
-            "(linear/) is not ported yet (ROADMAP Slice C item 9)")
-    if config.quantize_weights:
-        raise NotImplementedError(
-            "quantize_weights (weight-only int8, linear/) is not ported yet "
-            "(ROADMAP Slice C item 9)")
+        # blanket-casting float weights to int8 would truncate them; int8
+        # serving is weight-only quantization with scales (JAX's error)
+        raise NotImplementedError(INT8_DTYPE_MESSAGE)
+    if config.quantize_weights and config.tensor_parallel.tp_size > 1:
+        raise NotImplementedError(QUANTIZE_TP_MESSAGE)
     if config.quantize_moe_experts or config.moe_grouped_dispatch:
         raise NotImplementedError(
             "quantize_moe_experts / moe_grouped_dispatch: MoE serving is "
@@ -60,6 +76,17 @@ def _refuse_unported(config: DeepSpeedInferenceConfig) -> None:
             "item 12)")
 
 
+def load_weights(model, params, config, dtype, device) -> None:
+    """The serving weights, as the JAX engine builds its tree: ``params``
+    (a JAX-layout tree or flat mapping) or drawn from ``config.seed``;
+    weight-only int8 per ``config.quantize_weights`` or a pre-quantized
+    tree, leaf by leaf; every float leaf in the serving ``dtype``."""
+    gen = (torch.Generator(device=device).manual_seed(config.seed)
+           if params is None else None)
+    load_serving_params(model, params, gen, dtype,
+                        quantize=config.quantize_weights)
+
+
 class InferenceEngine:
     """reference: inference/engine.py:41"""
 
@@ -69,21 +96,10 @@ class InferenceEngine:
         self._config = config
         self.module = model
         self.dtype = config.torch_dtype
-        self.device = next(iter(model.params.values())).device
-        # every floating parameter in the serving dtype, as the JAX engine
-        # casts its tree
-        with torch.no_grad():
-            for name, p in list(model.params.items()):
-                if p.dtype != self.dtype:
-                    model.params[name] = nn.Parameter(p.to(self.dtype))
+        self.device = model.device
         if params is None and config.checkpoint:
             params = self._load_checkpoint_params(config.checkpoint)
-        if params is not None:
-            load_jax_params(model, params)
-        else:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(config.seed)
-            model.init_params(gen)
+        load_weights(model, params, config, self.dtype, self.device)
         model.eval()
         self.model_config: ModelConfig | None = getattr(model, "config",
                                                         None)

@@ -8,8 +8,10 @@ from __future__ import annotations
 from typing import Optional
 
 from ...models import get_model_class
+from ...models.transformer import deferred_weights
 from ...utils.device import resolve_device
-from .engine_v2 import InferenceEngineV2, RaggedInferenceEngineConfig
+from .engine_v2 import (InferenceEngineV2, RaggedInferenceEngineConfig,
+                        _refuse_unported)
 
 __all__ = ["build_engine", "SUPPORTED_MODEL_TYPES"]
 
@@ -31,7 +33,10 @@ def build_engine(model_type: str, size: str = "tiny",
     ``params`` is a JAX-layout tree of numpy arrays (see
     ``models/convert.py``); None draws random weights from the config's
     seed. ``device`` None means ``cuda`` and raises where no card is
-    present; pass ``device="cpu"`` for the plain PyTorch path."""
+    present; pass ``device="cpu"`` for the plain PyTorch path. The model
+    is built without weights and the engine gives it each leaf in turn
+    (cast, or int8 with ``quantize_weights``), so no second float tree
+    exists on the device."""
     if model_type not in SUPPORTED_MODEL_TYPES:
         raise ValueError(
             f"unsupported model_type {model_type!r}; supported: "
@@ -41,7 +46,10 @@ def build_engine(model_type: str, size: str = "tiny",
         engine_config = RaggedInferenceEngineConfig()
     elif isinstance(engine_config, dict):
         engine_config = RaggedInferenceEngineConfig.from_dict(engine_config)
-    model = get_model_class(model_type)(
-        size=size, device=dev, dtype=engine_config.torch_dtype,
-        **model_overrides)
+    # before the model is built in the config's dtype (int8 is refused)
+    _refuse_unported(engine_config)
+    with deferred_weights():        # the loader gives every leaf
+        model = get_model_class(model_type)(
+            size=size, device=dev, dtype=engine_config.torch_dtype,
+            **model_overrides)
     return InferenceEngineV2(model, engine_config, params=params)

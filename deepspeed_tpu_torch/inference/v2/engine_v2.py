@@ -21,6 +21,12 @@ batch and table-width buckets: on the card each (mode, bucket, K,
 sampling setting) is one captured CUDA graph over operands at fixed
 addresses (``fused_graph.py``).
 
+Weight-only int8 (``quantize_weights``, or a ``params`` tree holding
+``name_q`` / ``name_s`` pairs) loads as the v1 engine does
+(``inference/engine.py`` ``load_weights``); the model dequantizes a layer
+where ``paged_forward`` reads it, so inside every captured graph too, its
+temporaries from the graph's pool.
+
 KV migration (``export_request``, ``import_request``, and
 ``prefill_request`` for a dedicated prefill engine) moves one sequence's
 KV blocks between engines at a dispatch boundary: the transport of
@@ -35,13 +41,13 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-from torch import nn
 
-from ...models.convert import load_jax_params
 from ...ops import sampling, threefry
 from ...ops.quantization import KV_STORE_DTYPES
 from ...utils.logging import log_dist
 from ..config import DeepSpeedInferenceConfig
+from ..engine import (INT8_DTYPE_MESSAGE, QUANTIZE_TP_MESSAGE,
+                      load_weights)
 from ...runtime.config_utils import DeepSpeedConfigModel
 from .fused_graph import CapturedLoop, FusedState, RingState
 from .paged import (KERNEL_DTYPES, fused_decode_loop, fused_serve_loop,
@@ -243,11 +249,13 @@ def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
         raise NotImplementedError(
             f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md, "
             f"port Queue 1: item 15, sanitizers (Slice G))")
+    if config.torch_dtype == torch.int8:
+        raise NotImplementedError(INT8_DTYPE_MESSAGE)
+    if config.quantize_weights and config.tensor_parallel.tp_size > 1:
+        raise NotImplementedError(QUANTIZE_TP_MESSAGE)
     unported = [
         (config.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1",
          "tensor-parallel serving"),
-        (config.quantize_weights, "quantize_weights",
-         "weight-only int8 serving"),
         (config.quantize_moe_experts, "quantize_moe_experts", "MoE serving"),
         (config.checkpoint is not None, "checkpoint", "checkpoint loading"),
     ]
@@ -268,29 +276,16 @@ class InferenceEngineV2:
         self.dtype = config.torch_dtype
         self.model = model
         c = model.config
-        self.device = next(iter(model.params.values())).device
-        if self.dtype == torch.int8:
-            raise NotImplementedError(
-                "dtype='int8' is not a blanket cast (ROADMAP.md, port "
-                "Queue 1: weight-only int8 serving)")
+        self.device = model.device
         if self.device.type == "cuda" and \
                 self.dtype not in KERNEL_DTYPES:
             raise NotImplementedError(
                 f"dtype {self.dtype} on CUDA: the paged-attention kernel "
                 "takes float32, bfloat16 or float16")
         # params: given (a JAX-layout numpy tree) or drawn from the seed,
-        # then cast to the serving dtype — what the JAX v1 engine does
-        # for the v2 engine at tp=1
-        with torch.no_grad():
-            for name, p in list(model.params.items()):
-                if p.dtype != self.dtype:
-                    model.params[name] = nn.Parameter(p.to(self.dtype))
-        if params is not None:
-            load_jax_params(model, params)
-        else:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(config.seed)
-            model.init_params(gen)
+        # quantized per quantize_weights, cast to the serving dtype — what
+        # the JAX v1 engine does for the v2 engine at tp=1
+        load_weights(model, params, config, self.dtype, self.device)
 
         bs = config.kv_block_size
         # quantized KV: the pool's storage and the block budget are

@@ -1,0 +1,171 @@
+"""Quantized frozen parameters (counterpart of
+``deepspeed_tpu/linear/quantization.py``; reference:
+deepspeed/linear/quantization.py QuantizedParameter + csrc/fp_quantizer).
+
+Two halves:
+
+**Block-quantized parameters** (LoRA's frozen base): a
+:class:`QuantizedParameter` holds codes and per-block scales of the flat
+tensor, zero-padded to whole blocks, and dequantizes on use. The int
+format at 8 bits and 512-element blocks (the default
+:class:`QuantizationConfig`) is the block quantization of the Pallas
+kernels at ``deepspeed_tpu/ops/pallas/quantization.py:57`` / ``:99``: on a
+CUDA tensor :func:`quantize_param` and :meth:`QuantizedParameter.
+dequantized` launch the hand-written kernels of ``csrc/quantize_int8.cu``
+(the quantize in its exact-division mode: the JAX function runs eagerly,
+so its scale is the IEEE quotient ``amax / 127``) and raise where the
+kernel cannot take the call; on a CPU tensor they take the kernels' plain
+versions. 4 and 6 bits, other block sizes and the fp formats
+(``ops/fp_quant.py``) have no TPU kernel in JAX and are torch ops on any
+device.
+
+**Weight-only int8 serving** (``quantize_dense_params``,
+``dequantize_dense`` and their helpers) lives in ``ops/quantization.py``,
+beside the other quantization ops, so that ``models/`` reads it without
+importing this package; it is exported from here as JAX exports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from ..ops import quantization as Q
+from ..ops.quantization import (dequantize_dense,  # noqa: F401
+                                dequantize_weight, quantizable_leaf,
+                                quantize_dense_leaf, quantize_dense_params,
+                                quantizes)
+from .config import QuantizationConfig
+
+KERNEL_BLOCK = Q.QBLOCK       # the block the quantize kernels take
+
+
+def _kernel_format(q_format: str, q_bits: int, group: int) -> bool:
+    """The int8 kernels' format: int codes at 8 bits, 512-value blocks."""
+    return q_format == "int" and q_bits == 8 and group == KERNEL_BLOCK
+
+
+@dataclasses.dataclass
+class QuantizedParameter:
+    """Block-quantized tensor (reference: quantization.py:27): ``codes``
+    (int8 ``[nblocks, group]``, torch float8 at fp 8 bits, packed uint8 for
+    fp6/fp12) and fp32 ``scales`` ``[nblocks, 1]`` of the flat tensor of
+    ``shape`` and ``dtype``."""
+
+    codes: torch.Tensor
+    scales: torch.Tensor
+    shape: tuple = ()
+    dtype: Any = torch.float32
+    q_bits: int = 8
+    q_format: str = "int"
+    mantissa_bits: int = 3
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.shape) if self.shape else 1
+
+    @property
+    def group_size(self) -> int:
+        width = self.codes.shape[-1]
+        if self.q_format == "fp" and self.q_bits != 8:
+            return width * 8 // self.q_bits
+        return width
+
+    @property
+    def nbytes(self) -> int:
+        return (self.codes.numel() * self.codes.element_size()
+                + self.scales.numel() * self.scales.element_size())
+
+    def dequantized(self) -> torch.Tensor:
+        """The tensor in its shape and dtype (reference:
+        QuantizedParameter.dequantized())."""
+        return self.dequantize_range(0, self.numel).reshape(self.shape)
+
+    def dequantize_range(self, start: int, stop: int,
+                         dtype=None) -> torch.Tensor:
+        """Flat elements [start, stop) dequantized, in ``dtype`` (the
+        parameter's by default): only the blocks that hold them are
+        read, so a caller takes one layer of a stacked ``[L, in, out]``
+        parameter at a time."""
+        dtype = dtype or self.dtype
+        g = self.group_size
+        b0, b1 = start // g, -(-stop // g)
+        codes, scales = self.codes[b0:b1], self.scales[b0:b1]
+        off = start - b0 * g
+        if self.q_format == "fp":
+            from ..ops.fp_quant import fp_dequantize
+            flat = fp_dequantize(codes, scales, q_bits=self.q_bits,
+                                 mantissa_bits=self.mantissa_bits,
+                                 dtype=dtype).reshape(-1)
+            return flat[off:off + stop - start]
+        if codes.is_cuda and _kernel_format("int", self.q_bits, g):
+            # the kernel writes blocks b0.. trimmed to stop
+            flat = Q.dequantize_int8_kernel(codes, scales, 1, stop - b0 * g,
+                                            dtype)[0]
+            return flat[off:]
+        flat = (codes.float() * scales).reshape(-1)[off:off + stop - start]
+        return flat.to(dtype)
+
+    def to(self, device) -> "QuantizedParameter":
+        return dataclasses.replace(self, codes=self.codes.to(device),
+                                   scales=self.scales.to(device))
+
+
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as an IEEE division on every device."""
+    return x / x.new_full((), c)
+
+
+def quantize_param(x: torch.Tensor,
+                   cfg: QuantizationConfig | None = None
+                   ) -> QuantizedParameter:
+    """Block quantization per ``cfg``: int 4/6/8, or float 6/8/12
+    (``q_format="fp"``), of the flat ``x`` zero-padded to whole blocks.
+    The default config (int, 8 bits, 512-value blocks) launches the
+    quantize kernel on a CUDA tensor (exact-division mode, as the JAX
+    function's eager ``amax / 127``)."""
+    cfg = cfg or QuantizationConfig()
+    shape = tuple(x.shape)
+    if cfg.q_format == "fp":
+        from ..ops.fp_quant import fp_quantize
+        codes, scales = fp_quantize(x, q_bits=cfg.q_bits,
+                                    mantissa_bits=cfg.mantissa_bits,
+                                    group_size=cfg.group_size)
+        return QuantizedParameter(codes, scales, shape, x.dtype, cfg.q_bits,
+                                  "fp", cfg.mantissa_bits)
+    if cfg.q_bits not in (4, 6, 8):
+        raise ValueError(f"q_bits must be 4, 6 or 8, got {cfg.q_bits}")
+    if _kernel_format("int", cfg.q_bits, cfg.group_size):
+        codes, scales = Q.quantize_rows(x.reshape(1, -1), exact=True)
+        return QuantizedParameter(codes, scales, shape, x.dtype, cfg.q_bits)
+    qmax = 2 ** (cfg.q_bits - 1) - 1
+    g = cfg.group_size
+    flat = x.reshape(-1).float()
+    blocks = torch.nn.functional.pad(flat, (0, (-flat.numel()) % g)).view(
+        -1, g)
+    amax = blocks.abs().amax(dim=-1, keepdim=True)
+    scales = torch.clamp(_div(amax, float(qmax)), min=1e-12)
+    codes = torch.clamp(torch.round(blocks / scales), -qmax, qmax).to(
+        torch.int8)
+    return QuantizedParameter(codes, scales, shape, x.dtype, cfg.q_bits)
+
+
+def is_quantized(leaf: Any) -> bool:
+    return isinstance(leaf, QuantizedParameter)
+
+
+def dequantize_tree(tree: Any) -> Any:
+    """Replace every QuantizedParameter of a (nested) dict with its
+    dequantized tensor."""
+    if is_quantized(tree):
+        return tree.dequantized()
+    if isinstance(tree, dict):
+        return {k: dequantize_tree(v) for k, v in tree.items()}
+    return tree

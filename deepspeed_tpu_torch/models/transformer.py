@@ -26,9 +26,20 @@ checkpoint, so its backward never reruns the forward kernel.
 Norms run through ``ops/norms.py``: the hand-written kernel on CUDA (one
 launch per norm, re-launched wherever a checkpoint recomputes it), the
 plain version on the CPU or inside ``ops.norms.plain_norms()``.
+
+Weight-only int8 (``ops/quantization.py`` ``quantize_dense_params``):
+a quantized leaf is held as its ``name_q`` (int8) and ``name_s`` pair, and
+each layer's pairs are dequantized where the layer is read (JAX
+``_maybe_dequant``), ``lm_head_q`` where the vocab projection is, so at
+most one layer's float weights exist. :meth:`DecoderLM.using_weights`
+runs the model on another source of weights (``linear.LoRAModel``'s
+frozen base merged with its adapters, a layer at a time).
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 from torch import nn
@@ -36,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import layers as L
 from ..ops import norms as N
+from ..ops.quantization import dequantize_dense, dequantize_weight
 from ..ops.flash_attention import flash_attention
 from ..runtime.activation_checkpointing.checkpointing import (
     STOCK_POLICIES, remat)
@@ -53,6 +65,21 @@ POLICY_FACTORIES = ("save_only_these_names", "save_any_names_but_these",
                     "offload_dot_with_no_batch_dims")
 
 _STD = 0.02
+# set inside deferred_weights(): models built there hold meta parameters
+_DEFERRED = contextvars.ContextVar("deferred_weights", default=False)
+
+
+@contextlib.contextmanager
+def deferred_weights():
+    """Build models whose parameters are meta tensors (no storage) until a
+    loader gives each its value (``models/convert.py``
+    ``load_serving_params``): a weight-only int8 engine then never holds
+    the float tree on the device."""
+    token = _DEFERRED.set(True)
+    try:
+        yield
+    finally:
+        _DEFERRED.reset(token)
 
 
 class DecoderLM(nn.Module):
@@ -91,12 +118,21 @@ class DecoderLM(nn.Module):
                 "no per-head additive-bias path; use the default attention "
                 "(attn_impl='reference') or rope/learned positions with "
                 "flash")
+        self.device = dev
         self._init_spec = self._param_spec()
+        pdev = torch.device("meta") if _DEFERRED.get() else dev
         self.params = nn.ParameterDict({
-            name: nn.Parameter(torch.empty(shape, device=dev, dtype=dt))
+            name: nn.Parameter(torch.empty(shape, device=pdev, dtype=dt))
             for name, (shape, _) in self._init_spec.items()})
-        self._layer_keys = [n.split("/", 1)[1] for n in self._init_spec
+        self._source = None
+        self.refresh_param_names()
+
+    def refresh_param_names(self) -> None:
+        """Re-read the parameter names after a loader replaced leaves (int8
+        ``name_q``/``name_s`` pairs for ``name``)."""
+        self._layer_keys = [n.split("/", 1)[1] for n in self.params
                             if n.startswith("layers/")]
+        self._dense_quantized = any(n.endswith("_q") for n in self.params)
 
     # ---------------- init ----------------
     def _param_spec(self) -> dict[str, tuple[tuple[int, ...], object]]:
@@ -157,20 +193,61 @@ class DecoderLM(nn.Module):
         residual projections scaled by 1/sqrt(2L), unit norm scales,
         zero biases), drawn from ``generator``. The numbers differ from
         the JAX init's: tests carry JAX params across instead."""
-        for name, (shape, init) in self._init_spec.items():
-            p = self.params[name]
-            if init == "ones":
-                p.fill_(1.0)
-            elif init == "zeros":
-                p.zero_()
-            else:
-                p.copy_(torch.randn(shape, generator=generator,
-                                    device=p.device) * init)
+        for name in self._init_spec:
+            self.params[name].copy_(self.draw(name, generator))
+
+    @torch.no_grad()
+    def draw(self, name: str, generator: torch.Generator | None = None
+             ) -> torch.Tensor:
+        """Leaf ``name``'s initial value in fp32 on the model's device, the
+        next draw of ``generator`` (:meth:`init_params` draws the leaves in
+        the order of ``_init_spec``)."""
+        shape, init = self._init_spec[name]
+        if init == "ones":
+            return torch.ones(shape, device=self.device)
+        if init == "zeros":
+            return torch.zeros(shape, device=self.device)
+        return torch.randn(shape, generator=generator,
+                           device=self.device) * init
+
+    # ---------------- weights ----------------
+    @contextlib.contextmanager
+    def using_weights(self, source):
+        """Run the model on ``source``'s weights instead of its own
+        parameters: ``source[name]`` gives a top-level tensor
+        (``"embed/tokens"``), ``name in source`` says whether there is one,
+        and ``source.layer(i)`` gives layer i's parameters keyed as in JAX
+        ``p`` (a mapping that may compute each weight where it is read)."""
+        prev, self._source = self._source, source
+        try:
+            yield
+        finally:
+            self._source = prev
+
+    def _tensor(self, name: str) -> torch.Tensor:
+        return self.params[name] if self._source is None \
+            else self._source[name]
+
+    def _has(self, name: str) -> bool:
+        return name in (self.params if self._source is None
+                        else self._source)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype of the activations: the embedding's."""
+        return self._tensor("embed/tokens").dtype
+
+    def _dequantized(self, p: dict) -> dict:
+        return dequantize_dense(p, self.compute_dtype) \
+            if self._dense_quantized else p
 
     def layer_params(self, layer: int) -> dict[str, torch.Tensor]:
-        """One layer's parameter slices (views), keyed as in JAX ``p``."""
-        return {k: self.params["layers/" + k][layer]
-                for k in self._layer_keys}
+        """One layer's parameters keyed as in JAX ``p``: slices (views) of
+        the stacks, a weight-only int8 pair dequantized."""
+        if self._source is not None:
+            return self._source.layer(layer)
+        return self._dequantized({k: self.params["layers/" + k][layer]
+                                  for k in self._layer_keys})
 
     # ---------------- pieces (reused by the paged forward) --------------
     def _norm(self, x, scale, bias=None):
@@ -185,7 +262,7 @@ class DecoderLM(nn.Module):
             raise ValueError(
                 f"sequence length {tokens.shape[-1]} exceeds max_seq_len "
                 f"{c.max_seq_len}")
-        x = self.params["embed/tokens"][tokens]
+        x = self._tensor("embed/tokens")[tokens]
         if c.position_embedding == "learned":
             if positions is None:
                 positions = torch.arange(tokens.shape[-1],
@@ -193,11 +270,11 @@ class DecoderLM(nn.Module):
             # a chunk's pad slots past a row's end may lie past the table
             # (JAX's take fills them with NaN; their rows are never read):
             # clamped, so the lookup stays in bounds on the card
-            x = x + self.params["embed/positions"][
+            x = x + self._tensor("embed/positions")[
                 positions.clamp(max=c.max_seq_len - 1)]
         if c.embed_layernorm:
-            x = N.layer_norm(x, self.params["embed/ln_scale"],
-                             self.params["embed/ln_bias"], c.norm_eps)
+            x = N.layer_norm(x, self._tensor("embed/ln_scale"),
+                             self._tensor("embed/ln_bias"), c.norm_eps)
         return x
 
     def _qkv(self, p: dict, h: torch.Tensor,
@@ -331,7 +408,13 @@ class DecoderLM(nn.Module):
                 return x + self._attn_out(p, a) + m
 
             return checkpoint(seg_out, x, a, h, use_reentrant=False)
-        x = x + self._attn_out(p, a)
+        if isinstance(p, dict):
+            x = x + self._attn_out(p, a)
+        else:
+            # weights computed where they are read (LoRA's merge): the
+            # output projection is recomputed too, so autograd keeps no
+            # layer's effective weight
+            x = x + checkpoint(self._attn_out, p, a, use_reentrant=False)
         return checkpoint(self._mlp_residual, p, x, use_reentrant=False)
 
     def _block_save_attn_ffn(self, p: dict, x: torch.Tensor,
@@ -380,11 +463,16 @@ class DecoderLM(nn.Module):
         x, m = checkpoint(seg_ffn, x, a, use_reentrant=False)
         return x + self._mlp_down(p, m)
 
-    def _layer_stacks(self) -> dict[str, tuple[torch.Tensor, ...]]:
-        """Per-layer views of every stacked parameter, one ``unbind`` per
-        stack: its backward stacks the layers' grads in one pass."""
-        return {k: self.params["layers/" + k].unbind(0)
-                for k in self._layer_keys}
+    def _layers(self):
+        """layer -> its parameters (as :meth:`layer_params`), from views
+        of every stacked parameter, one ``unbind`` per stack: its backward
+        stacks the layers' grads in one pass."""
+        if self._source is not None:
+            return self._source.layer
+        stacks = {k: self.params["layers/" + k].unbind(0)
+                  for k in self._layer_keys}
+        return lambda i: self._dequantized({k: v[i]
+                                            for k, v in stacks.items()})
 
     def final_hidden(self, tokens: torch.Tensor,
                      positions: torch.Tensor | None = None) -> torch.Tensor:
@@ -394,9 +482,9 @@ class DecoderLM(nn.Module):
         c = self.config
         recompute = c.remat and torch.is_grad_enabled()
         x = self.embed(tokens, positions)
-        stacks = self._layer_stacks()
+        layers = self._layers()
         for layer in range(c.num_layers):
-            p = {k: v[layer] for k, v in stacks.items()}
+            p = layers(layer)
             if not recompute:
                 x = self.block(p, x, positions)
             elif c.remat_policy == "segments":
@@ -409,20 +497,30 @@ class DecoderLM(nn.Module):
         return x
 
     def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
-        return self._norm(x, self.params["final_norm/scale"],
-                          self.params.get("final_norm/bias"))
+        bias = (self._tensor("final_norm/bias")
+                if self._has("final_norm/bias") else None)
+        return self._norm(x, self._tensor("final_norm/scale"), bias)
 
     def _vocab_weight(self) -> torch.Tensor:
-        """The [D, V] vocab projection (tied: the embedding's transpose)."""
+        """The [D, V] vocab projection (tied: the embedding's transpose;
+        weight-only int8: ``lm_head_q`` dequantized)."""
         if self.config.tie_embeddings:
-            return self.params["embed/tokens"].T
-        return self.params["lm_head"]
+            return self._tensor("embed/tokens").T
+        if self._has("lm_head_q"):
+            return dequantize_weight(self._tensor("lm_head_q"),
+                                     self._tensor("lm_head_s"),
+                                     self.compute_dtype)
+        return self._tensor("lm_head")
+
+    def _vocab_bias(self) -> torch.Tensor | None:
+        return self._tensor("lm_head_b") if self._has("lm_head_b") else None
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + vocab projection: logits [..., V]."""
         out = self._final_norm(x) @ self._vocab_weight()
-        if "lm_head_b" in self.params:
-            out = out + self.params["lm_head_b"]
+        bias = self._vocab_bias()
+        if bias is not None:
+            out = out + bias
         return out
 
     def apply(self, tokens: torch.Tensor,
@@ -437,8 +535,8 @@ class DecoderLM(nn.Module):
         S_max, H_kv, D] zeros on the model's device, and ``"index"``, the
         tokens cached so far (a host int: the decode loop is eager)."""
         c = self.config
-        dt = dtype or next(iter(self.params.values())).dtype
-        dev = next(iter(self.params.values())).device
+        dt = dtype or self.compute_dtype
+        dev = self._tensor("embed/tokens").device
         shape = (c.num_layers, batch_size, max_len, c.num_kv_heads,
                  c.head_dim)
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
@@ -529,8 +627,7 @@ class DecoderLM(nn.Module):
         c = self.config
         x = self._final_norm(self.final_hidden(tokens))
         w = self._vocab_weight()
-        bias = self.params["lm_head_b"] if "lm_head_b" in self.params \
-            else None
+        bias = self._vocab_bias()
         s = x.shape[1]
         chunk = min(c.loss_chunk, s)
         if s % chunk != 0:

@@ -1,6 +1,6 @@
 """Block quantization (counterpart of
-``deepspeed_tpu/ops/pallas/quantization.py``): the ZeRO++ wire half and
-the KV-pool half.
+``deepspeed_tpu/ops/pallas/quantization.py``): the ZeRO++ wire half, the
+KV-pool half, and the weight-only int8 serving half.
 
 **The wire** (:21-120, :257-312): symmetric int8 over 512-element blocks
 with one fp32 scale a block, the primitive that brackets ZeRO++'s
@@ -25,11 +25,25 @@ JAX package; the dequantize multiply also runs in-register inside the
 paged-attention kernel (``csrc/paged_attention.cu``) on its pool tiles. On
 identical fp32 inputs they give the JAX functions' codes and scales bit
 for bit.
+
+**Weight-only int8 serving** (JAX ``linear/quantization.py``
+``quantize_dense_params`` :140, ``dequantize_dense`` :176, and
+``models/transformer.py`` ``_maybe_dequant`` :133): every eligible float
+leaf of a DecoderLM's flat parameters (``layers/wq``) becomes
+``layers/wq_q`` (int8) + ``layers/wq_s`` (one scale per output channel
+over the contraction axis, -2); the embedding is never quantized. The JAX
+function runs each leaf under ``jax.jit``, where XLA compiles ``amax /
+127.0`` as ``amax`` times fl(1/127); the port computes the same product.
+``DecoderLM`` dequantizes one layer at a time with
+:func:`dequantize_dense` (torch ops: JAX leaves this to XLA's fusion and
+has no kernel for it), so at most one layer's float weights exist.
+``linear/quantization.py`` exports these functions as JAX's does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -39,7 +53,9 @@ from . import op_builder
 
 QBLOCK = 512  # elements per quantization block
 # XLA compiles the Pallas kernel's amax / 127.0 (a division by a constant)
-# as amax times the constant's fp32 reciprocal; the port does the same
+# as amax times the constant's fp32 reciprocal; the port does the same on
+# the wire. ``exact=True`` divides instead, as the JAX package's eager
+# ``linear.quantize_param`` does for LoRA's frozen base.
 INV_QMAX = float(np.float32(1) / np.float32(127))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the quantize kernel's variants (the C entry's ds_quantize_int8_variant)
@@ -80,13 +96,17 @@ def stochastic_round(y: torch.Tensor, generator: torch.Generator | None = None,
 
 
 def _quantize_rows_plain(rows: torch.Tensor, rounding: str = "nearest",
-                         generator=None):
+                         generator=None, exact: bool = False):
     """Plain PyTorch version of the quantize kernel: each row of ``rows``
     ``[R, L]`` zero-padded to a block multiple on its own ->
-    (codes int8 ``[R * nb, QBLOCK]``, scales fp32 ``[R * nb, 1]``)."""
+    (codes int8 ``[R * nb, QBLOCK]``, scales fp32 ``[R * nb, 1]``); the
+    scale is ``amax * INV_QMAX``, or with ``exact`` ``amax / 127``."""
     blocks = _to_blocks(rows)
     amax = blocks.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax * INV_QMAX, min=1e-12)
+    # a 0-d tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal
+    scale = torch.clamp(amax / amax.new_full((), 127.0) if exact
+                        else amax * INV_QMAX, min=1e-12)
     y = blocks / scale
     rounded = (stochastic_round(y, generator) if rounding == "stochastic"
                else torch.round(y))
@@ -123,16 +143,19 @@ def _check(what: str, cond: bool, message: str) -> None:
         raise ValueError(f"{what}: {message}")
 
 
-def quantize_int8_kernel(rows: torch.Tensor):
+def quantize_int8_kernel(rows: torch.Tensor, exact: bool = False):
     """Launch ``csrc/quantize_int8.cu``'s quantize on ``rows`` ``[R, L]``,
     a contiguous fp32/bf16/fp16 CUDA tensor, read in place: each row cut
     into ceil(L / 512) blocks, its tail zero-padded in registers. Returns
-    (codes int8 ``[R * nb, QBLOCK]``, scales fp32 ``[R * nb, 1]``).
-    Port of the Pallas kernel at ``deepspeed_tpu/ops/pallas/
-    quantization.py:57``; :func:`quantize_plan` picks the variant from
-    the shapes and the input's alignment. ``quantize_int8_kernel.launches``
-    counts the launches, ``.variant_launches`` them by variant and
-    ``.variant`` names the last call's."""
+    (codes int8 ``[R * nb, QBLOCK]``, scales fp32 ``[R * nb, 1]``); with
+    ``exact`` the scale is the quotient ``amax / 127`` (LoRA's frozen
+    base), else the wire's ``amax * INV_QMAX``. Port of the Pallas kernel
+    at ``deepspeed_tpu/ops/pallas/quantization.py:57``;
+    :func:`quantize_plan` picks the variant from the shapes and the
+    input's alignment. ``quantize_int8_kernel.launches`` counts the
+    launches, ``.variant_launches`` them by variant, ``.exact_launches``
+    those in the exact-division mode, and ``.variant`` names the last
+    call's."""
     what = "quantize_int8_kernel"
     _check(what, rows.device.type == "cuda",
            f"unsupported device {rows.device}")
@@ -145,15 +168,16 @@ def quantize_int8_kernel(rows: torch.Tensor):
     s = torch.empty((nb, 1), dtype=torch.float32, device=rows.device)
     if nb == 0:
         return q, s
-    lib, fn = _quant_fn("ds_quantize_int8", [
+    lib, fn = _quant_fn("ds_quantize_int8_mode", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     err = fn(rows.data_ptr(), _DTYPE_CODES[rows.dtype], q.data_ptr(),
-             s.data_ptr(), r, length,
+             s.data_ptr(), r, length, int(exact),
              torch.cuda.current_stream(rows.device).cuda_stream)
     _launched(lib, err, "quantize_int8")
     variant = quantize_plan(length, rows.data_ptr() % 16 == 0)
     quantize_int8_kernel.launches += 1
+    quantize_int8_kernel.exact_launches += int(exact)
     quantize_int8_kernel.variant = variant
     by_variant = quantize_int8_kernel.variant_launches
     by_variant[variant] = by_variant.get(variant, 0) + 1
@@ -161,6 +185,7 @@ def quantize_int8_kernel(rows: torch.Tensor):
 
 
 quantize_int8_kernel.launches = 0
+quantize_int8_kernel.exact_launches = 0
 quantize_int8_kernel.variant = None
 quantize_int8_kernel.variant_launches = {}
 
@@ -205,21 +230,23 @@ def _use_kernel(use_kernel, x: torch.Tensor) -> bool:
 
 
 def quantize_rows(rows: torch.Tensor, use_kernel: bool | None = None,
-                  rounding: str = "nearest", generator=None):
+                  rounding: str = "nearest", generator=None,
+                  exact: bool = False):
     """Block-quantize each row of ``rows`` ``[R, L]`` on its own (tail
     blocks zero-padded) -> (codes ``[R * nb, QBLOCK]``, scales
     ``[R * nb, 1]``). Nearest rounding takes the kernel per
     ``use_kernel``; ``rounding="stochastic"`` (needs ``generator``) is
-    torch ops, as in the JAX package."""
+    torch ops, as in the JAX package. ``exact`` takes the scale as the
+    quotient ``amax / 127`` (see :data:`INV_QMAX`)."""
     if rounding == "stochastic":
         if generator is None:
             raise ValueError("stochastic rounding needs a torch.Generator")
-        return _quantize_rows_plain(rows, rounding, generator)
+        return _quantize_rows_plain(rows, rounding, generator, exact)
     if rounding != "nearest":
         raise ValueError(f"rounding {rounding!r}: 'nearest' or 'stochastic'")
     if _use_kernel(use_kernel, rows):
-        return quantize_int8_kernel(rows.contiguous())
-    return _quantize_rows_plain(rows)
+        return quantize_int8_kernel(rows.contiguous(), exact)
+    return _quantize_rows_plain(rows, exact=exact)
 
 
 def dequantize_rows(q, s, rows: int, row_len: int,
@@ -233,15 +260,18 @@ def dequantize_rows(q, s, rows: int, row_len: int,
 
 
 def quantize_int8(x: torch.Tensor, use_kernel: bool | None = None,
-                  rounding: str = "nearest", generator=None):
+                  rounding: str = "nearest", generator=None,
+                  exact: bool = False):
     """-> (q int8 ``[nblocks, QBLOCK]``, scales fp32 ``[nblocks, 1]``,
     meta): the flat tensor zero-padded to ``[nblocks, 512]``, per block
-    ``scale = max(amax * INV_QMAX, 1e-12)`` and ``q = clip(round(x /
-    scale), -127, 127)``. ``use_kernel`` is the counterpart of the JAX
-    ``use_pallas``: None takes the kernel for CUDA tensors and the plain
-    version for CPU tensors. ``rounding="stochastic"`` (with a
-    ``generator``) rounds ``floor(y + u)`` with torch ops."""
-    q, s = quantize_rows(x.reshape(1, -1), use_kernel, rounding, generator)
+    ``scale = max(amax * INV_QMAX, 1e-12)`` (with ``exact``: ``amax /
+    127``) and ``q = clip(round(x / scale), -127, 127)``. ``use_kernel``
+    is the counterpart of the JAX ``use_pallas``: None takes the kernel
+    for CUDA tensors and the plain version for CPU tensors.
+    ``rounding="stochastic"`` (with a ``generator``) rounds ``floor(y +
+    u)`` with torch ops."""
+    q, s = quantize_rows(x.reshape(1, -1), use_kernel, rounding, generator,
+                         exact)
     return q, s, (x.shape, x.dtype, x.numel())
 
 
@@ -334,3 +364,92 @@ def kv_bytes_per_token(num_kv_heads: int, head_dim: int, kv_dtype: str,
         hs = scale_heads or num_kv_heads
         return 2.0 * (elems * 1 + hs * 4)
     raise ValueError(f"unknown kv dtype {kv_dtype!r}")
+
+
+# ---------------------------------------------------------------------
+# Weight-only int8 serving over the port's flat parameter names.
+
+
+def quantizable_leaf(shape, ndim: int, path: tuple,
+                     min_size: int = 1 << 16) -> bool:
+    """The eligibility predicate of weight-only int8 leaves (JAX
+    ``quantizable_leaf``): layer-stacked matrices (ndim >= 3; a per-layer
+    [L, d] norm or bias vector is never scaled over the layer axis) or
+    top-level 2-D matrices (lm_head), matrix-like trailing dims, and big
+    enough to be worth scales. ``path`` is the leaf's parent names."""
+    return ((ndim >= 3 or (ndim == 2 and "layers" not in path))
+            and min(shape[-2], shape[-1]) >= 8
+            and math.prod(shape) >= min_size)
+
+
+def quantizes(name: str, leaf, min_size: int = 1 << 16) -> bool:
+    """Whether :func:`quantize_dense_params` quantizes the flat leaf
+    ``name`` (``"layers/wq"``): a float matrix under :func:`
+    quantizable_leaf`, never under ``embed/``."""
+    *path, _ = name.split("/")
+    if path[:1] == ["embed"] or leaf.dim() < 2 \
+            or not leaf.dtype.is_floating_point:
+        return False
+    return quantizable_leaf(tuple(leaf.shape), leaf.dim(), tuple(path),
+                            min_size)
+
+
+@torch.no_grad()
+def quantize_dense_leaf(w: torch.Tensor, scale_dtype=torch.bfloat16):
+    """One leaf's (int8 codes, scales over axis -2 in ``scale_dtype``): the
+    JAX ``_q_leaf`` as XLA compiles it (``amax * fl(1/127)``, then
+    ``round(w / s)``), a layer of a stacked leaf at a time so that the
+    fp32 temporaries stay one layer's."""
+    if w.dim() > 2:
+        parts = [quantize_dense_leaf(w[i], scale_dtype)
+                 for i in range(w.shape[0])]
+        return (torch.stack([q for q, _ in parts]),
+                torch.stack([s for _, s in parts]))
+    w32 = w.float()
+    s = torch.clamp(w32.abs().amax(dim=-2, keepdim=True) * INV_QMAX,
+                    min=1e-12)
+    q = torch.round(w32 / s).to(torch.int8)
+    return q, s.to(scale_dtype)
+
+
+def quantize_dense_params(params: dict, min_size: int = 1 << 16,
+                          scale_dtype=torch.bfloat16) -> dict:
+    """Weight-only int8 over flat DecoderLM parameters: every eligible
+    float leaf (:func:`quantizes`) becomes ``name_q`` (int8) + ``name_s``
+    (per-output-channel scale in ``scale_dtype``); the rest pass as they
+    are. Leaf by leaf, on each leaf's device."""
+    out = {}
+    for name, leaf in params.items():
+        if isinstance(leaf, torch.Tensor) and quantizes(name, leaf, min_size):
+            out[name + "_q"], out[name + "_s"] = quantize_dense_leaf(
+                leaf, scale_dtype)
+        else:
+            out[name] = leaf
+    return out
+
+
+def dequantize_weight(q: torch.Tensor, s: torch.Tensor, dtype
+                      ) -> torch.Tensor:
+    """JAX's ``q.astype(dtype) * s.astype(dtype)`` in one pass: the int8
+    codes times the scales in ``dtype`` promote to ``dtype``, and PyTorch
+    forms the product in fp32 and rounds it once. A code is exact in
+    ``dtype`` and the fp32 product of the two exact, so the bits are the
+    two-step result's, at 1 byte read and 2 written an element instead
+    of 5 and 4."""
+    return q * s.to(dtype)
+
+
+def dequantize_dense(tree: dict, dtype) -> dict:
+    """Dequantize one level of :func:`quantize_dense_params` (a layer's
+    parameters, or the top level for the head): ``name_q`` times
+    ``name_s`` in ``dtype`` (:func:`dequantize_weight`) in place of each
+    pair, the rest as they are."""
+    if not any(k.endswith("_q") for k in tree):
+        return tree
+    out = {k: v for k, v in tree.items()
+           if not (k.endswith("_q") or k.endswith("_s"))}
+    for k in tree:
+        if k.endswith("_q"):
+            out[k[:-2]] = dequantize_weight(tree[k], tree[k[:-2] + "_s"],
+                                            dtype)
+    return out

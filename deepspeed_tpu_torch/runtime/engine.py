@@ -21,6 +21,12 @@ applies the same update. The engine runs eagerly on the model's device
 and reads nothing back to the host except every ``steps_per_print``
 steps, where the JAX engine also waits for the loss.
 
+A ``linear.LoRAModel`` trains the same way: its ``params`` are the
+adapters, so the master, the grads and the optimizer state hold them
+alone, and the frozen base (int8 codes or float leaves) stays on the
+device beside them, read a layer at a time by the forward. It runs on one
+rank.
+
 State layout: the fp32 master, the grads and the optimizer's moments are
 each one flat buffer with a view per parameter (offsets aligned to 64
 elements), and in mixed precision the model's parameters become views of
@@ -103,10 +109,11 @@ class DeepSpeedEngine:
             raise ValueError("deepspeed_tpu_torch.initialize requires a model")
         if not (hasattr(model, "loss") and hasattr(model, "params")):
             raise NotImplementedError(
-                f"the engine trains the port's DecoderLM family; "
-                f"{type(model).__name__} is not one: model adapters and "
+                f"the engine trains the port's DecoderLM family and its "
+                f"LoRA adapters (linear.LoRAModel); {type(model).__name__} "
+                f"is neither: model adapters (models/adapters.py) and "
                 f"PipelineModule are not ported yet (ROADMAP: port Queue 1, "
-                f"Slice C (models/adapters.py), Slice D (runtime/pipe/))")
+                f"Slice C item 9d, Slice D (runtime/pipe/))")
         if mpu is not None or mesh_param is not None:
             raise NotImplementedError(
                 "mpu/mesh_param are not ported yet (ROADMAP: port Queue 1, "
@@ -123,6 +130,11 @@ class DeepSpeedEngine:
             comm.get_world_size(self.group))
         self.dp_world = self.topology.data_parallel_size
         self.dp_rank = comm.get_rank(self.group)
+        if hasattr(model, "frozen") and self.dp_world > 1:
+            raise NotImplementedError(
+                "a LoRAModel across ranks: JAX shards its frozen base over "
+                "fsdp (place_frozen), the port holds it whole on one card "
+                "(ROADMAP Slice D item 11)")
         self.zero = ZeroPlan(self.config.zero_optimization)
         self.zero_stage = self.zero.stage
         (self.train_batch_size_, self.micro_batch_size_,

@@ -2213,3 +2213,193 @@ def test_prefill_engine_handoff_on_the_card_matches_colocated(cuda):
     assert m["prefill_handoffs"] == 3 and m["replicas"]["replica0"][
         "imports"] == 3
     assert pre.free_blocks == dec.free_blocks == FUSED_CFG["num_kv_blocks"]
+
+
+# ------------------------------- linear/: weight-only int8 and LoRA
+@pytest.mark.parametrize("case", list(QUANT_VARIANT_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_quantize_int8_exact_mode_matches_plain_bit_for_bit(cuda, dtype,
+                                                            case):
+    """The exact-division mode (scale = amax / 127, LoRA's frozen base) of
+    each quantize variant against the plain version bit for bit, on the
+    card and on the CPU; counted as exact; the wire's mode on the same
+    input stays the reciprocal product (a block whose absmax makes the
+    two differ is planted)."""
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    rows, row_len, offset, want = QUANT_VARIANT_CASES[case]
+    g = torch.Generator().manual_seed(rows * row_len + offset + 1)
+    n = rows * row_len
+    flat = torch.randn(n + offset, generator=g) * torch.logspace(
+        -4, 3, 64)[torch.randint(0, 64, (n + offset,), generator=g)]
+    # the first block's absmax one where fl(amax / 127) != amax * fl(1 /
+    # 127), exact in every dtype (a 7-bit fraction times 2^14)
+    inv = np.float32(1) / np.float32(127)
+    c = next(np.float32(1 + i / 128) for i in range(128)
+             if np.float32(1 + i / 128) / np.float32(127)
+             != np.float32(1 + i / 128) * inv)
+    flat[offset] = float(c) * 2.0 ** 14
+    x = flat.to(dtype)[offset:].view(rows, row_len)
+    xc = flat.to(cuda, dtype)[offset:].view(rows, row_len)
+    exact = TQ.quantize_int8_kernel.exact_launches
+    q, s = TQ.quantize_rows(xc, exact=True)
+    assert TQ.quantize_int8_kernel.variant == want
+    assert TQ.quantize_int8_kernel.exact_launches == exact + 1
+    pq, ps = TQ.quantize_rows(xc, use_kernel=False, exact=True)
+    cq, cs = TQ.quantize_rows(x, exact=True)
+    torch.cuda.synchronize()
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
+    wq, ws = TQ.quantize_rows(xc)
+    assert torch.equal(ws.cpu(), TQ.quantize_rows(x)[1])
+    assert float(ws[0, 0]) != float(s[0, 0])
+
+
+def test_quantize_param_on_the_card_launches_the_kernels(cuda):
+    """quantize_param's default config on a CUDA tensor: one exact-mode
+    quantize launch, codes and scales equal to the CPU's (the JAX eager
+    quotient); dequantized() and a layer's dequantize_range one dequantize
+    launch each, equal to the CPU's; 4 bits stays torch ops (no launch),
+    equal to the CPU's; a dtype the kernel does not take raises."""
+    from deepspeed_tpu_torch.linear import QuantizationConfig, quantize_param
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    w = torch.randn(3, 64, 96, generator=torch.Generator().manual_seed(5))
+    counts = (TQ.quantize_int8_kernel.launches,
+              TQ.quantize_int8_kernel.exact_launches,
+              TQ.dequantize_int8_kernel.launches)
+    qp = quantize_param(w.to(cuda))
+    ref = quantize_param(w)
+    assert torch.equal(qp.codes.cpu(), ref.codes)
+    assert torch.equal(qp.scales.cpu(), ref.scales)
+    assert torch.equal(qp.dequantized().cpu(), ref.dequantized())
+    per = 64 * 96
+    assert torch.equal(qp.dequantize_range(per, 2 * per).cpu(),
+                       ref.dequantize_range(per, 2 * per))
+    assert (TQ.quantize_int8_kernel.launches - counts[0],
+            TQ.quantize_int8_kernel.exact_launches - counts[1],
+            TQ.dequantize_int8_kernel.launches - counts[2]) == (1, 1, 2)
+    q4 = quantize_param(w.to(cuda), QuantizationConfig(q_bits=4))
+    assert TQ.quantize_int8_kernel.launches - counts[0] == 1
+    assert torch.equal(q4.dequantized().cpu(), quantize_param(
+        w, QuantizationConfig(q_bits=4)).dequantized())
+    with pytest.raises(ValueError, match="dtype"):
+        quantize_param(w.to(cuda, torch.float64))
+
+
+INT8_MODEL = dict(hidden_size=256, num_heads=4, num_kv_heads=2,
+                  intermediate_size=512)
+
+
+def test_int8_engine_on_the_card_matches_the_cpu_and_its_graphs(cuda):
+    """Weight-only int8 (quantize_weights) in fp32: the card's engine on
+    the CPU engine's float weights quantizes them to the same codes and
+    scales, generate() and generate_fused (captured graphs, each layer's
+    dequant inside them, its temporaries from the graph's pool) give the
+    CPU's tokens; one captured dispatch against the same ticks run
+    eagerly, bit for bit."""
+    cfg = dict(FUSED_CFG, quantize_weights=True)
+    tree = {n: p.detach().clone() for n, p in build_engine(
+        "llama", "tiny", dict(FUSED_CFG), device="cpu",
+        **INT8_MODEL).model.params.items()}
+    cpu = build_engine("llama", "tiny", cfg, params=tree, device="cpu",
+                       **INT8_MODEL)
+    gpu = build_engine("llama", "tiny", cfg, params=tree, device=cuda,
+                       **INT8_MODEL)
+    quantized = [n for n in cpu.model.params if n.endswith("_q")]
+    assert "layers/wq_q" in quantized and "lm_head_q" in quantized
+    for n, p in cpu.model.params.items():
+        assert torch.equal(gpu.model.params[n].cpu(), p), n
+    ref = cpu.generate(FUSED_PROMPTS, max_new_tokens=10)
+    assert gpu.generate(FUSED_PROMPTS, max_new_tokens=10) == ref
+    first = len(gpu.graph_captures)
+    assert gpu.generate_fused(FUSED_PROMPTS, max_new_tokens=10,
+                              k_steps=3) == ref
+    assert len(gpu.graph_captures) > first
+    assert all(g["pool_mib"] > 0 for g in gpu.graph_captures[first:])
+    uids = [0, 1]
+    _at_dispatch_state(gpu, uids, FUSED_PROMPTS[:2])
+    state = gpu._fused_operands(uids, 4, {0: 4, 1: 4}, 13)
+    ops0 = {n: t.clone() for n, t in state.operands().items()}
+    pools0 = {n: t.clone() for n, t in gpu.pools.items()}
+    fn = gpu._fused_fn(state, 4, 0.0, 0, 0.0, None)
+    toks_g, _ = fn().read()
+    logits_g = state.logits.clone()
+    for n, t in gpu.pools.items():
+        t.copy_(pools0[n])
+    for n, t in state.operands().items():
+        t.copy_(ops0[n])
+    gpu._fused_eager(state, 4, eos_id=None, temperature=0.0, top_k=0,
+                     top_p=0.0)
+    torch.cuda.synchronize()
+    assert (toks_g == state.out[:, :4].cpu().numpy()).all()
+    assert torch.equal(state.logits, logits_g)
+
+
+def test_lora_training_on_the_card_matches_the_cpu(cuda):
+    """LoRAModel over llama tiny (int8 base, segments remat, flash) in fp32
+    through initialize / train_batch: the card's run from the CPU's base
+    and adapters gives the CPU's losses (1e-5 relative) and adapters (1e-4
+    of their change); the steps launch the dequantize kernel 14 times a
+    layer (7 targets, forward and recomputed), no quantize; the frozen
+    codes unchanged."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.linear import (LoRAConfig, LoRAModel,
+                                            QuantizationConfig)
+    from deepspeed_tpu_torch.models import Llama
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    cfg = {"train_batch_size": 4, "optimizer": {
+        "type": "FusedAdam", "params": {"lr": 1e-3, "fused_kernel": True}},
+        "gradient_clipping": 1.0, "steps_per_print": 1000}
+    kw = dict(remat_policy="segments", attn_impl="flash")
+    cpu_model = LoRAModel(Llama(size="tiny", device="cpu", **kw),
+                          LoRAConfig(lora_r=8), QuantizationConfig())
+    frozen = {n: leaf.to(cuda) for n, leaf in cpu_model.frozen.items()}
+    adapters = {n: {k: v.detach().to(cuda) for k, v in ab.items()}
+                for n, ab in cpu_model.adapters().items()}
+    gpu_model = LoRAModel(Llama(size="tiny", device=cuda, **kw),
+                          LoRAConfig(lora_r=8), frozen=frozen,
+                          adapters=adapters)
+    engines = [ds.initialize(model=m, config=cfg)[0]
+               for m in (cpu_model, gpu_model)]
+    start = {n: t.clone() for n, t in
+             engines[0].master_state_dict().items()}
+    tok = torch.from_numpy(np.random.default_rng(3).integers(0, 512,
+                                                             (4, 65)))
+    before = TQ.dequantize_int8_kernel.launches
+    quant = TQ.quantize_int8_kernel.launches
+    for step in range(3):
+        batch = (tok[:, :-1], tok[:, 1:])
+        losses = [float(e.train_batch(batch)) for e in engines]
+        assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]), step
+    layers = gpu_model.config.num_layers
+    assert TQ.dequantize_int8_kernel.launches - before == 3 * 14 * layers
+    assert TQ.quantize_int8_kernel.launches == quant
+    cpu_p, gpu_p = (e.master_state_dict() for e in engines)
+    err = sum(float((gpu_p[n].cpu() - cpu_p[n]).pow(2).sum())
+              for n in cpu_p) ** 0.5
+    moved = sum(float((cpu_p[n] - start[n]).pow(2).sum())
+                for n in cpu_p) ** 0.5
+    assert err <= 1e-4 * moved, (err, moved)
+    for n, leaf in gpu_model.frozen.items():
+        if hasattr(leaf, "codes"):
+            assert torch.equal(leaf.codes.cpu(), cpu_model.frozen[n].codes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_dense_int8_on_the_card_matches_the_cpu(cuda, dtype):
+    """quantize_dense_params's leaf on the card: codes and scales equal to
+    the CPU's (the reciprocal-product scale, an IEEE quotient for the
+    codes); the one-pass dequant (int8 times the scale in the serving
+    dtype) bit-equal to the two-step product and to the CPU's."""
+    from deepspeed_tpu_torch.linear.quantization import (
+        dequantize_weight, quantize_dense_leaf)
+    w = torch.randn(2, 256, 384, generator=torch.Generator().manual_seed(8))
+    w = w * torch.logspace(-2, 1, 384)
+    q, s = quantize_dense_leaf(w.to(cuda), dtype)
+    cq, cs = quantize_dense_leaf(w, dtype)
+    assert torch.equal(q.cpu(), cq) and torch.equal(s.cpu(), cs)
+    got = dequantize_weight(q, s, dtype)
+    assert got.dtype == dtype
+    assert torch.equal(got, q.to(dtype) * s.to(dtype))
+    assert torch.equal(got.cpu(), dequantize_weight(cq, cs, dtype))

@@ -263,8 +263,9 @@ def test_auto_tp_rules_match_jax():
 def test_refusals_name_their_roadmap_items(tmp_path):
     model = tm.GPT2(size="tiny", device="cpu")
     cases = [(dict(tensor_parallel={"tp_size": 4}), "Slice D item 12"),
-             (dict(dtype="int8"), "linear/"),
-             (dict(quantize_weights=True), "linear/"),
+             (dict(dtype="int8"), "not a blanket cast; use "),
+             (dict(quantize_weights=True, tensor_parallel={"tp_size": 2}),
+              "single-replica serving path"),
              (dict(quantize_moe_experts=True), "MoE"),
              (dict(moe_grouped_dispatch=True), "MoE"),
              (dict(checkpoint=str(tmp_path)), "Slice E item 13")]
