@@ -175,7 +175,7 @@ Phases, each fatal on failure:
      off) on the card against the CPU, 3 steps: losses at 1e-4 relative,
      the first step's grads at 1e-4 of their largest, the params at 1e-3
      of their total change.
- 22. linear/, last: (a) phase 4's engine config with quantize_weights
+ 22. linear/: (a) phase 4's engine config with quantize_weights
      (Llama-3-8B, bf16, weight-only int8, a layer dequantized where it is
      read) serves phase 4's traffic through generate() and
      generate_fused (K 8, depth 2), phase 4's and phase 17's launch
@@ -199,6 +199,26 @@ Phases, each fatal on failure:
      tokens equal the CPU's. Phase 3 times the quantize in both modes
      and the dequantize at a layer of the LoRA path (a [4096, 14336]
      bf16 w_up slice).
+ 23. BERT: (a) initialize(Bert(size="large"): 24 layers, d 1024, 16
+     heads, vocab 30522; random seeded weights; phase 6's config) ->
+     train_batch on 64 x 128 tokens (15% MLM targets, rows 48-63 padded
+     from position 96), one warm-up step then 5 timed steps: tokens/s,
+     step ms, MFU over flops_per_token(128), peak memory, the losses
+     (finite and falling), the LayerNorm launches (2L + 2 a step, every
+     one warp_row) and fused Adam's; (b) BERT-large's widths at 2 layers
+     in fp32 on the card against the CPU (phase 21's bounds, every
+     tensor held) and the encoder layer pre-LN at BERT-large's width
+     (output and grads at 1e-4 of their largest);
+ 24. Hugging Face checkpoints: a Llama-3-8B directory (the published
+     config.json, depth cut to 8 layers, ~5.6 GB of bf16 safetensors in
+     shards of at most 2 GB with an index) written by the port's writer
+     from a seeded tree under build/; (a) build_hf_engine with phase 4's
+     engine config serves phase 4's traffic: every parameter bit-equal
+     to build_engine's from the tree, the tokens equal, phase 4's launch
+     checks; the load's seconds and GB/s, the host's peak RSS and the
+     device's build peak; (b) init_inference(path, bf16) against the v1
+     engine from the tree on 8 prompts of 256, 32 greedy tokens, equal;
+     the directory deleted.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
 RMSNorm/LayerNorm kernels against their plain versions and times them at
@@ -729,6 +749,13 @@ def quant_checks(dev, flush=None, iters=20):
 
 
 # ---------------------------------------------------------------- phase 4
+# the serving main path's engine config (phase 4; phases 16, 20, 22 and
+# 24 serve with it too)
+SERVING_CONFIG = {"dtype": "bfloat16", "kv_block_size": 64,
+                  "num_kv_blocks": 512, "max_chunk_size": 256,
+                  "max_ragged_sequence_count": 8}
+
+
 def serve(engine, prompts, max_new: int, dev):
     """generate() over prompts with each tick timed; returns outputs,
     wall seconds and per-tick (seconds, prefill tokens, decode rows, norm
@@ -780,8 +807,7 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
     under "outputs"."""
     import torch
     from deepspeed_tpu_torch.inference.v2 import build_engine, paged
-    cfg = {"dtype": dtype, "kv_block_size": 64, "num_kv_blocks": 512,
-           "max_chunk_size": 256, "max_ragged_sequence_count": 8}
+    cfg = dict(SERVING_CONFIG, dtype=dtype)
     cfg.update(engine_over or {})
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -793,13 +819,9 @@ def main_path(dev, size="3-8b", n_req=8, max_new=32, lengths=(100, 701),
                   if dev.type == "cuda" else None)
     log(f"[main] build_engine {family}-{size} {dtype}: {build_s:.1f} s")
     c = engine.model.config
-    rng = np.random.default_rng(1)
-    lens = rng.integers(lengths[0], lengths[1], n_req)
-    lens[0] = lengths[1] - 1              # at least one prompt chunks
-    if long_prompt:
-        lens = np.append(lens, long_prompt)
-        n_req += 1
-    prompts = [rng.integers(0, c.vocab_size, n).tolist() for n in lens]
+    lens, prompts = serving_prompts(c.vocab_size, n_req, lengths,
+                                    long_prompt)
+    n_req = len(prompts)
     serve(engine, [prompts[0][:16]], 2, dev)          # warm-up
     norms = norm_counter(c)
     paged.paged_attention_kernel.launches = 0
@@ -3182,29 +3204,39 @@ def train_family(dev, family, size, layers=None, rows=TRAIN_FAMILY_ROWS,
     return stats
 
 
+# phase 21's fp32 runs: flash attention and segment remat on the
+# families, and their batch (:func:`lm_batch_of`)
+FAMILY_FP32_MODEL = dict(remat_policy="segments", attn_impl="flash")
+
+
+def lm_batch_of(dev, vocab, rows, seq):
+    """Phase 21's fp32 batch: seeded tokens and their next tokens."""
+    return train_batch_of(dev, vocab, rows, seq, seed=7)
+
+
 def fp32_engine_run(dev, family, size, layers, rows, seq, steps, lr,
-                    init=None, over=None):
+                    init=None, over=None, model_kw=FAMILY_FP32_MODEL,
+                    batch_of=lm_batch_of):
     """One side of the fp32 check: initialize(<family> ``size`` cut to
-    ``layers``, ``over`` on its config, flash, segments) in fp32 on
+    ``layers``, ``model_kw`` and ``over`` on its config) in fp32 on
     ``dev`` with TRAIN_CONFIG at ``lr``, ``steps`` train_batch calls on
-    one seeded batch from ``init`` (the master's tensors; None: the
-    model's seeded draw). Returns the initial tensors, the losses, the
-    first step's grads and each tensor's change, on the CPU."""
+    ``batch_of(dev, vocab, rows, seq)`` from ``init`` (the master's
+    tensors; None: the model's seeded draw). Returns the initial tensors,
+    the losses, the first step's grads and each tensor's change, on the
+    CPU."""
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import get_model_class
     cfg = dict(TRAIN_CONFIG, train_batch_size=rows, bf16={"enabled": False},
                optimizer={"type": "FusedAdam", "params": dict(
                    TRAIN_CONFIG["optimizer"]["params"], lr=lr)})
     model = get_model_class(family)(size=size, num_layers=layers,
-                                    remat_policy="segments",
-                                    attn_impl="flash", device=dev,
-                                    **(over or {}))
+                                    device=dev, **{**model_kw, **(over or {})})
+    batch = batch_of(dev, model.config.vocab_size, rows, seq)
     engine, _, _, _ = ds.initialize(model=model, config=cfg,
                                     model_parameters=init)
     if init is None:
         init = {n: t.detach().cpu().clone() for n, t in
                 engine.master_state_dict().items()}
-    batch = train_batch_of(dev, model.config.vocab_size, rows, seq, seed=7)
     losses, grads = [], None
     for step in range(steps):
         losses.append(float(engine.train_batch(batch)))
@@ -3219,7 +3251,7 @@ def fp32_engine_run(dev, family, size, layers, rows, seq, steps, lr,
 
 def train_family_fp32(dev, family, size, layers=2, rows=2, seq=64,
                       steps=3, lr=1e-5, over=None, cpu=None,
-                      loose=SIGN_FLIP_TENSORS):
+                      loose=SIGN_FLIP_TENSORS, **run_kw):
     """Phase 21, fp32 (TF32 off): the family cut to ``layers`` (``over``
     on its config), the engine of :func:`train_family` in fp32 on the
     card (the kernels) against the same engine on the CPU (the plain
@@ -3230,12 +3262,15 @@ def train_family_fp32(dev, family, size, layers=2, rows=2, seq=64,
     norm of their total change: Adam amplifies sign flips of near-zero
     grads) and phase 7's for the first step's grads (1e-4 of their
     largest element). The params bound is over every tensor but
-    ``loose``, whose error is reported beside it."""
+    ``loose``, whose error is reported beside it. ``run_kw`` goes to
+    both runs (``model_kw``, ``batch_of``)."""
     import torch
     args = (family, size, layers, rows, seq, steps, lr)
     if cpu is None:
-        cpu = fp32_engine_run(torch.device("cpu"), *args, over=over)
-    card = fp32_engine_run(dev, *args, init=cpu["init"], over=over)
+        cpu = fp32_engine_run(torch.device("cpu"), *args, over=over,
+                              **run_kw)
+    card = fp32_engine_run(dev, *args, init=cpu["init"], over=over,
+                           **run_kw)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -3263,8 +3298,7 @@ def train_family_fp32(dev, family, size, layers=2, rows=2, seq=64,
     if (rec["loss_max_rel_err"] > 1e-4
             or rec["grad_max_err_rel_to_max"] > 1e-4
             or rec["params_err_rel_to_change_held"] > 1e-3):
-        raise AssertionError(f"phase 21 fp32 {family}-{size}, card vs cpu: "
-                             f"{rec}")
+        raise AssertionError(f"fp32 {family}-{size}, card vs cpu: {rec}")
     return rec
 
 
@@ -4016,6 +4050,547 @@ def linear_main(dev, bf16_stats, cpu_sides, **kw):
         dev, tree, cpu_sides["lora"])
     rec["seconds"] = time.perf_counter() - t0
     log(f"[linear] phase 22: {rec['seconds']:.1f} s")
+    return rec
+
+
+# ----------------------------------------------------------- phase 23
+# BERT (models/bert.py, ops/transformer.py) trained at full size: (a)
+# BERT-large at phase 1 of DeepSpeed's BERT-large pre-training (S 128,
+# micro-batch 64), 15% of positions as MLM targets, rows 48-63 padded
+# from position 96, with TRAIN_CONFIG (bf16, FusedAdam lr 1e-4 wd 0.01
+# with the fused kernel, ZeRO 2, clip 1.0; LAMB is not ported yet); (b)
+# the fp32 checks, the card against the CPU (TF32 off): BERT-large's
+# widths at 2 layers with phase 21's rows, lr and steps at S 128 and one
+# padded row, and the encoder layer pre-LN at BERT-large's width
+BERT_TRAIN = dict(size="large", rows=64, seq=128, steps=5, pad_rows=16,
+                  pad_from=96)
+BERT_FP32 = dict(layers=2, rows=2, seq=128, steps=3, lr=1e-5)
+BERT_LAYER_FP32 = dict(rows=4, seq=128)
+
+
+def mlm_batch_of(dev, vocab, rows, seq, pad_rows=0, pad_from=None, seed=5):
+    """(tokens, targets, attention_mask) on dev: random tokens, 15% of the
+    positions as MLM targets (-100 elsewhere), the last ``pad_rows`` rows
+    padded from ``pad_from`` (mask 0 and no targets there)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, vocab, (rows, seq))
+    tgt = np.where(rng.random((rows, seq)) < 0.15, tok, -100)
+    mask = np.ones((rows, seq), np.int64)
+    if pad_rows:
+        mask[rows - pad_rows:, pad_from:] = 0
+        tgt[rows - pad_rows:, pad_from:] = -100
+    return tuple(torch.from_numpy(a).to(dev) for a in (tok, tgt, mask))
+
+
+def bert_fp32_batch(dev, vocab, rows, seq):
+    """Phase 23b's batch: an MLM batch, its last row padded from 3/4 of
+    the sequence."""
+    return mlm_batch_of(dev, vocab, rows, seq, pad_rows=1,
+                        pad_from=seq * 3 // 4, seed=7)
+
+
+def bert_train_main(dev, size="large", rows=64, seq=128, steps=5,
+                    pad_rows=16, pad_from=96, profile=False):
+    """Phase 23a: initialize(Bert(``size``), random seeded weights,
+    TRAIN_CONFIG) -> train_batch on one fixed MLM batch, one warm-up step
+    then ``steps`` timed steps, the counts set to 0 just before them:
+    tokens/s, step ms, MFU over flops_per_token(seq) at 989 TFLOP/s, peak
+    memory, the losses (finite and falling), the LayerNorm launches a
+    step by variant (2L + 2 a step, no remat; every one warp_row at
+    bf16 d 1024) and fused Adam's (1 a step). ``profile``: then one more
+    step under torch.profiler (:func:`profile_window`)."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import Bert
+    from deepspeed_tpu_torch.ops import norms as N
+    from deepspeed_tpu_torch.ops.fused_optimizers import fused_adam_step
+    model = Bert(size=size, device=dev)
+    c = model.config
+    t = time.perf_counter()
+    engine, _, _, _ = ds.initialize(model=model, config=dict(
+        TRAIN_CONFIG, train_batch_size=rows))
+    init_s = time.perf_counter() - t
+    batch = mlm_batch_of(dev, c.vocab_size, rows, seq, pad_rows, pad_from)
+    engine.train_batch(batch)                                  # warm-up
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    norms = N.layer_norm_kernel
+    reset_norms(norms)
+    fused_adam_step.launches = 0
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        sync(dev)
+        step_s.append(time.perf_counter() - t)
+    norm_by_variant = check_norm_variants(norms, dev, "BERT training")
+    norm_launches, adam_launches = norms.launches, fused_adam_step.launches
+    losses = [float(x) for x in losses]
+    tok_s = rows * seq * steps / sum(step_s)
+    per_step = 2 * c.num_layers + 2
+    stats = dict(
+        model=f"bert-{size}", params=c.num_params(), layers=c.num_layers,
+        hidden=c.hidden_size, heads=c.num_heads, head_dim=c.head_dim,
+        vocab=c.vocab_size, batch=rows, seq=seq,
+        padded=f"rows {rows - pad_rows}-{rows - 1} from position "
+               f"{pad_from}", mlm_targets=int((batch[1] != -100).sum()),
+        steps=steps, initialize_s=init_s,
+        step_ms=1e3 * sum(step_s) / steps, step_ms_min=1e3 * min(step_s),
+        step_ms_max=1e3 * max(step_s), tokens_per_s=tok_s,
+        flops_per_token=c.flops_per_token(seq),
+        mfu=c.flops_per_token(seq) * tok_s / BF16_FLOPS,
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else None),
+        losses=losses, fused_adam_launches=adam_launches,
+        norm_launches=norm_launches, norm_launches_per_step=per_step,
+        norm_launches_by_variant=norm_by_variant)
+    if profile:
+        stats["profile"] = profile_window(
+            "bert_step", lambda: engine.train_batch(batch), 1)[1]
+    del engine, model, batch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[bert] {json.dumps(stats)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bert-{size} training losses not finite and "
+                             f"falling: {losses}")
+    if dev.type == "cuda" and (norm_launches != per_step * steps
+                               or set(norm_by_variant) != {"warp_row"}
+                               or adam_launches != steps):
+        raise AssertionError(
+            f"bert-{size} training launches: norms {norm_launches} "
+            f"{norm_by_variant} (want {per_step * steps}, every one "
+            f"warp_row), Adam {stats['fused_adam_launches']} (want "
+            f"{steps})")
+    return stats
+
+
+def bert_layer_fp32(dev, rows=4, seq=128):
+    """Phase 23b: DeepSpeedTransformerLayer pre-LN at BERT-large's width
+    (d 1024, 16 heads, FFN 4096) in fp32 with TF32 off, the card against
+    the CPU from the same weights and inputs, the last row padded from
+    3/4 of the sequence, no dropout (no generator): the output and the
+    grads of the twelve parameters and of the input within 1e-4 of each
+    tensor's largest element (phase 7's grads bound); 2 LayerNorm
+    launches a forward."""
+    import torch
+    from deepspeed_tpu_torch.ops import norms as N
+    from deepspeed_tpu_torch.ops.transformer import (
+        DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
+    cfg = DeepSpeedTransformerConfig(
+        hidden_size=1024, intermediate_size=4096, heads=16,
+        num_hidden_layers=24, pre_layer_norm=True)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((rows, seq, 1024)).astype(np.float32)
+    cot = rng.standard_normal((rows, seq, 1024)).astype(np.float32)
+    mask = np.zeros((rows, 1, 1, seq), np.float32)
+    mask[-1, ..., seq * 3 // 4:] = -1e30
+    runs = {}
+    cpu_layer = DeepSpeedTransformerLayer(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    before = N.layer_norm_kernel.launches
+    for where in ("cpu", "card"):
+        d = torch.device("cpu") if where == "cpu" else dev
+        layer = (cpu_layer if where == "cpu" else
+                 DeepSpeedTransformerLayer(cfg, device=d))
+        if where == "card":
+            layer.load_state_dict(cpu_layer.state_dict())
+        xt = torch.from_numpy(x).to(d).requires_grad_()
+        out = layer(xt, torch.from_numpy(mask).to(d))
+        (out * torch.from_numpy(cot).to(d)).sum().backward()
+        runs[where] = {"output": out.detach().cpu(), "input": xt.grad.cpu(),
+                       **{n: p.grad.cpu() for n, p in layer.params.items()}}
+        del layer, xt, out
+    errs = {n: float((runs["card"][n] - ref).abs().max()
+                     / ref.abs().max()) for n, ref in runs["cpu"].items()}
+    launches = N.layer_norm_kernel.launches - before
+    rec = dict(shape=f"B={rows} S={seq} d=1024 H=16 FFN=4096 pre-LN fp32",
+               max_err_rel_to_max=max(errs.values()),
+               err_rel_to_max=errs, norm_launches=launches)
+    log(f"[bert] layer fp32 card vs cpu {json.dumps(rec)}")
+    if rec["max_err_rel_to_max"] > 1e-4 or (dev.type == "cuda"
+                                            and launches != 2):
+        raise AssertionError(f"phase 23b layer, card vs cpu: {rec}")
+    return rec
+
+
+def bert_main(dev, train=BERT_TRAIN, fp32=BERT_FP32, layer=BERT_LAYER_FP32,
+              profile=False):
+    """Phase 23: (a) :func:`bert_train_main` (``profile``: its step
+    traced); (b) :func:`train_family_fp32` on BERT at ``fp32``'s depth
+    (every tensor under the params bound) and :func:`bert_layer_fp32`."""
+    t0 = time.perf_counter()
+    rec = {"train": bert_train_main(dev, profile=profile, **train)}
+    rec["fp32_card_vs_cpu"] = train_family_fp32(
+        dev, "bert", train["size"], loose=(), model_kw={},
+        batch_of=bert_fp32_batch, **fp32)
+    rec["layer_fp32_card_vs_cpu"] = bert_layer_fp32(dev, **layer)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[bert] phase 23: {rec['seconds']:.1f} s")
+    return rec
+
+
+# ----------------------------------------------------------- phase 24
+# Hugging Face checkpoints served: a Llama-3-8B checkpoint directory with
+# the published config.json fields, depth cut to HF_LAYERS (for disk and
+# time: ~5.6 GB), bf16 safetensors shards of at most HF_SHARD_BYTES with
+# an index, written by the port's own writer from a seeded JAX-layout
+# tree (the card's machine has no safetensors package), then (a)
+# build_hf_engine with phase 4's engine config and traffic against
+# build_engine from the tree; (b) init_inference(path) with phase 20e's
+# v1 traffic against the v1 engine from the tree
+HF_LAYERS = 8
+HF_SHARD_BYTES = 2 * 10**9
+HF_DIR = os.path.join(os.path.dirname(os.path.realpath(__file__)), "build",
+                      "hf_llama3_8b")     # in the checkout, as op_builder's
+LLAMA3_8B_HF = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+                "hidden_size": 4096, "intermediate_size": 14336,
+                "num_attention_heads": 32, "num_key_value_heads": 8,
+                "vocab_size": 128256, "rope_theta": 500000.0,
+                "rms_norm_eps": 1e-5, "max_position_embeddings": 8192,
+                "tie_word_embeddings": False, "hidden_act": "silu",
+                "torch_dtype": "bfloat16", "bos_token_id": 128000,
+                "eos_token_id": 128001}
+HF_LLAMA_LAYER = {"ln1_scale": "input_layernorm.weight",
+                  "wq": "self_attn.q_proj.weight",
+                  "wk": "self_attn.k_proj.weight",
+                  "wv": "self_attn.v_proj.weight",
+                  "wo": "self_attn.o_proj.weight",
+                  "ln2_scale": "post_attention_layernorm.weight",
+                  "w_gate": "mlp.gate_proj.weight",
+                  "w_up": "mlp.up_proj.weight",
+                  "w_down": "mlp.down_proj.weight"}
+
+
+def llama_tree(dev, layers, seed=17) -> dict:
+    """A seeded Llama-3-8B tree cut to ``layers``, flat name -> bf16 tensor
+    on ``dev`` (the model's init scheme, drawn in fp32 leaf by leaf)."""
+    import torch
+    from deepspeed_tpu_torch.models import Llama
+    from deepspeed_tpu_torch.models.transformer import deferred_weights
+    with deferred_weights():
+        model = Llama(size="3-8b", num_layers=layers, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {name: model.draw(name, gen).to(torch.bfloat16)
+            for name in model._init_spec}
+
+
+def hf_llama_tensors(tree: dict, layers: int) -> list:
+    """(HF name, function giving the tensor) for a Llama tree, in the HF
+    checkpoint's order: the [in, out] leaves transposed back to
+    nn.Linear's [out, in]."""
+    def get(name, i=None):
+        t = tree[name] if i is None else tree[name][i]
+        return t.T if t.ndim == 2 else t
+
+    items = [("model.embed_tokens.weight",
+              lambda: tree["embed/tokens"])]
+    for i in range(layers):
+        for ours, hf in HF_LLAMA_LAYER.items():
+            items.append((f"model.layers.{i}.{hf}",
+                          lambda ours=ours, i=i: get("layers/" + ours, i)))
+    items += [("model.norm.weight", lambda: tree["final_norm/scale"]),
+              ("lm_head.weight", lambda: get("lm_head"))]
+    return items
+
+
+def write_hf_checkpoint(path: str, tree: dict, layers: int,
+                        shard_bytes=HF_SHARD_BYTES) -> dict:
+    """config.json (LLAMA3_8B_HF at ``layers``), the shards
+    (model-0000k-of-0000n.safetensors, each at most ``shard_bytes``,
+    written one at a time from the card) and
+    model.safetensors.index.json."""
+    from deepspeed_tpu_torch.checkpoint.huggingface import save_safetensors
+    t = time.perf_counter()
+    items = hf_llama_tensors(tree, layers)
+    shards, cur, size = [], [], 0
+    for name, fn in items:
+        n = fn().numel() * fn().element_size()
+        if cur and size + n > shard_bytes:
+            shards.append(cur)
+            cur, size = [], 0
+        cur.append((name, fn))
+        size += n
+    shards.append(cur)
+    weight_map, total = {}, 0
+    for k, shard in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        tensors = {name: fn().contiguous().cpu() for name, fn in shard}
+        total += save_safetensors(tensors, os.path.join(path, fname))
+        weight_map.update({name: fname for name in tensors})
+        del tensors
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(LLAMA3_8B_HF, num_hidden_layers=layers), f)
+    return dict(bytes=total, shards=len(shards), tensors=len(weight_map),
+                seconds=time.perf_counter() - t)
+
+
+class RssPeak:
+    """The process's peak resident set size over a ``with`` block, read
+    from /proc/self/status every 2 ms on a thread."""
+
+    def __enter__(self):
+        import threading
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, self._rss())
+
+    def _poll(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def serving_prompts(vocab, n_req=8, lengths=(100, 701), long_prompt=None):
+    """Phase 4's prompts: ``n_req`` of seeded lengths in ``lengths`` (the
+    first the longest, so it chunks), and a ``long_prompt`` of that many
+    tokens beside them where given. Returns (lengths, prompts)."""
+    rng = np.random.default_rng(1)
+    lens = rng.integers(lengths[0], lengths[1], n_req)
+    lens[0] = lengths[1] - 1              # at least one prompt chunks
+    if long_prompt:
+        lens = np.append(lens, long_prompt)
+    return lens, [rng.integers(0, vocab, n).tolist() for n in lens]
+
+
+def params_bit_equal(a, b) -> bool:
+    """Two parameter mappings hold the same names, dtypes and bits."""
+    import torch
+    return set(a.keys()) == set(b.keys()) and all(
+        a[n].dtype == b[n].dtype and torch.equal(a[n], b[n])
+        for n in a.keys())
+
+
+def hf_v2_check(dev, path, tree, layers=HF_LAYERS, max_new=32,
+                engine_over=None, **prompt_kw):
+    """Phase 24a: build_hf_engine(``path``, phase 4's engine config) timed
+    (seconds, GB/s over the weights' bytes, the host's peak RSS over the
+    load and the device's peak over what was allocated before it; the
+    same load with the mappers on the host, :func:`hf_engine_host_mapped`,
+    timed after it as a yardstick) against build_engine("llama", "3-8b",
+    num_layers=``layers``, params=``tree``): every parameter of both
+    bit-equal; phase 4's requests x
+    ``max_new`` greedy tokens equal, with phase 4's launch checks on the
+    HF engine (every paged launch prefill_wgmma or decode_split, L a
+    dispatch; every norm cta_row, 2L + 1 a dispatch)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import build_engine, build_hf_engine
+    cfg = dict(SERVING_CONFIG, **(engine_over or {}))
+    ref = build_engine("llama", "3-8b", dict(cfg), params=tree, device=dev,
+                       num_layers=layers)
+    sync(dev)
+    resident = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        t = time.perf_counter()
+        eng = build_hf_engine(path, dict(cfg), device=dev)
+        sync(dev)
+        load_s = time.perf_counter() - t
+    nbytes = weight_bytes(eng.model.params)
+    build_peak = ((torch.cuda.max_memory_allocated() - resident) / 2**30
+                  if dev.type == "cuda" else None)
+    equal = params_bit_equal(eng.model.params, ref.model.params)
+    with RssPeak() as host_rss:        # the yardstick: mapped on the host
+        t = time.perf_counter()
+        host = hf_engine_host_mapped(path, cfg, dev)
+        sync(dev)
+        host_s = time.perf_counter() - t
+    host_equal = params_bit_equal(host.model.params, ref.model.params)
+    release_engine(host, dev)
+    del host
+    c = eng.model.config
+    _, prompts = serving_prompts(c.vocab_size, **prompt_kw)
+    serve(eng, [prompts[0][:16]], 2, dev)                      # warm-up
+    norms = reset_counts(c)
+    eng.serving_stats["host_dispatches"] = 0
+    outs, wall, _ = serve(eng, prompts, max_new, dev)
+    counts = read_counts(norms)
+    dispatches = eng.serving_stats["host_dispatches"]
+    ref_outs, _, _ = serve(ref, prompts, max_new, dev)
+    rec = dict(model=f"llama-3-8b cut to {layers} layers", dtype=cfg["dtype"],
+               load_s=load_s, weight_bytes=nbytes,
+               load_gb_per_s=nbytes / load_s / 1e9,   # the weights' bytes
+               host_peak_rss_gib=rss.peak / 2**30,
+               host_rss_added_gib=(rss.peak - rss.base) / 2**30,
+               device_build_peak_gib=build_peak,
+               device_resident_before_gib=resident / 2**30,
+               host_mapped_load_s=host_s,
+               host_mapped_load_gb_per_s=nbytes / host_s / 1e9,
+               host_mapped_rss_added_gib=(host_rss.peak - host_rss.base)
+               / 2**30, host_mapped_params_bit_equal=host_equal,
+               params_bit_equal=equal, requests=len(prompts),
+               new_tokens=max_new, generate_s=wall, dispatches=dispatches,
+               tokens_equal=outs == ref_outs,
+               greedy_agreement=agreement(outs, ref_outs), **counts)
+    for engine in (eng, ref):
+        release_engine(engine, dev)
+    del eng, ref
+    gc.collect()
+    log(f"[hf] build_hf_engine {json.dumps(rec)}")
+    if not (equal and host_equal) or not rec["tokens_equal"]:
+        raise AssertionError(f"phase 24a: the HF engine's parameters or "
+                             f"tokens differ from build_engine's: {rec}")
+    check_variants(counts["launches_by_variant"], counts["launches"], dev,
+                   "HF serving")
+    if dev.type == "cuda" and (
+            counts["launches"] != c.num_layers * dispatches
+            or counts["norm_launches"] != norms_per_forward(c) * dispatches
+            or set(counts["norm_launches_by_variant"]) != {"cta_row"}):
+        raise AssertionError(f"phase 24a launches: {counts}, dispatches "
+                             f"{dispatches}")
+    return rec
+
+
+def hf_engine_host_mapped(path, cfg, dev):
+    """build_hf_engine's engine, its mappers run on the host (the
+    checkpoint engine on the CPU: the transposes and stacks there, each
+    leaf then copied to the card)."""
+    from deepspeed_tpu_torch.checkpoint.huggingface import hf_model
+    from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2,
+                                                  RaggedInferenceEngineConfig)
+    ecfg = RaggedInferenceEngineConfig.from_dict(dict(cfg))
+    model, params = hf_model(path, dev, ecfg.torch_dtype, map_device="cpu")
+    return InferenceEngineV2(model, ecfg, params=params)
+
+
+def hf_from_pretrained_check(dev, path, tree):
+    """from_pretrained(``path``) on ``dev`` timed (seconds, GB/s over the
+    checkpoint's bf16 bytes, the host's added RSS and the device's peak
+    over what was allocated before it): the fp32 training model, every
+    parameter the tree's bf16 leaf widened, bit for bit."""
+    import torch
+    from deepspeed_tpu_torch.checkpoint import from_pretrained
+    sync(dev)
+    resident = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        t = time.perf_counter()
+        model, _ = from_pretrained(path, device=dev)
+        sync(dev)
+        load_s = time.perf_counter() - t
+    nbytes = weight_bytes(tree)
+    equal = (set(model.params.keys()) == set(tree)
+             and all(p.dtype == torch.float32
+                     and torch.equal(p, tree[n].float())
+                     for n, p in model.params.items()))
+    rec = dict(load_s=load_s, checkpoint_bytes=nbytes,
+               load_gb_per_s=nbytes / load_s / 1e9,
+               host_rss_added_gib=(rss.peak - rss.base) / 2**30,
+               device_build_peak_gib=(
+                   (torch.cuda.max_memory_allocated() - resident) / 2**30
+                   if dev.type == "cuda" else None),
+               params_bit_equal=equal)
+    del model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[hf] from_pretrained {json.dumps(rec)}")
+    if not equal:
+        raise AssertionError(f"phase 24a: from_pretrained's parameters "
+                             f"differ from the tree's: {rec}")
+    return rec
+
+
+def hf_v1_check(dev, path, tree, layers=HF_LAYERS, length=None):
+    """Phase 24b: init_inference(``path``, bf16) against
+    init_inference(Llama-3-8B cut to ``layers``, params=``tree``):
+    parameters bit-equal, phase 20e's 8 prompts (of ``length``, default
+    256) x 32 greedy tokens equal; load seconds, every norm launch a row
+    kernel, 2L + 1 a forward."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import Llama
+    from deepspeed_tpu_torch.models.transformer import deferred_weights
+    cfg = {"dtype": "bf16", "max_out_tokens": 1024}
+    t = time.perf_counter()
+    eng = ds.init_inference(path, config=dict(cfg), device=dev)
+    sync(dev)
+    load_s = time.perf_counter() - t
+    with deferred_weights():
+        model = Llama(size="3-8b", num_layers=layers, device=dev,
+                      dtype=torch.bfloat16)
+    ref = ds.init_inference(model, config=dict(cfg), params=tree)
+    equal = params_bit_equal(eng.module.params, ref.module.params)
+    c = eng.module.config
+    prompts = v1_prompts_of(c.vocab_size,
+                            **({"length": length} if length else {}))
+    eng.generate([prompts[0][:16]], max_new_tokens=2)          # warm-up
+    norms = norm_counter(c)
+    reset_norms(norms)
+    sync(dev)
+    t = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=V1_PROMPTS["max_new"])
+    sync(dev)
+    wall = time.perf_counter() - t
+    by_variant = check_norm_variants(norms, dev, "v1 from an HF directory")
+    launches = norms.launches
+    ref_out = ref.generate(prompts, max_new_tokens=V1_PROMPTS["max_new"])
+    rec = dict(load_s=load_s, params_bit_equal=equal,
+               requests=len(prompts), prompt_tokens=len(prompts[0]),
+               new_tokens=V1_PROMPTS["max_new"], generate_s=wall,
+               tokens_equal=bool(torch.equal(out, ref_out)),
+               norm_launches=launches, norm_launches_by_variant=by_variant)
+    del eng, ref, model, out, ref_out
+    gc.collect()
+    log(f"[hf] init_inference(path) {json.dumps(rec)}")
+    forwards = V1_PROMPTS["max_new"]
+    if not equal or not rec["tokens_equal"] or (
+            dev.type == "cuda"
+            and launches != norms_per_forward(c) * forwards):
+        raise AssertionError(f"phase 24b: {rec}")
+    return rec
+
+
+def hf_main(dev, layers=HF_LAYERS, path=HF_DIR, shard_bytes=HF_SHARD_BYTES,
+            v2=None, v1=None):
+    """Phase 24: the seeded tree, the directory written in shards of at
+    most ``shard_bytes``, (a) :func:`hf_v2_check` and
+    :func:`hf_from_pretrained_check`, (b) :func:`hf_v1_check`
+    (``v2``/``v1``: their keywords; a CPU rehearsal shrinks them), the
+    directory deleted."""
+    import torch
+    t0 = time.perf_counter()
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    try:
+        tree = llama_tree(dev, layers)
+        rec = {"written": write_hf_checkpoint(path, tree, layers,
+                                              shard_bytes)}
+        log(f"[hf] checkpoint written {json.dumps(rec['written'])}")
+        rec["v2"] = hf_v2_check(dev, path, tree, layers, **(v2 or {}))
+        rec["from_pretrained"] = hf_from_pretrained_check(dev, path, tree)
+        rec["v1"] = hf_v1_check(dev, path, tree, layers, **(v1 or {}))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    del tree
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rec["reduced"] = f"depth {layers} of 32 (disk and time)"
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[hf] phase 24: {rec['seconds']:.1f} s")
     return rec
 
 
@@ -6248,8 +6823,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace a prefill tick and decode ticks of the "
                          "serving path and of Path Q, one train_batch step, "
-                         "one Path T step, five Path P calls and a fused and "
-                         "a speculative dispatch with torch.profiler")
+                         "one Path T step, five Path P calls, a fused and "
+                         "a speculative dispatch and one BERT-large step "
+                         "with torch.profiler")
     ap.add_argument("--path-z-rank", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--compare-kernels", metavar="ROOT",
                     help="only time the quantize and fused-Adam kernels of "
@@ -6444,6 +7020,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     linear = linear_main(dev, bf16_ref, linear_cpu)           # phase 22
     del linear_cpu, bf16_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert = bert_main(dev, profile=args.profile)               # phase 23
+    gc.collect()
+    torch.cuda.empty_cache()
+    hf = hf_main(dev)                                         # phase 24
 
     def entry(name, kernel, launches, max_abs_err, t, **extra):
         dtypes, variants = KERNEL_FORMS[name]
@@ -6864,6 +7446,31 @@ def main(argv=None) -> int:
         elif k["name"] == "layer_norm":
             k.update(v1_int8_gptj_norm_launches=linear["v1"][
                 "norm_launches"])
+    # phases 23 and 24: the new paths' launches beside each kernel they ran
+    bt = bert["train"]
+    for k in kernels:
+        if k["name"] == "paged_attention":
+            k.update(hf_main_path="phase 24a: build_hf_engine, Llama-3-8B "
+                     "HF directory cut to 8 layers",
+                     hf_launches=hf["v2"]["launches"],
+                     hf_launches_by_variant=hf["v2"]["launches_by_variant"])
+        elif k["name"] == "fused_adam":
+            k.update(bert_main_path="phase 23a: BERT-large training",
+                     bert_launches=bt["fused_adam_launches"])
+        elif k["name"] in ("rms_norm", "rms_norm_decode"):
+            k.update(hf_norm_launches=hf["v2"]["norm_launches"],
+                     hf_norm_launches_by_variant=hf["v2"][
+                         "norm_launches_by_variant"],
+                     hf_v1_norm_launches=hf["v1"]["norm_launches"],
+                     hf_v1_norm_launches_by_variant=hf["v1"][
+                         "norm_launches_by_variant"])
+        elif k["name"] == "layer_norm":
+            k.update(bert_main_path="phase 23a: BERT-large training, "
+                     "post-LN, eps 1e-12, [8192, 1024] bf16 (2L + 2 a step)",
+                     bert_launches=bt["norm_launches"],
+                     bert_launches_by_variant=bt["norm_launches_by_variant"],
+                     bert_layer_fp32_launches=bert["layer_fp32_card_vs_cpu"][
+                         "norm_launches"])
     log(f"[main] serving {json.dumps(stats)} on {card}")
     log(f"[main] fused serving {json.dumps(fused)} on {card}")
     log(f"[main] spec and ring serving {json.dumps(spec)} on {card}")
@@ -6884,6 +7491,8 @@ def main(argv=None) -> int:
     log(f"[main] families trained {json.dumps(families)} on {card}")
     log(f"[main] linear/ (int8 serving, LoRA) {json.dumps(linear)} on "
         f"{card}")
+    log(f"[main] BERT {json.dumps(bert)} on {card}")
+    log(f"[main] HF checkpoints {json.dumps(hf)} on {card}")
     left = live_children()
     if left:
         raise AssertionError(f"processes still running: {left}")

@@ -19,7 +19,13 @@ package is the reference each slice is held against. Ported so far:
     family the JAX package serves (gpt2, llama, mistral, falcon, opt,
     phi, phi3, qwen, qwen2, bloom, gptj, gptneox, internlm);
   - ``init_inference(model=..., config=...)``: the v1 engine
-    (``inference/engine.py``), a static KV cache and an eager decode loop.
+    (``inference/engine.py``), a static KV cache and an eager decode loop;
+  - ``models.Bert`` (on ``ops/transformer.py``'s encoder layer) and the
+    model adapters (``models/adapters.py``: an ``nn.Module`` or an
+    ``(init, apply[, loss])`` tuple) through ``initialize``;
+  - Hugging Face checkpoint directories (``checkpoint/huggingface.py``):
+    ``from_pretrained``, ``inference.v2.build_hf_engine(path)`` and
+    ``init_inference(path)``.
 
 It imports torch and numpy, never jax and nothing of ``deepspeed_tpu``.
 """
@@ -30,23 +36,31 @@ from .runtime.config import DeepSpeedConfig  # noqa: F401
 __version__ = "0.1.0"
 
 
-def init_inference(model=None, config=None, **kwargs):
+def init_inference(model=None, config=None, device=None, **kwargs):
     """Build the v1 inference engine (reference:
     deepspeed/__init__.py:291). ``model`` is a model of the port, on the
     device it was built for; ``params`` (a keyword) is a JAX-layout tree
     of numpy arrays or a flat ``{"layers/wq": ...}`` mapping, else the
     weights come from ``config["checkpoint"]`` (a ``.npz``) or are drawn
-    from ``config["seed"]``. A model given as a checkpoint path is not
-    ported yet (``checkpoint/huggingface.py``, ROADMAP Slice C item 9)."""
+    from ``config["seed"]``. ``model`` may also be an HF checkpoint
+    directory (reference: inference/engine.py:326 and
+    module_inject/load_checkpoint.py:21): config.json builds the family's
+    model on ``device`` (None: the card) in the config's dtype, and its
+    tensors load leaf by leaf (``checkpoint/huggingface.py``); a
+    ``params`` keyword skips that read."""
     from .inference.config import DeepSpeedInferenceConfig
-    from .inference.engine import InferenceEngine
+    from .inference.engine import InferenceEngine, _refuse_unported
     params = kwargs.pop("params", None)
-    if isinstance(model, str):
-        raise NotImplementedError(
-            f"init_inference(model={model!r}): loading a HF checkpoint "
-            "directory (checkpoint/huggingface.py) is not ported yet "
-            "(ROADMAP Slice C item 9); pass a model of the port")
     cfg = DeepSpeedInferenceConfig.from_any(config, **kwargs)
+    if isinstance(model, str):
+        from .checkpoint.huggingface import hf_model
+        _refuse_unported(cfg)   # before the model is built in cfg's dtype
+        model, lazy = hf_model(model, device, cfg.torch_dtype)
+        if params is None:
+            params = lazy
+    elif device is not None:
+        raise ValueError("device= is for a checkpoint path; a model runs "
+                         "on the device it was built for")
     return InferenceEngine(model, cfg, params=params)
 
 
@@ -76,7 +90,9 @@ def initialize(args=None,
     the ranks, with the ZeRO++ int8 wire (``zero_quantized_weights``,
     ``zero_quantized_gradients``) on request.
 
-    ``PipelineModule`` (no ``loss``/``params``), the layer-streamed ZeRO
+    A model that is not the port's own (an ``nn.Module``, an ``(init,
+    apply[, loss])`` tuple) goes through ``models/adapters.py``.
+    ``PipelineModule``, the layer-streamed ZeRO
     engine (stage 3, ``offload_param``), hpZ, MiCS, the two-hop and fp8
     wires, meshes other than pure ``fsdp`` or ``dp`` and the hybrid engine
     (``hybrid_engine.enabled``) raise ``NotImplementedError`` naming their

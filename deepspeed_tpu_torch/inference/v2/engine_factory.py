@@ -13,7 +13,7 @@ from ...utils.device import resolve_device
 from .engine_v2 import (InferenceEngineV2, RaggedInferenceEngineConfig,
                         _refuse_unported)
 
-__all__ = ["build_engine", "SUPPORTED_MODEL_TYPES"]
+__all__ = ["build_engine", "build_hf_engine", "SUPPORTED_MODEL_TYPES"]
 
 # the JAX package's table (reference engine_factory.py names + bloom, gptj,
 # gptneox, internlm); mixtral and qwen2_moe are refused by the model until
@@ -21,6 +21,18 @@ __all__ = ["build_engine", "SUPPORTED_MODEL_TYPES"]
 SUPPORTED_MODEL_TYPES = ("gpt2", "llama", "mistral", "mixtral", "falcon",
                          "opt", "phi", "phi3", "qwen", "qwen2", "qwen2_moe",
                          "bloom", "gptj", "gptneox", "internlm")
+
+
+def _engine_config(engine_config) -> RaggedInferenceEngineConfig:
+    """The engine config (None: the defaults; a dict: parsed), refused
+    where it asks for what is not ported before any model is built in its
+    dtype (int8 is refused)."""
+    if engine_config is None:
+        engine_config = RaggedInferenceEngineConfig()
+    elif isinstance(engine_config, dict):
+        engine_config = RaggedInferenceEngineConfig.from_dict(engine_config)
+    _refuse_unported(engine_config)
+    return engine_config
 
 
 def build_engine(model_type: str, size: str = "tiny",
@@ -42,14 +54,28 @@ def build_engine(model_type: str, size: str = "tiny",
             f"unsupported model_type {model_type!r}; supported: "
             f"{SUPPORTED_MODEL_TYPES}")
     dev = resolve_device(device)
-    if engine_config is None:
-        engine_config = RaggedInferenceEngineConfig()
-    elif isinstance(engine_config, dict):
-        engine_config = RaggedInferenceEngineConfig.from_dict(engine_config)
-    # before the model is built in the config's dtype (int8 is refused)
-    _refuse_unported(engine_config)
+    engine_config = _engine_config(engine_config)
     with deferred_weights():        # the loader gives every leaf
         model = get_model_class(model_type)(
             size=size, device=dev, dtype=engine_config.torch_dtype,
             **model_overrides)
+    return InferenceEngineV2(model, engine_config, params=params)
+
+
+def build_hf_engine(path: str,
+                    engine_config: RaggedInferenceEngineConfig | dict |
+                    None = None, device=None,
+                    **model_overrides) -> InferenceEngineV2:
+    """Serve a pretrained model from an HF checkpoint directory (reference:
+    engine_factory.py:69 build_hf_engine + checkpoint/huggingface_engine.py
+    HuggingFaceCheckpointEngine): config.json picks the family and its
+    config (``model_overrides`` on top), and the engine loads the
+    checkpoint's tensors leaf by leaf, each copied to ``device`` and
+    stacked into the port's layout there only when the loader reaches it
+    (``checkpoint/huggingface.py``).
+    ``device`` as :func:`build_engine`'s."""
+    from ...checkpoint.huggingface import hf_model
+    engine_config = _engine_config(engine_config)
+    model, params = hf_model(path, device, engine_config.torch_dtype,
+                             **model_overrides)
     return InferenceEngineV2(model, engine_config, params=params)

@@ -1,6 +1,8 @@
 """Model families of the port (importing this registers them)."""
 
+from .adapters import FunctionalModel, ModuleModel, wrap_model  # noqa: F401
 from .base import ModelConfig, get_model_class, register_model  # noqa: F401
+from .bert import Bert, BertConfig, bert_config  # noqa: F401
 from .bloom import Bloom, bloom_config  # noqa: F401
 from .convert import load_jax_params  # noqa: F401
 from .falcon import Falcon, falcon_config  # noqa: F401

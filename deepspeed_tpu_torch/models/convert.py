@@ -12,7 +12,9 @@ is kept as it is, so engines built over one model share its weights.
 
 ``load_serving_params`` is the serving engines' one loader: float leaves
 cast to the serving dtype, or weight-only int8 (quantized leaf by leaf, or
-a pre-quantized tree);
+a pre-quantized tree); a leaf may be :class:`Deferred`, computed only when
+the loader reaches it (``checkpoint/huggingface.py`` stacks a checkpoint's
+layers that way, one leaf at a time);
 ``lora_from_jax`` carries a JAX ``LoRAModel``'s frozen base (with its
 ``QuantizedParameter`` leaves) and adapters, so both sides compute from
 the same values.
@@ -25,6 +27,31 @@ import torch
 from torch import nn
 
 from ..ops.quantization import quantize_dense_leaf, quantizes
+
+
+class Deferred:
+    """A leaf computed when a loader reads it: ``leaf()`` gives the tensor
+    or array. The loaders here compute one at a time, so a tree of them
+    never exists whole in host memory."""
+
+    __slots__ = ("fn",)
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self):
+        return self.fn()
+
+
+def _value(leaf):
+    """A :class:`Deferred` leaf computed; any other as it is."""
+    return leaf() if isinstance(leaf, Deferred) else leaf
+
+
+def materialize(tree: dict) -> dict:
+    """``tree`` with every :class:`Deferred` leaf computed."""
+    return {k: materialize(v) if isinstance(v, dict) else _value(v)
+            for k, v in tree.items()}
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -65,6 +92,7 @@ def load_jax_params(model, tree: dict) -> None:
             f"parameter names differ: missing {sorted(want - have)}, "
             f"unexpected {sorted(have - want)}")
     for name, leaf in flat.items():
+        leaf = _value(leaf)
         param = model.params[name]
         if _shares(leaf, param):
             continue
@@ -138,7 +166,7 @@ def load_serving_params(model, tree: dict | None, generator, dtype,
 
     for name, (shape, _) in spec.items():
         if flat is not None and name not in flat:      # pre-quantized
-            q, s = flat[name + "_q"], flat[name + "_s"]
+            q, s = _value(flat[name + "_q"]), _value(flat[name + "_s"])
             _check_shape(name + "_q", q.shape, shape)
             _check_shape(name + "_s", s.shape,
                          (*shape[:-2], 1, shape[-1]))
@@ -148,7 +176,7 @@ def load_serving_params(model, tree: dict | None, generator, dtype,
             put(name + "_q", q, requires_grad=False)
             put(name + "_s", _leaf_tensor(s, dev).to(dtype))
             continue
-        leaf = flat[name] if flat is not None else None
+        leaf = _value(flat[name]) if flat is not None else None
         if leaf is not None:
             _check_shape(name, leaf.shape, shape)
         quantized = quantize and quantizes(name, torch.empty(

@@ -49,6 +49,7 @@ from ..ops import layers as L
 from ..ops import norms as N
 from ..ops.quantization import dequantize_dense, dequantize_weight
 from ..ops.flash_attention import flash_attention
+from ..ops.transformer import init_value
 from ..runtime.activation_checkpointing.checkpointing import (
     STOCK_POLICIES, remat)
 from ..utils.device import resolve_device
@@ -203,12 +204,7 @@ class DecoderLM(nn.Module):
         next draw of ``generator`` (:meth:`init_params` draws the leaves in
         the order of ``_init_spec``)."""
         shape, init = self._init_spec[name]
-        if init == "ones":
-            return torch.ones(shape, device=self.device)
-        if init == "zeros":
-            return torch.zeros(shape, device=self.device)
-        return torch.randn(shape, generator=generator,
-                           device=self.device) * init
+        return init_value(shape, init, self.device, generator)
 
     # ---------------- weights ----------------
     @contextlib.contextmanager

@@ -21,6 +21,9 @@ applies the same update. The engine runs eagerly on the model's device
 and reads nothing back to the host except every ``steps_per_print``
 steps, where the JAX engine also waits for the loss.
 
+BERT (``models/bert.py``) trains as the decoder families do; a model
+that is not the port's own, an ``nn.Module`` or an ``(init, apply[,
+loss])`` tuple, goes through ``models/adapters.py`` (JAX ``_as_model``).
 A ``linear.LoRAModel`` trains the same way: its ``params`` are the
 adapters, so the master, the grads and the optimizer state hold them
 alone, and the frozen base (int8 codes or float leaves) stays on the
@@ -67,7 +70,8 @@ import numpy as np
 import torch
 
 from ..comm import comm
-from ..models.convert import flatten_tree
+from ..models.adapters import LOSS_FN_ACROSS_RANKS, wrap_model
+from ..models.convert import flatten_tree, materialize
 from ..models.transformer import check_training_options
 from ..parallel.mesh import Topology, TopologyConfig
 from ..utils import groups
@@ -107,13 +111,7 @@ class DeepSpeedEngine:
                  dont_change_device=False):
         if model is None:
             raise ValueError("deepspeed_tpu_torch.initialize requires a model")
-        if not (hasattr(model, "loss") and hasattr(model, "params")):
-            raise NotImplementedError(
-                f"the engine trains the port's DecoderLM family and its "
-                f"LoRA adapters (linear.LoRAModel); {type(model).__name__} "
-                f"is neither: model adapters (models/adapters.py) and "
-                f"PipelineModule are not ported yet (ROADMAP: port Queue 1, "
-                f"Slice C item 9d, Slice D (runtime/pipe/))")
+        model = _as_model(model, dont_change_device)
         if mpu is not None or mesh_param is not None:
             raise NotImplementedError(
                 "mpu/mesh_param are not ported yet (ROADMAP: port Queue 1, "
@@ -135,6 +133,8 @@ class DeepSpeedEngine:
                 "a LoRAModel across ranks: JAX shards its frozen base over "
                 "fsdp (place_frozen), the port holds it whole on one card "
                 "(ROADMAP Slice D item 11)")
+        if not getattr(model, "loss_splits", True) and self.dp_world > 1:
+            raise NotImplementedError(LOSS_FN_ACROSS_RANKS)
         self.zero = ZeroPlan(self.config.zero_optimization)
         self.zero_stage = self.zero.stage
         (self.train_batch_size_, self.micro_batch_size_,
@@ -145,13 +145,15 @@ class DeepSpeedEngine:
         self.model_config = model.config
         self.device = next(iter(model.params.values())).device
         # activation_checkpointing.policy set explicitly overrides the
-        # model's remat policy ("none" turns remat off), as in JAX
-        ac = self.config.activation_checkpointing
-        if "policy" in ac.fields_set:
-            self.model_config.remat = ac.policy != "none"
-            if ac.policy != "none":
-                self.model_config.remat_policy = ac.policy
-        check_training_options(self.model_config)
+        # model's remat policy ("none" turns remat off), as in JAX; a
+        # config without remat fields (BERT's, an adapter's) has none
+        if hasattr(self.model_config, "remat_policy"):
+            ac = self.config.activation_checkpointing
+            if "policy" in ac.fields_set:
+                self.model_config.remat = ac.policy != "none"
+                if ac.policy != "none":
+                    self.model_config.remat_policy = ac.policy
+            check_training_options(self.model_config)
         self.compute_dtype = self.config.compute_dtype
         self._mixed = self.compute_dtype != torch.float32
         self.fp16_enabled = bool(self.config.fp16.enabled)
@@ -206,7 +208,8 @@ class DeepSpeedEngine:
         """fp32 master from ``config.seed`` (a seeded generator on the
         device, the same full weights on every rank) or from
         ``model_parameters`` (name -> full array, flat "a/b" names or a
-        nested tree), cut into this rank's shards. The model's parameters
+        nested tree; a :class:`~..models.convert.Deferred` leaf, as
+        ``from_pretrained`` gives, is read here), cut into this rank's shards. The model's parameters
         become views of the master (fp32) or of one compute-dtype buffer
         (mixed); stage 1-2's split leaves view a replicated full buffer
         and stage 3's the gathered temporaries of each micro-batch."""
@@ -232,7 +235,7 @@ class DeepSpeedEngine:
             self.module.init_params(gen)
             full = {n: p.detach() for n, p in params.items()}
         else:
-            given = (flatten_tree(model_parameters)
+            given = (flatten_tree(materialize(model_parameters))
                      if isinstance(model_parameters, dict)
                      else dict(model_parameters))
             if set(given) != set(params.keys()):
@@ -369,8 +372,12 @@ class DeepSpeedEngine:
         return loss + (total - loss.detach())
 
     def _flops_per_sample(self):
-        s = self.model_config.max_seq_len
-        return self.model_config.flops_per_token(s) * s
+        """Training FLOPs a sample at the model's max_seq_len; None where
+        the model's config gives no ``flops_per_token`` (an adapter's)."""
+        c = self.model_config
+        if not (hasattr(c, "flops_per_token") and hasattr(c, "max_seq_len")):
+            return None
+        return c.flops_per_token(c.max_seq_len) * c.max_seq_len
 
     def _put_batch(self, batch):
         """Every array of the batch onto the engine's device (pinned and
@@ -670,6 +677,24 @@ class DeepSpeedEngine:
         return {n: comm.all_gather(v, group=self.group, axis=dims[n])
                 if dims[n] is not None else v
                 for n, v in self.master_state_dict().items()}
+
+
+def _as_model(model, dont_change_device=False):
+    """The port's models (``params`` and ``loss``) as they are; an
+    ``nn.Module`` or an ``(init, apply[, loss])`` tuple through
+    ``models/adapters.py`` (JAX ``_as_model``), on the card, or an
+    ``nn.Module`` left on its own device with ``dont_change_device`` (the
+    reference engine's switch). A PipelineModule is not ported yet."""
+    if type(model).__name__ == "PipelineModule":
+        raise NotImplementedError(
+            "PipelineModule (runtime/pipe/) is not ported yet (ROADMAP "
+            "Slice D item 12)")
+    if hasattr(model, "loss") and hasattr(model, "params"):
+        return model
+    if dont_change_device and isinstance(model, torch.nn.Module):
+        return wrap_model(
+            model, next(model.parameters(), torch.empty(0)).device)
+    return wrap_model(model)
 
 
 def batch_rows(batch) -> int:

@@ -70,7 +70,9 @@ class ThroughputTimer:
         return (self.global_step_count * self.batch_size
                 / self.total_elapsed_time)
 
-    def tflops(self) -> float:
+    def tflops(self) -> float | None:
+        """TFLOP/s from the model's count; None where the model gives no
+        count (an adapter's)."""
         if not self.flops_per_sample:
-            return 0.0
+            return None
         return self.avg_samples_per_sec() * self.flops_per_sample / 1e12

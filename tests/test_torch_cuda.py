@@ -2403,3 +2403,172 @@ def test_dense_int8_on_the_card_matches_the_cpu(cuda, dtype):
     assert got.dtype == dtype
     assert torch.equal(got, q.to(dtype) * s.to(dtype))
     assert torch.equal(got.cpu(), dequantize_weight(cq, cs, dtype))
+
+
+# ------------------------------------------------------- BERT, HF loading
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bert_layer_norm_on_the_card(cuda, dtype):
+    """BERT's LayerNorm at BERT-large's training rows ([64 x 128, 1024]),
+    eps 1e-12 used as given: the kernel against its plain version at
+    _assert_plain_close's bounds (fp32 cta_row, bf16 warp_row, the
+    variants phase 23a's path takes), and the autograd Function's
+    closed-form backward against plain autograd (fp32, 1e-5 of the
+    largest grad)."""
+    from deepspeed_tpu_torch.ops import layers as L
+    from deepspeed_tpu_torch.ops import norms as N
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = (torch.randn(8192, 1024, generator=g, device=cuda) * 2
+         + 0.5).to(dtype)
+    s = (torch.randn(1024, generator=g, device=cuda) + 1).to(dtype)
+    b = torch.randn(1024, generator=g, device=cuda).to(dtype)
+    before = N.layer_norm_kernel.launches
+    got = N.layer_norm_kernel(x, s, b, eps=1e-12)
+    assert N.layer_norm_kernel.launches == before + 1
+    assert N.layer_norm_kernel.variant == (
+        "cta_row" if dtype == torch.float32 else "warp_row")
+    ref = L.layer_norm(x, s, b, 1e-12)
+    if dtype == torch.float32:
+        mag = torch.maximum(ref.abs(), (ref - b).abs())
+        assert bool(((got - ref).abs() <= 1e-6 + 4.8e-7 * mag).all())
+    else:
+        assert norm_ulps(got, ref, dtype, b) <= 1.0
+    if dtype == torch.float32:
+        xs = [x.clone().requires_grad_() for _ in range(2)]
+        ps = [(s.clone().requires_grad_(), b.clone().requires_grad_())
+              for _ in range(2)]
+        cot = torch.randn(8192, 1024, generator=g, device=cuda)
+        (N.layer_norm(xs[0], *ps[0], 1e-12) * cot).sum().backward()
+        (L.layer_norm(xs[1], *ps[1], 1e-12) * cot).sum().backward()
+        for got_g, ref_g in ((xs[0].grad, xs[1].grad),
+                             (ps[0][0].grad, ps[1][0].grad),
+                             (ps[0][1].grad, ps[1][1].grad)):
+            err = float((got_g - ref_g).abs().max())
+            assert err <= 1e-5 * float(ref_g.abs().max()), err
+
+
+def test_bert_training_on_the_card_matches_the_cpu(cuda):
+    """Bert tiny, fp32 (TF32 off), fused Adam, 3 train_batch steps on
+    (tokens, targets, mask) with a padded row, the card against the CPU
+    from the same weights: each loss within 1e-5 relative, the params
+    within 1e-4 of the norm of their change; every norm a LayerNorm
+    kernel launch (2L + 2 a step)."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import Bert
+    from deepspeed_tpu_torch.ops import norms as N
+    cfg = {"train_batch_size": 4, "optimizer": {
+        "type": "FusedAdam", "params": {"lr": 1e-3, "fused_kernel": True}},
+        "gradient_clipping": 1.0, "steps_per_print": 1000}
+    cpu = Bert(size="tiny", device="cpu")
+    cpu.init_params(torch.Generator().manual_seed(0))
+    init = {n: p.detach().clone() for n, p in cpu.params.items()}
+    engines = [ds.initialize(model=m, config=cfg, model_parameters=init)[0]
+               for m in (cpu, Bert(size="tiny", device=cuda))]
+    rng = np.random.default_rng(4)
+    tok = rng.integers(0, 512, (4, 64))
+    tgt = np.where(rng.random((4, 64)) < 0.15, tok, -100)
+    mask = np.ones((4, 64), np.int64)
+    mask[3, 40:] = 0
+    before = N.layer_norm_kernel.launches
+    for step in range(3):
+        losses = [float(e.train_batch((tok, tgt, mask))) for e in engines]
+        assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]), step
+    assert N.layer_norm_kernel.launches - before == 3 * (2 * 2 + 2)
+    cpu_p, gpu_p = (e.master_state_dict() for e in engines)
+    err = sum(float((gpu_p[n].cpu() - cpu_p[n]).pow(2).sum())
+              for n in cpu_p) ** 0.5
+    moved = sum(float((cpu_p[n] - init[n]).pow(2).sum())
+                for n in cpu_p) ** 0.5
+    assert err <= 1e-4 * moved, (err, moved)
+
+
+def _write_tiny_llama_dir(path, tree, cfg):
+    """A Llama HF checkpoint directory from a JAX-layout tree, written
+    with the port's own safetensors writer (the card's machine has no
+    safetensors package)."""
+    import json
+    from deepspeed_tpu_torch.checkpoint.huggingface import save_safetensors
+    lay = tree["layers"]
+    names = {"ln1_scale": "input_layernorm.weight",
+             "ln2_scale": "post_attention_layernorm.weight",
+             "wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
+             "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
+             "w_gate": "mlp.gate_proj.weight", "w_up": "mlp.up_proj.weight",
+             "w_down": "mlp.down_proj.weight"}
+    out = {"model.embed_tokens.weight": tree["embed"]["tokens"],
+           "model.norm.weight": tree["final_norm"]["scale"],
+           "lm_head.weight": tree["lm_head"].T.contiguous()}
+    for i in range(cfg.num_layers):
+        for ours, hf in names.items():
+            t = lay[ours][i]
+            out[f"model.layers.{i}.{hf}"] = (t.T.contiguous() if t.ndim == 2
+                                             else t.clone())
+    save_safetensors(out, str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads,
+        "max_position_embeddings": cfg.max_seq_len,
+        "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+        "tie_word_embeddings": False}))
+
+
+def test_module_given_to_initialize_moves_to_the_card(cuda):
+    """An nn.Module built on the CPU and given to initialize trains on
+    the card, as the reference engine moves its module: the engine and
+    the module's parameters on cuda, the loss falling over 3 steps."""
+    import deepspeed_tpu_torch as ds
+    torch.manual_seed(0)
+    module = torch.nn.Sequential(torch.nn.Embedding(64, 16),
+                                 torch.nn.Linear(16, 64))
+    engine, *_ = ds.initialize(model=module, config={
+        "train_batch_size": 4,
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-2}}})
+    assert engine.device.type == "cuda"
+    assert all(p.device.type == "cuda" for p in module.parameters())
+    tok = np.random.default_rng(0).integers(0, 64, (4, 16))
+    losses = [float(engine.train_batch((tok[:, :-1], tok[:, 1:])))
+              for _ in range(3)]
+    assert losses[-1] < losses[0], losses
+
+
+def test_hf_directory_round_trip_on_the_card(cuda, tmp_path):
+    """A tiny Llama written as an HF directory and read back on the card:
+    build_hf_engine's and init_inference's parameters bit-equal to the
+    engines built from the tree, the same greedy tokens, and the card's
+    v2 tokens equal to the CPU's from the same directory (fp32)."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.inference.v2 import build_hf_engine
+    from deepspeed_tpu_torch.models import Llama
+    from deepspeed_tpu_torch.models.convert import materialize
+    src = Llama(size="tiny", device="cpu")
+    src.init_params(torch.Generator().manual_seed(3))
+    tree: dict = {}
+    for name, p in src.params.items():
+        node = tree
+        *parents, last = name.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = p.detach().clone()
+    _write_tiny_llama_dir(tmp_path, tree, src.config)
+    ecfg = {"dtype": "float32", "kv_block_size": 8, "num_kv_blocks": 64}
+    prompts = [[1, 2, 3, 4, 5], list(range(7, 40))]
+    hf = build_hf_engine(str(tmp_path), dict(ecfg), device=cuda)
+    ref = build_engine("llama", "tiny", dict(ecfg), params=materialize(tree),
+                       device=cuda)
+    for name, p in ref.model.params.items():
+        assert torch.equal(hf.model.params[name], p), name
+    got = hf.generate(prompts, max_new_tokens=6)
+    assert got == ref.generate(prompts, max_new_tokens=6)
+    cpu = build_hf_engine(str(tmp_path), dict(ecfg), device="cpu")
+    assert got == cpu.generate(prompts, max_new_tokens=6)
+    v1 = ds.init_inference(str(tmp_path), dtype="fp32", max_out_tokens=64,
+                           device=cuda)
+    v1_ref = ds.init_inference(Llama(size="tiny", device=cuda),
+                               dtype="fp32", max_out_tokens=64,
+                               params=materialize(tree))
+    toks = np.asarray([prompts[0]])
+    assert torch.equal(v1.generate(toks, max_new_tokens=6),
+                       v1_ref.generate(toks, max_new_tokens=6))

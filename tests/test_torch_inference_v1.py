@@ -273,8 +273,10 @@ def test_refusals_name_their_roadmap_items(tmp_path):
         with pytest.raises(NotImplementedError, match=match):
             tds.init_inference(model, config=dict({"dtype": "float32"},
                                                   **config))
-    with pytest.raises(NotImplementedError, match="huggingface"):
-        tds.init_inference(str(tmp_path))
+    # a checkpoint path loads an HF directory (checkpoint/huggingface.py);
+    # one without config.json is refused
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        tds.init_inference(str(tmp_path), device="cpu")
     # the keyword form of the config, as JAX takes it
     eng = tds.init_inference(model, dtype="float32", max_out_tokens=32)
     assert eng.config.max_out_tokens == 32 and eng.dtype == torch.float32

@@ -202,5 +202,12 @@ def test_lora_model_draws_its_base_and_adapters():
 
 
 def test_engine_names_lora_and_refuses_other_models():
-    with pytest.raises(NotImplementedError, match="LoRAModel"):
+    """A LoRAModel is one of the port's own models (params and loss): the
+    engine takes it as it is; an object it cannot adapt raises the model
+    adapters' TypeError (JAX ``_as_model``)."""
+    from deepspeed_tpu_torch.runtime.engine import _as_model
+    lora = tl.LoRAModel(tm.Llama(size="tiny", device="cpu"),
+                        tl.LoRAConfig(lora_r=4))
+    assert _as_model(lora) is lora
+    with pytest.raises(TypeError, match="cannot adapt"):
         ds.initialize(model=object(), config={"train_batch_size": 2})
