@@ -218,7 +218,25 @@ Phases, each fatal on failure:
      checks; the load's seconds and GB/s, the host's peak RSS and the
      device's build peak; (b) init_inference(path, bf16) against the v1
      engine from the tree on 8 prompts of 256, 32 greedy tokens, equal;
-     the directory deleted.
+     the directory deleted;
+ 25. MoE (moe/, every expert on the card): (a) build_engine("qwen2_moe",
+     "a2.7b") whole (24 layers, d 2048, 16 heads of 128, 60 experts top-4
+     and a shared expert, 13.7 B parameters, bf16) serves phase 4's
+     traffic through generate() and generate_fused (K 8): prefill
+     tokens/s, decode ms a tick and a fused step, the drop fraction of
+     each tick, the weights' bytes and the build's peak, phase 4's and
+     phase 17's launch checks; (b) init_inference(Mixtral("8x7b") whole,
+     bf16, quantize_moe_experts) on phase 20e's traffic in the capacity
+     form, then moe_grouped_dispatch over the same int8 tree: ms a step,
+     tokens/s, bytes, peaks; (c) Qwen2-MoE a2.7b cut to 4 layers trained
+     with phase 21's config and batch: step ms, MFU over the active
+     parameters, peak memory, falling losses, the aux loss and drop
+     fraction, flash all wgmma, norms cta_row, one Adam launch a step;
+     (d) both families at full width in fp32, the card against the CPU:
+     the capacity form, the grouped form and the int8 experts served at 2
+     layers (logits 1e-5 of their largest, greedy tokens equal,
+     generate_fused equal to generate()), Qwen2-MoE's training at 1 layer
+     at phase 21's bounds.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
 RMSNorm/LayerNorm kernels against their plain versions and times them at
@@ -246,7 +264,9 @@ Without a CUDA card it exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
+import hashlib
 import json
 import os
 import re
@@ -3119,7 +3139,7 @@ TRAIN_FAMILY_WIDE_FP32 = dict(layers=2, rows=4, seq=96, steps=3, lr=1e-3)
 
 
 def train_family(dev, family, size, layers=None, rows=TRAIN_FAMILY_ROWS,
-                 seq=TRAIN_FAMILY_SEQ, steps=TRAIN_FAMILY_STEPS):
+                 seq=TRAIN_FAMILY_SEQ, steps=TRAIN_FAMILY_STEPS, probe=None):
     """Phase 21: initialize(<family> ``size`` at full width, depth cut to
     ``layers`` where given, random seeded weights, flash, segments) with
     TRAIN_CONFIG (bf16, fused Adam, ZeRO 2, clip 1.0) -> train_batch on a
@@ -3127,8 +3147,9 @@ def train_family(dev, family, size, layers=None, rows=TRAIN_FAMILY_ROWS,
     steps, the counts set to 0 just before them: tokens/s, step ms, MFU,
     peak memory, the losses (finite and falling), the flash launches a
     step by variant (every one wgmma: L forward, 2L backward a step) and
-    the norm launches (every one a row kernel). The engine is released
-    before the next family."""
+    the norm launches (every one a row kernel). ``probe(engine, batch)``
+    adds its figures after the timed steps. The engine is released before
+    the next family."""
     import torch
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import get_model_class
@@ -3181,6 +3202,8 @@ def train_family(dev, family, size, layers=None, rows=TRAIN_FAMILY_ROWS,
             for k, by in flash.items()},
         flash_launches_by_variant=flash, norm_launches=norms.launches,
         norm_launches_by_variant=norm_by_variant)
+    if probe is not None:
+        stats.update(probe(engine, batch))
     del engine, model
     gc.collect()
     if dev.type == "cuda":
@@ -3193,14 +3216,15 @@ def train_family(dev, family, size, layers=None, rows=TRAIN_FAMILY_ROWS,
             "bwd": {"wgmma": 2 * c.num_layers * steps}}
     if dev.type == "cuda" and (flash != want
                                or stats["fused_adam_launches"] != steps
-                               or norms.launches
+                               or stats["norm_launches"]
                                != norm_launches_per_micro(c) * steps):
         raise AssertionError(
             f"{family}-{size} training launches: flash {flash} != {want} "
             f"(one forward and one backward call per layer, two backward "
             f"launches per call, every one wgmma), Adam "
             f"{stats['fused_adam_launches']} (want {steps}), norms "
-            f"{norms.launches} (want {norm_launches_per_micro(c) * steps})")
+            f"{stats['norm_launches']} (want "
+            f"{norm_launches_per_micro(c) * steps})")
     return stats
 
 
@@ -3216,14 +3240,14 @@ def lm_batch_of(dev, vocab, rows, seq):
 
 def fp32_engine_run(dev, family, size, layers, rows, seq, steps, lr,
                     init=None, over=None, model_kw=FAMILY_FP32_MODEL,
-                    batch_of=lm_batch_of):
+                    batch_of=lm_batch_of, host=True):
     """One side of the fp32 check: initialize(<family> ``size`` cut to
     ``layers``, ``model_kw`` and ``over`` on its config) in fp32 on
     ``dev`` with TRAIN_CONFIG at ``lr``, ``steps`` train_batch calls on
     ``batch_of(dev, vocab, rows, seq)`` from ``init`` (the master's
     tensors; None: the model's seeded draw). Returns the initial tensors,
     the losses, the first step's grads and each tensor's change, on the
-    CPU."""
+    CPU (``host=False``: the grads and changes on ``dev``)."""
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import get_model_class
     cfg = dict(TRAIN_CONFIG, train_batch_size=rows, bf16={"enabled": False},
@@ -3241,8 +3265,10 @@ def fp32_engine_run(dev, family, size, layers, rows, seq, steps, lr,
     for step in range(steps):
         losses.append(float(engine.train_batch(batch)))
         if step == 0:
-            grads = engine._grads.detach().cpu().clone()
-    change = {n: t.detach().cpu() - init[n]
+            grads = (engine._grads.detach().cpu().clone() if host
+                     else engine._grads.detach().clone())
+    change = {n: (t.detach().cpu() - init[n]) if host
+              else t.detach() - init[n].to(dev)
               for n, t in engine.master_state_dict().items()}
     del engine, model
     gc.collect()
@@ -4333,7 +4359,10 @@ def write_hf_checkpoint(path: str, tree: dict, layers: int,
 
 class RssPeak:
     """The process's peak resident set size over a ``with`` block, read
-    from /proc/self/status every 2 ms on a thread."""
+    from /proc/self/status every ``interval`` seconds on a thread."""
+
+    def __init__(self, interval: float = 0.002):
+        self.interval = interval
 
     def __enter__(self):
         import threading
@@ -4349,7 +4378,7 @@ class RssPeak:
         self.peak = max(self.peak, self._rss())
 
     def _poll(self):
-        while not self._stop.wait(0.002):
+        while not self._stop.wait(self.interval):
             self.peak = max(self.peak, self._rss())
 
     @staticmethod
@@ -4359,6 +4388,23 @@ class RssPeak:
                 if line.startswith("VmRSS:"):
                     return int(line.split()[1]) * 1024
         raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def host_memory_gib():
+    """The memory this process's host may use: its cgroup's limit where
+    one is set, else the machine's total."""
+    try:
+        with open("/sys/fs/cgroup/memory.max") as f:
+            limit = f.read().strip()
+        if limit.isdigit():
+            return int(limit) / 2**30
+    except OSError:
+        pass
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024 / 2**30
+    return None
 
 
 def serving_prompts(vocab, n_req=8, lengths=(100, 701), long_prompt=None):
@@ -4593,6 +4639,510 @@ def hf_main(dev, layers=HF_LAYERS, path=HF_DIR, shard_bytes=HF_SHARD_BYTES,
     log(f"[hf] phase 24: {rec['seconds']:.1f} s")
     return rec
 
+
+# ----------------------------------------------------------- phase 25
+# MoE on the card (moe/, all experts on one card). (a) Qwen2-MoE a2.7b
+# whole (24 layers, d 2048, 16 heads of 128, 60 experts top-4 and a shared
+# expert, 13.7 B parameters) through build_engine with phase 4's config
+# and traffic, generate() and then generate_fused (K 8, depth 2); (b)
+# Mixtral-8x7B whole through init_inference with int8 routed experts,
+# phase 20e's traffic, the capacity form and then the grouped form over
+# the same quantized tree; (c) Qwen2-MoE a2.7b cut to 4 layers trained
+# with phase 21's config and batch; (d) both families at full width, fp32,
+# the card against the CPU: serving at MOE_FP32's depth, training at
+# MOE_TRAIN_FP32's.
+MOE_SERVING = dict(family="qwen2_moe", size="a2.7b", model_over=None)
+MOE_V1 = dict(family="mixtral", size="8x7b", model_over=None)
+MOE_TRAIN = dict(family="qwen2_moe", size="a2.7b", layers=4)
+MOE_FP32 = dict(families=(("qwen2_moe", "a2.7b"), ("mixtral", "8x7b")),
+                layers=2, n_req=3, max_new=6, lengths=(20, 90), k=2,
+                model_over=None, family_layers={"mixtral": 1})
+# Mixtral-8x7B's check runs at 1 of those 2 layers: at 2 (12.4 GB of fp32
+# weights, each CPU tick streaming the experts and the int8 form
+# dequantizing them on the host) its serving took 75 s of 25d's 172 on
+# the H100's host, the CPU half the long pole
+# the training check: Qwen2-MoE at 1 layer of full width. Mixtral-8x7B's
+# is left out: its CPU half at 1 layer (1.7 B fp32 values with grads,
+# moments, the change and the card's results beside the serving tree) ran
+# the 96 GiB host out of memory, and it would add minutes of CPU time
+MOE_TRAIN_FP32 = dict(families=(("qwen2_moe", "a2.7b"),), layers=1, rows=2,
+                      seq=64, steps=3, lr=1e-5)
+MOE_SEED = 25
+
+
+def drop_fractions(model, run) -> list:
+    """``run()`` with the model's routing metrics recorded: each forward's
+    drop fraction, the mean over its layers (the host reads them after)."""
+    import torch
+    drops = []
+    model.moe_metrics_hook = lambda m: drops.append(m["drop_fraction"])
+    try:
+        run()
+    finally:
+        model.moe_metrics_hook = None
+    layers = model.config.num_layers
+    return torch.stack(drops).view(-1, layers).mean(1).tolist()
+
+
+def moe_serving_main(dev, family="qwen2_moe", size="a2.7b", model_over=None,
+                     serve_kw=None, k=8):
+    """Phase 25a: :func:`main_path` (phase 4's config, traffic and launch
+    checks: every paged launch decode_split or prefill_wgmma, every norm a
+    row kernel) on the MoE model, the drop fraction of each tick of the
+    same requests once more, then generate_fused's loop (K ``k``, the
+    default depth 2): a capturing run and the timed run, with phase 17's
+    launch checks (every replayed paged launch decode_split, every prefill
+    launch prefill_wgmma, every norm cta_row, counts = L x graph ticks +
+    prefill dispatches). Reports prefill tokens/s, decode ms a tick and a
+    fused step, the weights' bytes and the build's peak."""
+    import torch
+    engine, stats = main_path(dev, size=size, family=family,
+                              model_over=model_over, **(serve_kw or {}))
+    prompts, outputs = stats.pop("prompts"), stats.pop("outputs")
+    c = engine.model.config
+    max_new = stats["new_tokens"]
+    per_tick = drop_fractions(engine.model,
+                              lambda: serve(engine, prompts, max_new, dev))
+    stats.update(drop_fraction_per_tick=per_tick,
+                 drop_fraction_mean=float(np.mean(per_tick)),
+                 drop_fraction_max=float(np.max(per_tick)),
+                 active_params=c.num_active_params(),
+                 params=c.num_params())
+    first = len(engine.graph_captures)
+    warm, _ = serve_fused(engine, prompts, max_new, dev, k)
+    norms = reset_counts(c)
+    ticks = count_ticks(engine)
+    engine.reset_serving_metrics()
+    timed_first = len(engine.graph_captures)
+    try:
+        outs, run = serve_fused(engine, prompts, max_new, dev, k)
+    finally:
+        uncount_ticks(engine)
+    counts = read_counts(norms)
+    m = engine.serving_metrics()
+    prefill_dispatches = m["host_dispatches"] - m["fused_dispatches"]
+    graph_ticks = sum(ticks) + len(engine.graph_captures) - timed_first
+    layers = c.num_layers
+    want = {"decode_split": layers * graph_ticks,
+            "prefill_wgmma": layers * prefill_dispatches}
+    want_norms = (2 * layers + 1) * (graph_ticks + prefill_dispatches)
+    bad = []
+    if outs != warm:
+        bad.append("the fused rerun's tokens differ from the first run's")
+    if any(len(o) != max_new or not all(0 <= t < c.vocab_size for t in o)
+           for o in outs):
+        bad.append("a generate_fused output is short or out of range")
+    if dev.type == "cuda" and (counts["launches_by_variant"] != want or
+                               counts["norm_launches"] != want_norms or
+                               set(counts["norm_launches_by_variant"])
+                               != {"cta_row"}):
+        bad.append(f"fused launches {counts} != paged {want}, norms "
+                   f"{want_norms} cta_row")
+    if dev.type == "cuda" and set(stats["norm_launches_by_variant"]) \
+            != {"cta_row"}:
+        bad.append(f"generate() norms {stats['norm_launches_by_variant']}"
+                   f" not all cta_row")
+    captures = engine.graph_captures[first:]
+    decode_s = run["wall_s"] - run["prefill_s"]
+    stats["fused"] = dict(
+        k=k, max_inflight_dispatches=m["max_inflight_dispatches"],
+        prefill_tokens_per_s=run["prefill_tokens"] / run["prefill_s"],
+        decode_steps=run["steps"], fused_dispatches=run["dispatches"],
+        decode_ms_per_step=1e3 * decode_s / max(run["steps"], 1),
+        generate_fused_s=run["wall_s"],
+        e2e_generated_tokens_per_s=len(prompts) * max_new / run["wall_s"],
+        graph_ticks=graph_ticks, prefill_dispatches=prefill_dispatches,
+        **counts, greedy_agreement_vs_generate=agreement(outs, outputs),
+        graphs_captured=len(captures),
+        capture_ms_total=sum(g["capture_ms"] for g in captures),
+        graph_pool_mib_total=sum(g["pool_mib"] for g in captures))
+    if dev.type == "cuda":
+        # where the time goes: a prefill tick of 8 x 256 and 8 decode
+        # ticks per tick, and one fused dispatch of 8 ticks
+        stats["profile"] = dict(zip(("prefill_tick", "decode_ticks"),
+                                    profile_main_path(engine, dev)))
+        stats["profile"]["fused_dispatch"] = profile_fused(
+            engine, dev, [p[:256] for p in prompts],
+            modes=("greedy",))["greedy"]
+    stats["dead_rows"] = dead_row_times(
+        engine, dev, max(len(p) for p in prompts) + max_new)
+    release_engine(engine, dev)
+    del engine
+    gc.collect()
+    log(f"[moe] phase 25a {family}-{size}: {json.dumps(stats)}")
+    if bad:
+        raise AssertionError("phase 25a: " + "; ".join(bad))
+    return stats
+
+
+def dead_row_times(engine, dev, context: int, rows=8, iters=20) -> dict:
+    """The pad pass of a capacity MoE tick (``paged.dead_row_attention``)
+    at 25a's decode shapes on the engine's pool: ``rows`` rows of
+    ``context`` tokens, every row holding a pad slot (its pages read) and
+    none (a fused tick with every row live: no row's pages read), a tick's
+    worth (one call a layer) captured in a CUDA graph as the fused loop
+    runs it, the median of event-timed replays (on the CPU, rehearsal
+    only, one call's host time x layers)."""
+    import torch
+    from deepspeed_tpu_torch.inference.v2 import paged
+    layers = engine.model.config.num_layers
+    pool = engine.pools["v"][0]
+    nb, bs, hkv, d = pool.shape
+    width = -(-context // bs)
+    tables = (torch.arange(rows * width, device=dev) % nb).reshape(
+        rows, width).to(torch.int32)
+    pos0 = torch.full((rows,), context, dtype=torch.int32, device=dev)
+    v_new = torch.randn(rows, 1, hkv, d, dtype=pool.dtype, device=dev)
+    out = dict(rows=rows, context=context, layers=layers,
+               v_page_bytes_a_layer=rows * width * bs * hkv * d
+               * pool.element_size())
+    for name, pads in (("every_row_padded", True), ("no_row_padded", False)):
+        mask = torch.full((rows,), pads, device=dev)
+
+        def tick():
+            for _ in range(layers):
+                paged.dead_row_attention(v_new, pool, tables, pos0,
+                                         rows=mask)
+        if dev.type != "cuda":
+            out[f"{name}_ms_a_tick"] = time_ms(tick, dev, 2)
+            continue
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            tick()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            tick()
+        out[f"{name}_ms_a_tick"] = time_ms(graph.replay, dev, iters)
+        del graph
+    return out
+
+
+def moe_v1_main(dev, family="mixtral", size="8x7b", model_over=None,
+                length=V1_PROMPTS["length"]):
+    """Phase 25b: init_inference(<family> ``size``, bf16,
+    quantize_moe_experts) on seeded weights, built a layer at a time (no
+    float expert stack exists on the card), then phase 20e's traffic (8
+    prompts of ``length``, 32 greedy tokens) in the capacity form and in
+    the grouped form (moe_grouped_dispatch, a second engine over the same
+    int8 tree): ms a step, generated tokens/s, the weights' bytes (the
+    routed experts' apart) and the build's peak; every norm launch a row
+    kernel, 2L + 1 a forward."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import get_model_class
+    from deepspeed_tpu_torch.models.transformer import deferred_weights
+    with deferred_weights():
+        model = get_model_class(family)(size=size, device=dev,
+                                        **(model_over or {}))
+    c = model.config
+    cfg = {"dtype": "bf16", "max_out_tokens": 1024,
+           "quantize_moe_experts": True}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng = ds.init_inference(model, config=cfg)
+    sync(dev)
+    rec = dict(model=f"{family}-{size}", layers=c.num_layers,
+               params=c.num_params(), active_params=c.num_active_params(),
+               build_s=time.perf_counter() - t,
+               build_peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                               if dev.type == "cuda" else None),
+               weight_bytes=weight_bytes(model.params),
+               expert_bytes=weight_bytes({
+                   n: p for n, p in model.params.items()
+                   if n.startswith("layers/experts/")}))
+    prompts = v1_prompts_of(c.vocab_size, length)
+    forwards = V1_PROMPTS["max_new"]
+    outs = {}
+    for form in ("capacity", "grouped"):
+        if form == "grouped":
+            eng = ds.init_inference(model, config=dict(
+                cfg, moe_grouped_dispatch=True), params=dict(model.params))
+        eng.generate([prompts[0][:16]], max_new_tokens=2)      # warm-up
+        norms = norm_counter(c)
+        reset_norms(norms)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sync(dev)
+        t = time.perf_counter()
+        out = eng.generate(prompts, max_new_tokens=forwards)
+        sync(dev)
+        wall = time.perf_counter() - t
+        outs[form] = out[:, length:].tolist()
+        by_variant = check_norm_variants(norms, dev, f"25b {form}")
+        rec[form] = dict(
+            generate_s=wall, ms_per_step=1e3 * wall / forwards,
+            generated_tokens_per_s=len(prompts) * forwards / wall,
+            serve_peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                            if dev.type == "cuda" else None),
+            norm_launches=norms.launches,
+            norm_launches_by_variant=by_variant)
+        if dev.type == "cuda" and norms.launches != \
+                norms_per_forward(c) * forwards:
+            raise AssertionError(f"phase 25b {form}: {norms.launches} norm "
+                                 f"launches, want {norms_per_forward(c)} x "
+                                 f"{forwards}")
+        if dev.type == "cuda":
+            # where a step's time goes: 4 tokens from 16-token prompts
+            rec[form]["profile"] = profile_window(
+                f"moe_v1_{form}", lambda: eng.generate(
+                    [p[:16] for p in prompts], max_new_tokens=4), 4)[1]
+        del eng
+        gc.collect()
+    rec["greedy_agreement_grouped_vs_capacity"] = agreement(
+        outs["grouped"], outs["capacity"])
+    ok = all(0 <= t < c.vocab_size for o in outs.values() for r in o
+             for t in r)
+    del model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[moe] phase 25b v1: {json.dumps(rec)}")
+    if not ok:
+        raise AssertionError("phase 25b: a token out of range")
+    return rec
+
+
+def moe_train_probe(engine, batch) -> dict:
+    """Phase 25c's router figures on the trained model: the aux loss of a
+    forward over ``batch`` and each layer's drop fraction."""
+    import torch
+    model = engine.module
+    out = {}
+
+    def forward():
+        with torch.no_grad():
+            out["aux"] = float(model.final_hidden(batch[0],
+                                                  return_aux=True)[1])
+
+    per_forward = drop_fractions(model, forward)
+    return dict(aux_loss=out["aux"], drop_fraction=per_forward[0])
+
+
+def moe_fp32_tree(family, size, layers, dev, seed=MOE_SEED,
+                  model_over=None) -> dict:
+    """The family's widths cut to ``layers``: a flat fp32 tree drawn from a
+    seeded generator on ``dev`` (the card, fast) and moved to the CPU:
+    the weights both sides of 25d serve and train from."""
+    import torch
+    from deepspeed_tpu_torch.models import get_model_class
+    with torch.no_grad():
+        m = get_model_class(family)(size=size, num_layers=layers,
+                                    device="meta", **(model_over or {}))
+        m.device = dev
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return {n: m.draw(n, gen).cpu() for n in m._init_spec}
+
+
+def moe_fp32_engines(dev, family, size, tree, prompts, layers,
+                     fp32=MOE_FP32):
+    """25d's serving on ``dev``: build_engine fp32 over ``tree`` in the
+    capacity form (the first prefill's logits, generate() and
+    generate_fused's tokens), the grouped form and with int8 experts (the
+    logits and generate()'s tokens). Returns them on the CPU."""
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    cfg = {"dtype": "float32", "kv_block_size": 64, "num_kv_blocks": 64,
+           "max_chunk_size": 256, "max_ragged_sequence_count": 8}
+    out = {}
+    for form, over in (("capacity", {}),
+                       ("grouped", {"moe_grouped_dispatch": True}),
+                       ("int8_experts", {"quantize_moe_experts": True})):
+        v2 = build_engine(family, size, dict(cfg, **over), params=tree,
+                          device=dev, num_layers=layers,
+                          **(fp32["model_over"] or {}))
+        rec = dict(logits=v2.put([90_000], [prompts[0]])[0].float().cpu())
+        v2.flush(90_000)
+        rec["tokens"] = v2.generate(prompts, max_new_tokens=fp32["max_new"])
+        if form == "int8_experts":
+            rec["codes"] = {n: hashlib.sha256(
+                p.detach().cpu().numpy().tobytes()).hexdigest()
+                for n, p in v2.model.params.items()
+                if n.endswith(("_q", "_s"))}
+        if form == "capacity":
+            rec["fused"] = v2.generate_fused(
+                prompts, max_new_tokens=fp32["max_new"], k_steps=fp32["k"])
+        release_engine(v2, dev)
+        del v2
+        out[form] = rec
+    gc.collect()
+    return out
+
+
+def moe_fp32_train(dev, family, size, init, fp32=MOE_TRAIN_FP32):
+    """25d's training: :func:`fp32_engine_run` from ``init`` on ``dev``,
+    the card first (its grads and changes kept there), then the CPU (which
+    trains ``init`` in place), one after the other: the host holds one
+    engine. Returns both records."""
+    import torch
+    args = (family, size, fp32["layers"], fp32["rows"], fp32["seq"],
+            fp32["steps"], fp32["lr"])
+    card = fp32_engine_run(dev, *args, init=init,
+                           over=MOE_FP32["model_over"], host=False)
+    cpu = fp32_engine_run(torch.device("cpu"), *args, init=init,
+                          over=MOE_FP32["model_over"])
+    return card, cpu
+
+
+def moe_fp32_main(dev, fp32=MOE_FP32, train=MOE_TRAIN_FP32):
+    """Phase 25d (TF32 off): each family at full width, its seeded fp32 tree
+    (:func:`moe_fp32_tree`), the card's half (the kernels) against the
+    CPU's (a worker thread, at the same time): the first prefill's logits
+    within 1e-5 of their largest in the capacity form, the grouped form
+    and with int8 experts (their codes and scales bit-equal), and their
+    greedy tokens equal; the card's
+    generate_fused tokens equal to the CPU's and, the prompts prefilled in
+    one tick, to its own generate()'s; for the families ``train`` names,
+    training at train_family_fp32's bounds (losses 1e-4 relative, the
+    first step's grads 1e-4 of their largest, the params 1e-3 of the norm
+    of their change, lm_head reported apart)."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from deepspeed_tpu_torch.models import get_model_class
+    t0 = time.perf_counter()
+    rec = {}
+    for family, size in fp32["families"]:
+        layers = fp32.get("family_layers", {}).get(family, fp32["layers"])
+        tree = moe_fp32_tree(family, size, layers, dev,
+                             model_over=fp32["model_over"])
+        vocab = get_model_class(family)(
+            size=size, device="meta").config.vocab_size
+        rng = np.random.default_rng(12)
+        lens = rng.integers(*fp32["lengths"], fp32["n_req"])
+        prompts = [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+        t = time.perf_counter()
+        with RssPeak(interval=0.02) as rss, \
+                ThreadPoolExecutor(max_workers=1) as pool:
+            future = pool.submit(moe_fp32_engines, torch.device("cpu"),
+                                 family, size, tree, prompts, layers, fp32)
+            card = dict(serving=moe_fp32_engines(dev, family, size, tree,
+                                                 prompts, layers, fp32))
+            card_s = time.perf_counter() - t
+            cpu = dict(serving=future.result())
+        rec[f"host_rss_peak_gib_{family}_serving"] = rss.peak / 2**30
+        rec[f"seconds_{family}_serving"] = dict(
+            card=card_s, both=time.perf_counter() - t)
+        if (family, size) in train["families"]:
+            init = {n: (t[:train["layers"]] if n.startswith("layers/")
+                        else t).clone() for n, t in tree.items()}
+            del tree
+            gc.collect()
+            t = time.perf_counter()
+            with RssPeak(interval=0.02) as rss:
+                card["train"], cpu["train"] = moe_fp32_train(
+                    dev, family, size, init, train)
+            rec[f"host_rss_peak_gib_{family}_train"] = rss.peak / 2**30
+            rec[f"seconds_{family}_train"] = time.perf_counter() - t
+            del init
+        else:
+            del tree
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        r = {"layers": layers, "requests": len(prompts),
+             "new_tokens": fp32["max_new"]}
+        for form, got in card["serving"].items():
+            ref = cpu["serving"][form]
+            r[form] = dict(
+                logits_err_rel_to_max=float(
+                    (got["logits"] - ref["logits"]).abs().max()
+                    / ref["logits"].abs().max()),
+                card_equals_cpu=got["tokens"] == ref["tokens"])
+        cap_card, cap_cpu = card["serving"]["capacity"], \
+            cpu["serving"]["capacity"]
+        r["int8_codes_and_scales_bit_equal"] = (
+            card["serving"]["int8_experts"]["codes"]
+            == cpu["serving"]["int8_experts"]["codes"])
+        r["fused_card_equals_cpu"] = cap_card["fused"] == cap_cpu["fused"]
+        r["fused_equals_generate"] = cap_card["fused"] == cap_card["tokens"]
+        r["tokens"] = {f: v["tokens"] for f, v in card["serving"].items()}
+        rec[f"{family}-{size}"] = r
+        log(f"[moe] phase 25d {family}-{size}: {json.dumps(r)}")
+        if (any(r[f]["logits_err_rel_to_max"] > 1e-5
+                or not r[f]["card_equals_cpu"]
+                for f in ("capacity", "grouped", "int8_experts"))
+                or not r["int8_codes_and_scales_bit_equal"]
+                or not r["fused_card_equals_cpu"]
+                or not r["fused_equals_generate"]):
+            raise AssertionError(f"phase 25d {family}-{size}: {r}")
+        if "train" not in card:
+            continue
+        a, b = card["train"], cpu["train"]
+
+        def rel(names):
+            err = sum(float((a["change"][n] - b["change"][n].to(dev))
+                            .pow(2).sum()) for n in names)
+            moved = sum(float(b["change"][n].pow(2).sum()) for n in names)
+            return (err / moved) ** 0.5
+
+        names = list(b["change"])
+        held = [n for n in names if n not in SIGN_FLIP_TENSORS]
+        r["train"] = dict(
+            layers=train["layers"], rows=train["rows"], seq=train["seq"],
+            lr=train["lr"], loss_card=a["losses"], loss_cpu=b["losses"],
+            loss_max_rel_err=max(abs(x - y) / abs(y) for x, y in
+                                 zip(a["losses"], b["losses"])),
+            grad_max_err_rel_to_max=float(
+                (a["grads"] - b["grads"].to(dev)).abs().max()
+                / b["grads"].abs().max()),
+            params_err_rel_to_change=rel(names),
+            params_err_rel_to_change_held=rel(held))
+        del card, cpu, a, b
+        gc.collect()
+        log(f"[moe] phase 25d {family}-{size} training: "
+            f"{json.dumps(r['train'])}")
+        t = r["train"]
+        if (t["loss_max_rel_err"] > 1e-4
+                or t["grad_max_err_rel_to_max"] > 1e-4
+                or t["params_err_rel_to_change_held"] > 1e-3):
+            raise AssertionError(f"phase 25d {family}-{size}: {r}")
+    rec["reduced"] = (
+        f"depth {fp32['layers']} serving ({fp32.get('family_layers')} "
+        f"apart: time); training {train['layers']} layer "
+        f"of {[f'{f}-{s}' for f, s in train['families']]} only (host "
+        f"memory and time)")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def moe_main(dev, serving=MOE_SERVING, v1=MOE_V1, train=MOE_TRAIN,
+             fp32=MOE_FP32, train_fp32=MOE_TRAIN_FP32, serve_kw=None,
+             train_kw=None, v1_length=V1_PROMPTS["length"]):
+    """Phase 25 (a-d above; a CPU rehearsal shrinks every part)."""
+    import torch
+    t0 = time.perf_counter()
+    rec = {"host_rss_gib_at_start": RssPeak._rss() / 2**30,
+           "host_memory_gib": host_memory_gib()}
+    # freed heap the earlier phases left with the C allocator goes back
+    # to the system before the phase's large host tensors
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except OSError:
+        pass
+    rec["host_rss_gib_after_trim"] = RssPeak._rss() / 2**30
+    seconds = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        with RssPeak(interval=0.02) as rss:
+            rec[name] = fn()
+        seconds[name] = time.perf_counter() - t
+        rec[name]["host_rss_peak_gib"] = rss.peak / 2**30
+    part("serving", lambda: moe_serving_main(dev, **serving,
+                                             serve_kw=serve_kw))
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    part("v1", lambda: moe_v1_main(dev, **v1, length=v1_length))
+    part("train", lambda: train_family(
+        dev, train["family"], train["size"], train["layers"],
+        probe=moe_train_probe, **(train_kw or {})))
+    rec["train"]["reduced"] = f"depth {train['layers']} (memory)"
+    part("fp32", lambda: moe_fp32_main(dev, fp32, train_fp32))
+    rec["seconds_by_part"] = seconds
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[moe] phase 25: {rec['seconds']:.1f} s")
+    return rec
 
 # ------------------------------------------------------------ phase 2
 # the attention kernels' mangled names: kernel, dtype, D (and the CUDA-core
@@ -6732,6 +7282,8 @@ def remat_policies_main(dev, size="125m", steps=3, seq=1024):
 # --------------------------------------------------------- --profile
 # device kernels by kind, matched on their names in this order
 PROFILE_KINDS = {
+    # the pad pass's page gathers and the pool write's (4 a forward)
+    "index_select": ("indexSelect",),
     "flash_attention": ("flash_fwd_", "flash_bwd_"),
     "paged_attention": ("paged_",),
     "fused_adam": ("fused_adam_kernel",),
@@ -7026,6 +7578,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     hf = hf_main(dev)                                         # phase 24
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    if resident > 2**30:
+        raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
+                             f"before phase 25")
+    moe = moe_main(dev)                                       # phase 25
 
     def entry(name, kernel, launches, max_abs_err, t, **extra):
         dtypes, variants = KERNEL_FORMS[name]
@@ -7471,6 +8030,32 @@ def main(argv=None) -> int:
                      bert_launches_by_variant=bt["norm_launches_by_variant"],
                      bert_layer_fp32_launches=bert["layer_fp32_card_vs_cpu"][
                          "norm_launches"])
+    # phase 25: the MoE paths' launches beside each kernel they ran
+    ms, mt = moe["serving"], moe["train"]
+    for k in kernels:
+        if k["name"] == "paged_attention":
+            k.update(moe_main_path="phase 25a: Qwen2-MoE a2.7b, generate() "
+                     "and generate_fused", moe_launches=ms["launches"],
+                     moe_launches_by_variant=ms["launches_by_variant"],
+                     moe_fused_launches_by_variant=ms["fused"][
+                         "launches_by_variant"])
+        elif k["name"] in ("flash_attention_fwd", "flash_attention_bwd"):
+            k.update(moe_main_path="phase 25c: Qwen2-MoE a2.7b training, "
+                     "4 layers", moe_launches_by_variant=mt[
+                         "flash_launches_by_variant"][k["name"][-3:]])
+        elif k["name"] == "fused_adam":
+            k.update(moe_launches=mt["fused_adam_launches"])
+        elif k["name"] in ("rms_norm", "rms_norm_decode"):
+            k.update(moe_norm_launches=ms["norm_launches"],
+                     moe_norm_launches_by_variant=ms[
+                         "norm_launches_by_variant"],
+                     moe_fused_norm_launches_by_variant=ms["fused"][
+                         "norm_launches_by_variant"],
+                     moe_train_norm_launches_by_variant=mt[
+                         "norm_launches_by_variant"],
+                     moe_v1_norm_launches_by_variant={
+                         f: moe["v1"][f]["norm_launches_by_variant"]
+                         for f in ("capacity", "grouped")})
     log(f"[main] serving {json.dumps(stats)} on {card}")
     log(f"[main] fused serving {json.dumps(fused)} on {card}")
     log(f"[main] spec and ring serving {json.dumps(spec)} on {card}")
@@ -7493,6 +8078,7 @@ def main(argv=None) -> int:
         f"{card}")
     log(f"[main] BERT {json.dumps(bert)} on {card}")
     log(f"[main] HF checkpoints {json.dumps(hf)} on {card}")
+    log(f"[main] MoE {json.dumps(moe)} on {card}")
     left = live_children()
     if left:
         raise AssertionError(f"processes still running: {left}")

@@ -23,15 +23,23 @@ one layer at a time where it reads it; a ``params`` tree that already
 holds ``name_q`` / ``name_s`` pairs is taken as it is. ``dtype="int8"``
 raises JAX's own error: int8 serving is weight-only.
 
+MoE (mixtral, qwen2_moe, JAX :92-142): ``quantize_moe_experts`` makes the
+routed experts int8 (``moe.quantize_experts`` on the cast weights, scales
+in the serving dtype, a layer at a time), and ``moe_grouped_dispatch``
+serves through the grouped form (``moe_ffn_grouped``: exact top-k, no
+capacity) instead of the capacity form. The flag is set on the engine's
+own shallow copy of the model (:func:`serving_model`), never on the
+shared instance.
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
 ROADMAP item: ``tensor_parallel.tp_size > 1`` (Slice D item 12; with
-``quantize_weights`` JAX's own refusal), ``quantize_moe_experts`` and
-``moe_grouped_dispatch`` (MoE, Slice D item 12), an orbax checkpoint
-directory (Slice E item 13).
+``quantize_weights``, ``quantize_moe_experts`` or ``moe_grouped_dispatch``
+JAX's own refusals), an orbax checkpoint directory (Slice E item 13).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Any, Optional
 
@@ -56,6 +64,15 @@ QUANTIZE_TP_MESSAGE = (
     "quantize_weights is a single-replica serving path "
     "(quantized leaves bypass the tp rule tables); "
     "shard OR quantize, not both")
+MOE_TP_MESSAGES = {
+    "quantize_moe_experts": (
+        "quantize_moe_experts is a single-replica serving path (quantized "
+        "expert leaves bypass the tp rule tables); shard OR quantize, not "
+        "both"),
+    "moe_grouped_dispatch": (
+        "moe_grouped_dispatch is a single-replica serving path (the "
+        "grouped GEMM bypasses the ep/tp all-to-all dispatch); shard OR "
+        "group, not both")}
 
 
 def _refuse_unported(config: DeepSpeedInferenceConfig) -> None:
@@ -65,10 +82,7 @@ def _refuse_unported(config: DeepSpeedInferenceConfig) -> None:
         raise NotImplementedError(INT8_DTYPE_MESSAGE)
     if config.quantize_weights and config.tensor_parallel.tp_size > 1:
         raise NotImplementedError(QUANTIZE_TP_MESSAGE)
-    if config.quantize_moe_experts or config.moe_grouped_dispatch:
-        raise NotImplementedError(
-            "quantize_moe_experts / moe_grouped_dispatch: MoE serving is "
-            "not ported yet (ROADMAP Slice D item 12)")
+    refuse_moe_tp(config)
     if max(1, config.tensor_parallel.tp_size) > 1:
         raise NotImplementedError(
             f"tensor_parallel.tp_size {config.tensor_parallel.tp_size}: "
@@ -76,15 +90,42 @@ def _refuse_unported(config: DeepSpeedInferenceConfig) -> None:
             "item 12)")
 
 
+def refuse_moe_tp(config) -> None:
+    """JAX's refusals of the MoE serving switches under tensor parallelism
+    (raised before the port's own refusal of tp > 1)."""
+    if config.tensor_parallel.tp_size > 1:
+        for name, message in MOE_TP_MESSAGES.items():
+            if getattr(config, name):
+                raise NotImplementedError(message)
+
+
 def load_weights(model, params, config, dtype, device) -> None:
     """The serving weights, as the JAX engine builds its tree: ``params``
     (a JAX-layout tree or flat mapping) or drawn from ``config.seed``;
     weight-only int8 per ``config.quantize_weights`` or a pre-quantized
-    tree, leaf by leaf; every float leaf in the serving ``dtype``."""
+    tree, leaf by leaf; the routed experts int8 per
+    ``config.quantize_moe_experts``; every float leaf in the serving
+    ``dtype``."""
     gen = (torch.Generator(device=device).manual_seed(config.seed)
            if params is None else None)
     load_serving_params(model, params, gen, dtype,
-                        quantize=config.quantize_weights)
+                        quantize=config.quantize_weights,
+                        quantize_experts=config.quantize_moe_experts)
+
+
+def serving_model(model, config):
+    """The module an engine serves: ``model`` itself, or for an MoE model
+    a shallow copy (sharing its parameters) whose ``moe_serving_dispatch``
+    is ``config.moe_grouped_dispatch`` and whose training-engine dispatcher
+    and telemetry are stripped, as the JAX engine binds the flag to its own
+    copy so that a later engine's mode never leaks into an earlier one's."""
+    if not hasattr(model, "moe_serving_dispatch"):
+        return model
+    module = copy.copy(model)
+    module.moe_serving_dispatch = bool(config.moe_grouped_dispatch)
+    module.moe_dispatcher = None
+    module.moe_router_telemetry = False
+    return module
 
 
 class InferenceEngine:
@@ -94,13 +135,13 @@ class InferenceEngine:
                  params: Optional[PyTree] = None):
         _refuse_unported(config)
         self._config = config
-        self.module = model
         self.dtype = config.torch_dtype
         self.device = model.device
         if params is None and config.checkpoint:
             params = self._load_checkpoint_params(config.checkpoint)
         load_weights(model, params, config, self.dtype, self.device)
         model.eval()
+        self.module = serving_model(model, config)
         self.model_config: ModelConfig | None = getattr(model, "config",
                                                         None)
         self._cache_len = config.max_out_tokens

@@ -16,8 +16,8 @@ from .engine_v2 import (InferenceEngineV2, RaggedInferenceEngineConfig,
 __all__ = ["build_engine", "build_hf_engine", "SUPPORTED_MODEL_TYPES"]
 
 # the JAX package's table (reference engine_factory.py names + bloom, gptj,
-# gptneox, internlm); mixtral and qwen2_moe are refused by the model until
-# MoE is ported (ROADMAP Slice D item 12)
+# gptneox, internlm); mixtral and qwen2_moe serve with every expert on the
+# card (moe/)
 SUPPORTED_MODEL_TYPES = ("gpt2", "llama", "mistral", "mixtral", "falcon",
                          "opt", "phi", "phi3", "qwen", "qwen2", "qwen2_moe",
                          "bloom", "gptj", "gptneox", "internlm")

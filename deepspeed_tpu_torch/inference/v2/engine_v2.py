@@ -47,7 +47,7 @@ from ...ops.quantization import KV_STORE_DTYPES
 from ...utils.logging import log_dist
 from ..config import DeepSpeedInferenceConfig
 from ..engine import (INT8_DTYPE_MESSAGE, QUANTIZE_TP_MESSAGE,
-                      load_weights)
+                      load_weights, refuse_moe_tp, serving_model)
 from ...runtime.config_utils import DeepSpeedConfigModel
 from .fused_graph import CapturedLoop, FusedState, RingState
 from .paged import (KERNEL_DTYPES, fused_decode_loop, fused_serve_loop,
@@ -67,6 +67,16 @@ SERVING_COUNTER_KEYS = (
     "host_dispatches", "fused_dispatches", "fused_steps", "fused_slots",
     "fused_slot_tokens", "fused_live_slots", "decoded_tokens",
     "spec_proposed_tokens", "spec_accepted_tokens", "spec_hit_slots")
+
+
+# the grouped MoE form reads its group sizes on the host, so no graph takes
+# it; the capacity form, which drops tokens, is never put in its place
+GROUPED_UNCAPTURED = (
+    "moe_grouped_dispatch in a fused dispatch on the card: the grouped MoE "
+    "GEMMs read their group sizes on the host and a CUDA graph cannot "
+    "capture them (ROADMAP Queue 2, kernel work: the routed-expert GEMMs); "
+    "serve the grouped form through generate()/put(), or the "
+    "capacity form (moe_grouped_dispatch off) through the fused loops")
 
 
 def _bucket(n: int, lo: int = 1) -> int:
@@ -253,10 +263,10 @@ def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
         raise NotImplementedError(INT8_DTYPE_MESSAGE)
     if config.quantize_weights and config.tensor_parallel.tp_size > 1:
         raise NotImplementedError(QUANTIZE_TP_MESSAGE)
+    refuse_moe_tp(config)
     unported = [
         (config.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1",
          "tensor-parallel serving"),
-        (config.quantize_moe_experts, "quantize_moe_experts", "MoE serving"),
         (config.checkpoint is not None, "checkpoint", "checkpoint loading"),
     ]
     for on, what, item in unported:
@@ -274,7 +284,6 @@ class InferenceEngineV2:
         _refuse_unported(config)
         self._config = config
         self.dtype = config.torch_dtype
-        self.model = model
         c = model.config
         self.device = model.device
         if self.device.type == "cuda" and \
@@ -286,6 +295,8 @@ class InferenceEngineV2:
         # quantized per quantize_weights, cast to the serving dtype — what
         # the JAX v1 engine does for the v2 engine at tp=1
         load_weights(model, params, config, self.dtype, self.device)
+        # an MoE model's copy with the config's dispatch form (v1's)
+        self.model = serving_model(model, config)
 
         bs = config.kv_block_size
         # quantized KV: the pool's storage and the block budget are
@@ -350,13 +361,19 @@ class InferenceEngineV2:
     def _run(self, uids: list[int]) -> torch.Tensor:
         """One forward over the pending tokens of `uids` (each advances
         min(pending, chunk) tokens). Returns last-token logits
-        [len(uids), V]."""
+        [len(uids), V]. A model whose pad slots route (the capacity MoE
+        form: capacity counts every slot of the chunk, and pads claim
+        expert slots) runs JAX's padded chunk: the batch and chunk
+        buckets, pad rows on seqs[0]'s table with no tokens to write."""
         mgr = self.state_manager
         seqs = [mgr.seqs[u] for u in uids]
         s = min(max(q.pending for q in seqs), self._chunk)
-        tokens = np.zeros((len(seqs), s), np.int64)
-        pos0 = np.zeros((len(seqs),), np.int32)
-        true_len = np.zeros((len(seqs),), np.int32)
+        rows = len(seqs)
+        if self.model.routes_pads:
+            s, rows = _bucket(s), _batch_bucket(rows)
+        tokens = np.zeros((rows, s), np.int64)
+        pos0 = np.zeros((rows,), np.int32)
+        true_len = np.zeros((rows,), np.int32)
         for i, seq in enumerate(seqs):
             n = min(seq.pending, s)
             tokens[i, :n] = seq.tokens[seq.seen:seq.seen + n]
@@ -364,17 +381,20 @@ class InferenceEngineV2:
             true_len[i] = n
         # the block table narrowed to the live context
         live_blocks = -(-int((pos0 + true_len).max()) // mgr.block_size)
-        tables = np.stack([mgr.block_table(q)[:live_blocks] for q in seqs])
+        tables = np.stack([mgr.block_table(q)[:live_blocks] for q in seqs]
+                          + [mgr.block_table(seqs[0])[:live_blocks]]
+                          * (rows - len(seqs)))
         self.serving_stats["host_dispatches"] += 1
         dev = self.device
         logits, self.pools = paged_forward(
             self.model, self.pools, torch.from_numpy(tokens).to(dev),
             torch.from_numpy(pos0).to(dev), torch.from_numpy(tables).to(dev),
-            torch.from_numpy(true_len).to(dev))
+            torch.from_numpy(true_len).to(dev),
+            pads=bool((true_len < s).any()))
         for i, seq in enumerate(seqs):
             seq.seen += int(true_len[i])
             mgr.publish_full_blocks(seq)
-        return logits
+        return logits[:len(seqs)]
 
     # ------------------------------------------------------------------
     # reference API
@@ -936,6 +956,8 @@ class InferenceEngineV2:
         if fn is not None:
             return fn
         if state.device.type == "cuda":
+            if getattr(self.model, "moe_serving_dispatch", False):
+                raise NotImplementedError(GROUPED_UNCAPTURED)
             graph = CapturedLoop(
                 state, lambda st: eager(st, num_steps, **loop_kw),
                 lambda st: eager(st, 1, **loop_kw))

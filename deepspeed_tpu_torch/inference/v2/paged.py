@@ -163,6 +163,41 @@ def paged_attention_plain(q, k_new, v_new, k_pool, v_pool, block_tables,
     return out.to(q.dtype)
 
 
+def dead_row_attention(v_new, v_pool, block_tables, pos0, *,
+                       window: int | None = None, v_scale=None, rows=None):
+    """The attention output of JAX's blocked-flash kernel at a query slot
+    past ``true_len`` [B, Hkv, D] (fp32): the mean of V over every key
+    the kernel visits for the row, all ``bs`` slots of the pages t <
+    ceil(pos0 / bs) (those of the window where one is set) and the chunk's
+    S fresh keys, since every score there is -1e30 and each weighs 1. The
+    port's kernel writes zeros there. Nothing reads those outputs, except
+    where pad slots route: a capacity MoE layer sends them to experts, so
+    they may take slots from real tokens, and there they must be JAX's.
+
+    ``rows`` [B] bool marks the rows that hold a pad slot; the others get
+    a value nobody reads, and their pages are not read from memory: every
+    page the pass must not visit is block 0, which the gather then reads
+    from cache. Each page is summed over its slots in fp32 and the pages
+    weighted by whether the row visits them."""
+    b, sq, hkv, d = v_new.shape
+    nb, bs = v_pool.shape[:2]
+    width = block_tables.shape[1]
+    t = torch.arange(width, device=v_new.device)
+    pos0 = pos0.long()
+    live = t[None, :] < (pos0[:, None] + bs - 1) // bs
+    if window is not None:
+        live &= (t[None, :] + 1) * bs > pos0[:, None] - window
+    keep = live if rows is None else live & rows[:, None]
+    idx = torch.where(keep, block_tables.long().clamp(0, nb - 1), 0)
+    pages = (v_pool.index_select(0, idx.reshape(-1)) if v_scale is None
+             else dequantize_pages(v_pool, v_scale, idx))
+    sums = pages.reshape(b, width, bs, hkv, d).sum(2, dtype=torch.float32)
+    total = (sums * keep[:, :, None, None].float()).sum(1) \
+        + v_new.sum(1, dtype=torch.float32)
+    count = live.sum(1) * bs + sq
+    return total / count[:, None, None].float()
+
+
 def split_keys(dtype, head_dim: int) -> int:
     """Keys a split of the decode split: ``SPLIT_KEYS``, or half of it for
     fp32 at D 256, whose staged K and V of 128 keys (256 KiB) would pass a
@@ -442,7 +477,8 @@ def _pool_write(pool: torch.Tensor, new: torch.Tensor, plan) -> None:
 def paged_forward(model, pools: dict, tokens: torch.Tensor,
                   pos0: torch.Tensor, block_tables: torch.Tensor,
                   true_len: torch.Tensor, use_kernel: bool = True,
-                  attention=None, all_logits: bool = False):
+                  attention=None, all_logits: bool = False,
+                  pads: bool = True):
     """Full model pass over a chunk of new tokens with paged KV.
 
     tokens [B, S]; pos0 [B]; block_tables [B, max_blocks]; true_len [B]
@@ -476,14 +512,19 @@ def paged_forward(model, pools: dict, tokens: torch.Tensor,
 
     Norms: the kernel of ``ops/norms.py`` on CUDA; ``use_kernel=False``
     takes their plain versions as well, so that pass is plain throughout.
+
+    ``pads=False`` says that no slot lies past ``true_len`` (the caller
+    knows it on the host), so a model whose pad slots route skips their
+    attention values (:func:`dead_row_attention`).
     """
     with plain_norms(not use_kernel):
         return _paged_layers(model, pools, tokens, pos0, block_tables,
-                             true_len, use_kernel, attention, all_logits)
+                             true_len, use_kernel, attention, all_logits,
+                             pads)
 
 
 def _paged_layers(model, pools, tokens, pos0, block_tables, true_len,
-                  use_kernel, attention, all_logits):
+                  use_kernel, attention, all_logits, pads):
     b, s = tokens.shape
     dev = tokens.device
     ar = torch.arange(s, device=dev)
@@ -503,6 +544,11 @@ def _paged_layers(model, pools, tokens, pos0, block_tables, true_len,
                        ar[None, :] < true_len[:, None], bs,
                        pools["k"].shape[1])
     fresh = []                  # each layer's chunk k/v, written at the end
+    # pad slots that route through a capacity MoE layer get JAX's values
+    routes_pads = pads and model.routes_pads
+    if routes_pads:
+        slot_live = ar[None, :] < true_len[:, None]
+        pad_rows = true_len < s
     for layer in range(model.config.num_layers):
         p = model.layer_params(layer)
         k_pool, v_pool = pools["k"][layer], pools["v"][layer]
@@ -530,13 +576,20 @@ def _paged_layers(model, pools, tokens, pos0, block_tables, true_len,
             v_pages = place_in_pages(v_pages, v, pos0, true_len)
             a = paged_attention(q, k_pages, v_pages, pos0, window=window,
                                 alibi_slopes=alibi)
+        if routes_pads:
+            dead = dead_row_attention(
+                v, v_pool, block_tables, pos0, window=window,
+                v_scale=v_scale, rows=pad_rows).repeat_interleave(q.shape[2] // v.shape[2],
+                                                   dim=1)
+            a = torch.where(slot_live[:, :, None, None], a,
+                            dead[:, None].to(a.dtype))
         fresh.append((k, v))
         if model.config.parallel_residual:
-            m = model._mlp(p, model._parallel_mlp_input(p, x, h))
+            m, _ = model._mlp(p, model._parallel_mlp_input(p, x, h))
             x = x + model._attn_out(p, a) + m
         else:
             x = x + model._attn_out(p, a)
-            x = model._mlp_residual(p, x)
+            x, _ = model._mlp_residual(p, x)
     # in-place pool write of every layer's chunk k/v (see docstring)
     new = {n: torch.stack([kv[i] for kv in fresh]).flatten(1, 2)
            for i, n in enumerate("kv")}                    # [L, B*S, H, D]

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..moe.sharded_moe import quantize_expert_leaf
 from ..ops.quantization import quantize_dense_leaf, quantizes
 
 
@@ -125,7 +126,8 @@ def _check_shape(name: str, got, want) -> None:
 
 @torch.no_grad()
 def load_serving_params(model, tree: dict | None, generator, dtype,
-                        quantize: bool, min_size: int = 1 << 16) -> None:
+                        quantize: bool, min_size: int = 1 << 16,
+                        quantize_experts: bool = False) -> None:
     """The serving engines' weights, leaf by leaf in the model's init order,
     as the JAX engine builds its tree: each float leaf copied from ``tree``
     (a JAX-layout tree or flat mapping) or drawn from ``generator`` (fp32,
@@ -136,7 +138,14 @@ def load_serving_params(model, tree: dict | None, generator, dtype,
     pair in ``tree`` (a pre-quantized tree) is taken as it is, its scales
     cast. Names and shapes must match as :func:`load_jax_params` wants
     them (a pair: the codes the leaf's shape, the scales that shape with
-    the contraction axis, -2, reduced to 1). A leaf that already is the
+    the contraction axis, -2, reduced to 1). With ``quantize_experts``
+    (the engines' ``quantize_moe_experts``), each routed-expert leaf
+    (``layers/experts/*``) left float is cast to ``dtype`` and then
+    quantized by ``moe.quantize_experts`` with scales in ``dtype``, as the
+    JAX engine casts its tree before it quantizes the experts. A leaf the
+    model names in ``layerwise_draws`` and ``tree`` does not give is drawn
+    and converted a layer at a time (Mixtral-8x7B's expert stacks are 60
+    GB each in fp32). A leaf that already is the
     model's parameter is kept (engines built over one model share its
     weights); any other given tensor is copied. One leaf's float values
     exist on the device at a time, so the float tree never does (the
@@ -181,19 +190,42 @@ def load_serving_params(model, tree: dict | None, generator, dtype,
             _check_shape(name, leaf.shape, shape)
         quantized = quantize and quantizes(name, torch.empty(
             shape, device="meta"), min_size)
-        if (leaf is not None and not quantized and name in params
-                and _shares(leaf, params[name])):
+        expert_q = (quantize_experts and not quantized
+                    and name.startswith("layers/experts/"))
+        if (leaf is not None and not quantized and not expert_q
+                and name in params and _shares(leaf, params[name])):
             continue
-        value = (_leaf_tensor(leaf, dev) if leaf is not None
-                 else model.draw(name, generator))
-        if quantized:
-            q, s = quantize_dense_leaf(value, dtype)
+
+        def convert(value):
+            if quantized:
+                return quantize_dense_leaf(value, dtype)
+            if expert_q:
+                return quantize_expert_leaf(value.to(dtype), dtype)
+            return value.to(dtype)
+
+        if leaf is None and name in model.layerwise_draws:
+            value = None
+            for i in range(shape[0]):
+                got = convert(model.draw(name, generator, layer=i))
+                got = got if isinstance(got, tuple) else (got,)
+                if value is None:
+                    value = tuple(torch.empty((shape[0], *t.shape),
+                                              dtype=t.dtype, device=dev)
+                                  for t in got)
+                for out, t in zip(value, got):
+                    out[i] = t
+            if len(value) == 1:
+                value = value[0]
+        else:
+            value = convert(_leaf_tensor(leaf, dev) if leaf is not None
+                            else model.draw(name, generator))
+        if isinstance(value, tuple):
+            q, s = value
             del value
             drop(name)
             put(name + "_q", q, requires_grad=False)
             put(name + "_s", s)
             continue
-        value = value.to(dtype)
         if isinstance(leaf, torch.Tensor) and \
                 value.data_ptr() == leaf.data_ptr():
             value = value.clone()       # never alias the caller's tensor

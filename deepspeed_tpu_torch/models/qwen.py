@@ -1,12 +1,16 @@
 """Qwen family (counterpart of ``deepspeed_tpu/models/qwen.py``: the same
-presets and defaults): llama-style decoders with qkv biases. Qwen2-MoE's
-preset is here for the registry; the model is refused, as MoE models are
-not ported yet (ROADMAP Slice D item 12)."""
+presets and defaults): llama-style decoders with qkv biases, and
+Qwen2-MoE, Mixtral's routed experts plus a shared expert."""
 
 from __future__ import annotations
 
+import torch
+
+from ..ops import layers as L
+from ..ops.quantization import dequantize_dense
 from .base import ModelConfig, register_model
-from .transformer import DecoderLM
+from .mixtral import Mixtral
+from .transformer import _STD, DecoderLM
 
 
 def qwen_config(size: str = "7b", **overrides) -> ModelConfig:
@@ -95,9 +99,12 @@ class Qwen2(DecoderLM):
 
 
 @register_model("qwen2_moe")
-class Qwen2MoE(DecoderLM):
-    """Routed experts and a shared expert (JAX ``Qwen2MoE``): refused by
-    :class:`DecoderLM` until MoE is ported (ROADMAP Slice D item 12)."""
+class Qwen2MoE(Mixtral):
+    """Routed experts plus a shared expert whose output is added through a
+    sigmoid gate (JAX ``Qwen2MoE``; reference: qwen_v2_moe modules). The
+    n shared experts are one n-times-wider SwiGLU MLP, ``layers/shared/
+    {w_gate, w_up}`` [L, d, n*f], ``w_down`` [L, n*f, d] and ``gate_proj``
+    [L, d, 1]."""
 
     def __init__(self, config: ModelConfig | None = None,
                  size: str | None = None, *, device=None, dtype=None,
@@ -108,3 +115,37 @@ class Qwen2MoE(DecoderLM):
             raise ValueError(
                 "pass either an explicit config or size/overrides, not both")
         super().__init__(config, device=device, dtype=dtype)
+
+    def _param_spec(self):
+        spec = super()._param_spec()
+        c = self.config
+        if c.moe_num_shared_experts <= 0:
+            return spec
+        d, nl = c.hidden_size, c.num_layers
+        fs = c.intermediate_size * c.moe_num_shared_experts
+        spec.update({
+            "layers/shared/w_gate": ((nl, d, fs), _STD),
+            "layers/shared/w_up": ((nl, d, fs), _STD),
+            "layers/shared/w_down": ((nl, fs, d), _STD / (2 * nl) ** 0.5),
+            "layers/shared/gate_proj": ((nl, d, 1), _STD),
+        })
+        return spec
+
+    def _mlp(self, p: dict, h):
+        out, aux = super()._mlp(p, h)
+        sh = {k[7:]: v for k, v in p.items() if k.startswith("shared/")}
+        if not sh:
+            return out, aux
+        # weight-only int8 quantizes the shared matrices like any other
+        # layer-stacked leaves; dequantized here, at their use
+        sh = dequantize_dense(sh, h.dtype)
+        shared = (L.silu(h @ sh["w_gate"]) * (h @ sh["w_up"])) @ sh["w_down"]
+        gate = torch.sigmoid(h @ sh["gate_proj"])
+        return out + gate * shared, aux
+
+    def partition_rules(self):
+        return super().partition_rules() + [
+            (r"layers/shared/(w_gate|w_up)$", (None, None, "tp")),
+            (r"layers/shared/w_down$", (None, "tp", None)),
+            (r"layers/shared/gate_proj$", ()),
+        ]

@@ -96,10 +96,6 @@ class DecoderLM(nn.Module):
         c = config
         dev = resolve_device(device)
         dt = dtype or c.param_dtype
-        if c.num_experts > 0:
-            raise NotImplementedError(
-                "MoE models (mixtral, qwen2_moe) are not ported yet "
-                "(ROADMAP Slice D item 12: moe/)")
         check_training_options(c)
         if c.position_embedding == "rope":
             # partial rotary (rotary_pct < 1) rotates only the first
@@ -198,13 +194,28 @@ class DecoderLM(nn.Module):
             self.params[name].copy_(self.draw(name, generator))
 
     @torch.no_grad()
-    def draw(self, name: str, generator: torch.Generator | None = None
-             ) -> torch.Tensor:
+    def draw(self, name: str, generator: torch.Generator | None = None,
+             layer: int | None = None) -> torch.Tensor:
         """Leaf ``name``'s initial value in fp32 on the model's device, the
         next draw of ``generator`` (:meth:`init_params` draws the leaves in
-        the order of ``_init_spec``)."""
+        the order of ``_init_spec``); with ``layer``, one layer of a
+        stacked leaf ([L, ...] -> [...]), for loaders that build a leaf a
+        layer at a time (:attr:`layerwise_draws`)."""
         shape, init = self._init_spec[name]
+        if layer is not None:
+            shape = shape[1:]
         return init_value(shape, init, self.device, generator)
+
+    # stacked leaves whose random serving values are drawn a layer at a
+    # time (models/convert.py load_serving_params): none of a dense model's
+    layerwise_draws: frozenset = frozenset()
+
+    @property
+    def routes_pads(self) -> bool:
+        """Whether the pad slots of a serving chunk change the real tokens'
+        outputs: true of a capacity-routed FFN, whose pads claim expert
+        slots (the serving engines then pad as JAX pads)."""
+        return False
 
     # ---------------- weights ----------------
     @contextlib.contextmanager
@@ -307,9 +318,10 @@ class DecoderLM(nn.Module):
             out = out + p["wo_b"]
         return out
 
-    def _mlp(self, p: dict, h: torch.Tensor) -> torch.Tensor:
-        """Dense FFN."""
-        return self._mlp_down(p, self._mlp_hidden(p, h))
+    def _mlp(self, p: dict, h: torch.Tensor):
+        """Dense FFN: (out, aux), aux the router loss (None: a dense FFN
+        has none; JAX's is 0). MoE subclasses override it."""
+        return self._mlp_down(p, self._mlp_hidden(p, h)), None
 
     def _mlp_hidden(self, p: dict, h: torch.Tensor) -> torch.Tensor:
         """The FFN's activation (JAX's checkpoint name "ffn"): the input
@@ -334,9 +346,10 @@ class DecoderLM(nn.Module):
             m = m + p["w_down_b"]
         return m
 
-    def _mlp_residual(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+    def _mlp_residual(self, p: dict, x: torch.Tensor):
         h = self._norm(x, p["ln2_scale"], p.get("ln2_bias"))
-        return x + self._mlp(p, h)
+        m, aux = self._mlp(p, h)
+        return x + m, aux
 
     def _parallel_mlp_input(self, p: dict, x, h):
         """MLP input of parallel-residual blocks: GPT-NeoX norms the raw
@@ -364,15 +377,16 @@ class DecoderLM(nn.Module):
         return L.dot_product_attention(q, k, v, causal=True, bias=bias)
 
     def block(self, p: dict, x: torch.Tensor,
-              positions: torch.Tensor | None = None) -> torch.Tensor:
-        """One transformer block over a contiguous causal sequence."""
+              positions: torch.Tensor | None = None):
+        """One transformer block over a contiguous causal sequence: (x,
+        aux), aux the FFN's router loss (None for a dense FFN)."""
         c = self.config
         h = self._norm(x, p["ln1_scale"], p.get("ln1_bias"))
         q, k, v = self._qkv(p, h, positions)
         a = self._attention(q, k, v)
         if c.parallel_residual:
-            m = self._mlp(p, self._parallel_mlp_input(p, x, h))
-            return x + self._attn_out(p, a) + m
+            m, aux = self._mlp(p, self._parallel_mlp_input(p, x, h))
+            return x + self._attn_out(p, a) + m, aux
         x = x + self._attn_out(p, a)
         return self._mlp_residual(p, x)
 
@@ -400,8 +414,8 @@ class DecoderLM(nn.Module):
         a = self._attention(q, k, v)
         if c.parallel_residual:
             def seg_out(x, a, h):
-                m = self._mlp(p, self._parallel_mlp_input(p, x, h))
-                return x + self._attn_out(p, a) + m
+                m, aux = self._mlp(p, self._parallel_mlp_input(p, x, h))
+                return x + self._attn_out(p, a) + m, aux
 
             return checkpoint(seg_out, x, a, h, use_reentrant=False)
         if isinstance(p, dict):
@@ -432,7 +446,8 @@ class DecoderLM(nn.Module):
         - the output projection, the residual, the second norm, the up
           projection and the activation, checkpointed on the block input
           and the attention output; the down projection outside keeps
-          "ffn".
+          "ffn". A routed FFN names no "ffn" (JAX's MoE FFN saves nothing
+          inside), so the whole FFN is in the checkpoint.
         """
         c = self.config
 
@@ -449,7 +464,12 @@ class DecoderLM(nn.Module):
                 return self._mlp_hidden(p, self._parallel_mlp_input(p, x, h))
 
             m = checkpoint(seg_ffn, x, use_reentrant=False)
-            return x + self._attn_out(p, a) + self._mlp_down(p, m)
+            return x + self._attn_out(p, a) + self._mlp_down(p, m), None
+        if c.num_experts > 0:
+            def seg_moe(x, a):
+                return self._mlp_residual(p, x + self._attn_out(p, a))
+
+            return checkpoint(seg_moe, x, a, use_reentrant=False)
 
         def seg_ffn(x, a):
             x = x + self._attn_out(p, a)
@@ -457,7 +477,7 @@ class DecoderLM(nn.Module):
             return x, self._mlp_hidden(p, h)
 
         x, m = checkpoint(seg_ffn, x, a, use_reentrant=False)
-        return x + self._mlp_down(p, m)
+        return x + self._mlp_down(p, m), None
 
     def _layers(self):
         """layer -> its parameters (as :meth:`layer_params`), from views
@@ -471,26 +491,32 @@ class DecoderLM(nn.Module):
                                             for k, v in stacks.items()})
 
     def final_hidden(self, tokens: torch.Tensor,
-                     positions: torch.Tensor | None = None) -> torch.Tensor:
+                     positions: torch.Tensor | None = None,
+                     return_aux: bool = False):
         """Hidden states [B, S, D] after the last block, before the final
         norm; under autograd each layer is rematerialised per
-        ``remat_policy``."""
+        ``remat_policy``. ``return_aux``: (x, aux), aux the layers' router
+        losses summed (JAX ``_final_hidden``'s scan carry; None for a
+        dense model)."""
         c = self.config
         recompute = c.remat and torch.is_grad_enabled()
         x = self.embed(tokens, positions)
         layers = self._layers()
+        aux = None
         for layer in range(c.num_layers):
             p = layers(layer)
             if not recompute:
-                x = self.block(p, x, positions)
+                x, layer_aux = self.block(p, x, positions)
             elif c.remat_policy == "segments":
-                x = self._block_segmented(p, x, positions)
+                x, layer_aux = self._block_segmented(p, x, positions)
             elif c.remat_policy == "save_attn_ffn":
-                x = self._block_save_attn_ffn(p, x, positions)
+                x, layer_aux = self._block_save_attn_ffn(p, x, positions)
             else:
-                x = remat(self.block, p, x, positions,
-                          policy=c.remat_policy)
-        return x
+                x, layer_aux = remat(self.block, p, x, positions,
+                                     policy=c.remat_policy)
+            if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
+        return (x, aux) if return_aux else x
 
     def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
         bias = (self._tensor("final_norm/bias")
@@ -520,9 +546,13 @@ class DecoderLM(nn.Module):
         return out
 
     def apply(self, tokens: torch.Tensor,
-              positions: torch.Tensor | None = None) -> torch.Tensor:
-        """Contiguous forward: logits [B, S, V]."""
-        return self.unembed(self.final_hidden(tokens, positions))
+              positions: torch.Tensor | None = None,
+              return_aux: bool = False):
+        """Contiguous forward: logits [B, S, V] (``return_aux``: (logits,
+        the summed router loss, None for a dense model))."""
+        x, aux = self.final_hidden(tokens, positions, return_aux=True)
+        logits = self.unembed(x)
+        return (logits, aux) if return_aux else logits
 
     # ---------------- KV-cache decode (the v1 inference engine) ----------
     def init_cache(self, batch_size: int, max_len: int, dtype=None) -> dict:
@@ -555,10 +585,11 @@ class DecoderLM(nn.Module):
                                window=self.config.sliding_window,
                                alibi_slopes=self._alibi_slopes)
         if self.config.parallel_residual:
-            m = self._mlp(p, self._parallel_mlp_input(p, x, h))
+            m, _ = self._mlp(p, self._parallel_mlp_input(p, x, h))
             return x + self._attn_out(p, a) + m, k_cache, v_cache
         x = x + self._attn_out(p, a)
-        return self._mlp_residual(p, x), k_cache, v_cache
+        x, _ = self._mlp_residual(p, x)
+        return x, k_cache, v_cache
 
     def decode(self, tokens: torch.Tensor, cache: dict):
         """Prefill or incremental decode (JAX ``decode``): ``tokens`` [B,
@@ -597,31 +628,46 @@ class DecoderLM(nn.Module):
 
     def loss(self, batch) -> torch.Tensor:
         """Mean token cross-entropy (fp32) of ``batch``: a
-        ``(tokens, targets)`` pair or a dict with those keys, each [B, S].
-        Dense models add no router loss (the JAX aux term is 0)."""
-        nll, count = self.loss_terms(batch)
-        return nll / torch.clamp(count, min=1)
+        ``(tokens, targets)`` pair or a dict with those keys, each [B, S],
+        plus ``aux_loss_coef() * aux`` for an MoE model (JAX's loss; a
+        dense model's aux term is 0 there and absent here)."""
+        nll, count, aux = self._loss_parts(batch)
+        loss = nll / torch.clamp(count, min=1)
+        if aux is not None:
+            loss = loss + self.aux_loss_coef() * aux
+        return loss
+
+    def aux_loss_coef(self) -> float:
+        return getattr(self.config, "router_aux_loss_coef", 0.0)
 
     def loss_terms(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
-        """The loss as (summed fp32 NLL, count of valid targets), -100
-        targets masked: a caller that splits a batch divides the sum by
-        the count of the whole batch (the engine across ranks)."""
-        tokens, targets = _unpack_batch(batch)
-        if self.config.loss_chunk > 0:
-            return self._chunked_loss(tokens, targets)
-        return L.cross_entropy_terms(self.apply(tokens), targets)
+        """The cross-entropy as (summed fp32 NLL, count of valid targets),
+        -100 targets masked: a caller that splits a batch divides the sum
+        by the count of the whole batch (the engine across ranks, which
+        refuses an MoE model: its router loss is not in these terms)."""
+        nll, count, _ = self._loss_parts(batch)
+        return nll, count
 
-    def _chunked_loss(self, tokens, targets):
-        """Chunked cross-entropy (JAX ``_chunked_loss``): the final-normed
-        hidden states are cut into sequence chunks of ``loss_chunk``; per
-        chunk the vocab projection and the fp32 logsumexp/NLL run under
+    def _loss_parts(self, batch):
+        """(summed NLL, count of valid targets, router aux or None)."""
+        tokens, targets = _unpack_batch(batch)
+        x, aux = self.final_hidden(tokens, return_aux=True)
+        if self.config.loss_chunk > 0:
+            return (*self._chunked_loss(x, targets), aux)
+        return (*L.cross_entropy_terms(self.unembed(x), targets), aux)
+
+    def _chunked_loss(self, x, targets):
+        """Chunked cross-entropy (JAX ``_chunked_loss``) of the last
+        block's output ``x``: the final-normed hidden states are cut into
+        sequence chunks of ``loss_chunk``; per chunk the vocab projection
+        and the fp32 logsumexp/NLL run under
         ``torch.utils.checkpoint``, so only one [B, chunk, V] slab of
         logits lives at a time and the backward recomputes it. The loss
         is the summed NLL over the summed count of valid targets (-100
         masked), not a mean of per-chunk means; returned as the (sum,
         count) pair of :meth:`loss_terms`."""
         c = self.config
-        x = self._final_norm(self.final_hidden(tokens))
+        x = self._final_norm(x)
         w = self._vocab_weight()
         bias = self._vocab_bias()
         s = x.shape[1]

@@ -30,12 +30,32 @@ HP_SIZE = 8
 # Lion's hp: lr, b1, b2, clip coef, apply
 LION_HP_SIZE = 5
 _OUT_DTYPES = {torch.bfloat16: 1, torch.float16: 2}
+# the plain versions take a large flat CPU buffer in slices of this many
+# values, so that their temporaries stay in cache (each op is elementwise:
+# the values are the same)
+CPU_SLICE = 1 << 18
+
+
+def _cpu_slices(buffers):
+    """The buffers' slices of CPU_SLICE values (views, updated in place),
+    or None where the buffers are not large flat CPU tensors."""
+    p = buffers[0]
+    if p.device.type != "cpu" or p.dim() != 1 or p.numel() <= CPU_SLICE:
+        return None
+    return zip(*(b.split(CPU_SLICE) for b in buffers))
 
 
 def adam_plain(p, g, m, v, hp, *, weight_decay: float, adamw_mode: bool,
                out=None):
     """Plain PyTorch version of :func:`fused_adam_step`: the same update
     written on tensors, in place on ``p``, ``m``, ``v`` (and ``out``)."""
+    slices = _cpu_slices((p, g, m, v) + (() if out is None else (out,)))
+    if slices is not None:
+        for part in slices:
+            adam_plain(*part[:4], hp, weight_decay=weight_decay,
+                       adamw_mode=adamw_mode,
+                       out=part[4] if out is not None else None)
+        return
     lr, b1, b2, eps, c1, c2, coef, apply = hp.unbind(0)
     g = g * coef
     if weight_decay and not adamw_mode:
@@ -183,6 +203,12 @@ class Adam:
 def lion_plain(p, g, m, hp, *, weight_decay: float, out=None):
     """Plain PyTorch version of :func:`fused_lion_step`: the same update
     written on tensors, in place on ``p``, ``m`` (and ``out``)."""
+    slices = _cpu_slices((p, g, m) + (() if out is None else (out,)))
+    if slices is not None:
+        for part in slices:
+            lion_plain(*part[:3], hp, weight_decay=weight_decay,
+                       out=part[3] if out is not None else None)
+        return
     lr, b1, b2, coef, apply = hp.unbind(0)
     g = g * coef
     u = torch.sign(b1 * m + (1 - b1) * g)

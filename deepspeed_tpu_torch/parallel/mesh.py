@@ -22,7 +22,8 @@ UNPORTED_AXES = {
     "tp": "Slice D item 12 (tensor parallelism, parallel/partition.py)",
     "sp": "Slice D item 12 (sequence/)",
     "pp": "Slice D item 12 (runtime/pipe/)",
-    "ep": "Slice D item 12 (moe/)",
+    "ep": "Slice D item 12, expert parallelism (moe/dispatch.py, "
+          "runtime/comm/moe_alltoall.py)",
     "zps": "Slice D item 11 (hpZ/MiCS, the zps axis)",
 }
 MIXED_DP = "Slice D item 11 (mixed dp x fsdp meshes)"

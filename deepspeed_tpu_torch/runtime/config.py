@@ -3,10 +3,12 @@
 Takes the same DeepSpeed JSON as the JAX ``DeepSpeedConfig``. The blocks
 the training step reads are dataclasses with the JAX field names and
 defaults: batch sizes, ``optimizer``, ``scheduler``, ``fp16``, ``bf16``,
-``zero_optimization``, ``gradient_clipping``, ``steps_per_print``, ``seed``
-and ``activation_checkpointing``. Every other block the JAX config declares
-is accepted by name at its JAX defaults (``UNPORTED``); a key set away from
-its default is a feature the port does not have yet and raises
+``zero_optimization``, ``gradient_clipping``, ``steps_per_print``, ``seed``,
+``activation_checkpointing`` and ``moe`` (its routing overrides; the
+expert-parallel exchange and router telemetry raise). Every other block
+the JAX config declares is accepted by name at its JAX defaults
+(``UNPORTED``); a key set away from its default is a feature the port
+does not have yet and raises
 ``NotImplementedError`` naming its ROADMAP slice. ``mesh`` also takes the
 pure sharded-DP meshes over ranks (``parallel/mesh.py``). An unknown key raises
 ``ValueError``, as everywhere in the port. ``prescale_gradients``,
@@ -25,6 +27,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..moe.sharded_moe import EP_UNPORTED, TELEMETRY_UNPORTED
 from ..parallel.mesh import check_ported
 from .config_utils import DeepSpeedConfigModel
 
@@ -160,9 +163,6 @@ UNPORTED: dict[str, tuple[dict[str, Any], str]] = {
                 "Slice G (analysis/)"),
     "numsan": ({"enabled": False, "mode": "raise", "saturation_ceiling": 0.05,
                 "saturation_probe": True}, "Slice G (analysis/)"),
-    "moe": ({"enabled": None, "wire_dtype": "fp32", "rounding": "stochastic",
-             "capacity_factor": None, "min_capacity": None,
-             "router_telemetry": False}, "Slice D (moe/)"),
     "flops_profiler": ({"enabled": False, "profile_step": 1,
                         "module_depth": -1, "top_modules": 1,
                         "detailed": True, "output_file": None},
@@ -266,6 +266,42 @@ def check_unported_block(name: str, block: dict) -> None:
     _refuse_non_defaults(name, given, defaults, where)
 
 
+MOE_WIRE_DTYPES = ("fp32", "bf16", "int8", "fp8")
+
+
+@dataclasses.dataclass
+class MoEConfig(DeepSpeedConfigModel):
+    """The ``moe`` block (JAX ``MoEConfig``) on one card: the routing
+    overrides ``capacity_factor`` and ``min_capacity`` (None: the model
+    config's values) are bound to an MoE model by the engine. The explicit
+    expert-parallel dispatcher (``enabled: true``) and its narrow wires
+    (``wire_dtype`` other than fp32) raise naming the ep item of Slice D
+    item 12; ``router_telemetry`` raises naming Slice G item 15.
+    ``rounding`` is the int8 wire's and reads nothing without it."""
+    enabled: Optional[bool] = None
+    wire_dtype: str = "fp32"
+    rounding: str = "stochastic"
+    capacity_factor: Optional[float] = None
+    min_capacity: Optional[int] = None
+    router_telemetry: bool = False
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.wire_dtype not in MOE_WIRE_DTYPES:
+            raise ValueError(f"moe.wire_dtype {self.wire_dtype!r}: one of "
+                             f"{MOE_WIRE_DTYPES}")
+        if self.rounding not in ("nearest", "stochastic"):
+            raise ValueError(f"moe.rounding {self.rounding!r}: 'nearest' "
+                             f"or 'stochastic'")
+        if self.enabled or self.wire_dtype != "fp32":
+            what = ("moe.enabled=True" if self.enabled
+                    else f"moe.wire_dtype={self.wire_dtype!r}")
+            raise NotImplementedError(f"{what}: the dispatch exchange of "
+                                      f"{EP_UNPORTED}")
+        if self.router_telemetry:
+            raise NotImplementedError(TELEMETRY_UNPORTED)
+
+
 @dataclasses.dataclass
 class DeepSpeedConfig(DeepSpeedConfigModel):
     train_batch_size: Optional[int] = None
@@ -295,7 +331,7 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
     sentinels: dict = _field(default_factory=dict)
     meshsan: dict = _field(default_factory=dict)
     numsan: dict = _field(default_factory=dict)
-    moe: dict = _field(default_factory=dict)
+    moe: MoEConfig = _field(default_factory=MoEConfig)
     flops_profiler: dict = _field(default_factory=dict)
     tensorboard: dict = _field(default_factory=dict)
     wandb: dict = _field(default_factory=dict)

@@ -36,6 +36,10 @@ elements), and in mixed precision the model's parameters become views of
 one flat compute-dtype buffer, so the fused-Adam or fused-Lion kernel
 updates the whole model, compute copy included, in one launch.
 
+An MoE model (``num_experts > 0``) trains on one card: the ``moe``
+block's ``capacity_factor`` / ``min_capacity`` are bound to it as the JAX
+engine binds them, and at W > 1 it is refused (:data:`MOE_ACROSS_RANKS`).
+
 Across ranks (``torch.distributed`` with world size W > 1, pure
 sharded-DP meshes, ``parallel/mesh.py``) the buffers hold this rank's
 shards of the ZeRO plan (``runtime/zero.py``: the master and optimizer
@@ -83,6 +87,15 @@ from .lr_schedules import LRSchedulerShim, build_schedule
 from .optimizers import build_optimizer
 from .zero import ZeroPlan, ZeroShardingPlan
 from .zeropp import gather_params, reduce_grads
+
+# JAX gates an MoE batch over the global batch (SPMD sees one array): ranks
+# that each gated their own rows would size capacity on a different token
+# count and drop other tokens
+MOE_ACROSS_RANKS = (
+    "an MoE model across ranks: JAX routes over the global batch, and "
+    "ranks routing their own rows would drop other tokens; global gating "
+    "comes with expert parallelism (ROADMAP Slice D item 12, expert "
+    "parallelism, after item 11)")
 
 _ALIGN = 64   # elements: every parameter view starts 128-byte aligned
 
@@ -135,6 +148,9 @@ class DeepSpeedEngine:
                 "(ROADMAP Slice D item 11)")
         if not getattr(model, "loss_splits", True) and self.dp_world > 1:
             raise NotImplementedError(LOSS_FN_ACROSS_RANKS)
+        if getattr(getattr(model, "config", None), "num_experts", 0) > 0 \
+                and self.dp_world > 1:
+            raise NotImplementedError(MOE_ACROSS_RANKS)
         self.zero = ZeroPlan(self.config.zero_optimization)
         self.zero_stage = self.zero.stage
         (self.train_batch_size_, self.micro_batch_size_,
@@ -143,6 +159,14 @@ class DeepSpeedEngine:
 
         self.module = model
         self.model_config = model.config
+        if hasattr(model, "moe_dispatcher"):
+            # the moe block's routing overrides, (re)set on every engine so
+            # a model reused across engines carries no stale value
+            moe = self.config.moe
+            model.moe_dispatcher = None
+            model.moe_capacity_factor = moe.capacity_factor
+            model.moe_min_capacity = moe.min_capacity
+            model.moe_router_telemetry = bool(moe.router_telemetry)
         self.device = next(iter(model.params.values())).device
         # activation_checkpointing.policy set explicitly overrides the
         # model's remat policy ("none" turns remat off), as in JAX; a

@@ -2572,3 +2572,109 @@ def test_hf_directory_round_trip_on_the_card(cuda, tmp_path):
     toks = np.asarray([prompts[0]])
     assert torch.equal(v1.generate(toks, max_new_tokens=6),
                        v1_ref.generate(toks, max_new_tokens=6))
+
+
+def _moe_tree(family, seed=4):
+    """A tiny MoE family's fp32 weights drawn on the CPU (every leaf
+    perturbed from its init, so the routers drop tokens)."""
+    from deepspeed_tpu_torch.models import get_model_class
+    src = get_model_class(family)(size="tiny", device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        return {n: src.draw(n, gen) + 0.05 * torch.randn(
+            p.shape, generator=gen) for n, p in src.params.items()}
+
+
+@pytest.mark.parametrize("family", ["mixtral", "qwen2_moe"])
+def test_moe_families_on_the_card_match_the_cpu(cuda, family):
+    """The tiny MoE families in fp32 on the card against the CPU from the
+    same weights: build_engine's first prefill logits at 1e-4 of their
+    largest and its greedy tokens through generate() and generate_fused
+    (captured graphs of the capacity form), the grouped form and the int8
+    experts (their codes and scales bit-equal); initialize (flash, segments, fused Adam, clip) for 3 steps,
+    losses at 1e-4 relative, as the dense families' training test."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import get_model_class
+    tree = _moe_tree(family)
+    ecfg = {"dtype": "float32", "kv_block_size": 8, "num_kv_blocks": 64,
+            "max_chunk_size": 32}
+    prompts = [list(range(3, 14)), list(range(40, 60)), [5, 6, 7]]
+    for over in ({}, {"moe_grouped_dispatch": True},
+                 {"quantize_moe_experts": True}):
+        runs = []
+        for dev in ("cpu", cuda):
+            eng = build_engine(family, "tiny", dict(ecfg, **over),
+                               params=tree, device=dev)
+            logits = eng.put([7], [prompts[1]])[0].float().cpu()
+            eng.flush(7)
+            runs.append((logits, eng.generate(prompts, max_new_tokens=6),
+                         None if over else eng.generate_fused(
+                             prompts, max_new_tokens=6, k_steps=3),
+                         {n: t.cpu() for n, t in eng.model.params.items()
+                          if n.startswith("layers/experts/")}))
+        (lc, tc, fc, ec), (lg, tg, fg, eg) = runs
+        assert float((lg - lc).abs().max() / lc.abs().max()) < 1e-4, over
+        assert tg == tc and fg == fc, over
+        # the int8 experts' codes and scales bit for bit (JAX's amax / 127)
+        assert all(torch.equal(eg[n], t) for n, t in ec.items()), over
+    cfg = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "FusedAdam", "params": {
+               "lr": 1e-3, "weight_decay": 0.01, "fused_kernel": True}},
+           "gradient_clipping": 0.5, "zero_optimization": {"stage": 2}}
+    tok = np.random.default_rng(0).integers(0, 512, (4, 65))
+    batch = (tok[:, :-1], tok[:, 1:])
+    losses = []
+    for dev in ("cpu", cuda):
+        model = get_model_class(family)(size="tiny", device=dev,
+                                        remat_policy="segments",
+                                        attn_impl="flash")
+        eng, *_ = ds.initialize(model=model, config=cfg, model_parameters={
+            n: t.clone() for n, t in tree.items()})
+        losses.append([float(eng.train_batch(batch)) for _ in range(3)])
+    torch.testing.assert_close(losses[1], losses[0], atol=0, rtol=1e-4)
+    assert losses[1][-1] < losses[1][0]
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_moe_ffn_on_the_card_matches_the_einsum_form(cuda, k):
+    """The index-form moe_ffn on the card in bf16, router columns tied in
+    pairs (their logits equal, the lower expert first), against the plain
+    one-hot einsum form of JAX's moe_ffn written from top_k_gating's
+    tables on the same inputs: the same routing (dispatch tables equal),
+    the outputs at bf16's 3e-2 of their largest, and a CUDA graph of the
+    call replaying it bit for bit."""
+    from deepspeed_tpu_torch.moe import sharded_moe as sm
+    gen = torch.Generator().manual_seed(k)
+    n, d, e, f = 512, 256, 16, 512
+    x = torch.randn(2, n // 2, d, generator=gen).to(cuda, torch.bfloat16)
+    gate_w = 0.05 * torch.randn(d, e, generator=gen)
+    gate_w[:, 1::2] = gate_w[:, 0::2]
+    gate_w = gate_w.to(cuda, torch.bfloat16)
+    experts = {m: (0.05 * torch.randn(e, *sh, generator=gen)).to(
+        cuda, torch.bfloat16) for m, sh in (("w_up", (d, f)),
+                                            ("w_gate", (d, f)),
+                                            ("w_down", (f, d)))}
+    out, aux = sm.moe_ffn(x, gate_w, experts, k=k, capacity_factor=1.0)
+    xt = x.reshape(n, d)
+    logits = xt @ gate_w
+    assert bool((logits[:, 0::2] == logits[:, 1::2]).all())
+    combine, dispatch, ref_aux, metrics = sm.top_k_gating(logits, k)
+    cpu_dispatch = sm.top_k_gating(logits.cpu(), k)[1]
+    assert torch.equal(dispatch.cpu(), cpu_dispatch)
+    expert_in = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype), xt)
+    ref = torch.einsum("nec,ecd->nd", combine.to(x.dtype),
+                       sm._expert_ffn(expert_in, experts, "swiglu"))
+    err = float((out.reshape(n, d) - ref).abs().max() / ref.abs().max())
+    assert err < 3e-2, err
+    assert float(metrics["drop_fraction"]) > 0
+    torch.testing.assert_close(aux, ref_aux)
+    static = torch.empty_like(out)
+    graph = torch.cuda.CUDAGraph()
+    sm.moe_ffn(x, gate_w, experts, k=k, capacity_factor=1.0)   # warm-up
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        static.copy_(sm.moe_ffn(x, gate_w, experts, k=k,
+                                capacity_factor=1.0)[0])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, out)

@@ -143,3 +143,27 @@ def test_cpu_step_is_the_plain_version():
                     weight_decay=0.0, adamw_mode=True)
     assert fused_adam_step.launches == before
     assert torch.all(p < 0)
+
+
+@pytest.mark.parametrize("copy", [False, True])
+def test_plain_version_in_slices_is_bit_equal(copy, monkeypatch):
+    """A flat CPU buffer larger than CPU_SLICE is updated a slice at a
+    time (the last one short), with the bf16 copy too: every value equal
+    to the update of the whole buffer at once."""
+    from deepspeed_tpu_torch.ops import fused_optimizers as fo
+    rng = np.random.default_rng(4)
+    n = 1000
+    p, g, m = (torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+               for _ in range(3))
+    v = torch.from_numpy(rng.random(n).astype(np.float32))
+    hp = torch.tensor([1e-3, 0.9, 0.999, 1e-8, 10.0, 1000.0, 0.7, 1.0])
+    runs = []
+    for width in (1 << 30, 96):
+        monkeypatch.setattr(fo, "CPU_SLICE", width)
+        bufs = [t.clone() for t in (p, g, m, v)]
+        out = torch.zeros(n, dtype=torch.bfloat16) if copy else None
+        fo.adam_plain(*bufs, hp, weight_decay=0.01, adamw_mode=True,
+                      out=out)
+        runs.append(bufs + ([out] if copy else []))
+    assert not torch.equal(runs[0][0], p)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -157,3 +157,24 @@ def test_cpu_step_is_the_plain_version():
     ref = torch.zeros(8)
     lion_plain(ref, torch.ones(8), torch.zeros(8), hp, weight_decay=0.0)
     assert torch.equal(p, ref) and torch.all(p == -1e-3)
+
+
+@pytest.mark.parametrize("copy", [False, True])
+def test_plain_version_in_slices_is_bit_equal(copy, monkeypatch):
+    """lion_plain a slice at a time (the last one short) equals the update
+    of the whole buffer at once, the bf16 copy too."""
+    from deepspeed_tpu_torch.ops import fused_optimizers as fo
+    rng = np.random.default_rng(5)
+    n = 1000
+    p, g, m = (torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+               for _ in range(3))
+    hp = torch.tensor([1e-3, 0.9, 0.99, 0.7, 1.0])
+    runs = []
+    for width in (1 << 30, 96):
+        monkeypatch.setattr(fo, "CPU_SLICE", width)
+        bufs = [t.clone() for t in (p, g, m)]
+        out = torch.zeros(n, dtype=torch.bfloat16) if copy else None
+        fo.lion_plain(*bufs, hp, weight_decay=0.05, out=out)
+        runs.append(bufs + ([out] if copy else []))
+    assert not torch.equal(runs[0][0], p)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

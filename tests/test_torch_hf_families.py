@@ -9,8 +9,9 @@ fifteen tiny random ``transformers`` models saved as safetensors):
 - every mapped leaf, cast to fp32, equals the JAX ``from_pretrained``'s
   bit for bit, eager and lazy (``Deferred`` leaves);
 - the config translation gives JAX's fields;
-- the MoE families (mixtral, qwen2_moe) map bit-equal to JAX, and
-  building their model raises naming Slice D item 12.
+- the MoE families (mixtral, qwen2_moe) map bit-equal to JAX, and their
+  logits agree with ``transformers``' at JAX's tolerance, with JAX's
+  drop-free capacity override (``OVERRIDES``: HF routes exactly).
 
 tests/test_torch_hf_checkpoint.py holds the reader, the entry points and
 fine-tuning.
@@ -84,6 +85,15 @@ def test_leaves_and_config_equal_jax(tmp_path, name):
 
 @pytest.mark.parametrize("name", MOE)
 def test_moe_models_are_refused(tmp_path, name):
-    _, d = _save(tmp_path, name)
-    with pytest.raises(NotImplementedError, match="Slice D item 12"):
-        from_pretrained(d, device="cpu", **OVERRIDES[name])
+    """Once refused, the MoE checkpoints now build: the logits of
+    ``from_pretrained``'s model agree with ``transformers``' within JAX's
+    tolerance (tests/test_hf_checkpoint.py, the same override)."""
+    hf, d = _save(tmp_path, name)
+    model, _ = from_pretrained(d, device="cpu", **OVERRIDES[name])
+    tokens = np.random.default_rng(0).integers(0, 250, (2, 16))
+    with torch.no_grad():
+        ref = hf(torch.tensor(tokens)).logits.float().numpy()
+        ours = model.apply(torch.tensor(tokens)).float().numpy()
+    scale = float(np.abs(ref).max())
+    np.testing.assert_allclose(ours, ref, atol=max(2e-4, 1e-3 * scale),
+                               rtol=0)

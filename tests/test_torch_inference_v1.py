@@ -266,8 +266,6 @@ def test_refusals_name_their_roadmap_items(tmp_path):
              (dict(dtype="int8"), "not a blanket cast; use "),
              (dict(quantize_weights=True, tensor_parallel={"tp_size": 2}),
               "single-replica serving path"),
-             (dict(quantize_moe_experts=True), "MoE"),
-             (dict(moe_grouped_dispatch=True), "MoE"),
              (dict(checkpoint=str(tmp_path)), "Slice E item 13")]
     for config, match in cases:
         with pytest.raises(NotImplementedError, match=match):

@@ -13,7 +13,9 @@ and ``build_engine(..., device="cpu")``'s greedy tokens against the JAX
 ``build_engine``'s on the same weights (tiny and D 80 here, D 96 and 256
 in tests/test_torch_model_families_wide.py: each JAX engine compiles
 for seconds, and two files let two workers share them). The MoE
-families are refused until MoE is ported.
+families (mixtral, qwen2_moe) build and match JAX here at their tiny
+presets: their logits, and their engines' greedy tokens; they are checked
+in full in tests/test_torch_moe*.py.
 """
 
 import dataclasses
@@ -128,10 +130,25 @@ def test_registry_and_presets_match_jax(family):
 
 @pytest.mark.parametrize("family", MOE)
 def test_moe_families_are_refused(family):
-    with pytest.raises(NotImplementedError, match="Slice D item 12"):
-        tm.get_model_class(family)(size="tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_engine(family, "tiny", ENGINE_KW, device="cpu")
+    """Once refused, the MoE families now build and match JAX: the
+    model's logits on JAX ``init``'s weights within 1e-5 of the largest,
+    and ``build_engine``'s greedy tokens equal to the JAX engine's."""
+    jmodel = jm.get_model_class(family)(size="tiny")
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    tmodel = tm.get_model_class(family)(size="tiny", device="cpu")
+    tm.load_jax_params(tmodel, params)
+    tokens = np.random.default_rng(7).integers(0, 512, (2, 13))
+    ref = np.asarray(jax.jit(jmodel.apply)(params, tokens))
+    with torch.no_grad():
+        got = tmodel.apply(torch.from_numpy(tokens)).numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < LOGITS_TOL
+    prompts = [np.random.default_rng(3).integers(0, 512, n).tolist()
+               for n in (11, 20)]
+    want = jbuild_engine(family, "tiny", dict(ENGINE_KW),
+                         params=params).generate(prompts, max_new_tokens=4)
+    got = build_engine(family, "tiny", dict(ENGINE_KW), params=params,
+                       device="cpu").generate(prompts, max_new_tokens=4)
+    assert got == [list(map(int, o)) for o in want]
 
 
 @pytest.mark.parametrize("width", list(WIDTHS))

@@ -64,12 +64,16 @@ def test_entry_point_without_device_needs_a_card(monkeypatch):
 
 def test_new_entry_points_need_a_card(monkeypatch, tmp_path):
     """BERT, the encoder layer, the adapters (an ``nn.Module`` given to
-    ``initialize`` too) and the HF entry points run on the card unless
-    the caller asks for the CPU."""
+    ``initialize`` too), the HF entry points, the MoE families and the
+    ``MoE`` layer's parameters run on the card unless the caller asks for
+    the CPU."""
     from deepspeed_tpu_torch.checkpoint.huggingface import (
         HuggingFaceCheckpointEngine, from_pretrained)
     from deepspeed_tpu_torch.inference.v2 import build_hf_engine
     from deepspeed_tpu_torch.models import Bert, FunctionalModel, wrap_model
+    from deepspeed_tpu_torch.models.mixtral import Mixtral
+    from deepspeed_tpu_torch.models.qwen import Qwen2MoE
+    from deepspeed_tpu_torch.moe import MoE
     from deepspeed_tpu_torch.ops.transformer import (
         DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
     (tmp_path / "config.json").write_text(
@@ -90,6 +94,9 @@ def test_new_entry_points_need_a_card(monkeypatch, tmp_path):
                  lambda: HuggingFaceCheckpointEngine(str(tmp_path)),
                  lambda: build_hf_engine(str(tmp_path)),
                  lambda: from_pretrained(str(tmp_path)),
-                 lambda: deepspeed_tpu_torch.init_inference(str(tmp_path))):
+                 lambda: deepspeed_tpu_torch.init_inference(str(tmp_path)),
+                 lambda: Mixtral(size="tiny"),
+                 lambda: Qwen2MoE(size="tiny"),
+                 lambda: MoE(8, 16, 2).init()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -196,7 +196,7 @@ _ITEMS = {"sentinels": "item 15", "sentinel_mode": "item 15",
 
 
 @pytest.mark.parametrize("setting", [
-    {"tensor_parallel": {"tp_size": 2}}, {"quantize_moe_experts": True},
+    {"tensor_parallel": {"tp_size": 2}}, {"checkpoint": "model.npz"},
     {"sentinels": True}, {"sentinel_mode": "warn"},
     {"graftsan": {"enabled": True}}, {"meshsan": {"axes": ["tp"]}},
     {"numsan": {"logits_limit": 5.0}}])
