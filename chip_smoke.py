@@ -237,6 +237,28 @@ Phases, each fatal on failure:
      layers (logits 1e-5 of their largest, greedy tokens equal,
      generate_fused equal to generate()), Qwen2-MoE's training at 1 layer
      at phase 21's bounds.
+ 26. checkpoints (runtime/checkpointing.py, checkpoint/), on phase 6's
+     GPT-2 125M, config and batch (124.5 M values of fp32 master, m and
+     v and the bf16 params, ~1.74 GB a checkpoint under build/): (a) an
+     engine trains 3 steps, saves, trains 3 more; an engine from another
+     seed loads and trains the same 3: losses, master, moments, step and
+     loss scale bit for bit; bytes, save and load seconds and GB/s, the
+     host's RSS over each, flash/LayerNorm/Adam launches by variant; (b)
+     the async engine: how long save blocks, a step with the write in
+     flight against one without, the commit, `latest` unchanged until
+     it; (c) Path T (Lion, GA 2, loss_chunk 256) resumed bit for bit, 2 +
+     2 steps; (d) ds_to_universal and load_universal_checkpoint into a
+     fresh engine (master, moments, step bit for bit), zero_to_fp32
+     against the master bit for bit, save_16bit_model's names; (e) the
+     checkpoint directory served by build_engine (v2) and init_inference
+     (v1) in bf16, phase 4's traffic shape (8 requests of 100-700 tokens,
+     32 greedy tokens): tokens equal the engines' built from the trained
+     parameters, phase 4's launch checks; (f) the card's checkpoint loaded
+     by an engine on the CPU and the CPU's on the card, bit for bit; (g)
+     phase 13's two ZeRO-3 qwZ/qgZ ranks saved at their last step; that
+     checkpoint at W = 1 on the card: the master's sha256 equals the
+     ranks' consolidated master's. The directories are removed at the
+     phase's end.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
 RMSNorm/LayerNorm kernels against their plain versions and times them at
@@ -5144,6 +5166,484 @@ def moe_main(dev, serving=MOE_SERVING, v1=MOE_V1, train=MOE_TRAIN,
     log(f"[moe] phase 25: {rec['seconds']:.1f} s")
     return rec
 
+# ----------------------------------------------------------- phase 26
+# Checkpoints on the card (runtime/checkpointing.py, checkpoint_engine.py,
+# checkpoint/): the training main path's GPT-2 125M (phase 6's config,
+# 24 x 1024 tokens) (a) saved and resumed bit for bit, (b) saved by the
+# async engine while it trains on, (c) Path T's Lion run resumed, (d)
+# converted (ds_to_universal, zero_to_fp32, save_16bit_model), (e) served
+# from its directory by both inference engines, (f) moved between the
+# card and the CPU; (g) Path Z's two ranks' checkpoint (written in phase
+# 13) loaded at W = 1.
+CKPT_STEPS = 3
+CKPT_PATH_T_STEPS = 2
+CKPT_SEED = 4321                 # the engines that load: another init
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.realpath(__file__)),
+                         "build", "phase26")
+PATH_Z_CKPT = os.path.join(CKPT_ROOT, "path_z")
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def master_digest(master: dict) -> str:
+    """sha256 over a master state dict's names and bytes, in name
+    order."""
+    import torch
+    h = hashlib.sha256()
+    for name in sorted(master):
+        h.update(name.encode())
+        h.update(master[name].detach().contiguous().cpu().view(-1)
+                 .view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def train_state(engine) -> dict:
+    """Copies of everything a resume restores, on the engine's device:
+    the flat master, each optimizer buffer, the step and the loss
+    scale."""
+    out = {"master": engine._master.clone(), "step": engine._step.clone()}
+    out.update({f"opt/{k}": v.clone() for k, v in engine.opt_state.items()})
+    out.update({f"loss_scale/{f}": t.clone() for f, t in
+                zip(engine._loss_scale._fields, engine._loss_scale)})
+    return out
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    import torch
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def train_counters():
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import norms as N
+    from deepspeed_tpu_torch.ops.fused_optimizers import (fused_adam_step,
+                                                          fused_lion_step)
+    return fa, N.layer_norm_kernel, fused_adam_step, fused_lion_step
+
+
+def reset_train_counts() -> None:
+    fa, ln, adam, lion = train_counters()
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd):
+        fn.launches = 0
+        fn.variant_launches = {}
+    fa.flash_attention_bwd.calls = 0
+    adam.launches = lion.launches = 0
+    reset_norms(ln)
+
+
+def read_train_counts(dev, what: str) -> dict:
+    fa, ln, adam, lion = train_counters()
+    return {"flash_attention_fwd": dict(fa.flash_attention_fwd
+                                        .variant_launches),
+            "flash_attention_bwd": dict(fa.flash_attention_bwd
+                                        .variant_launches),
+            "layer_norm": check_norm_variants(ln, dev, what),
+            "fused_adam": adam.launches, "fused_lion": lion.launches}
+
+
+def want_train_counts(c, micro_batches: int, adam: int, lion: int) -> dict:
+    """The launches of ``micro_batches`` bf16 GPT-2 micro-batches under
+    segments (phase 6's arithmetic): flash all wgmma, the norms warp_row."""
+    layers = c.num_layers * micro_batches
+    return {"flash_attention_fwd": {"wgmma": layers},
+            "flash_attention_bwd": {"wgmma": 2 * layers},
+            "layer_norm": {"warp_row": norm_launches_per_micro(c)
+                           * micro_batches},
+            "fused_adam": adam, "fused_lion": lion}
+
+
+def ckpt_engine(dev, size, config, model_over, seed):
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPT2
+    model = GPT2(size=size, device=dev, **model_over)
+    return ds.initialize(model=model, config=dict(config, seed=seed))[0]
+
+
+def timed(fn, dev):
+    """(fn's result, seconds to its end on the device, the host's RSS over
+    it: {"peak_gib", "rise_gib"} over the RSS at its start)."""
+    sync(dev)
+    t = time.perf_counter()
+    with RssPeak(interval=0.005) as rss:
+        out = fn()
+        sync(dev)
+    return out, time.perf_counter() - t, {
+        "peak_gib": rss.peak / 2**30,
+        "rise_gib": (rss.peak - rss.base) / 2**30}
+
+
+def ckpt_resume(dev, root, size, seq, steps):
+    """26a: engine A trains ``steps`` steps, saves (sync), trains
+    ``steps`` more; engine B, from another seed, loads A's checkpoint and
+    trains the same steps: losses, master, moments, step and loss scale
+    bit for bit. Returns the record, A, B and the saved state."""
+    over = dict(vocab_size=50304, remat_policy="segments", attn_impl="flash")
+    a = ckpt_engine(dev, size, TRAIN_CONFIG, over, 1234)
+    c = a.module.config
+    batches = [train_batch_of(dev, c.vocab_size, a.train_batch_size_, seq,
+                              seed=26 + i) for i in range(2 * steps)]
+    reset_train_counts()
+    for b in batches[:steps]:
+        a.train_batch(b)
+    path = os.path.join(root, "main")
+    free = shutil.disk_usage(os.path.dirname(root)).free
+    _, save_s, save_rss = timed(lambda: a.save_checkpoint(path), dev)
+    nbytes = dir_bytes(path)
+    saved = train_state(a)
+    ref = [float(a.train_batch(b)) for b in batches[steps:]]
+    b_eng = ckpt_engine(dev, size, dict(TRAIN_CONFIG, checkpoint={
+        "async_save": True}), over, CKPT_SEED)
+    _, load_s, load_rss = timed(lambda: b_eng.load_checkpoint(path), dev)
+    loaded_equal = states_equal(train_state(b_eng), saved)
+    got = [float(b_eng.train_batch(b)) for b in batches[steps:]]
+    counts = read_train_counts(dev, "26a")
+    want = want_train_counts(c, 3 * steps, 3 * steps, 0)
+    rec = dict(model=f"gpt2-{size} vocab {c.vocab_size}",
+               params=c.num_params(), batch=a.train_batch_size_, seq=seq,
+               steps=steps, disk_free_gib_before=free / 2**30,
+               bytes_on_disk=nbytes, save_s=save_s,
+               save_gb_per_s=nbytes / save_s / 1e9,
+               save_host_rss=save_rss, load_s=load_s,
+               load_gb_per_s=nbytes / load_s / 1e9,
+               load_host_rss=load_rss,
+               loaded_state_bit_equal=loaded_equal, losses=ref,
+               resumed_losses=got,
+               losses_bit_equal=got == ref,
+               state_bit_equal=states_equal(train_state(b_eng),
+                                            train_state(a)),
+               launches=counts, launches_want=want)
+    log(f"[ckpt] 26a resume: {json.dumps(rec)}")
+    bad = [k for k in ("loaded_state_bit_equal", "losses_bit_equal",
+                       "state_bit_equal") if not rec[k]]
+    if dev.type == "cuda" and counts != want:
+        bad.append(f"launches {counts} != {want}")
+    if bad:
+        raise AssertionError(f"phase 26a: {bad}: {rec}")
+    del batches
+    return rec, a, b_eng, saved
+
+
+def ckpt_async(dev, engine, root, seq):
+    """26b: the async engine: a first save and commit (the pinned
+    buffer's allocation), a step without a write in flight, a save that
+    returns once the state is on the host, a step while the write runs,
+    ``latest`` unchanged until the commit, the commit."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import \
+        AsyncCheckpointEngine
+    c = engine.module.config
+    batch = train_batch_of(dev, c.vocab_size, engine.train_batch_size_,
+                           seq, seed=40)
+    path = os.path.join(root, "async")
+    latest = os.path.join(path, "latest")
+
+    def read_latest():
+        with open(latest) as f:
+            return f.read()
+
+    _, first_save_s, _ = timed(lambda: engine.save_checkpoint(path), dev)
+    ce = engine.checkpoint_engine
+    first = f"global_step{engine.global_steps}"
+    _, first_commit_s, _ = timed(lambda: ce.commit(first), dev)
+    _, plain_step_s, _ = timed(lambda: engine.train_batch(batch), dev)
+    tag = f"global_step{engine.global_steps}"
+    _, block_s, rss = timed(lambda: engine.save_checkpoint(path), dev)
+    in_flight = ce._thread is not None and ce._thread.is_alive()
+    latest_after_save = read_latest()
+    _, overlap_step_s, _ = timed(lambda: engine.train_batch(batch), dev)
+    still_in_flight = ce._thread is not None and ce._thread.is_alive()
+    latest_before_commit = read_latest()
+    _, commit_s, _ = timed(lambda: ce.commit(tag), dev)
+    rec = dict(engine=type(ce).__name__, first_save_s=first_save_s,
+               first_commit_s=first_commit_s, save_blocking_s=block_s,
+               save_host_rss=rss, step_s_without_write=plain_step_s,
+               step_s_with_write_in_flight=overlap_step_s,
+               write_in_flight_after_save=in_flight,
+               write_in_flight_after_step=still_in_flight,
+               commit_s=commit_s, latest_after_save=latest_after_save,
+               latest_before_commit=latest_before_commit,
+               latest_after_commit=read_latest(),
+               bytes_on_disk=dir_bytes(os.path.join(path, tag)))
+    log(f"[ckpt] 26b async: {json.dumps(rec)}")
+    ok = (isinstance(ce, AsyncCheckpointEngine)
+          and latest_after_save == latest_before_commit == first
+          and rec["latest_after_commit"] == tag)
+    shutil.rmtree(path)
+    if not ok:
+        raise AssertionError(f"phase 26b: {rec}")
+    return rec
+
+
+def ckpt_path_t(dev, root, size, seq, steps):
+    """26c: Path T (Lion, GA 2, loss_chunk 256, the forward/backward/step
+    loop) saved after ``steps`` steps and resumed by an engine from
+    another seed: the next ``steps`` steps' losses and the state bit for
+    bit; Lion counted."""
+    a = ckpt_engine(dev, size, PATH_T_CONFIG, PATH_T_MODEL, 1234)
+    c = a.module.config
+    ga = a.gradient_accumulation_steps_
+    batches = [train_batch_of(dev, c.vocab_size, a.train_batch_size_, seq,
+                              seed=50 + i) for i in range(2 * steps)]
+    reset_train_counts()
+    for b in batches[:steps]:
+        triple_step(a, b, ga)
+    path = os.path.join(root, "path_t")
+    _, save_s, _ = timed(lambda: a.save_checkpoint(path), dev)
+    nbytes = dir_bytes(path)
+    ref = [float(triple_step(a, b, ga)) for b in batches[steps:]]
+    b_eng = ckpt_engine(dev, size, PATH_T_CONFIG, PATH_T_MODEL, CKPT_SEED)
+    _, load_s, _ = timed(lambda: b_eng.load_checkpoint(path), dev)
+    got = [float(triple_step(b_eng, b, ga)) for b in batches[steps:]]
+    counts = read_train_counts(dev, "26c")
+    want = want_train_counts(c, 3 * steps * ga, 0, 3 * steps)
+    rec = dict(model=f"gpt2-{size} loss_chunk {c.loss_chunk}", ga=ga,
+               optimizer="Lion fused_kernel", steps=steps,
+               bytes_on_disk=nbytes, save_s=save_s, load_s=load_s,
+               losses=ref, resumed_losses=got, losses_bit_equal=got == ref,
+               state_bit_equal=states_equal(train_state(a),
+                                            train_state(b_eng)),
+               skipped_steps=b_eng.skipped_steps, launches=counts,
+               launches_want=want)
+    log(f"[ckpt] 26c Path T: {json.dumps(rec)}")
+    del a, b_eng
+    shutil.rmtree(path)
+    bad = [k for k in ("losses_bit_equal", "state_bit_equal") if not rec[k]]
+    if dev.type == "cuda" and counts != want:
+        bad.append(f"launches {counts} != {want}")
+    if bad:
+        raise AssertionError(f"phase 26c: {bad}: {rec}")
+    return rec
+
+
+def ckpt_convert(dev, root, size, saved):
+    """26d: ds_to_universal of 26a's checkpoint, then
+    load_universal_checkpoint into a fresh engine: master, moments and
+    step bit for bit (the loss scale is not carried, as in JAX); the
+    zero_to_fp32 state dict against the saved master; save_16bit_model's
+    names. Returns the record and the engine (it holds the saved
+    state)."""
+    import torch
+    from deepspeed_tpu_torch.checkpoint import (
+        ds_to_universal, flatten_with_names,
+        get_fp32_state_dict_from_zero_checkpoint)
+    src, uni = os.path.join(root, "main"), os.path.join(root, "universal")
+    _, uni_s, uni_rss = timed(lambda: ds_to_universal(src, uni), dev)
+    uni_bytes = dir_bytes(uni)
+    over = dict(vocab_size=50304, remat_policy="segments", attn_impl="flash")
+    eng = ckpt_engine(dev, size, dict(TRAIN_CONFIG, checkpoint={
+        "load_universal": True}), over, CKPT_SEED + 1)
+    _, load_s, load_rss = timed(lambda: eng.load_checkpoint(uni, tag="."),
+                                dev)
+    got = train_state(eng)
+    moved = {k: v for k, v in saved.items() if not k.startswith(
+        "loss_scale/")}
+    universal_equal = states_equal({k: got[k] for k in moved}, moved)
+    shutil.rmtree(uni)
+    # the state dict's arrays map the files: read each into memory, as a
+    # consumer of it would
+    sd, fp32_s, fp32_rss = timed(lambda: {
+        n: np.array(v) for n, v in
+        get_fp32_state_dict_from_zero_checkpoint(src).items()}, dev)
+    master = {n: v.cpu() for n, v in eng.master_state_dict().items()}
+    fp32_equal = list(sd) == [n for n, _ in flatten_with_names(master)] \
+        and all(torch.equal(torch.from_numpy(sd[n]), master[n]) for n in sd)
+    del sd, master
+    out16 = os.path.join(root, "16bit")
+    _, save16_s, _ = timed(lambda: eng.save_16bit_model(out16), dev)
+    with np.load(os.path.join(out16, "model_weights.npz")) as z:
+        names16 = list(z.files)
+    names_equal = names16 == [n for n, _ in flatten_with_names(
+        eng.module_state_dict())]
+    shutil.rmtree(out16)
+    rec = dict(ds_to_universal_s=uni_s, universal_bytes=uni_bytes,
+               ds_to_universal_gb_per_s=uni_bytes / uni_s / 1e9,
+               ds_to_universal_host_rss=uni_rss,
+               load_universal_s=load_s, load_universal_host_rss=load_rss,
+               universal_bit_equal=universal_equal,
+               zero_to_fp32_s=fp32_s, zero_to_fp32_host_rss=fp32_rss,
+               zero_to_fp32_bit_equal=fp32_equal, save_16bit_s=save16_s,
+               save_16bit_names_equal=names_equal,
+               loss_scale_carried=False)
+    log(f"[ckpt] 26d conversion: {json.dumps(rec)}")
+    bad = [k for k in ("universal_bit_equal", "zero_to_fp32_bit_equal",
+                       "save_16bit_names_equal") if not rec[k]]
+    if bad:
+        raise AssertionError(f"phase 26d: {bad}: {rec}")
+    return rec, eng
+
+
+def ckpt_serving(dev, root, size, params, n_req=8, max_new=32,
+                 lengths=(100, 701), engine_over=None):
+    """26e: 26a's checkpoint directory served by build_engine (v2, its
+    engine config's ``checkpoint``) and init_inference (v1, the config's
+    ``checkpoint``) in bf16: 8 requests of 100-700 prompt tokens, 32
+    greedy tokens; the tokens equal the same engines' built from
+    ``params`` (the trained engine's gathered parameters); the paged and
+    LayerNorm launches of the checkpoint-served engines counted."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.inference.v2 import build_engine
+    from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.models.transformer import deferred_weights
+    path = os.path.join(root, "main")
+    cfg = dict(SERVING_CONFIG, **(engine_over or {}))
+    _, prompts = serving_prompts(50304, n_req, lengths)
+    rec = {}
+    outs = {}
+    for source in ("checkpoint", "params"):
+        kw = ({"engine_config": dict(cfg, checkpoint=path)}
+              if source == "checkpoint"
+              else {"engine_config": cfg, "params": params})
+        (eng, build_s, _) = timed(lambda: build_engine(
+            "gpt2", size, device=dev, vocab_size=50304, **kw), dev)
+        norms = reset_counts(eng.model.config)
+        outs[source], wall, _ = serve(eng, prompts, max_new, dev)
+        counts = read_counts(norms)
+        check_variants(counts["launches_by_variant"], counts["launches"],
+                       dev, f"26e v2 from {source}")
+        check_norm_variants(norms, dev, f"26e v2 from {source}")
+        rec[f"v2_{source}"] = dict(build_s=build_s, generate_s=wall,
+                                   **counts)
+        release_engine(eng, dev)
+        del eng
+    rec["v2_tokens_equal"] = outs["checkpoint"] == outs["params"]
+    v1 = {}
+    for source in ("checkpoint", "params"):
+        with deferred_weights():
+            model = GPT2(size=size, vocab_size=50304, device=dev)
+        config = {"dtype": "bf16", "max_out_tokens": 1024}
+        kw = {}
+        if source == "checkpoint":
+            config["checkpoint"] = path
+        else:
+            kw["params"] = params
+        eng, build_s, _ = timed(lambda: ds.init_inference(
+            model, config=config, **kw), dev)
+        norms = norm_counter(eng.module.config)
+        reset_norms(norms)
+        sync(dev)
+        t = time.perf_counter()
+        v1[source] = [eng.generate([p], max_new_tokens=max_new)[
+            0, len(p):].tolist() for p in prompts]
+        sync(dev)
+        rec[f"v1_{source}"] = dict(
+            build_s=build_s, generate_s=time.perf_counter() - t,
+            norm_launches=norms.launches,
+            norm_launches_by_variant=check_norm_variants(
+                norms, dev, f"26e v1 from {source}"))
+        del eng, model
+    rec["v1_tokens_equal"] = v1["checkpoint"] == v1["params"]
+    rec["v1_v2_agreement"] = agreement(v1["checkpoint"], outs["checkpoint"])
+    rec.update(requests=n_req, prompt_lengths=[len(p) for p in prompts],
+               new_tokens=max_new)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[ckpt] 26e serving: {json.dumps(rec)}")
+    if not (rec["v2_tokens_equal"] and rec["v1_tokens_equal"]):
+        raise AssertionError(f"phase 26e: {rec}")
+    return rec
+
+
+def ckpt_devices(dev, root, size, card_engine, saved):
+    """26f: 26a's card checkpoint loaded by an engine on the CPU: the
+    state bit for bit; the CPU engine's own checkpoint loaded on the card
+    (into ``card_engine``) the same way."""
+    cpu = ckpt_engine("cpu", size, TRAIN_CONFIG, dict(
+        vocab_size=50304, remat_policy="segments", attn_impl="flash"),
+        CKPT_SEED + 2)
+    want = {k: v.cpu() for k, v in saved.items()}
+    _, cpu_load_s, _ = timed(lambda: cpu.load_checkpoint(
+        os.path.join(root, "main")), dev)
+    cpu_equal = states_equal(train_state(cpu), want)
+    path = os.path.join(root, "cpu")
+    _, cpu_save_s, _ = timed(lambda: cpu.save_checkpoint(path), dev)
+    del cpu
+    gc.collect()
+    _, card_load_s, _ = timed(lambda: card_engine.load_checkpoint(path),
+                              dev)
+    card_equal = states_equal(train_state(card_engine), saved)
+    shutil.rmtree(path)
+    rec = dict(card_to_cpu_load_s=cpu_load_s, card_to_cpu_bit_equal=
+               cpu_equal, cpu_save_s=cpu_save_s, cpu_to_card_load_s=
+               card_load_s, cpu_to_card_bit_equal=card_equal)
+    log(f"[ckpt] 26f across devices: {json.dumps(rec)}")
+    if not (cpu_equal and card_equal):
+        raise AssertionError(f"phase 26f: {rec}")
+    return rec
+
+
+def ckpt_reshard(dev, engine, path_z):
+    """26g: Path Z's checkpoint, written by its two ZeRO-3 ranks (qwZ/qgZ)
+    at their last step, loaded at W = 1 on the card: the master's digest
+    equals the digest of the consolidated master the ranks computed."""
+    info = path_z["checkpoint"]
+    _, load_s, rss = timed(lambda: engine.load_checkpoint(info["dir"]), dev)
+    digest = master_digest(engine.master_state_dict())
+    rec = dict(ranks=PATH_Z_WORLD, saved_at_world=PATH_Z_WORLD,
+               loaded_at_world=engine.dp_world,
+               saved_zero_stage=3, loaded_zero_stage=engine.zero_stage,
+               bytes_on_disk=info["bytes"], ranks_save_s=info["save_s"],
+               load_s=load_s, load_host_rss=rss,
+               digest=digest, ranks_digest=info["digest"],
+               master_bit_equal=digest == info["digest"],
+               ranks_launches=path_z["quantized"]["launches"])
+    log(f"[ckpt] 26g W = 2 -> 1: {json.dumps(rec)}")
+    if not rec["master_bit_equal"]:
+        raise AssertionError(f"phase 26g: {rec}")
+    return rec
+
+
+def checkpoint_main(dev, path_z, size="125m", seq=1024, steps=CKPT_STEPS,
+                    path_t_steps=CKPT_PATH_T_STEPS, root=CKPT_ROOT,
+                    serving_kw=None):
+    """Phase 26 (a-g above). Every checkpoint directory is removed at the
+    phase's end, whatever its outcome."""
+    import torch
+    t0 = time.perf_counter()
+    seconds = {}
+    rec = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    try:
+        os.makedirs(root, exist_ok=True)
+        log(f"[ckpt] disk free before the first save: "
+            f"{shutil.disk_usage(root).free / 2**30:.1f} GiB")
+        rec["resume"], a, b, saved = part(
+            "resume", lambda: ckpt_resume(dev, root, size, seq, steps))
+        rec["async"] = part("async", lambda: ckpt_async(dev, b, root, seq))
+        rec["path_t"] = part("path_t", lambda: ckpt_path_t(
+            dev, root, size, seq, path_t_steps))
+        gc.collect()
+        rec["convert"], c = part("convert", lambda: ckpt_convert(
+            dev, root, size, saved))
+        params = c.gathered_params()
+        rec["serving"] = part("serving", lambda: ckpt_serving(
+            dev, root, size, params, **(serving_kw or {})))
+        del params
+        rec["devices"] = part("devices", lambda: ckpt_devices(
+            dev, root, size, b, saved))
+        rec["reshard"] = part("reshard", lambda: ckpt_reshard(
+            dev, a, path_z))
+        del a, b, c, saved
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    rec["seconds_by_part"] = seconds
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[ckpt] phase 26: {rec['seconds']:.1f} s")
+    return rec
+
+
 # ------------------------------------------------------------ phase 2
 # the attention kernels' mangled names: kernel, dtype, D (and the CUDA-core
 # block-sparse kernels' query tile TY)
@@ -6974,11 +7474,13 @@ def path_z_expected_launches(plan) -> dict:
             "qwz_leaves": qwz, "qgz_leaves": qgz}
 
 
-def path_z_run(dev, config, size, steps, seq, check):
+def path_z_run(dev, config, size, steps, seq, check, save_dir=None):
     """One rank's Path Z: initialize, a warm-up step, then ``steps`` timed
     steps (host clock up to a synchronize, the ranks started together by a
     barrier), every count set to 0 right before and read right after.
-    With ``check``, phase 14 on the step's real data."""
+    With ``save_dir``, the ranks then save a checkpoint there and rank 0
+    records the digest of the consolidated master (phase 26g loads it at
+    W = 1). With ``check``, phase 14 on the step's real data."""
     import torch
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.comm import comm
@@ -7034,6 +7536,20 @@ def path_z_run(dev, config, size, steps, seq, check):
         launches_per_step={k: v / steps for k, v in launches.items()},
         shard_numel=sum(t.numel()
                         for t in engine.master_state_dict().values()))
+    if save_dir is not None:
+        if cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.save_checkpoint(save_dir)
+        if cuda:
+            torch.cuda.synchronize()
+        save_s = time.perf_counter() - t
+        master = engine.consolidated_master_state_dict()
+        out["checkpoint"] = dict(
+            dir=save_dir, tag=f"global_step{engine.global_steps}",
+            save_s=save_s, bytes=dir_bytes(save_dir),
+            digest=master_digest(master) if comm.get_rank() == 0 else None)
+        del master
     if check:
         out["kernel_vs_plain"] = path_z_kernel_vs_plain(engine, batch,
                                                         reduce_grads)
@@ -7095,8 +7611,10 @@ def path_z_rank(spec: str) -> int:
         out = {"rank": s["rank"]}
         for wire, config in (("quantized", PATH_Z_CONFIG),
                              ("exact", PATH_Z_EXACT)):
-            out[wire] = path_z_run(dev, config, s["size"], s["steps"],
-                                   s["seq"], check=wire == "quantized")
+            out[wire] = path_z_run(
+                dev, config, s["size"], s["steps"], s["seq"],
+                check=wire == "quantized",
+                save_dir=s["ckpt"] if wire == "quantized" else None)
         torch.distributed.destroy_process_group()
         rc = 0
     except BaseException:
@@ -7107,9 +7625,11 @@ def path_z_rank(spec: str) -> int:
     return rc
 
 
-def path_z_main(dev, size="125m", steps=10, seq=1024, timeout=900):
+def path_z_main(dev, size="125m", steps=10, seq=1024, timeout=900,
+                ckpt_dir=PATH_Z_CKPT):
     """Phases 13-14: Path Z in PATH_Z_WORLD rank processes (this script
-    with ``--path-z-rank``) that share ``dev``. Every rank is killed when
+    with ``--path-z-rank``) that share ``dev``; the quantized run's
+    checkpoint goes to ``ckpt_dir`` for phase 26g. Every rank is killed when
     one fails or at ``timeout``, and all are reaped before this returns or
     raises. Fails if a rank fails or hangs, if the losses are not finite
     and falling, if a launch count is off (on the card) or if a kernel
@@ -7126,7 +7646,8 @@ def path_z_main(dev, size="125m", steps=10, seq=1024, timeout=900):
             for r in range(PATH_Z_WORLD):
                 spec = dict(rank=r, world=PATH_Z_WORLD, device=str(dev),
                             store=os.path.join(rendezvous, "store"),
-                            size=size, steps=steps, seq=seq, out=outs[r])
+                            size=size, steps=steps, seq=seq, out=outs[r],
+                            ckpt=ckpt_dir)
                 procs.append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__),
                      "--path-z-rank", json.dumps(spec)]))
@@ -7163,7 +7684,9 @@ def path_z_main(dev, size="125m", steps=10, seq=1024, timeout=900):
         model=f"gpt2-{size} vocab 50304", ranks=PATH_Z_WORLD, seq=seq,
         steps=steps, rows_per_rank=24 // PATH_Z_WORLD,
         wall_s=time.perf_counter() - t,
-        quantized={k: v for k, v in q.items() if k != "kernel_vs_plain"},
+        quantized={k: v for k, v in q.items()
+                   if k not in ("kernel_vs_plain", "checkpoint")},
+        checkpoint=q["checkpoint"],
         exact=e,
         peak_memory_gib_per_rank={
             w: [results[r][w]["peak_memory_gib"]
@@ -7585,6 +8108,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
                              f"before phase 25")
     moe = moe_main(dev)                                       # phase 25
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = checkpoint_main(dev, path_z)                       # phase 26
 
     def entry(name, kernel, launches, max_abs_err, t, **extra):
         dtypes, variants = KERNEL_FORMS[name]
@@ -8056,6 +8582,39 @@ def main(argv=None) -> int:
                      moe_v1_norm_launches_by_variant={
                          f: moe["v1"][f]["norm_launches_by_variant"]
                          for f in ("capacity", "grouped")})
+    # phase 26: the checkpoint paths' launches beside each kernel they ran
+    cr, ct, cs_ = ckpt["resume"], ckpt["path_t"], ckpt["serving"]
+    for k in kernels:
+        if k["name"] == "paged_attention":
+            k.update(checkpoint_main_path="phase 26e: GPT-2 125M served "
+                     "from its training checkpoint (build_engine)",
+                     checkpoint_launches=cs_["v2_checkpoint"]["launches"],
+                     checkpoint_launches_by_variant=cs_["v2_checkpoint"][
+                         "launches_by_variant"])
+        elif k["name"] in ("flash_attention_fwd", "flash_attention_bwd"):
+            k.update(checkpoint_main_path="phase 26a: 9 train_batch steps "
+                     "around a save and a resume; 26c: Path T, 6 steps",
+                     checkpoint_launches_by_variant=cr["launches"][
+                         k["name"]],
+                     checkpoint_path_t_launches_by_variant=ct["launches"][
+                         k["name"]])
+        elif k["name"] == "fused_adam":
+            k.update(checkpoint_launches=cr["launches"]["fused_adam"])
+        elif k["name"] == "fused_lion":
+            k.update(checkpoint_launches=ct["launches"]["fused_lion"])
+        elif k["name"] == "layer_norm":
+            k.update(checkpoint_launches_by_variant=cr["launches"][
+                         "layer_norm"],
+                     checkpoint_path_t_launches_by_variant=ct["launches"][
+                         "layer_norm"],
+                     checkpoint_serving_launches_by_variant={
+                         e: cs_[e]["norm_launches_by_variant"]
+                         for e in ("v2_checkpoint", "v1_checkpoint")})
+        elif k["name"] in ("quantize_int8", "dequantize_int8"):
+            k.update(checkpoint_main_path="phase 26g: the Path Z ranks "
+                     "whose checkpoint loads at W = 1 (phase 13's run)",
+                     checkpoint_launches=ckpt["reshard"]["ranks_launches"][
+                         k["name"]])
     log(f"[main] serving {json.dumps(stats)} on {card}")
     log(f"[main] fused serving {json.dumps(fused)} on {card}")
     log(f"[main] spec and ring serving {json.dumps(spec)} on {card}")
@@ -8079,6 +8638,7 @@ def main(argv=None) -> int:
     log(f"[main] BERT {json.dumps(bert)} on {card}")
     log(f"[main] HF checkpoints {json.dumps(hf)} on {card}")
     log(f"[main] MoE {json.dumps(moe)} on {card}")
+    log(f"[main] checkpoints {json.dumps(ckpt)} on {card}")
     left = live_children()
     if left:
         raise AssertionError(f"processes still running: {left}")

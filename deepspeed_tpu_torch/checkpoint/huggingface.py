@@ -82,7 +82,6 @@ ARCH_TO_FAMILY = {
 SAFETENSORS_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
                       "F32": torch.float32, "I64": torch.int64,
                       "BOOL": torch.bool}
-_DTYPE_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
 
 
 # ---------------------------------------------------------------------
@@ -91,10 +90,12 @@ _DTYPE_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
 class SafetensorsFile:
     """One ``.safetensors`` file: its header parsed, each tensor mapped
     from the file on :meth:`get` (copy-on-write, so the tensor is
-    writable and the file is never written)."""
+    writable and the file is never written). ``dtypes`` are the dtypes
+    it takes (a training checkpoint's files add int32)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, dtypes: dict = SAFETENSORS_DTYPES):
         self.path = path
+        self.dtypes = dtypes
         with open(path, "rb") as f:
             head = f.read(8)
             if len(head) != 8:
@@ -110,11 +111,11 @@ class SafetensorsFile:
 
     def get(self, key: str) -> torch.Tensor:
         e = self.entries[key]
-        if e["dtype"] not in SAFETENSORS_DTYPES:
+        if e["dtype"] not in self.dtypes:
             raise NotImplementedError(
                 f"{self.path!r}: tensor {key!r} has dtype {e['dtype']}; the "
-                f"reader takes {sorted(SAFETENSORS_DTYPES)}")
-        dtype = SAFETENSORS_DTYPES[e["dtype"]]
+                f"reader takes {sorted(self.dtypes)}")
+        dtype = self.dtypes[e["dtype"]]
         shape = tuple(e["shape"])
         begin, end = e["data_offsets"]
         nbytes = math.prod(shape) * torch.empty((), dtype=dtype).itemsize
@@ -130,19 +131,21 @@ class SafetensorsFile:
 
 
 def save_safetensors(tensors: dict[str, torch.Tensor], path: str,
-                     metadata: Optional[dict] = None) -> int:
-    """Write ``tensors`` (CPU, of :data:`SAFETENSORS_DTYPES`) as one
-    safetensors file, in the given order, the header padded to 8 bytes.
-    Returns the bytes of tensor data written."""
+                     metadata: Optional[dict] = None,
+                     dtypes: dict = SAFETENSORS_DTYPES) -> int:
+    """Write ``tensors`` (CPU, of ``dtypes``' values) as one safetensors
+    file, in the given order, the header padded to 8 bytes. Returns the
+    bytes of tensor data written."""
     header: dict[str, Any] = {"__metadata__": dict(metadata or
                                                    {"format": "pt"})}
+    names = {v: k for k, v in dtypes.items()}
     off = 0
     for name, t in tensors.items():
-        if t.dtype not in _DTYPE_NAMES:
+        if t.dtype not in names:
             raise NotImplementedError(f"{name}: dtype {t.dtype} has no "
                                       f"safetensors name here")
         n = t.numel() * t.element_size()
-        header[name] = {"dtype": _DTYPE_NAMES[t.dtype],
+        header[name] = {"dtype": names[t.dtype],
                         "shape": list(t.shape), "data_offsets": [off, off + n]}
         off += n
     raw = json.dumps(header, separators=(",", ":")).encode()

@@ -31,10 +31,16 @@ capacity) instead of the capacity form. The flag is set on the engine's
 own shallow copy of the model (:func:`serving_model`), never on the
 shared instance.
 
+``config.checkpoint`` is a ``save_16bit_model`` ``.npz`` or a training
+engine's checkpoint directory (``<save_dir>`` through its ``latest``, or
+``<save_dir>/<tag>``): its parameters, read a leaf at a time
+(:func:`load_checkpoint_params`, which the v2 engine shares).
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
 ROADMAP item: ``tensor_parallel.tp_size > 1`` (Slice D item 12; with
 ``quantize_weights``, ``quantize_moe_experts`` or ``moe_grouped_dispatch``
-JAX's own refusals), an orbax checkpoint directory (Slice E item 13).
+JAX's own refusals), a checkpoint directory of the JAX package's memory
+tiers (``host_opt_rank*.npz``, Slice E).
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ import numpy as np
 import torch
 
 from ..models.base import ModelConfig
-from ..models.convert import load_serving_params
+from ..models.convert import Deferred, load_serving_params
 from ..ops import sampling, threefry
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
@@ -128,6 +134,39 @@ def serving_model(model, config):
     return module
 
 
+def load_checkpoint_params(path: str) -> PyTree:
+    """The parameters of ``path`` (reference: load_checkpoint:326): a
+    save_16bit_model ``.npz`` (names are the tree's "/"-joined paths), or
+    an engine checkpoint directory, ``<save_dir>`` (its ``latest`` tag) or
+    ``<save_dir>/<tag>``, as a flat mapping of
+    :class:`~..models.convert.Deferred` leaves, each assembled from the
+    ranks' files in the compute dtype it was trained in when the loader
+    reaches it (JAX reads ``state["params"]``)."""
+    if path.endswith(".npz"):
+        with np.load(path) as flat:
+            params: dict = {}
+            for name in flat.files:
+                node = params
+                *parents, last = name.split("/")
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[last] = flat[name]
+        return params
+    from ..runtime.checkpoint_engine import ShardedCheckpoint, check_tag_dir
+    from ..runtime.checkpointing import find_tag
+    if not os.path.isdir(os.path.join(path, "state")):
+        tag = find_tag(path, None)
+        if tag is None:
+            raise FileNotFoundError(
+                f"checkpoint {path!r}: neither a .npz nor a checkpoint "
+                f"directory with a 'latest' file or a state/ directory")
+        path = os.path.join(path, tag)
+    check_tag_dir(path)
+    ckpt = ShardedCheckpoint(os.path.join(path, "state"))
+    return {key[len("params/"):]: Deferred(lambda key=key: ckpt.full(key))
+            for key in ckpt.keys() if key.startswith("params/")}
+
+
 class InferenceEngine:
     """reference: inference/engine.py:41"""
 
@@ -138,7 +177,7 @@ class InferenceEngine:
         self.dtype = config.torch_dtype
         self.device = model.device
         if params is None and config.checkpoint:
-            params = self._load_checkpoint_params(config.checkpoint)
+            params = load_checkpoint_params(config.checkpoint)
         load_weights(model, params, config, self.dtype, self.device)
         model.eval()
         self.module = serving_model(model, config)
@@ -147,27 +186,6 @@ class InferenceEngine:
         self._cache_len = config.max_out_tokens
         log_dist(f"InferenceEngine: tp=1 dtype={self.dtype} "
                  f"max_out_tokens={self._cache_len} on {self.device}")
-
-    # ------------------------------------------------------------------
-    def _load_checkpoint_params(self, path: str) -> PyTree:
-        """A save_16bit_model ``.npz`` (names are the tree's "/"-joined
-        paths; reference: load_checkpoint:326). An engine checkpoint
-        directory (orbax) is not ported yet."""
-        if path.endswith(".npz"):
-            with np.load(path) as flat:
-                params: dict = {}
-                for name in flat.files:
-                    node = params
-                    *parents, last = name.split("/")
-                    for part in parents:
-                        node = node.setdefault(part, {})
-                    node[last] = flat[name]
-            return params
-        kind = "directory" if os.path.isdir(path) else "path"
-        raise NotImplementedError(
-            f"checkpoint {kind} {path!r}: only a .npz is read; engine "
-            "checkpoint directories are not ported yet (ROADMAP Slice E "
-            "item 13)")
 
     # ------------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:

@@ -47,7 +47,8 @@ from ...ops.quantization import KV_STORE_DTYPES
 from ...utils.logging import log_dist
 from ..config import DeepSpeedInferenceConfig
 from ..engine import (INT8_DTYPE_MESSAGE, QUANTIZE_TP_MESSAGE,
-                      load_weights, refuse_moe_tp, serving_model)
+                      load_checkpoint_params, load_weights, refuse_moe_tp,
+                      serving_model)
 from ...runtime.config_utils import DeepSpeedConfigModel
 from .fused_graph import CapturedLoop, FusedState, RingState
 from .paged import (KERNEL_DTYPES, fused_decode_loop, fused_serve_loop,
@@ -267,7 +268,6 @@ def _refuse_unported(config: RaggedInferenceEngineConfig) -> None:
     unported = [
         (config.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1",
          "tensor-parallel serving"),
-        (config.checkpoint is not None, "checkpoint", "checkpoint loading"),
     ]
     for on, what, item in unported:
         if on:
@@ -291,9 +291,13 @@ class InferenceEngineV2:
             raise NotImplementedError(
                 f"dtype {self.dtype} on CUDA: the paged-attention kernel "
                 "takes float32, bfloat16 or float16")
-        # params: given (a JAX-layout numpy tree) or drawn from the seed,
-        # quantized per quantize_weights, cast to the serving dtype — what
-        # the JAX v1 engine does for the v2 engine at tp=1
+        # params: given (a JAX-layout numpy tree), read from
+        # config.checkpoint (a .npz or a training checkpoint directory,
+        # through v1's loader) or drawn from the seed, quantized per
+        # quantize_weights, cast to the serving dtype — what the JAX v1
+        # engine does for the v2 engine at tp=1
+        if params is None and config.checkpoint:
+            params = load_checkpoint_params(config.checkpoint)
         load_weights(model, params, config, self.dtype, self.device)
         # an MoE model's copy with the config's dispatch form (v1's)
         self.model = serving_model(model, config)

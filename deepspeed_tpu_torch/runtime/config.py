@@ -4,12 +4,12 @@ Takes the same DeepSpeed JSON as the JAX ``DeepSpeedConfig``. The blocks
 the training step reads are dataclasses with the JAX field names and
 defaults: batch sizes, ``optimizer``, ``scheduler``, ``fp16``, ``bf16``,
 ``zero_optimization``, ``gradient_clipping``, ``steps_per_print``, ``seed``,
-``activation_checkpointing`` and ``moe`` (its routing overrides; the
-expert-parallel exchange and router telemetry raise). Every other block
-the JAX config declares is accepted by name at its JAX defaults
-(``UNPORTED``); a key set away from its default is a feature the port
-does not have yet and raises
-``NotImplementedError`` naming its ROADMAP slice. ``mesh`` also takes the
+``activation_checkpointing``, ``checkpoint`` and ``moe`` (its routing
+overrides; the expert-parallel exchange and router telemetry raise).
+Every other block the JAX config declares is accepted by name at its JAX
+defaults (``UNPORTED``); a key set away from its default is a feature the
+port does not have yet and raises ``NotImplementedError`` naming its
+ROADMAP slice. ``mesh`` also takes the
 pure sharded-DP meshes over ranks (``parallel/mesh.py``). An unknown key raises
 ``ValueError``, as everywhere in the port. ``prescale_gradients``,
 ``gradient_predivide_factor``, ``memory_breakdown``, ``dump_state`` and
@@ -188,8 +188,6 @@ UNPORTED: dict[str, tuple[dict[str, Any], str]] = {
     "aio": ({"block_size": 1048576, "queue_depth": 8, "thread_count": 1,
              "single_submit": False, "overlap_events": True},
             "Slice E (ops/aio.py)"),
-    "checkpoint": ({"tag_validation": "Warn", "load_universal": False,
-                    "async_save": False}, "Slice E (checkpointing)"),
     "elasticity": ({
         "enabled": False, "max_train_batch_size": 2000,
         "micro_batch_sizes": [2, 4, 6], "min_gpus": 1, "max_gpus": 10000,
@@ -302,6 +300,28 @@ class MoEConfig(DeepSpeedConfigModel):
             raise NotImplementedError(TELEMETRY_UNPORTED)
 
 
+TAG_VALIDATION = ("Ignore", "Warn", "Fail")
+
+
+@dataclasses.dataclass
+class CheckpointConfig(DeepSpeedConfigModel):
+    """The ``checkpoint`` block (JAX ``CheckpointConfig``):
+    ``tag_validation`` checks that every rank saves under one tag,
+    ``load_universal`` makes ``load_checkpoint`` read a universal
+    directory, ``async_save`` selects the engine that writes in the
+    background (``runtime/checkpoint_engine.py``)."""
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    async_save: bool = False
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.tag_validation not in TAG_VALIDATION:
+            raise ValueError(f"checkpoint.tag_validation "
+                             f"{self.tag_validation!r}: one of "
+                             f"{TAG_VALIDATION}")
+
+
 @dataclasses.dataclass
 class DeepSpeedConfig(DeepSpeedConfigModel):
     train_batch_size: Optional[int] = None
@@ -342,7 +362,7 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
     curriculum_learning: dict = _field(default_factory=dict)
     compression_training: dict = _field(default_factory=dict)
     aio: dict = _field(default_factory=dict)
-    checkpoint: dict = _field(default_factory=dict)
+    checkpoint: CheckpointConfig = _field(default_factory=CheckpointConfig)
     elasticity: dict = _field(default_factory=dict)
     hybrid_engine: dict = _field(default_factory=dict)
     autotuning: dict = _field(default_factory=dict)

@@ -204,6 +204,11 @@ class DeepSpeedEngine:
 
         self.global_steps = 0
         self.global_samples = 0
+        # fp16 overflow steps of the forward/backward/step triple (JAX
+        # tallies them on its eager path only; overflow_steps reads the
+        # device counter for both paths)
+        self.skipped_steps = 0
+        self.checkpoint_engine = None   # built by the first save or load
         self._last_metrics = None
         self._last_loss = None          # forward()'s loss, for backward()
         self._micro_losses = []         # backward()'s losses since step()
@@ -616,9 +621,11 @@ class DeepSpeedEngine:
             "context manager (reference engine.py:1992)"
         if not self.is_gradient_accumulation_boundary():
             return
-        self._apply_step(self._micro_losses)
+        metrics = self._apply_step(self._micro_losses)
         self._micro_losses = []
         self._micro_count = 0
+        if self.fp16_enabled and bool(metrics["overflow"]):
+            self.skipped_steps += 1
 
     def no_sync(self):
         """Context manager (reference: engine.no_sync:1987). At stage < 2
@@ -693,6 +700,27 @@ class DeepSpeedEngine:
         """This rank's fp32 master by name (views of the flat buffer): the
         whole parameter, or its shard where ZeRO splits it."""
         return _views(self._master, self._layout)
+
+    # checkpointing lives in runtime/checkpointing.py, bound here as JAX
+    # binds it (deepspeed_tpu/runtime/engine.py:1626-1645)
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True):
+        from .checkpointing import save_checkpoint
+        return save_checkpoint(self, save_dir, tag=tag,
+                               client_state=client_state,
+                               save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_only=False):
+        from .checkpointing import load_checkpoint
+        return load_checkpoint(self, load_dir, tag=tag,
+                               load_optimizer_states=load_optimizer_states,
+                               load_module_only=load_module_only)
+
+    def save_16bit_model(self, save_dir, checkpoint_name="model_weights.npz"):
+        from .checkpointing import save_16bit_model
+        return save_16bit_model(self, save_dir, checkpoint_name)
 
     def consolidated_master_state_dict(self):
         """The full fp32 master by name, every shard all-gathered (every

@@ -2678,3 +2678,52 @@ def test_moe_ffn_on_the_card_matches_the_einsum_form(cuda, k):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(static, out)
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_checkpoint_saved_on_the_card_loads_on_the_cpu(cuda, tmp_path,
+                                                       async_save):
+    """A bf16 engine on the card (flash, fused Adam, ZeRO 2) saves (sync,
+    or through the async engine's pinned snapshot); an engine on the CPU
+    loads the checkpoint: master, moments, params, step and loss scale
+    bit for bit; a checkpoint the CPU engine writes loads back on the card
+    the same way."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPT2
+    cfg = {"train_batch_size": 4, "bf16": {"enabled": True},
+           "optimizer": {"type": "FusedAdam",
+                         "params": {"lr": 1e-3, "fused_kernel": True}},
+           "zero_optimization": {"stage": 2},
+           "checkpoint": {"async_save": async_save}}
+
+    def engine(device, seed):
+        m = GPT2(size="tiny", device=device, remat_policy="segments",
+                 attn_impl="flash")
+        return ds.initialize(model=m, config=dict(cfg, seed=seed))[0]
+
+    def state(eng):
+        out = {"master": eng._master, "step": eng._step,
+               **{f"opt/{k}": v for k, v in eng.opt_state.items()},
+               **{f"params/{k}": v for k, v in
+                  eng.module_state_dict().items()},
+               **{f"scale/{i}": t for i, t in enumerate(eng._loss_scale)}}
+        return {k: v.detach().cpu().clone() for k, v in out.items()}
+
+    tok = np.random.default_rng(0).integers(0, 512, (4, 33))
+    batch = (torch.from_numpy(tok[:, :-1]).to(cuda),
+             torch.from_numpy(tok[:, 1:]).to(cuda))
+    card = engine(cuda, 1)
+    for _ in range(2):
+        card.train_batch(batch)
+    card.save_checkpoint(str(tmp_path / "card"))
+    card.checkpoint_engine.commit("global_step2")
+    cpu = engine("cpu", 2)
+    cpu.load_checkpoint(str(tmp_path / "card"))
+    want, got = state(card), state(cpu)
+    assert all(torch.equal(want[k], got[k]) for k in want)
+    cpu.save_checkpoint(str(tmp_path / "cpu"))
+    cpu.checkpoint_engine.commit("global_step2")
+    back = engine(cuda, 3)
+    back.load_checkpoint(str(tmp_path / "cpu"))
+    got = state(back)
+    assert all(torch.equal(want[k], got[k]) for k in want)

@@ -262,11 +262,16 @@ def test_auto_tp_rules_match_jax():
 
 def test_refusals_name_their_roadmap_items(tmp_path):
     model = tm.GPT2(size="tiny", device="cpu")
+    # a checkpoint of the JAX memory tiers (host optimizer files)
+    host_opt = tmp_path / "offload_run"
+    (host_opt / "global_step1").mkdir(parents=True)
+    np.savez(host_opt / "global_step1" / "host_opt_rank0.npz", x=np.zeros(1))
+    (host_opt / "latest").write_text("global_step1")
     cases = [(dict(tensor_parallel={"tp_size": 4}), "Slice D item 12"),
              (dict(dtype="int8"), "not a blanket cast; use "),
              (dict(quantize_weights=True, tensor_parallel={"tp_size": 2}),
               "single-replica serving path"),
-             (dict(checkpoint=str(tmp_path)), "Slice E item 13")]
+             (dict(checkpoint=str(host_opt)), "Slice E")]
     for config, match in cases:
         with pytest.raises(NotImplementedError, match=match):
             tds.init_inference(model, config=dict({"dtype": "float32"},

@@ -100,3 +100,38 @@ def test_new_entry_points_need_a_card(monkeypatch, tmp_path):
                  lambda: MoE(8, 16, 2).init()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+def test_checkpoint_entry_points(monkeypatch, tmp_path):
+    """The checkpoint modules are imported by the package scan; a CPU
+    engine saves (sync and async), loads and converts its checkpoints
+    without a card; ``build_engine`` with ``checkpoint`` set, and
+    ``init_inference`` over a model on the default device, need one; on
+    the CPU both serve the checkpoint."""
+    from deepspeed_tpu_torch.checkpoint import (
+        ds_to_universal, get_fp32_state_dict_from_zero_checkpoint)
+    modules = {".".join(p.relative_to(PKG).with_suffix("").parts)
+               for p in PKG.rglob("*.py")}
+    assert {"runtime.checkpoint_engine", "runtime.checkpointing",
+            "checkpoint.universal", "checkpoint.zero_to_fp32",
+            "checkpoint.ds_to_universal", "utils.tensor_fragment"} <= modules
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for async_save in (False, True):
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=GPT2(size="tiny", device="cpu"),
+            config={"train_batch_size": 2,
+                    "checkpoint": {"async_save": async_save}})
+        eng.save_checkpoint(str(tmp_path))
+        eng.checkpoint_engine.commit("global_step0")
+        assert eng.load_checkpoint(str(tmp_path))[0] is not None
+    ds_to_universal(str(tmp_path), str(tmp_path / "uni"))
+    assert "embed/tokens" in get_fp32_state_dict_from_zero_checkpoint(
+        str(tmp_path))
+    config = {"dtype": "float32", "checkpoint": str(tmp_path)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine("gpt2", "tiny", config)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.init_inference(GPT2(size="tiny"), config=config)
+    build_engine("gpt2", "tiny", config, device="cpu")
+    deepspeed_tpu_torch.init_inference(GPT2(size="tiny", device="cpu"),
+                                       config=config)

@@ -310,7 +310,7 @@ def test_config_accepts_every_jax_block_by_name():
     {"compression_training": {"weight_quantization": {}}},
     {"hybrid_engine": {"enabled": True}}, {"wall_clock_breakdown": True},
     {"flops_profiler": {"enabled": True}},
-    {"autotuning": {"enabled": True}}, {"checkpoint": {"async_save": True}}])
+    {"autotuning": {"enabled": True}}, {"aio": {"queue_depth": 16}}])
 def test_config_refuses_what_is_not_ported(over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DeepSpeedConfig.from_any(over)

@@ -195,12 +195,23 @@ _ITEMS = {"sentinels": "item 15", "sentinel_mode": "item 15",
           "graftsan": "item 15", "meshsan": "item 15", "numsan": "item 15"}
 
 
+# a checkpoint directory of the JAX memory tiers (host_opt_rank*.npz),
+# made under the test's tmp_path
+HOST_OPT_CHECKPOINT = "<a checkpoint directory with host_opt_rank0.npz>"
+
+
 @pytest.mark.parametrize("setting", [
-    {"tensor_parallel": {"tp_size": 2}}, {"checkpoint": "model.npz"},
+    {"tensor_parallel": {"tp_size": 2}}, {"checkpoint": HOST_OPT_CHECKPOINT},
     {"sentinels": True}, {"sentinel_mode": "warn"},
     {"graftsan": {"enabled": True}}, {"meshsan": {"axes": ["tp"]}},
     {"numsan": {"logits_limit": 5.0}}])
-def test_unported_features_raise(setting):
+def test_unported_features_raise(setting, tmp_path):
+    if setting.get("checkpoint") == HOST_OPT_CHECKPOINT:
+        (tmp_path / "global_step1").mkdir()
+        np.savez(tmp_path / "global_step1" / "host_opt_rank0.npz",
+                 x=np.zeros(1))
+        (tmp_path / "latest").write_text("global_step1")
+        setting = {"checkpoint": str(tmp_path)}
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         build_engine("llama", "tiny", dict(ENGINE_KW, **setting),
                      device="cpu")
