@@ -158,8 +158,10 @@ Phases, each fatal on failure:
      family at 2 layers in fp32, kernel path against plain logits at
      1e-4; (e) init_inference(GPTJ(size="6b"), bf16) on (b)'s weights:
      32 tokens from 8 prompts of 256, tokens/s, greedy agreement with
-     (b)'s v2 engine (reported), and at 4 layers in fp32 the v1 and v2
-     tokens equal under the near-tie rule; (f) phi "2", phi3 "mini" and
+     (b)'s v2 engine (reported), ms a decode step (each step a replay
+     of the captured decode step), the capture's ms, pool MiB and
+     launches a replay, and at 4 layers in fp32 the v1 and v2 tokens
+     equal under the near-tie rule; (f) phi "2", phi3 "mini" and
      gptj "6b" at 4 layers in fp32 through generate_fused (K 8): a
      capturing run and a rerun, both equal to that engine's generate()
      token for token, the paged launches counted from the graph replays
@@ -187,7 +189,8 @@ Phases, each fatal on failure:
      int8 engine on the card against the CPU: codes and scales bit-equal,
      logits within 1e-5 of their largest, greedy tokens equal, v1 and
      generate_fused equal to v2's generate(); (c) init_inference(GPTJ
-     "6b", bf16, quantize_weights), phase 20e's traffic; (d) LoRAModel
+     "6b", bf16, quantize_weights), phase 20e's traffic, its decode
+     steps graph replays (ms a step, capture); (d) LoRAModel
      over Llama-3-8B (r 64, the seven projections int8 in blocks of 512
      by the quantize kernel's exact-division mode) trained with phase
      21's config and batch: step ms, MFU, peak memory, the quantize and
@@ -217,26 +220,34 @@ Phases, each fatal on failure:
      to build_engine's from the tree, the tokens equal, phase 4's launch
      checks; the load's seconds and GB/s, the host's peak RSS and the
      device's build peak; (b) init_inference(path, bf16) against the v1
-     engine from the tree on 8 prompts of 256, 32 greedy tokens, equal;
-     the directory deleted;
+     engine from the tree on 8 prompts of 256, 32 greedy tokens, equal
+     (both engines' decode steps graph replays); the directory deleted;
  25. MoE (moe/, every expert on the card): (a) build_engine("qwen2_moe",
      "a2.7b") whole (24 layers, d 2048, 16 heads of 128, 60 experts top-4
      and a shared expert, 13.7 B parameters, bf16) serves phase 4's
      traffic through generate() and generate_fused (K 8): prefill
      tokens/s, decode ms a tick and a fused step, the drop fraction of
      each tick, the weights' bytes and the build's peak, phase 4's and
-     phase 17's launch checks; (b) init_inference(Mixtral("8x7b") whole,
+     phase 17's launch checks; then a twin engine with
+     moe_grouped_dispatch serves 8 prompts of 24 tokens through
+     generate() and generate_fused (K 8, the grouped GEMMs inside the
+     graphs): the same tokens, 3L grouped_mm launches a tick on the
+     tensor cores; (b) init_inference(Mixtral("8x7b") whole,
      bf16, quantize_moe_experts) on phase 20e's traffic in the capacity
-     form, then moe_grouped_dispatch over the same int8 tree: ms a step,
-     tokens/s, bytes, peaks; (c) Qwen2-MoE a2.7b cut to 4 layers trained
+     form, then moe_grouped_dispatch over the same int8 tree, each
+     generate's decode steps graph replays: ms a step, the capture,
+     tokens/s, bytes, peaks, the grouped form's 3L grouped_mm launches a
+     forward; (c) Qwen2-MoE a2.7b cut to 4 layers trained
      with phase 21's config and batch: step ms, MFU over the active
      parameters, peak memory, falling losses, the aux loss and drop
      fraction, flash all wgmma, norms cta_row, one Adam launch a step;
      (d) both families at full width in fp32, the card against the CPU:
      the capacity form, the grouped form and the int8 experts served at 2
      layers (logits 1e-5 of their largest, greedy tokens equal,
-     generate_fused equal to generate()), Qwen2-MoE's training at 1 layer
-     at phase 21's bounds.
+     generate_fused equal to generate() in the capacity and the grouped
+     form), Qwen2-MoE's training at 1 layer at phase 21's bounds; the CPU
+     halves run on a worker thread from the build on (their trees drawn
+     on the card while nvcc runs, drawn again in 25d).
  26. checkpoints (runtime/checkpointing.py, checkpoint/), on phase 6's
      GPT-2 125M, config and batch (124.5 M values of fp32 master, m and
      v and the bf16 params, ~1.74 GB a checkpoint under build/): (a) an
@@ -253,15 +264,21 @@ Phases, each fatal on failure:
      checkpoint directory served by build_engine (v2) and init_inference
      (v1) in bf16, phase 4's traffic shape (8 requests of 100-700 tokens,
      32 greedy tokens): tokens equal the engines' built from the trained
-     parameters, phase 4's launch checks; (f) the card's checkpoint loaded
+     parameters, phase 4's launch checks, v1's decode steps graph replays
+     (ms a step, capture ms a prompt length), and v1's graph against the
+     same decode step run eagerly on the card, greedy and sampled (top-k
+     and top-p): tokens bit-equal; (f) the card's checkpoint loaded
      by an engine on the CPU and the CPU's on the card, bit for bit; (g)
      phase 13's two ZeRO-3 qwZ/qgZ ranks saved at their last step; that
      checkpoint at W = 1 on the card: the master's sha256 equals the
      ranks' consolidated master's. The directories are removed at the
      phase's end.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
-Lion, the block-sparse kernels, the int8 block quantize/dequantize and the
-RMSNorm/LayerNorm kernels against their plain versions and times them at
+Lion, the block-sparse kernels, the int8 block quantize/dequantize, the
+RMSNorm/LayerNorm kernels and the grouped GEMM of the grouped MoE form
+(bf16, fp16 and fp32 at Mixtral-8x7B's and Qwen2-MoE's expert shapes,
+decode and prefill rows, one expert empty; no Pallas counterpart: XLA's
+lax.ragged_dot) against their plain versions and times them at
 Path Q's, Path T's, Path P's, Path Z's and the serving and training
 paths' shapes (the norm rows with the variant each took, GB/s, the share
 of the bound, the ratio to the library call and a bit-identical rerun).
@@ -314,7 +331,8 @@ ATTN_TOL = dict(TOL, float16=1e-2)
 FP16_LOGITS_TOL = 5e-2
 ADAM_TOL = (1e-6, 1e-5)        # atol, rtol: the JAX fused-Adam tolerance
 KERNELS = ("paged_attention", "flash_attention", "fused_adam",
-           "fused_lion", "block_sparse_attention", "quantize_int8", "norms")
+           "fused_lion", "block_sparse_attention", "quantize_int8", "norms",
+           "grouped_gemm")
 SOURCE = "deepspeed_tpu_torch/csrc/{}.cu"
 # the paged-attention kernels every bf16 call must take (the fp32 prefill
 # stays on the CUDA-core kernel, "cuda_cores")
@@ -340,7 +358,10 @@ REPLACES = {
     "dequantize_int8": "deepspeed_tpu/ops/pallas/quantization.py:99",
     "rms_norm": "deepspeed_tpu/ops/pallas/norms.py:47",
     "rms_norm_decode": "deepspeed_tpu/ops/pallas/norms.py:47",
-    "layer_norm": "deepspeed_tpu/ops/pallas/norms.py:81"}
+    "layer_norm": "deepspeed_tpu/ops/pallas/norms.py:81",
+    # no Pallas kernel: XLA's lax.ragged_dot in the grouped MoE form
+    "grouped_mm": "deepspeed_tpu/moe/sharded_moe.py:170 (lax.ragged_dot, "
+                  "no Pallas counterpart)"}
 # what each kernel of the kernels line takes: its dtypes and its variants
 # (by the dtypes that take them)
 _ATTN = {"wgmma": ["bfloat16", "float16"], "cuda_cores": ["float32"]}
@@ -365,7 +386,9 @@ KERNEL_FORMS = {
     "rms_norm_decode": (_ALL, {v: _ALL for v in ("warp_row", "cta_row",
                                                 "general")}),
     "layer_norm": (_ALL, {v: _ALL for v in ("warp_row", "cta_row",
-                                           "general")})}
+                                           "general")}),
+    "grouped_mm": (_ALL, {"tensor_cores": ["bfloat16", "float16"],
+                          "cuda_cores": ["float32"]})}
 # remat policies of phase 15: every name the JAX model runs (aliases once)
 # and remat off
 REMAT_RUNS = ("segments", "nothing_saveable", "everything_saveable",
@@ -2948,12 +2971,58 @@ def v1_prompts_of(vocab: int, length: int = V1_PROMPTS["length"]):
     return rng.integers(0, vocab, (V1_PROMPTS["n"], length)).tolist()
 
 
+def v1_warm(eng, prompts, max_new: int) -> None:
+    """One untimed generate() that captures the graph a call of
+    ``prompts`` and ``max_new`` new tokens then replays: 2 new tokens
+    where their cache bucket is that call's (the same batch, sampling and
+    bucket: one graph), else ``max_new``; the timed call after it holds
+    no capture (:func:`v1_graph_record` ``warmed``)."""
+    n = len(prompts[0])
+    same = eng.cache_bucket(n + 2) == eng.cache_bucket(n + max_new)
+    eng.generate(prompts, max_new_tokens=2 if same else max_new)
+
+
+def v1_graph_record(eng, dev, what: str, warmed: bool = False) -> dict:
+    """The v1 engine's last generate() on the card: its decode steps were
+    replays of one captured graph (fails otherwise); device ms a step
+    between events around the replays, the graph's capture ms (the
+    warm-up step included), pool MiB, whether this call captured it, and
+    its launches a replay by wrapper and by variant (norms: cta_row or
+    warp_row only), and ``forwards_launched``: the prefill, the replayed
+    steps and, where this call captured the graph, its warm-up step (run
+    eagerly over an idle copy of the state: its launches count); with
+    ``warmed``, fails if this call captured. None of it on the CPU, where
+    the steps run eagerly."""
+    last = eng.last_decode
+    if dev.type != "cuda":
+        return dict(decode_ms_per_step=None, steps=last["steps"],
+                    forwards_launched=last["steps"] + 1)
+    g = last["graph"]
+    if g is None or last["events"] is None:
+        raise AssertionError(f"{what}: generate's steps were not graph "
+                             f"replays: {last}")
+    if warmed and last["captured"]:
+        raise AssertionError(f"{what}: the timed call captured its graph "
+                             f"after v1_warm")
+    norms = {w: v for w, v in g["launches_by_variant"].items()
+             if "norm" in w}
+    if any(set(v) - set(NEW_NORM_VARIANTS) for v in norms.values()):
+        raise AssertionError(f"{what}: a replay's norms {norms}")
+    return dict(decode_ms_per_step=eng.decode_ms_per_step(),
+                steps=last["steps"], captured_now=last["captured"],
+                forwards_launched=last["steps"] + 1 + int(last["captured"]),
+                capture_ms=g["capture_ms"], graph_pool_mib=g["pool_mib"],
+                launches_per_replay=g["launches_per_replay"],
+                launches_by_variant_per_replay=g["launches_by_variant"])
+
+
 def breadth_v1(dev, v2_outputs, params, prompts, size="6b"):
     """Phase 20e: init_inference(GPTJ(size="6b"), bf16, max_out_tokens
     1024) on phase 20b's GPT-J weights (``params``, the v2 engine's):
-    32 greedy tokens from 8 prompts of 256 (a prefill, then an eager
-    decode loop over the static cache, norms on the kernel); tokens/s and
-    the greedy agreement with the v2 engine's ``v2_outputs`` (reported).
+    32 greedy tokens from 8 prompts of 256 (a prefill, then the decode
+    step's graph replayed, captured by an untimed :func:`v1_warm` first;
+    norms on the kernel); tokens/s and the greedy agreement with the v2
+    engine's ``v2_outputs`` (reported).
     Then GPT-J-6B cut to 4 layers in fp32: the v1 and v2 engines on one
     set of weights must give the same greedy tokens under the near-tie
     rule (a differing token's top-2 margin below NEAR_TIE)."""
@@ -2965,7 +3034,7 @@ def breadth_v1(dev, v2_outputs, params, prompts, size="6b"):
         "dtype": "bf16", "max_out_tokens": 1024}, params=params)
     c = eng.module.config
     prompt_len = len(prompts[0])
-    eng.generate([prompts[0][:16]], max_new_tokens=2)          # warm-up
+    v1_warm(eng, prompts, V1_PROMPTS["max_new"])
     norms = norm_counter(c)
     reset_norms(norms)
     sync(dev)
@@ -2974,12 +3043,13 @@ def breadth_v1(dev, v2_outputs, params, prompts, size="6b"):
     sync(dev)
     wall = time.perf_counter() - t
     new = out[:, prompt_len:].tolist()
+    graph = v1_graph_record(eng, dev, "20e v1 generate", warmed=True)
     norm_by_variant = check_norm_variants(norms, dev, "v1 generate")
     forwards = V1_PROMPTS["max_new"]
     if dev.type == "cuda" and norms.launches != norms_per_forward(c) \
-            * forwards:
+            * graph["forwards_launched"]:
         raise AssertionError(f"v1: {norms.launches} norm launches, want "
-                             f"{norms_per_forward(c)} x {forwards}")
+                             f"{norms_per_forward(c)} x {graph}")
     agree = agreement(new, v2_outputs)
     rec = dict(model=f"gptj-{size}", dtype="bfloat16",
                requests=len(prompts), prompt_tokens=prompt_len,
@@ -2987,7 +3057,7 @@ def breadth_v1(dev, v2_outputs, params, prompts, size="6b"):
                generated_tokens_per_s=len(prompts) * forwards / wall,
                norm_launches=norms.launches,
                norm_launches_by_variant=norm_by_variant,
-               greedy_agreement_vs_v2=agree)
+               greedy_agreement_vs_v2=agree, **graph)
     del eng, out
     gc.collect()
     if dev.type == "cuda":
@@ -3719,9 +3789,10 @@ def int8_prompts(fp32=INT8_FP32):
 def int8_v1_main(dev, size="6b", length=V1_PROMPTS["length"]):
     """Phase 22c: init_inference(GPTJ(size="6b"), bf16, quantize_weights)
     with random seeded weights, phase 20e's traffic (8 prompts of 256, 32
-    greedy): generated tokens/s, ms a decode step, the int8 weights'
-    bytes beside the bf16 tree's, the norm launches (every one a row
-    kernel, 2L + 1 a forward)."""
+    greedy, the decode steps graph replays of a graph :func:`v1_warm`
+    captured untimed): generated tokens/s, ms a decode step, the
+    capture, the int8 weights' bytes beside the bf16 tree's, the norm
+    launches (every one a row kernel, 2L + 1 a forward)."""
     import torch
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import GPTJ
@@ -3731,7 +3802,7 @@ def int8_v1_main(dev, size="6b", length=V1_PROMPTS["length"]):
         "dtype": "bf16", "max_out_tokens": 1024, **INT8_SERVING})
     c = eng.module.config
     prompts = v1_prompts_of(c.vocab_size, length)
-    eng.generate([prompts[0][:16]], max_new_tokens=2)          # warm-up
+    v1_warm(eng, prompts, V1_PROMPTS["max_new"])
     norms = norm_counter(c)
     reset_norms(norms)
     sync(dev)
@@ -3740,6 +3811,7 @@ def int8_v1_main(dev, size="6b", length=V1_PROMPTS["length"]):
     sync(dev)
     wall = time.perf_counter() - t
     new = out[:, len(prompts[0]):]
+    graph = v1_graph_record(eng, dev, "22c v1 int8 generate", warmed=True)
     norm_by_variant = check_norm_variants(norms, dev, "v1 int8 generate")
     forwards = V1_PROMPTS["max_new"]
     rec = dict(model=f"gptj-{size}", dtype="bfloat16", quantize_weights=True,
@@ -3750,7 +3822,7 @@ def int8_v1_main(dev, size="6b", length=V1_PROMPTS["length"]):
                weight_bytes=weight_bytes(eng.module.params),
                bf16_weight_bytes=bf16_bytes,
                norm_launches=norms.launches,
-               norm_launches_by_variant=norm_by_variant)
+               norm_launches_by_variant=norm_by_variant, **graph)
     rec["weight_bytes_ratio_vs_bf16"] = rec["weight_bytes"] / bf16_bytes
     ok = bool(((new >= 0) & (new < c.vocab_size)).all())
     del eng, model, out
@@ -3759,7 +3831,7 @@ def int8_v1_main(dev, size="6b", length=V1_PROMPTS["length"]):
         torch.cuda.empty_cache()
     log(f"[int8] phase 22c v1: {json.dumps(rec)}")
     if not ok or dev.type == "cuda" and norms.launches != \
-            norms_per_forward(c) * forwards:
+            norms_per_forward(c) * graph["forwards_launched"]:
         raise AssertionError(f"phase 22c: tokens in range {ok}, norm "
                              f"launches {norms.launches}")
     return rec
@@ -4604,7 +4676,7 @@ def hf_v1_check(dev, path, tree, layers=HF_LAYERS, length=None):
     c = eng.module.config
     prompts = v1_prompts_of(c.vocab_size,
                             **({"length": length} if length else {}))
-    eng.generate([prompts[0][:16]], max_new_tokens=2)          # warm-up
+    v1_warm(eng, prompts, V1_PROMPTS["max_new"])
     norms = norm_counter(c)
     reset_norms(norms)
     sync(dev)
@@ -4612,6 +4684,8 @@ def hf_v1_check(dev, path, tree, layers=HF_LAYERS, length=None):
     out = eng.generate(prompts, max_new_tokens=V1_PROMPTS["max_new"])
     sync(dev)
     wall = time.perf_counter() - t
+    graph = v1_graph_record(eng, dev, "24b v1 from an HF directory",
+                            warmed=True)
     by_variant = check_norm_variants(norms, dev, "v1 from an HF directory")
     launches = norms.launches
     ref_out = ref.generate(prompts, max_new_tokens=V1_PROMPTS["max_new"])
@@ -4619,14 +4693,14 @@ def hf_v1_check(dev, path, tree, layers=HF_LAYERS, length=None):
                requests=len(prompts), prompt_tokens=len(prompts[0]),
                new_tokens=V1_PROMPTS["max_new"], generate_s=wall,
                tokens_equal=bool(torch.equal(out, ref_out)),
-               norm_launches=launches, norm_launches_by_variant=by_variant)
+               norm_launches=launches, norm_launches_by_variant=by_variant,
+               **graph)
     del eng, ref, model, out, ref_out
     gc.collect()
     log(f"[hf] init_inference(path) {json.dumps(rec)}")
-    forwards = V1_PROMPTS["max_new"]
     if not equal or not rec["tokens_equal"] or (
-            dev.type == "cuda"
-            and launches != norms_per_forward(c) * forwards):
+            dev.type == "cuda" and launches
+            != norms_per_forward(c) * graph["forwards_launched"]):
         raise AssertionError(f"phase 24b: {rec}")
     return rec
 
@@ -4778,6 +4852,7 @@ def moe_serving_main(dev, family="qwen2_moe", size="a2.7b", model_over=None,
         graphs_captured=len(captures),
         capture_ms_total=sum(g["capture_ms"] for g in captures),
         graph_pool_mib_total=sum(g["pool_mib"] for g in captures))
+    stats["fused_grouped"] = grouped_fused_check(engine, dev, max_new, k)
     if dev.type == "cuda":
         # where the time goes: a prefill tick of 8 x 256 and 8 decode
         # ticks per tick, and one fused dispatch of 8 ticks
@@ -4795,6 +4870,66 @@ def moe_serving_main(dev, family="qwen2_moe", size="a2.7b", model_over=None,
     if bad:
         raise AssertionError("phase 25a: " + "; ".join(bad))
     return stats
+
+
+def grouped_fused_check(engine, dev, max_new=32, k=8, n_req=8,
+                        prompt_len=24) -> dict:
+    """25a's grouped form in the fused loops: a twin of the capacity
+    engine (the same weights, its own pools) with moe_grouped_dispatch
+    serves ``n_req`` seeded prompts of ``prompt_len`` tokens (one prefill
+    tick for both loops, so the ticks' shapes match) through generate()
+    per tick, then generate_fused (K ``k``): a capturing run and a counted
+    rerun, both giving generate()'s tokens; every replayed tick launches
+    3L grouped GEMMs on the tensor cores (L x (graph ticks + prefill
+    dispatches) in all) and L decode_split paged calls. Reports decode ms
+    a fused step beside the capacity form's."""
+    c = engine.model.config
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, c.vocab_size, prompt_len).tolist()
+               for _ in range(n_req)]
+    g = twin_engine(engine, moe_grouped_dispatch=True)
+    gmm = grouped_mm_counter()
+    per_tick, _, _ = serve(g, prompts, max_new, dev)
+    first, _ = serve_fused(g, prompts, max_new, dev, k)
+    norms = reset_counts(c)
+    reset_norms(gmm)
+    ticks = count_ticks(g)
+    g.reset_serving_metrics()
+    captured = len(g.graph_captures)
+    try:
+        outs, run = serve_fused(g, prompts, max_new, dev, k)
+    finally:
+        uncount_ticks(g)
+    counts = read_counts(norms)
+    m = g.serving_metrics()
+    prefill_dispatches = m["host_dispatches"] - m["fused_dispatches"]
+    graph_ticks = sum(ticks) + len(g.graph_captures) - captured
+    layers = c.num_layers
+    rec = dict(requests=n_req, prompt_tokens=prompt_len, new_tokens=max_new,
+               k=k, tokens_equal_generate=outs == per_tick,
+               capturing_run_equal=first == per_tick,
+               decode_ms_per_step=1e3 * (run["wall_s"] - run["prefill_s"])
+               / max(run["steps"], 1),
+               graph_ticks=graph_ticks, prefill_dispatches=prefill_dispatches,
+               grouped_mm_launches=gmm.launches,
+               grouped_mm_launches_by_variant=dict(gmm.variant_launches),
+               graphs_captured=len(g.graph_captures),
+               capture_ms_total=sum(x["capture_ms"]
+                                    for x in g.graph_captures), **counts)
+    release_engine(g, dev)
+    del g
+    gc.collect()
+    log(f"[moe] phase 25a grouped fused: {json.dumps(rec)}")
+    want = 3 * layers * (graph_ticks + prefill_dispatches)
+    bad = not (rec["tokens_equal_generate"] and rec["capturing_run_equal"])
+    if dev.type == "cuda":
+        bad |= (gmm.launches != want or set(gmm.variant_launches)
+                != {"tensor_cores"} or counts["launches_by_variant"].get(
+                    "decode_split") != layers * graph_ticks)
+    if bad:
+        raise AssertionError(f"phase 25a grouped fused: {rec}, want "
+                             f"{want} grouped_mm launches")
+    return rec
 
 
 def dead_row_times(engine, dev, context: int, rows=8, iters=20) -> dict:
@@ -4848,9 +4983,12 @@ def moe_v1_main(dev, family="mixtral", size="8x7b", model_over=None,
     float expert stack exists on the card), then phase 20e's traffic (8
     prompts of ``length``, 32 greedy tokens) in the capacity form and in
     the grouped form (moe_grouped_dispatch, a second engine over the same
-    int8 tree): ms a step, generated tokens/s, the weights' bytes (the
-    routed experts' apart) and the build's peak; every norm launch a row
-    kernel, 2L + 1 a forward."""
+    int8 tree): ms a step, generated tokens/s, the capture (by an
+    untimed :func:`v1_warm`; :func:`v1_graph_record`: the decode steps
+    replay one graph in either form), the weights' bytes (the routed
+    experts' apart) and the build's peak; every norm launch a row
+    kernel, 2L + 1 a forward; the grouped form 3L grouped GEMM launches a
+    forward on the tensor cores."""
     import torch
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import get_model_class
@@ -4878,13 +5016,15 @@ def moe_v1_main(dev, family="mixtral", size="8x7b", model_over=None,
     prompts = v1_prompts_of(c.vocab_size, length)
     forwards = V1_PROMPTS["max_new"]
     outs = {}
+    gmm = grouped_mm_counter()
     for form in ("capacity", "grouped"):
         if form == "grouped":
             eng = ds.init_inference(model, config=dict(
                 cfg, moe_grouped_dispatch=True), params=dict(model.params))
-        eng.generate([prompts[0][:16]], max_new_tokens=2)      # warm-up
+        v1_warm(eng, prompts, forwards)
         norms = norm_counter(c)
         reset_norms(norms)
+        reset_norms(gmm)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         sync(dev)
@@ -4893,6 +5033,7 @@ def moe_v1_main(dev, family="mixtral", size="8x7b", model_over=None,
         sync(dev)
         wall = time.perf_counter() - t
         outs[form] = out[:, length:].tolist()
+        graph = v1_graph_record(eng, dev, f"25b {form}", warmed=True)
         by_variant = check_norm_variants(norms, dev, f"25b {form}")
         rec[form] = dict(
             generate_s=wall, ms_per_step=1e3 * wall / forwards,
@@ -4900,17 +5041,31 @@ def moe_v1_main(dev, family="mixtral", size="8x7b", model_over=None,
             serve_peak_gib=(torch.cuda.max_memory_allocated() / 2**30
                             if dev.type == "cuda" else None),
             norm_launches=norms.launches,
-            norm_launches_by_variant=by_variant)
-        if dev.type == "cuda" and norms.launches != \
-                norms_per_forward(c) * forwards:
-            raise AssertionError(f"phase 25b {form}: {norms.launches} norm "
-                                 f"launches, want {norms_per_forward(c)} x "
-                                 f"{forwards}")
+            norm_launches_by_variant=by_variant,
+            grouped_mm_launches=gmm.launches,
+            grouped_mm_launches_by_variant=dict(gmm.variant_launches),
+            **graph)
+        # the grouped form: three grouped GEMMs a layer a forward, every
+        # one on the tensor cores; the capacity form none
+        launched = graph["forwards_launched"]
+        want_gmm = 3 * c.num_layers * launched if form == "grouped" else 0
+        if dev.type == "cuda" and (
+                norms.launches != norms_per_forward(c) * launched
+                or gmm.launches != want_gmm or set(gmm.variant_launches)
+                - {"tensor_cores"}):
+            raise AssertionError(
+                f"phase 25b {form}: {norms.launches} norm launches, want "
+                f"{norms_per_forward(c)} x {launched}; grouped_mm "
+                f"{dict(gmm.variant_launches)}, want {want_gmm} "
+                f"tensor_cores")
         if dev.type == "cuda":
             # where a step's time goes: 4 tokens from 16-token prompts
+            # (their graph captured by a first call outside the trace)
+            short = [p[:16] for p in prompts]
+            eng.generate(short, max_new_tokens=4)
             rec[form]["profile"] = profile_window(
                 f"moe_v1_{form}", lambda: eng.generate(
-                    [p[:16] for p in prompts], max_new_tokens=4), 4)[1]
+                    short, max_new_tokens=4), 4)[1]
         del eng
         gc.collect()
     rec["greedy_agreement_grouped_vs_capacity"] = agreement(
@@ -4982,7 +5137,7 @@ def moe_fp32_engines(dev, family, size, tree, prompts, layers,
                 p.detach().cpu().numpy().tobytes()).hexdigest()
                 for n, p in v2.model.params.items()
                 if n.endswith(("_q", "_s"))}
-        if form == "capacity":
+        if form in ("capacity", "grouped"):
             rec["fused"] = v2.generate_fused(
                 prompts, max_new_tokens=fp32["max_new"], k_steps=fp32["k"])
         release_engine(v2, dev)
@@ -4992,68 +5147,109 @@ def moe_fp32_engines(dev, family, size, tree, prompts, layers,
     return out
 
 
-def moe_fp32_train(dev, family, size, init, fp32=MOE_TRAIN_FP32):
-    """25d's training: :func:`fp32_engine_run` from ``init`` on ``dev``,
-    the card first (its grads and changes kept there), then the CPU (which
-    trains ``init`` in place), one after the other: the host holds one
-    engine. Returns both records."""
+def moe_fp32_prompts(family, size, fp32=MOE_FP32) -> list:
+    """25d's seeded prompts for ``family`` (its vocab)."""
+    from deepspeed_tpu_torch.models import get_model_class
+    vocab = get_model_class(family)(size=size, device="meta").config.vocab_size
+    rng = np.random.default_rng(12)
+    lens = rng.integers(*fp32["lengths"], fp32["n_req"])
+    return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def moe_fp32_layers(family, fp32=MOE_FP32) -> int:
+    return fp32.get("family_layers", {}).get(family, fp32["layers"])
+
+
+def moe_train_init(tree, train=MOE_TRAIN_FP32) -> dict:
+    """The training check's initial master: the tree cut to
+    ``train["layers"]``, cloned (the CPU engine trains its master in
+    place)."""
+    return {n: (t[:train["layers"]] if n.startswith("layers/") else t)
+            .clone() for n, t in tree.items()}
+
+
+def moe_fp32_cpu_sides(pool, dev, fp32=MOE_FP32, train=MOE_TRAIN_FP32):
+    """The CPU halves of phase 25d, queued on the worker ``pool`` behind
+    phases 21's and 22's (beside phase 2's nvcc and phase 3; the run
+    waits for them before phase 4): each family's fp32 tree drawn on the card now (it
+    is idle before the build) and moved to the host, then futures of its
+    serving (:func:`moe_fp32_engines` on the CPU) and, for ``train``'s
+    families, its training (:func:`fp32_engine_run`, the record's
+    ``init`` dropped: the card half draws the tree again, bit for bit).
+    The trees go when their tasks have run."""
     import torch
-    args = (family, size, fp32["layers"], fp32["rows"], fp32["seq"],
-            fp32["steps"], fp32["lr"])
-    card = fp32_engine_run(dev, *args, init=init,
-                           over=MOE_FP32["model_over"], host=False)
-    cpu = fp32_engine_run(torch.device("cpu"), *args, init=init,
-                          over=MOE_FP32["model_over"])
-    return card, cpu
+    cpu = torch.device("cpu")
+    futures = {}
+    for family, size in fp32["families"]:
+        layers = moe_fp32_layers(family, fp32)
+        tree = moe_fp32_tree(family, size, layers, dev,
+                             model_over=fp32["model_over"])
+        prompts = moe_fp32_prompts(family, size, fp32)
+        futures[(family, "serving")] = pool.submit(
+            moe_fp32_engines, cpu, family, size, tree, prompts, layers,
+            fp32)
+        if (family, size) in train["families"]:
+            args = (family, size, train["layers"], train["rows"],
+                    train["seq"], train["steps"], train["lr"])
+
+            def train_side(init=moe_train_init(tree, train), args=args):
+                run = fp32_engine_run(cpu, *args, init=init,
+                                      over=fp32["model_over"])
+                run.pop("init")
+                return run
+
+            futures[(family, "train")] = pool.submit(train_side)
+        del tree
+    return futures
 
 
-def moe_fp32_main(dev, fp32=MOE_FP32, train=MOE_TRAIN_FP32):
+def moe_fp32_main(dev, fp32=MOE_FP32, train=MOE_TRAIN_FP32, cpu_sides=None):
     """Phase 25d (TF32 off): each family at full width, its seeded fp32 tree
     (:func:`moe_fp32_tree`), the card's half (the kernels) against the
-    CPU's (a worker thread, at the same time): the first prefill's logits
+    CPU's (``cpu_sides``: :func:`moe_fp32_cpu_sides`'s futures, run
+    beside the build; None: run now, on a worker thread while the card's
+    half runs): the first prefill's logits
     within 1e-5 of their largest in the capacity form, the grouped form
     and with int8 experts (their codes and scales bit-equal), and their
-    greedy tokens equal; the card's
-    generate_fused tokens equal to the CPU's and, the prompts prefilled in
-    one tick, to its own generate()'s; for the families ``train`` names,
+    greedy tokens equal; the card's generate_fused tokens (capacity and
+    grouped form) equal to the CPU's and, the prompts prefilled in one
+    tick, to its own generate()'s; for the families ``train`` names,
     training at train_family_fp32's bounds (losses 1e-4 relative, the
     first step's grads 1e-4 of their largest, the params 1e-3 of the norm
     of their change, lm_head reported apart)."""
     import torch
     from concurrent.futures import ThreadPoolExecutor
-    from deepspeed_tpu_torch.models import get_model_class
     t0 = time.perf_counter()
     rec = {}
+    pool = None
+    if cpu_sides is None:
+        pool = ThreadPoolExecutor(max_workers=1)
+        cpu_sides = moe_fp32_cpu_sides(pool, dev, fp32, train)
     for family, size in fp32["families"]:
-        layers = fp32.get("family_layers", {}).get(family, fp32["layers"])
+        layers = moe_fp32_layers(family, fp32)
         tree = moe_fp32_tree(family, size, layers, dev,
                              model_over=fp32["model_over"])
-        vocab = get_model_class(family)(
-            size=size, device="meta").config.vocab_size
-        rng = np.random.default_rng(12)
-        lens = rng.integers(*fp32["lengths"], fp32["n_req"])
-        prompts = [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+        prompts = moe_fp32_prompts(family, size, fp32)
         t = time.perf_counter()
-        with RssPeak(interval=0.02) as rss, \
-                ThreadPoolExecutor(max_workers=1) as pool:
-            future = pool.submit(moe_fp32_engines, torch.device("cpu"),
-                                 family, size, tree, prompts, layers, fp32)
+        with RssPeak(interval=0.02) as rss:
             card = dict(serving=moe_fp32_engines(dev, family, size, tree,
                                                  prompts, layers, fp32))
             card_s = time.perf_counter() - t
-            cpu = dict(serving=future.result())
+            cpu = dict(serving=cpu_sides.pop((family, "serving")).result())
         rec[f"host_rss_peak_gib_{family}_serving"] = rss.peak / 2**30
         rec[f"seconds_{family}_serving"] = dict(
             card=card_s, both=time.perf_counter() - t)
         if (family, size) in train["families"]:
-            init = {n: (t[:train["layers"]] if n.startswith("layers/")
-                        else t).clone() for n, t in tree.items()}
+            init = moe_train_init(tree, train)
             del tree
             gc.collect()
             t = time.perf_counter()
             with RssPeak(interval=0.02) as rss:
-                card["train"], cpu["train"] = moe_fp32_train(
-                    dev, family, size, init, train)
+                card["train"] = fp32_engine_run(
+                    dev, family, size, train["layers"], train["rows"],
+                    train["seq"], train["steps"], train["lr"], init=init,
+                    over=fp32["model_over"], host=False)
+                cpu["train"] = cpu_sides.pop((family, "train")).result()
             rec[f"host_rss_peak_gib_{family}_train"] = rss.peak / 2**30
             rec[f"seconds_{family}_train"] = time.perf_counter() - t
             del init
@@ -5071,13 +5267,15 @@ def moe_fp32_main(dev, fp32=MOE_FP32, train=MOE_TRAIN_FP32):
                     (got["logits"] - ref["logits"]).abs().max()
                     / ref["logits"].abs().max()),
                 card_equals_cpu=got["tokens"] == ref["tokens"])
-        cap_card, cap_cpu = card["serving"]["capacity"], \
-            cpu["serving"]["capacity"]
         r["int8_codes_and_scales_bit_equal"] = (
             card["serving"]["int8_experts"]["codes"]
             == cpu["serving"]["int8_experts"]["codes"])
-        r["fused_card_equals_cpu"] = cap_card["fused"] == cap_cpu["fused"]
-        r["fused_equals_generate"] = cap_card["fused"] == cap_card["tokens"]
+        r["fused_card_equals_cpu"] = all(
+            card["serving"][f]["fused"] == cpu["serving"][f]["fused"]
+            for f in ("capacity", "grouped"))
+        r["fused_equals_generate"] = all(
+            card["serving"][f]["fused"] == card["serving"][f]["tokens"]
+            for f in ("capacity", "grouped"))
         r["tokens"] = {f: v["tokens"] for f, v in card["serving"].items()}
         rec[f"{family}-{size}"] = r
         log(f"[moe] phase 25d {family}-{size}: {json.dumps(r)}")
@@ -5119,6 +5317,8 @@ def moe_fp32_main(dev, fp32=MOE_FP32, train=MOE_TRAIN_FP32):
                 or t["grad_max_err_rel_to_max"] > 1e-4
                 or t["params_err_rel_to_change_held"] > 1e-3):
             raise AssertionError(f"phase 25d {family}-{size}: {r}")
+    if pool is not None:
+        pool.shutdown()
     rec["reduced"] = (
         f"depth {fp32['layers']} serving ({fp32.get('family_layers')} "
         f"apart: time); training {train['layers']} layer "
@@ -5130,8 +5330,9 @@ def moe_fp32_main(dev, fp32=MOE_FP32, train=MOE_TRAIN_FP32):
 
 def moe_main(dev, serving=MOE_SERVING, v1=MOE_V1, train=MOE_TRAIN,
              fp32=MOE_FP32, train_fp32=MOE_TRAIN_FP32, serve_kw=None,
-             train_kw=None, v1_length=V1_PROMPTS["length"]):
-    """Phase 25 (a-d above; a CPU rehearsal shrinks every part)."""
+             train_kw=None, v1_length=V1_PROMPTS["length"], fp32_cpu=None):
+    """Phase 25 (a-d above; a CPU rehearsal shrinks every part);
+    ``fp32_cpu``: 25d's CPU halves (:func:`moe_fp32_cpu_sides`)."""
     import torch
     t0 = time.perf_counter()
     rec = {"host_rss_gib_at_start": RssPeak._rss() / 2**30,
@@ -5160,11 +5361,147 @@ def moe_main(dev, serving=MOE_SERVING, v1=MOE_V1, train=MOE_TRAIN,
         dev, train["family"], train["size"], train["layers"],
         probe=moe_train_probe, **(train_kw or {})))
     rec["train"]["reduced"] = f"depth {train['layers']} (memory)"
-    part("fp32", lambda: moe_fp32_main(dev, fp32, train_fp32))
+    part("fp32", lambda: moe_fp32_main(dev, fp32, train_fp32, fp32_cpu))
     rec["seconds_by_part"] = seconds
     rec["seconds"] = time.perf_counter() - t0
     log(f"[moe] phase 25: {rec['seconds']:.1f} s")
     return rec
+
+# ------------------------------------------- phase 3: the grouped GEMM
+# ops/grouped_gemm.py grouped_mm (csrc/grouped_gemm.cu), the grouped MoE
+# form's expert products: no Pallas counterpart (XLA's lax.ragged_dot,
+# deepspeed_tpu/moe/sharded_moe.py:170-177). Shapes: name -> (experts, K,
+# N, top-k) of Mixtral-8x7B's and Qwen2-MoE a2.7b's routed experts (w_gate
+# and w_up: d -> f; w_down: f -> d); rows = tokens x top-k, 8 tokens at a
+# decode step, 8 x 256 at a prefill tick
+GROUPED_SHAPES = {"mixtral_gate_up": (8, 4096, 14336, 2),
+                  "mixtral_down": (8, 14336, 4096, 2),
+                  "qwen2_moe_gate_up": (60, 2048, 1408, 4),
+                  "qwen2_moe_down": (60, 1408, 2048, 4)}
+GROUPED_TOKENS = {"decode": 8, "prefill": 2048}
+GROUPED_EMPTY = 3      # the expert given no rows in every case
+GROUPED_MAIN = ("mixtral_gate_up", "decode", "bfloat16")  # the 25b path
+GROUPED_TOL = dict(TOL, float16=1e-2)
+
+
+def grouped_case(dev, dtype, experts, k, n, top, tokens, seed=0):
+    """One grouped_mm call: ``tokens * top`` rows sorted by a seeded
+    expert id, expert GROUPED_EMPTY left empty; x ~ N(0, 1), w ~ N(0,
+    1/K) in ``dtype`` on ``dev``; the offsets from the sorted ids as the
+    MoE layer makes them (``group_offsets``)."""
+    import torch
+    from deepspeed_tpu_torch.ops.grouped_gemm import group_offsets
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, experts - 1, tokens * top)
+    ids[ids >= GROUPED_EMPTY] += 1
+    ids = torch.from_numpy(np.sort(ids)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(len(ids), k, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(experts, k, n, generator=gen, device=dev)
+         / k ** 0.5).to(dtype)
+    return x, w, group_offsets(ids, experts)
+
+
+def grouped_bound(x, w, offsets) -> tuple[float, str, int, int]:
+    """(bound ms, what bounds it, bytes, operations) of one call: x read
+    once, the weights of every expert that holds a row read once, the
+    output written once; 2 R K N operations at the dtype's peak."""
+    import torch
+    rows, k = x.shape
+    n = w.shape[2]
+    sizes = torch.diff(offsets.cpu().long(), prepend=torch.zeros(1).long())
+    active = int((sizes > 0).sum())
+    item = x.element_size()
+    nbytes = item * (rows * k + active * k * n + rows * n) + 4 * len(sizes)
+    flops = 2 * rows * k * n
+    rate = FP32_FLOPS if x.dtype == torch.float32 else BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, flops)
+
+
+def grouped_library(x, w, offsets):
+    """The yardstick: one ``torch._grouped_mm`` call on the same inputs
+    (bf16 only: PyTorch's grouped GEMM takes no other dtype here); None
+    and the reason where the installed PyTorch has none or refuses the
+    inputs. Timed only, never called by the port."""
+    import torch
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None or x.dtype != torch.bfloat16:
+        return None, ("no torch._grouped_mm" if fn is None
+                      else "torch._grouped_mm is bf16 only")
+    try:
+        fn(x, w, offs=offsets)
+        return (lambda: fn(x, w, offs=offsets)), "torch._grouped_mm"
+    except RuntimeError as e:
+        return None, f"torch._grouped_mm refused: {str(e)[:160]}"
+
+
+def grouped_mm_checks(dev, flush=None, iters=20):
+    """Phase 3's grouped GEMM: the kernel against its plain version (a
+    product per expert) in bf16, fp16 and fp32 at every shape of
+    GROUPED_SHAPES, decode and prefill rows, one expert empty: max
+    |kernel - plain| / max |plain| within GROUPED_TOL, the variant each
+    dtype takes, a rerun bit for bit; bf16 timed beside the plain
+    version, ``torch._grouped_mm`` where it takes the inputs and the
+    bound. Returns (max |kernel - plain| and its ratio to max |plain| by
+    (dtype, shape, rows), records of the timed bf16 calls)."""
+    import torch
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    errs, times = {}, {}
+    for dtype_name, tol in GROUPED_TOL.items():
+        dtype = getattr(torch, dtype_name)
+        for name, (e, k, n, top) in GROUPED_SHAPES.items():
+            for rows_name, tokens in GROUPED_TOKENS.items():
+                x, w, offs = grouped_case(dev, dtype, e, k, n, top, tokens)
+                got = gg.grouped_mm(x, w, offs)
+                ref = gg.grouped_mm_plain(x, w, offs)
+                again = gg.grouped_mm(x, w, offs)
+                diff = float((got.float() - ref.float()).abs().max())
+                err = diff / float(ref.float().abs().max())
+                key = (dtype_name, name, rows_name)
+                errs[key] = dict(max_abs_err=diff, max_rel_err=err)
+                variant = gg.kernel_variant(dtype)
+                log(f"[kernel] grouped_mm {name} {rows_name} {dtype_name} "
+                    f"rows {x.shape[0]}: max|err| / max|plain| {err:.3e} "
+                    f"(tol {tol:g}), {variant}")
+                if err > tol or (dev.type == "cuda" and not torch.equal(
+                        got, again)):
+                    raise AssertionError(
+                        f"grouped_mm kernel disagrees with its plain "
+                        f"version or its rerun: {key} {err:.3e}")
+                if dtype_name != "bfloat16":
+                    continue
+                bound, bound_by, nbytes, flops = grouped_bound(x, w, offs)
+                lib, lib_note = grouped_library(x, w, offs)
+                rec = dict(
+                    rows=x.shape[0], experts=e, k=k, n=n, top_k=top,
+                    empty_expert=GROUPED_EMPTY, variant=variant,
+                    ms=time_ms(lambda: gg.grouped_mm(x, w, offs), dev,
+                               iters, flush),
+                    plain_ms=time_ms(lambda: gg.grouped_mm_plain(
+                        x, w, offs), dev, max(iters // 4, 2), flush),
+                    library_ms=(time_ms(lib, dev, iters, flush)
+                                if lib else None),
+                    library=lib_note, bound_ms=bound, bound_by=bound_by,
+                    bit_identical_rerun=bool(torch.equal(got, again)))
+                if lib:
+                    rec["library_max_rel_err"] = float(
+                        (lib().float() - ref.float()).abs().max()
+                        / ref.float().abs().max())
+                rec.update(tflops=flops / rec["ms"] / 1e9,
+                           gb_per_s=nbytes / rec["ms"] / 1e6,
+                           bound_share=bound / rec["ms"],
+                           x_library=(rec["ms"] / rec["library_ms"]
+                                      if lib else None))
+                times[f"{name}_{rows_name}"] = rec
+                log(f"[kernel] grouped_mm {name} {rows_name} times: "
+                    f"{json.dumps(rec)}")
+                del x, w, got, ref, again
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return errs, times
+
 
 # ----------------------------------------------------------- phase 26
 # Checkpoints on the card (runtime/checkpointing.py, checkpoint_engine.py,
@@ -5481,7 +5818,11 @@ def ckpt_serving(dev, root, size, params, n_req=8, max_new=32,
     ``checkpoint``) in bf16: 8 requests of 100-700 prompt tokens, 32
     greedy tokens; the tokens equal the same engines' built from
     ``params`` (the trained engine's gathered parameters); the paged and
-    LayerNorm launches of the checkpoint-served engines counted."""
+    LayerNorm launches of the checkpoint-served engines counted; v1's
+    decode steps graph replays (ms a step; a capture where a prompt's
+    cache bucket is not the last one's, its ms inside ``generate_s``),
+    and its graph's greedy and sampled tokens bit-equal to the same step
+    run eagerly (:func:`v1_graph_vs_eager`)."""
     import torch
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.inference.v2 import build_engine
@@ -5525,14 +5866,26 @@ def ckpt_serving(dev, root, size, params, n_req=8, max_new=32,
         reset_norms(norms)
         sync(dev)
         t = time.perf_counter()
-        v1[source] = [eng.generate([p], max_new_tokens=max_new)[
-            0, len(p):].tolist() for p in prompts]
+        v1[source], steps_ms = [], []
+        for p in prompts:
+            v1[source].append(eng.generate([p], max_new_tokens=max_new)[
+                0, len(p):].tolist())
+            graph = v1_graph_record(eng, dev, f"26e v1 from {source}")
+            steps_ms.append(graph.pop("decode_ms_per_step"))
         sync(dev)
         rec[f"v1_{source}"] = dict(
             build_s=build_s, generate_s=time.perf_counter() - t,
+            decode_ms_per_step=steps_ms,
+            captures=[{k: g[k] for k in ("cache_len", "prompt_len",
+                                         "capture_ms")}
+                      for g in eng.graph_captures],
             norm_launches=norms.launches,
             norm_launches_by_variant=check_norm_variants(
-                norms, dev, f"26e v1 from {source}"))
+                norms, dev, f"26e v1 from {source}"), **graph)
+        if source == "checkpoint":
+            rec["v1_graph_vs_eager"] = v1_graph_vs_eager(
+                eng, dev, [p[:min(map(len, prompts))] for p in prompts],
+                max_new)
         del eng, model
     rec["v1_tokens_equal"] = v1["checkpoint"] == v1["params"]
     rec["v1_v2_agreement"] = agreement(v1["checkpoint"], outs["checkpoint"])
@@ -5542,9 +5895,41 @@ def ckpt_serving(dev, root, size, params, n_req=8, max_new=32,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     log(f"[ckpt] 26e serving: {json.dumps(rec)}")
-    if not (rec["v2_tokens_equal"] and rec["v1_tokens_equal"]):
+    if not (rec["v2_tokens_equal"] and rec["v1_tokens_equal"]
+            and all(rec["v1_graph_vs_eager"][m]["tokens_equal"]
+                    for m in ("greedy", "sampled"))):
         raise AssertionError(f"phase 26e: {rec}")
     return rec
+
+
+def v1_graph_vs_eager(eng, dev, prompts, max_new) -> dict:
+    """The v1 engine's captured decode step against the same step run
+    eagerly on the card (``_generate_eager``: the same state and code, no
+    graph), on one batch of ``prompts``: greedy, then sampled (FUSED
+    SAMPLING's temperature, top-k and top-p, seed FUSED_SEED): the tokens
+    bit-equal. Also the ms a step of each (device events around the
+    replays; host wall over the eager steps), and the launches of one
+    eager step against a replay's."""
+    import torch
+    out = {}
+    for mode, kw in (("greedy", {}),
+                     ("sampled", dict(FUSED_SAMPLING, do_sample=True,
+                                      seed=FUSED_SEED))):
+        sync(dev)
+        graph = eng.generate(prompts, max_new_tokens=max_new, **kw)
+        sync(dev)
+        rec = v1_graph_record(eng, dev, f"26e v1 {mode} graph")
+        t = time.perf_counter()
+        eager = eng._generate_eager(prompts, max_new_tokens=max_new, **kw)
+        sync(dev)
+        out[mode] = dict(
+            tokens_equal=bool(torch.equal(graph, eager)),
+            graph_decode_ms_per_step=rec.get("decode_ms_per_step"),
+            eager_s=time.perf_counter() - t,
+            capture_ms=rec.get("capture_ms"),
+            launches_per_replay=rec.get("launches_per_replay"))
+    log(f"[ckpt] 26e v1 graph vs eager: {json.dumps(out)}")
+    return out
 
 
 def ckpt_devices(dev, root, size, card_engine, saved):
@@ -7427,6 +7812,12 @@ def norms_per_forward(c) -> int:
     return norms_per_layer(c) * c.num_layers + 1 + int(c.embed_layernorm)
 
 
+def grouped_mm_counter():
+    """The launch counter of the grouped GEMM (the grouped MoE form)."""
+    from deepspeed_tpu_torch.ops import grouped_gemm
+    return grouped_gemm.grouped_mm_kernel
+
+
 def norm_counter(c):
     """The launch counter of the model's norm kernel."""
     from deepspeed_tpu_torch.ops import norms as N
@@ -7813,6 +8204,7 @@ PROFILE_KINDS = {
     "fused_lion": ("fused_lion_kernel",),
     "block_sparse_attention": ("bs_fwd_", "bs_bwd_"),
     "norms": ("norm_kernel", "norm_rows_kernel"),
+    "grouped_gemm": ("grouped_mm_",),
     "gemm": ("nvjet", "gemm", "sm90_xmma", "cutlass", "cublas"),
     "reduction": ("reduce_kernel",),
     "copy": ("copy", "Memcpy", "Memset", "cat"),
@@ -7931,11 +8323,18 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
-    # phase 21's and phase 22's CPU halves of their fp32 checks run beside
-    # the build
+    # phase 21's, 22's and 25d's CPU halves of their fp32 checks run
+    # beside the build and phase 3, and are done before phase 4: beside
+    # them every host-bound number of the serving phases reads slower
+    # (PERF.md, Findings)
     cpu_pool, cpu_futures = fp32_cpu_sides()
     linear_futures = linear_cpu_sides(cpu_pool)
-    build_s = op_builder.build(list(KERNELS))                 # phase 2
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=1) as nvcc_pool:      # phase 2
+        build = nvcc_pool.submit(op_builder.build, list(KERNELS))
+        # 25d's trees are drawn on the card while nvcc runs
+        moe_cpu = moe_fp32_cpu_sides(cpu_pool, dev)
+        build_s = build.result()
     log(f"[build] seconds {json.dumps(build_s)}")
     for name in ("paged_attention", "flash_attention",
                  "block_sparse_attention"):
@@ -7965,15 +8364,6 @@ def main(argv=None) -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     t = time.perf_counter()
-    cpu_sides = {k: f.result() for k, f in cpu_futures.items()}
-    log(f"[build] phase 21's CPU halves done {time.perf_counter() - t:.1f} "
-        f"s after the build")
-    linear_cpu = {k: f.result() for k, f in linear_futures.items()}
-    cpu_pool.shutdown()
-    del linear_futures
-    log(f"[build] phase 22's CPU halves done {time.perf_counter() - t:.1f} "
-        f"s after the build")
-
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     errs, times = kernel_checks(dev, flush)                   # phase 3
     quant_errs, quant_times = quant_checks(dev, flush)
@@ -7989,9 +8379,26 @@ def main(argv=None) -> int:
     zeropp_times = zeropp_kernel_times(dev, flush)
     lora_quant = lora_quant_times(dev, flush)                 # phase 22's
     norm_errs, norm_times = norm_checks(dev, flush)
+    grouped_errs, grouped_times = grouped_mm_checks(dev, flush)
     breadth_errs, breadth_times = breadth_kernel_checks(dev, flush)  # 20a
     del flush
     torch.cuda.empty_cache()
+    log(f"[build] phase 3 done {time.perf_counter() - t:.1f} s after the "
+        f"build")
+    # the CPU halves ran beside the build and phase 3 (its times are
+    # device times behind a spin); no later phase runs beside them
+    cpu_sides = {k: f.result() for k, f in cpu_futures.items()}
+    log(f"[build] phase 21's CPU halves done {time.perf_counter() - t:.1f} "
+        f"s after the build")
+    linear_cpu = {k: f.result() for k, f in linear_futures.items()}
+    del linear_futures
+    log(f"[build] phase 22's CPU halves done {time.perf_counter() - t:.1f} "
+        f"s after the build")
+    for future in moe_cpu.values():
+        future.result()
+    cpu_pool.shutdown()
+    log(f"[build] phase 25d's CPU halves done {time.perf_counter() - t:.1f} "
+        f"s after the build")
 
     engine, stats = main_path(dev)                            # phase 4
     bf16_ref = {k: stats[k] for k in ("weight_bytes", "decode_ms_per_tick",
@@ -8107,7 +8514,8 @@ def main(argv=None) -> int:
     if resident > 2**30:
         raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
                              f"before phase 25")
-    moe = moe_main(dev)                                       # phase 25
+    moe = moe_main(dev, fp32_cpu=moe_cpu)                     # phase 25
+    del moe_cpu
     gc.collect()
     torch.cuda.empty_cache()
     ckpt = checkpoint_main(dev, path_z)                       # phase 26
@@ -8507,6 +8915,40 @@ def main(argv=None) -> int:
         path_t_launches_by_variant=path_t["norm_launches_by_variant"],
         cases_max_err={"/".join(k): v for k, v in norm_errs.items()
                        if k[0] == "layer"}, cases=NORM_NOTE))
+    # the grouped GEMM (no Pallas counterpart): its main path is 25b's
+    # grouped form, its launches the graph replays' and the prefills'
+    gm_shape, gm_rows, gm_dtype = GROUPED_MAIN
+    gm = grouped_times[f"{gm_shape}_{gm_rows}"]
+    mv1 = moe["v1"]["grouped"]
+    kernels.append(entry(
+        "grouped_mm", "grouped_gemm", mv1["grouped_mm_launches"],
+        grouped_errs[(gm_dtype, gm_shape, gm_rows)]["max_abs_err"], gm,
+        tol=GROUPED_TOL, tol_kind="max |kernel - plain| / max |plain|",
+        max_rel_err=grouped_errs[(gm_dtype, gm_shape, gm_rows)][
+            "max_rel_err"],
+        shape=f"{gm_shape} {gm_rows}: rows {gm['rows']}, experts "
+              f"{gm['experts']} (expert {GROUPED_EMPTY} empty), K "
+              f"{gm['k']}, N {gm['n']}, bf16",
+        library=gm["library"], variant=gm["variant"],
+        tflops=gm["tflops"], gb_per_s=gm["gb_per_s"],
+        bound_share=gm["bound_share"], x_library=gm["x_library"],
+        bit_identical_rerun=gm["bit_identical_rerun"],
+        shapes={k: {f: t[f] for f in ("rows", "experts", "k", "n", "ms",
+                                      "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by", "bound_share",
+                                      "x_library")}
+                for k, t in grouped_times.items()},
+        cases_max_rel_err={"/".join(k): v["max_rel_err"]
+                           for k, v in grouped_errs.items()},
+        main_path="phase 25b: Mixtral-8x7B on v1, grouped form, graph "
+                  "replays (3L a forward)",
+        main_path_launches_by_variant=mv1["grouped_mm_launches_by_variant"],
+        fused_main_path="phase 25a: Qwen2-MoE a2.7b grouped, "
+                        "generate_fused graph replays",
+        fused_launches=moe["serving"]["fused_grouped"][
+            "grouped_mm_launches"],
+        fused_launches_by_variant=moe["serving"]["fused_grouped"][
+            "grouped_mm_launches_by_variant"]))
     # phase 22's launches beside each kernel its paths ran
     int8 = linear["serving"]
     lora = linear["lora"]

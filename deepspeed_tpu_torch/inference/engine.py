@@ -8,10 +8,21 @@ it with ``device="cpu"``), cast to the config's dtype. ``generate`` is a
 prefill and then a decode loop over the static KV cache of
 ``DecoderLM.init_cache``/``decode``, whose attention is the plain
 ``ops.layers.cached_attention`` as in the JAX engine (XLA there, no Pallas
-kernel); the norms run through the norm kernels on the card. The loop is
-eager: one host step a token. Sampling follows the JAX engine's keys
-(``PRNGKey(seed)``, one ``split`` before each draw) and filters
-(temperature, top-k, top-p) through ``ops/threefry.py`` and
+kernel); the norms run through the norm kernels on the card. The cache
+index, the key, the next token and a step counter live on the device, so
+nothing of a step is read back to the host: as JAX compiles ``generate``
+into one program, the port captures the decode step (the forward, the
+key's split, the draw, the token's write) as one CUDA graph and replays
+it ``max_new - 1`` times after an eager prefill (:class:`GenerateState`,
+``inference/graphs.py``); on the CPU the same step runs eagerly. No shape
+of the step depends on the prompt's length or on ``max_new`` apart from
+the cache's length, so a state and its graph serve every call of one
+batch size and sampling whose prompt and new tokens fit one cache
+length (:meth:`InferenceEngine.cache_bucket`: 2^k or 3 * 2^(k-1));
+the engine keeps the last call's state only, and drops it (its cache and
+its graph's pool) when a call needs another. Sampling follows the JAX
+engine's keys (``PRNGKey(seed)``, one ``split`` before each draw) and
+filters (temperature, top-k, top-p) through ``ops/threefry.py`` and
 ``ops/sampling.py``, with the temperature's reciprocal rounding of JAX's
 compiled loop.
 
@@ -57,6 +68,7 @@ from ..models.convert import Deferred, load_serving_params
 from ..ops import sampling, threefry
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
+from .graphs import CapturedLoop
 
 PyTree = Any
 
@@ -167,6 +179,79 @@ def load_checkpoint_params(path: str) -> PyTree:
             for key in ckpt.keys() if key.startswith("params/")}
 
 
+class GenerateState:
+    """A generate call's tensors at fixed addresses on the model's device:
+    the KV cache of ``model.init_cache`` (its index a 0-dim device
+    tensor), the token fed to the next step ``tok`` [B], the threefry key
+    ``key`` [2] (JAX's carry), the output tokens ``out`` [B, max_new]
+    (``max_new`` the most new tokens a call may write) and the device step
+    counter ``step_index`` (the next column of ``out``); ``graph`` its
+    captured decode step (None until the first replayed call); the calls
+    that fit it reuse it. :meth:`prefill` loads a call's prompt and first
+    token; :meth:`step` is the decode step a graph captures."""
+
+    def __init__(self, model, b: int, cache_len: int, max_new: int, dtype,
+                 device, sampling: dict):
+        self.model, self.sampling = model, sampling
+        self.device = torch.device(device)
+        self.cache = model.init_cache(b, cache_len, dtype=dtype)
+        self.tok = torch.zeros(b, dtype=torch.int64, device=self.device)
+        self.key = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self.out = torch.zeros((b, max_new), dtype=torch.int64,
+                               device=self.device)
+        self.step_index = torch.zeros((), dtype=torch.int64,
+                                      device=self.device)
+        self.graph = None
+
+    def idle_copy(self):
+        """A copy over cloned tensors: a step over it (a capture's warm-up)
+        leaves this state as it is."""
+        idle = copy.copy(self)
+        idle.cache = {n: t.clone() for n, t in self.cache.items()}
+        for name in ("tok", "key", "out", "step_index"):
+            setattr(idle, name, getattr(self, name).clone())
+        idle.graph = None
+        return idle
+
+    def _advance(self, logits: torch.Tensor, index: torch.Tensor) -> None:
+        """After a forward: the cache's new index, one ``split`` of the key
+        (JAX's), the next token sampled with the split-off key and written
+        at ``out[:, step]``, the step counter advanced; in place, with no
+        host read."""
+        self.cache["index"].copy_(index)
+        key, sub = threefry.split(self.key)
+        s = self.sampling
+        logits = logits[:, -1, :].float()
+        if s["greedy"]:
+            nxt = sampling.sample_tokens(logits, greedy=True)
+        else:
+            # temperature 1 leaves the logits as they are (JAX divides
+            # only when it is not 1); the rest as JAX's compiled loop
+            nxt = sampling.sample_tokens(
+                logits, sub, temperature=s["temperature"],
+                top_k=s["top_k"], top_p=s["top_p"], reciprocal=True)
+        self.key.copy_(key)
+        self.tok.copy_(nxt)
+        self.out.index_copy_(1, self.step_index.view(1), nxt[:, None])
+        self.step_index.add_(1)
+
+    def prefill(self, tokens: torch.Tensor, key: torch.Tensor) -> None:
+        """A call's start: the cache cleared, the prompt's forward, the
+        first token sampled from ``key``."""
+        for t in (self.cache["k"], self.cache["v"], self.cache["index"],
+                  self.out, self.step_index):
+            t.zero_()
+        self.key.copy_(key)
+        logits, cache = self.model.decode(tokens, self.cache)
+        self._advance(logits, cache["index"])
+
+    def step(self) -> None:
+        """One decode step: the last token's forward over the cache, then
+        :meth:`_advance`."""
+        logits, cache = self.model.decode(self.tok[:, None], self.cache)
+        self._advance(logits, cache["index"])
+
+
 class InferenceEngine:
     """reference: inference/engine.py:41"""
 
@@ -184,6 +269,10 @@ class InferenceEngine:
         self.model_config: ModelConfig | None = getattr(model, "config",
                                                         None)
         self._cache_len = config.max_out_tokens
+        # (key, GenerateState) of the last generate call, or None
+        self._run: tuple | None = None
+        self.graph_captures: list = []
+        self.last_decode: dict = {}
         log_dist(f"InferenceEngine: tp=1 dtype={self.dtype} "
                  f"max_out_tokens={self._cache_len} on {self.device}")
 
@@ -214,43 +303,100 @@ class InferenceEngine:
                 f"max_seq_len ({self.model_config.max_seq_len})")
         return cache_len
 
+    def cache_bucket(self, cache_len: int) -> int:
+        """The cache length a call of ``cache_len`` prompt and new tokens
+        runs on: the next of 2^k and 3 * 2^(k-1) (a step reads the whole
+        cache, so at most a third of it is past the call's tokens), at
+        most ``max_out_tokens`` and the model's ``max_seq_len``. Positions
+        past the call's are masked, so the tokens are those of a cache of
+        ``cache_len``."""
+        limit = self._cache_len
+        if self.model_config is not None:
+            limit = min(limit, self.model_config.max_seq_len)
+        bucket = 1 << (cache_len - 1).bit_length()
+        if cache_len <= 3 * bucket // 4:
+            bucket = 3 * bucket // 4
+        return min(bucket, limit)
+
     @torch.no_grad()
     def generate(self, tokens, max_new_tokens: int = 32,
                  temperature: float = 1.0, top_k: int = 0,
                  top_p: float = 0.0, do_sample: bool = False,
                  seed: int = 0, **kwargs) -> torch.Tensor:
-        """Autoregressive generation (reference: _generate:608): the
-        prompt as one prefill, then ``max_new_tokens - 1`` decode steps.
-        Greedy unless ``do_sample``; top_p enables nucleus sampling
-        (composes with top_k and temperature). Returns [B, prompt +
-        max_new_tokens] token ids, the prompt first."""
+        """Autoregressive generation (reference: _generate:608; JAX
+        compiles the loop into one program): the prompt as one prefill,
+        then ``max_new_tokens - 1`` decode steps, on the card each a
+        replay of one CUDA graph of :meth:`GenerateState.step` (captured
+        at the first call of a batch size, sampling and cache length
+        after a call of another; a capture that fails raises), on the CPU
+        the same step run eagerly. Greedy unless ``do_sample``; top_p enables
+        nucleus sampling (composes with top_k and temperature). Returns
+        [B, prompt + max_new_tokens] token ids, the prompt first."""
+        return self._generate(tokens, max_new_tokens, temperature, top_k,
+                              top_p, do_sample, seed, graph=True)
+
+    @torch.no_grad()
+    def _generate_eager(self, tokens, max_new_tokens: int = 32,
+                        temperature: float = 1.0, top_k: int = 0,
+                        top_p: float = 0.0, do_sample: bool = False,
+                        seed: int = 0) -> torch.Tensor:
+        """:meth:`generate` with every decode step run eagerly on the same
+        state, on the card too: the yardstick its graphs are held to."""
+        return self._generate(tokens, max_new_tokens, temperature, top_k,
+                              top_p, do_sample, seed, graph=False)
+
+    def _generate(self, tokens, max_new, temperature, top_k, top_p,
+                  do_sample, seed, graph: bool) -> torch.Tensor:
         tokens = self._tokens(tokens)
         if tokens.dim() == 1:
             tokens = tokens[None, :]
         b, prompt_len = tokens.shape
-        cache_len = self._check_lengths(prompt_len, max_new_tokens)
-        model = self.module
-        key = threefry.prng_key(seed, device=self.device)
+        bucket = self.cache_bucket(self._check_lengths(prompt_len, max_new))
+        key = (b, bucket, temperature, top_k, top_p, not do_sample)
+        if self._run is None or self._run[0] != key:
+            self._run = None            # the old cache and graph go first
+            self._run = (key, GenerateState(
+                self.module, b, bucket, bucket, self.dtype, self.device,
+                sampling=dict(temperature=temperature, top_k=top_k,
+                              top_p=top_p, greedy=not do_sample)))
+        run = self._run[1]
+        run.prefill(tokens, threefry.prng_key(seed, device=self.device))
+        steps = max_new - 1
+        self.last_decode = dict(steps=steps, events=None, graph=None,
+                                captured=False)
+        if steps and self.device.type == "cuda" and graph:
+            if run.graph is None:
+                run.graph = CapturedLoop(run, GenerateState.step,
+                                         GenerateState.step)
+                self.graph_captures.append(dict(
+                    batch=b, cache_len=bucket, prompt_len=prompt_len,
+                    max_new=max_new, greedy=not do_sample,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    **run.graph.stats))
+                self.last_decode["captured"] = True
+            events = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            events[0].record()
+            for _ in range(steps):
+                run.graph.replay()
+            events[1].record()
+            self.last_decode.update(events=events, graph=run.graph.stats)
+        else:
+            for _ in range(steps):
+                run.step()
+        return torch.cat([tokens, run.out[:, :max_new]], 1)
 
-        def sample(logits, key):
-            key, sub = threefry.split(key)
-            if not do_sample:
-                return sampling.sample_tokens(logits, greedy=True), key
-            # temperature 1 leaves the logits as they are (JAX divides
-            # only when it is not 1); the rest as JAX's compiled loop
-            return sampling.sample_tokens(
-                logits, sub, temperature=temperature, top_k=top_k,
-                top_p=top_p, reciprocal=True), key
-
-        cache = model.init_cache(b, cache_len, dtype=self.dtype)
-        logits, cache = model.decode(tokens, cache)                # prefill
-        nxt, key = sample(logits[:, -1, :].float(), key)
-        out = [nxt]
-        for _ in range(max_new_tokens - 1):
-            logits, cache = model.decode(nxt[:, None], cache)
-            nxt, key = sample(logits[:, -1, :].float(), key)
-            out.append(nxt)
-        return torch.cat([tokens, torch.stack(out, 1)], 1)
+    def decode_ms_per_step(self) -> float | None:
+        """The last graph-replayed :meth:`generate`'s decode steps, device
+        ms a step between CUDA events around the replays (waits for them;
+        None where the steps ran eagerly or there were none).
+        ``last_decode`` also holds the step count, the replayed graph's
+        stats (capture ms, pool MiB, launches a replay by wrapper and
+        variant) and whether the call captured it."""
+        events = self.last_decode.get("events")
+        if not events:
+            return None
+        events[1].synchronize()
+        return events[0].elapsed_time(events[1]) / self.last_decode["steps"]
 
     # --- reference-parity accessors -----------------------------------
     @property

@@ -50,7 +50,8 @@ from ..engine import (INT8_DTYPE_MESSAGE, QUANTIZE_TP_MESSAGE,
                       load_checkpoint_params, load_weights, refuse_moe_tp,
                       serving_model)
 from ...runtime.config_utils import DeepSpeedConfigModel
-from .fused_graph import CapturedLoop, FusedState, RingState
+from ..graphs import CapturedLoop
+from .fused_graph import FusedState, RingState
 from .paged import (KERNEL_DTYPES, fused_decode_loop, fused_serve_loop,
                     fused_spec_decode_loop, fused_spec_serve_loop,
                     indexable, paged_forward)
@@ -68,16 +69,6 @@ SERVING_COUNTER_KEYS = (
     "host_dispatches", "fused_dispatches", "fused_steps", "fused_slots",
     "fused_slot_tokens", "fused_live_slots", "decoded_tokens",
     "spec_proposed_tokens", "spec_accepted_tokens", "spec_hit_slots")
-
-
-# the grouped MoE form reads its group sizes on the host, so no graph takes
-# it; the capacity form, which drops tokens, is never put in its place
-GROUPED_UNCAPTURED = (
-    "moe_grouped_dispatch in a fused dispatch on the card: the grouped MoE "
-    "GEMMs read their group sizes on the host and a CUDA graph cannot "
-    "capture them (ROADMAP Queue 2, kernel work: the routed-expert GEMMs); "
-    "serve the grouped form through generate()/put(), or the "
-    "capacity form (moe_grouped_dispatch off) through the fused loops")
 
 
 def _bucket(n: int, lo: int = 1) -> int:
@@ -960,8 +951,6 @@ class InferenceEngineV2:
         if fn is not None:
             return fn
         if state.device.type == "cuda":
-            if getattr(self.model, "moe_serving_dispatch", False):
-                raise NotImplementedError(GROUPED_UNCAPTURED)
             graph = CapturedLoop(
                 state, lambda st: eager(st, num_steps, **loop_kw),
                 lambda st: eager(st, 1, **loop_kw))

@@ -18,13 +18,12 @@ engine's jitted ``fused_decode_loop``, ``fused_spec_decode_loop``,
   its epochs and pointer, and the steps and spec counters of the chain.
   The host loads it once before the chain's first dispatch and reads the
   ring back once after its last.
-* :class:`CapturedLoop` is one captured graph of a loop function over a
+* ``inference/graphs.py`` :class:`CapturedLoop` (shared with the v1
+  engine's ``generate``) is one captured graph of a loop function over a
   state: a warm-up tick first, eagerly on a side stream over a copy of the
-  state with every row inactive (it builds each kernel's library and
-  changes neither the pools nor the state), then the capture. Replays
-  count their kernel launches on the wrappers' counters (a wrapper counts
-  in Python, so only at capture, into the capturing thread's tally; see
-  ``ops/launches.py``).
+  state with every row inactive (:meth:`_DeviceState.idle_copy`: it
+  builds each kernel's library and changes neither the pools nor the
+  state), then the capture.
 
 On the card a loop replays a graph or raises: there is no eager fallback.
 On the CPU the states hold plain tensors and the engine runs the loops
@@ -33,16 +32,10 @@ eagerly over them.
 
 from __future__ import annotations
 
-import collections
 import copy
-import gc
-import threading
-import time
 
 import numpy as np
 import torch
-
-from ...ops import launches
 
 # the operands a chain-mode dispatch loads, with their dtypes
 OPERANDS = {"tokens": torch.int64, "pos": torch.int32, "active": torch.bool,
@@ -289,82 +282,3 @@ class RingState(_DeviceState):
         out["ring"] = out["ring"][:, :self.cap]
         out["ring_epochs"] = out["ring_epochs"][:, :self.cap]
         return out
-
-
-# one warm-up stream a device: every stream cuBLAS runs on keeps a
-# workspace of its own for the process's life
-_WARM_STREAMS: dict = {}
-# one capture at a time in the process: engines serving on threads of
-# their own (the async server's worker, a prefill engine's) may each
-# capture, and two captures would share the warm-up stream
-_CAPTURE_LOCK = threading.Lock()
-
-
-class CapturedLoop:
-    """``run(state)`` (a loop function over the state's tensors: decode,
-    spec, serve or spec-serve) captured as one CUDA graph; ``warm(idle)``
-    runs one eager tick of the same loop over :meth:`~_DeviceState.
-    idle_copy` first. ``stats`` holds its capture time in ms (warm-up and
-    instantiation included), the device memory its private pool took
-    (MiB, from the allocator's reserved bytes) and the launches a replay
-    makes by wrapper.
-
-    The garbage collector is run before the capture and held off during
-    it: a dead reference cycle that holds another graph, collected in the
-    middle of a capture, would destroy that graph there, and a graph's
-    destruction is an operation the capture forbids (it invalidates the
-    capture).
-
-    Captures are serialized across threads (``_CAPTURE_LOCK``), and each
-    forbids unsafe CUDA calls on its own thread only
-    (``capture_error_mode="thread_local"``): another thread's engine may
-    go on allocating, launching and reading results meanwhile, on its own
-    pools and streams."""
-
-    def __init__(self, state: _DeviceState, run, warm):
-        if state.device.type != "cuda":
-            raise ValueError("CapturedLoop needs CUDA operands")
-        with _CAPTURE_LOCK:
-            self._capture(state, run, warm)
-
-    def _capture(self, state: _DeviceState, run, warm) -> None:
-        dev = state.device
-        torch.cuda.synchronize(dev)
-        gc.collect()
-        torch.cuda.empty_cache()     # as the capture's entry does
-        reserved = torch.cuda.memory_reserved(dev)
-        t = time.perf_counter()
-        side = _WARM_STREAMS.get(dev)
-        if side is None:
-            side = _WARM_STREAMS[dev] = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            warm(state.idle_copy())
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            # a capture launches nothing: its counts belong to each replay
-            with launches.tally() as recorded, \
-                    torch.cuda.graph(self.graph,
-                                     capture_error_mode="thread_local"):
-                run(state)
-        finally:
-            if collecting:
-                gc.enable()
-        torch.cuda.synchronize(dev)
-        self.launches = dict(collections.Counter(recorded))
-        per, by = {}, {}
-        for (w, variant), n in self.launches.items():
-            per[w.__name__] = per.get(w.__name__, 0) + n
-            by.setdefault(w.__name__, {})[variant] = n
-        self.stats = {
-            "capture_ms": 1e3 * (time.perf_counter() - t),
-            "pool_mib": (torch.cuda.memory_reserved(dev) - reserved)
-            / 2**20,
-            "launches_per_replay": per, "launches_by_variant": by}
-
-    def replay(self) -> None:
-        self.graph.replay()
-        launches.add(self.launches)

@@ -559,28 +559,33 @@ class DecoderLM(nn.Module):
         """Static-shape KV cache (JAX ``init_cache``; reference:
         inference_context.h KV buffer allocation): ``{"k", "v"}`` [L, B,
         S_max, H_kv, D] zeros on the model's device, and ``"index"``, the
-        tokens cached so far (a host int: the decode loop is eager)."""
+        tokens cached so far, a 0-dim int64 tensor there too (JAX's traced
+        int32 scalar): no step reads it on the host, so a CUDA graph
+        captures a decode step."""
         c = self.config
         dt = dtype or self.compute_dtype
         dev = self._tensor("embed/tokens").device
         shape = (c.num_layers, batch_size, max_len, c.num_kv_heads,
                  c.head_dim)
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev), "index": 0}
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "index": torch.zeros((), dtype=torch.int64, device=dev)}
 
     def block_decode(self, p: dict, x: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, index: int):
+                     v_cache: torch.Tensor, index: torch.Tensor):
         """One block over new tokens with cache read/write (JAX
         ``block_decode``). x: [B, S_new, D]; caches [B, S_max, H_kv, D],
-        written IN PLACE at [index, index + S_new) (JAX returns updated
-        copies). Returns (x, k_cache, v_cache)."""
+        written IN PLACE at rows ``index + arange(S_new)`` by
+        ``index_copy_`` (JAX's ``dynamic_update_slice`` returns updated
+        copies); ``index`` the 0-dim device tensor of :meth:`init_cache`.
+        Returns (x, k_cache, v_cache)."""
         b, s, _ = x.shape
-        positions = (index + torch.arange(s, device=x.device))[None, :] \
-            .expand(b, s)
+        rows = index + torch.arange(s, device=x.device)
+        positions = rows[None, :].expand(b, s)
         h = self._norm(x, p["ln1_scale"], p.get("ln1_bias"))
         q, k, v = self._qkv(p, h, positions)
-        k_cache[:, index:index + s] = k.to(k_cache.dtype)
-        v_cache[:, index:index + s] = v.to(v_cache.dtype)
+        k_cache.index_copy_(1, rows, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, rows, v.to(v_cache.dtype))
         a = L.cached_attention(q, k_cache, v_cache, index,
                                window=self.config.sliding_window,
                                alibi_slopes=self._alibi_slopes)
@@ -595,7 +600,8 @@ class DecoderLM(nn.Module):
         """Prefill or incremental decode (JAX ``decode``): ``tokens`` [B,
         S_new], appended at ``cache["index"]``, through every layer, the
         cache updated in place. Returns (logits [B, S_new, V], cache) with
-        the index advanced."""
+        the index advanced (a new device tensor). Reads nothing back to
+        the host."""
         index = cache["index"]
         b, s = tokens.shape
         positions = (index + torch.arange(s, device=tokens.device))[None, :] \

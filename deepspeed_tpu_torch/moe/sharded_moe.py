@@ -15,9 +15,10 @@ tokens, 60 experts and capacity 683 the fp32 combine table alone is 1.3 GB
 a layer, and the dense dispatch product 1.4 TFLOP).
 
 :func:`moe_ffn_grouped` is the serving dispatch without capacity (JAX's
-sort-by-expert ``lax.ragged_dot``): the rows sorted by expert and one
-matmul per expert over its range of rows. Its group sizes are read on the
-host, so a CUDA graph cannot capture it.
+sort-by-expert ``lax.ragged_dot``): the rows sorted by expert and the
+experts' products through the grouped GEMM of ``ops/grouped_gemm.py``,
+which reads the group offsets on the device: a CUDA graph captures it as
+it captures the capacity form.
 
 Expert parallelism (the ``ep`` axis, ``moe/dispatch.py`` and
 ``runtime/comm/moe_alltoall.py``) is not ported: a ``dispatcher`` raises.
@@ -31,6 +32,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops import layers as L
+from ..ops.grouped_gemm import group_offsets, grouped_mm
 from ..ops.quantization import dequantize_weight
 
 EP_UNPORTED = (
@@ -245,29 +247,28 @@ def moe_ffn_grouped(x: torch.Tensor, gate_w: torch.Tensor, experts: dict, *,
                     normalize_topk: bool = True):
     """Serving dispatch without capacity (JAX ``moe_ffn_grouped``;
     reference: inference/v2 moe_gather + moe_gemm + moe_scatter): the N*k
-    rows stably sorted by expert, one matmul per expert over its range of
-    rows, then each token's rows times their gate weights summed. No
-    padding and no drops. The group sizes are read on the host (one sync a
-    call), so the function runs eagerly only. Returns (out [B, S, D],
-    aux_loss), the aux of :func:`top_k_gating`."""
+    rows stably sorted by expert, the experts' products through one
+    grouped GEMM a weight (``ops/grouped_gemm.py`` ``grouped_mm``, JAX's
+    ``lax.ragged_dot``) over the groups' cumulative ends, then each
+    token's rows times their gate weights summed. No padding and no
+    drops. The offsets stay on the device (the count of sorted expert ids
+    at or below each expert: a bincount's cumsum), so nothing is read
+    back to the host and a CUDA graph captures the call. Returns (out [B,
+    S, D], aux_loss), the aux of :func:`top_k_gating`."""
     b, s, d = x.shape
     n = b * s
     e = gate_w.shape[-1]
     xt = x.reshape(n, d)
     probs, topk_probs, topk_idx = _top_probs(xt @ gate_w, k, normalize_topk)
-    e_flat = topk_idx.reshape(-1)
-    order = torch.sort(e_flat, stable=True).indices
+    ids, order = torch.sort(topk_idx.reshape(-1), stable=True)
     xs = xt[order // k]
-    sizes = torch.bincount(e_flat, minlength=e).tolist()
-    parts = []
-    for ei, rows in enumerate(torch.split(xs, sizes)):
-        if len(rows):
-            parts.append(_ffn(rows, experts["w_up"][ei],
-                              experts["w_down"][ei],
-                              experts["w_gate"][ei]
-                              if activation == "swiglu" else None,
-                              activation))
-    out_rows = torch.cat(parts).to(x.dtype)
+    offsets = group_offsets(ids, e)
+    if activation == "swiglu":
+        h = L.silu(grouped_mm(xs, experts["w_gate"], offsets)) \
+            * grouped_mm(xs, experts["w_up"], offsets)
+    else:
+        h = L.gelu(grouped_mm(xs, experts["w_up"], offsets))
+    out_rows = grouped_mm(h, experts["w_down"], offsets).to(x.dtype)
     unsorted = torch.empty_like(out_rows).index_copy(0, order, out_rows)
     w = topk_probs.to(x.dtype)
     out = (unsorted.reshape(n, k, d) * w[..., None]).sum(1)

@@ -5,7 +5,7 @@ A wrapper calls :func:`count` where it launches its kernel: its
 ``.variant`` names the last one. On a thread that is capturing a CUDA
 graph (inside :func:`tally`) the launch is recorded in the capture's tally
 instead, since it runs at each replay, not now
-(``inference/v2/fused_graph.py`` ``CapturedLoop`` adds the tally at every
+(``inference/graphs.py`` ``CapturedLoop`` adds the tally at every
 replay). The tally is per thread, so a capture on one serving thread never
 takes in another thread's launches.
 """

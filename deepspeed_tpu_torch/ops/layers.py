@@ -123,7 +123,7 @@ def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
     return out.to(q.dtype)
 
 
-def cached_attention(q, k_cache, v_cache, index: int, *,
+def cached_attention(q, k_cache, v_cache, index, *,
                      window: int | None = None, alibi_slopes=None):
     """Decode-time attention against a static KV cache (JAX
     ``cached_attention``, which is plain XLA there too; reference:
@@ -132,8 +132,11 @@ def cached_attention(q, k_cache, v_cache, index: int, *,
 
     q: [B, S_new, H, D] (the tokens being decoded); k/v_cache: [B, S_max,
     H_kv, D] with positions [0, index + S_new) valid (the new tokens' k/v
-    already written at [index, index + S_new)). The mask keeps the whole
-    S_max in the product, as the JAX version's static shapes do.
+    already written at [index, index + S_new)); ``index`` an int or the
+    0-dim device tensor of ``DecoderLM.init_cache`` (JAX's traced
+    scalar): the mask keeps the whole S_max in the product, as the JAX
+    version's static shapes do, so no shape depends on it and nothing is
+    read back to the host.
     ``window`` restricts each query to its last ``window`` positions
     (Mistral SWA); ``alibi_slopes`` [H] adds Bloom's linear bias. Scores
     and softmax in fp32, output in q's dtype."""

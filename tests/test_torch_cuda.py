@@ -2590,7 +2590,8 @@ def test_moe_families_on_the_card_match_the_cpu(cuda, family):
     """The tiny MoE families in fp32 on the card against the CPU from the
     same weights: build_engine's first prefill logits at 1e-4 of their
     largest and its greedy tokens through generate() and generate_fused
-    (captured graphs of the capacity form), the grouped form and the int8
+    (captured graphs of the capacity and the grouped form), the grouped
+    form and the int8
     experts (their codes and scales bit-equal); initialize (flash, segments, fused Adam, clip) for 3 steps,
     losses at 1e-4 relative, as the dense families' training test."""
     import deepspeed_tpu_torch as ds
@@ -2608,7 +2609,8 @@ def test_moe_families_on_the_card_match_the_cpu(cuda, family):
             logits = eng.put([7], [prompts[1]])[0].float().cpu()
             eng.flush(7)
             runs.append((logits, eng.generate(prompts, max_new_tokens=6),
-                         None if over else eng.generate_fused(
+                         None if "quantize_moe_experts" in over
+                         else eng.generate_fused(
                              prompts, max_new_tokens=6, k_steps=3),
                          {n: t.cpu() for n, t in eng.model.params.items()
                           if n.startswith("layers/experts/")}))
@@ -2727,3 +2729,144 @@ def test_checkpoint_saved_on_the_card_loads_on_the_cpu(cuda, tmp_path,
     back.load_checkpoint(str(tmp_path / "cpu"))
     got = state(back)
     assert all(torch.equal(want[k], got[k]) for k in want)
+
+
+GROUPED_CASES = {      # experts, K, N, group sizes (0: an empty group)
+    "decode": (8, 256, 512, [3, 0, 5, 1, 0, 2, 4, 1]),
+    "prefill": (4, 512, 384, [70, 0, 200, 130]),
+    "ragged_k_n": (3, 100, 90, [0, 33, 65]),        # the scalar loads
+    "empty_last": (5, 64, 128, [2, 3, 64, 1, 0])}
+
+
+def _grouped_inputs(dev, dtype, e, k, n, sizes, seed=0):
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    gen = torch.Generator().manual_seed(seed)
+    rows = sum(sizes)
+    x = torch.randn(rows, k, generator=gen).to(dev, dtype)
+    w = (torch.randn(e, k, n, generator=gen) / k ** 0.5).to(dev, dtype)
+    ids = torch.repeat_interleave(torch.arange(e), torch.tensor(sizes))
+    return x, w, gg.group_offsets(ids.to(dev), e)
+
+
+@pytest.mark.parametrize("case", list(GROUPED_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_grouped_mm_kernel_matches_plain(cuda, dtype, case):
+    """csrc/grouped_gemm.cu against the plain product per expert (fp32 at
+    1e-5 of the largest value: summation order only, TF32 off; bf16 at
+    3e-2, fp16 at 1e-2), with empty groups first, inside and last, K and
+    N off the 16-byte loads; the variant by dtype, one launch counted a
+    call, a rerun and a CUDA graph's replay bit for bit."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    e, k, n, sizes = GROUPED_CASES[case]
+    x, w, offs = _grouped_inputs(cuda, dtype, e, k, n, sizes)
+    before = gg.grouped_mm_kernel.launches
+    got = gg.grouped_mm(x, w, offs)
+    assert gg.grouped_mm_kernel.launches == before + 1
+    assert gg.grouped_mm_kernel.variant == gg.kernel_variant(dtype)
+    ref = gg.grouped_mm_plain(x, w, offs)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 3e-2,
+           torch.float16: 1e-2}[dtype]
+    err = float((got.float() - ref.float()).abs().max()
+                / ref.float().abs().max())
+    assert got.dtype == dtype and got.shape == (sum(sizes), n)
+    assert err < tol, err
+    assert torch.equal(gg.grouped_mm(x, w, offs), got)
+    static = torch.empty_like(got)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        static.copy_(gg.grouped_mm(x, w, offs))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static, got)
+
+
+V1_GRAPH_CASES = {"gpt2": ("gpt2", {}), "llama": ("llama", {}),
+                  "mistral": ("mistral", dict(sliding_window=5)),
+                  "bloom": ("bloom", {}),
+                  "mixtral_capacity": ("mixtral", {}),
+                  "mixtral_grouped": ("mixtral", {})}
+
+
+@pytest.mark.parametrize("case", list(V1_GRAPH_CASES))
+def test_v1_generate_graphs_match_eager_and_the_cpu(cuda, case):
+    """init_inference(...).generate on the card replays one captured
+    decode step a key: its greedy and sampled tokens bit-equal to the same
+    step run eagerly on the card (``_generate_eager``), fp32 tokens equal
+    to the CPU engine's from the same weights, the norm launches of every
+    replay counted (2L + 1 a forward), and the grouped form's grouped
+    GEMMs (3L a forward; fp32 takes the CUDA-core kernel); a second call
+    replays the graph again to the same tokens."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import get_model_class
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    from deepspeed_tpu_torch.ops import norms as N
+    family, over = V1_GRAPH_CASES[case]
+    cfg = {"dtype": "float32", "max_out_tokens": 64,
+           "moe_grouped_dispatch": case == "mixtral_grouped"}
+    src = get_model_class(family)(size="tiny", device="cpu", **over)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        tree = {n: src.draw(n, gen) + 0.05 * torch.randn(p.shape,
+                                                         generator=gen)
+                for n, p in src.params.items()}
+    engines = [ds.init_inference(
+        get_model_class(family)(size="tiny", device=dev, **over),
+        config=dict(cfg), params={n: t.clone() for n, t in tree.items()})
+        for dev in ("cpu", cuda)]
+    prompts = np.random.default_rng(1).integers(0, 512, (3, 9))
+    c = engines[1].module.config
+    norm = N.rms_norm_kernel if c.norm_type == "rmsnorm" \
+        else N.layer_norm_kernel
+    for kw in ({}, dict(do_sample=True, temperature=0.9, top_k=20,
+                        top_p=0.9, seed=5)):
+        want = engines[0].generate(prompts, max_new_tokens=7, **kw)
+        norm.launches = 0
+        gg.grouped_mm_kernel.launches = 0
+        got = engines[1].generate(prompts, max_new_tokens=7, **kw)
+        assert engines[1].last_decode["graph"] is not None
+        per_forward = (1 if c.parallel_residual
+                       and not c.parallel_dual_norm else 2) \
+            * c.num_layers + 1 + int(c.embed_layernorm)
+        # the prefill, 6 replays and, at a key's first call, the
+        # capture's warm-up step (eager, over an idle copy of the state)
+        forwards = 7 + int(engines[1].last_decode["captured"])
+        assert norm.launches == forwards * per_forward
+        assert gg.grouped_mm_kernel.launches == (
+            3 * c.num_layers * forwards if case == "mixtral_grouped" else 0)
+        eager = engines[1]._generate_eager(prompts, max_new_tokens=7, **kw)
+        assert torch.equal(got, eager)
+        assert torch.equal(got.cpu(), want), kw
+        again = engines[1].generate(prompts, max_new_tokens=7, **kw)
+        assert torch.equal(again, got)
+
+
+def test_v1_generate_memory_stays_bounded(cuda):
+    """generate() on the card over many prompt lengths, twice: the engine
+    keeps one state (the last call's cache and graph), so the device
+    memory allocated after a call never exceeds the first pass's most,
+    and a capture happens only where the cache bucket changes."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPT2
+    eng = ds.init_inference(GPT2(size="tiny", device=cuda),
+                            config={"dtype": "float32",
+                                    "max_out_tokens": 128})
+    rng = np.random.default_rng(2)
+    lengths = list(range(3, 120, 7))
+    passes = []
+    for _ in range(2):
+        peak, buckets = 0, []
+        for length in lengths:
+            eng.generate(rng.integers(0, 512, (4, length)),
+                         max_new_tokens=8)
+            torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.memory_allocated(cuda))
+            bucket = eng._run[1].cache["k"].shape[2]
+            if not buckets or buckets[-1] != bucket:
+                buckets.append(bucket)
+        passes.append((peak, buckets))
+    assert passes[1][0] <= passes[0][0]
+    assert passes[0][1] == [12, 24, 32, 48, 64, 96, 128]
+    # a capture at each bucket change, the second pass's first call too
+    assert len(eng.graph_captures) == 7 + 7

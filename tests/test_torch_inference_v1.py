@@ -10,7 +10,12 @@ greedy tokens against JAX's ``generate`` and against a stepwise argmax;
 top-k and top-p sampled tokens against JAX's under the near-tie rule of
 tests/test_torch_sampling.py (where a row's tokens first differ, the JAX
 top-2 margin of gumbel noise plus filtered logits there must be under
-1e-4; greedy: of the logits); the sequence-length guards; the ``.npz``
+1e-4; greedy: of the logits), for GPT-2, Llama (GQA), Mistral (the
+window) and Bloom (ALiBi), and equal to JAX's for weight-only int8 and
+Mixtral's capacity and grouped forms; the decode step ``generate``
+replays as a CUDA graph on the card, run here on the CPU with every host
+read of a tensor (``item``, ``tolist``, ``int``, ``bool``, ``cpu``)
+patched to raise; the sequence-length guards; the ``.npz``
 load; ``auto_tp_rules`` and the model's rules against JAX's (a spec as
 the tuple of a ``PartitionSpec``); each refusal of what is not ported.
 """
@@ -178,7 +183,7 @@ SAMPLING = {"top_k": dict(temperature=0.8, top_k=5, seed=0),
 
 
 @pytest.mark.parametrize("name", list(SAMPLING))
-@pytest.mark.parametrize("family", ["llama", "gpt2"])
+@pytest.mark.parametrize("family", ["llama", "gpt2", "mistral", "bloom"])
 def test_generate_sampling_matches_jax(family, name):
     """Sampled tokens: JAX's keys and filters, equal under the near-tie
     rule; another seed draws other tokens."""
@@ -283,3 +288,135 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     # the keyword form of the config, as JAX takes it
     eng = tds.init_inference(model, dtype="float32", max_out_tokens=32)
     assert eng.config.max_out_tokens == 32 and eng.dtype == torch.float32
+
+
+def _int8_pair():
+    """The tiny Llama with JAX ``quantize_dense_params`` at min_size 1
+    (every projection and the head int8), both engines over that tree."""
+    from deepspeed_tpu.linear.quantization import quantize_dense_params
+    jmodel, params = _pair("llama")
+    qparams = jax.tree.map(np.asarray, quantize_dense_params(
+        jax.tree.map(jnp.asarray, params), min_size=1,
+        scale_dtype=jnp.float32))
+    je = jds.init_inference(jmodel, dtype="float32", params=qparams)
+    te = tds.init_inference(tm.Llama(size="tiny", device="cpu"),
+                            dtype="float32", params=qparams)
+    assert "layers/wq_q" in te.module.params
+    return je, te
+
+
+def _moe_pair(grouped):
+    from test_torch_moe_models import moe_case
+    _, params, _ = moe_case("mixtral", "tiny")
+    cfg = {"dtype": "float32", "max_out_tokens": 48,
+           "moe_grouped_dispatch": grouped}
+    je = jds.init_inference(jm.Mixtral(size="tiny", max_seq_len=64),
+                            config=dict(cfg),
+                            params=jax.tree.map(np.asarray, params))
+    te = tds.init_inference(tm.Mixtral(size="tiny", max_seq_len=64,
+                                       device="cpu"),
+                            config=dict(cfg), params=params)
+    return je, te
+
+
+PAIRS = {"int8": _int8_pair, "mixtral_capacity": lambda: _moe_pair(False),
+         "mixtral_grouped": lambda: _moe_pair(True)}
+
+
+@pytest.mark.parametrize("case", list(PAIRS))
+def test_int8_and_moe_sampled_generate_matches_jax(case):
+    """Sampled tokens (temperature, top-k and top-p) of weight-only int8
+    and of Mixtral's capacity and grouped forms equal JAX's."""
+    je, te = PAIRS[case]()
+    kw = SAMPLING["top_p_top_k"]
+    prompts = _prompts(seed=13)
+    want = np.asarray(je.generate(jnp.asarray(prompts), max_new_tokens=6,
+                                  do_sample=True, **kw))
+    got = te.generate(prompts, max_new_tokens=6, do_sample=True, **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+HOST_READS = ("item", "tolist", "__int__", "__bool__", "cpu")
+GUARD_CASES = {"gpt2": {}, "llama": {}, "mistral": {}, "bloom": {},
+               "gptj": {}, "llama_sampled": dict(
+                   greedy=False, temperature=0.8, top_k=50, top_p=0.9),
+               "int8": {}, "mixtral_capacity": {}, "mixtral_grouped": {}}
+
+
+@pytest.mark.parametrize("case", list(GUARD_CASES))
+def test_decode_step_reads_nothing_back_to_the_host(case, monkeypatch):
+    """The step generate() captures on the card (the forward over the
+    cache at its device index, the key's split, the draw, the token's
+    write at the device step counter), run on the CPU with every host
+    read of a tensor patched to raise: the tokens of two steps are
+    generate()'s."""
+    from deepspeed_tpu_torch.inference.engine import GenerateState
+    from deepspeed_tpu_torch.ops import threefry
+    family = case.split("_")[0]
+    if case in PAIRS:
+        eng = PAIRS[case]()[1]
+    else:
+        eng = _port(family)
+    sampling = dict(greedy=True, temperature=1.0, top_k=0, top_p=0.0)
+    sampling.update(GUARD_CASES[case])
+    prompts = torch.from_numpy(_prompts(seed=21))
+    state = GenerateState(eng.module, 2, 12, 3, eng.dtype, eng.device,
+                          sampling)
+    state.prefill(prompts, threefry.prng_key(4))
+
+    def host_read(*args, **kwargs):
+        raise AssertionError("a host read in the decode step")
+
+    with monkeypatch.context() as patch:
+        for name in HOST_READS:
+            patch.setattr(torch.Tensor, name, host_read)
+        state.step()
+        state.step()
+    want = eng.generate(prompts, max_new_tokens=3, seed=4,
+                        do_sample=not sampling["greedy"],
+                        **{k: v for k, v in sampling.items()
+                           if k != "greedy"})
+    assert torch.equal(torch.cat([prompts, state.out], 1), want)
+    assert int(state.cache["index"]) == prompts.shape[1] + 2
+
+
+def test_generate_keeps_one_state_a_cache_length():
+    """generate() over many prompt lengths keeps the last call's state
+    only, its cache the call's bucket (the next of 2^k and 3 * 2^(k-1)
+    from prompt + new tokens, at most max_out_tokens): a call of the same
+    bucket and
+    sampling reuses it, another bucket or sampling replaces it and the
+    old state is freed; the tokens are those of a state of the call's
+    exact length."""
+    import gc
+    import weakref
+    from deepspeed_tpu_torch.inference.engine import GenerateState
+    from deepspeed_tpu_torch.ops import threefry
+    eng = _port("gpt2", max_out_tokens=48)
+    greedy = dict(greedy=True, temperature=1.0, top_k=0, top_p=0.0)
+    grid = sorted({2 ** k for k in range(8)} | {3 * 2 ** k for k in range(7)})
+    old, buckets = None, []
+    for length in range(3, 31, 3):
+        prompts = torch.from_numpy(_prompts(length=length, seed=length))
+        got = eng.generate(prompts, max_new_tokens=4)
+        state = eng._run[1]
+        bucket = min(next(g for g in grid if g >= length + 4), 48)
+        assert state.cache["k"].shape[2] == bucket
+        if buckets and buckets[-1] == bucket:
+            assert state is old()
+        else:
+            buckets.append(bucket)
+            gc.collect()
+            assert old is None or old() is None
+        old = weakref.ref(state)
+        del state
+        exact = GenerateState(eng.module, 2, length + 4, 4, eng.dtype,
+                              eng.device, greedy)
+        exact.prefill(prompts, threefry.prng_key(0))
+        for _ in range(3):
+            exact.step()
+        assert torch.equal(got[:, length:], exact.out)
+    assert buckets == [8, 12, 16, 24, 32, 48]
+    eng.generate(prompts, max_new_tokens=4, do_sample=True, top_k=5)
+    gc.collect()
+    assert old() is None and eng._run[0][1:] == (48, 1.0, 5, 0.0, False)
