@@ -231,19 +231,21 @@ Phases, each fatal on failure:
      phase 17's launch checks; then a twin engine with
      moe_grouped_dispatch serves 8 prompts of 24 tokens through
      generate() and generate_fused (K 8, the grouped GEMMs inside the
-     graphs): the same tokens, 3L grouped_mm launches a tick on the
-     tensor cores; (b) init_inference(Mixtral("8x7b") whole,
+     graphs): the same tokens, 3L grouped_mm launches a tick in the
+     kernel's decode form; (b) init_inference(Mixtral("8x7b") whole,
      bf16, quantize_moe_experts) on phase 20e's traffic in the capacity
      form, then moe_grouped_dispatch over the same int8 tree, each
      generate's decode steps graph replays: ms a step, the capture,
      tokens/s, bytes, peaks, the grouped form's 3L grouped_mm launches a
-     forward; (c) Qwen2-MoE a2.7b cut to 4 layers trained
+     forward over the int8 codes and no expert dequantized (the capacity
+     form dequantizes them); (c) Qwen2-MoE a2.7b cut to 4 layers trained
      with phase 21's config and batch: step ms, MFU over the active
      parameters, peak memory, falling losses, the aux loss and drop
      fraction, flash all wgmma, norms cta_row, one Adam launch a step;
      (d) both families at full width in fp32, the card against the CPU:
-     the capacity form, the grouped form and the int8 experts served at 2
-     layers (logits 1e-5 of their largest, greedy tokens equal,
+     the capacity form, the grouped form, the int8 experts and the grouped
+     form over int8 experts served at 2 layers (Mixtral at 1) (logits
+     1e-5 of their largest, greedy tokens equal,
      generate_fused equal to generate() in the capacity and the grouped
      form), Qwen2-MoE's training at 1 layer at phase 21's bounds; the CPU
      halves run on a worker thread from the build on (their trees drawn
@@ -387,8 +389,12 @@ KERNEL_FORMS = {
                                                 "general")}),
     "layer_norm": (_ALL, {v: _ALL for v in ("warp_row", "cta_row",
                                            "general")}),
-    "grouped_mm": (_ALL, {"tensor_cores": ["bfloat16", "float16"],
-                          "cuda_cores": ["float32"]})}
+    "grouped_mm": (_ALL, {"wgmma_decode": ["bfloat16", "float16"],
+                          "wgmma_prefill": ["bfloat16", "float16"],
+                          "wgmma_decode_int8": ["bfloat16", "float16"],
+                          "wgmma_prefill_int8": ["bfloat16", "float16"],
+                          "cuda_cores": ["float32"],
+                          "cuda_cores_int8": ["float32"]})}
 # remat policies of phase 15: every name the JAX model runs (aliases once)
 # and remat off
 REMAT_RUNS = ("segments", "nothing_saveable", "everything_saveable",
@@ -4880,9 +4886,10 @@ def grouped_fused_check(engine, dev, max_new=32, k=8, n_req=8,
     tick for both loops, so the ticks' shapes match) through generate()
     per tick, then generate_fused (K ``k``): a capturing run and a counted
     rerun, both giving generate()'s tokens; every replayed tick launches
-    3L grouped GEMMs on the tensor cores (L x (graph ticks + prefill
-    dispatches) in all) and L decode_split paged calls. Reports decode ms
-    a fused step beside the capacity form's."""
+    3L grouped GEMMs (L x (graph ticks + prefill dispatches) in all), the
+    ticks' in the kernel's decode form and the prefills' in a wgmma form,
+    and L decode_split paged calls. Reports decode ms a fused step beside
+    the earlier grouped GEMM's 13.54 (a WMMA kernel; PERF.md §6)."""
     c = engine.model.config
     rng = np.random.default_rng(31)
     prompts = [rng.integers(0, c.vocab_size, prompt_len).tolist()
@@ -4907,6 +4914,7 @@ def grouped_fused_check(engine, dev, max_new=32, k=8, n_req=8,
     layers = c.num_layers
     rec = dict(requests=n_req, prompt_tokens=prompt_len, new_tokens=max_new,
                k=k, tokens_equal_generate=outs == per_tick,
+               decode_ms_per_step_before=13.54,
                capturing_run_equal=first == per_tick,
                decode_ms_per_step=1e3 * (run["wall_s"] - run["prefill_s"])
                / max(run["steps"], 1),
@@ -4923,8 +4931,10 @@ def grouped_fused_check(engine, dev, max_new=32, k=8, n_req=8,
     want = 3 * layers * (graph_ticks + prefill_dispatches)
     bad = not (rec["tokens_equal_generate"] and rec["capturing_run_equal"])
     if dev.type == "cuda":
-        bad |= (gmm.launches != want or set(gmm.variant_launches)
-                != {"tensor_cores"} or counts["launches_by_variant"].get(
+        bad |= (gmm.launches != want or "wgmma_decode" not in
+                gmm.variant_launches or set(gmm.variant_launches)
+                - {"wgmma_decode", "wgmma_prefill"}
+                or counts["launches_by_variant"].get(
                     "decode_split") != layers * graph_ticks)
     if bad:
         raise AssertionError(f"phase 25a grouped fused: {rec}, want "
@@ -4988,7 +4998,10 @@ def moe_v1_main(dev, family="mixtral", size="8x7b", model_over=None,
     replay one graph in either form), the weights' bytes (the routed
     experts' apart) and the build's peak; every norm launch a row
     kernel, 2L + 1 a forward; the grouped form 3L grouped GEMM launches a
-    forward on the tensor cores."""
+    forward, its replays in the kernel's int8 decode form, and no expert
+    dequantized in its forwards (:func:`expert_dequantizations`, over the
+    capture and the timed call), the capacity form 3L a forward; ms a
+    step beside the earlier design's (V1_MOE_BEFORE)."""
     import torch
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import get_model_class
@@ -5021,21 +5034,24 @@ def moe_v1_main(dev, family="mixtral", size="8x7b", model_over=None,
         if form == "grouped":
             eng = ds.init_inference(model, config=dict(
                 cfg, moe_grouped_dispatch=True), params=dict(model.params))
-        v1_warm(eng, prompts, forwards)
-        norms = norm_counter(c)
-        reset_norms(norms)
-        reset_norms(gmm)
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        sync(dev)
-        t = time.perf_counter()
-        out = eng.generate(prompts, max_new_tokens=forwards)
-        sync(dev)
-        wall = time.perf_counter() - t
+        with expert_dequantizations() as dequantized:
+            v1_warm(eng, prompts, forwards)
+            norms = norm_counter(c)
+            reset_norms(norms)
+            reset_norms(gmm)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            sync(dev)
+            t = time.perf_counter()
+            out = eng.generate(prompts, max_new_tokens=forwards)
+            sync(dev)
+            wall = time.perf_counter() - t
         outs[form] = out[:, length:].tolist()
         graph = v1_graph_record(eng, dev, f"25b {form}", warmed=True)
         by_variant = check_norm_variants(norms, dev, f"25b {form}")
         rec[form] = dict(
+            ms_per_step_before=V1_MOE_BEFORE[form],
+            expert_dequantizations=len(dequantized),
             generate_s=wall, ms_per_step=1e3 * wall / forwards,
             generated_tokens_per_s=len(prompts) * forwards / wall,
             serve_peak_gib=(torch.cuda.max_memory_allocated() / 2**30
@@ -5045,19 +5061,30 @@ def moe_v1_main(dev, family="mixtral", size="8x7b", model_over=None,
             grouped_mm_launches=gmm.launches,
             grouped_mm_launches_by_variant=dict(gmm.variant_launches),
             **graph)
-        # the grouped form: three grouped GEMMs a layer a forward, every
-        # one on the tensor cores; the capacity form none
+        # the grouped form: three grouped GEMMs a layer a forward, on the
+        # int8 experts (the replays' in the decode form), and no expert
+        # dequantized; the capacity form no grouped GEMM, and its three
+        # expert weights dequantized a layer a forward it traces
         launched = graph["forwards_launched"]
-        want_gmm = 3 * c.num_layers * launched if form == "grouped" else 0
+        grouped = form == "grouped"
+        want_gmm = 3 * c.num_layers * launched if grouped else 0
+        int8_forms = {"wgmma_decode_int8", "wgmma_prefill_int8"}
+        if (grouped and len(dequantized)) or (not grouped
+                                             and not len(dequantized)):
+            raise AssertionError(
+                f"phase 25b {form}: {len(dequantized)} expert "
+                f"dequantizations")
         if dev.type == "cuda" and (
                 norms.launches != norms_per_forward(c) * launched
-                or gmm.launches != want_gmm or set(gmm.variant_launches)
-                - {"tensor_cores"}):
+                or gmm.launches != want_gmm
+                or set(gmm.variant_launches) - int8_forms
+                or (grouped and "wgmma_decode_int8"
+                    not in gmm.variant_launches)):
             raise AssertionError(
                 f"phase 25b {form}: {norms.launches} norm launches, want "
                 f"{norms_per_forward(c)} x {launched}; grouped_mm "
-                f"{dict(gmm.variant_launches)}, want {want_gmm} "
-                f"tensor_cores")
+                f"{dict(gmm.variant_launches)}, want {want_gmm} of "
+                f"{sorted(int8_forms)}")
         if dev.type == "cuda":
             # where a step's time goes: 4 tokens from 16-token prompts
             # (their graph captured by a first call outside the trace)
@@ -5080,6 +5107,31 @@ def moe_v1_main(dev, family="mixtral", size="8x7b", model_over=None,
     if not ok:
         raise AssertionError("phase 25b: a token out of range")
     return rec
+
+
+# 25b's v1 ms a step before the grouped GEMM read int8 experts (PERF.md
+# §6): the experts dequantized every step in both forms
+V1_MOE_BEFORE = {"capacity": "229-230", "grouped": "246-247"}
+
+
+@contextlib.contextmanager
+def expert_dequantizations():
+    """The routed experts' dequantizations while the block runs: each call
+    of moe/sharded_moe.py's ``dequantize_weight`` (the capacity form's
+    ``dequantize_experts``) recorded in the yielded list by its codes'
+    shape; the grouped form's int8 experts go to the kernel as codes."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+    real = sharded_moe.dequantize_weight
+    calls = []
+
+    def counted(q, s, dtype):
+        calls.append(tuple(q.shape))
+        return real(q, s, dtype)
+    sharded_moe.dequantize_weight = counted
+    try:
+        yield calls
+    finally:
+        sharded_moe.dequantize_weight = real
 
 
 def moe_train_probe(engine, batch) -> dict:
@@ -5113,29 +5165,62 @@ def moe_fp32_tree(family, size, layers, dev, seed=MOE_SEED,
         return {n: m.draw(n, gen).cpu() for n in m._init_spec}
 
 
+def int8_round_trip(tree) -> tuple[dict, dict]:
+    """``tree`` with each routed expert stack replaced by its int8 round
+    trip (quantize_expert_leaf with fp32 scales, as the engines' loader
+    quantizes it, then dequantize_weight in fp32), and the sha256 of each
+    code and scale tensor by its engine name (``<leaf>_q``, ``<leaf>_s``)."""
+    from deepspeed_tpu_torch.moe.sharded_moe import quantize_expert_leaf
+    from deepspeed_tpu_torch.ops.quantization import dequantize_weight
+    out, codes = dict(tree), {}
+    for n, t in tree.items():
+        if n.startswith("layers/experts/"):
+            q, s = quantize_expert_leaf(t, t.dtype)
+            codes[n + "_q"] = hashlib.sha256(q.numpy().tobytes()).hexdigest()
+            codes[n + "_s"] = hashlib.sha256(s.numpy().tobytes()).hexdigest()
+            out[n] = dequantize_weight(q, s, t.dtype)
+            del q, s
+    return out, codes
+
+
 def moe_fp32_engines(dev, family, size, tree, prompts, layers,
                      fp32=MOE_FP32):
     """25d's serving on ``dev``: build_engine fp32 over ``tree`` in the
     capacity form (the first prefill's logits, generate() and
-    generate_fused's tokens), the grouped form and with int8 experts (the
-    logits and generate()'s tokens). Returns them on the CPU."""
+    generate_fused's tokens), the grouped form, with int8 experts, and
+    grouped with int8 experts (the grouped GEMM reading the codes) (the
+    logits and generate()'s tokens). Returns them on the CPU. The CPU
+    half serves the two int8 forms from :func:`int8_round_trip`'s float
+    tree: the values the port's CPU path forms from the codes at every
+    forward (``dequantize_weight``, bit for bit), formed once; their codes
+    and scales are hashed from the same quantization, the card's from its
+    engine's parameters."""
     from deepspeed_tpu_torch.inference.v2 import build_engine
     cfg = {"dtype": "float32", "kv_block_size": 64, "num_kv_blocks": 64,
            "max_chunk_size": 256, "max_ragged_sequence_count": 8}
+    rounded, codes = int8_round_trip(tree) if dev.type == "cpu" else (None,
+                                                                      None)
     out = {}
     for form, over in (("capacity", {}),
                        ("grouped", {"moe_grouped_dispatch": True}),
-                       ("int8_experts", {"quantize_moe_experts": True})):
-        v2 = build_engine(family, size, dict(cfg, **over), params=tree,
+                       ("int8_experts", {"quantize_moe_experts": True}),
+                       ("grouped_int8", {"moe_grouped_dispatch": True,
+                                         "quantize_moe_experts": True})):
+        params = tree
+        if rounded is not None and over.get("quantize_moe_experts"):
+            params = rounded
+            over = {k: v for k, v in over.items()
+                    if k != "quantize_moe_experts"}
+        v2 = build_engine(family, size, dict(cfg, **over), params=params,
                           device=dev, num_layers=layers,
                           **(fp32["model_over"] or {}))
         rec = dict(logits=v2.put([90_000], [prompts[0]])[0].float().cpu())
         v2.flush(90_000)
         rec["tokens"] = v2.generate(prompts, max_new_tokens=fp32["max_new"])
         if form == "int8_experts":
-            rec["codes"] = {n: hashlib.sha256(
-                p.detach().cpu().numpy().tobytes()).hexdigest()
-                for n, p in v2.model.params.items()
+            rec["codes"] = codes if codes is not None else {
+                n: hashlib.sha256(p.detach().cpu().numpy().tobytes())
+                .hexdigest() for n, p in v2.model.params.items()
                 if n.endswith(("_q", "_s"))}
         if form in ("capacity", "grouped"):
             rec["fused"] = v2.generate_fused(
@@ -5143,6 +5228,7 @@ def moe_fp32_engines(dev, family, size, tree, prompts, layers,
         release_engine(v2, dev)
         del v2
         out[form] = rec
+    del rounded
     gc.collect()
     return out
 
@@ -5209,9 +5295,9 @@ def moe_fp32_main(dev, fp32=MOE_FP32, train=MOE_TRAIN_FP32, cpu_sides=None):
     CPU's (``cpu_sides``: :func:`moe_fp32_cpu_sides`'s futures, run
     beside the build; None: run now, on a worker thread while the card's
     half runs): the first prefill's logits
-    within 1e-5 of their largest in the capacity form, the grouped form
-    and with int8 experts (their codes and scales bit-equal), and their
-    greedy tokens equal; the card's generate_fused tokens (capacity and
+    within 1e-5 of their largest in the capacity form, the grouped form,
+    with int8 experts (their codes and scales bit-equal) and grouped with
+    int8 experts, and their greedy tokens equal; the card's generate_fused tokens (capacity and
     grouped form) equal to the CPU's and, the prompts prefilled in one
     tick, to its own generate()'s; for the families ``train`` names,
     training at train_family_fp32's bounds (losses 1e-4 relative, the
@@ -5281,7 +5367,8 @@ def moe_fp32_main(dev, fp32=MOE_FP32, train=MOE_TRAIN_FP32, cpu_sides=None):
         log(f"[moe] phase 25d {family}-{size}: {json.dumps(r)}")
         if (any(r[f]["logits_err_rel_to_max"] > 1e-5
                 or not r[f]["card_equals_cpu"]
-                for f in ("capacity", "grouped", "int8_experts"))
+                for f in ("capacity", "grouped", "int8_experts",
+                          "grouped_int8"))
                 or not r["int8_codes_and_scales_bit_equal"]
                 or not r["fused_card_equals_cpu"]
                 or not r["fused_equals_generate"]):
@@ -5380,8 +5467,16 @@ GROUPED_SHAPES = {"mixtral_gate_up": (8, 4096, 14336, 2),
                   "qwen2_moe_down": (60, 1408, 2048, 4)}
 GROUPED_TOKENS = {"decode": 8, "prefill": 2048}
 GROUPED_EMPTY = 3      # the expert given no rows in every case
-GROUPED_MAIN = ("mixtral_gate_up", "decode", "bfloat16")  # the 25b path
+# the 25b path: bf16 rows, int8 experts
+GROUPED_MAIN = ("mixtral_gate_up", "decode", "bfloat16", "int8")
 GROUPED_TOL = dict(TOL, float16=1e-2)
+# int8 experts: bf16 and fp16 rows at every case, fp32 (the CUDA cores) at
+# one
+GROUPED_INT8_FP32 = ("qwen2_moe_gate_up", "decode")
+# the form sweep behind ops/grouped_gemm.py DECODE_MAX_MEAN_ROWS: tokens
+# (x top-k rows) of two shapes, each form timed
+GROUPED_SWEEP = dict(shapes=("mixtral_gate_up", "qwen2_moe_gate_up"),
+                     tokens=(8, 16, 32, 64, 128, 256, 512))
 
 
 def grouped_case(dev, dtype, experts, k, n, top, tokens, seed=0):
@@ -5402,17 +5497,21 @@ def grouped_case(dev, dtype, experts, k, n, top, tokens, seed=0):
     return x, w, group_offsets(ids, experts)
 
 
-def grouped_bound(x, w, offsets) -> tuple[float, str, int, int]:
+def grouped_bound(x, w, offsets, scales=None) -> tuple[float, str, int, int]:
     """(bound ms, what bounds it, bytes, operations) of one call: x read
-    once, the weights of every expert that holds a row read once, the
-    output written once; 2 R K N operations at the dtype's peak."""
+    once, the weights of every expert that holds a row read once (int8
+    codes at 1 byte, with their scales), the output written once; 2 R K N
+    operations at the dtype's peak."""
     import torch
     rows, k = x.shape
     n = w.shape[2]
     sizes = torch.diff(offsets.cpu().long(), prepend=torch.zeros(1).long())
     active = int((sizes > 0).sum())
     item = x.element_size()
-    nbytes = item * (rows * k + active * k * n + rows * n) + 4 * len(sizes)
+    weights = active * k * n * w.element_size()
+    if scales is not None:
+        weights += active * n * scales.element_size()
+    nbytes = item * (rows * k + rows * n) + weights + 4 * len(sizes)
     flops = 2 * rows * k * n
     rate = FP32_FLOPS if x.dtype == torch.float32 else BF16_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
@@ -5427,7 +5526,7 @@ def grouped_library(x, w, offsets):
     inputs. Timed only, never called by the port."""
     import torch
     fn = getattr(torch, "_grouped_mm", None)
-    if fn is None or x.dtype != torch.bfloat16:
+    if fn is None or x.dtype != torch.bfloat16 or w.dtype != x.dtype:
         return None, ("no torch._grouped_mm" if fn is None
                       else "torch._grouped_mm is bf16 only")
     try:
@@ -5437,70 +5536,136 @@ def grouped_library(x, w, offsets):
         return None, f"torch._grouped_mm refused: {str(e)[:160]}"
 
 
+def grouped_cases():
+    """(dtype name, shape, rows name, int8) of phase 3's grouped checks."""
+    for dtype_name in GROUPED_TOL:
+        for name in GROUPED_SHAPES:
+            for rows_name in GROUPED_TOKENS:
+                yield dtype_name, name, rows_name, False
+                if (dtype_name != "float32"
+                        or (name, rows_name) == GROUPED_INT8_FP32):
+                    yield dtype_name, name, rows_name, True
+
+
 def grouped_mm_checks(dev, flush=None, iters=20):
     """Phase 3's grouped GEMM: the kernel against its plain version (a
-    product per expert) in bf16, fp16 and fp32 at every shape of
-    GROUPED_SHAPES, decode and prefill rows, one expert empty: max
-    |kernel - plain| / max |plain| within GROUPED_TOL, the variant each
-    dtype takes, a rerun bit for bit; bf16 timed beside the plain
-    version, ``torch._grouped_mm`` where it takes the inputs and the
-    bound. Returns (max |kernel - plain| and its ratio to max |plain| by
-    (dtype, shape, rows), records of the timed bf16 calls)."""
+    product per expert, int8 experts dequantized first) in bf16, fp16 and
+    fp32 at every shape of GROUPED_SHAPES, decode and prefill rows, one
+    expert empty, with bf16 / fp16 / fp32 experts and with int8 ones (the
+    port's quantize_expert_leaf, scales in x's dtype; fp32 at one case):
+    max |kernel - plain| / max |plain| within GROUPED_TOL, the variant
+    each takes, a rerun bit for bit; every case but fp32's float ones
+    timed beside the plain version and the bound, bf16 beside
+    ``torch._grouped_mm`` and, with int8 experts, the dequantize-then-
+    ``torch._grouped_mm`` pair (information: no single PyTorch call takes
+    int8 experts). Returns (max |kernel - plain| and its ratio to max
+    |plain| by (dtype, shape, rows[, "int8"]), the timed cases' records
+    keyed "<shape>_<rows>[_int8][_<dtype>]" (bf16 unsuffixed), the form
+    sweep's (:func:`grouped_form_sweep`))."""
     import torch
+    from deepspeed_tpu_torch.moe.sharded_moe import quantize_expert_leaf
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
     errs, times = {}, {}
-    for dtype_name, tol in GROUPED_TOL.items():
-        dtype = getattr(torch, dtype_name)
-        for name, (e, k, n, top) in GROUPED_SHAPES.items():
-            for rows_name, tokens in GROUPED_TOKENS.items():
-                x, w, offs = grouped_case(dev, dtype, e, k, n, top, tokens)
-                got = gg.grouped_mm(x, w, offs)
-                ref = gg.grouped_mm_plain(x, w, offs)
-                again = gg.grouped_mm(x, w, offs)
-                diff = float((got.float() - ref.float()).abs().max())
-                err = diff / float(ref.float().abs().max())
-                key = (dtype_name, name, rows_name)
-                errs[key] = dict(max_abs_err=diff, max_rel_err=err)
-                variant = gg.kernel_variant(dtype)
-                log(f"[kernel] grouped_mm {name} {rows_name} {dtype_name} "
-                    f"rows {x.shape[0]}: max|err| / max|plain| {err:.3e} "
-                    f"(tol {tol:g}), {variant}")
-                if err > tol or (dev.type == "cuda" and not torch.equal(
-                        got, again)):
-                    raise AssertionError(
-                        f"grouped_mm kernel disagrees with its plain "
-                        f"version or its rerun: {key} {err:.3e}")
-                if dtype_name != "bfloat16":
-                    continue
-                bound, bound_by, nbytes, flops = grouped_bound(x, w, offs)
-                lib, lib_note = grouped_library(x, w, offs)
-                rec = dict(
-                    rows=x.shape[0], experts=e, k=k, n=n, top_k=top,
-                    empty_expert=GROUPED_EMPTY, variant=variant,
-                    ms=time_ms(lambda: gg.grouped_mm(x, w, offs), dev,
-                               iters, flush),
-                    plain_ms=time_ms(lambda: gg.grouped_mm_plain(
-                        x, w, offs), dev, max(iters // 4, 2), flush),
-                    library_ms=(time_ms(lib, dev, iters, flush)
-                                if lib else None),
-                    library=lib_note, bound_ms=bound, bound_by=bound_by,
-                    bit_identical_rerun=bool(torch.equal(got, again)))
-                if lib:
-                    rec["library_max_rel_err"] = float(
-                        (lib().float() - ref.float()).abs().max()
-                        / ref.float().abs().max())
-                rec.update(tflops=flops / rec["ms"] / 1e9,
-                           gb_per_s=nbytes / rec["ms"] / 1e6,
-                           bound_share=bound / rec["ms"],
-                           x_library=(rec["ms"] / rec["library_ms"]
-                                      if lib else None))
-                times[f"{name}_{rows_name}"] = rec
-                log(f"[kernel] grouped_mm {name} {rows_name} times: "
-                    f"{json.dumps(rec)}")
-                del x, w, got, ref, again
+    for dtype_name, name, rows_name, int8 in grouped_cases():
+        dtype, tol = getattr(torch, dtype_name), GROUPED_TOL[dtype_name]
+        e, k, n, top = GROUPED_SHAPES[name]
+        x, w, offs = grouped_case(dev, dtype, e, k, n, top,
+                                  GROUPED_TOKENS[rows_name])
+        s = None
+        if int8:
+            w, s = quantize_expert_leaf(w, dtype)
+        got = gg.grouped_mm(x, w, offs, s)
+        ref = gg.grouped_mm_plain(x, w, offs, s)
+        again = gg.grouped_mm(x, w, offs, s)
+        diff = float((got.float() - ref.float()).abs().max())
+        err = diff / float(ref.float().abs().max())
+        key = (dtype_name, name, rows_name) + (("int8",) if int8 else ())
+        errs[key] = dict(max_abs_err=diff, max_rel_err=err)
+        variant = gg.kernel_variant(x, w, s)
+        log(f"[kernel] grouped_mm {name} {rows_name} {dtype_name}"
+            f"{' int8 experts' if int8 else ''} rows {x.shape[0]}: max|err| "
+            f"/ max|plain| {err:.3e} (tol {tol:g}), {variant}")
+        if err > tol or (dev.type == "cuda" and not torch.equal(
+                got, again)):
+            raise AssertionError(
+                f"grouped_mm kernel disagrees with its plain version or "
+                f"its rerun: {key} {err:.3e}")
+        if dtype_name == "float32" and not int8:
+            continue
+        bound, bound_by, nbytes, flops = grouped_bound(x, w, offs, s)
+        lib, lib_note = grouped_library(x, w, offs)
+        rec = dict(
+            rows=x.shape[0], experts=e, k=k, n=n, top_k=top,
+            empty_expert=GROUPED_EMPTY, dtype=dtype_name,
+            weights="int8" if int8 else dtype_name, variant=variant,
+            ms=time_ms(lambda: gg.grouped_mm(x, w, offs, s), dev, iters,
+                       flush),
+            plain_ms=time_ms(lambda: gg.grouped_mm_plain(x, w, offs, s),
+                             dev, max(iters // 4, 2), flush),
+            library_ms=(time_ms(lib, dev, iters, flush) if lib else None),
+            library=("none: no single PyTorch call takes int8 experts"
+                     if int8 else lib_note),
+            bound_ms=bound, bound_by=bound_by,
+            bit_identical_rerun=bool(torch.equal(got, again)))
+        if lib:
+            rec["library_max_rel_err"] = float(
+                (lib().float() - ref.float()).abs().max()
+                / ref.float().abs().max())
+        if int8 and dtype_name == "bfloat16" and dev.type == "cuda":
+            # information only: the dequantized copy, then the library
+            rec["dequantize_then_grouped_mm_ms"] = time_ms(
+                lambda: torch._grouped_mm(x, w * s, offs=offs), dev,
+                max(iters // 4, 2), flush)
+        rec.update(tflops=flops / rec["ms"] / 1e9,
+                   gb_per_s=nbytes / rec["ms"] / 1e6,
+                   bound_share=bound / rec["ms"],
+                   x_library=(rec["ms"] / rec["library_ms"]
+                              if lib else None))
+        suffix = ("_int8" if int8 else "") + (
+            "" if dtype_name == "bfloat16" else f"_{dtype_name}")
+        times[f"{name}_{rows_name}{suffix}"] = rec
+        log(f"[kernel] grouped_mm {name} {rows_name}{suffix} times: "
+            f"{json.dumps(rec)}")
+        del x, w, s, got, ref, again
+    for key, rec in times.items():
+        if rec["dtype"] == "float16":
+            twin = times[key.replace("_float16", "")]
+            rec["x_bfloat16"] = rec["ms"] / twin["ms"]
+    sweep = grouped_form_sweep(dev, flush)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return errs, times
+    return errs, times, sweep
+
+
+def grouped_form_sweep(dev, flush=None, iters=10) -> dict:
+    """The switch between grouped_mm's decode and prefill forms: bf16 at
+    GROUPED_SWEEP's shapes and token counts, each wgmma form (decode at 8,
+    16 and 32 rows a tile, prefill) timed, beside the form
+    ``kernel_plan`` picks (on the CPU, rehearsal only: the plan)."""
+    import torch
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    out = {}
+    forms = [("wgmma_decode", t) for t in gg.DECODE_TILE_ROWS] + [
+        ("wgmma_prefill", 128)]
+    for name in GROUPED_SWEEP["shapes"]:
+        e, k, n, top = GROUPED_SHAPES[name]
+        for tokens in GROUPED_SWEEP["tokens"]:
+            x, w, offs = grouped_case(dev, torch.bfloat16, e, k, n, top,
+                                      tokens)
+            rows = x.shape[0]
+            rec = dict(rows=rows, mean_rows=-(-rows // e),
+                       plan=list(gg.kernel_plan(x.dtype, rows, e, k, n)[1:]))
+            if dev.type == "cuda":
+                rec["ms"] = {f"{f}_{t}": time_ms(
+                    lambda: gg.grouped_mm_kernel(x, w, offs, form=f,
+                                                 tile_rows=t),
+                    dev, iters, flush) for f, t in forms}
+                rec["best"] = min(rec["ms"], key=rec["ms"].get)
+            out[f"{name}_{rows}"] = rec
+            del x, w
+    log(f"[kernel] grouped_mm form sweep (decode while the mean rows a "
+        f"group <= {gg.DECODE_MAX_MEAN_ROWS}): {json.dumps(out)}")
+    return out
 
 
 # ----------------------------------------------------------- phase 26
@@ -8379,7 +8544,8 @@ def main(argv=None) -> int:
     zeropp_times = zeropp_kernel_times(dev, flush)
     lora_quant = lora_quant_times(dev, flush)                 # phase 22's
     norm_errs, norm_times = norm_checks(dev, flush)
-    grouped_errs, grouped_times = grouped_mm_checks(dev, flush)
+    grouped_errs, grouped_times, grouped_sweep = grouped_mm_checks(dev,
+                                                                   flush)
     breadth_errs, breadth_times = breadth_kernel_checks(dev, flush)  # 20a
     del flush
     torch.cuda.empty_cache()
@@ -8916,33 +9082,40 @@ def main(argv=None) -> int:
         cases_max_err={"/".join(k): v for k, v in norm_errs.items()
                        if k[0] == "layer"}, cases=NORM_NOTE))
     # the grouped GEMM (no Pallas counterpart): its main path is 25b's
-    # grouped form, its launches the graph replays' and the prefills'
-    gm_shape, gm_rows, gm_dtype = GROUPED_MAIN
-    gm = grouped_times[f"{gm_shape}_{gm_rows}"]
+    # grouped form (bf16 rows, int8 experts), its launches the graph
+    # replays' and the prefills'
+    gm_shape, gm_rows, gm_dtype, gm_weights = GROUPED_MAIN
+    gm_key = (gm_dtype, gm_shape, gm_rows, gm_weights)
+    gm = grouped_times[f"{gm_shape}_{gm_rows}_{gm_weights}"]
     mv1 = moe["v1"]["grouped"]
     kernels.append(entry(
         "grouped_mm", "grouped_gemm", mv1["grouped_mm_launches"],
-        grouped_errs[(gm_dtype, gm_shape, gm_rows)]["max_abs_err"], gm,
+        grouped_errs[gm_key]["max_abs_err"], gm,
         tol=GROUPED_TOL, tol_kind="max |kernel - plain| / max |plain|",
-        max_rel_err=grouped_errs[(gm_dtype, gm_shape, gm_rows)][
-            "max_rel_err"],
+        max_rel_err=grouped_errs[gm_key]["max_rel_err"],
         shape=f"{gm_shape} {gm_rows}: rows {gm['rows']}, experts "
               f"{gm['experts']} (expert {GROUPED_EMPTY} empty), K "
-              f"{gm['k']}, N {gm['n']}, bf16",
+              f"{gm['k']}, N {gm['n']}, bf16 rows, int8 experts",
         library=gm["library"], variant=gm["variant"],
         tflops=gm["tflops"], gb_per_s=gm["gb_per_s"],
-        bound_share=gm["bound_share"], x_library=gm["x_library"],
+        bound_share=gm["bound_share"],
+        dequantize_then_grouped_mm_ms=gm.get(
+            "dequantize_then_grouped_mm_ms"),
         bit_identical_rerun=gm["bit_identical_rerun"],
-        shapes={k: {f: t[f] for f in ("rows", "experts", "k", "n", "ms",
-                                      "plain_ms", "library_ms", "bound_ms",
-                                      "bound_by", "bound_share",
-                                      "x_library")}
-                for k, t in grouped_times.items()},
+        shapes={k: {f: t.get(f) for f in (
+            "rows", "experts", "k", "n", "dtype", "weights", "variant",
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share", "x_library", "x_bfloat16",
+            "dequantize_then_grouped_mm_ms")}
+            for k, t in grouped_times.items()},
         cases_max_rel_err={"/".join(k): v["max_rel_err"]
                            for k, v in grouped_errs.items()},
-        main_path="phase 25b: Mixtral-8x7B on v1, grouped form, graph "
-                  "replays (3L a forward)",
+        form_sweep={k: {f: v.get(f) for f in ("mean_rows", "plan", "best")}
+                    for k, v in grouped_sweep.items()},
+        main_path="phase 25b: Mixtral-8x7B on v1, grouped form, int8 "
+                  "experts, graph replays (3L a forward)",
         main_path_launches_by_variant=mv1["grouped_mm_launches_by_variant"],
+        main_path_expert_dequantizations=mv1["expert_dequantizations"],
         fused_main_path="phase 25a: Qwen2-MoE a2.7b grouped, "
                         "generate_fused graph replays",
         fused_launches=moe["serving"]["fused_grouped"][

@@ -100,15 +100,24 @@ class Mixtral(DecoderLM):
     def routes_pads(self) -> bool:
         return not self.moe_serving_dispatch
 
+    def _dequantized(self, p: dict) -> dict:
+        """A layer's weight-only int8 pairs dequantized, the routed
+        experts' apart: :meth:`_mlp` hands those to the grouped form as
+        codes and scales, and dequantizes them for the capacity form."""
+        experts = {k: v for k, v in p.items() if k.startswith("experts/")}
+        rest = super()._dequantized(
+            {k: v for k, v in p.items() if k not in experts})
+        return {**rest, **experts}
+
     def _mlp(self, p: dict, h):
         c = self.config
-        experts = dequantize_experts(
-            {k[8:]: v for k, v in p.items() if k.startswith("experts/")},
-            h.dtype)
+        experts = {k[8:]: v for k, v in p.items() if k.startswith("experts/")}
         if self.moe_serving_dispatch:
+            # int8 experts go to the grouped GEMM as codes and scales
             return moe_ffn_grouped(h, p["router"], experts, k=c.moe_top_k,
                                    activation=c.activation,
                                    normalize_topk=c.moe_norm_topk)
+        experts = dequantize_experts(experts, h.dtype)
         if self.moe_router_telemetry:
             raise NotImplementedError(TELEMETRY_UNPORTED)
         cf, mc = self.moe_capacity_factor, self.moe_min_capacity

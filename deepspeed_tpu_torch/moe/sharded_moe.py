@@ -253,8 +253,12 @@ def moe_ffn_grouped(x: torch.Tensor, gate_w: torch.Tensor, experts: dict, *,
     token's rows times their gate weights summed. No padding and no
     drops. The offsets stay on the device (the count of sorted expert ids
     at or below each expert: a bincount's cumsum), so nothing is read
-    back to the host and a CUDA graph captures the call. Returns (out [B,
-    S, D], aux_loss), the aux of :func:`top_k_gating`."""
+    back to the host and a CUDA graph captures the call. ``experts`` may
+    be a :func:`quantize_experts` dict: its int8 codes and scales go to
+    ``grouped_mm`` as they are, which forms each weight as
+    :func:`dequantize_experts` would (JAX's XLA fuses that dequant into
+    the ragged_dot's operand read), so no dequantized copy is made.
+    Returns (out [B, S, D], aux_loss), the aux of :func:`top_k_gating`."""
     b, s, d = x.shape
     n = b * s
     e = gate_w.shape[-1]
@@ -263,12 +267,17 @@ def moe_ffn_grouped(x: torch.Tensor, gate_w: torch.Tensor, experts: dict, *,
     ids, order = torch.sort(topk_idx.reshape(-1), stable=True)
     xs = xt[order // k]
     offsets = group_offsets(ids, e)
+
+    def gmm(rows, name):
+        if name + "_q" in experts:      # int8 codes, read by the kernel
+            return grouped_mm(rows, experts[name + "_q"], offsets,
+                              experts[name + "_s"])
+        return grouped_mm(rows, experts[name], offsets)
     if activation == "swiglu":
-        h = L.silu(grouped_mm(xs, experts["w_gate"], offsets)) \
-            * grouped_mm(xs, experts["w_up"], offsets)
+        h = L.silu(gmm(xs, "w_gate")) * gmm(xs, "w_up")
     else:
-        h = L.gelu(grouped_mm(xs, experts["w_up"], offsets))
-    out_rows = grouped_mm(h, experts["w_down"], offsets).to(x.dtype)
+        h = L.gelu(gmm(xs, "w_up"))
+    out_rows = gmm(h, "w_down").to(x.dtype)
     unsorted = torch.empty_like(out_rows).index_copy(0, order, out_rows)
     w = topk_probs.to(x.dtype)
     out = (unsorted.reshape(n, k, d) * w[..., None]).sum(1)

@@ -2591,8 +2591,8 @@ def test_moe_families_on_the_card_match_the_cpu(cuda, family):
     same weights: build_engine's first prefill logits at 1e-4 of their
     largest and its greedy tokens through generate() and generate_fused
     (captured graphs of the capacity and the grouped form), the grouped
-    form and the int8
-    experts (their codes and scales bit-equal); initialize (flash, segments, fused Adam, clip) for 3 steps,
+    form, the int8 experts (their codes and scales bit-equal) and both (the
+    grouped GEMM reading the codes); initialize (flash, segments, fused Adam, clip) for 3 steps,
     losses at 1e-4 relative, as the dense families' training test."""
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import get_model_class
@@ -2601,7 +2601,9 @@ def test_moe_families_on_the_card_match_the_cpu(cuda, family):
             "max_chunk_size": 32}
     prompts = [list(range(3, 14)), list(range(40, 60)), [5, 6, 7]]
     for over in ({}, {"moe_grouped_dispatch": True},
-                 {"quantize_moe_experts": True}):
+                 {"quantize_moe_experts": True},
+                 {"quantize_moe_experts": True,
+                  "moe_grouped_dispatch": True}):
         runs = []
         for dev in ("cpu", cuda):
             eng = build_engine(family, "tiny", dict(ecfg, **over),
@@ -2734,52 +2736,78 @@ def test_checkpoint_saved_on_the_card_loads_on_the_cpu(cuda, tmp_path,
 GROUPED_CASES = {      # experts, K, N, group sizes (0: an empty group)
     "decode": (8, 256, 512, [3, 0, 5, 1, 0, 2, 4, 1]),
     "prefill": (4, 512, 384, [70, 0, 200, 130]),
-    "ragged_k_n": (3, 100, 90, [0, 33, 65]),        # the scalar loads
+    "ragged_k_n": (3, 100, 90, [0, 33, 65]),        # the CUDA-core kernel
     "empty_last": (5, 64, 128, [2, 3, 64, 1, 0])}
 
 
-def _grouped_inputs(dev, dtype, e, k, n, sizes, seed=0):
+def _grouped_inputs(dev, dtype, e, k, n, sizes, seed=0, int8=False):
+    """x, w, offsets and, with ``int8``, w's codes and scales in x's dtype
+    (the port's quantize_expert_leaf) in place of w."""
+    from deepspeed_tpu_torch.moe.sharded_moe import quantize_expert_leaf
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
     gen = torch.Generator().manual_seed(seed)
     rows = sum(sizes)
     x = torch.randn(rows, k, generator=gen).to(dev, dtype)
     w = (torch.randn(e, k, n, generator=gen) / k ** 0.5).to(dev, dtype)
     ids = torch.repeat_interleave(torch.arange(e), torch.tensor(sizes))
-    return x, w, gg.group_offsets(ids.to(dev), e)
+    scales = None
+    if int8:
+        w, scales = quantize_expert_leaf(w, dtype)
+    return x, w, gg.group_offsets(ids.to(dev), e), scales
 
 
+@pytest.mark.parametrize("weights", ["float", "int8"])
 @pytest.mark.parametrize("case", list(GROUPED_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-def test_grouped_mm_kernel_matches_plain(cuda, dtype, case):
+def test_grouped_mm_kernel_matches_plain(cuda, dtype, case, weights):
     """csrc/grouped_gemm.cu against the plain product per expert (fp32 at
     1e-5 of the largest value: summation order only, TF32 off; bf16 at
     3e-2, fp16 at 1e-2), with empty groups first, inside and last, K and
-    N off the 16-byte loads; the variant by dtype, one launch counted a
-    call, a rerun and a CUDA graph's replay bit for bit."""
+    N off TMA's 16-byte rows, float and int8 experts (the plain version
+    dequantizes them first); the variant kernel_variant names, one launch
+    counted a call, a rerun and a CUDA graph's replay bit for bit."""
     from deepspeed_tpu_torch.ops import grouped_gemm as gg
     e, k, n, sizes = GROUPED_CASES[case]
-    x, w, offs = _grouped_inputs(cuda, dtype, e, k, n, sizes)
+    x, w, offs, s = _grouped_inputs(cuda, dtype, e, k, n, sizes,
+                                    int8=weights == "int8")
     before = gg.grouped_mm_kernel.launches
-    got = gg.grouped_mm(x, w, offs)
+    got = gg.grouped_mm(x, w, offs, s)
     assert gg.grouped_mm_kernel.launches == before + 1
-    assert gg.grouped_mm_kernel.variant == gg.kernel_variant(dtype)
-    ref = gg.grouped_mm_plain(x, w, offs)
+    assert gg.grouped_mm_kernel.variant == gg.kernel_variant(x, w, s)
+    ref = gg.grouped_mm_plain(x, w, offs, s)
     tol = {torch.float32: 1e-5, torch.bfloat16: 3e-2,
            torch.float16: 1e-2}[dtype]
     err = float((got.float() - ref.float()).abs().max()
                 / ref.float().abs().max())
     assert got.dtype == dtype and got.shape == (sum(sizes), n)
     assert err < tol, err
-    assert torch.equal(gg.grouped_mm(x, w, offs), got)
+    assert torch.equal(gg.grouped_mm(x, w, offs, s), got)
     static = torch.empty_like(got)
     graph = torch.cuda.CUDAGraph()
     torch.cuda.synchronize()
     with torch.cuda.graph(graph):
-        static.copy_(gg.grouped_mm(x, w, offs))
+        static.copy_(gg.grouped_mm(x, w, offs, s))
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(static, got)
+
+
+def test_grouped_mm_cases_reach_every_form(cuda):
+    """GROUPED_CASES in bf16 take the decode form and the prefill form,
+    with float and with int8 experts, and the CUDA cores where TMA cannot
+    take K and N: each variant launched at least once."""
+    from deepspeed_tpu_torch.ops import grouped_gemm as gg
+    seen = set()
+    for int8 in (False, True):
+        for e, k, n, sizes in GROUPED_CASES.values():
+            x, w, offs, s = _grouped_inputs(cuda, torch.bfloat16, e, k, n,
+                                            sizes, int8=int8)
+            gg.grouped_mm(x, w, offs, s)
+            seen.add(gg.grouped_mm_kernel.variant)
+    torch.cuda.synchronize()
+    assert seen == {"wgmma_decode", "wgmma_prefill", "wgmma_decode_int8",
+                    "wgmma_prefill_int8", "cuda_cores", "cuda_cores_int8"}
 
 
 V1_GRAPH_CASES = {"gpt2": ("gpt2", {}), "llama": ("llama", {}),
