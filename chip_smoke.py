@@ -71,8 +71,9 @@ Phases, each fatal on failure:
  13. Path Z, ZeRO-3 across two ranks with the ZeRO++ int8 wire: phase 6's
      model and step with zero_optimization stage 3, qwZ and qgZ
      (stochastic rounding), mesh fsdp -1, in two processes that share the
-     card and talk over gloo (a file store under build/), 12 rows a rank;
-     one warm-up step then 10 timed steps with the quantized wire and
+     card and talk over gloo (a file store under build/), 12 rows a rank,
+     started after phase 3 (they wait for phase 13 to run);
+     one warm-up step then 5 timed steps with the quantized wire and
      again with the exact wire: tokens/s, step ms, each rank's peak
      memory, the losses (finite and falling), the loss gap, the wire bytes
      a step of each (from the plan's shard shapes), and the quantize and
@@ -274,7 +275,26 @@ Phases, each fatal on failure:
      phase 13's two ZeRO-3 qwZ/qgZ ranks saved at their last step; that
      checkpoint at W = 1 on the card: the master's sha256 equals the
      ranks' consolidated master's. The directories are removed at the
-     phase's end.
+     phase's end;
+ 27. Path H: bench.py zeropp_bench's ZeRO++ topology on phase 6's step
+     (GPT-2 125M, bf16, FusedAdam, clip 1.0, flash, segments, seq 1024,
+     global batch 24) in four rank processes sharing the card over gloo,
+     6 rows a rank: (a) ZeRO-3 + qwZ + qgZ (int8, stochastic) + the
+     hierarchical two-hop wire on mesh {"fsdp": -1, "zps": 2}, one
+     warm-up and 5 timed steps, then the same mesh on the exact wire (3
+     timed steps);
+     (b) hpZ (zero_hpz_partition_size 2, qwZ + qgZ), MiCS (mics_shard_
+     size 2), a mixed {"dp": 2, "fsdp": 2} mesh (exact) and the fp8 wire
+     (qwZ + qgZ, {"fsdp": -1}), one warm-up and 3 timed steps each: step
+     ms, tokens/s, each rank's peak memory, losses finite and falling,
+     the first step's loss within bf16 noise of (a)'s exact leg, wire
+     bytes a rank a step by hop from the plan, the quantize and dequantize
+     launches a step equal to the plan's; (c) on the ranks' real data,
+     every hierarchical qwZ gather and the hierarchical qgZ
+     reduce-scatter (nearest), kernels on and off, bit for bit. The
+     ranks start after phase 3 and run (c) and (a)'s engine build while
+     the CPU halves of phases 21, 22 and 25d finish; their timed legs
+     run after that, before phase 4.
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize, the
 RMSNorm/LayerNorm kernels and the grouped GEMM of the grouped MoE form
@@ -432,6 +452,38 @@ PATH_Z_CONFIG = dict(TRAIN_CONFIG, mesh={"fsdp": -1}, zero_optimization={
     "zero_quantized_gradients": True, "zero_quantized_dtype": "int8"})
 PATH_Z_EXACT = dict(TRAIN_CONFIG, mesh={"fsdp": -1},
                     zero_optimization={"stage": 3})
+# Path H: bench.py zeropp_bench's configuration (:2758-2775: ZeRO-3, qwZ +
+# qgZ int8 stochastic, the hierarchical two-hop wire, mesh {"fsdp": -1,
+# "zps": 2}) on the training main path's model and step, four ranks; then
+# the exact wire on that mesh and the other ZeRO++ topologies
+PATH_H_WORLD = 4
+PATH_H_MESH = {"fsdp": -1, "zps": 2}
+PATH_H_LEGS = {    # leg: (config, timed steps)
+    "headline": (dict(TRAIN_CONFIG, mesh=PATH_H_MESH, zero_optimization={
+        "stage": 3, "zero_quantized_weights": True,
+        "zero_quantized_gradients": True, "zero_quantized_dtype": "int8",
+        "zero_quantized_rounding": "stochastic",
+        "zero_hierarchical_allgather": True}), 5),
+    "exact": (dict(TRAIN_CONFIG, mesh=PATH_H_MESH,
+                   zero_optimization={"stage": 3}), 3),
+    "hpz": (dict(TRAIN_CONFIG, mesh={"fsdp": -1}, zero_optimization={
+        "stage": 3, "zero_hpz_partition_size": 2,
+        "zero_quantized_weights": True, "zero_quantized_gradients": True}),
+        3),
+    "mics": (dict(TRAIN_CONFIG, mesh={"fsdp": -1}, zero_optimization={
+        "stage": 3, "mics_shard_size": 2}), 3),
+    "mixed": (dict(TRAIN_CONFIG, mesh={"dp": 2, "fsdp": 2},
+                   zero_optimization={"stage": 3}), 3),
+    "fp8": (dict(TRAIN_CONFIG, mesh={"fsdp": -1}, zero_optimization={
+        "stage": 3, "zero_quantized_weights": True,
+        "zero_quantized_gradients": True, "zero_quantized_dtype": "fp8",
+        "zero_quantized_rounding": "nearest"}), 3),
+}
+# the one-hop quantized wire over the same 4 ranks, the outer hop's yardstick
+PATH_H_ONE_HOP = dict(TRAIN_CONFIG, mesh=PATH_H_MESH, zero_optimization={
+    "stage": 3, "zero_quantized_weights": True,
+    "zero_quantized_gradients": True})
+PATH_H_FIRST_LOSS_TOL = 5e-3           # bf16 noise (phase 15's tolerance)
 # Path P: SparseSelfAttention at GPT-2 125M's head layout with the values
 # of the "fixed" sparse_attention example in DeepSpeed's config-json docs
 PATH_P = dict(b=8, h=12, s=4096, d=64)
@@ -7590,6 +7642,61 @@ def zeropp_kernel_times(dev, flush=None, iters=20, size="125m"):
     return rec
 
 
+def two_hop_kernel_times(dev, flush=None, iters=20, size="125m") -> dict:
+    """The int8 quantize and dequantize at the two-hop wire's shapes (phase
+    27's fsdp 2 x zps 2, GPT-2 ``size``'s embed/tokens gradient, fp32):
+    hop 1's [outer x inner, c] rows and hop 2's [outer, c] partials, the
+    latter starting one element past a 16-byte boundary (ragged). Codes,
+    scales and the dequantized fp32 against the plain versions bit for
+    bit, then kernel, plain and bound times and the variant taken."""
+    import torch
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    zero, plan, sizes = path_h_plan(PATH_H_LEGS["headline"][0], size)
+    c = int(np.prod(plan.shapes["embed/tokens"])) // plan.world
+    g = torch.Generator(device=dev).manual_seed(6)
+    rec = {}
+    for case, (n_rows, skew) in (("hop1_rows", (4, 0)),
+                                 ("hop2_partials_misaligned", (2, 1))):
+        flat = torch.randn(n_rows * c + skew, generator=g, device=dev) * 0.01
+        rows = flat[skew:].view(n_rows, c)
+        n = rows.numel()
+        q, sc = TQ.quantize_rows(rows)
+        variant = (TQ.quantize_int8_kernel.variant if dev.type == "cuda"
+                   else TQ.quantize_plan(c, rows.data_ptr() % 16 == 0))
+        pq, ps = TQ.quantize_rows(rows, use_kernel=False)
+        back = TQ.dequantize_rows(q, sc, n_rows, c, torch.float32)
+        pback = TQ.dequantize_rows(q, sc, n_rows, c, torch.float32,
+                                   use_kernel=False)
+        equal = {"codes": bool(torch.equal(q, pq)),
+                 "scales": bool(torch.equal(sc, ps)),
+                 "dequantized": bool(torch.equal(back, pback))}
+        del pq, ps, pback
+        r = {"shape": [n_rows, c], "dtype": "float32", "variant": variant,
+             **equal}
+        for name, fn, plain, (bound, by) in (
+                ("quantize", lambda: TQ.quantize_rows(rows),
+                 lambda: TQ.quantize_rows(rows, use_kernel=False),
+                 quant_bound(n, 4, 1)),
+                ("dequantize",
+                 lambda: TQ.dequantize_rows(q, sc, n_rows, c, torch.float32),
+                 lambda: TQ.dequantize_rows(q, sc, n_rows, c, torch.float32,
+                                            False),
+                 quant_bound(n, 1, 4))):
+            r[name] = dict(ms=time_ms(fn, dev, iters, flush),
+                           plain_ms=time_ms(plain, dev, max(iters // 4, 2),
+                                            flush),
+                           bound_ms=bound, bound_by=by)
+            r[name]["bound_share"] = bound / r[name]["ms"]
+        rec[case] = r
+        log(f"[kernel] int8 block quantize at the two-hop {case} "
+            f"{[n_rows, c]} fp32: {json.dumps(r)}")
+        if not all(equal.values()):
+            raise AssertionError(f"quantize_int8 kernels vs plain at the "
+                                 f"two-hop {case}: {equal}")
+        del flat, rows, q, sc, back
+    return rec
+
+
 # ------------------------------ --compare-kernels: two versions, one call
 def compare_kernels(other: str, dev, rounds=3, iters=20) -> dict:
     """The quantize and fused-Adam kernels of this checkout against those
@@ -8149,10 +8256,11 @@ def path_z_kernel_vs_plain(engine, batch, reduce_grads):
 
 
 def path_z_rank(spec: str) -> int:
-    """One Path Z rank, started by ``path_z_main`` as ``chip_smoke.py
+    """One Path Z rank, started by ``path_z_start`` as ``chip_smoke.py
     --path-z-rank SPEC`` (SPEC a JSON object): joins the gloo group through
-    the file store, runs the quantized and the exact wire, and writes its
-    results (or its traceback) as JSON to the spec's ``out`` file."""
+    the file store, waits for the spec's ``go`` file, runs the quantized
+    and the exact wire, and writes its results (or its traceback) as JSON
+    to the spec's ``out`` file."""
     s = json.loads(spec)
     try:
         import ctypes
@@ -8165,6 +8273,8 @@ def path_z_rank(spec: str) -> int:
                               rank=s["rank"], world_size=s["world"])
         dev = torch.device(s["device"])
         out = {"rank": s["rank"]}
+        while not os.path.exists(s["go"]):
+            time.sleep(0.05)
         for wire, config in (("quantized", PATH_Z_CONFIG),
                              ("exact", PATH_Z_EXACT)):
             out[wire] = path_z_run(
@@ -8181,65 +8291,106 @@ def path_z_rank(spec: str) -> int:
     return rc
 
 
-def path_z_main(dev, size="125m", steps=10, seq=1024, timeout=900,
-                ckpt_dir=PATH_Z_CKPT):
-    """Phases 13-14: Path Z in PATH_Z_WORLD rank processes (this script
-    with ``--path-z-rank``) that share ``dev``; the quantized run's
-    checkpoint goes to ``ckpt_dir`` for phase 26g. Every rank is killed when
-    one fails or at ``timeout``, and all are reaped before this returns or
-    raises. Fails if a rank fails or hangs, if the losses are not finite
-    and falling, if a launch count is off (on the card) or if a kernel
-    disagrees with its plain version."""
+def start_ranks(dev, flag: str, world: int, **spec) -> dict:
+    """Start ``world`` rank processes of this script (``flag`` SPEC, SPEC
+    a JSON object holding ``spec``, the rank, the world, the device, a
+    file store and the rank's ``out`` file) sharing ``dev``; each joins
+    its group and waits for :func:`finish_ranks`' go file. Returns the
+    run (its procs, outs, go, rendezvous and ``spec``)."""
     from deepspeed_tpu_torch.ops import op_builder
     op_builder.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     rendezvous = tempfile.mkdtemp(dir=op_builder.BUILD_DIR)
-    outs = [os.path.join(rendezvous, f"rank{r}.json")
-            for r in range(PATH_Z_WORLD)]
-    t = time.perf_counter()
-    procs = []
+    run = dict(spec, rendezvous=rendezvous, go=os.path.join(rendezvous, "go"),
+               outs=[os.path.join(rendezvous, f"rank{r}.json")
+                     for r in range(world)],
+               t=time.perf_counter(), procs=[])
     try:
-        try:
-            for r in range(PATH_Z_WORLD):
-                spec = dict(rank=r, world=PATH_Z_WORLD, device=str(dev),
-                            store=os.path.join(rendezvous, "store"),
-                            size=size, steps=steps, seq=seq, out=outs[r],
-                            ckpt=ckpt_dir)
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--path-z-rank", json.dumps(spec)]))
-            while None in [p.poll() for p in procs]:
-                if any(p.returncode for p in procs):
-                    break                   # a rank failed: stop the rest
-                if time.perf_counter() - t > timeout:
-                    raise AssertionError(f"Path Z ranks still running "
-                                         f"after {timeout} s")
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
+        for r in range(world):
+            rank_spec = dict(spec, rank=r, world=world, device=str(dev),
+                             store=os.path.join(rendezvous, "store"),
+                             out=run["outs"][r], go=run["go"])
+            run["procs"].append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag,
+                 json.dumps(rank_spec)]))
+    except BaseException:
+        stop_ranks(run)
+        raise
+    return run
+
+
+def stop_ranks(run) -> None:
+    """Kill and reap every rank still running, remove the rendezvous."""
+    for p in run["procs"]:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    shutil.rmtree(run["rendezvous"], ignore_errors=True)
+
+
+def finish_ranks(run, what: str, timeout: float) -> dict:
+    """Write the go file, wait for every rank (all killed when one fails or
+    ``timeout`` s after the go, all reaped before this returns or raises)
+    and return rank -> its JSON result; a rank that failed fails the
+    run."""
+    t_go = time.perf_counter()
+    with open(run["go"], "w") as f:
+        f.write("go")
+    procs, outs = run["procs"], run["outs"]
+    try:
+        while None in [p.poll() for p in procs]:
+            if any(p.returncode for p in procs):
+                break                   # a rank failed: stop the rest
+            if time.perf_counter() - t_go > timeout:
+                raise AssertionError(f"{what} ranks still running "
+                                     f"{timeout} s after the go")
+            time.sleep(0.2)
         results, failed = {}, []
         for r, (p, out) in enumerate(zip(procs, outs)):
+            p.wait()
             res = {}
             if os.path.exists(out):
                 with open(out) as f:
                     res = json.load(f)
             if p.returncode != 0 or "error" in res:
-                failed.append(f"Path Z rank {r} failed (exit code "
+                failed.append(f"{what} rank {r} failed (exit code "
                               f"{p.returncode}):\n"
                               f"{res.get('error', 'no result written')}")
             results[r] = res
         if failed:
             raise AssertionError("\n".join(failed))
     finally:
-        shutil.rmtree(rendezvous, ignore_errors=True)
+        stop_ranks(run)
+    run["after_go_s"] = time.perf_counter() - t_go
+    return results
+
+
+def path_z_start(dev, size="125m", steps=5, seq=1024,
+                 ckpt_dir=PATH_Z_CKPT) -> dict:
+    """Start Path Z's ranks (``--path-z-rank``): they join their group and
+    wait for :func:`path_z_main` (the run starts them after phase 3, so
+    their start-up overlaps the wait for the CPU halves)."""
+    return start_ranks(dev, "--path-z-rank", PATH_Z_WORLD, size=size,
+                       steps=steps, seq=seq, ckpt=ckpt_dir)
+
+
+def path_z_main(dev, size="125m", steps=5, seq=1024, timeout=900,
+                ckpt_dir=PATH_Z_CKPT, run=None):
+    """Phases 13-14: Path Z in PATH_Z_WORLD rank processes that share
+    ``dev`` (``run`` from :func:`path_z_start`, else started here); the
+    quantized run's checkpoint goes to ``ckpt_dir`` for phase 26g. Fails if
+    a rank fails or hangs, if the losses are not finite and falling, if a
+    launch count is off (on the card) or if a kernel disagrees with its
+    plain version."""
+    if run is None:
+        run = path_z_start(dev, size, steps, seq, ckpt_dir)
+    size, steps, seq = run["size"], run["steps"], run["seq"]
+    results = finish_ranks(run, "Path Z", timeout)
     plan = path_z_plan(size)
     q, e = results[0]["quantized"], results[0]["exact"]
     stats = dict(
         model=f"gpt2-{size} vocab 50304", ranks=PATH_Z_WORLD, seq=seq,
         steps=steps, rows_per_rank=24 // PATH_Z_WORLD,
-        wall_s=time.perf_counter() - t,
+        wall_s=run["after_go_s"],
         quantized={k: v for k, v in q.items()
                    if k not in ("kernel_vs_plain", "checkpoint")},
         checkpoint=q["checkpoint"],
@@ -8278,6 +8429,347 @@ def path_z_main(dev, size="125m", steps=10, seq=1024, timeout=900,
             if dev.type == "cuda" and any(got[k] != want[k] for k in keys):
                 raise AssertionError(f"Path Z rank {r} {wire} launches per "
                                      f"step {got} != {want}")
+    return stats
+
+
+# ---------------------------------------- phase 27, Path H on four ranks
+def path_h_plan(config, size="125m", world=PATH_H_WORLD):
+    """(ZeroPlan, ZeroShardingPlan, axis sizes) of a Path H leg for GPT-2
+    ``size`` (vocab 50304), from a model on the meta device."""
+    from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.zero import ZeroPlan, ZeroShardingPlan
+    cfg = DeepSpeedConfig.from_any(config)
+    sizes = cfg.topology_config().resolve(world)
+    zero = ZeroPlan(cfg.zero_optimization)
+    params = GPT2(size=size, vocab_size=50304, device="meta").params
+    plan = ZeroShardingPlan(
+        zero.stage, sizes["fsdp"] * sizes["zps"],
+        {n: tuple(p.shape) for n, p in params.items()},
+        inner=sizes["zps"], hpz=zero.hpz, mics=zero.mics)
+    return zero, plan, sizes
+
+
+def _live(axes, sizes) -> str:
+    return "+".join(a for a in ("dp", "fsdp", "zps")
+                    if a in axes and sizes[a] > 1) or "none"
+
+
+def path_h_wire(config, size="125m", dtype_bytes=2) -> dict:
+    """A rank's wire bytes a step of a Path H leg, from its plan, by the
+    mesh axes each collective runs over (JAX's comms accounting,
+    zeropp.py _log_wire: each op's payload as this rank contributes it):
+    the parameter gathers (the two-hop wire: the rank's shard at full
+    precision over zps, then the zps-gathered tensor over fsdp, quantized
+    under qwZ at 1 + 4/512 bytes a value), the gradient reduce-scatters
+    (fp32, or quantized; two-hop: the full gradient over zps, the 1/zps
+    partials over fsdp), the all-reduce of each reduced shard over the
+    batch axes that do not shard it, and of each unsplit gradient over
+    every batch axis. ``quantized_reduce_outer_bytes``: the quantized
+    gradients' bytes over the outermost hop (the fsdp hop of the two-hop
+    wire, the whole op of the one-hop wire). Also the quantize and
+    dequantize kernel launches a step (int8 wire: one each a quantized
+    gather, one each a hop of a quantized reduce-scatter, no quantize
+    under stochastic rounding; fp8: none)."""
+    from deepspeed_tpu_torch.ops.quantization import wire_bytes_per_element
+    from deepspeed_tpu_torch.runtime.zeropp import MIN_QUANT_SIZE
+    zero, plan, sizes = path_h_plan(config, size)
+    wb = wire_bytes_per_element(zero.wire_dtype)
+    pk = _live(plan.param_axes, sizes)
+    sk = _live(plan.state_axes, sizes)
+    rest = _live([a for a in ("dp", "fsdp", "zps")
+                  if a not in plan.state_axes], sizes)
+    hier = zero.hierarchical and pk == "fsdp+zps"
+    inner = sizes["zps"]
+    by = {}
+    outer = 0.0
+    launches = {"quantize_int8": 0, "dequantize_int8": 0}
+    int8 = zero.wire_dtype == "int8"
+    nearest = zero.rounding == "nearest"
+
+    def add(key, n):
+        by[key] = by.get(key, 0.0) + n
+
+    for name, shape in plan.shapes.items():
+        full = int(np.prod(shape))
+        if plan.param_dims[name] is not None:
+            shard = full // plan.param_world
+            quant = zero.quantize_weights and shard >= MIN_QUANT_SIZE
+            width = wb if quant else dtype_bytes
+            if hier:
+                add("zps", shard * dtype_bytes)
+                add("fsdp", shard * inner * width)
+            else:
+                add(pk, shard * width)
+            if quant and int8:
+                launches["quantize_int8"] += 1
+                launches["dequantize_int8"] += 1
+        if plan.grad_dims[name] is not None:
+            quant = zero.quantize_gradients and full >= 4 * MIN_QUANT_SIZE
+            hops = 2 if quant and hier else 1
+            if quant and hier:
+                add("zps", full * wb)
+                add("fsdp", full // inner * wb)
+                outer += full // inner * wb
+            else:
+                add(sk, full * (wb if quant else 4))
+                outer += full * wb if quant else 0
+            if quant and int8:
+                launches["dequantize_int8"] += hops
+                launches["quantize_int8"] += hops if nearest else 0
+            if rest != "none":
+                add(rest, full // plan.state_world * 4)
+        elif plan.world * sizes["dp"] > 1:
+            add(_live(("dp", "fsdp", "zps"), sizes), full * 4)
+    sharded = sum(v for k, v in by.items() if "dp" not in k.split("+"))
+    return {"bytes_by_axes": by, "total_bytes": sum(by.values()),
+            "sharded_dp_bytes": sharded,
+            "quantized_reduce_outer_bytes": outer,
+            "expected_launches_per_step": launches}
+
+
+def path_h_kernel_vs_plain(engine, batch) -> dict:
+    """Phase 27c: every hierarchical qwZ gather from the rank's real
+    shards, and one micro-batch's real local grads through the
+    hierarchical qgZ reduce-scatter with nearest rounding, kernels on
+    (``use_kernel=None`` launches them on the card) and off: bit for
+    bit."""
+    import torch
+    gathered = [engine.gathered_params(use_kernel=k) for k in (None, False)]
+    gather_equal = all(torch.equal(gathered[0][n], gathered[1][n])
+                       for n in gathered[0])
+    gather_err = max(float((gathered[0][n].float() - gathered[1][n].float())
+                           .abs().max()) for n in gathered[0])
+    del gathered
+    engine(batch).backward()
+    grads = {n: p.grad for n, p in engine.module.params.items()}
+    for p in engine.module.params.values():
+        p.grad = None
+    engine._release()
+    reduced = [engine._reduce(grads, engine.plan.grad_dims, True,
+                              use_kernel=k, rounding="nearest")
+               for k in (None, False)]
+    reduce_equal = all(torch.equal(reduced[0][n], reduced[1][n])
+                       for n in reduced[0])
+    reduce_err = max(float((reduced[0][n] - reduced[1][n]).abs().max())
+                     for n in reduced[0])
+    return {"two_hop": engine._hierarchy is not None,
+            "gather_bit_equal": gather_equal, "gather_max_abs_err":
+            gather_err, "reduce_bit_equal": reduce_equal,
+            "reduce_max_abs_err": reduce_err}
+
+
+def path_h_leg(dev, name, size, seq, engine=None, warm=None):
+    """One rank's Path H leg: initialize (or ``engine``, built and warmed
+    up with loss ``warm``), a warm-up step, then the leg's timed steps
+    (host clock up to a synchronize, the ranks started together by a
+    barrier), every count set to 0 right before and read right after."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import norms as N
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    from deepspeed_tpu_torch.ops.fused_optimizers import fused_adam_step
+    config, steps = PATH_H_LEGS[name]
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    if engine is None:
+        model = GPT2(size=size, vocab_size=50304, remat_policy="segments",
+                     attn_impl="flash", device=dev)
+        engine, *_ = ds.initialize(model=model, config=config)
+        batch = train_batch_of(dev, 50304, engine.train_batch_size_, seq)
+        warm = float(engine.train_batch(batch))                # warm-up
+    else:
+        batch = train_batch_of(dev, 50304, engine.train_batch_size_, seq)
+    build_s = time.perf_counter() - t
+    if cuda:
+        torch.cuda.synchronize()
+    comm.barrier()
+    counters = {"quantize_int8": TQ.quantize_int8_kernel,
+                "dequantize_int8": TQ.dequantize_int8_kernel,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "fused_adam": fused_adam_step,
+                "layer_norm": N.layer_norm_kernel}
+    for fn in counters.values():
+        fn.launches = 0
+    reset_norms(N.layer_norm_kernel)
+    TQ.quantize_int8_kernel.variant_launches = {}
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        if cuda:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    out = dict(
+        steps=steps, warm_up_loss=warm, losses=[float(x) for x in losses],
+        step_ms=1e3 * sum(step_s) / steps, step_ms_min=1e3 * min(step_s),
+        step_ms_max=1e3 * max(step_s),
+        tokens_per_s=engine.train_batch_size_ * seq * steps / sum(step_s),
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if cuda else None),
+        build_and_warm_up_s=build_s, launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        quantize_launches_by_variant=dict(
+            TQ.quantize_int8_kernel.variant_launches),
+        norm_launches_by_variant=check_norm_variants(
+            N.layer_norm_kernel, dev, f"Path H {name}"),
+        shard_numel=sum(t.numel()
+                        for t in engine.master_state_dict().values()),
+        norm_launches_per_micro=norm_launches_per_micro(
+            engine.module.config),
+        splits={"state": list(engine.state_split.axes),
+                "params": list(engine.param_split.axes)})
+    return out
+
+
+def path_h_rank(spec: str) -> int:
+    """One Path H rank, started by ``path_h_start`` as ``chip_smoke.py
+    --path-h-rank SPEC`` (SPEC a JSON object): joins the gloo group
+    through the file store, builds and warms up the headline leg and runs
+    27c on it, waits for the spec's ``go`` file, then runs every leg and
+    writes its results (or its traceback) as JSON to the spec's ``out``
+    file."""
+    s = json.loads(spec)
+    try:
+        import ctypes
+        import signal
+        # die with the parent, so a killed run leaves no rank behind
+        ctypes.CDLL(None).prctl(1, signal.SIGKILL)    # PR_SET_PDEATHSIG
+        import torch
+        import deepspeed_tpu_torch as ds
+        from deepspeed_tpu_torch.comm import comm
+        from deepspeed_tpu_torch.models import GPT2
+        comm.init_distributed("gloo", init_method=f"file://{s['store']}",
+                              rank=s["rank"], world_size=s["world"])
+        dev = torch.device(s["device"])
+        out = {"rank": s["rank"]}
+        t = time.perf_counter()
+        model = GPT2(size=s["size"], vocab_size=50304,
+                     remat_policy="segments", attn_impl="flash", device=dev)
+        engine, *_ = ds.initialize(model=model,
+                                   config=PATH_H_LEGS["headline"][0])
+        batch = train_batch_of(dev, 50304, engine.train_batch_size_,
+                               s["seq"])
+        warm = float(engine.train_batch(batch))
+        out["kernel_vs_plain"] = path_h_kernel_vs_plain(engine, batch)
+        out["before_go_s"] = time.perf_counter() - t
+        while not os.path.exists(s["go"]):
+            time.sleep(0.05)
+        out["waited_s"] = time.perf_counter() - t - out["before_go_s"]
+        legs = {"headline": path_h_leg(dev, "headline", s["size"],
+                                       s["seq"], engine, warm)}
+        del engine, model, batch
+        for name in PATH_H_LEGS:
+            if name == "headline":
+                continue
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            legs[name] = path_h_leg(dev, name, s["size"], s["seq"])
+        out["legs"] = legs
+        torch.distributed.destroy_process_group()
+        rc = 0
+    except BaseException:
+        out, rc = {"rank": s["rank"], "error": traceback.format_exc()}, 1
+    with open(s["out"] + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(s["out"] + ".tmp", s["out"])
+    return rc
+
+
+def path_h_start(dev, size="125m", seq=1024) -> dict:
+    """Start phase 27's PATH_H_WORLD ranks (``--path-h-rank``), sharing
+    ``dev``; they build the headline leg and run 27c, then wait for
+    :func:`path_h_main` to let them run the legs."""
+    if dev.type == "cuda":
+        import torch
+        free, total = torch.cuda.mem_get_info()
+        log(f"[memory] before Path H's ranks start: {free / 2**30:.2f} GiB "
+            f"free of {total / 2**30:.2f}")
+    return start_ranks(dev, "--path-h-rank", PATH_H_WORLD, size=size,
+                       seq=seq)
+
+
+def path_h_main(dev, run, timeout=450) -> dict:
+    """Phase 27: let the ranks :func:`path_h_start` started run their legs
+    and wait for them (:func:`finish_ranks`), then check: losses finite
+    and falling, the first step's loss of every leg within bf16 noise of
+    the exact leg's, the launches a step equal to the plan's (on the
+    card), 27c bit-equal, and the two-hop wire's outer hop carrying 1/zps
+    of the one-hop qgZ's gradient bytes."""
+    results = finish_ranks(run, "Path H", timeout)
+    size, seq = run["size"], run["seq"]
+    wires = {name: path_h_wire(cfg, size) for name, (cfg, _)
+             in PATH_H_LEGS.items()}
+    legs = {}
+    for name in PATH_H_LEGS:
+        rec = dict(results[0]["legs"][name])
+        rec["peak_memory_gib_per_rank"] = [
+            results[r]["legs"][name]["peak_memory_gib"]
+            for r in range(PATH_H_WORLD)]
+        rec["step_ms_per_rank"] = [results[r]["legs"][name]["step_ms"]
+                                   for r in range(PATH_H_WORLD)]
+        rec["wire"] = wires[name]
+        legs[name] = rec
+    q, e = legs["headline"], legs["exact"]
+    # the one-hop qgZ over the same 4 ranks: the outer hop's yardstick
+    one_hop = path_h_wire(PATH_H_ONE_HOP, size)[
+        "quantized_reduce_outer_bytes"]
+    stats = dict(
+        model=f"gpt2-{size} vocab 50304", ranks=PATH_H_WORLD, seq=seq,
+        rows_per_rank=24 // PATH_H_WORLD,
+        seconds=time.perf_counter() - run["t"],
+        seconds_after_go=run["after_go_s"],
+        ranks_ready_s=[results[r]["before_go_s"]
+                       for r in range(PATH_H_WORLD)],
+        ranks_waited_s=[results[r]["waited_s"]
+                        for r in range(PATH_H_WORLD)],
+        legs=legs,
+        loss_gap=[a - b for a, b in zip(q["losses"], e["losses"])],
+        loss_gap_rel_last=abs(q["losses"][len(e["losses"]) - 1]
+                              - e["losses"][-1]) / e["losses"][-1],
+        zeropp_wire_reduction_sharded_dp=1.0 - (
+            q["wire"]["sharded_dp_bytes"] / e["wire"]["sharded_dp_bytes"]),
+        outer_hop_reduce_bytes=q["wire"]["quantized_reduce_outer_bytes"],
+        one_hop_reduce_bytes=one_hop,
+        outer_vs_one_hop_reduce=q["wire"]["quantized_reduce_outer_bytes"]
+        / one_hop,
+        kernel_vs_plain=[results[r]["kernel_vs_plain"]
+                         for r in range(PATH_H_WORLD)])
+    log(f"[path H] {json.dumps(stats)}")
+    for name, rec in legs.items():
+        losses = rec["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"Path H {name} losses not finite and "
+                                 f"falling: {losses}")
+        gap = abs(rec["warm_up_loss"] - e["warm_up_loss"]) / e["warm_up_loss"]
+        if gap > PATH_H_FIRST_LOSS_TOL:
+            raise AssertionError(f"Path H {name} first-step loss "
+                                 f"{rec['warm_up_loss']} is {gap:.2e} from "
+                                 f"the exact leg's {e['warm_up_loss']}")
+        want = dict(rec["wire"]["expected_launches_per_step"],
+                    layer_norm=rec["norm_launches_per_micro"])
+        for r in range(PATH_H_WORLD):
+            got = results[r]["legs"][name]["launches_per_step"]
+            if dev.type == "cuda" and any(got[k] != want[k] for k in want):
+                raise AssertionError(f"Path H rank {r} {name} launches per "
+                                     f"step {got} != {want}")
+    for r, check in enumerate(stats["kernel_vs_plain"]):
+        if not (check["two_hop"] and check["gather_bit_equal"]
+                and check["reduce_bit_equal"]):
+            raise AssertionError(f"Path H rank {r} kernels vs plain: "
+                                 f"{check}")
+    zps = PATH_H_MESH["zps"]
+    if stats["outer_vs_one_hop_reduce"] != 1 / zps:
+        raise AssertionError(f"Path H: the outer hop carries "
+                             f"{stats['outer_vs_one_hop_reduce']} of the "
+                             f"one-hop qgZ's bytes, not 1/{zps}")
     return stats
 
 
@@ -8459,6 +8951,7 @@ def main(argv=None) -> int:
                          "a speculative dispatch and one BERT-large step "
                          "with torch.profiler")
     ap.add_argument("--path-z-rank", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--path-h-rank", metavar="SPEC", help=argparse.SUPPRESS)
     ap.add_argument("--compare-kernels", metavar="ROOT",
                     help="only time the quantize and fused-Adam kernels of "
                          "this checkout against those of the checkout at "
@@ -8467,6 +8960,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.path_z_rank:
         return path_z_rank(args.path_z_rank)
+    if args.path_h_rank:
+        return path_h_rank(args.path_h_rank)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -8482,6 +8977,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"[time] {what} done {time.perf_counter() - t_start:.1f} s "
+            f"into the run")
 
     card = card_line()                                        # phase 1
     log(f"[device] {card}; torch {torch.__version__} cuda "
@@ -8542,6 +9041,7 @@ def main(argv=None) -> int:
     fill = sparse_fill()
     path_times = path_kernel_times(dev, adam_numel, flush)
     zeropp_times = zeropp_kernel_times(dev, flush)
+    two_hop_times = two_hop_kernel_times(dev, flush)          # phase 27's
     lora_quant = lora_quant_times(dev, flush)                 # phase 22's
     norm_errs, norm_times = norm_checks(dev, flush)
     grouped_errs, grouped_times, grouped_sweep = grouped_mm_checks(dev,
@@ -8551,20 +9051,33 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"[build] phase 3 done {time.perf_counter() - t:.1f} s after the "
         f"build")
-    # the CPU halves ran beside the build and phase 3 (its times are
-    # device times behind a spin); no later phase runs beside them
-    cpu_sides = {k: f.result() for k, f in cpu_futures.items()}
-    log(f"[build] phase 21's CPU halves done {time.perf_counter() - t:.1f} "
-        f"s after the build")
-    linear_cpu = {k: f.result() for k, f in linear_futures.items()}
-    del linear_futures
-    log(f"[build] phase 22's CPU halves done {time.perf_counter() - t:.1f} "
-        f"s after the build")
-    for future in moe_cpu.values():
-        future.result()
-    cpu_pool.shutdown()
-    log(f"[build] phase 25d's CPU halves done {time.perf_counter() - t:.1f} "
-        f"s after the build")
+    # phase 27's ranks build and check their headline leg while the CPU
+    # halves finish; their timed legs run once the halves are done. Path
+    # Z's ranks start now too and wait for phase 13
+    path_h_run = path_h_start(dev)
+    path_z_run = path_z_start(dev)
+    try:
+        # the CPU halves ran beside the build and phase 3 (its times are
+        # device times behind a spin); no later phase runs beside them
+        cpu_sides = {k: f.result() for k, f in cpu_futures.items()}
+        log(f"[build] phase 21's CPU halves done "
+            f"{time.perf_counter() - t:.1f} s after the build")
+        linear_cpu = {k: f.result() for k, f in linear_futures.items()}
+        del linear_futures
+        log(f"[build] phase 22's CPU halves done "
+            f"{time.perf_counter() - t:.1f} s after the build")
+        for future in moe_cpu.values():
+            future.result()
+        cpu_pool.shutdown()
+        log(f"[build] phase 25d's CPU halves done "
+            f"{time.perf_counter() - t:.1f} s after the build")
+    except BaseException:
+        stop_ranks(path_h_run)
+        stop_ranks(path_z_run)
+        raise
+    path_h = path_h_main(dev, path_h_run)                     # phase 27
+    log(f"[time] phase 27 done {time.perf_counter() - t_start:.1f} s into "
+        f"the run ({path_h['seconds_after_go']:.1f} s after the halves)")
 
     engine, stats = main_path(dev)                            # phase 4
     bf16_ref = {k: stats[k] for k in ("weight_bytes", "decode_ms_per_tick",
@@ -8585,6 +9098,7 @@ def main(argv=None) -> int:
     front["migration"] = {"bf16": migration_check(engine, dev, prompts[0],
                                                   "bf16")}
     front["seconds"] = time.perf_counter() - t19
+    mark("phases 4-5, 17-19")
     migrated = prompts[0]
     del fused["outputs"], prompts
     q_engine, path_q = path_q_main(dev, engine)               # phase 11
@@ -8616,6 +9130,7 @@ def main(argv=None) -> int:
      front["fp32"]) = fused_fp32_parity(dev)
     front["seconds"] += front["fp32"]["seconds"]
     log(f"[front] phase 19: {front['seconds']:.1f} s")
+    mark("phases 11-12, 16")
     resident = torch.cuda.memory_allocated()
     log(f"[memory] after the serving phases: {resident / 2**30:.3f} GiB "
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB "
@@ -8624,6 +9139,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
                              f"after the serving phases")
     breadth = model_breadth_main(dev)                         # phase 20
+    mark("phase 20")
     gc.collect()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
@@ -8650,12 +9166,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     path_t_parity = path_t_kernel_vs_plain(dev)               # phase 9
     path_p = path_p_main(dev, profile=args.profile)           # phase 10
+    mark("phases 6-10")
     gc.collect()
     torch.cuda.empty_cache()
-    path_z = path_z_main(dev)                                 # phases 13-14
+    path_z = path_z_main(dev, run=path_z_run)                 # phases 13-14
+    mark("phases 13-14")
     gc.collect()
     torch.cuda.empty_cache()
     remat = remat_policies_main(dev)                          # phase 15
+    mark("phase 15")
     gc.collect()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
@@ -8663,17 +9182,21 @@ def main(argv=None) -> int:
         raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
                              f"before phase 21")
     families = train_families_main(dev, cpu_sides=cpu_sides)  # phase 21
+    mark("phase 21")
     del cpu_sides
     gc.collect()
     torch.cuda.empty_cache()
     linear = linear_main(dev, bf16_ref, linear_cpu)           # phase 22
+    mark("phase 22")
     del linear_cpu, bf16_ref
     gc.collect()
     torch.cuda.empty_cache()
     bert = bert_main(dev, profile=args.profile)               # phase 23
+    mark("phase 23")
     gc.collect()
     torch.cuda.empty_cache()
     hf = hf_main(dev)                                         # phase 24
+    mark("phase 24")
     gc.collect()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
@@ -8681,10 +9204,12 @@ def main(argv=None) -> int:
         raise AssertionError(f"{resident / 2**30:.1f} GiB still allocated "
                              f"before phase 25")
     moe = moe_main(dev, fp32_cpu=moe_cpu)                     # phase 25
+    mark("phase 25")
     del moe_cpu
     gc.collect()
     torch.cuda.empty_cache()
     ckpt = checkpoint_main(dev, path_z)                       # phase 26
+    mark("phase 26")
 
     def entry(name, kernel, launches, max_abs_err, t, **extra):
         dtypes, variants = KERNEL_FORMS[name]
@@ -9230,6 +9755,29 @@ def main(argv=None) -> int:
                      "whose checkpoint loads at W = 1 (phase 13's run)",
                      checkpoint_launches=ckpt["reshard"]["ranks_launches"][
                          k["name"]])
+    # phase 27: Path H's launches (rank 0's timed steps) beside each
+    # kernel its legs ran
+    h_legs = path_h["legs"]
+    for k in kernels:
+        if k["name"] in ("quantize_int8", "dequantize_int8"):
+            k.update(path_h_main_path="phase 27: ZeRO-3 + qwZ + qgZ "
+                     "(int8, stochastic) + the two-hop wire on 4 ranks, "
+                     "fsdp 2 x zps 2 (27a); hpZ (27b)",
+                     two_hop_shapes={c: {f: r[f] for f in (
+                         "shape", "variant", "codes", "scales",
+                         "dequantized")} | r[k["name"].split("_")[0]]
+                         for c, r in two_hop_times.items()},
+                     path_h_launches={leg: r["launches"][k["name"]]
+                                      for leg, r in h_legs.items()},
+                     path_h_bit_equal=path_h["kernel_vs_plain"])
+            if k["name"] == "quantize_int8":
+                k["path_h_launches_by_variant"] = {
+                    leg: r["quantize_launches_by_variant"]
+                    for leg, r in h_legs.items()}
+        elif k["name"] in ("flash_attention_fwd", "fused_adam",
+                           "layer_norm"):
+            k["path_h_launches"] = {leg: r["launches"][k["name"]]
+                                    for leg, r in h_legs.items()}
     log(f"[main] serving {json.dumps(stats)} on {card}")
     log(f"[main] fused serving {json.dumps(fused)} on {card}")
     log(f"[main] spec and ring serving {json.dumps(spec)} on {card}")
@@ -9243,6 +9791,7 @@ def main(argv=None) -> int:
     log(f"[main] Path T kernels vs plain {json.dumps(path_t_parity)}")
     log(f"[main] Path P {json.dumps(path_p)} on {card}")
     log(f"[main] Path Z {json.dumps(path_z)} on {card}")
+    log(f"[main] Path H {json.dumps(path_h)} on {card}")
     log(f"[main] remat policies {json.dumps(remat)} on {card}")
     log(f"[main] model breadth {json.dumps(breadth)} on {card}")
     log(f"[main] flash at the families' head dims "

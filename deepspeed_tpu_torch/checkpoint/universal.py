@@ -198,8 +198,8 @@ def load_universal_checkpoint(engine, universal_dir: str) -> dict:
                              f"engine")
         full = torch.from_numpy(fp32[name])
 
-        def get(dim, full=full):
-            return engine._own(full, dim)
+        def get(dim, split, full=full):
+            return full if split is None else split.own(full, dim)
 
         put_param(engine, name, get)
         if engine._mixed:

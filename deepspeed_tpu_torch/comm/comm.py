@@ -3,7 +3,9 @@ reference: deepspeed/comm/comm.py) on ``torch.distributed``.
 
 The JAX module names mesh axes as its groups and runs its collectives
 inside ``shard_map``; here a group is a ``torch.distributed`` process
-group (``None`` = the world) and every collective is an eager call that
+group (``None`` = the world; :func:`new_group` makes the subgroups of a
+mesh's axes, ``utils/groups.py`` names them) and every collective is an
+eager call that
 returns a new tensor (or, for :func:`all_reduce`, reduces in place), with
 the JAX module's semantics: :func:`all_gather` tiles the ranks' pieces
 along an axis, :func:`reduce_scatter` splits along one, and
@@ -88,6 +90,31 @@ def get_world_size(group=None) -> int:
 
 def get_local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", "0"))
+
+
+def new_group(partition: list[list[int]]):
+    """The process group of this rank among ``partition``, disjoint rank
+    lists that cover the world (reference: comm.py new_group). Every rank
+    must call it with the same partition in the same order: each list
+    becomes a group on every rank, also on the ranks it does not hold,
+    since gloo and NCCL name a group by the order of creation and a rank
+    that skips one waits for the others forever. A list of every rank is
+    the world group itself; outside a process group, None (the world of
+    one)."""
+    if not is_initialized():
+        return None
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if sorted(r for ranks in partition for r in ranks) != list(range(world)):
+        raise ValueError(f"groups {partition} do not cover the {world} "
+                         f"ranks once each")
+    mine = None
+    for ranks in partition:
+        if len(ranks) == world:
+            return dist.group.WORLD
+        group = dist.new_group(sorted(ranks))
+        if rank in ranks:
+            mine = group
+    return mine
 
 
 def assemble(pieces: torch.Tensor, dim: int) -> torch.Tensor:

@@ -2,16 +2,21 @@
 ``deepspeed_tpu/ops/pallas/quantization.py``): the ZeRO++ wire half, the
 KV-pool half, and the weight-only int8 serving half.
 
-**The wire** (:21-120, :257-312): symmetric int8 over 512-element blocks
-with one fp32 scale a block, the primitive that brackets ZeRO++'s
-quantized weight all-gather (qwZ, :func:`quantized_all_gather`) and its
-quantized gradient reduce-scatter (qgZ,
-``runtime/comm/coalesced_collectives.py``). :func:`quantize_int8` and
-:func:`dequantize_int8` launch the hand-written kernels of
+**The wire** (:21-120, :210-225, :257-312): symmetric int8 over
+512-element blocks with one fp32 scale a block, the primitive that
+brackets ZeRO++'s quantized weight all-gather (qwZ,
+:func:`quantized_all_gather`) and its quantized gradient reduce-scatter
+(qgZ, ``runtime/comm/coalesced_collectives.py``). :func:`quantize_int8`
+and :func:`dequantize_int8` launch the hand-written kernels of
 ``csrc/quantize_int8.cu`` on CUDA tensors and take their plain PyTorch
 versions on CPU tensors; either gives the Pallas kernels' codes and
 scales bit for bit. Stochastic rounding (the gradient wire's default) is
-torch ops on whatever device, as it is plain jnp in the JAX package.
+torch ops on whatever device, as it is plain jnp in the JAX package. The
+fp8 wire (``zero_quantized_dtype: "fp8"``, :func:`quantize_fp8`) is e4m3
+codes (``ops/fp_quant.py``'s format) over the same blocks, torch ops as it
+is plain XLA in JAX (no Pallas kernel computes it); it rounds by the cast, so
+it has no stochastic mode. Its codes cross the wire as their bytes
+(``uint8``), since gloo moves no float8 dtype.
 
 **The KV pool** (:123-207) is quantized WRITE-ONCE per token vector: each
 written (position, kv-head) vector of head_dim elements gets its own
@@ -57,6 +62,7 @@ QBLOCK = 512  # elements per quantization block
 # the wire. ``exact=True`` divides instead, as the JAX package's eager
 # ``linear.quantize_param`` does for LoRA's frozen base.
 INV_QMAX = float(np.float32(1) / np.float32(127))
+INV_FP8_MAX = float(np.float32(1) / np.float32(448))    # the fp8 wire's
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the quantize kernel's variants (the C entry's ds_quantize_int8_variant)
 QUANT_VARIANTS = {0: "ragged", 1: "bulk"}
@@ -295,17 +301,72 @@ def wire_bytes_per_element(wire_dtype: str, block: int = QBLOCK) -> float:
     raise ValueError(f"unknown wire dtype {wire_dtype!r}")
 
 
-def quantized_all_gather(x: torch.Tensor, dim: int = 0, group=None,
+def quantize_fp8_rows(rows: torch.Tensor):
+    """Each row of ``rows`` ``[R, L]`` fp8-e4m3 quantized on its own (tail
+    blocks zero-padded; JAX ``vmap(quantize_fp8)``, ``ops/fp_quant.py``'s
+    e4m3 format) -> (codes float8 ``[R * nb, QBLOCK]``, scales fp32
+    ``[R * nb, 1]``): each block's absmax maps onto 448 and the cast
+    rounds. The scale is ``amax * fl(1/448)``, as XLA compiles JAX's
+    ``amax / 448`` inside the jitted step (an eager JAX call divides)."""
+    blocks = _to_blocks(rows)
+    scale = torch.clamp(blocks.abs().amax(dim=-1, keepdim=True)
+                        * INV_FP8_MAX, min=1e-12)
+    return (blocks / scale).to(torch.float8_e4m3fn), scale
+
+
+def quantize_fp8(x: torch.Tensor):
+    """The flat ``x`` fp8-quantized -> (codes float8 ``[nblocks,
+    QBLOCK]``, scales fp32 ``[nblocks, 1]``, meta) (JAX
+    ``quantization.py:210`` in the jitted step)."""
+    q, s = quantize_fp8_rows(x.reshape(1, -1))
+    return q, s, (x.shape, x.dtype, x.numel())
+
+
+def dequantize_fp8(q, s, meta) -> torch.Tensor:
+    """``q * s`` in fp32 trimmed to the tensor, in its shape and dtype."""
+    shape, dtype, n = meta
+    return _dequantize_rows_plain(q, s, 1, n, dtype).view(shape)
+
+
+def wire_quantize_rows(rows: torch.Tensor, wire_dtype: str = "int8",
+                       use_kernel: bool | None = None,
+                       rounding: str = "nearest", generator=None):
+    """The wire's quantize of each row of ``rows`` (JAX ``_quant_rows``):
+    int8 (:func:`quantize_rows`) or fp8 (:func:`quantize_fp8_rows`, which
+    rounds by the cast whatever ``rounding`` says)."""
+    if wire_dtype == "fp8":
+        return quantize_fp8_rows(rows)
+    return quantize_rows(rows, use_kernel, rounding, generator)
+
+
+def wire_dequantize_rows(q, s, rows: int, row_len: int,
+                         dtype: torch.dtype = torch.float32,
                          use_kernel: bool | None = None) -> torch.Tensor:
+    """Inverse of :func:`wire_quantize_rows`: the int8 kernel (or its
+    plain version) for int8 codes, ``q * s`` in fp32 for fp8 codes."""
+    if q.dtype == torch.int8:
+        return dequantize_rows(q, s, rows, row_len, dtype, use_kernel)
+    return _dequantize_rows_plain(q, s, rows, row_len, dtype)
+
+
+def wire_view(codes: torch.Tensor) -> torch.Tensor:
+    """The codes as gloo moves them: fp8 codes as their bytes (a view)."""
+    return codes.view(torch.uint8) if codes.is_floating_point() else codes
+
+
+def quantized_all_gather(x: torch.Tensor, dim: int = 0, group=None,
+                         use_kernel: bool | None = None,
+                         wire_dtype: str = "int8") -> torch.Tensor:
     """ZeRO++ qwZ: quantize this rank's shard ``x``, all-gather the int8
-    codes and fp32 scales over ``group``, dequantize every rank's piece in
-    one launch straight into x's dtype, and reassemble the pieces along
-    ``dim`` (rank order). JAX: ``quantization.py:281``."""
+    (or fp8) codes and fp32 scales over ``group``, dequantize every rank's
+    piece in one launch straight into x's dtype, and reassemble the pieces
+    along ``dim`` (rank order). JAX: ``quantization.py:281``."""
     world = comm.get_world_size(group)
-    q, s, meta = quantize_int8(x, use_kernel)
-    qg = comm.all_gather(q, group=group)           # [world * nb, QBLOCK]
-    sg = comm.all_gather(s, group=group)
-    pieces = dequantize_rows(qg, sg, world, x.numel(), x.dtype, use_kernel)
+    q, s = wire_quantize_rows(x.reshape(1, -1), wire_dtype, use_kernel)
+    qg = comm.all_gather(wire_view(q), group=group).view(q.dtype)
+    sg = comm.all_gather(s, group=group)           # [world * nb, 1]
+    pieces = wire_dequantize_rows(qg, sg, world, x.numel(), x.dtype,
+                                  use_kernel)
     return comm.assemble(pieces.view(world, *x.shape), dim)
 
 

@@ -10,7 +10,10 @@ under the same ``<save_dir>/<tag>/state/``: one safetensors file a rank,
 ``checkpoint/huggingface.py``'s writer, read back through its reader with
 the bits and dtypes as saved), and ``index.json``, the layout: for every
 entry its full shape, its dtype and the dim its ranks split it on (None:
-whole, in rank 0's file only), and the world size. ``load`` gives a
+whole, in rank 0's file only) with the number of pieces and the rank
+whose file holds each (an index without them, as the first checkpoints
+of this format wrote: the world size's pieces in the files of ranks 0,
+1, ...). ``load`` gives a
 :class:`ShardedCheckpoint`, which assembles any entry in full or cuts it
 for another world size and split dim, so a checkpoint written at one ZeRO
 stage and W loads at another.
@@ -104,25 +107,34 @@ class ShardedCheckpoint:
     def __contains__(self, key: str) -> bool:
         return key in self.entries
 
+    def files(self, key: str) -> list[int]:
+        """The ranks whose files hold the entry's pieces, in order."""
+        entry = self.entries[key]
+        if entry["dim"] is None:
+            return [0]
+        return entry.get("ranks", list(range(entry.get("world",
+                                                       self.world))))
+
     def full(self, key: str) -> torch.Tensor:
-        """The whole entry (CPU), its ranks' pieces concatenated along the
-        dim they were split on."""
-        dim = self.entries[key]["dim"]
-        if dim is None:
-            return self._file(0).get(key)
-        return torch.cat([self._file(r).get(key) for r in range(self.world)],
-                         dim)
+        """The whole entry (CPU), its pieces concatenated along the dim
+        they were split on."""
+        files = self.files(key)
+        if len(files) == 1:
+            return self._file(files[0]).get(key)
+        return torch.cat([self._file(r).get(key) for r in files],
+                         self.entries[key]["dim"])
 
     def piece(self, key: str, world: int, rank: int,
               dim: Optional[int]) -> torch.Tensor:
-        """Rank ``rank``'s piece of the entry when ``world`` ranks split it
-        on ``dim`` (None: the whole entry): read from that rank's file
-        where the layout is the saved one, else cut from the whole."""
+        """Piece ``rank`` of the entry when ``world`` ranks split it on
+        ``dim`` (None: the whole entry): read from its file where the
+        layout is the saved one, else cut from the whole."""
         saved = self.entries[key]["dim"]
         if dim is None:
             return self.full(key)
-        if saved == dim and world == self.world:
-            return self._file(rank).get(key)
+        files = self.files(key)
+        if saved == dim and world == len(files):
+            return self._file(files[rank]).get(key)
         return self.full(key).chunk(world, dim)[rank]
 
 

@@ -19,11 +19,14 @@ JAX engine's state, by "/"-joined name:
   ``exp_avg``) and its scalar ``count``;
 - ``loss_scale/{scale,good_steps,hysteresis}``: the dynamic loss scaler.
 
-Each rank writes its own pieces (ZeRO's shards along the plan's split
-dim) and rank 0 the entries no rank splits; the index records each
-entry's full shape and split dim, so a plain load at another world size
-or ZeRO stage re-cuts the pieces (JAX: orbax reshards on read). That
-covers the meshes the port has, pure ``fsdp`` or ``dp``.
+Each piece of a split entry is written once, by the lowest rank that
+holds it (dp replicas, and MiCS's fsdp replicas, hold the same shards),
+and rank 0 writes the entries no rank splits; the index records each
+entry's full shape, its split dim, the number of pieces and the rank
+whose file holds each, so a plain load at another world size, mesh or
+ZeRO stage re-cuts the pieces (JAX: orbax reshards on read). Under hpZ an
+entry's parameters and its master split differently (over zps alone,
+and over fsdp x zps), and each records its own.
 
 The JAX package's NVMe-offload host files (``host_opt_rank*.npz``) have no
 counterpart until the memory tiers are ported: the port writes none, and
@@ -91,23 +94,33 @@ def opt_entries(engine) -> dict[str, tuple[torch.Tensor, Optional[str]]]:
 
 
 def state_entries(engine) -> dict[str, tuple[torch.Tensor, tuple,
-                                             Optional[int]]]:
+                                             Optional[int], object]]:
     """Every entry of the engine's state: key -> (this rank's piece, the
-    full shape, the dim the ranks split it on or None)."""
+    full shape, the dim the ranks split it on or None, and the engine's
+    ``Split`` of that dim: its ranks and this rank's piece)."""
     plan = engine.plan
-    out = {"step": (engine._step, (), None)}
+    ps, ss = engine.param_split, engine.state_split
+    out = {"step": (engine._step, (), None, None)}
     for name, p in engine.module_state_dict().items():
-        out[f"params/{name}"] = (p, plan.shapes[name], plan.param_dims[name])
+        out[f"params/{name}"] = (p, plan.shapes[name], plan.param_dims[name],
+                                 ps)
     if engine._mixed:
         for name, m in engine.master_state_dict().items():
             out[f"master/{name}"] = (m, plan.shapes[name],
-                                     plan.master_dims[name])
+                                     plan.master_dims[name], ss)
     for key, (t, name) in opt_entries(engine).items():
-        out[key] = ((t, (), None) if name is None
-                    else (t, plan.shapes[name], plan.master_dims[name]))
+        out[key] = ((t, (), None, None) if name is None
+                    else (t, plan.shapes[name], plan.master_dims[name], ss))
     for field, t in zip(_LOSS_SCALE, engine._loss_scale):
-        out[f"loss_scale/{field}"] = (t, (), None)
+        out[f"loss_scale/{field}"] = (t, (), None, None)
     return out
+
+
+def _writes(engine, split) -> bool:
+    """Whether this rank writes its piece over ``split``: the lowest rank
+    holding that piece."""
+    topo = engine.topology
+    return topo.first_rank(split.axes, split.index) == topo.rank
 
 
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
@@ -123,18 +136,28 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     ce = _ckpt_engine(engine)
     ce.create(tag)
     ce.makedirs(os.path.join(path, "state"))
-    rank, world = engine.dp_rank, engine.plan.world
+    topo = engine.topology
+    rank = topo.rank
     entries = state_entries(engine)
-    mine = {k: t for k, (t, _, dim) in entries.items()
-            if dim is not None or rank == 0}
+    mine = {k: t for k, (t, _, dim, split) in entries.items()
+            if (rank == 0 if dim is None else _writes(engine, split))}
+
+    def layout(dim, split):
+        if dim is None:
+            return {"dim": None}
+        return {"dim": dim, "world": split.world,
+                "ranks": [topo.first_rank(split.axes, i)
+                          for i in range(split.world)]}
+
     if rank == 0:
-        index = {"format": FORMAT, "world": world,
+        index = {"format": FORMAT, "world": engine.state_split.world,
                  "zero_stage": engine.zero_stage,
                  "compute_dtype": _NP_NAMES[engine.compute_dtype],
                  "entries": {k: {"shape": list(shape),
                                  "dtype": str(t.dtype).removeprefix(
-                                     "torch."), "dim": dim}
-                             for k, (t, shape, dim) in entries.items()}}
+                                     "torch."), **layout(dim, split)}
+                             for k, (t, shape, dim, split)
+                             in entries.items()}}
         with open(os.path.join(path, "state", INDEX_FILE), "w") as f:
             json.dump(index, f)
         meta = {
@@ -147,8 +170,10 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         }
         with open(os.path.join(path, "ds_meta.json"), "w") as f:
             json.dump(meta, f)
-    ce.save(mine, os.path.join(path, "state", rank_file(rank)),
-            {"format": "pt", "rank": str(rank), "world": str(world)})
+    if mine:
+        ce.save(mine, os.path.join(path, "state", rank_file(rank)),
+                {"format": "pt", "rank": str(rank),
+                 "world": str(topo.world)})
     if save_latest:
         # the latest pointer must only name written checkpoints: sync
         # engines write it now, async engines defer to commit()/next save
@@ -239,9 +264,9 @@ def restore_state(engine, ckpt, groups) -> None:
     the engine, each cut to this rank's piece of the engine's plan. Names
     and shapes must be the engine's; the master, where the checkpoint has
     none (an fp32 run), is the parameters."""
-    plan, world, rank = engine.plan, engine.plan.world, engine.dp_rank
+    plan = engine.plan
     want = state_entries(engine)
-    for key, (_, shape, _) in want.items():
+    for key, (_, shape, _, _) in want.items():
         if key.split("/")[0] not in groups:
             continue
         if key.startswith("master/") and key not in ckpt:
@@ -256,7 +281,9 @@ def restore_state(engine, ckpt, groups) -> None:
                              f"{tuple(shape)} in the engine")
 
     def piece(key):
-        return lambda dim: ckpt.piece(key, world, rank, dim)
+        return lambda dim, split: ckpt.piece(
+            key, split.world if split else 1, split.index if split else 0,
+            dim)
 
     if "params" in groups:
         for name in plan.shapes:
@@ -273,28 +300,36 @@ def restore_state(engine, ckpt, groups) -> None:
             t.clone().copy_(ckpt.full(f"loss_scale/{f}"))
             for f, t in zip(_LOSS_SCALE, engine._loss_scale)))
     if "opt_state" in groups:
+        ss = engine.state_split
         for key, (t, name) in opt_entries(engine).items():
             dim = None if name is None else plan.master_dims[name]
-            t.copy_(ckpt.piece(key, world, rank, dim))
+            t.copy_(ckpt.piece(key, ss.world, ss.index, dim))
 
 
 @torch.no_grad()
 def put_param(engine, name: str, get) -> None:
-    """Set parameter ``name`` from ``get(dim)``, the value's piece for
-    this rank when the ranks split it on ``dim`` (None: the whole value),
-    in any dtype: the compute-dtype view the optimizer writes (this rank's
-    master-layout piece; in fp32 it is the master) and, where stages 1-2
-    replicate a split leaf, the full replica the model reads."""
-    engine._compute_views[name].copy_(get(engine.plan.master_dims[name]))
+    """Set parameter ``name`` from ``get(dim, split)``, the value's piece
+    for this rank when the ranks of ``split`` split it on ``dim`` (None:
+    the whole value), in any dtype: the compute-dtype view the optimizer
+    writes (this rank's master-layout piece; in fp32 it is the master),
+    where stages 1-2 replicate a split leaf the full replica the model
+    reads, and under hpZ the parameter shard in its own layout."""
+    plan = engine.plan
+    engine._compute_views[name].copy_(get(plan.master_dims[name],
+                                          engine.state_split))
     if name in engine._replica_views:
-        engine._replica_views[name].copy_(get(None))
+        engine._replica_views[name].copy_(get(None, None))
+    if name in engine._param_shard_views:
+        engine._param_shard_views[name].copy_(get(plan.param_dims[name],
+                                                  engine.param_split))
 
 
 @torch.no_grad()
 def put_master(engine, name: str, get) -> None:
     """Set this rank's piece of the fp32 master of ``name`` (see
     :func:`put_param`)."""
-    engine.master_state_dict()[name].copy_(get(engine.plan.master_dims[name]))
+    engine.master_state_dict()[name].copy_(get(engine.plan.master_dims[name],
+                                               engine.state_split))
 
 
 def save_16bit_model(engine, save_dir: str,

@@ -10,7 +10,9 @@ Every other block the JAX config declares is accepted by name at its JAX
 defaults (``UNPORTED``); a key set away from its default is a feature the
 port does not have yet and raises ``NotImplementedError`` naming its
 ROADMAP slice. ``mesh`` also takes the
-pure sharded-DP meshes over ranks (``parallel/mesh.py``). An unknown key raises
+data-parallel meshes over ranks (``parallel/mesh.py``: dp, fsdp and zps in
+any mix; :meth:`DeepSpeedConfig.topology_config` carves the zps axis of
+hpZ and MiCS out of fsdp as the JAX engine does). An unknown key raises
 ``ValueError``, as everywhere in the port. ``prescale_gradients``,
 ``gradient_predivide_factor``, ``memory_breakdown``, ``dump_state`` and
 ``fp16.auto_cast`` are accepted and, as in the JAX engine, read by nothing.
@@ -28,7 +30,7 @@ from typing import Any, Optional
 import torch
 
 from ..moe.sharded_moe import EP_UNPORTED, TELEMETRY_UNPORTED
-from ..parallel.mesh import check_ported
+from ..parallel.mesh import TopologyConfig, check_ported
 from .config_utils import DeepSpeedConfigModel
 
 _field = dataclasses.field
@@ -253,8 +255,8 @@ def check_unported_block(name: str, block: dict) -> None:
         raise ValueError(f"{name}: unknown config key(s) {unknown}; the JAX "
                          f"package declares {sorted(defaults)}")
     if name == "mesh":
-        # the pure sharded-DP meshes over ranks: fsdp (-1 absorbs the
-        # world) or dp, not both, every other axis 1 (parallel/mesh.py)
+        # the data-parallel meshes over ranks: dp, fsdp (-1 absorbs the
+        # world) and zps, every other axis 1 (parallel/mesh.py)
         if given.get("dcn"):
             raise NotImplementedError(
                 f"mesh.dcn {given['dcn']} is not ported yet (ROADMAP: port "
@@ -430,6 +432,32 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
         self.train_micro_batch_size_per_gpu = mb
         self.gradient_accumulation_steps = ga
         return tb, mb, ga
+
+    def topology_config(self) -> TopologyConfig:
+        """The mesh block as axis degrees, with ZeRO++ hpZ's or MiCS's
+        shard sub-group carved out of fsdp as the inner zps axis (JAX
+        ``runtime/engine.py:93-113``): ``zero_hpz_partition_size`` or
+        ``mics_shard_size`` > 1 sets zps where the block leaves it 1, and
+        an explicit fsdp is divided by it. ``mics_hierarchical_params_
+        gather`` is accepted and, as in JAX, changes nothing."""
+        mesh = TopologyConfig.from_mesh_block(self.mesh)
+        zero = self.zero_optimization
+        if zero.zero_hpz_partition_size > 1 and zero.mics_shard_size > 1:
+            raise ValueError(
+                "zero_hpz_partition_size and mics_shard_size are mutually "
+                "exclusive sharding modes; set only one")
+        sub = max(zero.zero_hpz_partition_size,
+                  zero.mics_shard_size if zero.mics_shard_size > 1 else 1)
+        if sub > 1 and mesh.zps == 1:
+            fsdp = mesh.fsdp
+            if fsdp not in (-1, 1):
+                if fsdp % sub != 0:
+                    raise ValueError(
+                        f"mesh.fsdp={fsdp} is not divisible by "
+                        f"zero_hpz_partition_size/mics_shard_size={sub}")
+                fsdp //= sub
+            mesh = dataclasses.replace(mesh, fsdp=fsdp, zps=sub)
+        return mesh
 
     @property
     def compute_dtype(self) -> torch.dtype:

@@ -40,21 +40,28 @@ An MoE model (``num_experts > 0``) trains on one card: the ``moe``
 block's ``capacity_factor`` / ``min_capacity`` are bound to it as the JAX
 engine binds them, and at W > 1 it is refused (:data:`MOE_ACROSS_RANKS`).
 
-Across ranks (``torch.distributed`` with world size W > 1, pure
-sharded-DP meshes, ``parallel/mesh.py``) the buffers hold this rank's
+Across ranks (``torch.distributed`` with world size W > 1; the
+data-parallel meshes of ``parallel/mesh.py``: dp x fsdp x zps, the zps
+axis carved out of fsdp by hpZ or MiCS) the buffers hold this rank's
 shards of the ZeRO plan (``runtime/zero.py``: the master and optimizer
-state at stage >= 1, the grads at stage >= 2, the compute-dtype params
-at stage 3), split leaves first. Micro-batch i is rows [i*mb, (i+1)*mb)
-of the batch and rank r takes its contiguous 1/W of it. At stage 3 each
-micro-batch gathers the full params (the ZeRO++ qwZ wire or exact,
-``runtime/zeropp.py``) into temporaries that the model's parameters view
-until its backward, which reduces the fp32 grads into this rank's grad
-shards (qgZ or exact) as stage 2 does; at stage < 2 a rank accumulates
-its full local grads and reduces them once at the gradient-accumulation
-boundary, as the JAX triple defers them (``_defer_grads_ok``). The
-global grad norm all-reduces the split leaves' sum of squares and counts
-each replicated leaf once; after the update, stages 1-2 all-gather the
-new compute-dtype shards into the replicated parameters.
+state at stage >= 1, the grads at stage >= 2, split over the state's
+group; the compute-dtype params at stage 3, over the parameters' group),
+split leaves first. Micro-batch i is rows [i*mb, (i+1)*mb) of the batch
+and rank r takes its contiguous 1/W of it, W the batch ranks and r its
+index over them. At stage 3 each micro-batch gathers the full params (the
+ZeRO++ qwZ wire or exact, one hop or two, ``runtime/zeropp.py``) into
+temporaries that the model's parameters view until its backward, which
+reduces the fp32 grads into this rank's grad shards (qgZ or exact) as
+stage 2 does, and all-reduces them over the batch ranks that hold the
+same shard (dp replicas, and fsdp under MiCS); at stage < 2 a rank
+accumulates its full local grads and reduces them once at the
+gradient-accumulation boundary, as the JAX triple defers them
+(``_defer_grads_ok``). The global grad norm all-reduces the split
+leaves' sum of squares over the state's group alone (the replicas hold
+the same shards) and counts each replicated leaf once; after the update,
+a leaf whose parameters are not split as its master (stages 1-2, and
+hpZ's parameters over zps alone) takes the new compute-dtype shards by
+an all-gather over the state's group.
 
 The loss across ranks follows the JAX step's wire. On the exact wire JAX
 differentiates the mean over every valid target of the global
@@ -69,6 +76,7 @@ loss a rank returns is the global one.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -77,16 +85,17 @@ from ..comm import comm
 from ..models.adapters import LOSS_FN_ACROSS_RANKS, wrap_model
 from ..models.convert import flatten_tree, materialize
 from ..models.transformer import check_training_options
-from ..parallel.mesh import Topology, TopologyConfig
+from ..parallel.mesh import BATCH_AXES, Topology, live_axes, set_topology
 from ..utils import groups
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
 from ..utils.timer import ThroughputTimer
 from .config import DeepSpeedConfig
 from .loss_scaler import grads_finite, init_loss_scale, update_loss_scale
 from .lr_schedules import LRSchedulerShim, build_schedule
 from .optimizers import build_optimizer
 from .zero import ZeroPlan, ZeroShardingPlan
-from .zeropp import gather_params, reduce_grads
+from .zeropp import (gather_params, hierarchical_allgather_unsupported_reason,
+                     reduce_grads)
 
 # JAX gates an MoE batch over the global batch (SPMD sees one array): ranks
 # that each gated their own rows would size capacity on a different token
@@ -115,6 +124,35 @@ def _views(buf: torch.Tensor, layout: dict) -> dict[str, torch.Tensor]:
     return {n: buf[o:o + k].view(s) for n, (o, k, s) in layout.items()}
 
 
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a tree's split dims are spread: the live mesh ``axes``, their
+    rank count ``world``, this rank's ``index`` over them (its chunk) and
+    its process ``group`` over them."""
+
+    axes: tuple
+    world: int
+    index: int
+    group: object
+
+    @classmethod
+    def over(cls, topology: Topology, axes) -> "Split":
+        axes = live_axes(axes, topology.sizes)
+        return cls(axes, topology.axis_size(axes),
+                   topology.axis_index(axes),
+                   groups.axis_group(axes, topology))
+
+    @property
+    def layout(self) -> tuple:
+        return self.axes, self.world, self.index
+
+    def own(self, full: torch.Tensor, dim) -> torch.Tensor:
+        """This rank's chunk of ``full`` along ``dim`` (None: all of it)."""
+        if dim is None:
+            return full
+        return full.chunk(self.world, dim)[self.index]
+
+
 class DeepSpeedEngine:
     """Eager training engine over one device per rank."""
 
@@ -135,12 +173,14 @@ class DeepSpeedEngine:
                 "ported yet (ROADMAP: port Queue 1, Slice F (dataloader.py))"
                 "; pass batches to train_batch")
         self.config = DeepSpeedConfig.from_any(config)
-        self.group = groups.get_data_parallel_group()
-        self.topology = Topology(
-            TopologyConfig.from_mesh_block(self.config.mesh),
-            comm.get_world_size(self.group))
+        self.topology = Topology(self.config.topology_config(),
+                                 comm.get_world_size(), comm.get_rank())
+        set_topology(self.topology)
+        # every batch rank: the loss all-reduces, the finite check, the
+        # checkpoint's barriers
+        self.group = groups.axis_group(BATCH_AXES, self.topology)
         self.dp_world = self.topology.data_parallel_size
-        self.dp_rank = comm.get_rank(self.group)
+        self.dp_rank = self.topology.axis_index(BATCH_AXES)
         if hasattr(model, "frozen") and self.dp_world > 1:
             raise NotImplementedError(
                 "a LoRAModel across ranks: JAX shards its frozen base over "
@@ -153,6 +193,18 @@ class DeepSpeedEngine:
             raise NotImplementedError(MOE_ACROSS_RANKS)
         self.zero = ZeroPlan(self.config.zero_optimization)
         self.zero_stage = self.zero.stage
+        if self.zero.hierarchical:
+            why = hierarchical_allgather_unsupported_reason(
+                self.topology.sizes, hpz=self.zero.hpz, mics=self.zero.mics)
+            if why is not None:
+                raise ValueError(why)
+        if self.zero.explicit_wire and self.zero.wire_dtype == "fp8" \
+                and self.zero.rounding == "stochastic":
+            logger.warning(
+                "zero_quantized_dtype=fp8 rounds via the native float8 "
+                "cast; zero_quantized_rounding=stochastic (the default) "
+                "has no effect on the fp8 wire — set the int8 wire for "
+                "stochastic gradient rounding")
         (self.train_batch_size_, self.micro_batch_size_,
          self.gradient_accumulation_steps_) = \
             self.config.resolve_batch_sizes(self.dp_world)
@@ -244,12 +296,25 @@ class DeepSpeedEngine:
         and stage 3's the gathered temporaries of each micro-batch."""
         params = self.module.params
         dev = self.device
+        topo = self.topology
         plan = ZeroShardingPlan(
-            self.zero_stage, self.topology.fsdp_size,
-            {n: tuple(p.shape) for n, p in params.items()})
+            self.zero_stage, topo.fsdp_size,
+            {n: tuple(p.shape) for n, p in params.items()},
+            inner=topo.sizes["zps"], hpz=self.zero.hpz, mics=self.zero.mics)
         self.plan = plan
+        # the groups every rank makes, in this order
+        self.state_split = Split.over(topo, plan.state_axes)
+        self.param_split = Split.over(topo, plan.param_axes)
+        rest = [a for a in BATCH_AXES if a not in self.state_split.axes]
+        self._rest_group = (groups.axis_group(rest, topo)
+                            if topo.axis_size(rest) > 1 else None)
+        # the two-hop wire's outer and inner hops (initialize checked that
+        # the parameters split over fsdp x zps, both > 1)
+        self._hierarchy = ((groups.axis_group(("fsdp",), topo),
+                            groups.axis_group(("zps",), topo))
+                           if self.zero.hierarchical else None)
         split = [n for n in params if plan.master_dims[n] is not None]
-        shards = {n: plan.shard_shape(n, plan.master_dims[n])
+        shards = {n: plan.state_shard_shape(n)
                   for n in split + [n for n in params if n not in split]}
         layout, total = _flat_layout(shards)
         self._layout = layout
@@ -282,17 +347,32 @@ class DeepSpeedEngine:
             cviews = _views(compute, layout)
         else:
             compute, cviews = None, views
+        # parameters split as their master read its compute view; the
+        # others are refreshed from it after each step: whole where the
+        # parameter is not split (stages 1-2), else in the parameters'
+        # own layout (hpZ: over zps alone, on a dim of its own)
+        own_layout = {n for n in params if plan.param_dims[n] is not None
+                      and (plan.param_dims[n], self.param_split.layout)
+                      == (plan.master_dims[n], self.state_split.layout)}
         replicated = {n: plan.shapes[n] for n in split
-                      if plan.param_dims[n] is None}       # stages 1-2
-        rlayout, rtotal = _flat_layout(replicated)
+                      if plan.param_dims[n] is None}
+        resharded = {n: plan.param_shard_shape(n) for n in params
+                     if plan.param_dims[n] is not None
+                     and n not in own_layout}
+        rlayout, rtotal = _flat_layout({**replicated, **resharded})
         self._replicas = torch.empty(rtotal, dtype=self.compute_dtype,
                                      device=dev)
-        self._replica_views = _views(self._replicas, rlayout)
+        replica_views = _views(self._replicas, rlayout)
+        self._replica_views = {n: replica_views[n] for n in replicated}
+        self._param_shard_views = {n: replica_views[n] for n in resharded}
         for name, p in params.items():
             if name in replicated:
                 self._replica_views[name].copy_(full[name])
                 p.data = self._replica_views[name]
             elif plan.param_dims[name] is not None:        # stage 3
+                if name in resharded:
+                    self._param_shard_views[name].copy_(self.param_split.own(
+                        full[name], plan.param_dims[name]))
                 p.data = self._released()
             else:
                 p.data = cviews[name]
@@ -318,10 +398,23 @@ class DeepSpeedEngine:
         self._loss_scale = init_loss_scale(self.config.fp16, device=dev)
 
     def _own(self, full: torch.Tensor, dim) -> torch.Tensor:
-        """This rank's chunk of ``full`` along ``dim`` (None: all of it)."""
+        """This rank's chunk of ``full`` along ``dim`` (None: all of it) in
+        the master's layout."""
+        return self.state_split.own(full, dim)
+
+    def _gather_state(self, piece: torch.Tensor, dim) -> torch.Tensor:
+        """A master-layout piece in full, gathered over the state's group
+        (a collective: every rank calls it)."""
         if dim is None:
-            return full
-        return full.chunk(self.topology.fsdp_size, dim)[self.dp_rank]
+            return piece
+        return comm.all_gather(piece, group=self.state_split.group, axis=dim)
+
+    def _param_shards(self) -> dict[str, torch.Tensor]:
+        """Stage 3's split parameters: this rank's compute-dtype shard of
+        each, in the parameters' layout."""
+        dims = self.plan.param_dims
+        return {n: self._param_shard_views.get(n, self._compute_views[n])
+                for n in dims if dims[n] is not None}
 
     def _released(self) -> torch.Tensor:
         return torch.empty(0, dtype=self.compute_dtype, device=self.device)
@@ -330,14 +423,15 @@ class DeepSpeedEngine:
     def _gathered(self, use_kernel=None) -> dict[str, torch.Tensor]:
         """Stage 3's split parameters in full (compute dtype), gathered
         from every rank's shards over the qwZ or the exact wire."""
-        dims = self.plan.param_dims
-        shards = {n: self._compute_views[n] for n in dims
-                  if dims[n] is not None}
+        shards = self._param_shards()
         if not shards:
             return {}
-        return gather_params(shards, dims,
+        return gather_params(shards, self.plan.param_dims,
                              quantize_weights=self.zero.quantize_weights,
-                             group=self.group, use_kernel=use_kernel)
+                             group=self.param_split.group,
+                             use_kernel=use_kernel,
+                             wire_dtype=self.zero.wire_dtype,
+                             hierarchy=self._hierarchy)
 
     def _gather(self) -> None:
         for name, full in self._gathered().items():
@@ -350,20 +444,28 @@ class DeepSpeedEngine:
             if dim is not None:
                 self.module.params[name].data = self._released()
 
-    def _reduce(self, grads: dict, dims: dict, quantized: bool) -> dict:
+    def _reduce(self, grads: dict, dims: dict, quantized: bool,
+                use_kernel=None, rounding=None) -> dict:
         return reduce_grads(grads, dims, n_batch=self.dp_world,
                             quantize_gradients=quantized,
-                            rounding=self.zero.rounding,
-                            step=self.global_steps, group=self.group,
-                            mean=self._per_rank_mean)
+                            rounding=rounding or self.zero.rounding,
+                            step=self.global_steps,
+                            group=self.state_split.group,
+                            use_kernel=use_kernel,
+                            mean=self._per_rank_mean,
+                            wire_dtype=self.zero.wire_dtype,
+                            hierarchy=self._hierarchy,
+                            batch_group=self.group,
+                            rest_group=self._rest_group)
 
     @property
     def _per_rank_mean(self) -> bool:
-        """The ZeRO++ wire: each rank's loss is the mean over its own rows,
-        and the grads are averaged over the ranks (JAX ``pmean``s the
-        per-shard means there); the exact wire weights each rank by the
-        global count of valid targets instead."""
-        return self.zero.quantize_weights or self.zero.quantize_gradients
+        """The ZeRO++ wire (qwZ, qgZ or the two-hop collectives): each
+        rank's loss is the mean over its own rows, and the grads are
+        averaged over the ranks (JAX ``pmean``s the per-shard means
+        there); the exact wire weights each rank by the global count of
+        valid targets instead."""
+        return self.zero.explicit_wire
 
     def _local_rows(self, batch):
         """This rank's contiguous 1/W of the rows of every array."""
@@ -507,12 +609,13 @@ class DeepSpeedEngine:
 
     def _grad_norm(self) -> torch.Tensor:
         """The global norm: the split leaves' squares summed over the
-        ranks, each replicated leaf counted once."""
+        state's group, whose ranks hold distinct shards (dp and MiCS
+        replicas hold the same ones), each replicated leaf counted once."""
         grads, k = self._grads, self._split_end
         if k == 0:
             return torch.linalg.vector_norm(grads)
         sq = comm.all_reduce(torch.linalg.vector_norm(grads[:k]).square(),
-                             group=self.group)
+                             group=self.state_split.group)
         return (sq + torch.linalg.vector_norm(grads[k:]).square()).sqrt()
 
     def _all_finite(self) -> torch.Tensor:
@@ -523,12 +626,18 @@ class DeepSpeedEngine:
         return flag.bool()
 
     def _refresh_replicas(self) -> None:
-        """Stages 1-2: the new compute-dtype shards of the split leaves,
-        all-gathered into the replicated parameters."""
+        """The parameters not split as their master, from the new
+        compute-dtype master shards: stages 1-2's replicated leaves
+        all-gathered over the state's group, and hpZ's parameter shards
+        resharded (gathered whole, then this rank's chunk over zps)."""
         dims = self.plan.master_dims
         for name, full in self._replica_views.items():
-            full.copy_(comm.all_gather(self._compute_views[name],
-                                       group=self.group, axis=dims[name]))
+            full.copy_(self._gather_state(self._compute_views[name],
+                                          dims[name]))
+        for name, shard in self._param_shard_views.items():
+            shard.copy_(self.param_split.own(
+                self._gather_state(self._compute_views[name], dims[name]),
+                self.plan.param_dims[name]))
 
     # ------------------------------------------------------------------
     # public API (reference parity)
@@ -683,9 +792,8 @@ class DeepSpeedEngine:
     def module_state_dict(self):
         """The compute-dtype parameters by name (the JAX state's params);
         at ZeRO-3 across ranks a split leaf is this rank's shard."""
-        dims = self.plan.param_dims
-        return {n: (self._compute_views[n] if dims[n] is not None
-                    else p.detach())
+        shards = self._param_shards()
+        return {n: shards.get(n, p.detach())
                 for n, p in self.module.params.items()}
 
     def gathered_params(self, use_kernel=None):
@@ -726,8 +834,7 @@ class DeepSpeedEngine:
         """The full fp32 master by name, every shard all-gathered (every
         rank must call it)."""
         dims = self.plan.master_dims
-        return {n: comm.all_gather(v, group=self.group, axis=dims[n])
-                if dims[n] is not None else v
+        return {n: self._gather_state(v, dims[n])
                 for n, v in self.master_state_dict().items()}
 
 

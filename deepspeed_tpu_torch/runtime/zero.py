@@ -1,20 +1,26 @@
 """ZeRO as a sharding plan (counterpart of ``deepspeed_tpu/runtime/zero.py``;
 reference: deepspeed/runtime/zero/).
 
-The JAX ``ZeroShardingPlan`` puts the fsdp mesh axis on each leaf's
+The JAX ``ZeroShardingPlan`` puts the sharded-DP mesh axes on each leaf's
 largest still-unsharded divisible dim (``overlay_axis``): the fp32 master
 and the optimizer state at stage >= 1, the gradients at stage >= 2, the
 parameters at stage 3. The port keeps that plan as one split dim (or
-None) per leaf and stage, over the fsdp ranks of the world
-(``parallel/mesh.py``): a leaf is split only when the fsdp size W > 1 and
-it has at least 2048 elements, on its largest dim that W divides (the
-first such dim on ties, as Python's ``max``). At W = 1 nothing is split,
-so every stage, and the ZeRO++ wire, computes what stage 0 does.
+None) per leaf and tree, with the mesh axes and the rank count that dim
+is split over (``parallel/mesh.py``): a leaf is split only when that
+count W > 1 and it has at least 2048 elements, on its largest dim that W
+divides (the first such dim on ties, as Python's ``max``). At W = 1
+nothing is split, so every stage, and the ZeRO++ wire, computes what
+stage 0 does.
 
-``ZeroPlan`` reads the ``zero_optimization`` block and refuses what is not
-ported: hpZ, MiCS, the hierarchical two-hop wire, the fp8 wire and
-offload, each naming its ROADMAP item. ZeRO-3 with ``offload_param`` is
-the JAX package's layer-streamed engine (``deepspeed_tpu/__init__.py:73``).
+The axis sets are JAX's (``runtime/zero.py:129-159``): fsdp x zps for
+every tree by default; under **hpZ** the parameters over zps alone (a
+secondary partition replicated across fsdp) and the rest over fsdp x zps;
+under **MiCS** every tree over zps alone. Each axis set splits on its own
+dim, so under hpZ a leaf's parameter dim and its master dim may differ.
+
+``ZeroPlan`` reads the ``zero_optimization`` block and refuses offload,
+naming its ROADMAP item. ZeRO-3 with ``offload_param`` is the JAX
+package's layer-streamed engine (``deepspeed_tpu/__init__.py:73``).
 """
 
 from __future__ import annotations
@@ -22,8 +28,9 @@ from __future__ import annotations
 from .config import ZeroConfig
 
 MIN_SPLIT = 2 ** 11    # JAX overlay_axis min_size
+FULL_AXES = ("fsdp", "zps")
+INNER_AXES = ("zps",)
 
-_SLICE_D = "port Queue 1, Slice D item 11"
 _SLICE_E = "port Queue 1, Slice E (memory tiers)"
 
 
@@ -34,8 +41,6 @@ class ZeroPlan:
         if config.stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_optimization.stage {config.stage} "
                              f"(0-3)")
-        quantized = (config.zero_quantized_weights
-                     or config.zero_quantized_gradients)
         if config.zero_quantized_dtype not in ("int8", "fp8"):
             raise ValueError(f"zero_quantized_dtype "
                              f"{config.zero_quantized_dtype!r}: int8 or fp8")
@@ -43,19 +48,6 @@ class ZeroPlan:
             raise ValueError(f"zero_quantized_rounding "
                              f"{config.zero_quantized_rounding!r}: nearest "
                              f"or stochastic")
-        unported = {
-            "zero_hpz_partition_size > 1 (hpZ)":
-                config.zero_hpz_partition_size > 1,
-            "mics_shard_size > 1 (MiCS)": config.mics_shard_size > 1,
-            "zero_hierarchical_allgather (the two-hop wire)":
-                config.zero_hierarchical_allgather,
-            "zero_quantized_dtype=fp8 (the fp8 wire, ops/fp_quant.py)":
-                quantized and config.zero_quantized_dtype == "fp8",
-        }
-        for what, on in unported.items():
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP: {_SLICE_D})")
         if config.stage == 3 and config.offload_param.device != "none":
             raise NotImplementedError(
                 "ZeRO-3 with offload_param (the layer-streamed engine) is "
@@ -70,6 +62,18 @@ class ZeroPlan:
         self.quantize_weights = config.zero_quantized_weights
         self.quantize_gradients = config.zero_quantized_gradients
         self.rounding = config.zero_quantized_rounding
+        self.wire_dtype = config.zero_quantized_dtype
+        self.hierarchical = config.zero_hierarchical_allgather
+        self.hpz = config.zero_hpz_partition_size > 1
+        self.mics = config.mics_shard_size > 1
+
+    @property
+    def explicit_wire(self) -> bool:
+        """The ZeRO++ wire (qwZ, qgZ or the two-hop collectives): JAX
+        computes the step in shard_map form then, each rank's loss the mean
+        over its own rows (``runtime/engine.py`` ``_make_grad_fn``)."""
+        return (self.quantize_weights or self.quantize_gradients
+                or self.hierarchical)
 
 
 def overlay_dim(shape, world: int, min_size: int = MIN_SPLIT) -> int | None:
@@ -87,26 +91,53 @@ def overlay_dim(shape, world: int, min_size: int = MIN_SPLIT) -> int | None:
 
 
 class ZeroShardingPlan:
-    """Per leaf, the dim split over the ``world`` fsdp ranks, or None, for
-    the parameters (``param_dims``, stage 3), the gradients (``grad_dims``,
-    stage >= 2) and the fp32 master and optimizer state (``master_dims``,
-    stage >= 1). ``shapes`` maps leaf names to full shapes."""
+    """Per leaf, the dim split over the ranks of its tree's axis set, or
+    None, for the parameters (``param_dims``, stage 3), the gradients
+    (``grad_dims``, stage >= 2) and the fp32 master and optimizer state
+    (``master_dims``, stage >= 1); ``param_axes`` / ``state_axes`` and
+    ``param_world`` / ``state_world`` name the mesh axes and the rank count
+    of each (the gradients and the master take the state's). ``world`` is
+    the full sharded-DP extent (fsdp x zps), ``inner`` its zps part;
+    ``shapes`` maps leaf names to full shapes."""
 
-    def __init__(self, stage: int, world: int, shapes: dict):
+    def __init__(self, stage: int, world: int, shapes: dict, *,
+                 inner: int = 1, hpz: bool = False, mics: bool = False):
         if stage not in (0, 1, 2, 3):
             raise ValueError(f"ZeRO stage must be 0-3, got {stage}")
+        if (hpz or mics) and inner <= 1:
+            raise ValueError(
+                "hpZ/MiCS need the mesh's zps axis > 1 (set "
+                "zero_hpz_partition_size / mics_shard_size in the config)")
         self.stage = stage
         self.world = world
         self.shapes = {n: tuple(s) for n, s in shapes.items()}
-        dims = {n: overlay_dim(s, world) for n, s in self.shapes.items()}
-        none = dict.fromkeys(dims)
-        self.param_dims = dims if stage >= 3 else none
-        self.grad_dims = dims if stage >= 2 else none
-        self.master_dims = dims if stage >= 1 else none
+        self.param_axes = INNER_AXES if hpz or mics else FULL_AXES
+        self.state_axes = INNER_AXES if mics else FULL_AXES
+        self.param_world = inner if hpz or mics else world
+        self.state_world = inner if mics else world
+        state = {n: overlay_dim(s, self.state_world)
+                 for n, s in self.shapes.items()}
+        param = (state if self.param_world == self.state_world else
+                 {n: overlay_dim(s, self.param_world)
+                  for n, s in self.shapes.items()})
+        none = dict.fromkeys(state)
+        self.param_dims = param if stage >= 3 else none
+        self.grad_dims = state if stage >= 2 else self.param_dims
+        self.master_dims = state if stage >= 1 else self.param_dims
 
-    def shard_shape(self, name: str, dim: int | None) -> tuple[int, ...]:
-        """The shape this rank holds of leaf ``name`` split on ``dim``."""
+    def shard_shape(self, name: str, dim: int | None,
+                    world: int | None = None) -> tuple[int, ...]:
+        """The shape a rank holds of leaf ``name`` split on ``dim`` over
+        ``world`` ranks (default: :attr:`world`)."""
         shape = list(self.shapes[name])
         if dim is not None:
-            shape[dim] //= self.world
+            shape[dim] //= self.world if world is None else world
         return tuple(shape)
+
+    def param_shard_shape(self, name: str) -> tuple[int, ...]:
+        return self.shard_shape(name, self.param_dims[name],
+                                self.param_world)
+
+    def state_shard_shape(self, name: str) -> tuple[int, ...]:
+        return self.shard_shape(name, self.master_dims[name],
+                                self.state_world)

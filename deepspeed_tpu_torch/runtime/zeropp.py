@@ -5,26 +5,32 @@ CUDAQuantizer for qwZ, coalesced_collectives.py:31 for qgZ).
 The JAX package writes the step in explicit-SPMD form inside
 ``shard_map`` so that its weight all-gathers and gradient reduce-scatters
 are its own collectives; the port's engine calls the same two halves
-eagerly on ``torch.distributed``:
+eagerly on ``torch.distributed`` process groups (``utils/groups.py``):
 
-- :func:`gather_params`: each parameter split over the fsdp ranks is
-  reassembled from the ranks' shards, at int8 width (qwZ,
+- :func:`gather_params`: each parameter split over the parameter group is
+  reassembled from the ranks' shards, at int8 or fp8 width (qwZ,
   ``ops/quantization.quantized_all_gather``) for a shard of at least
   ``MIN_QUANT_SIZE`` elements when ``zero_quantized_weights`` is on, else
-  exactly (``comm.all_gather``);
-- :func:`reduce_grads`: each full-size local fp32 gradient with a split dim
-  is reduce-scattered to this rank's shard, at int8 width (qgZ,
-  ``runtime/comm/coalesced_collectives.quantized_reduce_scatter``) for a
-  gradient of at least ``4 * MIN_QUANT_SIZE`` elements when
-  ``zero_quantized_gradients`` is on, else exactly; a leaf with no split
-  dim is all-reduced over the batch ranks. With ``mean`` every gradient is
+  exactly (``comm.all_gather``). On the two-hop wire
+  (``zero_hierarchical_allgather``, a dim split over fsdp x zps) the inner
+  zps hop gathers at full precision and the outer fsdp hop carries the
+  inner-gathered tensor, quantized under qwZ (:func:`hierarchical_all_
+  gather`).
+- :func:`reduce_grads`: each full-size local fp32 gradient with a split
+  dim is reduce-scattered to this rank's shard over the shard group, at
+  int8 or fp8 width (qgZ, ``runtime/comm/coalesced_collectives``; the
+  two-hop form on the hierarchical wire) for a gradient of at least
+  ``4 * MIN_QUANT_SIZE`` elements when ``zero_quantized_gradients`` is on,
+  else exactly; then all-reduced over the batch ranks that do not shard it
+  (dp on a mixed mesh; fsdp and dp under MiCS). A leaf with no split dim
+  is all-reduced over every batch rank. With ``mean`` every gradient is
   then divided by the number of batch ranks: on the ZeRO++ wire each
   rank's loss is the mean over its own rows, as JAX ``pmean``s the
   per-shard means there (``runtime/zeropp.py:213-236``). On the exact
   wire each rank's loss is its NLL sum over the global count of valid
   targets, JAX's mean over the global batch, and the sum is the answer.
 
-The wire applies to the pure sharded-DP meshes (tp = sp = pp = ep = 1),
+The wire applies to the data-parallel meshes (tp = sp = pp = ep = 1),
 the only ones the port runs (``parallel/mesh.py``).
 """
 
@@ -36,65 +42,146 @@ import torch
 
 from ..comm import comm
 from ..ops.quantization import quantized_all_gather
-from .comm.coalesced_collectives import (quantized_reduce_scatter,
-                                         wire_generator)
+from .comm.coalesced_collectives import (
+    HOP1_SALT, HOP2_SALT, hierarchical_quantized_reduce_scatter,
+    quantized_reduce_scatter, wire_generator)
 
 # leaves smaller than this skip quantization: scales and padding are not
 # worth it (JAX zeropp.py:64)
 MIN_QUANT_SIZE = 2 ** 12
+def hierarchical_all_gather(x: torch.Tensor, dim: int, outer_group,
+                            inner_group, quantized: bool = False,
+                            wire_dtype: str = "int8",
+                            use_kernel=None) -> torch.Tensor:
+    """Two-hop weight all-gather: over ``inner_group`` at full precision,
+    then over ``outer_group``, quantized under qwZ. At full precision it
+    is the one-hop gather bit for bit: the chunks stay outer-major,
+    inner-minor (JAX ``zeropp.py:107``)."""
+    x = comm.all_gather(x, group=inner_group, axis=dim)
+    if quantized:
+        return quantized_all_gather(x, dim, group=outer_group,
+                                    use_kernel=use_kernel,
+                                    wire_dtype=wire_dtype)
+    return comm.all_gather(x, group=outer_group, axis=dim)
 
 
 def _gather_param(x: torch.Tensor, dim: Optional[int], quantized: bool,
-                  group=None, use_kernel=None) -> torch.Tensor:
+                  group=None, use_kernel=None, wire_dtype: str = "int8",
+                  hierarchy=None) -> torch.Tensor:
     """The full parameter from this rank's shard ``x`` (split on ``dim``;
-    None: ``x`` is the whole parameter)."""
+    None: ``x`` is the whole parameter). ``hierarchy`` is (outer group,
+    inner group) on the two-hop wire."""
     if dim is None:
         return x
-    if quantized and x.numel() >= MIN_QUANT_SIZE:
+    quant = quantized and x.numel() >= MIN_QUANT_SIZE
+    if hierarchy is not None:
+        return hierarchical_all_gather(x, dim, *hierarchy, quantized=quant,
+                                       wire_dtype=wire_dtype,
+                                       use_kernel=use_kernel)
+    if quant:
         return quantized_all_gather(x, dim, group=group,
-                                    use_kernel=use_kernel)
+                                    use_kernel=use_kernel,
+                                    wire_dtype=wire_dtype)
     return comm.all_gather(x, group=group, axis=dim)
 
 
 def _reduce_grad(g: torch.Tensor, dim: Optional[int], n_batch: int,
                  quantized: bool, group=None, rounding: str = "nearest",
                  generator=None, use_kernel=None,
-                 mean: bool = True) -> torch.Tensor:
-    """This rank's fp32 shard (split on ``dim``) of the batch ranks' mean
-    (``mean``) or sum of the full-size local gradient ``g``."""
+                 mean: bool = True, wire_dtype: str = "int8",
+                 hierarchy=None, batch_group=None, rest_group=None
+                 ) -> torch.Tensor:
+    """This rank's fp32 shard (split on ``dim`` over ``group``) of the
+    batch ranks' mean (``mean``) or sum of the full-size local gradient
+    ``g``; ``batch_group`` holds every batch rank (default ``group``),
+    ``rest_group`` the batch ranks outside ``group`` (None: none). On the
+    two-hop wire (``hierarchy``) a quantized gradient takes both hops
+    (``generator`` then the hops' pair), an exact one the one-hop
+    reduce-scatter, as in JAX."""
     if dim is not None:
         if quantized and g.numel() >= MIN_QUANT_SIZE * 4:
-            g = quantized_reduce_scatter(
-                g, dim, group=group, rounding=rounding, generator=generator,
-                use_kernel=use_kernel, dtype=torch.float32)
+            if hierarchy is not None:
+                g = hierarchical_quantized_reduce_scatter(
+                    g, dim, *hierarchy, rounding=rounding,
+                    generators=generator or (None, None),
+                    use_kernel=use_kernel, dtype=torch.float32,
+                    wire_dtype=wire_dtype)
+            else:
+                g = quantized_reduce_scatter(
+                    g, dim, group=group, rounding=rounding,
+                    generator=generator, use_kernel=use_kernel,
+                    dtype=torch.float32, wire_dtype=wire_dtype)
         else:
             g = comm.reduce_scatter(g.float(), group=group, axis=dim)
+        if rest_group is not None:
+            g = comm.all_reduce(g.float().contiguous(), group=rest_group)
     elif n_batch > 1:
-        g = comm.all_reduce(g.float().clone(), group=group)
+        g = comm.all_reduce(g.float().clone(), group=(
+            group if batch_group is None else batch_group))
     return g.float() / n_batch if mean else g.float()
 
 
 def gather_params(shards: dict, dims: dict, *, quantize_weights: bool,
-                  group=None, use_kernel=None) -> dict:
+                  group=None, use_kernel=None, wire_dtype: str = "int8",
+                  hierarchy=None) -> dict:
     """name -> the full parameter, from this rank's shards and the plan's
-    ``dims`` (``ZeroShardingPlan.param_dims``)."""
+    ``dims`` (``ZeroShardingPlan.param_dims``) over ``group`` (or the
+    ``hierarchy``'s two hops)."""
     return {name: _gather_param(x, dims[name], quantize_weights, group,
-                                use_kernel)
+                                use_kernel, wire_dtype, hierarchy)
             for name, x in shards.items()}
 
 
 def reduce_grads(grads: dict, dims: dict, *, n_batch: int,
                  quantize_gradients: bool, rounding: str = "nearest",
                  step: int = 0, group=None, use_kernel=None,
-                 mean: bool = True) -> dict:
+                 mean: bool = True, wire_dtype: str = "int8",
+                 hierarchy=None, batch_group=None, rest_group=None) -> dict:
     """name -> this rank's fp32 gradient shard (``dims``:
-    ``ZeroShardingPlan.grad_dims``). Stochastic rounding draws from one
-    generator seeded from ``step`` and the rank, shared by the step's
-    leaves in order (JAX keys one draw per leaf on the same step)."""
+    ``ZeroShardingPlan.grad_dims``, split over ``group``). Stochastic
+    int8 rounding draws from one generator seeded from ``step`` and the
+    rank's index in ``group``, shared by the step's leaves in order (JAX
+    keys one draw per leaf on the same step); the two-hop wire draws each
+    hop from its own (JAX's salts 0x9c3 and 0x9c4)."""
     gen = None
-    if quantize_gradients and rounding == "stochastic":
-        first = next(iter(grads.values()))
-        gen = wire_generator(step, comm.get_rank(group), first.device)
+    if quantize_gradients and rounding == "stochastic" \
+            and wire_dtype == "int8" and grads:
+        device = next(iter(grads.values())).device
+        rank = comm.get_rank(group)
+        gen = (tuple(wire_generator(step, rank, device, salt)
+                     for salt in (HOP1_SALT, HOP2_SALT))
+               if hierarchy is not None
+               else wire_generator(step, rank, device))
     return {name: _reduce_grad(g, dims[name], n_batch, quantize_gradients,
-                               group, rounding, gen, use_kernel, mean)
+                               group, rounding, gen, use_kernel, mean,
+                               wire_dtype, hierarchy, batch_group,
+                               rest_group)
             for name, g in grads.items()}
+
+
+def hierarchical_allgather_unsupported_reason(
+        sizes: dict, hpz: bool = False, mics: bool = False) -> Optional[str]:
+    """None when the two-hop fsdp x zps collectives apply to a mesh of
+    axis ``sizes``, else the failing constraint (JAX ``zeropp.py:334``,
+    its messages)."""
+    zps = int(sizes.get("zps", 1))
+    fsdp = int(sizes.get("fsdp", 1))
+    if zps <= 1:
+        return ("zero_hierarchical_allgather requires the mesh's zps "
+                f"axis > 1 (got zps={zps}); set mesh.zps (the MiCS-"
+                "style fsdp×zps split) so the two-hop collectives have "
+                "an inner group to gather over")
+    if fsdp <= 1:
+        return ("zero_hierarchical_allgather requires an outer fsdp "
+                f"axis > 1 alongside zps={zps} (got fsdp={fsdp}); with "
+                "a single outer group there is no slow-link hop to "
+                "save")
+    if hpz or mics:
+        which = "zero_hpz_partition_size" if hpz else "mics_shard_size"
+        return (f"zero_hierarchical_allgather is incompatible with "
+                f"{which}: hpZ/MiCS already replicate parameters "
+                "across fsdp (sharding only over zps), so weight "
+                "gathers never touch the slow links — the two-hop "
+                "gather needs params sharded over the full fsdp×zps "
+                "extent")
+    return None

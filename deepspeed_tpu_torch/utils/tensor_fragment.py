@@ -42,9 +42,7 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _full(engine, piece: torch.Tensor, dim) -> np.ndarray:
-    if dim is not None:
-        piece = comm.all_gather(piece, group=engine.group, axis=dim)
-    return _numpy(piece)
+    return _numpy(engine._gather_state(piece, dim))
 
 
 def _views(engine, flat: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -72,11 +70,13 @@ def safe_set_full_fp32_param(engine, name: str, value) -> bool:
     if tuple(value.shape) != engine.plan.shapes[hit]:
         raise ValueError(f"shape mismatch for {name}: "
                          f"{engine.plan.shapes[hit]} vs {tuple(value.shape)}")
-    own = engine._own(value, engine.plan.master_dims[hit])
-    engine.master_state_dict()[hit].copy_(own)
-    engine._compute_views[hit].copy_(own)
-    if hit in engine._replica_views:
-        engine._replica_views[hit].copy_(value)
+    from ..runtime.checkpointing import put_master, put_param
+
+    def get(dim, split):
+        return value if split is None else split.own(value, dim)
+
+    put_master(engine, hit, get)
+    put_param(engine, hit, get)
     return True
 
 

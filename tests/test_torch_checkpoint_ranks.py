@@ -3,13 +3,15 @@ runtime/checkpoint_engine.py, checkpoint/universal.py,
 utils/tensor_fragment.py): ZeRO stages 1, 2 and 3, and stage 3 with the
 qwZ wire, saved at W = 2 and loaded at W = 1, and the reverse, by the
 plain load (the index re-cuts the pieces) and through the universal
-format; a resume at W = 2; the tag validation.
+format; a resume at W = 2; the tag validation. At W = 4, an hpZ run
+(parameters over zps, master over fsdp x zps) and a mixed dp x fsdp run
+save, resume, and load at W = 1.
 
 Two CPU ranks on gloo are spawned once for the whole file (a file store
 under tmp_path, a 120 s deadline after which both are killed and the
-test fails), as tests/test_torch_zero3.py does; they import torch and
-the port only. The W = 1 side runs here. Every comparison is bit for
-bit: a load copies what was saved."""
+test fails), as tests/test_torch_zero3.py does, and four for the W = 4
+runs; they import torch and the port only. The W = 1 side runs here.
+Every comparison is bit for bit: a load copies what was saved."""
 
 import inspect
 import os
@@ -38,6 +40,9 @@ CASES = {"zero1": {"stage": 1}, "zero2": {"stage": 2},
          "zero3": {"stage": 3},
          "zero3_qwz": {"stage": 3, "zero_quantized_weights": True}}
 FORMS = ("plain", "universal")
+# W = 4: (zero block, mesh); a W = 1 engine loads them at stage 3
+CASES4 = {"hpz": ({"stage": 3, "zero_hpz_partition_size": 2}, {}),
+          "mixed": ({"stage": 3}, {"dp": 2, "fsdp": 2})}
 
 
 def _batch(seed: int, rows: int = 8, seq: int = 16):
@@ -45,9 +50,9 @@ def _batch(seed: int, rows: int = 8, seq: int = 16):
     return tok[:, :-1], tok[:, 1:]
 
 
-def _engine(zero, seed=1234, universal=False):
+def _engine(zero, seed=1234, universal=False, mesh=None):
     cfg = dict(CONFIG, zero_optimization=zero, seed=seed,
-               checkpoint={"load_universal": universal})
+               checkpoint={"load_universal": universal}, mesh=mesh or {})
     eng, *_ = ds.initialize(model=GPT2(size="tiny", device="cpu"),
                             config=cfg)
     return eng
@@ -149,42 +154,55 @@ def _w_tags(d):
     return out
 
 
+def _w4_case(zero, mesh, d):
+    """At W = 4: train two steps, save, take the next step; a fresh engine
+    loads and takes the same step."""
+    a = _engine(zero, mesh=mesh)
+    for i in range(2):
+        a.train_batch(_batch(i))
+    a.save_checkpoint(f"{d}/w4")
+    out = {"master": _copy(a.consolidated_master_state_dict()),
+           "moments": _moments(a),
+           "params": _copy(a.gathered_params())}
+    ref = float(a.train_batch(_batch(2)))
+    b = _engine(zero, seed=99, mesh=mesh)
+    b.load_checkpoint(f"{d}/w4")
+    out["resumed_master"] = _copy(b.consolidated_master_state_dict())
+    out["resumed_params"] = _copy(b.gathered_params())
+    out["resume_losses"] = (ref, float(b.train_batch(_batch(2))))
+    out["resume_after"] = [e.consolidated_master_state_dict() for e in (a, b)]
+    return out
+
+
 def _rank_main(rank, world, store, d, cases):
     comm.init_distributed("gloo", init_method=f"file://{store}", rank=rank,
                           world_size=world)
-    out = {name: _w_case(zero, f"{d}/{name}") for name, zero in cases.items()}
-    out["tags"] = _w_tags(d)
+    if world == 4:
+        out = {name: _w4_case(zero, mesh, f"{d}/{name}")
+               for name, (zero, mesh) in cases.items()}
+    else:
+        out = {name: _w_case(zero, f"{d}/{name}")
+               for name, zero in cases.items()}
+        out["tags"] = _w_tags(d)
     torch.save(out, f"{d}/rank{rank}.pt")
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The W = 1 runs and their checkpoints (written here first), then
-    every W = 2 scenario in two gloo ranks at once."""
-    d = tmp_path_factory.mktemp("ckpt_ranks")
-    w1 = {}
-    for name, zero in CASES.items():
-        eng = _engine(zero)
-        for i in range(2):
-            eng.train_batch(_batch(i))
-        eng.save_checkpoint(str(d / name / "w1"))
-        ds_to_universal(str(d / name / "w1"), str(d / name / "w1_uni"))
-        w1[name] = {"master": _copy(eng.consolidated_master_state_dict()),
-                    "moments": _moments(eng),
-                    "params": _params(eng)}
+def _spawn(d, world, cases):
+    """Every scenario in ``world`` gloo ranks at once; each rank's
+    results."""
     source = _WORKER_HEADER + "\n\n".join(
         inspect.getsource(f) for f in (_batch, _engine, _copy, _params,
-                                       _moments, _load,
-                                       _w_case, _w_tags, _rank_main))
+                                       _moments, _load, _w_case, _w4_case,
+                                       _w_tags, _rank_main))
     source = f"CONFIG = {CONFIG!r}\nFORMS = {FORMS!r}\n" + source
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    [str(REPO)] + [p for p in os.environ.get(
                        "PYTHONPATH", "").split(os.pathsep) if p]))
     procs, logs = [], []
-    for r in range(WORLD):
-        call = (f"\n_rank_main({r}, {WORLD}, {str(d / 'store')!r}, "
-                f"{str(d)!r}, {CASES!r})\n")
+    for r in range(world):
+        call = (f"\n_rank_main({r}, {world}, {str(d / 'store')!r}, "
+                f"{str(d)!r}, {cases!r})\n")
         logs.append(d / f"rank{r}.log")
         with open(logs[-1], "w") as log:
             procs.append(subprocess.Popen(
@@ -207,8 +225,26 @@ def runs(tmp_path_factory):
         pytest.fail(f"ranks did not finish within {DEADLINE_S} s\n{tails}")
     if any(p.returncode for p in procs):
         pytest.fail(f"a rank failed\n{tails}")
-    ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
-             for r in range(WORLD)]
+    return [torch.load(d / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The W = 1 runs and their checkpoints (written here first), then
+    every W = 2 scenario in two gloo ranks at once."""
+    d = tmp_path_factory.mktemp("ckpt_ranks")
+    w1 = {}
+    for name, zero in CASES.items():
+        eng = _engine(zero)
+        for i in range(2):
+            eng.train_batch(_batch(i))
+        eng.save_checkpoint(str(d / name / "w1"))
+        ds_to_universal(str(d / name / "w1"), str(d / name / "w1_uni"))
+        w1[name] = {"master": _copy(eng.consolidated_master_state_dict()),
+                    "moments": _moments(eng),
+                    "params": _params(eng)}
+    ranks = _spawn(d, WORLD, CASES)
     for name in CASES:
         ds_to_universal(str(d / name / "w2"), str(d / name / "w2_uni"))
     return {"dir": d, "w1": w1, "ranks": ranks}
@@ -273,3 +309,52 @@ def test_tag_validation_across_ranks(runs):
         assert tags["fail_raised"] is True
         assert len(tags["warned"]) == 1 and "differs" in tags["warned"][0]
     assert (runs["dir"] / "tags" / "latest").read_text() == "same"
+
+
+@pytest.fixture(scope="module")
+def runs4(tmp_path_factory):
+    """The W = 4 runs (hpZ, mixed dp x fsdp) in four gloo ranks."""
+    d = tmp_path_factory.mktemp("ckpt_ranks4")
+    ranks = _spawn(d, 4, CASES4)
+    for name in CASES4:
+        ds_to_universal(str(d / name / "w4"), str(d / name / "w4_uni"))
+    return {"dir": d, "ranks": ranks}
+
+
+@pytest.mark.parametrize("case", list(CASES4))
+def test_resume_at_four_ranks_is_bit_equal(runs4, case):
+    """hpZ and a mixed dp x fsdp mesh at W = 4: a fresh engine that loads
+    the checkpoint holds the saved master and parameters and takes the
+    next step as the run that did not stop. Each piece is written once:
+    hpZ's four master shards by their ranks (its parameter shards over
+    zps by ranks 0 and 1), the mixed mesh's by its dp = 0 ranks."""
+    for rank in runs4["ranks"]:
+        rec = rank[case]
+        assert _equal(rec["resumed_master"], rec["master"])
+        assert _equal(rec["resumed_params"], rec["params"])
+        ref, resumed = rec["resume_losses"]
+        assert ref == resumed
+        assert _equal(*rec["resume_after"])
+    files = sorted(os.listdir(runs4["dir"] / case / "w4" / "global_step2" /
+                              "state"))
+    writers = 4 if case == "hpz" else 2
+    assert files == ["index.json"] + [f"rank{r}.safetensors"
+                                      for r in range(writers)]
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("case", list(CASES4))
+def test_saved_at_four_ranks_loads_at_one(runs4, case, form):
+    """The W = 4 checkpoint at W = 1 (stage 3), plain and through
+    universal: master and moments equal the consolidated ones the ranks
+    had at the save, and the parameters are the master in bf16."""
+    saved = runs4["ranks"][0][case]
+    path = runs4["dir"] / case / ("w4_uni" if form == "universal"
+                                  else "w4")
+    eng = _load({"stage": 3}, str(path), form)
+    assert _equal(eng.consolidated_master_state_dict(), saved["master"])
+    assert _equal(_moments(eng), saved["moments"])
+    assert int(eng._step) == 2 and eng.global_steps == 2
+    assert _equal(_params(eng),
+                  {n: m.bfloat16() for n, m in saved["master"].items()})
+    assert _equal(_params(eng), saved["params"])

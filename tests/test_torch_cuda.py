@@ -1451,6 +1451,69 @@ def test_zero3_with_qwz_at_world_size_one_on_the_card(cuda):
         assert torch.equal(p, runs[1][1][name]), name
 
 
+# the two-hop wire at GPT-2 125M's shapes over fsdp 2 x zps 2: leaf shape
+# and the dim split; hop 1 quantizes [outer x inner, c] rows, hop 2 the
+# [outer, c] partials (where they start off 16 bytes: the ragged variant)
+TWO_HOP_CASES = {"embed_tokens": ((50304, 768), 0),
+                 "layers_w_up": ((12, 768, 3072), 2)}
+
+
+@pytest.mark.parametrize("case", list(TWO_HOP_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_hop_wire_kernels_match_plain_bit_for_bit(cuda, dtype, case):
+    """The hierarchical qgZ's quantize and dequantize on the card at the
+    two hops' shapes: hop 1's rows (JAX's moveaxis order) and hop 2's
+    partials, summed from hop 1's dequantized codes, placed at a 16-byte
+    boundary (bulk) and one element past it (ragged): codes, scales and
+    dequantized values equal the plain versions bit for bit."""
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    shape, dim = TWO_HOP_CASES[case]
+    g = (torch.randn(shape, generator=torch.Generator().manual_seed(7))
+         * 0.01).to(cuda, dtype)
+    rows = g.movedim(dim, 0).reshape(4, -1)
+    c = rows.shape[1]
+    q, sc = TQ.quantize_rows(rows)
+    pq, ps = TQ.quantize_rows(rows, use_kernel=False)
+    assert torch.equal(q, pq) and torch.equal(sc, ps)
+    deq = TQ.dequantize_rows(q, sc, 4, c, torch.float32)
+    assert torch.equal(deq, TQ.dequantize_rows(q, sc, 4, c, torch.float32,
+                                               use_kernel=False))
+    partial = deq.view(2, 2, c).sum(dim=0)
+    for skew, variant in ((0, "bulk"), (1, "ragged")):
+        buf = torch.empty(2 * c + 4, device=cuda)
+        part = buf[skew:skew + 2 * c].view(2, c)
+        part.copy_(partial)
+        q2, s2 = TQ.quantize_rows(part)
+        assert TQ.quantize_int8_kernel.variant == variant
+        pq2, ps2 = TQ.quantize_rows(part, use_kernel=False)
+        assert torch.equal(q2, pq2) and torch.equal(s2, ps2)
+        back = TQ.dequantize_rows(q2, s2, 2, c, torch.float32)
+        assert torch.equal(back, TQ.dequantize_rows(
+            q2, s2, 2, c, torch.float32, use_kernel=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fp8_wire_round_trip_on_the_card(cuda, dtype):
+    """The fp8 wire on CUDA tensors: codes (as bytes) and scales equal the
+    CPU's bit for bit, the round trip too, and qwZ's gather at W = 1
+    dequantizes the same values; torch ops, no int8 kernel launch."""
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    x = (torch.randn(3, 5000, generator=torch.Generator().manual_seed(8))
+         * torch.logspace(-4, 2, 5000)).to(dtype)
+    launches = TQ.quantize_int8_kernel.launches
+    q, sc, meta = TQ.quantize_fp8(x.to(cuda))
+    pq, ps, pmeta = TQ.quantize_fp8(x)
+    assert q.dtype == torch.float8_e4m3fn
+    assert torch.equal(q.view(torch.uint8).cpu(), pq.view(torch.uint8))
+    assert torch.equal(sc.cpu(), ps)
+    back = TQ.dequantize_fp8(q, sc, meta)
+    assert back.shape == x.shape and back.dtype == dtype
+    assert torch.equal(back.cpu(), TQ.dequantize_fp8(pq, ps, pmeta))
+    gathered = TQ.quantized_all_gather(x.to(cuda), 1, wire_dtype="fp8")
+    assert torch.equal(gathered, back)
+    assert TQ.quantize_int8_kernel.launches == launches
+
+
 # ------------------------------------------------------------------ norms
 NORM_DS = (64, 200, 768, 4096, 5120)
 NORM_ROWS = 37                 # a multiple of no block or warp count

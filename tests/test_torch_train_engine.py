@@ -303,7 +303,7 @@ def test_config_accepts_every_jax_block_by_name():
 
 
 @pytest.mark.parametrize("over", [
-    {"mesh": {"tp": 2}}, {"mesh": {"dp": 2, "fsdp": 2}},
+    {"mesh": {"tp": 2}}, {"mesh": {"dp": 2, "sp": 2}},
     {"telemetry": {"enabled": True}},
     {"telemetry": {"span_buffer_size": 16}}, {"moe": {"enabled": True}},
     {"sequence_parallel": {"mode": "ring"}}, {"pipeline": {"stages": 2}},
@@ -327,8 +327,8 @@ def test_config_refuses_unknown_keys(over):
 @pytest.mark.parametrize("zero", [
     {"stage": 3, "offload_param": {"device": "cpu"}},
     {"offload_optimizer": {"device": "cpu"}},
-    {"zero_quantized_gradients": True, "zero_quantized_dtype": "fp8"},
-    {"zero_hpz_partition_size": 2}])
+    {"offload_optimizer": {"device": "nvme"}},
+    {"stage": 3, "offload_param": {"device": "nvme"}}])
 def test_initialize_refuses_multi_rank_and_offload_zero(zero):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ds.initialize(model=GPT2(size="tiny", device="cpu"),

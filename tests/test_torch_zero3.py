@@ -112,9 +112,9 @@ def test_mesh_resolves_pure_meshes_and_refuses_the_rest():
     assert Topology(TopologyConfig(dp=4), 4).data_parallel_size == 4
     assert Topology(TopologyConfig(dp=4), 4).fsdp_size == 1
     assert Topology(TopologyConfig(dp=2), 2).batch_axes() == ("dp",)
-    for cfg, item in ((TopologyConfig(dp=2), "mixed dp x fsdp"),
+    for cfg, item in ((TopologyConfig(sp=2), "sequence"),
                       (TopologyConfig(tp=2), "tensor parallelism"),
-                      (TopologyConfig(zps=2), "hpZ/MiCS")):
+                      (TopologyConfig(ep=2), "expert parallelism")):
         with pytest.raises(NotImplementedError, match=item):
             Topology(cfg, 4)
     with pytest.raises(ValueError, match="not divisible"):
@@ -125,12 +125,13 @@ def test_mesh_resolves_pure_meshes_and_refuses_the_rest():
     ({"mesh": {"sp": 2}}, "sequence"), ({"mesh": {"ep": 2}}, "moe"),
     ({"mesh": {"pp": 2}}, "pipe"), ({"mesh": {"dcn": {"dp": 2}}},
                                     "multi-slice"),
-    ({"zero_optimization": {"zero_hpz_partition_size": 2}}, "hpZ"),
-    ({"zero_optimization": {"mics_shard_size": 2}}, "MiCS"),
-    ({"zero_optimization": {"zero_hierarchical_allgather": True}},
-     "two-hop"),
-    ({"zero_optimization": {"zero_quantized_weights": True,
-                            "zero_quantized_dtype": "fp8"}}, "fp8 wire"),
+    ({"mesh": {"tp": 2}}, "tensor parallelism"),
+    ({"zero_optimization": {"offload_optimizer": {"device": "nvme"}}},
+     "memory tiers"),
+    ({"zero_optimization": {"offload_param": {"device": "cpu"}}},
+     "memory tiers"),
+    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
+     "layer-streamed"),
     ({"zero_optimization": {"stage": 3,
                             "offload_param": {"device": "cpu"}}},
      "layer-streamed"),
