@@ -78,9 +78,25 @@ Phases, each fatal on failure:
      memory, the losses (finite and falling), the loss gap, the wire bytes
      a step of each (from the plan's shard shapes), and the quantize and
      dequantize launches a step;
+     The exact leg (13b) runs stage 3 a layer at a time: its gathers by
+     kind (layers in the forward and again in the backward, the leaves
+     gathered whole) and its per-layer reductions a step, checked against
+     the plan's counts, at most two layers alive, its losses within bf16
+     noise of the quantized leg's. Then, in the same ranks: 13c, GPT-2
+     350m on the exact wire, 2 rows a rank, its peak memory beside the
+     plan's prediction of the per-layer schedule's saving; 13d, phase
+     22d's LoRA recipe over GPT-2 125M (every projection int8) across the
+     two ranks, its base split as JAX's place_frozen splits it (checked
+     by bytes), the dequantize launches a step (2 x 6 a layer) checked,
+     losses falling; 13e, GPT-2 125M as a FunctionalModel whose loss_fn
+     is the mean NLL, every rank's forward over the global micro-batch,
+     its losses within 5e-3 of 13b's;
  14. Path Z's kernels against plain inside the same ranks on the step's
      real data: every qwZ gather and the qgZ reduce-scatter with nearest
-     rounding, kernels on and off, bit for bit;
+     rounding, kernels on and off, bit for bit; the exact leg's
+     per-layer gathers and reductions against the whole-tree exact ones,
+     and 13d's gathered base layer dequantized by the kernel against the
+     plain version and the whole base's dequantize_range, bit for bit;
  15. phase 6's train_batch under every remat policy the JAX model runs
      (segments, nothing_saveable, everything_saveable, dots_saveable,
      dots_with_no_batch_dims_saveable, save_attn_ffn) and remat=False,
@@ -452,6 +468,12 @@ PATH_Z_CONFIG = dict(TRAIN_CONFIG, mesh={"fsdp": -1}, zero_optimization={
     "zero_quantized_gradients": True, "zero_quantized_dtype": "int8"})
 PATH_Z_EXACT = dict(TRAIN_CONFIG, mesh={"fsdp": -1},
                     zero_optimization={"stage": 3})
+# 13c: stage 3's exact wire where the gathered copy matters (GPT-2 350m,
+# 24 layers, D 1024), 2 rows a rank, a warm-up step and 2 timed; 13d-13e:
+# the LoRA and loss_fn legs' timed steps
+PATH_Z_MEMORY = dict(size="350m", rows_per_rank=2, steps=2)
+PATH_Z_SIDE_STEPS = 3
+PATH_Z_FIRST_LOSS_TOL = 5e-3           # bf16 noise (phase 15's tolerance)
 # Path H: bench.py zeropp_bench's configuration (:2758-2775: ZeRO-3, qwZ +
 # qgZ int8 stochastic, the hierarchical two-hop wire, mesh {"fsdp": -1,
 # "zps": 2}) on the training main path's model and step, four ranks; then
@@ -4809,12 +4831,15 @@ MOE_SERVING = dict(family="qwen2_moe", size="a2.7b", model_over=None)
 MOE_V1 = dict(family="mixtral", size="8x7b", model_over=None)
 MOE_TRAIN = dict(family="qwen2_moe", size="a2.7b", layers=4)
 MOE_FP32 = dict(families=(("qwen2_moe", "a2.7b"), ("mixtral", "8x7b")),
-                layers=2, n_req=3, max_new=6, lengths=(20, 90), k=2,
-                model_over=None, family_layers={"mixtral": 1})
-# Mixtral-8x7B's check runs at 1 of those 2 layers: at 2 (12.4 GB of fp32
+                layers=1, n_req=3, max_new=4, lengths=(20, 90), k=2,
+                model_over=None, family_layers={})
+# both families' checks run at 1 layer: Mixtral-8x7B at 2 (12.4 GB of fp32
 # weights, each CPU tick streaming the experts and the int8 form
-# dequantizing them on the host) its serving took 75 s of 25d's 172 on
-# the H100's host, the CPU half the long pole
+# dequantizing them on the host) took 75 s of 25d's 172 on the H100's
+# host, the CPU half the long pole; to pay for Path Z's legs 13b-13e (the
+# run's critical path is these CPU halves, whose cost is the serving
+# checks' depth) Qwen2-MoE went from 2 layers to 1 and both families from
+# 6 greedy tokens to 4 (two fused dispatches of k 2)
 # the training check: Qwen2-MoE at 1 layer of full width. Mixtral-8x7B's
 # is left out: its CPU half at 1 layer (1.7 B fp32 values with grads,
 # moments, the change and the card's results beside the serving tree) ran
@@ -8174,6 +8199,7 @@ def path_z_run(dev, config, size, steps, seq, check, save_dir=None):
         fn.launches = 0
     reset_norms(N.layer_norm_kernel)
     TQ.quantize_int8_kernel.variant_launches = {}
+    engine.reset_stage3_counts()
     losses, step_s = [], []
     for _ in range(steps):
         t = time.perf_counter()
@@ -8182,6 +8208,7 @@ def path_z_run(dev, config, size, steps, seq, check, save_dir=None):
             torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     launches = {k: fn.launches for k, fn in counters.items()}
+    stage3 = engine.stage3_counts()
     quantize_by_variant = dict(TQ.quantize_int8_kernel.variant_launches)
     norm_by_variant = check_norm_variants(N.layer_norm_kernel, dev,
                                           "Path Z rank")
@@ -8197,6 +8224,7 @@ def path_z_run(dev, config, size, steps, seq, check, save_dir=None):
         quantize_launches_by_variant=quantize_by_variant,
         norm_launches_per_micro=norm_launches_per_micro(model.config),
         launches_per_step={k: v / steps for k, v in launches.items()},
+        stage3_counts=stage3,
         shard_numel=sum(t.numel()
                         for t in engine.master_state_dict().values()))
     if save_dir is not None:
@@ -8216,6 +8244,8 @@ def path_z_run(dev, config, size, steps, seq, check, save_dir=None):
     if check:
         out["kernel_vs_plain"] = path_z_kernel_vs_plain(engine, batch,
                                                         reduce_grads)
+    if stage3 is not None:
+        out["layer_vs_whole"] = path_z_layer_vs_whole(engine, batch)
     del engine, model
     gc.collect()
     if cuda:
@@ -8255,6 +8285,438 @@ def path_z_kernel_vs_plain(engine, batch, reduce_grads):
             "reduce_max_abs_err": reduce_err}
 
 
+def path_z_layer_vs_whole(engine, batch) -> dict:
+    """Phase 14 on the per-layer exact wire: each layer of the streamed
+    leaves gathered as the engine gathers it (``gather_layers``, one
+    collective a layer) against the whole-tree exact gather of the same
+    shards, and one micro-batch's real full local grads (this rank's rows
+    through the model on the whole-gathered weights) reduced a layer at a
+    time (``reduce_layers``) against the whole-tree exact
+    ``reduce_grads``: bit for bit (two ranks: a sum of two values has one
+    order)."""
+    import torch
+    from deepspeed_tpu_torch.runtime.zeropp import (gather_layers,
+                                                    reduce_grads,
+                                                    reduce_layers)
+    stream, plan = engine._stream, engine.plan
+    shards = engine._param_shards()
+    shards = {n: shards[n] for n in stream.names}
+    full = engine.gathered_params()
+    gather_equal = True
+    for i in range(stream.n_layers):
+        got = gather_layers(shards, plan.param_dims, i,
+                            engine.param_split.group).wait()
+        gather_equal &= all(torch.equal(got[n], full[n][i])
+                            for n in stream.names)
+    params = engine.module.params
+    for name, t in full.items():
+        params[name].data = t
+    engine.module.loss(engine._local_rows(batch)).backward()
+    grads = {n: params[n].grad for n in stream.names}
+    for p in params.values():
+        p.grad = None
+    engine._release()
+    for name in stream.names:
+        params[name].data = engine._released()
+    del full
+    whole = reduce_grads(grads, plan.grad_dims, n_batch=engine.dp_world,
+                         quantize_gradients=False, mean=False,
+                         group=engine.state_split.group)
+    per_layer = [reduce_layers({n: grads[n][i] for n in stream.names},
+                               plan.grad_dims, i, stream.n_layers,
+                               engine.state_split.group)
+                 for i in range(stream.n_layers)]
+    reduce_equal = all(
+        torch.equal(torch.stack([r[n] for r in per_layer]), whole[n])
+        for n in stream.names)
+    return {"leaves": len(stream.names), "layers": stream.n_layers,
+            "gather_bit_equal": gather_equal,
+            "reduce_bit_equal": reduce_equal}
+
+
+def stage3_memory_prediction(size: str, world: int, rows: int, seq: int
+                             ) -> dict:
+    """What a rank holds of the parameters at the end of a micro-batch's
+    backward, beside its state, in bytes, from the plan of GPT-2 ``size``
+    (vocab 50304) over ``world`` ranks: the whole gather (every leaf in
+    bf16, its bf16 grad, and the exact reduction's fp32 copy of the
+    largest leaf) against the per-layer one (the leaves outside the
+    stacks whole with their bf16 grads and the fp32 copy of the largest,
+    and two layers of the stacks); their difference is the predicted
+    saving. ``rows`` and ``seq`` are the batch's, for the record."""
+    plan = path_z_plan(size, world)
+    numel = {n: int(np.prod(s)) for n, s in plan.shapes.items()}
+    layers = plan.shapes["layers/wq"][0]
+    stacked = {n for n in numel if n.startswith("layers/")}
+    outside = [n for n in numel if n not in stacked]
+    whole = 2 * sum(numel.values()) * 2 + 4 * max(numel.values())
+    per_layer = (2 * sum(numel[n] for n in outside) * 2
+                 + 4 * max(numel[n] for n in outside)
+                 + 2 * 2 * sum(numel[n] for n in stacked) // layers)
+    return {"model": f"gpt2-{size} vocab 50304", "ranks": world,
+            "rows_per_rank": rows, "seq": seq,
+            "params": sum(numel.values()),
+            "stacked": sum(numel[n] for n in stacked),
+            "whole_gather_bytes": whole, "per_layer_bytes": per_layer,
+            "saving_bytes": whole - per_layer,
+            "saving_gib": (whole - per_layer) / 2**30}
+
+
+def path_z_memory(dev, size=PATH_Z_MEMORY["size"],
+                  rows=PATH_Z_MEMORY["rows_per_rank"],
+                  steps=PATH_Z_MEMORY["steps"], seq=1024) -> dict:
+    """13c: stage 3 on the exact wire where the gathered copy matters,
+    GPT-2 ``size`` over the two ranks, ``rows`` rows a rank, a warm-up
+    step then ``steps`` timed: the peak memory a rank allocated (from
+    before the engine exists) and the per-layer counts."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import GPT2
+    cuda = dev.type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = GPT2(size=size, vocab_size=50304, remat_policy="segments",
+                 attn_impl="flash", device=dev)
+    engine, *_ = ds.initialize(model=model, config=dict(
+        PATH_Z_EXACT, train_batch_size=rows * PATH_Z_WORLD))
+    # the rank's state (master, grads, moments and parameter shards) and
+    # the model's unsplit leaves
+    state = torch.cuda.memory_allocated() / 2**30 if cuda else None
+    batch = train_batch_of(dev, 50304, engine.train_batch_size_, seq)
+    warm = float(engine.train_batch(batch))
+    comm.barrier()
+    engine.reset_stage3_counts()
+    step_s, losses = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_s.append(time.perf_counter() - t)
+    out = dict(model=f"gpt2-{size} vocab 50304", rows_per_rank=rows,
+               seq=seq, steps=steps, warm_up_loss=warm, losses=losses,
+               step_ms=1e3 * sum(step_s) / steps,
+               peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                if cuda else None),
+               stage3_counts=engine.stage3_counts(),
+               after_initialize_gib=state)
+    del engine, model, batch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+class _FunctionalWeights:
+    """A DecoderLM weight source over a flat parameter dict (13e's
+    FunctionalModel): ``source[name]`` a leaf, ``source.layer(i)`` layer
+    i's slices keyed as the model's ``p``."""
+
+    def __init__(self, params, keys):
+        self._params, self._keys = params, keys
+
+    def __getitem__(self, name):
+        return self._params[name]
+
+    def __contains__(self, name):
+        return name in self._params
+
+    def layer(self, i):
+        return {k: self._params["layers/" + k][i] for k in self._keys}
+
+
+def functional_gpt2(dev, size):
+    """13e's model: GPT-2 ``size`` (vocab 50304, segments, flash) as a
+    FunctionalModel whose init draws the model's own seeded weights and
+    whose ``loss_fn`` is the default mean NLL, computed by the model on
+    the FunctionalModel's parameters: across ranks the engine takes it
+    whole (every rank's forward over the global micro-batch)."""
+    from deepspeed_tpu_torch.models import GPT2, FunctionalModel
+    model = GPT2(size=size, vocab_size=50304, remat_policy="segments",
+                 attn_impl="flash", device=dev)
+    keys = [n.split("/", 1)[1] for n in model.params
+            if n.startswith("layers/")]
+
+    def init(gen):          # init_params' draws, in its order
+        return {n: model.draw(n, gen) for n in model._init_spec}
+
+    def apply(params, tokens):
+        with model.using_weights(_FunctionalWeights(params, keys)):
+            return model.apply(tokens)
+
+    def loss(params, batch):
+        with model.using_weights(_FunctionalWeights(params, keys)):
+            return model.loss(batch)
+
+    fm = FunctionalModel(init, apply, loss, device=dev)
+    for name in list(model.params):    # the FunctionalModel holds them
+        del model.params[name]
+    fm.config = model.config
+    return fm
+
+
+def path_z_side_leg(dev, which: str, size, seq, steps) -> dict:
+    """13d (``which`` "lora": phase 22d's LoRA recipe over GPT-2
+    ``size``, every projection int8 in blocks of 512, its base split over
+    the ranks as JAX places it) or 13e ("loss_fn": :func:`functional_gpt2`)
+    on the exact wire under TRAIN_CONFIG's step (LoRA: ZeRO 2, as 22d;
+    loss_fn: 13b's ZeRO 3), the batch of 13b, a warm-up step then
+    ``steps`` timed, every count set to 0 right before and read right
+    after. LoRA also runs phase 14's check of a gathered base layer."""
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.linear import (LoRAConfig, LoRAModel,
+                                            QuantizationConfig)
+    from deepspeed_tpu_torch.models import GPT2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import norms as N
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    from deepspeed_tpu_torch.ops.fused_optimizers import fused_adam_step
+    cuda = dev.type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    if which == "lora":
+        model = LoRAModel(GPT2(size=size, vocab_size=50304,
+                               remat_policy="segments", attn_impl="flash",
+                               device=dev, dtype=torch.bfloat16),
+                          LoRAConfig(), QuantizationConfig())
+        config = dict(PATH_Z_EXACT, zero_optimization={"stage": 2})
+    else:
+        model = functional_gpt2(dev, size)
+        config = PATH_Z_EXACT
+    engine, *_ = ds.initialize(model=model, config=config)
+    batch = train_batch_of(dev, 50304, engine.train_batch_size_, seq)
+    warm = float(engine.train_batch(batch))
+    if cuda:
+        torch.cuda.synchronize()
+    comm.barrier()
+    counters = {"quantize_int8": TQ.quantize_int8_kernel,
+                "dequantize_int8": TQ.dequantize_int8_kernel,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd": fa.flash_attention_bwd,
+                "fused_adam": fused_adam_step,
+                "layer_norm": N.layer_norm_kernel}
+    for fn in counters.values():
+        fn.launches = 0
+    reset_norms(N.layer_norm_kernel)
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        if cuda:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    out = dict(
+        steps=steps, warm_up_loss=warm, losses=[float(x) for x in losses],
+        step_ms=1e3 * sum(step_s) / steps, step_ms_min=1e3 * min(step_s),
+        step_ms_max=1e3 * max(step_s),
+        tokens_per_s=engine.train_batch_size_ * seq * steps / sum(step_s),
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if cuda else None),
+        launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        norm_launches_by_variant=check_norm_variants(
+            N.layer_norm_kernel, dev, f"Path Z {which}"))
+    if which == "lora":
+        out.update(frozen_bytes=model.frozen_bytes(),
+                   frozen=path_z_frozen_split(model),
+                   trainable=sum(p.numel() for p in model.params.values()),
+                   base_layer_check=path_z_lora_check(model))
+    del engine, model, batch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def path_z_frozen_split(model) -> dict:
+    """Each frozen leaf's bytes on this rank and whole, and whether it is
+    split (JAX's fsdp_spec_tree keeps a leaf under 4096 elements whole)."""
+    from deepspeed_tpu_torch.linear import is_quantized
+    from deepspeed_tpu_torch.linear.optimized_linear import PlacedTensor
+    out = {}
+    for name, leaf in model.frozen.items():
+        if is_quantized(leaf):
+            parts = ((leaf.codes, leaf.codes_split),
+                     (leaf.scales, leaf.scales_split))
+        elif isinstance(leaf, PlacedTensor):
+            parts = ((leaf.shard, leaf.split),)
+        else:
+            parts = ((leaf, None),)
+        here = sum(t.numel() * t.element_size() for t, _ in parts)
+        whole = sum(t.numel() * t.element_size() * (sp.world if sp else 1)
+                    for t, sp in parts)
+        out[name] = {"bytes": here, "whole_bytes": whole,
+                     "numel": [int(t.numel()) * (sp.world if sp else 1)
+                               for t, sp in parts],
+                     "split": [sp is not None for _, sp in parts]}
+    return out
+
+
+def path_z_lora_check(model) -> dict:
+    """Phase 14 on the LoRA base: the middle layer of each quantized stack
+    read from the blocks the ranks hold, dequantized by the kernel and by
+    the plain version, against the whole base's ``dequantize_range`` of
+    that layer (the codes and scales gathered whole first): bit for bit."""
+    import dataclasses as dc
+    import torch
+    from deepspeed_tpu_torch.linear import is_quantized
+    layer = model.config.num_layers // 2
+    out = {"layer": layer, "leaves": 0, "kernel_equals_plain": True,
+           "equals_whole": True, "max_abs_err": 0.0}
+    for name, leaf in model.frozen.items():
+        if not (is_quantized(leaf) and name.startswith("layers/")):
+            continue
+        per = leaf.numel // leaf.shape[0]
+        lo, hi = layer * per, (layer + 1) * per
+        got = leaf.dequantize_range(lo, hi)
+        codes, scales = leaf._blocks(0, leaf.nblocks)
+        whole = dc.replace(leaf, codes=codes, scales=scales,
+                           codes_split=None, scales_split=None)
+        want = whole.dequantize_range(lo, hi)
+        g = leaf.group_size
+        b0, b1 = lo // g, -(-hi // g)
+        c, sc = leaf._blocks(b0, b1)
+        plain = (c.float() * sc).reshape(-1)[lo - b0 * g:hi - b0 * g].to(
+            leaf.dtype)
+        out["leaves"] += 1
+        out["kernel_equals_plain"] &= bool(torch.equal(got, plain))
+        out["equals_whole"] &= bool(torch.equal(got, want))
+        out["max_abs_err"] = max(out["max_abs_err"], float(
+            (got.float() - plain.float()).abs().max()))
+    return out
+
+
+def stage3_want(plan, steps: int, micro: int = 1) -> dict:
+    """The per-layer schedule's counts over ``steps`` steps of ``micro``
+    micro-batches from the plan: a forward gather, a backward regather and
+    a reduction of each layer a micro-batch, and each split leaf outside
+    the stacks gathered whole once a micro-batch."""
+    layers = plan.shapes["layers/wq"][0]
+    n = steps * micro
+    split = [k for k, d in plan.param_dims.items() if d is not None]
+    outside = [k for k in split if not k.startswith("layers/")]
+    return {"layer_forward": n * layers, "layer_backward": n * layers,
+            "layer_reductions": n * layers,
+            "reductions_outside_backward": 0,
+            "non_layer": n * len(outside),
+            "streamed": len(split) - len(outside)}
+
+
+def path_z_legs(results, plan, memory_size, seq, steps) -> dict:
+    """13b-13e and phase 14's new checks from the ranks' results, with
+    the counts and bytes the plan gives (13c's of GPT-2
+    ``memory_size``)."""
+    ranks = [results[r] for r in range(PATH_Z_WORLD)]
+    e = ranks[0]["exact"]
+    mem = dict(PATH_Z_MEMORY, size=memory_size)
+    out = {
+        "13b_exact_per_layer": {
+            "step_ms": e["step_ms"], "tokens_per_s": e["tokens_per_s"],
+            "peak_memory_gib_per_rank": [r["exact"]["peak_memory_gib"]
+                                         for r in ranks],
+            "stage3_counts": [r["exact"]["stage3_counts"] for r in ranks],
+            "stage3_counts_want": stage3_want(plan, steps),
+            "first_losses_rel_gap_to_quantized": [
+                (a - b) / b for a, b in zip(
+                    e["losses"], ranks[0]["quantized"]["losses"])]},
+        "13c_memory": {
+            "ranks": [r["memory"] for r in ranks],
+            "stage3_counts_want": stage3_want(
+                path_z_plan(mem["size"]), mem["steps"]),
+            "prediction": stage3_memory_prediction(
+                mem["size"], PATH_Z_WORLD, mem["rows_per_rank"], seq)},
+        "13d_lora": {k: [r["lora"][k] for r in ranks]
+                     for k in ("step_ms", "peak_memory_gib", "losses",
+                               "frozen_bytes", "launches_per_step",
+                               "base_layer_check", "trainable")},
+        "13e_loss_fn": {
+            k: [r["loss_fn"][k] for r in ranks]
+            for k in ("step_ms", "peak_memory_gib", "losses",
+                      "launches_per_step")},
+        "phase14_layer_vs_whole": [r["exact"]["layer_vs_whole"]
+                                   for r in ranks],
+        "new_legs_s": [r["new_legs_s"] for r in ranks]}
+    out["13d_lora"]["frozen"] = ranks[0]["lora"]["frozen"]
+    # GPT-2's six projections, each layer's read in the forward and again
+    # in its recomputed segment a micro-step
+    out["13d_lora"]["dequantize_want"] = 2 * 6 * plan.shapes["layers/wq"][0]
+    out["13e_loss_fn"]["forward_rows_per_rank"] = 24
+    out["13e_loss_fn"]["note"] = (
+        "each rank evaluates the loss_fn over the whole global "
+        "micro-batch (24 rows, twice its 12), as JAX differentiates it "
+        "there, and keeps half its gradient")
+    out["legs_launches_per_step"] = {
+        "13b": e["launches_per_step"],
+        "13d": ranks[0]["lora"]["launches_per_step"],
+        "13e": ranks[0]["loss_fn"]["launches_per_step"]}
+    return out
+
+
+def path_z_legs_check(legs, exact, dev) -> list:
+    """What fails 13b-13e: counts off the plan's, more than two layers
+    alive, losses not finite and falling, 13e's losses off 13b's, the
+    LoRA base not split as JAX splits it, a dequantize count off (on the
+    card), a phase-14 check not bit-equal."""
+    bad = []
+    b = legs["13b_exact_per_layer"]
+    for r, c in enumerate(b["stage3_counts"]):
+        want = b["stage3_counts_want"]
+        got = {k: (len(c["streamed"]) if k == "streamed" else c[k])
+               for k in want}
+        if got != want or c["max_live_layers"] > 2:
+            bad.append(f"13b rank {r} counts {c} != {want}")
+    m = legs["13c_memory"]
+    for r, rec in enumerate(m["ranks"]):
+        c, want = rec["stage3_counts"], m["stage3_counts_want"]
+        if any(c[k] != want[k] for k in want if k != "streamed") \
+                or c["max_live_layers"] > 2:
+            bad.append(f"13c rank {r} counts {c} != {want}")
+        if not all(np.isfinite(rec["losses"])):
+            bad.append(f"13c rank {r} losses {rec['losses']}")
+    lora = legs["13d_lora"]
+    for r, losses in enumerate(lora["losses"]):
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            bad.append(f"13d rank {r} losses not finite and falling: "
+                       f"{losses}")
+    for name, rec in lora["frozen"].items():
+        half = all(rec["split"])
+        whole = rec["whole_bytes"]
+        small = all(n < 4096 for n in rec["numel"])
+        if small and any(rec["split"]):
+            bad.append(f"13d {name} under 4096 elements but split")
+        if half and abs(rec["bytes"] - whole / 2) > 512 + 4:
+            bad.append(f"13d {name}: {rec['bytes']} bytes of {whole}, "
+                       f"not half within a block")
+    want_dq = lora["dequantize_want"]
+    for r, check in enumerate(lora["base_layer_check"]):
+        if not (check["kernel_equals_plain"] and check["equals_whole"]):
+            bad.append(f"13d rank {r} base layer check {check}")
+    for r, lps in enumerate(lora["launches_per_step"]):
+        if dev.type == "cuda" and (lps["dequantize_int8"] != want_dq
+                                   or lps["quantize_int8"] != 0):
+            bad.append(f"13d rank {r} launches a step {lps}, dequantize "
+                       f"want {want_dq}")
+    fn = legs["13e_loss_fn"]
+    for r, losses in enumerate(fn["losses"]):
+        ref = exact["losses"][:len(losses)]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        if gap > PATH_Z_FIRST_LOSS_TOL:
+            bad.append(f"13e rank {r} losses {losses} vs 13b's {ref}")
+    for r, check in enumerate(legs["phase14_layer_vs_whole"]):
+        if not (check["gather_bit_equal"] and check["reduce_bit_equal"]):
+            bad.append(f"phase 14 rank {r} per-layer vs whole {check}")
+    gaps = b["first_losses_rel_gap_to_quantized"]
+    if max(abs(g) for g in gaps) > PATH_Z_FIRST_LOSS_TOL:
+        bad.append(f"13b losses off the qwZ leg's: {gaps}")
+    return bad
+
+
 def path_z_rank(spec: str) -> int:
     """One Path Z rank, started by ``path_z_start`` as ``chip_smoke.py
     --path-z-rank SPEC`` (SPEC a JSON object): joins the gloo group through
@@ -8281,6 +8743,13 @@ def path_z_rank(spec: str) -> int:
                 dev, config, s["size"], s["steps"], s["seq"],
                 check=wire == "quantized",
                 save_dir=s["ckpt"] if wire == "quantized" else None)
+        t = time.perf_counter()
+        out["memory"] = path_z_memory(dev, s["memory_size"],   # 13c
+                                      seq=s["seq"])
+        for which in ("lora", "loss_fn"):                      # 13d, 13e
+            out[which] = path_z_side_leg(dev, which, s["size"], s["seq"],
+                                         s["side_steps"])
+        out["new_legs_s"] = time.perf_counter() - t
         torch.distributed.destroy_process_group()
         rc = 0
     except BaseException:
@@ -8365,12 +8834,14 @@ def finish_ranks(run, what: str, timeout: float) -> dict:
 
 
 def path_z_start(dev, size="125m", steps=5, seq=1024,
-                 ckpt_dir=PATH_Z_CKPT) -> dict:
+                 ckpt_dir=PATH_Z_CKPT,
+                 memory_size=PATH_Z_MEMORY["size"]) -> dict:
     """Start Path Z's ranks (``--path-z-rank``): they join their group and
     wait for :func:`path_z_main` (the run starts them after phase 3, so
     their start-up overlaps the wait for the CPU halves)."""
     return start_ranks(dev, "--path-z-rank", PATH_Z_WORLD, size=size,
-                       steps=steps, seq=seq, ckpt=ckpt_dir)
+                       steps=steps, seq=seq, ckpt=ckpt_dir,
+                       side_steps=PATH_Z_SIDE_STEPS, memory_size=memory_size)
 
 
 def path_z_main(dev, size="125m", steps=5, seq=1024, timeout=900,
@@ -8384,6 +8855,7 @@ def path_z_main(dev, size="125m", steps=5, seq=1024, timeout=900,
     if run is None:
         run = path_z_start(dev, size, steps, seq, ckpt_dir)
     size, steps, seq = run["size"], run["steps"], run["seq"]
+    memory_size = run["memory_size"]
     results = finish_ranks(run, "Path Z", timeout)
     plan = path_z_plan(size)
     q, e = results[0]["quantized"], results[0]["exact"]
@@ -8409,7 +8881,12 @@ def path_z_main(dev, size="125m", steps=5, seq=1024, timeout=900,
     wq = stats["wire_bytes_per_step"]
     stats["wire_reduction"] = (wq["exact"]["total_bytes"]
                                / wq["quantized"]["total_bytes"])
+    legs = path_z_legs(results, plan, memory_size, seq, steps)
+    stats.update(legs)
     log(f"[path Z] {json.dumps(stats)}")
+    bad = path_z_legs_check(legs, e, dev)
+    if bad:
+        raise AssertionError("Path Z legs 13b-13e: " + "; ".join(bad))
     for wire, rec in (("quantized", q), ("exact", e)):
         losses = rec["losses"]
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -8598,6 +9075,7 @@ def path_h_leg(dev, name, size, seq, engine=None, warm=None):
         fn.launches = 0
     reset_norms(N.layer_norm_kernel)
     TQ.quantize_int8_kernel.variant_launches = {}
+    engine.reset_stage3_counts()
     losses, step_s = [], []
     for _ in range(steps):
         t = time.perf_counter()
@@ -8607,6 +9085,7 @@ def path_h_leg(dev, name, size, seq, engine=None, warm=None):
         step_s.append(time.perf_counter() - t)
     launches = {k: fn.launches for k, fn in counters.items()}
     out = dict(
+        stage3_counts=engine.stage3_counts(),
         steps=steps, warm_up_loss=warm, losses=[float(x) for x in losses],
         step_ms=1e3 * sum(step_s) / steps, step_ms_min=1e3 * min(step_s),
         step_ms_max=1e3 * max(step_s),
@@ -9806,6 +10285,14 @@ def main(argv=None) -> int:
     left = live_children()
     if left:
         raise AssertionError(f"processes still running: {left}")
+    # Path Z's legs 13b (the per-layer exact wire), 13d (LoRA across the
+    # ranks) and 13e (a loss_fn across the ranks): each kernel's launches
+    # a step there
+    for k in kernels:
+        per_leg = {leg: c[k["name"]] for leg, c in
+                   path_z["legs_launches_per_step"].items() if k["name"] in c}
+        if per_leg:
+            k["path_z_legs_launches_per_step"] = per_leg
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -9,8 +9,18 @@ eager call that
 returns a new tensor (or, for :func:`all_reduce`, reduces in place), with
 the JAX module's semantics: :func:`all_gather` tiles the ranks' pieces
 along an axis, :func:`reduce_scatter` splits along one, and
-:func:`all_to_all_single` splits dim 0 equally. Outside a process group
-(world size 1) every collective is the identity.
+:func:`all_to_all_single` splits dim 0 equally. Outside a process group (world size 1) every
+collective is the identity.
+
+:func:`all_gather_async` and :func:`broadcast_async` start the
+collective and return a :class:`Pending` whose ``wait()`` gives the
+result: ZeRO-3's per-layer prefetch issues layer l+1's gathers before
+layer l computes. On gloo the work runs on the process group's own
+threads; on NCCL on the process group's stream, which ``wait()`` makes
+the caller's stream wait on through an event, and the process group
+records the buffers on that stream, so neither is freed while the
+collective reads or writes it. Every rank must issue its collectives on a
+group in the same order (gloo and NCCL match them by that order).
 
 The backend is explicit: ``nccl`` by default where a card is present, as
 in DeepSpeed, ``gloo`` on request or without a card. gloo takes CUDA
@@ -222,6 +232,59 @@ def broadcast(tensor: torch.Tensor, src: int = 0, group=None
     if get_world_size(group) == 1:
         return tensor
     dist.broadcast(tensor, src, group=group)
+    return tensor
+
+
+def _global_rank(group, group_rank: int) -> int:
+    return (group_rank if group is None
+            else dist.get_global_rank(group, group_rank))
+
+
+class Pending:
+    """A collective in flight: ``wait()`` waits for it (once) and returns
+    its result. ``keep`` holds the buffers the collective reads until
+    then."""
+
+    def __init__(self, work, result, keep=()):
+        self._work, self._result, self._keep = work, result, keep
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = self._keep = None
+        return self._result()
+
+
+def all_gather_async(tensor: torch.Tensor, group=None, axis: int = 0
+                     ) -> Pending:
+    """:func:`all_gather`, started: ``wait()`` gives every rank's
+    ``tensor`` concatenated along ``axis`` in rank order."""
+    world = get_world_size(group)
+    if world == 1:
+        return Pending(None, lambda: tensor)
+    src = tensor.contiguous()
+    out = torch.empty(world * src.numel(), dtype=src.dtype,
+                      device=src.device)
+    work = _gather_fn()(out, src.view(-1), group=group, async_op=True)
+    return Pending(work, lambda: assemble(out.view(world, *src.shape), axis),
+                   keep=(src,))
+
+
+def broadcast_async(tensor: torch.Tensor, src: int, group=None) -> Pending:
+    """Group rank ``src``'s ``tensor`` on every rank, started: ``tensor``
+    is overwritten in place on the others; ``wait()`` returns it."""
+    if get_world_size(group) == 1:
+        return Pending(None, lambda: tensor)
+    work = dist.broadcast(tensor, _global_rank(group, src), group=group,
+                          async_op=True)
+    return Pending(work, lambda: tensor)
+
+
+def reduce(tensor: torch.Tensor, dst: int, group=None) -> torch.Tensor:
+    """Sum over ``group`` into group rank ``dst``'s ``tensor`` (in place;
+    the others' are left undefined, as ``torch.distributed.reduce``)."""
+    if get_world_size(group) > 1:
+        dist.reduce(tensor, _global_rank(group, dst), group=group)
     return tensor
 
 

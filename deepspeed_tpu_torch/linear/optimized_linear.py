@@ -20,10 +20,23 @@ layer slice (a layer's blocks of a quantized stack, dequantized by the
 kernel on the card) plus ``(a[l] @ b[l]) * alpha / r``. Under a remat
 policy those reads sit inside the recomputed segments, so autograd keeps
 no layer's effective weight.
+
+Across ranks the engine calls :meth:`LoRAModel.place_frozen`, which
+splits the frozen base over the fsdp axis as JAX's ``place_frozen`` does
+(``fsdp_spec_tree``'s rule, ``linear/quantization.py``
+``fsdp_split_dim``): a QuantizedParameter's codes and scales each on its
+own dim, a float leaf as a :class:`PlacedTensor`. A read of layer l then
+gathers that layer's blocks (or slice) from the ranks that hold them,
+where the weight is read: in the forward and again in a recomputed
+segment. The leaves outside the stacks (the embeddings, the final norm)
+are gathered whole once a forward. The adapters are the engine's params
+and go through the ZeRO plan as any params do; at stage 3 on the exact
+wire the engine gives their layers through ``using_weights``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from typing import Callable
@@ -33,7 +46,8 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from .config import LoRAConfig, QuantizationConfig
-from .quantization import is_quantized, quantize_param
+from .quantization import (FrozenSplit, fsdp_split_dim, is_quantized,
+                           quantize_param)
 
 
 class OptimizedLinear(nn.Module):
@@ -162,6 +176,62 @@ def _merged(leaf: torch.Tensor, a, b, scale: float) -> torch.Tensor:
     return leaf + (a @ b).to(leaf.dtype) * scale
 
 
+@dataclasses.dataclass
+class PlacedTensor:
+    """A float frozen leaf split over ranks (:meth:`LoRAModel.
+    place_frozen`): this rank's ``shard`` of the whole ``shape``."""
+
+    shard: torch.Tensor
+    split: FrozenSplit
+
+    @property
+    def shape(self) -> tuple:
+        return self.split.full_shape(self.shard.shape)
+
+    @property
+    def ndim(self) -> int:
+        return self.shard.ndim
+
+    @property
+    def dtype(self):
+        return self.shard.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return self.shard.numel() * self.shard.element_size()
+
+    def full(self) -> torch.Tensor:
+        """The whole leaf, gathered (a collective)."""
+        return self.split.rows(self.shard, 0, self.shape[0])
+
+    def layer(self, layer: int) -> torch.Tensor:
+        """Row ``layer`` of dim 0 (a stack's layer), gathered."""
+        return self.split.rows(self.shard, layer, layer + 1)[0]
+
+
+def _place(leaf, world: int, index: int, group):
+    """``leaf`` split over ``world`` fsdp ranks as JAX's ``fsdp_spec_tree``
+    splits it (a leaf it keeps whole, as it is)."""
+    if is_quantized(leaf):
+        return leaf.placed(world, index, group)
+    if isinstance(leaf, PlacedTensor):
+        raise ValueError("the frozen base is placed already")
+    dim = fsdp_split_dim(tuple(leaf.shape), world)
+    if dim is None:
+        return leaf
+    split = FrozenSplit(dim, world, index, group)
+    return PlacedTensor(split.cut(leaf), split)
+
+
+def _whole(leaf) -> torch.Tensor:
+    """A frozen leaf in full: dequantized, or gathered where placed."""
+    if is_quantized(leaf):
+        return leaf.dequantized()
+    if isinstance(leaf, PlacedTensor):
+        return leaf.full()
+    return leaf
+
+
 def make_merge_fn(cfg: LoRAConfig, stop_gradient: bool = True) -> Callable:
     """merge(base, adapters) -> effective flat parameters (each base leaf
     dequantized, plus its adapters' ``a @ b * alpha / r``). With
@@ -172,8 +242,7 @@ def make_merge_fn(cfg: LoRAConfig, stop_gradient: bool = True) -> Callable:
     def merge(base: dict, adapters: dict) -> dict:
         out = {}
         for name, leaf in base.items():
-            if is_quantized(leaf):
-                leaf = leaf.dequantized()
+            leaf = _whole(leaf)
             if stop_gradient:
                 leaf = leaf.detach()
             ad = adapters.get(name)
@@ -197,7 +266,10 @@ def fuse_lora(base: dict, state: LoRAState) -> dict:
 def _base_layer(leaf, layer: int) -> torch.Tensor:
     """Layer ``layer`` of a frozen ``[L, ...]`` stack: a view, or for a
     QuantizedParameter the blocks holding it dequantized (the dequantize
-    kernel on the card)."""
+    kernel on the card); placed across ranks, gathered from the ranks
+    that hold it."""
+    if isinstance(leaf, PlacedTensor):
+        return leaf.layer(layer)
     if not is_quantized(leaf):
         return leaf[layer]
     per = leaf.numel // leaf.shape[0]
@@ -207,10 +279,12 @@ def _base_layer(leaf, layer: int) -> torch.Tensor:
 
 class _LayerWeights:
     """Layer ``layer``'s parameters keyed as in JAX ``p``, each computed
-    where the model reads it (so inside whatever segment recomputes it)."""
+    where the model reads it (so inside whatever segment recomputes it),
+    the adapters from the source the forward ran on."""
 
     def __init__(self, lora: "LoRAModel", layer: int):
         self._lora, self._layer = lora, layer
+        self._source = lora._source
 
     def __contains__(self, key: str) -> bool:
         return "layers/" + key in self._lora.frozen
@@ -221,8 +295,14 @@ class _LayerWeights:
         name, lora = "layers/" + key, self._lora
         w = _base_layer(lora.frozen[name], self._layer)
         if name in lora.targets:
-            w = _merged(w, lora.params[name + "/a"][self._layer],
-                        lora.params[name + "/b"][self._layer], lora.scale)
+            source = self._source
+            if source is None:
+                a = lora.params[name + "/a"][self._layer]
+                b = lora.params[name + "/b"][self._layer]
+            else:
+                layer = source.layer(self._layer)
+                a, b = layer[key + "/a"], layer[key + "/b"]
+            w = _merged(w, a, b, lora.scale)
         return w
 
     def get(self, key: str, default=None):
@@ -237,12 +317,17 @@ class _LoRAWeights:
 
     def __getitem__(self, name: str) -> torch.Tensor:
         lora = self._lora
-        leaf = lora.frozen[name]
-        if is_quantized(leaf):
-            leaf = leaf.dequantized()
+        whole = lora._whole_cache
+        if whole is not None and name in whole:
+            leaf = whole[name]
+        else:
+            leaf = _whole(lora.frozen[name])
+            if whole is not None:
+                whole[name] = leaf
         if name in lora.targets:
-            leaf = _merged(leaf, lora.params[name + "/a"],
-                           lora.params[name + "/b"], lora.scale)
+            params = lora.params if lora._source is None else lora._source
+            leaf = _merged(leaf, params[name + "/a"], params[name + "/b"],
+                           lora.scale)
         return leaf
 
     def __contains__(self, name: str) -> bool:
@@ -302,6 +387,56 @@ class LoRAModel(nn.Module):
         for name in list(module.params):
             del module.params[name]
         self._weights = _LoRAWeights(self)
+        self._source = None        # the engine's weights of the adapters
+        self._whole_cache = None   # a forward's whole frozen leaves
+        self._placed = None        # (fsdp size, index) once placed
+
+    def place_frozen(self, topology) -> None:
+        """Split the frozen base over the topology's fsdp axis, as JAX's
+        ``place_frozen`` shards it with ``fsdp_spec_tree`` (the engine
+        calls it once the mesh exists; a collective that makes the fsdp
+        groups): each leaf of at least 4096 elements on its largest dim
+        that the fsdp size divides, a QuantizedParameter's codes and
+        scales each on its own. Nothing moves at fsdp size 1."""
+        from ..utils import groups
+        world = topology.sizes["fsdp"]
+        index = topology.axis_index(("fsdp",))
+        if world <= 1 or self._placed == (world, index):
+            return
+        group = groups.axis_group(("fsdp",), topology)
+        self.frozen = {name: _place(leaf, world, index, group)
+                       for name, leaf in self.frozen.items()}
+        self._placed = (world, index)
+
+    def frozen_bytes(self) -> int:
+        """The frozen base's bytes on this rank."""
+        return sum(leaf.nbytes for leaf in self.frozen.values())
+
+    @contextlib.contextmanager
+    def using_weights(self, source):
+        """Read the adapters from ``source`` (the engine's per-layer
+        ZeRO-3 schedule: ``source[name]``, ``source.layer(i)[key]``)
+        instead of :attr:`params`."""
+        prev, self._source = self._source, source
+        try:
+            yield
+        finally:
+            self._source = prev
+
+    @contextlib.contextmanager
+    def _reading(self):
+        """One pass of the wrapped model on the merged weights: each whole
+        frozen leaf (the embeddings, the final norm) read once, the layers
+        where they are read."""
+        with self.module.using_weights(self._weights):
+            if self._whole_cache is not None:
+                yield
+                return
+            self._whole_cache = {}
+            try:
+                yield
+            finally:
+                self._whole_cache = None
 
     # --- the engine's protocol (DecoderLM's) ---------------------------
     def init_params(self, generator=None) -> None:
@@ -326,25 +461,25 @@ class LoRAModel(nn.Module):
                          self.lora_state.lora_config)
 
     def loss(self, batch) -> torch.Tensor:
-        with self.module.using_weights(self._weights):
+        with self._reading():
             return self.module.loss(batch)
 
     def loss_terms(self, batch):
-        with self.module.using_weights(self._weights):
+        with self._reading():
             return self.module.loss_terms(batch)
 
     def apply(self, tokens, positions=None) -> torch.Tensor:
-        with self.module.using_weights(self._weights):
+        with self._reading():
             return self.module.apply(tokens, positions)
 
     forward = apply
 
     def init_cache(self, *a, **kw):
-        with self.module.using_weights(self._weights):
+        with self._reading():
             return self.module.init_cache(*a, **kw)
 
     def decode(self, tokens, cache):
-        with self.module.using_weights(self._weights):
+        with self._reading():
             return self.module.decode(tokens, cache)
 
     def flops_per_token(self, *a, **kw):

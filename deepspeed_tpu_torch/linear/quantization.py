@@ -19,6 +19,15 @@ versions. 4 and 6 bits, other block sizes and the fp formats
 (``ops/fp_quant.py``) have no TPU kernel in JAX and are torch ops on any
 device.
 
+**Across ranks** a LoRAModel's frozen base is split over fsdp as JAX's
+``place_frozen`` splits it (``fsdp_spec_tree``, kept here as
+:func:`fsdp_split_dim`): a QuantizedParameter's ``codes`` and ``scales``
+each on its own dim (:meth:`QuantizedParameter.placed`), so a rank holds
+a range of blocks, or of every block's columns. ``dequantize_range``
+then gathers the blocks it reads from the ranks that hold them
+(:class:`FrozenSplit`), so the result is the whole parameter's bit for
+bit: the codes and scales are moved, not recomputed.
+
 **Weight-only int8 serving** (``quantize_dense_params``,
 ``dequantize_dense`` and their helpers) lives in ``ops/quantization.py``,
 beside the other quantization ops, so that ``models/`` reads it without
@@ -33,6 +42,7 @@ from typing import Any
 
 import torch
 
+from ..comm import comm
 from ..ops import quantization as Q
 from ..ops.quantization import (dequantize_dense,  # noqa: F401
                                 dequantize_weight, quantizable_leaf,
@@ -41,6 +51,63 @@ from ..ops.quantization import (dequantize_dense,  # noqa: F401
 from .config import QuantizationConfig
 
 KERNEL_BLOCK = Q.QBLOCK       # the block the quantize kernels take
+FSDP_MIN_SIZE = 2 ** 12       # JAX fsdp_spec_tree min_size
+
+
+def fsdp_split_dim(shape, world: int, min_size: int = FSDP_MIN_SIZE
+                   ) -> int | None:
+    """The dim JAX's ``fsdp_spec_tree`` splits a leaf of ``shape`` on over
+    ``world`` fsdp ranks (``deepspeed_tpu/parallel/partition.py:126``):
+    none below ``min_size`` elements, else the largest dim that ``world``
+    divides (the first on ties), or none."""
+    if world <= 1 or math.prod(shape) < min_size:
+        return None
+    candidates = [d for d in range(len(shape)) if shape[d] % world == 0]
+    if not candidates:
+        return None
+    return max(candidates, key=lambda d: shape[d])
+
+
+@dataclasses.dataclass(frozen=True)
+class FrozenSplit:
+    """A frozen leaf split on ``dim`` into ``world`` equal chunks over the
+    ranks of ``group``; this rank holds chunk ``index``."""
+
+    dim: int
+    world: int
+    index: int
+    group: Any = None
+
+    def full_shape(self, shard_shape) -> tuple:
+        shape = list(shard_shape)
+        shape[self.dim] *= self.world
+        return tuple(shape)
+
+    def rows(self, shard: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """Rows [lo, hi) of dim 0 of the whole leaf, from this rank's
+        ``shard`` and the others' (a collective over ``group``: every rank
+        calls it with the same range). Split on dim 0, each row range a
+        rank holds is broadcast from it, in rank order; split on another
+        dim, the ranks' pieces of those rows are all-gathered along it."""
+        if self.dim != 0:
+            return comm.all_gather(shard[lo:hi], group=self.group,
+                                   axis=self.dim)
+        per = shard.shape[0]
+        pieces = []
+        for r in range(lo // per, (hi - 1) // per + 1):
+            a, b = max(lo, r * per), min(hi, (r + 1) * per)
+            buf = (shard[a - r * per:b - r * per].clone()
+                   if r == self.index else
+                   torch.empty((b - a, *shard.shape[1:]), dtype=shard.dtype,
+                               device=shard.device))
+            pieces.append(comm.broadcast_async(buf, r, self.group))
+        out = [p.wait() for p in pieces]
+        return out[0] if len(out) == 1 else torch.cat(out)
+
+    def cut(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of the whole leaf ``full`` (a copy of its
+        own, so the whole can be freed)."""
+        return full.chunk(self.world, self.dim)[self.index].clone()
 
 
 def _kernel_format(q_format: str, q_bits: int, group: int) -> bool:
@@ -62,10 +129,46 @@ class QuantizedParameter:
     q_bits: int = 8
     q_format: str = "int"
     mantissa_bits: int = 3
+    # placed across ranks (:meth:`placed`): how codes and scales are split
+    codes_split: FrozenSplit | None = None
+    scales_split: FrozenSplit | None = None
 
     @property
     def ndim(self) -> int:
         return len(self.shape)
+
+    @property
+    def nblocks(self) -> int:
+        split = self.codes_split
+        if split is not None and split.dim == 0:
+            return self.codes.shape[0] * split.world
+        return self.codes.shape[0]
+
+    def placed(self, world: int, index: int, group=None
+               ) -> "QuantizedParameter":
+        """This rank's shard over ``world`` fsdp ranks (``index`` its chunk,
+        ``group`` theirs), as JAX's ``place_frozen`` splits the codes
+        ``[nblocks, group]`` and the scales ``[nblocks, 1]``, each under
+        :func:`fsdp_split_dim`'s rule."""
+        if self.codes_split is not None or self.scales_split is not None:
+            raise ValueError("the parameter is placed already")
+        out = {}
+        for field in ("codes", "scales"):
+            full = getattr(self, field)
+            dim = fsdp_split_dim(tuple(full.shape), world)
+            if dim is None:
+                out[field], out[field + "_split"] = full, None
+            else:
+                split = FrozenSplit(dim, world, index, group)
+                out[field], out[field + "_split"] = split.cut(full), split
+        return dataclasses.replace(self, **out)
+
+    def _blocks(self, b0: int, b1: int):
+        """Codes and scales of blocks [b0, b1), gathered where placed."""
+        def rows(t, split):
+            return t[b0:b1] if split is None else split.rows(t, b0, b1)
+        return (rows(self.codes, self.codes_split),
+                rows(self.scales, self.scales_split))
 
     @property
     def numel(self) -> int:
@@ -74,12 +177,16 @@ class QuantizedParameter:
     @property
     def group_size(self) -> int:
         width = self.codes.shape[-1]
+        split = self.codes_split
+        if split is not None and split.dim == self.codes.ndim - 1:
+            width *= split.world
         if self.q_format == "fp" and self.q_bits != 8:
             return width * 8 // self.q_bits
         return width
 
     @property
     def nbytes(self) -> int:
+        """The bytes this rank holds (its shard, where placed)."""
         return (self.codes.numel() * self.codes.element_size()
                 + self.scales.numel() * self.scales.element_size())
 
@@ -93,11 +200,13 @@ class QuantizedParameter:
         """Flat elements [start, stop) dequantized, in ``dtype`` (the
         parameter's by default): only the blocks that hold them are
         read, so a caller takes one layer of a stacked ``[L, in, out]``
-        parameter at a time."""
+        parameter at a time. Placed across ranks, those blocks are
+        gathered from the ranks that hold them (a collective: every rank
+        reads the same range)."""
         dtype = dtype or self.dtype
         g = self.group_size
         b0, b1 = start // g, -(-stop // g)
-        codes, scales = self.codes[b0:b1], self.scales[b0:b1]
+        codes, scales = self._blocks(b0, b1)
         off = start - b0 * g
         if self.q_format == "fp":
             from ..ops.fp_quant import fp_dequantize

@@ -20,7 +20,10 @@ flax modules and (init, apply, loss) function triples. Here:
 Without ``loss_fn`` the loss is JAX's next-token cross entropy on
 ``(tokens, targets)`` or ``{"tokens", "targets"}``, with ``loss_terms``
 for the engine's exact reduction across ranks. A caller's ``loss_fn``
-cannot be split into a sum and a count, so it trains on one rank only.
+cannot be split into a sum and a count (``loss_splits`` is false): across
+ranks the engine takes it in JAX's forms instead (``runtime/engine.py``
+``_micro_loss``): over the global micro-batch on the exact wire, over
+each rank's rows, averaged, on the ZeRO++ wire.
 """
 
 from __future__ import annotations
@@ -34,10 +37,8 @@ from ..ops.layers import cross_entropy_terms
 from ..utils.device import resolve_device
 from .convert import flatten_tree
 
-LOSS_FN_ACROSS_RANKS = (
-    "a model with its own loss_fn across ranks: the engine's exact "
-    "reduction needs the loss as (summed NLL, count of targets), which a "
-    "loss_fn does not give (ROADMAP Slice D item 11)")
+LOSS_FN_TERMS = ("a model with its own loss_fn has no (summed NLL, count "
+                 "of targets) form: call loss(batch)")
 
 
 def _unflatten(flat: dict) -> dict:
@@ -67,8 +68,8 @@ class _Adapter:
 
     @property
     def loss_splits(self) -> bool:
-        """Whether ``loss_terms`` gives (sum, count): the engine across
-        ranks needs it."""
+        """Whether ``loss_terms`` gives (sum, count): the engine's exact
+        reduction across ranks reads it, else takes the loss whole."""
         return self._loss is None
 
     def loss(self, batch) -> torch.Tensor:
@@ -79,7 +80,7 @@ class _Adapter:
 
     def loss_terms(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         if self._loss is not None:
-            raise NotImplementedError(LOSS_FN_ACROSS_RANKS)
+            raise NotImplementedError(LOSS_FN_TERMS)
         tokens, targets = _tokens_and_targets(batch)
         return cross_entropy_terms(self.apply(tokens), targets)
 

@@ -17,6 +17,7 @@ padding mask as an additive bias, as in JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -125,6 +126,7 @@ class Bert(nn.Module):
             name: nn.Parameter(torch.empty(shape, device=self.device,
                                            dtype=dt))
             for name, (shape, _) in self._init_spec.items()})
+        self._source = None
 
     def _param_spec(self) -> dict[str, tuple[tuple[int, ...], object]]:
         """name -> (shape, init), the JAX ``init`` tree flattened."""
@@ -156,6 +158,31 @@ class Bert(nn.Module):
             self.params[name].copy_(init_value(shape, init, self.device,
                                                generator))
 
+    @contextlib.contextmanager
+    def using_weights(self, source):
+        """Run the model on ``source``'s weights (``DecoderLM.
+        using_weights``'s protocol: ``source[name]`` a leaf outside the
+        stacks, ``source.layer(i)`` layer i's parameters, read where the
+        layer reads them), as the engine's per-layer ZeRO-3 schedule
+        does."""
+        prev, self._source = self._source, source
+        try:
+            yield
+        finally:
+            self._source = prev
+
+    def _layers(self):
+        """Each layer's parameters in turn: the source's, else views of the
+        stacks (one ``unbind`` per stack: its backward stacks the layers'
+        grads in one pass)."""
+        if self._source is not None:
+            return (self._source.layer(i)
+                    for i in range(self.config.num_layers))
+        stacks = {k: self.params["layers/" + k].unbind(0)
+                  for k in self._layer_keys}
+        return ({k: v[i] for k, v in stacks.items()}
+                for i in range(self.config.num_layers))
+
     def _mask_bias(self, attention_mask):
         """[B, S] (1 real, 0 padding) -> the additive fp32 [B, 1, 1, S]
         bias, -1e30 on padding keys."""
@@ -174,17 +201,15 @@ class Bert(nn.Module):
             raise ValueError(
                 f"sequence length {tokens.shape[-1]} exceeds max_seq_len "
                 f"{c.max_seq_len}")
-        p = self.params
+        p = self.params if self._source is None else self._source
         x = p["embed/tokens"][tokens]
         x = x + p["embed/positions"][: tokens.shape[-1]][None]
         x = N.layer_norm(x, p["embed/ln_scale"], p["embed/ln_bias"],
                          c.norm_eps)
         bias = self._mask_bias(attention_mask)
-        stacks = {k: p["layers/" + k].unbind(0) for k in self._layer_keys}
-        for layer in range(c.num_layers):
-            x = transformer_layer(self.layer_config,
-                                  {k: v[layer] for k, v in stacks.items()},
-                                  x, attention_mask=bias)
+        for lp in self._layers():
+            x = transformer_layer(self.layer_config, lp, x,
+                                  attention_mask=bias)
         x = L.gelu(x @ p["mlm_head/transform_w"] + p["mlm_head/transform_b"])
         x = N.layer_norm(x, p["mlm_head/ln_scale"], p["mlm_head/ln_bias"],
                          c.norm_eps)

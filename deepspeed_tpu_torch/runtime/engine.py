@@ -27,8 +27,10 @@ loss])`` tuple, goes through ``models/adapters.py`` (JAX ``_as_model``).
 A ``linear.LoRAModel`` trains the same way: its ``params`` are the
 adapters, so the master, the grads and the optimizer state hold them
 alone, and the frozen base (int8 codes or float leaves) stays on the
-device beside them, read a layer at a time by the forward. It runs on one
-rank.
+device beside them, read a layer at a time by the forward. Across ranks
+the engine first has it split its base over fsdp as JAX's
+``place_frozen`` does (``LoRAModel.place_frozen``); a read of a layer's
+base then gathers its blocks from the ranks that hold them.
 
 State layout: the fp32 master, the grads and the optimizer's moments are
 each one flat buffer with a view per parameter (offsets aligned to 64
@@ -48,12 +50,40 @@ state at stage >= 1, the grads at stage >= 2, split over the state's
 group; the compute-dtype params at stage 3, over the parameters' group),
 split leaves first. Micro-batch i is rows [i*mb, (i+1)*mb) of the batch
 and rank r takes its contiguous 1/W of it, W the batch ranks and r its
-index over them. At stage 3 each micro-batch gathers the full params (the
-ZeRO++ qwZ wire or exact, one hop or two, ``runtime/zeropp.py``) into
-temporaries that the model's parameters view until its backward, which
+index over them. At stage 3 the parameters are gathered from every
+rank's shards:
+
+- **On the exact wire, a layer at a time** (:class:`_LayerStream`), for
+  a model that reads its layers from a weight source (the decoder
+  families, BERT, a LoRAModel's adapters): as JAX's scan over the layers
+  gathers layer l's slice of each split stack in the step that runs it.
+  The leaves outside the stacks (the embeddings, the final norm, an
+  untied head) are gathered whole once a micro-batch and held until its
+  backward. Layer l's split stacked leaves are gathered when the model
+  first reads layer l, with layer l+1's gathers started before layer l
+  computes (the prefetch), and dropped when the forward moves on:
+  autograd keeps where a saved weight came from, not the weight
+  (saved-tensor hooks), and a checkpointed segment reads it again. The
+  backward gathers layer l once more, for every read of its backward
+  (recomputed segments and saved weights alike), starts layer l-1's,
+  and reduce-scatters layer l's gradient into this rank's grad shard as
+  soon as the layer's backward is done (then all-reduces it over the
+  batch ranks that hold the same shard), copied for the first
+  micro-batch of a step and added for the others. ``eval_batch`` gathers
+  forward only. A model with no stacked layers keeps the whole gather.
+- **On the ZeRO++ wires** (qwZ, qgZ, the two-hop and fp8 wires) the
+  whole tree, as JAX's ``shard_map`` body gathers it before
+  ``value_and_grad`` and reduces the whole gradient tree after it: their
+  codes are held bit for bit to JAX's, and whether a leaf is quantized
+  depends on its whole shard's size.
+
+The whole-tree gather (``runtime/zeropp.py``) puts the full params into
+temporaries that the model's parameters view until the backward, which
 reduces the fp32 grads into this rank's grad shards (qgZ or exact) as
 stage 2 does, and all-reduces them over the batch ranks that hold the
-same shard (dp replicas, and fsdp under MiCS); at stage < 2 a rank
+same shard (dp replicas, and fsdp under MiCS); ``gathered_params`` and
+``save_16bit_model`` gather whole on every wire (a save-time call, as in
+JAX). At stage < 2 a rank
 accumulates its full local grads and reduces them once at the
 gradient-accumulation boundary, as the JAX triple defers them
 (``_defer_grads_ok``). The global grad norm all-reduces the split
@@ -69,8 +99,14 @@ micro-batch, so each rank divides its summed NLL by the count of valid
 targets over all ranks (all-reduced in the forward) and the ranks' grads
 are summed. On the ZeRO++ wire (qwZ or qgZ) JAX ``pmean``s the per-shard
 means (``runtime/zeropp.py:213-236``), so each rank takes the mean over
-its own rows and the grads are averaged over the ranks. Either way the
-loss a rank returns is the global one.
+its own rows and the grads are averaged over the ranks. A model's own
+``loss_fn`` cannot be split into a sum and a count: on the exact wire
+every batch rank evaluates it over the whole global micro-batch (the
+forward costs W times a rank's share) and keeps 1/W of its gradient; on
+the ZeRO++ wire it takes the per-rank mean as above; in the triple at
+stage < 2 each rank's gradient of it over its own rows, averaged, as
+JAX's deferred path keeps each device's. Either way the loss a rank
+returns is the global one.
 """
 
 from __future__ import annotations
@@ -80,9 +116,10 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from ..comm import comm
-from ..models.adapters import LOSS_FN_ACROSS_RANKS, wrap_model
+from ..models.adapters import wrap_model
 from ..models.convert import flatten_tree, materialize
 from ..models.transformer import check_training_options
 from ..parallel.mesh import BATCH_AXES, Topology, live_axes, set_topology
@@ -94,8 +131,9 @@ from .loss_scaler import grads_finite, init_loss_scale, update_loss_scale
 from .lr_schedules import LRSchedulerShim, build_schedule
 from .optimizers import build_optimizer
 from .zero import ZeroPlan, ZeroShardingPlan
-from .zeropp import (gather_params, hierarchical_allgather_unsupported_reason,
-                     reduce_grads)
+from .zeropp import (gather_layers, gather_params,
+                     hierarchical_allgather_unsupported_reason, reduce_grads,
+                     reduce_layers)
 
 # JAX gates an MoE batch over the global batch (SPMD sees one array): ranks
 # that each gated their own rows would size capacity on a different token
@@ -181,13 +219,9 @@ class DeepSpeedEngine:
         self.group = groups.axis_group(BATCH_AXES, self.topology)
         self.dp_world = self.topology.data_parallel_size
         self.dp_rank = self.topology.axis_index(BATCH_AXES)
-        if hasattr(model, "frozen") and self.dp_world > 1:
-            raise NotImplementedError(
-                "a LoRAModel across ranks: JAX shards its frozen base over "
-                "fsdp (place_frozen), the port holds it whole on one card "
-                "(ROADMAP Slice D item 11)")
-        if not getattr(model, "loss_splits", True) and self.dp_world > 1:
-            raise NotImplementedError(LOSS_FN_ACROSS_RANKS)
+        if hasattr(model, "place_frozen"):
+            # a LoRAModel's frozen base, split over fsdp as JAX places it
+            model.place_frozen(self.topology)
         if getattr(getattr(model, "config", None), "num_experts", 0) > 0 \
                 and self.dp_world > 1:
             raise NotImplementedError(MOE_ACROSS_RANKS)
@@ -396,6 +430,23 @@ class DeepSpeedEngine:
         self.opt_state = self.tx.init(master)
         self._step = torch.zeros((), dtype=torch.int32, device=dev)
         self._loss_scale = init_loss_scale(self.config.fp16, device=dev)
+        self._stream = self._layer_stream()
+
+    def _layer_stream(self) -> "_LayerStream | None":
+        """Stage 3's per-layer schedule on the exact wire, for a model
+        that reads its layers from a weight source (``using_weights``:
+        the decoder families, BERT, a LoRAModel) and has split stacked
+        ``layers/*`` leaves; None where the whole gather stays (the
+        ZeRO++ wires, an adapter's model, no split stack)."""
+        if self.zero_stage < 3 or self.zero.explicit_wire \
+                or not hasattr(self.module, "using_weights"):
+            return None
+        n = getattr(self.model_config, "num_layers", 0)
+        plan = self.plan
+        names = [name for name, dim in plan.param_dims.items()
+                 if dim is not None and name.startswith("layers/")
+                 and plan.shapes[name][0] == n]
+        return _LayerStream(self, names, n) if names else None
 
     def _own(self, full: torch.Tensor, dim) -> torch.Tensor:
         """This rank's chunk of ``full`` along ``dim`` (None: all of it) in
@@ -420,10 +471,12 @@ class DeepSpeedEngine:
         return torch.empty(0, dtype=self.compute_dtype, device=self.device)
 
     # --- ZeRO-3 gathers, reductions ------------------------------------
-    def _gathered(self, use_kernel=None) -> dict[str, torch.Tensor]:
+    def _gathered(self, use_kernel=None, skip=()) -> dict[str, torch.Tensor]:
         """Stage 3's split parameters in full (compute dtype), gathered
-        from every rank's shards over the qwZ or the exact wire."""
-        shards = self._param_shards()
+        from every rank's shards over the qwZ or the exact wire (those
+        named in ``skip`` left out)."""
+        shards = {n: s for n, s in self._param_shards().items()
+                  if n not in skip}
         if not shards:
             return {}
         return gather_params(shards, self.plan.param_dims,
@@ -434,8 +487,16 @@ class DeepSpeedEngine:
                              hierarchy=self._hierarchy)
 
     def _gather(self) -> None:
-        for name, full in self._gathered().items():
-            self.module.params[name].data = full
+        """Each micro-batch's whole gather: every split leaf, or with the
+        per-layer schedule the leaves outside the layer stacks (the
+        embeddings, the final norm, an untied head), which the model reads
+        as its own parameters until the backward."""
+        stream = self._stream
+        full = self._gathered(skip=stream.names if stream else ())
+        if stream is not None:
+            stream.counts["non_layer"] += len(full)
+        for name, t in full.items():
+            self.module.params[name].data = t
 
     def _release(self) -> None:
         """Drop stage 3's gathered parameters (the autograd graph keeps
@@ -478,29 +539,73 @@ class DeepSpeedEngine:
         k = rows // self.dp_world
         return self._micro(batch, self.dp_rank, k)
 
-    def _micro_loss(self, micro):
+    def _micro_loss(self, micro, triple: bool = False):
         """The loss of one global micro-batch from this rank's rows, with
-        stage 3's parameters gathered for its forward. Its value is the
-        global loss; its gradient is this rank's share, which the
-        reduction sums (exact wire: the local NLL sum over the global count
-        of valid targets) or averages (ZeRO++ wire: the local mean)."""
+        stage 3's parameters gathered for its forward (whole, or a layer
+        at a time). Its value is the global loss; its gradient is this
+        rank's share, which the reduction sums (exact wire: the local NLL
+        sum over the global count of valid targets) or averages (ZeRO++
+        wire: the local mean). A model's own ``loss_fn`` is a black box:
+        on the exact wire every batch rank evaluates it over the whole
+        global micro-batch, as JAX differentiates it there, and keeps 1/W
+        of its gradient, so the sum over the ranks is JAX's gradient (the
+        forward costs W times a rank's share). In the triple at stage < 2,
+        whose reduction waits for the boundary, JAX keeps each device's
+        gradient of the ``loss_fn`` over its own rows and averages them
+        (``local_value_and_grad``), its loss the global micro-batch's:
+        so does the port."""
         self._gather()
         local = self._local_rows(micro)
-        if self.dp_world == 1:
-            return self.module.loss(local)
-        if self._per_rank_mean:
-            loss = self.module.loss(local)
-            total = comm.all_reduce(loss.detach().clone(),
-                                    comm.ReduceOp.AVG, self.group)
-        else:
-            nll, count = self.module.loss_terms(local)
-            sums = comm.all_reduce(
-                torch.stack((nll.detach(), count.to(nll.dtype))),
-                group=self.group)
-            loss = nll / torch.clamp(sums[1], min=1)
-            total = sums[0] / torch.clamp(sums[1], min=1)
+        with self._layer_weights():
+            if self.dp_world == 1:
+                return self.module.loss(local)
+            share = 1.0 / self.dp_world
+            if self._per_rank_mean:
+                loss = self.module.loss(local)
+                total = comm.all_reduce(loss.detach().clone(),
+                                        comm.ReduceOp.AVG, self.group)
+            elif not getattr(self.module, "loss_splits", True):
+                if not (triple and self._defer_reduce):
+                    return _ScaleGrad.apply(self.module.loss(micro), share)
+                with torch.no_grad():
+                    total = self.module.loss(micro)
+                loss = _ScaleGrad.apply(self.module.loss(local), share)
+            else:
+                nll, count = self.module.loss_terms(local)
+                sums = comm.all_reduce(
+                    torch.stack((nll.detach(), count.to(nll.dtype))),
+                    group=self.group)
+                loss = nll / torch.clamp(sums[1], min=1)
+                total = sums[0] / torch.clamp(sums[1], min=1)
         # the global value, with the gradient of this rank's share
         return loss + (total - loss.detach())
+
+    def _layer_weights(self):
+        """The forward's weight source: the per-layer schedule's, else the
+        model's own parameters."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return self._stream.forward(torch.is_grad_enabled())
+
+    def stage3_counts(self) -> dict:
+        """The per-layer schedule's counts since the last
+        :meth:`reset_stage3_counts`: layer gathers in the forward
+        (``layer_forward``) and again in the backward (``layer_backward``),
+        one per layer each (every split stacked leaf of the layer), the
+        leaves gathered whole a micro-batch (``non_layer``), the layers'
+        gradient reductions (``layer_reductions``) and those made outside
+        a backward (``reductions_outside_backward``), the most layers
+        whose gathered tensors were alive at once (``max_live_layers``,
+        the prefetched one included); None without the schedule."""
+        stream = self._stream
+        if stream is None:
+            return None
+        return dict(stream.counts, max_live_layers=stream.max_live_layers,
+                    layers=stream.n_layers, streamed=list(stream.names))
+
+    def reset_stage3_counts(self) -> None:
+        if self._stream is not None:
+            self._stream.reset_counts()
 
     def _flops_per_sample(self):
         """Training FLOPs a sample at the model's max_seq_len; None where
@@ -540,9 +645,14 @@ class DeepSpeedEngine:
         >= 2 the grads are first reduced to this rank's shards; at stage <
         2 the full local grads accumulate until the boundary."""
         scale = self._loss_scale.scale
-        (loss * scale if self.fp16_enabled else loss).backward(
-            retain_graph=retain_graph)
-        grads = {n: p.grad for n, p in self.module.params.items()}
+        stream = self._stream
+        with (stream.backward(first) if stream is not None
+              else contextlib.nullcontext()):
+            (loss * scale if self.fp16_enabled else loss).backward(
+                retain_graph=retain_graph)
+        # the per-layer schedule reduced the stacks' grads in the backward
+        grads = {n: p.grad for n, p in self.module.params.items()
+                 if stream is None or n not in stream.names}
         for p in self.module.params.values():
             p.grad = None
         if not retain_graph:
@@ -697,7 +807,8 @@ class DeepSpeedEngine:
         only the latest loss (for ``backward(None)``), so the graph of a
         ``forward`` that no ``backward`` consumed is freed by the next
         ``forward`` once the caller drops it."""
-        self._last_loss = self._micro_loss(self._put_batch(batch))
+        self._last_loss = self._micro_loss(self._put_batch(batch),
+                                           triple=True)
         return self._last_loss
 
     __call__ = forward
@@ -836,6 +947,283 @@ class DeepSpeedEngine:
         dims = self.plan.master_dims
         return {n: self._gather_state(v, dims[n])
                 for n, v in self.master_state_dict().items()}
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """``x`` as it is, its gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+class _GatherLayer(torch.autograd.Function):
+    """Layer ``layer``'s split stacked leaves gathered in full (the
+    outputs, in the stream's ``names`` order); its backward reduces their
+    gradients into this rank's grad shards as soon as the layer's
+    backward has made them. ``anchor`` only makes the outputs require
+    grad."""
+
+    @staticmethod
+    def forward(ctx, stream, layer, anchor):
+        ctx.stream, ctx.layer = stream, layer
+        full = stream.collect(layer)
+        return tuple(full[n] for n in stream.names)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.stream.reduce(ctx.layer, grads)
+        return None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class _Saved:
+    """What autograd keeps of a gathered layer tensor it saves: where to
+    find it again (the layer, the leaf and the view of it)."""
+    layer: int
+    name: str
+    size: tuple
+    stride: tuple
+    offset: int
+
+
+class _LayerParams:
+    """Layer ``layer``'s parameters keyed as the model's layer ``p``
+    (``"wq"``, a LoRAModel's ``"wq/a"``): a split stacked leaf from the
+    stream, read where the model reads it; the others as slices of the
+    model's parameters. Holds no tensor, so a checkpointed segment that
+    closes over it keeps none alive."""
+
+    def __init__(self, stream: "_LayerStream", layer: int):
+        self._stream, self._layer = stream, layer
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        name = "layers/" + key
+        stream = self._stream
+        if name in stream.names:
+            return stream.tensor(self._layer, name)
+        return stream.params[name][self._layer]
+
+    def __contains__(self, key: str) -> bool:
+        return "layers/" + key in self._stream.params
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self else default
+
+
+class _StreamSource:
+    """The weight source (``DecoderLM.using_weights``) of the per-layer
+    schedule: the leaves outside the stacks are the model's parameters
+    (gathered whole for the micro-batch), ``layer(i)`` layer i's."""
+
+    def __init__(self, stream: "_LayerStream"):
+        self._stream = stream
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._stream.params[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._stream.params
+
+    def layer(self, layer: int) -> _LayerParams:
+        return _LayerParams(self._stream, layer)
+
+
+class _LayerStream:
+    """Stage 3's schedule on the exact wire, a layer at a time (JAX's
+    scan over the layers, in which XLA gathers layer l's slice of each
+    split stack inside the step that runs it, and reduce-scatters its
+    gradient inside the backward step).
+
+    Forward: when the model first reads layer l, its split stacked leaves
+    are gathered (all of them in one collective, ``gather_layers``, under
+    one ``_GatherLayer``), the layer before is dropped and layer l+1's
+    gather is started (the prefetch). Autograd saves no gathered tensor:
+    the saved-tensor hooks keep where it came from instead, and a
+    checkpointed segment reads the layer again when it recomputes. Backward: the first read of layer l (a segment's recompute
+    or a saved tensor's unpack) gathers it again, once for all its reads,
+    and starts layer l-1's; the ``_GatherLayer`` of layer l reduces the
+    layer's gradients (``reduce_layers``: one reduce-scatter, then one
+    all-reduce over the rest group) into the grad shards once the
+    layer's backward is done: copied for the first micro-batch of a step,
+    added for the others. So at most two layers' gathered tensors live at
+    once. Every rank issues these collectives in the same order: the
+    model's layer order and autograd's, the same on every rank."""
+
+    def __init__(self, engine: "DeepSpeedEngine", names, n_layers: int):
+        self.engine = engine
+        self.params = engine.module.params
+        self.names = tuple(names)
+        self.n_layers = n_layers
+        self.source = _StreamSource(self)
+        self.first = True
+        self._cache = {}        # layer -> {name: gathered tensor}
+        self._pending = {}      # layer -> comm.Pending of its gathers
+        self._saved = {}        # storage pointer -> (layer, name, weak ref)
+        self._live = []         # (layer, weak ref) of gathered storages
+        self._anchor = None
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        self.counts = dict(layer_forward=0, layer_backward=0, non_layer=0,
+                           layer_reductions=0, reductions_outside_backward=0)
+        self.max_live_layers = 0
+        self.events = []        # the last micro-step's, in order
+
+    # --- the gathers --------------------------------------------------
+    def _issue(self, layer: int) -> comm.Pending:
+        """Layer ``layer``'s gathers, started: one collective for the
+        layer (``gather_layers``)."""
+        engine = self.engine
+        shards = engine._param_shards()
+        return gather_layers({n: shards[n] for n in self.names},
+                             engine.plan.param_dims, layer,
+                             engine.param_split.group)
+
+    def _prefetch(self, layer: int) -> None:
+        if 0 <= layer < self.n_layers and layer not in self._pending:
+            self._pending[layer] = self._issue(layer)
+            self._note_live(layer)
+
+    def collect(self, layer: int) -> dict:
+        """Layer ``layer``'s gathered tensors (the prefetched gathers
+        waited for, else gathered now)."""
+        pending = self._pending.pop(layer, None) or self._issue(layer)
+        full = pending.wait()
+        for name, t in full.items():
+            storage = t.untyped_storage()
+            ref = StorageWeakRef(storage)
+            self._saved[storage.data_ptr()] = (layer, name, ref)
+            self._live.append((layer, ref))
+        self._note_live(layer)
+        return full
+
+    def _note_live(self, layer: int) -> None:
+        self._live = [(l, r) for l, r in self._live if not r.expired()]
+        self._saved = {k: v for k, v in self._saved.items()
+                       if not v[2].expired()}
+        live = {l for l, _ in self._live} | set(self._pending) | {layer}
+        self.max_live_layers = max(self.max_live_layers, len(live))
+
+    def tensor(self, layer: int, name: str) -> torch.Tensor:
+        full = self._cache.get(layer)
+        if full is None:
+            if torch._C._current_graph_task_id() != -1:
+                full = self._backward_layer(layer)
+            else:
+                full = self._forward_layer(layer)
+        return full[name]
+
+    def _forward_layer(self, layer: int) -> dict:
+        self._cache.clear()      # the layer before: autograd keeps no copy
+        if self._anchor is not None:
+            full = dict(zip(self.names, _GatherLayer.apply(
+                self, layer, self._anchor)))
+        else:
+            full = self.collect(layer)
+        self.counts["layer_forward"] += 1
+        self.events.append(("forward", layer))
+        self._cache[layer] = full
+        self._prefetch(layer + 1)
+        return full
+
+    def _backward_layer(self, layer: int) -> dict:
+        self._cache.clear()
+        full = self.collect(layer)
+        for t in full.values():   # as in the forward, for the recompute
+            t.requires_grad_(True)
+        self.counts["layer_backward"] += 1
+        self.events.append(("backward", layer))
+        self._cache[layer] = full
+        self._prefetch(layer - 1)
+        return full
+
+    def _drain(self) -> None:
+        for pending in self._pending.values():
+            pending.wait()
+        self._pending.clear()
+        self._cache.clear()
+
+    # --- autograd's saved tensors ---------------------------------------
+    def pack(self, t: torch.Tensor):
+        entry = self._saved.get(t.untyped_storage().data_ptr())
+        if entry is None or entry[2].expired():
+            return t
+        return _Saved(entry[0], entry[1], tuple(t.size()), t.stride(),
+                      t.storage_offset())
+
+    def unpack(self, saved):
+        if not isinstance(saved, _Saved):
+            return saved
+        full = self.tensor(saved.layer, saved.name).detach()
+        return full.as_strided(saved.size, saved.stride, saved.offset)
+
+    # --- the reductions -------------------------------------------------
+    def reduce(self, layer: int, grads) -> None:
+        """Layer ``layer``'s full local gradients into this rank's grad
+        shards (``reduce_layers``: one reduce-scatter for the layer, then
+        one all-reduce over the rest group), copied on the first
+        micro-batch of a step, else added."""
+        engine = self.engine
+        split = engine.state_split
+        dims = engine.plan.grad_dims
+        grads = dict(zip(self.names, grads))
+        whole = {n: g for n, g in grads.items() if dims[n] is None}
+        pieces = reduce_layers({n: g for n, g in grads.items()
+                                if n not in whole}, dims, layer,
+                               self.n_layers, split.group,
+                               engine._rest_group)
+        for name, g in whole.items():    # a leaf the state does not split
+            pieces[name] = comm.all_reduce(g.float().clone(),
+                                           group=engine.group)
+        per = self.n_layers // split.world
+        for name, piece in pieces.items():
+            if piece is None:             # a dim-0 layer another rank holds
+                continue
+            view = engine._local_grad_views[name]
+            out = view[layer % per] if dims[name] == 0 else view[layer]
+            if self.first:
+                out.copy_(piece)
+            else:
+                out.add_(piece)
+        self.counts["layer_reductions"] += 1
+        if torch._C._current_graph_task_id() == -1:
+            self.counts["reductions_outside_backward"] += 1
+        self.events.append(("reduce", layer))
+
+    # --- the passes -----------------------------------------------------
+    @contextlib.contextmanager
+    def forward(self, grad: bool):
+        """A micro-batch's forward on the stream's weights: layer 0's
+        gathers started at once; with ``grad`` the saved-tensor hooks on
+        and the layers' gathers in the graph."""
+        self._drain()
+        self.events = []
+        self._anchor = (torch.empty(0, device=self.engine.device,
+                                    requires_grad=True) if grad else None)
+        self._prefetch(0)
+        hooks = (torch.autograd.graph.saved_tensors_hooks(self.pack,
+                                                           self.unpack)
+                 if grad else contextlib.nullcontext())
+        try:
+            with self.engine.module.using_weights(self.source), hooks:
+                yield
+        finally:
+            self._anchor = None
+            self._drain()
+
+    @contextlib.contextmanager
+    def backward(self, first: bool):
+        self.first = first
+        try:
+            yield
+        finally:
+            self._drain()
 
 
 def _as_model(model, dont_change_device=False):

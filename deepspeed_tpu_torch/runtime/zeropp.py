@@ -30,6 +30,21 @@ eagerly on ``torch.distributed`` process groups (``utils/groups.py``):
   wire each rank's loss is its NLL sum over the global count of valid
   targets, JAX's mean over the global batch, and the sum is the answer.
 
+On the exact wire the engine gathers and reduces a layer at a time
+(JAX's scan over the layers, in which XLA gathers each layer's slice and
+reduce-scatters its gradient inside the step that runs it):
+:func:`gather_layers` gathers layer l of the split stacked leaves from
+this rank's shards in one collective (started, so layer l+1's runs while
+layer l computes: the engine's prefetch) and :func:`reduce_layers`
+reduces layer l's gradients into the grad shards' layer in one, then
+over the rest group; each is layer l of the whole-tree exact halves
+above bit for bit at two ranks a group. The
+ZeRO++ wires keep the whole tree, as JAX's ``shard_map`` body gathers it
+before ``value_and_grad`` (``deepspeed_tpu/runtime/zeropp.py:215-219``)
+and reduces the gradient tree after it (``:227-233``): their codes are
+held to JAX's bit for bit, and whether a leaf is quantized depends on its
+whole shard's size (``MIN_QUANT_SIZE``).
+
 The wire applies to the data-parallel meshes (tp = sp = pp = ep = 1),
 the only ones the port runs (``parallel/mesh.py``).
 """
@@ -157,6 +172,100 @@ def reduce_grads(grads: dict, dims: dict, *, n_batch: int,
                                wire_dtype, hierarchy, batch_group,
                                rest_group)
             for name, g in grads.items()}
+
+
+def _owner(layer: int, n_layers: int, group) -> tuple[int, int]:
+    """(the group rank holding layer ``layer`` of a stack split on its
+    layer dim, the layer's index in that rank's shard)."""
+    return divmod(layer, n_layers // comm.get_world_size(group))
+
+
+def gather_layers(shards: dict, dims: dict, layer: int, group=None
+                  ) -> comm.Pending:
+    """Layer ``layer`` of stacked ``[L, ...]`` parameters in full, from
+    this rank's ``shards`` (name -> its shard, split on ``dims[name]``
+    over ``group``), started (the exact wire; ``wait()`` gives name -> the
+    layer, each in a storage of its own). The slices ``shard[layer]`` of
+    the leaves split on dim > 0 go packed flat through one all-gather, so
+    a layer costs one collective, and each leaf's part is assembled along
+    its ``dim - 1``; a leaf split on dim 0, where each rank holds L / W
+    whole layers, is broadcast from the rank holding the layer. Bit for
+    bit layer ``layer`` of :func:`gather_params`' exact gather."""
+    packed = [n for n in shards if dims[n]]
+    slices = {n: shards[n][layer] for n in packed}
+    flat = (comm.all_gather_async(
+        torch.cat([slices[n].reshape(-1) for n in packed]), group)
+        if packed else None)
+    alone = {}
+    for n in shards:
+        if dims[n] is None:
+            raise ValueError(f"{n}: gather_layers takes parameters split "
+                             f"over group")
+        if dims[n] == 0:
+            shard = shards[n]
+            owner, local = _owner(layer, shard.shape[0]
+                                  * comm.get_world_size(group), group)
+            buf = (shard[local].clone() if comm.get_rank(group) == owner
+                   else torch.empty(shard.shape[1:], dtype=shard.dtype,
+                                    device=shard.device))
+            alone[n] = comm.broadcast_async(buf, owner, group)
+
+    def result():
+        out = {}
+        if flat is not None:
+            world = comm.get_world_size(group)
+            rows = flat.wait().view(world, -1)
+            off = 0
+            for n in packed:
+                shape, k = slices[n].shape, slices[n].numel()
+                piece = rows[:, off:off + k].reshape(world, *shape)
+                out[n] = comm.assemble(piece, dims[n] - 1)
+                off += k
+        out.update({n: h.wait() for n, h in alone.items()})
+        return {n: out[n] for n in shards}
+
+    return comm.Pending(None, result)
+
+
+def reduce_layers(grads: dict, dims: dict, layer: int, n_layers: int,
+                  group=None, rest_group=None) -> dict:
+    """This rank's fp32 part of the batch ranks' sum of layer ``layer``'s
+    full local gradients ``grads`` (name -> the layer's gradient of a
+    stacked leaf whose gradient is split on ``dims[name]`` over ``group``;
+    the exact wire): those split on dim > 0 packed into one reduce-scatter
+    (each leaf's chunk along its ``dim - 1``), a dim-0 one reduced to the
+    rank that holds the layer (None on the others); then the all-reduce
+    over ``rest_group``, the batch ranks that hold the same shard (dp
+    replicas; fsdp and dp under MiCS). Bit for bit layer ``layer`` of
+    :func:`reduce_grads`' exact reduction at two ranks a group (a sum of
+    two values has one order)."""
+    world = comm.get_world_size(group)
+    out = {}
+    packed = [n for n in grads if dims[n]]
+    if packed:
+        rows = [comm.split_rows(grads[n].float(), world, dims[n] - 1)
+                for n in packed]
+        piece = comm.reduce_scatter(torch.cat(rows, dim=1).view(-1), group)
+        if rest_group is not None:
+            comm.all_reduce(piece, group=rest_group)
+        off = 0
+        for n, r in zip(packed, rows):
+            out[n] = piece[off:off + r.shape[1]].view(
+                comm.chunk_shape(grads[n].shape, world, dims[n] - 1))
+            off += r.shape[1]
+    for n in grads:
+        if dims[n] is None:
+            raise ValueError(f"{n}: reduce_layers takes gradients split "
+                             f"over group")
+        if dims[n] == 0:
+            owner, _ = _owner(layer, n_layers, group)
+            mine = comm.reduce(grads[n].float().clone(), owner, group)
+            out[n] = None
+            if comm.get_rank(group) == owner:
+                if rest_group is not None:
+                    comm.all_reduce(mine, group=rest_group)
+                out[n] = mine
+    return {n: out[n] for n in grads}
 
 
 def hierarchical_allgather_unsupported_reason(

@@ -40,6 +40,17 @@ from deepspeed_tpu_torch.serving import (AsyncInferenceServer,
                                          RequestFailed, RouterConfig,
                                          ServingConfig)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side runs tiny models: one intra-op thread a worker
+    keeps it from spinning against the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PROMPT = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11]
 ENGINE_KW = dict(dtype="float32", kv_block_size=8, num_kv_blocks=64,
                  max_chunk_size=16, prefix_cache={"enabled": True})

@@ -34,6 +34,17 @@ from deepspeed_tpu_torch import models as tm
 from deepspeed_tpu_torch.inference.auto_tp import auto_tp_rules, get_tp_rules
 from deepspeed_tpu_torch.models.convert import flatten_tree
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side runs tiny models: one intra-op thread a worker
+    keeps it from spinning against the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NEAR_TIE = 1e-4
 # family -> model overrides: the cache's window (Mistral, a window of 5
 # so it cuts within the test's sequences), ALiBi (Bloom), parallel

@@ -38,6 +38,17 @@ from deepspeed_tpu_torch.inference.v2.ragged import (kv_block_bytes,
                                                      quantized_block_budget)
 from deepspeed_tpu_torch.ops import quantization as tquant
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side runs tiny models: one intra-op thread a worker
+    keeps it from spinning against the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 ENGINE_KW = dict(dtype="float32", kv_block_size=8, num_kv_blocks=32,
                  max_chunk_size=16)

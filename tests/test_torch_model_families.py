@@ -34,6 +34,17 @@ from deepspeed_tpu_torch.inference.v2 import build_engine
 from deepspeed_tpu_torch.inference.v2 import engine_factory as tfactory
 from deepspeed_tpu_torch.models.convert import flatten_tree
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side runs tiny models: one intra-op thread a worker
+    keeps it from spinning against the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # name -> (config function, its presets)
 PRESETS = {
     "gpt2": ("gpt2_config", ("tiny", "125m", "350m", "1.3b")),

@@ -28,6 +28,17 @@ from deepspeed_tpu_torch.models.convert import flatten_tree
 from deepspeed_tpu_torch.models.transformer import (POLICY_FACTORIES,
                                                     REMAT_POLICIES)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side runs tiny models: one intra-op thread a worker
+    keeps it from spinning against the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FAMILIES = {"gpt2": (JGPT2, GPT2), "llama": (JLlama, Llama)}
 _aten = torch.ops.aten
 

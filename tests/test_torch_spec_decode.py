@@ -32,6 +32,17 @@ from deepspeed_tpu_torch.inference.v2 import (RaggedInferenceEngineConfig,
                                               build_engine, paged)
 from deepspeed_tpu_torch.inference.v2.serve_loop import FusedServeLoop
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side runs tiny models: one intra-op thread a worker
+    keeps it from spinning against the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 ENGINE_KW = dict(dtype="float32", kv_block_size=8, num_kv_blocks=128,
                  max_chunk_size=16)

@@ -29,6 +29,17 @@ from deepspeed_tpu_torch.runtime import loss_scaler as TS
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.lr_schedules import build_schedule
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side runs tiny models: one intra-op thread a worker
+    keeps it from spinning against the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FAMILIES = {"gpt2": (JGPT2, GPT2), "llama": (JLlama, Llama)}
 
 

@@ -9,18 +9,22 @@ sub-meshes of conftest's 8 CPU devices. The collectives and the engine run
 in two CPU ranks on gloo, spawned once for the whole file (a file store
 under tmp_path, a 120 s deadline after which both are killed and the test
 fails); they import torch and the port only, and write their results to
-files that the tests read. The JAX side runs here: the collectives in
-``shard_map`` over ``Mesh(devices8[:2], ("fsdp",))`` on the same per-rank
-inputs, the JAX engine on mesh {"dp": 4, "fsdp": 2}, whose params split in
-2 as the port's do, from the same weights (carried across as numpy).
-Tolerances are stated at each comparison."""
+files that the tests read. The JAX side runs here, while the ranks run:
+the collectives in ``shard_map`` over ``Mesh(devices8[:2], ("fsdp",))``
+on the same per-rank inputs, the JAX engine on mesh {"dp": 4, "fsdp": 2},
+whose params split in 2 as the port's do, from the same weights (carried
+across as numpy), once for each distinct step. Stage 3 on the exact wire
+runs a layer at a time: the ranks also hold it to stage 2 bit for bit
+under several remat policies, BERT, the triple and a retained graph, with
+its gather, regather and reduction counts and order; the per-layer halves
+to the whole-tree ones; a LoRAModel with its int8 base split as JAX's
+``place_frozen`` splits it, against the JAX engine; and a model with its
+own ``loss_fn`` against the JAX engine on a 2-device mesh (its batch
+shards are the port's two ranks'). Tolerances are stated at each
+comparison."""
 
+import contextlib
 import inspect
-import os
-import pathlib
-import subprocess
-import sys
-import time
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +35,7 @@ from jax.sharding import Mesh, PartitionSpec
 
 import deepspeed_tpu as jds
 from deepspeed_tpu.models import GPT2 as JGPT2, Llama as JLlama
+from deepspeed_tpu.models.adapters import FunctionalModel as JA_FunctionalModel
 from deepspeed_tpu.ops.pallas import quantization as JQ
 from deepspeed_tpu.parallel.mesh import MeshTopology, \
     TopologyConfig as JTopologyConfig
@@ -38,14 +43,15 @@ from deepspeed_tpu.runtime import zeropp as JZ
 from deepspeed_tpu.runtime.comm import coalesced_collectives as JC
 from deepspeed_tpu.runtime.zero import ZeroShardingPlan as JPlan
 from deepspeed_tpu.utils.jax_compat import shard_map
+from deepspeed_tpu import linear as jl
 import deepspeed_tpu_torch as ds
 from deepspeed_tpu_torch.models import GPT2
-from deepspeed_tpu_torch.models.convert import flatten_tree
+from deepspeed_tpu_torch.models.convert import flatten_tree, lora_from_jax
 from deepspeed_tpu_torch.parallel.mesh import Topology, TopologyConfig
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.zero import ZeroShardingPlan
+from test_torch_zeropp_topology import Ranks
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 2
 DEADLINE_S = 120
 STEPS = 3
@@ -184,9 +190,11 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 import deepspeed_tpu_torch as ds
+from deepspeed_tpu_torch import linear as TL
 from deepspeed_tpu_torch.comm import comm
-from deepspeed_tpu_torch.models import GPT2
+from deepspeed_tpu_torch.models import GPT2, Bert, FunctionalModel
 from deepspeed_tpu_torch.ops import quantization as TQ
+from deepspeed_tpu_torch.runtime import zeropp as TZ
 from deepspeed_tpu_torch.runtime.comm import coalesced_collectives as TC
 from deepspeed_tpu_torch.utils import groups
 """
@@ -282,6 +290,180 @@ def _w_engine(zero, tree, batches, triple):
                                for t in eng.master_state_dict().values())}
 
 
+# the per-layer schedule at stage 3 against stage 2 (the port's own, from
+# the config's seeded weights): name -> (GPT-2 tiny overrides, or None for
+# BERT tiny; how each step runs)
+LAYER_VARIANTS = {
+    "default": ({"num_layers": 4}, "train"),
+    "segments": ({"num_layers": 4, "remat_policy": "segments"}, "train"),
+    "no_remat": ({"num_layers": 4, "remat": False}, "train"),
+    "bert": (None, "train"),
+    "triple": ({"num_layers": 4}, "triple"),
+    "retain_graph": ({"num_layers": 4, "remat": False}, "retain"),
+}
+# gather_layers / reduce_layers against the whole-tree halves: name -> (the
+# stacked leaf's full shape, its split dim)
+HALF_CASES = {"dim0": ((4, 6, 8), 0), "dim1": ((4, 8, 6), 1),
+              "dim2": ((4, 5, 8), 2)}
+
+
+def _w_layers(batches):
+    """Each LAYER_VARIANTS run at stages 2 and 3, 2 steps: losses, grad
+    norms, eval_batch before and after, the consolidated master, and the
+    stage-3 engine's per-layer counts and last micro-step's events."""
+    out = {}
+    for name, (over, how) in LAYER_VARIANTS.items():
+        for stage in (2, 3):
+            cfg = {"train_batch_size": 16, "gradient_accumulation_steps": 2,
+                   "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+                   "gradient_clipping": 1.0, "steps_per_print": 100,
+                   "zero_optimization": {"stage": stage}}
+            model = (Bert(size="tiny", device="cpu") if over is None
+                     else GPT2(size="tiny", device="cpu", **over))
+            eng, *_ = ds.initialize(model=model, config=cfg)
+            evals = [float(eng.eval_batch(batches[0]))]
+            eng.reset_stage3_counts()
+            losses, norms = [], []
+            for tokens, targets in batches[:2]:
+                if how == "train":
+                    losses.append(float(eng.train_batch((tokens, targets))))
+                else:
+                    for i in range(2):
+                        micro = (tokens[i * 8:(i + 1) * 8],
+                                 targets[i * 8:(i + 1) * 8])
+                        loss = eng(micro)
+                        if how == "retain":
+                            eng.backward(loss, retain_graph=True)
+                        eng.backward(loss)
+                        if how == "retain":
+                            break
+                    eng.step()
+                    losses.append(float(eng._last_metrics["loss"]))
+                norms.append(eng.get_global_grad_norm())
+            counts = eng.stage3_counts()
+            events = list(eng._stream.events) if stage == 3 else None
+            evals.append(float(eng.eval_batch(batches[0])))
+            out[(name, stage)] = {
+                "losses": losses, "norms": norms, "evals": evals,
+                "master": eng.consolidated_master_state_dict(),
+                "counts": counts, "events": events}
+    return out
+
+
+def _w_halves(rank, world):
+    """gather_layers and reduce_layers, a leaf and layer at a time and
+    every leaf of a layer at once, against the whole-tree gather_params
+    and reduce_grads (exact wire) of the same shards and local grads."""
+    out = {}
+    for name, (shape, dim) in HALF_CASES.items():
+        full = torch.randn(shape, generator=torch.Generator().manual_seed(7))
+        shard = full.chunk(world, dim)[rank].contiguous()
+        whole = TZ.gather_params({"x": shard}, {"x": dim},
+                                 quantize_weights=False)["x"]
+        layers = torch.stack([
+            TZ.gather_layers({"x": shard}, {"x": dim}, i).wait()["x"]
+            for i in range(shape[0])])
+        grad = torch.randn(shape, generator=torch.Generator().manual_seed(
+            11 + rank))
+        reduced = TZ.reduce_grads({"x": grad}, {"x": dim}, n_batch=world,
+                                  quantize_gradients=False, mean=False)["x"]
+        per = [TZ.reduce_layers({"x": grad[i]}, {"x": dim}, i,
+                                shape[0])["x"]
+               for i in range(shape[0])]
+        out[name] = {"full": full, "whole": whole, "layers": layers,
+                     "reduced": reduced, "per_layer": per, "shard": shard,
+                     "grad": grad}
+    # the engine's form: every leaf's layer in one collective
+    shards = {n: out[n]["shard"] for n in HALF_CASES}
+    dims = {n: dim for n, (_, dim) in HALF_CASES.items()}
+    out["packed"] = [
+        (TZ.gather_layers(shards, dims, i).wait(),
+         TZ.reduce_layers({n: out[n]["grad"][i] for n in HALF_CASES},
+                          dims, i, 4))
+        for i in range(4)]
+    return out
+
+
+def _w_lora(frozen, adapters, batches):
+    """A GPT-2 tiny LoRAModel on the carried int8 base and adapters,
+    3 steps at stages 2 and 3 (the exact wire): losses, the consolidated
+    adapters, this rank's frozen shard shapes and bytes."""
+    out = {}
+    for stage in (2, 3):
+        model = TL.LoRAModel(GPT2(size="tiny", device="cpu"),
+                             TL.LoRAConfig(lora_r=8), frozen=frozen,
+                             adapters=adapters)
+        cfg = {"train_batch_size": 16, "gradient_accumulation_steps": 2,
+               "optimizer": {"type": "AdamW",
+                             "params": {"lr": 1e-3, "weight_decay": 0.01}},
+               "gradient_clipping": 0.5, "steps_per_print": 100,
+               "zero_optimization": {"stage": stage}}
+        eng, *_ = ds.initialize(model=model, config=cfg)
+        shapes = {}
+        for name, leaf in model.frozen.items():
+            if TL.is_quantized(leaf):
+                shapes[name] = (tuple(leaf.codes.shape),
+                                tuple(leaf.scales.shape))
+            else:
+                shapes[name] = tuple(getattr(leaf, "shard", leaf).shape)
+        losses = [float(eng.train_batch(b)) for b in batches]
+        out[stage] = {"losses": losses,
+                      "master": eng.consolidated_master_state_dict(),
+                      "shapes": shapes, "bytes": model.frozen_bytes(),
+                      "counts": eng.stage3_counts()}
+    return out
+
+
+def t_fn_init(gen):
+    return {"embed": torch.randn(512, 16, generator=gen) * 0.5,
+            "out": {"w": torch.randn(16, 512, generator=gen) * 0.5,
+                    "b": torch.zeros(512)}}
+
+
+def t_fn_apply(params, tokens):
+    h = torch.tanh(params["embed"][torch.as_tensor(tokens)])
+    return h @ params["out"]["w"] + params["out"]["b"]
+
+
+def t_fn_loss(params, batch):
+    """The largest row's mean NLL: not a mean over rows."""
+    logits = t_fn_apply(params, batch[0]).float()
+    targets = torch.as_tensor(batch[1])
+    nll = torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, targets[..., None])[..., 0]
+    return nll.mean(-1).max()
+
+
+def _w_loss_fn(tree, batches, cases):
+    """The FunctionalModel with ``t_fn_loss`` at W = 2 in each of
+    LOSS_FN_CASES: losses (train_batch's, or the triple's forward means)
+    and the consolidated params after 3 steps."""
+    out = {}
+    for name, (zero, triple) in cases.items():
+        cfg = {"train_batch_size": 16, "gradient_accumulation_steps": 2,
+               "optimizer": {"type": "AdamW", "params": {"lr": 1e-2}},
+               "gradient_clipping": 1.0, "steps_per_print": 100,
+               "zero_optimization": zero}
+        eng, *_ = ds.initialize(model=FunctionalModel(
+            t_fn_init, t_fn_apply, t_fn_loss, device="cpu"), config=cfg,
+            model_parameters=tree)
+        losses = []
+        for tokens, targets in batches:
+            if triple:
+                micro = []
+                for i in (0, 8):
+                    loss = eng((tokens[i:i + 8], targets[i:i + 8]))
+                    micro.append(float(loss))
+                    eng.backward(loss)
+                eng.step()
+                losses.append(float(np.mean(micro)))
+            else:
+                losses.append(float(eng.train_batch((tokens, targets))))
+        out[name] = {"losses": losses,
+                     "master": eng.consolidated_master_state_dict()}
+    return out
+
+
 def _rank_main(rank, world, store, inputs_path, out_path):
     comm.init_distributed("gloo", init_method=f"file://{store}", rank=rank,
                           world_size=world)
@@ -298,6 +480,11 @@ def _rank_main(rank, world, store, inputs_path, out_path):
     for name, (zero, triple) in data["uneven_cases"].items():
         out["uneven_" + name] = _w_engine(zero, data["tree"],
                                           data["masked_batches"], triple)
+    out["layers"] = _w_layers(data["batches"])
+    out["halves"] = _w_halves(rank, world)
+    out["lora"] = _w_lora(*data["lora"], data["lora_batches"])
+    out["loss_fn"] = _w_loss_fn(data["fn_tree"], data["fn_batches"],
+                                data["loss_fn_cases"])
     torch.save(out, out_path)
 
 
@@ -307,53 +494,140 @@ def jax_init():
     return jm, jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
 
 
+def _lora_batch(seed: int):
+    return _batch(seed, rows=16, seq=32)
+
+
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory, jax_init):
-    """Runs every scenario in two gloo ranks once; returns each rank's
-    results."""
-    d = tmp_path_factory.mktemp("zero3_ranks")
-    torch.save({"collectives": _collective_inputs(),
-                "collective_cases": COLLECTIVE_CASES,
-                "engine_cases": ENGINE_CASES, "triple_cases": TRIPLE_CASES,
-                "uneven_cases": UNEVEN_CASES, "tree": jax_init[1],
-                "batches": [_batch(s) for s in range(STEPS)],
-                "masked_batches": [_masked_batch(s) for s in range(STEPS)]},
-               d / "inputs.pt")
-    source = _WORKER_HEADER + "\n\n".join(
-        inspect.getsource(f) for f in (_w_collectives, _w_engine,
-                                       _rank_main))
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   [str(REPO)] + [p for p in os.environ.get(
-                       "PYTHONPATH", "").split(os.pathsep) if p]))
-    procs, logs = [], []
-    for r in range(WORLD):
-        call = (f"\n_rank_main({r}, {WORLD}, {str(d / 'store')!r}, "
-                f"{str(d / 'inputs.pt')!r}, {str(d / f'rank{r}.pt')!r})\n")
-        logs.append(d / f"rank{r}.log")
-        with open(logs[-1], "w") as log:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", source + call], cwd=str(REPO),
-                env=env, stdout=log, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + DEADLINE_S
+def lora_pair():
+    """A JAX GPT-2 tiny LoRAModel (int8 base, r 8) and its adapters as
+    numpy, each ``b`` drawn so the adapter path counts from the first
+    step (tests/test_torch_lora_train.py's ``_pair``)."""
+    jmodel = jl.LoRAModel(JGPT2(size="tiny"), jl.LoRAConfig(lora_r=8),
+                          jl.QuantizationConfig())
+    rng = np.random.default_rng(4)
+    ads = {n: {"a": np.asarray(ab["a"]),
+               "b": (0.02 * rng.standard_normal(ab["b"].shape)).astype(
+                   np.float32)}
+           for n, ab in jmodel.lora_state.adapters.items()}
+    return jmodel, ads
+
+
+# a FunctionalModel with its own loss_fn: name -> (zero block, triple)
+LOSS_FN_CASES = {
+    "exact": ({"stage": 3}, False),
+    "zeropp": ({"stage": 3, "zero_quantized_weights": True,
+                "zero_quantized_gradients": True,
+                "zero_quantized_rounding": "nearest"}, False),
+    "triple_stage1": ({"stage": 1}, True),
+    "triple_stage3": ({"stage": 3}, True),
+}
+
+
+def j_fn_init(rng):
+    k1, k2 = jax.random.split(rng)
+    return {"embed": jax.random.normal(k1, (512, 16)) * 0.5,
+            "out": {"w": jax.random.normal(k2, (16, 512)) * 0.5,
+                    "b": jnp.zeros((512,))}}
+
+
+def j_fn_apply(params, tokens):
+    h = jnp.tanh(params["embed"][tokens])
+    return h @ params["out"]["w"] + params["out"]["b"]
+
+
+def j_fn_loss(params, batch):
+    """``t_fn_loss`` in jnp: the largest row's mean NLL."""
+    logits = j_fn_apply(params, batch[0]).astype(jnp.float32)
+    nll = jax.nn.logsumexp(logits, -1) - jnp.take_along_axis(
+        logits, batch[1][..., None], -1)[..., 0]
+    return jnp.max(jnp.mean(nll, -1))
+
+
+def _fn_batch(seed: int):
+    return _batch(100 + seed, rows=16, seq=8)
+
+
+@pytest.fixture(scope="module")
+def fn_tree():
+    return jax.tree.map(np.asarray, j_fn_init(jax.random.PRNGKey(1)))
+
+
+@contextlib.contextmanager
+def _two_devices(devices8):
+    """``jax.devices`` narrowed to two of conftest's 8, so the JAX engine
+    builds a 2-device mesh: its batch shards are the port's two ranks'."""
+    real = jax.devices
+    jax.devices = lambda *a, **k: devices8[:2]
     try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
+        yield
     finally:
-        hung = [p for p in procs if p.poll() is None]
-        for p in hung:
-            p.kill()
-            p.wait()
-    tails = "\n".join(f"--- rank {r}:\n{log.read_text()[-3000:]}"
-                      for r, log in enumerate(logs))
-    if hung:
-        pytest.fail(f"ranks did not finish within {DEADLINE_S} s\n{tails}")
-    if any(p.returncode for p in procs):
-        pytest.fail(f"a rank failed\n{tails}")
-    return [torch.load(d / f"rank{r}.pt", weights_only=False)
-            for r in range(WORLD)]
+        jax.devices = real
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the test process's own torch work (tiny
+    models), so it does not spin against the ranks and the other test
+    workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory, jax_init, lora_pair, fn_tree):
+    """Every scenario in two gloo ranks, started once; the JAX references
+    are computed while they run (``jax_refs``)."""
+    d = tmp_path_factory.mktemp("zero3_ranks")
+    source = _WORKER_HEADER + "\n\n".join(
+        inspect.getsource(f) for f in (
+            _w_collectives, _w_engine, _w_layers, _w_halves, _w_lora,
+            t_fn_init, t_fn_apply, t_fn_loss, _w_loss_fn, _rank_main))
+    source += (f"\nLAYER_VARIANTS = {LAYER_VARIANTS!r}\n"
+               f"HALF_CASES = {HALF_CASES!r}\n")
+    return Ranks(d, WORLD, source, {
+        "collectives": _collective_inputs(),
+        "collective_cases": COLLECTIVE_CASES,
+        "engine_cases": ENGINE_CASES, "triple_cases": TRIPLE_CASES,
+        "uneven_cases": UNEVEN_CASES, "tree": jax_init[1],
+        "batches": [_batch(s) for s in range(STEPS)],
+        "masked_batches": [_masked_batch(s) for s in range(STEPS)],
+        "lora": lora_from_jax(lora_pair[0].frozen, lora_pair[1]),
+        "lora_batches": [_lora_batch(s) for s in range(STEPS)],
+        "fn_tree": flatten_tree(fn_tree),
+        "fn_batches": [_fn_batch(s) for s in range(STEPS)],
+        "loss_fn_cases": LOSS_FN_CASES}, deadline_s=DEADLINE_S)
+
+
+@pytest.fixture(scope="module")
+def jax_lora(spawned, lora_pair):
+    """The JAX LoRA run (its place_frozen shards the JAX base, so it runs
+    once the ranks have their copy)."""
+    return _jax_lora_engine(lora_pair)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(spawned, jax_init, jax_lora, fn_tree):
+    """Every JAX engine run the tests hold the ranks to, while the ranks
+    run (each cached for the tests; conftest's 8 CPU devices, as
+    ``devices8`` gives them)."""
+    for case in ("stage3", "qwz"):
+        _jax_engine(jax_init, ENGINE_CASES[case])
+    _jax_engine(jax_init, UNEVEN_CASES["stage3"][0],
+                make_batch=_masked_batch, evals=[])
+    devices = jax.devices()[:8]
+    if len(devices) == 8:
+        for jcase, triple in sorted(set(LOSS_FN_JAX.values())):
+            _jax_fn_engine(devices, fn_tree, LOSS_FN_CASES[jcase][0],
+                           triple)
+
+
+@pytest.fixture(scope="module")
+def ranks(spawned, jax_refs):
+    """Each rank's results."""
+    return spawned.results()
 
 
 # --------------------------------------------------------- collectives
@@ -427,8 +701,36 @@ def test_collectives_match_jax_shard_map(case, ranks, devices8):
 
 
 # -------------------------------------------------------------- engine
+_JAX_RUNS: dict = {}
+
+
 def _jax_engine(jax_init, zero, steps=STEPS, make_batch=_batch,
                 triple=False, evals=None):
+    """The JAX engine's run, once per module for each distinct step: the
+    exact wire computes one step whatever the stage (the mean over the
+    global batch; only the summation order moves), so every exact stage
+    shares one run at stage 3, as tests/test_torch_zeropp_engine.py's JAX
+    engines do."""
+    exact = not any(v for k, v in zero.items() if k != "stage")
+    if exact and zero.get("stage", 0) >= 2:
+        # JAX's triple at stage >= 2 differentiates each global
+        # micro-batch's mean, its loss the mean of the two, as train_batch
+        triple = False
+    key = (repr(sorted(({"stage": 3} if exact else zero).items())),
+           make_batch.__name__, triple, evals is not None, steps)
+    if key not in _JAX_RUNS:
+        runs = []
+        _JAX_RUNS[key] = (_jax_engine_run(
+            jax_init, {"stage": 3} if exact else zero, steps, make_batch,
+            triple, runs if evals is not None else None), runs)
+    result, runs = _JAX_RUNS[key]
+    if evals is not None:
+        evals.extend(runs)
+    return result
+
+
+def _jax_engine_run(jax_init, zero, steps=STEPS, make_batch=_batch,
+                    triple=False, evals=None):
     """The JAX engine on mesh {"dp": 4, "fsdp": 2}: per step train_batch
     or (``triple``) two forward/backward micro-batches and step(), whose
     loss is the mean of the two forward losses. ``evals`` (a list) gets
@@ -471,7 +773,10 @@ def _param_err(got: dict, want: dict, start: dict) -> tuple[float, float]:
 def test_engine_matches_jax_engine(case, ranks, jax_init, devices8):
     """GPT-2 tiny, fp32, batch 16, GA 2, AdamW 1e-3, clip 1.0, 3 steps on
     fresh batches, the port on two gloo ranks and the JAX engine on 8
-    devices (dp 4 x fsdp 2): every loss within 1e-5 relative and the grad
+    devices (dp 4 x fsdp 2; the port's exact stages 1-3 all held to JAX's
+    stage-3 run, since JAX's exact stages differ only in summation order,
+    and stage 3 now runs the per-layer schedule): every loss within 1e-5
+    relative and the grad
     norm within 1e-4 (tests/test_torch_train_engine.py's engine
     tolerances); after 3 steps the fp32 params within 2e-4 (4e-4 with qwZ)
     of the norm of their total change, not that file's 5e-5: on these
@@ -479,8 +784,9 @@ def test_engine_matches_jax_engine(case, ranks, jax_init, devices8):
     between its meshes {"fsdp": -1} and {"dp": 4, "fsdp": 2}, and the
     port's single-rank engine (within 5e-5 of the first) ends 7.1e-5 from
     the second, as Adam's first steps turn summation-order differences of
-    near-zero grads into steps of up to lr. Measured at W = 2: 2.4e-5
-    (stage 3), 7.8e-5 (stages 1-2), 1.5e-4 with qwZ, whose int8 codes flip
+    near-zero grads into steps of up to lr. Measured at W = 2 against JAX
+    at each stage's own run: 2.4e-5 (stage 3), 7.8e-5 (stages 1-2),
+    1.5e-4 with qwZ, whose int8 codes flip
     where the two masters differ in the last bits. The JAX engine on a
     2-device mesh {"fsdp": 2}, which splits each batch over the port's 2
     shards (its initialize takes no sub-mesh: jax.devices narrowed to two
@@ -577,7 +883,8 @@ def test_uneven_targets_match_jax_engine(case, ranks, jax_init, devices8):
     summed NLL by the count of valid targets over both ranks and the
     grads are summed, as JAX differentiates the mean over every valid
     target of the global micro-batch. train_batch (stages 2, 3) and the
-    triple (stage 3) against the JAX engine on {"dp": 4, "fsdp": 2}, and
+    triple (stage 3) against the JAX engine's train_batch run on {"dp": 4,
+    "fsdp": 2} (JAX's triple at stage >= 2 computes the same step), and
     eval_batch before and after the steps, at test_engine_matches_jax_
     engine's tolerances. A mean of the two ranks' means reads the losses
     6e-3 and the grad norms 2.7 vs 1.7 apart on such batches."""
@@ -593,3 +900,250 @@ def test_uneven_targets_match_jax_engine(case, ranks, jax_init, devices8):
         np.testing.assert_allclose(got["evals"], evals, rtol=1e-5)
         err, moved = _param_err(got["master"], jparams, start)
         assert err <= 2e-4 * moved, (err, moved)
+
+
+# ------------------------------------------- stage 3, a layer at a time
+def _events_of_one_micro_step(layers: int) -> list:
+    """Each layer gathered once in the forward; in the backward, from the
+    last layer down, each gathered again and then its gradient reduced,
+    before the layer under it is gathered."""
+    back = []
+    for i in reversed(range(layers)):
+        back += [("backward", i), ("reduce", i)]
+    return [("forward", i) for i in range(layers)] + back
+
+
+@pytest.mark.parametrize("variant", ["default", "segments", "no_remat",
+                                     "bert"])
+def test_stage3_gathers_a_layer_at_a_time(variant, ranks):
+    """Stage 3 on the exact wire at W = 2, train_batch (GA 2) for 2 steps:
+    each micro-batch gathers each layer once in its forward and once more
+    in its backward (the regather that a segment's recompute and the
+    saved tensors' unpacks share), reduces each layer's gradient inside
+    the backward right after that layer's, and keeps at most two layers'
+    gathered tensors alive (the current and the prefetched); the leaves
+    outside the stacks are gathered whole once a micro-batch. Under every
+    remat policy here, without remat (the saved-tensor hooks) and for
+    BERT."""
+    for res in ranks:
+        c = res["layers"][(variant, 3)]["counts"]
+        n, micro = c["layers"], 2 * 2
+        assert c["layer_forward"] == micro * n
+        assert c["layer_backward"] == micro * n
+        assert c["layer_reductions"] == micro * n
+        assert c["reductions_outside_backward"] == 0
+        assert c["max_live_layers"] <= 2
+        assert c["non_layer"] % micro == 0 and c["non_layer"] > 0
+        assert res["layers"][(variant, 3)]["events"] == \
+            _events_of_one_micro_step(n)
+        assert res["layers"][(variant, 2)]["counts"] is None
+
+
+@pytest.mark.parametrize("variant", list(LAYER_VARIANTS))
+def test_stage3_per_layer_is_stage2_bit_for_bit(variant, ranks):
+    """At W = 2 the per-layer stage 3 computes what stage 2 does bit for
+    bit (the same local grads, each reduced as a sum of two values, which
+    has one order): losses, grad norms, eval_batch before and after the
+    steps, and the params after them, on train_batch, the triple and a
+    backward(retain_graph=True) run twice."""
+    for res in ranks:
+        a, b = res["layers"][(variant, 2)], res["layers"][(variant, 3)]
+        assert a["losses"] == b["losses"]
+        assert a["norms"] == b["norms"]
+        assert a["evals"] == b["evals"]
+        for name, p in a["master"].items():
+            assert torch.equal(p, b["master"][name]), name
+
+
+@pytest.mark.parametrize("case", list(HALF_CASES))
+def test_layer_halves_match_the_whole_tree(case, ranks):
+    """gather_layers of each layer of a stacked leaf alone is layer l of
+    gather_params' exact gather bit for bit (dim 0: a broadcast from the
+    rank holding the layer; else an all-gather of the layer's slice), and
+    reduce_layers of each layer's local grad is that layer of
+    reduce_grads' exact reduction (dim 0: reduced to the holding rank
+    alone); so are both with every leaf's layer at once, the engine's
+    form (one collective for the leaves split on dim > 0)."""
+    shape, dim = HALF_CASES[case]
+    for r, res in enumerate(ranks):
+        got = res["halves"][case]
+        for i, (gathered, reduced) in enumerate(res["halves"]["packed"]):
+            assert torch.equal(gathered[case], got["whole"][i]), i
+            if reduced[case] is None:
+                assert got["per_layer"][i] is None, i
+            else:
+                assert torch.equal(reduced[case], got["per_layer"][i]), i
+        assert torch.equal(got["whole"], got["full"])
+        assert torch.equal(got["layers"], got["whole"])
+        if dim == 0:
+            per = shape[0] // WORLD
+            for i, piece in enumerate(got["per_layer"]):
+                if i // per == r:
+                    assert torch.equal(piece, got["reduced"][i % per]), i
+                else:
+                    assert piece is None, i
+        else:
+            assert torch.equal(torch.stack(got["per_layer"]),
+                               got["reduced"])
+
+
+def _jax_lora_engine(lora_pair):
+    """The JAX engine on {"dp": 4, "fsdp": 2} (place_frozen splits the base
+    over fsdp 2, as the port's two ranks do), 3 steps: losses, the
+    adapters, and each frozen leaf's shard shape."""
+    jmodel, ads = lora_pair
+    eng, *_ = jds.initialize(
+        model=jmodel, model_parameters=jax.tree.map(jnp.asarray, ads),
+        config={"train_batch_size": 16, "gradient_accumulation_steps": 2,
+                "optimizer": {"type": "AdamW",
+                              "params": {"lr": 1e-3, "weight_decay": 0.01}},
+                "gradient_clipping": 0.5, "steps_per_print": 100,
+                "zero_optimization": {"stage": 2},
+                "mesh": {"dp": 4, "fsdp": 2}})
+    shapes = {}
+    for name, leaf in flatten_tree(dict(jmodel.frozen.items())).items():
+        if hasattr(leaf, "codes"):
+            shapes[name] = tuple(tuple(x.sharding.shard_shape(x.shape))
+                                 for x in (leaf.codes, leaf.scales))
+        else:
+            shapes[name] = tuple(leaf.sharding.shard_shape(leaf.shape))
+    losses = [float(eng.train_batch(_lora_batch(s))) for s in range(STEPS)]
+    from deepspeed_tpu.parallel import mesh
+    mesh.reset_topology()
+    return losses, flatten_tree(jax.tree.map(np.asarray,
+                                             eng.state["params"])), shapes
+
+
+@pytest.mark.parametrize("stage", [2, 3])
+def test_lora_across_ranks_matches_jax(stage, ranks, jax_lora, lora_pair):
+    """A GPT-2 tiny LoRAModel over an int8 base at W = 2 (stage 2, and
+    stage 3 on the exact wire, where the adapters' stacks are split too
+    and read a layer at a time beside the base) against the JAX engine
+    with place_frozen on fsdp 2: every loss within 1e-5 relative and the
+    adapters after 3 steps within 1e-4 of the norm of their change over
+    the elements whose first gradient is not within rounding of zero
+    (tests/test_torch_lora_train.py's tolerances and mask, the mask from
+    the port's single-rank run); both ranks hold the same adapters."""
+    jl_, jparams, _ = jax_lora
+    frozen, tads = lora_from_jax(lora_pair[0].frozen, lora_pair[1])
+    flat = {f"{n}/{k}": v.numpy() for n, ab in tads.items()
+            for k, v in ab.items()}
+    one = ds.initialize(model=_port_lora(lora_pair), config=_lora_config())[0]
+    one.train_batch(_lora_batch(0))
+    g0 = {n: v.clone() for n, v in one._grad_views.items()}
+    big = max(float(g.abs().max()) for g in g0.values())
+    held = {n: (g.abs() > 1e-6 * big).numpy() for n, g in g0.items()}
+    numel = sum(v.size for v in flat.values())
+    assert sum(int((~m).sum()) for m in held.values()) <= 1e-3 * numel
+    moved = np.sqrt(sum(np.sum((jparams[n] - flat[n]) ** 2) for n in flat))
+    for res in ranks:
+        got = res["lora"][stage]
+        np.testing.assert_allclose(got["losses"], jl_, rtol=1e-5)
+        err = np.sqrt(sum(np.sum(((got["master"][n].numpy() - jparams[n])
+                                  * held[n]) ** 2) for n in flat))
+        assert moved > 0 and err <= 1e-4 * moved, (err, moved)
+    for name, p in ranks[0]["lora"][stage]["master"].items():
+        assert torch.equal(p, ranks[1]["lora"][stage]["master"][name]), name
+
+
+def _lora_config():
+    return {"train_batch_size": 16, "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "AdamW",
+                          "params": {"lr": 1e-3, "weight_decay": 0.01}},
+            "gradient_clipping": 0.5, "steps_per_print": 100,
+            "zero_optimization": {"stage": 2}}
+
+
+def _port_lora(lora_pair):
+    from deepspeed_tpu_torch import linear as tl
+    frozen, tads = lora_from_jax(lora_pair[0].frozen, lora_pair[1])
+    return tl.LoRAModel(GPT2(size="tiny", device="cpu"),
+                        tl.LoRAConfig(lora_r=8), frozen=frozen,
+                        adapters=tads)
+
+
+def test_lora_base_is_split_as_jax_places_it(ranks, jax_lora, lora_pair):
+    """Each rank holds the frozen base as JAX's place_frozen splits it over
+    fsdp 2 (fsdp_spec_tree: a leaf of at least 4096 elements on its
+    largest dim that 2 divides; a QuantizedParameter's codes and scales
+    each on its own): every shard shape equals the JAX shard's, at both
+    stages, and a rank's base bytes are about half the whole (the leaves
+    kept whole, as JAX keeps them, are small); at stage 3 the adapters'
+    layers are gathered one at a time, once in the forward and once in
+    the backward of each micro-batch."""
+    _, _, jshapes = jax_lora
+    whole = _port_lora(lora_pair).frozen_bytes()
+    for res in ranks:
+        for stage in (2, 3):
+            assert res["lora"][stage]["shapes"] == jshapes
+            assert res["lora"][stage]["bytes"] <= 0.55 * whole
+        c = res["lora"][3]["counts"]
+        assert c["layer_forward"] == c["layer_backward"] == 2 * STEPS * 2
+        assert any(n.endswith("/a") for n in c["streamed"])
+        assert res["lora"][2]["counts"] is None
+
+
+def _jax_fn_engine(devices8, fn_tree, zero, triple):
+    """The JAX engine on a 2-device mesh (its batch shards are the port's
+    ranks') for the FunctionalModel with its own loss_fn: the losses of 3
+    steps (train_batch's, or the triple's forward means) and the params
+    after them; once per module for each configuration."""
+    key = ("loss_fn", repr(sorted(zero.items())), triple)
+    if key not in _JAX_RUNS:
+        _JAX_RUNS[key] = _jax_fn_engine_run(devices8, fn_tree, zero, triple)
+    return _JAX_RUNS[key]
+
+
+def _jax_fn_engine_run(devices8, fn_tree, zero, triple):
+    with _two_devices(devices8):
+        eng, *_ = jds.initialize(
+            model=JA_FunctionalModel(j_fn_init, j_fn_apply, j_fn_loss),
+            model_parameters=jax.tree.map(jnp.asarray, fn_tree),
+            config=dict(base_config(**zero), mesh={"fsdp": -1},
+                        optimizer={"type": "AdamW", "params": {"lr": 1e-2}}))
+        losses = []
+        for s in range(STEPS):
+            tokens, targets = _fn_batch(s)
+            if triple:
+                micro = []
+                for i in (0, 8):
+                    micro.append(float(eng((tokens[i:i + 8],
+                                            targets[i:i + 8]))))
+                    eng.backward()
+                eng.step()
+                losses.append(float(np.mean(micro)))
+            else:
+                losses.append(float(eng.train_batch((tokens, targets))))
+    from deepspeed_tpu.parallel import mesh
+    mesh.reset_topology()
+    return losses, flatten_tree(jax.tree.map(np.asarray,
+                                             eng.state["params"]))
+
+
+# the JAX run each port case is held to: the triple at stage 3 takes the
+# global micro-batch's loss_fn per micro-batch, as train_batch does
+LOSS_FN_JAX = {"exact": ("exact", False), "zeropp": ("zeropp", False),
+               "triple_stage1": ("triple_stage1", True),
+               "triple_stage3": ("exact", False)}
+
+
+@pytest.mark.parametrize("case", list(LOSS_FN_CASES))
+def test_loss_fn_across_ranks_matches_jax(case, ranks, fn_tree, devices8):
+    """A FunctionalModel whose loss_fn is the largest row's mean NLL (not
+    a mean over rows) at W = 2 against the JAX engine on a 2-device mesh:
+    on the exact wire both take it over the global micro-batch; on the
+    qwZ/qgZ wire each shard's, averaged (pmean); in the triple at stage 1
+    (JAX's deferred path) each shard's gradient averaged, the loss the
+    global micro-batch's; at stage 3 the triple is train_batch's form.
+    Every loss within 1e-5 relative and the params after 3 steps within
+    2e-4 of the norm of their change (test_engine_matches_jax_engine's
+    exact-wire tolerances)."""
+    jcase, triple = LOSS_FN_JAX[case]
+    jlosses, jparams = _jax_fn_engine(devices8, fn_tree,
+                                      LOSS_FN_CASES[jcase][0], triple)
+    start = flatten_tree(fn_tree)
+    for res in ranks:
+        got = res["loss_fn"][case]
+        np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-5)
+        err, moved = _param_err(got["master"], jparams, start)
+        assert moved > 0 and err <= 2e-4 * moved, (err, moved)

@@ -30,7 +30,9 @@ import deepspeed_tpu as jds
 from deepspeed_tpu.models import GPT2 as JGPT2
 from deepspeed_tpu.parallel.mesh import reset_topology
 import deepspeed_tpu_torch as ds
-from deepspeed_tpu_torch.models import GPT2
+from deepspeed_tpu_torch.linear import (LoRAConfig, LoRAModel,
+                                        QuantizationConfig)
+from deepspeed_tpu_torch.models import FunctionalModel, GPT2, Llama
 from deepspeed_tpu_torch.models.convert import flatten_tree
 from deepspeed_tpu_torch.runtime import engine as engine_mod
 from test_torch_zeropp_topology import Ranks, worker_source
@@ -46,6 +48,7 @@ HIER_QUANT = {"stage": 3, "zero_hierarchical_allgather": True,
 FP8 = {"stage": 3, "zero_quantized_weights": True,
        "zero_quantized_gradients": True, "zero_quantized_dtype": "fp8",
        "zero_quantized_rounding": "nearest"}
+LORA_MESH = {"dp": 2, "fsdp": 2}
 # the JAX engines: name -> (mesh, zero block, masked batches)
 JAX_RUNS = {
     "mixed": ({"dp": 4, "fsdp": 2}, {"stage": 3}, False),
@@ -143,6 +146,7 @@ def _w_engine(mesh, zero, tree, batches, triple, evals):
         evals.append(float(eng.eval_batch(batches[0])))
     plan = eng.plan
     return {"losses": losses, "norms": norms, "evals": evals,
+            "stage3_counts": eng.stage3_counts(),
             "master": eng.consolidated_master_state_dict(),
             "params": {n: t.clone() for n, t in
                        eng.gathered_params().items()},
@@ -158,29 +162,54 @@ def _w_engine(mesh, zero, tree, batches, triple, evals):
             "dp_rank": eng.dp_rank}
 
 
-def _w_refusals():
-    out = {}
-    cfg = {"train_batch_size": 8}
+def _lora_and_loss_fn_models():
+    """A LoRAModel over an int8 Llama tiny base (its adapters' b drawn, so
+    the adapter path counts from the first step) and a FunctionalModel
+    whose loss_fn is the largest row's mean NLL, not a mean over rows;
+    the same weights on every rank and in the test process."""
     lora = LoRAModel(Llama(size="tiny", device="cpu"), LoRAConfig(lora_r=8),
-                     QuantizationConfig())
+                     QuantizationConfig(), seed=3)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for name, p in lora.params.items():
+            if name.endswith("/b"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
 
     def init(gen):
-        return {"w": torch.randn(8, 8, generator=gen)}
+        return {"embed": torch.randn(512, 16, generator=gen) * 0.5,
+                "out": torch.randn(16, 512, generator=gen) * 0.5}
 
-    def apply(params, x):
-        return x @ params["w"]
+    def apply(params, tokens):
+        return torch.tanh(params["embed"][tokens]) @ params["out"]
 
     def loss(params, batch):
-        return apply(params, batch[0]).square().mean()
+        logits = apply(params, torch.as_tensor(batch[0])).float()
+        nll = torch.logsumexp(logits, -1) - torch.gather(
+            logits, -1, torch.as_tensor(batch[1])[..., None])[..., 0]
+        return nll.mean(-1).max()
 
-    for name, model in (("lora", lora),
-                        ("loss_fn", FunctionalModel(init, apply, loss,
-                                                    device="cpu"))):
-        try:
-            ds.initialize(model=model, config=cfg)
-            out[name] = "accepted"
-        except NotImplementedError as e:
-            out[name] = str(e)
+    return {"lora": lora,
+            "loss_fn": FunctionalModel(init, apply, loss, device="cpu")}
+
+
+def _w_lora_loss_fn(mesh, batches):
+    """Both models of ``_lora_and_loss_fn_models`` trained 3 steps at
+    stage 3 on ``mesh`` (W = 1 without one): their losses, the
+    consolidated trainable params and this rank's frozen bytes."""
+    out = {}
+    for name, model in _lora_and_loss_fn_models().items():
+        cfg = {"train_batch_size": 16, "gradient_accumulation_steps": 2,
+               "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+               "gradient_clipping": 1.0, "steps_per_print": 100,
+               "zero_optimization": {"stage": 3}}
+        if mesh is not None:
+            cfg["mesh"] = mesh
+        eng, *_ = ds.initialize(model=model, config=cfg)
+        losses = [float(eng.train_batch(b)) for b in batches]
+        out[name] = {"losses": losses,
+                     "master": eng.consolidated_master_state_dict(),
+                     "frozen_bytes": (model.frozen_bytes()
+                                      if name == "lora" else None)}
     return out
 
 
@@ -188,7 +217,8 @@ def _rank_main(rank, world, store, inputs_path, out_path):
     comm.init_distributed("gloo", init_method=f"file://{store}", rank=rank,
                           world_size=world)
     data = torch.load(inputs_path, weights_only=False)
-    out = {"refusals": _w_refusals()}
+    out = {"lora_loss_fn": _w_lora_loss_fn(data["lora_mesh"],
+                                             data["batches"])}
     for name, (mesh, zero, masked, triple, _) in data["cases"].items():
         out[name] = _w_engine(mesh, zero, data["tree"],
                               data["masked" if masked else "batches"],
@@ -207,9 +237,10 @@ def spawned(tmp_path_factory, jax_init):
     """The four ranks, started before the JAX engines so both run at
     once."""
     d = tmp_path_factory.mktemp("zeropp_engine")
-    src = worker_source(_WORKER_HEADER, _w_engine, _w_refusals, _rank_main)
+    src = worker_source(_WORKER_HEADER, _w_engine, _lora_and_loss_fn_models,
+                        _w_lora_loss_fn, _rank_main)
     return Ranks(d, WORLD, src, {
-        "cases": CASES, "tree": jax_init[1],
+        "cases": CASES, "tree": jax_init[1], "lora_mesh": LORA_MESH,
         "batches": [_batch(s) for s in range(STEPS)],
         "masked": [_masked_batch(s) for s in range(STEPS)]},
         deadline_s=DEADLINE_S)
@@ -374,12 +405,54 @@ def test_triple_matches_train_batch_under_hpz(ranks):
                                        atol=2e-5, rtol=2e-5, err_msg=name)
 
 
-def test_lora_and_loss_fn_still_refused_across_ranks(ranks):
-    """A LoRAModel and a model with its own loss_fn at W = 4 raise
-    NotImplementedError naming ROADMAP Slice D item 11."""
+def test_lora_and_loss_fn_train_across_ranks(ranks):
+    """A LoRAModel (int8 Llama tiny base, its base split over fsdp 2) and
+    a model with its own loss_fn (not a mean over rows) train at W = 4 on
+    the mixed mesh {"dp": 2, "fsdp": 2} at stage 3 on the exact wire:
+    their losses within 1e-5 relative and their trainable params after 3
+    steps within 2e-4 of the norm of their change of the port's own W = 1
+    run on the same weights and batches (the file's exact-wire
+    tolerances); each rank holds half the base, or less."""
+    one = _w_lora_loss_fn(None, [_batch(s) for s in range(STEPS)])
+    whole = one["lora"]["frozen_bytes"]
     for res in ranks:
         for name in ("lora", "loss_fn"):
-            assert "Slice D item 11" in res["refusals"][name], name
+            got, want = res["lora_loss_fn"][name], one[name]
+            np.testing.assert_allclose(got["losses"], want["losses"],
+                                       rtol=EXACT["loss"])
+            start = {n: p.detach().numpy() for n, p in
+                     _lora_and_loss_fn_models()[name].params.items()}
+            err, moved = _param_err(got["master"], {
+                n: p.numpy() for n, p in want["master"].items()}, start)
+            assert moved > 0 and err <= EXACT["params"] * moved, \
+                (name, err, moved)
+        assert res["lora_loss_fn"]["lora"]["frozen_bytes"] <= 0.55 * whole
+
+
+def test_per_layer_gathers_on_every_exact_stage3_mesh(ranks):
+    """Stage 3 on the exact wire gathers a layer at a time on the mixed,
+    hpZ and MiCS meshes (train_batch and the triple): per micro-batch one
+    gather of each layer in the forward and one in the backward, one
+    reduction of each layer inside the backward, an eval_batch one gather
+    a layer; at most two layers' gathered tensors alive at once. The
+    ZeRO++ wires (two-hop, fp8) and stages 1-2 keep the whole gather."""
+    layers = 2
+    for res in ranks:
+        for case in ("mixed_stage3", "mixed_uneven", "hpz", "mics",
+                     "hpz_triple"):
+            c = res[case]["stage3_counts"]
+            micro = STEPS * 2
+            evals = 2 if res[case]["evals"] else 0
+            assert c["layers"] == layers, case
+            assert c["layer_forward"] == (micro + evals) * layers, (case, c)
+            assert c["layer_backward"] == micro * layers, (case, c)
+            assert c["layer_reductions"] == micro * layers, (case, c)
+            assert c["reductions_outside_backward"] == 0, (case, c)
+            assert c["max_live_layers"] <= 2, (case, c)
+            assert len(c["streamed"]) >= 6, (case, c)
+        for case in ("mixed_stage1", "mixed_stage2", "hier_exact",
+                     "hier_qwz_qgz", "fp8"):
+            assert res[case]["stage3_counts"] is None, case
 
 
 def test_fp8_wire_with_stochastic_rounding_warns(monkeypatch):
