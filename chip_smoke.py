@@ -297,11 +297,11 @@ Phases, each fatal on failure:
      global batch 24) in four rank processes sharing the card over gloo,
      6 rows a rank: (a) ZeRO-3 + qwZ + qgZ (int8, stochastic) + the
      hierarchical two-hop wire on mesh {"fsdp": -1, "zps": 2}, one
-     warm-up and 5 timed steps, then the same mesh on the exact wire (3
+     warm-up and 3 timed steps, then the same mesh on the exact wire (2
      timed steps);
      (b) hpZ (zero_hpz_partition_size 2, qwZ + qgZ), MiCS (mics_shard_
      size 2), a mixed {"dp": 2, "fsdp": 2} mesh (exact) and the fp8 wire
-     (qwZ + qgZ, {"fsdp": -1}), one warm-up and 3 timed steps each: step
+     (qwZ + qgZ, {"fsdp": -1}), one warm-up and 2 timed steps each: step
      ms, tokens/s, each rank's peak memory, losses finite and falling,
      the first step's loss within bf16 noise of (a)'s exact leg, wire
      bytes a rank a step by hop from the plan, the quantize and dequantize
@@ -311,6 +311,25 @@ Phases, each fatal on failure:
      ranks start after phase 3 and run (c) and (a)'s engine build while
      the CPU halves of phases 21, 22 and 25d finish; their timed legs
      run after that, before phase 4.
+ 28. Path E, expert parallelism, as further legs in Path H's four ranks
+     after its legs: mixtral_config("8x7b") at its published width (d
+     4096, 32/8 heads, 8 experts of F 14336, top-2, vocab 32000), cut to
+     1 of 32 layers, seeded random weights, bf16, FusedAdam, clip 1.0,
+     segments, flash, 4 x 1024 tokens a step: (a) mesh {"ep": 4} (2
+     experts a rank, no token exchange), one warm-up and 3 timed steps;
+     (b) mesh {"fsdp": -1, "ep": 2}, ZeRO-3 on the exact ZeRO wire, the
+     int8 dispatch wire with nearest rounding, 2 rows a token shard, one
+     warm-up and 2 timed steps: step ms, tokens/s, each rank's peak
+     memory, build and warm-up seconds, wire bytes a rank a step by
+     collective from the plan; (c) on the ranks' real data the int8
+     dispatch wire's codes and scales bit-equal between the quantize
+     kernel and its plain version (and the dequantized values), the ep
+     partners' non-expert parameters bit-equal after each leg's last
+     step (a digest of their fp32 master, compared over the ep group),
+     each leg's launches a step equal to the plan's (flash forward and
+     backward, rms_norm by variant, fused_adam, quantize_int8 and
+     dequantize_int8), losses finite, and 28b's first-step loss within
+     1e-2 of 28a's (the same weights and global batch).
 Phase 3 also holds the paged-attention kernel's int8/fp8-pool mode, fused
 Lion, the block-sparse kernels, the int8 block quantize/dequantize, the
 RMSNorm/LayerNorm kernels and the grouped GEMM of the grouped MoE form
@@ -342,6 +361,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import hashlib
 import json
@@ -480,32 +500,51 @@ PATH_Z_FIRST_LOSS_TOL = 5e-3           # bf16 noise (phase 15's tolerance)
 # the exact wire on that mesh and the other ZeRO++ topologies
 PATH_H_WORLD = 4
 PATH_H_MESH = {"fsdp": -1, "zps": 2}
-PATH_H_LEGS = {    # leg: (config, timed steps)
+# leg: (config, timed steps); 5 and 3 until phase 28 took their time back
+PATH_H_LEGS = {
     "headline": (dict(TRAIN_CONFIG, mesh=PATH_H_MESH, zero_optimization={
         "stage": 3, "zero_quantized_weights": True,
         "zero_quantized_gradients": True, "zero_quantized_dtype": "int8",
         "zero_quantized_rounding": "stochastic",
-        "zero_hierarchical_allgather": True}), 5),
+        "zero_hierarchical_allgather": True}), 3),
     "exact": (dict(TRAIN_CONFIG, mesh=PATH_H_MESH,
-                   zero_optimization={"stage": 3}), 3),
+                   zero_optimization={"stage": 3}), 2),
     "hpz": (dict(TRAIN_CONFIG, mesh={"fsdp": -1}, zero_optimization={
         "stage": 3, "zero_hpz_partition_size": 2,
         "zero_quantized_weights": True, "zero_quantized_gradients": True}),
-        3),
+        2),
     "mics": (dict(TRAIN_CONFIG, mesh={"fsdp": -1}, zero_optimization={
-        "stage": 3, "mics_shard_size": 2}), 3),
+        "stage": 3, "mics_shard_size": 2}), 2),
     "mixed": (dict(TRAIN_CONFIG, mesh={"dp": 2, "fsdp": 2},
-                   zero_optimization={"stage": 3}), 3),
+                   zero_optimization={"stage": 3}), 2),
     "fp8": (dict(TRAIN_CONFIG, mesh={"fsdp": -1}, zero_optimization={
         "stage": 3, "zero_quantized_weights": True,
         "zero_quantized_gradients": True, "zero_quantized_dtype": "fp8",
-        "zero_quantized_rounding": "nearest"}), 3),
+        "zero_quantized_rounding": "nearest"}), 2),
 }
 # the one-hop quantized wire over the same 4 ranks, the outer hop's yardstick
 PATH_H_ONE_HOP = dict(TRAIN_CONFIG, mesh=PATH_H_MESH, zero_optimization={
     "stage": 3, "zero_quantized_weights": True,
     "zero_quantized_gradients": True})
 PATH_H_FIRST_LOSS_TOL = 5e-3           # bf16 noise (phase 15's tolerance)
+# Path E (phase 28): Mixtral-8x7B at its published width, cut to 1 of 32
+# layers, in Path H's four ranks; the same 4 x 1024-token global batch a
+# step in both legs
+PATH_E_MODEL = dict(size="8x7b", num_layers=1)
+PATH_E_ROWS = 4
+PATH_E_LEGS = {    # leg: (config, timed steps)
+    "ep4": (dict(TRAIN_CONFIG, train_batch_size=PATH_E_ROWS,
+                 mesh={"ep": 4}), 3),
+    "fsdp2_ep2_int8": (dict(TRAIN_CONFIG, train_batch_size=PATH_E_ROWS,
+                            mesh={"fsdp": -1, "ep": 2},
+                            zero_optimization={"stage": 3},
+                            moe={"wire_dtype": "int8",
+                                 "rounding": "nearest"}), 2),
+}
+PATH_E_FIRST_LOSS_TOL = 1e-2       # JAX's int8-wire bound (test_moe.py)
+# the int8 wire's MoE block output against the exact wire's on the same
+# inputs, in max|ref| (JAX's bound, test_ep_sharded_dispatch_sum_parity)
+PATH_E_BLOCK_TOL = 0.05
 # Path P: SparseSelfAttention at GPT-2 125M's head layout with the values
 # of the "fixed" sparse_attention example in DeepSpeed's config-json docs
 PATH_P = dict(b=8, h=12, s=4096, d=64)
@@ -3293,7 +3332,9 @@ def engine_vocab(family, size) -> int:
 TRAIN_FAMILIES = (("phi", "2", None), ("phi3", "mini", 24),
                   ("gptj", "6b", 12))
 TRAIN_FAMILY_ROWS, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS = 4, 2048, 5
-# the fp32 checks, the card against the CPU (TF32 off), 3 steps each:
+# the fp32 checks, the card against the CPU (TF32 off), 2 steps each (3
+# until phase 28 took its time back from the CPU halves, the run's
+# critical path; LoRA's fp32 check, 22e, takes the same):
 # (a) each family at its width cut to 2 layers, on 2 x 64 tokens at lr
 # 1e-5 (at phase 6's 1e-4 these models memorise the 128 tokens in 3
 # steps, the loss 11.5 -> 0.002, and the comparison measures the
@@ -3302,7 +3343,7 @@ TRAIN_FAMILY_ROWS, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS = 4, 2048, 5
 # (PERF.md §6); (b) each family's tiny preset widened to its head
 # dim (WIDE_FAMILIES, vocab 512), tests/test_torch_cuda.py's engine test
 # whole, every tensor under the params bound
-TRAIN_FAMILY_FP32 = dict(layers=2, rows=2, seq=64, steps=3, lr=1e-5)
+TRAIN_FAMILY_FP32 = dict(layers=2, rows=2, seq=64, steps=2, lr=1e-5)
 SIGN_FLIP_TENSORS = ("lm_head",)
 WIDE_FAMILIES = {"phi": dict(hidden_size=160, num_heads=2),
                  "phi3": dict(hidden_size=192, num_heads=2),
@@ -3556,9 +3597,11 @@ INT8_SERVING = {"quantize_weights": True}
 LINEAR_MODEL = dict(size="3-8b")
 LORA_ROWS, LORA_SEQ, LORA_STEPS = TRAIN_FAMILY_ROWS, TRAIN_FAMILY_SEQ, 5
 # the fp32 checks at 2 layers (Llama-3-8B's widths): serving 3 requests
-# of 20-90 prompt tokens and 8 greedy tokens; LoRA phase 21's fp32 rows
-# and lr on 32 tokens a row, 3 steps (the CPU halves run beside the build)
-INT8_FP32 = dict(layers=2, n_req=3, max_new=8, lengths=(20, 90))
+# of 20-90 prompt tokens and 4 greedy tokens (8 until phase 28 took its
+# time back from the CPU halves, the run's critical path); LoRA phase
+# 21's fp32 rows, steps and lr on 32 tokens a row (the CPU halves run
+# beside the build)
+INT8_FP32 = dict(layers=2, n_req=3, max_new=4, lengths=(20, 90))
 LORA_FP32 = dict(TRAIN_FAMILY_FP32, seq=32)
 # the LoRA path's quantize shape: one layer of Llama-3-8B's w_up stack,
 # [4096, 14336] bf16 (the transform quantizes the stacks, the forward
@@ -4843,9 +4886,11 @@ MOE_FP32 = dict(families=(("qwen2_moe", "a2.7b"), ("mixtral", "8x7b")),
 # the training check: Qwen2-MoE at 1 layer of full width. Mixtral-8x7B's
 # is left out: its CPU half at 1 layer (1.7 B fp32 values with grads,
 # moments, the change and the card's results beside the serving tree) ran
-# the 96 GiB host out of memory, and it would add minutes of CPU time
+# the 96 GiB host out of memory, and it would add minutes of CPU time.
+# 2 steps (3 until phase 28 took its time back: this CPU half took 97 s,
+# the halves end 272 s after the build, the run's critical path)
 MOE_TRAIN_FP32 = dict(families=(("qwen2_moe", "a2.7b"),), layers=1, rows=2,
-                      seq=64, steps=3, lr=1e-5)
+                      seq=64, steps=2, lr=1e-5)
 MOE_SEED = 25
 
 
@@ -9152,6 +9197,11 @@ def path_h_rank(spec: str) -> int:
                 torch.cuda.empty_cache()
             legs[name] = path_h_leg(dev, name, s["size"], s["seq"])
         out["legs"] = legs
+        out["path_e"], out["path_e_s"] = {}, {}
+        for name in PATH_E_LEGS:                           # phase 28
+            t = time.perf_counter()
+            out["path_e"][name] = path_e_leg(dev, name, s["seq"])
+            out["path_e_s"][name] = time.perf_counter() - t
         torch.distributed.destroy_process_group()
         rc = 0
     except BaseException:
@@ -9165,7 +9215,7 @@ def path_h_rank(spec: str) -> int:
 def path_h_start(dev, size="125m", seq=1024) -> dict:
     """Start phase 27's PATH_H_WORLD ranks (``--path-h-rank``), sharing
     ``dev``; they build the headline leg and run 27c, then wait for
-    :func:`path_h_main` to let them run the legs."""
+    :func:`path_h_main` to let them run the legs, then phase 28's."""
     if dev.type == "cuda":
         import torch
         free, total = torch.cuda.mem_get_info()
@@ -9175,15 +9225,17 @@ def path_h_start(dev, size="125m", seq=1024) -> dict:
                        seq=seq)
 
 
-def path_h_main(dev, run, timeout=450) -> dict:
-    """Phase 27: let the ranks :func:`path_h_start` started run their legs
-    and wait for them (:func:`finish_ranks`), then check: losses finite
-    and falling, the first step's loss of every leg within bf16 noise of
-    the exact leg's, the launches a step equal to the plan's (on the
-    card), 27c bit-equal, and the two-hop wire's outer hop carrying 1/zps
-    of the one-hop qgZ's gradient bytes."""
+def path_h_main(dev, run, timeout=570) -> dict:
+    """Phases 27 and 28: let the ranks :func:`path_h_start` started run
+    their legs and wait for them (:func:`finish_ranks`), then check Path
+    H: losses finite and falling, the first step's loss of every leg
+    within bf16 noise of the exact leg's, the launches a step equal to the
+    plan's (on the card), 27c bit-equal, and the two-hop wire's outer hop
+    carrying 1/zps of the one-hop qgZ's gradient bytes; then Path E
+    (:func:`path_e_main`), its record under ``path_e``."""
     results = finish_ranks(run, "Path H", timeout)
     size, seq = run["size"], run["seq"]
+    path_e = path_e_main(results, dev, seq)
     wires = {name: path_h_wire(cfg, size) for name, (cfg, _)
              in PATH_H_LEGS.items()}
     legs = {}
@@ -9249,6 +9301,380 @@ def path_h_main(dev, run, timeout=450) -> dict:
         raise AssertionError(f"Path H: the outer hop carries "
                              f"{stats['outer_vs_one_hop_reduce']} of the "
                              f"one-hop qgZ's bytes, not 1/{zps}")
+    stats["path_e"] = path_e
+    return stats
+
+
+# ------------------------------ phase 28, Path E (expert parallelism)
+def path_e_plan(config, world=PATH_H_WORLD):
+    """(config, ZeroShardingPlan with the ep split, axis sizes, model
+    config) of a Path E leg, from Mixtral-8x7B at Path E's depth on the
+    meta device."""
+    from deepspeed_tpu_torch.models import Mixtral
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.zero import (ZeroPlan, ZeroShardingPlan,
+                                                  ep_split_dims)
+    cfg = DeepSpeedConfig.from_any(config)
+    sizes = cfg.topology_config().resolve(world)
+    zero = ZeroPlan(cfg.zero_optimization)
+    model = Mixtral(**PATH_E_MODEL, device="meta")
+    shapes = {n: tuple(p.shape) for n, p in model.params.items()}
+    ep = sizes["ep"]
+    plan = ZeroShardingPlan(
+        zero.stage, sizes["fsdp"] * sizes["zps"], shapes,
+        inner=sizes["zps"], ep=ep,
+        ep_dims=ep_split_dims(model.partition_rules(), shapes, ep))
+    return cfg, plan, sizes, model.config
+
+
+def path_e_wire(config, seq=1024, rows=PATH_E_ROWS, dtype_bytes=2) -> dict:
+    """A rank's wire bytes a step of a Path E leg, from its plan and the
+    batch's shapes, by collective (each op's payload as this rank
+    contributes it, Path H's accounting: a gather the rank's piece, a
+    reduce-scatter or an all-reduce the rank's whole tensor). Per MoE
+    layer a step: the router logits' gather and the dispatch and combine
+    exchanges run in the forward and again in the backward's recompute
+    (``segments`` checkpoints the FFN; the recompute stops before the
+    closing ep sum); the backward reduce-scatters the logits' and the
+    combine's gradients and gathers the dispatch's; the ep sums: the
+    block output forward, the rows' and gate weights' gradients
+    backward. ZeRO-3 on the exact wire a layer at a time: each layer's
+    split leaves gathered forward and again backward, the rest once, every
+    split gradient reduce-scattered in fp32, an unsplit one all-reduced
+    over the batch ranks. Also the quantize and dequantize launches a
+    step (nearest int8: one each a dispatch exchange with a token
+    exchange)."""
+    from deepspeed_tpu_torch.ops.quantization import wire_bytes_per_element
+    cfg, plan, sizes, c = path_e_plan(config)
+    t = sizes["dp"] * sizes["fsdp"] * sizes["zps"]
+    ep = sizes["ep"]
+    wire = cfg.moe.wire_dtype if ep > 1 or cfg.moe.enabled else "fp32"
+    n_glob = rows * seq
+    n = n_glob // t
+    e, d, k, nl = c.num_experts, c.hidden_size, c.moe_top_k, c.num_layers
+    from deepspeed_tpu_torch.moe.sharded_moe import compute_capacity
+    cap = compute_capacity(n_glob, e, k, c.capacity_factor, c.min_capacity)
+    c_pad = -(-cap // t) * t
+    e_loc = e // ep
+    by = {}
+
+    def add(key, nbytes):
+        by[key] = by.get(key, 0.0) + nbytes
+
+    exchanged = 0
+    if t > 1:
+        table = e_loc * c_pad * d
+        width = (wire_bytes_per_element(wire) if wire in ("int8", "fp8")
+                 else 2 if wire == "bf16" else dtype_bytes)
+        combine = 2 if wire == "bf16" else dtype_bytes
+        for _ in range(2 * nl):                 # forward + recompute
+            add("moe_logits_gather", n * e * dtype_bytes)
+            add("moe_dispatch_reduce_scatter", table * width)
+            add("moe_combine_gather", table // t * combine)
+            exchanged += 1
+        for _ in range(nl):                     # backward
+            add("moe_logits_grad_reduce_scatter", n_glob * e * dtype_bytes)
+            add("moe_combine_grad_reduce_scatter", table * combine)
+            add("moe_dispatch_grad_gather",
+                table // t * (2 if wire == "bf16" else dtype_bytes))
+    if ep > 1:
+        for _ in range(nl):
+            add("moe_ep_sum", n * d * dtype_bytes)
+            add("moe_ep_grad_sum", (n * d + n * k) * dtype_bytes)
+    for name, shape in plan.shapes.items():
+        full = int(np.prod(shape))
+        layer = name.startswith("layers/")
+        if plan.param_dims[name] is not None:
+            shard = full // plan.param_world
+            add("zero_param_gather", shard * dtype_bytes * (2 if layer
+                                                            else 1))
+        if plan.grad_dims[name] is not None:
+            add("zero_grad_reduce_scatter", full * 4)
+        elif t > 1:
+            add("zero_grad_all_reduce", full * 4)
+    int8 = wire == "int8"
+    launches = {"quantize_int8": exchanged if int8 and
+                cfg.moe.rounding == "nearest" else 0,
+                "dequantize_int8": exchanged if int8 else 0}
+    return {"bytes_by_collective": by, "total_bytes": sum(by.values()),
+            "token_world": t, "ep": ep, "capacity": cap,
+            "capacity_padded": c_pad, "wire": wire,
+            "expected_launches_per_step": launches}
+
+
+def path_e_want(config) -> dict:
+    """The launches a step of a Path E leg (one micro-batch): flash
+    forward once a layer (segments keeps attention out of the checkpoint)
+    and its backward's two kernels, the norms of a micro-batch (2L + 1
+    forward, 2L recomputed), one fused Adam, and the dispatch wire's
+    quantize / dequantize (:func:`path_e_wire`)."""
+    _, _, _, c = path_e_plan(config)
+    return dict(path_e_wire(config)["expected_launches_per_step"],
+                flash_attention_fwd=c.num_layers,
+                flash_attention_bwd=2 * c.num_layers,
+                rms_norm=norm_launches_per_micro(c), fused_adam=1)
+
+
+def path_e_kernel_vs_plain(part, token_world) -> dict:
+    """Phase 28c: the rank's last dispatch partial table ``part`` (its
+    real rows) through the int8 wire's quantize, kernel (``use_kernel=
+    None`` launches it on the card) against its plain version: the codes
+    and scales bit for bit, and the dequantize kernel's values against
+    the plain ones, both cut into the exchange's ``token_world`` chunks as
+    the wire cuts them."""
+    import torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    rows = comm.split_rows(part, token_world, 1)
+    got = [TQ.quantize_rows(rows, use_kernel=k, rounding="nearest")
+           for k in (None, False)]
+    codes = torch.equal(got[0][0], got[1][0])
+    scales = torch.equal(got[0][1], got[1][1])
+    deq = [TQ.dequantize_rows(*got[0], rows.shape[0], rows.shape[1],
+                              torch.float32, use_kernel=k)
+           for k in (None, False)]
+    return {"codes_bit_equal": codes, "scales_bit_equal": scales,
+            "dequantize_bit_equal": torch.equal(deq[0], deq[1]),
+            "values": rows.numel(),
+            "dequantize_max_abs_err": float((deq[0] - deq[1]).abs().max())}
+
+
+def path_e_partners(engine) -> dict:
+    """Phase 28c: whether the ep partners' non-expert fp32 master shards
+    are bit-equal: each rank's digest of them (two int64 sums of the fp32
+    bits, one weighted by position, a chunk at a time) gathered over the
+    ep group."""
+    import torch
+    from deepspeed_tpu_torch.comm import comm
+    names = [n for n in engine.master_state_dict()
+             if n not in engine.plan.ep_dims]
+    digest = torch.zeros(2, dtype=torch.int64, device=engine.device)
+    for name in names:
+        bits = engine.master_state_dict()[name].reshape(-1).view(torch.int32)
+        for lo in range(0, bits.numel(), 1 << 24):
+            x = bits[lo:lo + (1 << 24)].to(torch.int64)
+            w = torch.arange(lo, lo + x.numel(), device=x.device) % 65521 + 1
+            digest[0] += x.sum()
+            digest[1] += (x * w).sum()
+    every = comm.all_gather(digest[None], group=engine.ep_split.group)
+    return {"leaves": len(names),
+            "bit_equal": bool((every == every[0]).all()),
+            "digests": every.tolist()}
+
+
+class PathEProbe:
+    """Phase 28c's view of a leg's dispatcher, patched in for the leg and
+    taken out after it: keeps the last partial dispatch table of the
+    rank's (``moe/dispatch.py``'s ``moe_dispatch_exchange`` wrapped), and
+    on the first MoE block call while ``compare`` is set reruns the call
+    on the exact wire (fp32: the reduce-scatter in the table's dtype) on
+    the same inputs and weights, without grad, and keeps the int8 block
+    output's largest error against it, in max|exact|. Every rank makes
+    that first call at the same point, so the rerun's collectives
+    match."""
+
+    def __init__(self):
+        self.partial, self.compare, self.block = None, False, None
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.moe import dispatch
+        self._exchange = dispatch.moe_dispatch_exchange
+        self._call = dispatch.EpShardedDispatcher.__call__
+        probe = self
+
+        def exchange(partial, *args, **kw):
+            probe.partial = partial.detach()
+            return probe._exchange(partial, *args, **kw)
+
+        def call(disp, xt, routing, experts, expert_fn):
+            out = probe._call(disp, xt, routing, experts, expert_fn)
+            if probe.compare and probe.block is None:
+                import torch
+                exact = dataclasses.replace(disp, wire_dtype="fp32")
+                with torch.no_grad():
+                    ref = probe._call(exact, xt.detach(), routing, {
+                        k: v.detach() for k, v in experts.items()},
+                        expert_fn).float()
+                err = (out.detach().float() - ref).abs().max()
+                denom = ref.abs().max()
+                probe.block = dict(max_abs_err=float(err),
+                                   max_abs_ref=float(denom),
+                                   rel_to_max=float(err / denom),
+                                   rows=int(ref.shape[0]))
+            return out
+
+        dispatch.moe_dispatch_exchange = exchange
+        dispatch.EpShardedDispatcher.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        from deepspeed_tpu_torch.moe import dispatch
+        dispatch.moe_dispatch_exchange = self._exchange
+        dispatch.EpShardedDispatcher.__call__ = self._call
+        return False
+
+
+def path_e_leg(dev, name, seq):
+    """One rank's Path E leg: initialize Mixtral-8x7B at Path E's depth
+    (bf16 weights drawn from the config's seed, the same on every rank),
+    a warm-up step, then the leg's timed steps (host clock up to a
+    synchronize, the ranks started together by a barrier), every count
+    set to 0 right before and read right after; then 28c on the ranks'
+    real data (:class:`PathEProbe`)."""
+    with PathEProbe() as probe:
+        return path_e_leg_probed(dev, name, seq, probe)
+
+
+def path_e_leg_probed(dev, name, seq, probe):
+    import torch
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import Mixtral
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import norms as N
+    from deepspeed_tpu_torch.ops import quantization as TQ
+    from deepspeed_tpu_torch.ops.fused_optimizers import fused_adam_step
+    config, steps = PATH_E_LEGS[name]
+    cuda = dev.type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = Mixtral(**PATH_E_MODEL, remat_policy="segments",
+                    attn_impl="flash", device=dev, dtype=torch.bfloat16)
+    engine, *_ = ds.initialize(model=model, config=config)
+    disp = engine._moe_dispatcher
+    int8_wire = disp.wire_dtype == "int8" and disp.token_world > 1
+    batch = train_batch_of(dev, model.config.vocab_size,
+                           engine.train_batch_size_, seq)
+    if cuda:
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    probe.compare = int8_wire
+    warm = float(engine.train_batch(batch))                   # warm-up
+    probe.compare = False
+    warm_s = time.perf_counter() - t
+    comm.barrier()
+    counters = {"quantize_int8": TQ.quantize_int8_kernel,
+                "dequantize_int8": TQ.dequantize_int8_kernel,
+                "flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd": fa.flash_attention_bwd,
+                "fused_adam": fused_adam_step,
+                "rms_norm": N.rms_norm_kernel}
+    for fn in counters.values():
+        fn.launches = 0
+    reset_norms(N.rms_norm_kernel)
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(engine.train_batch(batch))
+        if cuda:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    norm_variants = check_norm_variants(N.rms_norm_kernel, dev,
+                                        f"Path E {name}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    check = (path_e_kernel_vs_plain(probe.partial, disp.token_world)
+             if int8_wire else None)
+    partners = path_e_partners(engine) if engine.ep_split.world > 1 \
+        else None
+    out = dict(
+        steps=steps, warm_up_loss=warm, losses=[float(x) for x in losses],
+        step_ms=1e3 * sum(step_s) / steps, step_ms_min=1e3 * min(step_s),
+        step_ms_max=1e3 * max(step_s),
+        tokens_per_s=engine.train_batch_size_ * seq * steps / sum(step_s),
+        peak_memory_gib=peak, build_s=build_s, warm_up_s=warm_s,
+        launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        norm_launches_by_variant=norm_variants,
+        kernel_vs_plain=check, block_vs_exact_wire=probe.block,
+        ep_partners=partners,
+        stage3_counts=engine.stage3_counts(),
+        shard_numel=sum(t.numel()
+                        for t in engine.master_state_dict().values()),
+        dispatcher=dict(wire=disp.wire_dtype, token_world=disp.token_world,
+                        ep=disp.ep_world, slow=list(disp.slow_axes),
+                        fast=list(disp.fast_axes)),
+        ep_dims=dict(engine.plan.ep_dims))
+    del engine, model, batch, disp
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def path_e_main(results, dev, seq=1024) -> dict:
+    """Phase 28 from the ranks' results: the record of each leg (its
+    wire bytes from the plan, each rank's peak memory and step ms), then
+    the checks: losses finite, the launches a step equal to the plan's
+    (on the card), 28c's codes, scales and dequantized values bit-equal,
+    28b's MoE block output on the int8 wire within PATH_E_BLOCK_TOL of
+    max|exact| of the exact wire's on every rank, the ep partners
+    bit-equal, 28b's first-step loss within PATH_E_FIRST_LOSS_TOL of
+    28a's."""
+    world = len(results)
+    legs = {}
+    for name, (config, _) in PATH_E_LEGS.items():
+        rec = dict(results[0]["path_e"][name])
+        per = [results[r]["path_e"][name] for r in range(world)]
+        rec["peak_memory_gib_per_rank"] = [p["peak_memory_gib"] for p in per]
+        rec["step_ms_per_rank"] = [p["step_ms"] for p in per]
+        rec["build_s_per_rank"] = [p["build_s"] for p in per]
+        rec["kernel_vs_plain_per_rank"] = [p["kernel_vs_plain"] for p in per]
+        rec["block_vs_exact_wire_per_rank"] = [p["block_vs_exact_wire"]
+                                               for p in per]
+        rec["ep_partners_per_rank"] = [p["ep_partners"] for p in per]
+        rec["wire"] = path_e_wire(config, seq)
+        rec["expected_launches_per_step"] = path_e_want(config)
+        legs[name] = rec
+    a, b = legs["ep4"], legs["fsdp2_ep2_int8"]
+    stats = dict(
+        model="mixtral-8x7b (d 4096, 32/8 heads, 8 experts of F 14336, "
+              "top-2, vocab 32000)",
+        reduced=f"depth {PATH_E_MODEL['num_layers']} of 32",
+        ranks=world, seq=seq, rows=PATH_E_ROWS, legs=legs,
+        first_loss_gap=abs(b["warm_up_loss"] - a["warm_up_loss"])
+        / abs(a["warm_up_loss"]),
+        seconds=sum(results[0]["path_e_s"].values()),
+        seconds_by_leg=results[0]["path_e_s"])
+    log(f"[path E] {json.dumps(stats)}")
+    for name, rec in legs.items():
+        losses = [rec["warm_up_loss"]] + rec["losses"]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"Path E {name} losses not finite: "
+                                 f"{losses}")
+        want = rec["expected_launches_per_step"]
+        for r in range(world):
+            got = results[r]["path_e"][name]["launches_per_step"]
+            if dev.type == "cuda" and any(got[k] != want[k] for k in got):
+                raise AssertionError(f"Path E rank {r} {name} launches per "
+                                     f"step {got} != {want}")
+        for r, check in enumerate(rec["kernel_vs_plain_per_rank"]):
+            if check is not None and not (check["codes_bit_equal"]
+                                          and check["scales_bit_equal"]
+                                          and check["dequantize_bit_equal"]):
+                raise AssertionError(f"Path E rank {r} {name} int8 dispatch "
+                                     f"wire kernel vs plain: {check}")
+        for r, part in enumerate(rec["ep_partners_per_rank"]):
+            if part is None or not part["bit_equal"]:
+                raise AssertionError(f"Path E rank {r} {name}: ep partners' "
+                                     f"non-expert params not bit-equal: "
+                                     f"{part}")
+    if b["kernel_vs_plain"] is None:
+        raise AssertionError("Path E: 28b ran no int8 dispatch exchange")
+    for r, block in enumerate(b["block_vs_exact_wire_per_rank"]):
+        if block is None or not block["rel_to_max"] <= PATH_E_BLOCK_TOL:
+            raise AssertionError(f"Path E rank {r}: 28b's int8-wire MoE "
+                                 f"block output against the exact wire's: "
+                                 f"{block} (bound {PATH_E_BLOCK_TOL})")
+    if stats["first_loss_gap"] > PATH_E_FIRST_LOSS_TOL:
+        raise AssertionError(f"Path E: 28b's first-step loss "
+                             f"{b['warm_up_loss']} is "
+                             f"{stats['first_loss_gap']:.2e} from 28a's "
+                             f"{a['warm_up_loss']}")
     return stats
 
 
@@ -9477,6 +9903,12 @@ def main(argv=None) -> int:
         build = nvcc_pool.submit(op_builder.build, list(KERNELS))
         # 25d's trees are drawn on the card while nvcc runs
         moe_cpu = moe_fp32_cpu_sides(cpu_pool, dev)
+        # each CPU half's end (they run in order on one worker thread)
+        for what, futures in (("21", cpu_futures), ("22", linear_futures),
+                              ("25d", moe_cpu)):
+            for key, future in futures.items():
+                future.add_done_callback(
+                    lambda _, w=f"{what} {key}": mark(f"CPU half {w}"))
         build_s = build.result()
     log(f"[build] seconds {json.dumps(build_s)}")
     for name in ("paged_attention", "flash_attention",
@@ -9554,9 +9986,10 @@ def main(argv=None) -> int:
         stop_ranks(path_h_run)
         stop_ranks(path_z_run)
         raise
-    path_h = path_h_main(dev, path_h_run)                     # phase 27
-    log(f"[time] phase 27 done {time.perf_counter() - t_start:.1f} s into "
-        f"the run ({path_h['seconds_after_go']:.1f} s after the halves)")
+    path_h = path_h_main(dev, path_h_run)                 # phases 27-28
+    log(f"[time] phases 27-28 done {time.perf_counter() - t_start:.1f} s "
+        f"into the run ({path_h['seconds_after_go']:.1f} s after the "
+        f"halves; phase 28 {path_h['path_e']['seconds']:.1f} s of it)")
 
     engine, stats = main_path(dev)                            # phase 4
     bf16_ref = {k: stats[k] for k in ("weight_bytes", "decode_ms_per_tick",
@@ -10257,6 +10690,15 @@ def main(argv=None) -> int:
                            "layer_norm"):
             k["path_h_launches"] = {leg: r["launches"][k["name"]]
                                     for leg, r in h_legs.items()}
+    # phase 28: Path E's launches (rank 0's timed steps) beside each
+    # kernel its legs ran
+    e_legs = path_h["path_e"]["legs"]
+    for k in kernels:
+        if k["name"] in ("flash_attention_fwd", "flash_attention_bwd",
+                         "rms_norm", "fused_adam", "quantize_int8",
+                         "dequantize_int8"):
+            k["path_e_launches"] = {leg: r["launches"][k["name"]]
+                                    for leg, r in e_legs.items()}
     log(f"[main] serving {json.dumps(stats)} on {card}")
     log(f"[main] fused serving {json.dumps(fused)} on {card}")
     log(f"[main] spec and ring serving {json.dumps(spec)} on {card}")

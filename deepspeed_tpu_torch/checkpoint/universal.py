@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from ..runtime.checkpoint_engine import MEMORY_TIERS
-from ..runtime.checkpointing import opt_entries, put_master, put_param
+from ..runtime.checkpointing import (cut_piece, cuts_of, opt_entries,
+                                     put_master, put_param)
 from ..utils.logging import log_dist, logger
 from .zero_to_fp32 import _find_tag, hp_names, open_checkpoint
 
@@ -187,19 +188,20 @@ def load_universal_checkpoint(engine, universal_dir: str) -> dict:
 
     # --- params / master ------------------------------------------------
     plan = engine.plan
-    for name in plan.shapes:
+    shapes_now = plan.global_shapes
+    for name in shapes_now:
         if name not in fp32:
             logger.warning(f"universal ckpt missing param {name}; keeping "
                            "current value")
             continue
-        if tuple(fp32[name].shape) != plan.shapes[name]:
+        if tuple(fp32[name].shape) != shapes_now[name]:
             raise ValueError(f"{name}: shape {tuple(fp32[name].shape)} in "
-                             f"the checkpoint, {plan.shapes[name]} in the "
+                             f"the checkpoint, {shapes_now[name]} in the "
                              f"engine")
         full = torch.from_numpy(fp32[name])
 
-        def get(dim, split, full=full):
-            return full if split is None else split.own(full, dim)
+        def get(cuts, full=full):
+            return cut_piece(full, cuts)
 
         put_param(engine, name, get)
         if engine._mixed:
@@ -210,15 +212,17 @@ def load_universal_checkpoint(engine, universal_dir: str) -> dict:
     names = list(fp32)
     shapes = {n: tuple(v.shape) for n, v in fp32.items()}
     entries = opt_entries(engine)
-    opt = {k[len("opt_state/"):]: _Leaf(() if n is None else plan.shapes[n])
+    opt = {k[len("opt_state/"):]: _Leaf(() if n is None
+                                        else shapes_now[n])
            for k, (_, n) in entries.items()}
     slot_map = _match_moments(opt, names, shapes)
     for pname, slots in slot_map.items():
         for i, (key, _) in enumerate(slots):
             if pname in moments and i < len(moments[pname]):
-                entries["opt_state/" + key][0].copy_(engine._own(
+                entries["opt_state/" + key][0].copy_(cut_piece(
                     torch.from_numpy(moments[pname][i]),
-                    plan.master_dims[pname]))
+                    cuts_of(engine, pname, plan.master_dims[pname],
+                            engine.state_split)))
 
     step = int(meta.get("step", 0))
     # the optimizer's step counter is a scalar the fragments don't carry:

@@ -28,6 +28,16 @@ tensors for every collective here (torch 2.11 on the H100, checked on the
 card) and moves them through the host itself; the backend is never
 switched behind the caller's back. ``timed_op`` and the comms logger
 belong to the tooling slice (ROADMAP Slice G).
+
+Four collectives carry their transposes for autograd, as JAX
+differentiates its collectives inside ``shard_map``: :func:`copy_to_group`
+(the identity; its backward sums the gradient over the group: a tensor
+the group holds alike whose uses the ranks split),
+:func:`reduce_from_group` (a sum over the group; its backward the
+identity), :func:`gather_from_group` (an all-gather along a dim; its
+backward the sum reduce-scatter) and :func:`reduce_scatter_to_group` (a
+sum reduce-scatter along a dim; its backward the all-gather). Each runs its
+collective in the tensor's own dtype.
 """
 
 from __future__ import annotations
@@ -291,3 +301,79 @@ def reduce(tensor: torch.Tensor, dst: int, group=None) -> torch.Tensor:
 def barrier(group=None) -> None:
     if get_world_size(group) > 1:
         dist.barrier(group=group)
+
+
+# --- collectives with their transposes, for autograd -------------------
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous().clone(), group=ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group=group, axis=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, group=ctx.group, axis=ctx.dim), None, None
+
+
+class _ReduceScatterToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group=group, axis=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, group=ctx.group, axis=ctx.dim), None, None
+
+
+def copy_to_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``group``."""
+    if get_world_size(group) == 1:
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; its gradient passed as it is."""
+    if get_world_size(group) == 1:
+        return x
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group=None, dim: int = 0
+                      ) -> torch.Tensor:
+    """:func:`all_gather` along ``dim``; the gradient reduce-scattered
+    (summed) back."""
+    if get_world_size(group) == 1:
+        return x
+    return _GatherFromGroup.apply(x, group, dim)
+
+
+def reduce_scatter_to_group(x: torch.Tensor, group=None, dim: int = 0
+                            ) -> torch.Tensor:
+    """:func:`reduce_scatter` (sum) along ``dim``; the gradient
+    all-gathered back."""
+    if get_world_size(group) == 1:
+        return x
+    return _ReduceScatterToGroup.apply(x, group, dim)

@@ -1,7 +1,6 @@
 """Mixtral family (counterpart of ``deepspeed_tpu/models/mixtral.py``: the
 same presets, defaults and parameter tree): a decoder whose FFN is a top-k
-routed mixture of experts (``moe/sharded_moe.py``), all experts on one
-card.
+routed mixture of experts (``moe/sharded_moe.py``).
 
 Parameters: ``layers/router`` [L, d, E] and ``layers/experts/{w_up,
 w_gate}`` [L, E, d, f], ``layers/experts/w_down`` [L, E, f, d] in place of
@@ -9,10 +8,13 @@ the dense FFN's leaves. Training and serving take the capacity form
 (``moe_ffn``); ``moe_serving_dispatch`` (set on a serving engine's copy of
 the model by ``moe_grouped_dispatch``) takes the grouped form without
 capacity. The training engine binds the ``moe`` config block's routing
-overrides (``moe_capacity_factor``, ``moe_min_capacity``);
-``moe_dispatcher`` (expert parallelism) and ``moe_router_telemetry`` raise
-where they are set, naming their ROADMAP items. ``moe_metrics_hook``, when
-set, receives each layer's routing metrics (drop fraction, expert load).
+overrides (``moe_capacity_factor``, ``moe_min_capacity``) and, across
+ranks, ``moe_dispatcher`` (``moe/dispatch.py``: global gating and the
+dispatch/combine exchange; the expert stacks then hold this rank's ``E /
+ep`` experts, split on dim 1 by the ``ep`` rules of
+:meth:`partition_rules`); ``moe_router_telemetry`` raises where it is set,
+naming its ROADMAP item. ``moe_metrics_hook``, when set, receives each
+layer's routing metrics (drop fraction, expert load).
 """
 
 from __future__ import annotations
@@ -57,10 +59,10 @@ class Mixtral(DecoderLM):
     # form (exact top-k, no capacity) instead of the capacity form
     moe_serving_dispatch = False
     # bound by the training engine from the moe config block (None: this
-    # config's values). moe_dispatcher and moe_router_telemetry keep JAX's
-    # names for API parity and have one working value each on one card
-    # (None, False): the moe block refuses the others before a model sees
-    # them, and a value set by hand raises where it is read
+    # config's values, and no dispatcher); moe_router_telemetry keeps JAX's
+    # name and has one working value (False): the moe block refuses the
+    # other before a model sees it, and a value set by hand raises where it
+    # is read
     moe_dispatcher = None
     moe_capacity_factor = None
     moe_min_capacity = None

@@ -637,7 +637,7 @@ class DecoderLM(nn.Module):
         ``(tokens, targets)`` pair or a dict with those keys, each [B, S],
         plus ``aux_loss_coef() * aux`` for an MoE model (JAX's loss; a
         dense model's aux term is 0 there and absent here)."""
-        nll, count, aux = self._loss_parts(batch)
+        nll, count, aux = self.loss_parts(batch)
         loss = nll / torch.clamp(count, min=1)
         if aux is not None:
             loss = loss + self.aux_loss_coef() * aux
@@ -649,13 +649,15 @@ class DecoderLM(nn.Module):
     def loss_terms(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """The cross-entropy as (summed fp32 NLL, count of valid targets),
         -100 targets masked: a caller that splits a batch divides the sum
-        by the count of the whole batch (the engine across ranks, which
-        refuses an MoE model: its router loss is not in these terms)."""
-        nll, count, _ = self._loss_parts(batch)
+        by the count of the whole batch (the engine across ranks; an MoE
+        model's router loss is not in these terms: :meth:`loss_parts`)."""
+        nll, count, _ = self.loss_parts(batch)
         return nll, count
 
-    def _loss_parts(self, batch):
-        """(summed NLL, count of valid targets, router aux or None)."""
+    def loss_parts(self, batch):
+        """(summed NLL, count of valid targets, router aux or None): the
+        engine across ranks adds the aux, a global quantity under global
+        gating, as its share of the global loss."""
         tokens, targets = _unpack_batch(batch)
         x, aux = self.final_hidden(tokens, return_aux=True)
         if self.config.loss_chunk > 0:

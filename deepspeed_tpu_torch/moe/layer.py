@@ -4,9 +4,11 @@ reference: deepspeed/moe/layer.py MoE).
 The reference's ``MoE`` wraps a user expert module and creates expert
 process groups. Here, as in JAX, the object bundles the gate and expert
 parameters with the routing config: ``init`` gives the parameters as a
-dict of tensors and ``__call__(params, x)`` runs the routed FFN. All
-experts are local (one card); a ``dispatcher`` raises, naming the ROADMAP
-item of expert parallelism.
+dict of tensors and ``__call__(params, x)`` runs the routed FFN. A
+``dispatcher`` (``moe/dispatch.py`` ``EpShardedDispatcher``) routes over
+the global batch and exchanges the rows with the ranks that hold the
+other experts; ``params["experts"]`` is then this rank's ``E / ep``
+experts and ``x`` its rows.
 """
 
 from __future__ import annotations

@@ -20,12 +20,16 @@ experts' products through the grouped GEMM of ``ops/grouped_gemm.py``,
 which reads the group offsets on the device: a CUDA graph captures it as
 it captures the capacity form.
 
-Expert parallelism (the ``ep`` axis, ``moe/dispatch.py`` and
-``runtime/comm/moe_alltoall.py``) is not ported: a ``dispatcher`` raises.
+Across ranks a ``dispatcher`` (``moe/dispatch.py``
+``EpShardedDispatcher``, bound by the training engine) takes over from the
+index form: the router logits of every token rank are gathered, routing
+runs once on the global batch, and the dispatcher exchanges this rank's
+rows with the ranks holding the other experts and token shards.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -35,11 +39,6 @@ from ..ops import layers as L
 from ..ops.grouped_gemm import group_offsets, grouped_mm
 from ..ops.quantization import dequantize_weight
 
-EP_UNPORTED = (
-    "expert parallelism (the ep mesh axis, moe/dispatch.py "
-    "EpShardedDispatcher, runtime/comm/moe_alltoall.py) is not ported yet "
-    "(ROADMAP Slice D item 12, expert parallelism: after item 11's mixed "
-    "meshes and two-hop wire)")
 TELEMETRY_UNPORTED = (
     "moe router telemetry publishes through the telemetry registry, not "
     "ported yet (ROADMAP Slice G item 15)")
@@ -218,17 +217,32 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, experts: dict, *,
     times their gate weights (in x's dtype, as JAX casts ``combine``).
     Static shapes and no host read, so a CUDA graph captures it.
     ``metrics_hook`` receives the routing metrics; ``constrain`` (a JAX
-    sharding constraint) does nothing on one card."""
-    if dispatcher is not None:
-        raise NotImplementedError(EP_UNPORTED)
+    sharding constraint) does nothing on one card.
+
+    With a ``dispatcher`` (``moe/dispatch.py``; ``x`` this rank's rows,
+    ``experts`` this rank's experts) gating is global, as JAX's: the router
+    logits of every token rank are gathered in the global batch's order,
+    routed once (capacity from the global token count), and this rank's
+    rows' choices go to the dispatcher; ``aux`` is the global batch's."""
     b, s, d = x.shape
     n = b * s
     e = gate_w.shape[-1]
     xt = x.reshape(n, d)
-    r = route(xt @ gate_w, k, capacity_factor, min_capacity, normalize_topk,
+    logits = xt @ gate_w
+    if dispatcher is not None:
+        logits = dispatcher.global_logits(logits)
+    r = route(logits, k, capacity_factor, min_capacity, normalize_topk,
               drop_tokens)
     if metrics_hook is not None:
         metrics_hook(r.metrics)
+    if dispatcher is not None:
+        own = dispatcher.local_rows
+        local = r._replace(idx=own(r.idx), pos=own(r.pos), keep=own(r.keep),
+                           gate=own(r.gate))
+        out = dispatcher(xt, local, experts,
+                         functools.partial(_expert_ffn,
+                                           activation=activation))
+        return out.reshape(b, s, d), r.aux
     c = r.capacity
     # a dropped choice goes to row E*C, past the experts' rows
     row = torch.where(r.keep, r.idx * c + r.pos,

@@ -5,11 +5,14 @@ innermost ``AXIS_ORDER``, as ``np.asarray(devices).reshape(shape)``, with
 the batch split over ``BATCH_AXES``. The port runs one rank per device in
 the same order: rank r sits at ``np.unravel_index(r, shape)``, so ``zps``
 is the innermost batch axis and a group over an axis set holds the ranks
-that share every other coordinate, in rank order. The data-parallel axes
-are ported: ``dp`` (replicas), ``fsdp`` (ZeRO shards; -1 absorbs the
-world) and ``zps`` (the sub-axis carved out of fsdp for hpZ and MiCS, or
-set directly for the two-hop wire), in any mix. Any other axis larger
-than one raises ``NotImplementedError`` naming its ROADMAP item.
+that share every other coordinate, in rank order. Ported: the
+data-parallel axes ``dp`` (replicas), ``fsdp`` (ZeRO shards; -1 absorbs
+the world) and ``zps`` (the sub-axis carved out of fsdp for hpZ and MiCS,
+or set directly for the two-hop wire), in any mix, and ``ep`` (expert
+parallelism: the routed experts split over it, everything else replicated
+over it; ranks that differ only in ``ep`` take the same batch rows, as
+JAX keeps activations replicated over ``ep``). Any other axis larger than
+one raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,8 +31,6 @@ UNPORTED_AXES = {
     "tp": "Slice D item 12 (tensor parallelism, parallel/partition.py)",
     "sp": "Slice D item 12 (sequence/)",
     "pp": "Slice D item 12 (runtime/pipe/)",
-    "ep": "Slice D item 12, expert parallelism (moe/dispatch.py, "
-          "runtime/comm/moe_alltoall.py)",
 }
 
 
@@ -136,6 +137,10 @@ class Topology:
     @property
     def data_parallel_size(self) -> int:
         return self.axis_size(BATCH_AXES)
+
+    @property
+    def expert_parallel_size(self) -> int:
+        return self.sizes["ep"]
 
     @property
     def fsdp_size(self) -> int:

@@ -26,7 +26,12 @@ entry's full shape, its split dim, the number of pieces and the rank
 whose file holds each, so a plain load at another world size, mesh or
 ZeRO stage re-cuts the pieces (JAX: orbax reshards on read). Under hpZ an
 entry's parameters and its master split differently (over zps alone,
-and over fsdp x zps), and each records its own.
+and over fsdp x zps), and each records its own. An expert leaf split over
+``ep`` is saved as its ep pieces (split on its experts dim, one a ep
+coordinate, each gathered whole over that coordinate's ZeRO ranks at
+save time), so the index keeps one split dim an entry and every entry
+holds the global array, as JAX's do; a load cuts this rank's ep piece
+first and its ZeRO piece out of that (:func:`cut_piece`).
 
 The JAX package's NVMe-offload host files (``host_opt_rank*.npz``) have no
 counterpart until the memory tiers are ported: the port writes none, and
@@ -63,7 +68,9 @@ def _tag(engine, tag: Optional[str]) -> str:
 def _ckpt_engine(engine):
     ce = getattr(engine, "checkpoint_engine", None)
     if ce is None:
-        ce = build_checkpoint_engine(engine.config, engine.group)
+        # every rank, the ep ranks with theirs: the world's rank 0 writes
+        # latest once all have written
+        ce = build_checkpoint_engine(engine.config, None)
         engine.checkpoint_engine = ce
     return ce
 
@@ -94,25 +101,75 @@ def opt_entries(engine) -> dict[str, tuple[torch.Tensor, Optional[str]]]:
 
 
 def state_entries(engine) -> dict[str, tuple[torch.Tensor, tuple,
-                                             Optional[int], object]]:
+                                             Optional[int], object,
+                                             Optional[str]]]:
     """Every entry of the engine's state: key -> (this rank's piece, the
-    full shape, the dim the ranks split it on or None, and the engine's
-    ``Split`` of that dim: its ranks and this rank's piece)."""
+    full (global) shape, the dim the ranks of this ep coordinate split it
+    on or None, the engine's ``Split`` of that dim: its ranks and this
+    rank's piece, and the parameter's name or None)."""
     plan = engine.plan
+    shapes = plan.global_shapes
     ps, ss = engine.param_split, engine.state_split
-    out = {"step": (engine._step, (), None, None)}
+    out = {"step": (engine._step, (), None, None, None)}
     for name, p in engine.module_state_dict().items():
-        out[f"params/{name}"] = (p, plan.shapes[name], plan.param_dims[name],
-                                 ps)
+        out[f"params/{name}"] = (p, shapes[name], plan.param_dims[name], ps,
+                                 name)
     if engine._mixed:
         for name, m in engine.master_state_dict().items():
-            out[f"master/{name}"] = (m, plan.shapes[name],
-                                     plan.master_dims[name], ss)
+            out[f"master/{name}"] = (m, shapes[name],
+                                     plan.master_dims[name], ss, name)
     for key, (t, name) in opt_entries(engine).items():
-        out[key] = ((t, (), None, None) if name is None
-                    else (t, plan.shapes[name], plan.master_dims[name], ss))
+        out[key] = ((t, (), None, None, None) if name is None
+                    else (t, shapes[name], plan.master_dims[name], ss, name))
     for field, t in zip(_LOSS_SCALE, engine._loss_scale):
-        out[f"loss_scale/{field}"] = (t, (), None, None)
+        out[f"loss_scale/{field}"] = (t, (), None, None, None)
+    return out
+
+
+def cuts_of(engine, name: Optional[str], dim: Optional[int], split
+            ) -> list[tuple[int, int, int]]:
+    """The cuts that take parameter ``name``'s global value to this rank's
+    piece when the ranks of ``split`` split it on ``dim``: its ep piece
+    first (an expert leaf), then that piece's (dim, world, index)."""
+    cuts = []
+    ep_dim = engine.plan.ep_dims.get(name)
+    if ep_dim is not None:
+        ep = engine.ep_split
+        cuts.append((ep_dim, ep.world, ep.index))
+    if dim is not None and split is not None:
+        cuts.append((dim, split.world, split.index))
+    return cuts
+
+
+def cut_piece(full: torch.Tensor, cuts) -> torch.Tensor:
+    """``full`` cut by each (dim, world, index) of ``cuts`` in turn."""
+    for dim, world, index in cuts:
+        full = full.chunk(world, dim)[index]
+    return full
+
+
+def read_piece(ckpt, key: str, cuts) -> torch.Tensor:
+    """The checkpoint entry ``key`` cut by ``cuts``: the first cut read
+    from its file where it is the saved layout."""
+    if not cuts:
+        return ckpt.full(key)
+    (dim, world, index), rest = cuts[0], cuts[1:]
+    return cut_piece(ckpt.piece(key, world, index, dim), rest)
+
+
+def _save_entries(engine) -> dict:
+    """:func:`state_entries` as saved: an expert leaf's piece gathered
+    whole over its ep coordinate's ranks, split over ep on its experts
+    dim (a collective of each entry's group: every rank calls it)."""
+    out = {}
+    for key, (t, shape, dim, split, name) in state_entries(engine).items():
+        ep_dim = engine.plan.ep_dims.get(name)
+        if ep_dim is not None:
+            if dim is not None:
+                t = comm.all_gather(t.contiguous(), group=split.group,
+                                    axis=dim)
+            dim, split = ep_dim, engine.ep_split
+        out[key] = (t, shape, dim, split)
     return out
 
 
@@ -138,7 +195,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     ce.makedirs(os.path.join(path, "state"))
     topo = engine.topology
     rank = topo.rank
-    entries = state_entries(engine)
+    entries = _save_entries(engine)
     mine = {k: t for k, (t, _, dim, split) in entries.items()
             if (rank == 0 if dim is None else _writes(engine, split))}
 
@@ -187,15 +244,15 @@ def _validate_tag(engine, tag: str) -> None:
     save under one tag: the crc32 of the tag, its max and min over the
     ranks (crc32 is the same in every interpreter, unlike ``hash``)."""
     mode = engine.config.checkpoint.tag_validation
-    if mode == "Ignore" or engine.dp_world == 1:
+    if mode == "Ignore" or engine.topology.world == 1:
         return
     h = zlib.crc32(tag.encode())
     hi = comm.all_reduce(torch.tensor(h, dtype=torch.int64,
                                       device=engine.device),
-                         comm.ReduceOp.MAX, engine.group)
+                         comm.ReduceOp.MAX)
     lo = comm.all_reduce(torch.tensor(h, dtype=torch.int64,
                                       device=engine.device),
-                         comm.ReduceOp.MIN, engine.group)
+                         comm.ReduceOp.MIN)
     if int(hi) != int(lo):
         msg = f"checkpoint tag {tag!r} differs across processes"
         if mode == "Fail":
@@ -266,7 +323,7 @@ def restore_state(engine, ckpt, groups) -> None:
     none (an fp32 run), is the parameters."""
     plan = engine.plan
     want = state_entries(engine)
-    for key, (_, shape, _, _) in want.items():
+    for key, (_, shape, _, _, _) in want.items():
         if key.split("/")[0] not in groups:
             continue
         if key.startswith("master/") and key not in ckpt:
@@ -281,9 +338,7 @@ def restore_state(engine, ckpt, groups) -> None:
                              f"{tuple(shape)} in the engine")
 
     def piece(key):
-        return lambda dim, split: ckpt.piece(
-            key, split.world if split else 1, split.index if split else 0,
-            dim)
+        return lambda cuts: read_piece(ckpt, key, cuts)
 
     if "params" in groups:
         for name in plan.shapes:
@@ -303,33 +358,35 @@ def restore_state(engine, ckpt, groups) -> None:
         ss = engine.state_split
         for key, (t, name) in opt_entries(engine).items():
             dim = None if name is None else plan.master_dims[name]
-            t.copy_(ckpt.piece(key, ss.world, ss.index, dim))
+            t.copy_(read_piece(ckpt, key, cuts_of(engine, name, dim, ss)))
 
 
 @torch.no_grad()
 def put_param(engine, name: str, get) -> None:
-    """Set parameter ``name`` from ``get(dim, split)``, the value's piece
-    for this rank when the ranks of ``split`` split it on ``dim`` (None:
-    the whole value), in any dtype: the compute-dtype view the optimizer
-    writes (this rank's master-layout piece; in fp32 it is the master),
-    where stages 1-2 replicate a split leaf the full replica the model
-    reads, and under hpZ the parameter shard in its own layout."""
+    """Set parameter ``name`` from ``get(cuts)``, the global value cut by
+    ``cuts`` (:func:`cuts_of`: this rank's ep piece, then its piece where
+    ranks split it; none: the whole value), in any dtype: the
+    compute-dtype view the optimizer writes (this rank's master-layout
+    piece; in fp32 it is the master), where stages 1-2 replicate a split
+    leaf the full replica the model reads, and under hpZ the parameter
+    shard in its own layout."""
     plan = engine.plan
-    engine._compute_views[name].copy_(get(plan.master_dims[name],
-                                          engine.state_split))
+    engine._compute_views[name].copy_(get(cuts_of(
+        engine, name, plan.master_dims[name], engine.state_split)))
     if name in engine._replica_views:
-        engine._replica_views[name].copy_(get(None, None))
+        engine._replica_views[name].copy_(get(cuts_of(engine, name, None,
+                                                      None)))
     if name in engine._param_shard_views:
-        engine._param_shard_views[name].copy_(get(plan.param_dims[name],
-                                                  engine.param_split))
+        engine._param_shard_views[name].copy_(get(cuts_of(
+            engine, name, plan.param_dims[name], engine.param_split)))
 
 
 @torch.no_grad()
 def put_master(engine, name: str, get) -> None:
     """Set this rank's piece of the fp32 master of ``name`` (see
     :func:`put_param`)."""
-    engine.master_state_dict()[name].copy_(get(engine.plan.master_dims[name],
-                                               engine.state_split))
+    engine.master_state_dict()[name].copy_(get(cuts_of(
+        engine, name, engine.plan.master_dims[name], engine.state_split)))
 
 
 def save_16bit_model(engine, save_dir: str,

@@ -4,14 +4,15 @@ Takes the same DeepSpeed JSON as the JAX ``DeepSpeedConfig``. The blocks
 the training step reads are dataclasses with the JAX field names and
 defaults: batch sizes, ``optimizer``, ``scheduler``, ``fp16``, ``bf16``,
 ``zero_optimization``, ``gradient_clipping``, ``steps_per_print``, ``seed``,
-``activation_checkpointing``, ``checkpoint`` and ``moe`` (its routing
-overrides; the expert-parallel exchange and router telemetry raise).
+``activation_checkpointing``, ``checkpoint`` and ``moe`` (the
+dispatch exchange, its wire and routing overrides; router telemetry
+raises).
 Every other block the JAX config declares is accepted by name at its JAX
 defaults (``UNPORTED``); a key set away from its default is a feature the
 port does not have yet and raises ``NotImplementedError`` naming its
 ROADMAP slice. ``mesh`` also takes the
-data-parallel meshes over ranks (``parallel/mesh.py``: dp, fsdp and zps in
-any mix; :meth:`DeepSpeedConfig.topology_config` carves the zps axis of
+meshes over ranks (``parallel/mesh.py``: dp, fsdp, zps and ep in any
+mix; :meth:`DeepSpeedConfig.topology_config` carves the zps axis of
 hpZ and MiCS out of fsdp as the JAX engine does). An unknown key raises
 ``ValueError``, as everywhere in the port. ``prescale_gradients``,
 ``gradient_predivide_factor``, ``memory_breakdown``, ``dump_state`` and
@@ -29,8 +30,9 @@ from typing import Any, Optional
 
 import torch
 
-from ..moe.sharded_moe import EP_UNPORTED, TELEMETRY_UNPORTED
+from ..moe.sharded_moe import TELEMETRY_UNPORTED
 from ..parallel.mesh import TopologyConfig, check_ported
+from .comm.moe_alltoall import MOE_WIRE_DTYPES
 from .config_utils import DeepSpeedConfigModel
 
 _field = dataclasses.field
@@ -255,8 +257,8 @@ def check_unported_block(name: str, block: dict) -> None:
         raise ValueError(f"{name}: unknown config key(s) {unknown}; the JAX "
                          f"package declares {sorted(defaults)}")
     if name == "mesh":
-        # the data-parallel meshes over ranks: dp, fsdp (-1 absorbs the
-        # world) and zps, every other axis 1 (parallel/mesh.py)
+        # the meshes over ranks: dp, fsdp (-1 absorbs the world), zps and
+        # ep, every other axis 1 (parallel/mesh.py)
         if given.get("dcn"):
             raise NotImplementedError(
                 f"mesh.dcn {given['dcn']} is not ported yet (ROADMAP: port "
@@ -266,18 +268,15 @@ def check_unported_block(name: str, block: dict) -> None:
     _refuse_non_defaults(name, given, defaults, where)
 
 
-MOE_WIRE_DTYPES = ("fp32", "bf16", "int8", "fp8")
-
-
 @dataclasses.dataclass
 class MoEConfig(DeepSpeedConfigModel):
-    """The ``moe`` block (JAX ``MoEConfig``) on one card: the routing
-    overrides ``capacity_factor`` and ``min_capacity`` (None: the model
-    config's values) are bound to an MoE model by the engine. The explicit
-    expert-parallel dispatcher (``enabled: true``) and its narrow wires
-    (``wire_dtype`` other than fp32) raise naming the ep item of Slice D
-    item 12; ``router_telemetry`` raises naming Slice G item 15.
-    ``rounding`` is the int8 wire's and reads nothing without it."""
+    """The ``moe`` block (JAX ``MoEConfig``): ``enabled`` binds the explicit
+    dispatch/combine exchange (``moe/dispatch.py``; None: when the mesh's
+    ``ep`` > 1), ``wire_dtype`` is its dispatch wire (fp32 exact, bf16,
+    int8 or fp8 block-quantized, forward only) and ``rounding`` the int8
+    wire's; ``capacity_factor`` / ``min_capacity`` override the model
+    config's routing (None: its values). ``router_telemetry`` raises
+    naming Slice G item 15."""
     enabled: Optional[bool] = None
     wire_dtype: str = "fp32"
     rounding: str = "stochastic"
@@ -293,11 +292,6 @@ class MoEConfig(DeepSpeedConfigModel):
         if self.rounding not in ("nearest", "stochastic"):
             raise ValueError(f"moe.rounding {self.rounding!r}: 'nearest' "
                              f"or 'stochastic'")
-        if self.enabled or self.wire_dtype != "fp32":
-            what = ("moe.enabled=True" if self.enabled
-                    else f"moe.wire_dtype={self.wire_dtype!r}")
-            raise NotImplementedError(f"{what}: the dispatch exchange of "
-                                      f"{EP_UNPORTED}")
         if self.router_telemetry:
             raise NotImplementedError(TELEMETRY_UNPORTED)
 

@@ -38,9 +38,28 @@ elements), and in mixed precision the model's parameters become views of
 one flat compute-dtype buffer, so the fused-Adam or fused-Lion kernel
 updates the whole model, compute copy included, in one launch.
 
-An MoE model (``num_experts > 0``) trains on one card: the ``moe``
-block's ``capacity_factor`` / ``min_capacity`` are bound to it as the JAX
-engine binds them, and at W > 1 it is refused (:data:`MOE_ACROSS_RANKS`).
+An MoE model (``num_experts > 0``) takes the ``moe`` block's
+``capacity_factor`` / ``min_capacity`` as the JAX engine binds them
+(``runtime/engine.py:144-179``). Across ranks it gates over the global
+batch, as JAX does: the engine binds an ``EpShardedDispatcher``
+(``moe/dispatch.py``) to it, with the ``moe`` block's wire where JAX binds
+its dispatcher (``moe.enabled``, or unset with ``ep`` > 1) and the exact
+fp32 wire where JAX leaves the dispatch to XLA's implicit collectives
+(``enabled`` false, or ``ep`` = 1 with it unset): the same function. On a
+mesh with ``ep`` > 1 the routed experts (the leaves whose partition rule
+names ``ep``) are split over ep on their experts dim and everything else
+is replicated over it (``runtime/zero.py`` ``ep_dims``): ZeRO splits and
+reduces an expert leaf over the batch axes within its ep coordinate, as
+any other leaf, and never reduces over ep, so the ep partners' other
+parameters stay bit-equal. The global grad norm and the finite check add
+the experts of every ep coordinate. An ``ep`` that does not divide E
+keeps the experts replicated, with JAX's warning; the ZeRO++ flags on an
+ep mesh warn and run the exact wire, as JAX's engine does
+(``deepspeed_tpu/runtime/engine.py:626-632``). The router's aux loss is
+global under global gating: on the exact wire, whose rank grads are
+summed, each rank adds a 1/W share of it; on the ZeRO++ wire, whose grads
+are averaged, all of it. The step seeding the stochastic dispatch wire is
+bound (``moe_step``) around each micro-batch's forward and backward.
 
 Across ranks (``torch.distributed`` with world size W > 1; the
 data-parallel meshes of ``parallel/mesh.py``: dp x fsdp x zps, the zps
@@ -122,6 +141,8 @@ from ..comm import comm
 from ..models.adapters import wrap_model
 from ..models.convert import flatten_tree, materialize
 from ..models.transformer import check_training_options
+from ..moe.dispatch import (EpShardedDispatcher, dispatcher_unsupported_reason,
+                            moe_step)
 from ..parallel.mesh import BATCH_AXES, Topology, live_axes, set_topology
 from ..utils import groups
 from ..utils.logging import log_dist, logger
@@ -130,19 +151,11 @@ from .config import DeepSpeedConfig
 from .loss_scaler import grads_finite, init_loss_scale, update_loss_scale
 from .lr_schedules import LRSchedulerShim, build_schedule
 from .optimizers import build_optimizer
-from .zero import ZeroPlan, ZeroShardingPlan
+from .zero import ZeroPlan, ZeroShardingPlan, ep_split_dims
 from .zeropp import (gather_layers, gather_params,
-                     hierarchical_allgather_unsupported_reason, reduce_grads,
+                     hierarchical_allgather_unsupported_reason,
+                     quantized_collectives_unsupported_reason, reduce_grads,
                      reduce_layers)
-
-# JAX gates an MoE batch over the global batch (SPMD sees one array): ranks
-# that each gated their own rows would size capacity on a different token
-# count and drop other tokens
-MOE_ACROSS_RANKS = (
-    "an MoE model across ranks: JAX routes over the global batch, and "
-    "ranks routing their own rows would drop other tokens; global gating "
-    "comes with expert parallelism (ROADMAP Slice D item 12, expert "
-    "parallelism, after item 11)")
 
 _ALIGN = 64   # elements: every parameter view starts 128-byte aligned
 
@@ -179,6 +192,13 @@ class Split:
         return cls(axes, topology.axis_size(axes),
                    topology.axis_index(axes),
                    groups.axis_group(axes, topology))
+
+    @classmethod
+    def live(cls, topology: Topology, axes) -> "Split":
+        """:meth:`over`, without a group where no axis is live."""
+        if topology.axis_size(live_axes(axes, topology.sizes)) == 1:
+            return cls((), 1, 0, None)
+        return cls.over(topology, axes)
 
     @property
     def layout(self) -> tuple:
@@ -219,12 +239,12 @@ class DeepSpeedEngine:
         self.group = groups.axis_group(BATCH_AXES, self.topology)
         self.dp_world = self.topology.data_parallel_size
         self.dp_rank = self.topology.axis_index(BATCH_AXES)
+        # the ranks of this batch coordinate over ep (they hold the same
+        # rows and split the routed experts)
+        self.ep_split = Split.live(self.topology, ("ep",))
         if hasattr(model, "place_frozen"):
             # a LoRAModel's frozen base, split over fsdp as JAX places it
             model.place_frozen(self.topology)
-        if getattr(getattr(model, "config", None), "num_experts", 0) > 0 \
-                and self.dp_world > 1:
-            raise NotImplementedError(MOE_ACROSS_RANKS)
         self.zero = ZeroPlan(self.config.zero_optimization)
         self.zero_stage = self.zero.stage
         if self.zero.hierarchical:
@@ -232,6 +252,11 @@ class DeepSpeedEngine:
                 self.topology.sizes, hpz=self.zero.hpz, mics=self.zero.mics)
             if why is not None:
                 raise ValueError(why)
+        why = quantized_collectives_unsupported_reason(self.topology.sizes)
+        if self.zero.explicit_wire and why is not None:
+            logger.warning(f"{why} Falling back to the exact collectives "
+                           "for this run.")
+            self.zero.exact_only()
         if self.zero.explicit_wire and self.zero.wire_dtype == "fp8" \
                 and self.zero.rounding == "stochastic":
             logger.warning(
@@ -245,14 +270,18 @@ class DeepSpeedEngine:
 
         self.module = model
         self.model_config = model.config
+        self._moe_dispatcher = None
+        self._ep_dims = {}
         if hasattr(model, "moe_dispatcher"):
-            # the moe block's routing overrides, (re)set on every engine so
-            # a model reused across engines carries no stale value
+            # the moe block's routing overrides and the dispatcher, (re)set
+            # on every engine so a model reused across engines carries no
+            # stale value
             moe = self.config.moe
             model.moe_dispatcher = None
             model.moe_capacity_factor = moe.capacity_factor
             model.moe_min_capacity = moe.min_capacity
             model.moe_router_telemetry = bool(moe.router_telemetry)
+            self._bind_dispatcher(model, moe)
         self.device = next(iter(model.params.values())).device
         # activation_checkpointing.policy set explicitly overrides the
         # model's remat policy ("none" turns remat off), as in JAX; a
@@ -317,6 +346,38 @@ class DeepSpeedEngine:
             f"optimizer={type(self.tx).__name__} "
             f"fused={getattr(self.tx, 'fused', False)} {self.topology}")
 
+    def _bind_dispatcher(self, model, moe) -> None:
+        """The dispatcher of an MoE model (JAX ``engine.py:144-179``): with
+        the ``moe`` block's wire where JAX binds its dispatcher (``want``:
+        ``moe.enabled``, else ``ep`` > 1), the exact fp32 exchange where
+        JAX leaves the dispatch to XLA across ranks (the same function:
+        global gating); none on one rank unless wanted. An ``ep`` that does
+        not divide E keeps the experts replicated over ep, with JAX's
+        warning (tp, sp and pp are refused by the mesh)."""
+        topo = self.topology
+        ep = topo.sizes["ep"]
+        want = moe.enabled if moe.enabled is not None else ep > 1
+        if not (want or topo.world > 1):
+            return
+        n_exp = int(getattr(model.config, "num_experts", 0) or 0)
+        why = dispatcher_unsupported_reason(topo, n_exp)
+        if why is not None:
+            logger.warning(f"moe: ep-sharded dispatcher disabled ({why}); "
+                           "the experts stay replicated over ep")
+        wire = moe.wire_dtype if want and why is None else "fp32"
+        self._moe_dispatcher = EpShardedDispatcher.for_topology(
+            topo, wire_dtype=wire, rounding=moe.rounding,
+            split_experts=why is None)
+        model.moe_dispatcher = self._moe_dispatcher
+        if why is None and ep > 1:
+            self._ep_dims = ep_split_dims(
+                model.partition_rules(),
+                {n: tuple(p.shape) for n, p in model.params.items()}, ep)
+        d = self._moe_dispatcher
+        log_dist(f"moe: ep-sharded dispatch engaged (wire={wire} "
+                 f"slow={d.slow_axes} fast={d.fast_axes} "
+                 f"ep={d.ep_world})")
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def _init_state(self, model_parameters):
@@ -334,7 +395,8 @@ class DeepSpeedEngine:
         plan = ZeroShardingPlan(
             self.zero_stage, topo.fsdp_size,
             {n: tuple(p.shape) for n, p in params.items()},
-            inner=topo.sizes["zps"], hpz=self.zero.hpz, mics=self.zero.mics)
+            inner=topo.sizes["zps"], hpz=self.zero.hpz, mics=self.zero.mics,
+            ep=self.ep_split.world, ep_dims=self._ep_dims)
         self.plan = plan
         # the groups every rank makes, in this order
         self.state_split = Split.over(topo, plan.state_axes)
@@ -347,15 +409,29 @@ class DeepSpeedEngine:
         self._hierarchy = ((groups.axis_group(("fsdp",), topo),
                             groups.axis_group(("zps",), topo))
                            if self.zero.hierarchical else None)
-        split = [n for n in params if plan.master_dims[n] is not None]
+        # the flat buffers' order: the split leaves, the experts among them
+        # last, then the experts left whole, then the rest; the norm sums
+        # the first part's squares over the state's group, the experts'
+        # over ep, and counts the rest once
+        experts = [n for n in params if n in plan.ep_dims]
+        split = [n for n in params if plan.master_dims[n] is not None
+                 and n not in plan.ep_dims]
+        split += [n for n in experts if plan.master_dims[n] is not None]
+        order = split + [n for n in experts if n not in split]
         shards = {n: plan.state_shard_shape(n)
-                  for n in split + [n for n in params if n not in split]}
+                  for n in order + [n for n in params if n not in order]}
         layout, total = _flat_layout(shards)
         self._layout = layout
+
+        def end(names):
+            return max((layout[n][0] + layout[n][1] for n in names),
+                       default=0)
         # the split leaves' part of the flat buffers (norm and finite check
         # all-reduce it; the rest is replicated)
-        self._split_end = max((layout[n][0] + layout[n][1] for n in split),
-                              default=0)
+        self._split_end = end(split)
+        self._expert_bounds = (end([n for n in split
+                                    if n not in plan.ep_dims]),
+                               self._split_end, end(order))
         master = torch.zeros(total, dtype=torch.float32, device=dev)
         views = _views(master, layout)
         if model_parameters is None:
@@ -374,6 +450,9 @@ class DeepSpeedEngine:
             full = {n: (v if isinstance(v, torch.Tensor)   # a writable copy
                         else torch.from_numpy(np.array(v, np.float32)))
                     for n, v in given.items()}
+        # this ep coordinate's experts
+        full = {n: self.ep_split.own(v, plan.ep_dims.get(n))
+                for n, v in full.items()}
         for name in params:
             views[name].copy_(self._own(full[name], plan.master_dims[name]))
         if self._mixed:
@@ -553,10 +632,12 @@ class DeepSpeedEngine:
         whose reduction waits for the boundary, JAX keeps each device's
         gradient of the ``loss_fn`` over its own rows and averages them
         (``local_value_and_grad``), its loss the global micro-batch's:
-        so does the port."""
+        so does the port. An MoE model's router aux loss is global (its
+        gating is): a 1/W share of it on the exact wire, all of it on the
+        per-rank mean."""
         self._gather()
         local = self._local_rows(micro)
-        with self._layer_weights():
+        with self._layer_weights(), moe_step(self.global_steps):
             if self.dp_world == 1:
                 return self.module.loss(local)
             share = 1.0 / self.dp_world
@@ -571,14 +652,25 @@ class DeepSpeedEngine:
                     total = self.module.loss(micro)
                 loss = _ScaleGrad.apply(self.module.loss(local), share)
             else:
-                nll, count = self.module.loss_terms(local)
+                nll, count, aux = self._loss_parts(local)
                 sums = comm.all_reduce(
                     torch.stack((nll.detach(), count.to(nll.dtype))),
                     group=self.group)
                 loss = nll / torch.clamp(sums[1], min=1)
                 total = sums[0] / torch.clamp(sums[1], min=1)
+                if aux is not None:
+                    aux = self.module.aux_loss_coef() * aux
+                    loss = loss + aux * share
+                    total = total + aux.detach()
         # the global value, with the gradient of this rank's share
         return loss + (total - loss.detach())
+
+    def _loss_parts(self, batch):
+        """(summed NLL, count of valid targets, router aux or None) of
+        ``batch``; a model without ``loss_parts`` has no aux."""
+        if hasattr(self.module, "loss_parts"):
+            return self.module.loss_parts(batch)
+        return (*self.module.loss_terms(batch), None)
 
     def _layer_weights(self):
         """The forward's weight source: the per-layer schedule's, else the
@@ -647,7 +739,7 @@ class DeepSpeedEngine:
         scale = self._loss_scale.scale
         stream = self._stream
         with (stream.backward(first) if stream is not None
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), moe_step(self.global_steps):
             (loss * scale if self.fp16_enabled else loss).backward(
                 retain_graph=retain_graph)
         # the per-layer schedule reduced the stacks' grads in the backward
@@ -720,8 +812,19 @@ class DeepSpeedEngine:
     def _grad_norm(self) -> torch.Tensor:
         """The global norm: the split leaves' squares summed over the
         state's group, whose ranks hold distinct shards (dp and MiCS
-        replicas hold the same ones), each replicated leaf counted once."""
+        replicas hold the same ones), each replicated leaf counted once;
+        across ep the experts' squares summed over the ep group too."""
         grads, k = self._grads, self._split_end
+        if self.ep_split.world > 1:
+            a, b, c = self._expert_bounds
+            sq = torch.stack([torch.linalg.vector_norm(p) for p in (
+                grads[:a], grads[a:b], grads[b:c], grads[c:])]).square()
+            if b > 0:
+                sq[:2] = comm.all_reduce(sq[:2].clone(),
+                                         group=self.state_split.group)
+            sq[1:3] = comm.all_reduce(sq[1:3].clone(),
+                                      group=self.ep_split.group)
+            return sq.sum().sqrt()
         if k == 0:
             return torch.linalg.vector_norm(grads)
         sq = comm.all_reduce(torch.linalg.vector_norm(grads[:k]).square(),
@@ -730,9 +833,12 @@ class DeepSpeedEngine:
 
     def _all_finite(self) -> torch.Tensor:
         finite = grads_finite([self._grads])
-        if self.dp_world == 1:
+        if self.dp_world * self.ep_split.world == 1:
             return finite
         flag = comm.all_reduce(finite.int(), comm.ReduceOp.MIN, self.group)
+        if self.ep_split.world > 1:     # the other experts' grads
+            flag = comm.all_reduce(flag, comm.ReduceOp.MIN,
+                                   self.ep_split.group)
         return flag.bool()
 
     def _refresh_replicas(self) -> None:
@@ -909,11 +1015,20 @@ class DeepSpeedEngine:
 
     def gathered_params(self, use_kernel=None):
         """The full compute-dtype parameters by name: stage 3's split
-        leaves gathered over the configured wire (every rank must call
-        it), the others as the model holds them."""
+        leaves gathered over the configured wire and the experts over ep
+        (every rank must call it), the others as the model holds them."""
         full = self._gathered(use_kernel)
-        return {n: full.get(n, p.detach())
+        return {n: self._ep_gather(full.get(n, p.detach()), n)
                 for n, p in self.module.params.items()}
+
+    def _ep_gather(self, local: torch.Tensor, name: str) -> torch.Tensor:
+        """An ep coordinate's whole leaf -> the leaf, its experts gathered
+        over ep (a collective of the ep group; other leaves as they are)."""
+        dim = self.plan.ep_dims.get(name)
+        if dim is None:
+            return local
+        return comm.all_gather(local.contiguous(), group=self.ep_split.group,
+                               axis=dim)
 
     def master_state_dict(self):
         """This rank's fp32 master by name (views of the flat buffer): the
@@ -945,7 +1060,7 @@ class DeepSpeedEngine:
         """The full fp32 master by name, every shard all-gathered (every
         rank must call it)."""
         dims = self.plan.master_dims
-        return {n: self._gather_state(v, dims[n])
+        return {n: self._ep_gather(self._gather_state(v, dims[n]), n)
                 for n, v in self.master_state_dict().items()}
 
 
@@ -1014,6 +1129,14 @@ class _LayerParams:
 
     def get(self, key: str, default=None):
         return self[key] if key in self else default
+
+    def keys(self):
+        return [n[7:] for n in self._stream.params if n.startswith("layers/")]
+
+    def items(self):
+        """(key, tensor) of every leaf of the layer (an MoE FFN reads its
+        experts' dict this way)."""
+        return [(k, self[k]) for k in self.keys()]
 
 
 class _StreamSource:

@@ -18,12 +18,24 @@ secondary partition replicated across fsdp) and the rest over fsdp x zps;
 under **MiCS** every tree over zps alone. Each axis set splits on its own
 dim, so under hpZ a leaf's parameter dim and its master dim may differ.
 
+Expert parallelism comes first: a leaf whose partition rule puts ``ep``
+on a dim that the mesh's ep divides (``layers/experts/w_*``: E, dim 1) is
+split over ep on that dim in every tree and at every stage
+(``ep_dims``), as JAX's base specs carry the rule; the ZeRO axes then go
+on the largest remaining divisible dim (``overlay_axis`` skips a dim a
+spec already splits), the size threshold and the divisibility read on the
+global shape. ``shapes`` are then what a rank of one ep coordinate holds
+in full (the ep dim divided), ``global_shapes`` the leaves' own, and the
+ZeRO groups lie within an ep coordinate.
+
 ``ZeroPlan`` reads the ``zero_optimization`` block and refuses offload,
 naming its ROADMAP item. ZeRO-3 with ``offload_param`` is the JAX
 package's layer-streamed engine (``deepspeed_tpu/__init__.py:73``).
 """
 
 from __future__ import annotations
+
+import re
 
 from .config import ZeroConfig
 
@@ -67,6 +79,12 @@ class ZeroPlan:
         self.hpz = config.zero_hpz_partition_size > 1
         self.mics = config.mics_shard_size > 1
 
+    def exact_only(self) -> None:
+        """Drop the ZeRO++ flags: the exact collectives (an ep mesh, where
+        JAX falls back to XLA's)."""
+        self.quantize_weights = self.quantize_gradients = False
+        self.hierarchical = False
+
     @property
     def explicit_wire(self) -> bool:
         """The ZeRO++ wire (qwZ, qgZ or the two-hop collectives): JAX
@@ -76,18 +94,41 @@ class ZeroPlan:
                 or self.hierarchical)
 
 
-def overlay_dim(shape, world: int, min_size: int = MIN_SPLIT) -> int | None:
-    """The dim ZeRO splits a leaf of ``shape`` on over ``world`` ranks, or
-    None (JAX ``overlay_axis`` on an unsharded spec)."""
+def overlay_dim(shape, world: int, min_size: int = MIN_SPLIT,
+                taken: int | None = None) -> int | None:
+    """The dim ZeRO splits a leaf of (global) ``shape`` on over ``world``
+    ranks, or None (JAX ``overlay_axis``; ``taken``: a dim the spec already
+    splits)."""
     numel = 1
     for d in shape:
         numel *= d
     if world <= 1 or numel < min_size:
         return None
-    candidates = [d for d in range(len(shape)) if shape[d] % world == 0]
+    candidates = [d for d in range(len(shape))
+                  if d != taken and shape[d] % world == 0]
     if not candidates:
         return None
     return max(candidates, key=lambda d: shape[d])
+
+
+def ep_split_dims(rules, shapes: dict, ep: int) -> dict:
+    """name -> the dim the ``ep`` axis splits, for each leaf whose first
+    matching partition rule (``re.search`` on the name, as JAX
+    ``match_rules``) names ``ep`` on a dim that ``ep`` divides (JAX
+    ``filter_spec_for_mesh`` drops it elsewhere); no leaf at ep = 1."""
+    out = {}
+    if ep <= 1:
+        return out
+    for name, shape in shapes.items():
+        if len(shape) == 0:
+            continue
+        spec = next((sp for pattern, sp in rules
+                     if re.search(pattern, name)), ())
+        for dim, entry in enumerate(spec):
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            if "ep" in axes and dim < len(shape) and shape[dim] % ep == 0:
+                out[name] = dim
+    return out
 
 
 class ZeroShardingPlan:
@@ -98,10 +139,14 @@ class ZeroShardingPlan:
     ``param_world`` / ``state_world`` name the mesh axes and the rank count
     of each (the gradients and the master take the state's). ``world`` is
     the full sharded-DP extent (fsdp x zps), ``inner`` its zps part;
-    ``shapes`` maps leaf names to full shapes."""
+    ``shapes`` maps leaf names to full shapes. ``ep_dims`` (name -> dim,
+    :func:`ep_split_dims`) are split over ``ep`` ranks first: ``shapes``
+    then become an ep coordinate's (``global_shapes`` keeps the given
+    ones)."""
 
     def __init__(self, stage: int, world: int, shapes: dict, *,
-                 inner: int = 1, hpz: bool = False, mics: bool = False):
+                 inner: int = 1, hpz: bool = False, mics: bool = False,
+                 ep: int = 1, ep_dims: dict | None = None):
         if stage not in (0, 1, 2, 3):
             raise ValueError(f"ZeRO stage must be 0-3, got {stage}")
         if (hpz or mics) and inner <= 1:
@@ -110,26 +155,34 @@ class ZeroShardingPlan:
                 "zero_hpz_partition_size / mics_shard_size in the config)")
         self.stage = stage
         self.world = world
-        self.shapes = {n: tuple(s) for n, s in shapes.items()}
+        self.ep = ep
+        self.ep_dims = dict(ep_dims or {})
+        self.global_shapes = {n: tuple(s) for n, s in shapes.items()}
+        self.shapes = {n: self.shard_shape(n, self.ep_dims.get(n), ep,
+                                           self.global_shapes)
+                       for n in self.global_shapes}
         self.param_axes = INNER_AXES if hpz or mics else FULL_AXES
         self.state_axes = INNER_AXES if mics else FULL_AXES
         self.param_world = inner if hpz or mics else world
         self.state_world = inner if mics else world
-        state = {n: overlay_dim(s, self.state_world)
-                 for n, s in self.shapes.items()}
+        g, taken = self.global_shapes, self.ep_dims.get
+        state = {n: overlay_dim(g[n], self.state_world, taken=taken(n))
+                 for n in g}
         param = (state if self.param_world == self.state_world else
-                 {n: overlay_dim(s, self.param_world)
-                  for n, s in self.shapes.items()})
+                 {n: overlay_dim(g[n], self.param_world, taken=taken(n))
+                  for n in g})
         none = dict.fromkeys(state)
         self.param_dims = param if stage >= 3 else none
         self.grad_dims = state if stage >= 2 else self.param_dims
         self.master_dims = state if stage >= 1 else self.param_dims
 
     def shard_shape(self, name: str, dim: int | None,
-                    world: int | None = None) -> tuple[int, ...]:
-        """The shape a rank holds of leaf ``name`` split on ``dim`` over
-        ``world`` ranks (default: :attr:`world`)."""
-        shape = list(self.shapes[name])
+                    world: int | None = None,
+                    shapes: dict | None = None) -> tuple[int, ...]:
+        """The shape a rank holds of leaf ``name`` (of ``shapes``, default
+        :attr:`shapes`) split on ``dim`` over ``world`` ranks (default:
+        :attr:`world`)."""
+        shape = list((self.shapes if shapes is None else shapes)[name])
         if dim is not None:
             shape[dim] //= self.world if world is None else world
         return tuple(shape)

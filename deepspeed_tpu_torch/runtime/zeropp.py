@@ -45,8 +45,9 @@ and reduces the gradient tree after it (``:227-233``): their codes are
 held to JAX's bit for bit, and whether a leaf is quantized depends on its
 whole shard's size (``MIN_QUANT_SIZE``).
 
-The wire applies to the data-parallel meshes (tp = sp = pp = ep = 1),
-the only ones the port runs (``parallel/mesh.py``).
+The wire applies to the pure sharded-DP meshes (tp = sp = pp = ep = 1);
+on an ep mesh the engine warns and runs the exact collectives
+(:func:`quantized_collectives_unsupported_reason`), as JAX's engine does.
 """
 
 from __future__ import annotations
@@ -227,13 +228,33 @@ def gather_layers(shards: dict, dims: dict, layer: int, group=None
     return comm.Pending(None, result)
 
 
+# the layer reduction packs its leaves' fp32 chunks into buffers of at most
+# this many bytes, one reduce-scatter each (a layer of Mixtral-8x7B's
+# experts is 3 GB in fp32; a GPT-2 layer's 28 MB takes one)
+PACK_BYTES = 2 ** 28
+
+
+def _buckets(names, nbytes: dict, limit: int) -> list[list]:
+    """``names`` in order, cut into runs of at most ``limit`` bytes (a
+    leaf larger than ``limit`` alone in its run)."""
+    out, run, total = [], [], 0
+    for n in names:
+        if run and total + nbytes[n] > limit:
+            out.append(run)
+            run, total = [], 0
+        run.append(n)
+        total += nbytes[n]
+    return out + ([run] if run else [])
+
+
 def reduce_layers(grads: dict, dims: dict, layer: int, n_layers: int,
                   group=None, rest_group=None) -> dict:
     """This rank's fp32 part of the batch ranks' sum of layer ``layer``'s
     full local gradients ``grads`` (name -> the layer's gradient of a
     stacked leaf whose gradient is split on ``dims[name]`` over ``group``;
-    the exact wire): those split on dim > 0 packed into one reduce-scatter
-    (each leaf's chunk along its ``dim - 1``), a dim-0 one reduced to the
+    the exact wire): those split on dim > 0 packed, in runs of at most
+    :data:`PACK_BYTES` in fp32, into one reduce-scatter a run (each
+    leaf's chunk along its ``dim - 1``), a dim-0 one reduced to the
     rank that holds the layer (None on the others); then the all-reduce
     over ``rest_group``, the batch ranks that hold the same shard (dp
     replicas; fsdp and dp under MiCS). Bit for bit layer ``layer`` of
@@ -242,17 +263,29 @@ def reduce_layers(grads: dict, dims: dict, layer: int, n_layers: int,
     world = comm.get_world_size(group)
     out = {}
     packed = [n for n in grads if dims[n]]
-    if packed:
-        rows = [comm.split_rows(grads[n].float(), world, dims[n] - 1)
-                for n in packed]
-        piece = comm.reduce_scatter(torch.cat(rows, dim=1).view(-1), group)
+    cols = {n: grads[n].numel() // world for n in packed}
+    for bucket in _buckets(packed, {n: 4 * world * cols[n] for n in packed},
+                           PACK_BYTES):
+        g0 = grads[bucket[0]]
+        buf = torch.empty(world, sum(cols[n] for n in bucket),
+                          dtype=torch.float32, device=g0.device)
+        off = 0
+        for n in bucket:            # each rank's chunk of each leaf, fp32
+            shape, d = tuple(grads[n].shape), dims[n] - 1
+            moved = (world,) + shape[:d] + (shape[d] // world,) + shape[d + 1:]
+            buf[:, off:off + cols[n]].view(moved).copy_(grads[n].reshape(
+                shape[:d] + (world, shape[d] // world) + shape[d + 1:]
+            ).movedim(d, 0))
+            off += cols[n]
+        piece = comm.reduce_scatter(buf.view(-1), group)
+        del buf
         if rest_group is not None:
             comm.all_reduce(piece, group=rest_group)
         off = 0
-        for n, r in zip(packed, rows):
-            out[n] = piece[off:off + r.shape[1]].view(
+        for n in bucket:
+            out[n] = piece[off:off + cols[n]].view(
                 comm.chunk_shape(grads[n].shape, world, dims[n] - 1))
-            off += r.shape[1]
+            off += cols[n]
     for n in grads:
         if dims[n] is None:
             raise ValueError(f"{n}: reduce_layers takes gradients split "
@@ -266,6 +299,25 @@ def reduce_layers(grads: dict, dims: dict, layer: int, n_layers: int,
                     comm.all_reduce(mine, group=rest_group)
                 out[n] = mine
     return {n: out[n] for n in grads}
+
+
+def quantized_collectives_unsupported_reason(sizes: dict
+                                            ) -> Optional[str]:
+    """None when qwZ/qgZ apply to a mesh of axis ``sizes``, else the
+    constraint that fails (JAX ``zeropp.py:310``, its message)."""
+    bad = {a: int(sizes.get(a, 1)) for a in ("tp", "sp", "pp", "ep")
+           if sizes.get(a, 1) > 1}
+    if not bad:
+        return None
+    axes = ", ".join(f"{a}={n}" for a, n in sorted(bad.items()))
+    return (
+        "quantized collectives (zero_quantized_weights/gradients) "
+        "require a pure sharded-DP mesh — every model-parallel axis "
+        f"must be 1, but this mesh has {axes}. Those axes' collectives "
+        "live inside the model forward where the explicit-SPMD wire "
+        "protocol cannot intercept them (ZeRO++ is a ZeRO-3 "
+        "data-parallel feature). Drop the quantization flags or set "
+        f"mesh.{{{'/'.join(sorted(bad))}}} to 1.")
 
 
 def hierarchical_allgather_unsupported_reason(

@@ -24,6 +24,8 @@ SHARDED_DP_GROUP = SHARD_AXES               # ("fsdp", "zps")
 ZERO_PARAM_INTRA_PARALLEL_GROUP = ("zps",)  # hpZ / MiCS, the two-hop inner
 ZERO_OUTER_GROUP = ("fsdp",)                # the two-hop wire's outer hop
 DP_REPLICA_GROUP = ("dp",)
+EXPERT_PARALLEL_GROUP = ("ep",)
+EXPERT_DATA_PARALLEL_GROUP = BATCH_AXES     # the expert grads' reduction
 
 _GROUPS: dict = {}
 
@@ -75,6 +77,23 @@ def get_data_parallel_replica_group():
     """The dp ranks at one shard coordinate: the replicas a mixed mesh
     all-reduces over after the reduce-scatter."""
     return axis_group(DP_REPLICA_GROUP)
+
+
+def get_expert_parallel_group(group_name: str = "ep"):
+    """The ep ranks at one batch coordinate: the holders of a token
+    shard's other experts (JAX ``get_expert_parallel_group``)."""
+    return axis_group(EXPERT_PARALLEL_GROUP)
+
+
+def get_expert_data_parallel_group(group_name: str = "ep"):
+    """The batch ranks at one ep coordinate: the ranks holding the same
+    experts, over which their gradients are summed (JAX
+    ``get_expert_data_parallel_group``)."""
+    return axis_group(EXPERT_DATA_PARALLEL_GROUP)
+
+
+def get_expert_parallel_world_size(group_name: str = "ep") -> int:
+    return topology().expert_parallel_size
 
 
 def get_data_parallel_world_size() -> int:

@@ -9,10 +9,10 @@ same kind of layout: the fp32 master, the grads and each optimizer moment
 are flat buffers with a view per parameter (``runtime/engine.py``
 ``_flat_layout``), holding this rank's shard along the ZeRO plan's split
 dim. A getter takes the view and, where the plan splits the leaf across
-ranks, all-gathers it (a collective: every rank calls it); a setter writes
-this rank's slice of the full value. Names are the "/"-joined parameter
-names (``"layers/wq"``), matched exactly or by a unique suffix, as in the
-JAX module. Getters return fp32 numpy arrays.
+ranks, all-gathers it (an expert leaf over ep too: collectives every rank
+calls); a setter writes this rank's slice of the full value. Names are
+the "/"-joined parameter names (``"layers/wq"``), matched exactly or by
+a unique suffix, as in the JAX module. Getters return fp32 numpy arrays.
 """
 
 from __future__ import annotations
@@ -41,8 +41,10 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32, copy=True).numpy()
 
 
-def _full(engine, piece: torch.Tensor, dim) -> np.ndarray:
-    return _numpy(engine._gather_state(piece, dim))
+def _full(engine, piece: torch.Tensor, dim, name: str) -> np.ndarray:
+    """The global value from this rank's master-layout ``piece``: gathered
+    over the state's group, an expert leaf then over ep (collectives)."""
+    return _numpy(engine._ep_gather(engine._gather_state(piece, dim), name))
 
 
 def _views(engine, flat: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -56,7 +58,7 @@ def safe_get_full_fp32_param(engine, name: str) -> Optional[np.ndarray]:
     if hit is None:
         return None
     return _full(engine, engine.master_state_dict()[hit],
-                 engine.plan.master_dims[hit])
+                 engine.plan.master_dims[hit], hit)
 
 
 @torch.no_grad()
@@ -67,13 +69,14 @@ def safe_set_full_fp32_param(engine, name: str, value) -> bool:
     if hit is None:
         return False   # ambiguous or absent: refuse, like the getter
     value = torch.as_tensor(np.asarray(value, np.float32))
-    if tuple(value.shape) != engine.plan.shapes[hit]:
+    shape = engine.plan.global_shapes[hit]
+    if tuple(value.shape) != shape:
         raise ValueError(f"shape mismatch for {name}: "
-                         f"{engine.plan.shapes[hit]} vs {tuple(value.shape)}")
-    from ..runtime.checkpointing import put_master, put_param
+                         f"{shape} vs {tuple(value.shape)}")
+    from ..runtime.checkpointing import cut_piece, put_master, put_param
 
-    def get(dim, split):
-        return value if split is None else split.own(value, dim)
+    def get(cuts):
+        return cut_piece(value, cuts)
 
     put_master(engine, hit, get)
     put_param(engine, hit, get)
@@ -94,9 +97,10 @@ def safe_get_full_grad(engine, name: str) -> Optional[np.ndarray]:
         g = engine._local_grad_views[hit].clone()
         op = (comm.ReduceOp.AVG if engine._per_rank_mean
               else comm.ReduceOp.SUM)
-        return _numpy(comm.all_reduce(g, op, engine.group))
+        return _numpy(engine._ep_gather(comm.all_reduce(g, op, engine.group),
+                                        hit))
     return _full(engine, engine._grad_views[hit],
-                 engine.plan.grad_dims[hit])
+                 engine.plan.grad_dims[hit], hit)
 
 
 def _moment(engine, state_key: str) -> Optional[torch.Tensor]:
@@ -116,7 +120,7 @@ def safe_get_full_optimizer_state(engine, name: str,
     if buf is None or hit is None:
         return None
     return _full(engine, _views(engine, buf)[hit],
-                 engine.plan.master_dims[hit])
+                 engine.plan.master_dims[hit], hit)
 
 
 @torch.no_grad()
@@ -128,10 +132,11 @@ def safe_set_full_optimizer_state(engine, name: str, state_key: str,
     if buf is None or hit is None:
         return False   # ambiguous or absent: refuse, like the getter
     value = torch.as_tensor(np.asarray(value, np.float32))
-    if tuple(value.shape) != engine.plan.shapes[hit]:
+    shape = engine.plan.global_shapes[hit]
+    if tuple(value.shape) != shape:
         raise ValueError(f"shape mismatch for {name}.{state_key}: "
-                         f"{engine.plan.shapes[hit]} vs "
-                         f"{tuple(value.shape)}")
-    _views(engine, buf)[hit].copy_(
-        engine._own(value, engine.plan.master_dims[hit]))
+                         f"{shape} vs {tuple(value.shape)}")
+    from ..runtime.checkpointing import cut_piece, cuts_of
+    _views(engine, buf)[hit].copy_(cut_piece(value, cuts_of(
+        engine, hit, engine.plan.master_dims[hit], engine.state_split)))
     return True

@@ -219,6 +219,7 @@ def test_engine_steps_match_jax(family, devices8):
 
 RANK = textwrap.dedent("""
     import sys
+    import numpy as np
     import torch
     import torch.distributed as dist
     sys.path.insert(0, {root!r})
@@ -229,11 +230,11 @@ RANK = textwrap.dedent("""
     torch.set_num_threads(1)
     comm.init_distributed("gloo", init_method="file://{store}",
                           rank=int(sys.argv[1]), world_size=2)
-    try:
-        ds.initialize(model=Mixtral(size="tiny", device="cpu"),
-                      config={{"train_batch_size": 4}})
-    except NotImplementedError as e:
-        print("REFUSED", e)
+    tok = np.random.default_rng(3).integers(0, 512, (4, 17))
+    eng, *_ = ds.initialize(model=Mixtral(size="tiny", device="cpu"),
+                            config={{"train_batch_size": 4}})
+    loss = float(eng.train_batch((tok[:, :-1], tok[:, 1:])))
+    print("MOE TRAINS", repr(loss), eng._moe_dispatcher.token_world)
     ds.initialize(model=Llama(size="tiny", device="cpu"),
                   config={{"train_batch_size": 4}})
     print("DENSE TRAINS")
@@ -242,6 +243,10 @@ RANK = textwrap.dedent("""
 
 
 def test_moe_refused_across_ranks(tmp_path):
+    """An MoE model across ranks is no longer refused: at W = 2 each rank
+    gates the global batch through the dispatcher (token world 2), and the
+    step's loss equals the same model's at W = 1 within 1e-6; a dense
+    model initializes beside it."""
     tests = os.path.dirname(os.path.abspath(__file__))
     script = tmp_path / "rank.py"
     script.write_text(RANK.format(root=os.path.dirname(tests),
@@ -250,7 +255,14 @@ def test_moe_refused_across_ranks(tmp_path):
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in range(2)]
     outs = [p.communicate(timeout=120) for p in procs]
+    tok = np.random.default_rng(3).integers(0, 512, (4, 17))
+    eng, *_ = ds.initialize(model=tm.Mixtral(size="tiny", device="cpu"),
+                            config={"train_batch_size": 4})
+    want = float(eng.train_batch((tok[:, :-1], tok[:, 1:])))
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-2000:]
-        assert "REFUSED" in out and "Slice D item 12, expert" in out, out
+        line = next(l for l in out.splitlines() if l.startswith("MOE"))
+        loss, world = line.split()[2:]
+        assert int(world) == 2
+        np.testing.assert_allclose(float(loss), want, rtol=1e-6)
         assert "DENSE TRAINS" in out, out

@@ -316,7 +316,8 @@ def test_config_accepts_every_jax_block_by_name():
 @pytest.mark.parametrize("over", [
     {"mesh": {"tp": 2}}, {"mesh": {"dp": 2, "sp": 2}},
     {"telemetry": {"enabled": True}},
-    {"telemetry": {"span_buffer_size": 16}}, {"moe": {"enabled": True}},
+    {"telemetry": {"span_buffer_size": 16}},
+    {"moe": {"router_telemetry": True}},    # moe.enabled is ported
     {"sequence_parallel": {"mode": "ring"}}, {"pipeline": {"stages": 2}},
     {"compression_training": {"weight_quantization": {}}},
     {"hybrid_engine": {"enabled": True}}, {"wall_clock_breakdown": True},

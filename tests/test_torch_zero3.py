@@ -119,16 +119,20 @@ def test_mesh_resolves_pure_meshes_and_refuses_the_rest():
     assert Topology(TopologyConfig(dp=4), 4).fsdp_size == 1
     assert Topology(TopologyConfig(dp=2), 2).batch_axes() == ("dp",)
     for cfg, item in ((TopologyConfig(sp=2), "sequence"),
-                      (TopologyConfig(tp=2), "tensor parallelism"),
-                      (TopologyConfig(ep=2), "expert parallelism")):
+                      (TopologyConfig(tp=2), "tensor parallelism")):
         with pytest.raises(NotImplementedError, match=item):
             Topology(cfg, 4)
+    # expert parallelism is ported: ep beside the batch axes
+    ep = Topology(TopologyConfig(ep=2), 4)
+    assert (ep.sizes["ep"], ep.sizes["fsdp"], ep.data_parallel_size) == \
+        (2, 2, 2)
     with pytest.raises(ValueError, match="not divisible"):
         Topology(TopologyConfig(dp=3), 4)
 
 
 @pytest.mark.parametrize("over, item", [
-    ({"mesh": {"sp": 2}}, "sequence"), ({"mesh": {"ep": 2}}, "moe"),
+    ({"mesh": {"sp": 2}}, "sequence"), ({"moe": {"router_telemetry": True}},
+                                        "moe"),
     ({"mesh": {"pp": 2}}, "pipe"), ({"mesh": {"dcn": {"dp": 2}}},
                                     "multi-slice"),
     ({"mesh": {"tp": 2}}, "tensor parallelism"),
@@ -381,6 +385,14 @@ def _w_halves(rank, world):
          TZ.reduce_layers({n: out[n]["grad"][i] for n in HALF_CASES},
                           dims, i, 4))
         for i in range(4)]
+    # a pack budget below one leaf: a reduce-scatter a leaf
+    budget, TZ.PACK_BYTES = TZ.PACK_BYTES, 1
+    try:
+        out["unpacked"] = [
+            TZ.reduce_layers({n: out[n]["grad"][i] for n in HALF_CASES},
+                             dims, i, 4) for i in range(4)]
+    finally:
+        TZ.PACK_BYTES = budget
     return out
 
 
@@ -963,12 +975,17 @@ def test_layer_halves_match_the_whole_tree(case, ranks):
     reduce_layers of each layer's local grad is that layer of
     reduce_grads' exact reduction (dim 0: reduced to the holding rank
     alone); so are both with every leaf's layer at once, the engine's
-    form (one collective for the leaves split on dim > 0)."""
+    form (one collective for the leaves split on dim > 0), and the
+    reduction cut into runs under a smaller pack budget (PACK_BYTES: a
+    collective a leaf) is the packed one bit for bit."""
     shape, dim = HALF_CASES[case]
     for r, res in enumerate(ranks):
         got = res["halves"][case]
         for i, (gathered, reduced) in enumerate(res["halves"]["packed"]):
             assert torch.equal(gathered[case], got["whole"][i]), i
+            alone = res["halves"]["unpacked"][i][case]
+            assert (alone is None if reduced[case] is None
+                    else torch.equal(alone, reduced[case])), i
             if reduced[case] is None:
                 assert got["per_layer"][i] is None, i
             else:
